@@ -3,8 +3,10 @@
 Covers ``lightcurve_fitting_tpu/fitting.py``'s ``make_log_posterior`` and
 ``lightcurve_mcmc`` (reference fitting.py:16-168) with its setup helpers. The
 log-posterior is an ``nn.Module`` (:class:`LogPosterior`) over a leading
-walker axis; on a CUDA device the fit runs through the fused kernels K1 and K2
-(``kernels/``), on the CPU through their plain PyTorch versions.
+walker axis; on a CUDA device the fit runs through the fused kernels of its
+model (``kernels/``: K1 and K2 for ShockCooling2, the SC3 log-posterior and
+half-step over K3 for ShockCooling3), on the CPU through their plain
+PyTorch versions.
 
 The HMC, MAP, evidence, tempering, goodness-of-fit and plotting drivers of
 the JAX module wait for ROADMAP Queue 1 items 11-18.
@@ -35,8 +37,9 @@ class LogPosterior(nn.Module):
     log-likelihood, ``forward(p (W, ndim) float64) -> (W,) float64``
     (reference fitting.py:121-128, without the Python early-exit).
 
-    On a CUDA tensor ``forward`` launches the fused kernel K1; on a CPU
-    tensor it runs :meth:`forward_plain`."""
+    On a CUDA tensor ``forward`` launches the fused log-posterior kernel
+    of the model (ShockCooling2 or ShockCooling3; any other model raises);
+    on a CPU tensor it runs :meth:`forward_plain`."""
 
     def __init__(self, log_likelihood, priors):
         super().__init__()
@@ -57,9 +60,9 @@ class LogPosterior(nn.Module):
         return out[0] if squeeze else out
 
     def forward(self, p):
-        from .kernels import sc2
+        from . import kernels
         squeeze = p.ndim == 1
-        out = sc2.log_posterior(self, p.reshape(-1, p.shape[-1]).contiguous())
+        out = kernels.log_posterior(self, p.reshape(-1, p.shape[-1]).contiguous())
         return out[0] if squeeze else out
 
 
@@ -215,9 +218,11 @@ def lightcurve_mcmc(lc, model, priors=None, p_min=None, p_max=None, p_lo=None, p
     Same signature and behavior as ``lightcurve_fitting_tpu.fitting.
     lightcurve_mcmc`` (reference fitting.py:16-168), plus ``device``
     (default: ``"cuda"`` when available, else ``"cpu"``). On CUDA every
-    half-step is one launch of the fused kernel K2 and the walker state is
-    float32 over the rescaled init window (``state_dtype="auto"``); on the
-    CPU the plain PyTorch step runs on absolute float64 state.
+    half-step is one launch of the model's fused half-step kernel (K2 for
+    ShockCooling2, its SC3 instantiation for ShockCooling3; other models
+    raise) and the walker state is float32 over the rescaled init window
+    (``state_dtype="auto"``); on the CPU the plain PyTorch step runs on
+    absolute float64 state.
 
     * ``seed`` makes the chains reproducible: the draws of global step i
       depend only on (seed, i), so progress segments do not change the chain;

@@ -18,11 +18,13 @@ __all__ = ["log_likelihood_from_numpy", "priors_from_jax", "walkers_from_numpy"]
 def log_likelihood_from_numpy(quad, t, y, dy, use_sigma=False, sigma_type="relative",
                               device="cpu", dtype=None, model=None):
     """The port's :class:`~lightcurve_fitting_tpu_torch.models.base.LogLikelihood`
-    from the numpy dict of ``Model.prepare_quad`` (either package) and the
-    photometry ``t, y, dy``.
+    from the numpy dict of ``Model.prepare_quad`` (either package: the
+    Chebyshev table rows, or the quadrature ``nodes``/``weights``/``k_ext``
+    per point with ``band_ids``) and the photometry ``t, y, dy``.
 
     ``model`` is the port model whose physics the likelihood evaluates
-    (default: a ShockCooling2, the flagship). ``dtype`` is the compute dtype
+    (default: a ShockCooling2, the flagship; a ShockCooling3 takes the
+    quadrature dict). ``dtype`` is the compute dtype
     the buffers must have; it has to agree with what ``core.config`` resolves
     for ``device`` (set it with ``config.set_compute_dtype``), because the
     plain path reads the configuration when it runs."""

@@ -1,11 +1,59 @@
 """Hand-written CUDA kernels of the port (``csrc/``), their ctypes wrappers
 and their plain PyTorch versions.
 
-K1 (``sc2_logpost_kernel``) and K2 (``stretch_half_step_kernel``) live in
-``csrc/sc2_logpost.cu``; :mod:`.sc2` wraps them; :mod:`.build` compiles the
-sources with nvcc at first use. Importing this package needs neither nvcc nor
-a GPU.
+* ``csrc/sc2_logpost.cu`` (:mod:`.sc2`): K1, the fused ShockCooling2
+  log-posterior, and K2, the stretch-move half-step over it.
+* ``csrc/sc3_logpost.cu`` (:mod:`.sc3`): K3, the quadrature band flux, and
+  the fused ShockCooling3 log-posterior and half-step built on it.
+* ``csrc/stretch.cuh``: the half-step template and the device code both
+  share; :mod:`.common` its Python side and the plain stretch move.
+
+:mod:`.build` compiles the sources with nvcc at first use. Importing this
+package needs neither nvcc nor a GPU. :func:`log_posterior` and
+:func:`stretch_half_step` route a LogPosterior to its model's kernels.
 """
 
-from . import sc2  # noqa: F401
-from .sc2 import LAUNCHES, reset_launch_counts  # noqa: F401
+from . import sc2, sc3  # noqa: F401
+from .common import (LAUNCHES, reset_launch_counts, log_posterior_plain,  # noqa: F401
+                     stretch_half_step_plain)
+
+__all__ = ["LAUNCHES", "reset_launch_counts", "module_for", "log_posterior",
+           "stretch_half_step"]
+
+
+def module_for(model):
+    """The kernel module whose fused log-posterior evaluates ``model``:
+    :mod:`.sc2` for ShockCooling2, :mod:`.sc3` for ShockCooling3. Any other
+    model raises NotImplementedError."""
+    from ..models import ShockCooling2, ShockCooling3
+    if isinstance(model, ShockCooling3):
+        return sc3
+    if isinstance(model, ShockCooling2):
+        return sc2
+    raise NotImplementedError(f"{type(model).__name__} has no fused CUDA log-posterior yet "
+                              "(ROADMAP Queue 1 item 7)")
+
+
+def log_posterior(lp, q, param_offset=None, param_scale=None):
+    """The log-posterior (W,) float64 of LogPosterior ``lp`` at walker
+    states ``q`` (W, ndim): the plain version for a CPU tensor, else the
+    fused kernel of ``lp``'s model (see the modules' ``log_posterior``)."""
+    if q.device.type == "cpu":
+        return log_posterior_plain(lp, q, param_offset, param_scale)
+    return module_for(lp.log_likelihood.model).log_posterior(lp, q, param_offset, param_scale)
+
+
+def stretch_half_step(lp, x, logp, h, u_z, j, u_acc, a=2.0, param_offset=None,
+                      param_scale=None, chain_x=None, chain_logp=None, n_accept=None,
+                      check_partners=True):
+    """One stretch-move half-step of LogPosterior ``lp``, in place: the
+    plain version for a CPU tensor, else the half-step kernel of ``lp``'s
+    model (arguments: :func:`.sc2.stretch_half_step`)."""
+    if x.device.type == "cpu":
+        def log_prob(q):
+            return log_posterior_plain(lp, q, param_offset, param_scale)
+        return stretch_half_step_plain(log_prob, x, logp, h, u_z, j, u_acc, a, chain_x,
+                                       chain_logp, n_accept)
+    return module_for(lp.log_likelihood.model).stretch_half_step(
+        lp, x, logp, h, u_z, j, u_acc, a, param_offset, param_scale, chain_x, chain_logp,
+        n_accept, check_partners)

@@ -2,11 +2,12 @@
 
 The sources are compiled with ``nvcc`` into one shared library with a plain C
 interface, at first use, and loaded with :mod:`ctypes` (no PyTorch headers:
-the build takes seconds, not minutes). The library lands in
-``kernels/_build/`` (ignored by git) under a name keyed by a hash of the
-sources and the flags, so an edited source rebuilds and an unchanged one is
-reused. Nothing here runs at import: the module imports on machines without
-``nvcc`` or a GPU, and :func:`library` raises there.
+the build takes seconds, not minutes). Each ``.cu`` compiles in its own
+``nvcc`` process, all started together, and one more links the objects.
+The library lands in ``kernels/_build/`` (ignored by git) under a name keyed
+by a hash of the sources and the flags, so an edited source rebuilds and an
+unchanged one is reused. Nothing here runs at import: the module imports on
+machines without ``nvcc`` or a GPU, and :func:`library` raises there.
 """
 
 import ctypes
@@ -23,7 +24,7 @@ __all__ = ["library", "build_info", "NVCC_FLAGS"]
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -55,9 +56,47 @@ def _declare(lib):
     lib.sc2_logpost_launch.restype = ci
     lib.sc2_logpost_launch.argtypes = [vp, ci, ci, vp, ci, ci, vp, vp]
     lib.stretch_half_step_launch.restype = ci
-    lib.stretch_half_step_launch.argtypes = [vp, ci, ci, vp, ci, vp, ci, ci, vp, vp, vp, cd,
-                                             vp, ci, vp, ci, vp, vp]
+    half_step = [vp, ci, ci, vp, ci, vp, ci, ci, vp, vp, vp, cd, vp, ci, vp, ci, vp, vp]
+    lib.stretch_half_step_launch.argtypes = half_step
+    lib.bandflux_launch.restype = ci
+    lib.bandflux_launch.argtypes = [vp, ci, ci, vp]
+    lib.sc3_logpost_launch.restype = ci
+    lib.sc3_logpost_launch.argtypes = [vp, ci, ci, vp, ci, ci, vp, vp]
+    lib.sc3_half_step_launch.restype = ci
+    lib.sc3_half_step_launch.argtypes = half_step
     return lib
+
+
+def _run(cmds):
+    """Run the commands together; returns their combined output, or raises
+    with the first failure's."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)) for cmd in cmds]
+    logs = []
+    failed = None
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        logs.append(out)
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}"
+    if failed:
+        raise RuntimeError(failed)
+    return "".join(logs)
+
+
+def _compile(srcs, out):
+    """nvcc each source to an object, in parallel, then link ``out``."""
+    nvcc = _nvcc()
+    objs = [f"{out}.{os.path.basename(src)}.o" for src in srcs]
+    try:
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src] for src, obj in zip(srcs, objs)])
+        log += _run([[nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o", out,
+                      *objs]])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return log
 
 
 def library():
@@ -79,11 +118,7 @@ def library():
         if not os.path.exists(out):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{out}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+            log = _compile(srcs, tmp)
             os.replace(tmp, out)
             built = True
         _lib = _declare(ctypes.CDLL(out))

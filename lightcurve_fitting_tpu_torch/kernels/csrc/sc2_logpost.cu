@@ -20,7 +20,8 @@
 // first and an out-of-prior walker returns -inf without touching the
 // likelihood (the JAX graph evaluates it and masks it afterwards: same value).
 // K1 and K2 share one __device__ function, so a proposal's log-posterior is
-// bit-identical to the batch evaluation of the same point.
+// bit-identical to the batch evaluation of the same point. K2 is the
+// stretch_half_step_kernel template of stretch.cuh over SC2Model.
 // Measured on an H100 80GB HBM3 at 700 W: K1 reaches ~6 TFLOP/s (9% of the
 // FP32 peak) at 131072 walkers, and a launch never takes less than ~0.18 ms
 // however few the walkers: one thread walks all points through a dependent
@@ -35,12 +36,7 @@
 // round-to-nearest intrinsics (no FMA contraction), so a new state equals
 // the plain PyTorch half-step's bit for bit whenever both accept.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#define SC2_MAX_DIM 8
-#define SC2_THREADS 128
+#include "stretch.cuh"
 
 // Every field is 8 bytes wide, so the layout has no padding and the ctypes
 // mirror in kernels/sc2.py (_SC2Params) matches it field for field.
@@ -67,39 +63,14 @@ struct SC2Params {
     double a_model;
     double alpha;
     double c3_42;
-    long long prior_kind[SC2_MAX_DIM];  // 0 uniform, 1 log-uniform, 2 Gaussian
-    double p_min[SC2_MAX_DIM];
-    double p_max[SC2_MAX_DIM];
-    double mean[SC2_MAX_DIM];
-    double stddev[SC2_MAX_DIM];
-    double affine_offset[SC2_MAX_DIM];
-    double affine_scale[SC2_MAX_DIM];
+    long long prior_kind[LP_MAX_DIM];  // 0 uniform, 1 log-uniform, 2 Gaussian
+    double p_min[LP_MAX_DIM];
+    double p_max[LP_MAX_DIM];
+    double mean[LP_MAX_DIM];
+    double stddev[LP_MAX_DIM];
+    double affine_offset[LP_MAX_DIM];
+    double affine_scale[LP_MAX_DIM];
 };
-
-__device__ __forceinline__ float m_pow(float a, float b) { return powf(a, b); }
-__device__ __forceinline__ double m_pow(double a, double b) { return pow(a, b); }
-__device__ __forceinline__ float m_exp(float a) { return expf(a); }
-__device__ __forceinline__ double m_exp(double a) { return exp(a); }
-__device__ __forceinline__ float m_log(float a) { return logf(a); }
-__device__ __forceinline__ double m_log(double a) { return log(a); }
-__device__ __forceinline__ float m_sqrt(float a) { return sqrtf(a); }
-__device__ __forceinline__ double m_sqrt(double a) { return sqrt(a); }
-
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
-
-// power(base, e) of ops/mathx.py: 0 where base <= 0 (or NaN), never NaN from
-// a negative base
-template <typename C>
-__device__ __forceinline__ C power0(C base, C e) {
-    return base > C(0) ? m_pow(base, e) : C(0);
-}
 
 template <typename C>
 struct PointData {
@@ -152,35 +123,14 @@ __device__ PointData<C> stage_points(const SC2Params& P, C* smem, int use_smem) 
     return d;
 }
 
-// absolute float64 parameter k of the walker state value q
-template <typename S>
-__device__ __forceinline__ double to_absolute(const SC2Params& P, int k, S q) {
-    return P.has_affine ? __dadd_rn(P.affine_offset[k], __dmul_rn(P.affine_scale[k], (double)q))
-                        : (double)q;
-}
-
 // The log-posterior of one walker at absolute parameters p[ndim]: the sum of
 // the prior log-densities (-inf outside the open bounds) plus the Gaussian
 // log-likelihood of the ShockCooling2 band fluxes; -inf when not finite.
 template <typename C>
 __device__ double sc2_log_posterior(const double* p, const PointData<C>& d, const SC2Params& P) {
     const int ndim = (int)P.ndim;
-    double log_prior = 0.0;
-    for (int i = 0; i < ndim; ++i) {
-        const double v = p[i];
-        if (!(v > P.p_min[i] && v < P.p_max[i])) return -INFINITY;  // also NaN
-        double l;
-        if (P.prior_kind[i] == 0) {
-            l = 0.0;
-        } else if (P.prior_kind[i] == 1) {
-            l = -log(v);
-        } else {
-            const double zz = (v - P.mean[i]) / P.stddev[i];
-            l = -0.5 * (zz * zz);
-        }
-        log_prior = log_prior + l;
-    }
-    if (!isfinite(log_prior)) return -INFINITY;
+    const double lprior = log_prior(P, p);
+    if (!isfinite(lprior)) return -INFINITY;
 
     const C T1 = (C)p[0];
     const C L1 = (C)p[1];
@@ -192,7 +142,6 @@ __device__ double sc2_log_posterior(const double* p, const PointData<C>& d, cons
     const C alpha = (C)P.alpha;
     const C c3 = (C)P.c3_42;
     const C inv_yscale = (C)P.inv_yscale;
-    const C two_pi = (C)6.283185307179586;
     const C sig = P.use_sigma ? (C)p[ndim - 1] : C(0);
     const int N = (int)P.n_points;
     const int K = (int)P.n_coef;
@@ -219,25 +168,29 @@ __device__ double sc2_log_posterior(const double* p, const PointData<C>& d, cons
             y_fit = R * R * m_exp(ln_g);
         }
         y_fit = y_fit * inv_yscale;
-        if (P.use_sigma) {
-            const C sg = sig * d.su[n];
-            const C sigma2 = d.dy[n] * d.dy[n] + sg * sg;
-            const C res = d.y[n] - y_fit;
-            acc += m_log(two_pi * sigma2) + res * res / sigma2;
-        } else {
-            const C r = (d.y[n] - y_fit) * d.inv_dy[n];
-            acc += r * r;
-        }
+        acc += residual_term<C>(P.use_sigma, y_fit, d.y[n], d.inv_dy[n], d.dy[n], d.su[n], sig);
     }
-    const C ll = C(-0.5) * acc + (C)(P.use_sigma ? P.ll_offset : P.log_norm_const);
-    if (!isfinite(ll)) return -INFINITY;
-    return log_prior + (double)ll;
+    return finish_log_posterior<C>(lprior, acc, P.use_sigma, P.ll_offset, P.log_norm_const);
 }
+
+// The model policy of stretch.cuh for ShockCooling2 in compute type C.
+template <typename C>
+struct SC2Model {
+    typedef SC2Params Params;
+    typedef PointData<C> Data;
+    static __host__ __device__ size_t stage_bytes(const Params& P) { return ::stage_bytes<C>(P); }
+    static __device__ Data stage(const Params& P, unsigned char* smem, int use_smem) {
+        return stage_points<C>(P, reinterpret_cast<C*>(smem), use_smem);
+    }
+    static __device__ double log_posterior(const double* p, const Data& d, const Params& P) {
+        return sc2_log_posterior<C>(p, d, P);
+    }
+};
 
 // K1: out[w] = log-posterior of walker state q[w, :] (affine-mapped when
 // has_affine), for the initial state and LogPosterior.forward.
 template <typename C, typename S>
-__global__ void __launch_bounds__(SC2_THREADS)
+__global__ void __launch_bounds__(LP_THREADS)
 sc2_logpost_kernel(const SC2Params P, const S* __restrict__ q, int W,
                    double* __restrict__ out, int use_smem) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -245,79 +198,12 @@ sc2_logpost_kernel(const SC2Params P, const S* __restrict__ q, int W,
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= W) return;
     const int ndim = (int)P.ndim;
-    double p[SC2_MAX_DIM];
+    double p[LP_MAX_DIM];
     for (int k = 0; k < ndim; ++k) p[k] = to_absolute(P, k, q[(size_t)i * ndim + k]);
     out[i] = sc2_log_posterior<C>(p, d, P);
 }
 
-// K2: one Goodman-Weare half-step for half h of the ensemble x (2, half,
-// ndim), in place. The partner pool is the other half. Draws are inputs:
-// u_z and u_acc uniform in [0, 1), j in [0, half). Adds the accept flag to
-// n_accept and, when chain_x is not null, writes the walker's new state and
-// log-posterior into the chain slot (2, half, ndim) / (2, half).
-template <typename C, typename S, typename X, typename L>
-__global__ void __launch_bounds__(SC2_THREADS)
-stretch_half_step_kernel(const SC2Params P, S* __restrict__ x, double* __restrict__ logp,
-                         int half, int h, const S* __restrict__ u_z,
-                         const long long* __restrict__ j, const S* __restrict__ u_acc,
-                         double a, X* __restrict__ chain_x, L* __restrict__ chain_lp,
-                         int* __restrict__ n_accept, int use_smem) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    const PointData<C> d = stage_points<C>(P, reinterpret_cast<C*>(smem_raw), use_smem);
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= half) return;
-    const int ndim = (int)P.ndim;
-    const size_t w = (size_t)h * half + i;
-    S* xm = x + w * ndim;
-    const S* xj = x + ((size_t)(1 - h) * half + (size_t)j[i]) * ndim;
-
-    // z ~ g(z) on [1/a, a]: z = ((a - 1) u + 1)^2 / a
-    const S zw = add_rn(mul_rn((S)(a - 1.0), u_z[i]), S(1));
-    const S z = div_rn(mul_rn(zw, zw), (S)a);
-    S y[SC2_MAX_DIM];
-    double p[SC2_MAX_DIM];
-    for (int k = 0; k < ndim; ++k) {
-        y[k] = add_rn(xj[k], mul_rn(z, sub_rn(xm[k], xj[k])));
-        p[k] = to_absolute(P, k, y[k]);
-    }
-    double lp_y = sc2_log_posterior<C>(p, d, P);
-    if (isnan(lp_y)) lp_y = -INFINITY;
-    const double lp_x = logp[w];
-    const S lz = (S)(ndim - 1) * m_log(z);
-    const double log_ratio = (double)lz + lp_y - lp_x;
-    // log(0) = -inf accepts unless log_ratio is -inf; a NaN ratio rejects
-    const double log_u = (double)m_log(u_acc[i]);
-    const bool accept = !isnan(log_ratio) && log_u < log_ratio;
-    double lp_new = lp_x;
-    if (accept) {
-        for (int k = 0; k < ndim; ++k) xm[k] = y[k];
-        logp[w] = lp_y;
-        lp_new = lp_y;
-    }
-    n_accept[w] += accept ? 1 : 0;
-    if (chain_x != nullptr) {
-        for (int k = 0; k < ndim; ++k) chain_x[w * ndim + k] = (X)xm[k];
-        chain_lp[w] = (L)lp_new;
-    }
-}
-
 // ------------------------------------------------------------------ launch
-
-template <typename Kernel>
-static int smem_plan(Kernel kernel, size_t bytes, int* use_smem) {
-    int dev = 0, max_optin = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (bytes > (size_t)max_optin) {
-        *use_smem = 0;  // read the per-point data from global memory instead
-        return 0;
-    }
-    *use_smem = 1;
-    if (bytes > 48 * 1024)
-        return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
-    return 0;
-}
 
 template <typename C, typename S>
 static int launch_logpost(const SC2Params& P, const void* q, int W, double* out,
@@ -327,59 +213,10 @@ static int launch_logpost(const SC2Params& P, const void* q, int W, double* out,
     size_t bytes = stage_bytes<C>(P);
     int rc = smem_plan(kernel, bytes, &use_smem);
     if (rc) return rc;
-    const int blocks = (W + SC2_THREADS - 1) / SC2_THREADS;
-    kernel<<<blocks, SC2_THREADS, use_smem ? bytes : 0, stream>>>(
+    const int blocks = (W + LP_THREADS - 1) / LP_THREADS;
+    kernel<<<blocks, LP_THREADS, use_smem ? bytes : 0, stream>>>(
         P, (const S*)q, W, out, use_smem);
     return (int)cudaGetLastError();
-}
-
-template <typename C, typename S, typename X, typename L>
-static int launch_half(const SC2Params& P, void* x, double* logp, int half, int h,
-                       const void* u_z, const long long* j, const void* u_acc, double a,
-                       void* chain_x, void* chain_lp, int* n_accept, cudaStream_t stream) {
-    auto kernel = stretch_half_step_kernel<C, S, X, L>;
-    int use_smem = 0;
-    size_t bytes = stage_bytes<C>(P);
-    int rc = smem_plan(kernel, bytes, &use_smem);
-    if (rc) return rc;
-    const int blocks = (half + SC2_THREADS - 1) / SC2_THREADS;
-    kernel<<<blocks, SC2_THREADS, use_smem ? bytes : 0, stream>>>(
-        P, (S*)x, logp, half, h, (const S*)u_z, j, (const S*)u_acc, a, (X*)chain_x,
-        (L*)chain_lp, n_accept, use_smem);
-    return (int)cudaGetLastError();
-}
-
-template <typename C, typename S, typename X>
-static int dispatch_half_l(int lp_f64, const SC2Params& P, void* x, double* logp, int half,
-                           int h, const void* u_z, const long long* j, const void* u_acc,
-                           double a, void* chain_x, void* chain_lp, int* n_accept,
-                           cudaStream_t s) {
-    return lp_f64 ? launch_half<C, S, X, double>(P, x, logp, half, h, u_z, j, u_acc, a,
-                                                 chain_x, chain_lp, n_accept, s)
-                  : launch_half<C, S, X, float>(P, x, logp, half, h, u_z, j, u_acc, a,
-                                                chain_x, chain_lp, n_accept, s);
-}
-
-template <typename C, typename S>
-static int dispatch_half_x(int x_f64, int lp_f64, const SC2Params& P, void* x, double* logp,
-                           int half, int h, const void* u_z, const long long* j,
-                           const void* u_acc, double a, void* chain_x, void* chain_lp,
-                           int* n_accept, cudaStream_t s) {
-    return x_f64 ? dispatch_half_l<C, S, double>(lp_f64, P, x, logp, half, h, u_z, j, u_acc, a,
-                                                 chain_x, chain_lp, n_accept, s)
-                 : dispatch_half_l<C, S, float>(lp_f64, P, x, logp, half, h, u_z, j, u_acc, a,
-                                                chain_x, chain_lp, n_accept, s);
-}
-
-template <typename C>
-static int dispatch_half_s(int s_f64, int x_f64, int lp_f64, const SC2Params& P, void* x,
-                           double* logp, int half, int h, const void* u_z, const long long* j,
-                           const void* u_acc, double a, void* chain_x, void* chain_lp,
-                           int* n_accept, cudaStream_t s) {
-    return s_f64 ? dispatch_half_x<C, double>(x_f64, lp_f64, P, x, logp, half, h, u_z, j, u_acc,
-                                              a, chain_x, chain_lp, n_accept, s)
-                 : dispatch_half_x<C, float>(x_f64, lp_f64, P, x, logp, half, h, u_z, j, u_acc,
-                                             a, chain_x, chain_lp, n_accept, s);
 }
 
 extern "C" {
@@ -390,7 +227,7 @@ int sc2_logpost_launch(const SC2Params* P, int device, int compute_f64, const vo
     int rc = (int)cudaSetDevice(device);
     if (rc) return rc;
     if (W <= 0) return 0;
-    if (P->ndim > SC2_MAX_DIM) return (int)cudaErrorInvalidValue;
+    if (P->ndim > LP_MAX_DIM) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     if (compute_f64)
         return q_f64 ? launch_logpost<double, double>(*P, q, W, out, s)
@@ -406,16 +243,9 @@ int stretch_half_step_launch(const SC2Params* P, int device, int compute_f64, vo
                              const long long* j, const void* u_acc, double a, void* chain_x,
                              int chain_x_f64, void* chain_lp, int chain_lp_f64,
                              int* n_accept, void* stream) {
-    int rc = (int)cudaSetDevice(device);
-    if (rc) return rc;
-    if (half <= 0) return 0;
-    if (P->ndim > SC2_MAX_DIM) return (int)cudaErrorInvalidValue;
-    cudaStream_t s = (cudaStream_t)stream;
-    if (compute_f64)
-        return dispatch_half_s<double>(state_f64, chain_x_f64, chain_lp_f64, *P, x, logp, half,
-                                       h, u_z, j, u_acc, a, chain_x, chain_lp, n_accept, s);
-    return dispatch_half_s<float>(state_f64, chain_x_f64, chain_lp_f64, *P, x, logp, half, h,
-                                  u_z, j, u_acc, a, chain_x, chain_lp, n_accept, s);
+    return launch_half_step<SC2Model>(P, device, compute_f64, x, state_f64, logp, half, h, u_z,
+                                      j, u_acc, a, chain_x, chain_x_f64, chain_lp, chain_lp_f64,
+                                      n_accept, stream);
 }
 
 }  // extern "C"

@@ -1,0 +1,390 @@
+// The quadrature band flux (K3), the fused ShockCooling3 log-posterior and
+// its stretch-move half-step, for sm_90a, bound to Python through a plain C
+// interface (ctypes).
+//
+// Replaces (JAX package, lightcurve_fitting_tpu/):
+//   K3  the Pallas kernel ops/pallas_bandflux.py:61 bandflux_pallas
+//       (pallas_call at :85; removed in 86c8937, read it with
+//       `git show 0ee4f99:lightcurve_fitting_tpu/ops/pallas_bandflux.py`),
+//       whose computation lives on in models/blackbody.py:27-73 (planck_lnu,
+//       bandflux_pointwise): y[w,n] = sum_k W[n,k] c2 R^2 nu^3 cut
+//       / expm1(c1 nu / T) * exp(-0.4 ln10 k_ext E(B-V)).
+//   SC3 log-posterior: fitting.py:62-68 fused by XLA with models/base.py:278-288,
+//       models/shock_cooling.py:71-98 (temperature_radius) and :201-208
+//       (ShockCooling3._eval_points), ops/mathx.py and K3.
+//   SC3 half-step: parallel/sampler.py:38-57, :86-95, :97-104 and :205-225,
+//       the stretch_half_step_kernel template of stretch.cuh over SC3Model.
+//
+// What bounds it on the H100: the special functions. Each quadrature term
+// is one expm1, one exp and one division (~60 instructions in all), and one
+// SC3 evaluation on the flagship is 5738 such terms (13261 with the padding);
+// the tables, 3 x 9 bands x 89 nodes, are 9.6 KB in f32 and shared by every
+// walker, so device-memory traffic is negligible.
+// What the design does about it: the per-band tables are staged once per
+// block in shared memory and indexed through each point's band id, so no
+// per-point (N, K) gather is ever materialized. In the log-posterior one
+// thread per walker walks the points in order, so a warp works on one band
+// at a time: its table reads are broadcasts and its loop length is that
+// band's native node count (the zero-weight padding past it adds nothing to
+// a finite sum), which cuts the terms from 13261 to 5738. The standalone K3
+// runs one block column per point and one thread per walker, over all K
+// nodes: the JAX function's padded sum.
+// One __device__ function (band_flux) carries the band sum for all three
+// kernels, so a proposal's band fluxes are bit-identical to K3's
+// evaluation of the same T, R and E(B-V) over the same nodes.
+//
+// Dtype semantics follow the JAX accelerator path: the SW17 power laws run
+// in the compute type C on C-cast parameters, tt = C(t - t_ref) - C(t_exp -
+// t_ref), and each term keeps the reference's order, (((c2 R^2) nu^3) cut)
+// / expm1((c1 nu) / T) * exp((k_ext E(B-V)) (-0.4 ln10)), with expm1 (the
+// Pallas kernel's exp - 1 is not copied), T <= 0 or NaN giving x = 0 and a
+// zero term, and Wien overflow 1/inf = 0. The flux ((lum 1e-30) c4_30) is
+// divided in float64 by d_L^2 (d_L is not cast), then rounded to C for the
+// residual sum, as the JAX graph promotes it.
+
+#include "stretch.cuh"
+
+// Every field is 8 bytes wide, so the layout has no padding and the ctypes
+// mirror in kernels/sc3.py (_SC3Params) matches it field for field.
+struct SC3Params {
+    const void* t_centered;      // (N,) compute type: t - t_ref
+    const void* y;               // (N,) y / yscale
+    const void* inv_dy;          // (N,) yscale / dy
+    const void* dy;              // (N,) dy / yscale
+    const void* sigma_units;     // (N,)
+    const void* nodes;           // (B, K) emitted-frame nodes (THz), one row per band
+    const void* weights;         // (B, K) quadrature weights
+    const void* k_ext;           // (B, K) F99 A/E(B-V) at the nodes
+    const long long* band_ids;   // (N,) each point's row
+    const long long* n_native;   // (B,) each row's node count before its zero-weight padding
+    long long n_points;
+    long long n_bands;
+    long long n_nodes;
+    long long ndim;
+    long long use_sigma;
+    long long has_affine;
+    double t_ref;
+    double inv_yscale;
+    double log_norm_const;
+    double ll_offset;
+    double kappa;
+    double A;
+    double a_model;
+    double alpha;
+    double eps1;
+    double eps2;
+    double L0_42;
+    double T0;
+    double tph_to_tcol;
+    double k_B;
+    double c1;
+    double c2;
+    double c3_42;
+    double c4_30;
+    double ext_coef;             // -0.4 ln 10
+    long long prior_kind[LP_MAX_DIM];  // 0 uniform, 1 log-uniform, 2 Gaussian
+    double p_min[LP_MAX_DIM];
+    double p_max[LP_MAX_DIM];
+    double mean[LP_MAX_DIM];
+    double stddev[LP_MAX_DIM];
+    double affine_offset[LP_MAX_DIM];
+    double affine_scale[LP_MAX_DIM];
+};
+
+// The standalone K3's arguments; the same 8-byte layout rule (mirror:
+// kernels/sc3.py _BandfluxParams).
+struct BandfluxParams {
+    const void* nodes;           // (B, K) compute type
+    const void* weights;         // (B, K)
+    const void* k_ext;           // (B, K), or null: no extinction
+    const long long* band_ids;   // (N,), or null: row n for point n (B = N)
+    const void* T;               // (W, N) contiguous
+    const void* R;               // (W, N) contiguous
+    const void* ebv;             // element (w, n) at ebv[w * ebv_stride_w + n * ebv_stride_n]
+    void* out;                   // (W, N) contiguous
+    long long n_walkers;
+    long long n_points;
+    long long n_nodes;
+    long long ebv_stride_w;
+    long long ebv_stride_n;
+    long long has_cutoff;
+    double cutoff;               // THz; used when has_cutoff
+    double c1;
+    double c2;
+    double ext_coef;             // -0.4 ln 10
+};
+
+// K3's band sum for one point: sum_{k < n_k} w[k] * L_nu(nu[k]; T, R) *
+// 10^(-0.4 kx[k] ebv), over one row of the node, weight and extinction
+// tables (kx null: no extinction).
+template <typename C>
+__device__ __forceinline__ C band_flux(const C* nu, const C* w, const C* kx, int n_k, C T, C R,
+                                       C ebv, C c1, C c2, C ext_coef, bool has_cutoff,
+                                       C cutoff) {
+    const C inv_T = T > C(0) ? C(1) / T : C(0);  // safe_reciprocal: T <= 0 or NaN -> 0
+    const C c2R2 = c2 * (R * R);
+    C acc = C(0);
+    for (int k = 0; k < n_k; ++k) {
+        const C nuk = nu[k];
+        const C e = m_expm1((c1 * nuk) * inv_T);
+        const C pdi = e > C(0) ? C(1) / e : C(0);  // x <= 0 -> 0; Wien overflow 1/inf = 0
+        C lnu = c2R2 * (nuk * nuk * nuk);
+        if (has_cutoff) {
+            const C cut = cutoff / nuk;
+            lnu = lnu * (cut < C(1) ? cut : C(1));
+        }
+        lnu = lnu * pdi;
+        if (kx != nullptr) lnu = lnu * m_exp((kx[k] * ebv) * ext_coef);
+        acc += w[k] * lnu;
+    }
+    return acc;
+}
+
+// K3: out[w, n] = the band flux of point n (row band_ids[n]) at T[w, n],
+// R[w, n], ebv[w, n]. Block column blockIdx.x is point n, its threads are
+// walkers (grid-stride over blockIdx.y); the block stages row n's tables.
+template <typename C>
+__global__ void __launch_bounds__(LP_THREADS) bandflux_kernel(const BandfluxParams P) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    C* s_nu = reinterpret_cast<C*>(smem_raw);
+    const int K = (int)P.n_nodes;
+    C* s_w = s_nu + K;
+    C* s_k = s_w + K;
+    const int n = blockIdx.x;
+    const long long row = P.band_ids != nullptr ? P.band_ids[n] : n;
+    const bool has_ext = P.k_ext != nullptr;
+    for (int k = threadIdx.x; k < K; k += blockDim.x) {
+        s_nu[k] = ((const C*)P.nodes)[row * K + k];
+        s_w[k] = ((const C*)P.weights)[row * K + k];
+        if (has_ext) s_k[k] = ((const C*)P.k_ext)[row * K + k];
+    }
+    __syncthreads();
+    const C c1 = (C)P.c1, c2 = (C)P.c2, ext_coef = (C)P.ext_coef, cutoff = (C)P.cutoff;
+    const long long N = P.n_points;
+    for (long long w = (long long)blockIdx.y * blockDim.x + threadIdx.x; w < P.n_walkers;
+         w += (long long)gridDim.y * blockDim.x) {
+        const size_t e = (size_t)w * N + n;
+        const C ebv = has_ext ? ((const C*)P.ebv)[w * P.ebv_stride_w + n * P.ebv_stride_n] : C(0);
+        ((C*)P.out)[e] = band_flux<C>(s_nu, s_w, has_ext ? s_k : nullptr, K, ((const C*)P.T)[e],
+                                      ((const C*)P.R)[e], ebv, c1, c2, ext_coef,
+                                      P.has_cutoff != 0, cutoff);
+    }
+}
+
+template <typename C>
+struct SC3Data {
+    const long long* band;
+    const long long* n_native;
+    const C* nu;
+    const C* w;
+    const C* kx;
+    const C* tc;
+    const C* y;
+    const C* inv_dy;
+    const C* dy;
+    const C* su;
+};
+
+template <typename C>
+__host__ __device__ inline size_t sc3_stage_bytes(const SC3Params& P) {
+    return sizeof(long long) * (size_t)(P.n_points + P.n_bands)
+           + sizeof(C) * (size_t)(3 * P.n_bands * P.n_nodes + 5 * P.n_points);
+}
+
+template <typename T>
+__device__ __forceinline__ const T* stage_array(const T* src, long long len, T*& s) {
+    for (long long i = threadIdx.x; i < len; i += blockDim.x) s[i] = src[i];
+    const T* out = s;
+    s += len;
+    return out;
+}
+
+// Copy the band tables, band ids and per-point data into shared memory
+// (every thread of the block takes part, so call it before any thread
+// returns), or point at global memory when they exceed the block's limit.
+template <typename C>
+__device__ SC3Data<C> stage_sc3(const SC3Params& P, unsigned char* smem, int use_smem) {
+    const long long N = P.n_points, BK = P.n_bands * P.n_nodes;
+    SC3Data<C> d;
+    if (use_smem) {
+        long long* si = reinterpret_cast<long long*>(smem);
+        d.band = stage_array(P.band_ids, N, si);
+        d.n_native = stage_array(P.n_native, P.n_bands, si);
+        C* s = reinterpret_cast<C*>(si);
+        d.nu = stage_array((const C*)P.nodes, BK, s);
+        d.w = stage_array((const C*)P.weights, BK, s);
+        d.kx = stage_array((const C*)P.k_ext, BK, s);
+        d.tc = stage_array((const C*)P.t_centered, N, s);
+        d.y = stage_array((const C*)P.y, N, s);
+        d.inv_dy = stage_array((const C*)P.inv_dy, N, s);
+        d.dy = stage_array((const C*)P.dy, N, s);
+        d.su = stage_array((const C*)P.sigma_units, N, s);
+        __syncthreads();
+    } else {
+        d.band = P.band_ids;
+        d.n_native = P.n_native;
+        d.nu = (const C*)P.nodes;
+        d.w = (const C*)P.weights;
+        d.kx = (const C*)P.k_ext;
+        d.tc = (const C*)P.t_centered;
+        d.y = (const C*)P.y;
+        d.inv_dy = (const C*)P.inv_dy;
+        d.dy = (const C*)P.dy;
+        d.su = (const C*)P.sigma_units;
+    }
+    return d;
+}
+
+// The log-posterior of one walker at absolute parameters p[ndim] = (v_s*,
+// M_env, f_rho M, R, d_L, E(B-V), t_0[, sigma]): the prior sum plus the
+// Gaussian log-likelihood of the ShockCooling3 fluxes; -inf when not finite.
+template <typename C>
+__device__ double sc3_log_posterior(const double* p, const SC3Data<C>& d, const SC3Params& P) {
+    const int ndim = (int)P.ndim;
+    const double lprior = log_prior(P, p);
+    if (!isfinite(lprior)) return -INFINITY;
+
+    const C v_s = (C)p[0];
+    const C M_env = (C)p[1];
+    const C f_rho_M = (C)p[2];
+    const C R = (C)p[3];
+    const double dist2 = p[4] * p[4];
+    const C ebv = (C)p[5];
+    const C t_exp = (C)(p[6] - P.t_ref);
+    const C sig = P.use_sigma ? (C)p[ndim - 1] : C(0);
+    const C kappa = (C)P.kappa;
+    const C A = (C)P.A, a_mod = (C)P.a_model, alpha = (C)P.alpha;
+    const C eps1 = (C)P.eps1, neg_eps2 = (C)(-P.eps2);
+    const C L0 = (C)P.L0_42, T0 = (C)P.T0, tph_to_tcol = (C)P.tph_to_tcol, k_B = (C)P.k_B;
+    const C c1 = (C)P.c1, c2 = (C)P.c2, c3 = (C)P.c3_42, c4 = (C)P.c4_30;
+    const C ext_coef = (C)P.ext_coef, inv_yscale = (C)P.inv_yscale;
+    // per-walker factors of SW17 (the JAX graph forms them per point: same values)
+    const C fk = f_rho_M * kappa;
+    const C v2 = v_s * v_s;
+    const C t_tr = C(19.5) * m_pow(kappa * M_env / v_s, C(0.5));
+    const C kappa_q = m_pow(kappa, C(-0.25));
+    const C R_q = m_pow(R, C(0.25));
+    const int N = (int)P.n_points;
+    const int K = (int)P.n_nodes;
+
+    C acc = C(0);
+    for (int n = 0; n < N; ++n) {
+        const C tt = d.tc[n] - t_exp;
+        const C tt2 = tt * tt;
+        const C L_RW = L0 * power0(tt2 * v_s / fk, neg_eps2) * v2 * R / kappa;
+        const C L_42 = L_RW * A * m_exp(-power0(a_mod * tt / t_tr, alpha));
+        const C T_ph = T0 * power0(tt2 * v2 / fk, eps1) * kappa_q * power0(tt, C(-0.5)) * R_q;
+        const C T_K = T_ph * tph_to_tcol / k_B;
+        const C R_bb = c3 * m_pow(L_42, C(0.5)) * power0(T_K, C(-2));
+        const long long b = d.band[n];
+        const C lum = band_flux<C>(d.nu + b * K, d.w + b * K, d.kx + b * K, (int)d.n_native[b],
+                                   T_K, R_bb, ebv, c1, c2, ext_coef, false, C(0));
+        const double flux = (double)(lum * C(1e-30) * c4) / dist2;
+        const C y_fit = (C)flux * inv_yscale;
+        acc += residual_term<C>(P.use_sigma, y_fit, d.y[n], d.inv_dy[n], d.dy[n], d.su[n], sig);
+    }
+    return finish_log_posterior<C>(lprior, acc, P.use_sigma, P.ll_offset, P.log_norm_const);
+}
+
+// The model policy of stretch.cuh for ShockCooling3 in compute type C.
+template <typename C>
+struct SC3Model {
+    typedef SC3Params Params;
+    typedef SC3Data<C> Data;
+    static __host__ __device__ size_t stage_bytes(const Params& P) {
+        return sc3_stage_bytes<C>(P);
+    }
+    static __device__ Data stage(const Params& P, unsigned char* smem, int use_smem) {
+        return stage_sc3<C>(P, smem, use_smem);
+    }
+    static __device__ double log_posterior(const double* p, const Data& d, const Params& P) {
+        return sc3_log_posterior<C>(p, d, P);
+    }
+};
+
+// out[w] = SC3 log-posterior of walker state q[w, :] (affine-mapped when
+// has_affine), for the initial state and LogPosterior.forward.
+template <typename C, typename S>
+__global__ void __launch_bounds__(LP_THREADS)
+sc3_logpost_kernel(const SC3Params P, const S* __restrict__ q, int W,
+                   double* __restrict__ out, int use_smem) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const SC3Data<C> d = stage_sc3<C>(P, smem_raw, use_smem);
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= W) return;
+    const int ndim = (int)P.ndim;
+    double p[LP_MAX_DIM];
+    for (int k = 0; k < ndim; ++k) p[k] = to_absolute(P, k, q[(size_t)i * ndim + k]);
+    out[i] = sc3_log_posterior<C>(p, d, P);
+}
+
+// ------------------------------------------------------------------ launch
+
+template <typename C, typename S>
+static int launch_sc3_logpost(const SC3Params& P, const void* q, int W, double* out,
+                              cudaStream_t stream) {
+    auto kernel = sc3_logpost_kernel<C, S>;
+    int use_smem = 0;
+    size_t bytes = sc3_stage_bytes<C>(P);
+    int rc = smem_plan(kernel, bytes, &use_smem);
+    if (rc) return rc;
+    const int blocks = (W + LP_THREADS - 1) / LP_THREADS;
+    kernel<<<blocks, LP_THREADS, use_smem ? bytes : 0, stream>>>(
+        P, (const S*)q, W, out, use_smem);
+    return (int)cudaGetLastError();
+}
+
+template <typename C>
+static int launch_bandflux(const BandfluxParams& P, cudaStream_t stream) {
+    auto kernel = bandflux_kernel<C>;
+    const size_t bytes = 3 * sizeof(C) * (size_t)P.n_nodes;
+    int use_smem = 0;
+    int rc = smem_plan(kernel, bytes, &use_smem);
+    if (rc) return rc;
+    if (!use_smem) return (int)cudaErrorInvalidValue;  // a row longer than shared memory
+    const long long col_blocks = (P.n_walkers + LP_THREADS - 1) / LP_THREADS;
+    const dim3 grid((unsigned)P.n_points, (unsigned)(col_blocks < 65535 ? col_blocks : 65535));
+    kernel<<<grid, LP_THREADS, bytes, stream>>>(P);
+    return (int)cudaGetLastError();
+}
+
+extern "C" {
+
+// K3 launch. Returns 0 or a cudaError_t code.
+int bandflux_launch(const BandfluxParams* P, int device, int compute_f64, void* stream) {
+    int rc = (int)cudaSetDevice(device);
+    if (rc) return rc;
+    if (P->n_walkers <= 0 || P->n_points <= 0) return 0;
+    if (P->n_points > 2147483647LL) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    return compute_f64 ? launch_bandflux<double>(*P, s) : launch_bandflux<float>(*P, s);
+}
+
+// SC3 log-posterior launch. Returns 0 or a cudaError_t code.
+int sc3_logpost_launch(const SC3Params* P, int device, int compute_f64, const void* q,
+                       int q_f64, int W, double* out, void* stream) {
+    int rc = (int)cudaSetDevice(device);
+    if (rc) return rc;
+    if (W <= 0) return 0;
+    if (P->ndim > LP_MAX_DIM) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (compute_f64)
+        return q_f64 ? launch_sc3_logpost<double, double>(*P, q, W, out, s)
+                     : launch_sc3_logpost<double, float>(*P, q, W, out, s);
+    return q_f64 ? launch_sc3_logpost<float, double>(*P, q, W, out, s)
+                 : launch_sc3_logpost<float, float>(*P, q, W, out, s);
+}
+
+// SC3 half-step launch; the arguments of stretch_half_step_launch
+// (sc2_logpost.cu). Returns 0 or a cudaError_t code.
+int sc3_half_step_launch(const SC3Params* P, int device, int compute_f64, void* x,
+                         int state_f64, double* logp, int half, int h, const void* u_z,
+                         const long long* j, const void* u_acc, double a, void* chain_x,
+                         int chain_x_f64, void* chain_lp, int chain_lp_f64, int* n_accept,
+                         void* stream) {
+    return launch_half_step<SC3Model>(P, device, compute_f64, x, state_f64, logp, half, h, u_z,
+                                      j, u_acc, a, chain_x, chain_x_f64, chain_lp, chain_lp_f64,
+                                      n_accept, stream);
+}
+
+}  // extern "C"

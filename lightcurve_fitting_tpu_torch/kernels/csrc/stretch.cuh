@@ -1,0 +1,235 @@
+// Pieces shared by the fused log-posterior kernels of csrc/*.cu: device math
+// overloads, the priors, the Gaussian residual, and the stretch-move
+// half-step (K2) as a template over a model policy.
+//
+// A model policy M (SC2Model in sc2_logpost.cu, SC3Model in sc3_logpost.cu)
+// provides
+//   typedef ... Params;  // the model's parameter block (8-byte fields)
+//   typedef ... Data;    // the per-point data as the kernel reads it
+//   static size_t stage_bytes(const Params&);             // host and device
+//   static __device__ Data stage(const Params&, unsigned char* smem, int use_smem);
+//   static __device__ double log_posterior(const double* p, const Data&, const Params&);
+// and every Params has the fields ndim, use_sigma, has_affine, prior_kind,
+// p_min, p_max, mean, stddev, affine_offset and affine_scale.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#define LP_MAX_DIM 8
+#define LP_THREADS 128
+
+__device__ __forceinline__ float m_pow(float a, float b) { return powf(a, b); }
+__device__ __forceinline__ double m_pow(double a, double b) { return pow(a, b); }
+__device__ __forceinline__ float m_exp(float a) { return expf(a); }
+__device__ __forceinline__ double m_exp(double a) { return exp(a); }
+__device__ __forceinline__ float m_expm1(float a) { return expm1f(a); }
+__device__ __forceinline__ double m_expm1(double a) { return expm1(a); }
+__device__ __forceinline__ float m_log(float a) { return logf(a); }
+__device__ __forceinline__ double m_log(double a) { return log(a); }
+__device__ __forceinline__ float m_sqrt(float a) { return sqrtf(a); }
+__device__ __forceinline__ double m_sqrt(double a) { return sqrt(a); }
+
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+
+// power(base, e) of ops/mathx.py: 0 where base <= 0 (or NaN), never NaN from
+// a negative base
+template <typename C>
+__device__ __forceinline__ C power0(C base, C e) {
+    return base > C(0) ? m_pow(base, e) : C(0);
+}
+
+// absolute float64 parameter k of the walker state value q
+template <typename Params, typename S>
+__device__ __forceinline__ double to_absolute(const Params& P, int k, S q) {
+    return P.has_affine ? __dadd_rn(P.affine_offset[k], __dmul_rn(P.affine_scale[k], (double)q))
+                        : (double)q;
+}
+
+// Sum of the prior log-densities at absolute parameters p[ndim]: -inf
+// outside the open bounds (NaN included).
+template <typename Params>
+__device__ __forceinline__ double log_prior(const Params& P, const double* p) {
+    double sum = 0.0;
+    for (int i = 0; i < (int)P.ndim; ++i) {
+        const double v = p[i];
+        if (!(v > P.p_min[i] && v < P.p_max[i])) return -INFINITY;  // also NaN
+        double l;
+        if (P.prior_kind[i] == 0) {
+            l = 0.0;
+        } else if (P.prior_kind[i] == 1) {
+            l = -log(v);
+        } else {
+            const double zz = (v - P.mean[i]) / P.stddev[i];
+            l = -0.5 * (zz * zz);
+        }
+        sum = sum + l;
+    }
+    return sum;
+}
+
+// One point's term of the Gaussian residual sum, y_fit already divided by
+// yscale: log(2 pi sigma^2) + r^2 / sigma^2 with the intrinsic scatter sig
+// (use_sigma), else ((y - y_fit) / dy)^2.
+template <typename C>
+__device__ __forceinline__ C residual_term(bool use_sigma, C y_fit, C y, C inv_dy, C dy,
+                                           C su, C sig) {
+    if (use_sigma) {
+        const C two_pi = (C)6.283185307179586;
+        const C sg = sig * su;
+        const C sigma2 = dy * dy + sg * sg;
+        const C res = y - y_fit;
+        return m_log(two_pi * sigma2) + res * res / sigma2;
+    }
+    const C r = (y - y_fit) * inv_dy;
+    return r * r;
+}
+
+// The float64 log-posterior from the prior sum and the residual sum acc in
+// the compute type: -inf when the likelihood is not finite.
+template <typename C>
+__device__ __forceinline__ double finish_log_posterior(double log_prior, C acc, bool use_sigma,
+                                                       double ll_offset, double log_norm_const) {
+    const C ll = C(-0.5) * acc + (C)(use_sigma ? ll_offset : log_norm_const);
+    if (!isfinite(ll)) return -INFINITY;
+    return log_prior + (double)ll;
+}
+
+// K2: one Goodman-Weare half-step for half h of the ensemble x (2, half,
+// ndim), in place, with the proposal's log-posterior from the model policy
+// M. The partner pool is the other half. Draws are inputs: u_z and u_acc
+// uniform in [0, 1), j in [0, half). Adds the accept flag to n_accept and,
+// when chain_x is not null, writes the walker's new state and log-posterior
+// into the chain slot (2, half, ndim) / (2, half).
+template <typename M, typename S, typename X, typename L>
+__global__ void __launch_bounds__(LP_THREADS)
+stretch_half_step_kernel(const typename M::Params P, S* __restrict__ x,
+                         double* __restrict__ logp, int half, int h,
+                         const S* __restrict__ u_z, const long long* __restrict__ j,
+                         const S* __restrict__ u_acc, double a, X* __restrict__ chain_x,
+                         L* __restrict__ chain_lp, int* __restrict__ n_accept, int use_smem) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const typename M::Data d = M::stage(P, smem_raw, use_smem);
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= half) return;
+    const int ndim = (int)P.ndim;
+    const size_t w = (size_t)h * half + i;
+    S* xm = x + w * ndim;
+    const S* xj = x + ((size_t)(1 - h) * half + (size_t)j[i]) * ndim;
+
+    // z ~ g(z) on [1/a, a]: z = ((a - 1) u + 1)^2 / a
+    const S zw = add_rn(mul_rn((S)(a - 1.0), u_z[i]), S(1));
+    const S z = div_rn(mul_rn(zw, zw), (S)a);
+    S y[LP_MAX_DIM];
+    double p[LP_MAX_DIM];
+    for (int k = 0; k < ndim; ++k) {
+        y[k] = add_rn(xj[k], mul_rn(z, sub_rn(xm[k], xj[k])));
+        p[k] = to_absolute(P, k, y[k]);
+    }
+    double lp_y = M::log_posterior(p, d, P);
+    if (isnan(lp_y)) lp_y = -INFINITY;
+    const double lp_x = logp[w];
+    const S lz = (S)(ndim - 1) * m_log(z);
+    const double log_ratio = (double)lz + lp_y - lp_x;
+    // log(0) = -inf accepts unless log_ratio is -inf; a NaN ratio rejects
+    const double log_u = (double)m_log(u_acc[i]);
+    const bool accept = !isnan(log_ratio) && log_u < log_ratio;
+    double lp_new = lp_x;
+    if (accept) {
+        for (int k = 0; k < ndim; ++k) xm[k] = y[k];
+        logp[w] = lp_y;
+        lp_new = lp_y;
+    }
+    n_accept[w] += accept ? 1 : 0;
+    if (chain_x != nullptr) {
+        for (int k = 0; k < ndim; ++k) chain_x[w * ndim + k] = (X)xm[k];
+        chain_lp[w] = (L)lp_new;
+    }
+}
+
+// ------------------------------------------------------------------ launch
+
+// Dynamic shared memory for a kernel that stages `bytes`: 0 (read global
+// memory) when the card's opt-in limit is smaller.
+template <typename Kernel>
+static int smem_plan(Kernel kernel, size_t bytes, int* use_smem) {
+    int dev = 0, max_optin = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (bytes > (size_t)max_optin) {
+        *use_smem = 0;  // read the per-point data from global memory instead
+        return 0;
+    }
+    *use_smem = 1;
+    if (bytes > 48 * 1024)
+        return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+    return 0;
+}
+
+template <typename M, typename S, typename X, typename L>
+static int launch_half(const typename M::Params& P, void* x, double* logp, int half, int h,
+                       const void* u_z, const long long* j, const void* u_acc, double a,
+                       void* chain_x, void* chain_lp, int* n_accept, cudaStream_t stream) {
+    auto kernel = stretch_half_step_kernel<M, S, X, L>;
+    int use_smem = 0;
+    size_t bytes = M::stage_bytes(P);
+    int rc = smem_plan(kernel, bytes, &use_smem);
+    if (rc) return rc;
+    const int blocks = (half + LP_THREADS - 1) / LP_THREADS;
+    kernel<<<blocks, LP_THREADS, use_smem ? bytes : 0, stream>>>(
+        P, (S*)x, logp, half, h, (const S*)u_z, j, (const S*)u_acc, a, (X*)chain_x,
+        (L*)chain_lp, n_accept, use_smem);
+    return (int)cudaGetLastError();
+}
+
+// The half-step launch for the model policy M<C> of the run's dtypes: the
+// compute type C, the walker state S, the chain's state X and log-posterior
+// L, each float or double. Returns 0 or a cudaError_t code.
+template <template <typename> class M>
+static int launch_half_step(const typename M<float>::Params* P, int device, int compute_f64,
+                            void* x, int state_f64, double* logp, int half, int h,
+                            const void* u_z, const long long* j, const void* u_acc, double a,
+                            void* chain_x, int chain_x_f64, void* chain_lp, int chain_lp_f64,
+                            int* n_accept, void* stream) {
+    int rc = (int)cudaSetDevice(device);
+    if (rc) return rc;
+    if (half <= 0) return 0;
+    if (P->ndim > LP_MAX_DIM) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    const int key = compute_f64 * 8 + state_f64 * 4 + chain_x_f64 * 2 + chain_lp_f64;
+#define LP_HALF_CASE(K, C, S, X, L)                                                      \
+    case K:                                                                              \
+        return launch_half<M<C>, S, X, L>(*P, x, logp, half, h, u_z, j, u_acc, a, chain_x, \
+                                          chain_lp, n_accept, s);
+    switch (key) {
+        LP_HALF_CASE(0, float, float, float, float)
+        LP_HALF_CASE(1, float, float, float, double)
+        LP_HALF_CASE(2, float, float, double, float)
+        LP_HALF_CASE(3, float, float, double, double)
+        LP_HALF_CASE(4, float, double, float, float)
+        LP_HALF_CASE(5, float, double, float, double)
+        LP_HALF_CASE(6, float, double, double, float)
+        LP_HALF_CASE(7, float, double, double, double)
+        LP_HALF_CASE(8, double, float, float, float)
+        LP_HALF_CASE(9, double, float, float, double)
+        LP_HALF_CASE(10, double, float, double, float)
+        LP_HALF_CASE(11, double, float, double, double)
+        LP_HALF_CASE(12, double, double, float, float)
+        LP_HALF_CASE(13, double, double, float, double)
+        LP_HALF_CASE(14, double, double, double, float)
+        LP_HALF_CASE(15, double, double, double, double)
+    }
+#undef LP_HALF_CASE
+    return (int)cudaErrorInvalidValue;
+}
+

@@ -3,9 +3,9 @@ PyTorch versions beside them.
 
 * :func:`log_posterior` (K1, ``sc2_logpost_kernel``): the log-posterior of a
   batch of walker states.
-* :func:`stretch_half_step` (K2, ``stretch_half_step_kernel``): one
-  Goodman-Weare half-step of the ensemble, in place, with the proposal's
-  log-posterior computed by the same device function as K1.
+* :func:`stretch_half_step` (K2, ``stretch_half_step_kernel`` over
+  ``SC2Model``): one Goodman-Weare half-step of the ensemble, in place, with
+  the proposal's log-posterior computed by the same device function as K1.
 
 For a tensor on the CPU each wrapper runs its plain version
 (:func:`log_posterior_plain`, :func:`stretch_half_step_plain`). For a CUDA
@@ -15,20 +15,15 @@ adds one to ``LAUNCHES[name]``, and nothing else does.
 
 import ctypes
 
-import numpy as np
 import torch
+
+from .common import (LAUNCHES, MAX_DIM, FLOATS, check, check_buffers, cuda_args, affine_key,
+                     fill_priors_and_affine, half_step_checks, half_step_args,
+                     log_posterior_plain, propose_stretch, half_update,
+                     stretch_half_step_plain, reset_launch_counts)
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "log_posterior", "log_posterior_plain",
            "stretch_half_step", "stretch_half_step_plain", "propose_stretch", "half_update"]
-
-MAX_DIM = 8  # SC2_MAX_DIM of csrc/sc2_logpost.cu
-
-LAUNCHES = {"sc2_logpost": 0, "stretch_half_step": 0}
-
-
-def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 class _SC2Params(ctypes.Structure):
@@ -45,13 +40,6 @@ class _SC2Params(ctypes.Structure):
                    ("p_min", "p_max", "mean", "stddev", "affine_offset", "affine_scale")])
 
 
-def _affine_key(offset, scale):
-    if offset is None:
-        return None
-    return (tuple(float(v) for v in np.asarray(offset, float).ravel()),
-            tuple(float(v) for v in np.asarray(scale, float).ravel()))
-
-
 _BUFFERS = ("t_centered", "y", "inv_dy", "dy", "sigma_units", "bb_s_a", "bb_s_b", "bb_coeffs")
 
 
@@ -61,7 +49,7 @@ def _kernel_params(lp, ndim, offset, scale):
     new block)."""
     from ..core.constants import c3_42
     ll = lp.log_likelihood
-    key = (ndim, _affine_key(offset, scale),
+    key = (ndim, affine_key(offset, scale),
            tuple(getattr(ll, name).data_ptr() for name in _BUFFERS))
     cache = lp.__dict__.setdefault("_kernel_params_cache", {})
     if key in cache:
@@ -80,56 +68,12 @@ def _kernel_params(lp, ndim, offset, scale):
     P.log_norm_const, P.ll_offset = ll.log_norm_const, ll.offset
     P.eps_T, P.eps_L = consts["eps_T"], consts["eps_L"]
     P.a_model, P.alpha, P.c3_42 = consts["a"], consts["alpha"], c3_42
-    for i, prior in enumerate(lp.priors):
-        P.prior_kind[i], P.p_min[i], P.p_max[i], P.mean[i], P.stddev[i] = prior.kernel_spec()
-    P.has_affine = int(offset is not None)
-    if offset is not None:
-        for i, (o, s) in enumerate(zip(*key[1])):
-            P.affine_offset[i], P.affine_scale[i] = o, s
+    fill_priors_and_affine(P, lp.priors, key[1])
     cache[key] = P
     return P
 
 
-def _check(t, name, shape, dtypes, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype not in dtypes:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-_FLOATS = (torch.float32, torch.float64)
-
-
-def _check_log_likelihood(lp, device):
-    ll = lp.log_likelihood
-    for name in _BUFFERS:
-        buf = getattr(ll, name)
-        if buf.device != device or buf.dtype != ll.compute_dtype or not buf.is_contiguous():
-            raise ValueError(f"log-likelihood buffer {name} must be a contiguous "
-                             f"{ll.compute_dtype} tensor on {device}")
-
-
-def _cuda_args(device):
-    return device.index if device.index is not None else torch.cuda.current_device(), \
-        torch.cuda.current_stream(device).cuda_stream
-
-
 # ------------------------------------------------------------------------ K1
-
-def log_posterior_plain(lp, q, param_offset=None, param_scale=None):
-    """Plain PyTorch K1: ``lp``'s log-posterior at ``offset + scale * q``
-    (float64), or at ``q`` when no affine map is given."""
-    p = q.to(torch.float64)
-    if param_offset is not None:
-        off = torch.as_tensor(np.asarray(param_offset, float), device=q.device)
-        sc = torch.as_tensor(np.asarray(param_scale, float), device=q.device)
-        p = off + sc * p
-    return lp.forward_plain(p)
-
 
 def log_posterior(lp, q, param_offset=None, param_scale=None):
     """K1: the log-posterior (W,) float64 of LogPosterior ``lp`` at each walker
@@ -143,13 +87,13 @@ def log_posterior(lp, q, param_offset=None, param_scale=None):
     if q.ndim != 2:
         raise ValueError(f"q must be (W, ndim), got shape {tuple(q.shape)}")
     W, ndim = q.shape
-    _check(q, "q", (W, ndim), _FLOATS, q.device)
-    _check_log_likelihood(lp, q.device)
+    check(q, "q", (W, ndim), FLOATS, q.device)
+    check_buffers(lp.log_likelihood, _BUFFERS, q.device)
     from .build import library
     lib = library()
     P = _kernel_params(lp, ndim, param_offset, param_scale)
     out = torch.empty(W, dtype=torch.float64, device=q.device)
-    dev, stream = _cuda_args(q.device)
+    dev, stream = cuda_args(q.device)
     rc = lib.sc2_logpost_launch(ctypes.addressof(P), dev,
                                 int(lp.log_likelihood.compute_dtype == torch.float64),
                                 q.data_ptr(), int(q.dtype == torch.float64), W,
@@ -161,45 +105,6 @@ def log_posterior(lp, q, param_offset=None, param_scale=None):
 
 
 # ------------------------------------------------------------------------ K2
-
-def propose_stretch(u_z, j, x_move, x_other, a=2.0):
-    """The Goodman-Weare stretch proposal from given draws: z ~ g(z) ∝
-    1/sqrt(z) on [1/a, a] as z = ((a-1)u + 1)^2 / a, and the partner
-    ``x_other[j]``; returns (y, z)."""
-    z = ((a - 1.0) * u_z + 1.0) ** 2 / a
-    x_j = x_other[j]
-    return x_j + z[:, None] * (x_move - x_j), z
-
-
-def half_update(log_prob, x_move, x_other, logp_move, u_z, j, u_acc, a=2.0):
-    """Plain half-step: propose, evaluate ``log_prob`` (of the walker state)
-    on the proposals, accept if log u < (ndim-1) log z + lp(y) - lp(x).
-    Returns (x_new, logp_new, accept)."""
-    ndim = x_move.shape[-1]
-    y, z = propose_stretch(u_z, j, x_move, x_other, a)
-    logp_y = log_prob(y)
-    logp_y = torch.where(torch.isnan(logp_y), torch.full_like(logp_y, -torch.inf), logp_y)
-    log_ratio = (ndim - 1.0) * torch.log(z) + logp_y - logp_move
-    accept = torch.log(u_acc) < log_ratio
-    x_new = torch.where(accept[:, None], y, x_move)
-    logp_new = torch.where(accept, logp_y, logp_move)
-    return x_new, logp_new, accept
-
-
-def stretch_half_step_plain(log_prob, x, logp, h, u_z, j, u_acc, a=2.0, chain_x=None,
-                            chain_logp=None, n_accept=None):
-    """Plain PyTorch K2, with K2's in-place contract: half ``h`` of ``x``
-    (2, half, ndim) and ``logp`` (2, half) is updated, ``n_accept[h]`` counts
-    the accepts, and the chain slot gets the new half when given."""
-    x_new, lp_new, acc = half_update(log_prob, x[h], x[1 - h], logp[h], u_z, j, u_acc, a)
-    x[h] = x_new
-    logp[h] = lp_new
-    if n_accept is not None:
-        n_accept[h] += acc.to(n_accept.dtype)
-    if chain_x is not None:
-        chain_x[h] = x_new.to(chain_x.dtype)
-        chain_logp[h] = lp_new.to(chain_logp.dtype)
-
 
 def stretch_half_step(lp, x, logp, h, u_z, j, u_acc, a=2.0, param_offset=None,
                       param_scale=None, chain_x=None, chain_logp=None, n_accept=None,
@@ -225,40 +130,16 @@ def stretch_half_step(lp, x, logp, h, u_z, j, u_acc, a=2.0, param_offset=None,
                                        chain_logp, n_accept)
     if x.device.type != "cuda":
         raise ValueError(f"K2 runs on CUDA (or its plain version on the CPU), not {x.device}")
-    if x.ndim != 3 or x.shape[0] != 2:
-        raise ValueError(f"x must be (2, half, ndim), got shape {tuple(x.shape)}")
-    if h not in (0, 1):
-        raise ValueError("h must be 0 or 1")
-    if (chain_x is None) != (chain_logp is None) or n_accept is None:
-        raise ValueError("K2 needs n_accept, and chain_x with chain_logp or neither")
-    _, half, ndim = x.shape
-    dev = x.device
-    _check(x, "x", (2, half, ndim), _FLOATS, dev)
-    _check(logp, "logp", (2, half), (torch.float64,), dev)
-    _check(u_z, "u_z", (half,), (x.dtype,), dev)
-    _check(u_acc, "u_acc", (half,), (x.dtype,), dev)
-    _check(j, "j", (half,), (torch.int64,), dev)
-    _check(n_accept, "n_accept", (2, half), (torch.int32,), dev)
-    if check_partners and bool(((j < 0) | (j >= half)).any()):
-        raise ValueError(f"partner indices j must lie in [0, {half})")
-    if chain_x is not None:
-        _check(chain_x, "chain_x", (2, half, ndim), _FLOATS, dev)
-        _check(chain_logp, "chain_logp", (2, half), _FLOATS, dev)
-    _check_log_likelihood(lp, dev)
+    _, ndim = half_step_checks(x, logp, h, u_z, j, u_acc, chain_x, chain_logp, n_accept,
+                               check_partners)
+    check_buffers(lp.log_likelihood, _BUFFERS, x.device)
     from .build import library
     lib = library()
     P = _kernel_params(lp, ndim, param_offset, param_scale)
-    device_index, stream = _cuda_args(dev)
+    device_index, stream = cuda_args(x.device)
     rc = lib.stretch_half_step_launch(
-        ctypes.addressof(P), device_index,
-        int(lp.log_likelihood.compute_dtype == torch.float64),
-        x.data_ptr(), int(x.dtype == torch.float64), logp.data_ptr(), half, int(h),
-        u_z.data_ptr(), j.data_ptr(), u_acc.data_ptr(), float(a),
-        None if chain_x is None else chain_x.data_ptr(),
-        int(chain_x is not None and chain_x.dtype == torch.float64),
-        None if chain_logp is None else chain_logp.data_ptr(),
-        int(chain_logp is not None and chain_logp.dtype == torch.float64),
-        n_accept.data_ptr(), stream)
+        ctypes.addressof(P), device_index, int(lp.log_likelihood.compute_dtype == torch.float64),
+        *half_step_args(x, logp, h, u_z, j, u_acc, a, chain_x, chain_logp, n_accept), stream)
     if rc != 0:
         raise RuntimeError(f"stretch_half_step_kernel launch failed: cudaError {rc}")
     LAUNCHES["stretch_half_step"] += 1

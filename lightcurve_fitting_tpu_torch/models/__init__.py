@@ -9,4 +9,6 @@ from ..ops.mathx import power  # noqa: F401
 from .base import Model, LogLikelihood, format_unit  # noqa: F401
 from .priors import (Prior, UniformPrior, LogUniformPrior, GaussianPrior,  # noqa: F401
                      KDEPrior)
-from .shock_cooling import BaseShockCooling, ShockCooling2  # noqa: F401
+from .blackbody import (planck_fast, planck, blackbody_to_filters, planck_lnu,  # noqa: F401
+                        bandflux_pointwise, bandflux_outer)
+from .shock_cooling import BaseShockCooling, ShockCooling2, ShockCooling3  # noqa: F401

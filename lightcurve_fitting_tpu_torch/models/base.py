@@ -4,18 +4,22 @@ sampler.
 
 Every concrete model implements one torch function,
 
-    _eval_points(self, t, quad, *params) -> y (..., N)
+    _eval_points(self, t, quad, *params, plain=False) -> y (..., N)
 
 over per-point times ``t`` (N,), a ``quad`` dict of static per-point tensors
 built from :meth:`prepare_quad`, and parameters that are 0-d tensors or
 ``(W, 1)`` columns. Batching over walkers is that leading walker axis,
 written out (the JAX package vmaps a scalar-parameter function instead).
+``plain=True`` keeps the band flux on its plain PyTorch version on every
+device (the log-likelihood's plain path); otherwise the quadrature band
+flux launches K3 on CUDA.
 """
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..ops.filterbank import native_lengths
 from ..ops.mathx import epoch_reference
 from ..utils import units as u
 
@@ -67,8 +71,8 @@ class Model:
     n_nodes = None  # FilterBank mode: None = exact native quadrature
     use_band_table = True
     """Blackbody band integrals via precomputed ln g_b(ln T) tables
-    (ops/bandtable.py). The quadrature path (False) is not ported yet
-    (ROADMAP Queue 1 item 8)."""
+    (ops/bandtable.py). False on models whose band integral cannot
+    factorize (sampled E(B-V)): the exact quadrature then runs."""
     cutoff_freq = np.inf
 
     @property
@@ -103,12 +107,15 @@ class Model:
 
     def prepare_quad(self, filters, bank=None):
         """Build the static per-point quadrature dict (host numpy arrays) for
-        an array of Filter objects (one entry per photometry point)."""
-        if not self.use_band_table:
-            raise NotImplementedError("the quadrature band-flux path is not ported yet "
-                                      "(ROADMAP Queue 1 item 8)")
+        an array of Filter objects (one entry per photometry point): the
+        Chebyshev table rows, or with ``use_band_table = False`` the
+        quadrature ``nodes``, ``weights`` and ``k_ext`` (N, K), as in the JAX
+        package."""
         bank = bank or self.bank_for(sorted(set(filters)))
         ids = bank.band_ids(filters)
+        if not self.use_band_table:
+            nodes, weights, k_ext = bank.gather(ids, z=self.z, device=False)
+            return {"nodes": nodes, "weights": weights, "k_ext": k_ext, "band_ids": ids}
         quad = {"band_ids": ids}
         quad["bb_coeffs"], quad["bb_s_a"], quad["bb_s_b"] = \
             self.table_for(bank).gather(ids, device=False)
@@ -118,17 +125,22 @@ class Model:
         from ..ops.filterbank import band_table_for
         return band_table_for(bank, z=self.z, cutoff_freq=self.cutoff_freq)
 
-    def _bandflux(self, quad, T, R):
-        """Band-averaged blackbody L_nu per point from the Chebyshev table."""
-        from ..ops.bandtable import chebyshev_bandflux
-        return chebyshev_bandflux(quad["bb_coeffs"], T, R, quad["bb_s_a"], quad["bb_s_b"])
+    def _bandflux(self, quad, T, R, plain=False):
+        """Band-averaged blackbody L_nu per point: the Chebyshev table when
+        the quad dict has one, the exact quadrature otherwise."""
+        if "bb_coeffs" in quad:
+            from ..ops.bandtable import chebyshev_bandflux
+            return chebyshev_bandflux(quad["bb_coeffs"], T, R, quad["bb_s_a"], quad["bb_s_b"])
+        from .blackbody import bandflux_pointwise, bandflux_pointwise_plain
+        flux = bandflux_pointwise_plain if plain else bandflux_pointwise
+        return flux(quad["nodes"], quad["weights"], T, R, cutoff_freq=self.cutoff_freq)
 
-    def _eval_points(self, t, quad, *params):
+    def _eval_points(self, t, quad, *params, plain=False):
         raise NotImplementedError
 
     def kernel_constants(self):
-        """Model constants of the fused CUDA log-posterior (K1), for models
-        that have one; see ShockCooling2."""
+        """Model constants of the fused CUDA log-posterior, for models that
+        have one; see ShockCooling2 and ShockCooling3."""
         raise NotImplementedError(
             f"{self.__class__.__name__} has no fused CUDA log-posterior yet "
             "(ROADMAP Queue 1 item 7)")
@@ -229,11 +241,17 @@ class LogLikelihood(nn.Module):
     The buffers are the per-point data in the compute dtype resolved for the
     device at construction (float32 on CUDA, float64 on the CPU by default):
     the centered times, ``y/yscale``, ``1/dy``, ``dy`` and the sigma units,
-    and the Chebyshev table rows ``bb_coeffs (N, D+1)``, ``bb_s_a (N,)``,
-    ``bb_s_b (N,)``. The absolute float64 times feed the plain path's
+    and the band data of the model's path. The table path keeps the
+    Chebyshev rows ``bb_coeffs (N, D+1)``, ``bb_s_a (N,)``, ``bb_s_b (N,)``.
+    The quadrature path keeps one row per band, ``nodes``, ``weights`` and
+    ``k_ext`` (B, K), with ``band_ids`` (N,) int64 naming each point's row
+    and ``n_native`` (B,) int64, each band's node count before its
+    zero-weight padding. The absolute float64 times feed the plain path's
     :func:`~lightcurve_fitting_tpu_torch.ops.mathx.hot_phase`. The constants
     ``log_norm_const``, ``offset`` and ``inv_yscale`` are host float64.
     """
+
+    TABLE_BUFFERS = ("bb_coeffs", "bb_s_a", "bb_s_b")
 
     def __init__(self, model, quad, t, y_n, dy_n, sigma_units, log_norm_const, offset,
                  inv_yscale, use_sigma, sigma_type, device):
@@ -262,9 +280,22 @@ class LogLikelihood(nn.Module):
         self.register_buffer("inv_dy", buf(1.0 / np.asarray(dy_n, float)))
         self.register_buffer("dy", buf(dy_n))
         self.register_buffer("sigma_units", buf(np.broadcast_to(sigma_units, (N,))))
-        self.register_buffer("bb_coeffs", buf(quad["bb_coeffs"]))
-        self.register_buffer("bb_s_a", buf(quad["bb_s_a"]))
-        self.register_buffer("bb_s_b", buf(quad["bb_s_b"]))
+        self.use_band_table = "bb_coeffs" in quad
+        if self.use_band_table:
+            for name in self.TABLE_BUFFERS:
+                self.register_buffer(name, buf(quad[name]))
+        else:
+            # the per-point rows are gathered from the bank's per-band rows:
+            # the first point of each band gives that band's row back exactly
+            _, first, rows = np.unique(np.asarray(quad["band_ids"]), return_index=True,
+                                       return_inverse=True)
+            for name in ("nodes", "weights", "k_ext"):
+                self.register_buffer(name, buf(np.asarray(quad[name])[first]))
+            self.register_buffer("band_ids", torch.as_tensor(rows.ravel(), dtype=torch.int64,
+                                                             device=device))
+            self.register_buffer("n_native", torch.as_tensor(
+                native_lengths(np.asarray(quad["weights"])[first]), dtype=torch.int64,
+                device=device))
 
     @classmethod
     def from_quad(cls, model, quad, t, y, dy, use_sigma=False, sigma_type="relative",
@@ -285,16 +316,23 @@ class LogLikelihood(nn.Module):
 
     @property
     def quad(self):
-        return {"bb_coeffs": self.bb_coeffs, "bb_s_a": self.bb_s_a, "bb_s_b": self.bb_s_b}
+        """The per-point quad dict ``_eval_points`` reads (the quadrature
+        rows gathered per point, as the JAX package's ``prepare_quad``
+        gives them)."""
+        if self.use_band_table:
+            return {name: getattr(self, name) for name in self.TABLE_BUFFERS}
+        return {"nodes": self.nodes[self.band_ids], "weights": self.weights[self.band_ids],
+                "k_ext": self.k_ext[self.band_ids], "band_ids": self.band_ids}
 
     def forward(self, p):
-        """Plain torch log-likelihood of each row of ``p`` (W, ndim)."""
+        """Plain torch log-likelihood of each row of ``p`` (W, ndim), the
+        band flux included on every device."""
         squeeze = p.ndim == 1
         p = p.reshape(-1, p.shape[-1])
         n_model = p.shape[1] - (1 if self.use_sigma else 0)
         cdt = self.y.dtype
         y_fit = self.model._eval_points(self.t, self.quad,
-                                        *[p[:, i:i + 1] for i in range(n_model)])
+                                        *[p[:, i:i + 1] for i in range(n_model)], plain=True)
         # 1/yscale rounded to the compute dtype first, as the JAX package's
         # ``dtype.type(inv_yscale)`` (and K1's cast) does
         y_fit = y_fit.to(cdt) * float(torch.tensor(self.inv_yscale, dtype=cdt))

@@ -3,18 +3,23 @@
 The numpy half of ``lightcurve_fitting_tpu/ops/extinction.py``: UV uses the
 Fitzpatrick & Massa (1990) parametrization with the F99 coefficients;
 optical/IR is a natural cubic spline through the standard F99 anchor points.
-The traced-E(B-V) device functions (``f99_k_jax``, ``extinction_factor_jax``)
-wait for the quadrature path (ROADMAP Queue 1 item 8).
+:func:`extinction_factor` applies a sampled E(B-V) to the curve precomputed
+at static quadrature nodes, on tensors. ``f99_k_jax`` (the curve at traced
+wavelengths) has no caller in the JAX package and waits for
+``ops/interpolate.py::ppoly_eval`` (ROADMAP Queue 1 item 9).
 """
 
 import functools
 
 import numpy as np
+import torch
 
 from .interpolate import natural_cubic_coeffs, ppoly_eval_np
 from ..core.constants import C_AA_THZ
 
-__all__ = ["fitzpatrick99", "extinction_law", "f99_curve"]
+__all__ = ["fitzpatrick99", "extinction_law", "f99_curve", "extinction_factor", "EXT_COEF"]
+
+EXT_COEF = -0.4 * np.log(10.0)   # 10^(A/-2.5) = exp(EXT_COEF * A)
 
 _X0 = 4.596     # UV bump position (1/um)
 _GAMMA = 0.99   # UV bump width
@@ -84,3 +89,10 @@ def extinction_law(freq, ebv, rv=3.1):
     ebv_arr = np.atleast_1d(np.asarray(ebv, float))
     A = np.squeeze(np.multiply.outer(ebv_arr, k))
     return 10.0 ** (A / -2.5)
+
+
+def extinction_factor(k, ebv):
+    """``10^(ebv*k/-2.5)`` for tensors: ``k`` the precomputed A/E(B-V) at
+    static nodes, ``ebv`` a sampled E(B-V) broadcastable to it (reference
+    ``extinction_factor_jax``, same operation order)."""
+    return torch.exp(k * ebv * EXT_COEF)

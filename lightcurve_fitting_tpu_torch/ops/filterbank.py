@@ -19,7 +19,7 @@ import numpy as np
 from ..core.constants import C_AA_THZ
 from .extinction import f99_curve
 
-__all__ = ["FilterBank", "bank_for", "band_table_for"]
+__all__ = ["FilterBank", "bank_for", "band_table_for", "native_lengths"]
 
 
 def _trapezoid_dx(x):
@@ -139,6 +139,16 @@ class FilterBank:
         if device is not False:
             return _to_device((nodes_emit, weights, k_ext), device)
         return nodes_emit, weights, k_ext
+
+
+def native_lengths(weights):
+    """Each row's native node count: the index after its last non-zero
+    weight (0 for an all-zero row). ``weights`` (B, K) per band (or (N, K)
+    per point); the zero-weight padding past it adds nothing to a finite
+    band sum, so the fused kernels stop there."""
+    nz = np.asarray(weights) != 0
+    K = nz.shape[-1]
+    return np.where(nz.any(-1), K - np.argmax(nz[..., ::-1], axis=-1), 0)
 
 
 def _to_device(arrays, device):

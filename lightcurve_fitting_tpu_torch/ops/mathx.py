@@ -9,7 +9,7 @@ import torch
 
 from ..core import config
 
-__all__ = ["power", "safe_reciprocal", "hot", "hot_phase"]
+__all__ = ["power", "safe_reciprocal", "planck_denom_inv", "hot", "hot_phase"]
 
 
 def hot(device, *xs):
@@ -64,3 +64,13 @@ def safe_reciprocal(x):
     positive = x > 0.0
     return torch.where(positive, 1.0 / torch.where(positive, x, torch.ones_like(x)),
                        torch.zeros_like(x))
+
+
+def planck_denom_inv(x):
+    """``1 / (exp(x) - 1)`` with the reference's convention that x <= 0 maps
+    to 0 (reference models.py:1128: a nonpositive temperature yields x = 0
+    there and hence zero luminosity).
+
+    expm1 keeps float32 accurate in the Rayleigh-Jeans limit, and the Wien
+    tail overflows to 1/inf = 0 instead of NaN."""
+    return safe_reciprocal(torch.expm1(x))

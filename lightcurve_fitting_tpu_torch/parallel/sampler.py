@@ -8,12 +8,14 @@ half-ensembles are updated in sequence (red-black, exactly emcee's
 ``StretchMove``), and half 1 uses the already-updated half 0 as its partner
 pool — so a step is two dependent half-steps. With a
 :class:`~lightcurve_fitting_tpu_torch.fitting.LogPosterior` each half-step is
-one call of :func:`~lightcurve_fitting_tpu_torch.kernels.sc2.stretch_half_step`:
-on CUDA one launch of the fused kernel K2, which writes the new state into a
-preallocated device chain in the store dtype and adds to an int32 accept
-counter; the step loop never synchronizes with the host, and the chain comes
-to the host once per progress segment. On the CPU the same call runs the
-plain half-step, which also serves any other log-probability callable.
+one call of :func:`~lightcurve_fitting_tpu_torch.kernels.stretch_half_step`:
+on CUDA one launch of the model's fused half-step kernel (K2 for
+ShockCooling2, its SC3 instantiation for ShockCooling3), which writes the
+new state into a preallocated device chain in the store dtype and adds to an
+int32 accept counter; the step loop never synchronizes with the host, and
+the chain comes to the host once per progress segment. On the CPU the same
+call runs the plain half-step, which also serves any other log-probability
+callable.
 
 The draws of global step i (u_z, j, u_acc for both halves) come from a
 ``torch.Generator`` on the device seeded from (seed, i) alone, so a run split
@@ -26,8 +28,8 @@ import warnings
 import numpy as np
 import torch
 
-from ..kernels.sc2 import half_update, propose_stretch, stretch_half_step, \
-    stretch_half_step_plain, log_posterior
+from .. import kernels
+from ..kernels.common import half_update, propose_stretch, stretch_half_step_plain
 
 __all__ = ["EnsembleSampler", "make_stretch_kernel", "propose_stretch"]
 
@@ -88,8 +90,8 @@ class EnsembleSampler:
                  device=None):
         """``log_prob_fn`` maps absolute float64 parameters (W, ndim) to (W,)
         log-probabilities. A :class:`~lightcurve_fitting_tpu_torch.fitting.
-        LogPosterior` runs through the fused kernels K1/K2 on CUDA; any other
-        callable runs the plain step, on the CPU only.
+        LogPosterior` runs through its model's fused kernels on CUDA; any
+        other callable runs the plain step, on the CPU only.
 
         ``store_dtype`` (e.g. np.float32) downcasts the *stored* chain
         history. The default ``None`` is auto: runs whose projected history
@@ -111,10 +113,13 @@ class EnsembleSampler:
         self.device = torch.device(device if device is not None else
                                    ("cuda" if torch.cuda.is_available() else "cpu"))
         self._fused = isinstance(log_prob_fn, LogPosterior)
-        if self.device.type == "cuda" and not self._fused:
-            raise NotImplementedError(
-                "on CUDA the sampler runs the fused kernel K2, which takes a LogPosterior "
-                "(fitting.make_log_posterior); other log-probabilities run on the CPU")
+        if self.device.type == "cuda":
+            if not self._fused:
+                raise NotImplementedError(
+                    "on CUDA the sampler runs a fused half-step kernel, which takes a "
+                    "LogPosterior (fitting.make_log_posterior); other log-probabilities run "
+                    "on the CPU")
+            kernels.module_for(log_prob_fn.log_likelihood.model)  # raises without kernels
         self._store_dtype = _torch_dtype(store_dtype)
         if (param_offset is None) != (param_scale is None):
             raise ValueError("param_offset and param_scale must be given together")
@@ -163,9 +168,10 @@ class EnsembleSampler:
 
     def batched_logp(self, q):
         """Log-probability (W,) float64 of walker states ``q`` (W, ndim) in the
-        internal (possibly rescaled) space: K1 for a LogPosterior."""
+        internal (possibly rescaled) space: the fused log-posterior kernel
+        for a LogPosterior on CUDA."""
         if self._fused:
-            return log_posterior(self._log_prob_fn, q, self._offset, self._scale)
+            return kernels.log_posterior(self._log_prob_fn, q, self._offset, self._scale)
         p = q.to(torch.float64)
         if self._offset is not None:
             p = (torch.as_tensor(self._offset, device=q.device)
@@ -184,9 +190,9 @@ class EnsembleSampler:
 
     def _half_step(self, x, logp, h, u_z, j, u_acc, chain_x, chain_logp, n_accept):
         if self._fused:
-            stretch_half_step(self._log_prob_fn, x, logp, h, u_z, j, u_acc, self.a,
-                              self._offset, self._scale, chain_x, chain_logp, n_accept,
-                              check_partners=False)
+            kernels.stretch_half_step(self._log_prob_fn, x, logp, h, u_z, j, u_acc, self.a,
+                                      self._offset, self._scale, chain_x, chain_logp, n_accept,
+                                      check_partners=False)
         else:
             stretch_half_step_plain(self.batched_logp, x, logp, h, u_z, j, u_acc, self.a,
                                     chain_x, chain_logp, n_accept)

@@ -1,4 +1,6 @@
-"""The CUDA kernels K1 and K2 (``lightcurve_fitting_tpu_torch/kernels``).
+"""The CUDA kernels of ``lightcurve_fitting_tpu_torch/kernels``: K1 and K2
+(ShockCooling2), K3 (the quadrature band flux) and the ShockCooling3
+log-posterior and half-step built on it.
 
 This file imports neither jax nor the JAX package, so the ``cuda``-marked
 tests also run on a machine with the card and no jax:
@@ -11,7 +13,13 @@ Tolerances on the card, kernel against its plain PyTorch version on the same
 inputs: float32 <= 1e-5 |ll| (the repo's float32 log-likelihood budget; the
 kernel fuses multiply-adds and sums the 149 points in another order),
 float64 <= 1e-10 |ll|, identical -inf sets; K2's accept flags agree except at
-near-ties, and the new states are bit-equal where they agree.
+near-ties, and the new states are bit-equal where they agree. For the flux
+model ShockCooling3 |ll| is replaced by |ll - c| + |c|, c the normalization
+constant added in the compute dtype: near the best fit the residual sum and
+c cancel, and float32 rounding scales with the terms, not with their sum
+(plain float32 itself is 1e-3 |ll| from float64 there). K3 per point:
+float32 <= 1e-5 relative (a sum of up to 89 non-negative float32 terms in
+another order, ~89 ulps at worst), float64 <= 1e-12 relative.
 """
 
 import ctypes
@@ -26,9 +34,12 @@ torch.set_num_threads(1)
 from lightcurve_fitting_tpu_torch import kernels  # noqa: E402
 from lightcurve_fitting_tpu_torch.core import config  # noqa: E402
 from lightcurve_fitting_tpu_torch.fitting import make_log_posterior  # noqa: E402
-from lightcurve_fitting_tpu_torch.kernels import build, sc2  # noqa: E402
+from lightcurve_fitting_tpu_torch.kernels import build, common, sc2, sc3  # noqa: E402
 from lightcurve_fitting_tpu_torch.lightcurve import LC  # noqa: E402
-from lightcurve_fitting_tpu_torch.models import ShockCooling2, UniformPrior  # noqa: E402
+from lightcurve_fitting_tpu_torch.models import (BaseShockCooling, ShockCooling2,  # noqa: E402
+                                                 ShockCooling3, UniformPrior)
+from lightcurve_fitting_tpu_torch.models.blackbody import (  # noqa: E402
+    bandflux_pointwise, bandflux_pointwise_plain)
 
 EXAMPLE = os.path.join(os.path.dirname(__file__), "..", "lightcurve_fitting_tpu", "data",
                        "SN2016bkv.csv")
@@ -45,6 +56,47 @@ def lc():
     lc.calcAbsMag()
     lc.calcLum()
     return lc.where(MJD_min=57468.0, MJD_max=57485.0)
+
+
+D_L = 10 ** (30.79 / 5 + 1) / 1e6    # Mpc, pinned by the flagship's dm
+SC3_LO = np.array([0.5, 0.5, 5.0, 1.0, D_L - 0.005, 0.0, 57468.5])
+SC3_UP = np.array([2.0, 2.0, 20.0, 5.0, D_L + 0.005, 0.1, 57468.7])
+SC3_OFFSET = (SC3_LO + SC3_UP) / 2
+SC3_SCALE = (SC3_UP - SC3_LO) / 2 * (1 + 1e-6)
+
+
+@pytest.fixture(scope="module")
+def lc_flux(lc):
+    out = lc.where(MJD_min=57468.0, MJD_max=57485.0)
+    out.calcFlux()
+    return out
+
+
+def _sc3_priors(t0_hi=57468.7):
+    return [UniformPrior(0.0, 10.0), UniformPrior(0.0, 10.0), UniformPrior(0.0, 100.0),
+            UniformPrior(0.0, 100.0), UniformPrior(D_L - 0.01, D_L + 0.01),
+            UniformPrior(0.0, 1.0), UniformPrior(57468.0, t0_hi)]
+
+
+def _sc3_walkers(n, seed=0):
+    """Init-window walkers, the last rows outside the priors or NaN."""
+    p = np.random.default_rng(seed).uniform(SC3_LO, SC3_UP, size=(n, 7))
+    p[-4:] = p[:4]
+    p[-4, 0], p[-3, 5], p[-2, 6], p[-1, 3] = -1.0, 1.5, 57468.75, np.nan
+    return p
+
+
+def _c_fields(struct):
+    """Field names of ``struct`` in the CUDA sources, in order."""
+    for path in build._sources()[0]:
+        with open(path) as f:
+            src = f.read()
+        head = f"struct {struct} {{"
+        if head in src:
+            body = src[src.index(head):src.index("};", src.index(head))]
+            return [ln.split(";")[0].split()[-1].split("[")[0].lstrip("*")
+                    for ln in body.splitlines()[1:] if ";" in ln]
+    raise AssertionError(f"struct {struct} not found")
 
 
 @pytest.fixture
@@ -67,12 +119,17 @@ def _walkers(n, seed=0):
     return p
 
 
-def _assert_ll_close(got, want, rel):
+def _assert_ll_close(got, want, rel, const=0.0):
+    """Same -inf sets; |got - want| <= rel (|ll - c| + |c|) where finite, c
+    the normalization constant added to the residual sum in the compute
+    dtype (the float32 rounding scales with both terms, which cancel near
+    the best fit of a flux model)."""
     got, want = got.cpu().numpy(), want.cpu().numpy()
     assert not np.isnan(got).any()
     assert np.array_equal(np.isneginf(got), np.isneginf(want))
     fin = np.isfinite(want)
-    assert np.all(np.abs(got[fin] - want[fin]) <= rel * np.abs(want[fin]))
+    scale = np.abs(want[fin] - const) + abs(const)
+    assert np.all(np.abs(got[fin] - want[fin]) <= rel * scale)
 
 
 # ----------------------------------------------------------------- CPU side
@@ -87,20 +144,30 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build._nvcc()
     srcs, _ = build._sources()
-    assert [os.path.basename(s) for s in srcs] == ["sc2_logpost.cu"]
+    assert [os.path.basename(s) for s in srcs] == ["sc2_logpost.cu", "sc3_logpost.cu"]
 
 
 def test_param_block_layout_matches_the_c_struct():
     """Every field of struct SC2Params is 8 bytes wide: 8 pointers, 5 ints,
-    9 doubles, then 7 arrays of SC2_MAX_DIM = 8 (no padding anywhere)."""
+    9 doubles, then 7 arrays of LP_MAX_DIM = 8 (no padding anywhere)."""
     with open(os.path.join(build.CSRC_DIR, "sc2_logpost.cu")) as f:
         src = f.read()
-    assert "#define SC2_MAX_DIM 8" in src and sc2.MAX_DIM == 8
+    with open(os.path.join(build.CSRC_DIR, "stretch.cuh")) as f:
+        assert "#define LP_MAX_DIM 8" in f.read() and sc2.MAX_DIM == 8
     assert ctypes.sizeof(sc2._SC2Params) == 8 * (8 + 5 + 9) + 7 * 8 * 8
-    body = src[src.index("struct SC2Params {"):src.index("};", src.index("struct SC2Params {"))]
-    c_names = [ln.split(";")[0].split()[-1].split("[")[0].lstrip("*")
-               for ln in body.splitlines()[1:] if ";" in ln]
-    assert c_names == [name for name, _ in sc2._SC2Params._fields_]
+    assert "struct SC2Params {" in src
+    assert _c_fields("SC2Params") == [name for name, _ in sc2._SC2Params._fields_]
+
+
+@pytest.mark.parametrize("struct,mirror,size", [
+    # 10 pointers, 6 ints, 19 doubles, 7 arrays of LP_MAX_DIM
+    ("SC3Params", sc3._SC3Params, 8 * (10 + 6 + 19) + 7 * 8 * 8),
+    # 8 pointers, 6 ints, 4 doubles
+    ("BandfluxParams", sc3._BandfluxParams, 8 * (8 + 6 + 4)),
+])
+def test_sc3_param_blocks_match_the_c_structs(struct, mirror, size):
+    assert ctypes.sizeof(mirror) == size
+    assert _c_fields(struct) == [name for name, _ in mirror._fields_]
 
 
 def test_wrappers_route_by_device(lc):
@@ -115,6 +182,62 @@ def test_wrappers_route_by_device(lc):
     with pytest.raises(ValueError, match="K2 runs on CUDA"):
         sc2.stretch_half_step(lp, x, x[..., 0], 0, x[0, :, 0], x[0, :, 0].long(),
                               x[0, :, 0])
+
+
+def test_sc3_wrappers_route_by_device(lc_flux):
+    lp = make_log_posterior(ShockCooling3(lc_flux), lc_flux, _sc3_priors(), device="cpu")
+    q = torch.as_tensor(_sc3_walkers(16))
+    x = torch.as_tensor(_sc3_walkers(8)[:, None, :].reshape(2, 4, 7)).contiguous()
+    logp = lp.forward_plain(x.reshape(8, 7)).reshape(2, 4)
+    u = torch.full((4,), 0.5, dtype=torch.float64)
+    j = torch.zeros(4, dtype=torch.int64)
+    acc = torch.zeros((2, 4), dtype=torch.int32)
+    before = dict(kernels.LAUNCHES)
+    assert torch.equal(kernels.log_posterior(lp, q), lp.forward_plain(q))
+    assert torch.equal(sc3.log_posterior(lp, q), lp.forward_plain(q))
+    kernels.stretch_half_step(lp, x, logp, 0, u, j, u, n_accept=acc)
+    T = torch.tensor([[5.0, 0.0, -1.0]], dtype=torch.float64)
+    nodes = torch.linspace(400.0, 800.0, 12, dtype=torch.float64).reshape(3, 4)
+    w = torch.full((3, 4), 0.25, dtype=torch.float64)
+    assert torch.equal(bandflux_pointwise(nodes, w, T, T.abs(), k_ext=w, ebv=0.1),
+                       bandflux_pointwise_plain(nodes, w, T, T.abs(), k_ext=w, ebv=0.1))
+    assert kernels.LAUNCHES == before           # the plain path launches nothing
+    meta = torch.empty((4, 7), device="meta")
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        sc3.log_posterior(lp, meta)
+    with pytest.raises(ValueError, match="K3 runs on CUDA"):
+        bandflux_pointwise(nodes, w, T.to("meta"), T.to("meta"))
+
+
+def test_cuda_path_refuses_models_without_kernels(lc_flux):
+    """A model with no fused kernel raises on a non-CPU tensor before any
+    launch: it never runs quietly on a plain path."""
+    model = BaseShockCooling(lc_flux)
+    lp = make_log_posterior(ShockCooling3(lc_flux), lc_flux, _sc3_priors(), device="cpu")
+    lp.log_likelihood.model = model
+    with pytest.raises(NotImplementedError, match="no fused CUDA log-posterior"):
+        kernels.module_for(model)
+    with pytest.raises(NotImplementedError, match="no fused CUDA log-posterior"):
+        kernels.log_posterior(lp, torch.empty((4, 7), device="meta"))
+    x = torch.empty((2, 2, 7), device="meta")
+    with pytest.raises(NotImplementedError, match="no fused CUDA log-posterior"):
+        kernels.stretch_half_step(lp, x, x[..., 0], 0, x[0, :, 0], x[0, :, 0].long(),
+                                  x[0, :, 0])
+    assert kernels.module_for(ShockCooling3(lc_flux)) is sc3
+    assert kernels.module_for(ShockCooling2(lc_flux)) is sc2
+
+
+def test_sc3_kernel_params_check_ndim(lc_flux):
+    lp = make_log_posterior(ShockCooling3(lc_flux), lc_flux, _sc3_priors(), device="cpu")
+    with pytest.raises(ValueError, match="ndim = 7"):
+        sc3._kernel_params(lp, 4, None, None)
+    P = sc3._kernel_params(lp, 7, SC3_OFFSET, SC3_SCALE)
+    ll = lp.log_likelihood
+    assert (P.n_points, P.n_bands, P.n_nodes) == (149, 9, 89)
+    assert P.has_affine == 1 and P.affine_scale[6] == SC3_SCALE[6]
+    assert list(ll.n_native.numpy()) == [12, 10, 88, 14, 4, 74, 52, 88, 42]
+    assert P.kappa == 1.0 and P.ext_coef == -0.4 * np.log(10.0)
+    assert sc3._kernel_params(lp, 7, SC3_OFFSET, SC3_SCALE) is P   # cached
 
 
 # ---------------------------------------------------------------- card side
@@ -207,3 +330,118 @@ def test_k2_checks_inputs_on_card(lc, cuda_device):
     with pytest.raises(ValueError):
         sc2.log_posterior(lp.cpu(), x.reshape(-1, 4))
     assert kernels.LAUNCHES["stretch_half_step"] == n0
+
+
+def _k3_inputs(lc_flux, device, W, seed):
+    """The flagship's per-band tables and band ids, and T, R (W, N) with 5%
+    of T <= 0 and 1% deep in the Wien tail, E(B-V) (W, 1) in [0, 1]."""
+    ll = make_log_posterior(ShockCooling3(lc_flux), lc_flux, _sc3_priors(),
+                            device="cpu").log_likelihood
+    rng = np.random.default_rng(seed)
+    N = ll.band_ids.shape[0]
+    T = rng.uniform(2.0, 60.0, size=(W, N))
+    T[rng.random((W, N)) < 0.05] = rng.choice([0.0, -3.0])
+    T[rng.random((W, N)) < 0.01] = 1e-3
+    R = rng.uniform(0.1, 10.0, size=(W, N))
+    ebv = rng.uniform(0.0, 1.0, size=(W, 1))
+    tables = [torch.as_tensor(getattr(ll, n).numpy().astype(np.float64), device=device)
+              for n in ("nodes", "weights", "k_ext")]
+    return (tables, ll.band_ids.to(device), torch.as_tensor(T, device=device),
+            torch.as_tensor(R, device=device), torch.as_tensor(ebv, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_k3_matches_plain_on_card(lc_flux, cuda_device, f64):
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        (nodes, weights, k_ext), ids, T, R, ebv = _k3_inputs(lc_flux, cuda_device, 2048, 4)
+        n0 = kernels.LAUNCHES["bandflux"]
+        got = bandflux_pointwise(nodes, weights, T, R, k_ext=k_ext, ebv=ebv, band_ids=ids)
+        assert kernels.LAUNCHES["bandflux"] == n0 + 1
+        want = bandflux_pointwise_plain(nodes, weights, T, R, k_ext=k_ext, ebv=ebv,
+                                        band_ids=ids)
+        assert got.dtype == torch.float64 and torch.isfinite(got).all()
+        assert bool((got[T <= 0] == 0).all()) and bool((got[T == 1e-3] == 0).all())
+        rel = 1e-12 if f64 else 1e-5
+        assert bool(((got - want).abs() <= rel * want.abs()).all())
+        # per-point tables, a scalar E(B-V), a finite cutoff
+        got = bandflux_pointwise(nodes[ids], weights[ids], T[:64], R[:64], 500.0,
+                                 k_ext[ids], 0.3)
+        want = bandflux_pointwise_plain(nodes[ids], weights[ids], T[:64], R[:64], 500.0,
+                                        k_ext[ids], 0.3)
+        assert bool(((got - want).abs() <= rel * want.abs()).all())
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_sc3_logpost_matches_plain_on_card(lc_flux, cuda_device, f64):
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        lp = make_log_posterior(ShockCooling3(lc_flux), lc_flux, _sc3_priors(),
+                                device=cuda_device)
+        wide = make_log_posterior(ShockCooling3(lc_flux), lc_flux, _sc3_priors(57480.0),
+                                  device=cuda_device)
+        p = torch.as_tensor(_sc3_walkers(2048), device=cuda_device)
+        late = np.random.default_rng(1).uniform(SC3_LO, SC3_UP, size=(256, 7))
+        late[:, 6] = np.random.default_rng(2).uniform(57468.8, 57472.0, 256)
+        late = torch.as_tensor(late, device=cuda_device)
+        n0 = kernels.LAUNCHES["sc3_logpost"]
+        got = lp(p)
+        assert kernels.LAUNCHES["sc3_logpost"] == n0 + 1
+        rel = 1e-10 if f64 else 1e-5
+        c = lp.log_likelihood.log_norm_const
+        _assert_ll_close(got, lp.forward_plain(p), rel, c)
+        assert torch.isneginf(got[-4:]).all() and torch.isfinite(got[:-4]).all()
+        got_late = wide(late)
+        assert torch.isfinite(got_late).all()
+        _assert_ll_close(got_late, wide.forward_plain(late), rel, c)
+        q = ((p[:-4] - torch.as_tensor(SC3_OFFSET, device=cuda_device))
+             / torch.as_tensor(SC3_SCALE, device=cuda_device)).float()
+        _assert_ll_close(sc3.log_posterior(lp, q, SC3_OFFSET, SC3_SCALE),
+                         common.log_posterior_plain(lp, q, SC3_OFFSET, SC3_SCALE), rel, c)
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [0, 1])
+def test_sc3_half_step_matches_plain_on_card(lc_flux, cuda_device, h):
+    lp = make_log_posterior(ShockCooling3(lc_flux), lc_flux, _sc3_priors(), device=cuda_device)
+    W, half = 2048, 1024
+    pos = (np.random.default_rng(2).uniform(SC3_LO, SC3_UP, size=(W, 7)) - SC3_OFFSET) \
+        / SC3_SCALE
+    x0 = torch.as_tensor(pos.reshape(2, half, 7), device=cuda_device).float().contiguous()
+    l0 = sc3.log_posterior(lp, x0.reshape(W, 7), SC3_OFFSET, SC3_SCALE).reshape(2, half)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    u_z = torch.rand(half, generator=g, device=cuda_device)
+    j = torch.randint(0, half, (half,), generator=g, device=cuda_device)
+    u_acc = torch.rand(half, generator=g, device=cuda_device)
+    xk, lk, xp, lpp = x0.clone(), l0.clone(), x0.clone(), l0.clone()
+    ak = torch.zeros((2, half), dtype=torch.int32, device=cuda_device)
+    ap = torch.zeros_like(ak)
+    chain_x = torch.empty((2, half, 7), device=cuda_device)
+    chain_lp = torch.empty((2, half), dtype=torch.float64, device=cuda_device)
+    n0 = kernels.LAUNCHES["sc3_half_step"]
+    kernels.stretch_half_step(lp, xk, lk, h, u_z, j, u_acc, 2.0, SC3_OFFSET, SC3_SCALE,
+                              chain_x, chain_lp, ak)
+    assert kernels.LAUNCHES["sc3_half_step"] == n0 + 1
+
+    def plain(q):
+        return common.log_posterior_plain(lp, q, SC3_OFFSET, SC3_SCALE)
+
+    common.stretch_half_step_plain(plain, xp, lpp, h, u_z, j, u_acc, 2.0, n_accept=ap)
+    agree = ak[h] == ap[h]
+    y, z = common.propose_stretch(u_z, j, x0[h], x0[1 - h])
+    lp_y = plain(y)
+    gap = (torch.log(u_acc).double() - (6.0 * torch.log(z) + lp_y - l0[h])).abs()
+    c = lp.log_likelihood.log_norm_const
+    assert bool((agree | (gap <= 1e-5 * ((lp_y - c).abs() + abs(c)))).all())
+    assert torch.equal(xk[h][agree], xp[h][agree])
+    assert torch.equal(xk[1 - h], x0[1 - h]) and torch.equal(ak[1 - h], ap[1 - h])
+    assert torch.equal(chain_x[h], xk[h]) and torch.equal(chain_lp[h], lk[h])
+    assert 0.02 < float(ak[h].float().mean()) < 0.98
