@@ -30,12 +30,39 @@ raises and the script exits non-zero):
    init window, whose mean acceptance must be within 0.01 of the JAX
    package's float64 value, and ``ShockCooling3.evaluate`` on the card at
    the medians (chi2/dof printed); the launch counters, reset before this
-   path, show it ran through K3 and both SC3 kernels.
+   path, show it ran through K3 and both SC3 kernels;
+10. K4 (the per-epoch blackbody log-posterior and its gradient) against its
+    plain version at the bench shape (256 epochs x 6 bands, 512 candidates)
+    and on the 65 SN 2016bkv epochs of up to 9 bands at 32 walkers, with
+    parameters outside the priors and T <= 0: float32 <= 1e-5 and float64
+    <= 1e-10 of |ll - c| + |c| (c the epoch's log_norm), identical -inf
+    sets, the gradient within 1e-4 (float32) and 1e-9 (float64) of its
+    per-band terms' summed magnitude;
+11. the epoch half-step (h = 0, 1; 256 epochs x 16) against the plain one
+    under shared draws: new states bit-equal except near-ties;
+12. K4s and K5 against their plain versions at the bench shape (256 x 3200
+    samples): K4s's integral <= 1e-5 relative, K5's percentiles bit-equal,
+    ``torch.quantile`` timed beside K5;
+13. the bolometric main path: (a) ``calculate_bolometric(batch_mode=True,
+    save_corners=False, nwalkers=32, seed=7)`` on the full SN 2016bkv light
+    curve (65 rows); (b) the bench shape (256 epochs x 32 walkers x 200 +
+    100 steps) through ``batched_map_centers`` and
+    ``batched_blackbody_mcmc(summaries=..., return_chains=False)``, epochs/s
+    over 5 runs, mean acceptance within 0.02 of the JAX package's float64
+    CPU value; the launch counters, reset before (a), show it ran through
+    K4 (with and without the gradient), the epoch half-step, K4s and K5.
 
 The last lines are the card's name and power limit, one JSON line with each
-kernel's launches, error and time, and ``{"ok": true, "device": ...}``.
+kernel's launches, error, time, bound and library time, and ``{"ok": true,
+"device": ...}``. A kernel's bound is the larger of its operations over the
+FP32 rate (67 TFLOP/s; a special function, expm1, exp, log, pow, sqrt or an
+IEEE division, counted as 16 operations: the SFU issues 16 a clock per SM
+against 128 FP32 lanes of 2 flops) and its bytes (inputs read once, outputs
+written once) over 3.35 TB/s, from this run's shapes.
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -64,6 +91,56 @@ SC3_ACCEPTANCE_REF = 0.21477925618489585
 SC3_CHI2_PROBE = 96.0     # chi2/dof of the best draw of the JAX package's CPU probe
 PLAIN_CHUNK = 16384       # walkers per call of a plain quadrature version: its
                           # (W, 149, 89) cube stays near 1 GB a tensor
+
+# the bolometric bench shape (bench.py:108-166) and the JAX package's mean
+# acceptance there, float64 on the CPU: the epochs of rng 0, centers and
+# guesses of seed 1 (the first run after the epochs), 256 x 32 x (200 + 100)
+# (tests/test_torch_batched.py::jax_bench_acceptance)
+BOL_EPOCHS, BOL_WALKERS, BOL_BURNIN, BOL_STEPS = 256, 32, 200, 100
+BOL_ACCEPTANCE_REF = 0.706744372844696
+
+FP32_FLOPS = 67e12        # H100 SXM, FP32 outside the tensor cores
+HBM_BYTES = 3.35e12       # H100 SXM HBM3
+SFU = 16                  # operations a special function is counted as
+
+
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the least time for ``ops`` FP32 operations and
+    ``nbytes`` of device-memory traffic."""
+    t_ops, t_bytes = ops / FP32_FLOPS, nbytes / HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def bound_fields(ops, nbytes, library_ms=None):
+    ms, by = bound(ops, nbytes)
+    return {"bound_ms": ms, "bound_by": by, "library_ms": library_ms}
+
+
+# operations of one evaluation (see the docstring for the counting rule)
+PLANCK_TERM = 5 + 2 * SFU          # K4 / K4s: 5 flops, expm1 and a division
+QUAD_TERM = 6 + 3 * SFU            # K3: also the extinction exp
+PROPOSAL = 10 + 2 * SFU            # the stretch move and its two logs
+
+
+def sc2_eval_ops(ll):
+    """K1 on one walker: per point the Clenshaw recurrence (3 per degree),
+    ~30 flops and 10 special functions (SW17 powers, exp, sqrt, log, divisions)."""
+    N, D1 = ll.bb_coeffs.shape
+    return N * (3 * (D1 - 1) + 30 + 10 * SFU)
+
+
+def sc3_eval_ops(ll):
+    """The SC3 log-posterior on one walker: each point's native quadrature
+    terms plus ~30 flops and 12 special functions of SW17."""
+    terms = int(ll.n_native[ll.band_ids].sum())
+    return terms * QUAD_TERM + ll.band_ids.shape[0] * (30 + 12 * SFU)
+
+
+def epoch_eval_ops(ep):
+    """K4 on one parameter vector, per epoch: the native terms of its real
+    bands plus ~10 flops a band and the log-uniform prior's log. (E,)"""
+    terms = (ep.n_native * ep.mask).sum(dim=1).double()
+    return terms * PLANCK_TERM + ep.mask.sum(dim=1).double() * 10 + SFU
 
 
 def phase(name, msg):
@@ -172,12 +249,15 @@ def phase_k1(lc, rng_seed=0):
                 plain_ms = cuda_ms(lambda: lp.forward_plain(p), repeats=5)
         finally:
             config.set_compute_dtype(config.AUTO)
+    ll = lp.log_likelihood
+    k1_bound = bound_fields(W * sc2_eval_ops(ll), W * (4 * 8 + 8) + 4 * ll.bb_coeffs.numel())
     phase("K1", f"{W} walkers (1% outside the priors, {W} more with t < t_exp): "
           f"f32 max |d| {res['f32'][0]:.3e} (max |d|/|ll| {res['f32'][1]:.2e} <= 1e-5), "
           f"f64 max |d| {res['f64'][0]:.3e} (max |d|/|ll| {res['f64'][1]:.2e} <= 1e-10), "
           f"-inf sets equal; {kernels.LAUNCHES['sc2_logpost'] - n0} comparison launches; "
-          f"K1 {k1_ms:.4f} ms vs plain {plain_ms:.4f} ms per {W}-walker batch (f32)")
-    return {"max_abs_err": res["f32"][0], "ms": k1_ms, "plain_ms": plain_ms}
+          f"K1 {k1_ms:.4f} ms vs plain {plain_ms:.4f} ms per {W}-walker batch (f32), "
+          f"bound {k1_bound['bound_ms']:.4f} ms ({k1_bound['bound_by']})")
+    return {"max_abs_err": res["f32"][0], "ms": k1_ms, "plain_ms": plain_ms, **k1_bound}
 
 
 def phase_k2(lc, seed=1):
@@ -240,14 +320,17 @@ def phase_k2(lc, seed=1):
     xk, lk = x0.clone(), logp0.clone()
     ak = torch.zeros((2, half), dtype=torch.int32, device=dev)
     k2_ms = cuda_ms(lambda: sc2.stretch_half_step(lp, xk, lk, 0, u_z, j, u_acc, 2.0, off, sc,
-                                                  n_accept=ak))
+                                                  n_accept=ak, check_partners=False))
     xp, lpp = x0.clone(), logp0.clone()
     plain_ms = cuda_ms(lambda: sc2.stretch_half_step_plain(plain_log_prob, xp, lpp, 0, u_z, j,
                                                            u_acc, 2.0), repeats=5)
+    k2_bound = bound_fields(half * (sc2_eval_ops(lp.log_likelihood) + PROPOSAL),
+                            half * (2 * 4 * 4 + 8 + 16 + 4) + half * (4 * 4 + 8 + 4))
     phase("K2", f"half-steps h=0,1 of {W} walkers (f32 state, f64 logp): accept flags agree "
           f"except {n_ties} near-ties, new states bit-equal where they agree, new-logp max "
-          f"|d| {max_abs:.3e}; K2 {k2_ms:.4f} ms vs plain {plain_ms:.4f} ms per half-step")
-    return {"max_abs_err": max_abs, "ms": k2_ms, "plain_ms": plain_ms}
+          f"|d| {max_abs:.3e}; K2 {k2_ms:.4f} ms vs plain {plain_ms:.4f} ms per half-step, "
+          f"bound {k2_bound['bound_ms']:.4f} ms ({k2_bound['bound_by']})")
+    return {"max_abs_err": max_abs, "ms": k2_ms, "plain_ms": plain_ms, **k2_bound}
 
 
 def fmt(values):
@@ -335,12 +418,15 @@ def phase_k3(lcf, rng_seed=2):
                     band_ids=ll.band_ids), T, R, ebv), repeats=3)
         finally:
             config.set_compute_dtype(config.AUTO)
+    N, K = ll.band_ids.shape[0], ll.nodes.shape[1]
+    k3_bound = bound_fields(W * N * K * QUAD_TERM, W * N * 4 * 4 + W * 4)
     phase("K3", f"{W} walkers x 149 points x 89 nodes ({res['f32'][2]} points with T <= 0 give "
           f"0): f32 max |d| {res['f32'][0]:.3e} W/Hz (max relative {res['f32'][1]:.2e} <= 1e-5), "
           f"f64 max |d| {res['f64'][0]:.3e} (max relative {res['f64'][1]:.2e} <= 1e-12); "
           f"{kernels.LAUNCHES['bandflux'] - n0} comparison launches; K3 {k3_ms:.4f} ms vs "
-          f"plain {plain_ms:.4f} ms per {W}-walker batch (f32)")
-    return {"max_abs_err": res["f32"][0], "ms": k3_ms, "plain_ms": plain_ms}
+          f"plain {plain_ms:.4f} ms per {W}-walker batch (f32), bound "
+          f"{k3_bound['bound_ms']:.4f} ms ({k3_bound['bound_by']})")
+    return {"max_abs_err": res["f32"][0], "ms": k3_ms, "plain_ms": plain_ms, **k3_bound}
 
 
 def phase_sc3_logpost(lcf, rng_seed=3):
@@ -378,13 +464,15 @@ def phase_sc3_logpost(lcf, rng_seed=3):
                 plain_ms = cuda_ms(lambda: chunked(lp.forward_plain, p), repeats=2)
         finally:
             config.set_compute_dtype(config.AUTO)
+    sc3_bound = bound_fields(W * sc3_eval_ops(lp.log_likelihood), W * (7 * 8 + 8))
     phase("SC3 log-posterior", f"{W} walkers (1% outside the priors, {W} more with t < t_exp): "
           f"f32 max |d| {res['f32'][0]:.3e} (max |d|/(|ll - c| + |c|) {res['f32'][1]:.2e} "
           f"<= 1e-5, c = {c:.2f} the normalization constant), f64 max |d| {res['f64'][0]:.3e} "
           f"(max |d|/(|ll - c| + |c|) {res['f64'][1]:.2e} <= 1e-10), "
           f"-inf sets equal; {kernels.LAUNCHES['sc3_logpost'] - n0} comparison launches; "
-          f"kernel {k_ms:.4f} ms vs plain {plain_ms:.4f} ms per {W}-walker batch (f32)")
-    return {"max_abs_err": res["f32"][0], "ms": k_ms, "plain_ms": plain_ms}
+          f"kernel {k_ms:.4f} ms vs plain {plain_ms:.4f} ms per {W}-walker batch (f32), bound "
+          f"{sc3_bound['bound_ms']:.4f} ms ({sc3_bound['bound_by']})")
+    return {"max_abs_err": res["f32"][0], "ms": k_ms, "plain_ms": plain_ms, **sc3_bound}
 
 
 def phase_sc3_half_step(lcf, seed=4):
@@ -449,15 +537,18 @@ def phase_sc3_half_step(lcf, seed=4):
     xk, lk = x0.clone(), logp0.clone()
     ak = torch.zeros((2, half), dtype=torch.int32, device=dev)
     k_ms = cuda_ms(lambda: kernels.stretch_half_step(lp, xk, lk, 0, u_z, j, u_acc, 2.0, off, sc,
-                                                     n_accept=ak))
+                                                     n_accept=ak, check_partners=False))
     xp, lpp = x0.clone(), logp0.clone()
     plain_ms = cuda_ms(lambda: common.stretch_half_step_plain(plain_log_prob, xp, lpp, 0, u_z,
                                                               j, u_acc, 2.0), repeats=2)
+    hs_bound = bound_fields(half * (sc3_eval_ops(lp.log_likelihood) + PROPOSAL),
+                            half * (2 * 7 * 4 + 8 + 16 + 4) + half * (7 * 4 + 8 + 4))
     phase("SC3 half-step", f"half-steps h=0,1 of {W} walkers (f32 state, f64 logp): {n_acc} "
           f"accepts, flags agree except {n_ties} near-ties, new states bit-equal where they "
           f"agree, new-logp max |d| {max_abs:.3e}; kernel {k_ms:.4f} ms vs plain "
-          f"{plain_ms:.4f} ms per half-step")
-    return {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": plain_ms}
+          f"{plain_ms:.4f} ms per half-step, bound {hs_bound['bound_ms']:.4f} ms "
+          f"({hs_bound['bound_by']})")
+    return {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": plain_ms, **hs_bound}
 
 
 def phase_sc3_main_path(lc, smi):
@@ -516,6 +607,392 @@ def phase_sc3_main_path(lc, smi):
           f"{evals / elapsed:.4e} log-posterior evals/s (information only, on {smi}); "
           f"evaluate on the card at the medians: chi2/dof {chi2_dof:.2f} (the JAX CPU probe's "
           f"best draw: ~{SC3_CHI2_PROBE:.0f}); launches on this path {launches}")
+    return launches
+
+
+def bench_epochs(rng, dev):
+    """The bench's synthetic epochs (bench.py:129-143): 256 blackbodies of
+    T in [4, 20] kK, R in [1, 30] through U B g V r i with 5% errors, made
+    with numpy and the port's planck_lnu; returns (packed, true T)."""
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch.filters import filtdict
+    from lightcurve_fitting_tpu_torch.models.blackbody import planck_lnu
+    from lightcurve_fitting_tpu_torch.ops.filterbank import FilterBank
+    from lightcurve_fitting_tpu_torch.parallel.batched import pack_epochs
+    from lightcurve_fitting_tpu_torch.utils.table import Table
+    filts = [filtdict[n] for n in ["U", "B", "g", "V", "r", "i"]]
+    bank = FilterBank(filts)
+    nodes = torch.as_tensor(bank.emitted_nodes(0.0))
+    epochs, truth = [], []
+    for _ in range(BOL_EPOCHS):
+        T, R = rng.uniform(4.0, 20.0), rng.uniform(1.0, 30.0)
+        y = (bank.weights * planck_lnu(nodes, torch.tensor(T), torch.tensor(R)).numpy()).sum(-1)
+        dy = 0.05 * np.abs(y)
+        y = y + rng.normal(scale=dy)
+        epochs.append(Table([filts, y, dy], names=["filter", "lum", "dlum"]))
+        truth.append(T)
+    return pack_epochs(epochs, bank, 0.0, device=dev), np.array(truth)
+
+
+def bol_priors():
+    from lightcurve_fitting_tpu_torch.models import LogUniformPrior, UniformPrior
+    return [UniformPrior(1.0, 100.0), LogUniformPrior(0.01, 1000.0)]
+
+
+def sn2016bkv_packed(dev):
+    """The 65 epochs of >= 3 filters of the full SN 2016bkv light curve at
+    res = 1 day, packed as calculate_bolometric packs them."""
+    import numpy as np
+    from lightcurve_fitting_tpu_torch.bolometric import _prepare_epoch_seds
+    from lightcurve_fitting_tpu_torch.lightcurve import LC
+    from lightcurve_fitting_tpu_torch.ops.filterbank import bank_for
+    from lightcurve_fitting_tpu_torch.parallel.batched import pack_epochs
+    lc = LC.read(os.path.join(REPO, "lightcurve_fitting_tpu", "data", "SN2016bkv.csv"))
+    lc.meta.update(META)
+    dmag = np.ma.MaskedArray(lc["dmag"])
+    lc = lc[np.isfinite(np.ma.filled(dmag.astype(float), np.nan)) & np.ma.filled(dmag > 0, False)]
+    with contextlib.redirect_stdout(io.StringIO()):     # per-epoch extinction notes
+        groups = [g for g in _prepare_epoch_seds(lc, 1.0, ())
+                  if len(set(g.where(nondet=False)["filter"])) >= 3]
+    bank = bank_for(sorted({f for g in groups for f in g["filter"]}))
+    return pack_epochs(groups, bank, META["redshift"], device=dev)
+
+
+def term_scale(ep, p):
+    """Sum over an epoch's bands of |d(-0.5 r_b^2)/dp|, the magnitude a
+    float32 gradient's rounding follows (the terms cancel near an optimum);
+    plain arithmetic of K4, no intrinsic scatter."""
+    import torch
+    from lightcurve_fitting_tpu_torch.models.blackbody import planck_lnu
+    p = p.detach().clone().requires_grad_(True)
+    cdt = ep.compute_dtype
+    T, R = (p[..., k].to(cdt)[..., None, None] for k in (0, 1))
+    y_fit = torch.sum(ep.weights[:, None] * planck_lnu(ep.nodes[:, None], T, R), dim=-1) \
+        * ep.inv_yscale[:, None, None]
+    terms = -0.5 * ((ep.y[:, None] - y_fit) * ep.inv_dy[:, None]) ** 2
+    scale = torch.zeros_like(p)
+    for b in range(terms.shape[-1]):
+        g, = torch.autograd.grad(terms[..., b].sum(), p, retain_graph=True)
+        scale += g.abs()
+    return scale
+
+
+def epoch_params(rng, E, M):
+    """Log-uniform (T, R) over and beyond the default priors (T in [0.5,
+    150] kK against (1, 100), R in [0.005, 2000] against (0.01, 1000)),
+    with T <= 0 in the first two of every epoch."""
+    import numpy as np
+    p = np.exp(rng.uniform(np.log([0.5, 0.005]), np.log([150.0, 2000.0]), size=(E, M, 2)))
+    p[:, :2, 0] = [-1.0, 0.0]
+    return p
+
+
+def phase_k4(rng_seed=5):
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch import kernels
+    from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.kernels import epoch_bb
+    from lightcurve_fitting_tpu_torch.parallel.batched import EpochPosterior
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(rng_seed)
+    shapes = {"bench": (bench_epochs(np.random.default_rng(0), dev)[0], 512),
+              "SN 2016bkv": (sn2016bkv_packed(dev), 32)}
+    res = {}
+    n0 = kernels.LAUNCHES["epoch_logpost"] + kernels.LAUNCHES["epoch_logpost_grad"]
+    for label in ("f32", "f64"):
+        try:
+            if label == "f64":
+                config.set_compute_dtype(None)
+            rel, grel = (1e-5, 1e-4) if label == "f32" else (1e-10, 1e-9)
+            for name, (packed, M) in shapes.items():
+                ep = EpochPosterior(packed, bol_priors())
+                E = ep.n_epochs
+                q = torch.as_tensor(epoch_params(rng, E, M), device=dev)
+                lp, grad = epoch_bb.log_posterior(ep, q, with_grad=True)
+                lp0, _ = epoch_bb.log_posterior(ep, q)
+                want = ep.plain(q)
+                c = ep.log_norm[:, None].expand_as(want)
+                fin = torch.isfinite(want)
+                if not torch.equal(torch.isneginf(lp), torch.isneginf(want)) \
+                        or not torch.equal(lp, lp0):
+                    raise AssertionError(f"K4 {label} {name}: -inf sets differ, or the gradient "
+                                         "launch changed the log-posterior")
+                d = (lp - want).abs()[fin]
+                r = float((d / ((want - c).abs() + c.abs())[fin]).max())
+                if r > rel:
+                    raise AssertionError(f"K4 {label} {name}: max |d|/scale {r:.3e} > {rel:.0e}")
+                qq = q.clone().requires_grad_(True)
+                g_want, = torch.autograd.grad(ep.plain(qq).sum(), qq)
+                ok = fin[..., None] & torch.isfinite(g_want)
+                gr = float(((grad - g_want).abs()
+                            / (term_scale(ep, q) + g_want.abs()))[ok].max())
+                if gr > grel:
+                    raise AssertionError(f"K4 {label} {name}: gradient max |d|/scale {gr:.3e} > "
+                                         f"{grel:.0e}")
+                res[(label, name)] = (float(d.max()), r, gr, int(fin.sum()), E * M)
+                if label == "f32" and name == "bench":
+                    k_ms = cuda_ms(lambda: epoch_bb.log_posterior(ep, q))
+                    kg_ms = cuda_ms(lambda: epoch_bb.log_posterior(ep, q, with_grad=True))
+                    plain_ms = cuda_ms(lambda: ep.plain(q), repeats=5)
+                    ops = float(epoch_eval_ops(ep).sum()) * M
+                    k4_bound = bound_fields(ops, q.numel() * 8 + E * M * 8
+                                            + 2 * 4 * ep.nodes.numel())
+        finally:
+            config.set_compute_dtype(config.AUTO)
+    launches = kernels.LAUNCHES["epoch_logpost"] + kernels.LAUNCHES["epoch_logpost_grad"] - n0
+    parts = "; ".join(f"{lab} {name} ({v[4]} vectors, {v[3]} finite): max |d| {v[0]:.3e}, "
+                      f"max |d|/(|ll - c| + |c|) {v[1]:.2e}, gradient max |d|/scale {v[2]:.2e}"
+                      for (lab, name), v in res.items())
+    phase("K4", f"{parts}; -inf sets equal; {launches} comparison launches; K4 {k_ms:.4f} ms "
+          f"(with the gradient {kg_ms:.4f} ms) vs plain {plain_ms:.4f} ms at {BOL_EPOCHS} "
+          f"epochs x 512 (f32), bound {k4_bound['bound_ms']:.4f} ms ({k4_bound['bound_by']})")
+    return {"max_abs_err": res[("f32", "bench")][0], "ms": k_ms, "plain_ms": plain_ms,
+            **k4_bound}
+
+
+def phase_epoch_half_step(seed=6):
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels import common, epoch_bb
+    from lightcurve_fitting_tpu_torch.parallel.batched import EpochPosterior
+
+    dev = torch.device("cuda")
+    E, half = BOL_EPOCHS, BOL_WALKERS // 2
+    rng = np.random.default_rng(seed)
+    packed, truth = bench_epochs(np.random.default_rng(0), dev)
+    ep = EpochPosterior(packed, bol_priors())
+    x0 = np.abs(np.stack([truth, np.full(E, 10.0)], axis=1)[:, None, None, :]
+                * (1 + 0.3 * rng.normal(size=(E, 2, half, 2))))
+    x0 = torch.as_tensor(x0, device=dev).float().contiguous()
+    l0 = ep(x0.reshape(E, 2 * half, 2)).reshape(E, 2, half)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    u_z = torch.rand((E, 2, half), generator=g, device=dev)
+    j = torch.randint(0, half, (E, 2, half), generator=g, device=dev)
+    u_acc = torch.rand((E, 2, half), generator=g, device=dev)
+    max_abs, n_ties, n_acc = 0.0, 0, 0
+    for h in (0, 1):
+        xk, lk, xp, lpp = x0.clone(), l0.clone(), x0.clone(), l0.clone()
+        ak = torch.zeros((E, 2, half), dtype=torch.int32, device=dev)
+        ap = torch.zeros_like(ak)
+        cx = torch.empty_like(x0)
+        cl = torch.empty((E, 2, half), device=dev)
+        epoch_bb.stretch_half_step(ep, xk, lk, h, u_z, j, u_acc, 2.0, cx, cl, ak)
+        epoch_bb.stretch_half_step_plain(ep.plain, xp, lpp, h, u_z, j, u_acc, 2.0, n_accept=ap)
+        torch.cuda.synchronize()
+        agree = ak[:, h] == ap[:, h]
+        y, z = common.propose_stretch(u_z[:, h], j[:, h], x0[:, h], x0[:, 1 - h])
+        lp_y = ep.plain(y)
+        gap = (torch.log(u_acc[:, h]).double() - (torch.log(z) + lp_y - l0[:, h])).abs()
+        c = ep.log_norm[:, None]
+        tie_ok = gap <= 1e-5 * ((lp_y - c).abs() + c.abs())
+        if not bool((agree | tie_ok).all()):
+            raise AssertionError(f"epoch half-step h={h}: {int((~agree & ~tie_ok).sum())} "
+                                 "accept flags differ away from near-ties")
+        if not torch.equal(xk[:, h][agree], xp[:, h][agree]):
+            raise AssertionError(f"epoch half-step h={h}: new states differ where the flags "
+                                 "agree")
+        if not torch.equal(xk[:, 1 - h], x0[:, 1 - h]) or not torch.equal(cx[:, h], xk[:, h]) \
+                or not torch.equal(cl[:, h], lk[:, h].float()):
+            raise AssertionError(f"epoch half-step h={h}: wrong half or chain slot written")
+        fin = agree & torch.isfinite(lk[:, h])
+        max_abs = max(max_abs, float((lk[:, h][fin] - lpp[:, h][fin]).abs().max()))
+        n_ties += int((~agree).sum())
+        n_acc += int(ak[:, h].sum())
+    xk, lk = x0.clone(), l0.clone()
+    ak = torch.zeros((E, 2, half), dtype=torch.int32, device=dev)
+    k_ms = cuda_ms(lambda: epoch_bb.stretch_half_step(ep, xk, lk, 0, u_z, j, u_acc, 2.0,
+                                                      n_accept=ak, check_partners=False))
+    xp, lpp = x0.clone(), l0.clone()
+    plain_ms = cuda_ms(lambda: epoch_bb.stretch_half_step_plain(ep.plain, xp, lpp, 0, u_z, j,
+                                                                u_acc, 2.0), repeats=5)
+    hs_bound = bound_fields(float(epoch_eval_ops(ep).sum()) * half + E * half * PROPOSAL,
+                            E * half * (2 * 2 * 4 + 8 + 16 + 4) + E * half * (2 * 4 + 8 + 4)
+                            + 2 * 4 * ep.nodes.numel())
+    phase("epoch half-step", f"half-steps h=0,1 of {E} epochs x {half} walkers (f32 state, "
+          f"f64 logp): {n_acc} accepts, flags agree except {n_ties} near-ties, new states "
+          f"bit-equal where they agree, new-logp max |d| {max_abs:.3e}; kernel {k_ms:.4f} ms "
+          f"vs plain {plain_ms:.4f} ms per half-step, bound {hs_bound['bound_ms']:.4f} ms "
+          f"({hs_bound['bound_by']})")
+    return {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": plain_ms, **hs_bound}
+
+
+def phase_k4s_k5(seed=7):
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch.bolometric import _pseudo_grid
+    from lightcurve_fitting_tpu_torch.kernels import epoch_bb, quantile as kq
+    from lightcurve_fitting_tpu_torch.ops.quantile import percentile_f32_plain
+
+    dev = torch.device("cuda")
+    E, nw, steps = BOL_EPOCHS, BOL_WALKERS, BOL_STEPS
+    rng = np.random.default_rng(seed)
+    centre = np.exp(rng.uniform(np.log([4.0, 1.0]), np.log([20.0, 30.0]), size=(E, 2)))
+    chain = np.abs(centre[None, :, None, :] * (1 + 0.05 * rng.normal(size=(steps, E, nw, 2))))
+    chain = torch.as_tensor(chain, device=dev).float().contiguous()
+    nu = torch.as_tensor(_pseudo_grid(), device=dev)
+    w = torch.ones_like(nu)
+    w[0] = w[-1] = 0.5
+    rows = epoch_bb.summary_samples(chain, nu, w, np.inf, torch.float32)
+    want = epoch_bb.summary_samples_plain(chain, nu, w, np.inf, torch.float32)
+    if not torch.equal(rows[:, :3], want[:, :3]):
+        raise AssertionError("K4s: T, R or (R T^2)^2 differ from the plain version")
+    d = (rows[:, 3] - want[:, 3]).abs().double()
+    r = float((d / want[:, 3].abs().double()).max())
+    if r > 1e-5:
+        raise AssertionError(f"K4s: integral max relative difference {r:.3e} > 1e-5")
+    s_ms = cuda_ms(lambda: epoch_bb.summary_samples(chain, nu, w, np.inf, torch.float32))
+    s_plain_ms = cuda_ms(lambda: epoch_bb.summary_samples_plain(chain, nu, w, np.inf,
+                                                                torch.float32), repeats=5)
+    S, F = steps * nw, nu.shape[0]
+    s_bound = bound_fields(E * S * (F * PLANCK_TERM + 5), chain.numel() * 4 + rows.numel() * 4)
+    phase("K4s", f"{E} epochs x {S} samples x {F} frequencies: T, R, (R T^2)^2 equal, the "
+          f"integral max |d| {float(d.max()):.3e} W/Hz (max relative {r:.2e} <= 1e-5); kernel "
+          f"{s_ms:.4f} ms vs plain {s_plain_ms:.4f} ms (f32), bound {s_bound['bound_ms']:.4f} "
+          f"ms ({s_bound['bound_by']})")
+
+    flat = want.reshape(E * 4, S).contiguous()
+    q = [16.0, 50.0, 84.0]
+    got = kq.percentile_rows(flat, q)
+    ref = percentile_f32_plain(flat, q, axis=1)
+    if not torch.equal(got, ref):
+        raise AssertionError(f"K5: {int((got != ref).sum())} percentiles differ from the plain "
+                             "version")
+    qs = torch.tensor([0.16, 0.50, 0.84], device=dev)
+    lib = torch.quantile(flat, qs, dim=1, interpolation="linear")
+    lib_err = float(((lib.double() - got).abs() / got.abs()).max())
+    p_ms = cuda_ms(lambda: kq.percentile_rows(flat, q))
+    p_plain_ms = cuda_ms(lambda: percentile_f32_plain(flat, q, axis=1), repeats=5)
+    lib_ms = cuda_ms(lambda: torch.quantile(flat, qs, dim=1, interpolation="linear"))
+    p_bound = bound_fields(E * 4 * (32 * 2 * len(q) * S + 4 * S),
+                           flat.numel() * 4 + len(q) * E * 4 * 8, lib_ms)
+    phase("K5", f"{E * 4} rows x {S}: percentiles 16/50/84 bit-equal to the plain version "
+          f"(torch.quantile in f32 differs by up to {lib_err:.1e} relative); kernel {p_ms:.4f} ms vs "
+          f"plain {p_plain_ms:.4f} ms vs torch.quantile {lib_ms:.4f} ms, bound "
+          f"{p_bound['bound_ms']:.4f} ms ({p_bound['bound_by']})")
+    return ({"max_abs_err": float(d.max()), "ms": s_ms, "plain_ms": s_plain_ms, **s_bound},
+            {"max_abs_err": 0.0, "ms": p_ms, "plain_ms": p_plain_ms, **p_bound})
+
+
+BOL_KERNELS = ("epoch_logpost", "epoch_logpost_grad", "epoch_half_step", "epoch_summary",
+               "percentile")
+
+
+def phase_bolometric_main_path(smi):
+    import warnings
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch import kernels
+    from lightcurve_fitting_tpu_torch.bolometric import calculate_bolometric, _pseudo_grid
+    from lightcurve_fitting_tpu_torch.lightcurve import LC
+    from lightcurve_fitting_tpu_torch.parallel.batched import (batched_blackbody_mcmc,
+                                                               batched_map_centers)
+
+    lc = LC.read(os.path.join(REPO, "lightcurve_fitting_tpu", "data", "SN2016bkv.csv"))
+    lc.meta.update(META)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    notes = io.StringIO()
+    with warnings.catch_warnings(), contextlib.redirect_stdout(notes):
+        warnings.simplefilter("ignore")
+        t = calculate_bolometric(lc, batch_mode=True, save_corners=False, nwalkers=32, seed=7)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    for k in BOL_KERNELS:
+        if launches[k] == 0:
+            raise AssertionError(f"kernel {k} was not launched on the bolometric path: "
+                                 f"{launches}")
+    temp, temp_mcmc = np.asarray(t["temp"], float), np.asarray(t["temp_mcmc"], float)
+    if len(t) != 65 or not np.isfinite(temp_mcmc).all() \
+            or not np.isfinite(np.asarray(t["L_mcmc"], float)).all():
+        raise AssertionError(f"13a: {len(t)} rows (65 expected) or non-finite MCMC columns")
+    ok = np.isfinite(temp)
+    dev_t = np.abs(temp_mcmc[ok] - temp[ok]) / temp[ok]
+    def col(name):
+        return np.ma.filled(np.ma.MaskedArray(t[name]).astype(float), np.nan)
+
+    cols = {c: col(c) for c in ("MJD", "temp", "temp_mcmc", "dtemp_mcmc0", "dtemp_mcmc1",
+                                "radius_mcmc", "L_mcmc", "L_bol_mcmc")}
+    rows = "\n".join(
+        f"  MJD {cols['MJD'][i]:.3f} T {cols['temp'][i]:8.4f} T_mcmc {cols['temp_mcmc'][i]:8.4f} "
+        f"(-{cols['dtemp_mcmc0'][i]:.4f} +{cols['dtemp_mcmc1'][i]:.4f}) R_mcmc "
+        f"{cols['radius_mcmc'][i]:8.4f} L_mcmc {cols['L_mcmc'][i]:.4e} L_bol_mcmc "
+        f"{cols['L_bol_mcmc'][i]:.4e}" for i in range(len(t)))
+    phase("bolometric main path 13a", f"calculate_bolometric(batch_mode=True, "
+          f"save_corners=False, nwalkers=32, seed=7) on the full SN 2016bkv light curve: "
+          f"{len(t)} rows in {elapsed:.3f} s (host stages included; on {smi}); median "
+          f"|temp_mcmc - temp| / temp {np.median(dev_t):.4f} over {ok.sum()} curve_fit rows; "
+          f"{len(notes.getvalue().splitlines())} host notes hidden; launches {launches}\n{rows}")
+
+    # 13b: the bench shape, timed
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    packed, truth = bench_epochs(rng, dev)
+    priors = bol_priors()
+    summaries = {"z": 0.0, "pseudo_nu": _pseudo_grid()}
+
+    def run(seed, stages=None):
+        """One bench run; ``stages`` collects the seconds of the centering
+        and of the MCMC with its summaries (host clock to a synchronize)."""
+        t0 = time.perf_counter()
+        centers = batched_map_centers(packed, priors, seed=seed)
+        t1 = time.perf_counter()
+        guesses = rng.normal(size=(BOL_EPOCHS, BOL_WALKERS, 2)) * 0.5 + centers[:, None, :]
+        guesses[guesses <= 0.0] = 1.0
+        out = batched_blackbody_mcmc(packed, priors, guesses, BOL_WALKERS, BOL_BURNIN,
+                                     BOL_STEPS, seed=seed, summaries=summaries,
+                                     return_chains=False)
+        if stages is not None:
+            stages.append((t1 - t0, time.perf_counter() - t1))
+        return out
+
+    kernels.reset_launch_counts()
+    _, acc, summ = run(1)          # the reference's seed; also the warm-up
+    launches_b = dict(kernels.LAUNCHES)
+    times, stages = [], []
+    for seed in range(2, 7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(seed, stages)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    # the device's busy share over one more run: kernel time from the profiler
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(7)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
+    top = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.1f} ms x{e.count}"
+                    for e in top)
+    acc_mean = float(np.mean(acc))
+    if abs(acc_mean - BOL_ACCEPTANCE_REF) > 0.02:
+        raise AssertionError(f"13b: mean acceptance {acc_mean:.4f} not within 0.02 of the JAX "
+                             f"package's {BOL_ACCEPTANCE_REF:.4f}")
+    if not np.isfinite(summ).all() or any(launches_b[k] == 0 for k in BOL_KERNELS):
+        raise AssertionError(f"13b: non-finite summaries or a kernel not launched: "
+                             f"{launches_b}")
+    inside = float(np.mean((summ[:, 0, 0] <= truth) & (truth <= summ[:, 0, 2])))
+    med = float(np.median(times))
+    phase("bolometric main path 13b", f"{BOL_EPOCHS} epochs x {BOL_WALKERS} walkers x "
+          f"{BOL_BURNIN}+{BOL_STEPS} steps (centering, MCMC, device summaries): "
+          f"{BOL_EPOCHS / med:.2f} epochs/s (median of 5 runs {med:.4f} s, runs "
+          f"{', '.join(f'{x:.4f}' for x in times)}; on {smi}); mean acceptance {acc_mean:.4f} "
+          f"(JAX float64 CPU {BOL_ACCEPTANCE_REF:.4f} +- 0.02); true T inside the 16-84 "
+          f"interval for {inside:.3f} of the epochs; stages (median): centering "
+          f"{np.median([a for a, _ in stages]):.4f} s, MCMC and summaries "
+          f"{np.median([b for _, b in stages]):.4f} s; profiled run {wall:.4f} s, device busy "
+          f"{busy:.4f} s ({busy / wall:.3f}; idle share {1 - busy / wall:.3f}), top kernels "
+          f"{top}; launches per run {launches_b}")
     return launches
 
 
@@ -606,12 +1083,17 @@ def main():
     k_sc3 = phase_sc3_logpost(lcf)
     k_sc3_half = phase_sc3_half_step(lcf)
     launches_sc3 = phase_sc3_main_path(lc, smi)
+    k4 = phase_k4()
+    k_epoch_half = phase_epoch_half_step()
+    k4s, k5 = phase_k4s_k5()
+    launches_bol = phase_bolometric_main_path(smi)
     if any(m.startswith("jax") or m.startswith("lightcurve_fitting_tpu.") or
            m == "lightcurve_fitting_tpu" for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
 
     src = "lightcurve_fitting_tpu_torch/kernels/csrc/sc2_logpost.cu"
     src3 = "lightcurve_fitting_tpu_torch/kernels/csrc/sc3_logpost.cu"
+    src4 = "lightcurve_fitting_tpu_torch/kernels/csrc/epoch_bb.cu"
     kernels = [
         dict(name="sc2_logpost_kernel (K1)", route="cuda", source=src,
              replaces="lightcurve_fitting_tpu/fitting.py:62", launches=launches["sc2_logpost"],
@@ -628,6 +1110,19 @@ def main():
         dict(name="stretch_half_step_kernel<SC3Model> (SC3 half-step)", route="cuda",
              source=src3, replaces="lightcurve_fitting_tpu/parallel/sampler.py:86",
              launches=launches_sc3["sc3_half_step"], **k_sc3_half),
+        dict(name="epoch_logpost_kernel (K4)", route="cuda", source=src4,
+             replaces="lightcurve_fitting_tpu/parallel/batched.py:53",
+             launches=launches_bol["epoch_logpost"] + launches_bol["epoch_logpost_grad"], **k4),
+        dict(name="stretch_half_step_kernel<EpochBBModel> (epoch half-step)", route="cuda",
+             source=src4, replaces="lightcurve_fitting_tpu/parallel/batched.py:245",
+             launches=launches_bol["epoch_half_step"], **k_epoch_half),
+        dict(name="epoch_summary_kernel (K4s)", route="cuda", source=src4,
+             replaces="lightcurve_fitting_tpu/parallel/batched.py:129",
+             launches=launches_bol["epoch_summary"], **k4s),
+        dict(name="percentile_kernel (K5)", route="cuda",
+             source="lightcurve_fitting_tpu_torch/kernels/csrc/quantile.cu",
+             replaces="lightcurve_fitting_tpu/ops/quantile.py:46",
+             launches=launches_bol["percentile"], **k5),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

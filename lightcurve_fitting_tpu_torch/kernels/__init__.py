@@ -5,15 +5,21 @@ and their plain PyTorch versions.
   log-posterior, and K2, the stretch-move half-step over it.
 * ``csrc/sc3_logpost.cu`` (:mod:`.sc3`): K3, the quadrature band flux, and
   the fused ShockCooling3 log-posterior and half-step built on it.
-* ``csrc/stretch.cuh``: the half-step template and the device code both
-  share; :mod:`.common` its Python side and the plain stretch move.
+* ``csrc/epoch_bb.cu`` (:mod:`.epoch_bb`): K4, the per-epoch blackbody
+  log-posterior of the batched bolometric path and its gradient, the
+  half-step over E epochs at once, and K4s, the posterior-summary rows.
+* ``csrc/quantile.cu`` (:mod:`.quantile`): K5, exact percentiles of float32
+  rows by counting bisection.
+* ``csrc/stretch.cuh``: the half-step template and the device code they
+  share, ``csrc/planck.cuh`` the Planck band sum of K3, K4 and K4s;
+  :mod:`.common` their Python side and the plain stretch move.
 
 :mod:`.build` compiles the sources with nvcc at first use. Importing this
 package needs neither nvcc nor a GPU. :func:`log_posterior` and
 :func:`stretch_half_step` route a LogPosterior to its model's kernels.
 """
 
-from . import sc2, sc3  # noqa: F401
+from . import epoch_bb, quantile, sc2, sc3  # noqa: F401
 from .common import (LAUNCHES, reset_launch_counts, log_posterior_plain,  # noqa: F401
                      stretch_half_step_plain)
 

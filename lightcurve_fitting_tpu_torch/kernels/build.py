@@ -64,6 +64,14 @@ def _declare(lib):
     lib.sc3_logpost_launch.argtypes = [vp, ci, ci, vp, ci, ci, vp, vp]
     lib.sc3_half_step_launch.restype = ci
     lib.sc3_half_step_launch.argtypes = half_step
+    lib.epoch_logpost_launch.restype = ci
+    lib.epoch_logpost_launch.argtypes = [vp, ci, ci, vp, ci, ci, vp, ci, vp, vp]
+    lib.epoch_half_step_launch.restype = ci
+    lib.epoch_half_step_launch.argtypes = half_step[:-1] + [ci, ctypes.c_longlong, vp]
+    lib.epoch_summary_launch.restype = ci
+    lib.epoch_summary_launch.argtypes = [vp, ci, ci, ci, ci, vp]
+    lib.percentile_launch.restype = ci
+    lib.percentile_launch.argtypes = [vp, ci, vp]
     return lib
 
 

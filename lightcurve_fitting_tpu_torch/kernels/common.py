@@ -1,7 +1,7 @@
-"""What the kernel wrappers of :mod:`.sc2` and :mod:`.sc3` share: the launch
-counts, input checks, the parameter-block fields of the priors and the
-affine map, and the plain PyTorch stretch move (the plain version of every
-half-step kernel).
+"""What the kernel wrappers of :mod:`.sc2`, :mod:`.sc3`, :mod:`.epoch_bb` and
+:mod:`.quantile` share: the launch counts, input checks, the parameter-block
+fields of the priors and the affine map, and the plain PyTorch stretch move
+(the plain version of every half-step kernel).
 """
 
 import numpy as np
@@ -15,7 +15,8 @@ MAX_DIM = 8  # LP_MAX_DIM of csrc/stretch.cuh
 #: kernel launches by name; each wrapper adds one where it launches, and
 #: nothing else does
 LAUNCHES = {"sc2_logpost": 0, "stretch_half_step": 0, "bandflux": 0, "sc3_logpost": 0,
-            "sc3_half_step": 0}
+            "sc3_half_step": 0, "epoch_logpost": 0, "epoch_logpost_grad": 0,
+            "epoch_half_step": 0, "epoch_summary": 0, "percentile": 0}
 
 FLOATS = (torch.float32, torch.float64)
 
@@ -126,10 +127,15 @@ def log_posterior_plain(lp, q, param_offset=None, param_scale=None):
 def propose_stretch(u_z, j, x_move, x_other, a=2.0):
     """The Goodman-Weare stretch proposal from given draws: z ~ g(z) ∝
     1/sqrt(z) on [1/a, a] as z = ((a-1)u + 1)^2 / a, and the partner
-    ``x_other[j]``; returns (y, z)."""
+    ``x_other[j]``; returns (y, z). With a leading ensemble axis (x
+    (E, half, ndim), draws (E, half)) each ensemble draws its partner from
+    its own pool."""
     z = ((a - 1.0) * u_z + 1.0) ** 2 / a
-    x_j = x_other[j]
-    return x_j + z[:, None] * (x_move - x_j), z
+    if j.ndim == 1:
+        x_j = x_other[j]
+    else:
+        x_j = torch.gather(x_other, -2, j[..., None].expand(*j.shape, x_other.shape[-1]))
+    return x_j + z[..., None] * (x_move - x_j), z
 
 
 def half_update(log_prob, x_move, x_other, logp_move, u_z, j, u_acc, a=2.0):
@@ -142,7 +148,7 @@ def half_update(log_prob, x_move, x_other, logp_move, u_z, j, u_acc, a=2.0):
     logp_y = torch.where(torch.isnan(logp_y), torch.full_like(logp_y, -torch.inf), logp_y)
     log_ratio = (ndim - 1.0) * torch.log(z) + logp_y - logp_move
     accept = torch.log(u_acc) < log_ratio
-    x_new = torch.where(accept[:, None], y, x_move)
+    x_new = torch.where(accept[..., None], y, x_move)
     logp_new = torch.where(accept, logp_y, logp_move)
     return x_new, logp_new, accept
 

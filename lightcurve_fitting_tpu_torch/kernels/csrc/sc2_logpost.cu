@@ -179,7 +179,7 @@ struct SC2Model {
     typedef SC2Params Params;
     typedef PointData<C> Data;
     static __host__ __device__ size_t stage_bytes(const Params& P) { return ::stage_bytes<C>(P); }
-    static __device__ Data stage(const Params& P, unsigned char* smem, int use_smem) {
+    static __device__ Data stage(const Params& P, unsigned char* smem, int use_smem, int) {
         return stage_points<C>(P, reinterpret_cast<C*>(smem), use_smem);
     }
     static __device__ double log_posterior(const double* p, const Data& d, const Params& P) {

@@ -29,9 +29,10 @@
 // a finite sum), which cuts the terms from 13261 to 5738. The standalone K3
 // runs one block column per point and one thread per walker, over all K
 // nodes: the JAX function's padded sum.
-// One __device__ function (band_flux) carries the band sum for all three
-// kernels, so a proposal's band fluxes are bit-identical to K3's
-// evaluation of the same T, R and E(B-V) over the same nodes.
+// One __device__ function (band_flux, planck.cuh) carries the band sum for
+// all three kernels, so a proposal's band fluxes are bit-identical to K3's
+// evaluation of the same T, R and E(B-V) over the same nodes; the epoch
+// blackbody kernels of epoch_bb.cu call it too.
 //
 // Dtype semantics follow the JAX accelerator path: the SW17 power laws run
 // in the compute type C on C-cast parameters, tt = C(t - t_ref) - C(t_exp -
@@ -42,7 +43,7 @@
 // divided in float64 by d_L^2 (d_L is not cast), then rounded to C for the
 // residual sum, as the JAX graph promotes it.
 
-#include "stretch.cuh"
+#include "planck.cuh"
 
 // Every field is 8 bytes wide, so the layout has no padding and the ctypes
 // mirror in kernels/sc3.py (_SC3Params) matches it field for field.
@@ -114,32 +115,6 @@ struct BandfluxParams {
     double ext_coef;             // -0.4 ln 10
 };
 
-// K3's band sum for one point: sum_{k < n_k} w[k] * L_nu(nu[k]; T, R) *
-// 10^(-0.4 kx[k] ebv), over one row of the node, weight and extinction
-// tables (kx null: no extinction).
-template <typename C>
-__device__ __forceinline__ C band_flux(const C* nu, const C* w, const C* kx, int n_k, C T, C R,
-                                       C ebv, C c1, C c2, C ext_coef, bool has_cutoff,
-                                       C cutoff) {
-    const C inv_T = T > C(0) ? C(1) / T : C(0);  // safe_reciprocal: T <= 0 or NaN -> 0
-    const C c2R2 = c2 * (R * R);
-    C acc = C(0);
-    for (int k = 0; k < n_k; ++k) {
-        const C nuk = nu[k];
-        const C e = m_expm1((c1 * nuk) * inv_T);
-        const C pdi = e > C(0) ? C(1) / e : C(0);  // x <= 0 -> 0; Wien overflow 1/inf = 0
-        C lnu = c2R2 * (nuk * nuk * nuk);
-        if (has_cutoff) {
-            const C cut = cutoff / nuk;
-            lnu = lnu * (cut < C(1) ? cut : C(1));
-        }
-        lnu = lnu * pdi;
-        if (kx != nullptr) lnu = lnu * m_exp((kx[k] * ebv) * ext_coef);
-        acc += w[k] * lnu;
-    }
-    return acc;
-}
-
 // K3: out[w, n] = the band flux of point n (row band_ids[n]) at T[w, n],
 // R[w, n], ebv[w, n]. Block column blockIdx.x is point n, its threads are
 // walkers (grid-stride over blockIdx.y); the block stages row n's tables.
@@ -189,14 +164,6 @@ template <typename C>
 __host__ __device__ inline size_t sc3_stage_bytes(const SC3Params& P) {
     return sizeof(long long) * (size_t)(P.n_points + P.n_bands)
            + sizeof(C) * (size_t)(3 * P.n_bands * P.n_nodes + 5 * P.n_points);
-}
-
-template <typename T>
-__device__ __forceinline__ const T* stage_array(const T* src, long long len, T*& s) {
-    for (long long i = threadIdx.x; i < len; i += blockDim.x) s[i] = src[i];
-    const T* out = s;
-    s += len;
-    return out;
 }
 
 // Copy the band tables, band ids and per-point data into shared memory
@@ -294,7 +261,7 @@ struct SC3Model {
     static __host__ __device__ size_t stage_bytes(const Params& P) {
         return sc3_stage_bytes<C>(P);
     }
-    static __device__ Data stage(const Params& P, unsigned char* smem, int use_smem) {
+    static __device__ Data stage(const Params& P, unsigned char* smem, int use_smem, int) {
         return stage_sc3<C>(P, smem, use_smem);
     }
     static __device__ double log_posterior(const double* p, const Data& d, const Params& P) {

@@ -2,13 +2,15 @@
 // overloads, the priors, the Gaussian residual, and the stretch-move
 // half-step (K2) as a template over a model policy.
 //
-// A model policy M (SC2Model in sc2_logpost.cu, SC3Model in sc3_logpost.cu)
-// provides
+// A model policy M (SC2Model in sc2_logpost.cu, SC3Model in sc3_logpost.cu,
+// EpochBBModel in epoch_bb.cu) provides
 //   typedef ... Params;  // the model's parameter block (8-byte fields)
 //   typedef ... Data;    // the per-point data as the kernel reads it
 //   static size_t stage_bytes(const Params&);             // host and device
-//   static __device__ Data stage(const Params&, unsigned char* smem, int use_smem);
+//   static __device__ Data stage(const Params&, unsigned char* smem, int use_smem, int e);
 //   static __device__ double log_posterior(const double* p, const Data&, const Params&);
+// where e is the ensemble (epoch) of the block: always 0 for a single
+// ensemble, whose data do not depend on it.
 // and every Params has the fields ndim, use_sigma, has_affine, prior_kind,
 // p_min, p_max, mean, stddev, affine_offset and affine_scale.
 
@@ -110,24 +112,32 @@ __device__ __forceinline__ double finish_log_posterior(double log_prior, C acc, 
 // uniform in [0, 1), j in [0, half). Adds the accept flag to n_accept and,
 // when chain_x is not null, writes the walker's new state and log-posterior
 // into the chain slot (2, half, ndim) / (2, half).
+// Several independent ensembles advance in one launch along blockIdx.y: then
+// x, logp, n_accept and the chain slot are (E, 2, half[, ndim]) and the
+// draws of ensemble e start draw_stride elements after those of e - 1. With
+// one ensemble (e = 0) every offset below is 0.
 template <typename M, typename S, typename X, typename L>
 __global__ void __launch_bounds__(LP_THREADS)
 stretch_half_step_kernel(const typename M::Params P, S* __restrict__ x,
                          double* __restrict__ logp, int half, int h,
                          const S* __restrict__ u_z, const long long* __restrict__ j,
                          const S* __restrict__ u_acc, double a, X* __restrict__ chain_x,
-                         L* __restrict__ chain_lp, int* __restrict__ n_accept, int use_smem) {
+                         L* __restrict__ chain_lp, int* __restrict__ n_accept, int use_smem,
+                         long long draw_stride) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    const typename M::Data d = M::stage(P, smem_raw, use_smem);
+    const int e = blockIdx.y;
+    const typename M::Data d = M::stage(P, smem_raw, use_smem, e);
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= half) return;
     const int ndim = (int)P.ndim;
-    const size_t w = (size_t)h * half + i;
+    const size_t ens = (size_t)e * 2 * half;      // walkers of the ensembles before e
+    const size_t di = (size_t)e * draw_stride + i;
+    const size_t w = ens + (size_t)h * half + i;
     S* xm = x + w * ndim;
-    const S* xj = x + ((size_t)(1 - h) * half + (size_t)j[i]) * ndim;
+    const S* xj = x + (ens + (size_t)(1 - h) * half + (size_t)j[di]) * ndim;
 
     // z ~ g(z) on [1/a, a]: z = ((a - 1) u + 1)^2 / a
-    const S zw = add_rn(mul_rn((S)(a - 1.0), u_z[i]), S(1));
+    const S zw = add_rn(mul_rn((S)(a - 1.0), u_z[di]), S(1));
     const S z = div_rn(mul_rn(zw, zw), (S)a);
     S y[LP_MAX_DIM];
     double p[LP_MAX_DIM];
@@ -141,7 +151,7 @@ stretch_half_step_kernel(const typename M::Params P, S* __restrict__ x,
     const S lz = (S)(ndim - 1) * m_log(z);
     const double log_ratio = (double)lz + lp_y - lp_x;
     // log(0) = -inf accepts unless log_ratio is -inf; a NaN ratio rejects
-    const double log_u = (double)m_log(u_acc[i]);
+    const double log_u = (double)m_log(u_acc[di]);
     const bool accept = !isnan(log_ratio) && log_u < log_ratio;
     double lp_new = lp_x;
     if (accept) {
@@ -158,14 +168,26 @@ stretch_half_step_kernel(const typename M::Params P, S* __restrict__ x,
 
 // ------------------------------------------------------------------ launch
 
+// The card's opt-in shared-memory limit per block, read once per device and
+// kept (the attribute query is a runtime API call, and every launch asks).
+static inline int smem_optin_limit() {
+    static int limit[64] = {0};   // 0: not read yet
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (dev < 0 || dev >= 64) return 48 * 1024;
+    if (limit[dev] == 0) {
+        int v = 0;
+        cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+        limit[dev] = v > 0 ? v : 48 * 1024;
+    }
+    return limit[dev];
+}
+
 // Dynamic shared memory for a kernel that stages `bytes`: 0 (read global
 // memory) when the card's opt-in limit is smaller.
 template <typename Kernel>
 static int smem_plan(Kernel kernel, size_t bytes, int* use_smem) {
-    int dev = 0, max_optin = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (bytes > (size_t)max_optin) {
+    if (bytes > (size_t)smem_optin_limit()) {
         *use_smem = 0;  // read the per-point data from global memory instead
         return 0;
     }
@@ -176,41 +198,62 @@ static int smem_plan(Kernel kernel, size_t bytes, int* use_smem) {
     return 0;
 }
 
+// Copy len elements of src into the shared-memory cursor s and advance it
+// (every thread of the block takes part).
+template <typename T>
+__device__ __forceinline__ const T* stage_array(const T* src, long long len, T*& s) {
+    for (long long i = threadIdx.x; i < len; i += blockDim.x) s[i] = src[i];
+    const T* out = s;
+    s += len;
+    return out;
+}
+
+// Threads a block for n parameter vectors of one ensemble: a warp multiple,
+// at most LP_THREADS (small ensembles leave no idle warps).
+static inline int threads_for(int n) {
+    const int t = (n + 31) / 32 * 32;
+    return t < LP_THREADS ? t : LP_THREADS;
+}
+
 template <typename M, typename S, typename X, typename L>
 static int launch_half(const typename M::Params& P, void* x, double* logp, int half, int h,
                        const void* u_z, const long long* j, const void* u_acc, double a,
-                       void* chain_x, void* chain_lp, int* n_accept, cudaStream_t stream) {
+                       void* chain_x, void* chain_lp, int* n_accept, int n_ens,
+                       long long draw_stride, cudaStream_t stream) {
     auto kernel = stretch_half_step_kernel<M, S, X, L>;
     int use_smem = 0;
     size_t bytes = M::stage_bytes(P);
     int rc = smem_plan(kernel, bytes, &use_smem);
     if (rc) return rc;
-    const int blocks = (half + LP_THREADS - 1) / LP_THREADS;
-    kernel<<<blocks, LP_THREADS, use_smem ? bytes : 0, stream>>>(
+    const int threads = n_ens > 1 ? threads_for(half) : LP_THREADS;
+    const dim3 grid((half + threads - 1) / threads, n_ens);
+    kernel<<<grid, threads, use_smem ? bytes : 0, stream>>>(
         P, (S*)x, logp, half, h, (const S*)u_z, j, (const S*)u_acc, a, (X*)chain_x,
-        (L*)chain_lp, n_accept, use_smem);
+        (L*)chain_lp, n_accept, use_smem, draw_stride);
     return (int)cudaGetLastError();
 }
 
 // The half-step launch for the model policy M<C> of the run's dtypes: the
 // compute type C, the walker state S, the chain's state X and log-posterior
-// L, each float or double. Returns 0 or a cudaError_t code.
+// L, each float or double; n_ens ensembles (draw_stride apart in the draws),
+// 1 and 0 for a single one. Returns 0 or a cudaError_t code.
 template <template <typename> class M>
 static int launch_half_step(const typename M<float>::Params* P, int device, int compute_f64,
                             void* x, int state_f64, double* logp, int half, int h,
                             const void* u_z, const long long* j, const void* u_acc, double a,
                             void* chain_x, int chain_x_f64, void* chain_lp, int chain_lp_f64,
-                            int* n_accept, void* stream) {
+                            int* n_accept, void* stream, int n_ens = 1,
+                            long long draw_stride = 0) {
     int rc = (int)cudaSetDevice(device);
     if (rc) return rc;
-    if (half <= 0) return 0;
-    if (P->ndim > LP_MAX_DIM) return (int)cudaErrorInvalidValue;
+    if (half <= 0 || n_ens <= 0) return 0;
+    if (P->ndim > LP_MAX_DIM || n_ens > 65535) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     const int key = compute_f64 * 8 + state_f64 * 4 + chain_x_f64 * 2 + chain_lp_f64;
 #define LP_HALF_CASE(K, C, S, X, L)                                                      \
     case K:                                                                              \
         return launch_half<M<C>, S, X, L>(*P, x, logp, half, h, u_z, j, u_acc, a, chain_x, \
-                                          chain_lp, n_accept, s);
+                                          chain_lp, n_accept, n_ens, draw_stride, s);
     switch (key) {
         LP_HALF_CASE(0, float, float, float, float)
         LP_HALF_CASE(1, float, float, float, double)
@@ -232,4 +275,3 @@ static int launch_half_step(const typename M<float>::Params* P, int device, int 
 #undef LP_HALF_CASE
     return (int)cudaErrorInvalidValue;
 }
-

@@ -26,15 +26,17 @@ from ..utils import units as u
 __all__ = ["Model", "LogLikelihood", "format_unit", "intrinsic_scatter_units"]
 
 
-def intrinsic_scatter_units(dy, sigma_type):
+def intrinsic_scatter_units(dy, sigma_type, mask=None):
     """Units of the intrinsic-scatter parameter sigma (reference
     models.py:116-129): the per-point uncertainties for ``'relative'``, their
-    median for ``'absolute'``. Host numpy, the JAX package's definition for
-    an unmasked light curve."""
+    median for ``'absolute'``, over the real (``mask``) points only when a
+    mask is given (the padded bands of a packed epoch). Host numpy, the JAX
+    package's definition: with a mask, ``np.nanmedian`` of the masked data
+    (the mean of the two middle values for an even count)."""
     if sigma_type == "relative":
         return dy
     if sigma_type == "absolute":
-        return np.median(dy)
+        return np.median(dy) if mask is None else np.nanmedian(np.where(mask, dy, np.nan))
     raise Exception('sigma_type must either be "relative" or "absolute"')
 
 

@@ -1,6 +1,8 @@
 """The CUDA kernels of ``lightcurve_fitting_tpu_torch/kernels``: K1 and K2
 (ShockCooling2), K3 (the quadrature band flux) and the ShockCooling3
-log-posterior and half-step built on it.
+log-posterior and half-step built on it; K4 (the per-epoch blackbody
+log-posterior and its gradient), the epoch half-step, K4s (the summary
+rows) and K5 (percentiles) of the batched bolometric path.
 
 This file imports neither jax nor the JAX package, so the ``cuda``-marked
 tests also run on a machine with the card and no jax:
@@ -19,7 +21,12 @@ constant added in the compute dtype: near the best fit the residual sum and
 c cancel, and float32 rounding scales with the terms, not with their sum
 (plain float32 itself is 1e-3 |ll| from float64 there). K3 per point:
 float32 <= 1e-5 relative (a sum of up to 89 non-negative float32 terms in
-another order, ~89 ulps at worst), float64 <= 1e-12 relative.
+another order, ~89 ulps at worst), float64 <= 1e-12 relative. K4 as the
+log-posteriors above with c the epoch's log_norm, its gradient within 1e-4
+(float32) and 1e-9 (float64) of the summed magnitude of its per-band terms
+(the terms cancel near an optimum, and the rounding follows the terms);
+the epoch half-step as K2; K4s's integral float32 <= 1e-5 relative; K5's
+percentiles bit-equal to the plain version's.
 """
 
 import ctypes
@@ -34,12 +41,18 @@ torch.set_num_threads(1)
 from lightcurve_fitting_tpu_torch import kernels  # noqa: E402
 from lightcurve_fitting_tpu_torch.core import config  # noqa: E402
 from lightcurve_fitting_tpu_torch.fitting import make_log_posterior  # noqa: E402
-from lightcurve_fitting_tpu_torch.kernels import build, common, sc2, sc3  # noqa: E402
+from lightcurve_fitting_tpu_torch.kernels import build, common, epoch_bb, sc2, sc3  # noqa: E402
+from lightcurve_fitting_tpu_torch.kernels import quantile as kquantile  # noqa: E402
 from lightcurve_fitting_tpu_torch.lightcurve import LC  # noqa: E402
-from lightcurve_fitting_tpu_torch.models import (BaseShockCooling, ShockCooling2,  # noqa: E402
-                                                 ShockCooling3, UniformPrior)
+from lightcurve_fitting_tpu_torch.models import (BaseShockCooling, LogUniformPrior,  # noqa: E402
+                                                 ShockCooling2, ShockCooling3, UniformPrior)
 from lightcurve_fitting_tpu_torch.models.blackbody import (  # noqa: E402
-    bandflux_pointwise, bandflux_pointwise_plain)
+    bandflux_pointwise, bandflux_pointwise_plain, planck_lnu)
+from lightcurve_fitting_tpu_torch.ops.filterbank import FilterBank  # noqa: E402
+from lightcurve_fitting_tpu_torch.ops.quantile import percentile_f32_plain  # noqa: E402
+from lightcurve_fitting_tpu_torch.filters import filtdict  # noqa: E402
+from lightcurve_fitting_tpu_torch.parallel import batched  # noqa: E402
+from lightcurve_fitting_tpu_torch.utils.table import Table  # noqa: E402
 
 EXAMPLE = os.path.join(os.path.dirname(__file__), "..", "lightcurve_fitting_tpu", "data",
                        "SN2016bkv.csv")
@@ -144,7 +157,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build._nvcc()
     srcs, _ = build._sources()
-    assert [os.path.basename(s) for s in srcs] == ["sc2_logpost.cu", "sc3_logpost.cu"]
+    assert [os.path.basename(s) for s in srcs] == ["epoch_bb.cu", "quantile.cu", "sc2_logpost.cu",
+                                                   "sc3_logpost.cu"]
 
 
 def test_param_block_layout_matches_the_c_struct():
@@ -238,6 +252,70 @@ def test_sc3_kernel_params_check_ndim(lc_flux):
     assert list(ll.n_native.numpy()) == [12, 10, 88, 14, 4, 74, 52, 88, 42]
     assert P.kappa == 1.0 and P.ext_coef == -0.4 * np.log(10.0)
     assert sc3._kernel_params(lp, 7, SC3_OFFSET, SC3_SCALE) is P   # cached
+
+
+@pytest.mark.parametrize("struct,mirror,size", [
+    # 10 pointers, 7 ints, 3 doubles, 7 arrays of LP_MAX_DIM
+    ("EpochBBParams", epoch_bb._EpochBBParams, 8 * (10 + 7 + 3) + 7 * 8 * 8),
+    # 4 pointers, 8 ints, 3 doubles
+    ("SummaryParams", epoch_bb._SummaryParams, 8 * (4 + 8 + 3)),
+    # 2 pointers, 3 ints, 3 arrays of PCT_MAX_Q
+    ("PercentileParams", kquantile._PercentileParams, 8 * (2 + 3) + 3 * 8 * 8),
+])
+def test_epoch_param_blocks_match_the_c_structs(struct, mirror, size):
+    assert ctypes.sizeof(mirror) == size
+    assert _c_fields(struct) == [name for name, _ in mirror._fields_]
+
+
+def _epoch_pack(E, device, seed=0):
+    """E synthetic blackbody epochs of 6, 5 and 4 bands in turn (the bench's
+    recipe, with the port's planck_lnu), packed on ``device``."""
+    rng = np.random.default_rng(seed)
+    filts = [filtdict[n] for n in ["U", "B", "g", "V", "r", "i"]]
+    bank = FilterBank(filts)
+    nodes = torch.as_tensor(bank.emitted_nodes(0.0))
+    epochs = []
+    for e in range(E):
+        T, R = rng.uniform(4.0, 20.0), rng.uniform(1.0, 30.0)
+        y = (bank.weights * planck_lnu(nodes, torch.tensor(T), torch.tensor(R)).numpy()).sum(-1)
+        dy = 0.05 * np.abs(y)
+        nb = 6 - e % 3
+        epochs.append(Table([filts[:nb], (y + rng.normal(scale=dy))[:nb], dy[:nb]],
+                            names=["filter", "lum", "dlum"]))
+    return batched.pack_epochs(epochs, bank, 0.0, device=device)
+
+
+_EPOCH_PRIORS = [UniformPrior(1.0, 100.0), LogUniformPrior(0.01, 1000.0)]
+
+
+def _epoch_params(E, M, seed=1):
+    """Log-uniform (T, R) over and beyond the priors, some T <= 0."""
+    rng = np.random.default_rng(seed)
+    p = np.exp(rng.uniform(np.log([0.5, 0.005]), np.log([150.0, 2000.0]), size=(E, M, 2)))
+    p[:, :2, 0] = [-1.0, 0.0]
+    return p
+
+
+def test_epoch_wrappers_route_by_device():
+    ep = batched.EpochPosterior(_epoch_pack(3, "cpu"), _EPOCH_PRIORS)
+    q = torch.as_tensor(_epoch_params(3, 8))
+    before = dict(kernels.LAUNCHES)
+    assert torch.equal(ep(q), ep.plain(q))
+    rows = torch.randn(4, 50).float()
+    from lightcurve_fitting_tpu_torch.ops.quantile import percentile_f32
+    assert torch.equal(percentile_f32(rows, [16, 50, 84], axis=1),
+                       percentile_f32_plain(rows, [16, 50, 84], axis=1))
+    assert kernels.LAUNCHES == before           # the plain path launches nothing
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        epoch_bb.log_posterior(ep, torch.empty((3, 4, 2), device="meta"))
+    x = torch.empty((3, 2, 4, 2), device="meta")
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        epoch_bb.stretch_half_step(ep, x, x[..., 0], 0, x[..., 0], x[..., 0].long(), x[..., 0])
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        epoch_bb.summary_samples(torch.empty((2, 3, 4, 2), device="meta"), rows[0], rows[0],
+                                 np.inf, torch.float32)
+    with pytest.raises(ValueError, match="K5 runs on CUDA"):
+        kquantile.percentile_rows(rows, [50])
 
 
 # ---------------------------------------------------------------- card side
@@ -445,3 +523,118 @@ def test_sc3_half_step_matches_plain_on_card(lc_flux, cuda_device, h):
     assert torch.equal(xk[1 - h], x0[1 - h]) and torch.equal(ak[1 - h], ap[1 - h])
     assert torch.equal(chain_x[h], xk[h]) and torch.equal(chain_lp[h], lk[h])
     assert 0.02 < float(ak[h].float().mean()) < 0.98
+
+
+def _term_scale(ep, p):
+    """Sum over an epoch's bands of |d(-0.5 r_b^2)/dp|: the magnitude the
+    float32 rounding of the gradient follows (plain arithmetic of K4)."""
+    p = p.detach().clone().requires_grad_(True)
+    cdt = ep.compute_dtype
+    T, R = (p[..., k].to(cdt)[..., None, None] for k in (0, 1))
+    y_fit = torch.sum(ep.weights[:, None] * planck_lnu(ep.nodes[:, None], T, R), dim=-1) \
+        * ep.inv_yscale[:, None, None]
+    terms = -0.5 * ((ep.y[:, None] - y_fit) * ep.inv_dy[:, None]) ** 2
+    scale = torch.zeros_like(p)
+    for b in range(terms.shape[-1]):
+        g, = torch.autograd.grad(terms[..., b].sum(), p, retain_graph=True)
+        scale += g.abs()
+    return scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_k4_matches_plain_on_card(cuda_device, f64):
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        ep = batched.EpochPosterior(_epoch_pack(24, cuda_device), _EPOCH_PRIORS)
+        q = torch.as_tensor(_epoch_params(24, 160), device=cuda_device)
+        n0 = kernels.LAUNCHES["epoch_logpost_grad"]
+        lp, grad = epoch_bb.log_posterior(ep, q, with_grad=True)
+        assert kernels.LAUNCHES["epoch_logpost_grad"] == n0 + 1
+        assert torch.equal(lp, epoch_bb.log_posterior(ep, q)[0])
+        want = ep.plain(q)
+        rel, grel = (1e-10, 1e-9) if f64 else (1e-5, 1e-4)
+        c = ep.log_norm[:, None].expand_as(want)
+        fin = torch.isfinite(want)
+        assert torch.equal(torch.isneginf(lp), torch.isneginf(want)) and int(fin.sum()) > 1000
+        assert bool(((lp - want).abs()[fin] <= rel * ((want - c).abs() + c.abs())[fin]).all())
+        qq = q.clone().requires_grad_(True)
+        g_want, = torch.autograd.grad(ep.plain(qq).sum(), qq)
+        ok = fin[..., None] & torch.isfinite(g_want)
+        scale = _term_scale(ep, q) + g_want.abs()
+        assert bool(((grad - g_want).abs()[ok] <= grel * scale[ok]).all())
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [0, 1])
+def test_epoch_half_step_matches_plain_on_card(cuda_device, h):
+    E, half = 40, 16
+    ep = batched.EpochPosterior(_epoch_pack(E, cuda_device), _EPOCH_PRIORS)
+    rng = np.random.default_rng(4)
+    x0 = torch.as_tensor(np.exp(rng.uniform(np.log([5.0, 1.0]), np.log([20.0, 30.0]),
+                                            size=(E, 2, half, 2))), device=cuda_device).float()
+    l0 = ep(x0.reshape(E, 2 * half, 2)).reshape(E, 2, half)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    u_z = torch.rand((E, 2, half), generator=g, device=cuda_device)
+    j = torch.randint(0, half, (E, 2, half), generator=g, device=cuda_device)
+    u_acc = torch.rand((E, 2, half), generator=g, device=cuda_device)
+    xk, lk, xp, lpp = x0.clone(), l0.clone(), x0.clone(), l0.clone()
+    ak = torch.zeros((E, 2, half), dtype=torch.int32, device=cuda_device)
+    ap = torch.zeros_like(ak)
+    cx = torch.empty_like(x0)
+    cl = torch.empty((E, 2, half), device=cuda_device)
+    n0 = kernels.LAUNCHES["epoch_half_step"]
+    epoch_bb.stretch_half_step(ep, xk, lk, h, u_z, j, u_acc, 2.0, cx, cl, ak)
+    assert kernels.LAUNCHES["epoch_half_step"] == n0 + 1
+    epoch_bb.stretch_half_step_plain(ep.plain, xp, lpp, h, u_z, j, u_acc, 2.0, n_accept=ap)
+    agree = ak[:, h] == ap[:, h]
+    y, z = common.propose_stretch(u_z[:, h], j[:, h], x0[:, h], x0[:, 1 - h])
+    lp_y = ep.plain(y)
+    gap = (torch.log(u_acc[:, h]).double() - (torch.log(z) + lp_y - l0[:, h])).abs()
+    c = ep.log_norm[:, None]
+    assert bool((agree | (gap <= 1e-5 * ((lp_y - c).abs() + c.abs()))).all())
+    assert torch.equal(xk[:, h][agree], xp[:, h][agree])
+    assert torch.equal(xk[:, 1 - h], x0[:, 1 - h]) and torch.equal(ak[:, 1 - h], ap[:, 1 - h])
+    assert torch.equal(cx[:, h], xk[:, h]) and torch.equal(cl[:, h], lk[:, h].float())
+    assert 0.02 < float(ak[:, h].float().mean()) < 0.98
+
+
+@pytest.mark.cuda
+def test_k4s_and_k5_match_plain_on_card(cuda_device):
+    rng = np.random.default_rng(6)
+    E, steps, nw = 20, 50, 32
+    chain = torch.as_tensor(np.exp(rng.uniform(np.log([5.0, 1.0]), np.log([20.0, 30.0]),
+                                               size=(steps, E, nw, 2))),
+                            device=cuda_device).float()
+    nu = torch.arange(380.0, 960.0, dtype=torch.float64, device=cuda_device)
+    w = torch.ones_like(nu)
+    w[0] = w[-1] = 0.5
+    n0 = dict(kernels.LAUNCHES)
+    rows = epoch_bb.summary_samples(chain, nu, w, np.inf, torch.float32)
+    want = epoch_bb.summary_samples_plain(chain, nu, w, np.inf, torch.float32)
+    assert rows.shape == (E, 4, steps * nw) and rows.dtype == torch.float32
+    assert torch.equal(rows[:, :3], want[:, :3])
+    assert bool(((rows[:, 3] - want[:, 3]).abs() <= 1e-5 * want[:, 3].abs()).all())
+    flat = rows.reshape(E * 4, -1).contiguous()
+    pct = kquantile.percentile_rows(flat, [16, 50, 84])
+    assert torch.equal(pct, percentile_f32_plain(flat, [16, 50, 84], axis=1))
+    assert kernels.LAUNCHES["epoch_summary"] == n0["epoch_summary"] + 1
+    assert kernels.LAUNCHES["percentile"] == n0["percentile"] + 1
+
+
+@pytest.mark.cuda
+def test_bolometric_runs_through_the_epoch_kernels_on_card(cuda_device):
+    from lightcurve_fitting_tpu_torch.bolometric import calculate_bolometric
+    lc = LC.read(EXAMPLE)
+    lc.meta.update(dm=30.79, redshift=0.002)
+    kernels.reset_launch_counts()
+    t = calculate_bolometric(lc.where(MJD_min=57468.0, MJD_max=57474.0), nwalkers=10,
+                             burnin_steps=50, steps=50, seed=7, save_corners=False,
+                             batch_mode=True)
+    assert len(t) == 4 and np.isfinite(np.asarray(t["temp_mcmc"], float)).all()
+    for k in ("epoch_logpost", "epoch_logpost_grad", "epoch_half_step", "epoch_summary",
+              "percentile"):
+        assert kernels.LAUNCHES[k] > 0, k
