@@ -63,6 +63,7 @@ written once) over 3.35 TB/s, from this run's shapes.
 
 import contextlib
 import io
+import itertools
 import json
 import os
 import subprocess
@@ -659,25 +660,6 @@ def sn2016bkv_packed(dev):
     return pack_epochs(groups, bank, META["redshift"], device=dev)
 
 
-def term_scale(ep, p):
-    """Sum over an epoch's bands of |d(-0.5 r_b^2)/dp|, the magnitude a
-    float32 gradient's rounding follows (the terms cancel near an optimum);
-    plain arithmetic of K4, no intrinsic scatter."""
-    import torch
-    from lightcurve_fitting_tpu_torch.models.blackbody import planck_lnu
-    p = p.detach().clone().requires_grad_(True)
-    cdt = ep.compute_dtype
-    T, R = (p[..., k].to(cdt)[..., None, None] for k in (0, 1))
-    y_fit = torch.sum(ep.weights[:, None] * planck_lnu(ep.nodes[:, None], T, R), dim=-1) \
-        * ep.inv_yscale[:, None, None]
-    terms = -0.5 * ((ep.y[:, None] - y_fit) * ep.inv_dy[:, None]) ** 2
-    scale = torch.zeros_like(p)
-    for b in range(terms.shape[-1]):
-        g, = torch.autograd.grad(terms[..., b].sum(), p, retain_graph=True)
-        scale += g.abs()
-    return scale
-
-
 def epoch_params(rng, E, M):
     """Log-uniform (T, R) over and beyond the default priors (T in [0.5,
     150] kK against (1, 100), R in [0.005, 2000] against (0.01, 1000)),
@@ -694,6 +676,7 @@ def phase_k4(rng_seed=5):
     from lightcurve_fitting_tpu_torch import kernels
     from lightcurve_fitting_tpu_torch.core import config
     from lightcurve_fitting_tpu_torch.kernels import epoch_bb
+    from lightcurve_fitting_tpu_torch.models import GaussianPrior
     from lightcurve_fitting_tpu_torch.parallel.batched import EpochPosterior
 
     dev = torch.device("cuda")
@@ -707,33 +690,41 @@ def phase_k4(rng_seed=5):
             if label == "f64":
                 config.set_compute_dtype(None)
             rel, grel = (1e-5, 1e-4) if label == "f32" else (1e-10, 1e-9)
-            for name, (packed, M) in shapes.items():
-                ep = EpochPosterior(packed, bol_priors())
+            for (name, (packed, M)), sigma_type in itertools.product(
+                    shapes.items(), (None, "relative", "absolute")):
+                use_sigma = sigma_type is not None
+                priors = bol_priors() + ([GaussianPrior(0.0, 10.0)] if use_sigma else [])
+                ep = EpochPosterior(packed, priors, use_sigma=use_sigma,
+                                    sigma_type=sigma_type or "relative")
                 E = ep.n_epochs
-                q = torch.as_tensor(epoch_params(rng, E, M), device=dev)
+                q = epoch_params(rng, E, M)
+                if use_sigma:        # sigma in dy units, both signs (the prior is even)
+                    q = np.concatenate([q, rng.uniform(-4.0, 6.0, size=(E, M, 1))], axis=-1)
+                q = torch.as_tensor(q, device=dev)
                 lp, grad = epoch_bb.log_posterior(ep, q, with_grad=True)
                 lp0, _ = epoch_bb.log_posterior(ep, q)
                 want = ep.plain(q)
-                c = ep.log_norm[:, None].expand_as(want)
+                ll_scale, g_scale = ep.term_scales(q)
                 fin = torch.isfinite(want)
+                what = f"K4 {label} {name} sigma={sigma_type}"
                 if not torch.equal(torch.isneginf(lp), torch.isneginf(want)) \
                         or not torch.equal(lp, lp0):
-                    raise AssertionError(f"K4 {label} {name}: -inf sets differ, or the gradient "
-                                         "launch changed the log-posterior")
+                    raise AssertionError(f"{what}: -inf sets differ, or the gradient launch "
+                                         "changed the log-posterior")
                 d = (lp - want).abs()[fin]
-                r = float((d / ((want - c).abs() + c.abs())[fin]).max())
+                r = float((d / ll_scale[fin]).max())
                 if r > rel:
-                    raise AssertionError(f"K4 {label} {name}: max |d|/scale {r:.3e} > {rel:.0e}")
+                    raise AssertionError(f"{what}: max |d|/scale {r:.3e} > {rel:.0e}")
                 qq = q.clone().requires_grad_(True)
                 g_want, = torch.autograd.grad(ep.plain(qq).sum(), qq)
                 ok = fin[..., None] & torch.isfinite(g_want)
-                gr = float(((grad - g_want).abs()
-                            / (term_scale(ep, q) + g_want.abs()))[ok].max())
-                if gr > grel:
-                    raise AssertionError(f"K4 {label} {name}: gradient max |d|/scale {gr:.3e} > "
-                                         f"{grel:.0e}")
-                res[(label, name)] = (float(d.max()), r, gr, int(fin.sum()), E * M)
-                if label == "f32" and name == "bench":
+                gr = ((grad - g_want).abs() / (g_scale + g_want.abs())).masked_fill(~ok, 0.0)
+                gr = gr.amax(dim=(0, 1)).tolist()
+                if max(gr) > grel:
+                    raise AssertionError(f"{what}: gradient max |d|/scale per parameter "
+                                         f"{fmt(gr)} > {grel:.0e}")
+                res[(label, name, sigma_type)] = (float(d.max()), r, gr, int(fin.sum()), E * M)
+                if label == "f32" and name == "bench" and not use_sigma:
                     k_ms = cuda_ms(lambda: epoch_bb.log_posterior(ep, q))
                     kg_ms = cuda_ms(lambda: epoch_bb.log_posterior(ep, q, with_grad=True))
                     plain_ms = cuda_ms(lambda: ep.plain(q), repeats=5)
@@ -743,13 +734,14 @@ def phase_k4(rng_seed=5):
         finally:
             config.set_compute_dtype(config.AUTO)
     launches = kernels.LAUNCHES["epoch_logpost"] + kernels.LAUNCHES["epoch_logpost_grad"] - n0
-    parts = "; ".join(f"{lab} {name} ({v[4]} vectors, {v[3]} finite): max |d| {v[0]:.3e}, "
-                      f"max |d|/(|ll - c| + |c|) {v[1]:.2e}, gradient max |d|/scale {v[2]:.2e}"
-                      for (lab, name), v in res.items())
+    parts = "; ".join(f"{lab} {name} sigma={st} ({v[4]} vectors, {v[3]} finite): max |d| "
+                      f"{v[0]:.3e}, max |d|/scale {v[1]:.2e}, gradient max |d|/scale per "
+                      f"parameter [{', '.join(f'{x:.2e}' for x in v[2])}]" for (lab, name, st), v in res.items())
     phase("K4", f"{parts}; -inf sets equal; {launches} comparison launches; K4 {k_ms:.4f} ms "
           f"(with the gradient {kg_ms:.4f} ms) vs plain {plain_ms:.4f} ms at {BOL_EPOCHS} "
-          f"epochs x 512 (f32), bound {k4_bound['bound_ms']:.4f} ms ({k4_bound['bound_by']})")
-    return {"max_abs_err": res[("f32", "bench")][0], "ms": k_ms, "plain_ms": plain_ms,
+          f"epochs x 512 (f32, no intrinsic scatter), bound {k4_bound['bound_ms']:.4f} ms "
+          f"({k4_bound['bound_by']})")
+    return {"max_abs_err": res[("f32", "bench", None)][0], "ms": k_ms, "plain_ms": plain_ms,
             **k4_bound}
 
 

@@ -69,7 +69,7 @@ def _declare(lib):
     lib.epoch_half_step_launch.restype = ci
     lib.epoch_half_step_launch.argtypes = half_step[:-1] + [ci, ctypes.c_longlong, vp]
     lib.epoch_summary_launch.restype = ci
-    lib.epoch_summary_launch.argtypes = [vp, ci, ci, ci, ci, vp]
+    lib.epoch_summary_launch.argtypes = [vp, ci, ci, ci, vp]
     lib.percentile_launch.restype = ci
     lib.percentile_launch.argtypes = [vp, ci, vp]
     return lib

@@ -131,10 +131,7 @@ def propose_stretch(u_z, j, x_move, x_other, a=2.0):
     (E, half, ndim), draws (E, half)) each ensemble draws its partner from
     its own pool."""
     z = ((a - 1.0) * u_z + 1.0) ** 2 / a
-    if j.ndim == 1:
-        x_j = x_other[j]
-    else:
-        x_j = torch.gather(x_other, -2, j[..., None].expand(*j.shape, x_other.shape[-1]))
+    x_j = torch.gather(x_other, -2, j[..., None].expand(*j.shape, x_other.shape[-1]))
     return x_j + z[..., None] * (x_move - x_j), z
 
 

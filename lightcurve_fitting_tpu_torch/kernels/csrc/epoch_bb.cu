@@ -80,7 +80,7 @@ struct SummaryParams {
                                  //       + (s % nwalkers) * ndim]
     const void* nu;              // (F,) compute type: emitted-frame grid (THz)
     const void* w;               // (F,) trapezoid weights
-    void* out;                   // (E, 4, S): T, R, (R T^2)^2, the integral
+    void* out;                   // (E, 4, S) compute type: T, R, (R T^2)^2, the integral
     long long n_epochs;
     long long n_samples;
     long long nwalkers;
@@ -273,9 +273,9 @@ epoch_logpost_kernel(const EpochBBParams P, const S* __restrict__ q, int M,
         for (int k = 0; k < ndim; ++k) grad[w * ndim + k] = g[k];
 }
 
-// K4s: for sample s of epoch e, T, R, u = (R T^2)^2 (f64, then the output
-// type) and the trapezoid sum over the grid of L_nu(nu_f; T, R) in C.
-template <typename C, typename S, typename O>
+// K4s: for sample s of epoch e, T, R, u = (R T^2)^2 (f64, then C) and the
+// trapezoid sum over the grid of L_nu(nu_f; T, R) in C.
+template <typename C, typename S>
 __global__ void __launch_bounds__(256) epoch_summary_kernel(const SummaryParams P) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     C* s_nu = reinterpret_cast<C*>(smem_raw);
@@ -298,11 +298,11 @@ __global__ void __launch_bounds__(256) epoch_summary_kernel(const SummaryParams 
     const double u = __dmul_rn(v, v);
     const C sv = band_flux<C>(s_nu, s_w, nullptr, F, (C)Ts, (C)Rs, C(0), (C)P.c1, (C)P.c2, C(0),
                               P.has_cutoff != 0, (C)P.cutoff);
-    O* o = (O*)P.out + e * 4 * NS;
-    o[s] = (O)T;
-    o[NS + s] = (O)R;
-    o[2 * NS + s] = (O)u;
-    o[3 * NS + s] = (O)sv;
+    C* o = (C*)P.out + e * 4 * NS;
+    o[s] = (C)T;
+    o[NS + s] = (C)R;
+    o[2 * NS + s] = (C)u;
+    o[3 * NS + s] = sv;
 }
 
 // ------------------------------------------------------------------ launch
@@ -322,9 +322,9 @@ static int launch_epoch_logpost(const EpochBBParams& P, const void* q, int M, do
     return (int)cudaGetLastError();
 }
 
-template <typename C, typename S, typename O>
+template <typename C, typename S>
 static int launch_summary(const SummaryParams& P, cudaStream_t stream) {
-    auto kernel = epoch_summary_kernel<C, S, O>;
+    auto kernel = epoch_summary_kernel<C, S>;
     const size_t bytes = 2 * sizeof(C) * (size_t)P.n_freq;
     int use_smem = 0;
     int rc = smem_plan(kernel, bytes, &use_smem);
@@ -377,24 +377,21 @@ int epoch_half_step_launch(const EpochBBParams* P, int device, int compute_f64, 
                                           chain_lp_f64, n_accept, stream, n_ens, draw_stride);
 }
 
-// K4s launch. Returns 0 or a cudaError_t code.
+// K4s launch: out (E, 4, S) in the compute type. Returns 0 or a cudaError_t
+// code.
 int epoch_summary_launch(const SummaryParams* P, int device, int compute_f64, int state_f64,
-                         int out_f64, void* stream) {
+                         void* stream) {
     int rc = (int)cudaSetDevice(device);
     if (rc) return rc;
     if (P->n_samples <= 0 || P->n_epochs <= 0) return 0;
     if (P->n_epochs > 65535 || P->ndim < 2) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    const int key = compute_f64 * 4 + state_f64 * 2 + out_f64;
+    const int key = compute_f64 * 2 + state_f64;
     switch (key) {
-        case 0: return launch_summary<float, float, float>(*P, s);
-        case 1: return launch_summary<float, float, double>(*P, s);
-        case 2: return launch_summary<float, double, float>(*P, s);
-        case 3: return launch_summary<float, double, double>(*P, s);
-        case 4: return launch_summary<double, float, float>(*P, s);
-        case 5: return launch_summary<double, float, double>(*P, s);
-        case 6: return launch_summary<double, double, float>(*P, s);
-        case 7: return launch_summary<double, double, double>(*P, s);
+        case 0: return launch_summary<float, float>(*P, s);
+        case 1: return launch_summary<float, double>(*P, s);
+        case 2: return launch_summary<double, float>(*P, s);
+        case 3: return launch_summary<double, double>(*P, s);
     }
     return (int)cudaErrorInvalidValue;
 }

@@ -225,7 +225,7 @@ static int launch_half(const typename M::Params& P, void* x, double* logp, int h
     size_t bytes = M::stage_bytes(P);
     int rc = smem_plan(kernel, bytes, &use_smem);
     if (rc) return rc;
-    const int threads = n_ens > 1 ? threads_for(half) : LP_THREADS;
+    const int threads = threads_for(half);
     const dim3 grid((half + threads - 1) / threads, n_ens);
     kernel<<<grid, threads, use_smem ? bytes : 0, stream>>>(
         P, (S*)x, logp, half, h, (const S*)u_z, j, (const S*)u_acc, a, (X*)chain_x,

@@ -229,17 +229,13 @@ def stretch_half_step(ep, x, logp, h, u_z, j, u_acc, a=2.0, chain_x=None, chain_
 
 # ----------------------------------------------------------------------- K4s
 
-def _summary_out_dtype(dt):
-    return torch.float32 if dt == torch.float32 else torch.float64
-
-
 def summary_samples_plain(chain, nu_emit, trap_w, cutoff_freq, dt):
     """Plain PyTorch K4s. ``chain`` (steps, E, nwalkers, ndim) holds the
     production samples (sample s = step * nwalkers + walker); returns
     (E, 4, S) rows T, R, (R T^2)^2 (float64 arithmetic) and the trapezoid
     sum over ``nu_emit`` of L_nu(nu; T, R) weighted by ``trap_w``, in the
-    compute dtype ``dt`` (None: float64); float32 rows when ``dt`` is
-    float32, else float64."""
+    compute dtype ``dt`` (None: float64); the rows are in the compute
+    dtype."""
     from ..models.blackbody import planck_lnu
     steps, E, nw, _ = chain.shape
     dtc = dt if dt is not None else torch.float64
@@ -251,7 +247,7 @@ def summary_samples_plain(chain, nu_emit, trap_w, cutoff_freq, dt):
     T64, R64 = T.to(torch.float64), R.to(torch.float64)
     v = R64 * T64 * T64
     rows = torch.stack([T64, R64, v * v, s.to(torch.float64)])   # (4, steps, E, nw)
-    return rows.permute(2, 0, 1, 3).reshape(E, 4, steps * nw).to(_summary_out_dtype(dt))
+    return rows.permute(2, 0, 1, 3).reshape(E, 4, steps * nw).to(dtc)
 
 
 def summary_samples(chain, nu_emit, trap_w, cutoff_freq, dt):
@@ -271,7 +267,7 @@ def summary_samples(chain, nu_emit, trap_w, cutoff_freq, dt):
     w_c = trap_w.to(device=dev, dtype=dtc).contiguous()
     if nu_c.ndim != 1 or w_c.shape != nu_c.shape:
         raise ValueError("nu_emit and trap_w must be one (F,) grid")
-    out = torch.empty((E, 4, steps * nw), dtype=_summary_out_dtype(dt), device=dev)
+    out = torch.empty((E, 4, steps * nw), dtype=dtc, device=dev)
     P = _SummaryParams()
     P.chain, P.nu, P.w, P.out = chain.data_ptr(), nu_c.data_ptr(), w_c.data_ptr(), out.data_ptr()
     P.n_epochs, P.n_samples, P.nwalkers, P.ndim = E, steps * nw, nw, ndim
@@ -282,7 +278,7 @@ def summary_samples(chain, nu_emit, trap_w, cutoff_freq, dt):
     device_index, stream = cuda_args(dev)
     rc = lib.epoch_summary_launch(ctypes.addressof(P), device_index,
                                   int(dtc == torch.float64), int(chain.dtype == torch.float64),
-                                  int(out.dtype == torch.float64), stream)
+                                  stream)
     if rc != 0:
         raise RuntimeError(f"epoch_summary_kernel launch failed: cudaError {rc}")
     LAUNCHES["epoch_summary"] += 1

@@ -166,6 +166,48 @@ class EpochPosterior:
         return torch.where(torch.isfinite(log_prior), log_prior + ll.to(torch.float64),
                            torch.full_like(log_prior, -torch.inf))
 
+    def term_scales(self, p):
+        """The yardsticks of a K4 check against :meth:`plain` at ``p`` (E,
+        M, ndim): (E, M) for the log-posterior and (E, M, ndim) for its
+        gradient, float64. The log-posterior sums pieces that cancel near an
+        optimum (the residual sum and ``log_norm``; with intrinsic scatter
+        the per-band log(2 pi sigma^2) and res^2 / sigma^2), and the
+        compute dtype's rounding follows the pieces, not their sum. So the
+        log-posterior's scale is |lp - c| + |c| (c = ``log_norm``) without
+        intrinsic scatter and |log prior| + 0.5 sum_b (|log(2 pi sigma_b^2)|
+        + res_b^2 / sigma_b^2) with it; the gradient's is the sum over the
+        real bands of |d piece / dp| for each piece, in the plain
+        arithmetic."""
+        p = p.detach().to(torch.float64).requires_grad_(True)
+        cdt = self.compute_dtype
+        T, R = (p[..., k].to(cdt)[..., None, None] for k in (0, 1))
+        y_fit = torch.sum(self.weights[:, None] * planck_lnu(self.nodes[:, None], T, R,
+                                                             self.cutoff_freq), dim=-1) \
+            * self.inv_yscale[:, None, None]                          # (E, M, B)
+        mask = self.mask[:, None]
+        if self.use_sigma:
+            sig = p[..., -1].to(cdt)[..., None]
+            sigma2 = self.dy[:, None] ** 2.0 + (sig * self.sigma_units[:, None]) ** 2.0
+            pieces = [-0.5 * torch.log(2 * np.pi * sigma2),
+                      -0.5 * (self.y[:, None] - y_fit) ** 2.0 / sigma2]
+        else:
+            pieces = [-0.5 * ((self.y[:, None] - y_fit) * self.inv_dy[:, None]) ** 2.0]
+        pieces = [torch.where(mask, t, torch.zeros_like(t)) for t in pieces]
+        grad_scale = torch.zeros_like(p)
+        for t in pieces:
+            for b in range(t.shape[-1]):
+                g, = torch.autograd.grad(t[..., b].sum(), p, retain_graph=True)
+                grad_scale += g.abs()
+        with torch.no_grad():
+            lp = self.plain(p)
+            if self.use_sigma:
+                log_prior = sum(prior(p[..., i]) for i, prior in enumerate(self.priors))
+                ll_scale = log_prior.abs() + sum(t.abs().sum(dim=-1) for t in pieces).double()
+            else:
+                c = self.log_norm[:, None]
+                ll_scale = (lp - c).abs() + c.abs()
+        return ll_scale, grad_scale
+
     def __call__(self, p):
         """The log-posterior (E, M) float64 at ``p`` (E, M, ndim): K4 on
         CUDA, the plain version on the CPU."""

@@ -22,6 +22,8 @@ import torch
 
 __all__ = ["cosine_decay_lr", "CosineAdam"]
 
+B1, B2, EPS = 0.9, 0.999, 1e-8   # optax.adam's defaults, the only values in use
+
 
 def cosine_decay_lr(t, lr0, n_iter, alpha=0.0):
     """optax.cosine_decay_schedule(lr0, n_iter, alpha) at count ``t``."""
@@ -35,22 +37,20 @@ class CosineAdam:
     any shape (every element its own coordinate); ``step(u, g)`` returns the
     updated parameters for gradient ``g`` of the loss being minimized."""
 
-    def __init__(self, like, lr=0.05, n_iter=300, alpha=0.01, b1=0.9, b2=0.999, eps=1e-8):
+    def __init__(self, like, lr=0.05, n_iter=300, alpha=0.01):
         if not n_iter > 0:
             raise ValueError(f"the cosine decay needs positive n_iter, got {n_iter}")
         self.lr, self.n_iter, self.alpha = lr, n_iter, alpha
-        self.b1, self.b2, self.eps = b1, b2, eps
         self.mu = torch.zeros_like(like)
         self.nu = torch.zeros_like(like)
         self.count = 0
 
     def step(self, u, g):
-        b1, b2 = self.b1, self.b2
-        self.mu = (1 - b1) * g + b1 * self.mu
-        self.nu = (1 - b2) * (g * g) + b2 * self.nu
+        self.mu = (1 - B1) * g + B1 * self.mu
+        self.nu = (1 - B2) * (g * g) + B2 * self.nu
         count_inc = self.count + 1
-        mu_hat = self.mu / (1 - b1 ** count_inc)
-        nu_hat = self.nu / (1 - b2 ** count_inc)
+        mu_hat = self.mu / (1 - B1 ** count_inc)
+        nu_hat = self.nu / (1 - B2 ** count_inc)
         lr = cosine_decay_lr(self.count, self.lr, self.n_iter, self.alpha)
         self.count = count_inc
-        return u + (-lr) * (mu_hat / (torch.sqrt(nu_hat) + self.eps))
+        return u + (-lr) * (mu_hat / (torch.sqrt(nu_hat) + EPS))

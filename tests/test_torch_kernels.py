@@ -21,10 +21,11 @@ constant added in the compute dtype: near the best fit the residual sum and
 c cancel, and float32 rounding scales with the terms, not with their sum
 (plain float32 itself is 1e-3 |ll| from float64 there). K3 per point:
 float32 <= 1e-5 relative (a sum of up to 89 non-negative float32 terms in
-another order, ~89 ulps at worst), float64 <= 1e-12 relative. K4 as the
-log-posteriors above with c the epoch's log_norm, its gradient within 1e-4
-(float32) and 1e-9 (float64) of the summed magnitude of its per-band terms
-(the terms cancel near an optimum, and the rounding follows the terms);
+another order, ~89 ulps at worst), float64 <= 1e-12 relative. K4, with
+and without intrinsic scatter, within 1e-5 (float32) and 1e-10 (float64) of
+its log-posterior's scale and 1e-4 and 1e-9 of its gradient's, the scales of
+``EpochPosterior.term_scales``: the summed magnitudes of the pieces that
+cancel near an optimum (the rounding follows the pieces, not their sum);
 the epoch half-step as K2; K4s's integral float32 <= 1e-5 relative; K5's
 percentiles bit-equal to the plain version's.
 """
@@ -44,8 +45,9 @@ from lightcurve_fitting_tpu_torch.fitting import make_log_posterior  # noqa: E40
 from lightcurve_fitting_tpu_torch.kernels import build, common, epoch_bb, sc2, sc3  # noqa: E402
 from lightcurve_fitting_tpu_torch.kernels import quantile as kquantile  # noqa: E402
 from lightcurve_fitting_tpu_torch.lightcurve import LC  # noqa: E402
-from lightcurve_fitting_tpu_torch.models import (BaseShockCooling, LogUniformPrior,  # noqa: E402
-                                                 ShockCooling2, ShockCooling3, UniformPrior)
+from lightcurve_fitting_tpu_torch.models import (BaseShockCooling, GaussianPrior,  # noqa: E402
+                                                 LogUniformPrior, ShockCooling2, ShockCooling3,
+                                                 UniformPrior)
 from lightcurve_fitting_tpu_torch.models.blackbody import (  # noqa: E402
     bandflux_pointwise, bandflux_pointwise_plain, planck_lnu)
 from lightcurve_fitting_tpu_torch.ops.filterbank import FilterBank  # noqa: E402
@@ -525,45 +527,72 @@ def test_sc3_half_step_matches_plain_on_card(lc_flux, cuda_device, h):
     assert 0.02 < float(ak[h].float().mean()) < 0.98
 
 
-def _term_scale(ep, p):
-    """Sum over an epoch's bands of |d(-0.5 r_b^2)/dp|: the magnitude the
-    float32 rounding of the gradient follows (plain arithmetic of K4)."""
-    p = p.detach().clone().requires_grad_(True)
-    cdt = ep.compute_dtype
-    T, R = (p[..., k].to(cdt)[..., None, None] for k in (0, 1))
-    y_fit = torch.sum(ep.weights[:, None] * planck_lnu(ep.nodes[:, None], T, R), dim=-1) \
-        * ep.inv_yscale[:, None, None]
-    terms = -0.5 * ((ep.y[:, None] - y_fit) * ep.inv_dy[:, None]) ** 2
-    scale = torch.zeros_like(p)
-    for b in range(terms.shape[-1]):
-        g, = torch.autograd.grad(terms[..., b].sum(), p, retain_graph=True)
-        scale += g.abs()
-    return scale
+@pytest.mark.parametrize("sigma_type", [None, "relative", "absolute"],
+                         ids=["no-sigma", "sigma-relative", "sigma-absolute"])
+def test_k4_yardsticks_bound_float32_rounding(sigma_type):
+    """The scales K4 is held to on the card (``EpochPosterior.term_scales``)
+    bound the plain version's own float32 rounding, measured against its
+    float64 evaluation, with a margin of 4 under the card's budgets."""
+    use_sigma = sigma_type is not None
+    priors = _EPOCH_PRIORS + ([GaussianPrior(0.0, 10.0)] if use_sigma else [])
+    packed = _epoch_pack(8, "cpu")
+    q = _epoch_params(8, 64)
+    if use_sigma:
+        q = np.concatenate([q, np.random.default_rng(2).uniform(-4.0, 6.0, (8, 64, 1))], -1)
+    q = torch.as_tensor(q)
+
+    def value_and_grad(ep):
+        qq = q.clone().requires_grad_(True)
+        lp = ep.plain(qq)
+        g, = torch.autograd.grad(lp.sum(), qq)
+        return lp.detach(), g
+
+    kw = dict(use_sigma=use_sigma, sigma_type=sigma_type or "relative")
+    lp64, g64 = value_and_grad(batched.EpochPosterior(packed, priors, **kw))
+    try:
+        config.set_compute_dtype(torch.float32)
+        ep = batched.EpochPosterior(packed, priors, **kw)
+        lp32, g32 = value_and_grad(ep)
+        ll_scale, g_scale = ep.term_scales(q)
+    finally:
+        config.set_compute_dtype(config.AUTO)
+    fin = torch.isfinite(lp64) & torch.isfinite(lp32)
+    assert int(fin.sum()) > 200
+    assert bool(((lp32 - lp64).abs()[fin] <= 0.25e-5 * ll_scale[fin]).all())
+    ok = fin[..., None] & torch.isfinite(g64)
+    assert bool(((g32 - g64).abs()[ok] <= 0.25e-4 * (g_scale + g64.abs())[ok]).all())
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sigma_type", [None, "relative", "absolute"],
+                         ids=["no-sigma", "sigma-relative", "sigma-absolute"])
 @pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
-def test_k4_matches_plain_on_card(cuda_device, f64):
+def test_k4_matches_plain_on_card(cuda_device, f64, sigma_type):
+    use_sigma = sigma_type is not None
+    priors = _EPOCH_PRIORS + ([GaussianPrior(0.0, 10.0)] if use_sigma else [])
     try:
         if f64:
             config.set_compute_dtype(None)
-        ep = batched.EpochPosterior(_epoch_pack(24, cuda_device), _EPOCH_PRIORS)
-        q = torch.as_tensor(_epoch_params(24, 160), device=cuda_device)
+        ep = batched.EpochPosterior(_epoch_pack(24, cuda_device), priors, use_sigma=use_sigma,
+                                    sigma_type=sigma_type or "relative")
+        q = _epoch_params(24, 160)
+        if use_sigma:
+            q = np.concatenate([q, np.random.default_rng(2).uniform(-4.0, 6.0, (24, 160, 1))], -1)
+        q = torch.as_tensor(q, device=cuda_device)
         n0 = kernels.LAUNCHES["epoch_logpost_grad"]
         lp, grad = epoch_bb.log_posterior(ep, q, with_grad=True)
         assert kernels.LAUNCHES["epoch_logpost_grad"] == n0 + 1
         assert torch.equal(lp, epoch_bb.log_posterior(ep, q)[0])
         want = ep.plain(q)
         rel, grel = (1e-10, 1e-9) if f64 else (1e-5, 1e-4)
-        c = ep.log_norm[:, None].expand_as(want)
+        ll_scale, g_scale = ep.term_scales(q)
         fin = torch.isfinite(want)
         assert torch.equal(torch.isneginf(lp), torch.isneginf(want)) and int(fin.sum()) > 1000
-        assert bool(((lp - want).abs()[fin] <= rel * ((want - c).abs() + c.abs())[fin]).all())
+        assert bool(((lp - want).abs()[fin] <= rel * ll_scale[fin]).all())
         qq = q.clone().requires_grad_(True)
         g_want, = torch.autograd.grad(ep.plain(qq).sum(), qq)
         ok = fin[..., None] & torch.isfinite(g_want)
-        scale = _term_scale(ep, q) + g_want.abs()
-        assert bool(((grad - g_want).abs()[ok] <= grel * scale[ok]).all())
+        assert bool(((grad - g_want).abs()[ok] <= grel * (g_scale + g_want.abs())[ok]).all())
     finally:
         config.set_compute_dtype(config.AUTO)
 
