@@ -50,7 +50,28 @@ raises and the script exits non-zero):
     ``batched_blackbody_mcmc(summaries=..., return_chains=False)``, epochs/s
     over 5 runs, mean acceptance within 0.02 of the JAX package's float64
     CPU value; the launch counters, reset before (a), show it ran through
-    K4 (with and without the gradient), the epoch half-step, K4s and K5.
+    K4 (with and without the gradient), the epoch half-step, K4s and K5;
+14. K6a, the tempered half-step (h = 0, 1), against its plain version on the
+    ShockCooling2 ladder of the evidence bench shape (17 rungs x 4096
+    walkers, float32 rescaled state) and on a ShockCooling3 ladder of 17 x
+    512: accept flags agree except near-ties, new states bit-equal where
+    they agree, log pi and log L within K1's tolerances;
+15. K6b, the ladder's initial state, against the plain split of the
+    log-posterior (17 x 4096 states, 1% outside the priors), float32 and
+    float64; K6c, the replica exchange, bit-equal to its plain version (both
+    parities, a -inf log L row, the beta = 0 rung); K6d, the stepping-stone
+    block terms, float64 <= 1e-12 relative, ``torch.logsumexp`` timed beside
+    it;
+16. the tempered-ladder main path: ``lightcurve_evidence`` on ShockCooling2
+    and SN 2016bkv at the JAX package's bench shape (4096 walkers x 16 rungs
+    + beta = 1 x 150 + 150 steps; seeds 1, 2 and 1 again, the repeat
+    bit-identical), log Z within 4 hypot(err, 0.35) of -12961.48 and of the
+    JAX package's float64 CPU value, float64 compute beside float32, the
+    time split by a profiled run; (b) ``lightcurve_ptmcmc`` on the flagship
+    (32 walkers, 6 rungs, 250 + 350 steps), cold medians in range; (c)
+    ``compare_models`` on synthetic ShockCooling2 photometry, snug priors
+    against wide ones, the log Bayes factor in (3, 20); the launch counters,
+    reset before (a), show it ran through K6a-K6d.
 
 The last lines are the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and library time, and ``{"ok": true,
@@ -101,19 +122,20 @@ BOL_EPOCHS, BOL_WALKERS, BOL_BURNIN, BOL_STEPS = 256, 32, 200, 100
 BOL_ACCEPTANCE_REF = 0.706744372844696
 
 FP32_FLOPS = 67e12        # H100 SXM, FP32 outside the tensor cores
+FP64_FLOPS = 34e12        # H100 SXM, FP64 outside the tensor cores
 HBM_BYTES = 3.35e12       # H100 SXM HBM3
 SFU = 16                  # operations a special function is counted as
 
 
-def bound(ops, nbytes):
-    """(bound_ms, bound_by): the least time for ``ops`` FP32 operations and
-    ``nbytes`` of device-memory traffic."""
-    t_ops, t_bytes = ops / FP32_FLOPS, nbytes / HBM_BYTES
+def bound(ops, nbytes, rate=FP32_FLOPS):
+    """(bound_ms, bound_by): the least time for ``ops`` operations at
+    ``rate`` (FP32 unless given) and ``nbytes`` of device-memory traffic."""
+    t_ops, t_bytes = ops / rate, nbytes / HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def bound_fields(ops, nbytes, library_ms=None):
-    ms, by = bound(ops, nbytes)
+def bound_fields(ops, nbytes, library_ms=None, rate=FP32_FLOPS):
+    ms, by = bound(ops, nbytes, rate)
     return {"bound_ms": ms, "bound_by": by, "library_ms": library_ms}
 
 
@@ -988,6 +1010,400 @@ def phase_bolometric_main_path(smi):
     return launches
 
 
+# the evidence bench shape (bench.py:189-232) and what its log Z is held to:
+# the JAX package's bench record (BENCH_r05.json "evidence_ladder"; a
+# statistical result, not a speed) and the JAX package's float64 CPU runs of
+# the same configuration (tests/test_torch_evidence.py::jax_bench_evidence)
+EV_WALKERS, EV_RUNGS, EV_STEPS, EV_BURNIN = 4096, 16, 150, 150
+EV_LOGZ_BENCH = (-12961.48, 0.35)
+EV_LOGZ_JAX = {1: (-12961.726035036969, 0.35948034181695665),
+               2: (-12961.6943474302, 0.36863427679266486)}
+LADDER_KERNELS = ("tempered_half_step", "ladder_init", "replica_swap", "rung_block_terms")
+
+
+def window_states(rng, lo, up, n, outside=0.0):
+    """n parameter vectors from the window [lo, up], a share ``outside`` of
+    them with one coordinate at -1 or just above its prior's upper bound."""
+    import numpy as np
+    p = rng.uniform(lo, up, size=(n, len(lo)))
+    out = rng.choice(n, int(n * outside), replace=False)
+    dims = rng.integers(0, len(lo), size=out.size)
+    p[out, dims] = np.where(rng.random(out.size) < 0.5, -1.0, np.asarray(up)[dims] + 60.0)
+    return p
+
+
+def ladder_setup(model, lc, priors, lo, up, R, W, rng, dev, outside=0.0):
+    """(LogPosterior, offset, scale, float32 rescaled ladder state (R, 2,
+    W/2, ndim)) as ``lightcurve_evidence`` gives them on CUDA."""
+    import torch
+    from lightcurve_fitting_tpu_torch.fitting import _state_rescaling, make_log_posterior
+    lp = make_log_posterior(model, lc, priors, device=dev)
+    kw = _state_rescaling("auto", lo, up, dev)
+    off, sc = kw["param_offset"], kw["param_scale"]
+    q = (window_states(rng, lo, up, R * W, outside) - off) / sc
+    x = torch.as_tensor(q.reshape(R, 2, W // 2, len(lo)), device=dev).to(kw["dtype"])
+    return lp, off, sc, x.contiguous()
+
+
+def phase_k6a(lc, lcf, seed=8):
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch import kernels
+    from lightcurve_fitting_tpu_torch.kernels import common, ladder
+    from lightcurve_fitting_tpu_torch.models import ShockCooling2, ShockCooling3
+    from lightcurve_fitting_tpu_torch.parallel.evidence import make_beta_ladder
+
+    dev = torch.device("cuda")
+    R = EV_RUNGS + 1
+    betas = torch.as_tensor(make_beta_ladder(EV_RUNGS), device=dev)
+    n0 = kernels.LAUNCHES["tempered_half_step"]
+    lines, out = [], None
+    for label, model, lc_, priors, lo, up, W in (
+            ("SC2", ShockCooling2(lc), lc, flagship_priors(), P_LO, P_UP, EV_WALKERS),
+            ("SC3", ShockCooling3(lcf), lcf, sc3_priors(), SC3_LO, SC3_UP, 512)):
+        rng = np.random.default_rng(seed)
+        lp, off, sc, x0 = ladder_setup(model, lc_, priors, lo, up, R, W, rng, dev)
+        half, ndim = W // 2, len(lo)
+        pri0, ll0 = ladder.ladder_init(lp, x0, off, sc)
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        shape = (R, 2, half)
+        u_z = torch.rand(shape, generator=g, device=dev)
+        j = torch.randint(0, half, shape, generator=g, device=dev)
+        u_acc = torch.rand(shape, generator=g, device=dev)
+        fns = ladder.plain_functions(lp, off, sc)
+        c = lp.log_likelihood.log_norm_const if label == "SC3" else 0.0
+        max_abs, n_ties, n_acc = 0.0, 0, 0
+        for h in (0, 1):
+            xk, pk, lk = x0.clone(), pri0.clone(), ll0.clone()
+            xp, pp, lpl = x0.clone(), pri0.clone(), ll0.clone()
+            ak = torch.zeros(shape, dtype=torch.int32, device=dev)
+            ap = torch.zeros_like(ak)
+            ladder.tempered_half_step(lp, xk, pk, lk, betas, h, u_z, j, u_acc, 2.0, off, sc, ak)
+            ladder.tempered_half_step_plain(*fns, xp, pp, lpl, betas, h, u_z, j, u_acc, 2.0, ap)
+            torch.cuda.synchronize()
+            agree = ak[:, h] == ap[:, h]
+            # near-ties: |ln u - log_ratio| within the float32 log-likelihood budget
+            y, z = common.propose_stretch(u_z[:, h], j[:, h], x0[:, h], x0[:, 1 - h])
+            pri_y, ll_y = fns[0](y), fns[1](y)
+            b = betas[:, None]
+            ratio = ((ndim - 1.0) * torch.log(z) + pri_y + torch.where(b > 0, b * ll_y, 0.0)
+                     - pri0[:, h] - torch.where(b > 0, b * ll0[:, h], 0.0))
+            gap = (torch.log(u_acc[:, h]).double() - ratio).abs()
+            tie_ok = gap <= 1e-5 * (ll_scale(ll_y, c) + ll_scale(ll0[:, h], c))
+            what = f"K6a {label} h={h}"
+            if not bool((agree | tie_ok).all()):
+                raise AssertionError(f"{what}: {int((~agree & ~tie_ok).sum())} accept flags "
+                                     "differ away from near-ties")
+            if not torch.equal(xk[:, h][agree], xp[:, h][agree]) \
+                    or not torch.equal(pk[:, h][agree], pp[:, h][agree]):
+                raise AssertionError(f"{what}: new states or log pi differ where the flags "
+                                     "agree")
+            if not torch.equal(xk[:, 1 - h], x0[:, 1 - h]) or not torch.equal(ak[:, 1 - h],
+                                                                               ap[:, 1 - h]):
+                raise AssertionError(f"{what}: the other half was written")
+            d = compare_ll(what, lk[:, h][agree], lpl[:, h][agree], 1e-5, c)
+            max_abs = max(max_abs, d[0])
+            n_ties += int((~agree).sum())
+            n_acc += int(ak[:, h].sum())
+        lines.append(f"{label} {R} rungs x {W} walkers: {n_acc} accepts, flags agree except "
+                     f"{n_ties} near-ties, states and log pi bit-equal where they agree, "
+                     f"log L max |d| {max_abs:.3e}")
+        if label == "SC2":
+            xk, pk, lk = x0.clone(), pri0.clone(), ll0.clone()
+            ak = torch.zeros(shape, dtype=torch.int32, device=dev)
+            k_ms = cuda_ms(lambda: ladder.tempered_half_step(
+                lp, xk, pk, lk, betas, 0, u_z, j, u_acc, 2.0, off, sc, ak, check_partners=False))
+            xp, pp, lpl = x0.clone(), pri0.clone(), ll0.clone()
+            plain_ms = cuda_ms(lambda: ladder.tempered_half_step_plain(
+                *fns, xp, pp, lpl, betas, 0, u_z, j, u_acc, 2.0), repeats=5)
+            n = R * half
+            out = {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": plain_ms,
+                   **bound_fields(n * (sc2_eval_ops(lp.log_likelihood) + PROPOSAL),
+                                  n * (2 * ndim * 4 + 2 * 8 + 4 + 8 + 4) + R * 8
+                                  + n * (ndim * 4 + 2 * 8 + 4))}
+    phase("K6a", f"tempered half-steps h=0,1 (f32 rescaled state, f64 log pi and log L, "
+          f"beta_0 = 0): {'; '.join(lines)}; "
+          f"{kernels.LAUNCHES['tempered_half_step'] - n0} comparison launches; kernel "
+          f"{out['ms']:.4f} ms vs plain {out['plain_ms']:.4f} ms per SC2 ladder half-step of "
+          f"{R} x {EV_WALKERS // 2}, bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
+    return out
+
+
+def phase_k6bcd(lc, seed=9):
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.kernels import ladder
+    from lightcurve_fitting_tpu_torch.models import ShockCooling2
+    from lightcurve_fitting_tpu_torch.parallel.evidence import make_beta_ladder
+
+    dev = torch.device("cuda")
+    R, W, ndim = EV_RUNGS + 1, EV_WALKERS, 4
+    n = R * W
+    # K6b: the initial state, 1% of the states outside the priors
+    res = {}
+    for label in ("f32", "f64"):
+        try:
+            if label == "f64":
+                config.set_compute_dtype(None)
+            rng = np.random.default_rng(seed)
+            lp, off, sc, x = ladder_setup(ShockCooling2(lc), lc, flagship_priors(), P_LO, P_UP,
+                                          R, W, rng, dev, outside=0.01)
+            pri, ll = ladder.ladder_init(lp, x, off, sc)
+            fns = ladder.plain_functions(lp, off, sc)
+            want_pri, want_ll = ladder.ladder_init_plain(*fns, x)
+            fin = torch.isfinite(want_pri)
+            if not torch.equal(torch.isneginf(pri), torch.isneginf(want_pri)) \
+                    or not bool(((pri - want_pri).abs()[fin] <= 1e-12).all()):
+                raise AssertionError(f"K6b {label}: log pi differs from the plain version")
+            d = compare_ll(f"K6b {label}", ll, want_ll, 1e-5 if label == "f32" else 1e-10)
+            res[label] = (d[0], d[1], int((~fin).sum()), int(torch.isfinite(ll).sum()), ll)
+            if label == "f32":
+                b_ms = cuda_ms(lambda: ladder.ladder_init(lp, x, off, sc))
+                b_plain_ms = cuda_ms(lambda: ladder.ladder_init_plain(*fns, x), repeats=5)
+                b_bound = bound_fields(n * sc2_eval_ops(lp.log_likelihood),
+                                       n * (ndim * 4 + 2 * 8))
+        finally:
+            config.set_compute_dtype(config.AUTO)
+    # the float32 kernel's log L against the float64 kernel's on the same states:
+    # a bias b in every log L moves log Z by b (the dbeta sum to 1)
+    l32, l64 = res["f32"][4], res["f64"][4]
+    both = torch.isfinite(l32) & torch.isfinite(l64)
+    near = both & (l64 > l64[both].max() - 1000.0)
+    bias = [(float((l32 - l64)[m].mean()), float((l32 - l64)[m].std()), int(m.sum()))
+            for m in (both, near)]
+    phase("K6b", f"{n} starting states ({res['f32'][2]} outside the priors, log L finite at "
+          f"{res['f32'][3]}): log pi within 1e-12 of the plain split, -inf sets equal; log L f32 "
+          f"max |d| {res['f32'][0]:.3e} (max |d|/|ll| {res['f32'][1]:.2e} <= 1e-5), f64 max |d| "
+          f"{res['f64'][0]:.3e} (max |d|/|ll| {res['f64'][1]:.2e} <= 1e-10); kernel "
+          f"{b_ms:.4f} ms vs plain {b_plain_ms:.4f} ms (f32), bound {b_bound['bound_ms']:.4f} ms "
+          f"({b_bound['bound_by']}); float32 - float64 kernel log L on the same states: mean "
+          f"{bias[0][0]:+.4e}, std {bias[0][1]:.4e} over {bias[0][2]} states; within 1000 of the "
+          f"best: mean {bias[1][0]:+.4e}, std {bias[1][1]:.4e} over {bias[1][2]}")
+    k6b = {"max_abs_err": res["f32"][0], "ms": b_ms, "plain_ms": b_plain_ms, **b_bound}
+
+    # K6c: the replica exchange, bit for bit
+    rng = np.random.default_rng(seed + 1)
+    half = W // 2
+    betas = torch.as_tensor(make_beta_ladder(EV_RUNGS), device=dev)
+    x = torch.as_tensor(rng.normal(size=(R, 2, half, ndim)), device=dev).float()
+    pri = torch.zeros((R, 2, half), dtype=torch.float64, device=dev)
+    ll = torch.as_tensor(-12990.0 + 10.0 * rng.normal(size=(R, 2, half)), device=dev)
+    ll[3, 0, :100] = -np.inf          # NaN-likelihood starts: never exchanged
+    u = torch.as_tensor(rng.random((R, 2, half)), device=dev).float()
+    n_swaps = []
+    for parity in (0, 1):
+        outs = []
+        for fn in (ladder.replica_swap, ladder.replica_swap_plain):
+            state = [x.clone(), pri.clone(), ll.clone()]
+            extra = [torch.zeros((R, 2, half), dtype=torch.int32, device=dev),
+                     torch.empty((R, 2, half), dtype=torch.float64, device=dev),
+                     torch.empty((2, half, ndim), device=dev)]
+            fn(*state, betas, u, parity, *extra)
+            outs.append(state + extra)
+        torch.cuda.synchronize()
+        for name, got, want in zip(("x", "logpri", "logl", "n_swap", "logl_out", "cold"), *outs):
+            if not torch.equal(got, want):
+                raise AssertionError(f"K6c parity {parity}: {name} differs from the plain "
+                                     "version")
+        if int(outs[0][3][3, 0, :100].sum()):
+            raise AssertionError("K6c: a -inf log L state was exchanged")
+        n_swaps.append(int(outs[0][3].sum()) // 2)
+    args = [x.clone(), pri.clone(), ll.clone(), betas, u, 1,
+            torch.zeros((R, 2, half), dtype=torch.int32, device=dev),
+            torch.empty((R, 2, half), dtype=torch.float64, device=dev),
+            torch.empty((2, half, ndim), device=dev)]
+    c_ms = cuda_ms(lambda: ladder.replica_swap(*args))
+    c_plain_ms = cuda_ms(lambda: ladder.replica_swap_plain(*args), repeats=5)
+    c_bound = bound_fields(n * 8, n * (ndim * 4 + 2 * 8 + 4 + 4) + R * 8
+                           + n * (ndim * 4 + 2 * 8 + 4 + 8) + W * ndim * 4)
+    phase("K6c", f"{R} rungs x {W} walkers (beta_0 = 0, 100 walkers of rung 3 at log L = -inf), "
+          f"both parities: states, log pi, log L, swap counts, the production log L row and "
+          f"the cold states bit-equal to the plain version ({n_swaps[0]} and {n_swaps[1]} "
+          f"exchanges); kernel {c_ms:.4f} ms vs plain {c_plain_ms:.4f} ms per production step, "
+          f"bound {c_bound['bound_ms']:.4f} ms ({c_bound['bound_by']})")
+    k6c = {"max_abs_err": 0.0, "ms": c_ms, "plain_ms": c_plain_ms, **c_bound}
+
+    # K6d: the stepping-stone block terms at the bench shape's production log L
+    logl = torch.as_tensor(-12990.0 + 10.0 * rng.normal(size=(EV_STEPS, R, W)), device=dev)
+    db = torch.as_tensor(np.diff(make_beta_ladder(EV_RUNGS)), device=dev)
+    bounds = tuple((int(i[0]), int(i[-1]) + 1)
+                   for i in np.array_split(np.arange(EV_STEPS), 4))
+    got = ladder.rung_block_terms(logl, db, bounds)
+    want = ladder.rung_block_terms_plain(logl, db, bounds)
+    rel = float(((got - want).abs() / want.abs()).max())
+    if got.shape != (4, EV_RUNGS) or rel > 1e-12:
+        raise AssertionError(f"K6d: max relative difference {rel:.3e} > 1e-12")
+    w = db[None, :, None] * logl[:, :EV_RUNGS]
+    d_ms = cuda_ms(lambda: ladder.rung_block_terms(logl, db, bounds))
+    d_plain_ms = cuda_ms(lambda: ladder.rung_block_terms_plain(logl, db, bounds), repeats=5)
+    lib_ms = cuda_ms(lambda: [torch.logsumexp(w[b0:b1], dim=(0, 2)) for b0, b1 in bounds])
+    m = EV_STEPS * EV_RUNGS * W
+    d_bound = bound_fields(m * (5 + SFU), m * 8 + EV_RUNGS * 8 + 4 * EV_RUNGS * 8, lib_ms,
+                           rate=FP64_FLOPS)
+    phase("K6d", f"{EV_STEPS} steps x {R} rungs x {W} walkers, 4 blocks: max relative "
+          f"difference {rel:.2e} <= 1e-12; kernel {d_ms:.4f} ms vs plain {d_plain_ms:.4f} ms vs "
+          f"torch.logsumexp over the 4 blocks of dbeta log L {lib_ms:.4f} ms, bound "
+          f"{d_bound['bound_ms']:.4f} ms ({d_bound['bound_by']}, float64)")
+    k6d = {"max_abs_err": float((got - want).abs().max()), "ms": d_ms, "plain_ms": d_plain_ms,
+           **d_bound}
+    return k6b, k6c, k6d
+
+
+def ladder_time_split(prof, wall):
+    """Seconds of device time by part of the ladder from a profiler run,
+    and the host's share (the wall time the device was idle)."""
+    parts = {"step loop (K6a)": 0.0, "swaps (K6c)": 0.0, "draws": 0.0, "reduction (K6d)": 0.0,
+             "init (K6b)": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA":
+            continue
+        t = e.self_device_time_total / 1e6
+        k = e.key.lower()
+        if "tempered_half_step" in k:
+            parts["step loop (K6a)"] += t
+        elif "replica_swap" in k:
+            parts["swaps (K6c)"] += t
+        elif "rung_block_terms" in k:
+            parts["reduction (K6d)"] += t
+        elif "ladder_init" in k:
+            parts["init (K6b)"] += t
+        elif any(w in k for w in ("distribution", "random", "philox", "uniform")):
+            parts["draws"] += t
+        else:
+            parts["other"] += t
+    busy = sum(parts.values())
+    parts["host (device idle)"] = wall - busy
+    return parts, busy
+
+
+def phase_ladder_main_path(lc, smi):
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch import kernels
+    from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.filters import filtdict
+    from lightcurve_fitting_tpu_torch.fitting import (compare_models, lightcurve_evidence,
+                                                      lightcurve_ptmcmc)
+    from lightcurve_fitting_tpu_torch.lightcurve import LC
+    from lightcurve_fitting_tpu_torch.models import GaussianPrior, ShockCooling2, UniformPrior
+
+    priors = flagship_priors()
+    kw = dict(p_lo=P_LO, p_up=P_UP, nwalkers=EV_WALKERS, n_rungs=EV_RUNGS, nsteps=EV_STEPS,
+              nsteps_burnin=EV_BURNIN, quiet=True)
+    model = ShockCooling2(lc)
+    kernels.reset_launch_counts()
+    runs, times = [], []
+    for seed in (1, 2, 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(lightcurve_evidence(lc, model, priors, seed=seed, **kw))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if len(runs) == 1:
+            launches = dict(kernels.LAUNCHES)
+    for k in LADDER_KERNELS:
+        if launches[k] == 0:
+            raise AssertionError(f"kernel {k} was not launched on the ladder path: {launches}")
+    if runs[2][:2] != runs[0][:2]:
+        raise AssertionError(f"a repeated seed gave another log Z: {runs[0][:2]} {runs[2][:2]}")
+    for (log_z, err, _), seed in zip(runs[:2], (1, 2)):
+        for ref, (z_ref, e_ref) in (("bench", EV_LOGZ_BENCH), ("JAX CPU", EV_LOGZ_JAX[seed])):
+            if not np.isfinite(err) or abs(log_z - z_ref) > 4 * np.hypot(err, e_ref):
+                raise AssertionError(f"16a seed {seed}: log Z {log_z:.4f} +- {err:.4f} not "
+                                     f"within 4 hypot of the {ref} value {z_ref} +- {e_ref}")
+    info = runs[0][2]
+    # float32 against float64 compute, paired by seed (the same draws)
+    seeds = range(1, 9)
+    runs32 = [r[:2] for r in runs[:2]] + [
+        lightcurve_evidence(lc, model, priors, seed=seed, **kw)[:2] for seed in seeds[2:]]
+    try:
+        config.set_compute_dtype(None)
+        runs64 = [lightcurve_evidence(lc, ShockCooling2(lc), priors, seed=seed, **kw)[:2]
+                  for seed in seeds]
+    finally:
+        config.set_compute_dtype(config.AUTO)
+    for (z64, e64), (z32, e32) in zip(runs64, runs32):
+        if abs(z64 - z32) > 4 * np.hypot(e64, e32):
+            raise AssertionError(f"16a: float64 compute log Z {z64} +- {e64} disagrees with "
+                                 f"float32's {z32} +- {e32}")
+    diff = np.array([a[0] - b[0] for a, b in zip(runs64, runs32)])
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lightcurve_evidence(lc, model, priors, seed=2, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    parts, busy = ladder_time_split(prof, wall)
+    med = float(np.median(times))
+    evals = (EV_RUNGS + 1) * EV_WALKERS * (EV_STEPS + EV_BURNIN)
+    logl_mb = EV_STEPS * (EV_RUNGS + 1) * EV_WALKERS * 8 / 1e6
+    phase("ladder main path 16a", f"lightcurve_evidence ShockCooling2 {EV_WALKERS} walkers x "
+          f"{EV_RUNGS} rungs + beta = 1 x {EV_BURNIN}+{EV_STEPS} steps: log Z seed 1 "
+          f"{runs[0][0]:.4f} +- {runs[0][1]:.4f}, seed 2 {runs[1][0]:.4f} +- {runs[1][1]:.4f} "
+          f"(bench record {EV_LOGZ_BENCH[0]} +- {EV_LOGZ_BENCH[1]}; JAX float64 CPU seed 1 "
+          f"{EV_LOGZ_JAX[1][0]:.4f} +- {EV_LOGZ_JAX[1][1]:.4f}, seed 2 {EV_LOGZ_JAX[2][0]:.4f} "
+          f"+- {EV_LOGZ_JAX[2][1]:.4f}); seed 1 again bit-identical; float64 compute seed 1 "
+          f"{runs64[0][0]:.4f} +- {runs64[0][1]:.4f}, seed 2 {runs64[1][0]:.4f} +- "
+          f"{runs64[1][1]:.4f}; float64 - float32 log Z over seeds 1-8 (same draws) "
+          f"{fmt(diff)}: mean {diff.mean():+.4f} +- {diff.std(ddof=1) / np.sqrt(diff.size):.4f}; "
+          f"float32 log Z over seeds 1-8 mean {np.mean([z for z, _ in runs32]):.4f}, float64 "
+          f"{np.mean([z for z, _ in runs64]):.4f}; rung acceptance "
+          f"{fmt(info['acceptance'])}; swap rates {fmt(info['swap_rate'])}; "
+          f"{evals / med:.4e} ladder evals/s (median of 3 runs {med:.4f} s, runs "
+          f"{', '.join(f'{t:.4f}' for t in times)}; on {smi}); production log L buffer "
+          f"{logl_mb:.1f} MB; profiled run {wall:.4f} s, device busy {busy:.4f} s (idle share "
+          f"{1 - busy / wall:.3f}): " + ", ".join(f"{k} {v:.4f} s" for k, v in parts.items())
+          + f"; launches in one run {launches}")
+
+    # 16b: parallel tempering on the flagship (tests/test_ptmcmc.py:55-71)
+    gauss = [GaussianPrior(0.0, 100.0, 30.0, 15.0), GaussianPrior(0.0, 100.0, 4.0, 3.0),
+             GaussianPrior(0.0, 100.0, 30.0, 15.0), GaussianPrior(57468.0, 57468.7, 57468.5, 0.2)]
+    t0 = time.perf_counter()
+    pt = lightcurve_ptmcmc(lc, ShockCooling2(lc), gauss, p_lo=[20, 2, 20, 57468.4],
+                           p_up=[50, 5, 50, 57468.69], nwalkers=32, n_rungs=6, nsteps=250,
+                           nsteps_burnin=350, seed=2, quiet=True)
+    torch.cuda.synchronize()
+    pt_s = time.perf_counter() - t0
+    med = np.median(pt.flatchain, axis=0)
+    if pt.flatchain.shape != (250 * 32, 4) or not (30.0 < med[0] < 45.0 and 4.5 < med[1] < 6.0) \
+            or not np.isfinite(pt.log_z) or not pt.log_z_err < 20.0 or pt.swap_rate.shape != (7,):
+        raise AssertionError(f"16b: PT chain {pt.flatchain.shape}, medians {med}, log Z "
+                             f"{pt.log_z} +- {pt.log_z_err}")
+    phase("ladder main path 16b", f"lightcurve_ptmcmc ShockCooling2 32 walkers x 6 rungs + "
+          f"beta = 1 x 350+250 steps in {pt_s:.3f} s: cold medians {fmt(med)} (T_1 in (30, 45), "
+          f"L_1 in (4.5, 6)), cold acceptance {pt.acceptance_fraction[0]:.4f}, swap rates "
+          f"{fmt(pt.swap_rate)}, log Z {pt.log_z:.4f} +- {pt.log_z_err:.4f}")
+
+    # 16c: compare_models on synthetic ShockCooling2 photometry (tests/test_evidence.py:76-107)
+    rng = np.random.default_rng(3)
+    filters = [filtdict[n] for n in ["g", "r", "i"]]
+    t = np.repeat(np.linspace(1.0, 8.0, 5), len(filters))
+    f = np.array(filters * 5)
+    y_true = ShockCooling2()(t, f, 12.0, 2.0, 35.0, 0.0)
+    dy = 0.05 * y_true
+    syn = LC([t, f, y_true + rng.normal(scale=dy), dy], names=["MJD", "filter", "lum", "dlum"])
+    snug = [UniformPrior(8.0, 16.0), UniformPrior(1.0, 3.0), UniformPrior(25.0, 45.0),
+            UniformPrior(-0.5, 0.5)]
+    wide = [UniformPrior(1.0, 81.0), UniformPrior(0.1, 20.1), UniformPrior(5.0, 205.0),
+            UniformPrior(-5.0, 5.0)]
+    table = compare_models(syn, [ShockCooling2(syn), ShockCooling2(syn)], [snug, wide],
+                           labels=["snug", "wide"], nwalkers=32, n_rungs=16, nsteps=250,
+                           nsteps_burnin=250, seed=4, quiet=True)
+    rows = {table["model"][i]: (float(table["log_z"][i]), float(table["dlog_z"][i]))
+            for i in range(len(table))}
+    dz = rows["snug"][0] - rows["wide"][0]
+    if not 3.0 < dz < 20.0:
+        raise AssertionError(f"16c: Occam log Bayes factor {dz} outside (3, 20): {rows}")
+    phase("ladder main path 16c", f"compare_models on synthetic ShockCooling2 photometry: log Z "
+          f"snug {rows['snug'][0]:.4f} +- {rows['snug'][1]:.4f}, wide {rows['wide'][0]:.4f} +- "
+          f"{rows['wide'][1]:.4f}, log Bayes factor {dz:.4f} in (3, 20); launches since 16a "
+          f"began {dict(kernels.LAUNCHES)}")
+    return launches
+
+
 def phase_main_path(lc, smi):
     import numpy as np
     import torch
@@ -1079,6 +1495,9 @@ def main():
     k_epoch_half = phase_epoch_half_step()
     k4s, k5 = phase_k4s_k5()
     launches_bol = phase_bolometric_main_path(smi)
+    k6a = phase_k6a(lc, lcf)
+    k6b, k6c, k6d = phase_k6bcd(lc)
+    launches_ladder = phase_ladder_main_path(lc, smi)
     if any(m.startswith("jax") or m.startswith("lightcurve_fitting_tpu.") or
            m == "lightcurve_fitting_tpu" for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
@@ -1115,6 +1534,22 @@ def main():
              source="lightcurve_fitting_tpu_torch/kernels/csrc/quantile.cu",
              replaces="lightcurve_fitting_tpu/ops/quantile.py:46",
              launches=launches_bol["percentile"], **k5),
+        dict(name="tempered_half_step_kernel<SC2Model> (K6a)", route="cuda",
+             source="lightcurve_fitting_tpu_torch/kernels/csrc/ladder.cuh",
+             replaces="lightcurve_fitting_tpu/parallel/evidence.py:60",
+             launches=launches_ladder["tempered_half_step"], **k6a),
+        dict(name="ladder_init_kernel<SC2Model> (K6b)", route="cuda",
+             source="lightcurve_fitting_tpu_torch/kernels/csrc/ladder.cuh",
+             replaces="lightcurve_fitting_tpu/parallel/evidence.py:229",
+             launches=launches_ladder["ladder_init"], **k6b),
+        dict(name="replica_swap_kernel (K6c)", route="cuda",
+             source="lightcurve_fitting_tpu_torch/kernels/csrc/ladder.cu",
+             replaces="lightcurve_fitting_tpu/parallel/evidence.py:95",
+             launches=launches_ladder["replica_swap"], **k6c),
+        dict(name="rung_block_terms_kernel (K6d)", route="cuda",
+             source="lightcurve_fitting_tpu_torch/kernels/csrc/ladder.cu",
+             replaces="lightcurve_fitting_tpu/parallel/evidence.py:473",
+             launches=launches_ladder["rung_block_terms"], **k6d),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,6 +10,10 @@ and their plain PyTorch versions.
   half-step over E epochs at once, and K4s, the posterior-summary rows.
 * ``csrc/quantile.cu`` (:mod:`.quantile`): K5, exact percentiles of float32
   rows by counting bisection.
+* ``csrc/ladder.cuh`` and ``csrc/ladder.cu`` (:mod:`.ladder`): K6, the
+  tempered ladder: its half-step and initial state (templates instantiated
+  for ShockCooling2 and ShockCooling3 in their sources), the replica
+  exchange and the stepping-stone block terms.
 * ``csrc/stretch.cuh``: the half-step template and the device code they
   share, ``csrc/planck.cuh`` the Planck band sum of K3, K4 and K4s;
   :mod:`.common` their Python side and the plain stretch move.
@@ -19,7 +23,7 @@ package needs neither nvcc nor a GPU. :func:`log_posterior` and
 :func:`stretch_half_step` route a LogPosterior to its model's kernels.
 """
 
-from . import epoch_bb, quantile, sc2, sc3  # noqa: F401
+from . import epoch_bb, ladder, quantile, sc2, sc3  # noqa: F401
 from .common import (LAUNCHES, reset_launch_counts, log_posterior_plain,  # noqa: F401
                      stretch_half_step_plain)
 

@@ -72,6 +72,18 @@ def _declare(lib):
     lib.epoch_summary_launch.argtypes = [vp, ci, ci, ci, vp]
     lib.percentile_launch.restype = ci
     lib.percentile_launch.argtypes = [vp, ci, vp]
+    for prefix in ("sc2", "sc3"):
+        fn = getattr(lib, f"{prefix}_tempered_half_step_launch")
+        fn.restype = ci
+        fn.argtypes = [vp, ci, ci, vp, ci, vp, vp, vp, ci, ci, ci, vp, vp, vp, cd, vp, vp]
+        fn = getattr(lib, f"{prefix}_ladder_init_launch")
+        fn.restype = ci
+        fn.argtypes = [vp, ci, ci, vp, ci, ci, vp, vp, vp]
+    lib.replica_swap_launch.restype = ci
+    lib.replica_swap_launch.argtypes = [ci, vp, ci, ci, vp, vp, vp, ci, ci, vp, ci, vp, vp, vp,
+                                        vp]
+    lib.rung_block_terms_launch.restype = ci
+    lib.rung_block_terms_launch.argtypes = [ci, vp, ci, ci, vp, ci, ci, vp, vp, vp, vp]
     return lib
 
 

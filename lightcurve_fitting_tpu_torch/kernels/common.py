@@ -1,5 +1,5 @@
-"""What the kernel wrappers of :mod:`.sc2`, :mod:`.sc3`, :mod:`.epoch_bb` and
-:mod:`.quantile` share: the launch counts, input checks, the parameter-block
+"""What the kernel wrappers of :mod:`.sc2`, :mod:`.sc3`, :mod:`.epoch_bb`,
+:mod:`.quantile` and :mod:`.ladder` share: the launch counts, input checks, the parameter-block
 fields of the priors and the affine map, and the plain PyTorch stretch move
 (the plain version of every half-step kernel).
 """
@@ -7,7 +7,7 @@ fields of the priors and the affine map, and the plain PyTorch stretch move
 import numpy as np
 import torch
 
-__all__ = ["LAUNCHES", "reset_launch_counts", "MAX_DIM", "log_posterior_plain",
+__all__ = ["LAUNCHES", "reset_launch_counts", "MAX_DIM", "absolute_params", "log_posterior_plain",
            "propose_stretch", "half_update", "stretch_half_step_plain"]
 
 MAX_DIM = 8  # LP_MAX_DIM of csrc/stretch.cuh
@@ -16,7 +16,8 @@ MAX_DIM = 8  # LP_MAX_DIM of csrc/stretch.cuh
 #: nothing else does
 LAUNCHES = {"sc2_logpost": 0, "stretch_half_step": 0, "bandflux": 0, "sc3_logpost": 0,
             "sc3_half_step": 0, "epoch_logpost": 0, "epoch_logpost_grad": 0,
-            "epoch_half_step": 0, "epoch_summary": 0, "percentile": 0}
+            "epoch_half_step": 0, "epoch_summary": 0, "percentile": 0,
+            "tempered_half_step": 0, "ladder_init": 0, "replica_swap": 0, "rung_block_terms": 0}
 
 FLOATS = (torch.float32, torch.float64)
 
@@ -112,16 +113,22 @@ def half_step_args(x, logp, h, u_z, j, u_acc, a, chain_x, chain_logp, n_accept):
 
 # ------------------------------------------------------------ plain versions
 
-def log_posterior_plain(lp, q, param_offset=None, param_scale=None):
-    """Plain PyTorch batch log-posterior: ``lp``'s log-posterior at
-    ``offset + scale * q`` (float64), or at ``q`` when no affine map is
-    given."""
+def absolute_params(q, param_offset=None, param_scale=None):
+    """The absolute float64 parameters ``offset + scale * q`` of walker
+    states ``q``, or ``q`` in float64 when no affine map is given."""
     p = q.to(torch.float64)
     if param_offset is not None:
         off = torch.as_tensor(np.asarray(param_offset, float), device=q.device)
         sc = torch.as_tensor(np.asarray(param_scale, float), device=q.device)
         p = off + sc * p
-    return lp.forward_plain(p)
+    return p
+
+
+def log_posterior_plain(lp, q, param_offset=None, param_scale=None):
+    """Plain PyTorch batch log-posterior: ``lp``'s log-posterior at
+    ``offset + scale * q`` (float64), or at ``q`` when no affine map is
+    given."""
+    return lp.forward_plain(absolute_params(q, param_offset, param_scale))
 
 
 def propose_stretch(u_z, j, x_move, x_other, a=2.0):

@@ -1,0 +1,175 @@
+// K6: the tempered ladder's model kernels, templates over a model policy M of
+// stretch.cuh that provides log_likelihood (SC2Model in sc2_logpost.cu,
+// SC3Model in sc3_logpost.cu). The model-free K6 kernels (the replica
+// exchange and the stepping-stone block terms) are in ladder.cu.
+//
+// Replaces (JAX package, lightcurve_fitting_tpu/):
+//   K6a parallel/evidence.py:60-74 (half_update) and :76-83 (the step_one
+//       vmapped over the rungs): K+1 stretch-move ensembles, one per inverse
+//       temperature beta_r, that accept by log pi + beta_r log L.
+//   K6b parallel/evidence.py:229-235 (init_carry): log pi and log L of every
+//       starting state of every rung.
+//
+// What bounds it on the H100: as K2, the model's log-likelihood (FP32 work
+// for ShockCooling2, special functions for ShockCooling3); the state, the
+// draws and the two float64 values a walker are a few dozen bytes.
+// What the design does about it: the stretch-move half-step of stretch.cuh
+// with the rung on blockIdx.y, so one launch advances half of every rung's
+// ensemble: the per-point data are staged once per block in shared memory
+// as in K2, and one thread per walker runs the proposal (the same
+// stretch_proposal as K2, bit for bit), log_prior and, only when the prior is
+// finite, M::log_likelihood (a proposal outside the priors is always
+// rejected, so its likelihood is never read). The acceptance sums run in
+// float64 with round-to-nearest intrinsics, in the JAX graph's order, so that
+// no multiply-add contraction moves a near-tie; beta log L is 0 on a
+// beta = 0 rung, where 0 x (-inf) would be NaN.
+
+#pragma once
+
+#include "stretch.cuh"
+
+// beta * ll with the prior rung's convention: 0 when beta is 0 (JAX:
+// jnp.where(beta > 0.0, beta * logl, 0.0)).
+__device__ __forceinline__ double tempered(double beta, double ll) {
+    return beta > 0.0 ? __dmul_rn(beta, ll) : 0.0;
+}
+
+// K6a: one tempered stretch-move half-step of half h of every rung, in place.
+// x (R, 2, half, ndim) walker states; logpri and logl (R, 2, half) float64;
+// betas (R,); the draws u_z, j, u_acc (R, 2, half), the half-step reading the
+// [r, h] slice; n_accept (R, 2, half) int32, incremented. The partner pool of
+// a walker is the other half of its own rung.
+template <typename M, typename S>
+__global__ void __launch_bounds__(LP_THREADS)
+tempered_half_step_kernel(const typename M::Params P, S* __restrict__ x,
+                          double* __restrict__ logpri, double* __restrict__ logl,
+                          const double* __restrict__ betas, int half, int h,
+                          const S* __restrict__ u_z, const long long* __restrict__ j,
+                          const S* __restrict__ u_acc, double a, int* __restrict__ n_accept,
+                          int use_smem) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const typename M::Data d = M::stage(P, smem_raw, use_smem, 0);
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= half) return;
+    const int r = blockIdx.y;
+    const int ndim = (int)P.ndim;
+    const size_t rung = (size_t)r * 2 * half;    // walkers of the rungs before r
+    const size_t w = rung + (size_t)h * half + i;  // this walker, its values and its draws
+    S* xm = x + w * ndim;
+    const S* xj = x + (rung + (size_t)(1 - h) * half + (size_t)j[w]) * ndim;
+
+    S y[LP_MAX_DIM];
+    double p[LP_MAX_DIM];
+    const S z = stretch_proposal(P, xm, xj, u_z[w], a, y, p);
+    const double lpri_y = log_prior(P, p);
+    double ll_y = -INFINITY;
+    if (isfinite(lpri_y)) ll_y = M::log_likelihood(p, d, P);
+    const double beta = betas[r];
+    const S lz = (S)(ndim - 1) * m_log(z);
+    // ((((lz + lpri_y) + beta ll_y) - lpri_x) - beta ll_x), as the JAX graph
+    const double log_ratio = __dsub_rn(
+        __dsub_rn(__dadd_rn(__dadd_rn((double)lz, lpri_y), tempered(beta, ll_y)), logpri[w]),
+        tempered(beta, logl[w]));
+    // log(0) = -inf accepts unless log_ratio is -inf; a NaN ratio rejects
+    const double log_u = (double)m_log(u_acc[w]);
+    const bool accept = !isnan(log_ratio) && log_u < log_ratio;
+    if (accept) {
+        for (int k = 0; k < ndim; ++k) xm[k] = y[k];
+        logpri[w] = lpri_y;
+        logl[w] = ll_y;
+    }
+    n_accept[w] += accept ? 1 : 0;
+}
+
+// K6b: logpri[i] and logl[i] of the n walker states x[i, :] (every rung's),
+// the likelihood evaluated whatever the prior (the swaps read it alone).
+template <typename M, typename S>
+__global__ void __launch_bounds__(LP_THREADS)
+ladder_init_kernel(const typename M::Params P, const S* __restrict__ x, int n,
+                   double* __restrict__ logpri, double* __restrict__ logl, int use_smem) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const typename M::Data d = M::stage(P, smem_raw, use_smem, 0);
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const int ndim = (int)P.ndim;
+    double p[LP_MAX_DIM];
+    for (int k = 0; k < ndim; ++k) p[k] = to_absolute(P, k, x[(size_t)i * ndim + k]);
+    logpri[i] = log_prior(P, p);
+    logl[i] = M::log_likelihood(p, d, P);
+}
+
+// ------------------------------------------------------------------ launch
+
+template <typename M, typename S>
+static int launch_tempered(const typename M::Params& P, void* x, double* logpri, double* logl,
+                           const double* betas, int n_rungs, int half, int h, const void* u_z,
+                           const long long* j, const void* u_acc, double a, int* n_accept,
+                           cudaStream_t stream) {
+    auto kernel = tempered_half_step_kernel<M, S>;
+    int use_smem = 0;
+    const size_t bytes = M::stage_bytes(P);
+    int rc = smem_plan(kernel, bytes, &use_smem);
+    if (rc) return rc;
+    const int threads = threads_for(half);
+    const dim3 grid((half + threads - 1) / threads, n_rungs);
+    kernel<<<grid, threads, use_smem ? bytes : 0, stream>>>(
+        P, (S*)x, logpri, logl, betas, half, h, (const S*)u_z, j, (const S*)u_acc, a, n_accept,
+        use_smem);
+    return (int)cudaGetLastError();
+}
+
+template <typename M, typename S>
+static int launch_init(const typename M::Params& P, const void* x, int n, double* logpri,
+                       double* logl, cudaStream_t stream) {
+    auto kernel = ladder_init_kernel<M, S>;
+    int use_smem = 0;
+    const size_t bytes = M::stage_bytes(P);
+    int rc = smem_plan(kernel, bytes, &use_smem);
+    if (rc) return rc;
+    const int blocks = (n + LP_THREADS - 1) / LP_THREADS;
+    kernel<<<blocks, LP_THREADS, use_smem ? bytes : 0, stream>>>(P, (const S*)x, n, logpri, logl,
+                                                                 use_smem);
+    return (int)cudaGetLastError();
+}
+
+// The K6a launch for the model policy M<C> in the compute type C (float or
+// double) and the walker state's type (float or double). Returns 0 or a
+// cudaError_t code.
+template <template <typename> class M>
+static int launch_tempered_half_step(const typename M<float>::Params* P, int device,
+                                     int compute_f64, void* x, int state_f64, double* logpri,
+                                     double* logl, const double* betas, int n_rungs, int half,
+                                     int h, const void* u_z, const long long* j,
+                                     const void* u_acc, double a, int* n_accept, void* stream) {
+    int rc = (int)cudaSetDevice(device);
+    if (rc) return rc;
+    if (half <= 0 || n_rungs <= 0) return 0;
+    if (P->ndim > LP_MAX_DIM || n_rungs > 65535 || (h != 0 && h != 1))
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+#define LADDER_ARGS *P, x, logpri, logl, betas, n_rungs, half, h, u_z, j, u_acc, a, n_accept, s
+    if (compute_f64)
+        return state_f64 ? launch_tempered<M<double>, double>(LADDER_ARGS)
+                         : launch_tempered<M<double>, float>(LADDER_ARGS);
+    return state_f64 ? launch_tempered<M<float>, double>(LADDER_ARGS)
+                     : launch_tempered<M<float>, float>(LADDER_ARGS);
+#undef LADDER_ARGS
+}
+
+// The K6b launch for the model policy M<C> over n states. Returns 0 or a
+// cudaError_t code.
+template <template <typename> class M>
+static int launch_ladder_init(const typename M<float>::Params* P, int device, int compute_f64,
+                              const void* x, int state_f64, int n, double* logpri, double* logl,
+                              void* stream) {
+    int rc = (int)cudaSetDevice(device);
+    if (rc) return rc;
+    if (n <= 0) return 0;
+    if (P->ndim > LP_MAX_DIM) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (compute_f64)
+        return state_f64 ? launch_init<M<double>, double>(*P, x, n, logpri, logl, s)
+                         : launch_init<M<double>, float>(*P, x, n, logpri, logl, s);
+    return state_f64 ? launch_init<M<float>, double>(*P, x, n, logpri, logl, s)
+                     : launch_init<M<float>, float>(*P, x, n, logpri, logl, s);
+}

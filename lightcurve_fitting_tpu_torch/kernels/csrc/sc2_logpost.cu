@@ -8,6 +8,9 @@
 //       and ops/bandtable.py:152-181 (chebyshev_bandflux).
 //   K2  parallel/sampler.py:38-57 (propose_stretch), :86-95 (half_update),
 //       :97-104 (step) and :205-225 (thinned_step).
+//   K6a, K6b over ShockCooling2: the tempered half-step and the ladder's
+//       initial state (parallel/evidence.py:60-83, :229-235), the templates
+//       of ladder.cuh over SC2Model.
 //
 // What bounds it on the H100: FP32 ALU work. One evaluation is ~23.5k flops
 // over the N = 149 points of the flagship, of which the degree-40 Clenshaw
@@ -36,7 +39,7 @@
 // round-to-nearest intrinsics (no FMA contraction), so a new state equals
 // the plain PyTorch half-step's bit for bit whenever both accept.
 
-#include "stretch.cuh"
+#include "ladder.cuh"
 
 // Every field is 8 bytes wide, so the layout has no padding and the ctypes
 // mirror in kernels/sc2.py (_SC2Params) matches it field for field.
@@ -123,15 +126,12 @@ __device__ PointData<C> stage_points(const SC2Params& P, C* smem, int use_smem) 
     return d;
 }
 
-// The log-posterior of one walker at absolute parameters p[ndim]: the sum of
-// the prior log-densities (-inf outside the open bounds) plus the Gaussian
-// log-likelihood of the ShockCooling2 band fluxes; -inf when not finite.
+// The Gaussian log-likelihood of the ShockCooling2 band fluxes of one walker
+// at absolute parameters p[ndim], float64; -inf when not finite. It does not
+// look at the priors.
 template <typename C>
-__device__ double sc2_log_posterior(const double* p, const PointData<C>& d, const SC2Params& P) {
+__device__ double sc2_log_likelihood(const double* p, const PointData<C>& d, const SC2Params& P) {
     const int ndim = (int)P.ndim;
-    const double lprior = log_prior(P, p);
-    if (!isfinite(lprior)) return -INFINITY;
-
     const C T1 = (C)p[0];
     const C L1 = (C)p[1];
     const C t_tr = (C)p[2];
@@ -170,10 +170,21 @@ __device__ double sc2_log_posterior(const double* p, const PointData<C>& d, cons
         y_fit = y_fit * inv_yscale;
         acc += residual_term<C>(P.use_sigma, y_fit, d.y[n], d.inv_dy[n], d.dy[n], d.su[n], sig);
     }
-    return finish_log_posterior<C>(lprior, acc, P.use_sigma, P.ll_offset, P.log_norm_const);
+    return finish_log_likelihood<C>(acc, P.use_sigma, P.ll_offset, P.log_norm_const);
 }
 
-// The model policy of stretch.cuh for ShockCooling2 in compute type C.
+// The log-posterior of one walker at absolute parameters p[ndim]: the sum of
+// the prior log-densities (-inf outside the open bounds, and then the
+// likelihood is not evaluated) plus the log-likelihood; -inf when not finite.
+template <typename C>
+__device__ double sc2_log_posterior(const double* p, const PointData<C>& d, const SC2Params& P) {
+    const double lprior = log_prior(P, p);
+    if (!isfinite(lprior)) return -INFINITY;
+    return lprior + sc2_log_likelihood<C>(p, d, P);
+}
+
+// The model policy of stretch.cuh and ladder.cuh for ShockCooling2 in
+// compute type C.
 template <typename C>
 struct SC2Model {
     typedef SC2Params Params;
@@ -184,6 +195,9 @@ struct SC2Model {
     }
     static __device__ double log_posterior(const double* p, const Data& d, const Params& P) {
         return sc2_log_posterior<C>(p, d, P);
+    }
+    static __device__ double log_likelihood(const double* p, const Data& d, const Params& P) {
+        return sc2_log_likelihood<C>(p, d, P);
     }
 };
 
@@ -246,6 +260,24 @@ int stretch_half_step_launch(const SC2Params* P, int device, int compute_f64, vo
     return launch_half_step<SC2Model>(P, device, compute_f64, x, state_f64, logp, half, h, u_z,
                                       j, u_acc, a, chain_x, chain_x_f64, chain_lp, chain_lp_f64,
                                       n_accept, stream);
+}
+
+// K6a launch over ShockCooling2 (ladder.cuh). Returns 0 or a cudaError_t code.
+int sc2_tempered_half_step_launch(const SC2Params* P, int device, int compute_f64, void* x,
+                                  int state_f64, double* logpri, double* logl,
+                                  const double* betas, int n_rungs, int half, int h,
+                                  const void* u_z, const long long* j, const void* u_acc,
+                                  double a, int* n_accept, void* stream) {
+    return launch_tempered_half_step<SC2Model>(P, device, compute_f64, x, state_f64, logpri, logl,
+                                               betas, n_rungs, half, h, u_z, j, u_acc, a,
+                                               n_accept, stream);
+}
+
+// K6b launch over ShockCooling2 (ladder.cuh). Returns 0 or a cudaError_t code.
+int sc2_ladder_init_launch(const SC2Params* P, int device, int compute_f64, const void* x,
+                           int state_f64, int n, double* logpri, double* logl, void* stream) {
+    return launch_ladder_init<SC2Model>(P, device, compute_f64, x, state_f64, n, logpri, logl,
+                                        stream);
 }
 
 }  // extern "C"

@@ -14,6 +14,7 @@
 //       (ShockCooling3._eval_points), ops/mathx.py and K3.
 //   SC3 half-step: parallel/sampler.py:38-57, :86-95, :97-104 and :205-225,
 //       the stretch_half_step_kernel template of stretch.cuh over SC3Model.
+//   K6a, K6b over ShockCooling3: the templates of ladder.cuh over SC3Model.
 //
 // What bounds it on the H100: the special functions. Each quadrature term
 // is one expm1, one exp and one division (~60 instructions in all), and one
@@ -43,6 +44,7 @@
 // divided in float64 by d_L^2 (d_L is not cast), then rounded to C for the
 // residual sum, as the JAX graph promotes it.
 
+#include "ladder.cuh"
 #include "planck.cuh"
 
 // Every field is 8 bytes wide, so the layout has no padding and the ctypes
@@ -202,15 +204,13 @@ __device__ SC3Data<C> stage_sc3(const SC3Params& P, unsigned char* smem, int use
     return d;
 }
 
-// The log-posterior of one walker at absolute parameters p[ndim] = (v_s*,
-// M_env, f_rho M, R, d_L, E(B-V), t_0[, sigma]): the prior sum plus the
-// Gaussian log-likelihood of the ShockCooling3 fluxes; -inf when not finite.
+// The Gaussian log-likelihood of the ShockCooling3 fluxes of one walker at
+// absolute parameters p[ndim] = (v_s*, M_env, f_rho M, R, d_L, E(B-V),
+// t_0[, sigma]), float64; -inf when not finite. It does not look at the
+// priors.
 template <typename C>
-__device__ double sc3_log_posterior(const double* p, const SC3Data<C>& d, const SC3Params& P) {
+__device__ double sc3_log_likelihood(const double* p, const SC3Data<C>& d, const SC3Params& P) {
     const int ndim = (int)P.ndim;
-    const double lprior = log_prior(P, p);
-    if (!isfinite(lprior)) return -INFINITY;
-
     const C v_s = (C)p[0];
     const C M_env = (C)p[1];
     const C f_rho_M = (C)p[2];
@@ -250,10 +250,20 @@ __device__ double sc3_log_posterior(const double* p, const SC3Data<C>& d, const 
         const C y_fit = (C)flux * inv_yscale;
         acc += residual_term<C>(P.use_sigma, y_fit, d.y[n], d.inv_dy[n], d.dy[n], d.su[n], sig);
     }
-    return finish_log_posterior<C>(lprior, acc, P.use_sigma, P.ll_offset, P.log_norm_const);
+    return finish_log_likelihood<C>(acc, P.use_sigma, P.ll_offset, P.log_norm_const);
 }
 
-// The model policy of stretch.cuh for ShockCooling3 in compute type C.
+// The log-posterior of one walker: the prior sum (-inf outside the open
+// bounds, and then the likelihood is not evaluated) plus the log-likelihood.
+template <typename C>
+__device__ double sc3_log_posterior(const double* p, const SC3Data<C>& d, const SC3Params& P) {
+    const double lprior = log_prior(P, p);
+    if (!isfinite(lprior)) return -INFINITY;
+    return lprior + sc3_log_likelihood<C>(p, d, P);
+}
+
+// The model policy of stretch.cuh and ladder.cuh for ShockCooling3 in
+// compute type C.
 template <typename C>
 struct SC3Model {
     typedef SC3Params Params;
@@ -266,6 +276,9 @@ struct SC3Model {
     }
     static __device__ double log_posterior(const double* p, const Data& d, const Params& P) {
         return sc3_log_posterior<C>(p, d, P);
+    }
+    static __device__ double log_likelihood(const double* p, const Data& d, const Params& P) {
+        return sc3_log_likelihood<C>(p, d, P);
     }
 };
 
@@ -352,6 +365,24 @@ int sc3_half_step_launch(const SC3Params* P, int device, int compute_f64, void* 
     return launch_half_step<SC3Model>(P, device, compute_f64, x, state_f64, logp, half, h, u_z,
                                       j, u_acc, a, chain_x, chain_x_f64, chain_lp, chain_lp_f64,
                                       n_accept, stream);
+}
+
+// K6a launch over ShockCooling3 (ladder.cuh). Returns 0 or a cudaError_t code.
+int sc3_tempered_half_step_launch(const SC3Params* P, int device, int compute_f64, void* x,
+                                  int state_f64, double* logpri, double* logl,
+                                  const double* betas, int n_rungs, int half, int h,
+                                  const void* u_z, const long long* j, const void* u_acc,
+                                  double a, int* n_accept, void* stream) {
+    return launch_tempered_half_step<SC3Model>(P, device, compute_f64, x, state_f64, logpri, logl,
+                                               betas, n_rungs, half, h, u_z, j, u_acc, a,
+                                               n_accept, stream);
+}
+
+// K6b launch over ShockCooling3 (ladder.cuh). Returns 0 or a cudaError_t code.
+int sc3_ladder_init_launch(const SC3Params* P, int device, int compute_f64, const void* x,
+                           int state_f64, int n, double* logpri, double* logl, void* stream) {
+    return launch_ladder_init<SC3Model>(P, device, compute_f64, x, state_f64, n, logpri, logl,
+                                        stream);
 }
 
 }  // extern "C"

@@ -10,7 +10,11 @@
 //   static __device__ Data stage(const Params&, unsigned char* smem, int use_smem, int e);
 //   static __device__ double log_posterior(const double* p, const Data&, const Params&);
 // where e is the ensemble (epoch) of the block: always 0 for a single
-// ensemble, whose data do not depend on it.
+// ensemble, whose data do not depend on it. A policy whose model runs on the
+// tempered ladder (ladder.cuh) also provides
+//   static __device__ double log_likelihood(const double* p, const Data&, const Params&);
+// the float64 log-likelihood alone (-inf when not finite), evaluated whatever
+// the prior; its log_posterior is log_prior plus that value.
 // and every Params has the fields ndim, use_sigma, has_affine, prior_kind,
 // p_min, p_max, mean, stddev, affine_offset and affine_scale.
 
@@ -96,14 +100,32 @@ __device__ __forceinline__ C residual_term(bool use_sigma, C y_fit, C y, C inv_d
     return r * r;
 }
 
-// The float64 log-posterior from the prior sum and the residual sum acc in
-// the compute type: -inf when the likelihood is not finite.
+// The float64 log-likelihood from the residual sum acc in the compute type:
+// -0.5 acc plus the normalization constant, added in the compute type; -inf
+// when it is not finite.
 template <typename C>
-__device__ __forceinline__ double finish_log_posterior(double log_prior, C acc, bool use_sigma,
-                                                       double ll_offset, double log_norm_const) {
+__device__ __forceinline__ double finish_log_likelihood(C acc, bool use_sigma, double ll_offset,
+                                                        double log_norm_const) {
     const C ll = C(-0.5) * acc + (C)(use_sigma ? ll_offset : log_norm_const);
     if (!isfinite(ll)) return -INFINITY;
-    return log_prior + (double)ll;
+    return (double)ll;
+}
+
+// The Goodman-Weare proposal of stretch move from walker xm with partner xj
+// and the uniform u: z = ((a - 1) u + 1)^2 / a, y = xj + z (xm - xj) in the
+// state type with round-to-nearest intrinsics (no contraction, so it equals
+// the plain PyTorch proposal bit for bit), p the absolute float64 parameters
+// of y. Returns z.
+template <typename Params, typename S>
+__device__ __forceinline__ S stretch_proposal(const Params& P, const S* xm, const S* xj, S u,
+                                              double a, S* y, double* p) {
+    const S zw = add_rn(mul_rn((S)(a - 1.0), u), S(1));
+    const S z = div_rn(mul_rn(zw, zw), (S)a);
+    for (int k = 0; k < (int)P.ndim; ++k) {
+        y[k] = add_rn(xj[k], mul_rn(z, sub_rn(xm[k], xj[k])));
+        p[k] = to_absolute(P, k, y[k]);
+    }
+    return z;
 }
 
 // K2: one Goodman-Weare half-step for half h of the ensemble x (2, half,
@@ -136,15 +158,10 @@ stretch_half_step_kernel(const typename M::Params P, S* __restrict__ x,
     S* xm = x + w * ndim;
     const S* xj = x + (ens + (size_t)(1 - h) * half + (size_t)j[di]) * ndim;
 
-    // z ~ g(z) on [1/a, a]: z = ((a - 1) u + 1)^2 / a
-    const S zw = add_rn(mul_rn((S)(a - 1.0), u_z[di]), S(1));
-    const S z = div_rn(mul_rn(zw, zw), (S)a);
+    // z ~ g(z) on [1/a, a]
     S y[LP_MAX_DIM];
     double p[LP_MAX_DIM];
-    for (int k = 0; k < ndim; ++k) {
-        y[k] = add_rn(xj[k], mul_rn(z, sub_rn(xm[k], xj[k])));
-        p[k] = to_absolute(P, k, y[k]);
-    }
+    const S z = stretch_proposal(P, xm, xj, u_z[di], a, y, p);
     double lp_y = M::log_posterior(p, d, P);
     if (isnan(lp_y)) lp_y = -INFINITY;
     const double lp_x = logp[w];

@@ -29,7 +29,8 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..kernels.common import half_update, propose_stretch, stretch_half_step_plain
+from ..kernels.common import (absolute_params, half_update, propose_stretch,
+                              stretch_half_step_plain)
 
 __all__ = ["EnsembleSampler", "make_stretch_kernel", "propose_stretch"]
 
@@ -172,11 +173,7 @@ class EnsembleSampler:
         for a LogPosterior on CUDA."""
         if self._fused:
             return kernels.log_posterior(self._log_prob_fn, q, self._offset, self._scale)
-        p = q.to(torch.float64)
-        if self._offset is not None:
-            p = (torch.as_tensor(self._offset, device=q.device)
-                 + torch.as_tensor(self._scale, device=q.device) * p)
-        return self._log_prob_fn(p)
+        return self._log_prob_fn(absolute_params(q, self._offset, self._scale))
 
     def _draws(self, i):
         """(u_z, j, u_acc), each (2, half), of global step ``i``."""

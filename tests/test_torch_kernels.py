@@ -2,7 +2,10 @@
 (ShockCooling2), K3 (the quadrature band flux) and the ShockCooling3
 log-posterior and half-step built on it; K4 (the per-epoch blackbody
 log-posterior and its gradient), the epoch half-step, K4s (the summary
-rows) and K5 (percentiles) of the batched bolometric path.
+rows) and K5 (percentiles) of the batched bolometric path; K6a-K6d of the
+tempered ladder (the tempered half-step and the initial state over
+ShockCooling2 and ShockCooling3, the replica exchange, the stepping-stone
+block terms).
 
 This file imports neither jax nor the JAX package, so the ``cuda``-marked
 tests also run on a machine with the card and no jax:
@@ -27,7 +30,9 @@ its log-posterior's scale and 1e-4 and 1e-9 of its gradient's, the scales of
 ``EpochPosterior.term_scales``: the summed magnitudes of the pieces that
 cancel near an optimum (the rounding follows the pieces, not their sum);
 the epoch half-step as K2; K4s's integral float32 <= 1e-5 relative; K5's
-percentiles bit-equal to the plain version's.
+percentiles bit-equal to the plain version's. K6a as K2, its log pi and
+log L held as K1's; K6b's log pi <= 1e-12 relative and log L as K1's; K6c
+bit-equal; K6d float64 <= 1e-12 relative (the sums run in another order).
 """
 
 import ctypes
@@ -42,7 +47,8 @@ torch.set_num_threads(1)
 from lightcurve_fitting_tpu_torch import kernels  # noqa: E402
 from lightcurve_fitting_tpu_torch.core import config  # noqa: E402
 from lightcurve_fitting_tpu_torch.fitting import make_log_posterior  # noqa: E402
-from lightcurve_fitting_tpu_torch.kernels import build, common, epoch_bb, sc2, sc3  # noqa: E402
+from lightcurve_fitting_tpu_torch.kernels import (build, common, epoch_bb, ladder,  # noqa: E402
+                                                  sc2, sc3)
 from lightcurve_fitting_tpu_torch.kernels import quantile as kquantile  # noqa: E402
 from lightcurve_fitting_tpu_torch.lightcurve import LC  # noqa: E402
 from lightcurve_fitting_tpu_torch.models import (BaseShockCooling, GaussianPrior,  # noqa: E402
@@ -54,6 +60,7 @@ from lightcurve_fitting_tpu_torch.ops.filterbank import FilterBank  # noqa: E402
 from lightcurve_fitting_tpu_torch.ops.quantile import percentile_f32_plain  # noqa: E402
 from lightcurve_fitting_tpu_torch.filters import filtdict  # noqa: E402
 from lightcurve_fitting_tpu_torch.parallel import batched  # noqa: E402
+from lightcurve_fitting_tpu_torch.parallel.evidence import make_beta_ladder  # noqa: E402
 from lightcurve_fitting_tpu_torch.utils.table import Table  # noqa: E402
 
 EXAMPLE = os.path.join(os.path.dirname(__file__), "..", "lightcurve_fitting_tpu", "data",
@@ -159,8 +166,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build._nvcc()
     srcs, _ = build._sources()
-    assert [os.path.basename(s) for s in srcs] == ["epoch_bb.cu", "quantile.cu", "sc2_logpost.cu",
-                                                   "sc3_logpost.cu"]
+    assert [os.path.basename(s) for s in srcs] == ["epoch_bb.cu", "ladder.cu", "quantile.cu",
+                                                   "sc2_logpost.cu", "sc3_logpost.cu"]
 
 
 def test_param_block_layout_matches_the_c_struct():
@@ -667,3 +674,189 @@ def test_bolometric_runs_through_the_epoch_kernels_on_card(cuda_device):
     for k in ("epoch_logpost", "epoch_logpost_grad", "epoch_half_step", "epoch_summary",
               "percentile"):
         assert kernels.LAUNCHES[k] > 0, k
+
+
+# ------------------------------------------------------------- K6 (ladder)
+
+def _ladder_case(which, lc, lc_flux, dev, R, W, seed=0):
+    """A LogPosterior, its rescaling, and a float32 ladder state (R, 2, W/2,
+    ndim) from the init window with 1% of the walkers outside the priors."""
+    if which == "sc2":
+        lp = make_log_posterior(ShockCooling2(lc), lc, _priors(), device=dev)
+        lo, up, off, sc = P_LO, P_UP, OFFSET, SCALE
+    else:
+        lp = make_log_posterior(ShockCooling3(lc_flux), lc_flux, _sc3_priors(), device=dev)
+        lo, up, off, sc = SC3_LO, SC3_UP, SC3_OFFSET, SC3_SCALE
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(lo, up, size=(R * W, len(lo)))
+    out = rng.choice(R * W, R * W // 100, replace=False)
+    p[out, rng.integers(0, len(lo), out.size)] = -1.0
+    q = torch.as_tensor((p - off) / sc, device=dev).float().reshape(R, 2, W // 2, len(lo))
+    return lp, off, sc, q.contiguous()
+
+
+def test_ladder_wrappers_route_by_device(lc):
+    """On the CPU the K6 wrappers run their plain versions and launch
+    nothing; off the CPU they launch or raise, and plain callables have no
+    kernel."""
+    lp = make_log_posterior(ShockCooling2(lc), lc, _priors(), device="cpu")
+    x = torch.as_tensor(_walkers(16)[:12].reshape(3, 2, 2, 4)).contiguous()
+    betas = torch.as_tensor(make_beta_ladder(2))
+    before = dict(kernels.LAUNCHES)
+    pri, ll = ladder.ladder_init(lp, x)
+    want = lp.forward_plain(x.reshape(12, 4)).reshape(3, 2, 2)
+    fin = torch.isfinite(pri)
+    assert torch.equal((pri + ll)[fin], want[fin]) and torch.isneginf(want[~fin]).all()
+    u = torch.full((3, 2, 2), 0.5, dtype=torch.float64)
+    j = torch.zeros((3, 2, 2), dtype=torch.int64)
+    acc = torch.zeros((3, 2, 2), dtype=torch.int32)
+    ladder.tempered_half_step(lp, x, pri, ll, betas, 0, u, j, u, n_accept=acc)
+    ladder.replica_swap(x, pri, ll, betas, u, 1)
+    ladder.rung_block_terms(ll[None].expand(4, 3, 2, 2).contiguous(), betas[1:] - betas[:-1],
+                            ((0, 2), (2, 4)))
+    assert kernels.LAUNCHES == before           # the plain path launches nothing
+    meta = torch.empty((3, 2, 2, 4), device="meta")
+    m3 = torch.empty((3, 2, 2), device="meta", dtype=torch.float64)
+    with pytest.raises(ValueError, match="K6c runs on CUDA"):
+        ladder.replica_swap(meta, m3, m3, torch.empty(3, device="meta"), m3, 0)
+    with pytest.raises(ValueError, match="K6d runs on CUDA"):
+        ladder.rung_block_terms(torch.empty((4, 3, 4), device="meta"), betas, ((0, 4),))
+    with pytest.raises(NotImplementedError, match="CPU"):
+        ladder.ladder_init((lambda p: p[:, 0], lambda p: p[:, 0]), meta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["sc2", "sc3"])
+def test_k6b_matches_plain_on_card(lc, lc_flux, cuda_device, which):
+    lp, off, sc, x = _ladder_case(which, lc, lc_flux, cuda_device, 5, 512)
+    n0 = kernels.LAUNCHES["ladder_init"]
+    pri, ll = ladder.ladder_init(lp, x, off, sc)
+    assert kernels.LAUNCHES["ladder_init"] == n0 + 1
+    want_pri, want_ll = ladder.ladder_init_plain(*ladder.plain_functions(lp, off, sc), x)
+    assert torch.equal(torch.isneginf(pri), torch.isneginf(want_pri))
+    fin = torch.isfinite(want_pri)
+    assert 0 < int((~fin).sum()) and bool(((pri - want_pri).abs()[fin] <= 1e-12).all())
+    # the likelihood is evaluated outside the priors too
+    assert int(torch.isfinite(ll).sum()) > int(fin.sum())
+    c = lp.log_likelihood.log_norm_const if which == "sc3" else 0.0
+    _assert_ll_close(ll, want_ll, 1e-5, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["sc2", "sc3"])
+@pytest.mark.parametrize("h", [0, 1])
+def test_k6a_matches_plain_on_card(lc, lc_flux, cuda_device, which, h):
+    R, W = 5, 512 if which == "sc2" else 256
+    lp, off, sc, x0 = _ladder_case(which, lc, lc_flux, cuda_device, R, W, seed=1)
+    pri0, ll0 = ladder.ladder_init(lp, x0, off, sc)
+    betas = torch.as_tensor(make_beta_ladder(R - 1), device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    shape = (R, 2, W // 2)
+    u_z = torch.rand(shape, generator=g, device=cuda_device)
+    j = torch.randint(0, W // 2, shape, generator=g, device=cuda_device)
+    u_acc = torch.rand(shape, generator=g, device=cuda_device)
+    xk, pk, lk = x0.clone(), pri0.clone(), ll0.clone()
+    xp, pp, lpl = x0.clone(), pri0.clone(), ll0.clone()
+    ak = torch.zeros(shape, dtype=torch.int32, device=cuda_device)
+    ap = torch.zeros_like(ak)
+    n0 = kernels.LAUNCHES["tempered_half_step"]
+    ladder.tempered_half_step(lp, xk, pk, lk, betas, h, u_z, j, u_acc, 2.0, off, sc, ak)
+    assert kernels.LAUNCHES["tempered_half_step"] == n0 + 1
+    fns = ladder.plain_functions(lp, off, sc)
+    ladder.tempered_half_step_plain(*fns, xp, pp, lpl, betas, h, u_z, j, u_acc, 2.0, ap)
+    agree = ak[:, h] == ap[:, h]
+    y, z = common.propose_stretch(u_z[:, h], j[:, h], x0[:, h], x0[:, 1 - h])
+    pri_y, ll_y = fns[0](y), fns[1](y)
+    b = betas[:, None]
+    c = lp.log_likelihood.log_norm_const if which == "sc3" else 0.0
+    ratio = ((x0.shape[-1] - 1.0) * torch.log(z) + pri_y + b * ll_y - pri0[:, h]
+             - b * ll0[:, h])
+    gap = (torch.log(u_acc[:, h]).double() - ratio).abs()
+    scale = (ll_y - c).abs() + (ll0[:, h] - c).abs() + 2 * abs(c)
+    assert bool((agree | (gap <= 1e-5 * scale)).all())
+    assert torch.equal(xk[:, h][agree], xp[:, h][agree])
+    assert torch.equal(xk[:, 1 - h], x0[:, 1 - h]) and torch.equal(ak[:, 1 - h], ap[:, 1 - h])
+    assert torch.equal(pk[:, h][agree], pp[:, h][agree])
+    _assert_ll_close(lk[:, h][agree], lpl[:, h][agree], 1e-5, c)
+    assert 0.02 < float(ak[:, h].float().mean()) < 0.98
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_k6c_matches_plain_bit_for_bit_on_card(cuda_device, parity, f64):
+    R, half, ndim = 7, 300, 4
+    rng = np.random.default_rng(3)
+    dt = torch.float64 if f64 else torch.float32
+    x = torch.as_tensor(rng.normal(size=(R, 2, half, ndim)), device=cuda_device).to(dt)
+    pri = torch.as_tensor(rng.normal(size=(R, 2, half)), device=cuda_device)
+    ll = torch.as_tensor(-100.0 + 30.0 * rng.normal(size=(R, 2, half)), device=cuda_device)
+    ll[2, 0, :50] = -np.inf                          # NaN-likelihood starts never move
+    betas = torch.as_tensor(make_beta_ladder(R - 1), device=cuda_device)   # beta_0 = 0
+    u = torch.as_tensor(rng.random((R, 2, half)), device=cuda_device).to(dt)
+    outs = []
+    for fn in (ladder.replica_swap, ladder.replica_swap_plain):
+        state = [x.clone(), pri.clone(), ll.clone()]
+        n_swap = torch.zeros((R, 2, half), dtype=torch.int32, device=cuda_device)
+        ll_out = torch.empty((R, 2, half), dtype=torch.float64, device=cuda_device)
+        cold = torch.empty((2, half, ndim), dtype=dt, device=cuda_device)
+        n0 = kernels.LAUNCHES["replica_swap"]
+        fn(*state, betas, u, parity, n_swap, ll_out, cold)
+        assert kernels.LAUNCHES["replica_swap"] == n0 + (fn is ladder.replica_swap)
+        outs.append(state + [n_swap, ll_out, cold])
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
+    n_swap = outs[0][3]
+    assert 0 < int(n_swap.sum()) and int(n_swap[2, 0, :50].sum()) == 0
+    assert torch.equal(outs[0][4], outs[0][2]) and torch.equal(outs[0][5], outs[0][0][-1])
+
+
+@pytest.mark.cuda
+def test_k6d_matches_plain_on_card(cuda_device):
+    rng = np.random.default_rng(4)
+    nsteps, R, W = 37, 9, 1000
+    ll = torch.as_tensor(-5000.0 - 100.0 * rng.random((nsteps, R, W)), device=cuda_device)
+    ll[5, 3, 7] = -np.inf
+    db = torch.as_tensor(np.diff(make_beta_ladder(R - 1)), device=cuda_device)
+    bounds = tuple((int(i[0]), int(i[-1]) + 1) for i in np.array_split(np.arange(nsteps), 4))
+    n0 = kernels.LAUNCHES["rung_block_terms"]
+    got = ladder.rung_block_terms(ll, db, bounds)
+    assert kernels.LAUNCHES["rung_block_terms"] == n0 + 1
+    want = ladder.rung_block_terms_plain(ll, db, bounds)
+    assert got.shape == (4, R - 1)
+    assert bool(((got - want).abs() <= 1e-12 * want.abs()).all())
+
+
+@pytest.mark.cuda
+def test_evidence_runs_through_the_ladder_kernels_on_card(lc, cuda_device, monkeypatch):
+    from lightcurve_fitting_tpu_torch.fitting import lightcurve_evidence, lightcurve_ptmcmc
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("a plain version ran on the CUDA path")
+
+    for name in ("tempered_half_step_plain", "ladder_init_plain", "replica_swap_plain",
+                 "rung_block_terms_plain"):
+        monkeypatch.setattr(ladder, name, no_plain)
+    kernels.reset_launch_counts()
+    kw = dict(p_lo=list(P_LO), p_up=list(P_UP), nwalkers=64, n_rungs=4, nsteps=20,
+              nsteps_burnin=20, seed=3, quiet=True, device=cuda_device)
+    log_z, err, info = lightcurve_evidence(lc, ShockCooling2(lc), _priors(), **kw)
+    assert np.isfinite(log_z) and np.isfinite(err) and info["acceptance"].shape == (5,)
+    for k in ("tempered_half_step", "ladder_init", "replica_swap", "rung_block_terms"):
+        assert kernels.LAUNCHES[k] > 0, k
+    assert kernels.LAUNCHES["tempered_half_step"] == 80 and kernels.LAUNCHES["replica_swap"] == 40
+    pt = lightcurve_ptmcmc(lc, ShockCooling2(lc), _priors(), **kw)
+    assert pt.flatchain.shape == (20 * 64, 4) and np.isfinite(pt.flatchain).all()
+
+
+@pytest.mark.cuda
+def test_sc3_evidence_runs_through_the_ladder_kernels_on_card(lc_flux, cuda_device):
+    from lightcurve_fitting_tpu_torch.fitting import lightcurve_evidence
+    kernels.reset_launch_counts()
+    log_z, err, info = lightcurve_evidence(
+        lc_flux, ShockCooling3(lc_flux), _sc3_priors(), p_lo=list(SC3_LO), p_up=list(SC3_UP),
+        nwalkers=64, n_rungs=3, nsteps=8, nsteps_burnin=8, seed=4, quiet=True,
+        device=cuda_device)
+    assert np.isfinite(log_z) and np.isfinite(err) and info["acceptance"].shape == (4,)
+    assert kernels.LAUNCHES["tempered_half_step"] == 32 and kernels.LAUNCHES["ladder_init"] == 1
+    assert kernels.LAUNCHES["replica_swap"] == 16 and kernels.LAUNCHES["rung_block_terms"] == 1
