@@ -71,7 +71,26 @@ raises and the script exits non-zero):
     (32 walkers, 6 rungs, 250 + 350 steps), cold medians in range; (c)
     ``compare_models`` on synthetic ShockCooling2 photometry, snug priors
     against wide ones, the log Bayes factor in (3, 20); the launch counters,
-    reset before (a), show it ran through K6a-K6d.
+    reset before (a), show it ran through K6a-K6d;
+17. K7, the log-posterior and its gradient, against autograd through the
+    plain log-posterior at 131072 flagship walkers (1% outside the priors,
+    and 131072 more with t < t_exp): values as K1's, gradients within 1e-4
+    (float32) and 1e-9 (float64) of their per-point terms' summed
+    magnitudes, zero (masked) at the same places;
+18. K9, the NUTS transition, against the plain transition under shared
+    draws on 64 whitened flagship chains, max_depth 9: float64 over the
+    plain gradient, float32 over K7's own evaluations, equal except
+    near-ties (and the float32 kernel against the fully plain float32
+    transition reported);
+19. K7h, the HMC transition (32 jittered leapfrogs), the same way;
+20. the gradient main path, counters reset before (a): (a)
+    ``lightcurve_map`` on the flagship with tests/test_map.py:92-104's
+    criteria, (b) ``lightcurve_mcmc(init="map")`` with test_map.py:59-79's,
+    (c) ``lightcurve_hmc`` at its defaults (16 chains x 800 + 1000, max_depth
+    9, warm start 64 x 300; seed 3) in float32 and float64 compute, held to
+    tests/test_hmc.py:147-159's criteria (the float32 default must meet
+    them), wall times, a profiled run's time split, (d)
+    ``lightcurve_hmc(sampler="hmc")``; the counters show K7, K9 and K7h ran.
 
 The last lines are the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and library time, and ``{"ok": true,
@@ -1455,6 +1474,456 @@ def phase_main_path(lc, smi):
           f"launches {launches}")
     return launches
 
+# ---------------------------------------------------------- the gradient path
+
+GRAD_KERNELS = ("logpost_grad", "nuts_transition", "hmc_transition")
+TRUTH_MED = [37.58, 5.326, 16.25, 57468.6999]   # tests/test_hmc.py:131-135
+TRUTH_STD = [0.145, 0.053, 0.110, 0.00018]
+GRAD_CHAINS, GRAD_DEPTH, GRAD_LEAPFROG = 64, 9, 32
+
+
+def sc2_grad_ops(ll):
+    """K7 on one walker: K1's evaluation plus the reverse pass per point: the
+    Clenshaw derivative recurrence (4 per degree) and ~30 flops and 7 more
+    special functions (the power laws' derivatives and divisions)."""
+    N, D1 = ll.bb_coeffs.shape
+    return sc2_eval_ops(ll) + N * (4 * (D1 - 1) + 30 + 7 * SFU)
+
+
+def gauss_priors():
+    """tests/test_hmc.py::_flagship_priors, the gradient fits' priors."""
+    from lightcurve_fitting_tpu_torch.models import GaussianPrior
+    return [GaussianPrior(0.0, 100.0, 30.0, 15.0), GaussianPrior(0.0, 100.0, 4.0, 3.0),
+            GaussianPrior(0.0, 100.0, 30.0, 15.0), GaussianPrior(57468.0, 57468.7, 57468.5, 0.2)]
+
+
+def compare_grad(name, got, want, scale, rel):
+    """The masked gradients: zero at the same places, and within rel x the
+    summed magnitudes of their per-point terms elsewhere; returns the
+    largest absolute and scaled differences."""
+    import torch
+    if not torch.equal(got == 0, want == 0):
+        n = int(((got == 0) != (want == 0)).sum())
+        raise AssertionError(f"{name}: the masked (zero) components differ at {n} places")
+    d = (got - want).abs()
+    r = d / scale.clamp_min(1e-300)
+    if not bool((d <= rel * scale).all()):
+        raise AssertionError(f"{name}: max |delta|/scale = {float(r.max()):.3e} > {rel:.0e}")
+    return float(d.max()), float(r.max())
+
+
+def phase_k7(lc, rng_seed=10):
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch import kernels
+    from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.fitting import make_log_posterior
+    from lightcurve_fitting_tpu_torch.kernels import sc2
+    from lightcurve_fitting_tpu_torch.models import ShockCooling2
+
+    dev = torch.device("cuda")
+    W = HEADLINE_WALKERS
+    rng = np.random.default_rng(rng_seed)
+    p = rng.uniform(P_LO, P_UP, size=(W, 4))
+    out = rng.choice(W, W // 100, replace=False)          # 1% outside the priors
+    p[out, rng.integers(0, 4, size=out.size)] = np.where(rng.random(out.size) < 0.5, -1.0, 1e5)
+    late = rng.uniform([20.0, 2.0, 10.0, 57468.8], [50.0, 5.0, 50.0, 57472.0], size=(W, 4))
+    p, late = torch.as_tensor(p, device=dev), torch.as_tensor(late, device=dev)
+
+    def plain(lp_, x):
+        parts = [sc2.log_posterior_and_grad_plain(lp_, c) for c in x.split(PLAIN_CHUNK)]
+        return torch.cat([a for a, _ in parts]), torch.cat([b for _, b in parts])
+
+    res = {}
+    n0 = kernels.LAUNCHES["logpost_grad"]
+    for label in ("f32", "f64"):
+        try:
+            if label == "f64":
+                config.set_compute_dtype(None)
+            lp = make_log_posterior(ShockCooling2(lc), lc, flagship_priors(), device=dev)
+            wide = make_log_posterior(ShockCooling2(lc), lc, flagship_priors(57460.0, 57480.0),
+                                      device=dev)
+            rel, grel = (1e-5, 1e-4) if label == "f32" else (1e-10, 1e-9)
+            stats = []
+            for lp_, x, what in ((lp, p, ""), (wide, late, " t<t_exp")):
+                v, g = sc2.log_posterior_and_grad(lp_, x)
+                vp, gp = plain(lp_, x)
+                a = compare_ll(f"K7 {label}{what} value", v, vp, rel)
+                scale = torch.cat([lp_.grad_term_scales(c) for c in x.split(PLAIN_CHUNK)])
+                b = compare_grad(f"K7 {label}{what} gradient", g, gp, scale, grel)
+                stats.append((a[0], b[0], b[1], int((g == 0).sum())))
+            if not torch.isfinite(wide(late)).all():
+                raise AssertionError("t < t_exp walkers must have finite log-posteriors")
+            res[label] = [max(s[i] for s in stats) for i in range(3)] + [stats[1][3]]
+            if label == "f32":
+                k_ms = cuda_ms(lambda: sc2.log_posterior_and_grad(lp, p))
+                plain_ms = cuda_ms(lambda: plain(lp, p), repeats=2)
+        finally:
+            config.set_compute_dtype(config.AUTO)
+    ll = lp.log_likelihood
+    k7_bound = bound_fields(W * sc2_grad_ops(ll), W * (4 * 8 * 2 + 8) + 4 * ll.bb_coeffs.numel())
+    phase("K7", f"{W} walkers (1% outside the priors, {W} more with t < t_exp): value f32 max "
+          f"|d| {res['f32'][0]:.3e}, f64 {res['f64'][0]:.3e} (K1's tolerances, -inf sets equal); "
+          f"gradient f32 max |d| {res['f32'][1]:.3e} (max |d|/term scale {res['f32'][2]:.2e} <= "
+          f"1e-4), f64 max |d| {res['f64'][1]:.3e} ({res['f64'][2]:.2e} <= 1e-9), masked zeros "
+          f"equal ({res['f32'][3]} of the t<t_exp components); "
+          f"{kernels.LAUNCHES['logpost_grad'] - n0} comparison launches; K7 {k_ms:.4f} ms vs "
+          f"plain (autograd) {plain_ms:.4f} ms per {W}-walker batch (f32), bound "
+          f"{k7_bound['bound_ms']:.4f} ms ({k7_bound['bound_by']})")
+    return {"max_abs_err": res["f32"][1], "ms": k_ms, "plain_ms": plain_ms, **k7_bound}
+
+
+def whitened_flagship(lc, dev, n_chains, seed=12):
+    """A WhitenedLogPosterior of the flagship as lightcurve_hmc builds it,
+    its whitening from Gaussian draws around the converged posterior (t_0
+    just inside its upper bound), and n_chains states from those draws."""
+    import numpy as np
+    from lightcurve_fitting_tpu_torch.fitting import make_log_posterior
+    from lightcurve_fitting_tpu_torch.models import ShockCooling2
+    from lightcurve_fitting_tpu_torch.parallel.hmc import (BoundsTransform, WhitenedLogPosterior,
+                                                           WhitenedPosterior)
+    pri = gauss_priors()
+    lp = make_log_posterior(ShockCooling2(lc), lc, pri, device=dev)
+    bounds = BoundsTransform([q.p_min for q in pri], [q.p_max for q in pri])
+    rng = np.random.default_rng(seed)
+    x = np.asarray(TRUTH_MED) + rng.normal(size=(400, 4)) * np.asarray(TRUTH_STD)
+    x[:, 3] = 57468.7 - 1e-6 - np.abs(rng.normal(size=400)) * TRUTH_STD[3]
+    warm_u = bounds.to_unbounded(x)
+    white = WhitenedPosterior(warm_u)
+    w0 = np.ascontiguousarray(white.to_w(warm_u[:n_chains]))
+    return WhitenedLogPosterior(lp, bounds, white), w0
+
+
+def compare_transitions(name, got, want, gaps, gap_nats, rel):
+    """Kernel transition ``got`` against ``want`` (q', logp', statistic,
+    [depth, diverged]): per chain the same depth and divergence flag, q'
+    within rel and logp' within rel |logp|, except near-ties: chains whose
+    energy decisions came within ``gap_nats`` (or whose U-turn criteria came
+    within ``rel``) of going the other way. Returns (near-ties, max |dq|,
+    max |dlogp|)."""
+    import torch
+    same = ((got[0] - want[0]).abs() <= rel).all(dim=1) \
+        & ((got[1] - want[1]).abs() <= rel * want[1].abs())
+    for k in range(3, len(got)):
+        same &= got[k].to(torch.int64) == want[k].to(torch.int64)
+    near = gaps[0] < gap_nats
+    if len(gaps) > 1:
+        near |= gaps[1] < rel
+    if not bool((same | near).all()):
+        raise AssertionError(f"{name}: {int((~same & ~near).sum())} chains differ away from "
+                             "near-ties")
+    if not bool(same.any()):
+        raise AssertionError(f"{name}: no chain agrees")
+    return (int((~same).sum()), float((got[0] - want[0])[same].abs().max()),
+            float((got[1] - want[1])[same].abs().max()))
+
+
+def phase_k9(lc, seed=13):
+    import torch
+    from lightcurve_fitting_tpu_torch import kernels
+    from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.kernels import gradient
+    from lightcurve_fitting_tpu_torch.parallel.nuts import make_nuts_transition
+
+    dev = torch.device("cuda")
+    C, D = GRAD_CHAINS, GRAD_DEPTH
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    z = torch.randn((C, 4), generator=g, device=dev, dtype=torch.float64)
+    u = torch.rand((C, D, 2 ** (D - 1) + 2), generator=g, device=dev, dtype=torch.float64)
+    eps = torch.tensor(0.1, dtype=torch.float64, device=dev)
+    inv_mass = torch.ones(4, dtype=torch.float64, device=dev)
+    res = {}
+    for label in ("f32", "f64"):
+        try:
+            if label == "f64":
+                config.set_compute_dtype(None)
+            target, w0 = whitened_flagship(lc, dev, C)
+            q0 = torch.as_tensor(w0, device=dev)
+            logp0 = target.logp_and_grad(q0)[0]
+            got = gradient.nuts_transition(target, q0, logp0, z, u, eps, inv_mass, D)
+            torch.cuda.synchronize()
+            # f64: against the plain transition over the plain (autograd)
+            # gradient; f32: over K7's own evaluations, the same float32
+            # arithmetic, so that the comparison isolates the transition,
+            # and the fully plain float32 transition beside it
+            full = make_nuts_transition(target.logp_and_grad_plain, 4, D, margins=True)(
+                q0, logp0, z, u, eps, inv_mass)
+            over_k7 = make_nuts_transition(target.logp_and_grad, 4, D, margins=True)(
+                q0, logp0, z, u, eps, inv_mass)
+            ref = full if label == "f64" else over_k7
+            cmp = compare_transitions(f"K9 {label}", got, ref[:5], ref[5:], 1e-6 if label == "f64"
+                                      else 1e-3, 1e-8)
+            n_full = int(((got[3] == full[3]) & (got[4] == full[4])
+                          & ((got[0] - full[0]).abs() <= 1e-4).all(dim=1)).sum())
+            depth = got[3].to(torch.int64)
+            evals = int((2 ** depth - 1 + depth).sum())
+            res[label] = cmp + (n_full, float(depth.double().mean()), int(got[4].sum()), evals)
+            if label == "f32":
+                k_ms = cuda_ms(lambda: gradient.nuts_transition(target, q0, logp0, z, u, eps,
+                                                                inv_mass, D), repeats=5)
+                q16, l16 = q0[:16].contiguous(), logp0[:16].contiguous()
+                k16_ms = cuda_ms(lambda: gradient.nuts_transition(
+                    target, q16, l16, z[:16].contiguous(), u[:16].contiguous(), eps, inv_mass, D),
+                    repeats=5)
+                plain_ms = cuda_ms(lambda: gradient.nuts_transition_plain(
+                    target, q0, logp0, z, u, eps, inv_mass, D), repeats=1)
+                ops = evals * sc2_grad_ops(target.log_posterior.log_likelihood)
+                k9_bound = bound_fields(ops, C * (4 * 8 * 3 + 8 * 3 + 4 * 2) + u.numel() * 8)
+        finally:
+            config.set_compute_dtype(config.AUTO)
+    deep = k9_deep_trees(lc, g)
+    phase("K9", f"{C} whitened flagship chains, max_depth {D}, eps 0.1, shared draws: f64 against "
+          f"the plain transition: {res['f64'][0]} near-ties, max |dq'| {res['f64'][1]:.3e}, max "
+          f"|dlogp'| {res['f64'][2]:.3e}; f32 against the plain transition over K7's float32 "
+          f"evaluations: {res['f32'][0]} near-ties, max |dq'| {res['f32'][1]:.3e}, max |dlogp'| "
+          f"{res['f32'][2]:.3e}; f32 kernel equal to the fully plain float32 transition (depth, "
+          f"divergence, |dq'| <= 1e-4) at {res['f32'][3]} of {C} chains; mean depth "
+          f"{res['f32'][4]:.3f}, {res['f32'][5]} divergent, {res['f32'][6]} evaluations; K9 "
+          f"{k_ms:.4f} ms per {C}-chain transition, {k16_ms:.4f} ms per 16 chains, plain "
+          f"{plain_ms:.4f} ms (f32), bound {k9_bound['bound_ms']:.4f} ms "
+          f"({k9_bound['bound_by']}); {deep}")
+    return {"max_abs_err": res["f32"][1], "ms": k_ms, "plain_ms": plain_ms, **k9_bound}
+
+
+def k9_deep_trees(lc, g):
+    """K9 against the plain transition on deep trees: eps 0.01 at max_depth
+    12 grows subtrees of 64 steps and more, whose U-turn blocks and Gumbel
+    pick spread over the lanes; the float32 trajectory buffer lies in shared
+    memory, the float64 one in the global scratch. Returns the report."""
+    import torch
+    from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.kernels import gradient
+    from lightcurve_fitting_tpu_torch.parallel.nuts import make_nuts_transition
+
+    dev = torch.device("cuda")
+    C, D = GRAD_CHAINS, 12
+    z = torch.randn((C, 4), generator=g, device=dev, dtype=torch.float64)
+    u = torch.rand((C, D, 2 ** (D - 1) + 2), generator=g, device=dev, dtype=torch.float64)
+    eps = torch.tensor(0.01, dtype=torch.float64, device=dev)
+    inv_mass = torch.ones(4, dtype=torch.float64, device=dev)
+    res = {}
+    for label in ("f32", "f64"):
+        try:
+            if label == "f64":
+                config.set_compute_dtype(None)
+            target, w0 = whitened_flagship(lc, dev, C)
+            q0 = torch.as_tensor(w0, device=dev)
+            logp0 = target.logp_and_grad(q0)[0]
+            got = gradient.nuts_transition(target, q0, logp0, z, u, eps, inv_mass, D)
+            # as above: f64 over the plain gradient, f32 over K7's evaluations
+            fn = target.logp_and_grad_plain if label == "f64" else target.logp_and_grad
+            ref = make_nuts_transition(fn, 4, D, margins=True)(q0, logp0, z, u, eps, inv_mass)
+            cmp = compare_transitions(f"K9 deep {label}", got, ref[:5], ref[5:],
+                                      1e-6 if label == "f64" else 1e-3, 1e-8)
+            depth = got[3].to(torch.int64)
+            res[label] = cmp + (int((depth >= 7).sum()), int(depth.max()),
+                                gradient.nuts_scratch_len(target, C, D, dev))
+        finally:
+            config.set_compute_dtype(config.AUTO)
+    if min(r[3] for r in res.values()) == 0:
+        raise AssertionError(f"K9 deep: no tree reached depth 7: {res}")
+    if res["f32"][5] != 0 or res["f64"][5] == 0:
+        raise AssertionError("K9 deep: the float32 buffer must lie in shared memory and the "
+                             f"float64 one in scratch (scratch doubles {res['f32'][5]}, "
+                             f"{res['f64'][5]})")
+    return (f"deep trees (eps 0.01, max_depth {D}, {C} chains): f32 (buffer in shared memory) "
+            f"{res['f32'][0]} near-ties, max |dq'| {res['f32'][1]:.3e}, max |dlogp'| "
+            f"{res['f32'][2]:.3e}, {res['f32'][3]} chains at depth >= 7, max depth "
+            f"{res['f32'][4]}; f64 (buffer in {res['f64'][5]} doubles of scratch) "
+            f"{res['f64'][0]} near-ties, max |dq'| {res['f64'][1]:.3e}, max |dlogp'| "
+            f"{res['f64'][2]:.3e}, {res['f64'][3]} chains at depth >= 7, max depth "
+            f"{res['f64'][4]}")
+
+
+def phase_k7h(lc, seed=14):
+    import torch
+    from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.kernels import gradient
+    from lightcurve_fitting_tpu_torch.parallel.hmc import hmc_transition_plain
+
+    dev = torch.device("cuda")
+    C, L = GRAD_CHAINS, GRAD_LEAPFROG
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    z = torch.randn((C, 4), generator=g, device=dev, dtype=torch.float64)
+    u_acc = torch.rand(C, generator=g, device=dev, dtype=torch.float64)
+    n_used = torch.randint((L + 1) // 2, L + 1, (C,), generator=g, device=dev)
+    eps = torch.tensor(0.1, dtype=torch.float64, device=dev)
+    inv_mass = torch.ones(4, dtype=torch.float64, device=dev)
+    res = {}
+    for label in ("f32", "f64"):
+        try:
+            if label == "f64":
+                config.set_compute_dtype(None)
+            target, w0 = whitened_flagship(lc, dev, C)
+            q0 = torch.as_tensor(w0, device=dev)
+            logp0 = target.logp_and_grad(q0)[0]
+            args = (q0, logp0, z, u_acc, n_used, eps, inv_mass, L)
+            got = gradient.hmc_transition(target, *args)
+            torch.cuda.synchronize()
+            full = hmc_transition_plain(target.logp_and_grad_plain, *args, margins=True)
+            over_k7 = hmc_transition_plain(target.logp_and_grad, *args, margins=True)
+            ref = full if label == "f64" else over_k7
+            cmp = compare_transitions(f"K7h {label}", got, ref[:3], ref[3:],
+                                      1e-6 if label == "f64" else 1e-3, 1e-8)
+            n_full = int(((got[0] - full[0]).abs() <= 1e-4).all(dim=1).sum())
+            evals = int((n_used + 1).sum())
+            res[label] = cmp + (n_full, float(got[2].mean()), evals)
+            if label == "f32":
+                k_ms = cuda_ms(lambda: gradient.hmc_transition(target, *args), repeats=5)
+                plain_ms = cuda_ms(lambda: gradient.hmc_transition_plain(target, *args),
+                                   repeats=1)
+                ops = evals * sc2_grad_ops(target.log_posterior.log_likelihood)
+                h_bound = bound_fields(ops, C * (4 * 8 * 3 + 8 * 4 + 8 * 2))
+        finally:
+            config.set_compute_dtype(config.AUTO)
+    phase("K7h", f"{C} whitened flagship chains, {L} leapfrogs jittered, eps 0.1, shared draws: "
+          f"f64 against the plain transition: {res['f64'][0]} near-ties, max |dq'| "
+          f"{res['f64'][1]:.3e}, max |dlogp'| {res['f64'][2]:.3e}; f32 against the plain "
+          f"transition over K7's float32 evaluations: {res['f32'][0]} near-ties, max |dq'| "
+          f"{res['f32'][1]:.3e}; f32 kernel within 1e-4 of the fully plain float32 transition at "
+          f"{res['f32'][3]} of {C} chains; mean accept probability {res['f32'][4]:.4f}, "
+          f"{res['f32'][5]} evaluations; K7h {k_ms:.4f} ms vs plain {plain_ms:.4f} ms per "
+          f"{C}-chain transition (f32), bound {h_bound['bound_ms']:.4f} ms "
+          f"({h_bound['bound_by']})")
+    return {"max_abs_err": res["f32"][1], "ms": k_ms, "plain_ms": plain_ms, **h_bound}
+
+
+def hmc_checks(result, name):
+    """tests/test_hmc.py:147-159's criteria on a lightcurve_hmc result."""
+    import numpy as np
+    from lightcurve_fitting_tpu_torch.parallel.diagnostics import split_rhat
+    flat = result.flatchain
+    med, std = np.median(flat, axis=0), flat.std(axis=0)
+    rhat = np.atleast_1d(split_rhat(result._chain))
+    fails = []
+    if not result.acceptance_fraction.mean() > 0.5:
+        fails.append("acceptance")
+    if not result.sampler.divergence_rate < 0.02:
+        fails.append("divergence rate")
+    for d in range(4):
+        if not abs(med[d] - TRUTH_MED[d]) < 3.0 * TRUTH_STD[d]:
+            fails.append(f"median {d}")
+        if not TRUTH_STD[d] / 1.6 < std[d] < TRUTH_STD[d] * 1.6:
+            fails.append(f"std {d}")
+    if not np.all(rhat < 1.2):
+        fails.append("split R-hat")
+    line = (f"{name}: medians {fmt(med)}, stds {fmt(std)}, split R-hat {fmt(rhat)}, acceptance "
+            f"{result.acceptance_fraction.mean():.4f}, divergence rate "
+            f"{result.sampler.divergence_rate:.4f}, mean tree depth "
+            f"{result.sampler.mean_tree_depth:.3f}, step size {result.step_size:.4g}")
+    return fails, line
+
+
+def gradient_time_split(prof, wall):
+    """Seconds of device time by part of lightcurve_hmc from a profiler run,
+    and the host's share."""
+    parts = {"NUTS transitions (K9)": 0.0, "warm start (K1, K2)": 0.0, "K7": 0.0, "draws": 0.0,
+             "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA":
+            continue
+        t = e.self_device_time_total / 1e6
+        k = e.key.lower()
+        if "nuts_transition" in k:
+            parts["NUTS transitions (K9)"] += t
+        elif "stretch_half_step" in k or "sc2_logpost_kernel" in k:
+            parts["warm start (K1, K2)"] += t
+        elif "logpost_grad" in k:
+            parts["K7"] += t
+        elif any(w in k for w in ("distribution", "random", "philox", "uniform", "normal")):
+            parts["draws"] += t
+        else:
+            parts["other"] += t
+    busy = sum(parts.values())
+    parts["host (device idle)"] = wall - busy
+    return parts, busy
+
+
+def phase_gradient_main_path(lc, smi):
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch import kernels
+    from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.fitting import (lightcurve_hmc, lightcurve_map,
+                                                      lightcurve_mcmc)
+    from lightcurve_fitting_tpu_torch.models import ShockCooling2
+
+    kernels.reset_launch_counts()
+    # (a) tests/test_map.py:82-104
+    t0 = time.perf_counter()
+    r = lightcurve_map(lc, ShockCooling2(lc), gauss_priors(), seed=0, quiet=True, device="cuda")
+    map_s = time.perf_counter() - t0
+    ok = all(abs(r.parameters[d] - TRUTH_MED[d]) < TRUTH_STD[d] for d in range(4)) \
+        and r.covariance_ok and list(r.at_bound) == [False, False, False, True] \
+        and all(TRUTH_STD[d] / 1.3 < r.stderr[d] < TRUTH_STD[d] * 1.3 for d in range(3)) \
+        and r.stderr[3] == 0.0 and r.flatchain.shape == (1000, 4) \
+        and np.ptp(r.flatchain[:, 3]) == 0.0 and np.isfinite(r.log_posterior)
+    if not ok:
+        raise AssertionError(f"20a: MAP {r.parameters}, stderr {r.stderr}, at_bound "
+                             f"{r.at_bound}, covariance_ok {r.covariance_ok}")
+    phase("gradient main path 20a", f"lightcurve_map SN 2016bkv seed 0 in {map_s:.3f} s: "
+          f"{fmt(r.parameters)} +- {fmt(r.stderr)}, at_bound {[bool(b) for b in r.at_bound]}, "
+          f"log-posterior "
+          f"{r.log_posterior:.4f} (test_map.py:92-104's criteria met)")
+    # (b) tests/test_map.py:59-79
+    s = lightcurve_mcmc(lc, ShockCooling2(lc), priors=gauss_priors(), p_lo=[20, 2, 20, 57468.4],
+                        p_up=[50, 5, 50, 57468.69], nwalkers=48, nsteps=100, nsteps_burnin=80,
+                        init="map", seed=1, quiet=True, device="cuda")
+    med, std = np.median(s.flatchain, axis=0), s.flatchain.std(axis=0)
+    if not all(abs(med[d] - TRUTH_MED[d]) < 4 * TRUTH_STD[d]
+               and TRUTH_STD[d] / 2 < std[d] < TRUTH_STD[d] * 2 for d in range(4)):
+        raise AssertionError(f"20b: medians {med}, stds {std}")
+    phase("gradient main path 20b", f"lightcurve_mcmc(init=\"map\") 48 walkers x 80+100 steps: "
+          f"medians {fmt(med)}, stds {fmt(std)} (test_map.py:73-79's criteria met)")
+    # (c) the default width, float32 (the default on the card) and float64
+    runs = {}
+    for label in ("f32", "f64"):
+        try:
+            if label == "f64":
+                config.set_compute_dtype(torch.float64)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = lightcurve_hmc(lc, ShockCooling2(lc), gauss_priors(), seed=3, quiet=True,
+                                 device="cuda")
+            torch.cuda.synchronize()
+            runs[label] = (res, time.perf_counter() - t0) + hmc_checks(res, label)
+        finally:
+            config.set_compute_dtype(config.AUTO)
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lightcurve_hmc(lc, ShockCooling2(lc), gauss_priors(), seed=3, quiet=True, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    parts, busy = gradient_time_split(prof, wall)
+    phase("gradient main path 20c", f"lightcurve_hmc NUTS 16 chains x 800+1000, max_depth 9, "
+          f"warm start 64 x 300, seed 3: float32 compute {runs['f32'][1]:.3f} s, {runs['f32'][3]}"
+          f", failed {runs['f32'][2] or 'none'}; float64 compute {runs['f64'][1]:.3f} s, "
+          f"{runs['f64'][3]}, failed {runs['f64'][2] or 'none'} (test_hmc.py:147-159's "
+          f"criteria; on {smi}); profiled float32 run {wall:.4f} s, device busy {busy:.4f} s "
+          f"(idle share {1 - busy / wall:.3f}): "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in parts.items()))
+    if runs["f32"][2]:
+        raise AssertionError(f"20c: the default (float32) run misses the criteria: "
+                             f"{runs['f32'][2]}")
+    # (d) fixed-length HMC, a short run
+    h = lightcurve_hmc(lc, ShockCooling2(lc), gauss_priors(), sampler="hmc", nchains=16,
+                       nsamples=100, n_warmup=150, seed=4, quiet=True, device="cuda")
+    launches = dict(kernels.LAUNCHES)
+    if not np.isfinite(h.flatchain).all() or h.flatchain.shape != (1600, 4):
+        raise AssertionError("20d: bad HMC chain")
+    phase("gradient main path 20d", f"lightcurve_hmc(sampler=\"hmc\") 16 chains x 150+100, "
+          f"n_leapfrog 32: finite chain, acceptance {h.acceptance_fraction.mean():.4f}, step size "
+          f"{h.step_size:.4g}, medians {fmt(np.median(h.flatchain, axis=0))}; launches "
+          f"{launches}")
+    for k in GRAD_KERNELS:
+        if launches[k] == 0:
+            raise AssertionError(f"kernel {k} was not launched on the gradient path: {launches}")
+    return launches
+
 
 def main():
     try:
@@ -1498,6 +1967,10 @@ def main():
     k6a = phase_k6a(lc, lcf)
     k6b, k6c, k6d = phase_k6bcd(lc)
     launches_ladder = phase_ladder_main_path(lc, smi)
+    k7 = phase_k7(lc)
+    k9 = phase_k9(lc)
+    k7h = phase_k7h(lc)
+    launches_grad = phase_gradient_main_path(lc, smi)
     if any(m.startswith("jax") or m.startswith("lightcurve_fitting_tpu.") or
            m == "lightcurve_fitting_tpu" for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
@@ -1550,6 +2023,18 @@ def main():
              source="lightcurve_fitting_tpu_torch/kernels/csrc/ladder.cu",
              replaces="lightcurve_fitting_tpu/parallel/evidence.py:473",
              launches=launches_ladder["rung_block_terms"], **k6d),
+        dict(name="logpost_grad_kernel<SC2Model> (K7)", route="cuda",
+             source="lightcurve_fitting_tpu_torch/kernels/csrc/gradient.cuh",
+             replaces="lightcurve_fitting_tpu/parallel/nuts.py:102",
+             launches=launches_grad["logpost_grad"], **k7),
+        dict(name="nuts_transition_kernel<SC2Model> (K9)", route="cuda",
+             source="lightcurve_fitting_tpu_torch/kernels/csrc/gradient.cuh",
+             replaces="lightcurve_fitting_tpu/parallel/nuts.py:98",
+             launches=launches_grad["nuts_transition"], **k9),
+        dict(name="hmc_transition_kernel<SC2Model> (K7h)", route="cuda",
+             source="lightcurve_fitting_tpu_torch/kernels/csrc/gradient.cuh",
+             replaces="lightcurve_fitting_tpu/parallel/hmc.py:241",
+             launches=launches_grad["hmc_transition"], **k7h),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

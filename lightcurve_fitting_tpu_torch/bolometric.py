@@ -25,6 +25,7 @@ import numpy as np
 from scipy.optimize import curve_fit, OptimizeWarning
 
 from .core.constants import sigma_sb
+from .core.device import resolve_device
 from .filters import filtdict
 from .lightcurve import LC
 from .models.blackbody import planck_fast
@@ -367,11 +368,11 @@ def calculate_bolometric(lc, z=0.0, outpath=".", res=1.0, nwalkers=10, burnin_st
     """
     _refuse_unported(batch_mode, min_nfilt, save_corners, show, mesh)
     from .parallel.batched import (batched_blackbody_mcmc, batched_map_centers,
-                                   default_device, pack_epochs)
+                                   pack_epochs)
     if z:
         warnings.warn('The z keyword is deprecated. Include the redshift in `lc.meta["redshift"]` instead.')
     z = lc.meta.get("redshift", z)
-    dev = default_device(device)
+    dev = resolve_device(device)
 
     colors = list(colors) if colors is not None else []
     use_src = "source" in lc.colnames

@@ -13,6 +13,8 @@ below photometric uncertainty.
 pins a later CUDA call to float64 or the reverse.
 """
 
+import contextlib
+
 import torch
 
 AUTO = "auto"
@@ -35,3 +37,16 @@ def get_compute_dtype(device):
     if compute_dtype != AUTO:
         return compute_dtype
     return torch.float32 if torch.device(device).type == "cuda" else None
+
+
+@contextlib.contextmanager
+def override(dtype):
+    """Set the compute dtype inside a ``with`` block, restoring the previous
+    setting after it (used to build a float64 twin of a log-posterior)."""
+    global compute_dtype
+    previous = compute_dtype
+    set_compute_dtype(dtype)
+    try:
+        yield
+    finally:
+        compute_dtype = previous

@@ -1,18 +1,22 @@
-"""Model-fit drivers: the ensemble-MCMC fit, the Bayesian evidence, parallel
+"""Model-fit drivers: the ensemble-MCMC fit, the gradient fits (MAP with
+Laplace uncertainties, NUTS and HMC), the Bayesian evidence, parallel
 tempering and the evidence comparison of models.
 
 Covers ``lightcurve_fitting_tpu/fitting.py``'s ``make_log_posterior`` and
 ``lightcurve_mcmc`` (reference fitting.py:16-168) with its setup helpers,
-and its tempered-ladder drivers ``lightcurve_evidence``,
-``lightcurve_ptmcmc`` and ``compare_models``. The log-posterior is an
-``nn.Module`` (:class:`LogPosterior`) over a leading walker axis; on a CUDA
-device a fit runs through the fused kernels of its model (``kernels/``: K1
-and K2 for ShockCooling2, the SC3 log-posterior and half-step over K3 for
-ShockCooling3, the K6 ladder kernels over either), on the CPU through their
-plain PyTorch versions.
+its gradient drivers ``lightcurve_map`` and ``lightcurve_hmc``, and its
+tempered-ladder drivers ``lightcurve_evidence``, ``lightcurve_ptmcmc`` and
+``compare_models``. The log-posterior is an ``nn.Module``
+(:class:`LogPosterior`) over a leading walker axis; on a CUDA device a fit
+runs through the fused kernels of its model (``kernels/``: K1 and K2 for
+ShockCooling2, the SC3 log-posterior and half-step over K3 for
+ShockCooling3, the K6 ladder kernels over either, and on the gradient path
+K7, K9 and K7h for ShockCooling2), on the CPU through their plain PyTorch
+versions. Every entry point runs on CUDA unless it is given
+``device="cpu"``, and raises where CUDA is missing.
 
-The HMC, MAP, goodness-of-fit and plotting drivers of the JAX module wait
-for ROADMAP Queue 1 items 11, 14, 15 and 18.
+The goodness-of-fit and plotting drivers of the JAX module wait for ROADMAP
+Queue 1 items 15 and 18.
 """
 
 import warnings
@@ -21,19 +25,17 @@ import numpy as np
 import torch
 from torch import nn
 
-from .models import GaussianPrior, LogUniformPrior, UniformPrior
+from .core import config
+from .core.device import resolve_device
+from .models import GaussianPrior, KDEPrior, LogUniformPrior, UniformPrior
 from .parallel.sampler import EnsembleSampler
 from .utils import units as u
 
-__all__ = ["lightcurve_mcmc", "make_log_posterior", "LogPosterior", "lightcurve_evidence",
-           "lightcurve_ptmcmc", "compare_models"]
+__all__ = ["lightcurve_mcmc", "lightcurve_map", "lightcurve_hmc", "make_log_posterior",
+           "LogPosterior", "lightcurve_evidence", "lightcurve_ptmcmc", "compare_models"]
 
 PRIOR_WARNING = "The p_max/p_min keywords are deprecated. Use the priors keyword instead."
 MODEL_KWARGS_WARNING = "The model_kwargs keyword is deprecated. These are now included in the model intialization."
-
-
-def _default_device():
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 class LogPosterior(nn.Module):
@@ -42,8 +44,10 @@ class LogPosterior(nn.Module):
     (reference fitting.py:121-128, without the Python early-exit).
 
     On a CUDA tensor ``forward`` launches the fused log-posterior kernel
-    of the model (ShockCooling2 or ShockCooling3; any other model raises);
-    on a CPU tensor it runs :meth:`forward_plain`."""
+    of the model (ShockCooling2 or ShockCooling3; any other model raises),
+    and, when the tensor requires a gradient, K7 (ShockCooling2), whose
+    gradient the backward returns; on a CPU tensor it runs
+    :meth:`forward_plain`."""
 
     def __init__(self, log_likelihood, priors):
         super().__init__()
@@ -75,17 +79,62 @@ class LogPosterior(nn.Module):
                           torch.full_like(log_prior, -torch.inf))
         return out[0] if squeeze else out
 
+    def grad_term_scales(self, p):
+        """(W, ndim) float64: for each walker and parameter, the summed
+        magnitudes of the per-point terms of the log-posterior's gradient
+        (every point's residual term and every prior), by forward-mode
+        differentiation of the plain version, non-finite terms counted as 0.
+        A gradient's rounding follows these terms, which cancel near an
+        optimum, not their sum: the scale K7's tolerances are stated in."""
+        from torch.func import jvp
+        p = p.reshape(-1, p.shape[-1]).to(torch.float64)
+
+        def terms(x):
+            prior = torch.stack([prior(x[:, i]) for i, prior in enumerate(self.priors)], dim=1)
+            return torch.cat([-0.5 * self.log_likelihood.residual_terms(x).double(), prior], dim=1)
+
+        cols = []
+        for k in range(p.shape[1]):
+            tangent = torch.zeros_like(p)
+            tangent[:, k] = 1.0
+            _, d = jvp(terms, (p,), (tangent,))
+            cols.append(torch.nan_to_num(d.abs(), nan=0.0, posinf=0.0).sum(dim=1))
+        return torch.stack(cols, dim=1)
+
     def forward(self, p):
         from . import kernels
         squeeze = p.ndim == 1
-        out = kernels.log_posterior(self, p.reshape(-1, p.shape[-1]).contiguous())
+        p2 = p.reshape(-1, p.shape[-1]).contiguous()
+        if p2.device.type == "cuda" and p2.requires_grad and torch.is_grad_enabled():
+            out = _LogPosteriorK7.apply(p2.to(torch.float64), self)
+        else:
+            out = kernels.log_posterior(self, p2)
         return out[0] if squeeze else out
+
+
+class _LogPosteriorK7(torch.autograd.Function):
+    """LogPosterior.forward on a CUDA tensor that requires a gradient: K7
+    gives the value and the (masked) gradient in one launch, and the
+    backward scales the saved gradient."""
+
+    @staticmethod
+    def forward(ctx, p, lp):
+        from . import kernels
+        val, grad = kernels.log_posterior_and_grad(lp, p)
+        ctx.save_for_backward(grad)
+        return val
+
+    @staticmethod
+    def backward(ctx, g_out):
+        grad, = ctx.saved_tensors
+        return g_out[:, None] * grad, None
 
 
 def make_log_posterior(model, lc, priors, use_sigma=False, sigma_type="relative", device=None):
     """Build the :class:`LogPosterior` of ``model`` on ``lc`` with its
-    buffers on ``device`` (default: CUDA when available, else the CPU)."""
-    device = torch.device(device) if device is not None else _default_device()
+    buffers on ``device`` (default: CUDA; without it RuntimeError, see
+    ``core.device.resolve_device``)."""
+    device = resolve_device(device)
     ll = model.make_log_likelihood(lc, use_sigma=use_sigma, sigma_type=sigma_type,
                                    device=device)
     return LogPosterior(ll, priors)
@@ -233,7 +282,8 @@ def lightcurve_mcmc(lc, model, priors=None, p_min=None, p_max=None, p_lo=None, p
 
     Same signature and behavior as ``lightcurve_fitting_tpu.fitting.
     lightcurve_mcmc`` (reference fitting.py:16-168), plus ``device``
-    (default: ``"cuda"`` when available, else ``"cpu"``). On CUDA every
+    (default ``"cuda"``; without CUDA it raises: pass ``"cpu"`` for the plain
+    versions). On CUDA every
     half-step is one launch of the model's fused half-step kernel (K2 for
     ShockCooling2, its SC3 instantiation for ShockCooling3; other models
     raise) and the walker state is float32 over the rescaled init window
@@ -242,14 +292,16 @@ def lightcurve_mcmc(lc, model, priors=None, p_min=None, p_max=None, p_lo=None, p
 
     * ``seed`` makes the chains reproducible: the draws of global step i
       depend only on (seed, i), so progress segments do not change the chain;
+    * ``init="map"`` seeds the walkers from the Laplace approximation at the
+      MAP (:func:`lightcurve_map`, through K7 on CUDA), parameters pinned at
+      a prior bound jittered into a thin band inside it;
     * ``quiet=False`` prints acceptance + autocorrelation/ESS after the
       production run. The JAX driver's goodness-of-fit print is not called
       here (ROADMAP Queue 1 item 15).
 
     Not ported yet, and refused with ``NotImplementedError``: ``replicas > 1``
     (ROADMAP Queue 1 item 4), ``mesh`` and ``shard=True`` (item 17),
-    ``init="map"`` (item 11), ``checkpoint_every``, ``checkpoint_file`` and
-    ``resume_from`` (item 16).
+    ``checkpoint_every``, ``checkpoint_file`` and ``resume_from`` (item 16).
 
     Returns an :class:`~lightcurve_fitting_tpu_torch.parallel.sampler.EnsembleSampler`
     exposing the emcee attributes the reference workflow uses (``flatchain``,
@@ -260,11 +312,9 @@ def lightcurve_mcmc(lc, model, priors=None, p_min=None, p_max=None, p_lo=None, p
     if checkpoint_every is not None or checkpoint_file is not None or resume_from is not None:
         raise NotImplementedError("checkpoint/resume is not ported yet "
                                   "(ROADMAP Queue 1 item 16)")
-    if init == "map":
-        raise NotImplementedError('init="map" is not ported yet (ROADMAP Queue 1 item 11)')
-    if init != "window":
+    if init not in ("window", "map"):
         raise ValueError('init must be "window" or "map"')
-    device = torch.device(device) if device is not None else _default_device()
+    device = resolve_device(device)
 
     _derive_fit_columns(lc, model)
     _ensure_sigma_param(model, use_sigma)
@@ -287,7 +337,12 @@ def lightcurve_mcmc(lc, model, priors=None, p_min=None, p_max=None, p_lo=None, p
                               device=device)
 
     rng = np.random.RandomState(seed) if seed is not None else np.random
-    starting_guesses = rng.rand(sampler.total_walkers, ndim) * (p_up - p_lo) + p_lo
+    if init == "map":
+        starting_guesses = _laplace_starting_guesses(lc, model, priors, p_lo, p_up,
+                                                     sampler.total_walkers, use_sigma, sigma_type,
+                                                     seed, quiet, rng, device)
+    else:
+        starting_guesses = rng.rand(sampler.total_walkers, ndim) * (p_up - p_lo) + p_lo
 
     if nsteps_burnin > 0:
         sampler.run_mcmc(starting_guesses, nsteps_burnin, progress=not quiet,
@@ -327,6 +382,271 @@ def lightcurve_mcmc(lc, model, priors=None, p_min=None, p_max=None, p_lo=None, p
             plt.show()
 
     return sampler
+
+
+# --------------------------------------------------------------------------
+# gradient drivers: MAP + Laplace, NUTS and HMC (no reference counterpart:
+# the reference's numpy models are not differentiable)
+# --------------------------------------------------------------------------
+
+def _refuse_gradient_unported(priors, mesh=None, checkpoint_every=None, checkpoint_file=None,
+                              resume_from=None):
+    """The gradient drivers' options the port does not have yet raise
+    NotImplementedError."""
+    if mesh is not None:
+        raise NotImplementedError("sharding the gradient fits over a device mesh is not ported "
+                                  "yet (ROADMAP Queue 1 item 17)")
+    if checkpoint_every is not None or checkpoint_file is not None or resume_from is not None:
+        raise NotImplementedError("checkpoint/resume of the gradient fits is not ported yet "
+                                  "(ROADMAP Queue 1 item 16)")
+    if any(isinstance(p, KDEPrior) for p in priors):
+        raise NotImplementedError("KDEPrior is not ported yet (ROADMAP Queue 1 item 9)")
+
+
+def _gradient_setup(lc, model, priors, use_sigma, sigma_type, device):
+    """The fit columns, the sigma parameter and the LogPosterior of a
+    gradient driver on ``device``; on CUDA the model must have the gradient
+    kernels (ShockCooling2)."""
+    _derive_fit_columns(lc, model)
+    _ensure_sigma_param(model, use_sigma)
+    ndim = model.nparams
+    if len(priors) != ndim:
+        raise Exception("priors must have length {:d}".format(ndim))
+    log_posterior = make_log_posterior(model, lc, priors, use_sigma, sigma_type, device=device)
+    if device.type == "cuda":
+        from .kernels.gradient import check_model
+        check_model(log_posterior)
+    return ndim, log_posterior
+
+
+def _bounds_of(priors):
+    from .parallel.hmc import BoundsTransform
+    return BoundsTransform([getattr(p, "p_min", -np.inf) for p in priors],
+                           [getattr(p, "p_max", np.inf) for p in priors])
+
+
+class _HMCFitResult:
+    """HMC or NUTS chains mapped back to the model's parameter space, with
+    the sampler surface the rest of the workflow expects (``flatchain``,
+    ``chain``, ``acceptance_fraction``)."""
+
+    def __init__(self, hmc, x_chain):
+        self.sampler = hmc              # the raw whitened-space sampler
+        self._chain = x_chain           # (nsteps, nchains, ndim), x-space
+        self.step_size = hmc.step_size
+        self.acceptance_fraction = hmc.acceptance_fraction
+
+    @property
+    def chain(self):
+        return np.swapaxes(self._chain, 0, 1)
+
+    @property
+    def flatchain(self):
+        return self._chain.reshape(-1, self._chain.shape[-1])
+
+
+def lightcurve_hmc(lc, model, priors, p_lo=None, p_up=None, nchains=16, nsamples=1000,
+                   n_warmup=800, sampler="nuts", max_depth=9, n_leapfrog=32, use_sigma=False,
+                   sigma_type="relative", seed=None, warmup_walkers=64, warmup_steps=300,
+                   save_sampler_as="", quiet=False, mesh=None, checkpoint_every=None,
+                   checkpoint_file=None, resume_from=None, device=None):
+    """One-call gradient-based fit of a light-curve model (NUTS by default),
+    the JAX package's ``lightcurve_hmc`` with the same signature plus
+    ``device`` (default ``"cuda"``, raising without it):
+
+    1. a stretch-move ensemble of ``warmup_walkers`` x ``warmup_steps``
+       (K1/K2 on CUDA) locates the typical set;
+    2. the prior box is removed by the sigmoid/exp bijection
+       (:class:`~.parallel.hmc.BoundsTransform`, with its log-Jacobian);
+    3. the warm samples' covariance whitens the unbounded space
+       (:class:`~.parallel.hmc.WhitenedPosterior`);
+    4. ``sampler="nuts"`` runs NUTS in the whitened space (one K9 launch a
+       transition on CUDA), ``sampler="hmc"`` fixed-budget HMC with
+       jittered ``n_leapfrog`` trajectories (one K7h launch a transition);
+    5. the chains are mapped back through both bijections.
+
+    On CUDA the model must be ShockCooling2 (the gradient kernels); on the
+    CPU any model runs the plain versions. The compute dtype is the
+    configured one (``core.config``; AUTO gives float32 on CUDA). Not ported
+    yet, and refused with NotImplementedError: ``mesh`` (ROADMAP Queue 1 item
+    17), ``checkpoint_every``, ``checkpoint_file`` and ``resume_from`` (item
+    16), a KDEPrior (item 9); the goodness-of-fit print after the fit is not
+    called here (item 15).
+
+    Returns a :class:`_HMCFitResult`.
+    """
+    from .parallel.hmc import HMCSampler, WhitenedLogPosterior, WhitenedPosterior
+    from .parallel.nuts import NUTSSampler
+    _refuse_gradient_unported(priors, mesh, checkpoint_every, checkpoint_file, resume_from)
+    device = resolve_device(device)
+    if sampler not in ("nuts", "hmc"):
+        raise ValueError('sampler must be "nuts" or "hmc"')
+    ndim, log_posterior = _gradient_setup(lc, model, priors, use_sigma, sigma_type, device)
+    bounds = _bounds_of(priors)
+    lo, up = _hmc_init_window(priors, p_lo, p_up, ndim)
+
+    # ensemble warm start: typical-set location + covariance + seeds
+    rng = np.random.RandomState(seed) if seed is not None else np.random
+    warm = EnsembleSampler(warmup_walkers, ndim, log_posterior, seed=seed, device=device)
+    guesses = rng.rand(warmup_walkers, ndim) * (up - lo) + lo
+    warm.run_mcmc(guesses, warmup_steps, progress=not quiet,
+                  progress_kwargs={"desc": " HMC warm start"})
+    warm_flat = warm.get_chain(flat=True, discard=warmup_steps // 2)
+    warm_logp = warm.get_log_prob(flat=True, discard=warmup_steps // 2)
+    warm_u = bounds.to_unbounded(warm_flat)
+    white = WhitenedPosterior(warm_u)
+    # seed chains from the warm draws already inside the typical set
+    good = np.flatnonzero(warm_logp >= np.median(warm_logp))
+    seeds = good[rng.choice(good.size, nchains, replace=good.size < nchains)]
+    target = WhitenedLogPosterior(log_posterior, bounds, white)
+    if sampler == "nuts":
+        engine = NUTSSampler(nchains, ndim, target, max_depth=max_depth, seed=seed,
+                             device=device)
+    else:
+        engine = HMCSampler(nchains, ndim, target, n_leapfrog=n_leapfrog, seed=seed,
+                            device=device)
+    engine.run_mcmc(white.to_w(warm_u[seeds]), nsamples, n_warmup=n_warmup)
+
+    u_chain = white.u_from_w_chain(engine._chain)
+    x_chain = bounds.to_bounded(torch.as_tensor(u_chain)).numpy()
+    result = _HMCFitResult(engine, x_chain)
+    if save_sampler_as:
+        np.save(save_sampler_as, result.flatchain)
+        print("saving sampler.flatchain as " + save_sampler_as)
+    if not quiet:
+        from .parallel.diagnostics import rank_normalized_split_rhat
+        extra = ""
+        if sampler == "nuts":
+            extra = (f", mean tree depth {engine.mean_tree_depth:.1f}, "
+                     f"divergence rate {engine.divergence_rate:.3f}")
+        print(f"{sampler.upper()}: step size {engine.step_size:.3g}, mean acceptance "
+              f"{float(engine.acceptance_fraction.mean()):.3f}{extra}")
+        rhat = rank_normalized_split_rhat(x_chain)
+        for name, r in zip(model.input_names, np.atleast_1d(rhat)):
+            print(f"  {name}: rank-normalized R-hat = {r:.3f}  (independent chains)")
+    return result
+
+
+def _laplace_starting_guesses(lc, model, priors, p_lo, p_up, n_walkers, use_sigma, sigma_type,
+                              seed, quiet, rng, device=None):
+    """Walker starting positions drawn from the Laplace approximation at the
+    MAP (``init="map"``). Draws outside the prior support, and parameters
+    pinned at a bound (zero Laplace variance), are jittered uniformly into a
+    thin band just inside the bound so every dimension keeps nonzero spread."""
+    result = lightcurve_map(lc, model, priors, p_lo=p_lo, p_up=p_up, use_sigma=use_sigma,
+                            sigma_type=sigma_type, seed=seed, nsamples=n_walkers, quiet=quiet,
+                            device=device)
+    draws = result.flatchain[:n_walkers].copy()
+    lo_s = np.array([getattr(p, "p_min", -np.inf) for p in priors])
+    up_s = np.array([getattr(p, "p_max", np.inf) for p in priors])
+    width = np.where(np.isfinite(up_s - lo_s), up_s - lo_s,
+                     np.maximum(np.abs(result.parameters), 1.0))
+    band = 1e-3 * width
+    jitter = rng.rand(*draws.shape)
+    # pinned columns carry zero Laplace variance: spread them through the
+    # thin band just inside their bound (which bound: the one the MAP sits on)
+    pin_up = result.at_bound & (up_s - result.parameters < result.parameters - lo_s)
+    low_viol = (draws <= lo_s) | (result.at_bound & ~pin_up)
+    up_viol = (draws >= up_s) | pin_up
+    draws = np.where(low_viol, lo_s + band * jitter, draws)
+    draws = np.where(up_viol, up_s - band * jitter, draws)
+    return draws
+
+
+class _MAPFitResult:
+    """MAP point estimate plus its Laplace approximation, with the same
+    ``flatchain`` surface as the samplers.
+
+    Attributes: ``parameters`` (ndim,), ``log_posterior`` (float at the
+    mode), ``covariance`` (ndim, ndim), ``stderr`` (ndim,), ``at_bound``
+    (bool mask: parameter pinned against a prior bound; its stderr is 0 and
+    the curvature of the others is conditional on the pinned value),
+    ``covariance_ok`` (False when the free-parameter curvature is not
+    positive definite) and ``flatchain``: Gaussian draws from the Laplace
+    approximation, pinned parameters held at the bound."""
+
+    def __init__(self, parameters, log_posterior, covariance, covariance_ok, at_bound, nsamples,
+                 seed):
+        self.parameters = parameters
+        self.log_posterior = log_posterior
+        self.covariance = covariance
+        self.covariance_ok = covariance_ok
+        self.at_bound = at_bound
+        self.stderr = np.sqrt(np.maximum(np.diag(covariance), 0.0))
+        rng = np.random.default_rng(seed)
+        self.flatchain = rng.multivariate_normal(parameters, covariance, size=nsamples,
+                                                 method="eigh")
+
+
+def lightcurve_map(lc, model, priors, p_lo=None, p_up=None, n_starts=64, n_iter=1000,
+                   learning_rate=0.05, use_sigma=False, sigma_type="relative", seed=None,
+                   nsamples=1000, quiet=False, device=None):
+    """One-call maximum-a-posteriori fit with Laplace uncertainties, the JAX
+    package's ``lightcurve_map`` with the same signature plus ``device``
+    (default ``"cuda"``, raising without it).
+
+    A multi-start Adam ascent of the log-posterior in the unbounded space of
+    the prior box (each iteration's value and gradient one K7 launch on
+    CUDA), a parameter pinned against a prior bound detected from the sign
+    of K7's gradient there, and the curvature of the free parameters at the
+    mode inverted into a covariance: the Hessian by central differences of
+    K7's float64 gradient (a float64 twin of the log-posterior when the
+    compute dtype is float32). On CUDA the model must be ShockCooling2.
+    KDEPrior raises NotImplementedError (ROADMAP Queue 1 item 9); the
+    goodness-of-fit print after the fit is not called here (item 15).
+
+    Returns a :class:`_MAPFitResult`; ``result.flatchain`` holds the Laplace
+    draws.
+    """
+    from . import kernels
+    from .parallel.optimize import laplace_covariance, multistart_maximize
+    _refuse_gradient_unported(priors)
+    device = resolve_device(device)
+    ndim, log_posterior = _gradient_setup(lc, model, priors, use_sigma, sigma_type, device)
+    lo, up = _hmc_init_window(priors, p_lo, p_up, ndim)
+    bounds = _bounds_of(priors)
+
+    rng = np.random.default_rng(seed)
+    x0 = rng.uniform(lo, up, size=(n_starts, ndim))
+    u0 = torch.as_tensor(bounds.to_unbounded(x0), device=device)
+    u_fin, logp_fin = multistart_maximize(lambda u: log_posterior(bounds.to_bounded(u)), u0,
+                                          n_iter=n_iter, learning_rate=learning_rate)
+    logp_fin = logp_fin.cpu().numpy()
+    if not np.isfinite(logp_fin).any():
+        raise RuntimeError("no optimizer start reached finite posterior "
+                           "probability; widen p_lo/p_up or check the priors")
+    best = int(np.nanargmax(np.where(np.isfinite(logp_fin), logp_fin, -np.inf)))
+    x_best = bounds.to_bounded(u_fin[best])
+    x_map = x_best.cpu().numpy()
+
+    # a parameter sits ON a prior bound when the iterate is within 1e-3 of it
+    # in scaled units AND the gradient still pushes outward (fitting.py:714-726
+    # of the JAX package); Laplace then runs conditional on the pinned values
+    g_map = kernels.log_posterior_and_grad(log_posterior, x_best[None])[1][0].cpu().numpy()
+    scale = np.where(bounds.two_sided, bounds.upper - bounds.lower,
+                     np.maximum(np.abs(x_map), 1.0))
+    near_lo = np.isfinite(bounds.lower) & (x_map - bounds.lower < 1e-3 * scale)
+    near_up = np.isfinite(bounds.upper) & (bounds.upper - x_map < 1e-3 * scale)
+    at_bound = (near_lo & (g_map < 0)) | (near_up & (g_map > 0))
+    if log_posterior.log_likelihood.compute_dtype == torch.float64:
+        lp64 = log_posterior
+    else:
+        with config.override(torch.float64):
+            lp64 = make_log_posterior(model, lc, priors, use_sigma, sigma_type, device=device)
+    cov, ok = laplace_covariance(lp64, x_map, free=~at_bound)
+    result = _MAPFitResult(x_map, float(logp_fin[best]), cov, ok, at_bound, nsamples, seed)
+    if not quiet:
+        spread = logp_fin[np.isfinite(logp_fin)]
+        print(f"MAP: log-posterior {result.log_posterior:.2f} "
+              f"({(spread >= spread.max() - 1.0).sum()}/{n_starts} starts "
+              f"within 1 nat of the best)")
+        if not ok:
+            print("  curvature not positive definite (ridge saddle): "
+                  "stderr values are order-of-magnitude only")
+        for name, val, err, pinned in zip(model.input_names, x_map, result.stderr, at_bound):
+            note = "  (at prior bound)" if pinned else ""
+            print(f"  {name} = {val:.6g} +/- {err:.2g}{note}")
+    return result
 
 
 # --------------------------------------------------------------------------
@@ -457,8 +777,8 @@ def lightcurve_evidence(lc, model, priors, p_lo=None, p_up=None, nwalkers=64, n_
     of (n_rungs + 1) x nwalkers walkers, not n_rungs fits.
 
     Same signature and behavior as ``lightcurve_fitting_tpu.fitting.
-    lightcurve_evidence``, plus ``device`` (default: ``"cuda"`` when
-    available, else ``"cpu"``); on CUDA the model must be ShockCooling2 or
+    lightcurve_evidence``, plus ``device`` (default ``"cuda"``, raising
+    without it); on CUDA the model must be ShockCooling2 or
     ShockCooling3 (the models with kernels). Differences in the returned
     ``log_z`` between models are log Bayes factors, given those priors.
 
@@ -471,7 +791,7 @@ def lightcurve_evidence(lc, model, priors, p_lo=None, p_up=None, nwalkers=64, n_
     """
     from .parallel.evidence import refuse_unported, stepping_stone_evidence
     refuse_unported(mesh, checkpoint_every, checkpoint_file, resume_from)
-    device = torch.device(device) if device is not None else _default_device()
+    device = resolve_device(device)
     priors, log_likelihood, p0, state_kw = _tempered_setup(
         lc, model, priors, p_lo, p_up, nwalkers, use_sigma, sigma_type, seed, state_dtype,
         device)
@@ -636,7 +956,7 @@ def lightcurve_ptmcmc(lc, model, priors, p_lo=None, p_up=None, nwalkers=64, n_ru
     """
     from .parallel.evidence import refuse_unported, stepping_stone_evidence
     refuse_unported(mesh, checkpoint_every, checkpoint_file, resume_from)
-    device = torch.device(device) if device is not None else _default_device()
+    device = resolve_device(device)
     priors, log_likelihood, p0, state_kw = _tempered_setup(
         lc, model, priors, p_lo, p_up, nwalkers, use_sigma, sigma_type, seed, state_dtype,
         device)

@@ -12,7 +12,8 @@ from .core import config
 from .models.base import LogLikelihood
 from .models import priors as _priors
 
-__all__ = ["log_likelihood_from_numpy", "priors_from_jax", "walkers_from_numpy"]
+__all__ = ["log_likelihood_from_numpy", "priors_from_jax", "walkers_from_numpy",
+           "bounds_from_jax", "whitening_from_jax", "adaptation_from_jax"]
 
 
 def log_likelihood_from_numpy(quad, t, y, dy, use_sigma=False, sigma_type="relative",
@@ -77,3 +78,27 @@ def walkers_from_numpy(pos, logp, offset=None, scale=None, device="cpu"):
     x = torch.tensor(pos.reshape(2, half, ndim), device=device).to(dtype)
     lp = torch.tensor(np.array(logp, float).reshape(2, half), device=device)
     return x, lp
+
+
+def bounds_from_jax(bounds):
+    """The port's BoundsTransform with the bounds of a JAX package
+    ``BoundsTransform``."""
+    from .parallel.hmc import BoundsTransform
+    return BoundsTransform(np.asarray(bounds.lower, float), np.asarray(bounds.upper, float))
+
+
+def whitening_from_jax(white):
+    """The port's WhitenedPosterior with the (mean, Cholesky factor) of a JAX
+    package ``WhitenedPosterior``, bit for bit."""
+    from .parallel.hmc import WhitenedPosterior
+    return WhitenedPosterior.from_moments(np.asarray(white.mean, float),
+                                          np.asarray(white.L, float))
+
+
+def adaptation_from_jax(jax_sampler, sampler):
+    """Copy the adapted ``step_size`` and ``inv_mass`` of a JAX package
+    ``NUTSSampler`` or ``HMCSampler`` into the port's ``sampler``, so that a
+    continuation (``run_mcmc(..., n_warmup=0)``) samples with them."""
+    sampler.step_size = float(jax_sampler.step_size)
+    sampler.inv_mass = np.asarray(jax_sampler.inv_mass, float).copy()
+    return sampler

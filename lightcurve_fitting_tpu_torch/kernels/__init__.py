@@ -14,21 +14,28 @@ and their plain PyTorch versions.
   tempered ladder: its half-step and initial state (templates instantiated
   for ShockCooling2 and ShockCooling3 in their sources), the replica
   exchange and the stepping-stone block terms.
+* ``csrc/gradient.cuh`` (:mod:`.sc2` for K7, :mod:`.gradient` for K9 and
+  K7h): the gradient path over ShockCooling2, templates instantiated in
+  ``sc2_logpost.cu``: K7, the log-posterior and its gradient (one warp per
+  walker), K9, the NUTS transition, and K7h, the HMC transition, both in
+  the whitened space of the gradient samplers.
 * ``csrc/stretch.cuh``: the half-step template and the device code they
   share, ``csrc/planck.cuh`` the Planck band sum of K3, K4 and K4s;
   :mod:`.common` their Python side and the plain stretch move.
 
 :mod:`.build` compiles the sources with nvcc at first use. Importing this
 package needs neither nvcc nor a GPU. :func:`log_posterior` and
-:func:`stretch_half_step` route a LogPosterior to its model's kernels.
+:func:`stretch_half_step` route a LogPosterior to its model's kernels,
+:func:`log_posterior_and_grad` to K7.
 """
 
-from . import epoch_bb, ladder, quantile, sc2, sc3  # noqa: F401
+from . import epoch_bb, gradient, ladder, quantile, sc2, sc3  # noqa: F401
 from .common import (LAUNCHES, reset_launch_counts, log_posterior_plain,  # noqa: F401
                      stretch_half_step_plain)
+from .gradient import hmc_transition, nuts_transition  # noqa: F401
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "module_for", "log_posterior",
-           "stretch_half_step"]
+           "stretch_half_step", "log_posterior_and_grad", "nuts_transition", "hmc_transition"]
 
 
 def module_for(model):
@@ -67,3 +74,13 @@ def stretch_half_step(lp, x, logp, h, u_z, j, u_acc, a=2.0, param_offset=None,
     return module_for(lp.log_likelihood.model).stretch_half_step(
         lp, x, logp, h, u_z, j, u_acc, a, param_offset, param_scale, chain_x, chain_logp,
         n_accept, check_partners)
+
+
+def log_posterior_and_grad(lp, p, white=None):
+    """(value (W,), masked gradient (W, ndim)) float64 of LogPosterior ``lp``
+    at the float64 rows ``p``, or in the whitened space of ``white`` (see
+    :func:`.sc2.log_posterior_and_grad`): the plain version for a CPU tensor,
+    else K7, which exists for ShockCooling2 only (any other model raises)."""
+    if p.device.type != "cpu":
+        gradient.check_model(lp)
+    return sc2.log_posterior_and_grad(lp, p, white)

@@ -1,7 +1,8 @@
 """What the kernel wrappers of :mod:`.sc2`, :mod:`.sc3`, :mod:`.epoch_bb`,
-:mod:`.quantile` and :mod:`.ladder` share: the launch counts, input checks, the parameter-block
-fields of the priors and the affine map, and the plain PyTorch stretch move
-(the plain version of every half-step kernel).
+:mod:`.quantile`, :mod:`.ladder` and :mod:`.gradient` share: the launch
+counts, input checks, the parameter-block fields of the priors and the
+affine map, and the plain PyTorch stretch move (the plain version of every
+half-step kernel).
 """
 
 import numpy as np
@@ -17,7 +18,8 @@ MAX_DIM = 8  # LP_MAX_DIM of csrc/stretch.cuh
 LAUNCHES = {"sc2_logpost": 0, "stretch_half_step": 0, "bandflux": 0, "sc3_logpost": 0,
             "sc3_half_step": 0, "epoch_logpost": 0, "epoch_logpost_grad": 0,
             "epoch_half_step": 0, "epoch_summary": 0, "percentile": 0,
-            "tempered_half_step": 0, "ladder_init": 0, "replica_swap": 0, "rung_block_terms": 0}
+            "tempered_half_step": 0, "ladder_init": 0, "replica_swap": 0, "rung_block_terms": 0,
+            "logpost_grad": 0, "nuts_transition": 0, "hmc_transition": 0}
 
 FLOATS = (torch.float32, torch.float64)
 

@@ -1,11 +1,15 @@
-"""Wrappers of the fused ShockCooling2 kernels, K1 and K2, with their plain
-PyTorch versions beside them.
+"""Wrappers of the fused ShockCooling2 kernels, K1, K2 and K7, with their
+plain PyTorch versions beside them.
 
 * :func:`log_posterior` (K1, ``sc2_logpost_kernel``): the log-posterior of a
   batch of walker states.
 * :func:`stretch_half_step` (K2, ``stretch_half_step_kernel`` over
   ``SC2Model``): one Goodman-Weare half-step of the ensemble, in place, with
   the proposal's log-posterior computed by the same device function as K1.
+* :func:`log_posterior_and_grad` (K7, ``logpost_grad_kernel`` of
+  ``csrc/gradient.cuh`` over ``SC2Model``): the log-posterior and its
+  gradient, one warp per walker, in the model's parameters or in the
+  whitened space of the gradient samplers.
 
 For a tensor on the CPU each wrapper runs its plain version
 (:func:`log_posterior_plain`, :func:`stretch_half_step_plain`). For a CUDA
@@ -23,7 +27,8 @@ from .common import (LAUNCHES, MAX_DIM, FLOATS, check, check_buffers, cuda_args,
                      stretch_half_step_plain, reset_launch_counts)
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "log_posterior", "log_posterior_plain",
-           "stretch_half_step", "stretch_half_step_plain", "propose_stretch", "half_update"]
+           "stretch_half_step", "stretch_half_step_plain", "propose_stretch", "half_update",
+           "log_posterior_and_grad", "log_posterior_and_grad_plain"]
 
 
 class _SC2Params(ctypes.Structure):
@@ -143,3 +148,53 @@ def stretch_half_step(lp, x, logp, h, u_z, j, u_acc, a=2.0, param_offset=None,
     if rc != 0:
         raise RuntimeError(f"stretch_half_step_kernel launch failed: cudaError {rc}")
     LAUNCHES["stretch_half_step"] += 1
+
+
+# ------------------------------------------------------------------------ K7
+
+def log_posterior_and_grad_plain(lp, p):
+    """Plain K7: the log-posterior (W,) float64 of LogPosterior ``lp`` at
+    absolute float64 parameters ``p`` (W, ndim) and its gradient (W, ndim),
+    by autograd through :meth:`LogPosterior.forward_plain`, masked as the JAX
+    callers mask ``jax.grad`` (non-finite components 0; all 0 where the
+    value is -inf)."""
+    from ..parallel.hmc import _autograd_value_and_grad
+    return _autograd_value_and_grad(lp.forward_plain, p.to(torch.float64))
+
+
+def log_posterior_and_grad(lp, p, white=None):
+    """K7: (value (W,), gradient (W, ndim)) float64 of LogPosterior ``lp`` at
+    the float64 rows ``p`` (W, ndim): the model's absolute parameters, or,
+    with ``white`` (a :class:`~..parallel.hmc.WhitenedLogPosterior` over
+    ``lp``), its whitened space. The gradient is masked as the JAX callers
+    mask it; in the whitened space the mask applies after the chain rule
+    (a NaN model derivative zeroes the whitened components it reaches). The
+    value is not bit-equal to K1's: the warp sums the points in another
+    order."""
+    if p.device.type == "cpu":
+        if white is not None:
+            return white.logp_and_grad_plain(p)
+        return log_posterior_and_grad_plain(lp, p)
+    if p.device.type != "cuda":
+        raise ValueError(f"K7 runs on CUDA (or its plain version on the CPU), not {p.device}")
+    if p.ndim != 2:
+        raise ValueError(f"p must be (W, ndim), got shape {tuple(p.shape)}")
+    W, ndim = p.shape
+    check(p, "p", (W, ndim), (torch.float64,), p.device)
+    check_buffers(lp.log_likelihood, _BUFFERS, p.device)
+    from .build import library
+    from .gradient import white_params
+    lib = library()
+    P = _kernel_params(lp, ndim, None, None)
+    T = white_params(white, ndim) if white is not None else None
+    val = torch.empty(W, dtype=torch.float64, device=p.device)
+    grad = torch.empty((W, ndim), dtype=torch.float64, device=p.device)
+    dev, stream = cuda_args(p.device)
+    rc = lib.sc2_logpost_grad_launch(ctypes.addressof(P), dev,
+                                     int(lp.log_likelihood.compute_dtype == torch.float64),
+                                     None if T is None else ctypes.addressof(T), p.data_ptr(), W,
+                                     val.data_ptr(), grad.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"logpost_grad_kernel launch failed: cudaError {rc}")
+    LAUNCHES["logpost_grad"] += 1
+    return val, grad

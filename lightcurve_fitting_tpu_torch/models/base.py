@@ -326,11 +326,10 @@ class LogLikelihood(nn.Module):
         return {"nodes": self.nodes[self.band_ids], "weights": self.weights[self.band_ids],
                 "k_ext": self.k_ext[self.band_ids], "band_ids": self.band_ids}
 
-    def forward(self, p):
-        """Plain torch log-likelihood of each row of ``p`` (W, ndim), the
-        band flux included on every device."""
-        squeeze = p.ndim == 1
-        p = p.reshape(-1, p.shape[-1])
+    def residual_terms(self, p):
+        """(W, N) per-point terms of the residual sum of the rows of ``p``
+        (W, ndim), in the compute dtype: ((y - y_fit) / dy)^2, or with the
+        intrinsic scatter log(2 pi sigma^2) + (y - y_fit)^2 / sigma^2."""
         n_model = p.shape[1] - (1 if self.use_sigma else 0)
         cdt = self.y.dtype
         y_fit = self.model._eval_points(self.t, self.quad,
@@ -341,9 +340,15 @@ class LogLikelihood(nn.Module):
         if self.use_sigma:
             sig = p[:, -1:].to(cdt)
             sigma2 = self.dy ** 2.0 + (sig * self.sigma_units) ** 2.0
-            ll = (-0.5 * torch.sum(torch.log(2 * np.pi * sigma2)
-                                   + (self.y - y_fit) ** 2.0 / sigma2, dim=-1) + self.offset)
-        else:
-            r = (self.y - y_fit) * self.inv_dy
-            ll = -0.5 * torch.sum(r * r, dim=-1) + self.log_norm_const
+            return torch.log(2 * np.pi * sigma2) + (self.y - y_fit) ** 2.0 / sigma2
+        r = (self.y - y_fit) * self.inv_dy
+        return r * r
+
+    def forward(self, p):
+        """Plain torch log-likelihood of each row of ``p`` (W, ndim), the
+        band flux included on every device."""
+        squeeze = p.ndim == 1
+        p = p.reshape(-1, p.shape[-1])
+        const = self.offset if self.use_sigma else self.log_norm_const
+        ll = -0.5 * torch.sum(self.residual_terms(p), dim=-1) + const
         return ll[0] if squeeze else ll

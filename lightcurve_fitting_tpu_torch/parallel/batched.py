@@ -20,6 +20,7 @@ agree with the JAX package in distribution, not path.
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..kernels import epoch_bb
 from ..models.base import intrinsic_scatter_units
 from ..models.blackbody import planck_lnu
@@ -32,12 +33,6 @@ from .sampler import _step_seed
 __all__ = ["pack_epochs", "EpochPosterior", "batched_blackbody_mcmc", "batched_map_centers"]
 
 SUMMARY_PERCENTILES = (16.0, 50.0, 84.0)
-
-
-def default_device(device):
-    """``device``, or CUDA when present and the CPU otherwise."""
-    return torch.device(device if device is not None else
-                        ("cuda" if torch.cuda.is_available() else "cpu"))
 
 
 def _no_mesh(mesh):
@@ -76,7 +71,7 @@ def pack_epochs(epochs, bank, z=0.0, device=None):
         nodes[e, nb:] = emitted[ids[0] if nb else 0][-1]
     yscale = np.array([np.median(np.abs(yy[np.abs(yy) > 0])) if np.any(yy != 0) else 1.0
                        for yy in y])
-    dev = default_device(device)
+    dev = resolve_device(device)
     return {name: torch.as_tensor(a, device=dev) for name, a in
             (("y", y), ("dy", dy), ("mask", mask), ("nodes", nodes), ("weights", weights),
              ("yscale", yscale))}

@@ -167,9 +167,10 @@ def _rung_block_terms(logl_samples, dbetas, boundaries):
 def _ladder_target(log_prior_fn, log_like_fn, device):
     """(target, device): a LogPosterior of the priors ``log_prior_fn`` and
     the LogLikelihood ``log_like_fn`` on the likelihood's device, or the pair
-    of callables on ``device`` (default: CUDA when available), which must be
+    of callables on ``device`` (default: CUDA, raising without it), which must be
     the CPU."""
-    from ..fitting import LogPosterior, _default_device
+    from ..core.device import resolve_device
+    from ..fitting import LogPosterior
     from ..models.base import LogLikelihood
     if isinstance(log_like_fn, LogLikelihood):
         if not isinstance(log_prior_fn, (list, tuple)):
@@ -178,7 +179,7 @@ def _ladder_target(log_prior_fn, log_like_fn, device):
         if device is not None and torch.device(device) != dev:
             raise ValueError(f"the LogLikelihood lies on {dev}, not {device}")
         return LogPosterior(log_like_fn, log_prior_fn), dev
-    dev = torch.device(device) if device is not None else _default_device()
+    dev = resolve_device(device)
     if dev.type != "cpu":
         raise NotImplementedError(
             "on CUDA the ladder runs the fused kernels of a model, which take its priors and "

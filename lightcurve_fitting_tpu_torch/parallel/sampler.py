@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..core.device import resolve_device
 from ..kernels.common import (absolute_params, half_update, propose_stretch,
                               stretch_half_step_plain)
 
@@ -111,8 +112,7 @@ class EnsembleSampler:
             raise ValueError("nwalkers must be even")
         if int(replicas) != 1:
             raise NotImplementedError("replicas > 1 is not ported yet (ROADMAP Queue 1 item 4)")
-        self.device = torch.device(device if device is not None else
-                                   ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = resolve_device(device)
         self._fused = isinstance(log_prob_fn, LogPosterior)
         if self.device.type == "cuda":
             if not self._fused:

@@ -104,10 +104,9 @@ def test_api_shapes_and_report(tlc, capsys):
     (dict(replicas=2), "item 4"),
     (dict(shard=True), "item 17"),
     (dict(mesh=object()), "item 17"),
-    (dict(init="map"), "item 11"),
     (dict(checkpoint_every=5, checkpoint_file="x.npz"), "item 16"),
     (dict(resume_from="x.npz"), "item 16"),
-])
+], ids=["kw0-item 4", "kw1-item 17", "kw2-item 17", "kw4-item 16", "kw5-item 16"])
 def test_unsupported_options_raise(tlc, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         lightcurve_mcmc(tlc, TSC2(tlc), priors=_tpriors(), p_lo=[20, 2, 20, 57468.5],

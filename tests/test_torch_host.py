@@ -130,3 +130,57 @@ def test_interop_log_likelihood_identical(both, use_sigma, sigma_type):
         assert getattr(own, attr) == getattr(via_jax, attr), attr
     with pytest.raises(ValueError):
         interop.log_likelihood_from_numpy(jq, *args, device="cpu", dtype=torch.float32)
+
+
+@pytest.mark.parametrize("fn", ["split_rhat", "rank_normalized_split_rhat",
+                                "effective_sample_size", "summarize_chain"])
+def test_diagnostics_identical(fn):
+    """The port's copy of parallel/diagnostics.py gives the JAX package's
+    results bit for bit on random chains, ties and a pinned column
+    included."""
+    from lightcurve_fitting_tpu.parallel import diagnostics as jdiag
+    from lightcurve_fitting_tpu_torch.parallel import diagnostics as tdiag
+    rng = np.random.default_rng(5)
+    chain = rng.normal(size=(301, 6, 4)).cumsum(axis=0) * [1.0, 0.1, 3.0, 1.0]
+    chain[:, :, 3] = np.round(chain[:, :, 3])      # rank ties
+    chain[:, 2, 1] = 0.5                           # one pinned chain
+    got, want = getattr(tdiag, fn)(chain), getattr(jdiag, fn)(chain)
+    if fn == "summarize_chain":
+        assert got == want
+    else:
+        assert np.array_equal(got, want, equal_nan=True)
+
+
+@pytest.mark.parametrize("entry", ["make_log_posterior", "lightcurve_mcmc", "lightcurve_map",
+                                   "lightcurve_hmc", "lightcurve_evidence",
+                                   "calculate_bolometric"])
+def test_entry_points_refuse_the_cpu_without_being_asked(both, monkeypatch, entry):
+    """device=None means CUDA: with no CUDA every entry-point family raises
+    (and names device="cpu") instead of running the plain versions."""
+    from lightcurve_fitting_tpu_torch import bolometric, fitting
+    from lightcurve_fitting_tpu_torch.core.device import resolve_device
+    from lightcurve_fitting_tpu_torch.models import UniformPrior
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (_, _), (t_lc, t_early) = both
+    priors = [UniformPrior(0.0, 100.0)] * 3 + [UniformPrior(57468.0, 57468.7)]
+    window = dict(p_lo=[20, 2, 20, 57468.5], p_up=[50, 5, 50, 57468.7])
+    calls = {
+        "make_log_posterior": lambda: fitting.make_log_posterior(TSC2(t_early), t_early, priors),
+        "lightcurve_mcmc": lambda: fitting.lightcurve_mcmc(t_early, TSC2(t_early), priors,
+                                                           nwalkers=16, nsteps=2,
+                                                           nsteps_burnin=2, **window),
+        "lightcurve_map": lambda: fitting.lightcurve_map(t_early, TSC2(t_early), priors,
+                                                         n_starts=2, n_iter=2, **window),
+        "lightcurve_hmc": lambda: fitting.lightcurve_hmc(t_early, TSC2(t_early), priors,
+                                                         nchains=2, nsamples=2, n_warmup=2,
+                                                         **window),
+        "lightcurve_evidence": lambda: fitting.lightcurve_evidence(
+            t_early, TSC2(t_early), priors, nwalkers=16, n_rungs=2, nsteps=2, nsteps_burnin=2,
+            **window),
+        "calculate_bolometric": lambda: bolometric.calculate_bolometric(
+            t_lc.copy(), batch_mode=True, save_corners=False),
+    }
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        calls[entry]()
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device("cuda") == torch.device("cuda")

@@ -1,8 +1,9 @@
-"""The CUDA kernels of ``lightcurve_fitting_tpu_torch/kernels``: K1 and K2
-(ShockCooling2), K3 (the quadrature band flux) and the ShockCooling3
-log-posterior and half-step built on it; K4 (the per-epoch blackbody
-log-posterior and its gradient), the epoch half-step, K4s (the summary
-rows) and K5 (percentiles) of the batched bolometric path; K6a-K6d of the
+"""The CUDA kernels of ``lightcurve_fitting_tpu_torch/kernels``: K1, K2
+and the gradient path's K7, K9 and K7h (ShockCooling2), K3 (the quadrature
+band flux) and the ShockCooling3 log-posterior and half-step built on it;
+K4 (the per-epoch blackbody log-posterior and its gradient), the epoch
+half-step, K4s (the summary rows) and K5 (percentiles) of the batched
+bolometric path; K6a-K6d of the
 tempered ladder (the tempered half-step and the initial state over
 ShockCooling2 and ShockCooling3, the replica exchange, the stepping-stone
 block terms).
@@ -33,6 +34,10 @@ the epoch half-step as K2; K4s's integral float32 <= 1e-5 relative; K5's
 percentiles bit-equal to the plain version's. K6a as K2, its log pi and
 log L held as K1's; K6b's log pi <= 1e-12 relative and log L as K1's; K6c
 bit-equal; K6d float64 <= 1e-12 relative (the sums run in another order).
+K7's values as K1's and its gradients within 1e-4 (float32) and 1e-9
+(float64) of the summed magnitudes of their per-point terms; K9 and K7h
+against their plain transitions under shared draws (float64 over the plain
+gradient, float32 over K7's own evaluations), equal except near-ties.
 """
 
 import ctypes
@@ -47,8 +52,8 @@ torch.set_num_threads(1)
 from lightcurve_fitting_tpu_torch import kernels  # noqa: E402
 from lightcurve_fitting_tpu_torch.core import config  # noqa: E402
 from lightcurve_fitting_tpu_torch.fitting import make_log_posterior  # noqa: E402
-from lightcurve_fitting_tpu_torch.kernels import (build, common, epoch_bb, ladder,  # noqa: E402
-                                                  sc2, sc3)
+from lightcurve_fitting_tpu_torch.kernels import (build, common, epoch_bb,  # noqa: E402
+                                                  gradient, ladder, sc2, sc3)
 from lightcurve_fitting_tpu_torch.kernels import quantile as kquantile  # noqa: E402
 from lightcurve_fitting_tpu_torch.lightcurve import LC  # noqa: E402
 from lightcurve_fitting_tpu_torch.models import (BaseShockCooling, GaussianPrior,  # noqa: E402
@@ -80,7 +85,20 @@ def lc():
     return lc.where(MJD_min=57468.0, MJD_max=57485.0)
 
 
-D_L = 10 ** (30.79 / 5 + 1) / 1e6    # Mpc, pinned by the flagship's dm
+@pytest.fixture(scope="module")
+def lc_ext():
+    """The flagship with its Milky Way extinction, the posterior around
+    which _whitened builds its whitening (test_hmc.py's truth)."""
+    lc = LC.read(EXAMPLE)
+    lc.meta.update(dm=30.79, redshift=0.002, extinction={
+        "U": 0.069, "B": 0.061, "g": 0.055, "V": 0.045, "0": 0.035,
+        "r": 0.038, "R": 0.035, "i": 0.028, "I": 0.020})
+    lc.calcAbsMag()
+    lc.calcLum()
+    return lc.where(MJD_min=57468.0, MJD_max=57485.0)
+
+
+D_L =10 ** (30.79 / 5 + 1) / 1e6    # Mpc, pinned by the flagship's dm
 SC3_LO = np.array([0.5, 0.5, 5.0, 1.0, D_L - 0.005, 0.0, 57468.5])
 SC3_UP = np.array([2.0, 2.0, 20.0, 5.0, D_L + 0.005, 0.1, 57468.7])
 SC3_OFFSET = (SC3_LO + SC3_UP) / 2
@@ -860,3 +878,246 @@ def test_sc3_evidence_runs_through_the_ladder_kernels_on_card(lc_flux, cuda_devi
     assert np.isfinite(log_z) and np.isfinite(err) and info["acceptance"].shape == (4,)
     assert kernels.LAUNCHES["tempered_half_step"] == 32 and kernels.LAUNCHES["ladder_init"] == 1
     assert kernels.LAUNCHES["replica_swap"] == 16 and kernels.LAUNCHES["rung_block_terms"] == 1
+
+
+# ------------------------------------------------ the gradient path: K7, K9, K7h
+
+def _whitened(lc, device, n_chains, seed=12):
+    """A WhitenedLogPosterior of the flagship as lightcurve_hmc builds it
+    (Gaussian priors), its whitening from draws around the converged
+    posterior, and n_chains states from those draws."""
+    from lightcurve_fitting_tpu_torch.parallel.hmc import (BoundsTransform, WhitenedLogPosterior,
+                                                           WhitenedPosterior)
+    pri = [GaussianPrior(0.0, 100.0, 30.0, 15.0), GaussianPrior(0.0, 100.0, 4.0, 3.0),
+           GaussianPrior(0.0, 100.0, 30.0, 15.0), GaussianPrior(57468.0, 57468.7, 57468.5, 0.2)]
+    lp = make_log_posterior(ShockCooling2(lc), lc, pri, device=device)
+    bounds = BoundsTransform([q.p_min for q in pri], [q.p_max for q in pri])
+    rng = np.random.default_rng(seed)
+    x = np.array([37.58, 5.326, 16.25, 57468.6999]) + rng.normal(size=(400, 4)) * [
+        0.145, 0.053, 0.110, 0.00018]
+    x[:, 3] = 57468.7 - 1e-6 - np.abs(rng.normal(size=400)) * 0.00018
+    warm_u = bounds.to_unbounded(x)
+    white = WhitenedPosterior(warm_u)
+    w0 = np.ascontiguousarray(white.to_w(warm_u[:n_chains]))
+    return WhitenedLogPosterior(lp, bounds, white), torch.as_tensor(w0, device=device)
+
+
+def test_white_params_layout_matches_the_c_struct():
+    """struct WhiteParams: ndim, 8 kinds, 5 arrays of LP_MAX_DIM doubles and
+    the LP_MAX_DIM^2 Cholesky factor, all 8 bytes wide."""
+    with open(os.path.join(build.CSRC_DIR, "gradient.cuh")) as f:
+        src = f.read()
+    body = src[src.index("struct WhiteParams {"):src.index("};", src.index("struct WhiteParams {"))]
+    names = [ln.split(";")[0].split("[")[0].split()[-1] for ln in body.splitlines()[1:]
+             if ";" in ln]
+    assert names == [n for n, _ in gradient._WhiteParams._fields_]
+    assert ctypes.sizeof(gradient._WhiteParams) == 8 * (1 + 8 + 5 * 8 + 64)
+
+
+def test_white_params_follow_the_bounds_bijection():
+    """The kernels' block of a whitened space (BoundsTransform.kernel_spec),
+    read back as gradient.cuh reads it, gives BoundsTransform's to_bounded
+    and log_jacobian for each kind of bound (within 1e-14)."""
+    from lightcurve_fitting_tpu_torch.parallel.hmc import (BoundsTransform, WhitenedLogPosterior,
+                                                           WhitenedPosterior)
+    bounds = BoundsTransform([0.0, 1.0, -np.inf, -np.inf], [2.0, np.inf, 3.0, np.inf])
+    L = np.tril(np.arange(1.0, 17.0).reshape(4, 4))
+    white = WhitenedPosterior.from_moments([0.5, -1.0, 2.0, 3.0], L)
+    T = gradient.white_params(WhitenedLogPosterior(None, bounds, white), 4)
+    assert list(T.kind[:4]) == [1, 2, 3, 0] and list(T.mean[:4]) == [0.5, -1.0, 2.0, 3.0]
+    assert np.array_equal(np.array(T.L[:16]).reshape(4, 4), L)
+    u = np.array([0.3, -0.7, 1.1, 2.5])
+    x, log_j = [], 0.0
+    for i, ui in enumerate(u):
+        if T.kind[i] == 1:
+            s = 1.0 / (1.0 + np.exp(-ui))
+            x.append(T.lo[i] + T.width[i] * s)
+            log_j += T.log_width[i] + np.log(s) + np.log1p(-s)
+        elif T.kind[i] in (2, 3):
+            x.append(T.lo[i] + np.exp(ui) if T.kind[i] == 2 else T.hi[i] - np.exp(ui))
+            log_j += ui
+        else:
+            x.append(ui)
+    ut = torch.as_tensor(u)
+    np.testing.assert_allclose(x, bounds.to_bounded(ut).numpy(), rtol=1e-14)
+    np.testing.assert_allclose(log_j, float(bounds.log_jacobian(ut)), rtol=1e-14)
+
+
+def test_gradient_wrappers_route_by_device(lc, lc_flux):
+    lp = make_log_posterior(ShockCooling2(lc), lc, _priors(), device="cpu")
+    q = torch.as_tensor(_walkers(16))
+    target, w = _whitened(lc, "cpu", 4)
+    before = dict(kernels.LAUNCHES)
+    v, g = kernels.log_posterior_and_grad(lp, q)
+    assert torch.equal(v, lp.forward_plain(q)) and g.shape == (16, 4)
+    assert torch.equal(g[-4:], torch.zeros((4, 4), dtype=torch.float64))   # -inf rows
+    vw, gw = kernels.log_posterior_and_grad(target.log_posterior, w, white=target)
+    assert torch.isfinite(vw).all() and torch.isfinite(gw).all()
+    assert kernels.LAUNCHES == before           # the plain path launches nothing
+    meta = torch.empty((4, 4), dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="K7 runs on CUDA"):
+        sc2.log_posterior_and_grad(lp, meta)
+    args = (meta, meta[:, 0], meta, torch.empty((4, 3, 6), dtype=torch.float64, device="meta"),
+            meta[0, 0], meta[0])
+    with pytest.raises(ValueError, match="K9 runs on CUDA"):
+        gradient.nuts_transition(target, *args, 3)
+    with pytest.raises(ValueError, match="K7h runs on CUDA"):
+        gradient.hmc_transition(target, meta, meta[:, 0], meta, meta[:, 0],
+                                meta[:, 0].long(), meta[0, 0], meta[0], 4)
+    lp3 = make_log_posterior(ShockCooling3(lc_flux), lc_flux, _sc3_priors(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ShockCooling3 has no gradient kernel"):
+        kernels.log_posterior_and_grad(lp3, torch.empty((4, 7), dtype=torch.float64,
+                                                        device="meta"))
+
+
+def _transitions_agree(got, want, gaps, gap_nats, rel):
+    """Per chain: the same depth and divergence flag (K9), q' within rel and
+    logp' within rel |logp|, except near-ties (a decision within gap_nats,
+    or a U-turn criterion within rel, of going the other way)."""
+    same = ((got[0] - want[0]).abs() <= rel).all(dim=1) \
+        & ((got[1] - want[1]).abs() <= rel * want[1].abs())
+    for k in range(3, len(got)):
+        same &= got[k].to(torch.int64) == want[k].to(torch.int64)
+    near = gaps[0] < gap_nats
+    if len(gaps) > 1:
+        near |= gaps[1] < rel
+    assert bool((same | near).all()) and bool(same.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_k7_matches_plain_on_card(lc, cuda_device, f64):
+    """K7 against autograd through forward_plain: values as K1's, gradients
+    within 1e-4 (float32) and 1e-9 (float64) of their per-point terms'
+    summed magnitudes (LogPosterior.grad_term_scales), zero (masked) at the
+    same places; also in the whitened space of the gradient samplers."""
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        lp = make_log_posterior(ShockCooling2(lc), lc, _priors(), device=cuda_device)
+        wide = make_log_posterior(ShockCooling2(lc), lc, _priors(57480.0), device=cuda_device)
+        late = np.random.default_rng(1).uniform([20, 2, 10, 57468.8], [50, 5, 50, 57472.0],
+                                                size=(512, 4))
+        rel, grel = (1e-10, 1e-9) if f64 else (1e-5, 1e-4)
+        for lp_, p in ((lp, _walkers(4096)), (wide, late)):
+            p = torch.as_tensor(p, device=cuda_device)
+            n0 = kernels.LAUNCHES["logpost_grad"]
+            v, g = kernels.log_posterior_and_grad(lp_, p)
+            assert kernels.LAUNCHES["logpost_grad"] == n0 + 1
+            vp, gp = sc2.log_posterior_and_grad_plain(lp_, p)
+            _assert_ll_close(v, vp, rel)
+            assert torch.equal(g == 0, gp == 0)
+            assert bool(((g - gp).abs() <= grel * lp_.grad_term_scales(p)).all())
+        target, w = _whitened(lc, cuda_device, 64)
+        v, g = kernels.log_posterior_and_grad(target.log_posterior, w, white=target)
+        vp, gp = target.logp_and_grad_plain(w)
+        _assert_ll_close(v, vp, rel)
+        assert bool(((g - gp).abs() <= (1e-2 if not f64 else 1e-6) * (1 + gp.abs())).all())
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_k9_matches_plain_on_card(lc, cuda_device, f64):
+    """K9 against the plain transition under shared draws (16 whitened
+    flagship chains, max_depth 7): in float64 over the plain gradient, in
+    float32 over K7's own evaluations; equal except near-ties."""
+    from lightcurve_fitting_tpu_torch.parallel.nuts import make_nuts_transition
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        target, q0 = _whitened(lc, cuda_device, 16)
+        g = torch.Generator(device=cuda_device)
+        g.manual_seed(5)
+        z = torch.randn((16, 4), generator=g, device=cuda_device, dtype=torch.float64)
+        u = torch.rand((16, 7, 66), generator=g, device=cuda_device, dtype=torch.float64)
+        eps = torch.tensor(0.1, dtype=torch.float64, device=cuda_device)
+        inv_mass = torch.ones(4, dtype=torch.float64, device=cuda_device)
+        logp0 = target.logp_and_grad(q0)[0]
+        n0 = kernels.LAUNCHES["nuts_transition"]
+        got = gradient.nuts_transition(target, q0, logp0, z, u, eps, inv_mass, 7)
+        assert kernels.LAUNCHES["nuts_transition"] == n0 + 1
+        fn = target.logp_and_grad_plain if f64 else target.logp_and_grad
+        want = make_nuts_transition(fn, 4, 7, margins=True)(q0, logp0, z, u, eps, inv_mass)
+        _transitions_agree(got, want[:5], want[5:], 1e-6 if f64 else 1e-3, 1e-8)
+        assert got[3].min() >= 1 and got[3].max() > 1
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_k9_deep_trees_match_plain_on_card(lc_ext, cuda_device, f64):
+    """K9 against the plain transition on deep trees (eps 0.005, max_depth
+    12): subtrees of 64 steps and more spread their U-turn blocks and Gumbel
+    pick over the lanes; the float32 trajectory buffer lies in shared memory,
+    the float64 one in the global scratch."""
+    from lightcurve_fitting_tpu_torch.parallel.nuts import make_nuts_transition
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        target, q0 = _whitened(lc_ext, cuda_device, 16)
+        g = torch.Generator(device=cuda_device)
+        g.manual_seed(7)
+        z = torch.randn((16, 4), generator=g, device=cuda_device, dtype=torch.float64)
+        u = torch.rand((16, 12, 2050), generator=g, device=cuda_device, dtype=torch.float64)
+        eps = torch.tensor(0.005, dtype=torch.float64, device=cuda_device)
+        inv_mass = torch.ones(4, dtype=torch.float64, device=cuda_device)
+        logp0 = target.logp_and_grad(q0)[0]
+        got = gradient.nuts_transition(target, q0, logp0, z, u, eps, inv_mass, 12)
+        fn = target.logp_and_grad_plain if f64 else target.logp_and_grad
+        want = make_nuts_transition(fn, 4, 12, margins=True)(q0, logp0, z, u, eps, inv_mass)
+        _transitions_agree(got, want[:5], want[5:], 1e-6 if f64 else 1e-3, 1e-8)
+        assert got[3].max() >= 7
+        assert (gradient.nuts_scratch_len(target, 16, 12, cuda_device) > 0) == f64
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_k7h_matches_plain_on_card(lc, cuda_device, f64):
+    from lightcurve_fitting_tpu_torch.parallel.hmc import hmc_transition_plain
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        target, q0 = _whitened(lc, cuda_device, 16)
+        g = torch.Generator(device=cuda_device)
+        g.manual_seed(6)
+        z = torch.randn((16, 4), generator=g, device=cuda_device, dtype=torch.float64)
+        u_acc = torch.rand(16, generator=g, device=cuda_device, dtype=torch.float64)
+        n_used = torch.randint(8, 17, (16,), generator=g, device=cuda_device)
+        eps = torch.tensor(0.1, dtype=torch.float64, device=cuda_device)
+        inv_mass = torch.ones(4, dtype=torch.float64, device=cuda_device)
+        logp0 = target.logp_and_grad(q0)[0]
+        args = (q0, logp0, z, u_acc, n_used, eps, inv_mass, 16)
+        got = gradient.hmc_transition(target, *args)
+        fn = target.logp_and_grad_plain if f64 else target.logp_and_grad
+        want = hmc_transition_plain(fn, *args, margins=True)
+        _transitions_agree(got, want[:3], want[3:], 1e-6 if f64 else 1e-3, 1e-8)
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+def test_gradient_fits_run_through_the_kernels_on_card(lc, cuda_device, monkeypatch):
+    from lightcurve_fitting_tpu_torch.fitting import lightcurve_hmc, lightcurve_map
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("a plain version ran on the CUDA path")
+
+    for name in ("nuts_transition_plain", "hmc_transition_plain"):
+        monkeypatch.setattr(gradient, name, no_plain)
+    monkeypatch.setattr(sc2, "log_posterior_and_grad_plain", no_plain)
+    pri = _whitened(lc, "cpu", 1)[0].log_posterior.priors
+    kernels.reset_launch_counts()
+    r = lightcurve_map(lc, ShockCooling2(lc), pri, n_starts=8, n_iter=50, seed=0, quiet=True,
+                       device=cuda_device)
+    assert np.isfinite(r.parameters).all() and kernels.LAUNCHES["logpost_grad"] >= 52
+    for sampler in ("nuts", "hmc"):
+        res = lightcurve_hmc(lc, ShockCooling2(lc), pri, nchains=4, nsamples=10, n_warmup=10,
+                             warmup_walkers=32, warmup_steps=20, sampler=sampler, seed=1,
+                             quiet=True, device=cuda_device)
+        assert res.flatchain.shape == (40, 4) and np.isfinite(res.flatchain).all()
+    assert kernels.LAUNCHES["nuts_transition"] == 20 and kernels.LAUNCHES["hmc_transition"] == 20
