@@ -90,7 +90,37 @@ raises and the script exits non-zero):
     9, warm start 64 x 300; seed 3) in float32 and float64 compute, held to
     tests/test_hmc.py:147-159's criteria (the float32 default must meet
     them), wall times, a profiled run's time split, (d)
-    ``lightcurve_hmc(sampler="hmc")``; the counters show K7, K9 and K7h ran.
+    ``lightcurve_hmc(sampler="hmc")``; the counters show K7, K9 and K7h ran;
+21. the intrinsic scatter: every kernel that branches on ``use_sigma``
+    against its plain version with the scatter on (SC2 with 5 parameters,
+    SC3 with 8; both sigma_types; float32 and float64): K1 or the SC3
+    log-posterior, K2 or the SC3 half-step, K6a and K6b over each, and K7
+    (the sigma column of the gradient included), K9 and K7h over SC2, held
+    to the tolerances above over the term scale (0.5 x the summed residual
+    terms' magnitudes, the scatter's log term included, + |constant|);
+22. K8, the SiFTO spline, against ``sifto_points_plain`` at 131072 walkers x
+    the 108 points of the synthetic SN 2017cbv-style Ia curve
+    (tests/test_companion_shocking.py::make_ia_lc, rebuilt with the port),
+    and on whole-day times whose phases fall on the knots, at both ends,
+    outside, NaN and infinite: float32 <= 1e-6 and float64 <= 1e-13 of the
+    band's template peak, identical zero sets;
+23. the CS log-posterior of CompanionShocking, CompanionShocking2,
+    CompanionShocking3 and CompanionShocking with the scatter (9
+    parameters) against its plain version at 131072 walkers (1% outside the
+    priors, an eighth with t_0 after the first epochs): float32 <= 1e-5,
+    float64 <= 1e-10 of the term scale, identical -inf sets; the CS
+    half-step (h = 0, 1), K6a and K6b over CS2 at 17 x 4096 as in 4, 14, 15;
+24. the companion-shocking main path, counters reset before (a): (a)
+    ``lightcurve_mcmc`` CS2 as tests/test_companion_shocking.py:106-123
+    (32 walkers x 300 + 250, seed 12) with its truth criteria; (b) CS2 at
+    32768 walkers x 300 from the window, four timed runs and a profiled one,
+    mean acceptance within 0.01 of the JAX package's float64 CPU value; (c)
+    ``lightcurve_evidence`` CS2 at 4096 x 16 rungs + beta = 1 x 150 + 150,
+    log Z within 4 hypot(err, err_ref) of the JAX package's float64 CPU
+    value, ``compare_models`` CS2 against CS3 and ``lightcurve_ptmcmc`` CS2
+    (t_0 and t_peak within 1 d); (d) the three models' ``evaluate`` on the
+    card (K8); the counters show K8, the CS log-posterior
+    and half-step, K6a and K6b ran, and no plain version did.
 
 The last lines are the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and library time, and ``{"ok": true,
@@ -234,9 +264,11 @@ def ll_scale(ll, const=0.0):
     return (ll - const).abs() + abs(const)
 
 
-def compare_ll(name, got, want, rel, const=0.0):
-    """Same -inf set, |got - want| <= rel * ll_scale(want, const) where
-    finite; returns the largest absolute and relative differences."""
+def compare_ll(name, got, want, rel, const=0.0, scale=None):
+    """Same -inf set, |got - want| <= rel * scale where finite, the scale
+    ll_scale(want, const) unless one is given (LogLikelihood.term_scales);
+    returns the largest absolute and scaled differences and the finite
+    count."""
     import torch
     if torch.isnan(got).any() or torch.isnan(want).any():
         raise AssertionError(f"{name}: NaN log-posterior")
@@ -244,11 +276,134 @@ def compare_ll(name, got, want, rel, const=0.0):
         n = int((torch.isneginf(got) != torch.isneginf(want)).sum())
         raise AssertionError(f"{name}: -inf sets differ at {n} walkers")
     fin = torch.isfinite(want)
-    d = (got[fin] - want[fin]).abs()
-    r = d / ll_scale(want[fin], const)
+    d = (got - want).abs()[fin]
+    r = d / (ll_scale(want[fin], const) if scale is None else scale[fin])
     if not bool((r <= rel).all()):
         raise AssertionError(f"{name}: max |delta|/scale = {float(r.max()):.3e} > {rel:.0e}")
-    return float(d.max()), float(r.max()), int(fin.sum())
+    return (float(d.max()) if d.numel() else 0.0, float(r.max()) if r.numel() else 0.0,
+            int(fin.sum()))
+
+
+def check_half_step(name, lp, off, sc, x0, seed, rel):
+    """The half-step kernel of lp's model (h = 0, 1) against the plain
+    half-step under shared draws on the rescaled state x0 (2, half, ndim):
+    accept flags equal except near-ties (|ln u - log ratio| within 1e-5 of
+    the term scales of both states), new states bit-equal and new
+    log-posteriors within ``rel`` of the term scale where they agree, the
+    chain slot holding the new half, the other half and its accept counts
+    untouched. Returns (near-ties, accepts, max |d logp|)."""
+    import torch
+    from lightcurve_fitting_tpu_torch import kernels
+    from lightcurve_fitting_tpu_torch.kernels import common
+    dev = x0.device
+    half, ndim = x0.shape[1], x0.shape[2]
+    scales = lp.log_likelihood.term_scales
+    l0 = kernels.log_posterior(lp, x0.reshape(-1, ndim), off, sc).reshape(2, half)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    u_z = torch.rand(half, generator=g, device=dev, dtype=x0.dtype)
+    j = torch.randint(0, half, (half,), generator=g, device=dev)
+    u_acc = torch.rand(half, generator=g, device=dev, dtype=x0.dtype)
+
+    def plain(q):
+        return chunked(lambda c: common.log_posterior_plain(lp, c, off, sc), q)
+
+    ties, acc, max_abs = 0, 0, 0.0
+    for h in (0, 1):
+        what = f"{name} h={h}"
+        xk, lk, xp, lpp = x0.clone(), l0.clone(), x0.clone(), l0.clone()
+        ak = torch.zeros((2, half), dtype=torch.int32, device=dev)
+        ap = torch.zeros_like(ak)
+        ck = torch.empty_like(x0)
+        clk = torch.empty((2, half), dtype=torch.float64, device=dev)
+        kernels.stretch_half_step(lp, xk, lk, h, u_z, j, u_acc, 2.0, off, sc, ck, clk, ak)
+        common.stretch_half_step_plain(plain, xp, lpp, h, u_z, j, u_acc, 2.0, n_accept=ap)
+        torch.cuda.synchronize()
+        agree = ak[h] == ap[h]
+        y, z = common.propose_stretch(u_z, j, x0[h], x0[1 - h])
+        gap = (torch.log(u_acc).double() - ((ndim - 1.0) * torch.log(z).double() + plain(y)
+                                            - l0[h])).abs()
+        tie_ok = gap <= 1e-5 * (scales(common.absolute_params(y, off, sc))
+                                + scales(common.absolute_params(x0[h], off, sc)))
+        if not bool((agree | tie_ok).all()):
+            raise AssertionError(f"{what}: {int((~agree & ~tie_ok).sum())} accept flags differ "
+                                 "away from near-ties")
+        if not torch.equal(xk[h][agree], xp[h][agree]):
+            raise AssertionError(f"{what}: new states differ where the flags agree")
+        if not torch.equal(xk[1 - h], x0[1 - h]) or not torch.equal(ak[1 - h], ap[1 - h]) \
+                or not torch.equal(ck[h], xk[h]) or not torch.equal(clk[h], lk[h]):
+            raise AssertionError(f"{what}: wrong half or chain slot written")
+        d = compare_ll(f"{what} new logp", lk[h][agree], lpp[h][agree], rel,
+                       scale=scales(common.absolute_params(xk[h], off, sc))[agree])
+        max_abs = max(max_abs, d[0])
+        ties += int((~agree).sum())
+        acc += int(ak[h].sum())
+    return ties, acc, max_abs
+
+
+def check_ladder(name, lp, off, sc, x0, seed, rel):
+    """K6b and K6a (h = 0, 1) over lp's model against their plain versions
+    on the rescaled ladder state x0 (R, 2, half, ndim), beta_0 = 0. K6b: log
+    pi within 1e-12, log L within ``rel`` of the term scale. K6a: flags
+    equal except near-ties, states and log pi bit-equal and log L within
+    ``rel`` of the term scale where they agree, the other half and its
+    accept counts untouched. Returns (near-ties, accepts, max |d log L| of
+    K6a, max |d log L| of K6b)."""
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels import common, ladder
+    from lightcurve_fitting_tpu_torch.parallel.evidence import make_beta_ladder
+    dev = x0.device
+    R, _, half, ndim = x0.shape
+    scales = lp.log_likelihood.term_scales
+    fns = ladder.plain_functions(lp, off, sc)
+    pri0, ll0 = ladder.ladder_init(lp, x0, off, sc)
+    want_pri, want_ll = ladder.ladder_init_plain(*fns, x0)
+    fin = torch.isfinite(want_pri)
+    if not torch.equal(torch.isneginf(pri0), torch.isneginf(want_pri)) \
+            or not bool(((pri0 - want_pri).abs()[fin] <= 1e-12).all()):
+        raise AssertionError(f"{name} K6b: log pi differs from the plain version")
+    scale0 = scales(common.absolute_params(x0, off, sc))
+    d_init = compare_ll(f"{name} K6b", ll0, want_ll, rel, scale=scale0)[0]
+    betas = torch.as_tensor(make_beta_ladder(R - 1), device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    shape = (R, 2, half)
+    u_z = torch.rand(shape, generator=g, device=dev)
+    j = torch.randint(0, half, shape, generator=g, device=dev)
+    u_acc = torch.rand(shape, generator=g, device=dev)
+    ties, acc, max_abs = 0, 0, 0.0
+    for h in (0, 1):
+        what = f"{name} K6a h={h}"
+        xk, pk, lk = x0.clone(), pri0.clone(), ll0.clone()
+        xp, pp, lpl = x0.clone(), pri0.clone(), ll0.clone()
+        ak = torch.zeros(shape, dtype=torch.int32, device=dev)
+        ap = torch.zeros_like(ak)
+        ladder.tempered_half_step(lp, xk, pk, lk, betas, h, u_z, j, u_acc, 2.0, off, sc, ak)
+        ladder.tempered_half_step_plain(*fns, xp, pp, lpl, betas, h, u_z, j, u_acc, 2.0, ap)
+        torch.cuda.synchronize()
+        agree = ak[:, h] == ap[:, h]
+        y, z = common.propose_stretch(u_z[:, h], j[:, h], x0[:, h], x0[:, 1 - h])
+        pri_y, ll_y = fns[0](y), fns[1](y)
+        b = betas[:, None]
+        ratio = ((ndim - 1.0) * torch.log(z) + pri_y + torch.where(b > 0, b * ll_y, 0.0)
+                 - pri0[:, h] - torch.where(b > 0, b * ll0[:, h], 0.0))
+        gap = (torch.log(u_acc[:, h]).double() - ratio).abs()
+        tie_ok = gap <= 1e-5 * (scales(common.absolute_params(y, off, sc)) + scale0[:, h])
+        if not bool((agree | tie_ok).all()):
+            raise AssertionError(f"{what}: {int((~agree & ~tie_ok).sum())} accept flags differ "
+                                 "away from near-ties")
+        if not torch.equal(xk[:, h][agree], xp[:, h][agree]) \
+                or not torch.equal(pk[:, h][agree], pp[:, h][agree]):
+            raise AssertionError(f"{what}: new states or log pi differ where the flags agree")
+        if not torch.equal(xk[:, 1 - h], x0[:, 1 - h]) or not torch.equal(ak[:, 1 - h],
+                                                                           ap[:, 1 - h]):
+            raise AssertionError(f"{what}: the other half was written")
+        d = compare_ll(what, lk[:, h][agree], lpl[:, h][agree], rel,
+                       scale=scales(common.absolute_params(xk[:, h], off, sc))[agree])
+        max_abs = max(max_abs, d[0])
+        ties += int((~agree).sum())
+        acc += int(ak[:, h].sum())
+    return ties, acc, max_abs, d_init
 
 
 def phase_k1(lc, rng_seed=0):
@@ -318,60 +473,28 @@ def phase_k2(lc, seed=1):
     rng = np.random.default_rng(seed)
     pos = (rng.uniform(P_LO, P_UP, size=(W, 4)) - off) / sc
     x0 = torch.as_tensor(pos.reshape(2, half, 4), device=dev).to(torch.float32).contiguous()
+    n_ties, _, max_abs = check_half_step("K2", lp, off, sc, x0, seed, 1e-5)
     logp0 = sc2.log_posterior(lp, x0.reshape(W, 4), off, sc).reshape(2, half)
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     u_z = torch.rand(half, generator=g, device=dev)
     j = torch.randint(0, half, (half,), generator=g, device=dev)
     u_acc = torch.rand(half, generator=g, device=dev)
-
-    def plain_log_prob(q):
-        return sc2.log_posterior_plain(lp, q, off, sc)
-
-    max_abs, n_ties = 0.0, 0
-    for h in (0, 1):
-        xk, lk = x0.clone(), logp0.clone()
-        xp, lpp = x0.clone(), logp0.clone()
-        ak = torch.zeros((2, half), dtype=torch.int32, device=dev)
-        ap = torch.zeros_like(ak)
-        ck = torch.empty((2, half, 4), device=dev)
-        clk = torch.empty((2, half), dtype=torch.float64, device=dev)
-        sc2.stretch_half_step(lp, xk, lk, h, u_z, j, u_acc, 2.0, off, sc, ck, clk, ak)
-        sc2.stretch_half_step_plain(plain_log_prob, xp, lpp, h, u_z, j, u_acc, 2.0,
-                                    n_accept=ap)
-        torch.cuda.synchronize()
-        acc_k, acc_p = ak[h] == 1, ap[h] == 1
-        agree = acc_k == acc_p
-        # near-ties: |ln u - log_ratio| <= 1e-5 |ll| (float32 log-posterior budget)
-        y, z = sc2.propose_stretch(u_z, j, x0[h], x0[1 - h])
-        lp_y = plain_log_prob(y)
-        log_ratio = 3.0 * torch.log(z) + lp_y - logp0[h]
-        gap = (torch.log(u_acc).double() - log_ratio).abs()
-        tie_ok = gap <= 1e-5 * lp_y.abs()
-        if not bool((agree | tie_ok).all()):
-            raise AssertionError(f"K2 h={h}: {int((~agree & ~tie_ok).sum())} accept flags "
-                                 "differ away from near-ties")
-        if not torch.equal(xk[h][agree], xp[h][agree]):
-            raise AssertionError(f"K2 h={h}: new states differ where the flags agree")
-        if not torch.equal(xk[1 - h], x0[1 - h]) or not torch.equal(ck[h], xk[h]) \
-                or not torch.equal(clk[h], lk[h]):
-            raise AssertionError(f"K2 h={h}: wrong half or chain slot written")
-        fin = agree & torch.isfinite(lk[h])
-        max_abs = max(max_abs, float((lk[h][fin] - lpp[h][fin]).abs().max()))
-        n_ties += int((~agree).sum())
     xk, lk = x0.clone(), logp0.clone()
     ak = torch.zeros((2, half), dtype=torch.int32, device=dev)
     k2_ms = cuda_ms(lambda: sc2.stretch_half_step(lp, xk, lk, 0, u_z, j, u_acc, 2.0, off, sc,
                                                   n_accept=ak, check_partners=False))
     xp, lpp = x0.clone(), logp0.clone()
-    plain_ms = cuda_ms(lambda: sc2.stretch_half_step_plain(plain_log_prob, xp, lpp, 0, u_z, j,
-                                                           u_acc, 2.0), repeats=5)
+    plain_ms = cuda_ms(lambda: sc2.stretch_half_step_plain(
+        lambda q: sc2.log_posterior_plain(lp, q, off, sc), xp, lpp, 0, u_z, j, u_acc, 2.0),
+        repeats=5)
     k2_bound = bound_fields(half * (sc2_eval_ops(lp.log_likelihood) + PROPOSAL),
                             half * (2 * 4 * 4 + 8 + 16 + 4) + half * (4 * 4 + 8 + 4))
     phase("K2", f"half-steps h=0,1 of {W} walkers (f32 state, f64 logp): accept flags agree "
           f"except {n_ties} near-ties, new states bit-equal where they agree, new-logp max "
-          f"|d| {max_abs:.3e}; K2 {k2_ms:.4f} ms vs plain {plain_ms:.4f} ms per half-step, "
-          f"bound {k2_bound['bound_ms']:.4f} ms ({k2_bound['bound_by']})")
+          f"|d| {max_abs:.3e} (<= 1e-5 of the term scale); K2 {k2_ms:.4f} ms vs plain "
+          f"{plain_ms:.4f} ms per half-step, bound {k2_bound['bound_ms']:.4f} ms "
+          f"({k2_bound['bound_by']})")
     return {"max_abs_err": max_abs, "ms": k2_ms, "plain_ms": plain_ms, **k2_bound}
 
 
@@ -534,62 +657,28 @@ def phase_sc3_half_step(lcf, seed=4):
     rng = np.random.default_rng(seed)
     pos = (rng.uniform(SC3_LO, SC3_UP, size=(W, 7)) - off) / sc
     x0 = torch.as_tensor(pos.reshape(2, half, 7), device=dev).to(torch.float32).contiguous()
+    n_ties, n_acc, max_abs = check_half_step("SC3 half-step", lp, off, sc, x0, seed, 1e-5)
     logp0 = kernels.log_posterior(lp, x0.reshape(W, 7), off, sc).reshape(2, half)
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     u_z = torch.rand(half, generator=g, device=dev)
     j = torch.randint(0, half, (half,), generator=g, device=dev)
     u_acc = torch.rand(half, generator=g, device=dev)
-
-    def plain_log_prob(q):
-        return chunked(lambda c: common.log_posterior_plain(lp, c, off, sc), q)
-
-    max_abs, n_ties, n_acc = 0.0, 0, 0
-    for h in (0, 1):
-        xk, lk = x0.clone(), logp0.clone()
-        xp, lpp = x0.clone(), logp0.clone()
-        ak = torch.zeros((2, half), dtype=torch.int32, device=dev)
-        ap = torch.zeros_like(ak)
-        ck = torch.empty((2, half, 7), device=dev)
-        clk = torch.empty((2, half), dtype=torch.float64, device=dev)
-        kernels.stretch_half_step(lp, xk, lk, h, u_z, j, u_acc, 2.0, off, sc, ck, clk, ak)
-        common.stretch_half_step_plain(plain_log_prob, xp, lpp, h, u_z, j, u_acc, 2.0,
-                                       n_accept=ap)
-        torch.cuda.synchronize()
-        acc_k, acc_p = ak[h] == 1, ap[h] == 1
-        agree = acc_k == acc_p
-        # near-ties: |ln u - log_ratio| within the float32 log-posterior budget
-        y, z = common.propose_stretch(u_z, j, x0[h], x0[1 - h])
-        lp_y = plain_log_prob(y)
-        log_ratio = 6.0 * torch.log(z) + lp_y - logp0[h]
-        gap = (torch.log(u_acc).double() - log_ratio).abs()
-        tie_ok = gap <= 1e-5 * ll_scale(lp_y, lp.log_likelihood.log_norm_const)
-        if not bool((agree | tie_ok).all()):
-            raise AssertionError(f"SC3 half-step h={h}: {int((~agree & ~tie_ok).sum())} accept "
-                                 "flags differ away from near-ties")
-        if not torch.equal(xk[h][agree], xp[h][agree]):
-            raise AssertionError(f"SC3 half-step h={h}: new states differ where the flags agree")
-        if not torch.equal(xk[1 - h], x0[1 - h]) or not torch.equal(ck[h], xk[h]) \
-                or not torch.equal(clk[h], lk[h]):
-            raise AssertionError(f"SC3 half-step h={h}: wrong half or chain slot written")
-        fin = agree & torch.isfinite(lk[h])
-        max_abs = max(max_abs, float((lk[h][fin] - lpp[h][fin]).abs().max()))
-        n_ties += int((~agree).sum())
-        n_acc += int(acc_k.sum())
     xk, lk = x0.clone(), logp0.clone()
     ak = torch.zeros((2, half), dtype=torch.int32, device=dev)
     k_ms = cuda_ms(lambda: kernels.stretch_half_step(lp, xk, lk, 0, u_z, j, u_acc, 2.0, off, sc,
                                                      n_accept=ak, check_partners=False))
     xp, lpp = x0.clone(), logp0.clone()
-    plain_ms = cuda_ms(lambda: common.stretch_half_step_plain(plain_log_prob, xp, lpp, 0, u_z,
-                                                              j, u_acc, 2.0), repeats=2)
+    plain_ms = cuda_ms(lambda: common.stretch_half_step_plain(
+        lambda q: chunked(lambda c: common.log_posterior_plain(lp, c, off, sc), q), xp, lpp, 0,
+        u_z, j, u_acc, 2.0), repeats=2)
     hs_bound = bound_fields(half * (sc3_eval_ops(lp.log_likelihood) + PROPOSAL),
                             half * (2 * 7 * 4 + 8 + 16 + 4) + half * (7 * 4 + 8 + 4))
     phase("SC3 half-step", f"half-steps h=0,1 of {W} walkers (f32 state, f64 logp): {n_acc} "
           f"accepts, flags agree except {n_ties} near-ties, new states bit-equal where they "
-          f"agree, new-logp max |d| {max_abs:.3e}; kernel {k_ms:.4f} ms vs plain "
-          f"{plain_ms:.4f} ms per half-step, bound {hs_bound['bound_ms']:.4f} ms "
-          f"({hs_bound['bound_by']})")
+          f"agree, new-logp max |d| {max_abs:.3e} (<= 1e-5 of the term scale); kernel "
+          f"{k_ms:.4f} ms vs plain {plain_ms:.4f} ms per half-step, bound "
+          f"{hs_bound['bound_ms']:.4f} ms ({hs_bound['bound_by']})")
     return {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": plain_ms, **hs_bound}
 
 
@@ -1068,7 +1157,7 @@ def phase_k6a(lc, lcf, seed=8):
     import numpy as np
     import torch
     from lightcurve_fitting_tpu_torch import kernels
-    from lightcurve_fitting_tpu_torch.kernels import common, ladder
+    from lightcurve_fitting_tpu_torch.kernels import ladder
     from lightcurve_fitting_tpu_torch.models import ShockCooling2, ShockCooling3
     from lightcurve_fitting_tpu_torch.parallel.evidence import make_beta_ladder
 
@@ -1082,53 +1171,21 @@ def phase_k6a(lc, lcf, seed=8):
             ("SC3", ShockCooling3(lcf), lcf, sc3_priors(), SC3_LO, SC3_UP, 512)):
         rng = np.random.default_rng(seed)
         lp, off, sc, x0 = ladder_setup(model, lc_, priors, lo, up, R, W, rng, dev)
-        half, ndim = W // 2, len(lo)
-        pri0, ll0 = ladder.ladder_init(lp, x0, off, sc)
-        g = torch.Generator(device=dev)
-        g.manual_seed(seed)
-        shape = (R, 2, half)
-        u_z = torch.rand(shape, generator=g, device=dev)
-        j = torch.randint(0, half, shape, generator=g, device=dev)
-        u_acc = torch.rand(shape, generator=g, device=dev)
-        fns = ladder.plain_functions(lp, off, sc)
-        c = lp.log_likelihood.log_norm_const if label == "SC3" else 0.0
-        max_abs, n_ties, n_acc = 0.0, 0, 0
-        for h in (0, 1):
-            xk, pk, lk = x0.clone(), pri0.clone(), ll0.clone()
-            xp, pp, lpl = x0.clone(), pri0.clone(), ll0.clone()
-            ak = torch.zeros(shape, dtype=torch.int32, device=dev)
-            ap = torch.zeros_like(ak)
-            ladder.tempered_half_step(lp, xk, pk, lk, betas, h, u_z, j, u_acc, 2.0, off, sc, ak)
-            ladder.tempered_half_step_plain(*fns, xp, pp, lpl, betas, h, u_z, j, u_acc, 2.0, ap)
-            torch.cuda.synchronize()
-            agree = ak[:, h] == ap[:, h]
-            # near-ties: |ln u - log_ratio| within the float32 log-likelihood budget
-            y, z = common.propose_stretch(u_z[:, h], j[:, h], x0[:, h], x0[:, 1 - h])
-            pri_y, ll_y = fns[0](y), fns[1](y)
-            b = betas[:, None]
-            ratio = ((ndim - 1.0) * torch.log(z) + pri_y + torch.where(b > 0, b * ll_y, 0.0)
-                     - pri0[:, h] - torch.where(b > 0, b * ll0[:, h], 0.0))
-            gap = (torch.log(u_acc[:, h]).double() - ratio).abs()
-            tie_ok = gap <= 1e-5 * (ll_scale(ll_y, c) + ll_scale(ll0[:, h], c))
-            what = f"K6a {label} h={h}"
-            if not bool((agree | tie_ok).all()):
-                raise AssertionError(f"{what}: {int((~agree & ~tie_ok).sum())} accept flags "
-                                     "differ away from near-ties")
-            if not torch.equal(xk[:, h][agree], xp[:, h][agree]) \
-                    or not torch.equal(pk[:, h][agree], pp[:, h][agree]):
-                raise AssertionError(f"{what}: new states or log pi differ where the flags "
-                                     "agree")
-            if not torch.equal(xk[:, 1 - h], x0[:, 1 - h]) or not torch.equal(ak[:, 1 - h],
-                                                                               ap[:, 1 - h]):
-                raise AssertionError(f"{what}: the other half was written")
-            d = compare_ll(what, lk[:, h][agree], lpl[:, h][agree], 1e-5, c)
-            max_abs = max(max_abs, d[0])
-            n_ties += int((~agree).sum())
-            n_acc += int(ak[:, h].sum())
+        n_ties, n_acc, max_abs, d_init = check_ladder(f"{label} ladder", lp, off, sc, x0, seed,
+                                                      1e-5)
         lines.append(f"{label} {R} rungs x {W} walkers: {n_acc} accepts, flags agree except "
                      f"{n_ties} near-ties, states and log pi bit-equal where they agree, "
-                     f"log L max |d| {max_abs:.3e}")
+                     f"log L max |d| {max_abs:.3e} (K6b {d_init:.3e})")
         if label == "SC2":
+            half, ndim = W // 2, len(lo)
+            pri0, ll0 = ladder.ladder_init(lp, x0, off, sc)
+            g = torch.Generator(device=dev)
+            g.manual_seed(seed)
+            shape = (R, 2, half)
+            u_z = torch.rand(shape, generator=g, device=dev)
+            j = torch.randint(0, half, shape, generator=g, device=dev)
+            u_acc = torch.rand(shape, generator=g, device=dev)
+            fns = ladder.plain_functions(lp, off, sc)
             xk, pk, lk = x0.clone(), pri0.clone(), ll0.clone()
             ak = torch.zeros(shape, dtype=torch.int32, device=dev)
             k_ms = cuda_ms(lambda: ladder.tempered_half_step(
@@ -1142,7 +1199,7 @@ def phase_k6a(lc, lcf, seed=8):
                                   n * (2 * ndim * 4 + 2 * 8 + 4 + 8 + 4) + R * 8
                                   + n * (ndim * 4 + 2 * 8 + 4))}
     phase("K6a", f"tempered half-steps h=0,1 (f32 rescaled state, f64 log pi and log L, "
-          f"beta_0 = 0): {'; '.join(lines)}; "
+          f"beta_0 = 0; log L within 1e-5 of the term scale): {'; '.join(lines)}; "
           f"{kernels.LAUNCHES['tempered_half_step'] - n0} comparison launches; kernel "
           f"{out['ms']:.4f} ms vs plain {out['plain_ms']:.4f} ms per SC2 ladder half-step of "
           f"{R} x {EV_WALKERS // 2}, bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
@@ -1925,6 +1982,571 @@ def phase_gradient_main_path(lc, smi):
     return launches
 
 
+# ------------------------------------------------ the intrinsic scatter (21)
+
+SIGMA_WALKERS = 16384
+
+
+def sigma_window(which):
+    import numpy as np
+    if which == "SC2":
+        return np.append(P_LO, 0.5), np.append(P_UP, 3.0)
+    return np.append(SC3_LO, 0.5), np.append(SC3_UP, 3.0)
+
+
+def whitened_sigma(lc, dev, n_chains, sigma_type, seed=12):
+    """whitened_flagship with the intrinsic scatter as a fifth parameter
+    (Gaussian prior on (0, 10)), its whitening from draws with sigma ~1."""
+    import numpy as np
+    from lightcurve_fitting_tpu_torch.fitting import make_log_posterior
+    from lightcurve_fitting_tpu_torch.models import GaussianPrior, ShockCooling2
+    from lightcurve_fitting_tpu_torch.parallel.hmc import (BoundsTransform, WhitenedLogPosterior,
+                                                           WhitenedPosterior)
+    pri = gauss_priors() + [GaussianPrior(0.0, 10.0, 1.0, 1.0)]
+    lp = make_log_posterior(ShockCooling2(lc), lc, pri, use_sigma=True, sigma_type=sigma_type,
+                            device=dev)
+    bounds = BoundsTransform([q.p_min for q in pri], [q.p_max for q in pri])
+    rng = np.random.default_rng(seed)
+    x = np.append(TRUTH_MED, 1.0) + rng.normal(size=(400, 5)) * np.append(TRUTH_STD, 0.1)
+    x[:, 3] = 57468.7 - 1e-6 - np.abs(rng.normal(size=400)) * TRUTH_STD[3]
+    warm_u = bounds.to_unbounded(x)
+    white = WhitenedPosterior(warm_u)
+    w0 = np.ascontiguousarray(white.to_w(warm_u[:n_chains]))
+    return WhitenedLogPosterior(lp, bounds, white), w0
+
+
+def phase_use_sigma(lc, lcf, seed=15):
+    """21: every kernel that branches on use_sigma against its plain version
+    with the intrinsic scatter on (SC2 with 5 parameters, SC3 with 8), both
+    sigma_types, float32 and float64: K1 or the SC3 log-posterior, K2 or
+    the SC3 half-step, K6a and K6b over each; K7 (the sigma column of the
+    gradient included), K9 and K7h over SC2."""
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch import kernels
+    from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.fitting import make_log_posterior
+    from lightcurve_fitting_tpu_torch.kernels import gradient, sc2
+    from lightcurve_fitting_tpu_torch.models import LogUniformPrior, ShockCooling2, ShockCooling3
+    from lightcurve_fitting_tpu_torch.parallel.hmc import hmc_transition_plain
+    from lightcurve_fitting_tpu_torch.parallel.nuts import make_nuts_transition
+
+    dev = torch.device("cuda")
+    lines = []
+    for which, sigma_type, label in itertools.product(("SC2", "SC3"), ("relative", "absolute"),
+                                                      ("f32", "f64")):
+        try:
+            if label == "f64":
+                config.set_compute_dtype(None)
+            rel, grel = (1e-5, 1e-4) if label == "f32" else (1e-10, 1e-9)
+            pri = ((flagship_priors() if which == "SC2" else sc3_priors())
+                   + [LogUniformPrior(0.01, 10.0)])
+            model, data = (ShockCooling2(lc), lc) if which == "SC2" else (ShockCooling3(lcf), lcf)
+            lp = make_log_posterior(model, data, pri, use_sigma=True, sigma_type=sigma_type,
+                                    device=dev)
+            lo, up = sigma_window(which)
+            rng = np.random.default_rng(seed)
+            p = torch.as_tensor(window_states(rng, lo, up, SIGMA_WALKERS, outside=0.01), device=dev)
+            what = f"21 {which} sigma={sigma_type} {label}"
+            d_lp = compare_ll(f"{what} log-posterior", lp(p), chunked(lp.forward_plain, p), rel,
+                              scale=lp.log_likelihood.term_scales(p))
+            off, sc = (lo + up) / 2, (up - lo) / 2 * (1 + 1e-6)
+            W = 4096 if which == "SC2" else 2048
+            x0 = torch.as_tensor((rng.uniform(lo, up, size=(W, len(lo))) - off) / sc, device=dev)
+            x0 = x0.float().reshape(2, W // 2, len(lo)).contiguous()
+            hs = check_half_step(f"{what} half-step", lp, off, sc, x0, seed, rel)
+            xl = torch.as_tensor((window_states(rng, lo, up, 8 * 512, outside=0.01) - off) / sc,
+                                 device=dev).float().reshape(8, 2, 256, len(lo)).contiguous()
+            lad = check_ladder(what, lp, off, sc, xl, seed, rel)
+            line = (f"{what}: log-posterior max |d| {d_lp[0]:.3e} (max |d|/scale {d_lp[1]:.2e}), "
+                    f"half-step {hs[1]} accepts, {hs[0]} near-ties, new logp max |d| "
+                    f"{hs[2]:.3e}, K6a {lad[1]} accepts, {lad[0]} near-ties, log L max |d| "
+                    f"{lad[2]:.3e}, K6b log L max |d| {lad[3]:.3e}")
+            if which == "SC2":
+                v, g = sc2.log_posterior_and_grad(lp, p)
+                parts = [sc2.log_posterior_and_grad_plain(lp, c) for c in p.split(PLAIN_CHUNK)]
+                vp, gp = torch.cat([a for a, _ in parts]), torch.cat([b for _, b in parts])
+                compare_ll(f"{what} K7 value", v, vp, rel, scale=lp.log_likelihood.term_scales(p))
+                gscale = torch.cat([lp.grad_term_scales(c) for c in p.split(PLAIN_CHUNK)])
+                gd = compare_grad(f"{what} K7 gradient", g, gp, gscale, grel)
+                if not bool((g[torch.isfinite(v), 4] != 0).all()):
+                    raise AssertionError(f"{what}: K7's sigma column is 0 at a finite walker")
+                target, w0 = whitened_sigma(lc, dev, 32, sigma_type)
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(seed)
+                q0 = torch.as_tensor(w0, device=dev)
+                z = torch.randn((32, 5), generator=gen, device=dev, dtype=torch.float64)
+                u = torch.rand((32, 7, 66), generator=gen, device=dev, dtype=torch.float64)
+                u_acc = torch.rand(32, generator=gen, device=dev, dtype=torch.float64)
+                n_used = torch.randint(8, 17, (32,), generator=gen, device=dev)
+                eps = torch.tensor(0.1, dtype=torch.float64, device=dev)
+                inv_mass = torch.ones(5, dtype=torch.float64, device=dev)
+                logp0 = target.logp_and_grad(q0)[0]
+                fn = target.logp_and_grad_plain if label == "f64" else target.logp_and_grad
+                gap = 1e-6 if label == "f64" else 1e-3
+                got = gradient.nuts_transition(target, q0, logp0, z, u, eps, inv_mass, 7)
+                ref = make_nuts_transition(fn, 5, 7, margins=True)(q0, logp0, z, u, eps, inv_mass)
+                k9 = compare_transitions(f"{what} K9", got, ref[:5], ref[5:], gap, 1e-8)
+                args = (q0, logp0, z, u_acc, n_used, eps, inv_mass, 16)
+                got = gradient.hmc_transition(target, *args)
+                ref = hmc_transition_plain(fn, *args, margins=True)
+                k7h = compare_transitions(f"{what} K7h", got, ref[:3], ref[3:], gap, 1e-8)
+                line += (f", K7 gradient max |d|/term scale {gd[1]:.2e}, K9 {k9[0]} near-ties "
+                         f"max |dq'| {k9[1]:.2e}, K7h {k7h[0]} near-ties max |dq'| {k7h[1]:.2e}")
+            lines.append(line)
+        finally:
+            config.set_compute_dtype(config.AUTO)
+    phase("use_sigma 21", f"{SIGMA_WALKERS} walkers from the window with sigma in [0.5, 3] dy "
+          f"units (1% outside the priors), tolerances as without the scatter over the term "
+          f"scale (0.5 x the summed |residual terms|, log term included, + |constant|): "
+          + "; ".join(lines) + f"; launches so far {dict(kernels.LAUNCHES)}")
+
+
+# ---------------------------------------------- the companion-shocking path
+
+# tests/test_companion_shocking.py:106-123: the synthetic SN 2017cbv-style Ia
+# curve's truth, priors and window (CS2); CS1's factors and CS3's angle added
+CS_TRUTH = dict(t_exp=57820.0, a13=0.5, Mc_v9_7=1.0, t_peak=57840.0, stretch=1.0)
+CS_PRIORS = {2: [(57815.0, 57825.0), (0.01, 5.0), (0.1, 10.0), (57835.0, 57845.0), (0.6, 1.6),
+                 (-5.0, 5.0), (-5.0, 5.0)]}
+CS_PRIORS[1] = CS_PRIORS[2][:5] + [(0.1, 10.0)] * 3
+CS_PRIORS[3] = CS_PRIORS[2][:2] + [(0.0, 180.0)] + CS_PRIORS[2][3:]
+CS_LO = {2: [57818.0, 0.2, 0.5, 57838.0, 0.8, -1.0, -1.0]}
+CS_UP = {2: [57822.0, 1.0, 2.0, 57842.0, 1.2, 1.0, 1.0]}
+CS_LO[1], CS_UP[1] = CS_LO[2][:5] + [0.8] * 3, CS_UP[2][:5] + [1.2] * 3
+CS_LO[3], CS_UP[3] = CS_LO[2][:2] + [0.0] + CS_LO[2][3:], CS_UP[2][:2] + [90.0] + CS_UP[2][3:]
+CS_WALKERS = 32768
+# the JAX package, float64 on the CPU, for CS2 on this curve (its generating
+# model), the priors and window above: the mean acceptance at 32768 walkers
+# x 300 steps, no burn-in, seed 7 (shard=False), and the stepping-stone log Z
+# at 4096 walkers x 16 rungs + beta = 1 x 150 + 150 steps, seed 1
+# (tests/test_torch_companion.py::jax_cs_references)
+CS_ACCEPTANCE_REF = 0.34658192952473954
+CS_LOGZ_REF = (-4776.580381286037, 0.09502462437832584)
+CS_KERNELS = ("sifto", "cs_logpost", "cs_half_step", "tempered_half_step", "ladder_init")
+
+
+def cs_priors(variant):
+    from lightcurve_fitting_tpu_torch.models import UniformPrior
+    return [UniformPrior(lo, hi) for lo, hi in CS_PRIORS[variant]]
+
+
+def ia_lc(seed=3):
+    """tests/test_companion_shocking.py::make_ia_lc with the port's LC and
+    CompanionShocking2 in float64 on the CPU: 18 epochs x UBVgri = 108
+    points of a Kasen shock + SiFTO at CS_TRUTH, 4% errors, noise from
+    seed 3. Returns the curve and the seed curve (every point 2e15) that the
+    generating model was built on: a model built on it has the truth's
+    SiFTO scaling, which is data-derived (reference models.py:716)."""
+    import numpy as np
+    from lightcurve_fitting_tpu_torch.filters import filtdict
+    from lightcurve_fitting_tpu_torch.lightcurve import LC
+    from lightcurve_fitting_tpu_torch.models import CompanionShocking2
+    rng = np.random.default_rng(seed)
+    filters = [filtdict[n] for n in ["U", "B", "V", "g", "r", "i"]]
+    epochs = np.linspace(CS_TRUTH["t_exp"] + 0.5, CS_TRUTH["t_peak"] + 15.0, 18)
+    t = np.repeat(epochs, len(filters))
+    f = np.array(filters * len(epochs))
+    lum = np.full(len(t), 2e15)
+    lc0 = LC([t, f, lum, 0.05 * lum], names=["MJD", "filter", "lum", "dlum"])
+    y_true = CompanionShocking2(lc0, device="cpu")(t, f, *CS_TRUTH.values(), 0.0, 0.0)
+    dy = 0.04 * np.maximum(y_true, 0.05 * np.median(y_true))
+    lc = LC([t, f, y_true + rng.normal(scale=dy), dy], names=["MJD", "filter", "lum", "dlum"])
+    lc.meta["redshift"] = 0.0
+    return lc, lc0
+
+
+def cs_model(variant, lc0, device=None):
+    from lightcurve_fitting_tpu_torch import models
+    cls = {1: models.CompanionShocking, 2: models.CompanionShocking2,
+           3: models.CompanionShocking3}[variant]
+    return cls(lc0, device=device)
+
+
+def cs_eval_ops(ll):
+    """The CS log-posterior on one walker: per point K1's Clenshaw (3 per
+    degree), ~50 flops and 10 special functions (the Kasen log, exp and two
+    powers, log T, exp, the phase division, the residual's), and K8's
+    7-step knot search and cubic (~16)."""
+    N, D1 = ll.bb_coeffs.shape
+    return N * (3 * (D1 - 1) + 50 + 16 + 10 * SFU)
+
+
+SIFTO_OPS = 16 + SFU      # K8 per element: search, cubic, subtractions; the division
+
+
+def cs_walkers(rng, variant, W, use_sigma=False):
+    """W walkers of the CS window, 1% outside the priors, the last eighth
+    with t_0 in (57821, 57824), after the first epochs (inside the prior)."""
+    import numpy as np
+    lo, up = CS_LO[variant], CS_UP[variant]
+    if use_sigma:
+        lo, up = lo + [0.5], up + [3.0]
+    p = window_states(rng, lo, up, W, outside=0.01)
+    p[W - W // 8:] = rng.uniform(lo, up, size=(W // 8, len(lo)))
+    p[W - W // 8:, 0] = rng.uniform(57821.0, 57824.0, W // 8)
+    return p
+
+
+def phase_k8(lc, lc0, rng_seed=16):
+    """22: K8 against sifto_points_plain at 131072 walkers x the 108 points,
+    and on a grid of 108 whole-day times whose phases fall on the knots, at
+    both ends, just and far outside, with NaN and infinite phases."""
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch import kernels
+    from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.kernels import cs
+    from lightcurve_fitting_tpu_torch.models.base import _quad_tensors
+    from lightcurve_fitting_tpu_torch.models.companion_shocking import sifto_points_plain
+
+    dev = torch.device("cuda")
+    W = HEADLINE_WALKERS
+    rng = np.random.default_rng(rng_seed)
+    f = np.asarray(lc["filter"])
+    t_lc = np.asarray(lc["MJD"], float)
+    t_grid = 57820.0 + np.arange(len(f)) - 30.0
+    cols = {"curve": [rng.uniform(57835.0, 57845.0, W), rng.uniform(0.6, 1.6, W),
+                      rng.uniform(-5.0, 5.0, W), rng.uniform(-5.0, 5.0, W)]}
+    g_tpk = 57820.0 + rng.integers(-20, 120, size=W).astype(float)
+    g_s = rng.choice([1.0, 0.5, 2.0, -1.0], size=W)
+    g_du = np.where(rng.random(W) < 0.5, rng.integers(-5, 6, W), rng.uniform(-5.0, 5.0, W))
+    g_di = np.where(rng.random(W) < 0.5, rng.integers(-5, 6, W), rng.uniform(-5.0, 5.0, W))
+    g_tpk[0], g_s[1], g_s[2] = np.nan, 0.0, np.inf
+    cols["grid"] = [g_tpk, g_s, g_du, g_di]
+    res = {}
+    n0 = kernels.LAUNCHES["sifto"]
+    for label in ("f32", "f64"):
+        try:
+            if label == "f64":
+                config.set_compute_dtype(None)
+            quad = _quad_tensors(cs_model(2, lc0).prepare_quad(f), dev)
+            peak = quad["sifto_rows"][quad["sifto_band"], 3].abs().amax(dim=-1)
+            tol = 1e-6 if label == "f32" else 1e-13
+            for name, t in (("curve", t_lc), ("grid", t_grid)):
+                t = torch.as_tensor(t, device=dev)
+                args = [torch.as_tensor(c[:, None], device=dev) for c in cols[name]]
+                got = cs.sifto(t, quad, *args)
+                want = sifto_points_plain(t, quad, *args)
+                if not torch.equal(got == 0, want == 0) or not torch.isfinite(got).all():
+                    raise AssertionError(f"K8 {label} {name}: the zero sets differ, or a value "
+                                         "is not finite")
+                d = (got - want).abs() / peak
+                if float(d.max()) > tol:
+                    raise AssertionError(f"K8 {label} {name}: max |d|/peak {float(d.max()):.3e} "
+                                         f"> {tol:.0e}")
+                res[(label, name)] = (float((got - want).abs().max()), float(d.max()),
+                                      int((got == 0).sum()))
+                if label == "f32" and name == "curve":
+                    k_ms = cuda_ms(lambda: cs.sifto(t, quad, *args))
+                    plain_ms = cuda_ms(lambda: sifto_points_plain(t, quad, *args), repeats=5)
+        finally:
+            config.set_compute_dtype(config.AUTO)
+    N = len(f)
+    rows = quad["sifto_rows"]
+    k8_bound = bound_fields(W * N * SIFTO_OPS, W * N * 4 + W * 4 * 8 + N * (4 + 8 + 2)
+                            + 4 * (rows.numel() + quad["sifto_knots"].numel()))
+    phase("K8 22", f"{W} walkers x {N} points, the curve's times and a grid of whole days "
+          f"(knots, both ends, outside; t_peak NaN, stretch 0 and inf): f32 max |d| "
+          f"{res[('f32', 'curve')][0]:.3e} W/Hz, max |d|/peak {max(res[('f32', n)][1] for n in cols):.2e}"
+          f" <= 1e-6; f64 max |d|/peak {max(res[('f64', n)][1] for n in cols):.2e} <= 1e-13; zero "
+          f"sets equal ({res[('f32', 'grid')][2]} zeros on the grid); "
+          f"{kernels.LAUNCHES['sifto'] - n0} comparison launches; K8 {k_ms:.4f} ms vs plain "
+          f"{plain_ms:.4f} ms (f32), bound {k8_bound['bound_ms']:.4f} ms ({k8_bound['bound_by']})")
+    return {"max_abs_err": res[("f32", "curve")][0], "ms": k_ms, "plain_ms": plain_ms, **k8_bound}
+
+
+def phase_cs_logpost(lc, lc0, rng_seed=17):
+    """23: the CS log-posterior of CS1, CS2, CS3 and CS1 with the intrinsic
+    scatter (9 parameters) against its plain version at 131072 walkers;
+    the CS half-step, and K6a and K6b over CS2 at 17 x 4096."""
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch import kernels
+    from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.fitting import _state_rescaling, make_log_posterior
+    from lightcurve_fitting_tpu_torch.kernels import common, cs, ladder
+    from lightcurve_fitting_tpu_torch.models import LogUniformPrior
+    from lightcurve_fitting_tpu_torch.parallel.evidence import make_beta_ladder
+
+    dev = torch.device("cuda")
+    W = HEADLINE_WALKERS
+    rng = np.random.default_rng(rng_seed)
+    res = {}
+    n0 = kernels.LAUNCHES["cs_logpost"]
+    for (variant, use_sigma), label in itertools.product(((1, False), (2, False), (3, False),
+                                                          (1, True)), ("f32", "f64")):
+        try:
+            if label == "f64":
+                config.set_compute_dtype(None)
+            pri = cs_priors(variant) + ([LogUniformPrior(0.01, 10.0)] if use_sigma else [])
+            lp = make_log_posterior(cs_model(variant, lc0), lc, pri, use_sigma=use_sigma,
+                                    device=dev)
+            p = torch.as_tensor(cs_walkers(rng, variant, W, use_sigma), device=dev)
+            got = lp(p)
+            what = f"CS{variant}{' sigma' if use_sigma else ''} {label}"
+            d = compare_ll(f"CS log-posterior {what}", got, chunked(lp.forward_plain, p),
+                           1e-5 if label == "f32" else 1e-10, scale=lp.log_likelihood.term_scales(p))
+            if not torch.isfinite(got[W - W // 8:]).all():
+                raise AssertionError(f"{what}: t < t_0 walkers must have finite log-posteriors")
+            res[(variant, use_sigma, label)] = d + (int(torch.isneginf(got).sum()),)
+            if label == "f32" and variant == 2:
+                k_ms = cuda_ms(lambda: lp(p))
+                plain_ms = cuda_ms(lambda: chunked(lp.forward_plain, p), repeats=3)
+                lp2 = lp
+        finally:
+            config.set_compute_dtype(config.AUTO)
+    launches_cmp = kernels.LAUNCHES["cs_logpost"] - n0
+    ll = lp2.log_likelihood
+    lp_bound = bound_fields(W * cs_eval_ops(ll), W * (7 * 8 + 8))
+    phase("CS log-posterior 23", f"{W} walkers (1% outside the priors, {W // 8} with t_0 after "
+          f"the first epochs): " + "; ".join(
+              f"CS{v}{' sigma' if s else ''} {lab} max |d| {r[0]:.3e} (max |d|/scale {r[1]:.2e}), "
+              f"{r[2]} at -inf" for (v, s, lab), r in res.items())
+          + f" (f32 <= 1e-5, f64 <= 1e-10 of the term scale; -inf sets equal); {launches_cmp} "
+          f"comparison launches; kernel {k_ms:.4f} ms vs plain {plain_ms:.4f} ms per {W}-walker "
+          f"CS2 batch (f32), bound {lp_bound['bound_ms']:.4f} ms ({lp_bound['bound_by']})")
+    out = {"logpost": {"max_abs_err": res[(2, False, "f32")][0], "ms": k_ms, "plain_ms": plain_ms,
+                       **lp_bound}}
+
+    # the CS half-step on the sampler's float32 rescaled state, CS2
+    kw = _state_rescaling(torch.float32, CS_LO[2], CS_UP[2], dev)
+    off, sc = kw["param_offset"], kw["param_scale"]
+    half = W // 2
+    x0 = torch.as_tensor((rng.uniform(CS_LO[2], CS_UP[2], size=(W, 7)) - off) / sc, device=dev)
+    x0 = x0.float().reshape(2, half, 7).contiguous()
+    hs = check_half_step("CS half-step", lp2, off, sc, x0, rng_seed, 1e-5)
+    l0 = cs.log_posterior(lp2, x0.reshape(W, 7), off, sc).reshape(2, half)
+    g = torch.Generator(device=dev)
+    g.manual_seed(rng_seed)
+    u_z = torch.rand(half, generator=g, device=dev)
+    j = torch.randint(0, half, (half,), generator=g, device=dev)
+    u_acc = torch.rand(half, generator=g, device=dev)
+    xk, lk = x0.clone(), l0.clone()
+    ak = torch.zeros((2, half), dtype=torch.int32, device=dev)
+    h_ms = cuda_ms(lambda: cs.stretch_half_step(lp2, xk, lk, 0, u_z, j, u_acc, 2.0, off, sc,
+                                                n_accept=ak, check_partners=False))
+    xp, lpp = x0.clone(), l0.clone()
+    h_plain_ms = cuda_ms(lambda: common.stretch_half_step_plain(
+        lambda q: chunked(lambda c: common.log_posterior_plain(lp2, c, off, sc), q), xp, lpp, 0,
+        u_z, j, u_acc, 2.0), repeats=3)
+    h_bound = bound_fields(half * (cs_eval_ops(ll) + PROPOSAL),
+                           half * (2 * 7 * 4 + 8 + 16 + 4) + half * (7 * 4 + 8 + 4))
+    out["half"] = {"max_abs_err": hs[2], "ms": h_ms, "plain_ms": h_plain_ms, **h_bound}
+
+    # K6a and K6b over CS2 at the evidence shape, 17 x 4096
+    R = EV_RUNGS + 1
+    kw = _state_rescaling("auto", CS_LO[2], CS_UP[2], dev)
+    off, sc = kw["param_offset"], kw["param_scale"]
+    xl = torch.as_tensor((window_states(rng, CS_LO[2], CS_UP[2], R * EV_WALKERS, 0.01) - off)
+                         / sc, device=dev).to(kw["dtype"]).reshape(R, 2, EV_WALKERS // 2, 7)
+    xl = xl.contiguous()
+    lad = check_ladder("CS2 ladder", lp2, off, sc, xl, rng_seed, 1e-5)
+    pri, lll = ladder.ladder_init(lp2, xl, off, sc)
+    betas = torch.as_tensor(make_beta_ladder(EV_RUNGS), device=dev)
+    shape = (R, 2, EV_WALKERS // 2)
+    uz = torch.rand(shape, generator=g, device=dev)
+    jl = torch.randint(0, EV_WALKERS // 2, shape, generator=g, device=dev)
+    ua = torch.rand(shape, generator=g, device=dev)
+    al = torch.zeros(shape, dtype=torch.int32, device=dev)
+    state = (xl.clone(), pri.clone(), lll.clone())
+    a_ms = cuda_ms(lambda: ladder.tempered_half_step(lp2, *state, betas, 0, uz, jl, ua, 2.0, off,
+                                                     sc, al, check_partners=False))
+    fns = ladder.plain_functions(lp2, off, sc)
+    state = (xl.clone(), pri.clone(), lll.clone())
+    a_plain_ms = cuda_ms(lambda: ladder.tempered_half_step_plain(*fns, *state, betas, 0, uz, jl,
+                                                                 ua, 2.0), repeats=3)
+    b_ms = cuda_ms(lambda: ladder.ladder_init(lp2, xl, off, sc))
+    b_plain_ms = cuda_ms(lambda: ladder.ladder_init_plain(*fns, xl), repeats=3)
+    n = R * EV_WALKERS // 2
+    out["k6a"] = {"max_abs_err": lad[2], "ms": a_ms, "plain_ms": a_plain_ms,
+                  **bound_fields(n * (cs_eval_ops(ll) + PROPOSAL),
+                                 n * (2 * 7 * 4 + 2 * 8 + 4 + 8 + 4) + R * 8
+                                 + n * (7 * 4 + 2 * 8 + 4))}
+    out["k6b"] = {"max_abs_err": lad[3], "ms": b_ms, "plain_ms": b_plain_ms,
+                  **bound_fields(2 * n * cs_eval_ops(ll), 2 * n * (7 * 4 + 2 * 8))}
+    phase("CS half-step and ladder 23", f"CS half-steps h=0,1 of {W} walkers (f32 state): {hs[1]} "
+          f"accepts, {hs[0]} near-ties, new states bit-equal where the flags agree, new-logp max "
+          f"|d| {hs[2]:.3e}; kernel {h_ms:.4f} ms vs plain {h_plain_ms:.4f} ms per half-step, bound "
+          f"{out['half']['bound_ms']:.4f} ms; K6a/K6b over CS2 at {R} x {EV_WALKERS} (1% outside "
+          f"the priors): {lad[1]} accepts, {lad[0]} near-ties, K6a log L max |d| {lad[2]:.3e}, "
+          f"K6b log L max |d| {lad[3]:.3e}; "
+          f"K6a {a_ms:.4f} ms (plain {a_plain_ms:.4f}, bound {out['k6a']['bound_ms']:.4f}), K6b "
+          f"{b_ms:.4f} ms (plain {b_plain_ms:.4f}, bound {out['k6b']['bound_ms']:.4f}) (f32)")
+    return out
+
+
+class PlainCalls:
+    """Counts the calls of the plain versions of the CS path's kernels while
+    it is entered (each wrapped where the wrappers look it up)."""
+
+    NAMES = [("lightcurve_fitting_tpu_torch.kernels", "log_posterior_plain"),
+             ("lightcurve_fitting_tpu_torch.kernels", "stretch_half_step_plain"),
+             ("lightcurve_fitting_tpu_torch.kernels.cs", "log_posterior_plain"),
+             ("lightcurve_fitting_tpu_torch.kernels.cs", "stretch_half_step_plain"),
+             ("lightcurve_fitting_tpu_torch.kernels.ladder", "tempered_half_step_plain"),
+             ("lightcurve_fitting_tpu_torch.kernels.ladder", "ladder_init_plain"),
+             ("lightcurve_fitting_tpu_torch.kernels.ladder", "replica_swap_plain"),
+             ("lightcurve_fitting_tpu_torch.kernels.ladder", "rung_block_terms_plain"),
+             ("lightcurve_fitting_tpu_torch.models.companion_shocking", "sifto_points_plain")]
+
+    def __enter__(self):
+        import importlib
+        self.count, self.saved = 0, []
+        for mod, name in self.NAMES:
+            m = importlib.import_module(mod)
+            fn = getattr(m, name)
+            self.saved.append((m, name, fn))
+
+            def wrapped(*a, _fn=fn, **k):
+                self.count += 1
+                return _fn(*a, **k)
+            setattr(m, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, fn in self.saved:
+            setattr(m, name, fn)
+
+
+def phase_cs_main_path(lc, lc0, smi):
+    """24: the companion-shocking main path, the launch counters reset first:
+    (a) lightcurve_mcmc CS2 as tests/test_companion_shocking.py:106-123;
+    (b) CS2 at 32768 x 300 from the window, timed over 4 runs, acceptance
+    held to the JAX package's float64 value; (c) lightcurve_evidence CS2,
+    log Z held to the JAX package's, compare_models CS2 against CS3 and
+    lightcurve_ptmcmc CS2;
+    (d) CompanionShocking{,2,3}.evaluate on the card at the medians."""
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch import kernels
+    from lightcurve_fitting_tpu_torch.fitting import (compare_models, lightcurve_evidence,
+                                                      lightcurve_mcmc, lightcurve_ptmcmc)
+
+    kernels.reset_launch_counts()
+    with PlainCalls() as plain:
+        s = lightcurve_mcmc(lc, cs_model(2, lc0), cs_priors(2), p_lo=CS_LO[2], p_up=CS_UP[2],
+                            nwalkers=32, nsteps=250, nsteps_burnin=300, seed=12, quiet=True)
+        med = np.median(s.flatchain, axis=0)
+        s_lo, s_hi = np.percentile(s.flatchain[:, 4], [16.0, 84.0])
+        acc_a = float(np.mean(s.acceptance_fraction))
+        ok = (abs(med[0] - CS_TRUTH["t_exp"]) < 1.0 and abs(med[3] - CS_TRUTH["t_peak"]) < 1.0
+              and abs(med[4] - CS_TRUTH["stretch"]) < 0.15 and 0.1 < acc_a < 0.9)
+        phase("CS main path 24a", f"lightcurve_mcmc CompanionShocking2 32 walkers x 300+250, "
+              f"seed 12: medians {fmt(med)}, acceptance {acc_a:.4f} (test_companion_shocking.py:"
+              f"119-123: t_0 within 1 d of {CS_TRUTH['t_exp']}, t_peak within 1 d of "
+              f"{CS_TRUTH['t_peak']}, s within 0.15 of 1, acceptance in (0.1, 0.9): "
+              f"{'met' if ok else 'MISSED'}); s 16-84 interval [{s_lo:.4f}, {s_hi:.4f}]")
+        if not ok:
+            raise AssertionError(f"24a: medians {med}, acceptance {acc_a}")
+
+        # (b) 32768 x 300, timed: four runs, seeds 7-10
+        times, accs = [], []
+        for seed in (7, 8, 9, 10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s = lightcurve_mcmc(lc, cs_model(2, lc0), cs_priors(2), p_lo=CS_LO[2], p_up=CS_UP[2],
+                                nwalkers=CS_WALKERS, nsteps=300, nsteps_burnin=0, seed=seed,
+                                quiet=True)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            accs.append(float(np.mean(s.acceptance_fraction)))
+            if seed == 7:
+                flat = s.flatchain
+        if abs(accs[0] - CS_ACCEPTANCE_REF) > 0.01:
+            raise AssertionError(f"24b: mean acceptance {accs[0]:.4f} not within 0.01 of the JAX "
+                                 f"package's {CS_ACCEPTANCE_REF:.4f}")
+        if flat.shape != (CS_WALKERS * 300, 7) or not np.isfinite(flat).all():
+            raise AssertionError("24b: bad chain")
+        med_b = np.median(flat, axis=0)
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            lightcurve_mcmc(lc, cs_model(2, lc0), cs_priors(2), p_lo=CS_LO[2], p_up=CS_UP[2],
+                            nwalkers=CS_WALKERS, nsteps=300, nsteps_burnin=0, seed=11, quiet=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        parts = {"half-steps": 0.0, "initial state": 0.0, "draws": 0.0, "other": 0.0}
+        for e in prof.key_averages():
+            if e.device_type.name != "CUDA":
+                continue
+            k, t_dev = e.key.lower(), e.self_device_time_total / 1e6
+            key = ("half-steps" if "stretch_half_step" in k else "initial state"
+                   if "cs_logpost" in k else "draws" if any(
+                       w in k for w in ("distribution", "random", "philox", "uniform")) else "other")
+            parts[key] += t_dev
+        busy = sum(parts.values())
+        evals = CS_WALKERS * 300
+        med_t = float(np.median(times))
+        phase("CS main path 24b", f"lightcurve_mcmc CompanionShocking2 {CS_WALKERS} walkers x 300 "
+              f"steps from the window: mean acceptance seed 7 {accs[0]:.4f} (JAX float64 CPU "
+              f"{CS_ACCEPTANCE_REF} +- 0.01), seeds 8-10 {fmt(accs[1:])}; medians {fmt(med_b)}; "
+              f"{evals / min(times):.4e} evals/s at the fastest and {evals / med_t:.4e} at the "
+              f"median of 4 runs ({', '.join(f'{t:.4f}' for t in times)} s, setup and chain "
+              f"readback included; on {smi}); profiled run {wall:.4f} s, device busy {busy:.4f} s "
+              f"(idle share {1 - busy / wall:.3f}): "
+              + ", ".join(f"{k} {v:.4f} s" for k, v in parts.items())
+              + f", host {wall - busy:.4f} s")
+
+        # (c) the evidence and the comparison of CS2 with CS3
+        kw = dict(nwalkers=EV_WALKERS, n_rungs=EV_RUNGS, nsteps=EV_STEPS,
+                  nsteps_burnin=EV_BURNIN, quiet=True)
+        t0 = time.perf_counter()
+        log_z, err, info = lightcurve_evidence(lc, cs_model(2, lc0), cs_priors(2), p_lo=CS_LO[2],
+                                               p_up=CS_UP[2], seed=1, **kw)
+        ev_s = time.perf_counter() - t0
+        if not np.isfinite(err) or abs(log_z - CS_LOGZ_REF[0]) > 4 * np.hypot(err, CS_LOGZ_REF[1]):
+            raise AssertionError(f"24c: log Z {log_z} +- {err} not within 4 hypot of the JAX "
+                                 f"package's {CS_LOGZ_REF}")
+        table = compare_models(lc, [cs_model(2, lc0), cs_model(3, lc0)],
+                               [cs_priors(2), cs_priors(3)], p_lo=[CS_LO[2], CS_LO[3]],
+                               p_up=[CS_UP[2], CS_UP[3]], labels=["CS2", "CS3"], seed=2, **kw)
+        rows = {table["model"][i]: (float(table["log_z"][i]), float(table["dlog_z"][i]))
+                for i in range(len(table))}
+        if not all(np.isfinite(v).all() for v in rows.values()):
+            raise AssertionError(f"24c: compare_models gave {rows}")
+        pt = lightcurve_ptmcmc(lc, cs_model(2, lc0), cs_priors(2), p_lo=CS_LO[2], p_up=CS_UP[2],
+                               nwalkers=64, n_rungs=6, nsteps=250, nsteps_burnin=350, seed=3,
+                               quiet=True)
+        med_pt = np.median(pt.flatchain, axis=0)
+        if pt.flatchain.shape != (250 * 64, 7) or not np.isfinite(pt.flatchain).all() \
+                or abs(med_pt[0] - CS_TRUTH["t_exp"]) > 1.0 \
+                or abs(med_pt[3] - CS_TRUTH["t_peak"]) > 1.0 or not np.isfinite(pt.log_z):
+            raise AssertionError(f"24c: PT chain {pt.flatchain.shape}, medians {med_pt}, log Z "
+                                 f"{pt.log_z}")
+        phase("CS main path 24c", f"lightcurve_evidence CompanionShocking2 {EV_WALKERS} walkers x "
+              f"{EV_RUNGS} rungs + beta = 1 x {EV_BURNIN}+{EV_STEPS}, seed 1: log Z {log_z:.4f} +- "
+              f"{err:.4f} (JAX float64 CPU {CS_LOGZ_REF}, within 4 hypot) in {ev_s:.3f} s; rung "
+              f"acceptance {fmt(info['acceptance'])}; compare_models CS2 vs CS3 (seed 2): "
+              + ", ".join(f"{k} {v[0]:.4f} +- {v[1]:.4f}" for k, v in rows.items())
+              + f"; lightcurve_ptmcmc CS2 64 walkers x 6 rungs + beta = 1 x 350+250: cold "
+              f"medians {fmt(med_pt)}, swap rates {fmt(pt.swap_rate)}, log Z {pt.log_z:.4f} +- "
+              f"{pt.log_z_err:.4f}")
+
+        # (d) the three models' evaluate on the card at the medians
+        t = np.asarray(lc["MJD"], float)
+        f = np.asarray(lc["filter"])
+        y, dy = np.asarray(lc["lum"], float), np.asarray(lc["dlum"], float)
+        chi = []
+        for variant, p in ((2, med_b), (1, list(med_b[:5]) + [1.0, 1.0, 1.0]),
+                           (3, list(med_b[:2]) + [0.0] + list(med_b[3:]))):
+            y_fit = cs_model(variant, lc0, device="cuda").evaluate(t, f, *p)
+            if y_fit.shape != t.shape or not np.isfinite(y_fit).all() or not (y_fit > 0).any():
+                raise AssertionError(f"24d: CS{variant} evaluate gave no finite luminosity")
+            chi.append(float(np.sum(((y - y_fit) / dy) ** 2) / (len(t) - 7)))
+    launches = dict(kernels.LAUNCHES)
+    for k in CS_KERNELS:
+        if launches[k] == 0:
+            raise AssertionError(f"kernel {k} was not launched on the CS path: {launches}")
+    if plain.count:
+        raise AssertionError(f"{plain.count} plain versions ran on the CS path")
+    phase("CS main path 24d", f"CompanionShocking2, CompanionShocking (factors 1) and "
+          f"CompanionShocking3 (theta 0) evaluate on the card at the 24b medians: chi2/dof "
+          f"{fmt(chi)}; no plain version ran on 24a-d; launches {launches}")
+    return launches
+
+
 def main():
     try:
         import torch
@@ -1971,6 +2593,11 @@ def main():
     k9 = phase_k9(lc)
     k7h = phase_k7h(lc)
     launches_grad = phase_gradient_main_path(lc, smi)
+    phase_use_sigma(lc, lcf)
+    lc_ia, lc0 = ia_lc()
+    k8 = phase_k8(lc_ia, lc0)
+    k_cs = phase_cs_logpost(lc_ia, lc0)
+    launches_cs = phase_cs_main_path(lc_ia, lc0, smi)
     if any(m.startswith("jax") or m.startswith("lightcurve_fitting_tpu.") or
            m == "lightcurve_fitting_tpu" for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
@@ -1978,6 +2605,7 @@ def main():
     src = "lightcurve_fitting_tpu_torch/kernels/csrc/sc2_logpost.cu"
     src3 = "lightcurve_fitting_tpu_torch/kernels/csrc/sc3_logpost.cu"
     src4 = "lightcurve_fitting_tpu_torch/kernels/csrc/epoch_bb.cu"
+    src_cs = "lightcurve_fitting_tpu_torch/kernels/csrc/companion.cu"
     kernels = [
         dict(name="sc2_logpost_kernel (K1)", route="cuda", source=src,
              replaces="lightcurve_fitting_tpu/fitting.py:62", launches=launches["sc2_logpost"],
@@ -2035,6 +2663,21 @@ def main():
              source="lightcurve_fitting_tpu_torch/kernels/csrc/gradient.cuh",
              replaces="lightcurve_fitting_tpu/parallel/hmc.py:241",
              launches=launches_grad["hmc_transition"], **k7h),
+        dict(name="sifto_kernel (K8)", route="cuda", source=src_cs,
+             replaces="lightcurve_fitting_tpu/models/companion_shocking.py:45",
+             launches=launches_cs["sifto"], **k8),
+        dict(name="cs_logpost_kernel (CS log-posterior)", route="cuda", source=src_cs,
+             replaces="lightcurve_fitting_tpu/models/companion_shocking.py:120",
+             launches=launches_cs["cs_logpost"], **k_cs["logpost"]),
+        dict(name="stretch_half_step_kernel<CSModel> (CS half-step)", route="cuda",
+             source=src_cs, replaces="lightcurve_fitting_tpu/parallel/sampler.py:86",
+             launches=launches_cs["cs_half_step"], **k_cs["half"]),
+        dict(name="tempered_half_step_kernel<CSModel> (K6a over CS)", route="cuda",
+             source=src_cs, replaces="lightcurve_fitting_tpu/parallel/evidence.py:60",
+             launches=launches_cs["tempered_half_step"], **k_cs["k6a"]),
+        dict(name="ladder_init_kernel<CSModel> (K6b over CS)", route="cuda",
+             source=src_cs, replaces="lightcurve_fitting_tpu/parallel/evidence.py:229",
+             launches=launches_cs["ladder_init"], **k_cs["k6b"]),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

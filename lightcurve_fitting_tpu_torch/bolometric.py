@@ -12,7 +12,7 @@ colors) are numpy/scipy copies of the JAX package's.
 Not in this slice of the port, and refused with NotImplementedError naming
 their ROADMAP Queue 1 item: the sequential ``spectrum_mcmc`` path
 (``batch_mode=False``, item 12), KDE prior chaining into single-filter
-epochs (``min_nfilt < 2``, items 9 and 12), corner plots and the other
+epochs (``min_nfilt < 2``, item 12), corner plots and the other
 figures (``save_corners=True``, ``show=True``, ``plot_bolometric_results``,
 ``plot_color_curves``, ``plot_chain``, ``spectrum_corner``: item 18), and
 sharding the epochs over a mesh (item 17).
@@ -331,7 +331,7 @@ def _refuse_unported(batch_mode, min_nfilt, save_corners, show, mesh):
     if min_nfilt < 2:
         raise NotImplementedError("KDE prior chaining into single-filter epochs (min_nfilt < 2) "
                                   "needs KDEPrior and the sequential path, not ported yet "
-                                  "(ROADMAP Queue 1 items 9 and 12)")
+                                  "(ROADMAP Queue 1 item 12)")
     if save_corners:
         raise NotImplementedError("corner plots (save_corners=True) are not ported yet "
                                   "(ROADMAP Queue 1 item 18); pass save_corners=False")

@@ -10,8 +10,9 @@ tempered-ladder drivers ``lightcurve_evidence``, ``lightcurve_ptmcmc`` and
 (:class:`LogPosterior`) over a leading walker axis; on a CUDA device a fit
 runs through the fused kernels of its model (``kernels/``: K1 and K2 for
 ShockCooling2, the SC3 log-posterior and half-step over K3 for
-ShockCooling3, the K6 ladder kernels over either, and on the gradient path
-K7, K9 and K7h for ShockCooling2), on the CPU through their plain PyTorch
+ShockCooling3, the CS log-posterior and half-step over K8 for
+CompanionShocking 1-3, the K6 ladder kernels over each, and on the gradient
+path K7, K9 and K7h for ShockCooling2), on the CPU through their plain PyTorch
 versions. Every entry point runs on CUDA unless it is given
 ``device="cpu"``, and raises where CUDA is missing.
 
@@ -27,7 +28,7 @@ from torch import nn
 
 from .core import config
 from .core.device import resolve_device
-from .models import GaussianPrior, KDEPrior, LogUniformPrior, UniformPrior
+from .models import GaussianPrior, KDEPrior, UniformPrior
 from .parallel.sampler import EnsembleSampler
 from .utils import units as u
 
@@ -44,7 +45,8 @@ class LogPosterior(nn.Module):
     (reference fitting.py:121-128, without the Python early-exit).
 
     On a CUDA tensor ``forward`` launches the fused log-posterior kernel
-    of the model (ShockCooling2 or ShockCooling3; any other model raises),
+    of the model (ShockCooling2, ShockCooling3 or CompanionShocking 1-3; any
+    other model raises),
     and, when the tensor requires a gradient, K7 (ShockCooling2), whose
     gradient the backward returns; on a CPU tensor it runs
     :meth:`forward_plain`."""
@@ -285,10 +287,10 @@ def lightcurve_mcmc(lc, model, priors=None, p_min=None, p_max=None, p_lo=None, p
     (default ``"cuda"``; without CUDA it raises: pass ``"cpu"`` for the plain
     versions). On CUDA every
     half-step is one launch of the model's fused half-step kernel (K2 for
-    ShockCooling2, its SC3 instantiation for ShockCooling3; other models
-    raise) and the walker state is float32 over the rescaled init window
-    (``state_dtype="auto"``); on the CPU the plain PyTorch step runs on
-    absolute float64 state.
+    ShockCooling2, its SC3 and CS instantiations for ShockCooling3 and
+    CompanionShocking 1-3; other models raise) and the walker state is
+    float32 over the rescaled init window (``state_dtype="auto"``); on the
+    CPU the plain PyTorch step runs on absolute float64 state.
 
     * ``seed`` makes the chains reproducible: the draws of global step i
       depend only on (seed, i), so progress segments do not change the chain;
@@ -400,7 +402,7 @@ def _refuse_gradient_unported(priors, mesh=None, checkpoint_every=None, checkpoi
         raise NotImplementedError("checkpoint/resume of the gradient fits is not ported yet "
                                   "(ROADMAP Queue 1 item 16)")
     if any(isinstance(p, KDEPrior) for p in priors):
-        raise NotImplementedError("KDEPrior is not ported yet (ROADMAP Queue 1 item 9)")
+        raise NotImplementedError("KDEPrior is not ported yet (ROADMAP Queue 1 item 12)")
 
 
 def _gradient_setup(lc, model, priors, use_sigma, sigma_type, device):
@@ -470,7 +472,7 @@ def lightcurve_hmc(lc, model, priors, p_lo=None, p_up=None, nchains=16, nsamples
     configured one (``core.config``; AUTO gives float32 on CUDA). Not ported
     yet, and refused with NotImplementedError: ``mesh`` (ROADMAP Queue 1 item
     17), ``checkpoint_every``, ``checkpoint_file`` and ``resume_from`` (item
-    16), a KDEPrior (item 9); the goodness-of-fit print after the fit is not
+    16), a KDEPrior (item 12); the goodness-of-fit print after the fit is not
     called here (item 15).
 
     Returns a :class:`_HMCFitResult`.
@@ -592,7 +594,7 @@ def lightcurve_map(lc, model, priors, p_lo=None, p_up=None, n_starts=64, n_iter=
     mode inverted into a covariance: the Hessian by central differences of
     K7's float64 gradient (a float64 twin of the log-posterior when the
     compute dtype is float32). On CUDA the model must be ShockCooling2.
-    KDEPrior raises NotImplementedError (ROADMAP Queue 1 item 9); the
+    KDEPrior raises NotImplementedError (ROADMAP Queue 1 item 12); the
     goodness-of-fit print after the fit is not called here (item 15).
 
     Returns a :class:`_MAPFitResult`; ``result.flatchain`` holds the Laplace
@@ -689,14 +691,12 @@ def _prior_log_norm(prior):
     MCMC does not care). The stepping-stone ratio Z(1)/Z(0) normalizes the
     prior automatically, so the tempered drivers call this only to *validate
     properness* (an improper prior has no evidence) and discard the value.
-    Uniform priors normalize analytically; Gaussian and log-uniform ones
-    integrate numerically on a dense grid of the port's ``logp`` in float64
-    (Gaussian supports windowed to mean +/- 15 sigma); anything else
-    unbounded is rejected. Other priors (KDEPrior: ROADMAP Queue 1 item 9)
-    raise NotImplementedError."""
-    if not isinstance(prior, (UniformPrior, LogUniformPrior, GaussianPrior)):
-        raise NotImplementedError(f"the evidence normalization of {type(prior).__name__} is "
-                                  "not ported (KDEPrior: ROADMAP Queue 1 item 9)")
+    Uniform priors normalize analytically; every other proper prior, a
+    user-defined ``Prior`` subclass included, integrates its ``logp``
+    numerically on a dense closed grid in float64 (Gaussian supports
+    windowed to mean +/- 15 sigma); anything else unbounded is rejected.
+    (KDEPrior, whose window the JAX package takes from its samples, is not
+    ported: ROADMAP Queue 1 item 12.)"""
     lo = getattr(prior, "p_min", -np.inf)
     hi = getattr(prior, "p_max", np.inf)
     if not hi > lo:
@@ -717,7 +717,8 @@ def _prior_log_norm(prior):
     # __call__ is -inf exactly at the bounds, which would drop the edge
     # slivers (the density often peaks at a bound)
     g = np.linspace(lo, hi, 4097)
-    vals = prior.logp(torch.as_tensor(g, dtype=torch.float64)).numpy()
+    vals = np.broadcast_to(torch.as_tensor(prior.logp(torch.as_tensor(g, dtype=torch.float64)),
+                                           dtype=torch.float64).numpy(), g.shape)
     if np.any(np.isposinf(vals)):
         raise ValueError(f"{prior!r} has a divergent density on its support; "
                          "its evidence normalization is undefined")
@@ -778,8 +779,8 @@ def lightcurve_evidence(lc, model, priors, p_lo=None, p_up=None, nwalkers=64, n_
 
     Same signature and behavior as ``lightcurve_fitting_tpu.fitting.
     lightcurve_evidence``, plus ``device`` (default ``"cuda"``, raising
-    without it); on CUDA the model must be ShockCooling2 or
-    ShockCooling3 (the models with kernels). Differences in the returned
+    without it); on CUDA the model must be ShockCooling2, ShockCooling3 or
+    CompanionShocking 1-3 (the models with kernels). Differences in the returned
     ``log_z`` between models are log Bayes factors, given those priors.
 
     Returns ``(log_z, log_z_err, info)``; ``info`` has the ladder, per-rung
@@ -787,7 +788,7 @@ def lightcurve_evidence(lc, model, priors, p_lo=None, p_up=None, nwalkers=64, n_
 
     Not ported yet, and refused with ``NotImplementedError``: ``mesh``
     (ROADMAP Queue 1 item 17), ``checkpoint_every``, ``checkpoint_file`` and
-    ``resume_from`` (item 16), a ``KDEPrior`` (item 9).
+    ``resume_from`` (item 16), a ``KDEPrior`` (item 12).
     """
     from .parallel.evidence import refuse_unported, stepping_stone_evidence
     refuse_unported(mesh, checkpoint_every, checkpoint_file, resume_from)

@@ -25,10 +25,13 @@ def log_likelihood_from_numpy(quad, t, y, dy, use_sigma=False, sigma_type="relat
 
     ``model`` is the port model whose physics the likelihood evaluates
     (default: a ShockCooling2, the flagship; a ShockCooling3 takes the
-    quadrature dict). ``dtype`` is the compute dtype
-    the buffers must have; it has to agree with what ``core.config`` resolves
-    for ``device`` (set it with ``config.set_compute_dtype``), because the
-    plain path reads the configuration when it runs."""
+    quadrature dict; a companion-shocking model takes the table dict with
+    the SiFTO entries of its ``prepare_quad``, to which the per-band rows
+    of ``sifto_band_rows`` are added where the dict lacks them). ``dtype``
+    is the compute dtype the buffers must have; it has to agree with what
+    ``core.config`` resolves for ``device`` (set it with
+    ``config.set_compute_dtype``), because the plain path reads the
+    configuration when it runs."""
     device = torch.device(device)
     resolved = config.get_compute_dtype(device) or torch.float64
     if dtype is not None and dtype != resolved:
@@ -38,6 +41,9 @@ def log_likelihood_from_numpy(quad, t, y, dy, use_sigma=False, sigma_type="relat
         from .models import ShockCooling2
         model = ShockCooling2(device=device)
     quad = {k: np.asarray(v) for k, v in quad.items()}
+    if "sifto_c" in quad and "sifto_rows" not in quad:
+        from .models.companion_shocking import sifto_band_rows
+        quad["sifto_rows"], quad["sifto_band"] = sifto_band_rows(quad["sifto_c"], quad["band_ids"])
     return LogLikelihood.from_quad(model, quad, t, y, dy, use_sigma, sigma_type, device=device)
 
 
@@ -53,7 +59,8 @@ def priors_from_jax(priors):
         elif name in ("UniformPrior", "LogUniformPrior"):
             out.append(getattr(_priors, name)(float(p.p_min), float(p.p_max)))
         else:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP Queue 1 item 9)")
+            raise NotImplementedError(f"{name} has no port counterpart here (KDEPrior: ROADMAP "
+                                      "Queue 1 item 12)")
     return out
 
 

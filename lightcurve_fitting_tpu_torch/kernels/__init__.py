@@ -19,6 +19,9 @@ and their plain PyTorch versions.
   ``sc2_logpost.cu``: K7, the log-posterior and its gradient (one warp per
   walker), K9, the NUTS transition, and K7h, the HMC transition, both in
   the whitened space of the gradient samplers.
+* ``csrc/companion.cu`` (:mod:`.cs`): K8, the SiFTO spline, and the fused
+  log-posterior of CompanionShocking 1-3 with its half-step and its
+  tempered-ladder instantiations.
 * ``csrc/stretch.cuh``: the half-step template and the device code they
   share, ``csrc/planck.cuh`` the Planck band sum of K3, K4 and K4s;
   :mod:`.common` their Python side and the plain stretch move.
@@ -29,7 +32,7 @@ package needs neither nvcc nor a GPU. :func:`log_posterior` and
 :func:`log_posterior_and_grad` to K7.
 """
 
-from . import epoch_bb, gradient, ladder, quantile, sc2, sc3  # noqa: F401
+from . import cs, epoch_bb, gradient, ladder, quantile, sc2, sc3  # noqa: F401
 from .common import (LAUNCHES, reset_launch_counts, log_posterior_plain,  # noqa: F401
                      stretch_half_step_plain)
 from .gradient import hmc_transition, nuts_transition  # noqa: F401
@@ -40,13 +43,15 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "module_for", "log_posterior",
 
 def module_for(model):
     """The kernel module whose fused log-posterior evaluates ``model``:
-    :mod:`.sc2` for ShockCooling2, :mod:`.sc3` for ShockCooling3. Any other
-    model raises NotImplementedError."""
-    from ..models import ShockCooling2, ShockCooling3
+    :mod:`.sc2` for ShockCooling2, :mod:`.sc3` for ShockCooling3, :mod:`.cs`
+    for CompanionShocking 1-3. Any other model raises NotImplementedError."""
+    from ..models import BaseCompanionShocking, ShockCooling2, ShockCooling3
     if isinstance(model, ShockCooling3):
         return sc3
     if isinstance(model, ShockCooling2):
         return sc2
+    if isinstance(model, BaseCompanionShocking):
+        return cs
     raise NotImplementedError(f"{type(model).__name__} has no fused CUDA log-posterior yet "
                               "(ROADMAP Queue 1 item 7)")
 

@@ -72,7 +72,13 @@ def _declare(lib):
     lib.epoch_summary_launch.argtypes = [vp, ci, ci, ci, vp]
     lib.percentile_launch.restype = ci
     lib.percentile_launch.argtypes = [vp, ci, vp]
-    for prefix in ("sc2", "sc3"):
+    lib.cs_logpost_launch.restype = ci
+    lib.cs_logpost_launch.argtypes = [vp, ci, ci, vp, ci, ci, vp, vp]
+    lib.cs_half_step_launch.restype = ci
+    lib.cs_half_step_launch.argtypes = half_step
+    lib.sifto_launch.restype = ci
+    lib.sifto_launch.argtypes = [vp, ci, ci, vp]
+    for prefix in ("sc2", "sc3", "cs"):
         fn = getattr(lib, f"{prefix}_tempered_half_step_launch")
         fn.restype = ci
         fn.argtypes = [vp, ci, ci, vp, ci, vp, vp, vp, ci, ci, ci, vp, vp, vp, cd, vp, vp]

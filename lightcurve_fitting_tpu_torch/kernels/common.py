@@ -1,5 +1,5 @@
-"""What the kernel wrappers of :mod:`.sc2`, :mod:`.sc3`, :mod:`.epoch_bb`,
-:mod:`.quantile`, :mod:`.ladder` and :mod:`.gradient` share: the launch
+"""What the kernel wrappers of :mod:`.sc2`, :mod:`.sc3`, :mod:`.cs`,
+:mod:`.epoch_bb`, :mod:`.quantile`, :mod:`.ladder` and :mod:`.gradient` share: the launch
 counts, input checks, the parameter-block fields of the priors and the
 affine map, and the plain PyTorch stretch move (the plain version of every
 half-step kernel).
@@ -11,7 +11,7 @@ import torch
 __all__ = ["LAUNCHES", "reset_launch_counts", "MAX_DIM", "absolute_params", "log_posterior_plain",
            "propose_stretch", "half_update", "stretch_half_step_plain"]
 
-MAX_DIM = 8  # LP_MAX_DIM of csrc/stretch.cuh
+MAX_DIM = 9  # LP_MAX_DIM of csrc/stretch.cuh
 
 #: kernel launches by name; each wrapper adds one where it launches, and
 #: nothing else does
@@ -19,7 +19,8 @@ LAUNCHES = {"sc2_logpost": 0, "stretch_half_step": 0, "bandflux": 0, "sc3_logpos
             "sc3_half_step": 0, "epoch_logpost": 0, "epoch_logpost_grad": 0,
             "epoch_half_step": 0, "epoch_summary": 0, "percentile": 0,
             "tempered_half_step": 0, "ladder_init": 0, "replica_swap": 0, "rung_block_terms": 0,
-            "logpost_grad": 0, "nuts_transition": 0, "hmc_transition": 0}
+            "logpost_grad": 0, "nuts_transition": 0, "hmc_transition": 0, "sifto": 0,
+            "cs_logpost": 0, "cs_half_step": 0}
 
 FLOATS = (torch.float32, torch.float64)
 
@@ -42,10 +43,11 @@ def check(t, name, shape, dtypes, device):
 
 def check_buffers(ll, names, device):
     """The log-likelihood buffers a kernel reads: contiguous, on ``device``,
-    floating ones in the compute dtype."""
+    floating ones in the compute dtype, indices int64, masks bool."""
     for name in names:
         buf = getattr(ll, name)
-        want = ll.compute_dtype if buf.is_floating_point() else torch.int64
+        want = ll.compute_dtype if buf.is_floating_point() else (
+            torch.bool if buf.dtype == torch.bool else torch.int64)
         if buf.device != device or buf.dtype != want or not buf.is_contiguous():
             raise ValueError(f"log-likelihood buffer {name} must be a contiguous "
                              f"{want} tensor on {device}")

@@ -3,7 +3,7 @@
 // half-step (K2) as a template over a model policy.
 //
 // A model policy M (SC2Model in sc2_logpost.cu, SC3Model in sc3_logpost.cu,
-// EpochBBModel in epoch_bb.cu) provides
+// EpochBBModel in epoch_bb.cu, CSModel in companion.cu) provides
 //   typedef ... Params;  // the model's parameter block (8-byte fields)
 //   typedef ... Data;    // the per-point data as the kernel reads it
 //   static size_t stage_bytes(const Params&);             // host and device
@@ -24,7 +24,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#define LP_MAX_DIM 8
+#define LP_MAX_DIM 9   // CompanionShocking with the intrinsic scatter
 #define LP_THREADS 128
 
 __device__ __forceinline__ float m_pow(float a, float b) { return powf(a, b); }

@@ -248,12 +248,17 @@ class LogLikelihood(nn.Module):
     The quadrature path keeps one row per band, ``nodes``, ``weights`` and
     ``k_ext`` (B, K), with ``band_ids`` (N,) int64 naming each point's row
     and ``n_native`` (B,) int64, each band's node count before its
-    zero-weight padding. The absolute float64 times feed the plain path's
+    zero-weight padding. A companion-shocking model's SiFTO template rides
+    beside the table: ``sifto_rows`` (B, 4, S-1), one row of spline
+    coefficients per band, ``sifto_band`` (N,) int64 naming each point's
+    row, ``sifto_knots`` (S,) and the masks ``is_U``, ``is_i``, ``is_r``
+    (N,) bool. The absolute float64 times feed the plain path's
     :func:`~lightcurve_fitting_tpu_torch.ops.mathx.hot_phase`. The constants
     ``log_norm_const``, ``offset`` and ``inv_yscale`` are host float64.
     """
 
     TABLE_BUFFERS = ("bb_coeffs", "bb_s_a", "bb_s_b")
+    SIFTO_MASKS = ("is_U", "is_i", "is_r")
 
     def __init__(self, model, quad, t, y_n, dy_n, sigma_units, log_norm_const, offset,
                  inv_yscale, use_sigma, sigma_type, device):
@@ -298,6 +303,15 @@ class LogLikelihood(nn.Module):
             self.register_buffer("n_native", torch.as_tensor(
                 native_lengths(np.asarray(quad["weights"])[first]), dtype=torch.int64,
                 device=device))
+        self.has_sifto = "sifto_rows" in quad
+        if self.has_sifto:
+            for name in ("sifto_rows", "sifto_knots"):
+                self.register_buffer(name, buf(quad[name]))
+            self.register_buffer("sifto_band", torch.as_tensor(
+                np.asarray(quad["sifto_band"]), dtype=torch.int64, device=device))
+            for name in self.SIFTO_MASKS:
+                self.register_buffer(name, torch.as_tensor(np.asarray(quad[name], bool),
+                                                           device=device))
 
     @classmethod
     def from_quad(cls, model, quad, t, y, dy, use_sigma=False, sigma_type="relative",
@@ -319,12 +333,18 @@ class LogLikelihood(nn.Module):
     @property
     def quad(self):
         """The per-point quad dict ``_eval_points`` reads (the quadrature
-        rows gathered per point, as the JAX package's ``prepare_quad``
-        gives them)."""
+        rows and the SiFTO coefficients gathered per point, as the JAX
+        package's ``prepare_quad`` gives them)."""
         if self.use_band_table:
-            return {name: getattr(self, name) for name in self.TABLE_BUFFERS}
-        return {"nodes": self.nodes[self.band_ids], "weights": self.weights[self.band_ids],
-                "k_ext": self.k_ext[self.band_ids], "band_ids": self.band_ids}
+            quad = {name: getattr(self, name) for name in self.TABLE_BUFFERS}
+        else:
+            quad = {"nodes": self.nodes[self.band_ids], "weights": self.weights[self.band_ids],
+                    "k_ext": self.k_ext[self.band_ids], "band_ids": self.band_ids}
+        if self.has_sifto:
+            quad.update({name: getattr(self, name) for name in self.SIFTO_MASKS},
+                        sifto_c=self.sifto_rows[self.sifto_band], sifto_knots=self.sifto_knots,
+                        sifto_rows=self.sifto_rows, sifto_band=self.sifto_band)
+        return quad
 
     def residual_terms(self, p):
         """(W, N) per-point terms of the residual sum of the rows of ``p``
@@ -343,6 +363,21 @@ class LogLikelihood(nn.Module):
             return torch.log(2 * np.pi * sigma2) + (self.y - y_fit) ** 2.0 / sigma2
         r = (self.y - y_fit) * self.inv_dy
         return r * r
+
+    def term_scales(self, p, chunk=16384):
+        """(...,) float64: the yardstick of the log-likelihood's rounding at
+        the absolute parameters ``p`` (..., ndim), plain PyTorch: 0.5 x the
+        summed magnitudes of the per-point residual terms (the log term of
+        the intrinsic scatter included, non-finite terms counted as 0; they
+        cancel near an optimum, their rounding does not) plus the magnitude
+        of the constant added to their sum. Without the scatter it is
+        |ll - c| + |c|. Evaluated ``chunk`` rows at a time."""
+        const = abs(self.offset if self.use_sigma else self.log_norm_const)
+        flat = p.reshape(-1, p.shape[-1]).to(torch.float64)
+        parts = [0.5 * torch.nan_to_num(self.residual_terms(c).double().abs(), nan=0.0,
+                                        posinf=0.0).sum(dim=-1) + const
+                 for c in flat.split(chunk)]
+        return torch.cat(parts).reshape(p.shape[:-1])
 
     def forward(self, p):
         """Plain torch log-likelihood of each row of ``p`` (W, ndim), the

@@ -3,9 +3,9 @@ host-side (numpy or Python scalars) and on tensors: out-of-bounds parameters
 map to -inf via ``where`` masking instead of Python branching, so the same
 objects work on a batch of walkers.
 
-The fused kernel K1 (``kernels/csrc/sc2_logpost.cu``) evaluates the three
-closed-form priors from :meth:`Prior.kernel_spec`; :class:`KDEPrior` waits for
-ROADMAP Queue 1 item 9.
+The fused kernels (``kernels/csrc/``) evaluate the three closed-form priors
+from :meth:`Prior.kernel_spec`; any other prior runs on the plain (CPU) path
+only. :class:`KDEPrior` waits for ROADMAP Queue 1 item 12.
 """
 
 import numpy as np
@@ -44,10 +44,13 @@ class Prior:
 
     def kernel_spec(self):
         """(kind, p_min, p_max, mean, stddev) for the fused kernel: kind 0 is
-        uniform, 1 log-uniform, 2 Gaussian."""
+        uniform, 1 log-uniform, 2 Gaussian; the kernels take these three
+        kinds only."""
         if self.kind is None:
             raise NotImplementedError(
-                f"{self.__class__.__name__} has no CUDA kernel form")
+                f"{self.__class__.__name__} has no CUDA kernel form: the kernels take the "
+                "uniform, log-uniform and Gaussian priors only (kinds 0-2); run other priors "
+                'with device="cpu"')
         return (self.kind, float(self.p_min), float(self.p_max),
                 float(getattr(self, "mean", 0.0)), float(getattr(self, "stddev", 1.0)))
 
@@ -142,4 +145,4 @@ class KDEPrior(Prior):
     """Gaussian kernel density prior: not in this slice of the port."""
 
     def __init__(self, *args, **kwargs):
-        raise NotImplementedError("KDEPrior is not ported yet (ROADMAP Queue 1 item 9)")
+        raise NotImplementedError("KDEPrior is not ported yet (ROADMAP Queue 1 item 12)")

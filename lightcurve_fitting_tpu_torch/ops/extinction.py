@@ -1,12 +1,13 @@
-"""Fitzpatrick (1999) R_V-dependent Galactic extinction law, host side.
+"""Fitzpatrick (1999) R_V-dependent Galactic extinction law.
 
-The numpy half of ``lightcurve_fitting_tpu/ops/extinction.py``: UV uses the
-Fitzpatrick & Massa (1990) parametrization with the F99 coefficients;
+``lightcurve_fitting_tpu/ops/extinction.py`` on numpy and tensors: UV uses
+the Fitzpatrick & Massa (1990) parametrization with the F99 coefficients;
 optical/IR is a natural cubic spline through the standard F99 anchor points.
-:func:`extinction_factor` applies a sampled E(B-V) to the curve precomputed
-at static quadrature nodes, on tensors. ``f99_k_jax`` (the curve at traced
-wavelengths) has no caller in the JAX package and waits for
-``ops/interpolate.py::ppoly_eval`` (ROADMAP Queue 1 item 9).
+On the host: :func:`fitzpatrick99`, :func:`extinction_law`,
+:func:`f99_curve`. On tensors: :func:`f99_k_tensor`, the curve at
+wavelengths held in a tensor (the JAX package's ``f99_k_jax``), and
+:func:`extinction_factor`, which applies a sampled E(B-V) to the curve
+precomputed at static quadrature nodes.
 """
 
 import functools
@@ -14,10 +15,11 @@ import functools
 import numpy as np
 import torch
 
-from .interpolate import natural_cubic_coeffs, ppoly_eval_np
+from .interpolate import natural_cubic_coeffs, ppoly_eval, ppoly_eval_np
 from ..core.constants import C_AA_THZ
 
-__all__ = ["fitzpatrick99", "extinction_law", "f99_curve", "extinction_factor", "EXT_COEF"]
+__all__ = ["fitzpatrick99", "extinction_law", "f99_curve", "f99_k_tensor", "extinction_factor",
+           "EXT_COEF"]
 
 EXT_COEF = -0.4 * np.log(10.0)   # 10^(A/-2.5) = exp(EXT_COEF * A)
 
@@ -89,6 +91,29 @@ def extinction_law(freq, ebv, rv=3.1):
     ebv_arr = np.atleast_1d(np.asarray(ebv, float))
     A = np.squeeze(np.multiply.outer(ebv_arr, k))
     return 10.0 ** (A / -2.5)
+
+
+def f99_k_tensor(wave_aa, rv=3.1):
+    """A(lambda)/E(B-V) at the wavelengths (angstrom) of a float tensor, in
+    its dtype and on its device (the JAX package's ``f99_k_jax``). R_V must
+    be a concrete float (it is never sampled in any reference model)."""
+    knots, coeffs = _spline_for_rv(float(rv))
+    x = 1e4 / wave_aa
+    k_spline = ppoly_eval(knots, coeffs, x)
+    k_uv = _uv_k_tensor(x, float(rv))
+    return torch.where(x >= _UV_CUT, k_uv, k_spline)
+
+
+def _uv_k_tensor(x, rv):
+    """:func:`_uv_k` on a tensor, in the JAX package's ``_uv_k_jax`` order."""
+    c2u = -0.824 + 4.717 / rv
+    c1u = 2.030 - 3.007 * c2u
+    x2 = x * x
+    d = x2 / ((x2 - _X0 ** 2) ** 2 + x2 * _GAMMA ** 2)
+    k = c1u + c2u * x + _C3 * d
+    y = x - _C5
+    fuv = _C4 * (0.5392 * y ** 2 + 0.05644 * y ** 3)
+    return k + torch.where(x > _C5, fuv, torch.zeros_like(fuv)) + rv
 
 
 def extinction_factor(k, ebv):

@@ -177,6 +177,26 @@ def test_prior_log_norm_matches_jax(prior):
     assert abs(got - want) <= 1e-12 * max(1.0, abs(want)), (got, want)
 
 
+def test_prior_log_norm_of_a_custom_prior_matches_jax():
+    """A user-defined prior with finite bounds (a density that peaks at the
+    lower bound and decays as exp(-p^1.5)) normalizes as in the JAX package:
+    its logp integrated on the same closed 4097-point grid."""
+    from lightcurve_fitting_tpu.models.priors import Prior as JPrior
+
+    class JDecay(JPrior):
+        def logp(self, p):
+            return -jnp.abs(p) ** 1.5
+
+    class TDecay(Prior):
+        def logp(self, p):
+            return -torch.abs(p) ** 1.5
+
+    for lo, hi in ((0.0, 4.0), (-1.0, 2.5)):
+        want = jfit._prior_log_norm(JDecay(lo, hi))
+        got = tfit._prior_log_norm(TDecay(lo, hi))
+        assert abs(got - want) <= 1e-12 * max(1.0, abs(want)), (got, want)
+
+
 def test_prior_log_norm_refusals():
     with pytest.raises(ValueError, match="unbounded"):
         tfit._prior_log_norm(TU(0.0, np.inf))
@@ -187,9 +207,9 @@ def test_prior_log_norm_refusals():
         def logp(self, p):
             return -p
 
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tfit._prior_log_norm(Custom(0.0, 1.0))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="unbounded"):
+        tfit._prior_log_norm(Custom(0.0, np.inf))
+    with pytest.raises(NotImplementedError, match="item 12"):
         KDEPrior(np.zeros(10))
 
 

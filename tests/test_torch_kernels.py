@@ -184,25 +184,26 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build._nvcc()
     srcs, _ = build._sources()
-    assert [os.path.basename(s) for s in srcs] == ["epoch_bb.cu", "ladder.cu", "quantile.cu",
-                                                   "sc2_logpost.cu", "sc3_logpost.cu"]
+    assert [os.path.basename(s) for s in srcs] == ["companion.cu", "epoch_bb.cu", "ladder.cu",
+                                                   "quantile.cu", "sc2_logpost.cu",
+                                                   "sc3_logpost.cu"]
 
 
 def test_param_block_layout_matches_the_c_struct():
     """Every field of struct SC2Params is 8 bytes wide: 8 pointers, 5 ints,
-    9 doubles, then 7 arrays of LP_MAX_DIM = 8 (no padding anywhere)."""
+    9 doubles, then 7 arrays of LP_MAX_DIM = 9 (no padding anywhere)."""
     with open(os.path.join(build.CSRC_DIR, "sc2_logpost.cu")) as f:
         src = f.read()
     with open(os.path.join(build.CSRC_DIR, "stretch.cuh")) as f:
-        assert "#define LP_MAX_DIM 8" in f.read() and sc2.MAX_DIM == 8
-    assert ctypes.sizeof(sc2._SC2Params) == 8 * (8 + 5 + 9) + 7 * 8 * 8
+        assert "#define LP_MAX_DIM 9 " in f.read() and sc2.MAX_DIM == 9
+    assert ctypes.sizeof(sc2._SC2Params) == 8 * (8 + 5 + 9) + 7 * 9 * 8
     assert "struct SC2Params {" in src
     assert _c_fields("SC2Params") == [name for name, _ in sc2._SC2Params._fields_]
 
 
 @pytest.mark.parametrize("struct,mirror,size", [
     # 10 pointers, 6 ints, 19 doubles, 7 arrays of LP_MAX_DIM
-    ("SC3Params", sc3._SC3Params, 8 * (10 + 6 + 19) + 7 * 8 * 8),
+    ("SC3Params", sc3._SC3Params, 8 * (10 + 6 + 19) + 7 * 9 * 8),
     # 8 pointers, 6 ints, 4 doubles
     ("BandfluxParams", sc3._BandfluxParams, 8 * (8 + 6 + 4)),
 ])
@@ -283,7 +284,7 @@ def test_sc3_kernel_params_check_ndim(lc_flux):
 
 @pytest.mark.parametrize("struct,mirror,size", [
     # 10 pointers, 7 ints, 3 doubles, 7 arrays of LP_MAX_DIM
-    ("EpochBBParams", epoch_bb._EpochBBParams, 8 * (10 + 7 + 3) + 7 * 8 * 8),
+    ("EpochBBParams", epoch_bb._EpochBBParams, 8 * (10 + 7 + 3) + 7 * 9 * 8),
     # 4 pointers, 8 ints, 3 doubles
     ("SummaryParams", epoch_bb._SummaryParams, 8 * (4 + 8 + 3)),
     # 2 pointers, 3 ints, 3 arrays of PCT_MAX_Q
@@ -903,15 +904,17 @@ def _whitened(lc, device, n_chains, seed=12):
 
 
 def test_white_params_layout_matches_the_c_struct():
-    """struct WhiteParams: ndim, 8 kinds, 5 arrays of LP_MAX_DIM doubles and
-    the LP_MAX_DIM^2 Cholesky factor, all 8 bytes wide."""
+    """struct WhiteParams: ndim, LP_MAX_DIM = 9 kinds, 5 arrays of
+    LP_MAX_DIM doubles and the LP_MAX_DIM^2 Cholesky factor, all 8 bytes
+    wide."""
     with open(os.path.join(build.CSRC_DIR, "gradient.cuh")) as f:
         src = f.read()
     body = src[src.index("struct WhiteParams {"):src.index("};", src.index("struct WhiteParams {"))]
     names = [ln.split(";")[0].split("[")[0].split()[-1] for ln in body.splitlines()[1:]
              if ";" in ln]
     assert names == [n for n, _ in gradient._WhiteParams._fields_]
-    assert ctypes.sizeof(gradient._WhiteParams) == 8 * (1 + 8 + 5 * 8 + 64)
+    assert gradient.MAX_DIM == 9
+    assert ctypes.sizeof(gradient._WhiteParams) == 8 * (1 + 9 + 5 * 9 + 81)
 
 
 def test_white_params_follow_the_bounds_bijection():
@@ -1121,3 +1124,544 @@ def test_gradient_fits_run_through_the_kernels_on_card(lc, cuda_device, monkeypa
                              quiet=True, device=cuda_device)
         assert res.flatchain.shape == (40, 4) and np.isfinite(res.flatchain).all()
     assert kernels.LAUNCHES["nuts_transition"] == 20 and kernels.LAUNCHES["hmc_transition"] == 20
+
+
+
+# ------------------------------------------- the intrinsic scatter on the card
+
+def _assert_scaled(got, want, rel, scale):
+    """Same -inf sets, |got - want| <= rel * scale where finite."""
+    assert not torch.isnan(got).any()
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    fin = torch.isfinite(want)
+    d = (got - want).abs()[fin] / scale[fin]
+    assert bool((d <= rel).all()), float(d.max())
+
+
+_SIGMA_PRIOR = LogUniformPrior(0.01, 10.0)
+
+
+def _sigma_case(which, lc, lc_flux, device, sigma_type):
+    """A LogPosterior with the intrinsic scatter, SC2 (5 parameters) or SC3
+    (8), and its init window (sigma in [0.5, 3] dy units)."""
+    if which == "sc2":
+        lp = make_log_posterior(ShockCooling2(lc), lc, _priors() + [_SIGMA_PRIOR], use_sigma=True,
+                                sigma_type=sigma_type, device=device)
+        return lp, np.append(P_LO, 0.5), np.append(P_UP, 3.0)
+    lp = make_log_posterior(ShockCooling3(lc_flux), lc_flux, _sc3_priors() + [_SIGMA_PRIOR],
+                            use_sigma=True, sigma_type=sigma_type, device=device)
+    return lp, np.append(SC3_LO, 0.5), np.append(SC3_UP, 3.0)
+
+
+def _window_walkers(lo, up, n, seed):
+    """n walkers from the window [lo, up], the last three outside the priors
+    (sigma < 0, the first parameter < 0, NaN)."""
+    p = np.random.default_rng(seed).uniform(lo, up, size=(n, len(lo)))
+    p[-3, -1], p[-2, 0], p[-1, 1] = -0.5, -1.0, np.nan
+    return p
+
+
+@pytest.mark.parametrize("which", ["sc2", "sc3"])
+def test_sigma_yardstick_bounds_float32_rounding(lc, lc_flux, which):
+    """The scale the use_sigma kernels are held to bounds the plain
+    version's own float32 rounding against its float64 evaluation, with a
+    margin of 2 under the card's 1e-5 budget (the kernel and the plain
+    version differ by less: the same float32 operations in another order)."""
+    lp64, lo, up = _sigma_case(which, lc, lc_flux, "cpu", "relative")
+    p = torch.as_tensor(_window_walkers(lo, up, 256, 0))
+    want = lp64.forward_plain(p)
+    try:
+        config.set_compute_dtype(torch.float32)
+        lp32 = _sigma_case(which, lc, lc_flux, "cpu", "relative")[0]
+        got = lp32.forward_plain(p)
+        scale = lp32.log_likelihood.term_scales(p)
+    finally:
+        config.set_compute_dtype(config.AUTO)
+    _assert_scaled(got, want, 0.5e-5, scale)
+
+
+def test_term_scales_without_scatter_are_the_ll_scale(lc):
+    """Without the intrinsic scatter every residual term is >= 0, so
+    LogLikelihood.term_scales is |ll - c| + |c|, c = log_norm_const."""
+    ll = make_log_posterior(ShockCooling2(lc), lc, _priors(), device="cpu").log_likelihood
+    p = torch.as_tensor(np.random.default_rng(0).uniform(P_LO, P_UP, size=(64, 4)))
+    c = ll.log_norm_const
+    torch.testing.assert_close(ll.term_scales(p), (ll(p) - c).abs() + abs(c), rtol=1e-12, atol=0)
+    assert ll.term_scales(p[0]).shape == () and ll.term_scales(p[:0]).shape == (0,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["sc2", "sc3"])
+@pytest.mark.parametrize("sigma_type", ["relative", "absolute"])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_use_sigma_logpost_kernels_match_plain_on_card(lc, lc_flux, cuda_device, which,
+                                                       sigma_type, f64):
+    """K1 (SC2, 5 parameters) or the SC3 log-posterior (8) with the
+    intrinsic scatter, and K6b over it, against their plain versions:
+    within 1e-5 (float32) and 1e-10 (float64) of the term scale, the same
+    -inf sets, log pi within 1e-12."""
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        lp, lo, up = _sigma_case(which, lc, lc_flux, cuda_device, sigma_type)
+        p = torch.as_tensor(_window_walkers(lo, up, 2048, 1), device=cuda_device)
+        rel = 1e-10 if f64 else 1e-5
+        name = "sc2_logpost" if which == "sc2" else "sc3_logpost"
+        n0 = kernels.LAUNCHES[name]
+        got = lp(p)
+        assert kernels.LAUNCHES[name] == n0 + 1
+        _assert_scaled(got, lp.forward_plain(p), rel, lp.log_likelihood.term_scales(p))
+        assert torch.isneginf(got[-3:]).all() and torch.isfinite(got[:-3]).all()
+        off, sc = (lo + up) / 2, (up - lo) / 2 * (1 + 1e-6)
+        x = torch.as_tensor((p[:2040].cpu().numpy() - off) / sc, device=cuda_device).float()
+        x = x.reshape(4, 2, 255, len(lo)).contiguous()
+        pri, ll = ladder.ladder_init(lp, x, off, sc)
+        want_pri, want_ll = ladder.ladder_init_plain(*ladder.plain_functions(lp, off, sc), x)
+        fin = torch.isfinite(want_pri)
+        assert torch.equal(torch.isneginf(pri), torch.isneginf(want_pri))
+        assert bool(((pri - want_pri).abs()[fin] <= 1e-12).all())
+        pa = common.absolute_params(x, off, sc)
+        _assert_scaled(ll, want_ll, rel, lp.log_likelihood.term_scales(pa))
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+def _half_step_case(lp, off, sc, x0, h, seed, rel):
+    """One kernel half-step (K2 or the SC3 one, by the model) against the
+    plain one under shared draws: accept flags equal except near-ties
+    (within 1e-5 of the term scale), new states bit-equal and new
+    log-posteriors within ``rel`` of the term scale where they agree."""
+    dev = x0.device
+    half, ndim = x0.shape[1], x0.shape[2]
+    l0 = kernels.log_posterior(lp, x0.reshape(-1, ndim), off, sc).reshape(2, half)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u_z = torch.rand(half, generator=g, device=dev, dtype=x0.dtype)
+    j = torch.randint(0, half, (half,), generator=g, device=dev)
+    u_acc = torch.rand(half, generator=g, device=dev, dtype=x0.dtype)
+    xk, lk, xp, lpp = x0.clone(), l0.clone(), x0.clone(), l0.clone()
+    ak = torch.zeros((2, half), dtype=torch.int32, device=dev)
+    ap = torch.zeros_like(ak)
+    kernels.stretch_half_step(lp, xk, lk, h, u_z, j, u_acc, 2.0, off, sc, n_accept=ak)
+
+    def plain(q):
+        return common.log_posterior_plain(lp, q, off, sc)
+    common.stretch_half_step_plain(plain, xp, lpp, h, u_z, j, u_acc, 2.0, n_accept=ap)
+    agree = ak[h] == ap[h]
+    y, z = common.propose_stretch(u_z, j, x0[h], x0[1 - h])
+    gap = (torch.log(u_acc).double() - ((ndim - 1.0) * torch.log(z).double() + plain(y)
+                                        - l0[h])).abs()
+    scale = lp.log_likelihood.term_scales(common.absolute_params(y, off, sc)) \
+        + lp.log_likelihood.term_scales(common.absolute_params(x0[h], off, sc))
+    assert bool((agree | (gap <= 1e-5 * scale)).all())
+    assert torch.equal(xk[h][agree], xp[h][agree])
+    assert torch.equal(xk[1 - h], x0[1 - h]) and torch.equal(ak[1 - h], ap[1 - h])
+    _assert_scaled(lk[h][agree], lpp[h][agree], rel,
+                   lp.log_likelihood.term_scales(common.absolute_params(xk[h], off, sc))[agree])
+    assert 0.02 < float(ak[h].float().mean()) < 0.98
+
+
+def _tempered_case(lp, off, sc, x0, h, seed, rel):
+    """One K6a half-step of every rung against the plain one under shared
+    draws: flags equal except near-ties, states and log pi bit-equal and
+    log L within ``rel`` of the term scale where they agree, the other half
+    and its accept counts untouched."""
+    dev = x0.device
+    R, _, half, ndim = x0.shape
+    pri0, ll0 = ladder.ladder_init(lp, x0, off, sc)
+    betas = torch.as_tensor(make_beta_ladder(R - 1), device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (R, 2, half)
+    u_z = torch.rand(shape, generator=g, device=dev)
+    j = torch.randint(0, half, shape, generator=g, device=dev)
+    u_acc = torch.rand(shape, generator=g, device=dev)
+    xk, pk, lk = x0.clone(), pri0.clone(), ll0.clone()
+    xp, pp, lpl = x0.clone(), pri0.clone(), ll0.clone()
+    ak = torch.zeros(shape, dtype=torch.int32, device=dev)
+    ap = torch.zeros_like(ak)
+    n0 = kernels.LAUNCHES["tempered_half_step"]
+    ladder.tempered_half_step(lp, xk, pk, lk, betas, h, u_z, j, u_acc, 2.0, off, sc, ak)
+    assert kernels.LAUNCHES["tempered_half_step"] == n0 + 1
+    fns = ladder.plain_functions(lp, off, sc)
+    ladder.tempered_half_step_plain(*fns, xp, pp, lpl, betas, h, u_z, j, u_acc, 2.0, ap)
+    agree = ak[:, h] == ap[:, h]
+    y, z = common.propose_stretch(u_z[:, h], j[:, h], x0[:, h], x0[:, 1 - h])
+    pri_y, ll_y = fns[0](y), fns[1](y)
+    b = betas[:, None]
+    ratio = ((ndim - 1.0) * torch.log(z) + pri_y + b * ll_y - pri0[:, h] - b * ll0[:, h])
+    gap = (torch.log(u_acc[:, h]).double() - ratio).abs()
+    scale_y = lp.log_likelihood.term_scales(common.absolute_params(y, off, sc))
+    scale = scale_y + lp.log_likelihood.term_scales(common.absolute_params(x0[:, h], off, sc))
+    assert bool((agree | (gap <= 1e-5 * scale)).all())
+    assert torch.equal(xk[:, h][agree], xp[:, h][agree])
+    assert torch.equal(pk[:, h][agree], pp[:, h][agree])
+    assert torch.equal(xk[:, 1 - h], x0[:, 1 - h]) and torch.equal(ak[:, 1 - h], ap[:, 1 - h])
+    _assert_scaled(lk[:, h][agree], lpl[:, h][agree], rel,
+                   lp.log_likelihood.term_scales(common.absolute_params(xk[:, h], off, sc))[agree])
+    assert 0.02 < float(ak[:, h].float().mean()) < 0.98
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["sc2", "sc3"])
+@pytest.mark.parametrize("sigma_type", ["relative", "absolute"])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_use_sigma_half_steps_match_plain_on_card(lc, lc_flux, cuda_device, which, sigma_type,
+                                                  f64):
+    """K2 or the SC3 half-step, and K6a over the model, with the intrinsic
+    scatter (h = 0, 1) on the float32 rescaled state."""
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        lp, lo, up = _sigma_case(which, lc, lc_flux, cuda_device, sigma_type)
+        off, sc = (lo + up) / 2, (up - lo) / 2 * (1 + 1e-6)
+        rng = np.random.default_rng(2)
+        W = 2048 if which == "sc2" else 1024
+        x0 = torch.as_tensor((rng.uniform(lo, up, size=(W, len(lo))) - off) / sc,
+                             device=cuda_device).float().reshape(2, W // 2, len(lo)).contiguous()
+        xl = torch.as_tensor((rng.uniform(lo, up, size=(5 * 256, len(lo))) - off) / sc,
+                             device=cuda_device).float().reshape(5, 2, 128, len(lo)).contiguous()
+        for h in (0, 1):
+            _half_step_case(lp, off, sc, x0, h, 3 + h, 1e-10 if f64 else 1e-5)
+            _tempered_case(lp, off, sc, xl, h, 5 + h, 1e-10 if f64 else 1e-5)
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+def _whitened_sigma(lc, device, n_chains, sigma_type, seed=12):
+    """_whitened with the intrinsic scatter as a fifth parameter (Gaussian
+    prior on (0, 10)), its whitening from draws with sigma near 1."""
+    from lightcurve_fitting_tpu_torch.parallel.hmc import (BoundsTransform, WhitenedLogPosterior,
+                                                           WhitenedPosterior)
+    pri = [GaussianPrior(0.0, 100.0, 30.0, 15.0), GaussianPrior(0.0, 100.0, 4.0, 3.0),
+           GaussianPrior(0.0, 100.0, 30.0, 15.0), GaussianPrior(57468.0, 57468.7, 57468.5, 0.2),
+           GaussianPrior(0.0, 10.0, 1.0, 1.0)]
+    lp = make_log_posterior(ShockCooling2(lc), lc, pri, use_sigma=True, sigma_type=sigma_type,
+                            device=device)
+    bounds = BoundsTransform([q.p_min for q in pri], [q.p_max for q in pri])
+    rng = np.random.default_rng(seed)
+    x = np.array([37.58, 5.326, 16.25, 57468.6999, 1.0]) + rng.normal(size=(400, 5)) * [
+        0.145, 0.053, 0.110, 0.00018, 0.1]
+    x[:, 3] = 57468.7 - 1e-6 - np.abs(rng.normal(size=400)) * 0.00018
+    warm_u = bounds.to_unbounded(x)
+    white = WhitenedPosterior(warm_u)
+    w0 = np.ascontiguousarray(white.to_w(warm_u[:n_chains]))
+    return WhitenedLogPosterior(lp, bounds, white), torch.as_tensor(w0, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma_type", ["relative", "absolute"])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_use_sigma_gradient_kernels_match_plain_on_card(lc, cuda_device, sigma_type, f64):
+    """K7 with the intrinsic scatter (the sigma column of the gradient
+    included) against autograd through the plain log-posterior, within
+    1e-4 (float32) and 1e-9 (float64) of the gradient term scales; K9 and
+    K7h on a 5-parameter whitened target against their plain transitions."""
+    from lightcurve_fitting_tpu_torch.parallel.hmc import hmc_transition_plain
+    from lightcurve_fitting_tpu_torch.parallel.nuts import make_nuts_transition
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        lp, lo, up = _sigma_case("sc2", lc, None, cuda_device, sigma_type)
+        p = torch.as_tensor(_window_walkers(lo, up, 2048, 4), device=cuda_device)
+        rel, grel = (1e-10, 1e-9) if f64 else (1e-5, 1e-4)
+        v, g = kernels.log_posterior_and_grad(lp, p)
+        vp, gp = sc2.log_posterior_and_grad_plain(lp, p)
+        _assert_scaled(v, vp, rel, lp.log_likelihood.term_scales(p))
+        assert torch.equal(g == 0, gp == 0) and bool((g[:-3, 4] != 0).all())
+        assert bool(((g - gp).abs() <= grel * lp.grad_term_scales(p)).all())
+        target, q0 = _whitened_sigma(lc, cuda_device, 16, sigma_type)
+        gen = torch.Generator(device=cuda_device).manual_seed(5)
+        z = torch.randn((16, 5), generator=gen, device=cuda_device, dtype=torch.float64)
+        u = torch.rand((16, 7, 66), generator=gen, device=cuda_device, dtype=torch.float64)
+        u_acc = torch.rand(16, generator=gen, device=cuda_device, dtype=torch.float64)
+        n_used = torch.randint(8, 17, (16,), generator=gen, device=cuda_device)
+        eps = torch.tensor(0.1, dtype=torch.float64, device=cuda_device)
+        inv_mass = torch.ones(5, dtype=torch.float64, device=cuda_device)
+        logp0 = target.logp_and_grad(q0)[0]
+        fn = target.logp_and_grad_plain if f64 else target.logp_and_grad
+        got = gradient.nuts_transition(target, q0, logp0, z, u, eps, inv_mass, 7)
+        want = make_nuts_transition(fn, 5, 7, margins=True)(q0, logp0, z, u, eps, inv_mass)
+        _transitions_agree(got, want[:5], want[5:], 1e-6 if f64 else 1e-3, 1e-8)
+        args = (q0, logp0, z, u_acc, n_used, eps, inv_mass, 16)
+        got = gradient.hmc_transition(target, *args)
+        want = hmc_transition_plain(fn, *args, margins=True)
+        _transitions_agree(got, want[:3], want[3:], 1e-6 if f64 else 1e-3, 1e-8)
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+# -------------------------------------------------- the companion-shocking path
+
+CS_PRIORS = {  # tests/test_companion_shocking.py:112-114, and CS1's factors, CS3's angle
+    2: [UniformPrior(57815.0, 57825.0), UniformPrior(0.01, 5.0), UniformPrior(0.1, 10.0),
+        UniformPrior(57835.0, 57845.0), UniformPrior(0.6, 1.6), UniformPrior(-5.0, 5.0),
+        UniformPrior(-5.0, 5.0)]}
+CS_PRIORS[1] = CS_PRIORS[2][:5] + [UniformPrior(0.1, 10.0)] * 3
+CS_PRIORS[3] = CS_PRIORS[2][:2] + [UniformPrior(0.0, 180.0)] + CS_PRIORS[2][3:]
+CS_LO = {2: np.array([57818.0, 0.2, 0.5, 57838.0, 0.8, -1.0, -1.0])}
+CS_UP = {2: np.array([57822.0, 1.0, 2.0, 57842.0, 1.2, 1.0, 1.0])}
+CS_LO[1], CS_UP[1] = np.append(CS_LO[2][:5], [0.8] * 3), np.append(CS_UP[2][:5], [1.2] * 3)
+CS_LO[3], CS_UP[3] = CS_LO[2].copy(), CS_UP[2].copy()
+CS_LO[3][2], CS_UP[3][2] = 0.0, 90.0
+
+
+def _ia_lc(seed=3):
+    """tests/test_companion_shocking.py::make_ia_lc with the port's LC and
+    CompanionShocking2 in float64 on the CPU: 18 epochs x UBVgri of a Kasen
+    shock (a13 = 0.5, Mc_v9_7 = 1, t_0 = 57820) + SiFTO (t_peak = 57840,
+    s = 1), 4% errors; returns the light curve and the seed curve the
+    generating model was built on (its SiFTO scaling is the truth's)."""
+    from lightcurve_fitting_tpu_torch.models import CompanionShocking2
+    rng = np.random.default_rng(seed)
+    filters = [filtdict[n] for n in ["U", "B", "V", "g", "r", "i"]]
+    epochs = np.linspace(57820.5, 57855.0, 18)
+    t = np.repeat(epochs, len(filters))
+    f = np.array(filters * len(epochs))
+    rows_lum = np.full(len(t), 2e15)
+    lc0 = LC([t, f, rows_lum, 0.05 * rows_lum], names=["MJD", "filter", "lum", "dlum"])
+    y_true = CompanionShocking2(lc0)(t, f, 57820.0, 0.5, 1.0, 57840.0, 1.0, 0.0, 0.0)
+    dy = 0.04 * np.maximum(y_true, 0.05 * np.median(y_true))
+    y = y_true + rng.normal(scale=dy)
+    return LC([t, f, y, dy], names=["MJD", "filter", "lum", "dlum"]), lc0
+
+
+@pytest.fixture(scope="module")
+def ia():
+    return _ia_lc()
+
+
+@pytest.fixture(scope="module")
+def ia_lc(ia):
+    return ia[0]
+
+
+def _cs_model(variant, ia, device=None):
+    """CS1, CS2 or CS3 with the SiFTO scaling of the truth of ``ia``."""
+    from lightcurve_fitting_tpu_torch import models
+    cls = {1: models.CompanionShocking, 2: models.CompanionShocking2,
+           3: models.CompanionShocking3}[variant]
+    return cls(ia[1], device=device)
+
+
+def _cs_walkers(variant, n, seed, use_sigma=False):
+    """n walkers of the CS window, 1% outside the priors, and the last
+    eighth with t_0 in (57821, 57824), after the first epochs (t < t_0
+    there; inside the t_0 prior)."""
+    lo, up = CS_LO[variant], CS_UP[variant]
+    if use_sigma:
+        lo, up = np.append(lo, 0.5), np.append(up, 3.0)
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(lo, up, size=(n, len(lo)))
+    out = rng.choice(n - n // 8, n // 100, replace=False)
+    p[out, rng.integers(0, len(lo), out.size)] = -1e4
+    p[n - n // 8:, 0] = rng.uniform(57821.0, 57824.0, n // 8)
+    return p
+
+
+def test_cs_param_blocks_match_the_c_structs():
+    """struct CSParams: 14 pointers, 8 ints, 6 doubles, 7 arrays of
+    LP_MAX_DIM; struct SiftoParams: 11 pointers, 4 ints, 1 double."""
+    from lightcurve_fitting_tpu_torch.kernels import cs
+    assert ctypes.sizeof(cs._CSParams) == 8 * (14 + 8 + 6) + 7 * 9 * 8
+    assert _c_fields("CSParams") == [name for name, _ in cs._CSParams._fields_]
+    assert ctypes.sizeof(cs._SiftoParams) == 8 * (11 + 4 + 1)
+    assert _c_fields("SiftoParams") == [name for name, _ in cs._SiftoParams._fields_]
+
+
+def test_module_for_routes_the_companion_models(ia, ia_lc):
+    """CS1-3 route to kernels.cs, whose parameter block takes CS1 with the
+    intrinsic scatter (9 parameters); on the CPU the wrappers run the plain
+    versions and launch nothing; the gradient kernels refuse CS."""
+    from lightcurve_fitting_tpu_torch.kernels import cs
+    for variant in (1, 2, 3):
+        assert kernels.module_for(_cs_model(variant, ia)) is cs
+    lp = make_log_posterior(_cs_model(1, ia), ia_lc, CS_PRIORS[1] + [_SIGMA_PRIOR],
+                            use_sigma=True, device="cpu")
+    with pytest.raises(ValueError, match="ndim = 8"):
+        cs._kernel_params(lp, 8, None, None)
+    P = cs._kernel_params(lp, 9, None, None)
+    assert (P.n_points, P.n_coef, P.n_bands, P.n_knots) == (108, 25, 6, 103)
+    assert (P.variant, P.ndim, P.use_sigma, P.kappa, P.kappa_m35) == (1, 9, 1, 1.0, 1.0)
+    assert cs._kernel_params(lp, 9, None, None) is P     # cached
+    ll = lp.log_likelihood
+    assert tuple(ll.sifto_rows.shape) == (6, 4, 102) and ll.sifto_band.dtype == torch.int64
+    assert torch.equal(ll.quad["sifto_c"], ll.sifto_rows[ll.sifto_band])
+    q = torch.as_tensor(_cs_walkers(1, 16, 0, use_sigma=True))
+    before = dict(kernels.LAUNCHES)
+    assert torch.equal(kernels.log_posterior(lp, q), lp.forward_plain(q))
+    assert kernels.LAUNCHES == before           # the plain path launches nothing
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        cs.log_posterior(lp, torch.empty((4, 9), device="meta"))
+    quad = {k: v.to("meta") for k, v in ll.quad.items()}
+    with pytest.raises(ValueError, match="K8 runs on CUDA"):
+        cs.sifto(ll.t.to("meta"), quad, 57840.0, 1.0)
+    with pytest.raises(NotImplementedError, match="has no gradient kernel"):
+        kernels.log_posterior_and_grad(lp, torch.empty((4, 9), dtype=torch.float64,
+                                                       device="meta"))
+
+
+def _k8_case(ia, ia_lc, device, W=4096, seed=0):
+    """K8's inputs: 108 points a day apart from t_ref (integer phases: knots,
+    both ends, just and far outside) through the model's bands; W walkers
+    with t_peak on whole days, stretches 1, 0.5, 2 or drawn, integer or
+    drawn U/i shifts; the first rows with t_peak NaN, stretch 0, inf and -1."""
+    from lightcurve_fitting_tpu_torch.models.base import _quad_tensors
+    model = _cs_model(2, ia, device)
+    f = np.asarray(ia_lc["filter"])
+    t = torch.as_tensor(57820.0 + np.arange(len(f)) - 30.0, device=device)
+    quad = _quad_tensors(model.prepare_quad(f), device)
+    rng = np.random.default_rng(seed)
+    tpk = 57820.0 + rng.integers(-20, 120, size=W).astype(float)
+    s = rng.choice([1.0, 0.5, 2.0, -1.0], size=W)
+    drawn = rng.random(W) < 0.3
+    s[drawn] = rng.uniform(0.6, 1.6, drawn.sum())
+    dtu = np.where(rng.random(W) < 0.5, rng.integers(-5, 6, W), rng.uniform(-5, 5, W))
+    dti = np.where(rng.random(W) < 0.5, rng.integers(-5, 6, W), rng.uniform(-5, 5, W))
+    tpk[0], s[1], s[2], s[3] = np.nan, 0.0, np.inf, -1.0
+    cols = [torch.as_tensor(c[:, None], device=device) for c in (tpk, s, dtu, dti)]
+    peak = quad["sifto_rows"][quad["sifto_band"], 3].abs().amax(dim=-1)
+    return model, t, quad, cols, peak
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_k8_matches_plain_on_card(ia, ia_lc, cuda_device, f64):
+    """K8 against sifto_points_plain: within 1e-6 (float32) and 1e-13
+    (float64) of each band's template peak, the same zero set; 0-d
+    parameters give (N,)."""
+    from lightcurve_fitting_tpu_torch.kernels import cs
+    from lightcurve_fitting_tpu_torch.models.companion_shocking import sifto_points_plain
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        model, t, quad, cols, peak = _k8_case(ia, ia_lc, cuda_device)
+        n0 = kernels.LAUNCHES["sifto"]
+        got = cs.sifto(t, quad, *cols)
+        assert kernels.LAUNCHES["sifto"] == n0 + 1
+        want = sifto_points_plain(t, quad, *cols)
+        assert got.dtype == (torch.float64 if f64 else torch.float32) and got.shape == want.shape
+        assert torch.equal(got == 0, want == 0) and torch.isfinite(got).all()
+        assert bool(((got - want).abs() <= (1e-13 if f64 else 1e-6) * peak).all())
+        assert 0 < int((got == 0).sum()) < got.numel()
+        one = cs.sifto(t, quad, 57840.0, 1.0, 0.5, -0.5)
+        assert one.shape == t.shape
+        assert torch.equal(one, cs.sifto(t, quad, *[torch.full((1, 1), v, device=cuda_device)
+                                                   for v in (57840.0, 1.0, 0.5, -0.5)])[0])
+        # evaluate on the card launches K8 and equals the plain evaluation
+        t_np = np.asarray(ia_lc["MJD"], float)
+        f = np.asarray(ia_lc["filter"])
+        args = (57820.0, 0.5, 1.0, 57840.0, 1.0, 0.3, -0.2)
+        n0 = kernels.LAUNCHES["sifto"]
+        y = model.evaluate(t_np, f, *args)
+        assert kernels.LAUNCHES["sifto"] == n0 + 1
+        want = _cs_model(2, ia).evaluate(t_np, f, *args)
+        np.testing.assert_allclose(y, want, rtol=1e-12 if f64 else 1e-5,
+                                   atol=0.0 if f64 else 1e-6 * np.abs(want).max())
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,use_sigma", [(1, False), (2, False), (3, False), (1, True)],
+                         ids=["cs1", "cs2", "cs3", "cs1-sigma"])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_cs_logpost_matches_plain_on_card(ia, ia_lc, cuda_device, variant, use_sigma, f64):
+    """The CS log-posterior against its plain version: within 1e-5
+    (float32) and 1e-10 (float64) of the term scale, the same -inf sets;
+    t < t_0 walkers finite; the rescaled float32 state too."""
+    from lightcurve_fitting_tpu_torch.kernels import cs
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        pri = CS_PRIORS[variant] + ([_SIGMA_PRIOR] if use_sigma else [])
+        lp = make_log_posterior(_cs_model(variant, ia), ia_lc, pri, use_sigma=use_sigma,
+                                device=cuda_device)
+        p = torch.as_tensor(_cs_walkers(variant, 2048, 1, use_sigma), device=cuda_device)
+        rel = 1e-10 if f64 else 1e-5
+        n0 = kernels.LAUNCHES["cs_logpost"]
+        got = lp(p)
+        assert kernels.LAUNCHES["cs_logpost"] == n0 + 1
+        want = lp.forward_plain(p)
+        _assert_scaled(got, want, rel, lp.log_likelihood.term_scales(p))
+        assert 0 < int(torch.isneginf(got).sum()) <= 2048 // 100
+        assert torch.isfinite(got[-256:]).all()
+        lo, up = CS_LO[variant], CS_UP[variant]
+        if use_sigma:
+            lo, up = np.append(lo, 0.5), np.append(up, 3.0)
+        off, sc = (lo + up) / 2, (up - lo) / 2 * (1 + 1e-6)
+        fin = torch.isfinite(want[:-256])
+        q = ((p[:-256][fin] - torch.as_tensor(off, device=cuda_device))
+             / torch.as_tensor(sc, device=cuda_device)).float()
+        _assert_scaled(cs.log_posterior(lp, q, off, sc), common.log_posterior_plain(lp, q, off, sc),
+                       rel, lp.log_likelihood.term_scales(common.absolute_params(q, off, sc)))
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_cs_half_steps_match_plain_on_card(ia, ia_lc, cuda_device, f64):
+    """The CS half-step and K6a over CS2 (h = 0, 1) against their plain
+    versions under shared draws; K6b over CS2 as K1's."""
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        lp = make_log_posterior(_cs_model(2, ia), ia_lc, CS_PRIORS[2], device=cuda_device)
+        lo, up = CS_LO[2], CS_UP[2]
+        off, sc = (lo + up) / 2, (up - lo) / 2 * (1 + 1e-6)
+        rng = np.random.default_rng(7)
+        x0 = torch.as_tensor((rng.uniform(lo, up, size=(2048, 7)) - off) / sc,
+                             device=cuda_device).float().reshape(2, 1024, 7).contiguous()
+        xl = torch.as_tensor((rng.uniform(lo, up, size=(5 * 512, 7)) - off) / sc,
+                             device=cuda_device).float().reshape(5, 2, 256, 7).contiguous()
+        n0 = kernels.LAUNCHES["cs_half_step"]
+        for h in (0, 1):
+            _half_step_case(lp, off, sc, x0, h, 3 + h, 1e-10 if f64 else 1e-5)
+            _tempered_case(lp, off, sc, xl, h, 5 + h, 1e-10 if f64 else 1e-5)
+        assert kernels.LAUNCHES["cs_half_step"] == n0 + 2
+        n0 = kernels.LAUNCHES["ladder_init"]
+        pri, ll = ladder.ladder_init(lp, xl, off, sc)
+        assert kernels.LAUNCHES["ladder_init"] == n0 + 1
+        want_pri, want_ll = ladder.ladder_init_plain(*ladder.plain_functions(lp, off, sc), xl)
+        assert torch.equal(pri, want_pri)
+        _assert_scaled(ll, want_ll, 1e-10 if f64 else 1e-5,
+                       lp.log_likelihood.term_scales(common.absolute_params(xl, off, sc)))
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+def test_cs_fits_run_through_the_kernels_on_card(ia, ia_lc, cuda_device, monkeypatch):
+    """lightcurve_mcmc, lightcurve_evidence, lightcurve_ptmcmc and
+    compare_models on CS models launch the CS kernels and no plain version."""
+    from lightcurve_fitting_tpu_torch.fitting import (compare_models, lightcurve_evidence,
+                                                      lightcurve_mcmc, lightcurve_ptmcmc)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("a plain version ran on the CUDA path")
+
+    from lightcurve_fitting_tpu_torch.kernels import cs
+    monkeypatch.setattr(cs, "stretch_half_step_plain", no_plain)
+    monkeypatch.setattr(cs, "log_posterior_plain", no_plain)
+    for name in ("tempered_half_step_plain", "ladder_init_plain", "replica_swap_plain",
+                 "rung_block_terms_plain"):
+        monkeypatch.setattr(ladder, name, no_plain)
+    kernels.reset_launch_counts()
+    s = lightcurve_mcmc(ia_lc, _cs_model(2, ia), CS_PRIORS[2], p_lo=list(CS_LO[2]),
+                        p_up=list(CS_UP[2]), nwalkers=64, nsteps=20, nsteps_burnin=20, seed=3,
+                        quiet=True, device=cuda_device)
+    assert s.flatchain.shape == (20 * 64, 7) and np.isfinite(s.flatchain).all()
+    assert kernels.LAUNCHES["cs_half_step"] == 80 and kernels.LAUNCHES["cs_logpost"] >= 1
+    kw = dict(nwalkers=64, n_rungs=3, nsteps=10, nsteps_burnin=10, seed=4, quiet=True,
+              device=cuda_device)
+    log_z, err, info = lightcurve_evidence(ia_lc, _cs_model(3, ia), CS_PRIORS[3],
+                                           p_lo=list(CS_LO[3]), p_up=list(CS_UP[3]), **kw)
+    assert np.isfinite(log_z) and np.isfinite(err)
+    table = compare_models(ia_lc, [_cs_model(2, ia), _cs_model(1, ia)],
+                           [CS_PRIORS[2], CS_PRIORS[1]], p_lo=[list(CS_LO[2]), list(CS_LO[1])],
+                           p_up=[list(CS_UP[2]), list(CS_UP[1])], **kw)
+    assert len(table) == 2 and np.isfinite(np.asarray(table["log_z"], float)).all()
+    pt = lightcurve_ptmcmc(ia_lc, _cs_model(1, ia), CS_PRIORS[1] + [_SIGMA_PRIOR],
+                           p_lo=list(CS_LO[1]) + [0.5], p_up=list(CS_UP[1]) + [3.0],
+                           use_sigma=True, **kw)
+    assert pt.flatchain.shape == (10 * 64, 9) and np.isfinite(pt.flatchain).all()
+    assert kernels.LAUNCHES["tempered_half_step"] == 4 * 40 and kernels.LAUNCHES["ladder_init"] == 4

@@ -179,7 +179,7 @@ def test_priors(name, args):
 
 
 def test_kde_prior_not_ported():
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         tpriors.KDEPrior(np.arange(10.0))
 
 

@@ -271,10 +271,10 @@ def test_refusals():
     for opt in ({"checkpoint_every": 2, "checkpoint_file": "ck.npz"}, {"resume_from": "ck.npz"}):
         with pytest.raises(NotImplementedError, match="item 16"):
             lightcurve_hmc(tlc, TSC2(tlc), pri, **opt, **kw)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         KDEPrior(np.zeros(10))
     kde = KDEPrior.__new__(KDEPrior)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         lightcurve_hmc(tlc, TSC2(tlc), pri[:3] + [kde], **kw)
     with pytest.raises(NotImplementedError, match="item 17"):
         tnuts.NUTSSampler(4, 2, lambda p: -p.sum(-1), mesh=object(), device=CPU)
