@@ -7,7 +7,8 @@ and imports nothing of JAX. Phases, each printing one line (any failure
 raises and the script exits non-zero):
 
 1. environment: torch/CUDA versions, the card, its power limit;
-2. build: nvcc compiles K1 and K2 from ``kernels/csrc/``;
+2. build: nvcc compiles the kernels from ``kernels/csrc/``; K9 must have
+   no stack frame and no spills (ptxas);
 3. K1 against its plain PyTorch version at 131072 walkers on the flagship
    (SN 2016bkv, ShockCooling2), float32 (<= 1e-5 |ll|, same -inf set) and
    float64 (<= 1e-10 |ll|), including t < t_exp under a widened t_0 prior;
@@ -24,13 +25,19 @@ raises and the script exits non-zero):
 7. the fused ShockCooling3 log-posterior against ``forward_plain`` at 131072
    walkers (1% outside the priors, a set with t < t_exp): float32
    <= 1e-5 |ll|, float64 <= 1e-10 |ll|, identical -inf sets;
-8. the SC3 half-step against the plain half-step, as in 4;
+8. the SC3 half-step (a warp per walker) against the plain half-step, as
+   in 4, at half 65536 and at the fits' widths, half 16384 and 32, each
+   timed;
 9. the ShockCooling3 fit of SN 2016bkv through ``fitting.lightcurve_mcmc``:
    (a) 64 walkers x 200+200 steps, (b) 32768 walkers x 300 steps from the
    init window, whose mean acceptance must be within 0.01 of the JAX
    package's float64 value, and ``ShockCooling3.evaluate`` on the card at
-   the medians (chi2/dof printed); the launch counters, reset before this
-   path, show it ran through K3 and both SC3 kernels;
+   the medians (chi2/dof printed), and a profiled run's time split; the
+   launch counters, reset before this path, show it ran through K3 and both
+   SC3 kernels (1400 half-steps);
+   (c) 4096 walkers x 300 steps at seeds 1-8, the mean acceptance and its
+   standard error against the JAX package's at the same seeds (within 4
+   combined standard errors);
 10. K4 (the per-epoch blackbody log-posterior and its gradient) against its
     plain version at the bench shape (256 epochs x 6 bands, 512 candidates)
     and on the 65 SN 2016bkv epochs of up to 9 bands at 32 walkers, with
@@ -77,19 +84,20 @@ raises and the script exits non-zero):
     and 131072 more with t < t_exp): values as K1's, gradients within 1e-4
     (float32) and 1e-9 (float64) of their per-point terms' summed
     magnitudes, zero (masked) at the same places;
-18. K9, the NUTS transition, against the plain transition under shared
-    draws on 64 whitened flagship chains, max_depth 9: float64 over the
-    plain gradient, float32 over K7's own evaluations, equal except
-    near-ties (and the float32 kernel against the fully plain float32
-    transition reported);
+18. K9, the NUTS transition (a block per chain), against the plain
+    transition under shared draws on 64 whitened flagship chains, max_depth
+    9: float64 over the plain gradient, float32 over K7's own evaluations,
+    equal except near-ties (and the float32 kernel against the fully plain
+    float32 transition reported); every chain's new log-posterior equal to
+    K7's at its new state, bit for bit; the deep trees (max_depth 12);
 19. K7h, the HMC transition (32 jittered leapfrogs), the same way;
 20. the gradient main path, counters reset before (a): (a)
     ``lightcurve_map`` on the flagship with tests/test_map.py:92-104's
     criteria, (b) ``lightcurve_mcmc(init="map")`` with test_map.py:59-79's,
     (c) ``lightcurve_hmc`` at its defaults (16 chains x 800 + 1000, max_depth
-    9, warm start 64 x 300; seed 3) in float32 and float64 compute, held to
-    tests/test_hmc.py:147-159's criteria (the float32 default must meet
-    them), wall times, a profiled run's time split, (d)
+    9, warm start 64 x 300; seed 3) in float32 and float64 compute, both
+    held to tests/test_hmc.py:147-159's criteria, wall times, a profiled
+    run's time split in each, (d)
     ``lightcurve_hmc(sampler="hmc")``; the counters show K7, K9 and K7h ran;
 21. the intrinsic scatter: every kernel that branches on ``use_sigma``
     against its plain version with the scatter on (SC2 with 5 parameters,
@@ -160,6 +168,11 @@ SC3_WALKERS = 32768
 # walkers x 300 steps from the SC3 window, no burn-in, seed 7 (shard=False)
 SC3_ACCEPTANCE_REF = 0.21477925618489585
 SC3_CHI2_PROBE = 96.0     # chi2/dof of the best draw of the JAX package's CPU probe
+# the JAX package's mean acceptance, float64 on the CPU, of the same fit at
+# 4096 walkers x 300 steps over seeds 1-8, and its standard error
+# (tests/test_torch_sc3.py::jax_sc3_acceptance)
+SC3_SEEDS, SC3_SEED_WALKERS = tuple(range(1, 9)), 4096
+SC3_SEEDS_REF = (0.21567057291666666, 0.0012260149284139086)
 PLAIN_CHUNK = 16384       # walkers per call of a plain quadrature version: its
                           # (W, 149, 89) cube stays near 1 GB a tensor
 
@@ -213,6 +226,42 @@ def epoch_eval_ops(ep):
     bands plus ~10 flops a band and the log-uniform prior's log. (E,)"""
     terms = (ep.n_native * ep.mask).sum(dim=1).double()
     return terms * PLANCK_TERM + ep.mask.sum(dim=1).double() * 10 + SFU
+
+
+DRAW_KERNELS = ("distribution", "random", "philox", "uniform", "normal")
+
+
+def time_split(prof, wall, kernels):
+    """Seconds of device time by part of a run from a profiler trace: the
+    parts of ``kernels`` (name -> substrings of their kernels' names; the
+    first match wins), the draws and the rest, and the host's share (the
+    wall time the device was idle). Returns (parts, busy)."""
+    parts = dict.fromkeys(kernels, 0.0)
+    parts.update(draws=0.0, other=0.0)
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA":
+            continue
+        k = e.key.lower()
+        name = next((n for n, subs in kernels.items() if any(w in k for w in subs)), None)
+        if name is None:
+            name = "draws" if any(w in k for w in DRAW_KERNELS) else "other"
+        parts[name] += e.self_device_time_total / 1e6
+    busy = sum(parts.values())
+    parts["host (device idle)"] = wall - busy
+    return parts, busy
+
+
+def profiled(fn):
+    """Wall seconds of fn() under the profiler, and the profile."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall, prof
 
 
 def phase(name, msg):
@@ -641,6 +690,9 @@ def phase_sc3_logpost(lcf, rng_seed=3):
 
 
 def phase_sc3_half_step(lcf, seed=4):
+    """8: the SC3 half-step (a warp per walker) against the plain half-step
+    at half 65536 and at the fits' widths, half 16384 (9b) and 32 (9a); its
+    time at each, the plain version's at 65536."""
     import numpy as np
     import torch
     from lightcurve_fitting_tpu_torch import kernels
@@ -649,37 +701,44 @@ def phase_sc3_half_step(lcf, seed=4):
     from lightcurve_fitting_tpu_torch.models import ShockCooling3
 
     dev = torch.device("cuda")
-    W = HEADLINE_WALKERS
-    half = W // 2
     lp = make_log_posterior(ShockCooling3(lcf), lcf, sc3_priors(), device=dev)
     kw = _state_rescaling(torch.float32, SC3_LO, SC3_UP, dev)   # what "auto" gives on CUDA
     off, sc = kw["param_offset"], kw["param_scale"]
     rng = np.random.default_rng(seed)
-    pos = (rng.uniform(SC3_LO, SC3_UP, size=(W, 7)) - off) / sc
-    x0 = torch.as_tensor(pos.reshape(2, half, 7), device=dev).to(torch.float32).contiguous()
-    n_ties, n_acc, max_abs = check_half_step("SC3 half-step", lp, off, sc, x0, seed, 1e-5)
-    logp0 = kernels.log_posterior(lp, x0.reshape(W, 7), off, sc).reshape(2, half)
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
-    u_z = torch.rand(half, generator=g, device=dev)
-    j = torch.randint(0, half, (half,), generator=g, device=dev)
-    u_acc = torch.rand(half, generator=g, device=dev)
-    xk, lk = x0.clone(), logp0.clone()
-    ak = torch.zeros((2, half), dtype=torch.int32, device=dev)
-    k_ms = cuda_ms(lambda: kernels.stretch_half_step(lp, xk, lk, 0, u_z, j, u_acc, 2.0, off, sc,
-                                                     n_accept=ak, check_partners=False))
-    xp, lpp = x0.clone(), logp0.clone()
-    plain_ms = cuda_ms(lambda: common.stretch_half_step_plain(
-        lambda q: chunked(lambda c: common.log_posterior_plain(lp, c, off, sc), q), xp, lpp, 0,
-        u_z, j, u_acc, 2.0), repeats=2)
-    hs_bound = bound_fields(half * (sc3_eval_ops(lp.log_likelihood) + PROPOSAL),
-                            half * (2 * 7 * 4 + 8 + 16 + 4) + half * (7 * 4 + 8 + 4))
-    phase("SC3 half-step", f"half-steps h=0,1 of {W} walkers (f32 state, f64 logp): {n_acc} "
-          f"accepts, flags agree except {n_ties} near-ties, new states bit-equal where they "
-          f"agree, new-logp max |d| {max_abs:.3e} (<= 1e-5 of the term scale); kernel "
-          f"{k_ms:.4f} ms vs plain {plain_ms:.4f} ms per half-step, bound "
-          f"{hs_bound['bound_ms']:.4f} ms ({hs_bound['bound_by']})")
-    return {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": plain_ms, **hs_bound}
+    checks, times, bounds = [], {}, {}
+    for half in (HEADLINE_WALKERS // 2, SC3_WALKERS // 2, 32):
+        W = 2 * half
+        pos = (rng.uniform(SC3_LO, SC3_UP, size=(W, 7)) - off) / sc
+        x0 = torch.as_tensor(pos.reshape(2, half, 7), device=dev).to(torch.float32).contiguous()
+        checks.append(check_half_step(f"SC3 half-step {half}", lp, off, sc, x0, seed, 1e-5))
+        logp0 = kernels.log_posterior(lp, x0.reshape(W, 7), off, sc).reshape(2, half)
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        u_z = torch.rand(half, generator=g, device=dev)
+        j = torch.randint(0, half, (half,), generator=g, device=dev)
+        u_acc = torch.rand(half, generator=g, device=dev)
+        xk, lk = x0.clone(), logp0.clone()
+        ak = torch.zeros((2, half), dtype=torch.int32, device=dev)
+        times[half] = cuda_ms(lambda: kernels.stretch_half_step(
+            lp, xk, lk, 0, u_z, j, u_acc, 2.0, off, sc, n_accept=ak, check_partners=False))
+        bounds[half] = bound_fields(half * (sc3_eval_ops(lp.log_likelihood) + PROPOSAL),
+                                    half * (2 * 7 * 4 + 8 + 16 + 4) + half * (7 * 4 + 8 + 4))
+        if half == HEADLINE_WALKERS // 2:
+            xp, lpp = x0.clone(), logp0.clone()
+            plain_ms = cuda_ms(lambda: common.stretch_half_step_plain(
+                lambda q: chunked(lambda c: common.log_posterior_plain(lp, c, off, sc), q), xp,
+                lpp, 0, u_z, j, u_acc, 2.0), repeats=2)
+    head = HEADLINE_WALKERS // 2
+    phase("SC3 half-step", "half-steps h=0,1 (f32 state, f64 logp, a warp per walker) at half "
+          + "; ".join(f"{h}: {c[1]} accepts, flags agree except {c[0]} near-ties, new states "
+                      f"bit-equal where they agree, new-logp max |d| {c[2]:.3e}"
+                      for h, c in zip(times, checks))
+          + " (<= 1e-5 of the term scale); kernel "
+          + ", ".join(f"{times[h]:.4f} ms per half {h} (bound {bounds[h]['bound_ms']:.4f} ms, "
+                      f"{bounds[h]['bound_by']})" for h in times)
+          + f"; plain {plain_ms:.4f} ms per half {head}")
+    return {"max_abs_err": max(c[2] for c in checks), "ms": times[head], "plain_ms": plain_ms,
+            **bounds[head]}
 
 
 def phase_sc3_main_path(lc, smi):
@@ -728,16 +787,44 @@ def phase_sc3_main_path(lc, smi):
         raise AssertionError("9b: evaluate at the medians gave no finite flux")
     chi2_dof = float(np.sum(resid ** 2) / (len(t) - 7))
     launches = dict(kernels.LAUNCHES)
+    wall, prof = profiled(lambda: lightcurve_mcmc(
+        lc, ShockCooling3(lc), priors, p_lo=SC3_LO, p_up=SC3_UP, nwalkers=SC3_WALKERS,
+        nsteps=300, nsteps_burnin=0, seed=8, quiet=True))
+    parts, busy = time_split(prof, wall, {"half-steps": ("stretch_half_step",),
+                                          "initial state": ("sc3_logpost",)})
     for k in ("bandflux", "sc3_logpost", "sc3_half_step"):
         if launches[k] == 0:
             raise AssertionError(f"kernel {k} was not launched on the SC3 path: {launches}")
+    if launches["sc3_half_step"] != 2 * (200 + 200) + 2 * 300:
+        raise AssertionError(f"9a and 9b make 1400 SC3 half-steps, not {launches}")
     evals = SC3_WALKERS * 300
     phase("SC3 main path 9b", f"lightcurve_mcmc ShockCooling3 {SC3_WALKERS} walkers x 300 "
           f"steps: mean acceptance {acc:.4f} (JAX float64 CPU {SC3_ACCEPTANCE_REF:.4f} +- 0.01), "
           f"medians {fmt(med)}, {elapsed:.3f} s end to end incl. setup and chain readback, "
           f"{evals / elapsed:.4e} log-posterior evals/s (information only, on {smi}); "
           f"evaluate on the card at the medians: chi2/dof {chi2_dof:.2f} (the JAX CPU probe's "
-          f"best draw: ~{SC3_CHI2_PROBE:.0f}); launches on this path {launches}")
+          f"best draw: ~{SC3_CHI2_PROBE:.0f}); profiled run (seed 8) {wall:.4f} s, device busy "
+          f"{busy:.4f} s (idle share {1 - busy / wall:.3f}): "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in parts.items())
+          + f"; launches on 9a and 9b {launches}")
+
+    # 9c: the acceptance at matched seeds against the JAX package's
+    acc = []
+    for seed in SC3_SEEDS:
+        s = lightcurve_mcmc(lc, ShockCooling3(lc), priors, p_lo=SC3_LO, p_up=SC3_UP,
+                            nwalkers=SC3_SEED_WALKERS, nsteps=300, nsteps_burnin=0, seed=seed,
+                            quiet=True)
+        acc.append(float(np.mean(s.acceptance_fraction)))
+    mean, err = float(np.mean(acc)), float(np.std(acc, ddof=1) / np.sqrt(len(acc)))
+    gap = mean - SC3_SEEDS_REF[0]
+    if abs(gap) > 4 * np.hypot(err, SC3_SEEDS_REF[1]):
+        raise AssertionError(f"9c: mean acceptance {mean:.5f} +- {err:.5f} against the JAX "
+                             f"package's {SC3_SEEDS_REF[0]:.5f} +- {SC3_SEEDS_REF[1]:.5f}")
+    phase("SC3 main path 9c", f"lightcurve_mcmc ShockCooling3 {SC3_SEED_WALKERS} walkers x 300 "
+          f"steps, seeds {SC3_SEEDS[0]}-{SC3_SEEDS[-1]}: mean acceptance {mean:.5f} +- "
+          f"{err:.5f} (per seed {fmt(acc)}) against the JAX package's float64 CPU "
+          f"{SC3_SEEDS_REF[0]:.5f} +- {SC3_SEEDS_REF[1]:.5f} at the same seeds: difference "
+          f"{gap:+.5f} = {gap / np.hypot(err, SC3_SEEDS_REF[1]):+.2f} combined standard errors")
     return launches
 
 
@@ -1084,13 +1171,7 @@ def phase_bolometric_main_path(smi):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     # the device's busy share over one more run: kernel time from the profiler
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run(7)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    wall, prof = profiled(lambda: run(7))
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy = sum(e.self_device_time_total for e in events) / 1e6
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
@@ -1327,33 +1408,6 @@ def phase_k6bcd(lc, seed=9):
     return k6b, k6c, k6d
 
 
-def ladder_time_split(prof, wall):
-    """Seconds of device time by part of the ladder from a profiler run,
-    and the host's share (the wall time the device was idle)."""
-    parts = {"step loop (K6a)": 0.0, "swaps (K6c)": 0.0, "draws": 0.0, "reduction (K6d)": 0.0,
-             "init (K6b)": 0.0, "other": 0.0}
-    for e in prof.key_averages():
-        if e.device_type.name != "CUDA":
-            continue
-        t = e.self_device_time_total / 1e6
-        k = e.key.lower()
-        if "tempered_half_step" in k:
-            parts["step loop (K6a)"] += t
-        elif "replica_swap" in k:
-            parts["swaps (K6c)"] += t
-        elif "rung_block_terms" in k:
-            parts["reduction (K6d)"] += t
-        elif "ladder_init" in k:
-            parts["init (K6b)"] += t
-        elif any(w in k for w in ("distribution", "random", "philox", "uniform")):
-            parts["draws"] += t
-        else:
-            parts["other"] += t
-    busy = sum(parts.values())
-    parts["host (device idle)"] = wall - busy
-    return parts, busy
-
-
 def phase_ladder_main_path(lc, smi):
     import numpy as np
     import torch
@@ -1405,14 +1459,10 @@ def phase_ladder_main_path(lc, smi):
             raise AssertionError(f"16a: float64 compute log Z {z64} +- {e64} disagrees with "
                                  f"float32's {z32} +- {e32}")
     diff = np.array([a[0] - b[0] for a, b in zip(runs64, runs32)])
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        lightcurve_evidence(lc, model, priors, seed=2, **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    parts, busy = ladder_time_split(prof, wall)
+    wall, prof = profiled(lambda: lightcurve_evidence(lc, model, priors, seed=2, **kw))
+    parts, busy = time_split(prof, wall, {
+        "step loop (K6a)": ("tempered_half_step",), "swaps (K6c)": ("replica_swap",),
+        "reduction (K6d)": ("rung_block_terms",), "init (K6b)": ("ladder_init",)})
     med = float(np.median(times))
     evals = (EV_RUNGS + 1) * EV_WALKERS * (EV_STEPS + EV_BURNIN)
     logl_mb = EV_STEPS * (EV_RUNGS + 1) * EV_WALKERS * 8 / 1e6
@@ -1700,6 +1750,9 @@ def phase_k9(lc, seed=13):
             logp0 = target.logp_and_grad(q0)[0]
             got = gradient.nuts_transition(target, q0, logp0, z, u, eps, inv_mass, D)
             torch.cuda.synchronize()
+            if not torch.equal(target.logp_and_grad(got[0])[0], got[1]):
+                raise AssertionError(f"K9 {label}: a chain's log-posterior is not K7's at its "
+                                     "new state, bit for bit")
             # f64: against the plain transition over the plain (autograd)
             # gradient; f32: over K7's own evaluations, the same float32
             # arithmetic, so that the comparison isolates the transition,
@@ -1730,7 +1783,9 @@ def phase_k9(lc, seed=13):
         finally:
             config.set_compute_dtype(config.AUTO)
     deep = k9_deep_trees(lc, g)
-    phase("K9", f"{C} whitened flagship chains, max_depth {D}, eps 0.1, shared draws: f64 against "
+    phase("K9", f"{C} whitened flagship chains (a block of {-(-149 // 32)} warps each), max_depth "
+          f"{D}, eps 0.1, shared draws: every chain's log-posterior K7's at its new state bit for "
+          f"bit (f32, f64); f64 against "
           f"the plain transition: {res['f64'][0]} near-ties, max |dq'| {res['f64'][1]:.3e}, max "
           f"|dlogp'| {res['f64'][2]:.3e}; f32 against the plain transition over K7's float32 "
           f"evaluations: {res['f32'][0]} near-ties, max |dq'| {res['f32'][1]:.3e}, max |dlogp'| "
@@ -1768,6 +1823,8 @@ def k9_deep_trees(lc, g):
             q0 = torch.as_tensor(w0, device=dev)
             logp0 = target.logp_and_grad(q0)[0]
             got = gradient.nuts_transition(target, q0, logp0, z, u, eps, inv_mass, D)
+            if not torch.equal(target.logp_and_grad(got[0])[0], got[1]):
+                raise AssertionError(f"K9 deep {label}: a chain's log-posterior is not K7's")
             # as above: f64 over the plain gradient, f32 over K7's evaluations
             fn = target.logp_and_grad_plain if label == "f64" else target.logp_and_grad
             ref = make_nuts_transition(fn, 4, D, margins=True)(q0, logp0, z, u, eps, inv_mass)
@@ -1873,31 +1930,6 @@ def hmc_checks(result, name):
     return fails, line
 
 
-def gradient_time_split(prof, wall):
-    """Seconds of device time by part of lightcurve_hmc from a profiler run,
-    and the host's share."""
-    parts = {"NUTS transitions (K9)": 0.0, "warm start (K1, K2)": 0.0, "K7": 0.0, "draws": 0.0,
-             "other": 0.0}
-    for e in prof.key_averages():
-        if e.device_type.name != "CUDA":
-            continue
-        t = e.self_device_time_total / 1e6
-        k = e.key.lower()
-        if "nuts_transition" in k:
-            parts["NUTS transitions (K9)"] += t
-        elif "stretch_half_step" in k or "sc2_logpost_kernel" in k:
-            parts["warm start (K1, K2)"] += t
-        elif "logpost_grad" in k:
-            parts["K7"] += t
-        elif any(w in k for w in ("distribution", "random", "philox", "uniform", "normal")):
-            parts["draws"] += t
-        else:
-            parts["other"] += t
-    busy = sum(parts.values())
-    parts["host (device idle)"] = wall - busy
-    return parts, busy
-
-
 def phase_gradient_main_path(lc, smi):
     import numpy as np
     import torch
@@ -1948,24 +1980,30 @@ def phase_gradient_main_path(lc, smi):
             runs[label] = (res, time.perf_counter() - t0) + hmc_checks(res, label)
         finally:
             config.set_compute_dtype(config.AUTO)
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        lightcurve_hmc(lc, ShockCooling2(lc), gauss_priors(), seed=3, quiet=True, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    parts, busy = gradient_time_split(prof, wall)
+    splits = []
+    for label in ("f32", "f64"):
+        try:
+            if label == "f64":
+                config.set_compute_dtype(torch.float64)
+            wall, prof = profiled(lambda: lightcurve_hmc(lc, ShockCooling2(lc), gauss_priors(),
+                                                         seed=3, quiet=True, device="cuda"))
+        finally:
+            config.set_compute_dtype(config.AUTO)
+        parts, busy = time_split(prof, wall, {
+            "NUTS transitions (K9)": ("nuts_transition",),
+            "warm start (K1, K2)": ("stretch_half_step", "sc2_logpost_kernel"),
+            "K7": ("logpost_grad",)})
+        splits.append(f"profiled {label} run {wall:.4f} s, device busy {busy:.4f} s (idle share "
+                      f"{1 - busy / wall:.3f}): "
+                      + ", ".join(f"{k} {v:.4f} s" for k, v in parts.items()))
     phase("gradient main path 20c", f"lightcurve_hmc NUTS 16 chains x 800+1000, max_depth 9, "
           f"warm start 64 x 300, seed 3: float32 compute {runs['f32'][1]:.3f} s, {runs['f32'][3]}"
           f", failed {runs['f32'][2] or 'none'}; float64 compute {runs['f64'][1]:.3f} s, "
           f"{runs['f64'][3]}, failed {runs['f64'][2] or 'none'} (test_hmc.py:147-159's "
-          f"criteria; on {smi}); profiled float32 run {wall:.4f} s, device busy {busy:.4f} s "
-          f"(idle share {1 - busy / wall:.3f}): "
-          + ", ".join(f"{k} {v:.4f} s" for k, v in parts.items()))
-    if runs["f32"][2]:
-        raise AssertionError(f"20c: the default (float32) run misses the criteria: "
-                             f"{runs['f32'][2]}")
+          f"criteria; on {smi}); " + "; ".join(splits))
+    for label in ("f32", "f64"):
+        if runs[label][2]:
+            raise AssertionError(f"20c: the {label} run misses the criteria: {runs[label][2]}")
     # (d) fixed-length HMC, a short run
     h = lightcurve_hmc(lc, ShockCooling2(lc), gauss_priors(), sampler="hmc", nchains=16,
                        nsamples=100, n_warmup=150, seed=4, quiet=True, device="cuda")
@@ -2459,24 +2497,11 @@ def phase_cs_main_path(lc, lc0, smi):
         if flat.shape != (CS_WALKERS * 300, 7) or not np.isfinite(flat).all():
             raise AssertionError("24b: bad chain")
         med_b = np.median(flat, axis=0)
-        from torch.profiler import ProfilerActivity, profile
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            lightcurve_mcmc(lc, cs_model(2, lc0), cs_priors(2), p_lo=CS_LO[2], p_up=CS_UP[2],
-                            nwalkers=CS_WALKERS, nsteps=300, nsteps_burnin=0, seed=11, quiet=True)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        parts = {"half-steps": 0.0, "initial state": 0.0, "draws": 0.0, "other": 0.0}
-        for e in prof.key_averages():
-            if e.device_type.name != "CUDA":
-                continue
-            k, t_dev = e.key.lower(), e.self_device_time_total / 1e6
-            key = ("half-steps" if "stretch_half_step" in k else "initial state"
-                   if "cs_logpost" in k else "draws" if any(
-                       w in k for w in ("distribution", "random", "philox", "uniform")) else "other")
-            parts[key] += t_dev
-        busy = sum(parts.values())
+        wall, prof = profiled(lambda: lightcurve_mcmc(
+            lc, cs_model(2, lc0), cs_priors(2), p_lo=CS_LO[2], p_up=CS_UP[2],
+            nwalkers=CS_WALKERS, nsteps=300, nsteps_burnin=0, seed=11, quiet=True))
+        parts, busy = time_split(prof, wall, {"half-steps": ("stretch_half_step",),
+                                              "initial state": ("cs_logpost",)})
         evals = CS_WALKERS * 300
         med_t = float(np.median(times))
         phase("CS main path 24b", f"lightcurve_mcmc CompanionShocking2 {CS_WALKERS} walkers x 300 "
@@ -2486,8 +2511,7 @@ def phase_cs_main_path(lc, lc0, smi):
               f"median of 4 runs ({', '.join(f'{t:.4f}' for t in times)} s, setup and chain "
               f"readback included; on {smi}); profiled run {wall:.4f} s, device busy {busy:.4f} s "
               f"(idle share {1 - busy / wall:.3f}): "
-              + ", ".join(f"{k} {v:.4f} s" for k, v in parts.items())
-              + f", host {wall - busy:.4f} s")
+              + ", ".join(f"{k} {v:.4f} s" for k, v in parts.items()))
 
         # (c) the evidence and the comparison of CS2 with CS3
         kw = dict(nwalkers=EV_WALKERS, n_rungs=EV_RUNGS, nsteps=EV_STEPS,
@@ -2569,9 +2593,16 @@ def main():
     build.library()
     info = build.build_info()
     regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    from time_port_kernels import ptxas_report
+    k9 = [v for k, v in ptxas_report(info["log"]).items() if "nuts_transition_kernel" in k]
     phase("build", f"{'built' if info['built'] else 'reused'} {os.path.relpath(info['path'], REPO)} "
           f"in {time.perf_counter() - t0:.2f} s; ptxas: {len(regs)} kernels, "
-          f"{sorted(set(r.split('Used ')[-1] for r in regs))[:4]}")
+          f"{sorted(set(r.split('Used ')[-1] for r in regs))[:4]}; K9's {len(k9)} "
+          f"instantiations: registers {sorted(set(v[0] for v in k9))}, stack frames "
+          f"{sorted(set(v[1] for v in k9))} bytes, spills {sorted(set(v[2] + v[3] for v in k9))}")
+    if not k9 or any(v[1] or v[2] or v[3] for v in k9):
+        raise AssertionError(f"K9 must keep its state in registers: {k9}")
 
     lc = flagship_lc()
     k1 = phase_k1(lc)
@@ -2619,7 +2650,7 @@ def main():
         dict(name="sc3_logpost_kernel (SC3 log-posterior)", route="cuda", source=src3,
              replaces="lightcurve_fitting_tpu/models/shock_cooling.py:201",
              launches=launches_sc3["sc3_logpost"], **k_sc3),
-        dict(name="stretch_half_step_kernel<SC3Model> (SC3 half-step)", route="cuda",
+        dict(name="stretch_half_step_kernel<SC3WarpModel> (SC3 half-step)", route="cuda",
              source=src3, replaces="lightcurve_fitting_tpu/parallel/sampler.py:86",
              launches=launches_sc3["sc3_half_step"], **k_sc3_half),
         dict(name="epoch_logpost_kernel (K4)", route="cuda", source=src4,

@@ -155,8 +155,13 @@ def library():
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{out}.{os.getpid()}.tmp"
             log = _compile(srcs, tmp)
+            with open(f"{out}.log", "w") as f:   # kept for a run that reuses the library
+                f.write(log)
             os.replace(tmp, out)
             built = True
+        elif os.path.exists(f"{out}.log"):
+            with open(f"{out}.log") as f:
+                log = f.read()
         _lib = _declare(ctypes.CDLL(out))
         _info.update(path=out, built=built, seconds=time.perf_counter() - t0, log=log)
         return _lib
@@ -164,5 +169,6 @@ def library():
 
 def build_info():
     """Where the library came from: path, whether this process built it, the
-    seconds it took, and nvcc's output (register and shared-memory use)."""
+    seconds it took, and nvcc's output (register, stack and shared-memory
+    use), also when the library was reused."""
     return dict(_info)

@@ -1,13 +1,19 @@
 // The gradient path's kernels, templates over a model policy M of stretch.cuh
-// that also provides the warp-cooperative value and gradient of its
-// log-posterior (SC2Model in sc2_logpost.cu):
+// that also provides the value and gradient of its log-posterior in two
+// cooperative forms (SC2Model in sc2_logpost.cu):
 //   static __device__ double value_and_grad(const double* p, const Data&,
 //                                           const Params&, double* g);
-// called by all 32 lanes of a warp with the same absolute float64 parameters
-// p[ndim]; every lane gets the same float64 log-posterior (-inf outside the
-// priors or where the likelihood is not finite, and then g = 0) and the same
-// raw gradient g[ndim], which may hold NaN where the JAX graph's gradient
-// does (the callers mask it where the JAX callers do).
+// the warp form, called by all 32 lanes of a warp with the same absolute
+// float64 parameters p[ndim]; and
+//   template <int NDIM> static __device__ double value_and_grad_block(
+//       const double* p, const Data&, const Params&, double* g, void* ws, int& turn);
+//   static size_t block_ws_bytes(const Params&);   // host and device
+// the block form, called by every thread of a block, with a workspace of
+// block_ws_bytes. Every caller gets the same float64 log-posterior (-inf
+// outside the priors or where the likelihood is not finite, and then g = 0)
+// and the same raw gradient g[ndim], which may hold NaN where the JAX
+// graph's gradient does (the callers mask it where the JAX callers do); the
+// two forms give the same bits.
 //
 // Replaces (JAX package, lightcurve_fitting_tpu/):
 //   K7  jax.value_and_grad of the log-posterior: parallel/nuts.py:102,
@@ -22,20 +28,30 @@
 //       per chain, tree doublings up to max_depth.
 //
 // What bounds it on the H100: K7 is FP32 (or FP64) work, the model's value
-// and its derivative recurrences over the points (~2x K1's operations); K9
-// and K7h are a dependent chain of up to 2^max_depth - 1 and n_leapfrog
-// gradient evaluations per chain, so a transition's time is the latency of
-// one evaluation times the trajectory length, and only C warps are busy.
-// What the design does about it: one warp per walker or chain, its lanes
-// striding over the points, then a butterfly shuffle reduction in a fixed
-// order (every lane ends with the same bits, so all lanes run the scalar
-// part of the sampler redundantly, with no broadcast and no divergence); the
-// per-point data staged once per block in shared memory; the whole NUTS
-// while-loop in the kernel, the trajectory buffer (Q, P, log w, log p,
-// alpha) in shared memory when it fits beside the points, else in a global
-// scratch; the subtree U-turn checks and the Gumbel argmax spread over the
-// lanes. Draws are inputs, so a kernel's transition equals the plain one's
-// under the same draws up to rounding.
+// and its derivative recurrences over the points (~2x K1's operations): a
+// warp per walker, its lanes striding over the points, then a butterfly
+// shuffle reduction in a fixed order, the per-point data staged once per
+// block in shared memory. K9 and K7h are a dependent chain of up to
+// 2^max_depth - 1 and n_leapfrog gradient evaluations per chain, so a
+// transition's time is the latency of one evaluation times the trajectory
+// length (the operations bound is ~1e-3 of it at 16 chains).
+// What K9's design does about it: a block per chain and one point per thread
+// (ceil(N / 32) warps: 5 for the flagship's 149 points, at most
+// NUTS_MAX_WARPS), so an evaluation's latency is one point's, not a lane's
+// five in a row; the points' factors are folded in the warp form's order
+// (sc2_logpost.cu), so K9's evaluations are K7's bit for bit. ndim is a
+// template parameter (4, or 5 with the intrinsic scatter): the chain's
+// state, the whitening and the prior gradient live in registers, with no
+// stack frame. Every thread runs the sampler's scalar part (kicks, drift,
+// energies, U-turns, progressive sampling) on the same values, so no state
+// is broadcast and an evaluation costs one barrier. The whole NUTS
+// while-loop runs in the kernel; the trajectory buffer (Q, P, log w, log p)
+// lies in shared memory when it fits beside the points, else in a global
+// scratch; the subtree U-turn checks, the Gumbel argmax, the log-sum-exp and
+// the accept statistic's exp are spread over the block. Draws are inputs,
+// so a kernel's transition equals the plain one's under the same draws up to
+// rounding.
+// K7h keeps a warp per chain (250 launches on the main path).
 
 #pragma once
 
@@ -57,30 +73,21 @@ struct WhiteParams {
     double L[LP_MAX_DIM * LP_MAX_DIM];  // Cholesky factor, row-major ndim x ndim
 };
 
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    return v;
-}
-
-template <typename T>
-__device__ __forceinline__ T warp_max(T v) {
-    for (int o = 16; o > 0; o >>= 1) v = fmax(v, __shfl_xor_sync(0xffffffffu, v, o));
-    return v;
-}
-
-// The log-posterior of the whitened space at w[ndim] and its gradient gw,
-// as jax.value_and_grad of fitting.py:517-519 followed by the JAX callers'
-// mask (non-finite components of gw are 0): the model's raw x-space gradient
-// is carried through the chain rule first, so a NaN component reaches the
+// The log-posterior of the whitened space at w[n] and its gradient gw, as
+// jax.value_and_grad of fitting.py:517-519 followed by the JAX callers' mask
+// (non-finite components of gw are 0): the model's raw x-space gradient is
+// carried through the chain rule first, so a NaN component reaches the
 // components of w it touches, as in the JAX graph. -inf (gw = 0) where the
-// value is not finite. All lanes of the warp call it.
-template <typename M>
-__device__ double white_value_and_grad(const double* w, const typename M::Data& d,
-                                       const typename M::Params& P, const WhiteParams& T,
-                                       double* gw) {
-    const int n = (int)T.ndim;
-    double u[LP_MAX_DIM], x[LP_MAX_DIM], dxdu[LP_MAX_DIM], dlj[LP_MAX_DIM];
+// value is not finite. eval(x, gx) is the model's value and raw gradient
+// (the warp or the block form), called by every thread that runs this. N is
+// the dimension when it is known at compile time (then the state lives in
+// registers and the loops unroll), else 0 and n = T.ndim.
+template <int N, typename Eval>
+__device__ __forceinline__ double white_value_and_grad(const double* w, const WhiteParams& T,
+                                                       double* gw, Eval eval) {
+    constexpr int D = N > 0 ? N : LP_MAX_DIM;
+    const int n = N > 0 ? N : (int)T.ndim;
+    double u[D], x[D], dxdu[D], dlj[D];
     double logj = 0.0;
     for (int i = 0; i < n; ++i) {
         double acc = 0.0;
@@ -104,8 +111,8 @@ __device__ double white_value_and_grad(const double* w, const typename M::Data& 
             dlj[i] = 0.0;
         }
     }
-    double gx[LP_MAX_DIM];
-    const double v = M::value_and_grad(x, d, P, gx) + logj;
+    double gx[D];
+    const double v = eval(x, gx) + logj;
     if (!(v > -INFINITY) || isnan(v)) {
         for (int j = 0; j < n; ++j) gw[j] = 0.0;
         return -INFINITY;
@@ -118,20 +125,9 @@ __device__ double white_value_and_grad(const double* w, const typename M::Data& 
     return v;
 }
 
-// The value and the masked gradient at p: the whitened space when T is given,
-// else the model's own parameters (non-finite components 0; all 0 at -inf).
-template <typename M>
-__device__ __forceinline__ double masked_value_and_grad(const double* p, const typename M::Data& d,
-                                                        const typename M::Params& P,
-                                                        const WhiteParams* T, double* g) {
-    if (T != nullptr) return white_value_and_grad<M>(p, d, P, *T, g);
-    const double v = M::value_and_grad(p, d, P, g);
-    for (int k = 0; k < (int)P.ndim; ++k) g[k] = isfinite(g[k]) ? g[k] : 0.0;
-    return v;
-}
-
 // K7: val[w] and grad[w, :] (float64) at the rows q (W, ndim), one warp per
-// row; the whitened space when has_T.
+// row; the whitened space when has_T, else the model's own parameters
+// (non-finite components 0; all 0 at -inf).
 template <typename M>
 __global__ void __launch_bounds__(32 * GRAD_WARPS)
 logpost_grad_kernel(const typename M::Params P, const WhiteParams T, int has_T,
@@ -144,27 +140,33 @@ logpost_grad_kernel(const typename M::Params P, const WhiteParams T, int has_T,
     const int ndim = (int)P.ndim;
     double p[LP_MAX_DIM], g[LP_MAX_DIM];
     for (int k = 0; k < ndim; ++k) p[k] = q[(size_t)row * ndim + k];
-    const double v = masked_value_and_grad<M>(p, d, P, has_T ? &T : nullptr, g);
+    auto eval = [&](const double* x, double* gx) { return M::value_and_grad(x, d, P, gx); };
+    double v;
+    if (has_T) {
+        v = white_value_and_grad<0>(p, T, g, eval);
+    } else {
+        v = eval(p, g);
+        for (int k = 0; k < ndim; ++k) g[k] = isfinite(g[k]) ? g[k] : 0.0;
+    }
     if ((threadIdx.x & 31) == 0) {
         val[row] = v;
         for (int k = 0; k < ndim; ++k) grad[(size_t)row * ndim + k] = g[k];
     }
 }
 
-// One leapfrog step (nuts.py:54-65, hmc.py:257-261) in the whitened space,
-// in place: kick with the entry gradient g, drift, evaluate, kick with the
-// exit gradient, which is left in g. eps carries the direction. Returns the
-// new log-posterior.
-template <typename M>
+// One leapfrog step (hmc.py:257-261) in the whitened space, in place: kick
+// with the entry gradient g, drift, evaluate, kick with the exit gradient,
+// which is left in g. Returns the new log-posterior.
+template <typename Eval>
 __device__ __forceinline__ double leapfrog(double* q, double* p, double* g, double eps,
-                                           const double* inv_mass, int n,
-                                           const typename M::Data& d,
-                                           const typename M::Params& P, const WhiteParams& T) {
+                                           const double* inv_mass, const WhiteParams& T,
+                                           Eval eval) {
+    const int n = (int)T.ndim;
     for (int k = 0; k < n; ++k) {
         p[k] = p[k] + (0.5 * eps) * g[k];
         q[k] = q[k] + (eps * inv_mass[k]) * p[k];
     }
-    const double lp = white_value_and_grad<M>(q, d, P, T, g);
+    const double lp = white_value_and_grad<0>(q, T, g, eval);
     for (int k = 0; k < n; ++k) p[k] = p[k] + (0.5 * eps) * g[k];
     return lp;
 }
@@ -183,51 +185,74 @@ __device__ __forceinline__ bool turns(const double* p, const double* dq, const d
     return s < 0.0;
 }
 
-// K9: one multinomial NUTS transition of every chain (one warp, one block
-// per chain), the body of nuts.py:105-202 with its draws as inputs: z (C,
-// ndim) normals for the momentum; u (C, max_depth, max_len + 2) uniforms per
-// doubling, [0] the direction (+1 when < 0.5: jr.bernoulli), [1 .. max_len]
-// the Gumbel pick, [max_len + 1] the progressive-sampling accept. eps and
-// inv_mass are device values (the warmup adapts them between launches). The
-// trajectory buffer holds max_len rows of Q, P (ndim each), log w, log p and
-// alpha: in shared memory after the staged points when traj_smem, else at
-// scratch + chain * max_len * (2 ndim + 3).
-template <typename M>
-__global__ void __launch_bounds__(32)
+// K9's shared memory, in bytes from the start of the dynamic allocation, and
+// its global scratch, in doubles per chain (nuts_plan).
+struct NutsLayout {
+    int threads;        // of the block (one chain)
+    int use_smem;       // the staged points at 0 (else read from global memory)
+    int ws_smem;        // the model's block workspace at ws_off (else in scratch at 0)
+    int traj_smem;      // the trajectory buffer at traj_off (else in scratch at traj_scratch)
+    long long red_off;  // NUTS_RED doubles for the block reductions
+    long long ws_off;
+    long long traj_off;
+    long long smem;     // bytes of dynamic shared memory
+    long long traj_scratch;
+    long long scratch;  // doubles of global scratch per chain
+};
+
+#define NUTS_MAX_WARPS 8                 // 256 threads: the chain's state keeps its registers
+#define NUTS_RED (5 * NUTS_MAX_WARPS)    // per warp: max, best key, pick, alpha sum, exp sum
+
+// K9: one multinomial NUTS transition of every chain (one block per chain,
+// Lay.threads threads), the body of nuts.py:105-202 with its draws as inputs:
+// z (C, N) normals for the momentum; u (C, max_depth, max_len + 2) uniforms
+// per doubling, [0] the direction (+1 when < 0.5: jr.bernoulli), [1 ..
+// max_len] the Gumbel pick, [max_len + 1] the progressive-sampling accept.
+// eps and inv_mass are device values (the warmup adapts them between
+// launches). Every thread runs the sampler's scalar part on the same values
+// (the model's block form gives every thread the same bits), so the state
+// needs no broadcast; thread 0 writes the trajectory buffer, max_len rows of
+// Q, P (N each), log w and log p, whose U-turn blocks, Gumbel argmax,
+// log-sum-exp and alpha sum are then spread over the block and combined in
+// a fixed order (warp butterflies, then the warps in order).
+template <typename M, int N>
+__global__ void __launch_bounds__(32 * NUTS_MAX_WARPS, 1)
 nuts_transition_kernel(const typename M::Params P, const WhiteParams T,
                        const double* __restrict__ q_in, const double* __restrict__ logp_in,
                        const double* __restrict__ z, const double* __restrict__ u,
                        const double* __restrict__ eps_ptr, const double* __restrict__ inv_mass_ptr,
                        int max_depth, double* __restrict__ q_out, double* __restrict__ logp_out,
                        double* __restrict__ accept_stat, int* __restrict__ depth_out,
-                       int* __restrict__ diverged_out, double* __restrict__ scratch, int use_smem,
-                       size_t points_bytes, int traj_smem) {
+                       int* __restrict__ diverged_out, double* __restrict__ scratch,
+                       const NutsLayout Lay) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    const typename M::Data d = M::stage(P, smem_raw, use_smem, 0);
+    const typename M::Data d = M::stage(P, smem_raw, Lay.use_smem, 0);
     const int c = blockIdx.x;
-    const int lane = threadIdx.x & 31;
-    const int n = (int)T.ndim;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
     const int max_len = max_depth > 1 ? 1 << (max_depth - 1) : 1;
-    const int row = 2 * n + 3;
-    double* buf = traj_smem ? reinterpret_cast<double*>(smem_raw + points_bytes)
-                            : scratch + (size_t)c * max_len * row;
-    double* Qb = buf;                             // (max_len, n)
-    double* Pb = Qb + (size_t)max_len * n;        // (max_len, n)
-    double* lwb = Pb + (size_t)max_len * n;       // (max_len,)
+    double* cs = scratch != nullptr ? scratch + (size_t)c * Lay.scratch : nullptr;
+    double* Qb = Lay.traj_smem ? reinterpret_cast<double*>(smem_raw + Lay.traj_off)
+                               : cs + Lay.traj_scratch;   // (max_len, N)
+    double* Pb = Qb + (size_t)max_len * N;                // (max_len, N)
+    double* lwb = Pb + (size_t)max_len * N;               // (max_len,)
     double* lpb = lwb + max_len;
-    double* alb = lpb + max_len;
+    double* red = reinterpret_cast<double*>(smem_raw + Lay.red_off);
+    void* ws = Lay.ws_smem ? static_cast<void*>(smem_raw + Lay.ws_off) : static_cast<void*>(cs);
+    int turn = 0;
+    auto eval = [&](const double* x, double* gx) {
+        return M::template value_and_grad_block<N>(x, d, P, gx, ws, turn);
+    };
 
     const double eps = *eps_ptr;
-    double inv_mass[LP_MAX_DIM];
-    double q_l[LP_MAX_DIM], p_l[LP_MAX_DIM], q_r[LP_MAX_DIM], p_r[LP_MAX_DIM];
-    double q_prop[LP_MAX_DIM];
-    for (int k = 0; k < n; ++k) {
+    double inv_mass[N], q_l[N], p_l[N], q_r[N], p_r[N], q_prop[N];
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
         inv_mass[k] = inv_mass_ptr[k];
-        q_l[k] = q_r[k] = q_prop[k] = q_in[(size_t)c * n + k];
-        p_l[k] = p_r[k] = z[(size_t)c * n + k] / sqrt(inv_mass[k]);
+        q_l[k] = q_r[k] = q_prop[k] = q_in[(size_t)c * N + k];
+        p_l[k] = p_r[k] = z[(size_t)c * N + k] / sqrt(inv_mass[k]);
     }
     const double logp0 = logp_in[c];
-    const double h0 = -logp0 + kinetic(p_l, inv_mass, n);
+    const double h0 = -logp0 + kinetic(p_l, inv_mass, N);
     double logp_prop = logp0, logW = 0.0, a_sum = 0.0, a_cnt = 0.0;
     bool turned = false, diverged = false;
     int depth = 0;
@@ -236,66 +261,74 @@ nuts_transition_kernel(const typename M::Params P, const WhiteParams T,
         const double* ud = u + ((size_t)c * max_depth + depth) * (max_len + 2);
         const double dir = ud[0] < 0.5 ? 1.0 : -1.0;
         const int n_steps = 1 << depth;
-        double q[LP_MAX_DIM], p[LP_MAX_DIM], g[LP_MAX_DIM];
-        for (int k = 0; k < n; ++k) {
+        double q[N], p[N], g[N];
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
             q[k] = dir > 0.0 ? q_r[k] : q_l[k];
             p[k] = dir > 0.0 ? p_r[k] : p_l[k];
         }
-        // one evaluation seeds the subtree; every later step reuses its
-        // predecessor's exit gradient (n_steps + 1 evaluations)
-        white_value_and_grad<M>(q, d, P, T, g);
+        // one evaluation seeds the subtree (i = -1), every later step is a
+        // leapfrog (nuts.py:54-65) that reuses its predecessor's exit
+        // gradient: n_steps + 1 evaluations from one call site
+        const double e = dir * eps;
         bool div_new = false;
-        for (int i = 0; i < n_steps; ++i) {
-            const double lp = leapfrog<M>(q, p, g, dir * eps, inv_mass, n, d, P, T);
-            double h = -lp + kinetic(p, inv_mass, n);
+        for (int i = -1; i < n_steps; ++i) {
+            if (i >= 0) {
+#pragma unroll
+                for (int k = 0; k < N; ++k) {
+                    p[k] = p[k] + (0.5 * e) * g[k];
+                    q[k] = q[k] + (e * inv_mass[k]) * p[k];
+                }
+            }
+            const double lp = white_value_and_grad<N>(q, T, g, eval);
+            if (i < 0) continue;
+#pragma unroll
+            for (int k = 0; k < N; ++k) p[k] = p[k] + (0.5 * e) * g[k];
+            double h = -lp + kinetic(p, inv_mass, N);
             if (isnan(h)) h = INFINITY;
             const double lw = h0 - h;
             div_new = div_new || lw < -1000.0;
-            if (lane == 0) {
-                for (int k = 0; k < n; ++k) {
-                    Qb[(size_t)i * n + k] = q[k];
-                    Pb[(size_t)i * n + k] = p[k];
+            if (tid == 0) {
+#pragma unroll
+                for (int k = 0; k < N; ++k) {
+                    Qb[(size_t)i * N + k] = q[k];
+                    Pb[(size_t)i * N + k] = p[k];
                 }
                 lwb[i] = lw;
                 lpb[i] = lp;
-                alb[i] = fmin(1.0, exp(lw));
             }
         }
-        __syncwarp();
+        __syncthreads();
         // U-turns inside the subtree: the endpoints of every aligned
-        // power-of-two block (nuts.py:68-90), blocks spread over the lanes
+        // power-of-two block (nuts.py:68-90); with them this thread's part of
+        // the subtree's max log w, its Gumbel-argmax pick (the first index
+        // wins a tie, as jnp.argmax) and its alpha sum
         bool bad = false;
         for (int size = 2; size <= n_steps; size <<= 1) {
-            for (int b = lane; b < n_steps / size; b += 32) {
+            for (int b = tid; b < n_steps / size; b += blockDim.x) {
                 const int s = b * size, e = s + size - 1;
-                double dq[LP_MAX_DIM], vs[LP_MAX_DIM], ve[LP_MAX_DIM];
-                for (int k = 0; k < n; ++k) {
-                    dq[k] = dir * (Qb[(size_t)e * n + k] - Qb[(size_t)s * n + k]);
-                    vs[k] = Pb[(size_t)s * n + k];
-                    ve[k] = Pb[(size_t)e * n + k];
+                double dq[N], vs[N], ve[N];
+#pragma unroll
+                for (int k = 0; k < N; ++k) {
+                    dq[k] = dir * (Qb[(size_t)e * N + k] - Qb[(size_t)s * N + k]);
+                    vs[k] = Pb[(size_t)s * N + k];
+                    ve[k] = Pb[(size_t)e * N + k];
                 }
-                bad = bad || turns(vs, dq, inv_mass, n) || turns(ve, dq, inv_mass, n);
+                bad = bad || turns(vs, dq, inv_mass, N) || turns(ve, dq, inv_mass, N);
             }
         }
-        bad = __any_sync(0xffffffffu, bad) || div_new;
-        // log W of the subtree, its Gumbel-argmax pick (the first index wins
-        // a tie, as jnp.argmax) and its alpha sum
         double m = -INFINITY, best = -INFINITY, a_part = 0.0;
         int pick = 0x7fffffff;
-        for (int i = lane; i < n_steps; i += 32) {
+        for (int i = tid; i < n_steps; i += blockDim.x) {
             m = fmax(m, lwb[i]);
             const double key = lwb[i] + (-log(-log(ud[1 + i])));
             if (key > best || (key == best && i < pick)) {
                 best = key;
                 pick = i;
             }
-            a_part += alb[i];
+            a_part += fmin(1.0, exp(lwb[i]));
         }
         m = warp_max(m);
-        const double shift = isfinite(m) ? m : 0.0;
-        double se = 0.0;
-        for (int i = lane; i < n_steps; i += 32) se += exp(lwb[i] - shift);
-        const double logW_new = log(warp_sum(se)) + shift;
         for (int o = 16; o > 0; o >>= 1) {
             const double ob = __shfl_xor_sync(0xffffffffu, best, o);
             const int oi = __shfl_xor_sync(0xffffffffu, pick, o);
@@ -304,15 +337,48 @@ nuts_transition_kernel(const typename M::Params P, const WhiteParams T,
                 pick = oi;
             }
         }
-        const double alpha_sum = warp_sum(a_part);
+        a_part = warp_sum(a_part);
+        if (lane == 0) {
+            red[warp] = m;
+            red[NUTS_MAX_WARPS + warp] = best;
+            red[2 * NUTS_MAX_WARPS + warp] = (double)pick;
+            red[3 * NUTS_MAX_WARPS + warp] = a_part;
+        }
+        bad = __syncthreads_or(bad) || div_new;
+        m = red[0];
+        best = red[NUTS_MAX_WARPS];
+        pick = (int)red[2 * NUTS_MAX_WARPS];
+        double alpha_sum = red[3 * NUTS_MAX_WARPS];
+        for (int w = 1; w < nw; ++w) {
+            m = fmax(m, red[w]);
+            const double ob = red[NUTS_MAX_WARPS + w];
+            const int oi = (int)red[2 * NUTS_MAX_WARPS + w];
+            if (ob > best || (ob == best && oi < pick)) {
+                best = ob;
+                pick = oi;
+            }
+            alpha_sum += red[3 * NUTS_MAX_WARPS + w];
+        }
+        // log W of the subtree
+        const double shift = isfinite(m) ? m : 0.0;
+        double se = 0.0;
+        for (int i = tid; i < n_steps; i += blockDim.x) se += exp(lwb[i] - shift);
+        se = warp_sum(se);
+        if (lane == 0) red[4 * NUTS_MAX_WARPS + warp] = se;
+        __syncthreads();
+        se = red[4 * NUTS_MAX_WARPS];
+        for (int w = 1; w < nw; ++w) se += red[4 * NUTS_MAX_WARPS + w];
+        const double logW_new = log(se) + shift;
         // biased progressive sampling: the subtree's pick with probability
         // min(1, W_new / W_old)
         if (!bad && log(ud[max_len + 1]) < logW_new - logW) {
-            for (int k = 0; k < n; ++k) q_prop[k] = Qb[(size_t)pick * n + k];
+#pragma unroll
+            for (int k = 0; k < N; ++k) q_prop[k] = Qb[(size_t)pick * N + k];
             logp_prop = lpb[pick];
         }
         if (!bad) {   // a bad subtree ends the growth without being merged
-            for (int k = 0; k < n; ++k) {
+#pragma unroll
+            for (int k = 0; k < N; ++k) {
                 if (dir > 0.0) {
                     q_r[k] = q[k];
                     p_r[k] = p[k];
@@ -323,9 +389,10 @@ nuts_transition_kernel(const typename M::Params P, const WhiteParams T,
             }
             const double hi = fmax(logW, logW_new);
             logW = hi + log1p(exp(-fabs(logW - logW_new)));
-            double dq[LP_MAX_DIM];
-            for (int k = 0; k < n; ++k) dq[k] = q_r[k] - q_l[k];
-            turned = turns(p_l, dq, inv_mass, n) || turns(p_r, dq, inv_mass, n);
+            double dq[N];
+#pragma unroll
+            for (int k = 0; k < N; ++k) dq[k] = q_r[k] - q_l[k];
+            turned = turns(p_l, dq, inv_mass, N) || turns(p_r, dq, inv_mass, N);
         } else {
             turned = true;
         }
@@ -333,10 +400,11 @@ nuts_transition_kernel(const typename M::Params P, const WhiteParams T,
         depth += 1;
         a_sum += alpha_sum;
         a_cnt += (double)n_steps;
-        __syncwarp();   // the buffer is rewritten by the next doubling
+        __syncthreads();   // the buffer and red are rewritten by the next doubling
     }
-    if (lane == 0) {
-        for (int k = 0; k < n; ++k) q_out[(size_t)c * n + k] = q_prop[k];
+    if (tid == 0) {
+#pragma unroll
+        for (int k = 0; k < N; ++k) q_out[(size_t)c * N + k] = q_prop[k];
         logp_out[c] = logp_prop;
         accept_stat[c] = a_sum / fmax(a_cnt, 1.0);
         depth_out[c] = depth;
@@ -362,6 +430,7 @@ hmc_transition_kernel(const typename M::Params P, const WhiteParams T,
     const int c = blockIdx.x;
     const int n = (int)T.ndim;
     const double eps = *eps_ptr;
+    auto eval = [&](const double* x, double* gx) { return M::value_and_grad(x, d, P, gx); };
     double inv_mass[LP_MAX_DIM], x[LP_MAX_DIM], p0[LP_MAX_DIM], q[LP_MAX_DIM], p[LP_MAX_DIM];
     double g[LP_MAX_DIM];
     for (int k = 0; k < n; ++k) {
@@ -370,10 +439,10 @@ hmc_transition_kernel(const typename M::Params P, const WhiteParams T,
         p0[k] = p[k] = z[(size_t)c * n + k] / sqrt(inv_mass[k]);
     }
     const double logp0 = logp_in[c];
-    white_value_and_grad<M>(q, d, P, T, g);
+    white_value_and_grad<0>(q, T, g, eval);
     double logp_new = logp0;
     const long long steps = n_used[c];
-    for (long long i = 0; i < steps; ++i) logp_new = leapfrog<M>(q, p, g, eps, inv_mass, n, d, P, T);
+    for (long long i = 0; i < steps; ++i) logp_new = leapfrog(q, p, g, eps, inv_mass, T, eval);
     const double h0 = logp0 - kinetic(p0, inv_mass, n);
     const double h1 = logp_new - kinetic(p, inv_mass, n);
     const double log_accept = isfinite(h1) ? h1 - h0 : -INFINITY;
@@ -404,52 +473,54 @@ static int launch_logpost_grad(const typename M::Params& P, const WhiteParams* T
     return (int)cudaGetLastError();
 }
 
-// K9's shared memory: the points and the trajectory buffer when both fit,
-// else the points alone (the buffer in scratch), else neither. Returns the
-// trajectory buffer's length in doubles per chain.
+// K9's plan for a chain of the model's points: the block (a warp for every
+// 32 points, at most NUTS_MAX_WARPS) and its memory. Shared memory holds the
+// block reductions, then the staged points, the model's block workspace and
+// the trajectory buffer (max_len rows of 2 ndim + 2 doubles), each where it
+// still fits under the card's limit, in that order; what does not fit lies
+// in global memory (the points where the model keeps them, the workspace
+// and the buffer in a scratch of NutsLayout.scratch doubles per chain).
 template <typename M>
-static size_t nuts_plan(const typename M::Params& P, int ndim, int max_depth, int* use_smem,
-                        int* traj_smem, size_t* points) {
-    const size_t max_len = max_depth > 1 ? (size_t)1 << (max_depth - 1) : 1;
-    const size_t traj = max_len * (size_t)(2 * ndim + 3);
-    const size_t limit = (size_t)smem_optin_limit();
-    *points = (M::stage_bytes(P) + 15) / 16 * 16;
-    *use_smem = *points <= limit;
-    *traj_smem = *points + sizeof(double) * traj <= limit;
-    return traj;
+static NutsLayout nuts_plan(const typename M::Params& P, int ndim, int max_depth) {
+    NutsLayout L;
+    const long long warps = (P.n_points + 31) / 32;
+    L.threads = 32 * (int)(warps < 1 ? 1 : (warps < NUTS_MAX_WARPS ? warps : NUTS_MAX_WARPS));
+    const long long max_len = max_depth > 1 ? 1LL << (max_depth - 1) : 1;
+    const long long points = ((long long)M::stage_bytes(P) + 15) / 16 * 16;
+    const long long ws = ((long long)M::block_ws_bytes(P) + 15) / 16 * 16;
+    const long long traj = 8 * max_len * (2 * ndim + 2);
+    const long long limit = smem_optin_limit();
+    L.use_smem = points + 8 * NUTS_RED <= limit;
+    L.red_off = L.use_smem ? points : 0;
+    long long used = L.red_off + 8 * NUTS_RED;
+    L.ws_smem = used + ws <= limit;
+    L.ws_off = used;
+    if (L.ws_smem) used += ws;
+    L.traj_smem = used + traj <= limit;
+    L.traj_off = used;
+    if (L.traj_smem) used += traj;
+    L.smem = used;
+    L.traj_scratch = L.ws_smem ? 0 : ws / 8;
+    L.scratch = L.traj_scratch + (L.traj_smem ? 0 : traj / 8);
+    return L;
 }
 
-// The float64 scratch (in doubles) that K9 over C chains needs: 0 when the
-// trajectory buffer fits in shared memory beside the points.
-template <typename M>
-static long long nuts_scratch_len(const typename M::Params& P, int ndim, int max_depth, int C) {
-    int use_smem = 0, traj_smem = 0;
-    size_t points = 0;
-    const size_t traj = nuts_plan<M>(P, ndim, max_depth, &use_smem, &traj_smem, &points);
-    return traj_smem ? 0 : (long long)(traj * (size_t)C);
-}
-
-template <typename M>
+template <typename M, int N>
 static int launch_nuts(const typename M::Params& P, const WhiteParams& T, const double* q,
                        const double* logp, const double* z, const double* u, const double* eps,
                        const double* inv_mass, int max_depth, int C, double* q_out,
                        double* logp_out, double* accept_stat, int* depth, int* diverged,
                        double* scratch, cudaStream_t stream) {
-    auto kernel = nuts_transition_kernel<M>;
-    int use_smem = 0, traj_smem = 0;
-    size_t points = 0;
-    const size_t traj = sizeof(double)
-        * nuts_plan<M>(P, (int)T.ndim, max_depth, &use_smem, &traj_smem, &points);
-    if (!traj_smem && scratch == nullptr) return (int)cudaErrorInvalidValue;
-    const size_t bytes = (use_smem ? points : 0) + (traj_smem ? traj : 0);
-    if (bytes > 48 * 1024) {
+    auto kernel = nuts_transition_kernel<M, N>;
+    const NutsLayout L = nuts_plan<M>(P, N, max_depth);
+    if (L.scratch > 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+    if (L.smem > 48 * 1024) {
         int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)bytes);
+                                           (int)L.smem);
         if (rc) return rc;
     }
-    kernel<<<C, 32, bytes, stream>>>(P, T, q, logp, z, u, eps, inv_mass, max_depth, q_out,
-                                     logp_out, accept_stat, depth, diverged, scratch, use_smem,
-                                     use_smem ? points : 0, traj_smem);
+    kernel<<<C, L.threads, L.smem, stream>>>(P, T, q, logp, z, u, eps, inv_mass, max_depth, q_out,
+                                             logp_out, accept_stat, depth, diverged, scratch, L);
     return (int)cudaGetLastError();
 }
 

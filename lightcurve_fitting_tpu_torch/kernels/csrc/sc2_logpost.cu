@@ -14,7 +14,8 @@
 //   K7, K7h, K9 over ShockCooling2: the value and gradient of the
 //       log-posterior (jax.value_and_grad of K1's graph), the HMC and the
 //       NUTS transitions, the templates of gradient.cuh over SC2Model, whose
-//       value_and_grad is sc2_value_and_grad_warp below.
+//       value_and_grad is sc2_value_and_grad_warp below (K7, K7h) and
+//       value_and_grad_block sc2_value_and_grad_block (K9).
 //
 // What bounds it on the H100: FP32 ALU work. One evaluation is ~23.5k flops
 // over the N = 149 points of the flagship, of which the degree-40 Clenshaw
@@ -188,30 +189,184 @@ __device__ double sc2_log_posterior(const double* p, const PointData<C>& d, cons
     return lprior + sc2_log_likelihood<C>(p, d, P);
 }
 
-// K7's device function: the log-posterior of one walker at absolute float64
-// parameters p[ndim] and its raw gradient g[ndim], computed by the 32 lanes
-// of a warp together (every lane returns the same bits). Each lane takes the
-// points n = lane, lane + 32, ... and accumulates its residual terms and
-// their derivatives in the compute type C; a butterfly shuffle sums them in
-// a fixed order; the priors and their gradient (0 uniform, -1/x log-uniform,
-// -(x - mu)/sigma^2 Gaussian) are added in float64.
+// The value and gradient of the log-posterior (K7's device function, and the
+// block form of K9): the log-posterior of one walker at absolute float64
+// parameters p[ndim] and its raw gradient g[ndim]. The residual terms and
+// their derivatives are accumulated in the compute type C over slots of
+// points: slot l takes the points n = l, l + 32, l + 64, ... in that order,
+// then a butterfly shuffle sums the 32 slots in a fixed order. The warp form
+// runs slot l on lane l; the block form computes each point on its own
+// thread, keeps the point's factors in a workspace, and lets every warp fold
+// the slots from there. Both accumulate through sc2_accumulate, so a
+// walker's value and gradient have the same bits in both forms. The priors
+// and their gradient (0 uniform, -1/x log-uniform, -(x - mu)/sigma^2
+// Gaussian) are added in float64.
 // The derivatives retrace the reverse pass of the JAX graph of K1, step for
-// step, so the gradient is NaN exactly where jax.grad's is: T, L, R and the
-// power laws of ShockCooling2._tr_points (zero derivative where power's base
-// is <= 0, the double-where of ops/mathx.py:52-57), s = clip(a ln T - b, -1,
-// 1) (zero where the clip is active), the Clenshaw derivative run alongside
-// the recurrence (d_k = 2 b_{k+1} + 2 s d_{k+1} - d_{k+2}, then d ln g / ds =
-// b_1 + s d_1 - d_2), the flux's where(T > 0) and the Gaussian residual with
-// or without the intrinsic scatter. In particular d sqrt(L) / dL = 0.5 / sqrt(L)
-// is infinite where L = 0 (t <= t_exp), and 0 x inf makes d/dL_1 NaN there,
-// as in the JAX graph; the callers mask it as the JAX callers do.
+// step (sc2_point, one copy for both forms), so the gradient is NaN exactly
+// where jax.grad's is: T, L, R and the power laws of ShockCooling2._tr_points
+// (zero derivative where power's base is <= 0, the double-where of
+// ops/mathx.py:52-57), s = clip(a ln T - b, -1, 1) (zero where the clip is
+// active), the Clenshaw derivative run alongside the recurrence (d_k = 2
+// b_{k+1} + 2 s d_{k+1} - d_{k+2}, then d ln g / ds = b_1 + s d_1 - d_2), the
+// flux's where(T > 0) and the Gaussian residual with or without the
+// intrinsic scatter. In particular d sqrt(L) / dL = 0.5 / sqrt(L) is infinite
+// where L = 0 (t <= t_exp), and 0 x inf makes d/dL_1 NaN there, as in the
+// JAX graph; the callers mask it as the JAX callers do.
 // -inf (and g = 0) outside the priors or where the likelihood is not finite.
+
+// The walker's parameters in the compute type, and the model's constants.
 template <typename C>
-__device__ double sc2_value_and_grad_warp(const double* p, const PointData<C>& d,
-                                          const SC2Params& P, double* g) {
-    const int ndim = (int)P.ndim;
-    const int lane = threadIdx.x & 31;
-    double lprior = 0.0, gprior[LP_MAX_DIM];
+struct SC2Walker {
+    C T1, L1, t_tr, t_exp, eT, eL, a_mod, alpha, c3, inv_yscale, sig;
+};
+
+// One point's part of the six sums, as the factors the sums take it in: the
+// residual term r * r (r alone with the intrinsic scatter), ct_T * ptT,
+// ct_L1E * E, the t_tr and tt derivatives, and the sigma derivative s0 * s1.
+template <typename C>
+struct SC2Point {
+    C r, t0, t1, l0, l1, ttr, tt, s0, s1;
+};
+
+// The residual sum and its derivatives in T_1, L_1, t_tr, tt (tt = t -
+// t_exp, so d/dt_exp = -d/dtt) and sigma.
+template <typename C>
+struct SC2Sums {
+    C acc = C(0), dT1 = C(0), dL1 = C(0), dttr = C(0), dtt = C(0), dsig = C(0);
+};
+
+template <typename C>
+__device__ __forceinline__ void sc2_accumulate(SC2Sums<C>& s, const SC2Point<C>& q,
+                                               bool use_sigma) {
+    if (use_sigma) {
+        s.acc += q.r;
+        s.dsig += q.s0 * q.s1;
+    } else {
+        s.acc += q.r * q.r;
+    }
+    s.dT1 += q.t0 * q.t1;
+    s.dL1 += q.l0 * q.l1;
+    s.dttr += q.ttr;
+    s.dtt += q.tt;
+}
+
+template <typename C>
+__device__ __forceinline__ SC2Walker<C> sc2_walker(const double* p, const SC2Params& P,
+                                                   int ndim) {
+    SC2Walker<C> w;
+    w.T1 = (C)p[0];
+    w.L1 = (C)p[1];
+    w.t_tr = (C)p[2];
+    w.t_exp = (C)(p[3] - P.t_ref);
+    w.eT = (C)P.eps_T;
+    w.eL = (C)P.eps_L;
+    w.a_mod = (C)P.a_model;
+    w.alpha = (C)P.alpha;
+    w.c3 = (C)P.c3_42;
+    w.inv_yscale = (C)P.inv_yscale;
+    w.sig = P.use_sigma ? (C)p[ndim - 1] : C(0);
+    return w;
+}
+
+// Point n's residual term and its reverse pass.
+template <typename C>
+__device__ __forceinline__ SC2Point<C> sc2_point(int n, const SC2Walker<C>& w,
+                                                 const PointData<C>& d, int K, bool use_sigma) {
+    const C tt = d.tc[n] - w.t_exp;
+    const bool tpos = tt > C(0);
+    const C ptT = tpos ? m_pow(tt, w.eT) : C(0);
+    const C T = w.T1 * ptT;
+    const C uu = (w.a_mod * tt) / w.t_tr;
+    const bool upos = uu > C(0);
+    const C pu = upos ? m_pow(uu, w.alpha) : C(0);
+    const C E = m_exp(-pu);
+    const C ptL = tpos ? m_pow(tt, w.eL) : C(0);
+    const C L1E = w.L1 * E;
+    const C L = L1E * ptL;
+    const C sL = m_sqrt(L);
+    const bool Tpos = T > C(0);
+    const C pT2 = Tpos ? m_pow(T, C(-2)) : C(0);
+    const C c3sL = w.c3 * sL;
+    const C R = c3sL * pT2;
+    // the power laws of the reverse pass, issued before the recurrence
+    // (they do not depend on it)
+    const C pT3 = Tpos ? m_pow(T, C(-3)) : C(0);
+    const C pua = upos ? m_pow(uu, w.alpha - C(1)) : C(0);
+    const C ptL1 = tpos ? m_pow(tt, w.eL - C(1)) : C(0);
+    const C ptT1 = tpos ? m_pow(tt, w.eT - C(1)) : C(0);
+    C F = C(0), G = C(0), dlng = C(0), s_a = C(0);
+    bool clipped = false;
+    if (Tpos) {
+        s_a = d.s_a[n];
+        const C s_raw = m_log(T) * s_a - d.s_b[n];
+        clipped = !(s_raw >= C(-1) && s_raw <= C(1));
+        const C s = s_raw < C(-1) ? C(-1) : (s_raw > C(1) ? C(1) : s_raw);
+        const C two_s = C(2) * s;
+        const C* c = d.coef + (size_t)n * K;
+        C b1 = C(0), b2 = C(0), d1 = C(0), d2 = C(0);
+        for (int k = K - 1; k >= 1; --k) {
+            const C d0 = C(2) * b1 + two_s * d1 - d2;
+            const C b0 = two_s * b1 - b2 + c[k];
+            b2 = b1;
+            b1 = b0;
+            d2 = d1;
+            d1 = d0;
+        }
+        const C ln_g = s * b1 - b2 + c[0];
+        dlng = b1 + s * d1 - d2;
+        G = m_exp(ln_g);
+        F = R * R * G;
+    }
+    const C y_fit = F * w.inv_yscale;
+    SC2Point<C> q;
+    C dy_fit;   // d term / d y_fit
+    if (use_sigma) {
+        const C two_pi = (C)6.283185307179586;
+        const C sg = w.sig * d.su[n];
+        const C sigma2 = d.dy[n] * d.dy[n] + sg * sg;
+        const C res = d.y[n] - y_fit;
+        q.r = m_log(two_pi * sigma2) + res * res / sigma2;
+        dy_fit = C(-2) * res / sigma2;
+        q.s0 = C(1) / sigma2 - res * res / (sigma2 * sigma2);
+        q.s1 = C(2) * sg * d.su[n];
+    } else {
+        const C r = (d.y[n] - y_fit) * d.inv_dy[n];
+        q.r = r;
+        dy_fit = C(-2) * r * d.inv_dy[n];
+        q.s0 = q.s1 = C(0);
+    }
+    // the reverse pass (cotangents of the residual term)
+    const C ct_F = dy_fit * w.inv_yscale;
+    const C ct_R = Tpos ? ct_F * (C(2) * R * G) : C(0);
+    const C ct_s = Tpos && !clipped ? ct_F * F * dlng : C(0);
+    C ct_T = Tpos ? ct_s * s_a / T : C(0);
+    const C ct_pT2 = ct_R * c3sL;
+    ct_T += Tpos ? ct_pT2 * (C(-2) * pT3) : C(0);
+    const C ct_sL = (ct_R * pT2) * w.c3;
+    const C ct_L = ct_sL * (C(0.5) / sL);
+    const C ct_L1E = ct_L * ptL;
+    const C ct_ptL = ct_L * L1E;
+    const C ct_E = ct_L1E * w.L1;
+    const C ct_pu = -(ct_E * E);
+    const C ct_uu = upos ? ct_pu * (w.alpha * pua) : C(0);
+    C ct_tt = (ct_uu / w.t_tr) * w.a_mod;
+    ct_tt += tpos ? ct_ptL * (w.eL * ptL1) : C(0);
+    ct_tt += tpos ? (ct_T * w.T1) * (w.eT * ptT1) : C(0);
+    q.t0 = ct_T;
+    q.t1 = ptT;
+    q.l0 = ct_L1E;
+    q.l1 = E;
+    q.ttr = -ct_uu * uu / w.t_tr;
+    q.tt = ct_tt;
+    return q;
+}
+
+// The prior sum at p[ndim] and its gradient gprior; false outside the open
+// bounds (NaN included).
+template <int D>
+__device__ __forceinline__ bool sc2_prior(const double* p, const SC2Params& P, int ndim,
+                                          double& lprior, double (&gprior)[D]) {
+    lprior = 0.0;
     bool inside = true;
     for (int i = 0; i < ndim; ++i) {
         const double v = p[i];
@@ -227,122 +382,80 @@ __device__ double sc2_value_and_grad_warp(const double* p, const PointData<C>& d
             gprior[i] = -zz / P.stddev[i];
         }
     }
-    if (!inside) {
-        for (int k = 0; k < ndim; ++k) g[k] = 0.0;
-        return -INFINITY;
-    }
-    const C T1 = (C)p[0];
-    const C L1 = (C)p[1];
-    const C t_tr = (C)p[2];
-    const C t_exp = (C)(p[3] - P.t_ref);
-    const C eT = (C)P.eps_T;
-    const C eL = (C)P.eps_L;
-    const C a_mod = (C)P.a_model;
-    const C alpha = (C)P.alpha;
-    const C c3 = (C)P.c3_42;
-    const C inv_yscale = (C)P.inv_yscale;
-    const C sig = P.use_sigma ? (C)p[ndim - 1] : C(0);
-    const int N = (int)P.n_points;
-    const int K = (int)P.n_coef;
+    return inside;
+}
 
-    // this lane's residual sum and its derivatives in T_1, L_1, t_tr, t_exp
-    // (tt = t - t_exp, so d/dt_exp = -d/dtt) and sigma
-    C acc = C(0), dT1 = C(0), dL1 = C(0), dttr = C(0), dtt = C(0), dsig = C(0);
-    for (int n = lane; n < N; n += 32) {
-        const C tt = d.tc[n] - t_exp;
-        const bool tpos = tt > C(0);
-        const C ptT = tpos ? m_pow(tt, eT) : C(0);
-        const C T = T1 * ptT;
-        const C uu = (a_mod * tt) / t_tr;
-        const bool upos = uu > C(0);
-        const C pu = upos ? m_pow(uu, alpha) : C(0);
-        const C E = m_exp(-pu);
-        const C ptL = tpos ? m_pow(tt, eL) : C(0);
-        const C L1E = L1 * E;
-        const C L = L1E * ptL;
-        const C sL = m_sqrt(L);
-        const bool Tpos = T > C(0);
-        const C pT2 = Tpos ? m_pow(T, C(-2)) : C(0);
-        const C c3sL = c3 * sL;
-        const C R = c3sL * pT2;
-        C F = C(0), G = C(0), dlng = C(0), s_a = C(0);
-        bool clipped = false;
-        if (Tpos) {
-            s_a = d.s_a[n];
-            const C s_raw = m_log(T) * s_a - d.s_b[n];
-            clipped = !(s_raw >= C(-1) && s_raw <= C(1));
-            const C s = s_raw < C(-1) ? C(-1) : (s_raw > C(1) ? C(1) : s_raw);
-            const C two_s = C(2) * s;
-            const C* c = d.coef + (size_t)n * K;
-            C b1 = C(0), b2 = C(0), d1 = C(0), d2 = C(0);
-            for (int k = K - 1; k >= 1; --k) {
-                const C d0 = C(2) * b1 + two_s * d1 - d2;
-                const C b0 = two_s * b1 - b2 + c[k];
-                b2 = b1;
-                b1 = b0;
-                d2 = d1;
-                d1 = d0;
-            }
-            const C ln_g = s * b1 - b2 + c[0];
-            dlng = b1 + s * d1 - d2;
-            G = m_exp(ln_g);
-            F = R * R * G;
-        }
-        const C y_fit = F * inv_yscale;
-        C dy_fit;   // d term / d y_fit
-        if (P.use_sigma) {
-            const C two_pi = (C)6.283185307179586;
-            const C sg = sig * d.su[n];
-            const C sigma2 = d.dy[n] * d.dy[n] + sg * sg;
-            const C res = d.y[n] - y_fit;
-            acc += m_log(two_pi * sigma2) + res * res / sigma2;
-            dy_fit = C(-2) * res / sigma2;
-            dsig += (C(1) / sigma2 - res * res / (sigma2 * sigma2)) * (C(2) * sg * d.su[n]);
-        } else {
-            const C r = (d.y[n] - y_fit) * d.inv_dy[n];
-            acc += r * r;
-            dy_fit = C(-2) * r * d.inv_dy[n];
-        }
-        // the reverse pass (cotangents of the residual term)
-        const C ct_F = dy_fit * inv_yscale;
-        const C ct_R = Tpos ? ct_F * (C(2) * R * G) : C(0);
-        const C ct_s = Tpos && !clipped ? ct_F * F * dlng : C(0);
-        C ct_T = Tpos ? ct_s * s_a / T : C(0);
-        const C ct_pT2 = ct_R * c3sL;
-        ct_T += Tpos ? ct_pT2 * (C(-2) * m_pow(T, C(-3))) : C(0);
-        const C ct_sL = (ct_R * pT2) * c3;
-        const C ct_L = ct_sL * (C(0.5) / sL);
-        const C ct_L1E = ct_L * ptL;
-        const C ct_ptL = ct_L * L1E;
-        const C ct_E = ct_L1E * L1;
-        const C ct_pu = -(ct_E * E);
-        const C ct_uu = upos ? ct_pu * (alpha * m_pow(uu, alpha - C(1))) : C(0);
-        C ct_tt = (ct_uu / t_tr) * a_mod;
-        ct_tt += tpos ? ct_ptL * (eL * m_pow(tt, eL - C(1))) : C(0);
-        ct_tt += tpos ? (ct_T * T1) * (eT * m_pow(tt, eT - C(1))) : C(0);
-        dT1 += ct_T * ptT;
-        dL1 += ct_L1E * E;
-        dttr += -ct_uu * uu / t_tr;
-        dtt += ct_tt;
-    }
-    acc = warp_sum(acc);
-    dT1 = warp_sum(dT1);
-    dL1 = warp_sum(dL1);
-    dttr = warp_sum(dttr);
-    dtt = warp_sum(dtt);
-    if (P.use_sigma) dsig = warp_sum(dsig);
-    const double ll = finish_log_likelihood<C>(acc, P.use_sigma, P.ll_offset, P.log_norm_const);
+// The butterfly over the 32 slots, then the value and g from the sums.
+template <typename C, int D>
+__device__ __forceinline__ double sc2_finish(SC2Sums<C> s, double lprior,
+                                             const double (&gprior)[D], const SC2Params& P,
+                                             int ndim, double* g) {
+    s.acc = warp_sum(s.acc);
+    s.dT1 = warp_sum(s.dT1);
+    s.dL1 = warp_sum(s.dL1);
+    s.dttr = warp_sum(s.dttr);
+    s.dtt = warp_sum(s.dtt);
+    if (P.use_sigma) s.dsig = warp_sum(s.dsig);
+    const double ll = finish_log_likelihood<C>(s.acc, P.use_sigma, P.ll_offset, P.log_norm_const);
     if (!(ll > -INFINITY)) {
         for (int k = 0; k < ndim; ++k) g[k] = 0.0;
         return -INFINITY;
     }
     // ll = -0.5 acc + const: the cotangent of each term is -0.5 (exact)
-    g[0] = gprior[0] + (double)(C(-0.5) * dT1);
-    g[1] = gprior[1] + (double)(C(-0.5) * dL1);
-    g[2] = gprior[2] + (double)(C(-0.5) * dttr);
-    g[3] = gprior[3] + (double)(C(0.5) * dtt);
-    if (P.use_sigma) g[ndim - 1] = gprior[ndim - 1] + (double)(C(-0.5) * dsig);
+    g[0] = gprior[0] + (double)(C(-0.5) * s.dT1);
+    g[1] = gprior[1] + (double)(C(-0.5) * s.dL1);
+    g[2] = gprior[2] + (double)(C(-0.5) * s.dttr);
+    g[3] = gprior[3] + (double)(C(0.5) * s.dtt);
+    if (P.use_sigma) g[ndim - 1] = gprior[ndim - 1] + (double)(C(-0.5) * s.dsig);
     return lprior + ll;
+}
+
+// The warp form (K7, K7h): called by the 32 lanes of a warp with the same p;
+// lane l runs slot l. Every lane returns the same bits.
+template <typename C>
+__device__ double sc2_value_and_grad_warp(const double* p, const PointData<C>& d,
+                                          const SC2Params& P, double* g) {
+    const int ndim = (int)P.ndim;
+    double lprior, gprior[LP_MAX_DIM];
+    if (!sc2_prior(p, P, ndim, lprior, gprior)) {
+        for (int k = 0; k < ndim; ++k) g[k] = 0.0;
+        return -INFINITY;
+    }
+    const SC2Walker<C> w = sc2_walker<C>(p, P, ndim);
+    const int N = (int)P.n_points, K = (int)P.n_coef;
+    SC2Sums<C> s;
+    for (int n = threadIdx.x & 31; n < N; n += 32)
+        sc2_accumulate(s, sc2_point<C>(n, w, d, K, P.use_sigma != 0), P.use_sigma != 0);
+    return sc2_finish<C>(s, lprior, gprior, P, ndim, g);
+}
+
+// The block form (K9): called by every thread of the block with the same
+// p[NDIM] (NDIM == P.ndim). Thread t computes the points t, t + blockDim,
+// ... into ws, one of two buffers of n_points factors that successive calls
+// use in turns (turn, the caller's, flips at each call that evaluates the
+// likelihood), so one barrier a call keeps a fast warp from overwriting the
+// factors a slow one still reads. Every warp then folds the slots from ws in
+// the warp form's order. Every thread returns the same bits, the warp
+// form's for the same p.
+template <typename C, int NDIM>
+__device__ double sc2_value_and_grad_block(const double* p, const PointData<C>& d,
+                                           const SC2Params& P, double* g, SC2Point<C>* ws,
+                                           int& turn) {
+    double lprior, gprior[NDIM];
+    if (!sc2_prior(p, P, NDIM, lprior, gprior)) {
+        for (int k = 0; k < NDIM; ++k) g[k] = 0.0;
+        return -INFINITY;
+    }
+    const SC2Walker<C> w = sc2_walker<C>(p, P, NDIM);
+    const int N = (int)P.n_points, K = (int)P.n_coef;
+    const bool use_sigma = P.use_sigma != 0;
+    SC2Point<C>* buf = ws + (size_t)turn * N;
+    turn ^= 1;
+    for (int n = threadIdx.x; n < N; n += blockDim.x) buf[n] = sc2_point<C>(n, w, d, K, use_sigma);
+    __syncthreads();
+    SC2Sums<C> s;
+    for (int n = threadIdx.x & 31; n < N; n += 32) sc2_accumulate(s, buf[n], use_sigma);
+    return sc2_finish<C>(s, lprior, gprior, P, NDIM, g);
 }
 
 // The model policy of stretch.cuh, ladder.cuh and gradient.cuh for
@@ -364,6 +477,15 @@ struct SC2Model {
     static __device__ double value_and_grad(const double* p, const Data& d, const Params& P,
                                             double* g) {
         return sc2_value_and_grad_warp<C>(p, d, P, g);
+    }
+    static __host__ __device__ size_t block_ws_bytes(const Params& P) {
+        return 2 * sizeof(SC2Point<C>) * (size_t)P.n_points;
+    }
+    template <int NDIM>
+    static __device__ double value_and_grad_block(const double* p, const Data& d,
+                                                  const Params& P, double* g, void* ws,
+                                                  int& turn) {
+        return sc2_value_and_grad_block<C, NDIM>(p, d, P, g, static_cast<SC2Point<C>*>(ws), turn);
     }
 };
 
@@ -462,18 +584,22 @@ int sc2_logpost_grad_launch(const SC2Params* P, int device, int compute_f64,
 }
 
 // K9's plan (gradient.cuh): the float64 scratch, in doubles, that a launch
-// over C chains needs (0 when the trajectory buffer fits in shared memory),
-// or minus a cudaError_t code.
+// over C chains needs (0 when the workspace and the trajectory buffer fit in
+// shared memory), or minus a cudaError_t code.
 long long sc2_nuts_scratch_len(const SC2Params* P, int device, int compute_f64, int max_depth,
                                int C) {
     int rc = (int)cudaSetDevice(device);
     if (rc) return -rc;
-    return compute_f64 ? nuts_scratch_len<SC2Model<double>>(*P, (int)P->ndim, max_depth, C)
-                       : nuts_scratch_len<SC2Model<float>>(*P, (int)P->ndim, max_depth, C);
+    const int ndim = (int)P->ndim;
+    const long long per_chain = compute_f64
+        ? nuts_plan<SC2Model<double>>(*P, ndim, max_depth).scratch
+        : nuts_plan<SC2Model<float>>(*P, ndim, max_depth).scratch;
+    return per_chain * C;
 }
 
-// K9 launch (gradient.cuh); scratch may be null when sc2_nuts_scratch_len
-// gives 0. Returns 0 or a cudaError_t code.
+// K9 launch (gradient.cuh), for ndim 4 (5 with the intrinsic scatter);
+// scratch may be null when sc2_nuts_scratch_len gives 0. Returns 0 or a
+// cudaError_t code.
 int sc2_nuts_transition_launch(const SC2Params* P, int device, int compute_f64,
                                const WhiteParams* T, const double* q, const double* logp,
                                const double* z, const double* u, const double* eps,
@@ -483,15 +609,16 @@ int sc2_nuts_transition_launch(const SC2Params* P, int device, int compute_f64,
     int rc = (int)cudaSetDevice(device);
     if (rc) return rc;
     if (C <= 0) return 0;
-    if (P->ndim > LP_MAX_DIM || P->has_affine || T->ndim != P->ndim || max_depth < 1 ||
-        max_depth > 12)
+    if (P->ndim != 4 + (P->use_sigma != 0) || P->has_affine || T->ndim != P->ndim ||
+        max_depth < 1 || max_depth > 12)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    return compute_f64
-        ? launch_nuts<SC2Model<double>>(*P, *T, q, logp, z, u, eps, inv_mass, max_depth, C,
-                                        q_out, logp_out, accept_stat, depth, diverged, scratch, s)
-        : launch_nuts<SC2Model<float>>(*P, *T, q, logp, z, u, eps, inv_mass, max_depth, C,
-                                       q_out, logp_out, accept_stat, depth, diverged, scratch, s);
+#define LP_NUTS(C_, N_)                                                                      \
+    launch_nuts<SC2Model<C_>, N_>(*P, *T, q, logp, z, u, eps, inv_mass, max_depth, C, q_out, \
+                                  logp_out, accept_stat, depth, diverged, scratch, s)
+    if (P->ndim == 4) return compute_f64 ? LP_NUTS(double, 4) : LP_NUTS(float, 4);
+    return compute_f64 ? LP_NUTS(double, 5) : LP_NUTS(float, 5);
+#undef LP_NUTS
 }
 
 // K7h launch (gradient.cuh). Returns 0 or a cudaError_t code.

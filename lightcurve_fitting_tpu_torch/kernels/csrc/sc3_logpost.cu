@@ -13,27 +13,39 @@
 //       models/shock_cooling.py:71-98 (temperature_radius) and :201-208
 //       (ShockCooling3._eval_points), ops/mathx.py and K3.
 //   SC3 half-step: parallel/sampler.py:38-57, :86-95, :97-104 and :205-225,
-//       the stretch_half_step_kernel template of stretch.cuh over SC3Model.
+//       the stretch_half_step_kernel template of stretch.cuh over
+//       SC3WarpModel, a warp per walker.
 //   K6a, K6b over ShockCooling3: the templates of ladder.cuh over SC3Model.
 //
 // What bounds it on the H100: the special functions. Each quadrature term
 // is one expm1, one exp and one division (~60 instructions in all), and one
 // SC3 evaluation on the flagship is 5738 such terms (13261 with the padding);
 // the tables, 3 x 9 bands x 89 nodes, are 9.6 KB in f32 and shared by every
-// walker, so device-memory traffic is negligible.
+// walker, so device-memory traffic is negligible. The operations bound of
+// the half-step is ~0.084 ms per half 16384 (the fit's width).
 // What the design does about it: the per-band tables are staged once per
 // block in shared memory and indexed through each point's band id, so no
-// per-point (N, K) gather is ever materialized. In the log-posterior one
-// thread per walker walks the points in order, so a warp works on one band
-// at a time: its table reads are broadcasts and its loop length is that
-// band's native node count (the zero-weight padding past it adds nothing to
-// a finite sum), which cuts the terms from 13261 to 5738. The standalone K3
+// per-point (N, K) gather is ever materialized, and each point sums only its
+// band's native nodes (the zero-weight padding past them adds nothing to a
+// finite sum), 5738 terms against 13261. The batch log-posterior runs one
+// thread per walker over the points in order, so a warp works on one band
+// at a time (broadcast table reads, one loop length). The half-step runs a
+// warp per walker: a thread per walker left the fits' widths with one warp
+// of 4 per SM (half 16384) or a single warp (half 32), so that the latency
+// of one thread's 5738 terms set both at ~1.25 ms. The lanes take the points
+// in the order of kernels/sc3.py::point_order, by descending native node
+// count, so the 32 points a warp runs at once have near-equal loop lengths:
+// a lane runs 212 nodes on the flagship (440 in the time order), 85% of its
+// slots busy; each lane sums its residual terms in that order and a
+// butterfly sums the lanes, a fixed order from run to run. The standalone K3
 // runs one block column per point and one thread per walker, over all K
 // nodes: the JAX function's padded sum.
 // One __device__ function (band_flux, planck.cuh) carries the band sum for
-// all three kernels, so a proposal's band fluxes are bit-identical to K3's
+// all the kernels, so a proposal's band fluxes are bit-identical to K3's
 // evaluation of the same T, R and E(B-V) over the same nodes; the epoch
-// blackbody kernels of epoch_bb.cu call it too.
+// blackbody kernels of epoch_bb.cu call it too. The half-step's residual sum
+// runs in another order than the batch kernel's, so their log-posteriors of
+// one point agree to rounding, not bit for bit.
 //
 // Dtype semantics follow the JAX accelerator path: the SW17 power laws run
 // in the compute type C on C-cast parameters, tt = C(t - t_ref) - C(t_exp -
@@ -60,6 +72,7 @@ struct SC3Params {
     const void* k_ext;           // (B, K) F99 A/E(B-V) at the nodes
     const long long* band_ids;   // (N,) each point's row
     const long long* n_native;   // (B,) each row's node count before its zero-weight padding
+    const long long* point_order;  // (N,) the points by descending native node count
     long long n_points;
     long long n_bands;
     long long n_nodes;
@@ -152,6 +165,7 @@ template <typename C>
 struct SC3Data {
     const long long* band;
     const long long* n_native;
+    const long long* order;      // the warp form's point order (null for the thread form)
     const C* nu;
     const C* w;
     const C* kx;
@@ -163,22 +177,26 @@ struct SC3Data {
 };
 
 template <typename C>
-__host__ __device__ inline size_t sc3_stage_bytes(const SC3Params& P) {
-    return sizeof(long long) * (size_t)(P.n_points + P.n_bands)
+__host__ __device__ inline size_t sc3_stage_bytes(const SC3Params& P, bool order) {
+    return sizeof(long long) * (size_t)(P.n_points * (order ? 2 : 1) + P.n_bands)
            + sizeof(C) * (size_t)(3 * P.n_bands * P.n_nodes + 5 * P.n_points);
 }
 
-// Copy the band tables, band ids and per-point data into shared memory
-// (every thread of the block takes part, so call it before any thread
-// returns), or point at global memory when they exceed the block's limit.
+// Copy the band tables, band ids (and the point order, for the warp form)
+// and per-point data into shared memory (every thread of the block takes
+// part, so call it before any thread returns), or point at global memory
+// when they exceed the block's limit.
 template <typename C>
-__device__ SC3Data<C> stage_sc3(const SC3Params& P, unsigned char* smem, int use_smem) {
+__device__ SC3Data<C> stage_sc3(const SC3Params& P, unsigned char* smem, int use_smem,
+                                bool order) {
     const long long N = P.n_points, BK = P.n_bands * P.n_nodes;
     SC3Data<C> d;
+    d.order = nullptr;
     if (use_smem) {
         long long* si = reinterpret_cast<long long*>(smem);
         d.band = stage_array(P.band_ids, N, si);
         d.n_native = stage_array(P.n_native, P.n_bands, si);
+        if (order) d.order = stage_array(P.point_order, N, si);
         C* s = reinterpret_cast<C*>(si);
         d.nu = stage_array((const C*)P.nodes, BK, s);
         d.w = stage_array((const C*)P.weights, BK, s);
@@ -192,6 +210,7 @@ __device__ SC3Data<C> stage_sc3(const SC3Params& P, unsigned char* smem, int use
     } else {
         d.band = P.band_ids;
         d.n_native = P.n_native;
+        if (order) d.order = P.point_order;
         d.nu = (const C*)P.nodes;
         d.w = (const C*)P.weights;
         d.kx = (const C*)P.k_ext;
@@ -204,53 +223,92 @@ __device__ SC3Data<C> stage_sc3(const SC3Params& P, unsigned char* smem, int use
     return d;
 }
 
+// The walker's factors of SW17 in the compute type (the JAX graph forms
+// them per point: same values) and the model's constants.
+template <typename C>
+struct SC3Walker {
+    C v_s, R, ebv, t_exp, sig, A, a_mod, alpha, eps1, neg_eps2, L0, T0, tph_to_tcol, k_B, c1,
+        c2, c3, c4, ext_coef, inv_yscale, fk, v2, t_tr, kappa, kappa_q, R_q;
+    double dist2;
+};
+
+template <typename C>
+__device__ __forceinline__ SC3Walker<C> sc3_walker(const double* p, const SC3Params& P) {
+    SC3Walker<C> w;
+    const int ndim = (int)P.ndim;
+    w.v_s = (C)p[0];
+    const C M_env = (C)p[1];
+    const C f_rho_M = (C)p[2];
+    w.R = (C)p[3];
+    w.dist2 = p[4] * p[4];
+    w.ebv = (C)p[5];
+    w.t_exp = (C)(p[6] - P.t_ref);
+    w.sig = P.use_sigma ? (C)p[ndim - 1] : C(0);
+    w.kappa = (C)P.kappa;
+    w.A = (C)P.A, w.a_mod = (C)P.a_model, w.alpha = (C)P.alpha;
+    w.eps1 = (C)P.eps1, w.neg_eps2 = (C)(-P.eps2);
+    w.L0 = (C)P.L0_42, w.T0 = (C)P.T0, w.tph_to_tcol = (C)P.tph_to_tcol, w.k_B = (C)P.k_B;
+    w.c1 = (C)P.c1, w.c2 = (C)P.c2, w.c3 = (C)P.c3_42, w.c4 = (C)P.c4_30;
+    w.ext_coef = (C)P.ext_coef, w.inv_yscale = (C)P.inv_yscale;
+    w.fk = f_rho_M * w.kappa;
+    w.v2 = w.v_s * w.v_s;
+    w.t_tr = C(19.5) * m_pow(w.kappa * M_env / w.v_s, C(0.5));
+    w.kappa_q = m_pow(w.kappa, C(-0.25));
+    w.R_q = m_pow(w.R, C(0.25));
+    return w;
+}
+
+// Point n's residual term: the SW17 power laws, its band's native
+// quadrature (band_flux) and the Gaussian residual.
+template <typename C>
+__device__ __forceinline__ C sc3_point(int n, const SC3Walker<C>& w, const SC3Data<C>& d,
+                                       const SC3Params& P, int K) {
+    const C tt = d.tc[n] - w.t_exp;
+    const C tt2 = tt * tt;
+    const C L_RW = w.L0 * power0(tt2 * w.v_s / w.fk, w.neg_eps2) * w.v2 * w.R / w.kappa;
+    const C L_42 = L_RW * w.A * m_exp(-power0(w.a_mod * tt / w.t_tr, w.alpha));
+    const C T_ph = w.T0 * power0(tt2 * w.v2 / w.fk, w.eps1) * w.kappa_q * power0(tt, C(-0.5))
+                   * w.R_q;
+    const C T_K = T_ph * w.tph_to_tcol / w.k_B;
+    const C R_bb = w.c3 * m_pow(L_42, C(0.5)) * power0(T_K, C(-2));
+    const long long b = d.band[n];
+    const C lum = band_flux<C>(d.nu + b * K, d.w + b * K, d.kx + b * K, (int)d.n_native[b], T_K,
+                               R_bb, w.ebv, w.c1, w.c2, w.ext_coef, false, C(0));
+    const double flux = (double)(lum * C(1e-30) * w.c4) / w.dist2;
+    const C y_fit = (C)flux * w.inv_yscale;
+    return residual_term<C>(P.use_sigma, y_fit, d.y[n], d.inv_dy[n], d.dy[n], d.su[n], w.sig);
+}
+
 // The Gaussian log-likelihood of the ShockCooling3 fluxes of one walker at
 // absolute parameters p[ndim] = (v_s*, M_env, f_rho M, R, d_L, E(B-V),
 // t_0[, sigma]), float64; -inf when not finite. It does not look at the
-// priors.
+// priors. One thread walks the points in order.
 template <typename C>
 __device__ double sc3_log_likelihood(const double* p, const SC3Data<C>& d, const SC3Params& P) {
-    const int ndim = (int)P.ndim;
-    const C v_s = (C)p[0];
-    const C M_env = (C)p[1];
-    const C f_rho_M = (C)p[2];
-    const C R = (C)p[3];
-    const double dist2 = p[4] * p[4];
-    const C ebv = (C)p[5];
-    const C t_exp = (C)(p[6] - P.t_ref);
-    const C sig = P.use_sigma ? (C)p[ndim - 1] : C(0);
-    const C kappa = (C)P.kappa;
-    const C A = (C)P.A, a_mod = (C)P.a_model, alpha = (C)P.alpha;
-    const C eps1 = (C)P.eps1, neg_eps2 = (C)(-P.eps2);
-    const C L0 = (C)P.L0_42, T0 = (C)P.T0, tph_to_tcol = (C)P.tph_to_tcol, k_B = (C)P.k_B;
-    const C c1 = (C)P.c1, c2 = (C)P.c2, c3 = (C)P.c3_42, c4 = (C)P.c4_30;
-    const C ext_coef = (C)P.ext_coef, inv_yscale = (C)P.inv_yscale;
-    // per-walker factors of SW17 (the JAX graph forms them per point: same values)
-    const C fk = f_rho_M * kappa;
-    const C v2 = v_s * v_s;
-    const C t_tr = C(19.5) * m_pow(kappa * M_env / v_s, C(0.5));
-    const C kappa_q = m_pow(kappa, C(-0.25));
-    const C R_q = m_pow(R, C(0.25));
+    const SC3Walker<C> w = sc3_walker<C>(p, P);
     const int N = (int)P.n_points;
     const int K = (int)P.n_nodes;
-
     C acc = C(0);
-    for (int n = 0; n < N; ++n) {
-        const C tt = d.tc[n] - t_exp;
-        const C tt2 = tt * tt;
-        const C L_RW = L0 * power0(tt2 * v_s / fk, neg_eps2) * v2 * R / kappa;
-        const C L_42 = L_RW * A * m_exp(-power0(a_mod * tt / t_tr, alpha));
-        const C T_ph = T0 * power0(tt2 * v2 / fk, eps1) * kappa_q * power0(tt, C(-0.5)) * R_q;
-        const C T_K = T_ph * tph_to_tcol / k_B;
-        const C R_bb = c3 * m_pow(L_42, C(0.5)) * power0(T_K, C(-2));
-        const long long b = d.band[n];
-        const C lum = band_flux<C>(d.nu + b * K, d.w + b * K, d.kx + b * K, (int)d.n_native[b],
-                                   T_K, R_bb, ebv, c1, c2, ext_coef, false, C(0));
-        const double flux = (double)(lum * C(1e-30) * c4) / dist2;
-        const C y_fit = (C)flux * inv_yscale;
-        acc += residual_term<C>(P.use_sigma, y_fit, d.y[n], d.inv_dy[n], d.dy[n], d.su[n], sig);
-    }
+    for (int n = 0; n < N; ++n) acc += sc3_point<C>(n, w, d, P, K);
     return finish_log_likelihood<C>(acc, P.use_sigma, P.ll_offset, P.log_norm_const);
+}
+
+// The same log-likelihood computed by the 32 lanes of a warp together (every
+// lane returns the same bits): lane l takes the points d.order[l], d.order[l
+// + 32], ..., in that order, and a butterfly shuffle sums the lanes. The
+// order sorts the points by descending native node count, so the 32 points
+// a warp works on at once have near-equal quadrature lengths (on the
+// flagship a lane runs 212 nodes where the longest band alone has 88 per
+// point, against 440 in the time order).
+template <typename C>
+__device__ double sc3_log_likelihood_warp(const double* p, const SC3Data<C>& d,
+                                          const SC3Params& P) {
+    const SC3Walker<C> w = sc3_walker<C>(p, P);
+    const int N = (int)P.n_points;
+    const int K = (int)P.n_nodes;
+    C acc = C(0);
+    for (int i = threadIdx.x & 31; i < N; i += 32) acc += sc3_point<C>((int)d.order[i], w, d, P, K);
+    return finish_log_likelihood<C>(warp_sum(acc), P.use_sigma, P.ll_offset, P.log_norm_const);
 }
 
 // The log-posterior of one walker: the prior sum (-inf outside the open
@@ -269,16 +327,35 @@ struct SC3Model {
     typedef SC3Params Params;
     typedef SC3Data<C> Data;
     static __host__ __device__ size_t stage_bytes(const Params& P) {
-        return sc3_stage_bytes<C>(P);
+        return sc3_stage_bytes<C>(P, false);
     }
     static __device__ Data stage(const Params& P, unsigned char* smem, int use_smem, int) {
-        return stage_sc3<C>(P, smem, use_smem);
+        return stage_sc3<C>(P, smem, use_smem, false);
     }
     static __device__ double log_posterior(const double* p, const Data& d, const Params& P) {
         return sc3_log_posterior<C>(p, d, P);
     }
     static __device__ double log_likelihood(const double* p, const Data& d, const Params& P) {
         return sc3_log_likelihood<C>(p, d, P);
+    }
+};
+
+// The SC3 half-step's policy: the warp form (stretch_half_step_kernel with
+// WARP), its data with the point order.
+template <typename C>
+struct SC3WarpModel : SC3Model<C> {
+    static __host__ __device__ size_t stage_bytes(const SC3Params& P) {
+        return sc3_stage_bytes<C>(P, true);
+    }
+    static __device__ SC3Data<C> stage(const SC3Params& P, unsigned char* smem, int use_smem,
+                                       int) {
+        return stage_sc3<C>(P, smem, use_smem, true);
+    }
+    static __device__ double log_posterior_warp(const double* p, const SC3Data<C>& d,
+                                                const SC3Params& P) {
+        const double lprior = log_prior(P, p);
+        if (!isfinite(lprior)) return -INFINITY;
+        return lprior + sc3_log_likelihood_warp<C>(p, d, P);
     }
 };
 
@@ -289,7 +366,7 @@ __global__ void __launch_bounds__(LP_THREADS)
 sc3_logpost_kernel(const SC3Params P, const S* __restrict__ q, int W,
                    double* __restrict__ out, int use_smem) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    const SC3Data<C> d = stage_sc3<C>(P, smem_raw, use_smem);
+    const SC3Data<C> d = stage_sc3<C>(P, smem_raw, use_smem, false);
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= W) return;
     const int ndim = (int)P.ndim;
@@ -305,7 +382,7 @@ static int launch_sc3_logpost(const SC3Params& P, const void* q, int W, double* 
                               cudaStream_t stream) {
     auto kernel = sc3_logpost_kernel<C, S>;
     int use_smem = 0;
-    size_t bytes = sc3_stage_bytes<C>(P);
+    size_t bytes = sc3_stage_bytes<C>(P, false);
     int rc = smem_plan(kernel, bytes, &use_smem);
     if (rc) return rc;
     const int blocks = (W + LP_THREADS - 1) / LP_THREADS;
@@ -355,16 +432,16 @@ int sc3_logpost_launch(const SC3Params* P, int device, int compute_f64, const vo
                  : launch_sc3_logpost<float, float>(*P, q, W, out, s);
 }
 
-// SC3 half-step launch; the arguments of stretch_half_step_launch
-// (sc2_logpost.cu). Returns 0 or a cudaError_t code.
+// SC3 half-step launch, a warp per walker (SC3WarpModel); the arguments of
+// stretch_half_step_launch (sc2_logpost.cu). Returns 0 or a cudaError_t code.
 int sc3_half_step_launch(const SC3Params* P, int device, int compute_f64, void* x,
                          int state_f64, double* logp, int half, int h, const void* u_z,
                          const long long* j, const void* u_acc, double a, void* chain_x,
                          int chain_x_f64, void* chain_lp, int chain_lp_f64, int* n_accept,
                          void* stream) {
-    return launch_half_step<SC3Model>(P, device, compute_f64, x, state_f64, logp, half, h, u_z,
-                                      j, u_acc, a, chain_x, chain_x_f64, chain_lp, chain_lp_f64,
-                                      n_accept, stream);
+    return launch_half_step<SC3WarpModel, true>(P, device, compute_f64, x, state_f64, logp, half,
+                                                h, u_z, j, u_acc, a, chain_x, chain_x_f64,
+                                                chain_lp, chain_lp_f64, n_accept, stream);
 }
 
 // K6a launch over ShockCooling3 (ladder.cuh). Returns 0 or a cudaError_t code.

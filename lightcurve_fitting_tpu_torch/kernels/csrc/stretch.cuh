@@ -14,7 +14,12 @@
 // tempered ladder (ladder.cuh) also provides
 //   static __device__ double log_likelihood(const double* p, const Data&, const Params&);
 // the float64 log-likelihood alone (-inf when not finite), evaluated whatever
-// the prior; its log_posterior is log_prior plus that value.
+// the prior; its log_posterior is log_prior plus that value. A policy whose
+// half-step runs a warp per walker (stretch_half_step_kernel with WARP:
+// SC3WarpModel) provides
+//   static __device__ double log_posterior_warp(const double* p, const Data&, const Params&);
+// computed by the 32 lanes of a warp together, every lane returning the
+// same bits.
 // and every Params has the fields ndim, use_sigma, has_affine, prior_kind,
 // p_min, p_max, mean, stddev, affine_offset and affine_scale.
 
@@ -46,6 +51,19 @@ __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
 __device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+
+// Butterfly reductions over a warp: every lane gets the same bits.
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_max(T v) {
+    for (int o = 16; o > 0; o >>= 1) v = fmax(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+}
 
 // power(base, e) of ops/mathx.py: 0 where base <= 0 (or NaN), never NaN from
 // a negative base
@@ -138,7 +156,11 @@ __device__ __forceinline__ S stretch_proposal(const Params& P, const S* xm, cons
 // x, logp, n_accept and the chain slot are (E, 2, half[, ndim]) and the
 // draws of ensemble e start draw_stride elements after those of e - 1. With
 // one ensemble (e = 0) every offset below is 0.
-template <typename M, typename S, typename X, typename L>
+// WARP: one warp per walker, for a policy whose log_posterior_warp is
+// computed by the 32 lanes together (the SC3 half-step): every lane forms
+// the same proposal and gets the same log-posterior, and lane 0 writes.
+// Otherwise one thread per walker and M::log_posterior.
+template <typename M, typename S, typename X, typename L, bool WARP>
 __global__ void __launch_bounds__(LP_THREADS)
 stretch_half_step_kernel(const typename M::Params P, S* __restrict__ x,
                          double* __restrict__ logp, int half, int h,
@@ -149,8 +171,9 @@ stretch_half_step_kernel(const typename M::Params P, S* __restrict__ x,
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int e = blockIdx.y;
     const typename M::Data d = M::stage(P, smem_raw, use_smem, e);
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= half) return;
+    const int i = WARP ? blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)
+                       : blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= half) return;   // (whole warps with WARP)
     const int ndim = (int)P.ndim;
     const size_t ens = (size_t)e * 2 * half;      // walkers of the ensembles before e
     const size_t di = (size_t)e * draw_stride + i;
@@ -162,7 +185,12 @@ stretch_half_step_kernel(const typename M::Params P, S* __restrict__ x,
     S y[LP_MAX_DIM];
     double p[LP_MAX_DIM];
     const S z = stretch_proposal(P, xm, xj, u_z[di], a, y, p);
-    double lp_y = M::log_posterior(p, d, P);
+    double lp_y;
+    if constexpr (WARP) {
+        lp_y = M::log_posterior_warp(p, d, P);
+    } else {
+        lp_y = M::log_posterior(p, d, P);
+    }
     if (isnan(lp_y)) lp_y = -INFINITY;
     const double lp_x = logp[w];
     const S lz = (S)(ndim - 1) * m_log(z);
@@ -170,6 +198,7 @@ stretch_half_step_kernel(const typename M::Params P, S* __restrict__ x,
     // log(0) = -inf accepts unless log_ratio is -inf; a NaN ratio rejects
     const double log_u = (double)m_log(u_acc[di]);
     const bool accept = !isnan(log_ratio) && log_u < log_ratio;
+    if (WARP && (threadIdx.x & 31) != 0) return;
     double lp_new = lp_x;
     if (accept) {
         for (int k = 0; k < ndim; ++k) xm[k] = y[k];
@@ -232,18 +261,20 @@ static inline int threads_for(int n) {
     return t < LP_THREADS ? t : LP_THREADS;
 }
 
-template <typename M, typename S, typename X, typename L>
+template <typename M, typename S, typename X, typename L, bool WARP>
 static int launch_half(const typename M::Params& P, void* x, double* logp, int half, int h,
                        const void* u_z, const long long* j, const void* u_acc, double a,
                        void* chain_x, void* chain_lp, int* n_accept, int n_ens,
                        long long draw_stride, cudaStream_t stream) {
-    auto kernel = stretch_half_step_kernel<M, S, X, L>;
+    auto kernel = stretch_half_step_kernel<M, S, X, L, WARP>;
     int use_smem = 0;
     size_t bytes = M::stage_bytes(P);
     int rc = smem_plan(kernel, bytes, &use_smem);
     if (rc) return rc;
-    const int threads = threads_for(half);
-    const dim3 grid((half + threads - 1) / threads, n_ens);
+    // walkers a block: a warp multiple of threads, or warps with WARP
+    const int threads = WARP ? threads_for(32 * half) : threads_for(half);
+    const int per_block = WARP ? threads / 32 : threads;
+    const dim3 grid((half + per_block - 1) / per_block, n_ens);
     kernel<<<grid, threads, use_smem ? bytes : 0, stream>>>(
         P, (S*)x, logp, half, h, (const S*)u_z, j, (const S*)u_acc, a, (X*)chain_x,
         (L*)chain_lp, n_accept, use_smem, draw_stride);
@@ -253,8 +284,9 @@ static int launch_half(const typename M::Params& P, void* x, double* logp, int h
 // The half-step launch for the model policy M<C> of the run's dtypes: the
 // compute type C, the walker state S, the chain's state X and log-posterior
 // L, each float or double; n_ens ensembles (draw_stride apart in the draws),
-// 1 and 0 for a single one. Returns 0 or a cudaError_t code.
-template <template <typename> class M>
+// 1 and 0 for a single one; WARP as in stretch_half_step_kernel. Returns 0
+// or a cudaError_t code.
+template <template <typename> class M, bool WARP = false>
 static int launch_half_step(const typename M<float>::Params* P, int device, int compute_f64,
                             void* x, int state_f64, double* logp, int half, int h,
                             const void* u_z, const long long* j, const void* u_acc, double a,
@@ -269,8 +301,8 @@ static int launch_half_step(const typename M<float>::Params* P, int device, int 
     const int key = compute_f64 * 8 + state_f64 * 4 + chain_x_f64 * 2 + chain_lp_f64;
 #define LP_HALF_CASE(K, C, S, X, L)                                                      \
     case K:                                                                              \
-        return launch_half<M<C>, S, X, L>(*P, x, logp, half, h, u_z, j, u_acc, a, chain_x, \
-                                          chain_lp, n_accept, n_ens, draw_stride, s);
+        return launch_half<M<C>, S, X, L, WARP>(*P, x, logp, half, h, u_z, j, u_acc, a,       \
+                                                chain_x, chain_lp, n_accept, n_ens, draw_stride, s);
     switch (key) {
         LP_HALF_CASE(0, float, float, float, float)
         LP_HALF_CASE(1, float, float, float, double)

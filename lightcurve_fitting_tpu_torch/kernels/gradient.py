@@ -3,11 +3,14 @@ PyTorch versions beside them.
 
 * :func:`nuts_transition` (K9, ``nuts_transition_kernel`` of
   ``csrc/gradient.cuh`` over ``SC2Model``): one multinomial NUTS transition
-  of every chain, the whole loop over tree doublings in one launch;
+  of every chain, the whole loop over tree doublings in one launch, a block
+  of a warp per 32 points per chain (ndim 4, or 5 with the intrinsic
+  scatter);
 * :func:`hmc_transition` (K7h, ``hmc_transition_kernel``): one
   jittered-length HMC trajectory and its Metropolis accept per chain.
 
-Both evaluate K7's device function in the whitened space of a
+Both evaluate K7's device function (K9 its block form, which gives K7's
+bits) in the whitened space of a
 :class:`~..parallel.hmc.WhitenedLogPosterior` (u = mean + L w, the bounds
 bijection and its log-Jacobian, in the kernel). The chain states are
 (C, ndim) float64; the draws are inputs; eps and inv_mass are device
@@ -123,9 +126,9 @@ def _scratch_len(lib, P, f64, dev_index, max_depth, C):
 def nuts_scratch_len(target, C, max_depth, device):
     """The float64 scratch, in doubles, that K9 over ``C`` chains of
     WhitenedLogPosterior ``target`` on CUDA ``device`` takes for its
-    trajectory buffer: 0 where the buffer fits in shared memory beside the
-    points (for the flagship at ndim 4 on an H100: up to max_depth 12 with
-    float32 compute, up to 11 with float64)."""
+    trajectory buffer and its evaluations' workspace: 0 where both fit in
+    shared memory beside the points (for the flagship at ndim 4 on an H100:
+    up to max_depth 12 with float32 compute, up to 11 with float64)."""
     from .build import library
     from .sc2 import _kernel_params
     check_target(target)

@@ -8,7 +8,9 @@ fused ShockCooling3 log-posterior and half-step built on it.
 * :func:`log_posterior` (``sc3_logpost_kernel``): the SC3 log-posterior of
   a batch of walker states; plain version ``LogPosterior.forward_plain``.
 * :func:`stretch_half_step` (``stretch_half_step_kernel`` over
-  ``SC3Model``): one stretch-move half-step, in place; plain version
+  ``SC3WarpModel``, one warp per walker, its lanes over the points in the
+  order of :func:`point_order`): one stretch-move half-step, in place; plain
+  version
   :func:`~lightcurve_fitting_tpu_torch.kernels.common.stretch_half_step_plain`.
 
 The log-posterior wrappers run their plain version for a CPU tensor; for a
@@ -25,14 +27,14 @@ from .common import (LAUNCHES, MAX_DIM, FLOATS, check, check_buffers, cuda_args,
                      fill_priors_and_affine, half_step_checks, half_step_args,
                      log_posterior_plain, stretch_half_step_plain)
 
-__all__ = ["bandflux", "log_posterior", "stretch_half_step"]
+__all__ = ["bandflux", "log_posterior", "stretch_half_step", "point_order"]
 
 
 class _SC3Params(ctypes.Structure):
     """ctypes mirror of ``struct SC3Params`` (csrc/sc3_logpost.cu)."""
     _fields_ = ([(n, ctypes.c_void_p) for n in
                  ("t_centered", "y", "inv_dy", "dy", "sigma_units", "nodes", "weights", "k_ext",
-                  "band_ids", "n_native")]
+                  "band_ids", "n_native", "point_order")]
                 + [(n, ctypes.c_longlong) for n in
                    ("n_points", "n_bands", "n_nodes", "ndim", "use_sigma", "has_affine")]
                 + [(n, ctypes.c_double) for n in
@@ -132,6 +134,15 @@ def bandflux(nodes_emit, weights, T, R, cutoff_freq=np.inf, k_ext=None, ebv=0.0,
 
 # ------------------------------------------------------------ log-posterior
 
+def point_order(ll):
+    """The order in which the half-step's warp takes the points of
+    LogLikelihood ``ll``: by descending native node count of their bands,
+    ties in time order (a stable sort), so that the 32 points a warp works
+    on at once have near-equal quadrature lengths. (N,) int64 on ll's
+    device."""
+    return torch.argsort(ll.n_native[ll.band_ids], descending=True, stable=True)
+
+
 def _kernel_params(lp, ndim, offset, scale):
     """The parameter block for LogPosterior ``lp``, cached on it and keyed
     by the buffers' addresses (a module moved between devices gets a new
@@ -150,6 +161,8 @@ def _kernel_params(lp, ndim, offset, scale):
     P = _SC3Params()
     for name in _BUFFERS:
         setattr(P, name, getattr(ll, name).data_ptr())
+    P._point_order = point_order(ll)     # kept alive with the block: the kernels read it by address
+    P.point_order = P._point_order.data_ptr()
     P.n_points = ll.band_ids.shape[0]
     P.n_bands, P.n_nodes = ll.nodes.shape
     P.ndim, P.use_sigma = ndim, int(ll.use_sigma)

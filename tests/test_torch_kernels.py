@@ -37,7 +37,10 @@ bit-equal; K6d float64 <= 1e-12 relative (the sums run in another order).
 K7's values as K1's and its gradients within 1e-4 (float32) and 1e-9
 (float64) of the summed magnitudes of their per-point terms; K9 and K7h
 against their plain transitions under shared draws (float64 over the plain
-gradient, float32 over K7's own evaluations), equal except near-ties.
+gradient, float32 over K7's own evaluations), equal except near-ties, and
+K9's new log-posteriors equal to K7's at the new states bit for bit (the
+block form folds the points in the warp form's order). The SC3 half-step,
+a warp per walker, as K2 at the fits' widths (half 32, 16384) and 65536.
 """
 
 import ctypes
@@ -202,8 +205,8 @@ def test_param_block_layout_matches_the_c_struct():
 
 
 @pytest.mark.parametrize("struct,mirror,size", [
-    # 10 pointers, 6 ints, 19 doubles, 7 arrays of LP_MAX_DIM
-    ("SC3Params", sc3._SC3Params, 8 * (10 + 6 + 19) + 7 * 9 * 8),
+    # 11 pointers, 6 ints, 19 doubles, 7 arrays of LP_MAX_DIM
+    ("SC3Params", sc3._SC3Params, 8 * (11 + 6 + 19) + 7 * 9 * 8),
     # 8 pointers, 6 ints, 4 doubles
     ("BandfluxParams", sc3._BandfluxParams, 8 * (8 + 6 + 4)),
 ])
@@ -279,7 +282,29 @@ def test_sc3_kernel_params_check_ndim(lc_flux):
     assert P.has_affine == 1 and P.affine_scale[6] == SC3_SCALE[6]
     assert list(ll.n_native.numpy()) == [12, 10, 88, 14, 4, 74, 52, 88, 42]
     assert P.kappa == 1.0 and P.ext_coef == -0.4 * np.log(10.0)
+    assert P.point_order == P._point_order.data_ptr()
+    assert torch.equal(P._point_order, sc3.point_order(ll))
     assert sc3._kernel_params(lp, 7, SC3_OFFSET, SC3_SCALE) is P   # cached
+
+
+def test_sc3_point_order_levels_the_warp_lanes(lc_flux):
+    """The SC3 half-step's warp takes the points in sc3.point_order: a
+    permutation by descending native node count, ties in time order. On the
+    flagship a lane then runs 212 quadrature nodes (the longest of each 32
+    points taken together), against 440 in the time order, and the lanes
+    hold 5738 / (32 x 212) = 85% of the slots busy."""
+    ll = make_log_posterior(ShockCooling3(lc_flux), lc_flux, _sc3_priors(),
+                            device="cpu").log_likelihood
+    order = sc3.point_order(ll)
+    n = ll.n_native[ll.band_ids]
+    assert order.dtype == torch.int64 and torch.equal(order.sort().values, torch.arange(149))
+    assert bool((n[order][:-1] >= n[order][1:]).all())
+    same = n[order][:-1] == n[order][1:]
+    assert bool((order[:-1][same] < order[1:][same]).all())
+
+    def lane_nodes(m):
+        return sum(int(m[i:i + 32].max()) for i in range(0, len(m), 32))
+    assert (lane_nodes(n[order]), lane_nodes(n), int(n.sum())) == (212, 440, 5738)
 
 
 @pytest.mark.parametrize("struct,mirror,size", [
@@ -1243,8 +1268,8 @@ def _half_step_case(lp, off, sc, x0, h, seed, rel):
     ap = torch.zeros_like(ak)
     kernels.stretch_half_step(lp, xk, lk, h, u_z, j, u_acc, 2.0, off, sc, n_accept=ak)
 
-    def plain(q):
-        return common.log_posterior_plain(lp, q, off, sc)
+    def plain(q):   # in chunks: SC3's plain version holds a (W, 149, 89) cube
+        return torch.cat([common.log_posterior_plain(lp, c, off, sc) for c in q.split(4096)])
     common.stretch_half_step_plain(plain, xp, lpp, h, u_z, j, u_acc, 2.0, n_accept=ap)
     agree = ak[h] == ap[h]
     y, z = common.propose_stretch(u_z, j, x0[h], x0[1 - h])
@@ -1326,6 +1351,39 @@ def test_use_sigma_half_steps_match_plain_on_card(lc, lc_flux, cuda_device, whic
         config.set_compute_dtype(config.AUTO)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("half", [32, 16384, 65536])
+@pytest.mark.parametrize("sigma_type", [None, "relative"], ids=["no-sigma", "sigma"])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_sc3_warp_half_step_matches_plain_on_card(lc, lc_flux, cuda_device, half, sigma_type,
+                                                  f64):
+    """The SC3 half-step (a warp per walker) at the main path's widths
+    (half 32: the 64-walker fit; 16384: the 32768-walker fit; 65536: the
+    131072-walker comparison), with and without the intrinsic scatter, in
+    float32 and float64, h = 0, 1: flags equal except near-ties, new states
+    bit-equal and new log-posteriors within 1e-5 (float32) or 1e-10
+    (float64) of the term scale where they agree."""
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        if sigma_type is None:
+            lp = make_log_posterior(ShockCooling3(lc_flux), lc_flux, _sc3_priors(),
+                                    device=cuda_device)
+            lo, up = SC3_LO, SC3_UP
+        else:
+            lp, lo, up = _sigma_case("sc3", lc, lc_flux, cuda_device, sigma_type)
+        off, sc = (lo + up) / 2, (up - lo) / 2 * (1 + 1e-6)
+        rng = np.random.default_rng(half)
+        x0 = torch.as_tensor((rng.uniform(lo, up, size=(2 * half, len(lo))) - off) / sc,
+                             device=cuda_device).float().reshape(2, half, len(lo)).contiguous()
+        n0 = kernels.LAUNCHES["sc3_half_step"]
+        for h in (0, 1):
+            _half_step_case(lp, off, sc, x0, h, 7 + h, 1e-10 if f64 else 1e-5)
+        assert kernels.LAUNCHES["sc3_half_step"] == n0 + 2
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
 def _whitened_sigma(lc, device, n_chains, sigma_type, seed=12):
     """_whitened with the intrinsic scatter as a fifth parameter (Gaussian
     prior on (0, 10)), its whitening from draws with sigma near 1."""
@@ -1385,6 +1443,45 @@ def test_use_sigma_gradient_kernels_match_plain_on_card(lc, cuda_device, sigma_t
         got = gradient.hmc_transition(target, *args)
         want = hmc_transition_plain(fn, *args, margins=True)
         _transitions_agree(got, want[:3], want[3:], 1e-6 if f64 else 1e-3, 1e-8)
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["depth9", "deep"])
+@pytest.mark.parametrize("ndim", [4, 5])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_k9_block_matches_plain_on_card(lc_ext, cuda_device, case, ndim, f64):
+    """K9 (a block per chain) against the plain transition under shared
+    draws, for ndim 4 and 5 (the intrinsic scatter): at max_depth 9 and eps
+    0.1 (the lightcurve_hmc default depth), and on deep trees (eps 0.01,
+    max_depth 10, some chain at depth >= 7); float64 over the plain gradient,
+    float32 over K7's evaluations, equal except near-ties. Every chain's
+    log-posterior is K7's at its new state, bit for bit: the block form folds
+    the points in the warp form's order."""
+    from lightcurve_fitting_tpu_torch.parallel.nuts import make_nuts_transition
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        C = 32
+        target, q0 = (_whitened(lc_ext, cuda_device, C) if ndim == 4
+                      else _whitened_sigma(lc_ext, cuda_device, C, "relative"))
+        D, eps = (9, 0.1) if case == "depth9" else (10, 0.01)
+        g = torch.Generator(device=cuda_device).manual_seed(11 + ndim)
+        z = torch.randn((C, ndim), generator=g, device=cuda_device, dtype=torch.float64)
+        u = torch.rand((C, D, 2 ** (D - 1) + 2), generator=g, device=cuda_device,
+                       dtype=torch.float64)
+        eps = torch.tensor(eps, dtype=torch.float64, device=cuda_device)
+        inv_mass = torch.ones(ndim, dtype=torch.float64, device=cuda_device)
+        logp0 = target.logp_and_grad(q0)[0]
+        n0 = kernels.LAUNCHES["nuts_transition"]
+        got = gradient.nuts_transition(target, q0, logp0, z, u, eps, inv_mass, D)
+        assert kernels.LAUNCHES["nuts_transition"] == n0 + 1
+        fn = target.logp_and_grad_plain if f64 else target.logp_and_grad
+        want = make_nuts_transition(fn, ndim, D, margins=True)(q0, logp0, z, u, eps, inv_mass)
+        _transitions_agree(got, want[:5], want[5:], 1e-6 if f64 else 1e-3, 1e-8)
+        assert torch.equal(target.logp_and_grad(got[0])[0], got[1])
+        assert got[3].min() >= 1 and (got[3].max() >= 7 if case == "deep" else got[3].max() > 1)
     finally:
         config.set_compute_dtype(config.AUTO)
 

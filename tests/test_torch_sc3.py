@@ -280,3 +280,37 @@ def test_interop_priors_for_seven_and_eight_parameters():
     pos = np.random.default_rng(4).uniform(P_LO, P_UP, size=(8, 7))
     x, lp = interop.walkers_from_numpy(np.concatenate([pos, np.ones((8, 1))], 1), np.zeros(8))
     assert tuple(x.shape) == (2, 4, 8) and tuple(lp.shape) == (2, 4)
+
+
+def jax_sc3_acceptance(seeds=range(1, 9), nwalkers=4096, nsteps=300):
+    """The JAX package's mean acceptance, float64 on the CPU, of the
+    ShockCooling3 fit of SN 2016bkv that ``chip_smoke.py`` phase 9c runs on
+    the card: the flagship curve with its Milky Way extinction, the SC3
+    priors and init window, ``nwalkers`` x ``nsteps`` steps, no burn-in, one
+    run a seed (``shard=False``). Returns {seed: acceptance}. About a minute
+    a seed on 8 CPU cores."""
+    import contextlib
+    import io
+    from lightcurve_fitting_tpu.fitting import lightcurve_mcmc as j_mcmc
+    lc = JLC.read(EXAMPLE)
+    lc.meta.update(dm=30.79, redshift=0.002, extinction={
+        "U": 0.069, "B": 0.061, "g": 0.055, "V": 0.045, "0": 0.035,
+        "r": 0.038, "R": 0.035, "i": 0.028, "I": 0.020})
+    lc.calcAbsMag()
+    lc.calcLum()
+    early = lc.where(MJD_min=57468.0, MJD_max=57485.0)
+    out = {}
+    for seed in seeds:
+        with contextlib.redirect_stdout(io.StringIO()):
+            s = j_mcmc(early, J3(early), PRIORS, p_lo=P_LO, p_up=P_UP, nwalkers=nwalkers,
+                       nsteps=nsteps, nsteps_burnin=0, seed=seed, shard=False, quiet=True)
+        out[seed] = float(np.mean(s.acceptance_fraction))
+    return out
+
+
+if __name__ == "__main__":
+    acc = jax_sc3_acceptance()
+    for seed, a in acc.items():
+        print(f"seed {seed}: acceptance {a!r}")
+    vals = np.array(list(acc.values()))
+    print(f"mean {vals.mean()!r} +/- {vals.std(ddof=1) / np.sqrt(len(vals))!r}")

@@ -1,24 +1,46 @@
 #!/usr/bin/env python3
-"""Time the port's ShockCooling2 kernels K1, K2, K6a and K9 on one CUDA card
-at the shapes of ``chip_smoke.py`` (K1 at 131072 walkers, K2 per half-step
-of 131072, K6a per ladder half-step of 17 rungs x 4096, K9 per NUTS
-transition of 64 and of 16 whitened flagship chains at eps 0.1, max_depth
-9), float32 compute, by CUDA events.
+"""Time the port's kernels on one CUDA card at the shapes of ``chip_smoke.py``
+and of the fits, float32 compute, by CUDA events:
 
-Usage: ``python3 tools/time_port_kernels.py [--repo PATH] [--label NAME]``.
-``--repo`` is the checkout whose ``lightcurve_fitting_tpu_torch`` is timed
-(default: this one), so that two versions can be compared on one card, in
-turns: run it on each checkout in the order A, B, B, A on the same machine.
-Each run builds its checkout's kernels first. The last line of
-the output is one JSON object with the card, its power limit and each
-kernel's milliseconds (the minimum over the repeats, and all repeats).
+* K1 at 131072 walkers; K2 per half-step of 131072; K6a per ladder
+  half-step of 17 rungs x 4096; K7 at 131072 walkers; K7h per 64-chain HMC
+  transition (32 jittered leapfrogs, eps 0.1); the CS half-step per 65536
+  (CompanionShocking2 on the synthetic Ia curve);
+* K9 per NUTS transition of 64 and of 16 whitened flagship chains at eps
+  0.1, max_depth 9, and at the ``lightcurve_hmc`` defaults (``K9_hmc``: the
+  16 chains, adapted step size and inverse mass of a ``lightcurve_hmc`` run,
+  seed 3, over 50 successive transitions from its last state, with their
+  mean depth and bound);
+* the SC3 half-step per half-step of half 32, 16384 and 65536 (the 64- and
+  32768-walker fits and the 131072-walker comparison);
+* with ``--fits``, the wall times of ``lightcurve_hmc`` at its defaults in
+  float32 and float64 and of the ShockCooling3 fit at 32768 x 300.
+
+Each kernel's outputs at fixed inputs are hashed (``digest``): two checkouts
+whose kernel computes the same bits print the same digest. The ptxas report
+of the gradient and SC3 kernels (registers, stack frame, spills) comes from
+the build.
+
+Usage: ``python3 tools/time_port_kernels.py [--repo PATH] [--label NAME]
+[--fits]``. ``--repo`` is the checkout whose ``lightcurve_fitting_tpu_torch``
+is timed (default: this one), so that two versions can be compared on one
+card, in turns: run it on each checkout in the order A, B, B, A on the same
+machine. Each run builds its checkout's kernels first. The last line of the
+output is one JSON object with the card, its power limit, each kernel's
+milliseconds (the minimum over the repeats, and all repeats), the digests
+and the ptxas report.
 """
 
 import argparse
+import contextlib
+import hashlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
+import time
 
 import numpy as np
 
@@ -29,6 +51,12 @@ P_LO = [20.0, 2.0, 20.0, 57468.5]
 P_UP = [50.0, 5.0, 50.0, 57468.7]
 TRUTH_MED = [37.58, 5.326, 16.25, 57468.6999]
 TRUTH_STD = [0.145, 0.053, 0.110, 0.00018]
+D_L = 10 ** (30.79 / 5 + 1) / 1e6
+SC3_LO = [0.5, 0.5, 5.0, 1.0, D_L - 0.005, 0.0, 57468.5]
+SC3_UP = [2.0, 2.0, 20.0, 5.0, D_L + 0.005, 0.1, 57468.7]
+# the ptxas report covers the entry functions whose mangled names hold these
+PTXAS_KERNELS = ("nuts_transition", "hmc_transition", "logpost_grad", "SC3WarpModel",
+                 "stretch_half_step_kernelI8SC3Model")
 
 
 def events_ms(fn, launches, repeats):
@@ -49,57 +77,115 @@ def events_ms(fn, launches, repeats):
     return out
 
 
+def digest(*tensors):
+    """The first 16 hex digits of the SHA-256 of the tensors' bytes."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def ptxas_report(log):
+    """{entry function: [registers, stack frame bytes, spill stores, spill
+    loads]} from nvcc's -Xptxas -v output, for PTXAS_KERNELS."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1) if any(k in m.group(1) for k in PTXAS_KERNELS) else None
+            if name:
+                out[name] = [None, None, None, None]
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name][1:] = [int(v) for v in m.groups()]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name][0] = int(m.group(1))
+    return out
+
+
+def flagship(repo):
+    from lightcurve_fitting_tpu_torch.lightcurve import LC
+    lc = LC.read(os.path.join(repo, "lightcurve_fitting_tpu", "data", "SN2016bkv.csv"))
+    lc.meta.update(META)
+    lc.calcAbsMag()
+    lc.calcLum()
+    return lc.where(MJD_min=57468.0, MJD_max=57485.0)
+
+
+def gauss_priors():
+    from lightcurve_fitting_tpu_torch.models import GaussianPrior
+    return [GaussianPrior(0.0, 100.0, 30.0, 15.0), GaussianPrior(0.0, 100.0, 4.0, 3.0),
+            GaussianPrior(0.0, 100.0, 30.0, 15.0), GaussianPrior(57468.0, 57468.7, 57468.5, 0.2)]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--label", default="")
     ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--fits", action="store_true",
+                    help="also time lightcurve_hmc (f32, f64) and the SC3 32768 x 300 fit")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("time_port_kernels: CUDA is not available; this script runs on the GPU")
     repo = os.path.abspath(args.repo)
     sys.path.insert(0, repo)
-    from lightcurve_fitting_tpu_torch.fitting import _state_rescaling, make_log_posterior
-    from lightcurve_fitting_tpu_torch.kernels import build, gradient, ladder, sc2
-    from lightcurve_fitting_tpu_torch.lightcurve import LC
-    from lightcurve_fitting_tpu_torch.models import GaussianPrior, ShockCooling2, UniformPrior
+    from lightcurve_fitting_tpu_torch import kernels
+    from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.fitting import (_state_rescaling, lightcurve_hmc,
+                                                      lightcurve_mcmc, make_log_posterior)
+    from lightcurve_fitting_tpu_torch.kernels import build, cs, gradient, ladder, sc2, sc3
+    from lightcurve_fitting_tpu_torch.models import ShockCooling2, ShockCooling3, UniformPrior
     from lightcurve_fitting_tpu_torch.parallel.evidence import make_beta_ladder
     from lightcurve_fitting_tpu_torch.parallel.hmc import (BoundsTransform, WhitenedLogPosterior,
                                                            WhitenedPosterior)
+    import chip_smoke   # the checkout's own: its synthetic Ia curve and CS window
     build.library()
+    ptxas = ptxas_report(build.build_info()["log"])
     dev = torch.device("cuda")
-    lc = LC.read(os.path.join(repo, "lightcurve_fitting_tpu", "data", "SN2016bkv.csv"))
-    lc.meta.update(META)
-    lc.calcAbsMag()
-    lc.calcLum()
-    lc = lc.where(MJD_min=57468.0, MJD_max=57485.0)
+    lc = flagship(repo)
     priors = [UniformPrior(0.0, 100.0), UniformPrior(0.0, 100.0), UniformPrior(0.0, 100.0),
               UniformPrior(57468.0, 57468.7)]
     lp = make_log_posterior(ShockCooling2(lc), lc, priors, device=dev)
     kw = _state_rescaling(torch.float32, P_LO, P_UP, dev)
     off, sc = kw["param_offset"], kw["param_scale"]
     rng = np.random.default_rng(0)
-    times = {}
+    g = torch.Generator(device=dev)
+    times, digests, info = {}, {}, {}
+
+    def half_step(name, step, x, logp, half, seed, launches=20):
+        """Time one in-place half-step kernel on (x, logp) and hash one step
+        from the same start."""
+        g.manual_seed(seed)
+        u_z = torch.rand(half, generator=g, device=dev)
+        j = torch.randint(0, half, (half,), generator=g, device=dev)
+        u_acc = torch.rand(half, generator=g, device=dev)
+        xd, ld = x.clone(), logp.clone()
+        ad = torch.zeros((2, half), dtype=torch.int32, device=dev)
+        step(xd, ld, u_z, j, u_acc, ad)
+        digests[name] = digest(xd, ld, ad)
+        acc = torch.zeros((2, half), dtype=torch.int32, device=dev)
+        times[name] = events_ms(lambda: step(x, logp, u_z, j, u_acc, acc), launches,
+                                args.repeats)
 
     # K1 at 131072 walkers, K2 per half-step of 131072 (float32 rescaled state)
     W = 131072
     half = W // 2
     p = torch.as_tensor(rng.uniform(P_LO, P_UP, size=(W, 4)), device=dev)
     times["K1"] = events_ms(lambda: sc2.log_posterior(lp, p), 20, args.repeats)
+    digests["K1"] = digest(sc2.log_posterior(lp, p))
     x = torch.as_tensor(((p.cpu().numpy() - off) / sc).reshape(2, half, 4),
                         device=dev).float().contiguous()
     logp = sc2.log_posterior(lp, x.reshape(W, 4), off, sc).reshape(2, half)
-    g = torch.Generator(device=dev)
-    g.manual_seed(1)
-    u_z = torch.rand(half, generator=g, device=dev)
-    j = torch.randint(0, half, (half,), generator=g, device=dev)
-    u_acc = torch.rand(half, generator=g, device=dev)
-    acc = torch.zeros((2, half), dtype=torch.int32, device=dev)
-    times["K2"] = events_ms(lambda: sc2.stretch_half_step(lp, x, logp, 0, u_z, j, u_acc, 2.0, off,
-                                                          sc, n_accept=acc,
-                                                          check_partners=False),
-                            20, args.repeats)
+    half_step("K2", lambda x_, l_, uz, j_, ua, a_: sc2.stretch_half_step(
+        lp, x_, l_, 0, uz, j_, ua, 2.0, off, sc, n_accept=a_, check_partners=False),
+        x, logp, half, 1)
 
     # K6a: one ladder half-step of 17 rungs x 4096 walkers
     R, Wl = 17, 4096
@@ -108,18 +194,26 @@ def main():
     pri, ll = ladder.ladder_init(lp, xl, off, sc)
     betas = torch.as_tensor(make_beta_ladder(R - 1), device=dev)
     shape = (R, 2, Wl // 2)
+    g.manual_seed(1)
     uz = torch.rand(shape, generator=g, device=dev)
     jl = torch.randint(0, Wl // 2, shape, generator=g, device=dev)
     ua = torch.rand(shape, generator=g, device=dev)
+    xd, pd, ld = xl.clone(), pri.clone(), ll.clone()
+    ad = torch.zeros(shape, dtype=torch.int32, device=dev)
+    ladder.tempered_half_step(lp, xd, pd, ld, betas, 0, uz, jl, ua, 2.0, off, sc, ad)
+    digests["K6a"] = digest(xd, pd, ld, ad)
     al = torch.zeros(shape, dtype=torch.int32, device=dev)
     times["K6a"] = events_ms(lambda: ladder.tempered_half_step(lp, xl, pri, ll, betas, 0, uz, jl,
                                                                ua, 2.0, off, sc, al,
                                                                check_partners=False),
                              20, args.repeats)
 
-    # K9: one NUTS transition of 64 and of 16 whitened flagship chains
-    gpri = [GaussianPrior(0.0, 100.0, 30.0, 15.0), GaussianPrior(0.0, 100.0, 4.0, 3.0),
-            GaussianPrior(0.0, 100.0, 30.0, 15.0), GaussianPrior(57468.0, 57468.7, 57468.5, 0.2)]
+    # K7 at 131072 walkers of the init window
+    times["K7"] = events_ms(lambda: sc2.log_posterior_and_grad(lp, p), 20, args.repeats)
+    digests["K7"] = digest(*sc2.log_posterior_and_grad(lp, p))
+
+    # K9 and K7h on whitened flagship chains (lightcurve_hmc's target)
+    gpri = gauss_priors()
     glp = make_log_posterior(ShockCooling2(lc), lc, gpri, device=dev)
     bounds = BoundsTransform([b.p_min for b in gpri], [b.p_max for b in gpri])
     wr = np.random.default_rng(12)
@@ -138,17 +232,110 @@ def main():
     inv_mass = torch.ones(4, dtype=torch.float64, device=dev)
     times["K9_64"] = events_ms(lambda: gradient.nuts_transition(target, q0, logp0, z, u, eps,
                                                                 inv_mass, D), 5, args.repeats)
+    digests["K9_64"] = digest(*gradient.nuts_transition(target, q0, logp0, z, u, eps, inv_mass, D))
+    digests["K7w"] = digest(*kernels.log_posterior_and_grad(glp, q0, white=target))
     q16, l16, z16, u16 = (a[:16].contiguous() for a in (q0, logp0, z, u))
     times["K9_16"] = events_ms(lambda: gradient.nuts_transition(target, q16, l16, z16, u16, eps,
                                                                 inv_mass, D), 5, args.repeats)
+    n_used = torch.randint(16, 33, (C,), generator=g, device=dev)
+    u_acc = torch.rand(C, generator=g, device=dev, dtype=torch.float64)
+    hargs = (q0, logp0, z, u_acc, n_used, eps, inv_mass, 32)
+    times["K7h"] = events_ms(lambda: gradient.hmc_transition(target, *hargs), 5, args.repeats)
+    digests["K7h"] = digest(*gradient.hmc_transition(target, *hargs))
+
+    # K9 at the lightcurve_hmc defaults: its adapted sampler, 50 transitions
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = lightcurve_hmc(lc, ShockCooling2(lc), gpri, seed=3, quiet=True, device=dev)
+    smp = res.sampler
+    xh = smp._tensor(smp._last_pos)
+    lh = smp._tensor(smp._last_logp)
+    eps_h, im_h = smp._tensor(smp.step_size), smp._tensor(smp.inv_mass)
+    draws = [smp._draws(smp._draw_count + i) for i in range(50)]
+
+    def k9_run():
+        x_, l_ = xh, lh
+        depths = []
+        for z_, u_ in draws:
+            x_, l_, _, d_, _ = gradient.nuts_transition(smp._target, x_, l_, z_, u_, eps_h, im_h,
+                                                        smp.max_depth)
+            depths.append(d_)
+        return torch.stack(depths)
+
+    depth = k9_run().to(torch.int64)
+    evals = int((2 ** depth - 1 + depth).sum())
+    times["K9_hmc"] = [t / 50 for t in events_ms(k9_run, 1, args.repeats)]
+    ops = evals / 50 * chip_smoke.sc2_grad_ops(glp.log_likelihood)
+    info["K9_hmc"] = {"step_size": smp.step_size, "inv_mass": smp.inv_mass.tolist(),
+                      "mean_depth": float(depth.double().mean()),
+                      "evals_per_transition": evals / 50,
+                      "bound_ms": chip_smoke.bound(ops, 16 * (4 * 8 * 3 + 8 * 3 + 4 * 2)
+                                                   + 16 * D * (2 ** (D - 1) + 2) * 8)[0]}
+    # the SC3 half-step at half 32, 16384 and 65536 (float32 rescaled state)
+    lcf = chip_smoke.flux_lc(lc)
+    lp3 = make_log_posterior(ShockCooling3(lcf), lcf, chip_smoke.sc3_priors(), device=dev)
+    kw3 = _state_rescaling(torch.float32, SC3_LO, SC3_UP, dev)
+    off3, sc3_ = kw3["param_offset"], kw3["param_scale"]
+    for h3 in (32, 16384, 65536):
+        pos = (rng.uniform(SC3_LO, SC3_UP, size=(2 * h3, 7)) - off3) / sc3_
+        x3 = torch.as_tensor(pos.reshape(2, h3, 7), device=dev).float().contiguous()
+        l3 = sc3.log_posterior(lp3, x3.reshape(2 * h3, 7), off3, sc3_).reshape(2, h3)
+        if h3 == 65536:
+            digests["SC3_logpost"] = digest(l3)
+        half_step(f"SC3_half_{h3}", lambda x_, l_, uz_, j_, ua_, a_: sc3.stretch_half_step(
+            lp3, x_, l_, 0, uz_, j_, ua_, 2.0, off3, sc3_, n_accept=a_, check_partners=False),
+            x3, l3, h3, 4, launches=20 if h3 > 32 else 100)
+
+    # the CS half-step per 65536 (CompanionShocking2, float32 rescaled state)
+    lc_ia, lc0 = chip_smoke.ia_lc()
+    lpc = make_log_posterior(chip_smoke.cs_model(2, lc0), lc_ia, chip_smoke.cs_priors(2),
+                             device=dev)
+    kwc = _state_rescaling(torch.float32, chip_smoke.CS_LO[2], chip_smoke.CS_UP[2], dev)
+    offc, scc = kwc["param_offset"], kwc["param_scale"]
+    xc = torch.as_tensor((rng.uniform(chip_smoke.CS_LO[2], chip_smoke.CS_UP[2], size=(W, 7))
+                          - offc) / scc, device=dev).float().reshape(2, half, 7).contiguous()
+    lcs = cs.log_posterior(lpc, xc.reshape(W, 7), offc, scc).reshape(2, half)
+    half_step("CS_half", lambda x_, l_, uz_, j_, ua_, a_: cs.stretch_half_step(
+        lpc, x_, l_, 0, uz_, j_, ua_, 2.0, offc, scc, n_accept=a_, check_partners=False),
+        xc, lcs, half, 17)
+
+    walls = {}
+    if args.fits:
+        for label in ("f32", "f64"):
+            try:
+                if label == "f64":
+                    config.set_compute_dtype(torch.float64)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lightcurve_hmc(lc, ShockCooling2(lc), gpri, seed=3, quiet=True, device=dev)
+                torch.cuda.synchronize()
+                walls[f"lightcurve_hmc_{label}"] = time.perf_counter() - t0
+            finally:
+                config.set_compute_dtype(config.AUTO)
+        for rep in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s = lightcurve_mcmc(lc, ShockCooling3(lc), chip_smoke.sc3_priors(), p_lo=SC3_LO,
+                                p_up=SC3_UP, nwalkers=32768, nsteps=300, nsteps_burnin=0, seed=7,
+                                quiet=True)
+            torch.cuda.synchronize()
+            walls[f"sc3_32768x300_{rep}"] = time.perf_counter() - t0
+        walls["sc3_acceptance"] = float(np.mean(s.acceptance_fraction))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
     for k, v in times.items():
         print(f"[time_port_kernels] {args.label} {k}: min {min(v):.4f} ms, repeats "
-              f"{', '.join(f'{t:.4f}' for t in v)}", flush=True)
+              f"{', '.join(f'{t:.4f}' for t in v)}"
+              + (f", digest {digests[k]}" if k in digests else ""), flush=True)
+    for k, v in {**info, **walls}.items():
+        print(f"[time_port_kernels] {args.label} {k}: {v}", flush=True)
+    for k, v in ptxas.items():
+        print(f"[time_port_kernels] {args.label} ptxas {k}: registers {v[0]}, stack frame "
+              f"{v[1]} bytes, spill stores {v[2]}, spill loads {v[3]}", flush=True)
     print(json.dumps({"label": args.label, "repo": repo, "card": smi,
-                      "ms": {k: min(v) for k, v in times.items()}, "repeats": times}), flush=True)
+                      "ms": {k: min(v) for k, v in times.items()}, "repeats": times,
+                      "digests": digests, "info": info, "walls": walls, "ptxas": ptxas}),
+          flush=True)
 
 
 if __name__ == "__main__":
