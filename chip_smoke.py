@@ -101,8 +101,9 @@ raises and the script exits non-zero):
     ``lightcurve_hmc(sampler="hmc")``; the counters show K7, K9 and K7h ran;
 21. the intrinsic scatter: every kernel that branches on ``use_sigma``
     against its plain version with the scatter on (SC2 with 5 parameters,
-    SC3 with 8; both sigma_types; float32 and float64): K1 or the SC3
-    log-posterior, K2 or the SC3 half-step, K6a and K6b over each, and K7
+    SC3 with 8, CS1 with 9; both sigma_types; float32 and float64): K1, the
+    SC3 or the CS log-posterior, K2, the SC3 or the CS half-step, K6a and
+    K6b over each, and K7
     (the sigma column of the gradient included), K9 and K7h over SC2, held
     to the tolerances above over the term scale (0.5 x the summed residual
     terms' magnitudes, the scatter's log term included, + |constant|);
@@ -117,7 +118,10 @@ raises and the script exits non-zero):
     parameters) against its plain version at 131072 walkers (1% outside the
     priors, an eighth with t_0 after the first epochs): float32 <= 1e-5,
     float64 <= 1e-10 of the term scale, identical -inf sets; the CS
-    half-step (h = 0, 1), K6a and K6b over CS2 at 17 x 4096 as in 4, 14, 15;
+    half-step (h = 0, 1; a warp per walker) at half 65536 and at the fits'
+    widths, half 16384 and 16, K6a (a warp per walker) at 17 rungs x 4096
+    and at the PT fit's 7 x 64, and K6b over CS2 at 17 x 4096, as in 4, 14,
+    15, float32 and float64;
 24. the companion-shocking main path, counters reset before (a): (a)
     ``lightcurve_mcmc`` CS2 as tests/test_companion_shocking.py:106-123
     (32 walkers x 300 + 250, seed 12) with its truth criteria; (b) CS2 at
@@ -125,7 +129,8 @@ raises and the script exits non-zero):
     mean acceptance within 0.01 of the JAX package's float64 CPU value; (c)
     ``lightcurve_evidence`` CS2 at 4096 x 16 rungs + beta = 1 x 150 + 150,
     log Z within 4 hypot(err, err_ref) of the JAX package's float64 CPU
-    value, ``compare_models`` CS2 against CS3 and ``lightcurve_ptmcmc`` CS2
+    value, a profiled run's time split, ``compare_models`` CS2 against CS3
+    and ``lightcurve_ptmcmc`` CS2
     (t_0 and t_peak within 1 d); (d) the three models' ``evaluate`` on the
     card (K8); the counters show K8, the CS log-posterior
     and half-step, K6a and K6b ran, and no plain version did.
@@ -2029,6 +2034,8 @@ def sigma_window(which):
     import numpy as np
     if which == "SC2":
         return np.append(P_LO, 0.5), np.append(P_UP, 3.0)
+    if which == "CS1":
+        return np.append(CS_LO[1], 0.5), np.append(CS_UP[1], 3.0)
     return np.append(SC3_LO, 0.5), np.append(SC3_UP, 3.0)
 
 
@@ -2053,12 +2060,13 @@ def whitened_sigma(lc, dev, n_chains, sigma_type, seed=12):
     return WhitenedLogPosterior(lp, bounds, white), w0
 
 
-def phase_use_sigma(lc, lcf, seed=15):
+def phase_use_sigma(lc, lcf, lc_ia, lc0, seed=15):
     """21: every kernel that branches on use_sigma against its plain version
-    with the intrinsic scatter on (SC2 with 5 parameters, SC3 with 8), both
-    sigma_types, float32 and float64: K1 or the SC3 log-posterior, K2 or
-    the SC3 half-step, K6a and K6b over each; K7 (the sigma column of the
-    gradient included), K9 and K7h over SC2."""
+    with the intrinsic scatter on (SC2 with 5 parameters, SC3 with 8, CS1
+    with 9 on the synthetic Ia curve), both sigma_types, float32 and
+    float64: K1, the SC3 or the CS log-posterior, K2, the SC3 or the CS
+    half-step, K6a and K6b over each; K7 (the sigma column of the gradient
+    included), K9 and K7h over SC2."""
     import numpy as np
     import torch
     from lightcurve_fitting_tpu_torch import kernels
@@ -2071,15 +2079,16 @@ def phase_use_sigma(lc, lcf, seed=15):
 
     dev = torch.device("cuda")
     lines = []
-    for which, sigma_type, label in itertools.product(("SC2", "SC3"), ("relative", "absolute"),
-                                                      ("f32", "f64")):
+    for which, sigma_type, label in itertools.product(("SC2", "SC3", "CS1"),
+                                                      ("relative", "absolute"), ("f32", "f64")):
         try:
             if label == "f64":
                 config.set_compute_dtype(None)
             rel, grel = (1e-5, 1e-4) if label == "f32" else (1e-10, 1e-9)
-            pri = ((flagship_priors() if which == "SC2" else sc3_priors())
+            pri = ({"SC2": flagship_priors, "SC3": sc3_priors, "CS1": lambda: cs_priors(1)}[which]()
                    + [LogUniformPrior(0.01, 10.0)])
-            model, data = (ShockCooling2(lc), lc) if which == "SC2" else (ShockCooling3(lcf), lcf)
+            model, data = {"SC2": (ShockCooling2(lc), lc), "SC3": (ShockCooling3(lcf), lcf),
+                           "CS1": (cs_model(1, lc0), lc_ia)}[which]
             lp = make_log_posterior(model, data, pri, use_sigma=True, sigma_type=sigma_type,
                                     device=dev)
             lo, up = sigma_window(which)
@@ -2089,7 +2098,7 @@ def phase_use_sigma(lc, lcf, seed=15):
             d_lp = compare_ll(f"{what} log-posterior", lp(p), chunked(lp.forward_plain, p), rel,
                               scale=lp.log_likelihood.term_scales(p))
             off, sc = (lo + up) / 2, (up - lo) / 2 * (1 + 1e-6)
-            W = 4096 if which == "SC2" else 2048
+            W = 2048 if which == "SC3" else 4096
             x0 = torch.as_tensor((rng.uniform(lo, up, size=(W, len(lo))) - off) / sc, device=dev)
             x0 = x0.float().reshape(2, W // 2, len(lo)).contiguous()
             hs = check_half_step(f"{what} half-step", lp, off, sc, x0, seed, rel)
@@ -2297,7 +2306,8 @@ def phase_k8(lc, lc0, rng_seed=16):
 def phase_cs_logpost(lc, lc0, rng_seed=17):
     """23: the CS log-posterior of CS1, CS2, CS3 and CS1 with the intrinsic
     scatter (9 parameters) against its plain version at 131072 walkers;
-    the CS half-step, and K6a and K6b over CS2 at 17 x 4096."""
+    over CS2, the CS half-step at half 65536, 16384 and 16, K6a at 17 x 4096
+    and 7 x 64 walkers, K6b at 17 x 4096, float32 and float64."""
     import numpy as np
     import torch
     from lightcurve_fitting_tpu_torch import kernels
@@ -2306,6 +2316,7 @@ def phase_cs_logpost(lc, lc0, rng_seed=17):
     from lightcurve_fitting_tpu_torch.kernels import common, cs, ladder
     from lightcurve_fitting_tpu_torch.models import LogUniformPrior
     from lightcurve_fitting_tpu_torch.parallel.evidence import make_beta_ladder
+    from time_port_kernels import device_ms
 
     dev = torch.device("cuda")
     W = HEADLINE_WALKERS
@@ -2347,70 +2358,122 @@ def phase_cs_logpost(lc, lc0, rng_seed=17):
     out = {"logpost": {"max_abs_err": res[(2, False, "f32")][0], "ms": k_ms, "plain_ms": plain_ms,
                        **lp_bound}}
 
-    # the CS half-step on the sampler's float32 rescaled state, CS2
+    # the CS half-step (a warp per walker) on the sampler's float32 rescaled
+    # state, CS2, at half 65536 and at the fits' widths, half 16384 (24b) and
+    # 16 (24a), float32 and float64 compute; timed in float32
     kw = _state_rescaling(torch.float32, CS_LO[2], CS_UP[2], dev)
     off, sc = kw["param_offset"], kw["param_scale"]
-    half = W // 2
-    x0 = torch.as_tensor((rng.uniform(CS_LO[2], CS_UP[2], size=(W, 7)) - off) / sc, device=dev)
-    x0 = x0.float().reshape(2, half, 7).contiguous()
-    hs = check_half_step("CS half-step", lp2, off, sc, x0, rng_seed, 1e-5)
-    l0 = cs.log_posterior(lp2, x0.reshape(W, 7), off, sc).reshape(2, half)
-    g = torch.Generator(device=dev)
-    g.manual_seed(rng_seed)
-    u_z = torch.rand(half, generator=g, device=dev)
-    j = torch.randint(0, half, (half,), generator=g, device=dev)
-    u_acc = torch.rand(half, generator=g, device=dev)
-    xk, lk = x0.clone(), l0.clone()
-    ak = torch.zeros((2, half), dtype=torch.int32, device=dev)
-    h_ms = cuda_ms(lambda: cs.stretch_half_step(lp2, xk, lk, 0, u_z, j, u_acc, 2.0, off, sc,
-                                                n_accept=ak, check_partners=False))
-    xp, lpp = x0.clone(), l0.clone()
-    h_plain_ms = cuda_ms(lambda: common.stretch_half_step_plain(
-        lambda q: chunked(lambda c: common.log_posterior_plain(lp2, c, off, sc), q), xp, lpp, 0,
-        u_z, j, u_acc, 2.0), repeats=3)
-    h_bound = bound_fields(half * (cs_eval_ops(ll) + PROPOSAL),
-                           half * (2 * 7 * 4 + 8 + 16 + 4) + half * (7 * 4 + 8 + 4))
-    out["half"] = {"max_abs_err": hs[2], "ms": h_ms, "plain_ms": h_plain_ms, **h_bound}
+    halves = (W // 2, CS_WALKERS // 2, 16)
+    hs, h_ms, h_bounds = {}, {}, {}
+    for label in ("f32", "f64"):
+        try:
+            if label == "f64":
+                config.set_compute_dtype(None)
+            lp_h = lp2 if label == "f32" else make_log_posterior(cs_model(2, lc0), lc,
+                                                                 cs_priors(2), device=dev)
+            for half in halves:
+                x0 = torch.as_tensor((rng.uniform(CS_LO[2], CS_UP[2], size=(2 * half, 7)) - off)
+                                     / sc, device=dev).float().reshape(2, half, 7).contiguous()
+                hs[(label, half)] = check_half_step(f"CS half-step {label} {half}", lp_h, off, sc,
+                                                    x0, rng_seed, 1e-5 if label == "f32" else 1e-10)
+                if label == "f64":
+                    continue
+                l0 = cs.log_posterior(lp2, x0.reshape(2 * half, 7), off, sc).reshape(2, half)
+                g = torch.Generator(device=dev)
+                g.manual_seed(rng_seed)
+                u_z = torch.rand(half, generator=g, device=dev)
+                j = torch.randint(0, half, (half,), generator=g, device=dev)
+                u_acc = torch.rand(half, generator=g, device=dev)
+                xk, lk = x0.clone(), l0.clone()
+                ak = torch.zeros((2, half), dtype=torch.int32, device=dev)
+                def step():
+                    cs.stretch_half_step(lp2, xk, lk, 0, u_z, j, u_acc, 2.0, off, sc, n_accept=ak,
+                                         check_partners=False)
+                h_ms[half] = (cuda_ms(step), device_ms(step, "stretch_half_step_kernel", 20, 1)[0])
+                h_bounds[half] = bound_fields(half * (cs_eval_ops(ll) + PROPOSAL),
+                                              half * (2 * 7 * 4 + 8 + 16 + 4)
+                                              + half * (7 * 4 + 8 + 4))
+                if half == W // 2:
+                    xp, lpp = x0.clone(), l0.clone()
+                    h_plain_ms = cuda_ms(lambda: common.stretch_half_step_plain(
+                        lambda q: chunked(lambda c: common.log_posterior_plain(lp2, c, off, sc), q),
+                        xp, lpp, 0, u_z, j, u_acc, 2.0), repeats=3)
+        finally:
+            config.set_compute_dtype(config.AUTO)
+    out["half"] = {"max_abs_err": max(c[2] for (lab, _), c in hs.items() if lab == "f32"),
+                   "ms": h_ms[W // 2][0], "plain_ms": h_plain_ms, **h_bounds[W // 2]}
 
-    # K6a and K6b over CS2 at the evidence shape, 17 x 4096
+    # K6a (a warp per walker) and K6b over CS2 at the evidence shape, 17 x
+    # 4096 (half 2048), and K6a at the PT fit's, 7 x 64 (half 32), float32 and
+    # float64 compute on the sampler's float32 rescaled state; timed in float32
     R = EV_RUNGS + 1
     kw = _state_rescaling("auto", CS_LO[2], CS_UP[2], dev)
     off, sc = kw["param_offset"], kw["param_scale"]
-    xl = torch.as_tensor((window_states(rng, CS_LO[2], CS_UP[2], R * EV_WALKERS, 0.01) - off)
-                         / sc, device=dev).to(kw["dtype"]).reshape(R, 2, EV_WALKERS // 2, 7)
-    xl = xl.contiguous()
-    lad = check_ladder("CS2 ladder", lp2, off, sc, xl, rng_seed, 1e-5)
-    pri, lll = ladder.ladder_init(lp2, xl, off, sc)
-    betas = torch.as_tensor(make_beta_ladder(EV_RUNGS), device=dev)
-    shape = (R, 2, EV_WALKERS // 2)
-    uz = torch.rand(shape, generator=g, device=dev)
-    jl = torch.randint(0, EV_WALKERS // 2, shape, generator=g, device=dev)
-    ua = torch.rand(shape, generator=g, device=dev)
-    al = torch.zeros(shape, dtype=torch.int32, device=dev)
-    state = (xl.clone(), pri.clone(), lll.clone())
-    a_ms = cuda_ms(lambda: ladder.tempered_half_step(lp2, *state, betas, 0, uz, jl, ua, 2.0, off,
-                                                     sc, al, check_partners=False))
-    fns = ladder.plain_functions(lp2, off, sc)
-    state = (xl.clone(), pri.clone(), lll.clone())
-    a_plain_ms = cuda_ms(lambda: ladder.tempered_half_step_plain(*fns, *state, betas, 0, uz, jl,
-                                                                 ua, 2.0), repeats=3)
-    b_ms = cuda_ms(lambda: ladder.ladder_init(lp2, xl, off, sc))
-    b_plain_ms = cuda_ms(lambda: ladder.ladder_init_plain(*fns, xl), repeats=3)
-    n = R * EV_WALKERS // 2
-    out["k6a"] = {"max_abs_err": lad[2], "ms": a_ms, "plain_ms": a_plain_ms,
-                  **bound_fields(n * (cs_eval_ops(ll) + PROPOSAL),
-                                 n * (2 * 7 * 4 + 2 * 8 + 4 + 8 + 4) + R * 8
-                                 + n * (7 * 4 + 2 * 8 + 4))}
+    ladders = ((R, EV_WALKERS // 2), (7, 32))
+    lads, a_ms, a_bounds = {}, {}, {}
+    for label in ("f32", "f64"):
+        try:
+            if label == "f64":
+                config.set_compute_dtype(None)
+            lp_l = lp2 if label == "f32" else make_log_posterior(cs_model(2, lc0), lc,
+                                                                 cs_priors(2), device=dev)
+            for rungs, half in ladders:
+                xl = torch.as_tensor((window_states(rng, CS_LO[2], CS_UP[2], rungs * 2 * half, 0.01)
+                                      - off) / sc, device=dev).to(kw["dtype"])
+                xl = xl.reshape(rungs, 2, half, 7).contiguous()
+                lads[(label, rungs, half)] = check_ladder(
+                    f"CS2 ladder {label} {rungs} x {half}", lp_l, off, sc, xl, rng_seed,
+                    1e-5 if label == "f32" else 1e-10)
+                if label == "f64":
+                    continue
+                pri, lll = ladder.ladder_init(lp2, xl, off, sc)
+                betas = torch.as_tensor(make_beta_ladder(rungs - 1), device=dev)
+                shape = (rungs, 2, half)
+                g = torch.Generator(device=dev)
+                g.manual_seed(rng_seed)
+                uz = torch.rand(shape, generator=g, device=dev)
+                jl = torch.randint(0, half, shape, generator=g, device=dev)
+                ua = torch.rand(shape, generator=g, device=dev)
+                al = torch.zeros(shape, dtype=torch.int32, device=dev)
+                state = (xl.clone(), pri.clone(), lll.clone())
+                def step():
+                    ladder.tempered_half_step(lp2, *state, betas, 0, uz, jl, ua, 2.0, off, sc, al,
+                                              check_partners=False)
+                a_ms[rungs] = (cuda_ms(step), device_ms(step, "tempered_half_step_kernel", 20, 1)[0])
+                n = rungs * half
+                a_bounds[rungs] = bound_fields(n * (cs_eval_ops(ll) + PROPOSAL),
+                                               n * (2 * 7 * 4 + 2 * 8 + 4 + 8 + 4) + rungs * 8
+                                               + n * (7 * 4 + 2 * 8 + 4))
+                if rungs == R:
+                    fns = ladder.plain_functions(lp2, off, sc)
+                    state = (xl.clone(), pri.clone(), lll.clone())
+                    a_plain_ms = cuda_ms(lambda: ladder.tempered_half_step_plain(
+                        *fns, *state, betas, 0, uz, jl, ua, 2.0), repeats=3)
+                    b_ms = cuda_ms(lambda: ladder.ladder_init(lp2, xl, off, sc))
+                    b_plain_ms = cuda_ms(lambda: ladder.ladder_init_plain(*fns, xl), repeats=3)
+                    n_b = R * EV_WALKERS
+        finally:
+            config.set_compute_dtype(config.AUTO)
+    lad = lads[("f32", R, EV_WALKERS // 2)]
+    out["k6a"] = {"max_abs_err": max(v[2] for k, v in lads.items() if k[0] == "f32"),
+                  "ms": a_ms[R][0], "plain_ms": a_plain_ms, **a_bounds[R]}
     out["k6b"] = {"max_abs_err": lad[3], "ms": b_ms, "plain_ms": b_plain_ms,
-                  **bound_fields(2 * n * cs_eval_ops(ll), 2 * n * (7 * 4 + 2 * 8))}
-    phase("CS half-step and ladder 23", f"CS half-steps h=0,1 of {W} walkers (f32 state): {hs[1]} "
-          f"accepts, {hs[0]} near-ties, new states bit-equal where the flags agree, new-logp max "
-          f"|d| {hs[2]:.3e}; kernel {h_ms:.4f} ms vs plain {h_plain_ms:.4f} ms per half-step, bound "
-          f"{out['half']['bound_ms']:.4f} ms; K6a/K6b over CS2 at {R} x {EV_WALKERS} (1% outside "
-          f"the priors): {lad[1]} accepts, {lad[0]} near-ties, K6a log L max |d| {lad[2]:.3e}, "
-          f"K6b log L max |d| {lad[3]:.3e}; "
-          f"K6a {a_ms:.4f} ms (plain {a_plain_ms:.4f}, bound {out['k6a']['bound_ms']:.4f}), K6b "
-          f"{b_ms:.4f} ms (plain {b_plain_ms:.4f}, bound {out['k6b']['bound_ms']:.4f}) (f32)")
+                  **bound_fields(n_b * cs_eval_ops(ll), n_b * (7 * 4 + 2 * 8))}
+    phase("CS half-step and ladder 23", "CS half-steps h=0,1 (f32 state, a warp per walker) at "
+          "half " + "; ".join(f"{half} {lab}: {c[1]} accepts, {c[0]} near-ties, new-logp max |d| "
+                              f"{c[2]:.3e}" for (lab, half), c in hs.items())
+          + " (new states bit-equal where the flags agree; <= 1e-5 / 1e-10 of the term scale); "
+          "kernel (events; the profiler's device time) " + ", ".join(
+              f"{h_ms[h][0]:.4f}; {h_ms[h][1]:.4f} ms per half {h} (bound "
+              f"{h_bounds[h]['bound_ms']:.5f})" for h in halves)
+          + f", plain {h_plain_ms:.4f} ms per half {W // 2}; K6a (a warp per walker) and K6b "
+          f"over CS2 (1% outside the priors): " + "; ".join(
+              f"{r} x {2 * hh} {lab}: {v[1]} accepts, {v[0]} near-ties, K6a log L max |d| "
+              f"{v[2]:.3e}, K6b log L max |d| {v[3]:.3e}" for (lab, r, hh), v in lads.items())
+          + "; K6a " + ", ".join(f"{a_ms[r][0]:.4f}; {a_ms[r][1]:.4f} ms per {r} x half {hh} "
+                                 f"(bound {a_bounds[r]['bound_ms']:.5f})" for r, hh in ladders)
+          + f", plain {a_plain_ms:.4f} ms per {R} x half {EV_WALKERS // 2}; K6b {b_ms:.4f} ms at "
+          f"{R} x {EV_WALKERS} (plain {b_plain_ms:.4f}, bound {out['k6b']['bound_ms']:.4f}) (f32)")
     return out
 
 
@@ -2452,8 +2515,8 @@ def phase_cs_main_path(lc, lc0, smi):
     (a) lightcurve_mcmc CS2 as tests/test_companion_shocking.py:106-123;
     (b) CS2 at 32768 x 300 from the window, timed over 4 runs, acceptance
     held to the JAX package's float64 value; (c) lightcurve_evidence CS2,
-    log Z held to the JAX package's, compare_models CS2 against CS3 and
-    lightcurve_ptmcmc CS2;
+    log Z held to the JAX package's, a profiled run's time split,
+    compare_models CS2 against CS3 and lightcurve_ptmcmc CS2;
     (d) CompanionShocking{,2,3}.evaluate on the card at the medians."""
     import numpy as np
     import torch
@@ -2523,6 +2586,11 @@ def phase_cs_main_path(lc, lc0, smi):
         if not np.isfinite(err) or abs(log_z - CS_LOGZ_REF[0]) > 4 * np.hypot(err, CS_LOGZ_REF[1]):
             raise AssertionError(f"24c: log Z {log_z} +- {err} not within 4 hypot of the JAX "
                                  f"package's {CS_LOGZ_REF}")
+        ev_wall, prof = profiled(lambda: lightcurve_evidence(
+            lc, cs_model(2, lc0), cs_priors(2), p_lo=CS_LO[2], p_up=CS_UP[2], seed=1, **kw))
+        ev_parts, ev_busy = time_split(prof, ev_wall, {
+            "K6a": ("tempered_half_step",), "swaps": ("replica_swap",),
+            "init": ("ladder_init", "cs_logpost"), "block terms": ("rung_block_terms",)})
         table = compare_models(lc, [cs_model(2, lc0), cs_model(3, lc0)],
                                [cs_priors(2), cs_priors(3)], p_lo=[CS_LO[2], CS_LO[3]],
                                p_up=[CS_UP[2], CS_UP[3]], labels=["CS2", "CS3"], seed=2, **kw)
@@ -2541,7 +2609,10 @@ def phase_cs_main_path(lc, lc0, smi):
                                  f"{pt.log_z}")
         phase("CS main path 24c", f"lightcurve_evidence CompanionShocking2 {EV_WALKERS} walkers x "
               f"{EV_RUNGS} rungs + beta = 1 x {EV_BURNIN}+{EV_STEPS}, seed 1: log Z {log_z:.4f} +- "
-              f"{err:.4f} (JAX float64 CPU {CS_LOGZ_REF}, within 4 hypot) in {ev_s:.3f} s; rung "
+              f"{err:.4f} (JAX float64 CPU {CS_LOGZ_REF}, within 4 hypot) in {ev_s:.3f} s; "
+              f"profiled run {ev_wall:.4f} s, device busy {ev_busy:.4f} s (idle share "
+              f"{1 - ev_busy / ev_wall:.3f}): "
+              + ", ".join(f"{k} {v:.4f} s" for k, v in ev_parts.items()) + "; rung "
               f"acceptance {fmt(info['acceptance'])}; compare_models CS2 vs CS3 (seed 2): "
               + ", ".join(f"{k} {v[0]:.4f} +- {v[1]:.4f}" for k, v in rows.items())
               + f"; lightcurve_ptmcmc CS2 64 walkers x 6 rungs + beta = 1 x 350+250: cold "
@@ -2624,8 +2695,8 @@ def main():
     k9 = phase_k9(lc)
     k7h = phase_k7h(lc)
     launches_grad = phase_gradient_main_path(lc, smi)
-    phase_use_sigma(lc, lcf)
     lc_ia, lc0 = ia_lc()
+    phase_use_sigma(lc, lcf, lc_ia, lc0)
     k8 = phase_k8(lc_ia, lc0)
     k_cs = phase_cs_logpost(lc_ia, lc0)
     launches_cs = phase_cs_main_path(lc_ia, lc0, smi)
@@ -2700,10 +2771,10 @@ def main():
         dict(name="cs_logpost_kernel (CS log-posterior)", route="cuda", source=src_cs,
              replaces="lightcurve_fitting_tpu/models/companion_shocking.py:120",
              launches=launches_cs["cs_logpost"], **k_cs["logpost"]),
-        dict(name="stretch_half_step_kernel<CSModel> (CS half-step)", route="cuda",
+        dict(name="stretch_half_step_kernel<CSWarpModel, WARP> (CS half-step)", route="cuda",
              source=src_cs, replaces="lightcurve_fitting_tpu/parallel/sampler.py:86",
              launches=launches_cs["cs_half_step"], **k_cs["half"]),
-        dict(name="tempered_half_step_kernel<CSModel> (K6a over CS)", route="cuda",
+        dict(name="tempered_half_step_kernel<CSWarpModel, WARP> (K6a over CS)", route="cuda",
              source=src_cs, replaces="lightcurve_fitting_tpu/parallel/evidence.py:60",
              launches=launches_cs["tempered_half_step"], **k_cs["k6a"]),
         dict(name="ladder_init_kernel<CSModel> (K6b over CS)", route="cuda",

@@ -8,11 +8,13 @@ the fused CompanionShocking 1-3 log-posterior and half-step.
 * :func:`log_posterior` (``cs_logpost_kernel``): the CS log-posterior of a
   batch of walker states; plain version ``LogPosterior.forward_plain``.
 * :func:`stretch_half_step` (``stretch_half_step_kernel`` over
-  ``CSModel``): one stretch-move half-step, in place; plain version
+  ``CSWarpModel``, a warp per walker): one stretch-move half-step, in place;
+  plain version
   :func:`~lightcurve_fitting_tpu_torch.kernels.common.stretch_half_step_plain`.
 
-The tempered ladder's kernels over ``CSModel`` (``cs_tempered_half_step``,
-``cs_ladder_init``) are reached through :mod:`.ladder`. The log-posterior
+The tempered ladder's kernels over CS (``cs_tempered_half_step``, K6a a warp
+per walker over ``CSWarpModel``; ``cs_ladder_init``, K6b over ``CSModel``)
+are reached through :mod:`.ladder`. The log-posterior
 wrappers run their plain version for a CPU tensor; for a CUDA tensor every
 wrapper launches its kernel or raises: there is no fallback. Each launch adds
 one to ``LAUNCHES[name]``, and nothing else does.

@@ -13,22 +13,40 @@
 //       over companion_shocking.py:120-126 (_tr_points, the Kasen T and R),
 //       :197-201 (_kasen_points), :243-296 (_eval_points of CS1-3) and
 //       ops/bandtable.py:152-181 (chebyshev_bandflux); its half-step
-//       parallel/sampler.py:86-104 (stretch.cuh over CSModel) and the
-//       tempered ladder's parallel/evidence.py:60-83, :229-235 (ladder.cuh).
+//       parallel/sampler.py:38-57, :86-104, :205-225 (stretch.cuh over
+//       CSWarpModel) and the tempered ladder's parallel/evidence.py:60-83
+//       (ladder.cuh over CSWarpModel) and :229-235 (over CSModel).
 //
 // What bounds it on the H100: FP32 ALU and special-function work. One
-// evaluation runs per point the degree-40 Clenshaw recurrence of K1 (~120
-// flops), ~10 special functions (the Kasen power laws, log T, exp) and K8
-// (a 7-step binary search over the 103 knots and a cubic); the per-point data
-// (~31 KB in float32 at 108 points, the SiFTO rows included) is shared by
-// every walker, so device-memory traffic is negligible.
-// What the design does about it: one thread per walker, as K1; the per-point
-// constants and the per-band SiFTO rows (B x 4 x (S-1), 9.8 KB in float32 for
-// 6 bands) staged once per block in shared memory; the walker-constant parts
-// of the Kasen product, the CS3 viewing-angle factor and the scale factors
-// hoisted out of the point loop; an out-of-prior walker returns -inf without
-// touching the likelihood. The standalone K8 strides over (walker, point)
-// elements with the rows staged once per block.
+// evaluation runs per point the Chebyshev table's Clenshaw recurrence (24
+// steps, ~75 flops), ~10 special functions (the Kasen power laws, log T, exp)
+// and K8 (a 7-step binary search over the 103 knots and a cubic); the
+// per-point data (25.2 KB in float32 at 108 points, the SiFTO rows included;
+// 49.2 KB in float64) is shared by every walker, so device-memory traffic is
+// negligible.
+// What the design does about it: the per-point constants and the per-band
+// SiFTO rows (B x 4 x (S-1), 9.8 KB in float32 for 6 bands) staged once per
+// block in shared memory; the walker-constant parts of the Kasen product,
+// the CS3 viewing-angle factor and the scale factors hoisted out of the
+// point loop (cs_walker); an out-of-prior walker returns -inf without
+// touching the likelihood. The batch log-posterior and K6b run one thread
+// per walker, as K1. The half-step and K6a run a warp per walker
+// (CSWarpModel): a thread per walker left the fits' widths a few warps an
+// SM (half 16 is one warp on one SM, half 16384 four warps on each), whose
+// 108 dependent point evaluations (the recurrence, the knot search) set
+// both at ~0.15-0.2 ms. The lanes split the points (lane l takes l, l + 32,
+// ...: four evaluations at most). A warp per walker repeats the walker's
+// prologue (the proposal, the prior, the float64 Kasen constant's pow and
+// log) on all 32 lanes, ~35% of its time at the large widths, so a warp
+// takes its walkers in batches (stretch.cuh, warp_batch_ll): lane l forms
+// walker l's prologue, and for each walker the lanes evaluate its points on
+// its constants, shuffled from its lane. The grid holds the blocks resident
+// at once (32 warps a block in float32: one block an SM, the tables staged
+// once an SM), the batch is as large as that takes. The points share one
+// __device__ function (cs_point) in both forms, which differ only in the
+// order of the residual sum; the bits do not depend on the batch. The
+// standalone K8 strides over (walker, point) elements with the rows staged
+// once per block.
 //
 // Dtype semantics: as K1, parameters are absolute float64 and cast to the
 // compute type C after the epoch centring (tt = C(t - t_ref) - C(t_exp -
@@ -218,80 +236,121 @@ __device__ CSData<C> stage_cs(const CSParams& P, unsigned char* smem, int use_sm
     return d;
 }
 
-// The Gaussian log-likelihood of one walker at absolute parameters p[ndim]:
-// CS1 (t_0, a13, Mc_v9_7, t_peak, s, rr, ri, rU), CS2 (t_0, a13, Mc_v9_7,
-// t_peak, s, dtU, dti) or CS3 (t_0, a13, theta, t_peak, s, dtU, dti), then
-// sigma with use_sigma; float64, -inf when not finite. It does not look at the
-// priors.
+// The walker's constants of the CS log-likelihood at absolute parameters
+// p[ndim]: CS1 (t_0, a13, Mc_v9_7, t_peak, s, rr, ri, rU), CS2 (t_0, a13,
+// Mc_v9_7, t_peak, s, dtU, dti) or CS3 (t_0, a13, theta, t_peak, s, dtU,
+// dti), then sigma with use_sigma. Every lane of a warp forms them on the
+// same bits: the warp issues these instructions once whether one lane or 32
+// run them, so computing them on lane 0 and broadcasting would only add the
+// shuffles.
 template <typename C>
-__device__ double cs_log_likelihood(const double* p, const CSData<C>& d, const CSParams& P) {
+struct CSWalker {
+    double K;   // (a13^36 Mc) kappa^-35, float64
+    C t_exp, t_peak, stretch, ln_k, kM, f_kasen, rU, rr, ri, dtU, dti, inv_yscale, sig;
+};
+
+template <typename C>
+__device__ __forceinline__ CSWalker<C> cs_walker(const double* p, const CSParams& P) {
+    CSWalker<C> w;
     const int ndim = (int)P.ndim;
     const int variant = (int)P.variant;
-    const bool f64 = sizeof(C) == sizeof(double);
-    const C t_exp = (C)(p[0] - P.t_ref);
-    const C t_peak = (C)(p[3] - P.t_ref);
-    const C stretch = (C)p[4];
+    w.t_exp = (C)(p[0] - P.t_ref);
+    w.t_peak = (C)(p[3] - P.t_ref);
+    w.stretch = (C)p[4];
     const double Mc = variant == 3 ? 1.0 : p[2];
     // the walker constants of the Kasen power laws, in the JAX graph's order
-    const double K = (pow(p[1], 36.0) * Mc) * P.kappa_m35;
-    const C ln_k = K > 0.0 ? (C)log(K) : (C)(-INFINITY);
-    const C kM = (C)P.kappa * (C)Mc;
+    w.K = (pow(p[1], 36.0) * Mc) * P.kappa_m35;
+    w.ln_k = w.K > 0.0 ? (C)log(w.K) : (C)(-INFINITY);
+    w.kM = (C)P.kappa * (C)Mc;
     // the factors of the Kasen (f_kasen, and rU on U) and SiFTO (rr on r, ri
     // on i) terms, and the U and i time shifts
-    C f_kasen = C(1), rU = C(1), rr = C(1), ri = C(1), dtU = C(0), dti = C(0);
+    w.f_kasen = C(1), w.rU = C(1), w.rr = C(1), w.ri = C(1), w.dtU = C(0), w.dti = C(0);
     if (variant == 1) {
-        rr = (C)p[5];
-        ri = (C)p[6];
-        rU = (C)p[7];
+        w.rr = (C)p[5];
+        w.ri = (C)p[6];
+        w.rU = (C)p[7];
     } else {
-        dtU = (C)p[5];
-        dti = (C)p[6];
+        w.dtU = (C)p[5];
+        w.dti = (C)p[6];
     }
     if (variant == 3) {  // Brown et al. (2012) viewing angle, theta in degrees
         const double th = p[2] * (3.141592653589793 / 180.0);
-        f_kasen = (C)((0.5 * cos(th) + 0.5) * (0.14 * (th * th) - 0.4 * th + 1.0));
+        w.f_kasen = (C)((0.5 * cos(th) + 0.5) * (0.14 * (th * th) - 0.4 * th + 1.0));
     }
-    const C inv_yscale = (C)P.inv_yscale;
-    const C sig = P.use_sigma ? (C)p[ndim - 1] : C(0);
-    const int N = (int)P.n_points;
+    w.inv_yscale = (C)P.inv_yscale;
+    w.sig = P.use_sigma ? (C)p[ndim - 1] : C(0);
+    return w;
+}
+
+// Point n's residual term: the Kasen T and R, the Chebyshev band table's
+// Clenshaw recurrence, K8's SiFTO value and the Gaussian residual. The
+// thread and warp forms of the log-likelihood share it, so that they differ
+// only in the order of their residual sums.
+template <typename C>
+__device__ __forceinline__ C cs_point(int n, const CSWalker<C>& w, const CSData<C>& d,
+                                      const CSParams& P) {
+    const bool f64 = sizeof(C) == sizeof(double);
     const int K1 = (int)P.n_coef;
     const int S = (int)P.n_knots;
-
-    C acc = C(0);
-    for (int n = 0; n < N; ++n) {
-        const C tt = d.tc[n] - t_exp;
-        C T;
-        if (f64) {
-            T = C(25) * power0((C)K * power0(tt, C(-74)), C(1.0 / 144.0));
-        } else {
-            T = tt > C(0) ? C(25) * m_exp((ln_k - C(74) * m_log(tt)) * C(1.0 / 144.0)) : C(0);
-        }
-        const C R = C(2.7) * power0(kM * m_pow(tt, C(7)), C(1.0 / 9.0));
-        C kasen = C(0);
-        if (T > C(0)) {  // T <= 0 (t before t_exp) or NaN: zero flux (K1's loop)
-            C s = m_log(T) * d.s_a[n] - d.s_b[n];
-            s = s < C(-1) ? C(-1) : (s > C(1) ? C(1) : s);  // clip, NaN stays NaN
-            const C two_s = C(2) * s;
-            const C* c = d.coef + (size_t)n * K1;
-            C b1 = C(0), b2 = C(0);
-            for (int k = K1 - 1; k >= 1; --k) {
-                const C b0 = two_s * b1 - b2 + c[k];
-                b2 = b1;
-                b1 = b0;
-            }
-            const C ln_g = s * b1 - b2 + c[0];
-            kasen = R * R * m_exp(ln_g);
-        }
-        const bool U = d.is_U[n], I = d.is_i[n];
-        const C dt = U ? dtU : (I ? dti : C(0));
-        const C arg = ((d.tc[n] - t_peak) - dt) / stretch;
-        const C sif = sifto_value<C>(d.knots, S, d.rows + d.band[n] * 4 * (S - 1), arg);
-        const C kf = U ? f_kasen * rU : f_kasen;
-        const C sf = d.is_r[n] ? rr : (I ? ri : C(1));
-        const C y_fit = (kasen * kf + sif * sf) * inv_yscale;
-        acc += residual_term<C>(P.use_sigma, y_fit, d.y[n], d.inv_dy[n], d.dy[n], d.su[n], sig);
+    const C tt = d.tc[n] - w.t_exp;
+    C T;
+    if (f64) {
+        T = C(25) * power0((C)w.K * power0(tt, C(-74)), C(1.0 / 144.0));
+    } else {
+        T = tt > C(0) ? C(25) * m_exp((w.ln_k - C(74) * m_log(tt)) * C(1.0 / 144.0)) : C(0);
     }
+    const C R = C(2.7) * power0(w.kM * m_pow(tt, C(7)), C(1.0 / 9.0));
+    C kasen = C(0);
+    if (T > C(0)) {  // T <= 0 (t before t_exp) or NaN: zero flux (K1's loop)
+        C s = m_log(T) * d.s_a[n] - d.s_b[n];
+        s = s < C(-1) ? C(-1) : (s > C(1) ? C(1) : s);  // clip, NaN stays NaN
+        const C two_s = C(2) * s;
+        const C* c = d.coef + (size_t)n * K1;
+        C b1 = C(0), b2 = C(0);
+        for (int k = K1 - 1; k >= 1; --k) {
+            const C b0 = two_s * b1 - b2 + c[k];
+            b2 = b1;
+            b1 = b0;
+        }
+        const C ln_g = s * b1 - b2 + c[0];
+        kasen = R * R * m_exp(ln_g);
+    }
+    const bool U = d.is_U[n], I = d.is_i[n];
+    const C dt = U ? w.dtU : (I ? w.dti : C(0));
+    const C arg = ((d.tc[n] - w.t_peak) - dt) / w.stretch;
+    const C sif = sifto_value<C>(d.knots, S, d.rows + d.band[n] * 4 * (S - 1), arg);
+    const C kf = U ? w.f_kasen * w.rU : w.f_kasen;
+    const C sf = d.is_r[n] ? w.rr : (I ? w.ri : C(1));
+    const C y_fit = (kasen * kf + sif * sf) * w.inv_yscale;
+    return residual_term<C>(P.use_sigma, y_fit, d.y[n], d.inv_dy[n], d.dy[n], d.su[n], w.sig);
+}
+
+// The Gaussian log-likelihood of one walker at absolute parameters p[ndim]
+// (cs_walker's), float64, -inf when not finite. It does not look at the
+// priors. One thread walks the points in order.
+template <typename C>
+__device__ double cs_log_likelihood(const double* p, const CSData<C>& d, const CSParams& P) {
+    const CSWalker<C> w = cs_walker<C>(p, P);
+    const int N = (int)P.n_points;
+    C acc = C(0);
+    for (int n = 0; n < N; ++n) acc += cs_point<C>(n, w, d, P);
     return finish_log_likelihood<C>(acc, P.use_sigma, P.ll_offset, P.log_norm_const);
+}
+
+// The same log-likelihood of the walker with constants w, computed by the
+// 32 lanes of a warp together (every lane returns the same bits): lane l
+// takes the points l, l + 32, l + 64, ... in time order, sums its residual
+// terms in that order, and a butterfly shuffle sums the lanes, a fixed order
+// from run to run. CS points have equal loop lengths but for the walker's
+// own skips (the Clenshaw recurrence before t_0, the SiFTO cubic outside
+// the knots), which no static order evens out.
+template <typename C>
+__device__ double cs_log_likelihood_warp(const CSWalker<C>& w, const CSData<C>& d,
+                                         const CSParams& P) {
+    const int N = (int)P.n_points;
+    C acc = C(0);
+    for (int n = threadIdx.x & 31; n < N; n += 32) acc += cs_point<C>(n, w, d, P);
+    return finish_log_likelihood<C>(warp_sum(acc), P.use_sigma, P.ll_offset, P.log_norm_const);
 }
 
 // The log-posterior of one walker: the prior sum (-inf outside the open
@@ -320,6 +379,28 @@ struct CSModel {
     }
     static __device__ double log_likelihood(const double* p, const Data& d, const Params& P) {
         return cs_log_likelihood<C>(p, d, P);
+    }
+};
+
+// The policy of the CS half-step and of K6a over CS: a warp per walker
+// (stretch_half_step_kernel and tempered_half_step_kernel with WARP), 32
+// warps a block in float32 (one block an SM: the tables staged once an SM;
+// 64 registers a thread) and 16 in float64 (whose kernels need ~70),
+// batched: the grid holds only the blocks resident at once, and a warp
+// takes its walkers in batches whose prologues (the proposal, the prior and
+// cs_walker's float64 constants, ~35% of a walker's time when every lane
+// repeats them) run one walker a lane (warp_layout).
+template <typename C>
+struct CSWarpModel : CSModel<C> {
+    typedef CSWalker<C> Walker;
+    static constexpr int warps_per_block = sizeof(C) == sizeof(float) ? 32 : 16;
+    static constexpr bool batched = true;
+    static __device__ Walker walker(const double* p, const CSParams& P) {
+        return cs_walker<C>(p, P);
+    }
+    static __device__ double log_likelihood_warp(const Walker& w, const CSData<C>& d,
+                                                 const CSParams& P) {
+        return cs_log_likelihood_warp<C>(w, d, P);
     }
 };
 
@@ -397,28 +478,29 @@ int cs_logpost_launch(const CSParams* P, int device, int compute_f64, const void
                  : launch_cs_logpost<float, float>(*P, q, W, out, s);
 }
 
-// CS half-step launch; the arguments of stretch_half_step_launch
-// (sc2_logpost.cu). Returns 0 or a cudaError_t code.
+// CS half-step launch, a warp per walker (CSWarpModel); the arguments of
+// stretch_half_step_launch (sc2_logpost.cu). Returns 0 or a cudaError_t code.
 int cs_half_step_launch(const CSParams* P, int device, int compute_f64, void* x, int state_f64,
                         double* logp, int half, int h, const void* u_z, const long long* j,
                         const void* u_acc, double a, void* chain_x, int chain_x_f64,
                         void* chain_lp, int chain_lp_f64, int* n_accept, void* stream) {
     if (P->n_knots < 2) return (int)cudaErrorInvalidValue;
-    return launch_half_step<CSModel>(P, device, compute_f64, x, state_f64, logp, half, h, u_z, j,
-                                     u_acc, a, chain_x, chain_x_f64, chain_lp, chain_lp_f64,
-                                     n_accept, stream);
+    return launch_half_step<CSWarpModel, true>(P, device, compute_f64, x, state_f64, logp, half,
+                                               h, u_z, j, u_acc, a, chain_x, chain_x_f64,
+                                               chain_lp, chain_lp_f64, n_accept, stream);
 }
 
-// K6a launch over the CS models (ladder.cuh). Returns 0 or a cudaError_t code.
+// K6a launch over the CS models (ladder.cuh), a warp per walker
+// (CSWarpModel). Returns 0 or a cudaError_t code.
 int cs_tempered_half_step_launch(const CSParams* P, int device, int compute_f64, void* x,
                                  int state_f64, double* logpri, double* logl,
                                  const double* betas, int n_rungs, int half, int h,
                                  const void* u_z, const long long* j, const void* u_acc, double a,
                                  int* n_accept, void* stream) {
     if (P->n_knots < 2) return (int)cudaErrorInvalidValue;
-    return launch_tempered_half_step<CSModel>(P, device, compute_f64, x, state_f64, logpri, logl,
-                                              betas, n_rungs, half, h, u_z, j, u_acc, a,
-                                              n_accept, stream);
+    return launch_tempered_half_step<CSWarpModel, true>(P, device, compute_f64, x, state_f64,
+                                                        logpri, logl, betas, n_rungs, half, h,
+                                                        u_z, j, u_acc, a, n_accept, stream);
 }
 
 // K6b launch over the CS models (ladder.cuh). Returns 0 or a cudaError_t code.

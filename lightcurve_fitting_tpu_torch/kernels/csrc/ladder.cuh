@@ -1,6 +1,7 @@
 // K6: the tempered ladder's model kernels, templates over a model policy M of
 // stretch.cuh that provides log_likelihood (SC2Model in sc2_logpost.cu,
-// SC3Model in sc3_logpost.cu). The model-free K6 kernels (the replica
+// SC3Model in sc3_logpost.cu, CSModel in companion.cu; K6a over CS runs a
+// warp per walker, CSWarpModel). The model-free K6 kernels (the replica
 // exchange and the stepping-stone block terms) are in ladder.cu.
 //
 // Replaces (JAX package, lightcurve_fitting_tpu/):
@@ -22,7 +23,11 @@
 // rejected, so its likelihood is never read). The acceptance sums run in
 // float64 with round-to-nearest intrinsics, in the JAX graph's order, so that
 // no multiply-add contraction moves a near-tie; beta log L is 0 on a
-// beta = 0 rung, where 0 x (-inf) would be NaN.
+// beta = 0 rung, where 0 x (-inf) would be NaN. With WARP (CSWarpModel) a
+// warp runs each walker, its lanes over the points, in batches of walkers
+// as the warp form of the stretch half-step (stretch.cuh, warp_batch_ll): a
+// thread per walker left the CS ladders (7 rungs x half 32, 17 x 2048) a
+// few warps an SM, each walking 108 dependent point evaluations.
 
 #pragma once
 
@@ -34,37 +39,14 @@ __device__ __forceinline__ double tempered(double beta, double ll) {
     return beta > 0.0 ? __dmul_rn(beta, ll) : 0.0;
 }
 
-// K6a: one tempered stretch-move half-step of half h of every rung, in place.
-// x (R, 2, half, ndim) walker states; logpri and logl (R, 2, half) float64;
-// betas (R,); the draws u_z, j, u_acc (R, 2, half), the half-step reading the
-// [r, h] slice; n_accept (R, 2, half) int32, incremented. The partner pool of
-// a walker is the other half of its own rung.
-template <typename M, typename S>
-__global__ void __launch_bounds__(LP_THREADS)
-tempered_half_step_kernel(const typename M::Params P, S* __restrict__ x,
-                          double* __restrict__ logpri, double* __restrict__ logl,
-                          const double* __restrict__ betas, int half, int h,
-                          const S* __restrict__ u_z, const long long* __restrict__ j,
-                          const S* __restrict__ u_acc, double a, int* __restrict__ n_accept,
-                          int use_smem) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    const typename M::Data d = M::stage(P, smem_raw, use_smem, 0);
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= half) return;
-    const int r = blockIdx.y;
-    const int ndim = (int)P.ndim;
-    const size_t rung = (size_t)r * 2 * half;    // walkers of the rungs before r
-    const size_t w = rung + (size_t)h * half + i;  // this walker, its values and its draws
-    S* xm = x + w * ndim;
-    const S* xj = x + (rung + (size_t)(1 - h) * half + (size_t)j[w]) * ndim;
-
-    S y[LP_MAX_DIM];
-    double p[LP_MAX_DIM];
-    const S z = stretch_proposal(P, xm, xj, u_z[w], a, y, p);
-    const double lpri_y = log_prior(P, p);
-    double ll_y = -INFINITY;
-    if (isfinite(lpri_y)) ll_y = M::log_likelihood(p, d, P);
-    const double beta = betas[r];
+// The end of one walker's tempered half-step, from its proposal y (log pi
+// lpri_y, log L ll_y, stretch z): the accept decision by log pi + beta log
+// L and its writes (walker w of rung r).
+template <typename S>
+__device__ __forceinline__ void tempered_accept(int ndim, S* xm, const S* y, S z, double lpri_y,
+                                                double ll_y, double* logpri, double* logl,
+                                                double beta, const S* u_acc, size_t w,
+                                                int* n_accept) {
     const S lz = (S)(ndim - 1) * m_log(z);
     // ((((lz + lpri_y) + beta ll_y) - lpri_x) - beta ll_x), as the JAX graph
     const double log_ratio = __dsub_rn(
@@ -79,6 +61,102 @@ tempered_half_step_kernel(const typename M::Params P, S* __restrict__ x,
         logl[w] = ll_y;
     }
     n_accept[w] += accept ? 1 : 0;
+}
+
+// One walker's tempered half-step, a thread: walker i of half h of rung r.
+template <typename M, typename S>
+__device__ __forceinline__ void tempered_walker(const typename M::Params& P,
+                                                const typename M::Data& d, S* x, double* logpri,
+                                                double* logl, const double* betas, int half,
+                                                int h, const S* u_z, const long long* j,
+                                                const S* u_acc, double a, int* n_accept, int r,
+                                                int i) {
+    const int ndim = (int)P.ndim;
+    const size_t rung = (size_t)r * 2 * half;    // walkers of the rungs before r
+    const size_t w = rung + (size_t)h * half + i;  // this walker, its values and its draws
+    S* xm = x + w * ndim;
+    const S* xj = x + (rung + (size_t)(1 - h) * half + (size_t)j[w]) * ndim;
+
+    S y[LP_MAX_DIM];
+    double p[LP_MAX_DIM];
+    const S z = stretch_proposal(P, xm, xj, u_z[w], a, y, p);
+    const double lpri_y = log_prior(P, p);
+    double ll_y = -INFINITY;
+    if (isfinite(lpri_y)) ll_y = M::log_likelihood(p, d, P);
+    tempered_accept(ndim, xm, y, z, lpri_y, ll_y, logpri, logl, betas[r], u_acc, w, n_accept);
+}
+
+// The tempered half-steps of the walkers b0 .. b0 + nb - 1 of the R x half
+// flattened over the rungs, a warp per walker: lane l forms walker b0 + l's
+// proposal, log pi and constants (with nb = 1 every lane forms walker b0's,
+// on the same bits), warp_batch_ll gives each its log L (only where log pi
+// is finite), and lane l decides and writes for its walker (lane 0 with
+// nb = 1).
+template <typename M, typename S>
+__device__ __forceinline__ void tempered_batch(const typename M::Params& P,
+                                               const typename M::Data& d, S* x, double* logpri,
+                                               double* logl, const double* betas, int half,
+                                               int h, const S* u_z, const long long* j,
+                                               const S* u_acc, double a, int* n_accept,
+                                               long long b0, int nb) {
+    const int lane = threadIdx.x & 31;
+    const bool own = nb == 1 || lane < nb;
+    const long long k = b0 + (nb == 1 ? 0 : lane);
+    const int r = (int)(k / half);
+    const int ndim = (int)P.ndim;
+    const size_t rung = (size_t)r * 2 * half;
+    const size_t w = rung + (size_t)h * half + (size_t)(k - (long long)r * half);
+    S y[LP_MAX_DIM];
+    S z = S(1);
+    double lpri_y = -INFINITY;
+    typename M::Walker wk;
+    if (own) {
+        const S* xj = x + (rung + (size_t)(1 - h) * half + (size_t)j[w]) * ndim;
+        double p[LP_MAX_DIM];
+        z = stretch_proposal(P, x + w * ndim, xj, u_z[w], a, y, p);
+        lpri_y = log_prior(P, p);
+        if (isfinite(lpri_y)) wk = M::walker(p, P);
+    }
+    const double ll_y = warp_batch_ll<M>(wk, lpri_y, nb, d, P);
+    if (lane >= nb) return;
+    tempered_accept(ndim, x + w * ndim, y, z, lpri_y, ll_y, logpri, logl, betas[r], u_acc, w,
+                    n_accept);
+}
+
+// K6a: one tempered stretch-move half-step of half h of every rung, in place.
+// x (R, 2, half, ndim) walker states; logpri and logl (R, 2, half) float64;
+// betas (R,); the draws u_z, j, u_acc (R, 2, half), the half-step reading the
+// [r, h] slice; n_accept (R, 2, half) int32, incremented. The partner pool of
+// a walker is the other half of its own rung. A thread per walker, the rung
+// on blockIdx.y; with WARP a warp per walker (tempered_batch), the block's
+// warps striding over batches of `batch` of the R x half walkers of every
+// rung (the data do not depend on the rung; warp_layout).
+template <typename M, typename S, bool WARP>
+__global__ void __launch_bounds__(block_limit<M>::value)
+tempered_half_step_kernel(const typename M::Params P, S* __restrict__ x,
+                          double* __restrict__ logpri, double* __restrict__ logl,
+                          const double* __restrict__ betas, int half, int h,
+                          const S* __restrict__ u_z, const long long* __restrict__ j,
+                          const S* __restrict__ u_acc, double a, int* __restrict__ n_accept,
+                          int use_smem, int n_rungs, int batch) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const typename M::Data d = M::stage(P, smem_raw, use_smem, 0);
+    if constexpr (WARP) {
+        const int per_block = blockDim.x >> 5;
+        const long long n = (long long)n_rungs * half;
+        const long long n_batches = (n + batch - 1) / batch;
+        for (long long b = (long long)blockIdx.x * per_block + (threadIdx.x >> 5); b < n_batches;
+             b += (long long)gridDim.x * per_block) {   // (whole warps)
+            const long long b0 = b * batch;
+            tempered_batch<M, S>(P, d, x, logpri, logl, betas, half, h, u_z, j, u_acc, a,
+                                 n_accept, b0, (int)(n - b0 < batch ? n - b0 : batch));
+        }
+    } else {
+        const int i = blockIdx.x * blockDim.x + threadIdx.x;
+        if (i >= half) return;
+        tempered_walker<M, S>(P, d, x, logpri, logl, betas, half, h, u_z, j, u_acc, a, n_accept,
+                              blockIdx.y, i);
+    }
 }
 
 // K6b: logpri[i] and logl[i] of the n walker states x[i, :] (every rung's),
@@ -100,21 +178,26 @@ ladder_init_kernel(const typename M::Params P, const S* __restrict__ x, int n,
 
 // ------------------------------------------------------------------ launch
 
-template <typename M, typename S>
+template <typename M, typename S, bool WARP>
 static int launch_tempered(const typename M::Params& P, void* x, double* logpri, double* logl,
                            const double* betas, int n_rungs, int half, int h, const void* u_z,
                            const long long* j, const void* u_acc, double a, int* n_accept,
                            cudaStream_t stream) {
-    auto kernel = tempered_half_step_kernel<M, S>;
+    auto kernel = tempered_half_step_kernel<M, S, WARP>;
     int use_smem = 0;
     const size_t bytes = M::stage_bytes(P);
     int rc = smem_plan(kernel, bytes, &use_smem);
     if (rc) return rc;
-    const int threads = threads_for(half);
-    const dim3 grid((half + threads - 1) / threads, n_rungs);
-    kernel<<<grid, threads, use_smem ? bytes : 0, stream>>>(
+    // a thread per walker, the rung on blockIdx.y, or WarpLayout's warps with WARP
+    WarpLayout lay = {threads_for(half), 0, 1};
+    dim3 grid((half + lay.threads - 1) / lay.threads, n_rungs);
+    if constexpr (WARP) {
+        lay = warp_layout<M>(kernel, (long long)n_rungs * half, use_smem ? bytes : 0);
+        grid = dim3(lay.blocks, 1);
+    }
+    kernel<<<grid, lay.threads, use_smem ? bytes : 0, stream>>>(
         P, (S*)x, logpri, logl, betas, half, h, (const S*)u_z, j, (const S*)u_acc, a, n_accept,
-        use_smem);
+        use_smem, n_rungs, lay.batch);
     return (int)cudaGetLastError();
 }
 
@@ -133,9 +216,9 @@ static int launch_init(const typename M::Params& P, const void* x, int n, double
 }
 
 // The K6a launch for the model policy M<C> in the compute type C (float or
-// double) and the walker state's type (float or double). Returns 0 or a
-// cudaError_t code.
-template <template <typename> class M>
+// double) and the walker state's type (float or double); WARP as in
+// tempered_half_step_kernel. Returns 0 or a cudaError_t code.
+template <template <typename> class M, bool WARP = false>
 static int launch_tempered_half_step(const typename M<float>::Params* P, int device,
                                      int compute_f64, void* x, int state_f64, double* logpri,
                                      double* logl, const double* betas, int n_rungs, int half,
@@ -149,10 +232,10 @@ static int launch_tempered_half_step(const typename M<float>::Params* P, int dev
     cudaStream_t s = (cudaStream_t)stream;
 #define LADDER_ARGS *P, x, logpri, logl, betas, n_rungs, half, h, u_z, j, u_acc, a, n_accept, s
     if (compute_f64)
-        return state_f64 ? launch_tempered<M<double>, double>(LADDER_ARGS)
-                         : launch_tempered<M<double>, float>(LADDER_ARGS);
-    return state_f64 ? launch_tempered<M<float>, double>(LADDER_ARGS)
-                     : launch_tempered<M<float>, float>(LADDER_ARGS);
+        return state_f64 ? launch_tempered<M<double>, double, WARP>(LADDER_ARGS)
+                         : launch_tempered<M<double>, float, WARP>(LADDER_ARGS);
+    return state_f64 ? launch_tempered<M<float>, double, WARP>(LADDER_ARGS)
+                     : launch_tempered<M<float>, float, WARP>(LADDER_ARGS);
 #undef LADDER_ARGS
 }
 

@@ -293,17 +293,17 @@ __device__ double sc3_log_likelihood(const double* p, const SC3Data<C>& d, const
     return finish_log_likelihood<C>(acc, P.use_sigma, P.ll_offset, P.log_norm_const);
 }
 
-// The same log-likelihood computed by the 32 lanes of a warp together (every
-// lane returns the same bits): lane l takes the points d.order[l], d.order[l
+// The same log-likelihood of the walker with factors w, computed by the 32
+// lanes of a warp together (every lane returns the same bits): lane l takes
+// the points d.order[l], d.order[l
 // + 32], ..., in that order, and a butterfly shuffle sums the lanes. The
 // order sorts the points by descending native node count, so the 32 points
 // a warp works on at once have near-equal quadrature lengths (on the
 // flagship a lane runs 212 nodes where the longest band alone has 88 per
 // point, against 440 in the time order).
 template <typename C>
-__device__ double sc3_log_likelihood_warp(const double* p, const SC3Data<C>& d,
+__device__ double sc3_log_likelihood_warp(const SC3Walker<C>& w, const SC3Data<C>& d,
                                           const SC3Params& P) {
-    const SC3Walker<C> w = sc3_walker<C>(p, P);
     const int N = (int)P.n_points;
     const int K = (int)P.n_nodes;
     C acc = C(0);
@@ -341,21 +341,27 @@ struct SC3Model {
 };
 
 // The SC3 half-step's policy: the warp form (stretch_half_step_kernel with
-// WARP), its data with the point order.
+// WARP), its data with the point order; four warps a block, a walker a warp
+// (not batched: every lane forms the walker's proposal and factors), a block
+// for every four walkers.
 template <typename C>
 struct SC3WarpModel : SC3Model<C> {
+    typedef SC3Walker<C> Walker;
+    static constexpr int warps_per_block = 4;
+    static constexpr bool batched = false;
+    static __device__ Walker walker(const double* p, const SC3Params& P) {
+        return sc3_walker<C>(p, P);
+    }
+    static __device__ double log_likelihood_warp(const Walker& w, const SC3Data<C>& d,
+                                                 const SC3Params& P) {
+        return sc3_log_likelihood_warp<C>(w, d, P);
+    }
     static __host__ __device__ size_t stage_bytes(const SC3Params& P) {
         return sc3_stage_bytes<C>(P, true);
     }
     static __device__ SC3Data<C> stage(const SC3Params& P, unsigned char* smem, int use_smem,
                                        int) {
         return stage_sc3<C>(P, smem, use_smem, true);
-    }
-    static __device__ double log_posterior_warp(const double* p, const SC3Data<C>& d,
-                                                const SC3Params& P) {
-        const double lprior = log_prior(P, p);
-        if (!isfinite(lprior)) return -INFINITY;
-        return lprior + sc3_log_likelihood_warp<C>(p, d, P);
     }
 };
 

@@ -16,11 +16,15 @@
 // the float64 log-likelihood alone (-inf when not finite), evaluated whatever
 // the prior; its log_posterior is log_prior plus that value. A policy whose
 // half-step runs a warp per walker (stretch_half_step_kernel with WARP:
-// SC3WarpModel) provides
-//   static __device__ double log_posterior_warp(const double* p, const Data&, const Params&);
-// computed by the 32 lanes of a warp together, every lane returning the
-// same bits.
-// and every Params has the fields ndim, use_sigma, has_affine, prior_kind,
+// SC3WarpModel, CSWarpModel; K6a over CSWarpModel) provides
+//   typedef ... Walker;  // a walker's constants (32-bit words, copied by value)
+//   static __device__ Walker walker(const double* p, const Params&);
+//   static __device__ double log_likelihood_warp(const Walker&, const Data&, const Params&);
+//   static constexpr int warps_per_block;  // the warps a block
+//   static constexpr bool batched;         // warps take batches of walkers (warp_batch_ll)
+// where log_likelihood_warp is computed by the 32 lanes of a warp together,
+// every lane returning the same bits.
+// Every Params has the fields ndim, use_sigma, has_affine, prior_kind,
 // p_min, p_max, mean, stddev, affine_offset and affine_scale.
 
 #pragma once
@@ -28,6 +32,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
 
 #define LP_MAX_DIM 9   // CompanionShocking with the intrinsic scatter
 #define LP_THREADS 128
@@ -63,6 +70,33 @@ template <typename T>
 __device__ __forceinline__ T warp_max(T v) {
     for (int o = 16; o > 0; o >>= 1) v = fmax(v, __shfl_xor_sync(0xffffffffu, v, o));
     return v;
+}
+
+// The threads a block of a kernel over the policy M may have (its launch
+// bound): 32 x M::warps_per_block for a warp-per-walker policy, else
+// LP_THREADS.
+template <typename M, typename = void>
+struct block_limit {
+    static constexpr int value = LP_THREADS;
+};
+template <typename M>
+struct block_limit<M, std::void_t<decltype(M::warps_per_block)>> {
+    static constexpr int value = 32 * M::warps_per_block;
+};
+
+// Lane src's copy of the register struct v, to every lane of the warp, one
+// 32-bit word at a time (the bits unchanged).
+template <typename T>
+__device__ __forceinline__ T shfl_struct(const T& v, int src) {
+    static_assert(sizeof(T) % sizeof(int) == 0, "a struct of 32-bit words");
+    constexpr int n = (int)(sizeof(T) / sizeof(int));
+    int words[n];
+    memcpy(words, &v, sizeof(T));
+#pragma unroll
+    for (int k = 0; k < n; ++k) words[k] = __shfl_sync(0xffffffffu, words[k], src);
+    T out;
+    memcpy(&out, words, sizeof(T));
+    return out;
 }
 
 // power(base, e) of ops/mathx.py: 0 where base <= 0 (or NaN), never NaN from
@@ -146,34 +180,68 @@ __device__ __forceinline__ S stretch_proposal(const Params& P, const S* xm, cons
     return z;
 }
 
-// K2: one Goodman-Weare half-step for half h of the ensemble x (2, half,
-// ndim), in place, with the proposal's log-posterior from the model policy
-// M. The partner pool is the other half. Draws are inputs: u_z and u_acc
-// uniform in [0, 1), j in [0, half). Adds the accept flag to n_accept and,
-// when chain_x is not null, writes the walker's new state and log-posterior
-// into the chain slot (2, half, ndim) / (2, half).
-// Several independent ensembles advance in one launch along blockIdx.y: then
-// x, logp, n_accept and the chain slot are (E, 2, half[, ndim]) and the
-// draws of ensemble e start draw_stride elements after those of e - 1. With
-// one ensemble (e = 0) every offset below is 0.
-// WARP: one warp per walker, for a policy whose log_posterior_warp is
-// computed by the 32 lanes together (the SC3 half-step): every lane forms
-// the same proposal and gets the same log-posterior, and lane 0 writes.
-// Otherwise one thread per walker and M::log_posterior.
-template <typename M, typename S, typename X, typename L, bool WARP>
-__global__ void __launch_bounds__(LP_THREADS)
-stretch_half_step_kernel(const typename M::Params P, S* __restrict__ x,
-                         double* __restrict__ logp, int half, int h,
-                         const S* __restrict__ u_z, const long long* __restrict__ j,
-                         const S* __restrict__ u_acc, double a, X* __restrict__ chain_x,
-                         L* __restrict__ chain_lp, int* __restrict__ n_accept, int use_smem,
-                         long long draw_stride) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    const int e = blockIdx.y;
-    const typename M::Data d = M::stage(P, smem_raw, use_smem, e);
-    const int i = WARP ? blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)
-                       : blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= half) return;   // (whole warps with WARP)
+// The log-likelihoods of a warp's batch of nb <= 32 walkers, a warp per
+// walker: lane l has prepared walker l's log-prior lprior and, where it is
+// finite, its constants wk (with nb = 1 every lane has prepared the batch's
+// one walker, on the same bits). For each walker k whose prior is finite
+// (a uniform branch: the flag is lane k's), the 32 lanes evaluate
+// M::log_likelihood_warp on walker k's constants, broadcast from lane k.
+// Returns the value of the lane's own walker, -inf where its prior is not
+// finite (its likelihood is never evaluated); the bits do not depend on nb.
+// With a policy that is not batched nb is 1 and nothing is broadcast.
+template <typename M>
+__device__ __forceinline__ double warp_batch_ll(const typename M::Walker& wk, double lprior,
+                                                int nb, const typename M::Data& d,
+                                                const typename M::Params& P) {
+    if (!M::batched || nb == 1)
+        return isfinite(lprior) ? M::log_likelihood_warp(wk, d, P) : -INFINITY;
+    const int lane = threadIdx.x & 31;
+    double own = -INFINITY;
+    for (int k = 0; k < nb; ++k) {
+        if (!isfinite(__shfl_sync(0xffffffffu, lprior, k))) continue;
+        const double ll = M::log_likelihood_warp(shfl_struct(wk, k), d, P);
+        if (lane == k) own = ll;
+    }
+    return own;
+}
+
+// The end of one walker's Goodman-Weare half-step, from its proposal y
+// (log-posterior lp_y, stretch z): the accept decision and its writes
+// (offsets of stretch_half_step_kernel).
+template <typename S, typename X, typename L>
+__device__ __forceinline__ void half_step_accept(int ndim, S* xm, const S* y, S z, double lp_y,
+                                                 double* logp, const S* u_acc, size_t w,
+                                                 size_t di, X* chain_x, L* chain_lp,
+                                                 int* n_accept) {
+    if (isnan(lp_y)) lp_y = -INFINITY;
+    const double lp_x = logp[w];
+    const S lz = (S)(ndim - 1) * m_log(z);
+    const double log_ratio = (double)lz + lp_y - lp_x;
+    // log(0) = -inf accepts unless log_ratio is -inf; a NaN ratio rejects
+    const double log_u = (double)m_log(u_acc[di]);
+    const bool accept = !isnan(log_ratio) && log_u < log_ratio;
+    double lp_new = lp_x;
+    if (accept) {
+        for (int k = 0; k < ndim; ++k) xm[k] = y[k];
+        logp[w] = lp_y;
+        lp_new = lp_y;
+    }
+    n_accept[w] += accept ? 1 : 0;
+    if (chain_x != nullptr) {
+        for (int k = 0; k < ndim; ++k) chain_x[w * ndim + k] = (X)xm[k];
+        chain_lp[w] = (L)lp_new;
+    }
+}
+
+// One walker's Goodman-Weare half-step, a thread: walker i of half h of
+// ensemble e.
+template <typename M, typename S, typename X, typename L>
+__device__ __forceinline__ void half_step_walker(const typename M::Params& P,
+                                                 const typename M::Data& d, S* x, double* logp,
+                                                 int half, int h, const S* u_z,
+                                                 const long long* j, const S* u_acc, double a,
+                                                 X* chain_x, L* chain_lp, int* n_accept,
+                                                 long long draw_stride, int e, int i) {
     const int ndim = (int)P.ndim;
     const size_t ens = (size_t)e * 2 * half;      // walkers of the ensembles before e
     const size_t di = (size_t)e * draw_stride + i;
@@ -185,30 +253,94 @@ stretch_half_step_kernel(const typename M::Params P, S* __restrict__ x,
     S y[LP_MAX_DIM];
     double p[LP_MAX_DIM];
     const S z = stretch_proposal(P, xm, xj, u_z[di], a, y, p);
-    double lp_y;
+    half_step_accept(ndim, xm, y, z, M::log_posterior(p, d, P), logp, u_acc, w, di, chain_x,
+                     chain_lp, n_accept);
+}
+
+// The half-steps of walkers b0 .. b0 + nb - 1 of half h of ensemble e, a
+// warp per walker: lane l forms walker b0 + l's proposal, log-prior and
+// constants (with nb = 1 every lane forms walker b0's, on the same bits),
+// warp_batch_ll gives each its log-likelihood, and lane l decides and
+// writes for its walker (lane 0 with nb = 1).
+template <typename M, typename S, typename X, typename L>
+__device__ __forceinline__ void half_step_batch(const typename M::Params& P,
+                                                const typename M::Data& d, S* x, double* logp,
+                                                int half, int h, const S* u_z,
+                                                const long long* j, const S* u_acc, double a,
+                                                X* chain_x, L* chain_lp, int* n_accept,
+                                                long long draw_stride, int e, int b0, int nb) {
+    const int lane = threadIdx.x & 31;
+    const bool own = nb == 1 || lane < nb;
+    const int i = b0 + (nb == 1 ? 0 : lane);
+    const int ndim = (int)P.ndim;
+    const size_t ens = (size_t)e * 2 * half;
+    const size_t di = (size_t)e * draw_stride + i;
+    const size_t w = ens + (size_t)h * half + i;
+    S y[LP_MAX_DIM];
+    S z = S(1);
+    double lprior = -INFINITY;
+    typename M::Walker wk;
+    if (own) {
+        const S* xj = x + (ens + (size_t)(1 - h) * half + (size_t)j[di]) * ndim;
+        double p[LP_MAX_DIM];
+        z = stretch_proposal(P, x + w * ndim, xj, u_z[di], a, y, p);
+        lprior = log_prior(P, p);
+        if (isfinite(lprior)) wk = M::walker(p, P);
+    }
+    const double ll = warp_batch_ll<M>(wk, lprior, nb, d, P);
+    if (lane >= nb) return;
+    half_step_accept(ndim, x + w * ndim, y, z, isfinite(lprior) ? lprior + ll : -INFINITY, logp,
+                     u_acc, w, di, chain_x, chain_lp, n_accept);
+}
+
+// The launch of a warp-per-walker kernel (warp_layout): threads a block,
+// blocks, and the walkers a warp takes at a time.
+struct WarpLayout {
+    int threads, blocks, batch;
+};
+
+// K2: one Goodman-Weare half-step for half h of the ensemble x (2, half,
+// ndim), in place, with the proposal's log-posterior from the model policy
+// M. The partner pool is the other half. Draws are inputs: u_z and u_acc
+// uniform in [0, 1), j in [0, half). Adds the accept flag to n_accept and,
+// when chain_x is not null, writes the walker's new state and log-posterior
+// into the chain slot (2, half, ndim) / (2, half).
+// Several independent ensembles advance in one launch along blockIdx.y: then
+// x, logp, n_accept and the chain slot are (E, 2, half[, ndim]) and the
+// draws of ensemble e start draw_stride elements after those of e - 1. With
+// one ensemble (e = 0) every offset below is 0.
+// WARP: a warp per walker (half_step_batch) for a policy whose
+// log_likelihood_warp the 32 lanes compute together (SC3WarpModel,
+// CSWarpModel), the block's warps striding over batches of `batch` walkers
+// of the ensemble (warp_layout). Otherwise one thread per walker and
+// M::log_posterior.
+template <typename M, typename S, typename X, typename L, bool WARP>
+__global__ void __launch_bounds__(block_limit<M>::value)
+stretch_half_step_kernel(const typename M::Params P, S* __restrict__ x,
+                         double* __restrict__ logp, int half, int h,
+                         const S* __restrict__ u_z, const long long* __restrict__ j,
+                         const S* __restrict__ u_acc, double a, X* __restrict__ chain_x,
+                         L* __restrict__ chain_lp, int* __restrict__ n_accept, int use_smem,
+                         long long draw_stride, int batch) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int e = blockIdx.y;
+    const typename M::Data d = M::stage(P, smem_raw, use_smem, e);
     if constexpr (WARP) {
-        lp_y = M::log_posterior_warp(p, d, P);
+        const int per_block = blockDim.x >> 5;
+        const int bsz = M::batched ? batch : 1;   // (a constant 1 when not batched)
+        const int n_batches = (half + bsz - 1) / bsz;
+        for (int b = blockIdx.x * per_block + (threadIdx.x >> 5); b < n_batches;
+             b += gridDim.x * per_block) {   // (whole warps)
+            const int b0 = b * bsz;
+            half_step_batch<M, S, X, L>(P, d, x, logp, half, h, u_z, j, u_acc, a, chain_x,
+                                        chain_lp, n_accept, draw_stride, e, b0,
+                                        M::batched && half - b0 < bsz ? half - b0 : bsz);
+        }
     } else {
-        lp_y = M::log_posterior(p, d, P);
-    }
-    if (isnan(lp_y)) lp_y = -INFINITY;
-    const double lp_x = logp[w];
-    const S lz = (S)(ndim - 1) * m_log(z);
-    const double log_ratio = (double)lz + lp_y - lp_x;
-    // log(0) = -inf accepts unless log_ratio is -inf; a NaN ratio rejects
-    const double log_u = (double)m_log(u_acc[di]);
-    const bool accept = !isnan(log_ratio) && log_u < log_ratio;
-    if (WARP && (threadIdx.x & 31) != 0) return;
-    double lp_new = lp_x;
-    if (accept) {
-        for (int k = 0; k < ndim; ++k) xm[k] = y[k];
-        logp[w] = lp_y;
-        lp_new = lp_y;
-    }
-    n_accept[w] += accept ? 1 : 0;
-    if (chain_x != nullptr) {
-        for (int k = 0; k < ndim; ++k) chain_x[w * ndim + k] = (X)xm[k];
-        chain_lp[w] = (L)lp_new;
+        const int i = blockIdx.x * blockDim.x + threadIdx.x;
+        if (i >= half) return;
+        half_step_walker<M, S, X, L>(P, d, x, logp, half, h, u_z, j, u_acc, a, chain_x,
+                                     chain_lp, n_accept, draw_stride, e, i);
     }
 }
 
@@ -255,10 +387,62 @@ __device__ __forceinline__ const T* stage_array(const T* src, long long len, T*&
 }
 
 // Threads a block for n parameter vectors of one ensemble: a warp multiple,
-// at most LP_THREADS (small ensembles leave no idle warps).
-static inline int threads_for(int n) {
-    const int t = (n + 31) / 32 * 32;
-    return t < LP_THREADS ? t : LP_THREADS;
+// at most max_threads (small ensembles leave no idle warps).
+static inline int threads_for(long long n, int max_threads = LP_THREADS) {
+    const long long t = (n + 31) / 32 * 32;
+    return t < max_threads ? (int)t : max_threads;
+}
+
+// The WarpLayout of a warp-per-walker kernel over n walkers for the policy
+// M. Not batched: M::warps_per_block warps a block (fewer for a small n), a
+// walker a warp, a block for every warps_per_block walkers. Batched: a
+// small launch spread over the SMs (no more warps a block than ceil(n /
+// SMs), but 8 at least: a block stages the tables with its own threads, and
+// 32 take ~3x as long), and batches of ceil(n / W) walkers (at most 32), W
+// the warps the card holds at once, so that every batch runs in one wave
+// and a walker's prologue (proposal, prior, constants) runs on a lane of
+// its own. The card's resident blocks come from the kernel's occupancy at
+// the block size and shared memory, times the SMs (read once per kernel,
+// block size and shared memory, and kept).
+template <typename M, typename Kernel>
+static WarpLayout warp_layout(Kernel kernel, long long n, size_t smem) {
+    static_assert(32 * M::warps_per_block <= 1024, "block too large");
+    WarpLayout L;
+    int per_block = M::warps_per_block;
+    L.batch = 1;
+    if (M::batched) {
+        static const void* key_fn = nullptr;
+        static int key_dev = -1, key_threads = 0, sms = 1, resident = 1;
+        static size_t key_smem = 0;
+        int dev = 0;
+        cudaGetDevice(&dev);
+        if (dev != key_dev) {
+            cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+            if (sms < 1) sms = 1;
+            key_fn = nullptr;
+        }
+        const long long spread = (n + sms - 1) / sms;
+        const int fewest = per_block < 8 ? per_block : 8;
+        if (spread < per_block) per_block = spread > fewest ? (int)spread : fewest;
+        L.threads = 32 * per_block;
+        if ((const void*)kernel != key_fn || dev != key_dev || L.threads != key_threads
+            || smem != key_smem) {
+            int per_sm = 0;
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, L.threads, smem);
+            resident = sms * (per_sm > 0 ? per_sm : 1);
+            key_fn = (const void*)kernel, key_dev = dev, key_threads = L.threads;
+            key_smem = smem;
+        }
+        const long long warps = (long long)resident * per_block;
+        const long long batch = (n + warps - 1) / warps;
+        L.batch = (int)(batch < 32 ? batch : 32);
+    } else {
+        L.threads = threads_for(32 * n, 32 * per_block);
+        per_block = L.threads / 32;
+    }
+    const long long n_batches = (n + L.batch - 1) / L.batch;
+    L.blocks = (int)((n_batches + per_block - 1) / per_block);
+    return L;
 }
 
 template <typename M, typename S, typename X, typename L, bool WARP>
@@ -271,13 +455,14 @@ static int launch_half(const typename M::Params& P, void* x, double* logp, int h
     size_t bytes = M::stage_bytes(P);
     int rc = smem_plan(kernel, bytes, &use_smem);
     if (rc) return rc;
-    // walkers a block: a warp multiple of threads, or warps with WARP
-    const int threads = WARP ? threads_for(32 * half) : threads_for(half);
-    const int per_block = WARP ? threads / 32 : threads;
-    const dim3 grid((half + per_block - 1) / per_block, n_ens);
-    kernel<<<grid, threads, use_smem ? bytes : 0, stream>>>(
+    // a thread per walker, or WarpLayout's warps with WARP
+    WarpLayout lay = {threads_for(half), 0, 1};
+    lay.blocks = (half + lay.threads - 1) / lay.threads;
+    if constexpr (WARP) lay = warp_layout<M>(kernel, half, use_smem ? bytes : 0);
+    const dim3 grid(lay.blocks, n_ens);
+    kernel<<<grid, lay.threads, use_smem ? bytes : 0, stream>>>(
         P, (S*)x, logp, half, h, (const S*)u_z, j, (const S*)u_acc, a, (X*)chain_x,
-        (L*)chain_lp, n_accept, use_smem, draw_stride);
+        (L*)chain_lp, n_accept, use_smem, draw_stride, lay.batch);
     return (int)cudaGetLastError();
 }
 

@@ -2,9 +2,10 @@
 versions beside them.
 
 * :func:`tempered_half_step` (K6a, ``tempered_half_step_kernel`` of
-  ``csrc/ladder.cuh`` over the model's policy, in ``sc2_logpost.cu`` or
-  ``sc3_logpost.cu``): one stretch-move half-step of every rung's ensemble,
-  accepting by log pi + beta log L;
+  ``csrc/ladder.cuh`` over the model's policy, in ``sc2_logpost.cu``,
+  ``sc3_logpost.cu`` or ``companion.cu``, where it runs a warp per walker):
+  one stretch-move half-step of every rung's ensemble, accepting by log pi +
+  beta log L;
 * :func:`ladder_init` (K6b, ``ladder_init_kernel``): log pi and log L of
   every starting state of every rung;
 * :func:`replica_swap` (K6c, ``replica_swap_kernel`` of ``csrc/ladder.cu``):
@@ -16,9 +17,10 @@ versions beside them.
 
 The ladder's target is a LogPosterior (the priors and the
 :class:`~lightcurve_fitting_tpu_torch.models.base.LogLikelihood` of
-ShockCooling2 or ShockCooling3), whose kernels K6a and K6b evaluate, or a
-pair ``(log_prior, log_like)`` of torch callables of absolute float64
-parameters (W, ndim) -> (W,), which only the plain versions run. For a
+ShockCooling2, ShockCooling3 or a companion-shocking model), whose kernels
+K6a and K6b evaluate, or a pair ``(log_prior, log_like)`` of torch callables
+of absolute float64 parameters (W, ndim) -> (W,), which only the plain
+versions run. For a
 tensor on the CPU each wrapper runs its plain version; for a CUDA tensor it
 launches its kernel or raises: there is no fallback. Each launch adds one to
 ``LAUNCHES[name]``, and nothing else does.

@@ -17,7 +17,10 @@ through both packages. Tolerances:
   package's own float32 Kasen temperature underflows, see
   ``test_float32_kasen_temperature_does_not_underflow``);
 * one stretch step under shared draws: accept flags identical, states
-  <= 1e-12, log-posteriors <= 1e-10 relative.
+  <= 1e-12, log-posteriors <= 1e-10 relative;
+* the residual sum in the order of the CS kernels' warp form (a warp per
+  walker), emulated in float32: <= 1e-5 of the term scale from the plain
+  float32 sum and from the JAX package's float64 values.
 
 The term scale of a log-likelihood is 0.5 x the summed magnitudes of its
 per-point residual terms plus the magnitude of its constant: the rounding
@@ -345,6 +348,57 @@ def test_log_posterior_batch_matches_jax(lcs, variant, use_sigma, sigma_type, f3
     fin = np.isfinite(a)
     d = np.abs(b[fin] - a[fin]) / scale[fin]
     assert np.all(d <= (1e-5 if f32 else 1e-10)), d.max()
+
+
+def _warp_order_sum(terms):
+    """The residual sum of the CS kernels' warp form (csrc/companion.cu,
+    ``cs_log_likelihood_warp``) over (W, N) terms, in their dtype: lane l
+    sums points l, l + 32, l + 64, ... in that order, then the butterfly
+    (offsets 16, 8, 4, 2, 1), each lane adding lane l ^ o's value. Returns
+    (W, 32): every lane's sum."""
+    lanes = torch.zeros((terms.shape[0], 32), dtype=terms.dtype)
+    for n in range(terms.shape[1]):
+        lanes[:, n % 32] = lanes[:, n % 32] + terms[:, n]
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, torch.arange(32) ^ o]
+    return lanes
+
+
+def test_warp_sum_order_stays_within_the_yardstick(lcs):
+    """The CS half-step and K6a over CS run a warp per walker, which sums a
+    walker's 108 residual terms in another order than the plain version.
+    Emulated in float32 on 1024 CS2 walkers from the 32768-walker fit's
+    window, that order gives every lane the same bits, stays within 1e-5 of
+    the term scale (the card tests' float32 tolerance) of the plain float32
+    sum and of the JAX package's float64 log-posterior, and differs from the
+    plain sum on some walker: the tolerance, not bit equality, is what holds
+    the kernels to their plain versions."""
+    jlc, tlc = lcs
+    jm = jmodels.CompanionShocking2(jlc)
+    p = np.random.default_rng(11).uniform(P_LO[2], P_UP[2], size=(1024, 7))
+    want = np.asarray(jax.vmap(j_make(jm, jlc, PRIORS[2]))(jnp.asarray(p)))
+    quad = jm.prepare_quad(np.asarray(jlc["filter"]))
+    q = torch.as_tensor(p)
+    try:
+        tconfig.set_compute_dtype(torch.float32)
+        ll = interop.log_likelihood_from_numpy(
+            quad, np.asarray(tlc["MJD"], float), np.asarray(tlc["lum"], float),
+            np.asarray(tlc["dlum"], float), model=tmodels.CompanionShocking2(tlc),
+            dtype=torch.float32)
+        terms = ll.residual_terms(q)
+        plain = ll(q).double()
+        scale = ll.term_scales(q)
+    finally:
+        tconfig.set_compute_dtype(tconfig.AUTO)
+    assert terms.dtype == torch.float32 and tuple(terms.shape) == (1024, 108)
+    lanes = _warp_order_sum(terms)
+    assert torch.equal(lanes, lanes[:, :1].expand(-1, 32))
+    const = torch.tensor(ll.log_norm_const, dtype=torch.float32)
+    warp = (torch.tensor(-0.5, dtype=torch.float32) * lanes[:, 0] + const).double()
+    assert torch.isfinite(warp).all() and torch.isfinite(plain).all()
+    assert bool(((warp - plain).abs() <= 1e-5 * scale).all())
+    assert bool((warp != plain).any())
+    assert np.all(np.abs(warp.numpy() - want) <= 1e-5 * scale.numpy())
 
 
 def _jax_draws(key, half):

@@ -40,7 +40,10 @@ against their plain transitions under shared draws (float64 over the plain
 gradient, float32 over K7's own evaluations), equal except near-ties, and
 K9's new log-posteriors equal to K7's at the new states bit for bit (the
 block form folds the points in the warp form's order). The SC3 half-step,
-a warp per walker, as K2 at the fits' widths (half 32, 16384) and 65536.
+a warp per walker, as K2 at the fits' widths (half 32, 16384) and 65536;
+the CS half-step and K6a over CS, a warp per walker, as K2 and K6a at the
+fits' widths (half 16, 16384; 7 rungs x half 32, 17 x 2048), CS1 with the
+intrinsic scatter beside them.
 """
 
 import ctypes
@@ -1166,13 +1169,18 @@ def _assert_scaled(got, want, rel, scale):
 _SIGMA_PRIOR = LogUniformPrior(0.01, 10.0)
 
 
-def _sigma_case(which, lc, lc_flux, device, sigma_type):
-    """A LogPosterior with the intrinsic scatter, SC2 (5 parameters) or SC3
-    (8), and its init window (sigma in [0.5, 3] dy units)."""
+def _sigma_case(which, lc, lc_flux, device, sigma_type, ia=None):
+    """A LogPosterior with the intrinsic scatter, SC2 (5 parameters), SC3
+    (8) or CS1 (9, on the synthetic Ia curve ``ia``), and its init window
+    (sigma in [0.5, 3] dy units)."""
     if which == "sc2":
         lp = make_log_posterior(ShockCooling2(lc), lc, _priors() + [_SIGMA_PRIOR], use_sigma=True,
                                 sigma_type=sigma_type, device=device)
         return lp, np.append(P_LO, 0.5), np.append(P_UP, 3.0)
+    if which == "cs1":
+        lp = make_log_posterior(_cs_model(1, ia), ia[0], CS_PRIORS[1] + [_SIGMA_PRIOR],
+                                use_sigma=True, sigma_type=sigma_type, device=device)
+        return lp, np.append(CS_LO[1], 0.5), np.append(CS_UP[1], 3.0)
     lp = make_log_posterior(ShockCooling3(lc_flux), lc_flux, _sc3_priors() + [_SIGMA_PRIOR],
                             use_sigma=True, sigma_type=sigma_type, device=device)
     return lp, np.append(SC3_LO, 0.5), np.append(SC3_UP, 3.0)
@@ -1186,18 +1194,19 @@ def _window_walkers(lo, up, n, seed):
     return p
 
 
-@pytest.mark.parametrize("which", ["sc2", "sc3"])
-def test_sigma_yardstick_bounds_float32_rounding(lc, lc_flux, which):
+@pytest.mark.parametrize("which", ["sc2", "sc3", "cs1"])
+def test_sigma_yardstick_bounds_float32_rounding(lc, lc_flux, request, which):
     """The scale the use_sigma kernels are held to bounds the plain
     version's own float32 rounding against its float64 evaluation, with a
     margin of 2 under the card's 1e-5 budget (the kernel and the plain
     version differ by less: the same float32 operations in another order)."""
-    lp64, lo, up = _sigma_case(which, lc, lc_flux, "cpu", "relative")
+    ia = request.getfixturevalue("ia") if which == "cs1" else None
+    lp64, lo, up = _sigma_case(which, lc, lc_flux, "cpu", "relative", ia)
     p = torch.as_tensor(_window_walkers(lo, up, 256, 0))
     want = lp64.forward_plain(p)
     try:
         config.set_compute_dtype(torch.float32)
-        lp32 = _sigma_case(which, lc, lc_flux, "cpu", "relative")[0]
+        lp32 = _sigma_case(which, lc, lc_flux, "cpu", "relative", ia)[0]
         got = lp32.forward_plain(p)
         scale = lp32.log_likelihood.term_scales(p)
     finally:
@@ -1326,17 +1335,19 @@ def _tempered_case(lp, off, sc, x0, h, seed, rel):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["sc2", "sc3"])
+@pytest.mark.parametrize("which", ["sc2", "sc3", "cs1"])
 @pytest.mark.parametrize("sigma_type", ["relative", "absolute"])
 @pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
-def test_use_sigma_half_steps_match_plain_on_card(lc, lc_flux, cuda_device, which, sigma_type,
-                                                  f64):
-    """K2 or the SC3 half-step, and K6a over the model, with the intrinsic
+def test_use_sigma_half_steps_match_plain_on_card(lc, lc_flux, request, cuda_device, which,
+                                                  sigma_type, f64):
+    """K2, the SC3 half-step or the CS half-step (both a warp per walker),
+    and K6a over the model (over CS1 a warp per walker), with the intrinsic
     scatter (h = 0, 1) on the float32 rescaled state."""
+    ia = request.getfixturevalue("ia") if which == "cs1" else None
     try:
         if f64:
             config.set_compute_dtype(None)
-        lp, lo, up = _sigma_case(which, lc, lc_flux, cuda_device, sigma_type)
+        lp, lo, up = _sigma_case(which, lc, lc_flux, cuda_device, sigma_type, ia)
         off, sc = (lo + up) / 2, (up - lo) / 2 * (1 + 1e-6)
         rng = np.random.default_rng(2)
         W = 2048 if which == "sc2" else 1024
@@ -1695,10 +1706,15 @@ def test_cs_logpost_matches_plain_on_card(ia, ia_lc, cuda_device, variant, use_s
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("half,rungs,rung_half", [(1024, 5, 256), (16, 7, 32), (16384, 17, 2048)],
+                         ids=["half1024-5x256", "fits-half16-7x32", "fits-half16384-17x2048"])
 @pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
-def test_cs_half_steps_match_plain_on_card(ia, ia_lc, cuda_device, f64):
-    """The CS half-step and K6a over CS2 (h = 0, 1) against their plain
-    versions under shared draws; K6b over CS2 as K1's."""
+def test_cs_half_steps_match_plain_on_card(ia, ia_lc, cuda_device, half, rungs, rung_half, f64):
+    """The CS half-step and K6a over CS2 (both a warp per walker; h = 0, 1)
+    against their plain versions under shared draws, at the fits' widths
+    (half 16: the 32-walker fit; 16384: the 32768-walker fit; K6a at 7
+    rungs x half 32: the PT fit; 17 x 2048: the evidence) beside half 1024
+    and 5 x 256; K6b over CS2 as K1's."""
     try:
         if f64:
             config.set_compute_dtype(None)
@@ -1706,10 +1722,11 @@ def test_cs_half_steps_match_plain_on_card(ia, ia_lc, cuda_device, f64):
         lo, up = CS_LO[2], CS_UP[2]
         off, sc = (lo + up) / 2, (up - lo) / 2 * (1 + 1e-6)
         rng = np.random.default_rng(7)
-        x0 = torch.as_tensor((rng.uniform(lo, up, size=(2048, 7)) - off) / sc,
-                             device=cuda_device).float().reshape(2, 1024, 7).contiguous()
-        xl = torch.as_tensor((rng.uniform(lo, up, size=(5 * 512, 7)) - off) / sc,
-                             device=cuda_device).float().reshape(5, 2, 256, 7).contiguous()
+        x0 = torch.as_tensor((rng.uniform(lo, up, size=(2 * half, 7)) - off) / sc,
+                             device=cuda_device).float().reshape(2, half, 7).contiguous()
+        xl = torch.as_tensor((rng.uniform(lo, up, size=(rungs * 2 * rung_half, 7)) - off) / sc,
+                             device=cuda_device).float().reshape(rungs, 2, rung_half, 7)
+        xl = xl.contiguous()
         n0 = kernels.LAUNCHES["cs_half_step"]
         for h in (0, 1):
             _half_step_case(lp, off, sc, x0, h, 3 + h, 1e-10 if f64 else 1e-5)

@@ -3,9 +3,16 @@
 and of the fits, float32 compute, by CUDA events:
 
 * K1 at 131072 walkers; K2 per half-step of 131072; K6a per ladder
-  half-step of 17 rungs x 4096; K7 at 131072 walkers; K7h per 64-chain HMC
-  transition (32 jittered leapfrogs, eps 0.1); the CS half-step per 65536
-  (CompanionShocking2 on the synthetic Ia curve);
+  half-step of 17 rungs x 4096 (ShockCooling2) and of 17 x 512
+  (ShockCooling3); K7 at 131072 walkers and at the MAP ascent's 64 starts
+  (float32 and float64); K7h per 64-chain HMC transition (32 jittered
+  leapfrogs, eps 0.1);
+* the companion-shocking kernels (CompanionShocking2 on the synthetic Ia
+  curve): the CS half-step per half 16, 16384 and 65536 (the 32- and
+  32768-walker fits and the 131072-walker comparison), K6a over CS per
+  ladder half-step of 7 rungs x 64 (the PT fit) and 17 x 4096 (the
+  evidence), K6b over CS at 17 x 4096, the CS log-posterior and K8 at
+  131072 walkers;
 * K9 per NUTS transition of 64 and of 16 whitened flagship chains at eps
   0.1, max_depth 9, and at the ``lightcurve_hmc`` defaults (``K9_hmc``: the
   16 chains, adapted step size and inverse mass of a ``lightcurve_hmc`` run,
@@ -14,8 +21,18 @@ and of the fits, float32 compute, by CUDA events:
 * the SC3 half-step per half-step of half 32, 16384 and 65536 (the 64- and
   32768-walker fits and the 131072-walker comparison);
 * with ``--fits``, the wall times of ``lightcurve_hmc`` at its defaults in
-  float32 and float64 and of the ShockCooling3 fit at 32768 x 300.
+  float32 and float64, of the ShockCooling3 fit at 32768 x 300 and of the
+  CompanionShocking2 fits of ``chip_smoke.py`` phase 24 (a: 32 walkers x
+  300 + 250; b: 32768 x 300; c: the evidence at 4096 x 17 rungs x 150 +
+  150).
 
+Each time is printed twice: by CUDA events around a run of launches (the
+stream's time per launch, which a kernel shorter than its wrapper's host
+time does not fill) and, as ``NAME_dev`` for the half-steps, K6a, K6b over
+CS, the CS log-posterior, K8 and K7 at 64 walkers, by the profiler's device
+timestamps (the kernel's own time). ``--sass NAME`` prints a hash of the
+SASS of each kernel whose name holds NAME (``cuobjdump``), to tell a
+kernel's code apart from its placement.
 Each kernel's outputs at fixed inputs are hashed (``digest``): two checkouts
 whose kernel computes the same bits print the same digest. The ptxas report
 of the gradient and SC3 kernels (registers, stack frame, spills) comes from
@@ -56,7 +73,7 @@ SC3_LO = [0.5, 0.5, 5.0, 1.0, D_L - 0.005, 0.0, 57468.5]
 SC3_UP = [2.0, 2.0, 20.0, 5.0, D_L + 0.005, 0.1, 57468.7]
 # the ptxas report covers the entry functions whose mangled names hold these
 PTXAS_KERNELS = ("nuts_transition", "hmc_transition", "logpost_grad", "SC3WarpModel",
-                 "stretch_half_step_kernelI8SC3Model")
+                 "stretch_half_step_kernelI8SC3Model", "CSWarpModel", "I7CSModel")
 
 
 def events_ms(fn, launches, repeats):
@@ -77,6 +94,29 @@ def events_ms(fn, launches, repeats):
     return out
 
 
+def device_ms(fn, match, launches, repeats):
+    """Milliseconds per launch of the kernels whose name holds ``match``, from
+    the profiler's device timestamps: for each repeat, their mean duration
+    over ``launches`` calls of ``fn`` after a warm-up call. Unlike
+    events_ms, the host's launch rate does not enter: a kernel shorter than
+    its wrapper's host time is timed alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(repeats):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and match in e.key]
+        n = sum(e.count for e in evs)
+        out.append(sum(e.self_device_time_total for e in evs) / 1e3 / n if n else float("nan"))
+    return out
+
+
 def digest(*tensors):
     """The first 16 hex digits of the SHA-256 of the tensors' bytes."""
     h = hashlib.sha256()
@@ -87,8 +127,10 @@ def digest(*tensors):
 
 def ptxas_report(log):
     """{entry function: [registers, stack frame bytes, spill stores, spill
-    loads]} from nvcc's -Xptxas -v output, for PTXAS_KERNELS."""
-    out, name = {}, None
+    loads]} from nvcc's -Xptxas -v output, for PTXAS_KERNELS. The stack
+    frame and spills are those of the entry function's own "Function
+    properties" block, not of a function it calls."""
+    out, name, props = {}, None, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
@@ -96,11 +138,15 @@ def ptxas_report(log):
             if name:
                 out[name] = [None, None, None, None]
             continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            props = m.group(1)
+            continue
         if name is None:
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
-        if m:
+        if m and props == name:
             out[name][1:] = [int(v) for v in m.groups()]
         m = re.search(r"Used (\d+) registers", line)
         if m:
@@ -128,8 +174,11 @@ def main():
     ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--label", default="")
     ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--sass", action="append", default=[], metavar="NAME",
+                    help="hash the SASS of the kernels whose names hold NAME (repeatable)")
     ap.add_argument("--fits", action="store_true",
-                    help="also time lightcurve_hmc (f32, f64) and the SC3 32768 x 300 fit")
+                    help="also time lightcurve_hmc (f32, f64), the SC3 32768 x 300 fit and "
+                         "the CS2 fits of chip_smoke.py phase 24")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -138,8 +187,9 @@ def main():
     sys.path.insert(0, repo)
     from lightcurve_fitting_tpu_torch import kernels
     from lightcurve_fitting_tpu_torch.core import config
-    from lightcurve_fitting_tpu_torch.fitting import (_state_rescaling, lightcurve_hmc,
-                                                      lightcurve_mcmc, make_log_posterior)
+    from lightcurve_fitting_tpu_torch.fitting import (_state_rescaling, lightcurve_evidence,
+                                                      lightcurve_hmc, lightcurve_mcmc,
+                                                      make_log_posterior)
     from lightcurve_fitting_tpu_torch.kernels import build, cs, gradient, ladder, sc2, sc3
     from lightcurve_fitting_tpu_torch.models import ShockCooling2, ShockCooling3, UniformPrior
     from lightcurve_fitting_tpu_torch.parallel.evidence import make_beta_ladder
@@ -173,6 +223,8 @@ def main():
         acc = torch.zeros((2, half), dtype=torch.int32, device=dev)
         times[name] = events_ms(lambda: step(x, logp, u_z, j, u_acc, acc), launches,
                                 args.repeats)
+        times[name + "_dev"] = device_ms(lambda: step(x, logp, u_z, j, u_acc, acc),
+                                         "stretch_half_step_kernel", launches, args.repeats)
 
     # K1 at 131072 walkers, K2 per half-step of 131072 (float32 rescaled state)
     W = 131072
@@ -208,9 +260,23 @@ def main():
                                                                check_partners=False),
                              20, args.repeats)
 
-    # K7 at 131072 walkers of the init window
+    # K7 at 131072 walkers of the init window, and at the MAP ascent's 64
+    # starts (lightcurve_map's width) in float32 and float64
     times["K7"] = events_ms(lambda: sc2.log_posterior_and_grad(lp, p), 20, args.repeats)
     digests["K7"] = digest(*sc2.log_posterior_and_grad(lp, p))
+    p64 = p[:64].contiguous()
+    for label in ("f32", "f64"):
+        try:
+            if label == "f64":
+                config.set_compute_dtype(torch.float64)
+            lp7 = make_log_posterior(ShockCooling2(lc), lc, priors, device=dev)
+            times[f"K7_64_{label}"] = events_ms(lambda: sc2.log_posterior_and_grad(lp7, p64), 100,
+                                                args.repeats)
+            times[f"K7_64_{label}_dev"] = device_ms(lambda: sc2.log_posterior_and_grad(lp7, p64),
+                                                    "logpost_grad_kernel", 100, args.repeats)
+            digests[f"K7_64_{label}"] = digest(*sc2.log_posterior_and_grad(lp7, p64))
+        finally:
+            config.set_compute_dtype(config.AUTO)
 
     # K9 and K7h on whitened flagship chains (lightcurve_hmc's target)
     gpri = gauss_priors()
@@ -285,18 +351,74 @@ def main():
             lp3, x_, l_, 0, uz_, j_, ua_, 2.0, off3, sc3_, n_accept=a_, check_partners=False),
             x3, l3, h3, 4, launches=20 if h3 > 32 else 100)
 
-    # the CS half-step per 65536 (CompanionShocking2, float32 rescaled state)
+    def tempered(name, target, x, off_, sc_, seed):
+        """Time K6a over ``target`` on the ladder state x (R, 2, half, ndim),
+        and hash one half-step and K6b's initial state from the same start."""
+        R_, _, hl, _ = x.shape
+        pri_, ll_ = ladder.ladder_init(target, x, off_, sc_)
+        betas_ = torch.as_tensor(make_beta_ladder(R_ - 1), device=dev)
+        shape_ = (R_, 2, hl)
+        g.manual_seed(seed)
+        uz_ = torch.rand(shape_, generator=g, device=dev)
+        jl_ = torch.randint(0, hl, shape_, generator=g, device=dev)
+        ua_ = torch.rand(shape_, generator=g, device=dev)
+        xd_, pd_, ld_ = x.clone(), pri_.clone(), ll_.clone()
+        ad_ = torch.zeros(shape_, dtype=torch.int32, device=dev)
+        ladder.tempered_half_step(target, xd_, pd_, ld_, betas_, 0, uz_, jl_, ua_, 2.0, off_, sc_,
+                                  ad_)
+        digests[name] = digest(xd_, pd_, ld_, ad_)
+        acc_ = torch.zeros(shape_, dtype=torch.int32, device=dev)
+
+        def step():
+            ladder.tempered_half_step(target, x, pri_, ll_, betas_, 0, uz_, jl_, ua_, 2.0, off_,
+                                      sc_, acc_, check_partners=False)
+        launches = 20 if R_ * hl > 1024 else 100
+        times[name] = events_ms(step, launches, args.repeats)
+        times[name + "_dev"] = device_ms(step, "tempered_half_step_kernel", launches,
+                                         args.repeats)
+        return pri_, ll_
+
+    # K6a over ShockCooling3, 17 rungs x 512 walkers (chip_smoke.py phase 14)
+    q3 = (rng.uniform(SC3_LO, SC3_UP, size=(17 * 512, 7)) - off3) / sc3_
+    tempered("K6a_SC3", lp3, torch.as_tensor(q3.reshape(17, 2, 256, 7), device=dev).float()
+             .contiguous(), off3, sc3_, 2)
+
+    # the companion-shocking kernels (CompanionShocking2, float32 rescaled state)
     lc_ia, lc0 = chip_smoke.ia_lc()
+    lo_c, up_c = chip_smoke.CS_LO[2], chip_smoke.CS_UP[2]
     lpc = make_log_posterior(chip_smoke.cs_model(2, lc0), lc_ia, chip_smoke.cs_priors(2),
                              device=dev)
-    kwc = _state_rescaling(torch.float32, chip_smoke.CS_LO[2], chip_smoke.CS_UP[2], dev)
+    kwc = _state_rescaling(torch.float32, lo_c, up_c, dev)
     offc, scc = kwc["param_offset"], kwc["param_scale"]
-    xc = torch.as_tensor((rng.uniform(chip_smoke.CS_LO[2], chip_smoke.CS_UP[2], size=(W, 7))
-                          - offc) / scc, device=dev).float().reshape(2, half, 7).contiguous()
-    lcs = cs.log_posterior(lpc, xc.reshape(W, 7), offc, scc).reshape(2, half)
-    half_step("CS_half", lambda x_, l_, uz_, j_, ua_, a_: cs.stretch_half_step(
-        lpc, x_, l_, 0, uz_, j_, ua_, 2.0, offc, scc, n_accept=a_, check_partners=False),
-        xc, lcs, half, 17)
+    pc = torch.as_tensor(rng.uniform(lo_c, up_c, size=(W, 7)), device=dev)
+    times["CS_logpost"] = events_ms(lambda: cs.log_posterior(lpc, pc), 20, args.repeats)
+    times["CS_logpost_dev"] = device_ms(lambda: cs.log_posterior(lpc, pc), "cs_logpost_kernel", 20,
+                                        args.repeats)
+    digests["CS_logpost"] = digest(cs.log_posterior(lpc, pc))
+    t_c, quad_c = lpc.log_likelihood.t, lpc.log_likelihood.quad
+    k8_args = [pc[:, k:k + 1].contiguous() for k in (3, 4, 5, 6)]   # t_peak, s, dtU, dti
+    times["K8"] = events_ms(lambda: cs.sifto(t_c, quad_c, *k8_args), 20, args.repeats)
+    times["K8_dev"] = device_ms(lambda: cs.sifto(t_c, quad_c, *k8_args), "sifto_kernel", 20,
+                                args.repeats)
+    digests["K8"] = digest(cs.sifto(t_c, quad_c, *k8_args))
+    for hc in (16, 16384, 65536):
+        xc = torch.as_tensor((rng.uniform(lo_c, up_c, size=(2 * hc, 7)) - offc) / scc,
+                             device=dev).float().reshape(2, hc, 7).contiguous()
+        lcs = cs.log_posterior(lpc, xc.reshape(2 * hc, 7), offc, scc).reshape(2, hc)
+        half_step(f"CS_half_{hc}", lambda x_, l_, uz_, j_, ua_, a_: cs.stretch_half_step(
+            lpc, x_, l_, 0, uz_, j_, ua_, 2.0, offc, scc, n_accept=a_, check_partners=False),
+            xc, lcs, hc, 17, launches=20 if hc > 16 else 100)
+    for rc, hc in ((7, 32), (17, 2048)):
+        qc = (rng.uniform(lo_c, up_c, size=(rc * 2 * hc, 7)) - offc) / scc
+        xlc = torch.as_tensor(qc.reshape(rc, 2, hc, 7), device=dev).float().contiguous()
+        if rc == 17:   # K6b on the state before K6a's timing moves it
+            x6b = xlc.clone()
+            times["CS_K6b"] = events_ms(lambda: ladder.ladder_init(lpc, x6b, offc, scc), 20,
+                                        args.repeats)
+            times["CS_K6b_dev"] = device_ms(lambda: ladder.ladder_init(lpc, x6b, offc, scc),
+                                            "ladder_init_kernel", 20, args.repeats)
+            digests["CS_K6b"] = digest(*ladder.ladder_init(lpc, x6b, offc, scc))
+        tempered(f"CS_K6a_{rc}x{2 * hc}", lpc, xlc, offc, scc, 18)
 
     walls = {}
     if args.fits:
@@ -321,6 +443,45 @@ def main():
             walls[f"sc3_32768x300_{rep}"] = time.perf_counter() - t0
         walls["sc3_acceptance"] = float(np.mean(s.acceptance_fraction))
 
+        # the companion-shocking fits of chip_smoke.py phase 24, two runs each:
+        # (a) CS2 32 walkers x 300 + 250, (b) 32768 x 300 from the window, (c)
+        # lightcurve_evidence at 4096 walkers x 16 rungs + beta = 1 x 150 + 150
+        def wall(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, out
+
+        cs_kw = dict(p_lo=lo_c, p_up=up_c, quiet=True)
+        for rep in range(2):
+            walls[f"cs2_24a_{rep}"], s = wall(lambda: lightcurve_mcmc(
+                lc_ia, chip_smoke.cs_model(2, lc0), chip_smoke.cs_priors(2), nwalkers=32,
+                nsteps=250, nsteps_burnin=300, seed=12, **cs_kw))
+        for rep in range(2):
+            walls[f"cs2_24b_{rep}"], s = wall(lambda: lightcurve_mcmc(
+                lc_ia, chip_smoke.cs_model(2, lc0), chip_smoke.cs_priors(2),
+                nwalkers=chip_smoke.CS_WALKERS, nsteps=300, nsteps_burnin=0, seed=7, **cs_kw))
+        walls["cs2_24b_acceptance"] = float(np.mean(s.acceptance_fraction))
+        for rep in range(2):
+            walls[f"cs2_24c_{rep}"], ev = wall(lambda: lightcurve_evidence(
+                lc_ia, chip_smoke.cs_model(2, lc0), chip_smoke.cs_priors(2),
+                nwalkers=chip_smoke.EV_WALKERS, n_rungs=chip_smoke.EV_RUNGS,
+                nsteps=chip_smoke.EV_STEPS, nsteps_burnin=chip_smoke.EV_BURNIN, seed=1, **cs_kw))
+        walls["cs2_24c_log_z"] = [float(ev[0]), float(ev[1])]
+
+    sass = {}
+    if args.sass:
+        cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+        dump = subprocess.run([cuobjdump, "-sass", build.build_info()["path"]], capture_output=True,
+                              text=True, check=True, timeout=600).stdout
+        for func in re.split(r"\n\s*Function : ", dump)[1:]:
+            name = func.split("\n", 1)[0].strip()
+            if any(k in name for k in args.sass):
+                code = [line.split("*/", 1)[1].strip() for line in func.splitlines()
+                        if re.match(r"\s*/\*[0-9a-f]{4,}\*/", line)]
+                sass[name] = [len(code), hashlib.sha256("\n".join(code).encode()).hexdigest()[:16]]
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
     for k, v in times.items():
@@ -332,9 +493,13 @@ def main():
     for k, v in ptxas.items():
         print(f"[time_port_kernels] {args.label} ptxas {k}: registers {v[0]}, stack frame "
               f"{v[1]} bytes, spill stores {v[2]}, spill loads {v[3]}", flush=True)
+    for k, v in sass.items():
+        print(f"[time_port_kernels] {args.label} sass {k}: {v[0]} instructions, hash {v[1]}",
+              flush=True)
     print(json.dumps({"label": args.label, "repo": repo, "card": smi,
                       "ms": {k: min(v) for k, v in times.items()}, "repeats": times,
-                      "digests": digests, "info": info, "walls": walls, "ptxas": ptxas}),
+                      "digests": digests, "info": info, "walls": walls, "ptxas": ptxas,
+                      "sass": sass}),
           flush=True)
 
 
