@@ -12,8 +12,13 @@ raises and the script exits non-zero):
 3. K1 against its plain PyTorch version at 131072 walkers on the flagship
    (SN 2016bkv, ShockCooling2), float32 (<= 1e-5 |ll|, same -inf set) and
    float64 (<= 1e-10 |ll|), including t < t_exp under a widened t_0 prior;
-4. K2 against the plain half-step on the same state and draws: accept flags
-   agree except at near-ties, and where they agree the new states are equal;
+4. K2 (a warp per walker) against the plain half-step on the same state and
+   draws at half 65536, 16384 and 32 (the fits' widths), float32 and
+   float64: accept flags agree except at near-ties, and where they agree the
+   new states are equal and the new log-posteriors within 1e-5 (1e-10) of
+   the term scale; each width timed (events and the profiler's device
+   time); how many proposals' log-posteriors (u_acc = 0) differ from K7's
+   value at the same parameters;
 5. the public ``fitting.lightcurve_mcmc``: (a) the reference-default
    64-walker fit, (b) 131072 walkers x 300 steps from the init window, whose
    mean acceptance must be 0.4685 +- 0.01; the launch counters show both ran
@@ -59,10 +64,12 @@ raises and the script exits non-zero):
     CPU value; the launch counters, reset before (a), show it ran through
     K4 (with and without the gradient), the epoch half-step, K4s and K5;
 14. K6a, the tempered half-step (h = 0, 1), against its plain version on the
-    ShockCooling2 ladder of the evidence bench shape (17 rungs x 4096
-    walkers, float32 rescaled state) and on a ShockCooling3 ladder of 17 x
-    512: accept flags agree except near-ties, new states bit-equal where
-    they agree, log pi and log L within K1's tolerances;
+    ShockCooling2 ladders (a warp per walker) of the evidence bench shape
+    (17 rungs x 4096 walkers) and of the PT fit (7 x 32), float32 and
+    float64 compute on the float32 rescaled state, each timed, and on a
+    ShockCooling3 ladder of 17 x 512: accept flags agree except near-ties,
+    new states bit-equal where they agree, log pi and log L within K1's
+    tolerances; the proposals' log pi + log L against K7's value as in 4;
 15. K6b, the ladder's initial state, against the plain split of the
     log-posterior (17 x 4096 states, 1% outside the priors), float32 and
     float64; K6c, the replica exchange, bit-equal to its plain version (both
@@ -511,45 +518,121 @@ def phase_k1(lc, rng_seed=0):
     return {"max_abs_err": res["f32"][0], "ms": k1_ms, "plain_ms": plain_ms, **k1_bound}
 
 
+# K2's widths: the 131072-walker fit (5b), 16384, and the 64-walker fits (5a
+# and lightcurve_hmc's warm start, 20c)
+K2_HALVES = (HEADLINE_WALKERS // 2, 16384, 32)
+
+
+def warp_kernel_name(fn, match, policy, calls=20):
+    """The one CUDA kernel holding ``match`` in its name that ``calls`` calls
+    of fn launch (a profile of one short call can come back empty), which
+    must be the warp form (WARP = true) over ``policy``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.device_type.name == "CUDA" and match in e.key})
+    if len(names) != 1 or policy not in names[0] or "true>" not in names[0]:
+        raise AssertionError(f"expected {match} over {policy} with WARP, the profiler saw {names}")
+    return names[0].split("(")[0]
+
+
+def k7_value_differences(lp, off, sc, x0, seed):
+    """K2 over lp's model with u_acc = 0 (every proposal inside the priors
+    accepted, so each new log-posterior is a proposal's) on the rescaled
+    state x0 (2, half, ndim), then K7 at the new states: (proposals
+    compared, how many differ from K7's value in any bit, the largest
+    difference)."""
+    import torch
+    from lightcurve_fitting_tpu_torch import kernels
+    from lightcurve_fitting_tpu_torch.kernels import common
+    dev = x0.device
+    half, ndim = x0.shape[1], x0.shape[2]
+    x = x0.clone()
+    logp = kernels.log_posterior(lp, x.reshape(-1, ndim), off, sc).reshape(2, half)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    u_z = torch.rand(half, generator=g, device=dev, dtype=x.dtype)
+    j = torch.randint(0, half, (half,), generator=g, device=dev)
+    acc = torch.zeros((2, half), dtype=torch.int32, device=dev)
+    kernels.stretch_half_step(lp, x, logp, 0, u_z, j, torch.zeros_like(u_z), 2.0, off, sc,
+                              n_accept=acc)
+    moved = acc[0] == 1
+    k7 = kernels.log_posterior_and_grad(lp, common.absolute_params(x[0], off, sc))[0]
+    d = (logp[0] - k7)[moved].abs()
+    return int(moved.sum()), int((d != 0).sum()), float(d.max())
+
+
 def phase_k2(lc, seed=1):
     import numpy as np
     import torch
+    from lightcurve_fitting_tpu_torch.core import config
     from lightcurve_fitting_tpu_torch.fitting import _state_rescaling, make_log_posterior
     from lightcurve_fitting_tpu_torch.kernels import sc2
     from lightcurve_fitting_tpu_torch.models import ShockCooling2
+    from time_port_kernels import device_ms
 
     dev = torch.device("cuda")
-    W = HEADLINE_WALKERS
-    half = W // 2
-    lp = make_log_posterior(ShockCooling2(lc), lc, flagship_priors(), device=dev)
     kw = _state_rescaling(torch.float32, P_LO, P_UP, dev)   # what "auto" gives on CUDA
     off, sc = kw["param_offset"], kw["param_scale"]
     rng = np.random.default_rng(seed)
-    pos = (rng.uniform(P_LO, P_UP, size=(W, 4)) - off) / sc
-    x0 = torch.as_tensor(pos.reshape(2, half, 4), device=dev).to(torch.float32).contiguous()
-    n_ties, _, max_abs = check_half_step("K2", lp, off, sc, x0, seed, 1e-5)
-    logp0 = sc2.log_posterior(lp, x0.reshape(W, 4), off, sc).reshape(2, half)
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
-    u_z = torch.rand(half, generator=g, device=dev)
-    j = torch.randint(0, half, (half,), generator=g, device=dev)
-    u_acc = torch.rand(half, generator=g, device=dev)
-    xk, lk = x0.clone(), logp0.clone()
-    ak = torch.zeros((2, half), dtype=torch.int32, device=dev)
-    k2_ms = cuda_ms(lambda: sc2.stretch_half_step(lp, xk, lk, 0, u_z, j, u_acc, 2.0, off, sc,
-                                                  n_accept=ak, check_partners=False))
-    xp, lpp = x0.clone(), logp0.clone()
-    plain_ms = cuda_ms(lambda: sc2.stretch_half_step_plain(
-        lambda q: sc2.log_posterior_plain(lp, q, off, sc), xp, lpp, 0, u_z, j, u_acc, 2.0),
-        repeats=5)
-    k2_bound = bound_fields(half * (sc2_eval_ops(lp.log_likelihood) + PROPOSAL),
-                            half * (2 * 4 * 4 + 8 + 16 + 4) + half * (4 * 4 + 8 + 4))
-    phase("K2", f"half-steps h=0,1 of {W} walkers (f32 state, f64 logp): accept flags agree "
-          f"except {n_ties} near-ties, new states bit-equal where they agree, new-logp max "
-          f"|d| {max_abs:.3e} (<= 1e-5 of the term scale); K2 {k2_ms:.4f} ms vs plain "
-          f"{plain_ms:.4f} ms per half-step, bound {k2_bound['bound_ms']:.4f} ms "
-          f"({k2_bound['bound_by']})")
-    return {"max_abs_err": max_abs, "ms": k2_ms, "plain_ms": plain_ms, **k2_bound}
+    res, k_ms, k_bounds, k7_diff = {}, {}, {}, {}
+    for label in ("f32", "f64"):
+        try:
+            if label == "f64":
+                config.set_compute_dtype(None)
+            lp = make_log_posterior(ShockCooling2(lc), lc, flagship_priors(), device=dev)
+            for half in K2_HALVES:
+                pos = (rng.uniform(P_LO, P_UP, size=(2 * half, 4)) - off) / sc
+                x0 = torch.as_tensor(pos.reshape(2, half, 4), device=dev).float().contiguous()
+                res[(label, half)] = check_half_step(f"K2 {label} {half}", lp, off, sc, x0, seed,
+                                                     1e-5 if label == "f32" else 1e-10)
+                if half == K2_HALVES[0]:
+                    k7_diff[label] = k7_value_differences(lp, off, sc, x0, seed + 1)
+                if label == "f64":
+                    continue
+                logp0 = sc2.log_posterior(lp, x0.reshape(2 * half, 4), off, sc).reshape(2, half)
+                g = torch.Generator(device=dev)
+                g.manual_seed(seed)
+                u_z = torch.rand(half, generator=g, device=dev)
+                j = torch.randint(0, half, (half,), generator=g, device=dev)
+                u_acc = torch.rand(half, generator=g, device=dev)
+                xk, lk = x0.clone(), logp0.clone()
+                ak = torch.zeros((2, half), dtype=torch.int32, device=dev)
+
+                def step():
+                    sc2.stretch_half_step(lp, xk, lk, 0, u_z, j, u_acc, 2.0, off, sc,
+                                          n_accept=ak, check_partners=False)
+                if half == K2_HALVES[0]:
+                    name = warp_kernel_name(step, "stretch_half_step_kernel", "SC2WarpModel")
+                    xp, lpp = x0.clone(), logp0.clone()
+                    plain_ms = cuda_ms(lambda: sc2.stretch_half_step_plain(
+                        lambda q: sc2.log_posterior_plain(lp, q, off, sc), xp, lpp, 0, u_z, j,
+                        u_acc, 2.0), repeats=5)
+                k_ms[half] = (cuda_ms(step), device_ms(step, "stretch_half_step_kernel", 20, 1)[0])
+                k_bounds[half] = bound_fields(half * (sc2_eval_ops(lp.log_likelihood) + PROPOSAL),
+                                              half * (2 * 4 * 4 + 8 + 16 + 4)
+                                              + half * (4 * 4 + 8 + 4))
+        finally:
+            config.set_compute_dtype(config.AUTO)
+    top = K2_HALVES[0]
+    phase("K2", f"{name}: half-steps h=0,1 (f32 state, f64 logp, a warp per walker) at half "
+          + "; ".join(f"{half} {lab}: {c[1]} accepts, {c[0]} near-ties, new-logp max |d| "
+                      f"{c[2]:.3e}" for (lab, half), c in res.items())
+          + " (flags agree except the near-ties, new states bit-equal where they agree; <= 1e-5"
+          " / 1e-10 of the term scale); kernel (events; the profiler's device time) "
+          + ", ".join(f"{k_ms[h][0]:.4f}; {k_ms[h][1]:.4f} ms per half {h} (bound "
+                      f"{k_bounds[h]['bound_ms']:.5f})" for h in K2_HALVES)
+          + f", plain {plain_ms:.4f} ms per half {top} (f32)")
+    phase("K2 against K7", "proposals' log-posteriors in K2 (u_acc = 0, half "
+          f"{top}) that differ from K7's value at the same float64 parameters: "
+          + ", ".join(f"{lab} {v[1]} of {v[0]} (max |d| {v[2]:.3e})" for lab, v in k7_diff.items()))
+    return {"max_abs_err": max(c[2] for (lab, _), c in res.items() if lab == "f32"),
+            "ms": k_ms[top][0], "plain_ms": plain_ms, **k_bounds[top]}
 
 
 def fmt(values):
@@ -1239,57 +1322,100 @@ def ladder_setup(model, lc, priors, lo, up, R, W, rng, dev, outside=0.0):
     return lp, off, sc, x.contiguous()
 
 
+# K6a over SC2's widths, (rungs, half): the evidence (16a) and the PT fit (16b)
+K6A_LADDERS = ((EV_RUNGS + 1, EV_WALKERS // 2), (7, 16))
+
+
 def phase_k6a(lc, lcf, seed=8):
     import numpy as np
     import torch
     from lightcurve_fitting_tpu_torch import kernels
-    from lightcurve_fitting_tpu_torch.kernels import ladder
+    from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.kernels import common, ladder
     from lightcurve_fitting_tpu_torch.models import ShockCooling2, ShockCooling3
     from lightcurve_fitting_tpu_torch.parallel.evidence import make_beta_ladder
+    from time_port_kernels import device_ms
 
     dev = torch.device("cuda")
-    R = EV_RUNGS + 1
-    betas = torch.as_tensor(make_beta_ladder(EV_RUNGS), device=dev)
     n0 = kernels.LAUNCHES["tempered_half_step"]
-    lines, out = [], None
-    for label, model, lc_, priors, lo, up, W in (
-            ("SC2", ShockCooling2(lc), lc, flagship_priors(), P_LO, P_UP, EV_WALKERS),
-            ("SC3", ShockCooling3(lcf), lcf, sc3_priors(), SC3_LO, SC3_UP, 512)):
-        rng = np.random.default_rng(seed)
-        lp, off, sc, x0 = ladder_setup(model, lc_, priors, lo, up, R, W, rng, dev)
-        n_ties, n_acc, max_abs, d_init = check_ladder(f"{label} ladder", lp, off, sc, x0, seed,
-                                                      1e-5)
-        lines.append(f"{label} {R} rungs x {W} walkers: {n_acc} accepts, flags agree except "
-                     f"{n_ties} near-ties, states and log pi bit-equal where they agree, "
-                     f"log L max |d| {max_abs:.3e} (K6b {d_init:.3e})")
-        if label == "SC2":
-            half, ndim = W // 2, len(lo)
-            pri0, ll0 = ladder.ladder_init(lp, x0, off, sc)
-            g = torch.Generator(device=dev)
-            g.manual_seed(seed)
-            shape = (R, 2, half)
-            u_z = torch.rand(shape, generator=g, device=dev)
-            j = torch.randint(0, half, shape, generator=g, device=dev)
-            u_acc = torch.rand(shape, generator=g, device=dev)
-            fns = ladder.plain_functions(lp, off, sc)
-            xk, pk, lk = x0.clone(), pri0.clone(), ll0.clone()
-            ak = torch.zeros(shape, dtype=torch.int32, device=dev)
-            k_ms = cuda_ms(lambda: ladder.tempered_half_step(
-                lp, xk, pk, lk, betas, 0, u_z, j, u_acc, 2.0, off, sc, ak, check_partners=False))
-            xp, pp, lpl = x0.clone(), pri0.clone(), ll0.clone()
-            plain_ms = cuda_ms(lambda: ladder.tempered_half_step_plain(
-                *fns, xp, pp, lpl, betas, 0, u_z, j, u_acc, 2.0), repeats=5)
-            n = R * half
-            out = {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": plain_ms,
-                   **bound_fields(n * (sc2_eval_ops(lp.log_likelihood) + PROPOSAL),
-                                  n * (2 * ndim * 4 + 2 * 8 + 4 + 8 + 4) + R * 8
-                                  + n * (ndim * 4 + 2 * 8 + 4))}
-    phase("K6a", f"tempered half-steps h=0,1 (f32 rescaled state, f64 log pi and log L, "
-          f"beta_0 = 0; log L within 1e-5 of the term scale): {'; '.join(lines)}; "
-          f"{kernels.LAUNCHES['tempered_half_step'] - n0} comparison launches; kernel "
-          f"{out['ms']:.4f} ms vs plain {out['plain_ms']:.4f} ms per SC2 ladder half-step of "
-          f"{R} x {EV_WALKERS // 2}, bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
-    return out
+    lads, a_ms, a_bounds = {}, {}, {}
+    rng = np.random.default_rng(seed)
+    for label in ("f32", "f64"):
+        try:
+            if label == "f64":
+                config.set_compute_dtype(None)
+            for rungs, half in K6A_LADDERS:
+                lp, off, sc, x0 = ladder_setup(ShockCooling2(lc), lc, flagship_priors(), P_LO,
+                                               P_UP, rungs, 2 * half, rng, dev)
+                lads[(label, rungs, half)] = check_ladder(
+                    f"SC2 ladder {label} {rungs} x {half}", lp, off, sc, x0, seed,
+                    1e-5 if label == "f32" else 1e-10)
+                pri0, ll0 = ladder.ladder_init(lp, x0, off, sc)
+                betas = torch.as_tensor(make_beta_ladder(rungs - 1), device=dev)
+                g = torch.Generator(device=dev)
+                g.manual_seed(seed)
+                shape = (rungs, 2, half)
+                u_z = torch.rand(shape, generator=g, device=dev)
+                j = torch.randint(0, half, shape, generator=g, device=dev)
+                u_acc = torch.rand(shape, generator=g, device=dev)
+                if rungs == K6A_LADDERS[0][0]:
+                    # u_acc = 0: every proposal inside the priors accepted, its
+                    # log pi + log L against K7's value at the new state
+                    xs, ps, ls = x0.clone(), pri0.clone(), ll0.clone()
+                    acc = torch.zeros(shape, dtype=torch.int32, device=dev)
+                    ladder.tempered_half_step(lp, xs, ps, ls, betas, 0, u_z, j,
+                                              torch.zeros_like(u_z), 2.0, off, sc, acc)
+                    moved = acc[:, 0] == 1
+                    k7 = kernels.log_posterior_and_grad(
+                        lp, common.absolute_params(xs[:, 0], off, sc).reshape(-1, 4))[0]
+                    d = ((ps[:, 0] + ls[:, 0]).reshape(-1) - k7)[moved.reshape(-1)].abs()
+                    lads[(label, rungs, half)] += (int(moved.sum()), int((d != 0).sum()),
+                                                   float(d.max()))
+                if label == "f64":
+                    continue
+                xk, pk, lk = x0.clone(), pri0.clone(), ll0.clone()
+                ak = torch.zeros(shape, dtype=torch.int32, device=dev)
+
+                def step():
+                    ladder.tempered_half_step(lp, xk, pk, lk, betas, 0, u_z, j, u_acc, 2.0, off,
+                                              sc, ak, check_partners=False)
+                a_ms[rungs] = (cuda_ms(step),
+                               device_ms(step, "tempered_half_step_kernel", 20, 1)[0])
+                n = rungs * half
+                a_bounds[rungs] = bound_fields(n * (sc2_eval_ops(lp.log_likelihood) + PROPOSAL),
+                                               n * (2 * 4 * 4 + 2 * 8 + 4 + 8 + 4) + rungs * 8
+                                               + n * (4 * 4 + 2 * 8 + 4))
+                if rungs == K6A_LADDERS[0][0]:
+                    name = warp_kernel_name(step, "tempered_half_step_kernel", "SC2WarpModel")
+                    fns = ladder.plain_functions(lp, off, sc)
+                    xp, pp, lpl = x0.clone(), pri0.clone(), ll0.clone()
+                    plain_ms = cuda_ms(lambda: ladder.tempered_half_step_plain(
+                        *fns, xp, pp, lpl, betas, 0, u_z, j, u_acc, 2.0), repeats=5)
+        finally:
+            config.set_compute_dtype(config.AUTO)
+    # K6a over SC3 (a thread per walker), 17 rungs x 512
+    R = EV_RUNGS + 1
+    lp3, off3, sc3_, x3 = ladder_setup(ShockCooling3(lcf), lcf, sc3_priors(), SC3_LO, SC3_UP, R,
+                                       512, np.random.default_rng(seed), dev)
+    t3 = check_ladder("SC3 ladder", lp3, off3, sc3_, x3, seed, 1e-5)
+    top = K6A_LADDERS[0][0]
+    phase("K6a", f"{name}: tempered half-steps h=0,1 (f32 rescaled state, f64 log pi and log "
+          "L, beta_0 = 0; log L within 1e-5 / 1e-10 of the term scale): SC2 "
+          + "; ".join(f"{r} x {2 * hh} {lab}: {v[1]} accepts, flags agree except {v[0]} "
+                      f"near-ties, log L max |d| {v[2]:.3e} (K6b {v[3]:.3e})"
+                      for (lab, r, hh), v in lads.items())
+          + f"; SC3 {R} x 512: {t3[1]} accepts, {t3[0]} near-ties, log L max |d| {t3[2]:.3e} "
+          f"(K6b {t3[3]:.3e}); states and log pi bit-equal where the flags agree; "
+          f"{kernels.LAUNCHES['tempered_half_step'] - n0} comparison launches; K6a over SC2 "
+          "(events; the profiler's device time) " + ", ".join(
+              f"{a_ms[r][0]:.4f}; {a_ms[r][1]:.4f} ms per {r} x half {hh} (bound "
+              f"{a_bounds[r]['bound_ms']:.5f})" for r, hh in K6A_LADDERS)
+          + f", plain {plain_ms:.4f} ms per {top} x half {EV_WALKERS // 2} (f32); "
+          "proposals' log pi + log L (u_acc = 0) that differ from K7's value: "
+          + ", ".join(f"{lab} {v[5]} of {v[4]} (max |d| {v[6]:.3e})"
+                      for (lab, r, hh), v in lads.items() if len(v) > 4))
+    return {"max_abs_err": max(v[2] for k, v in lads.items() if k[0] == "f32"),
+            "ms": a_ms[top][0], "plain_ms": plain_ms, **a_bounds[top]}
 
 
 def phase_k6bcd(lc, seed=9):
@@ -2439,7 +2565,8 @@ def phase_cs_logpost(lc, lc0, rng_seed=17):
                 def step():
                     ladder.tempered_half_step(lp2, *state, betas, 0, uz, jl, ua, 2.0, off, sc, al,
                                               check_partners=False)
-                a_ms[rungs] = (cuda_ms(step), device_ms(step, "tempered_half_step_kernel", 20, 1)[0])
+                a_ms[rungs] = (cuda_ms(step),
+                               device_ms(step, "tempered_half_step_kernel", 20, 1)[0])
                 n = rungs * half
                 a_bounds[rungs] = bound_fields(n * (cs_eval_ops(ll) + PROPOSAL),
                                                n * (2 * 7 * 4 + 2 * 8 + 4 + 8 + 4) + rungs * 8
@@ -2712,7 +2839,7 @@ def main():
         dict(name="sc2_logpost_kernel (K1)", route="cuda", source=src,
              replaces="lightcurve_fitting_tpu/fitting.py:62", launches=launches["sc2_logpost"],
              **k1),
-        dict(name="stretch_half_step_kernel (K2)", route="cuda", source=src,
+        dict(name="stretch_half_step_kernel<SC2WarpModel, WARP> (K2)", route="cuda", source=src,
              replaces="lightcurve_fitting_tpu/parallel/sampler.py:86",
              launches=launches["stretch_half_step"], **k2),
         dict(name="bandflux_kernel (K3)", route="cuda", source=src3,
@@ -2737,8 +2864,8 @@ def main():
              source="lightcurve_fitting_tpu_torch/kernels/csrc/quantile.cu",
              replaces="lightcurve_fitting_tpu/ops/quantile.py:46",
              launches=launches_bol["percentile"], **k5),
-        dict(name="tempered_half_step_kernel<SC2Model> (K6a)", route="cuda",
-             source="lightcurve_fitting_tpu_torch/kernels/csrc/ladder.cuh",
+        dict(name="tempered_half_step_kernel<SC2WarpModel, WARP> (K6a)", route="cuda",
+             source=src,
              replaces="lightcurve_fitting_tpu/parallel/evidence.py:60",
              launches=launches_ladder["tempered_half_step"], **k6a),
         dict(name="ladder_init_kernel<SC2Model> (K6b)", route="cuda",

@@ -1,8 +1,9 @@
 // K6: the tempered ladder's model kernels, templates over a model policy M of
 // stretch.cuh that provides log_likelihood (SC2Model in sc2_logpost.cu,
-// SC3Model in sc3_logpost.cu, CSModel in companion.cu; K6a over CS runs a
-// warp per walker, CSWarpModel). The model-free K6 kernels (the replica
-// exchange and the stepping-stone block terms) are in ladder.cu.
+// SC3Model in sc3_logpost.cu, CSModel in companion.cu; K6a over SC2 and
+// over CS runs a warp per walker, SC2WarpModel and CSWarpModel). The
+// model-free K6 kernels (the replica exchange and the stepping-stone block
+// terms) are in ladder.cu.
 //
 // Replaces (JAX package, lightcurve_fitting_tpu/):
 //   K6a parallel/evidence.py:60-74 (half_update) and :76-83 (the step_one
@@ -23,11 +24,13 @@
 // rejected, so its likelihood is never read). The acceptance sums run in
 // float64 with round-to-nearest intrinsics, in the JAX graph's order, so that
 // no multiply-add contraction moves a near-tie; beta log L is 0 on a
-// beta = 0 rung, where 0 x (-inf) would be NaN. With WARP (CSWarpModel) a
-// warp runs each walker, its lanes over the points, in batches of walkers
-// as the warp form of the stretch half-step (stretch.cuh, warp_batch_ll): a
-// thread per walker left the CS ladders (7 rungs x half 32, 17 x 2048) a
-// few warps an SM, each walking 108 dependent point evaluations.
+// beta = 0 rung, where 0 x (-inf) would be NaN. With WARP (SC2WarpModel,
+// CSWarpModel) a warp runs each walker, its lanes over the points, in
+// batches of walkers as the warp form of the stretch half-step (stretch.cuh,
+// warp_batch_ll): a thread per walker left the ladders of the fits (7 rungs
+// x half 16 or 32, 17 x 2048) a few warps an SM, each walking 149 (SC2) or
+// 108 (CS) dependent point evaluations. K6a over SC3 keeps a thread per
+// walker.
 
 #pragma once
 

@@ -10,7 +10,7 @@
 //       :97-104 (step) and :205-225 (thinned_step).
 //   K6a, K6b over ShockCooling2: the tempered half-step and the ladder's
 //       initial state (parallel/evidence.py:60-83, :229-235), the templates
-//       of ladder.cuh over SC2Model.
+//       of ladder.cuh over SC2WarpModel (K6a) and SC2Model (K6b).
 //   K7, K7h, K9 over ShockCooling2: the value and gradient of the
 //       log-posterior (jax.value_and_grad of K1's graph), the HMC and the
 //       NUTS transitions, the templates of gradient.cuh over SC2Model, whose
@@ -19,22 +19,49 @@
 //
 // What bounds it on the H100: FP32 ALU work. One evaluation is ~23.5k flops
 // over the N = 149 points of the flagship, of which the degree-40 Clenshaw
-// recurrence is 3 * deg * N ~ 17.9k; the per-point data is 26 KB in f32 and
-// is shared by every walker, so device-memory traffic is negligible.
-// What the design does about it: one thread per walker loops over the
-// points with the per-point constants staged once per block in shared memory
-// (every thread of a warp reads the same address: a broadcast, no bank
-// conflicts), so the inner loop is register FMAs. The prior bounds are tested
-// first and an out-of-prior walker returns -inf without touching the
-// likelihood (the JAX graph evaluates it and masks it afterwards: same value).
-// K1 and K2 share one __device__ function, so a proposal's log-posterior is
-// bit-identical to the batch evaluation of the same point. K2 is the
-// stretch_half_step_kernel template of stretch.cuh over SC2Model.
-// Measured on an H100 80GB HBM3 at 700 W: K1 reaches ~6 TFLOP/s (9% of the
-// FP32 peak) at 131072 walkers, and a launch never takes less than ~0.18 ms
-// however few the walkers: one thread walks all points through a dependent
-// Clenshaw chain, so the kernel is bound by that chain's latency, not by the
-// ALU rate. Spreading a walker's points over a warp is the next step.
+// recurrence is 3 * deg * N ~ 17.9k; the per-point data is 28.6 KB in f32
+// (57.2 KB in f64) and is shared by every walker, so device-memory traffic
+// is negligible.
+// What the design does about it: the per-point constants are staged once
+// per block in shared memory and the prior bounds are tested first (an
+// out-of-prior walker returns -inf without touching the likelihood; the JAX
+// graph evaluates it and masks it afterwards: same value). Every kernel
+// computes a point through one __device__ function, sc2_forward (T, L and R
+// with their power laws, the clip, the Clenshaw recurrence, the residual);
+// the kernels differ in who sums the points, and in what order:
+// - K1 and K6b (2 and 1 launches a run) run a thread per walker, which sums
+//   the points in time order (sc2_log_likelihood; every thread of a warp
+//   reads the same address: a broadcast). A launch never takes less than
+//   ~0.18 ms however few the walkers (one thread walks all 149 points
+//   through a dependent Clenshaw chain: latency, not the ALU rate).
+// - K2 and K6a (the step loops) run a warp per walker (SC2WarpModel): lane l
+//   takes the points l, l + 32, ... (five at most, 93% of the slots busy),
+//   sums its terms in that order, and a butterfly sums the lanes
+//   (sc2_log_likelihood_warp). A warp takes its walkers in batches whose
+//   prologues (proposal, prior, constants) run a walker a lane
+//   (stretch.cuh, warp_batch_ll). This is K7's order and code, so in
+//   float32 a proposal's log-posterior in K2 and K6a has K7's value bits at
+//   the same parameters (chip_smoke.py checks it). In float64 the compiler
+//   fuses y - F / yscale into one FMA in K7 and rounds the product first in
+//   K2, so a quarter of the values differ from K7's in the last bits
+//   (~1e-13 relative). Either differs from K1's by the rounding of the sum
+//   order (an unmoved walker keeps K1's value).
+// - K7, K7h and K9 add the derivative recurrence and the reverse pass to
+//   sc2_forward (sc2_point) and fold the points in the warp's order.
+// Lane l reads row l of the (N, 41) coefficient table at offset 41 l + k:
+// 41 is odd, so in float32 the 32 lanes hit 32 banks; in float64 the 8-byte
+// words go in half-warps and 82 l mod 32 (in 4-byte banks) takes 16
+// distinct even values over l = 0..15. (Reasoned, not counted: ncu does not
+// run on the card's machine.)
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (tools/time_port_kernels.py,
+// the profiler's device time): K2 0.0148 ms per half 32, 0.067 per 16384,
+// 0.234 per 65536 (a thread per walker: 0.21, 0.19, 0.28); K6a 0.0153 ms
+// per 7 rungs x half 16, 0.141 per 17 x 2048 (0.21, 0.22). At the large
+// widths a walker costs about what it did a thread per walker: the point's
+// instructions (four powf, the recurrence) set the time, not the latency.
+// Interleaving a lane's two points in one loop (two chains at once) was
+// 18% slower at half 65536: at the 64-register cap of 1024-thread blocks
+// it spills.
 //
 // Dtype semantics follow the JAX accelerator path exactly: parameters are
 // rebuilt in f64 as offset + scale * q and the priors see those f64 values;
@@ -132,51 +159,158 @@ __device__ PointData<C> stage_points(const SC2Params& P, C* smem, int use_smem) 
     return d;
 }
 
+// The walker's parameters in the compute type, and the model's constants.
+template <typename C>
+struct SC2Walker {
+    C T1, L1, t_tr, t_exp, eT, eL, a_mod, alpha, c3, inv_yscale, sig;
+};
+
+template <typename C>
+__device__ __forceinline__ SC2Walker<C> sc2_walker(const double* p, const SC2Params& P,
+                                                   int ndim) {
+    SC2Walker<C> w;
+    w.T1 = (C)p[0];
+    w.L1 = (C)p[1];
+    w.t_tr = (C)p[2];
+    w.t_exp = (C)(p[3] - P.t_ref);
+    w.eT = (C)P.eps_T;
+    w.eL = (C)P.eps_L;
+    w.a_mod = (C)P.a_model;
+    w.alpha = (C)P.alpha;
+    w.c3 = (C)P.c3_42;
+    w.inv_yscale = (C)P.inv_yscale;
+    w.sig = P.use_sigma ? (C)p[ndim - 1] : C(0);
+    return w;
+}
+
+// Point n's forward pass, and what the reverse pass reads of it.
+template <typename C>
+struct SC2Forward {
+    C tt, ptT, T, uu, pu, E, ptL, L1E, sL, pT2, c3sL, R;   // ShockCooling2._tr_points
+    C s_a, s, b1, b2, G, F;   // the band table: s, the recurrence's last two links, g, the flux
+    C r, res, sigma2, sg;     // the residual (res, sigma2, sg: with the intrinsic scatter)
+    bool tpos, upos, Tpos, clipped;
+};
+
+// Point n of the walker w, forward: the power laws of ShockCooling2._tr_points
+// (0 where power's base is <= 0 or NaN, ops/mathx.py:28-57), T, L and R, the
+// band table's s = clip(a ln T - b, -1, 1) and its degree-(K-1) Clenshaw
+// recurrence (skipped where T <= 0 or NaN: zero flux), y_fit, and the
+// residual r: (y - y_fit) / dy, whose square is the point's term, or with
+// the intrinsic scatter the term log(2 pi sigma2) + res^2 / sigma2 itself.
+// Every kernel of this file computes its points here. The gradient's
+// sc2_point adds to it through two hooks: before(f), called once T, L and R
+// are known and before the recurrence, and link(two_s, b1, b2), called at
+// each link of the recurrence before it moves; the value alone passes
+// no-ops (sc2_no_before, sc2_no_link).
+template <typename C, typename Before, typename Link>
+__device__ __forceinline__ SC2Forward<C> sc2_forward(int n, const SC2Walker<C>& w,
+                                                     const PointData<C>& d, int K,
+                                                     bool use_sigma, Before before, Link link) {
+    SC2Forward<C> f;
+    f.tt = d.tc[n] - w.t_exp;
+    f.tpos = f.tt > C(0);
+    f.ptT = f.tpos ? m_pow(f.tt, w.eT) : C(0);
+    f.T = w.T1 * f.ptT;
+    f.uu = (w.a_mod * f.tt) / w.t_tr;
+    f.upos = f.uu > C(0);
+    f.pu = f.upos ? m_pow(f.uu, w.alpha) : C(0);
+    f.E = m_exp(-f.pu);
+    f.ptL = f.tpos ? m_pow(f.tt, w.eL) : C(0);
+    f.L1E = w.L1 * f.E;
+    const C L = f.L1E * f.ptL;
+    f.sL = m_sqrt(L);
+    f.Tpos = f.T > C(0);
+    f.pT2 = f.Tpos ? m_pow(f.T, C(-2)) : C(0);
+    f.c3sL = w.c3 * f.sL;
+    f.R = f.c3sL * f.pT2;
+    before(f);
+    f.s_a = f.s = f.b1 = f.b2 = f.G = f.F = C(0);
+    f.clipped = false;
+    if (f.Tpos) {
+        f.s_a = d.s_a[n];
+        const C s_raw = m_log(f.T) * f.s_a - d.s_b[n];
+        f.clipped = !(s_raw >= C(-1) && s_raw <= C(1));
+        f.s = s_raw < C(-1) ? C(-1) : (s_raw > C(1) ? C(1) : s_raw);   // NaN stays NaN
+        const C two_s = C(2) * f.s;
+        const C* c = d.coef + (size_t)n * K;
+        C b1 = C(0), b2 = C(0);
+        for (int k = K - 1; k >= 1; --k) {
+            link(two_s, b1, b2);
+            const C b0 = two_s * b1 - b2 + c[k];
+            b2 = b1;
+            b1 = b0;
+        }
+        f.b1 = b1;
+        f.b2 = b2;
+        const C ln_g = f.s * b1 - b2 + c[0];
+        f.G = m_exp(ln_g);
+        f.F = f.R * f.R * f.G;
+    }
+    const C y_fit = f.F * w.inv_yscale;
+    if (use_sigma) {
+        const C two_pi = (C)6.283185307179586;
+        f.sg = w.sig * d.su[n];
+        f.sigma2 = d.dy[n] * d.dy[n] + f.sg * f.sg;
+        f.res = d.y[n] - y_fit;
+        f.r = m_log(two_pi * f.sigma2) + f.res * f.res / f.sigma2;
+    } else {
+        f.r = (d.y[n] - y_fit) * d.inv_dy[n];
+        f.res = f.sigma2 = f.sg = C(0);
+    }
+    return f;
+}
+
+struct sc2_no_before {
+    template <typename F>
+    __device__ __forceinline__ void operator()(const F&) const {}
+};
+struct sc2_no_link {
+    template <typename C>
+    __device__ __forceinline__ void operator()(C, C, C) const {}
+};
+
+// The point's term added to the residual sum: r * r, or r itself with the
+// intrinsic scatter.
+template <typename C>
+__device__ __forceinline__ void sc2_add_term(C& acc, C r, bool use_sigma) {
+    if (use_sigma) {
+        acc += r;
+    } else {
+        acc += r * r;
+    }
+}
+
 // The Gaussian log-likelihood of the ShockCooling2 band fluxes of one walker
 // at absolute parameters p[ndim], float64; -inf when not finite. It does not
-// look at the priors.
+// look at the priors. One thread sums the points in time order (K1, K6b).
 template <typename C>
 __device__ double sc2_log_likelihood(const double* p, const PointData<C>& d, const SC2Params& P) {
-    const int ndim = (int)P.ndim;
-    const C T1 = (C)p[0];
-    const C L1 = (C)p[1];
-    const C t_tr = (C)p[2];
-    const C t_exp = (C)(p[3] - P.t_ref);
-    const C eps_T = (C)P.eps_T;
-    const C eps_L = (C)P.eps_L;
-    const C a_mod = (C)P.a_model;
-    const C alpha = (C)P.alpha;
-    const C c3 = (C)P.c3_42;
-    const C inv_yscale = (C)P.inv_yscale;
-    const C sig = P.use_sigma ? (C)p[ndim - 1] : C(0);
-    const int N = (int)P.n_points;
-    const int K = (int)P.n_coef;
-
+    const SC2Walker<C> w = sc2_walker<C>(p, P, (int)P.ndim);
+    const int N = (int)P.n_points, K = (int)P.n_coef;
+    const bool use_sigma = P.use_sigma != 0;
     C acc = C(0);
-    for (int n = 0; n < N; ++n) {
-        const C tt = d.tc[n] - t_exp;
-        const C T = T1 * power0(tt, eps_T);
-        const C L = L1 * m_exp(-power0(a_mod * tt / t_tr, alpha)) * power0(tt, eps_L);
-        const C R = c3 * m_sqrt(L) * power0(T, C(-2));
-        C y_fit = C(0);
-        if (T > C(0)) {  // T <= 0 (t before t_exp) or NaN: zero flux
-            C s = m_log(T) * d.s_a[n] - d.s_b[n];
-            s = s < C(-1) ? C(-1) : (s > C(1) ? C(1) : s);  // clip, NaN stays NaN
-            const C two_s = C(2) * s;
-            const C* c = d.coef + (size_t)n * K;
-            C b1 = C(0), b2 = C(0);
-            for (int k = K - 1; k >= 1; --k) {
-                const C b0 = two_s * b1 - b2 + c[k];
-                b2 = b1;
-                b1 = b0;
-            }
-            const C ln_g = s * b1 - b2 + c[0];
-            y_fit = R * R * m_exp(ln_g);
-        }
-        y_fit = y_fit * inv_yscale;
-        acc += residual_term<C>(P.use_sigma, y_fit, d.y[n], d.inv_dy[n], d.dy[n], d.su[n], sig);
-    }
+    for (int n = 0; n < N; ++n)
+        sc2_add_term(acc, sc2_forward<C>(n, w, d, K, use_sigma, sc2_no_before(), sc2_no_link()).r,
+                     use_sigma);
     return finish_log_likelihood<C>(acc, P.use_sigma, P.ll_offset, P.log_norm_const);
+}
+
+// The same log-likelihood of the walker with constants w, computed by the 32
+// lanes of a warp together (K2, K6a), every lane returning the same bits:
+// lane l sums the terms of points l, l + 32, l + 64, ... in that order, then
+// a butterfly shuffle sums the lanes. This is the order of K7's value
+// (sc2_value_and_grad_warp), without the derivatives.
+template <typename C>
+__device__ double sc2_log_likelihood_warp(const SC2Walker<C>& w, const PointData<C>& d,
+                                          const SC2Params& P) {
+    const int N = (int)P.n_points, K = (int)P.n_coef;
+    const bool use_sigma = P.use_sigma != 0;
+    C acc = C(0);
+    for (int n = threadIdx.x & 31; n < N; n += 32)
+        sc2_add_term(acc, sc2_forward<C>(n, w, d, K, use_sigma, sc2_no_before(), sc2_no_link()).r,
+                     use_sigma);
+    return finish_log_likelihood<C>(warp_sum(acc), P.use_sigma, P.ll_offset, P.log_norm_const);
 }
 
 // The log-posterior of one walker at absolute parameters p[ndim]: the sum of
@@ -214,12 +348,6 @@ __device__ double sc2_log_posterior(const double* p, const PointData<C>& d, cons
 // JAX graph; the callers mask it as the JAX callers do.
 // -inf (and g = 0) outside the priors or where the likelihood is not finite.
 
-// The walker's parameters in the compute type, and the model's constants.
-template <typename C>
-struct SC2Walker {
-    C T1, L1, t_tr, t_exp, eT, eL, a_mod, alpha, c3, inv_yscale, sig;
-};
-
 // One point's part of the six sums, as the factors the sums take it in: the
 // residual term r * r (r alone with the intrinsic scatter), ct_T * ptT,
 // ct_L1E * E, the t_tr and tt derivatives, and the sigma derivative s0 * s1.
@@ -238,125 +366,71 @@ struct SC2Sums {
 template <typename C>
 __device__ __forceinline__ void sc2_accumulate(SC2Sums<C>& s, const SC2Point<C>& q,
                                                bool use_sigma) {
-    if (use_sigma) {
-        s.acc += q.r;
-        s.dsig += q.s0 * q.s1;
-    } else {
-        s.acc += q.r * q.r;
-    }
+    sc2_add_term(s.acc, q.r, use_sigma);
+    if (use_sigma) s.dsig += q.s0 * q.s1;
     s.dT1 += q.t0 * q.t1;
     s.dL1 += q.l0 * q.l1;
     s.dttr += q.ttr;
     s.dtt += q.tt;
 }
 
-template <typename C>
-__device__ __forceinline__ SC2Walker<C> sc2_walker(const double* p, const SC2Params& P,
-                                                   int ndim) {
-    SC2Walker<C> w;
-    w.T1 = (C)p[0];
-    w.L1 = (C)p[1];
-    w.t_tr = (C)p[2];
-    w.t_exp = (C)(p[3] - P.t_ref);
-    w.eT = (C)P.eps_T;
-    w.eL = (C)P.eps_L;
-    w.a_mod = (C)P.a_model;
-    w.alpha = (C)P.alpha;
-    w.c3 = (C)P.c3_42;
-    w.inv_yscale = (C)P.inv_yscale;
-    w.sig = P.use_sigma ? (C)p[ndim - 1] : C(0);
-    return w;
-}
-
-// Point n's residual term and its reverse pass.
+// Point n's residual term (sc2_forward) and its reverse pass.
 template <typename C>
 __device__ __forceinline__ SC2Point<C> sc2_point(int n, const SC2Walker<C>& w,
                                                  const PointData<C>& d, int K, bool use_sigma) {
-    const C tt = d.tc[n] - w.t_exp;
-    const bool tpos = tt > C(0);
-    const C ptT = tpos ? m_pow(tt, w.eT) : C(0);
-    const C T = w.T1 * ptT;
-    const C uu = (w.a_mod * tt) / w.t_tr;
-    const bool upos = uu > C(0);
-    const C pu = upos ? m_pow(uu, w.alpha) : C(0);
-    const C E = m_exp(-pu);
-    const C ptL = tpos ? m_pow(tt, w.eL) : C(0);
-    const C L1E = w.L1 * E;
-    const C L = L1E * ptL;
-    const C sL = m_sqrt(L);
-    const bool Tpos = T > C(0);
-    const C pT2 = Tpos ? m_pow(T, C(-2)) : C(0);
-    const C c3sL = w.c3 * sL;
-    const C R = c3sL * pT2;
-    // the power laws of the reverse pass, issued before the recurrence
-    // (they do not depend on it)
-    const C pT3 = Tpos ? m_pow(T, C(-3)) : C(0);
-    const C pua = upos ? m_pow(uu, w.alpha - C(1)) : C(0);
-    const C ptL1 = tpos ? m_pow(tt, w.eL - C(1)) : C(0);
-    const C ptT1 = tpos ? m_pow(tt, w.eT - C(1)) : C(0);
-    C F = C(0), G = C(0), dlng = C(0), s_a = C(0);
-    bool clipped = false;
-    if (Tpos) {
-        s_a = d.s_a[n];
-        const C s_raw = m_log(T) * s_a - d.s_b[n];
-        clipped = !(s_raw >= C(-1) && s_raw <= C(1));
-        const C s = s_raw < C(-1) ? C(-1) : (s_raw > C(1) ? C(1) : s_raw);
-        const C two_s = C(2) * s;
-        const C* c = d.coef + (size_t)n * K;
-        C b1 = C(0), b2 = C(0), d1 = C(0), d2 = C(0);
-        for (int k = K - 1; k >= 1; --k) {
-            const C d0 = C(2) * b1 + two_s * d1 - d2;
-            const C b0 = two_s * b1 - b2 + c[k];
-            b2 = b1;
-            b1 = b0;
+    // the power laws of the reverse pass, issued before the recurrence (they
+    // do not depend on it), and the derivative recurrence run alongside it;
+    // its product 2 s d_{k+1} is rounded on its own (mul_rn): the compiler
+    // may fuse it with 2 b_{k+1} where this hook is inlined, which would
+    // change K7's, K7h's and K9's gradient bits
+    C pT3 = C(0), pua = C(0), ptL1 = C(0), ptT1 = C(0), d1 = C(0), d2 = C(0);
+    const SC2Forward<C> f = sc2_forward<C>(
+        n, w, d, K, use_sigma,
+        [&](const SC2Forward<C>& v) {
+            pT3 = v.Tpos ? m_pow(v.T, C(-3)) : C(0);
+            pua = v.upos ? m_pow(v.uu, w.alpha - C(1)) : C(0);
+            ptL1 = v.tpos ? m_pow(v.tt, w.eL - C(1)) : C(0);
+            ptT1 = v.tpos ? m_pow(v.tt, w.eT - C(1)) : C(0);
+        },
+        [&](C two_s, C b1, C) {
+            const C d0 = C(2) * b1 + mul_rn(two_s, d1) - d2;
             d2 = d1;
             d1 = d0;
-        }
-        const C ln_g = s * b1 - b2 + c[0];
-        dlng = b1 + s * d1 - d2;
-        G = m_exp(ln_g);
-        F = R * R * G;
-    }
-    const C y_fit = F * w.inv_yscale;
+        });
+    const C dlng = f.Tpos ? f.b1 + f.s * d1 - d2 : C(0);
     SC2Point<C> q;
+    q.r = f.r;
     C dy_fit;   // d term / d y_fit
     if (use_sigma) {
-        const C two_pi = (C)6.283185307179586;
-        const C sg = w.sig * d.su[n];
-        const C sigma2 = d.dy[n] * d.dy[n] + sg * sg;
-        const C res = d.y[n] - y_fit;
-        q.r = m_log(two_pi * sigma2) + res * res / sigma2;
-        dy_fit = C(-2) * res / sigma2;
-        q.s0 = C(1) / sigma2 - res * res / (sigma2 * sigma2);
-        q.s1 = C(2) * sg * d.su[n];
+        dy_fit = C(-2) * f.res / f.sigma2;
+        q.s0 = C(1) / f.sigma2 - f.res * f.res / (f.sigma2 * f.sigma2);
+        q.s1 = C(2) * f.sg * d.su[n];
     } else {
-        const C r = (d.y[n] - y_fit) * d.inv_dy[n];
-        q.r = r;
-        dy_fit = C(-2) * r * d.inv_dy[n];
+        dy_fit = C(-2) * f.r * d.inv_dy[n];
         q.s0 = q.s1 = C(0);
     }
     // the reverse pass (cotangents of the residual term)
     const C ct_F = dy_fit * w.inv_yscale;
-    const C ct_R = Tpos ? ct_F * (C(2) * R * G) : C(0);
-    const C ct_s = Tpos && !clipped ? ct_F * F * dlng : C(0);
-    C ct_T = Tpos ? ct_s * s_a / T : C(0);
-    const C ct_pT2 = ct_R * c3sL;
-    ct_T += Tpos ? ct_pT2 * (C(-2) * pT3) : C(0);
-    const C ct_sL = (ct_R * pT2) * w.c3;
-    const C ct_L = ct_sL * (C(0.5) / sL);
-    const C ct_L1E = ct_L * ptL;
-    const C ct_ptL = ct_L * L1E;
+    const C ct_R = f.Tpos ? ct_F * (C(2) * f.R * f.G) : C(0);
+    const C ct_s = f.Tpos && !f.clipped ? ct_F * f.F * dlng : C(0);
+    C ct_T = f.Tpos ? ct_s * f.s_a / f.T : C(0);
+    const C ct_pT2 = ct_R * f.c3sL;
+    ct_T += f.Tpos ? ct_pT2 * (C(-2) * pT3) : C(0);
+    const C ct_sL = (ct_R * f.pT2) * w.c3;
+    const C ct_L = ct_sL * (C(0.5) / f.sL);
+    const C ct_L1E = ct_L * f.ptL;
+    const C ct_ptL = ct_L * f.L1E;
     const C ct_E = ct_L1E * w.L1;
-    const C ct_pu = -(ct_E * E);
-    const C ct_uu = upos ? ct_pu * (w.alpha * pua) : C(0);
+    const C ct_pu = -(ct_E * f.E);
+    const C ct_uu = f.upos ? ct_pu * (w.alpha * pua) : C(0);
     C ct_tt = (ct_uu / w.t_tr) * w.a_mod;
-    ct_tt += tpos ? ct_ptL * (w.eL * ptL1) : C(0);
-    ct_tt += tpos ? (ct_T * w.T1) * (w.eT * ptT1) : C(0);
+    ct_tt += f.tpos ? ct_ptL * (w.eL * ptL1) : C(0);
+    ct_tt += f.tpos ? (ct_T * w.T1) * (w.eT * ptT1) : C(0);
     q.t0 = ct_T;
-    q.t1 = ptT;
+    q.t1 = f.ptT;
     q.l0 = ct_L1E;
-    q.l1 = E;
-    q.ttr = -ct_uu * uu / w.t_tr;
+    q.l1 = f.E;
+    q.ttr = -ct_uu * f.uu / w.t_tr;
     q.tt = ct_tt;
     return q;
 }
@@ -468,9 +542,6 @@ struct SC2Model {
     static __device__ Data stage(const Params& P, unsigned char* smem, int use_smem, int) {
         return stage_points<C>(P, reinterpret_cast<C*>(smem), use_smem);
     }
-    static __device__ double log_posterior(const double* p, const Data& d, const Params& P) {
-        return sc2_log_posterior<C>(p, d, P);
-    }
     static __device__ double log_likelihood(const double* p, const Data& d, const Params& P) {
         return sc2_log_likelihood<C>(p, d, P);
     }
@@ -486,6 +557,28 @@ struct SC2Model {
                                                   const Params& P, double* g, void* ws,
                                                   int& turn) {
         return sc2_value_and_grad_block<C, NDIM>(p, d, P, g, static_cast<SC2Point<C>*>(ws), turn);
+    }
+};
+
+// The policy of K2 and of K6a over ShockCooling2: a warp per walker
+// (stretch_half_step_kernel and tempered_half_step_kernel with WARP), 32
+// warps a block in float32 (the tables, 28.6 KB, staged once a block) and
+// 16 in float64 (57.2 KB, over the 48 KB default: smem_plan opts in, and
+// warp_layout's occupancy query sees it), batched: a warp takes its walkers
+// in batches whose prologues (the proposal, the prior, sc2_walker's casts)
+// run a walker a lane, the walker's 11 constants shuffled to the warp for
+// its points (warp_layout, warp_batch_ll).
+template <typename C>
+struct SC2WarpModel : SC2Model<C> {
+    typedef SC2Walker<C> Walker;
+    static constexpr int warps_per_block = sizeof(C) == sizeof(float) ? 32 : 16;
+    static constexpr bool batched = true;
+    static __device__ Walker walker(const double* p, const SC2Params& P) {
+        return sc2_walker<C>(p, P, (int)P.ndim);
+    }
+    static __device__ double log_likelihood_warp(const Walker& w, const PointData<C>& d,
+                                                 const SC2Params& P) {
+        return sc2_log_likelihood_warp<C>(w, d, P);
     }
 };
 
@@ -538,27 +631,28 @@ int sc2_logpost_launch(const SC2Params* P, int device, int compute_f64, const vo
                  : launch_logpost<float, float>(*P, q, W, out, s);
 }
 
-// K2 launch. chain_x/chain_lp may be null (a thinned step that is not
-// stored). Returns 0 or a cudaError_t code.
+// K2 launch, a warp per walker (SC2WarpModel). chain_x/chain_lp may be null
+// (a thinned step that is not stored). Returns 0 or a cudaError_t code.
 int stretch_half_step_launch(const SC2Params* P, int device, int compute_f64, void* x,
                              int state_f64, double* logp, int half, int h, const void* u_z,
                              const long long* j, const void* u_acc, double a, void* chain_x,
                              int chain_x_f64, void* chain_lp, int chain_lp_f64,
                              int* n_accept, void* stream) {
-    return launch_half_step<SC2Model>(P, device, compute_f64, x, state_f64, logp, half, h, u_z,
-                                      j, u_acc, a, chain_x, chain_x_f64, chain_lp, chain_lp_f64,
-                                      n_accept, stream);
+    return launch_half_step<SC2WarpModel, true>(P, device, compute_f64, x, state_f64, logp, half,
+                                                h, u_z, j, u_acc, a, chain_x, chain_x_f64,
+                                                chain_lp, chain_lp_f64, n_accept, stream);
 }
 
-// K6a launch over ShockCooling2 (ladder.cuh). Returns 0 or a cudaError_t code.
+// K6a launch over ShockCooling2 (ladder.cuh), a warp per walker
+// (SC2WarpModel). Returns 0 or a cudaError_t code.
 int sc2_tempered_half_step_launch(const SC2Params* P, int device, int compute_f64, void* x,
                                   int state_f64, double* logpri, double* logl,
                                   const double* betas, int n_rungs, int half, int h,
                                   const void* u_z, const long long* j, const void* u_acc,
                                   double a, int* n_accept, void* stream) {
-    return launch_tempered_half_step<SC2Model>(P, device, compute_f64, x, state_f64, logpri, logl,
-                                               betas, n_rungs, half, h, u_z, j, u_acc, a,
-                                               n_accept, stream);
+    return launch_tempered_half_step<SC2WarpModel, true>(P, device, compute_f64, x, state_f64,
+                                                         logpri, logl, betas, n_rungs, half, h,
+                                                         u_z, j, u_acc, a, n_accept, stream);
 }
 
 // K6b launch over ShockCooling2 (ladder.cuh). Returns 0 or a cudaError_t code.

@@ -8,15 +8,17 @@
 //   typedef ... Data;    // the per-point data as the kernel reads it
 //   static size_t stage_bytes(const Params&);             // host and device
 //   static __device__ Data stage(const Params&, unsigned char* smem, int use_smem, int e);
-//   static __device__ double log_posterior(const double* p, const Data&, const Params&);
 // where e is the ensemble (epoch) of the block: always 0 for a single
-// ensemble, whose data do not depend on it. A policy whose model runs on the
-// tempered ladder (ladder.cuh) also provides
+// ensemble, whose data do not depend on it. A policy whose half-step runs a
+// thread per walker (the epoch half-step) also provides
+//   static __device__ double log_posterior(const double* p, const Data&, const Params&);
+// A policy whose model runs on the tempered ladder (ladder.cuh) provides
 //   static __device__ double log_likelihood(const double* p, const Data&, const Params&);
 // the float64 log-likelihood alone (-inf when not finite), evaluated whatever
-// the prior; its log_posterior is log_prior plus that value. A policy whose
+// the prior (a log_posterior is log_prior plus that value). A policy whose
 // half-step runs a warp per walker (stretch_half_step_kernel with WARP:
-// SC3WarpModel, CSWarpModel; K6a over CSWarpModel) provides
+// SC2WarpModel, SC3WarpModel, CSWarpModel; tempered_half_step_kernel with
+// WARP: SC2WarpModel, CSWarpModel) provides
 //   typedef ... Walker;  // a walker's constants (32-bit words, copied by value)
 //   static __device__ Walker walker(const double* p, const Params&);
 //   static __device__ double log_likelihood_warp(const Walker&, const Data&, const Params&);
@@ -310,10 +312,10 @@ struct WarpLayout {
 // draws of ensemble e start draw_stride elements after those of e - 1. With
 // one ensemble (e = 0) every offset below is 0.
 // WARP: a warp per walker (half_step_batch) for a policy whose
-// log_likelihood_warp the 32 lanes compute together (SC3WarpModel,
-// CSWarpModel), the block's warps striding over batches of `batch` walkers
-// of the ensemble (warp_layout). Otherwise one thread per walker and
-// M::log_posterior.
+// log_likelihood_warp the 32 lanes compute together (SC2WarpModel for K2,
+// SC3WarpModel, CSWarpModel), the block's warps striding over batches of
+// `batch` walkers of the ensemble (warp_layout). Otherwise one thread per
+// walker and M::log_posterior (the epoch half-step).
 template <typename M, typename S, typename X, typename L, bool WARP>
 __global__ void __launch_bounds__(block_limit<M>::value)
 stretch_half_step_kernel(const typename M::Params P, S* __restrict__ x,

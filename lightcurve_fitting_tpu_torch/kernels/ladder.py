@@ -3,9 +3,10 @@ versions beside them.
 
 * :func:`tempered_half_step` (K6a, ``tempered_half_step_kernel`` of
   ``csrc/ladder.cuh`` over the model's policy, in ``sc2_logpost.cu``,
-  ``sc3_logpost.cu`` or ``companion.cu``, where it runs a warp per walker):
-  one stretch-move half-step of every rung's ensemble, accepting by log pi +
-  beta log L;
+  ``sc3_logpost.cu`` or ``companion.cu``: a warp per walker over
+  ShockCooling2 and the companion-shocking models, a thread per walker over
+  ShockCooling3): one stretch-move half-step of every rung's ensemble,
+  accepting by log pi + beta log L;
 * :func:`ladder_init` (K6b, ``ladder_init_kernel``): log pi and log L of
   every starting state of every rung;
 * :func:`replica_swap` (K6c, ``replica_swap_kernel`` of ``csrc/ladder.cu``):

@@ -4,8 +4,10 @@ plain PyTorch versions beside them.
 * :func:`log_posterior` (K1, ``sc2_logpost_kernel``): the log-posterior of a
   batch of walker states.
 * :func:`stretch_half_step` (K2, ``stretch_half_step_kernel`` over
-  ``SC2Model``): one Goodman-Weare half-step of the ensemble, in place, with
-  the proposal's log-posterior computed by the same device function as K1.
+  ``SC2WarpModel``, a warp per walker): one Goodman-Weare half-step of the
+  ensemble, in place; the proposal's log-posterior sums the points as K7's
+  value does (K1 sums them in time order: the two differ by float32
+  rounding).
 * :func:`log_posterior_and_grad` (K7, ``logpost_grad_kernel`` of
   ``csrc/gradient.cuh`` over ``SC2Model``): the log-posterior and its
   gradient, one warp per walker, in the model's parameters or in the

@@ -56,6 +56,7 @@ from lightcurve_fitting_tpu_torch.models.base import _quad_tensors  # noqa: E402
 from lightcurve_fitting_tpu_torch.ops import extinction as text, interpolate as tinterp  # noqa: E402
 
 from test_companion_shocking import make_ia_lc  # noqa: E402
+from test_torch_kernels import _warp_order_sum  # noqa: E402
 
 NAMES = {1: "CompanionShocking", 2: "CompanionShocking2", 3: "CompanionShocking3"}
 PRIORS = {2: [JU(57815.0, 57825.0), JU(0.01, 5.0), JU(0.1, 10.0), JU(57835.0, 57845.0),
@@ -348,20 +349,6 @@ def test_log_posterior_batch_matches_jax(lcs, variant, use_sigma, sigma_type, f3
     fin = np.isfinite(a)
     d = np.abs(b[fin] - a[fin]) / scale[fin]
     assert np.all(d <= (1e-5 if f32 else 1e-10)), d.max()
-
-
-def _warp_order_sum(terms):
-    """The residual sum of the CS kernels' warp form (csrc/companion.cu,
-    ``cs_log_likelihood_warp``) over (W, N) terms, in their dtype: lane l
-    sums points l, l + 32, l + 64, ... in that order, then the butterfly
-    (offsets 16, 8, 4, 2, 1), each lane adding lane l ^ o's value. Returns
-    (W, 32): every lane's sum."""
-    lanes = torch.zeros((terms.shape[0], 32), dtype=terms.dtype)
-    for n in range(terms.shape[1]):
-        lanes[:, n % 32] = lanes[:, n % 32] + terms[:, n]
-    for o in (16, 8, 4, 2, 1):
-        lanes = lanes + lanes[:, torch.arange(32) ^ o]
-    return lanes
 
 
 def test_warp_sum_order_stays_within_the_yardstick(lcs):

@@ -39,7 +39,12 @@ K7's values as K1's and its gradients within 1e-4 (float32) and 1e-9
 against their plain transitions under shared draws (float64 over the plain
 gradient, float32 over K7's own evaluations), equal except near-ties, and
 K9's new log-posteriors equal to K7's at the new states bit for bit (the
-block form folds the points in the warp form's order). The SC3 half-step,
+block form folds the points in the warp form's order). K2 and K6a over
+ShockCooling2 (a warp per walker) at the fits' widths (half 32, 16384,
+65536; 7 rungs x half 16, 17 x 2048) in float32 and float64, their
+proposals' log-posteriors K7's values (bit for bit in float32), and on the
+CPU their sum order against the plain sum and the JAX package's float64
+log-posterior. The SC3 half-step,
 a warp per walker, as K2 at the fits' widths (half 32, 16384) and 65536;
 the CS half-step and K6a over CS, a warp per walker, as K2 and K6a at the
 fits' widths (half 16, 16384; 7 rungs x half 32, 17 x 2048), CS1 with the
@@ -407,40 +412,113 @@ def test_k1_matches_plain_on_card(lc, cuda_device, f64):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("half", [32, 16384, 65536])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
 @pytest.mark.parametrize("h", [0, 1])
-def test_k2_matches_plain_on_card(lc, cuda_device, h):
-    lp = make_log_posterior(ShockCooling2(lc), lc, _priors(), device=cuda_device)
-    W, half = 4096, 2048
-    pos = (np.random.default_rng(2).uniform(P_LO, P_UP, size=(W, 4)) - OFFSET) / SCALE
-    x0 = torch.as_tensor(pos.reshape(2, half, 4), device=cuda_device).float().contiguous()
-    l0 = sc2.log_posterior(lp, x0.reshape(W, 4), OFFSET, SCALE).reshape(2, half)
-    g = torch.Generator(device=cuda_device).manual_seed(3)
-    u_z = torch.rand(half, generator=g, device=cuda_device)
-    j = torch.randint(0, half, (half,), generator=g, device=cuda_device)
-    u_acc = torch.rand(half, generator=g, device=cuda_device)
-    u_acc[0] = 0.0                                   # log 0 = -inf: accepts
-    xk, lk, xp, lpp = x0.clone(), l0.clone(), x0.clone(), l0.clone()
-    ak = torch.zeros((2, half), dtype=torch.int32, device=cuda_device)
-    ap = torch.zeros_like(ak)
-    chain_x = torch.empty((2, half, 4), dtype=torch.float64, device=cuda_device)
-    chain_lp = torch.empty((2, half), dtype=torch.float32, device=cuda_device)
-    n0 = kernels.LAUNCHES["stretch_half_step"]
-    sc2.stretch_half_step(lp, xk, lk, h, u_z, j, u_acc, 2.0, OFFSET, SCALE, chain_x, chain_lp,
-                          ak)
-    assert kernels.LAUNCHES["stretch_half_step"] == n0 + 1
-    sc2.stretch_half_step_plain(lambda q: sc2.log_posterior_plain(lp, q, OFFSET, SCALE),
-                                xp, lpp, h, u_z, j, u_acc, 2.0, n_accept=ap)
-    agree = ak[h] == ap[h]
-    y, z = sc2.propose_stretch(u_z, j, x0[h], x0[1 - h])
-    lp_y = sc2.log_posterior_plain(lp, y, OFFSET, SCALE)
-    gap = (torch.log(u_acc).double() - (3.0 * torch.log(z) + lp_y - l0[h])).abs()
-    assert bool((agree | (gap <= 1e-5 * lp_y.abs())).all())
-    assert bool(ak[h][0] == 1) == bool(torch.isfinite(lp_y[0]))
-    assert torch.equal(xk[h][agree], xp[h][agree])
-    assert torch.equal(xk[1 - h], x0[1 - h]) and torch.equal(ak[1 - h], ap[1 - h])
-    assert torch.equal(chain_x[h], xk[h].double())
-    assert torch.equal(chain_lp[h], lk[h].float())
-    assert 0.05 < float(ak[h].float().mean()) < 0.95
+def test_k2_matches_plain_on_card(lc, cuda_device, half, f64, h):
+    """K2 (a warp per walker) against the plain half-step under shared draws
+    at the main path's widths (half 32: the 64-walker fit and
+    lightcurve_hmc's warm start; 16384; 65536: the 131072-walker fit), in
+    float32 and float64: flags equal except near-ties, new states bit-equal
+    and new log-posteriors within 1e-5 (float32) or 1e-10 (float64) of the
+    term scale where they agree, the chain slot written in other dtypes
+    than the state's."""
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        lp = make_log_posterior(ShockCooling2(lc), lc, _priors(), device=cuda_device)
+        W = 2 * half
+        pos = (np.random.default_rng(2).uniform(P_LO, P_UP, size=(W, 4)) - OFFSET) / SCALE
+        x0 = torch.as_tensor(pos.reshape(2, half, 4), device=cuda_device).float().contiguous()
+        l0 = sc2.log_posterior(lp, x0.reshape(W, 4), OFFSET, SCALE).reshape(2, half)
+        g = torch.Generator(device=cuda_device).manual_seed(3)
+        u_z = torch.rand(half, generator=g, device=cuda_device)
+        j = torch.randint(0, half, (half,), generator=g, device=cuda_device)
+        u_acc = torch.rand(half, generator=g, device=cuda_device)
+        u_acc[0] = 0.0                                   # log 0 = -inf: accepts
+        xk, lk, xp, lpp = x0.clone(), l0.clone(), x0.clone(), l0.clone()
+        ak = torch.zeros((2, half), dtype=torch.int32, device=cuda_device)
+        ap = torch.zeros_like(ak)
+        chain_x = torch.empty((2, half, 4), dtype=torch.float64, device=cuda_device)
+        chain_lp = torch.empty((2, half), dtype=torch.float32, device=cuda_device)
+        n0 = kernels.LAUNCHES["stretch_half_step"]
+        sc2.stretch_half_step(lp, xk, lk, h, u_z, j, u_acc, 2.0, OFFSET, SCALE, chain_x,
+                              chain_lp, ak)
+        assert kernels.LAUNCHES["stretch_half_step"] == n0 + 1
+        sc2.stretch_half_step_plain(lambda q: sc2.log_posterior_plain(lp, q, OFFSET, SCALE),
+                                    xp, lpp, h, u_z, j, u_acc, 2.0, n_accept=ap)
+        agree = ak[h] == ap[h]
+        y, z = sc2.propose_stretch(u_z, j, x0[h], x0[1 - h])
+        lp_y = sc2.log_posterior_plain(lp, y, OFFSET, SCALE)
+        gap = (torch.log(u_acc).double() - (3.0 * torch.log(z) + lp_y - l0[h])).abs()
+        assert bool((agree | (gap <= 1e-5 * lp_y.abs())).all())
+        assert bool(ak[h][0] == 1) == bool(torch.isfinite(lp_y[0]))
+        assert torch.equal(xk[h][agree], xp[h][agree])
+        _assert_scaled(lk[h][agree], lpp[h][agree], 1e-10 if f64 else 1e-5,
+                       lp.log_likelihood.term_scales(common.absolute_params(xk[h], OFFSET,
+                                                                            SCALE))[agree])
+        assert torch.equal(xk[1 - h], x0[1 - h]) and torch.equal(ak[1 - h], ap[1 - h])
+        assert torch.equal(chain_x[h], xk[h].double())
+        assert torch.equal(chain_lp[h], lk[h].float())
+        assert 0.05 < float(ak[h].float().mean()) < 0.95
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_k2_and_k6a_proposals_have_k7_values_on_card(lc, cuda_device, f64):
+    """K2 and K6a over ShockCooling2 sum a proposal's points in K7's order
+    through the same device code, so with u_acc = 0 (every proposal inside
+    the priors accepted) the new log-posterior of each walker, and K6a's
+    log pi + log L, are K7's value at its new state: bit for bit in
+    float32; in float64, where the compiler fuses y - F / yscale into one
+    FMA in K7 and not in K2, within 1e-12 of the term scale."""
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        lp = make_log_posterior(ShockCooling2(lc), lc, _priors(), device=cuda_device)
+        half = 4096
+        pos = (np.random.default_rng(4).uniform(P_LO, P_UP, size=(2 * half, 4)) - OFFSET) / SCALE
+        x = torch.as_tensor(pos.reshape(2, half, 4), device=cuda_device).float().contiguous()
+        logp = sc2.log_posterior(lp, x.reshape(-1, 4), OFFSET, SCALE).reshape(2, half)
+        g = torch.Generator(device=cuda_device).manual_seed(5)
+        u_z = torch.rand(half, generator=g, device=cuda_device)
+        j = torch.randint(0, half, (half,), generator=g, device=cuda_device)
+        acc = torch.zeros((2, half), dtype=torch.int32, device=cuda_device)
+        sc2.stretch_half_step(lp, x, logp, 0, u_z, j, torch.zeros_like(u_z), 2.0, OFFSET, SCALE,
+                              n_accept=acc)
+        moved = acc[0] == 1
+        assert int(moved.sum()) > half // 2
+        pa = common.absolute_params(x[0], OFFSET, SCALE)
+        k7 = sc2.log_posterior_and_grad(lp, pa)[0]
+        if f64:
+            _assert_scaled(logp[0][moved], k7[moved], 1e-12,
+                           lp.log_likelihood.term_scales(pa)[moved])
+        else:
+            assert torch.equal(logp[0][moved], k7[moved])
+
+        R = 5
+        lp_l, off, sc, xl = _ladder_case("sc2", lc, lc, cuda_device, R, 512, seed=6)
+        pri, ll = ladder.ladder_init(lp_l, xl, off, sc)
+        shape = (R, 2, 256)
+        u_zl = torch.rand(shape, generator=g, device=cuda_device)
+        jl = torch.randint(0, 256, shape, generator=g, device=cuda_device)
+        al = torch.zeros(shape, dtype=torch.int32, device=cuda_device)
+        betas = torch.as_tensor(make_beta_ladder(R - 1), device=cuda_device)
+        ladder.tempered_half_step(lp_l, xl, pri, ll, betas, 1, u_zl, jl, torch.zeros_like(u_zl),
+                                  2.0, off, sc, al)
+        moved = al[:, 1] == 1
+        assert int(moved.sum()) > R * 128
+        pa = common.absolute_params(xl[:, 1], off, sc)
+        k7 = sc2.log_posterior_and_grad(lp_l, pa.reshape(-1, 4))[0].reshape(R, 256)
+        if f64:
+            _assert_scaled((pri[:, 1] + ll[:, 1])[moved], k7[moved], 1e-12,
+                           lp_l.log_likelihood.term_scales(pa)[moved])
+        else:
+            assert torch.equal((pri[:, 1] + ll[:, 1])[moved], k7[moved])
+    finally:
+        config.set_compute_dtype(config.AUTO)
 
 
 @pytest.mark.cuda
@@ -790,42 +868,57 @@ def test_k6b_matches_plain_on_card(lc, lc_flux, cuda_device, which):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["sc2", "sc3"])
+@pytest.mark.parametrize("which,R,half", [("sc2", 5, 256), ("sc2", 7, 16), ("sc2", 17, 2048),
+                                          ("sc3", 5, 128)],
+                         ids=["sc2-5x256", "sc2-ptfit-7x16", "sc2-evidence-17x2048",
+                              "sc3-5x128"])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
 @pytest.mark.parametrize("h", [0, 1])
-def test_k6a_matches_plain_on_card(lc, lc_flux, cuda_device, which, h):
-    R, W = 5, 512 if which == "sc2" else 256
-    lp, off, sc, x0 = _ladder_case(which, lc, lc_flux, cuda_device, R, W, seed=1)
-    pri0, ll0 = ladder.ladder_init(lp, x0, off, sc)
-    betas = torch.as_tensor(make_beta_ladder(R - 1), device=cuda_device)
-    g = torch.Generator(device=cuda_device).manual_seed(2)
-    shape = (R, 2, W // 2)
-    u_z = torch.rand(shape, generator=g, device=cuda_device)
-    j = torch.randint(0, W // 2, shape, generator=g, device=cuda_device)
-    u_acc = torch.rand(shape, generator=g, device=cuda_device)
-    xk, pk, lk = x0.clone(), pri0.clone(), ll0.clone()
-    xp, pp, lpl = x0.clone(), pri0.clone(), ll0.clone()
-    ak = torch.zeros(shape, dtype=torch.int32, device=cuda_device)
-    ap = torch.zeros_like(ak)
-    n0 = kernels.LAUNCHES["tempered_half_step"]
-    ladder.tempered_half_step(lp, xk, pk, lk, betas, h, u_z, j, u_acc, 2.0, off, sc, ak)
-    assert kernels.LAUNCHES["tempered_half_step"] == n0 + 1
-    fns = ladder.plain_functions(lp, off, sc)
-    ladder.tempered_half_step_plain(*fns, xp, pp, lpl, betas, h, u_z, j, u_acc, 2.0, ap)
-    agree = ak[:, h] == ap[:, h]
-    y, z = common.propose_stretch(u_z[:, h], j[:, h], x0[:, h], x0[:, 1 - h])
-    pri_y, ll_y = fns[0](y), fns[1](y)
-    b = betas[:, None]
-    c = lp.log_likelihood.log_norm_const if which == "sc3" else 0.0
-    ratio = ((x0.shape[-1] - 1.0) * torch.log(z) + pri_y + b * ll_y - pri0[:, h]
-             - b * ll0[:, h])
-    gap = (torch.log(u_acc[:, h]).double() - ratio).abs()
-    scale = (ll_y - c).abs() + (ll0[:, h] - c).abs() + 2 * abs(c)
-    assert bool((agree | (gap <= 1e-5 * scale)).all())
-    assert torch.equal(xk[:, h][agree], xp[:, h][agree])
-    assert torch.equal(xk[:, 1 - h], x0[:, 1 - h]) and torch.equal(ak[:, 1 - h], ap[:, 1 - h])
-    assert torch.equal(pk[:, h][agree], pp[:, h][agree])
-    _assert_ll_close(lk[:, h][agree], lpl[:, h][agree], 1e-5, c)
-    assert 0.02 < float(ak[:, h].float().mean()) < 0.98
+def test_k6a_matches_plain_on_card(lc, lc_flux, cuda_device, which, R, half, f64, h):
+    """K6a (over ShockCooling2 a warp per walker, over ShockCooling3 a
+    thread per walker) against its plain version under shared draws, on R
+    rungs x half walkers a half (SC2 at the PT fit's 7 x 16 and the
+    evidence's 17 x 2048 besides 5 x 256), float32 and float64: flags equal
+    except near-ties, states and log pi bit-equal and log L within 1e-5
+    (float32) or 1e-10 (float64) of |ll - c| + |c| where they agree."""
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        lp, off, sc, x0 = _ladder_case(which, lc, lc_flux, cuda_device, R, 2 * half, seed=1)
+        pri0, ll0 = ladder.ladder_init(lp, x0, off, sc)
+        betas = torch.as_tensor(make_beta_ladder(R - 1), device=cuda_device)
+        g = torch.Generator(device=cuda_device).manual_seed(2)
+        shape = (R, 2, half)
+        u_z = torch.rand(shape, generator=g, device=cuda_device)
+        j = torch.randint(0, half, shape, generator=g, device=cuda_device)
+        u_acc = torch.rand(shape, generator=g, device=cuda_device)
+        xk, pk, lk = x0.clone(), pri0.clone(), ll0.clone()
+        xp, pp, lpl = x0.clone(), pri0.clone(), ll0.clone()
+        ak = torch.zeros(shape, dtype=torch.int32, device=cuda_device)
+        ap = torch.zeros_like(ak)
+        n0 = kernels.LAUNCHES["tempered_half_step"]
+        ladder.tempered_half_step(lp, xk, pk, lk, betas, h, u_z, j, u_acc, 2.0, off, sc, ak)
+        assert kernels.LAUNCHES["tempered_half_step"] == n0 + 1
+        fns = ladder.plain_functions(lp, off, sc)
+        ladder.tempered_half_step_plain(*fns, xp, pp, lpl, betas, h, u_z, j, u_acc, 2.0, ap)
+        agree = ak[:, h] == ap[:, h]
+        y, z = common.propose_stretch(u_z[:, h], j[:, h], x0[:, h], x0[:, 1 - h])
+        pri_y, ll_y = fns[0](y), fns[1](y)
+        b = betas[:, None]
+        c = lp.log_likelihood.log_norm_const if which == "sc3" else 0.0
+        ratio = ((x0.shape[-1] - 1.0) * torch.log(z) + pri_y + b * ll_y - pri0[:, h]
+                 - b * ll0[:, h])
+        gap = (torch.log(u_acc[:, h]).double() - ratio).abs()
+        scale = (ll_y - c).abs() + (ll0[:, h] - c).abs() + 2 * abs(c)
+        assert bool((agree | (gap <= 1e-5 * scale)).all())
+        assert torch.equal(xk[:, h][agree], xp[:, h][agree])
+        assert torch.equal(xk[:, 1 - h], x0[:, 1 - h])
+        assert torch.equal(ak[:, 1 - h], ap[:, 1 - h])
+        assert torch.equal(pk[:, h][agree], pp[:, h][agree])
+        _assert_ll_close(lk[:, h][agree], lpl[:, h][agree], 1e-10 if f64 else 1e-5, c)
+        assert 0.02 < float(ak[:, h].float().mean()) < 0.98
+    finally:
+        config.set_compute_dtype(config.AUTO)
 
 
 @pytest.mark.cuda
@@ -1222,6 +1315,83 @@ def test_term_scales_without_scatter_are_the_ll_scale(lc):
     c = ll.log_norm_const
     torch.testing.assert_close(ll.term_scales(p), (ll(p) - c).abs() + abs(c), rtol=1e-12, atol=0)
     assert ll.term_scales(p[0]).shape == () and ll.term_scales(p[:0]).shape == (0,)
+
+
+def _warp_order_sum(terms):
+    """The residual sum of the warp forms (csrc/sc2_logpost.cu,
+    ``sc2_log_likelihood_warp`` of K2 and K6a, and K7's value;
+    csrc/companion.cu, ``cs_log_likelihood_warp``) over (W, N) terms, in
+    their dtype: lane l sums points l, l + 32, l + 64, ... in that order,
+    then the butterfly (offsets 16, 8, 4, 2, 1), each lane adding lane l ^
+    o's value. Returns (W, 32): every lane's sum."""
+    lanes = torch.zeros((terms.shape[0], 32), dtype=terms.dtype)
+    for n in range(terms.shape[1]):
+        lanes[:, n % 32] = lanes[:, n % 32] + terms[:, n]
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, torch.arange(32) ^ o]
+    return lanes
+
+
+@pytest.mark.parametrize("sigma_type", [None, "relative", "absolute"],
+                         ids=["no-sigma", "sigma-relative", "sigma-absolute"])
+def test_sc2_warp_sum_order_stays_within_the_yardstick(lc_ext, sigma_type):
+    """K2 and K6a over ShockCooling2 run a warp per walker, which sums a
+    walker's 149 residual terms in another order than the plain version
+    (and K1). Emulated in float32 on 1024 flagship walkers from the
+    131072-walker fit's window (with the scatter, sigma in [0.5, 3] dy
+    units), that order gives every lane the same bits, stays within 1e-5 of
+    the term scale (the card tests' float32 tolerance) of the plain float32
+    sum and of the JAX package's float64 log-posterior, and differs from the
+    plain sum on some walker: the tolerance, not bit equality, is what holds
+    the kernels to their plain versions. (The JAX package is imported here,
+    not with the module, whose card tests run where it is not installed.)"""
+    jax = pytest.importorskip("jax", reason="the JAX package's reference needs jax")
+    import jax.numpy as jnp
+    from lightcurve_fitting_tpu.fitting import make_log_posterior as j_make
+    from lightcurve_fitting_tpu.lightcurve import LC as JLC
+    from lightcurve_fitting_tpu.models import (LogUniformPrior as JLU, ShockCooling2 as JSC2,
+                                               UniformPrior as JU)
+    use_sigma = sigma_type is not None
+    jlc = JLC.read(EXAMPLE)
+    jlc.meta.update(dm=30.79, redshift=0.002, extinction={
+        "U": 0.069, "B": 0.061, "g": 0.055, "V": 0.045, "0": 0.035,
+        "r": 0.038, "R": 0.035, "i": 0.028, "I": 0.020})
+    jlc.calcAbsMag()
+    jlc.calcLum()
+    jlc = jlc.where(MJD_min=57468.0, MJD_max=57485.0)
+    jpriors = [JU(0.0, 100.0), JU(0.0, 100.0), JU(0.0, 100.0), JU(57468.0, 57468.7)]
+    lo, up = P_LO, P_UP
+    if use_sigma:
+        jpriors.append(JLU(0.01, 10.0))
+        lo, up = np.append(P_LO, 0.5), np.append(P_UP, 3.0)
+    p = np.random.default_rng(12).uniform(lo, up, size=(1024, len(lo)))
+    want = np.asarray(jax.vmap(j_make(JSC2(jlc), jlc, jpriors, use_sigma,
+                                      sigma_type or "relative"))(jnp.asarray(p)))
+    assert want.dtype == np.float64
+    q = torch.as_tensor(p)
+    try:
+        config.set_compute_dtype(torch.float32)
+        lp = make_log_posterior(ShockCooling2(lc_ext), lc_ext,
+                                _priors() + ([_SIGMA_PRIOR] if use_sigma else []),
+                                use_sigma=use_sigma, sigma_type=sigma_type or "relative",
+                                device="cpu")
+        ll = lp.log_likelihood
+        terms = ll.residual_terms(q)
+        plain = ll(q).double()
+        scale = ll.term_scales(q)
+        prior = lp.log_prior_plain(q)
+    finally:
+        config.set_compute_dtype(config.AUTO)
+    assert terms.dtype == torch.float32 and tuple(terms.shape) == (1024, 149)
+    lanes = _warp_order_sum(terms)
+    assert torch.equal(lanes, lanes[:, :1].expand(-1, 32))
+    const = torch.tensor(ll.offset if use_sigma else ll.log_norm_const, dtype=torch.float32)
+    warp = (torch.tensor(-0.5, dtype=torch.float32) * lanes[:, 0] + const).double()
+    assert torch.isfinite(warp).all() and torch.isfinite(plain).all()
+    assert torch.isfinite(prior).all()
+    assert bool(((warp - plain).abs() <= 1e-5 * scale).all())
+    assert bool((warp != plain).any())
+    assert np.all(np.abs((prior + warp).numpy() - want) <= 1e-5 * scale.numpy())
 
 
 @pytest.mark.cuda

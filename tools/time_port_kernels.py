@@ -2,11 +2,12 @@
 """Time the port's kernels on one CUDA card at the shapes of ``chip_smoke.py``
 and of the fits, float32 compute, by CUDA events:
 
-* K1 at 131072 walkers; K2 per half-step of 131072; K6a per ladder
-  half-step of 17 rungs x 4096 (ShockCooling2) and of 17 x 512
-  (ShockCooling3); K7 at 131072 walkers and at the MAP ascent's 64 starts
-  (float32 and float64); K7h per 64-chain HMC transition (32 jittered
-  leapfrogs, eps 0.1);
+* K1 at 131072 walkers; K2 per half-step of half 32, 16384 and 65536 (the
+  64- and 131072-walker fits); K6a per ladder half-step of 7 rungs x 32 and
+  17 x 4096 (ShockCooling2: the PT fit and the evidence) and of 17 x 512
+  (ShockCooling3), with K6b's initial state hashed; K7 at 131072 walkers
+  and at the MAP ascent's 64 starts (float32 and float64); K7h per
+  64-chain HMC transition (32 jittered leapfrogs, eps 0.1);
 * the companion-shocking kernels (CompanionShocking2 on the synthetic Ia
   curve): the CS half-step per half 16, 16384 and 65536 (the 32- and
   32768-walker fits and the 131072-walker comparison), K6a over CS per
@@ -20,11 +21,15 @@ and of the fits, float32 compute, by CUDA events:
   mean depth and bound);
 * the SC3 half-step per half-step of half 32, 16384 and 65536 (the 64- and
   32768-walker fits and the 131072-walker comparison);
+* hashed only, at ``chip_smoke.py``'s shapes: K3, K4 with its gradient,
+  the epoch half-step, K4s, K5, K6c and K6d;
 * with ``--fits``, the wall times of ``lightcurve_hmc`` at its defaults in
-  float32 and float64, of the ShockCooling3 fit at 32768 x 300 and of the
-  CompanionShocking2 fits of ``chip_smoke.py`` phase 24 (a: 32 walkers x
-  300 + 250; b: 32768 x 300; c: the evidence at 4096 x 17 rungs x 150 +
-  150).
+  float32 and float64 (``chip_smoke.py`` 20c), of the ShockCooling3 fit at
+  32768 x 300, of the ShockCooling2 fits of phases 5 and 16 (5a: 64
+  walkers x 200 + 200; 5b: 131072 x 300; 16a: the evidence at 4096 x 17
+  rungs x 150 + 150; 16b: the PT fit, 32 x 7 rungs x 350 + 250) and of the
+  CompanionShocking2 fits of phase 24 (a: 32 walkers x 300 + 250; b: 32768
+  x 300; c: the evidence at 4096 x 17 rungs x 150 + 150).
 
 Each time is printed twice: by CUDA events around a run of launches (the
 stream's time per launch, which a kernel shorter than its wrapper's host
@@ -35,8 +40,8 @@ SASS of each kernel whose name holds NAME (``cuobjdump``), to tell a
 kernel's code apart from its placement.
 Each kernel's outputs at fixed inputs are hashed (``digest``): two checkouts
 whose kernel computes the same bits print the same digest. The ptxas report
-of the gradient and SC3 kernels (registers, stack frame, spills) comes from
-the build.
+of the gradient kernels and of the SC2, SC3 and CS warp kernels (registers,
+stack frame, spills) comes from the build.
 
 Usage: ``python3 tools/time_port_kernels.py [--repo PATH] [--label NAME]
 [--fits]``. ``--repo`` is the checkout whose ``lightcurve_fitting_tpu_torch``
@@ -72,8 +77,8 @@ D_L = 10 ** (30.79 / 5 + 1) / 1e6
 SC3_LO = [0.5, 0.5, 5.0, 1.0, D_L - 0.005, 0.0, 57468.5]
 SC3_UP = [2.0, 2.0, 20.0, 5.0, D_L + 0.005, 0.1, 57468.7]
 # the ptxas report covers the entry functions whose mangled names hold these
-PTXAS_KERNELS = ("nuts_transition", "hmc_transition", "logpost_grad", "SC3WarpModel",
-                 "stretch_half_step_kernelI8SC3Model", "CSWarpModel", "I7CSModel")
+PTXAS_KERNELS = ("nuts_transition", "hmc_transition", "logpost_grad", "SC2WarpModel",
+                 "SC3WarpModel", "stretch_half_step_kernelI8SC3Model", "CSWarpModel", "I7CSModel")
 
 
 def events_ms(fn, launches, repeats):
@@ -177,8 +182,9 @@ def main():
     ap.add_argument("--sass", action="append", default=[], metavar="NAME",
                     help="hash the SASS of the kernels whose names hold NAME (repeatable)")
     ap.add_argument("--fits", action="store_true",
-                    help="also time lightcurve_hmc (f32, f64), the SC3 32768 x 300 fit and "
-                         "the CS2 fits of chip_smoke.py phase 24")
+                    help="also time lightcurve_hmc (f32, f64), the SC3 32768 x 300 fit, the "
+                         "SC2 fits of chip_smoke.py phases 5 and 16 and the CS2 fits of phase "
+                         "24")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -189,7 +195,7 @@ def main():
     from lightcurve_fitting_tpu_torch.core import config
     from lightcurve_fitting_tpu_torch.fitting import (_state_rescaling, lightcurve_evidence,
                                                       lightcurve_hmc, lightcurve_mcmc,
-                                                      make_log_posterior)
+                                                      lightcurve_ptmcmc, make_log_posterior)
     from lightcurve_fitting_tpu_torch.kernels import build, cs, gradient, ladder, sc2, sc3
     from lightcurve_fitting_tpu_torch.models import ShockCooling2, ShockCooling3, UniformPrior
     from lightcurve_fitting_tpu_torch.parallel.evidence import make_beta_ladder
@@ -226,39 +232,55 @@ def main():
         times[name + "_dev"] = device_ms(lambda: step(x, logp, u_z, j, u_acc, acc),
                                          "stretch_half_step_kernel", launches, args.repeats)
 
-    # K1 at 131072 walkers, K2 per half-step of 131072 (float32 rescaled state)
+    def tempered(name, target, x, off_, sc_, seed):
+        """Time K6a over ``target`` on the ladder state x (R, 2, half, ndim),
+        and hash one half-step and K6b's initial state from the same start."""
+        R_, _, hl, _ = x.shape
+        pri_, ll_ = ladder.ladder_init(target, x, off_, sc_)
+        digests[name + "_K6b"] = digest(pri_, ll_)
+        betas_ = torch.as_tensor(make_beta_ladder(R_ - 1), device=dev)
+        shape_ = (R_, 2, hl)
+        g.manual_seed(seed)
+        uz_ = torch.rand(shape_, generator=g, device=dev)
+        jl_ = torch.randint(0, hl, shape_, generator=g, device=dev)
+        ua_ = torch.rand(shape_, generator=g, device=dev)
+        xd_, pd_, ld_ = x.clone(), pri_.clone(), ll_.clone()
+        ad_ = torch.zeros(shape_, dtype=torch.int32, device=dev)
+        ladder.tempered_half_step(target, xd_, pd_, ld_, betas_, 0, uz_, jl_, ua_, 2.0, off_, sc_,
+                                  ad_)
+        digests[name] = digest(xd_, pd_, ld_, ad_)
+        acc_ = torch.zeros(shape_, dtype=torch.int32, device=dev)
+
+        def step():
+            ladder.tempered_half_step(target, x, pri_, ll_, betas_, 0, uz_, jl_, ua_, 2.0, off_,
+                                      sc_, acc_, check_partners=False)
+        launches = 20 if R_ * hl > 1024 else 100
+        times[name] = events_ms(step, launches, args.repeats)
+        times[name + "_dev"] = device_ms(step, "tempered_half_step_kernel", launches,
+                                         args.repeats)
+        return pri_, ll_
+
+    # K1 at 131072 walkers; K2 per half-step at half 32 (the 64-walker fits),
+    # 16384 and 65536 (the 131072-walker fit), float32 rescaled state
     W = 131072
     half = W // 2
     p = torch.as_tensor(rng.uniform(P_LO, P_UP, size=(W, 4)), device=dev)
     times["K1"] = events_ms(lambda: sc2.log_posterior(lp, p), 20, args.repeats)
     digests["K1"] = digest(sc2.log_posterior(lp, p))
-    x = torch.as_tensor(((p.cpu().numpy() - off) / sc).reshape(2, half, 4),
-                        device=dev).float().contiguous()
-    logp = sc2.log_posterior(lp, x.reshape(W, 4), off, sc).reshape(2, half)
-    half_step("K2", lambda x_, l_, uz, j_, ua, a_: sc2.stretch_half_step(
-        lp, x_, l_, 0, uz, j_, ua, 2.0, off, sc, n_accept=a_, check_partners=False),
-        x, logp, half, 1)
+    for h2 in (32, 16384, half):
+        x = torch.as_tensor(((rng.uniform(P_LO, P_UP, size=(2 * h2, 4)) - off) / sc)
+                            .reshape(2, h2, 4), device=dev).float().contiguous()
+        logp = sc2.log_posterior(lp, x.reshape(2 * h2, 4), off, sc).reshape(2, h2)
+        half_step(f"K2_half_{h2}", lambda x_, l_, uz, j_, ua, a_: sc2.stretch_half_step(
+            lp, x_, l_, 0, uz, j_, ua, 2.0, off, sc, n_accept=a_, check_partners=False),
+            x, logp, h2, 1, launches=20 if h2 > 32 else 100)
 
-    # K6a: one ladder half-step of 17 rungs x 4096 walkers
-    R, Wl = 17, 4096
-    q = (rng.uniform(P_LO, P_UP, size=(R * Wl, 4)) - off) / sc
-    xl = torch.as_tensor(q.reshape(R, 2, Wl // 2, 4), device=dev).float().contiguous()
-    pri, ll = ladder.ladder_init(lp, xl, off, sc)
-    betas = torch.as_tensor(make_beta_ladder(R - 1), device=dev)
-    shape = (R, 2, Wl // 2)
-    g.manual_seed(1)
-    uz = torch.rand(shape, generator=g, device=dev)
-    jl = torch.randint(0, Wl // 2, shape, generator=g, device=dev)
-    ua = torch.rand(shape, generator=g, device=dev)
-    xd, pd, ld = xl.clone(), pri.clone(), ll.clone()
-    ad = torch.zeros(shape, dtype=torch.int32, device=dev)
-    ladder.tempered_half_step(lp, xd, pd, ld, betas, 0, uz, jl, ua, 2.0, off, sc, ad)
-    digests["K6a"] = digest(xd, pd, ld, ad)
-    al = torch.zeros(shape, dtype=torch.int32, device=dev)
-    times["K6a"] = events_ms(lambda: ladder.tempered_half_step(lp, xl, pri, ll, betas, 0, uz, jl,
-                                                               ua, 2.0, off, sc, al,
-                                                               check_partners=False),
-                             20, args.repeats)
+    # K6a over SC2: a ladder half-step of 7 rungs x 32 walkers (the PT fit)
+    # and of 17 x 4096 (the evidence), and K6b's initial state there
+    for R, Wl in ((7, 32), (17, 4096)):
+        q = (rng.uniform(P_LO, P_UP, size=(R * Wl, 4)) - off) / sc
+        xl = torch.as_tensor(q.reshape(R, 2, Wl // 2, 4), device=dev).float().contiguous()
+        tempered(f"K6a_{R}x{Wl}", lp, xl, off, sc, 1)
 
     # K7 at 131072 walkers of the init window, and at the MAP ascent's 64
     # starts (lightcurve_map's width) in float32 and float64
@@ -303,6 +325,8 @@ def main():
     q16, l16, z16, u16 = (a[:16].contiguous() for a in (q0, logp0, z, u))
     times["K9_16"] = events_ms(lambda: gradient.nuts_transition(target, q16, l16, z16, u16, eps,
                                                                 inv_mass, D), 5, args.repeats)
+    digests["K9_16"] = digest(*gradient.nuts_transition(target, q16, l16, z16, u16, eps,
+                                                        inv_mass, D))
     n_used = torch.randint(16, 33, (C,), generator=g, device=dev)
     u_acc = torch.rand(C, generator=g, device=dev, dtype=torch.float64)
     hargs = (q0, logp0, z, u_acc, n_used, eps, inv_mass, 32)
@@ -351,37 +375,66 @@ def main():
             lp3, x_, l_, 0, uz_, j_, ua_, 2.0, off3, sc3_, n_accept=a_, check_partners=False),
             x3, l3, h3, 4, launches=20 if h3 > 32 else 100)
 
-    def tempered(name, target, x, off_, sc_, seed):
-        """Time K6a over ``target`` on the ladder state x (R, 2, half, ndim),
-        and hash one half-step and K6b's initial state from the same start."""
-        R_, _, hl, _ = x.shape
-        pri_, ll_ = ladder.ladder_init(target, x, off_, sc_)
-        betas_ = torch.as_tensor(make_beta_ladder(R_ - 1), device=dev)
-        shape_ = (R_, 2, hl)
-        g.manual_seed(seed)
-        uz_ = torch.rand(shape_, generator=g, device=dev)
-        jl_ = torch.randint(0, hl, shape_, generator=g, device=dev)
-        ua_ = torch.rand(shape_, generator=g, device=dev)
-        xd_, pd_, ld_ = x.clone(), pri_.clone(), ll_.clone()
-        ad_ = torch.zeros(shape_, dtype=torch.int32, device=dev)
-        ladder.tempered_half_step(target, xd_, pd_, ld_, betas_, 0, uz_, jl_, ua_, 2.0, off_, sc_,
-                                  ad_)
-        digests[name] = digest(xd_, pd_, ld_, ad_)
-        acc_ = torch.zeros(shape_, dtype=torch.int32, device=dev)
-
-        def step():
-            ladder.tempered_half_step(target, x, pri_, ll_, betas_, 0, uz_, jl_, ua_, 2.0, off_,
-                                      sc_, acc_, check_partners=False)
-        launches = 20 if R_ * hl > 1024 else 100
-        times[name] = events_ms(step, launches, args.repeats)
-        times[name + "_dev"] = device_ms(step, "tempered_half_step_kernel", launches,
-                                         args.repeats)
-        return pri_, ll_
-
     # K6a over ShockCooling3, 17 rungs x 512 walkers (chip_smoke.py phase 14)
     q3 = (rng.uniform(SC3_LO, SC3_UP, size=(17 * 512, 7)) - off3) / sc3_
     tempered("K6a_SC3", lp3, torch.as_tensor(q3.reshape(17, 2, 256, 7), device=dev).float()
              .contiguous(), off3, sc3_, 2)
+
+    # digests alone, at chip_smoke.py's shapes: K3 on the flagship's points
+    # (SC3's T and R, E(B-V) per walker), K4 with its gradient, the epoch
+    # half-step, K4s and K5 at the bolometric bench shape, K6c and K6d at the
+    # evidence shape
+    from lightcurve_fitting_tpu_torch.bolometric import _pseudo_grid
+    from lightcurve_fitting_tpu_torch.kernels import epoch_bb, quantile as kq
+    from lightcurve_fitting_tpu_torch.models.blackbody import bandflux_pointwise
+    from lightcurve_fitting_tpu_torch.parallel.batched import EpochPosterior
+    ll3 = lp3.log_likelihood
+    p3 = torch.as_tensor(rng.uniform(SC3_LO, SC3_UP, size=(4096, 7)), device=dev)
+    T3, R3 = ShockCooling3(lcf, device=dev)._tr_points(ll3.t, *[p3[:, i:i + 1] for i in
+                                                              (0, 1, 2, 3, 6)])
+    ebv = torch.as_tensor(rng.uniform(0.0, 1.0, size=(4096, 1)), device=dev)
+    digests["K3"] = digest(bandflux_pointwise(ll3.nodes, ll3.weights, T3, R3, k_ext=ll3.k_ext,
+                                              ebv=ebv, band_ids=ll3.band_ids))
+    packed, truth = chip_smoke.bench_epochs(np.random.default_rng(0), dev)
+    ep = EpochPosterior(packed, chip_smoke.bol_priors())
+    E = ep.n_epochs
+    q4 = torch.as_tensor(chip_smoke.epoch_params(rng, E, 512), device=dev)
+    digests["K4"] = digest(*epoch_bb.log_posterior(ep, q4, with_grad=True))
+    x4 = np.abs(np.stack([truth, np.full(E, 10.0)], axis=1)[:, None, None, :]
+                * (1 + 0.3 * rng.normal(size=(E, 2, 16, 2))))
+    x4 = torch.as_tensor(x4, device=dev).float().contiguous()
+    l4 = ep(x4.reshape(E, 32, 2)).reshape(E, 2, 16)
+    g.manual_seed(6)
+    draws4 = (torch.rand((E, 2, 16), generator=g, device=dev),
+              torch.randint(0, 16, (E, 2, 16), generator=g, device=dev),
+              torch.rand((E, 2, 16), generator=g, device=dev))
+    a4 = torch.zeros((E, 2, 16), dtype=torch.int32, device=dev)
+    epoch_bb.stretch_half_step(ep, x4, l4, 0, *draws4, 2.0, n_accept=a4)
+    digests["epoch_half"] = digest(x4, l4, a4)
+    centre = np.exp(rng.uniform(np.log([4.0, 1.0]), np.log([20.0, 30.0]), size=(E, 2)))
+    chain = np.abs(centre[None, :, None, :] * (1 + 0.05 * rng.normal(size=(100, E, 32, 2))))
+    chain = torch.as_tensor(chain, device=dev).float().contiguous()
+    nu = torch.as_tensor(_pseudo_grid(), device=dev)
+    wq = torch.ones_like(nu)
+    wq[0] = wq[-1] = 0.5
+    rows = epoch_bb.summary_samples(chain, nu, wq, np.inf, torch.float32)
+    digests["K4s"] = digest(rows)
+    digests["K5"] = digest(kq.percentile_rows(rows.reshape(E * 4, -1).contiguous(),
+                                              [16.0, 50.0, 84.0]))
+    R6, h6 = 17, 2048
+    x6 = torch.as_tensor(rng.normal(size=(R6, 2, h6, 4)), device=dev).float()
+    pri6 = torch.zeros((R6, 2, h6), dtype=torch.float64, device=dev)
+    ll6 = torch.as_tensor(-12990.0 + 10.0 * rng.normal(size=(R6, 2, h6)), device=dev)
+    swap_out = [torch.zeros((R6, 2, h6), dtype=torch.int32, device=dev),
+                torch.empty((R6, 2, h6), dtype=torch.float64, device=dev),
+                torch.empty((2, h6, 4), device=dev)]
+    ladder.replica_swap(x6, pri6, ll6, torch.as_tensor(make_beta_ladder(R6 - 1), device=dev),
+                        torch.as_tensor(rng.random((R6, 2, h6)), device=dev).float(), 1, *swap_out)
+    digests["K6c"] = digest(x6, pri6, ll6, *swap_out)
+    logl6 = torch.as_tensor(-12990.0 + 10.0 * rng.normal(size=(150, R6, 2 * h6)), device=dev)
+    digests["K6d"] = digest(ladder.rung_block_terms(
+        logl6, torch.as_tensor(np.diff(make_beta_ladder(R6 - 1)), device=dev),
+        ((0, 38), (38, 76), (76, 113), (113, 150))))
 
     # the companion-shocking kernels (CompanionShocking2, float32 rescaled state)
     lc_ia, lc0 = chip_smoke.ia_lc()
@@ -421,6 +474,14 @@ def main():
         tempered(f"CS_K6a_{rc}x{2 * hc}", lpc, xlc, offc, scc, 18)
 
     walls = {}
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
     if args.fits:
         for label in ("f32", "f64"):
             try:
@@ -443,16 +504,36 @@ def main():
             walls[f"sc3_32768x300_{rep}"] = time.perf_counter() - t0
         walls["sc3_acceptance"] = float(np.mean(s.acceptance_fraction))
 
+        # the ShockCooling2 fits of chip_smoke.py phases 5 and 16, two runs
+        # each: (5a) 64 walkers x 200 + 200, (5b) 131072 x 300 from the
+        # window, (16a) lightcurve_evidence at 4096 walkers x 16 rungs + beta
+        # = 1 x 150 + 150, (16b) lightcurve_ptmcmc at 32 walkers x 6 rungs +
+        # beta = 1 x 350 + 250
+        sc2_kw = dict(p_lo=P_LO, p_up=P_UP, quiet=True)
+        for rep in range(2):
+            walls[f"sc2_5a_{rep}"], _ = wall(lambda: lightcurve_mcmc(
+                lc, ShockCooling2(lc), priors, nwalkers=64, nsteps=200, nsteps_burnin=200,
+                seed=7, **sc2_kw))
+        for rep in range(2):
+            walls[f"sc2_5b_{rep}"], s = wall(lambda: lightcurve_mcmc(
+                lc, ShockCooling2(lc), priors, nwalkers=131072, nsteps=300, nsteps_burnin=0,
+                seed=7, **sc2_kw))
+        walls["sc2_5b_acceptance"] = float(np.mean(s.acceptance_fraction))
+        for rep in range(2):
+            walls[f"sc2_16a_{rep}"], ev = wall(lambda: lightcurve_evidence(
+                lc, ShockCooling2(lc), priors, nwalkers=chip_smoke.EV_WALKERS,
+                n_rungs=chip_smoke.EV_RUNGS, nsteps=chip_smoke.EV_STEPS,
+                nsteps_burnin=chip_smoke.EV_BURNIN, seed=1, **sc2_kw))
+        walls["sc2_16a_log_z"] = [float(ev[0]), float(ev[1])]
+        for rep in range(2):
+            walls[f"sc2_16b_{rep}"], _ = wall(lambda: lightcurve_ptmcmc(
+                lc, ShockCooling2(lc), gpri, p_lo=[20, 2, 20, 57468.4],
+                p_up=[50, 5, 50, 57468.69], nwalkers=32, n_rungs=6, nsteps=250,
+                nsteps_burnin=350, seed=2, quiet=True))
+
         # the companion-shocking fits of chip_smoke.py phase 24, two runs each:
         # (a) CS2 32 walkers x 300 + 250, (b) 32768 x 300 from the window, (c)
         # lightcurve_evidence at 4096 walkers x 16 rungs + beta = 1 x 150 + 150
-        def wall(fn):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            return time.perf_counter() - t0, out
-
         cs_kw = dict(p_lo=lo_c, p_up=up_c, quiet=True)
         for rep in range(2):
             walls[f"cs2_24a_{rep}"], s = wall(lambda: lightcurve_mcmc(
@@ -488,6 +569,9 @@ def main():
         print(f"[time_port_kernels] {args.label} {k}: min {min(v):.4f} ms, repeats "
               f"{', '.join(f'{t:.4f}' for t in v)}"
               + (f", digest {digests[k]}" if k in digests else ""), flush=True)
+    for k, v in digests.items():
+        if k not in times:
+            print(f"[time_port_kernels] {args.label} {k}: digest {v}", flush=True)
     for k, v in {**info, **walls}.items():
         print(f"[time_port_kernels] {args.label} {k}: {v}", flush=True)
     for k, v in ptxas.items():
