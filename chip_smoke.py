@@ -7,8 +7,9 @@ and imports nothing of JAX. Phases, each printing one line (any failure
 raises and the script exits non-zero):
 
 1. environment: torch/CUDA versions, the card, its power limit;
-2. build: nvcc compiles the kernels from ``kernels/csrc/``; K9 must have
-   no stack frame and no spills (ptxas);
+2. build: nvcc compiles the kernels from ``kernels/csrc/``; the
+   block-per-chain kernels (K9, K7h, K7's block form) must have no stack
+   frame and no spills (ptxas);
 3. K1 against its plain PyTorch version at 131072 walkers on the flagship
    (SN 2016bkv, ShockCooling2), float32 (<= 1e-5 |ll|, same -inf set) and
    float64 (<= 1e-10 |ll|), including t < t_exp under a widened t_0 prior;
@@ -88,16 +89,22 @@ raises and the script exits non-zero):
     reset before (a), show it ran through K6a-K6d;
 17. K7, the log-posterior and its gradient, against autograd through the
     plain log-posterior at 131072 flagship walkers (1% outside the priors,
-    and 131072 more with t < t_exp): values as K1's, gradients within 1e-4
-    (float32) and 1e-9 (float64) of their per-point terms' summed
-    magnitudes, zero (masked) at the same places;
+    and 131072 more with t < t_exp) and at the MAP's 64 starts: values as
+    K1's, gradients within 1e-4 (float32) and 1e-9 (float64) of their
+    per-point terms' summed magnitudes, zero (masked) at the same places;
+    in the whitened space at 64 and 131072 rows; at each width its block
+    form (a block per row) and its warp form (a warp per row) bit-equal,
+    and the profiler shows the wrapper ran the block form at 64 rows and the
+    warp form at 131072 (``kernels/gradient.py::k7_form``);
 18. K9, the NUTS transition (a block per chain), against the plain
     transition under shared draws on 64 whitened flagship chains, max_depth
     9: float64 over the plain gradient, float32 over K7's own evaluations,
     equal except near-ties (and the float32 kernel against the fully plain
     float32 transition reported); every chain's new log-posterior equal to
     K7's at its new state, bit for bit; the deep trees (max_depth 12);
-19. K7h, the HMC transition (32 jittered leapfrogs), the same way;
+19. K7h, the HMC transition (a block per chain, 32 jittered leapfrogs),
+    the same way at 64 chains and at ``lightcurve_hmc``'s 16, float32 and
+    float64, the profiler showing the block kernel ran;
 20. the gradient main path, counters reset before (a): (a)
     ``lightcurve_map`` on the flagship with tests/test_map.py:92-104's
     criteria, (b) ``lightcurve_mcmc(init="map")`` with test_map.py:59-79's,
@@ -105,13 +112,14 @@ raises and the script exits non-zero):
     9, warm start 64 x 300; seed 3) in float32 and float64 compute, both
     held to tests/test_hmc.py:147-159's criteria, wall times, a profiled
     run's time split in each, (d)
-    ``lightcurve_hmc(sampler="hmc")``; the counters show K7, K9 and K7h ran;
+    ``lightcurve_hmc(sampler="hmc")``, its wall time and a profiled run's
+    split (20a's too); the counters show K7, K9 and K7h ran;
 21. the intrinsic scatter: every kernel that branches on ``use_sigma``
     against its plain version with the scatter on (SC2 with 5 parameters,
     SC3 with 8, CS1 with 9; both sigma_types; float32 and float64): K1, the
     SC3 or the CS log-posterior, K2, the SC3 or the CS half-step, K6a and
-    K6b over each, and K7
-    (the sigma column of the gradient included), K9 and K7h over SC2, held
+    K6b over each, and K7 in both forms, bit-equal (the sigma column of the
+    gradient included; the block form's N = 5), K9 and K7h over SC2, held
     to the tolerances above over the term scale (0.5 x the summed residual
     terms' magnitudes, the scatter's log term included, + |constant|);
 22. K8, the SiFTO spline, against ``sifto_points_plain`` at 131072 walkers x
@@ -523,21 +531,33 @@ def phase_k1(lc, rng_seed=0):
 K2_HALVES = (HEADLINE_WALKERS // 2, 16384, 32)
 
 
-def warp_kernel_name(fn, match, policy, calls=20):
-    """The one CUDA kernel holding ``match`` in its name that ``calls`` calls
-    of fn launch (a profile of one short call can come back empty), which
-    must be the warp form (WARP = true) over ``policy``."""
+def launched_kernels(fn, match, calls=20):
+    """The names of the CUDA kernels holding ``match`` that ``calls`` calls
+    of fn launch, from the profiler. A profile of a few calls can come back
+    empty (3 calls of K7 at 131072 rows did once on the H100), so an empty
+    one is taken again, twice at most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    names = sorted({e.key for e in prof.key_averages()
-                    if e.device_type.name == "CUDA" and match in e.key})
-    if len(names) != 1 or policy not in names[0] or "true>" not in names[0]:
-        raise AssertionError(f"expected {match} over {policy} with WARP, the profiler saw {names}")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()
+                        if e.device_type.name == "CUDA" and match in e.key})
+        if names:
+            break
+    return names
+
+
+def expect_kernel(fn, match, *marks, calls=20):
+    """The one kernel holding ``match`` that fn launches, whose name must
+    also hold each of ``marks`` (a form, a policy, a template argument:
+    "true>" for a warp-per-walker half-step, ", 4>" for ndim 4)."""
+    names = launched_kernels(fn, match, calls)
+    if len(names) != 1 or not all(m in names[0] for m in marks):
+        raise AssertionError(f"expected one {match} holding {marks}, the profiler saw {names}")
     return names[0].split("(")[0]
 
 
@@ -608,7 +628,7 @@ def phase_k2(lc, seed=1):
                     sc2.stretch_half_step(lp, xk, lk, 0, u_z, j, u_acc, 2.0, off, sc,
                                           n_accept=ak, check_partners=False)
                 if half == K2_HALVES[0]:
-                    name = warp_kernel_name(step, "stretch_half_step_kernel", "SC2WarpModel")
+                    name = expect_kernel(step, "stretch_half_step_kernel", "SC2WarpModel", "true>")
                     xp, lpp = x0.clone(), logp0.clone()
                     plain_ms = cuda_ms(lambda: sc2.stretch_half_step_plain(
                         lambda q: sc2.log_posterior_plain(lp, q, off, sc), xp, lpp, 0, u_z, j,
@@ -1386,7 +1406,8 @@ def phase_k6a(lc, lcf, seed=8):
                                                n * (2 * 4 * 4 + 2 * 8 + 4 + 8 + 4) + rungs * 8
                                                + n * (4 * 4 + 2 * 8 + 4))
                 if rungs == K6A_LADDERS[0][0]:
-                    name = warp_kernel_name(step, "tempered_half_step_kernel", "SC2WarpModel")
+                    name = expect_kernel(step, "tempered_half_step_kernel", "SC2WarpModel",
+                                         "true>")
                     fns = ladder.plain_functions(lp, off, sc)
                     xp, pp, lpl = x0.clone(), pri0.clone(), ll0.clone()
                     plain_ms = cuda_ms(lambda: ladder.tempered_half_step_plain(
@@ -1718,6 +1739,8 @@ GRAD_KERNELS = ("logpost_grad", "nuts_transition", "hmc_transition")
 TRUTH_MED = [37.58, 5.326, 16.25, 57468.6999]   # tests/test_hmc.py:131-135
 TRUTH_STD = [0.145, 0.053, 0.110, 0.00018]
 GRAD_CHAINS, GRAD_DEPTH, GRAD_LEAPFROG = 64, 9, 32
+GRAD_STARTS = 64        # lightcurve_map's n_starts: the rows of each K7 launch of its ascent
+HMC_CHAINS = 16         # lightcurve_hmc's nchains (20c, 20d)
 
 
 def sc2_grad_ops(ll):
@@ -1750,29 +1773,67 @@ def compare_grad(name, got, want, scale, rel):
     return float(d.max()), float(r.max())
 
 
+def k7_forms_equal(lp, x, white=None):
+    """K7's block form and warp form at the rows x: bit-equal values and
+    gradients (raises otherwise); returns the block form's."""
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels import sc2
+    vb, gb = sc2.logpost_grad_launch(lp, x, white, "block")
+    vw, gw = sc2.logpost_grad_launch(lp, x, white, "warp")
+    if not (torch.equal(vb, vw) and torch.equal(gb, gw)):
+        n = int(((vb != vw) | (gb != gw).any(dim=1)).sum())
+        raise AssertionError(f"K7's block and warp forms differ at {n} of {x.shape[0]} rows")
+    return vb, gb
+
+
+def compare_white(name, got, want, rel):
+    """K7 in the whitened space against the plain whitened log-posterior:
+    values as K1's, gradients within 1e-2 (float32) or 1e-6 (float64) of 1 +
+    |gradient| (tests/test_torch_kernels.py::test_k7_matches_plain_on_card);
+    returns the largest value and gradient differences."""
+    import torch
+    a = compare_ll(f"{name} value", got[0], want[0], rel)
+    d = (got[1] - want[1]).abs()
+    tol = (1e-2 if rel > 1e-8 else 1e-6) * (1 + want[1].abs())
+    if not bool((d <= tol).all()):
+        raise AssertionError(f"{name} gradient: max |delta| {float(d.max()):.3e}")
+    return a[0], float(d.max())
+
+
 def phase_k7(lc, rng_seed=10):
     import numpy as np
     import torch
     from lightcurve_fitting_tpu_torch import kernels
     from lightcurve_fitting_tpu_torch.core import config
     from lightcurve_fitting_tpu_torch.fitting import make_log_posterior
-    from lightcurve_fitting_tpu_torch.kernels import sc2
+    from lightcurve_fitting_tpu_torch.kernels import gradient, sc2
     from lightcurve_fitting_tpu_torch.models import ShockCooling2
+    from time_port_kernels import device_ms
 
     dev = torch.device("cuda")
-    W = HEADLINE_WALKERS
+    W, S = HEADLINE_WALKERS, GRAD_STARTS
     rng = np.random.default_rng(rng_seed)
     p = rng.uniform(P_LO, P_UP, size=(W, 4))
     out = rng.choice(W, W // 100, replace=False)          # 1% outside the priors
     p[out, rng.integers(0, 4, size=out.size)] = np.where(rng.random(out.size) < 0.5, -1.0, 1e5)
     late = rng.uniform([20.0, 2.0, 10.0, 57468.8], [50.0, 5.0, 50.0, 57472.0], size=(W, 4))
     p, late = torch.as_tensor(p, device=dev), torch.as_tensor(late, device=dev)
+    small = torch.cat([p[:S - 2], p[out[:2]]])            # the MAP's width, two rows outside
+    w_big = torch.as_tensor(rng.normal(size=(W, 4)), device=dev)
+    forms = {W: gradient.k7_form(W, gradient.sm_count(dev)),
+             S: gradient.k7_form(S, gradient.sm_count(dev))}
+    if forms != {W: "warp", S: "block"}:
+        raise AssertionError(f"K7's forms by width: {forms}")
 
     def plain(lp_, x):
         parts = [sc2.log_posterior_and_grad_plain(lp_, c) for c in x.split(PLAIN_CHUNK)]
         return torch.cat([a for a, _ in parts]), torch.cat([b for _, b in parts])
 
-    res = {}
+    def plain_white(target, x):
+        parts = [target.logp_and_grad_plain(c) for c in x.split(PLAIN_CHUNK)]
+        return torch.cat([a for a, _ in parts]), torch.cat([b for _, b in parts])
+
+    res, white_res, names = {}, {}, {}
     n0 = kernels.LAUNCHES["logpost_grad"]
     for label in ("f32", "f64"):
         try:
@@ -1783,8 +1844,11 @@ def phase_k7(lc, rng_seed=10):
                                       device=dev)
             rel, grel = (1e-5, 1e-4) if label == "f32" else (1e-10, 1e-9)
             stats = []
-            for lp_, x, what in ((lp, p, ""), (wide, late, " t<t_exp")):
+            for lp_, x, what in ((lp, p, ""), (wide, late, " t<t_exp"), (lp, small, f" {S}")):
                 v, g = sc2.log_posterior_and_grad(lp_, x)
+                vb, gb = k7_forms_equal(lp_, x)
+                if not (torch.equal(v, vb) and torch.equal(g, gb)):
+                    raise AssertionError(f"K7 {label}{what}: the wrapper's bits are not the forms'")
                 vp, gp = plain(lp_, x)
                 a = compare_ll(f"K7 {label}{what} value", v, vp, rel)
                 scale = torch.cat([lp_.grad_term_scales(c) for c in x.split(PLAIN_CHUNK)])
@@ -1793,22 +1857,47 @@ def phase_k7(lc, rng_seed=10):
             if not torch.isfinite(wide(late)).all():
                 raise AssertionError("t < t_exp walkers must have finite log-posteriors")
             res[label] = [max(s[i] for s in stats) for i in range(3)] + [stats[1][3]]
+            # the whitened space of the gradient samplers: the MAP's width of
+            # lightcurve_hmc's chains, and the headline width
+            target, w0 = whitened_flagship(lc, dev, S)
+            for x in (torch.as_tensor(w0, device=dev), w_big):
+                got = kernels.log_posterior_and_grad(target.log_posterior, x, white=target)
+                vb, gb = k7_forms_equal(target.log_posterior, x, target)
+                if not (torch.equal(got[0], vb) and torch.equal(got[1], gb)):
+                    raise AssertionError(f"K7 {label} whitened: the wrapper's bits are not the "
+                                         "forms'")
+                white_res[(label, x.shape[0])] = compare_white(
+                    f"K7 {label} whitened {x.shape[0]}", got, plain_white(target, x), rel)
             if label == "f32":
+                for x in (p, small):
+                    names[x.shape[0]] = expect_kernel(
+                        lambda: sc2.log_posterior_and_grad(lp, x), "logpost_grad",
+                        "logpost_grad_block_kernel" if forms[x.shape[0]] == "block"
+                        else "logpost_grad_kernel")
                 k_ms = cuda_ms(lambda: sc2.log_posterior_and_grad(lp, p))
-                plain_ms = cuda_ms(lambda: plain(lp, p), repeats=2)
+                plain_ms = cuda_ms(lambda: plain(lp, small), repeats=5)
+                s_dev = {f: device_ms(lambda: sc2.logpost_grad_launch(lp, small, None, f),
+                                      "logpost_grad", 100, 1)[0] for f in ("block", "warp")}
         finally:
             config.set_compute_dtype(config.AUTO)
     ll = lp.log_likelihood
     k7_bound = bound_fields(W * sc2_grad_ops(ll), W * (4 * 8 * 2 + 8) + 4 * ll.bb_coeffs.numel())
-    phase("K7", f"{W} walkers (1% outside the priors, {W} more with t < t_exp): value f32 max "
-          f"|d| {res['f32'][0]:.3e}, f64 {res['f64'][0]:.3e} (K1's tolerances, -inf sets equal); "
-          f"gradient f32 max |d| {res['f32'][1]:.3e} (max |d|/term scale {res['f32'][2]:.2e} <= "
-          f"1e-4), f64 max |d| {res['f64'][1]:.3e} ({res['f64'][2]:.2e} <= 1e-9), masked zeros "
-          f"equal ({res['f32'][3]} of the t<t_exp components); "
-          f"{kernels.LAUNCHES['logpost_grad'] - n0} comparison launches; K7 {k_ms:.4f} ms vs "
-          f"plain (autograd) {plain_ms:.4f} ms per {W}-walker batch (f32), bound "
-          f"{k7_bound['bound_ms']:.4f} ms ({k7_bound['bound_by']})")
-    return {"max_abs_err": res["f32"][1], "ms": k_ms, "plain_ms": plain_ms, **k7_bound}
+    s_bound = bound_fields(S * sc2_grad_ops(ll), S * (4 * 8 * 2 + 8) + 4 * ll.bb_coeffs.numel())
+    phase("K7", f"{W} walkers (1% outside the priors, {W} more with t < t_exp) and the MAP's {S} "
+          f"starts: value f32 max |d| {res['f32'][0]:.3e}, f64 {res['f64'][0]:.3e} (K1's "
+          f"tolerances, -inf sets equal); gradient f32 max |d| {res['f32'][1]:.3e} (max "
+          f"|d|/term scale {res['f32'][2]:.2e} <= 1e-4), f64 max |d| {res['f64'][1]:.3e} "
+          f"({res['f64'][2]:.2e} <= 1e-9), masked zeros equal ({res['f32'][3]} of the t<t_exp "
+          f"components); whitened (value, gradient max |d|): "
+          + ", ".join(f"{lab} {n} {v[0]:.3e}, {v[1]:.3e}" for (lab, n), v in white_res.items())
+          + f"; the block and warp forms bit-equal at every width, f32 and f64, whitened or "
+          f"not; the wrapper ran {names[W]} at {W} and {names[S]} at {S} (k7_form); "
+          f"{kernels.LAUNCHES['logpost_grad'] - n0} comparison launches; K7 {k_ms:.4f} ms per "
+          f"{W}-walker batch (f32 events, bound {k7_bound['bound_ms']:.4f} ms "
+          f"({k7_bound['bound_by']})); at {S} rows (the profiler's device time) block "
+          f"{s_dev['block']:.4f} ms, warp {s_dev['warp']:.4f} ms, plain (autograd) "
+          f"{plain_ms:.4f} ms (f32), bound {s_bound['bound_ms']:.5f} ms ({s_bound['bound_by']})")
+    return {"max_abs_err": res["f32"][1], "ms": s_dev["block"], "plain_ms": plain_ms, **s_bound}
 
 
 def whitened_flagship(lc, dev, n_chains, seed=12):
@@ -1988,51 +2077,61 @@ def phase_k7h(lc, seed=14):
     from lightcurve_fitting_tpu_torch.parallel.hmc import hmc_transition_plain
 
     dev = torch.device("cuda")
-    C, L = GRAD_CHAINS, GRAD_LEAPFROG
+    L = GRAD_LEAPFROG
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
-    z = torch.randn((C, 4), generator=g, device=dev, dtype=torch.float64)
-    u_acc = torch.rand(C, generator=g, device=dev, dtype=torch.float64)
-    n_used = torch.randint((L + 1) // 2, L + 1, (C,), generator=g, device=dev)
+    z = torch.randn((GRAD_CHAINS, 4), generator=g, device=dev, dtype=torch.float64)
+    u_acc = torch.rand(GRAD_CHAINS, generator=g, device=dev, dtype=torch.float64)
+    n_used = torch.randint((L + 1) // 2, L + 1, (GRAD_CHAINS,), generator=g, device=dev)
     eps = torch.tensor(0.1, dtype=torch.float64, device=dev)
     inv_mass = torch.ones(4, dtype=torch.float64, device=dev)
-    res = {}
-    for label in ("f32", "f64"):
+    res, k_ms, plain_ms, h_bound = {}, {}, {}, {}
+    for label, C in itertools.product(("f32", "f64"), (GRAD_CHAINS, HMC_CHAINS)):
         try:
             if label == "f64":
                 config.set_compute_dtype(None)
             target, w0 = whitened_flagship(lc, dev, C)
             q0 = torch.as_tensor(w0, device=dev)
             logp0 = target.logp_and_grad(q0)[0]
-            args = (q0, logp0, z, u_acc, n_used, eps, inv_mass, L)
+            args = (q0, logp0, z[:C].contiguous(), u_acc[:C].contiguous(),
+                    n_used[:C].contiguous(), eps, inv_mass, L)
             got = gradient.hmc_transition(target, *args)
             torch.cuda.synchronize()
+            launched = expect_kernel(lambda: gradient.hmc_transition(target, *args),
+                                     "hmc_transition", ", 4>")
+            if label == "f32":
+                name = launched
             full = hmc_transition_plain(target.logp_and_grad_plain, *args, margins=True)
             over_k7 = hmc_transition_plain(target.logp_and_grad, *args, margins=True)
             ref = full if label == "f64" else over_k7
-            cmp = compare_transitions(f"K7h {label}", got, ref[:3], ref[3:],
+            cmp = compare_transitions(f"K7h {label} {C}", got, ref[:3], ref[3:],
                                       1e-6 if label == "f64" else 1e-3, 1e-8)
             n_full = int(((got[0] - full[0]).abs() <= 1e-4).all(dim=1).sum())
-            evals = int((n_used + 1).sum())
-            res[label] = cmp + (n_full, float(got[2].mean()), evals)
+            evals = int((args[4] + 1).sum())
+            res[(label, C)] = cmp + (n_full, float(got[2].mean()), evals)
             if label == "f32":
-                k_ms = cuda_ms(lambda: gradient.hmc_transition(target, *args), repeats=5)
-                plain_ms = cuda_ms(lambda: gradient.hmc_transition_plain(target, *args),
-                                   repeats=1)
+                k_ms[C] = cuda_ms(lambda: gradient.hmc_transition(target, *args), repeats=5)
+                plain_ms[C] = cuda_ms(lambda: gradient.hmc_transition_plain(target, *args),
+                                      repeats=1)
                 ops = evals * sc2_grad_ops(target.log_posterior.log_likelihood)
-                h_bound = bound_fields(ops, C * (4 * 8 * 3 + 8 * 4 + 8 * 2))
+                h_bound[C] = bound_fields(ops, C * (4 * 8 * 3 + 8 * 4 + 8 * 2))
         finally:
             config.set_compute_dtype(config.AUTO)
-    phase("K7h", f"{C} whitened flagship chains, {L} leapfrogs jittered, eps 0.1, shared draws: "
-          f"f64 against the plain transition: {res['f64'][0]} near-ties, max |dq'| "
-          f"{res['f64'][1]:.3e}, max |dlogp'| {res['f64'][2]:.3e}; f32 against the plain "
-          f"transition over K7's float32 evaluations: {res['f32'][0]} near-ties, max |dq'| "
-          f"{res['f32'][1]:.3e}; f32 kernel within 1e-4 of the fully plain float32 transition at "
-          f"{res['f32'][3]} of {C} chains; mean accept probability {res['f32'][4]:.4f}, "
-          f"{res['f32'][5]} evaluations; K7h {k_ms:.4f} ms vs plain {plain_ms:.4f} ms per "
-          f"{C}-chain transition (f32), bound {h_bound['bound_ms']:.4f} ms "
-          f"({h_bound['bound_by']})")
-    return {"max_abs_err": res["f32"][1], "ms": k_ms, "plain_ms": plain_ms, **h_bound}
+    phase("K7h", f"{name} (a block per chain), whitened flagship chains, {L} leapfrogs "
+          f"jittered, eps 0.1, shared draws: "
+          + "; ".join(f"{C} chains: f64 against the plain transition: {res[('f64', C)][0]} "
+                      f"near-ties, max |dq'| {res[('f64', C)][1]:.3e}, max |dlogp'| "
+                      f"{res[('f64', C)][2]:.3e}; f32 against the plain transition over K7's "
+                      f"float32 evaluations: {res[('f32', C)][0]} near-ties, max |dq'| "
+                      f"{res[('f32', C)][1]:.3e}; f32 kernel within 1e-4 of the fully plain "
+                      f"float32 transition at {res[('f32', C)][3]} of {C} chains; mean accept "
+                      f"probability {res[('f32', C)][4]:.4f}, {res[('f32', C)][5]} evaluations; "
+                      f"K7h {k_ms[C]:.4f} ms vs plain {plain_ms[C]:.4f} ms per {C}-chain "
+                      f"transition (f32), bound {h_bound[C]['bound_ms']:.4f} ms "
+                      f"({h_bound[C]['bound_by']})" for C in (GRAD_CHAINS, HMC_CHAINS)))
+    C = HMC_CHAINS   # lightcurve_hmc's width (20d)
+    return {"max_abs_err": max(res[("f32", c)][1] for c in (GRAD_CHAINS, HMC_CHAINS)),
+            "ms": k_ms[C], "plain_ms": plain_ms[C], **h_bound[C]}
 
 
 def hmc_checks(result, name):
@@ -2083,10 +2182,15 @@ def phase_gradient_main_path(lc, smi):
     if not ok:
         raise AssertionError(f"20a: MAP {r.parameters}, stderr {r.stderr}, at_bound "
                              f"{r.at_bound}, covariance_ok {r.covariance_ok}")
+    wall, prof = profiled(lambda: lightcurve_map(lc, ShockCooling2(lc), gauss_priors(), seed=0,
+                                                 quiet=True, device="cuda"))
+    parts, busy = time_split(prof, wall, {"K7": ("logpost_grad",)})
     phase("gradient main path 20a", f"lightcurve_map SN 2016bkv seed 0 in {map_s:.3f} s: "
           f"{fmt(r.parameters)} +- {fmt(r.stderr)}, at_bound {[bool(b) for b in r.at_bound]}, "
           f"log-posterior "
-          f"{r.log_posterior:.4f} (test_map.py:92-104's criteria met)")
+          f"{r.log_posterior:.4f} (test_map.py:92-104's criteria met); profiled run {wall:.4f} "
+          f"s, device busy {busy:.4f} s (idle share {1 - busy / wall:.3f}): "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in parts.items()))
     # (b) tests/test_map.py:59-79
     s = lightcurve_mcmc(lc, ShockCooling2(lc), priors=gauss_priors(), p_lo=[20, 2, 20, 57468.4],
                         p_up=[50, 5, 50, 57468.69], nwalkers=48, nsteps=100, nsteps_burnin=80,
@@ -2136,15 +2240,29 @@ def phase_gradient_main_path(lc, smi):
         if runs[label][2]:
             raise AssertionError(f"20c: the {label} run misses the criteria: {runs[label][2]}")
     # (d) fixed-length HMC, a short run
-    h = lightcurve_hmc(lc, ShockCooling2(lc), gauss_priors(), sampler="hmc", nchains=16,
-                       nsamples=100, n_warmup=150, seed=4, quiet=True, device="cuda")
+    def hmc_run():
+        return lightcurve_hmc(lc, ShockCooling2(lc), gauss_priors(), sampler="hmc",
+                              nchains=HMC_CHAINS, nsamples=100, n_warmup=150, seed=4, quiet=True,
+                              device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = hmc_run()
+    torch.cuda.synchronize()
+    hmc_s = time.perf_counter() - t0
+    wall, prof = profiled(hmc_run)
+    parts, busy = time_split(prof, wall, {
+        "HMC transitions (K7h)": ("hmc_transition",),
+        "warm start (K1, K2)": ("stretch_half_step", "sc2_logpost_kernel"),
+        "K7": ("logpost_grad",)})
     launches = dict(kernels.LAUNCHES)
     if not np.isfinite(h.flatchain).all() or h.flatchain.shape != (1600, 4):
         raise AssertionError("20d: bad HMC chain")
     phase("gradient main path 20d", f"lightcurve_hmc(sampler=\"hmc\") 16 chains x 150+100, "
-          f"n_leapfrog 32: finite chain, acceptance {h.acceptance_fraction.mean():.4f}, step size "
-          f"{h.step_size:.4g}, medians {fmt(np.median(h.flatchain, axis=0))}; launches "
-          f"{launches}")
+          f"n_leapfrog 32 in {hmc_s:.3f} s: finite chain, acceptance "
+          f"{h.acceptance_fraction.mean():.4f}, step size {h.step_size:.4g}, medians "
+          f"{fmt(np.median(h.flatchain, axis=0))}; profiled run {wall:.4f} s, device busy "
+          f"{busy:.4f} s (idle share {1 - busy / wall:.3f}): "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in parts.items()) + f"; launches {launches}")
     for k in GRAD_KERNELS:
         if launches[k] == 0:
             raise AssertionError(f"kernel {k} was not launched on the gradient path: {launches}")
@@ -2236,15 +2354,32 @@ def phase_use_sigma(lc, lcf, lc_ia, lc0, seed=15):
                     f"{hs[2]:.3e}, K6a {lad[1]} accepts, {lad[0]} near-ties, log L max |d| "
                     f"{lad[2]:.3e}, K6b log L max |d| {lad[3]:.3e}")
             if which == "SC2":
-                v, g = sc2.log_posterior_and_grad(lp, p)
-                parts = [sc2.log_posterior_and_grad_plain(lp, c) for c in p.split(PLAIN_CHUNK)]
-                vp, gp = torch.cat([a for a, _ in parts]), torch.cat([b for _, b in parts])
-                compare_ll(f"{what} K7 value", v, vp, rel, scale=lp.log_likelihood.term_scales(p))
-                gscale = torch.cat([lp.grad_term_scales(c) for c in p.split(PLAIN_CHUNK)])
-                gd = compare_grad(f"{what} K7 gradient", g, gp, gscale, grel)
-                if not bool((g[torch.isfinite(v), 4] != 0).all()):
-                    raise AssertionError(f"{what}: K7's sigma column is 0 at a finite walker")
+                # K7 at the width of these walkers (the warp form) and at the
+                # MAP's (the block form, N = 5), both forms bit-equal at each
+                ps = torch.cat([p[-(GRAD_STARTS - 2):], p[:2]])
+                for x, form in ((p, "logpost_grad_kernel"), (ps, "logpost_grad_block_kernel")):
+                    v, g = sc2.log_posterior_and_grad(lp, x)
+                    vb, gb = k7_forms_equal(lp, x)
+                    if not (torch.equal(v, vb) and torch.equal(g, gb)):
+                        raise AssertionError(f"{what}: K7's wrapper bits are not the forms'")
+                    expect_kernel(lambda: sc2.log_posterior_and_grad(lp, x), "logpost_grad",
+                                  form)
+                    parts = [sc2.log_posterior_and_grad_plain(lp, c) for c in x.split(PLAIN_CHUNK)]
+                    vp, gp = torch.cat([a for a, _ in parts]), torch.cat([b for _, b in parts])
+                    compare_ll(f"{what} K7 value", v, vp, rel,
+                               scale=lp.log_likelihood.term_scales(x))
+                    gscale = torch.cat([lp.grad_term_scales(c) for c in x.split(PLAIN_CHUNK)])
+                    gd = compare_grad(f"{what} K7 gradient", g, gp, gscale, grel)
+                    if not bool((g[torch.isfinite(v), 4] != 0).all()):
+                        raise AssertionError(f"{what}: K7's sigma column is 0 at a finite walker")
                 target, w0 = whitened_sigma(lc, dev, 32, sigma_type)
+                wq = torch.as_tensor(w0, device=dev)
+                got = kernels.log_posterior_and_grad(target.log_posterior, wq, white=target)
+                vb, gb = k7_forms_equal(target.log_posterior, wq, target)
+                if not (torch.equal(got[0], vb) and torch.equal(got[1], gb)):
+                    raise AssertionError(f"{what}: K7's whitened bits are not the forms'")
+                wd = compare_white(f"{what} K7 whitened", got, target.logp_and_grad_plain(wq),
+                                   rel)
                 gen = torch.Generator(device=dev)
                 gen.manual_seed(seed)
                 q0 = torch.as_tensor(w0, device=dev)
@@ -2262,10 +2397,15 @@ def phase_use_sigma(lc, lcf, lc_ia, lc0, seed=15):
                 k9 = compare_transitions(f"{what} K9", got, ref[:5], ref[5:], gap, 1e-8)
                 args = (q0, logp0, z, u_acc, n_used, eps, inv_mass, 16)
                 got = gradient.hmc_transition(target, *args)
+                expect_kernel(lambda: gradient.hmc_transition(target, *args), "hmc_transition",
+                              ", 5>")
                 ref = hmc_transition_plain(fn, *args, margins=True)
                 k7h = compare_transitions(f"{what} K7h", got, ref[:3], ref[3:], gap, 1e-8)
-                line += (f", K7 gradient max |d|/term scale {gd[1]:.2e}, K9 {k9[0]} near-ties "
-                         f"max |dq'| {k9[1]:.2e}, K7h {k7h[0]} near-ties max |dq'| {k7h[1]:.2e}")
+                line += (f", K7 gradient max |d|/term scale {gd[1]:.2e} (the {GRAD_STARTS}-row "
+                         f"block form; both forms bit-equal at {p.shape[0]} and {GRAD_STARTS} "
+                         f"rows and at 32 whitened, max |dvalue|, |dgrad| {wd[0]:.2e}, "
+                         f"{wd[1]:.2e}), K9 {k9[0]} near-ties max |dq'| {k9[1]:.2e}, K7h (a "
+                         f"block per chain, N = 5) {k7h[0]} near-ties max |dq'| {k7h[1]:.2e}")
             lines.append(line)
         finally:
             config.set_compute_dtype(config.AUTO)
@@ -2793,14 +2933,21 @@ def main():
     regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
     sys.path.insert(0, os.path.join(REPO, "tools"))
     from time_port_kernels import ptxas_report
-    k9 = [v for k, v in ptxas_report(info["log"]).items() if "nuts_transition_kernel" in k]
+    report = ptxas_report(info["log"])
+    block = {}
+    for what, key in (("K9", "nuts_transition_kernel"), ("K7h", "hmc_transition_kernel"),
+                      ("K7's block form", "logpost_grad_block_kernel")):
+        block[what] = [v for k, v in report.items() if key in k]
+        if len(block[what]) != 4 or any(v[1] or v[2] or v[3] for v in block[what]):
+            raise AssertionError(f"{what} (ndim 4, 5; f32, f64) must keep its state in "
+                                 f"registers: {block[what]}")
     phase("build", f"{'built' if info['built'] else 'reused'} {os.path.relpath(info['path'], REPO)} "
           f"in {time.perf_counter() - t0:.2f} s; ptxas: {len(regs)} kernels, "
-          f"{sorted(set(r.split('Used ')[-1] for r in regs))[:4]}; K9's {len(k9)} "
-          f"instantiations: registers {sorted(set(v[0] for v in k9))}, stack frames "
-          f"{sorted(set(v[1] for v in k9))} bytes, spills {sorted(set(v[2] + v[3] for v in k9))}")
-    if not k9 or any(v[1] or v[2] or v[3] for v in k9):
-        raise AssertionError(f"K9 must keep its state in registers: {k9}")
+          f"{sorted(set(r.split('Used ')[-1] for r in regs))[:4]}; the block-per-chain kernels' "
+          f"four instantiations each (ndim 4, 5; f32, f64): "
+          + "; ".join(f"{what} registers {sorted(set(v[0] for v in ks))}, stack frames "
+                      f"{sorted(set(v[1] for v in ks))} bytes, spills "
+                      f"{sorted(set(v[2] + v[3] for v in ks))}" for what, ks in block.items()))
 
     lc = flagship_lc()
     k1 = phase_k1(lc)
@@ -2880,15 +3027,16 @@ def main():
              source="lightcurve_fitting_tpu_torch/kernels/csrc/ladder.cu",
              replaces="lightcurve_fitting_tpu/parallel/evidence.py:473",
              launches=launches_ladder["rung_block_terms"], **k6d),
-        dict(name="logpost_grad_kernel<SC2Model> (K7)", route="cuda",
+        dict(name="logpost_grad_block_kernel<SC2Model, N> / logpost_grad_kernel<SC2Model> (K7)",
+             route="cuda",
              source="lightcurve_fitting_tpu_torch/kernels/csrc/gradient.cuh",
              replaces="lightcurve_fitting_tpu/parallel/nuts.py:102",
              launches=launches_grad["logpost_grad"], **k7),
-        dict(name="nuts_transition_kernel<SC2Model> (K9)", route="cuda",
+        dict(name="nuts_transition_kernel<SC2Model, N> (K9)", route="cuda",
              source="lightcurve_fitting_tpu_torch/kernels/csrc/gradient.cuh",
              replaces="lightcurve_fitting_tpu/parallel/nuts.py:98",
              launches=launches_grad["nuts_transition"], **k9),
-        dict(name="hmc_transition_kernel<SC2Model> (K7h)", route="cuda",
+        dict(name="hmc_transition_kernel<SC2Model, N> (K7h)", route="cuda",
              source="lightcurve_fitting_tpu_torch/kernels/csrc/gradient.cuh",
              replaces="lightcurve_fitting_tpu/parallel/hmc.py:241",
              launches=launches_grad["hmc_transition"], **k7h),

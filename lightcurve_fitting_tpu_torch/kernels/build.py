@@ -91,15 +91,15 @@ def _declare(lib):
     lib.rung_block_terms_launch.restype = ci
     lib.rung_block_terms_launch.argtypes = [ci, vp, ci, ci, vp, ci, ci, vp, vp, vp, vp]
     lib.sc2_logpost_grad_launch.restype = ci
-    lib.sc2_logpost_grad_launch.argtypes = [vp, ci, ci, vp, vp, ci, vp, vp, vp]
+    lib.sc2_logpost_grad_launch.argtypes = [vp, ci, ci, vp, vp, ci, vp, vp, ci, vp, vp]
     lib.sc2_nuts_transition_launch.restype = ci
     lib.sc2_nuts_transition_launch.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp, vp, vp, ci, ci,
                                                vp, vp, vp, vp, vp, vp, vp]
-    lib.sc2_nuts_scratch_len.restype = ctypes.c_longlong
-    lib.sc2_nuts_scratch_len.argtypes = [vp, ci, ci, ci, ci]
+    lib.sc2_block_scratch_len.restype = ctypes.c_longlong
+    lib.sc2_block_scratch_len.argtypes = [vp, ci, ci, ci, ci]
     lib.sc2_hmc_transition_launch.restype = ci
     lib.sc2_hmc_transition_launch.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, ci,
-                                              vp, vp, vp, vp]
+                                              vp, vp, vp, vp, vp]
     return lib
 
 

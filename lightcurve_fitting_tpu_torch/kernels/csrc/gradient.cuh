@@ -35,23 +35,27 @@
 // 2^max_depth - 1 and n_leapfrog gradient evaluations per chain, so a
 // transition's time is the latency of one evaluation times the trajectory
 // length (the operations bound is ~1e-3 of it at 16 chains).
-// What K9's design does about it: a block per chain and one point per thread
-// (ceil(N / 32) warps: 5 for the flagship's 149 points, at most
-// NUTS_MAX_WARPS), so an evaluation's latency is one point's, not a lane's
-// five in a row; the points' factors are folded in the warp form's order
-// (sc2_logpost.cu), so K9's evaluations are K7's bit for bit. ndim is a
-// template parameter (4, or 5 with the intrinsic scatter): the chain's
-// state, the whitening and the prior gradient live in registers, with no
-// stack frame. Every thread runs the sampler's scalar part (kicks, drift,
-// energies, U-turns, progressive sampling) on the same values, so no state
-// is broadcast and an evaluation costs one barrier. The whole NUTS
-// while-loop runs in the kernel; the trajectory buffer (Q, P, log w, log p)
-// lies in shared memory when it fits beside the points, else in a global
-// scratch; the subtree U-turn checks, the Gumbel argmax, the log-sum-exp and
-// the accept statistic's exp are spread over the block. Draws are inputs,
-// so a kernel's transition equals the plain one's under the same draws up to
-// rounding.
-// K7h keeps a warp per chain (250 launches on the main path).
+// What the design does about it: K9, K7h and K7 at small widths run a block
+// per chain (or row) and one point per thread (ceil(N / 32) warps: 5 for the
+// flagship's 149 points, at most BLOCK_MAX_WARPS), so an evaluation's
+// latency is one point's, not a lane's five in a row; the points' factors
+// are folded in the warp form's order (sc2_logpost.cu), so the block form's
+// evaluations are the warp form's bit for bit. ndim is a template parameter
+// (4, or 5 with the intrinsic scatter): the chain's state, the whitening and
+// the prior gradient live in registers, with no stack frame. Every thread
+// runs the sampler's scalar part (kicks, drift, energies, the accept test;
+// K9's U-turns and progressive sampling) on the same values, so no state is
+// broadcast and an evaluation costs one barrier. block_plan places the
+// staged points, the reduction slots and the model's block workspace in
+// shared memory (the workspace in a global scratch where it does not fit).
+// K9 runs its whole while-loop in the kernel; its trajectory buffer (Q, P,
+// log w, log p) lies in shared memory when it fits beside the rest, else in
+// the scratch; the subtree U-turn checks, the Gumbel argmax, the
+// log-sum-exp and the accept statistic's exp are spread over the block.
+// Draws are inputs, so a kernel's transition equals the plain one's under
+// the same draws up to rounding. K7 keeps the warp form (a warp per row,
+// GRAD_WARPS rows a block) where the rows fill the card; the wrapper picks
+// the form from the width and the SM count (kernels/gradient.py::k7_form).
 
 #pragma once
 
@@ -125,9 +129,10 @@ __device__ __forceinline__ double white_value_and_grad(const double* w, const Wh
     return v;
 }
 
-// K7: val[w] and grad[w, :] (float64) at the rows q (W, ndim), one warp per
-// row; the whitened space when has_T, else the model's own parameters
-// (non-finite components 0; all 0 at -inf).
+// K7's warp form: val[w] and grad[w, :] (float64) at the rows q (W, ndim),
+// one warp per row; the whitened space when has_T, else the model's own
+// parameters (non-finite components 0; all 0 at -inf). The block form,
+// logpost_grad_block_kernel below, computes the same bits.
 template <typename M>
 __global__ void __launch_bounds__(32 * GRAD_WARPS)
 logpost_grad_kernel(const typename M::Params P, const WhiteParams T, int has_T,
@@ -154,20 +159,21 @@ logpost_grad_kernel(const typename M::Params P, const WhiteParams T, int has_T,
     }
 }
 
-// One leapfrog step (hmc.py:257-261) in the whitened space, in place: kick
-// with the entry gradient g, drift, evaluate, kick with the exit gradient,
-// which is left in g. Returns the new log-posterior.
-template <typename Eval>
+// One leapfrog step (hmc.py:257-261) in the whitened space of dimension N,
+// in place: kick with the entry gradient g, drift, evaluate, kick with the
+// exit gradient, which is left in g. Returns the new log-posterior.
+template <int N, typename Eval>
 __device__ __forceinline__ double leapfrog(double* q, double* p, double* g, double eps,
                                            const double* inv_mass, const WhiteParams& T,
                                            Eval eval) {
-    const int n = (int)T.ndim;
-    for (int k = 0; k < n; ++k) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
         p[k] = p[k] + (0.5 * eps) * g[k];
         q[k] = q[k] + (eps * inv_mass[k]) * p[k];
     }
-    const double lp = white_value_and_grad<0>(q, T, g, eval);
-    for (int k = 0; k < n; ++k) p[k] = p[k] + (0.5 * eps) * g[k];
+    const double lp = white_value_and_grad<N>(q, T, g, eval);
+#pragma unroll
+    for (int k = 0; k < N; ++k) p[k] = p[k] + (0.5 * eps) * g[k];
     return lp;
 }
 
@@ -185,23 +191,74 @@ __device__ __forceinline__ bool turns(const double* p, const double* dq, const d
     return s < 0.0;
 }
 
-// K9's shared memory, in bytes from the start of the dynamic allocation, and
-// its global scratch, in doubles per chain (nuts_plan).
-struct NutsLayout {
-    int threads;        // of the block (one chain)
+// The shared memory of a kernel that runs the model's block form (a block per
+// chain or row: K9, K7h, K7's block form), in bytes from the start of the
+// dynamic allocation, and its global scratch, in doubles per block
+// (block_plan).
+struct BlockLayout {
+    int threads;        // of the block: a warp for every 32 points, at most BLOCK_MAX_WARPS
     int use_smem;       // the staged points at 0 (else read from global memory)
     int ws_smem;        // the model's block workspace at ws_off (else in scratch at 0)
-    int traj_smem;      // the trajectory buffer at traj_off (else in scratch at traj_scratch)
-    long long red_off;  // NUTS_RED doubles for the block reductions
+    long long red_off;  // the kernel's doubles for its block reductions
     long long ws_off;
-    long long traj_off;
     long long smem;     // bytes of dynamic shared memory
-    long long traj_scratch;
-    long long scratch;  // doubles of global scratch per chain
+    long long scratch;  // doubles of global scratch per block
 };
 
-#define NUTS_MAX_WARPS 8                 // 256 threads: the chain's state keeps its registers
-#define NUTS_RED (5 * NUTS_MAX_WARPS)    // per warp: max, best key, pick, alpha sum, exp sum
+// K9's: the block's, then its trajectory buffer (nuts_plan).
+struct NutsLayout : BlockLayout {
+    int traj_smem;      // the trajectory buffer at traj_off (else in scratch at traj_scratch)
+    long long traj_off;
+    long long traj_scratch;
+};
+
+#define BLOCK_MAX_WARPS 8                 // 256 threads: the chain's state keeps its registers
+#define NUTS_RED (5 * BLOCK_MAX_WARPS)    // per warp: max, best key, pick, alpha sum, exp sum
+
+// The model's workspace of the block form: in shared memory at Lay.ws_off, or
+// in block b's part of the global scratch.
+__device__ __forceinline__ void* block_workspace(unsigned char* smem_raw, const BlockLayout& Lay,
+                                                 double* scratch, int b) {
+    return Lay.ws_smem ? static_cast<void*>(smem_raw + Lay.ws_off)
+                       : static_cast<void*>(scratch + (size_t)b * Lay.scratch);
+}
+
+// K7's block form: val[r] and grad[r, :] as logpost_grad_kernel computes them,
+// at the rows q (W, N), one block per row (Lay.threads threads, a point a
+// thread), for the widths at which a warp per row leaves most of the card
+// idle. Every thread computes the same bits (the block form's), the warp
+// form's for the same row; thread 0 writes them.
+template <typename M, int N>
+__global__ void __launch_bounds__(32 * BLOCK_MAX_WARPS, 1)
+logpost_grad_block_kernel(const typename M::Params P, const WhiteParams T, int has_T,
+                          const double* __restrict__ q, double* __restrict__ val,
+                          double* __restrict__ grad, double* __restrict__ scratch,
+                          const BlockLayout Lay) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const typename M::Data d = M::stage(P, smem_raw, Lay.use_smem, 0);
+    const int row = blockIdx.x;
+    void* ws = block_workspace(smem_raw, Lay, scratch, row);
+    int turn = 0;
+    auto eval = [&](const double* x, double* gx) {
+        return M::template value_and_grad_block<N>(x, d, P, gx, ws, turn);
+    };
+    double p[N], g[N];
+#pragma unroll
+    for (int k = 0; k < N; ++k) p[k] = q[(size_t)row * N + k];
+    double v;
+    if (has_T) {
+        v = white_value_and_grad<N>(p, T, g, eval);
+    } else {
+        v = eval(p, g);
+#pragma unroll
+        for (int k = 0; k < N; ++k) g[k] = isfinite(g[k]) ? g[k] : 0.0;
+    }
+    if (threadIdx.x == 0) {
+        val[row] = v;
+#pragma unroll
+        for (int k = 0; k < N; ++k) grad[(size_t)row * N + k] = g[k];
+    }
+}
 
 // K9: one multinomial NUTS transition of every chain (one block per chain,
 // Lay.threads threads), the body of nuts.py:105-202 with its draws as inputs:
@@ -216,7 +273,7 @@ struct NutsLayout {
 // log-sum-exp and alpha sum are then spread over the block and combined in
 // a fixed order (warp butterflies, then the warps in order).
 template <typename M, int N>
-__global__ void __launch_bounds__(32 * NUTS_MAX_WARPS, 1)
+__global__ void __launch_bounds__(32 * BLOCK_MAX_WARPS, 1)
 nuts_transition_kernel(const typename M::Params P, const WhiteParams T,
                        const double* __restrict__ q_in, const double* __restrict__ logp_in,
                        const double* __restrict__ z, const double* __restrict__ u,
@@ -237,7 +294,7 @@ nuts_transition_kernel(const typename M::Params P, const WhiteParams T,
     double* lwb = Pb + (size_t)max_len * N;               // (max_len,)
     double* lpb = lwb + max_len;
     double* red = reinterpret_cast<double*>(smem_raw + Lay.red_off);
-    void* ws = Lay.ws_smem ? static_cast<void*>(smem_raw + Lay.ws_off) : static_cast<void*>(cs);
+    void* ws = block_workspace(smem_raw, Lay, scratch, c);
     int turn = 0;
     auto eval = [&](const double* x, double* gx) {
         return M::template value_and_grad_block<N>(x, d, P, gx, ws, turn);
@@ -340,34 +397,34 @@ nuts_transition_kernel(const typename M::Params P, const WhiteParams T,
         a_part = warp_sum(a_part);
         if (lane == 0) {
             red[warp] = m;
-            red[NUTS_MAX_WARPS + warp] = best;
-            red[2 * NUTS_MAX_WARPS + warp] = (double)pick;
-            red[3 * NUTS_MAX_WARPS + warp] = a_part;
+            red[BLOCK_MAX_WARPS + warp] = best;
+            red[2 * BLOCK_MAX_WARPS + warp] = (double)pick;
+            red[3 * BLOCK_MAX_WARPS + warp] = a_part;
         }
         bad = __syncthreads_or(bad) || div_new;
         m = red[0];
-        best = red[NUTS_MAX_WARPS];
-        pick = (int)red[2 * NUTS_MAX_WARPS];
-        double alpha_sum = red[3 * NUTS_MAX_WARPS];
+        best = red[BLOCK_MAX_WARPS];
+        pick = (int)red[2 * BLOCK_MAX_WARPS];
+        double alpha_sum = red[3 * BLOCK_MAX_WARPS];
         for (int w = 1; w < nw; ++w) {
             m = fmax(m, red[w]);
-            const double ob = red[NUTS_MAX_WARPS + w];
-            const int oi = (int)red[2 * NUTS_MAX_WARPS + w];
+            const double ob = red[BLOCK_MAX_WARPS + w];
+            const int oi = (int)red[2 * BLOCK_MAX_WARPS + w];
             if (ob > best || (ob == best && oi < pick)) {
                 best = ob;
                 pick = oi;
             }
-            alpha_sum += red[3 * NUTS_MAX_WARPS + w];
+            alpha_sum += red[3 * BLOCK_MAX_WARPS + w];
         }
         // log W of the subtree
         const double shift = isfinite(m) ? m : 0.0;
         double se = 0.0;
         for (int i = tid; i < n_steps; i += blockDim.x) se += exp(lwb[i] - shift);
         se = warp_sum(se);
-        if (lane == 0) red[4 * NUTS_MAX_WARPS + warp] = se;
+        if (lane == 0) red[4 * BLOCK_MAX_WARPS + warp] = se;
         __syncthreads();
-        se = red[4 * NUTS_MAX_WARPS];
-        for (int w = 1; w < nw; ++w) se += red[4 * NUTS_MAX_WARPS + w];
+        se = red[4 * BLOCK_MAX_WARPS];
+        for (int w = 1; w < nw; ++w) se += red[4 * BLOCK_MAX_WARPS + w];
         const double logW_new = log(se) + shift;
         // biased progressive sampling: the subtree's pick with probability
         // min(1, W_new / W_old)
@@ -412,43 +469,50 @@ nuts_transition_kernel(const typename M::Params P, const WhiteParams T,
     }
 }
 
-// K7h: one HMC transition of every chain (one warp per chain), hmc.py:241-276
-// with its draws as inputs: z (C, ndim) normals, u_acc (C,) the accept
-// uniform, n_used (C,) the trajectory length in [(L + 1) / 2, L]; the steps
-// past n_used of the JAX scan are identity and are not run.
-template <typename M>
-__global__ void __launch_bounds__(32)
+// K7h: one HMC transition of every chain (one block per chain, Lay.threads
+// threads, a point a thread in each evaluation), hmc.py:241-276 with its
+// draws as inputs: z (C, N) normals, u_acc (C,) the accept uniform, n_used
+// (C,) the trajectory length in [(L + 1) / 2, L]; the steps past n_used of
+// the JAX scan are identity and are not run. Every thread runs the leapfrog
+// and the accept test on the same values (the block form gives every thread
+// the same bits); thread 0 writes the outputs.
+template <typename M, int N>
+__global__ void __launch_bounds__(32 * BLOCK_MAX_WARPS)
 hmc_transition_kernel(const typename M::Params P, const WhiteParams T,
                       const double* __restrict__ q_in, const double* __restrict__ logp_in,
                       const double* __restrict__ z, const double* __restrict__ u_acc,
                       const long long* __restrict__ n_used, const double* __restrict__ eps_ptr,
                       const double* __restrict__ inv_mass_ptr, double* __restrict__ q_out,
                       double* __restrict__ logp_out, double* __restrict__ accept_prob,
-                      int use_smem) {
+                      double* __restrict__ scratch, const BlockLayout Lay) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    const typename M::Data d = M::stage(P, smem_raw, use_smem, 0);
+    const typename M::Data d = M::stage(P, smem_raw, Lay.use_smem, 0);
     const int c = blockIdx.x;
-    const int n = (int)T.ndim;
+    void* ws = block_workspace(smem_raw, Lay, scratch, c);
+    int turn = 0;
+    auto eval = [&](const double* x, double* gx) {
+        return M::template value_and_grad_block<N>(x, d, P, gx, ws, turn);
+    };
     const double eps = *eps_ptr;
-    auto eval = [&](const double* x, double* gx) { return M::value_and_grad(x, d, P, gx); };
-    double inv_mass[LP_MAX_DIM], x[LP_MAX_DIM], p0[LP_MAX_DIM], q[LP_MAX_DIM], p[LP_MAX_DIM];
-    double g[LP_MAX_DIM];
-    for (int k = 0; k < n; ++k) {
+    double inv_mass[N], x[N], p0[N], q[N], p[N], g[N];
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
         inv_mass[k] = inv_mass_ptr[k];
-        x[k] = q[k] = q_in[(size_t)c * n + k];
-        p0[k] = p[k] = z[(size_t)c * n + k] / sqrt(inv_mass[k]);
+        x[k] = q[k] = q_in[(size_t)c * N + k];
+        p0[k] = p[k] = z[(size_t)c * N + k] / sqrt(inv_mass[k]);
     }
     const double logp0 = logp_in[c];
-    white_value_and_grad<0>(q, T, g, eval);
+    white_value_and_grad<N>(q, T, g, eval);
     double logp_new = logp0;
     const long long steps = n_used[c];
-    for (long long i = 0; i < steps; ++i) logp_new = leapfrog(q, p, g, eps, inv_mass, T, eval);
-    const double h0 = logp0 - kinetic(p0, inv_mass, n);
-    const double h1 = logp_new - kinetic(p, inv_mass, n);
+    for (long long i = 0; i < steps; ++i) logp_new = leapfrog<N>(q, p, g, eps, inv_mass, T, eval);
+    const double h0 = logp0 - kinetic(p0, inv_mass, N);
+    const double h1 = logp_new - kinetic(p, inv_mass, N);
     const double log_accept = isfinite(h1) ? h1 - h0 : -INFINITY;
     const bool accept = log(u_acc[c]) < log_accept;
-    if ((threadIdx.x & 31) == 0) {
-        for (int k = 0; k < n; ++k) q_out[(size_t)c * n + k] = accept ? q[k] : x[k];
+    if (threadIdx.x == 0) {
+#pragma unroll
+        for (int k = 0; k < N; ++k) q_out[(size_t)c * N + k] = accept ? q[k] : x[k];
         logp_out[c] = accept ? logp_new : logp0;
         accept_prob[c] = fmin(1.0, exp(fmin(log_accept, 0.0)));
     }
@@ -473,36 +537,79 @@ static int launch_logpost_grad(const typename M::Params& P, const WhiteParams* T
     return (int)cudaGetLastError();
 }
 
-// K9's plan for a chain of the model's points: the block (a warp for every
-// 32 points, at most NUTS_MAX_WARPS) and its memory. Shared memory holds the
-// block reductions, then the staged points, the model's block workspace and
-// the trajectory buffer (max_len rows of 2 ndim + 2 doubles), each where it
-// still fits under the card's limit, in that order; what does not fit lies
-// in global memory (the points where the model keeps them, the workspace
-// and the buffer in a scratch of NutsLayout.scratch doubles per chain).
+// The plan of a block over the model's points (a warp for every 32 points,
+// at most BLOCK_MAX_WARPS) and its memory, for a kernel that reduces over
+// red_doubles doubles of shared memory. Shared memory holds the staged
+// points, then the reduction slots and the model's block workspace, each
+// where it still fits under the card's limit, in that order; what does not
+// fit lies in global memory (the points where the model keeps them, the
+// workspace in a scratch of BlockLayout.scratch doubles per block).
 template <typename M>
-static NutsLayout nuts_plan(const typename M::Params& P, int ndim, int max_depth) {
-    NutsLayout L;
+static BlockLayout block_plan(const typename M::Params& P, long long red_doubles) {
+    BlockLayout L;
     const long long warps = (P.n_points + 31) / 32;
-    L.threads = 32 * (int)(warps < 1 ? 1 : (warps < NUTS_MAX_WARPS ? warps : NUTS_MAX_WARPS));
-    const long long max_len = max_depth > 1 ? 1LL << (max_depth - 1) : 1;
+    L.threads = 32 * (int)(warps < 1 ? 1 : (warps < BLOCK_MAX_WARPS ? warps : BLOCK_MAX_WARPS));
     const long long points = ((long long)M::stage_bytes(P) + 15) / 16 * 16;
     const long long ws = ((long long)M::block_ws_bytes(P) + 15) / 16 * 16;
-    const long long traj = 8 * max_len * (2 * ndim + 2);
     const long long limit = smem_optin_limit();
-    L.use_smem = points + 8 * NUTS_RED <= limit;
+    L.use_smem = points + 8 * red_doubles <= limit;
     L.red_off = L.use_smem ? points : 0;
-    long long used = L.red_off + 8 * NUTS_RED;
+    long long used = L.red_off + 8 * red_doubles;
     L.ws_smem = used + ws <= limit;
     L.ws_off = used;
     if (L.ws_smem) used += ws;
-    L.traj_smem = used + traj <= limit;
-    L.traj_off = used;
-    if (L.traj_smem) used += traj;
     L.smem = used;
-    L.traj_scratch = L.ws_smem ? 0 : ws / 8;
-    L.scratch = L.traj_scratch + (L.traj_smem ? 0 : traj / 8);
+    L.scratch = L.ws_smem ? 0 : ws / 8;
     return L;
+}
+
+// K9's plan for a chain of the model's points: block_plan with NUTS_RED
+// reduction slots, then the trajectory buffer (max_len rows of 2 ndim + 2
+// doubles) in shared memory where it still fits, else after the workspace in
+// the scratch.
+template <typename M>
+static NutsLayout nuts_plan(const typename M::Params& P, int ndim, int max_depth) {
+    NutsLayout L;
+    static_cast<BlockLayout&>(L) = block_plan<M>(P, NUTS_RED);
+    const long long max_len = max_depth > 1 ? 1LL << (max_depth - 1) : 1;
+    const long long traj = 8 * max_len * (2 * ndim + 2);
+    L.traj_smem = L.smem + traj <= smem_optin_limit();
+    L.traj_off = L.smem;
+    if (L.traj_smem) L.smem += traj;
+    L.traj_scratch = L.scratch;
+    L.scratch += L.traj_smem ? 0 : traj / 8;
+    return L;
+}
+
+// The float64 scratch, in doubles per block, of a block-per-chain launch: K9
+// at max_depth >= 1, K7h and K7's block form at 0.
+template <typename M>
+static long long block_scratch(const typename M::Params& P, int ndim, int max_depth) {
+    return max_depth > 0 ? nuts_plan<M>(P, ndim, max_depth).scratch : block_plan<M>(P, 0).scratch;
+}
+
+// Dynamic shared memory over the 48 KB default: opt in.
+template <typename Kernel>
+static int opt_in_smem(Kernel kernel, long long smem) {
+    if (smem <= 48 * 1024) return 0;
+    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)smem);
+}
+
+template <typename M, int N>
+static int launch_logpost_grad_block(const typename M::Params& P, const WhiteParams* T,
+                                     const double* q, int W, double* val, double* grad,
+                                     double* scratch, cudaStream_t stream) {
+    auto kernel = logpost_grad_block_kernel<M, N>;
+    const BlockLayout L = block_plan<M>(P, 0);
+    if (L.scratch > 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+    int rc = opt_in_smem(kernel, L.smem);
+    if (rc) return rc;
+    WhiteParams none;
+    none.ndim = 0;
+    kernel<<<W, L.threads, L.smem, stream>>>(P, T ? *T : none, T != nullptr, q, val, grad,
+                                             scratch, L);
+    return (int)cudaGetLastError();
 }
 
 template <typename M, int N>
@@ -514,29 +621,25 @@ static int launch_nuts(const typename M::Params& P, const WhiteParams& T, const 
     auto kernel = nuts_transition_kernel<M, N>;
     const NutsLayout L = nuts_plan<M>(P, N, max_depth);
     if (L.scratch > 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
-    if (L.smem > 48 * 1024) {
-        int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)L.smem);
-        if (rc) return rc;
-    }
+    int rc = opt_in_smem(kernel, L.smem);
+    if (rc) return rc;
     kernel<<<C, L.threads, L.smem, stream>>>(P, T, q, logp, z, u, eps, inv_mass, max_depth, q_out,
                                              logp_out, accept_stat, depth, diverged, scratch, L);
     return (int)cudaGetLastError();
 }
 
-template <typename M>
+template <typename M, int N>
 static int launch_hmc(const typename M::Params& P, const WhiteParams& T, const double* q,
                       const double* logp, const double* z, const double* u_acc,
                       const long long* n_used, const double* eps, const double* inv_mass, int C,
-                      double* q_out, double* logp_out, double* accept_prob,
+                      double* q_out, double* logp_out, double* accept_prob, double* scratch,
                       cudaStream_t stream) {
-    auto kernel = hmc_transition_kernel<M>;
-    int use_smem = 0;
-    const size_t bytes = M::stage_bytes(P);
-    int rc = smem_plan(kernel, bytes, &use_smem);
+    auto kernel = hmc_transition_kernel<M, N>;
+    const BlockLayout L = block_plan<M>(P, 0);
+    if (L.scratch > 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+    int rc = opt_in_smem(kernel, L.smem);
     if (rc) return rc;
-    kernel<<<C, 32, use_smem ? bytes : 0, stream>>>(P, T, q, logp, z, u_acc, n_used, eps,
-                                                    inv_mass, q_out, logp_out, accept_prob,
-                                                    use_smem);
+    kernel<<<C, L.threads, L.smem, stream>>>(P, T, q, logp, z, u_acc, n_used, eps, inv_mass,
+                                             q_out, logp_out, accept_prob, scratch, L);
     return (int)cudaGetLastError();
 }

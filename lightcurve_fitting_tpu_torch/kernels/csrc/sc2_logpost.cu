@@ -14,8 +14,9 @@
 //   K7, K7h, K9 over ShockCooling2: the value and gradient of the
 //       log-posterior (jax.value_and_grad of K1's graph), the HMC and the
 //       NUTS transitions, the templates of gradient.cuh over SC2Model, whose
-//       value_and_grad is sc2_value_and_grad_warp below (K7, K7h) and
-//       value_and_grad_block sc2_value_and_grad_block (K9).
+//       value_and_grad is sc2_value_and_grad_warp below (K7 at large widths)
+//       and value_and_grad_block sc2_value_and_grad_block (K9, K7h, K7 at
+//       small widths).
 //
 // What bounds it on the H100: FP32 ALU work. One evaluation is ~23.5k flops
 // over the N = 149 points of the flagship, of which the degree-40 Clenshaw
@@ -323,9 +324,10 @@ __device__ double sc2_log_posterior(const double* p, const PointData<C>& d, cons
     return lprior + sc2_log_likelihood<C>(p, d, P);
 }
 
-// The value and gradient of the log-posterior (K7's device function, and the
-// block form of K9): the log-posterior of one walker at absolute float64
-// parameters p[ndim] and its raw gradient g[ndim]. The residual terms and
+// The value and gradient of the log-posterior (K7's device function in its
+// two forms, and the evaluations of K9 and K7h): the log-posterior of one
+// walker at absolute float64 parameters p[ndim] and its raw gradient
+// g[ndim]. The residual terms and
 // their derivatives are accumulated in the compute type C over slots of
 // points: slot l takes the points n = l, l + 32, l + 64, ... in that order,
 // then a butterfly shuffle sums the 32 slots in a fixed order. The warp form
@@ -484,8 +486,8 @@ __device__ __forceinline__ double sc2_finish(SC2Sums<C> s, double lprior,
     return lprior + ll;
 }
 
-// The warp form (K7, K7h): called by the 32 lanes of a warp with the same p;
-// lane l runs slot l. Every lane returns the same bits.
+// The warp form (K7 at large widths): called by the 32 lanes of a warp with
+// the same p; lane l runs slot l. Every lane returns the same bits.
 template <typename C>
 __device__ double sc2_value_and_grad_warp(const double* p, const PointData<C>& d,
                                           const SC2Params& P, double* g) {
@@ -503,8 +505,8 @@ __device__ double sc2_value_and_grad_warp(const double* p, const PointData<C>& d
     return sc2_finish<C>(s, lprior, gprior, P, ndim, g);
 }
 
-// The block form (K9): called by every thread of the block with the same
-// p[NDIM] (NDIM == P.ndim). Thread t computes the points t, t + blockDim,
+// The block form (K9, K7h, K7 at small widths): called by every thread of
+// the block with the same p[NDIM] (NDIM == P.ndim). Thread t computes the points t, t + blockDim,
 // ... into ws, one of two buffers of n_points factors that successive calls
 // use in turns (turn, the caller's, flips at each call that evaluates the
 // likelihood), so one barrier a call keeps a fast warp from overwriting the
@@ -663,36 +665,48 @@ int sc2_ladder_init_launch(const SC2Params* P, int device, int compute_f64, cons
 }
 
 // K7 launch: val (W,) and grad (W, ndim) at the float64 rows q, in the
-// whitened space of T when T is not null. Returns 0 or a cudaError_t code.
+// whitened space of T when T is not null; block 0 runs the warp form (a
+// warp per row), 1 the block form (a block per row, ndim 4, or 5 with the
+// intrinsic scatter; scratch may be null when sc2_block_scratch_len gives
+// 0). Returns 0 or a cudaError_t code.
 int sc2_logpost_grad_launch(const SC2Params* P, int device, int compute_f64,
                             const WhiteParams* T, const double* q, int W, double* val,
-                            double* grad, void* stream) {
+                            double* grad, int block, double* scratch, void* stream) {
     int rc = (int)cudaSetDevice(device);
     if (rc) return rc;
     if (W <= 0) return 0;
-    if (P->ndim > LP_MAX_DIM || P->has_affine || (T && T->ndim != P->ndim))
+    if (P->ndim > LP_MAX_DIM || P->has_affine || (T && T->ndim != P->ndim) ||
+        (block && P->ndim != 4 + (P->use_sigma != 0)))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    return compute_f64 ? launch_logpost_grad<SC2Model<double>>(*P, T, q, W, val, grad, s)
-                       : launch_logpost_grad<SC2Model<float>>(*P, T, q, W, val, grad, s);
+    if (!block)
+        return compute_f64 ? launch_logpost_grad<SC2Model<double>>(*P, T, q, W, val, grad, s)
+                           : launch_logpost_grad<SC2Model<float>>(*P, T, q, W, val, grad, s);
+#define LP_K7B(C_, N_) \
+    launch_logpost_grad_block<SC2Model<C_>, N_>(*P, T, q, W, val, grad, scratch, s)
+    if (P->ndim == 4) return compute_f64 ? LP_K7B(double, 4) : LP_K7B(float, 4);
+    return compute_f64 ? LP_K7B(double, 5) : LP_K7B(float, 5);
+#undef LP_K7B
 }
 
-// K9's plan (gradient.cuh): the float64 scratch, in doubles, that a launch
-// over C chains needs (0 when the workspace and the trajectory buffer fit in
-// shared memory), or minus a cudaError_t code.
-long long sc2_nuts_scratch_len(const SC2Params* P, int device, int compute_f64, int max_depth,
-                               int C) {
+// The float64 scratch, in doubles, that a block-per-chain launch over C
+// chains (or rows) needs for what does not fit in shared memory: K9's at
+// max_depth >= 1 (the workspace and the trajectory buffer), K7h's and K7's
+// block form's at 0 (the workspace); 0 when it all fits, or minus a
+// cudaError_t code.
+long long sc2_block_scratch_len(const SC2Params* P, int device, int compute_f64, int max_depth,
+                                int C) {
     int rc = (int)cudaSetDevice(device);
     if (rc) return -rc;
     const int ndim = (int)P->ndim;
     const long long per_chain = compute_f64
-        ? nuts_plan<SC2Model<double>>(*P, ndim, max_depth).scratch
-        : nuts_plan<SC2Model<float>>(*P, ndim, max_depth).scratch;
+        ? block_scratch<SC2Model<double>>(*P, ndim, max_depth)
+        : block_scratch<SC2Model<float>>(*P, ndim, max_depth);
     return per_chain * C;
 }
 
 // K9 launch (gradient.cuh), for ndim 4 (5 with the intrinsic scatter);
-// scratch may be null when sc2_nuts_scratch_len gives 0. Returns 0 or a
+// scratch may be null when sc2_block_scratch_len gives 0. Returns 0 or a
 // cudaError_t code.
 int sc2_nuts_transition_launch(const SC2Params* P, int device, int compute_f64,
                                const WhiteParams* T, const double* q, const double* logp,
@@ -715,23 +729,27 @@ int sc2_nuts_transition_launch(const SC2Params* P, int device, int compute_f64,
 #undef LP_NUTS
 }
 
-// K7h launch (gradient.cuh). Returns 0 or a cudaError_t code.
+// K7h launch (gradient.cuh), for ndim 4 (5 with the intrinsic scatter);
+// scratch may be null when sc2_block_scratch_len gives 0. Returns 0 or a
+// cudaError_t code.
 int sc2_hmc_transition_launch(const SC2Params* P, int device, int compute_f64,
                               const WhiteParams* T, const double* q, const double* logp,
                               const double* z, const double* u_acc, const long long* n_used,
                               const double* eps, const double* inv_mass, int C, double* q_out,
-                              double* logp_out, double* accept_prob, void* stream) {
+                              double* logp_out, double* accept_prob, double* scratch,
+                              void* stream) {
     int rc = (int)cudaSetDevice(device);
     if (rc) return rc;
     if (C <= 0) return 0;
-    if (P->ndim > LP_MAX_DIM || P->has_affine || T->ndim != P->ndim)
+    if (P->ndim != 4 + (P->use_sigma != 0) || P->has_affine || T->ndim != P->ndim)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    return compute_f64
-        ? launch_hmc<SC2Model<double>>(*P, *T, q, logp, z, u_acc, n_used, eps, inv_mass, C,
-                                       q_out, logp_out, accept_prob, s)
-        : launch_hmc<SC2Model<float>>(*P, *T, q, logp, z, u_acc, n_used, eps, inv_mass, C,
-                                      q_out, logp_out, accept_prob, s);
+#define LP_HMC(C_, N_)                                                                    \
+    launch_hmc<SC2Model<C_>, N_>(*P, *T, q, logp, z, u_acc, n_used, eps, inv_mass, C, q_out, \
+                                 logp_out, accept_prob, scratch, s)
+    if (P->ndim == 4) return compute_f64 ? LP_HMC(double, 4) : LP_HMC(float, 4);
+    return compute_f64 ? LP_HMC(double, 5) : LP_HMC(float, 5);
+#undef LP_HMC
 }
 
 }  // extern "C"

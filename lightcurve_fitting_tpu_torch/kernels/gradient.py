@@ -1,23 +1,24 @@
 """Wrappers of the gradient samplers' transition kernels, with their plain
-PyTorch versions beside them.
+PyTorch versions beside them, and the rule that picks K7's form.
 
 * :func:`nuts_transition` (K9, ``nuts_transition_kernel`` of
   ``csrc/gradient.cuh`` over ``SC2Model``): one multinomial NUTS transition
-  of every chain, the whole loop over tree doublings in one launch, a block
-  of a warp per 32 points per chain (ndim 4, or 5 with the intrinsic
-  scatter);
+  of every chain, the whole loop over tree doublings in one launch;
 * :func:`hmc_transition` (K7h, ``hmc_transition_kernel``): one
   jittered-length HMC trajectory and its Metropolis accept per chain.
 
-Both evaluate K7's device function (K9 its block form, which gives K7's
-bits) in the whitened space of a
+Both run a block per chain, a warp per 32 points (ndim 4, or 5 with the
+intrinsic scatter), and evaluate the block form of K7's device function,
+whose bits are K7's, in the whitened space of a
 :class:`~..parallel.hmc.WhitenedLogPosterior` (u = mean + L w, the bounds
 bijection and its log-Jacobian, in the kernel). The chain states are
 (C, ndim) float64; the draws are inputs; eps and inv_mass are device
 tensors. For a tensor on the CPU each wrapper runs its plain version, which
 also takes any sampler target with ``logp_and_grad``; for a CUDA tensor it
 launches the kernel or raises: there is no fallback. Each launch adds one to
-``LAUNCHES[name]``, and nothing else does.
+``LAUNCHES[name]``, and nothing else does. :func:`k7_form` is the rule by
+which :func:`~.sc2.log_posterior_and_grad` runs K7 a block per row or a warp
+per row.
 """
 
 import ctypes
@@ -28,9 +29,28 @@ import torch
 from .common import LAUNCHES, MAX_DIM, check, check_buffers, cuda_args
 
 __all__ = ["nuts_transition", "nuts_transition_plain", "nuts_scratch_len", "hmc_transition",
-           "hmc_transition_plain", "white_params", "check_model", "check_target"]
+           "hmc_transition_plain", "white_params", "check_model", "check_target", "k7_form",
+           "sm_count"]
 
 MAX_DEPTH = 12   # what sc2_nuts_transition_launch accepts
+
+#: K7 runs a block per row up to this many rows per SM, a warp per row above
+#: (k7_form)
+K7_BLOCK_ROWS_PER_SM = 4
+
+
+def k7_form(W, n_sm):
+    """K7's form for ``W`` rows on a card of ``n_sm`` SMs: ``"block"`` (a
+    block per row, a point a thread: an evaluation's latency is one point's)
+    where a warp per row, four rows a block, would leave most of the card's
+    schedulers idle; ``"warp"`` (a warp per row, its lanes over the points in
+    five rounds) where the rows fill the card. Both give the same bits."""
+    return "block" if W <= K7_BLOCK_ROWS_PER_SM * n_sm else "warp"
+
+
+def sm_count(device):
+    """The number of SMs of CUDA ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 class _WhiteParams(ctypes.Structure):
@@ -114,14 +134,27 @@ def _output(out, like):
     return out
 
 
-# ------------------------------------------------------------------------ K9
-
 def _scratch_len(lib, P, f64, dev_index, max_depth, C):
-    n = lib.sc2_nuts_scratch_len(ctypes.addressof(P), dev_index, int(f64), max_depth, C)
+    n = lib.sc2_block_scratch_len(ctypes.addressof(P), dev_index, int(f64), max_depth, C)
     if n < 0:
-        raise RuntimeError(f"sc2_nuts_scratch_len failed: cudaError {-n}")
+        raise RuntimeError(f"sc2_block_scratch_len failed: cudaError {-n}")
     return n
 
+
+def scratch(lib, P, f64, dev_index, max_depth, C, device):
+    """The float64 global scratch of a block-per-chain launch over ``C``
+    chains or rows (K9 at ``max_depth`` >= 1, K7h and K7's block form at 0),
+    allocated only where its workspace (and K9's trajectory buffer) do not
+    fit in shared memory beside the points; else None."""
+    n = _scratch_len(lib, P, f64, dev_index, max_depth, C)
+    return torch.empty(n, dtype=torch.float64, device=device) if n else None
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+# ------------------------------------------------------------------------ K9
 
 def nuts_scratch_len(target, C, max_depth, device):
     """The float64 scratch, in doubles, that K9 over ``C`` chains of
@@ -176,15 +209,12 @@ def nuts_transition(target, q, logp, z, u, eps, inv_mass, max_depth, out=None):
     astat = torch.empty_like(logp)
     depth = torch.empty(C, dtype=torch.int32, device=q.device)
     div = torch.empty_like(depth)
-    # the trajectory buffer's global scratch, allocated only where it does
-    # not fit in shared memory
-    n_scratch = _scratch_len(lib, P, f64, dev_index, max_depth, C)
-    scratch = torch.empty(n_scratch, dtype=torch.float64, device=q.device) if n_scratch else None
+    buf = scratch(lib, P, f64, dev_index, max_depth, C, q.device)
     rc = lib.sc2_nuts_transition_launch(
         ctypes.addressof(P), dev_index, int(f64), ctypes.addressof(T), q.data_ptr(),
         logp.data_ptr(), z.data_ptr(), u.data_ptr(), eps.data_ptr(), inv_mass.data_ptr(),
         max_depth, C, q_out.data_ptr(), logp_out.data_ptr(), astat.data_ptr(), depth.data_ptr(),
-        div.data_ptr(), scratch.data_ptr() if scratch is not None else None, stream)
+        div.data_ptr(), _ptr(buf), stream)
     if rc != 0:
         raise RuntimeError(f"nuts_transition_kernel launch failed: cudaError {rc}")
     LAUNCHES["nuts_transition"] += 1
@@ -227,10 +257,12 @@ def hmc_transition(target, q, logp, z, u_acc, n_used, eps, inv_mass, n_leapfrog,
     q_out = _output(out, q)
     logp_out = torch.empty_like(logp)
     aprob = torch.empty_like(logp)
+    buf = scratch(lib, P, f64, dev_index, 0, C, q.device)
     rc = lib.sc2_hmc_transition_launch(
         ctypes.addressof(P), dev_index, int(f64), ctypes.addressof(T), q.data_ptr(),
         logp.data_ptr(), z.data_ptr(), u_acc.data_ptr(), n_used.data_ptr(), eps.data_ptr(),
-        inv_mass.data_ptr(), C, q_out.data_ptr(), logp_out.data_ptr(), aprob.data_ptr(), stream)
+        inv_mass.data_ptr(), C, q_out.data_ptr(), logp_out.data_ptr(), aprob.data_ptr(),
+        _ptr(buf), stream)
     if rc != 0:
         raise RuntimeError(f"hmc_transition_kernel launch failed: cudaError {rc}")
     LAUNCHES["hmc_transition"] += 1

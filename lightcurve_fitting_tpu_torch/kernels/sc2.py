@@ -8,10 +8,12 @@ plain PyTorch versions beside them.
   ensemble, in place; the proposal's log-posterior sums the points as K7's
   value does (K1 sums them in time order: the two differ by float32
   rounding).
-* :func:`log_posterior_and_grad` (K7, ``logpost_grad_kernel`` of
-  ``csrc/gradient.cuh`` over ``SC2Model``): the log-posterior and its
-  gradient, one warp per walker, in the model's parameters or in the
-  whitened space of the gradient samplers.
+* :func:`log_posterior_and_grad` (K7, ``logpost_grad_kernel`` and
+  ``logpost_grad_block_kernel`` of ``csrc/gradient.cuh`` over
+  ``SC2Model``): the log-posterior and its gradient, in the model's
+  parameters or in the whitened space of the gradient samplers; a warp per
+  walker where the walkers fill the card, a block per walker at small widths
+  (:func:`~.gradient.k7_form`), the same bits in both forms.
 
 For a tensor on the CPU each wrapper runs its plain version
 (:func:`log_posterior_plain`, :func:`stretch_half_step_plain`). For a CUDA
@@ -30,7 +32,7 @@ from .common import (LAUNCHES, MAX_DIM, FLOATS, check, check_buffers, cuda_args,
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "log_posterior", "log_posterior_plain",
            "stretch_half_step", "stretch_half_step_plain", "propose_stretch", "half_update",
-           "log_posterior_and_grad", "log_posterior_and_grad_plain"]
+           "log_posterior_and_grad", "log_posterior_and_grad_plain", "logpost_grad_launch"]
 
 
 class _SC2Params(ctypes.Structure):
@@ -171,8 +173,9 @@ def log_posterior_and_grad(lp, p, white=None):
     ``lp``), its whitened space. The gradient is masked as the JAX callers
     mask it; in the whitened space the mask applies after the chain rule
     (a NaN model derivative zeroes the whitened components it reaches). The
-    value is not bit-equal to K1's: the warp sums the points in another
-    order."""
+    value is not bit-equal to K1's: the points are summed in another order.
+    On CUDA the form (a block or a warp per row) is
+    :func:`~.gradient.k7_form`'s for W and the card's SM count."""
     if p.device.type == "cpu":
         if white is not None:
             return white.logp_and_grad_plain(p)
@@ -181,22 +184,39 @@ def log_posterior_and_grad(lp, p, white=None):
         raise ValueError(f"K7 runs on CUDA (or its plain version on the CPU), not {p.device}")
     if p.ndim != 2:
         raise ValueError(f"p must be (W, ndim), got shape {tuple(p.shape)}")
+    from .gradient import k7_form, sm_count
+    return logpost_grad_launch(lp, p, white, k7_form(p.shape[0], sm_count(p.device)))
+
+
+def logpost_grad_launch(lp, p, white, form):
+    """K7 on CUDA in the given ``form``: ``"block"`` (a block per row) or
+    ``"warp"`` (a warp per row). :func:`log_posterior_and_grad` takes
+    :func:`~.gradient.k7_form`'s; the card's tests and
+    ``tools/time_port_kernels.py`` run both."""
+    if form not in ("block", "warp"):
+        raise ValueError(f"K7's form is 'block' or 'warp', not {form!r}")
+    if p.device.type != "cuda":
+        raise ValueError(f"K7's forms run on CUDA, not {p.device}")
     W, ndim = p.shape
     check(p, "p", (W, ndim), (torch.float64,), p.device)
     check_buffers(lp.log_likelihood, _BUFFERS, p.device)
     from .build import library
-    from .gradient import white_params
+    from .gradient import _ptr, scratch, white_params
     lib = library()
     P = _kernel_params(lp, ndim, None, None)
     T = white_params(white, ndim) if white is not None else None
+    f64 = lp.log_likelihood.compute_dtype == torch.float64
     val = torch.empty(W, dtype=torch.float64, device=p.device)
     grad = torch.empty((W, ndim), dtype=torch.float64, device=p.device)
     dev, stream = cuda_args(p.device)
-    rc = lib.sc2_logpost_grad_launch(ctypes.addressof(P), dev,
-                                     int(lp.log_likelihood.compute_dtype == torch.float64),
+    block = form == "block"
+    buf = scratch(lib, P, f64, dev, 0, W, p.device) if block else None
+    rc = lib.sc2_logpost_grad_launch(ctypes.addressof(P), dev, int(f64),
                                      None if T is None else ctypes.addressof(T), p.data_ptr(), W,
-                                     val.data_ptr(), grad.data_ptr(), stream)
+                                     val.data_ptr(), grad.data_ptr(), int(block), _ptr(buf),
+                                     stream)
     if rc != 0:
-        raise RuntimeError(f"logpost_grad_kernel launch failed: cudaError {rc}")
+        kernel = "logpost_grad_block_kernel" if block else "logpost_grad_kernel"
+        raise RuntimeError(f"{kernel} launch failed: cudaError {rc}")
     LAUNCHES["logpost_grad"] += 1
     return val, grad

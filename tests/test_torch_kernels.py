@@ -35,7 +35,9 @@ percentiles bit-equal to the plain version's. K6a as K2, its log pi and
 log L held as K1's; K6b's log pi <= 1e-12 relative and log L as K1's; K6c
 bit-equal; K6d float64 <= 1e-12 relative (the sums run in another order).
 K7's values as K1's and its gradients within 1e-4 (float32) and 1e-9
-(float64) of the summed magnitudes of their per-point terms; K9 and K7h
+(float64) of the summed magnitudes of their per-point terms; K7's two forms
+(a block per row at small widths, a warp per row at large ones) bit-equal
+to each other; K9 and K7h (a block per chain)
 against their plain transitions under shared draws (float64 over the plain
 gradient, float32 over K7's own evaluations), equal except near-ties, and
 K9's new log-posteriors equal to K7's at the new states bit for bit (the
@@ -1081,6 +1083,11 @@ def test_gradient_wrappers_route_by_device(lc, lc_flux):
     meta = torch.empty((4, 4), dtype=torch.float64, device="meta")
     with pytest.raises(ValueError, match="K7 runs on CUDA"):
         sc2.log_posterior_and_grad(lp, meta)
+    for form in ("block", "warp"):
+        with pytest.raises(ValueError, match="K7's forms run on CUDA"):
+            sc2.logpost_grad_launch(lp, q, None, form)
+    with pytest.raises(ValueError, match="'block' or 'warp'"):
+        sc2.logpost_grad_launch(lp, q, None, "lane")
     args = (meta, meta[:, 0], meta, torch.empty((4, 3, 6), dtype=torch.float64, device="meta"),
             meta[0, 0], meta[0])
     with pytest.raises(ValueError, match="K9 runs on CUDA"):
@@ -1092,6 +1099,22 @@ def test_gradient_wrappers_route_by_device(lc, lc_flux):
     with pytest.raises(NotImplementedError, match="ShockCooling3 has no gradient kernel"):
         kernels.log_posterior_and_grad(lp3, torch.empty((4, 7), dtype=torch.float64,
                                                         device="meta"))
+
+
+@pytest.mark.parametrize("n_sm", [132, 114])
+def test_k7_form_runs_a_block_per_row_where_the_rows_leave_the_card_idle(n_sm):
+    """k7_form: the block form at the gradient path's small widths on an
+    H100 (SXM 132 SMs, PCIe 114): one row (fitting.py's), the Laplace
+    Hessian's 6, the MAP's 64 starts, up to the crossover of
+    K7_BLOCK_ROWS_PER_SM rows an SM; the warp form above it and at the
+    131072 walkers of the large fits. The rule scales with the SM count."""
+    cross = gradient.K7_BLOCK_ROWS_PER_SM * n_sm
+    for W in (1, 6, 64, cross - 1, cross):
+        assert gradient.k7_form(W, n_sm) == "block", W
+    for W in (cross + 1, 4096 if cross < 4096 else cross + 2, 131072):
+        assert gradient.k7_form(W, n_sm) == "warp", W
+    assert gradient.k7_form(cross // n_sm, 1) == "block"
+    assert gradient.k7_form(cross // n_sm + 1, 1) == "warp"
 
 
 def _transitions_agree(got, want, gaps, gap_nats, rel):
@@ -1225,6 +1248,77 @@ def test_k7h_matches_plain_on_card(lc, cuda_device, f64):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ndim", [4, 5], ids=["no-sigma", "sigma"])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_k7_block_and_warp_forms_are_bit_equal_on_card(lc, cuda_device, f64, ndim):
+    """K7's block form (a block per row) and its warp form (a warp per row)
+    give the same bits, value and gradient, at 1, 6 and 64 rows and at
+    k7_form's crossover and one row either side, in the model's parameters
+    (rows outside the priors and NaN among them) and in the whitened space;
+    ndim 5 with the intrinsic scatter. The wrapper runs k7_form's form."""
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        if ndim == 4:
+            lp = make_log_posterior(ShockCooling2(lc), lc, _priors(), device=cuda_device)
+            target, _ = _whitened(lc, cuda_device, 1)
+        else:
+            lp, lo, up = _sigma_case("sc2", lc, None, cuda_device, "relative")
+            target, _ = _whitened_sigma(lc, cuda_device, 1, "relative")
+        cross = gradient.K7_BLOCK_ROWS_PER_SM * gradient.sm_count(cuda_device)
+        n = cross + 1
+        base = _walkers(n, 3) if ndim == 4 else _window_walkers(lo, up, n, 3)
+        wbase = np.random.default_rng(4).normal(size=(n, ndim))
+        for W in (1, 6, 64, cross - 1, cross, cross + 1):
+            rows = base[:1] if W == 1 else base[-W:]      # the last rows outside the priors
+            for lp_, p, white in ((lp, rows, None), (target.log_posterior, wbase[:W], target)):
+                p = torch.as_tensor(np.ascontiguousarray(p), device=cuda_device)
+                n0 = kernels.LAUNCHES["logpost_grad"]
+                vb, gb = sc2.logpost_grad_launch(lp_, p, white, "block")
+                vw, gw = sc2.logpost_grad_launch(lp_, p, white, "warp")
+                assert kernels.LAUNCHES["logpost_grad"] == n0 + 2
+                assert torch.equal(vb, vw) and torch.equal(gb, gw), (W, white is not None)
+                v, g = kernels.log_posterior_and_grad(lp_, p, white=white)
+                assert torch.equal(v, vb) and torch.equal(g, gb)
+                assert torch.isfinite(vb).any()
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 64])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_k7h_block_matches_the_transition_over_k7_on_card(lc, cuda_device, f64, C):
+    """K7h (a block per chain) at lightcurve_hmc's 16 chains and at 64
+    against the plain transition over K7's own evaluations under shared
+    draws (32 jittered leapfrogs, eps 0.1): the same arithmetic but for the
+    leapfrog's kicks and drifts, so equal except near-ties."""
+    from lightcurve_fitting_tpu_torch.parallel.hmc import hmc_transition_plain
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        target, q0 = _whitened(lc, cuda_device, C)
+        g = torch.Generator(device=cuda_device).manual_seed(9)
+        z = torch.randn((C, 4), generator=g, device=cuda_device, dtype=torch.float64)
+        u_acc = torch.rand(C, generator=g, device=cuda_device, dtype=torch.float64)
+        n_used = torch.randint(16, 33, (C,), generator=g, device=cuda_device)
+        eps = torch.tensor(0.1, dtype=torch.float64, device=cuda_device)
+        inv_mass = torch.ones(4, dtype=torch.float64, device=cuda_device)
+        logp0 = target.logp_and_grad(q0)[0]
+        args = (q0, logp0, z, u_acc, n_used, eps, inv_mass, 32)
+        n0 = kernels.LAUNCHES["hmc_transition"]
+        got = gradient.hmc_transition(target, *args)
+        assert kernels.LAUNCHES["hmc_transition"] == n0 + 1
+        want = hmc_transition_plain(target.logp_and_grad, *args, margins=True)
+        _transitions_agree(got, want[:3], want[3:], 1e-6 if f64 else 1e-3, 1e-8)
+        accepted = (got[0] != q0).any(dim=1)
+        assert bool(accepted.any())
+        assert torch.equal(target.logp_and_grad(got[0])[0][accepted], got[1][accepted])
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
 def test_gradient_fits_run_through_the_kernels_on_card(lc, cuda_device, monkeypatch):
     from lightcurve_fitting_tpu_torch.fitting import lightcurve_hmc, lightcurve_map
 
@@ -1346,6 +1440,7 @@ def test_sc2_warp_sum_order_stays_within_the_yardstick(lc_ext, sigma_type):
     the kernels to their plain versions. (The JAX package is imported here,
     not with the module, whose card tests run where it is not installed.)"""
     jax = pytest.importorskip("jax", reason="the JAX package's reference needs jax")
+    pytest.importorskip("matplotlib", reason="the JAX package's LC needs matplotlib")
     import jax.numpy as jnp
     from lightcurve_fitting_tpu.fitting import make_log_posterior as j_make
     from lightcurve_fitting_tpu.lightcurve import LC as JLC

@@ -42,6 +42,7 @@ GAUSS = [(0.0, 100.0, 30.0, 15.0), (0.0, 100.0, 4.0, 3.0), (0.0, 100.0, 30.0, 15
          (57468.0, 57468.7, 57468.5, 0.2)]          # tests/test_hmc.py::_flagship_priors
 TRUTH_MED = np.array([37.58, 5.326, 16.25, 57468.6999])
 TRUTH_STD = np.array([0.145, 0.053, 0.110, 0.00018])
+SIGMA_PRIOR = (0.0, 10.0, 1.0, 1.0)                  # the intrinsic scatter's, in dy units
 
 
 def _early(LC):
@@ -69,18 +70,25 @@ def _gaussian(seed=0):
     return rng, cov, mean, jlogp, tlogp
 
 
-def _flagship_whitened():
+def _flagship_whitened(use_sigma=False):
     """The whitened flagship posterior of lightcurve_hmc in both packages,
     float64: the JAX package's BoundsTransform and WhitenedPosterior of
     Gaussian draws around the converged posterior (t_0 just inside its upper
-    bound), carried across by interop; and eight chain states from them."""
+    bound), carried across by interop; and eight chain states from them.
+    With ``use_sigma`` the intrinsic scatter (relative) is a fifth parameter,
+    its Gaussian prior on (0, 10) and its draws around 1: ndim 5, the width
+    of the kernels' N = 5 instantiations."""
     jlc, tlc = _early(JLC), _early(TLC)
-    jpri = [JG(*g) for g in GAUSS]
-    jlp = j_make_lp(JSC2(jlc), jlc, jpri)
-    tlp = make_log_posterior(TSC2(tlc), tlc, interop.priors_from_jax(jpri), device=CPU)
+    jpri = [JG(*g) for g in GAUSS + ([SIGMA_PRIOR] if use_sigma else [])]
+    jlp = j_make_lp(JSC2(jlc), jlc, jpri, use_sigma=use_sigma)
+    tlp = make_log_posterior(TSC2(tlc), tlc, interop.priors_from_jax(jpri), use_sigma=use_sigma,
+                             device=CPU)
     jb = jhmc.BoundsTransform([p.p_min for p in jpri], [p.p_max for p in jpri])
     rng = np.random.default_rng(11)
-    x = TRUTH_MED + rng.normal(size=(400, 4)) * TRUTH_STD
+    med, std = TRUTH_MED, TRUTH_STD
+    if use_sigma:
+        med, std = np.append(med, 1.0), np.append(std, 0.1)
+    x = med + rng.normal(size=(400, len(jpri))) * std
     x[:, 3] = 57468.7 - 1e-6 - np.abs(rng.normal(size=400)) * TRUTH_STD[3]
     warm_u = jb.to_unbounded(x)
     jw = jhmc.WhitenedPosterior(warm_u)
@@ -138,15 +146,15 @@ def _assert_stat_same(a_j, a_t, l_j):
     assert np.abs(a_t.numpy() - np.asarray(a_j)).max() <= tol
 
 
-@pytest.mark.parametrize("case", ["gaussian", "flagship"])
+@pytest.mark.parametrize("case", ["gaussian", "flagship", "flagship_sigma"])
 def test_nuts_transition_equals_jax_under_the_same_draws(case):
     if case == "gaussian":
         rng, _, mean, jlogp, tlogp = _gaussian()
         q0 = mean + 2.0 * rng.normal(size=(16, 3))
         target, eps, inv_mass = thmc._AutogradTarget(tlogp), 0.35, np.array([1.0, 2.0, 0.5])
     else:
-        jlogp, target, q0 = _flagship_whitened()
-        eps, inv_mass = 0.1, np.ones(4)
+        jlogp, target, q0 = _flagship_whitened(use_sigma=case == "flagship_sigma")
+        eps, inv_mass = 0.1, np.ones(q0.shape[1])
     C, ndim, max_depth = q0.shape[0], q0.shape[1], 6
     keys = [jr.fold_in(jr.PRNGKey(3), i) for i in range(C)]
     jstep = jnuts.make_nuts_transition(jlogp, ndim, max_depth)
@@ -165,7 +173,7 @@ def test_nuts_transition_equals_jax_under_the_same_draws(case):
     assert 1 < np.asarray(d_j).mean() < max_depth          # trees of several depths
 
 
-@pytest.mark.parametrize("case", ["gaussian", "flagship"])
+@pytest.mark.parametrize("case", ["gaussian", "flagship", "flagship_sigma"])
 def test_hmc_transition_equals_jax_under_the_same_draws(case):
     n_leapfrog = 12
     if case == "gaussian":
@@ -173,8 +181,10 @@ def test_hmc_transition_equals_jax_under_the_same_draws(case):
         q0 = mean + 2.0 * rng.normal(size=(16, 3))
         target, eps, inv_mass = thmc._AutogradTarget(tlogp), 0.3, np.array([1.0, 2.0, 0.5])
     else:
-        jlogp, target, q0 = _flagship_whitened()
-        eps, inv_mass = 0.15, np.ones(4)
+        jlogp, target, q0 = _flagship_whitened(use_sigma=case == "flagship_sigma")
+        # the scatter's target accepts every chain at 0.15: a longer step
+        # rejects some, so the accept test is exercised
+        eps, inv_mass = (0.15 if case == "flagship" else 0.45), np.ones(q0.shape[1])
     C, ndim = q0.shape
     keys = [jr.fold_in(jr.PRNGKey(4), i) for i in range(C)]
     js = jhmc.HMCSampler(C, ndim, jlogp, n_leapfrog=n_leapfrog)

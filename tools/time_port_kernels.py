@@ -6,8 +6,12 @@ and of the fits, float32 compute, by CUDA events:
   64- and 131072-walker fits); K6a per ladder half-step of 7 rungs x 32 and
   17 x 4096 (ShockCooling2: the PT fit and the evidence) and of 17 x 512
   (ShockCooling3), with K6b's initial state hashed; K7 at 131072 walkers
-  and at the MAP ascent's 64 starts (float32 and float64); K7h per
-  64-chain HMC transition (32 jittered leapfrogs, eps 0.1);
+  and at the MAP ascent's 64 starts (float32 and float64), and, where the
+  checkout has K7's two forms, each form at 1, 6, 64, 132, 264, 528, 1056,
+  1584, 2112 and 4096 rows (``K7_W*_block_dev``, ``K7_W*_warp_dev``; a checkout
+  without them times its one form as ``warp``); K7h per 64- and 16-chain
+  HMC transition (32 jittered leapfrogs, eps 0.1), hashed in float32 and
+  float64;
 * the companion-shocking kernels (CompanionShocking2 on the synthetic Ia
   curve): the CS half-step per half 16, 16384 and 65536 (the 32- and
   32768-walker fits and the 131072-walker comparison), K6a over CS per
@@ -23,8 +27,9 @@ and of the fits, float32 compute, by CUDA events:
   32768-walker fits and the 131072-walker comparison);
 * hashed only, at ``chip_smoke.py``'s shapes: K3, K4 with its gradient,
   the epoch half-step, K4s, K5, K6c and K6d;
-* with ``--fits``, the wall times of ``lightcurve_hmc`` at its defaults in
-  float32 and float64 (``chip_smoke.py`` 20c), of the ShockCooling3 fit at
+* with ``--fits``, the wall times of ``lightcurve_map`` (``chip_smoke.py``
+  20a), of ``lightcurve_hmc(sampler="hmc")`` (20d), of ``lightcurve_hmc``
+  at its defaults in float32 and float64 (20c), of the ShockCooling3 fit at
   32768 x 300, of the ShockCooling2 fits of phases 5 and 16 (5a: 64
   walkers x 200 + 200; 5b: 131072 x 300; 16a: the evidence at 4096 x 17
   rungs x 150 + 150; 16b: the PT fit, 32 x 7 rungs x 350 + 250) and of the
@@ -34,8 +39,8 @@ and of the fits, float32 compute, by CUDA events:
 Each time is printed twice: by CUDA events around a run of launches (the
 stream's time per launch, which a kernel shorter than its wrapper's host
 time does not fill) and, as ``NAME_dev`` for the half-steps, K6a, K6b over
-CS, the CS log-posterior, K8 and K7 at 64 walkers, by the profiler's device
-timestamps (the kernel's own time). ``--sass NAME`` prints a hash of the
+CS, the CS log-posterior, K8, K7 at its small widths and K7h, by the
+profiler's device timestamps (the kernel's own time). ``--sass NAME`` prints a hash of the
 SASS of each kernel whose name holds NAME (``cuobjdump``), to tell a
 kernel's code apart from its placement.
 Each kernel's outputs at fixed inputs are hashed (``digest``): two checkouts
@@ -182,9 +187,9 @@ def main():
     ap.add_argument("--sass", action="append", default=[], metavar="NAME",
                     help="hash the SASS of the kernels whose names hold NAME (repeatable)")
     ap.add_argument("--fits", action="store_true",
-                    help="also time lightcurve_hmc (f32, f64), the SC3 32768 x 300 fit, the "
-                         "SC2 fits of chip_smoke.py phases 5 and 16 and the CS2 fits of phase "
-                         "24")
+                    help="also time lightcurve_map, lightcurve_hmc (HMC; NUTS in f32, f64), "
+                         "the SC3 32768 x 300 fit, the SC2 fits of chip_smoke.py phases 5 and "
+                         "16 and the CS2 fits of phase 24")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -194,8 +199,9 @@ def main():
     from lightcurve_fitting_tpu_torch import kernels
     from lightcurve_fitting_tpu_torch.core import config
     from lightcurve_fitting_tpu_torch.fitting import (_state_rescaling, lightcurve_evidence,
-                                                      lightcurve_hmc, lightcurve_mcmc,
-                                                      lightcurve_ptmcmc, make_log_posterior)
+                                                      lightcurve_hmc, lightcurve_map,
+                                                      lightcurve_mcmc, lightcurve_ptmcmc,
+                                                      make_log_posterior)
     from lightcurve_fitting_tpu_torch.kernels import build, cs, gradient, ladder, sc2, sc3
     from lightcurve_fitting_tpu_torch.models import ShockCooling2, ShockCooling3, UniformPrior
     from lightcurve_fitting_tpu_torch.parallel.evidence import make_beta_ladder
@@ -295,10 +301,22 @@ def main():
             times[f"K7_64_{label}"] = events_ms(lambda: sc2.log_posterior_and_grad(lp7, p64), 100,
                                                 args.repeats)
             times[f"K7_64_{label}_dev"] = device_ms(lambda: sc2.log_posterior_and_grad(lp7, p64),
-                                                    "logpost_grad_kernel", 100, args.repeats)
+                                                    "logpost_grad", 100, args.repeats)
             digests[f"K7_64_{label}"] = digest(*sc2.log_posterior_and_grad(lp7, p64))
         finally:
             config.set_compute_dtype(config.AUTO)
+    # K7's two forms at the widths around their crossover (a checkout with one
+    # form runs the warp form at every width)
+    two_forms = hasattr(sc2, "logpost_grad_launch")
+    for w in (1, 6, 64, 132, 264, 528, 1056, 1584, 2112, 4096):
+        pw = p[:w].contiguous()
+        for form in ("block", "warp") if two_forms else ("warp",):
+            def k7():
+                if two_forms:
+                    return sc2.logpost_grad_launch(lp, pw, None, form)
+                return sc2.log_posterior_and_grad(lp, pw)
+            times[f"K7_W{w}_{form}_dev"] = device_ms(k7, "logpost_grad", 100, args.repeats)
+            digests[f"K7_W{w}_{form}_dev"] = digest(*k7())
 
     # K9 and K7h on whitened flagship chains (lightcurve_hmc's target)
     gpri = gauss_priors()
@@ -322,6 +340,8 @@ def main():
                                                                 inv_mass, D), 5, args.repeats)
     digests["K9_64"] = digest(*gradient.nuts_transition(target, q0, logp0, z, u, eps, inv_mass, D))
     digests["K7w"] = digest(*kernels.log_posterior_and_grad(glp, q0, white=target))
+    digests["K7w_16"] = digest(*kernels.log_posterior_and_grad(glp, q0[:16].contiguous(),
+                                                               white=target))
     q16, l16, z16, u16 = (a[:16].contiguous() for a in (q0, logp0, z, u))
     times["K9_16"] = events_ms(lambda: gradient.nuts_transition(target, q16, l16, z16, u16, eps,
                                                                 inv_mass, D), 5, args.repeats)
@@ -329,9 +349,31 @@ def main():
                                                         inv_mass, D))
     n_used = torch.randint(16, 33, (C,), generator=g, device=dev)
     u_acc = torch.rand(C, generator=g, device=dev, dtype=torch.float64)
-    hargs = (q0, logp0, z, u_acc, n_used, eps, inv_mass, 32)
-    times["K7h"] = events_ms(lambda: gradient.hmc_transition(target, *hargs), 5, args.repeats)
-    digests["K7h"] = digest(*gradient.hmc_transition(target, *hargs))
+    # K7h per transition of the 64 chains and of lightcurve_hmc's 16
+    # (float32), hashed in float32 and float64 compute
+    for label in ("f32", "f64"):
+        try:
+            if label == "f64":
+                config.set_compute_dtype(torch.float64)
+            tgt = target if label == "f32" else WhitenedLogPosterior(
+                make_log_posterior(ShockCooling2(lc), lc, gpri, device=dev), bounds, white)
+            l0 = tgt.logp_and_grad(q0)[0]
+            suffix = "" if label == "f32" else "_f64"
+            if label == "f64":
+                digests["K7w_f64"] = digest(*tgt.logp_and_grad(q0))
+            for c in (C, 16):
+                hargs = tuple(a[:c].contiguous() for a in (q0, l0, z, u_acc, n_used)) + (
+                    eps, inv_mass, 32)
+                name = ("K7h" if c == C else f"K7h_{c}") + suffix
+                digests[name] = digest(*gradient.hmc_transition(tgt, *hargs))
+                if label == "f32":
+                    times[name] = events_ms(lambda: gradient.hmc_transition(tgt, *hargs), 5,
+                                            args.repeats)
+                    times[name + "_dev"] = device_ms(
+                        lambda: gradient.hmc_transition(tgt, *hargs), "hmc_transition", 5,
+                        args.repeats)
+        finally:
+            config.set_compute_dtype(config.AUTO)
 
     # K9 at the lightcurve_hmc defaults: its adapted sampler, 50 transitions
     with contextlib.redirect_stdout(io.StringIO()):
@@ -483,6 +525,16 @@ def main():
         return time.perf_counter() - t0, out
 
     if args.fits:
+        # the gradient path's fits of chip_smoke.py phase 20, two runs each:
+        # (20a) lightcurve_map, (20d) lightcurve_hmc(sampler="hmc") at 16
+        # chains x 150 + 100
+        for rep in range(2):
+            walls[f"map_20a_{rep}"], _ = wall(lambda: lightcurve_map(
+                lc, ShockCooling2(lc), gpri, seed=0, quiet=True, device=dev))
+        for rep in range(2):
+            walls[f"hmc_20d_{rep}"], _ = wall(lambda: lightcurve_hmc(
+                lc, ShockCooling2(lc), gpri, sampler="hmc", nchains=16, nsamples=100,
+                n_warmup=150, seed=4, quiet=True, device=dev))
         for label in ("f32", "f64"):
             try:
                 if label == "f64":
