@@ -8,8 +8,8 @@ raises and the script exits non-zero):
 
 1. environment: torch/CUDA versions, the card, its power limit;
 2. build: nvcc compiles the kernels from ``kernels/csrc/``; the
-   block-per-chain kernels (K9, K7h, K7's block form) must have no stack
-   frame and no spills (ptxas);
+   block-per-chain kernels (K9, K7h, K7's block form), K4p and the epoch
+   half-step must have no stack frame and no spills (ptxas);
 3. K1 against its plain PyTorch version at 131072 walkers on the flagship
    (SN 2016bkv, ShockCooling2), float32 (<= 1e-5 |ll|, same -inf set) and
    float64 (<= 1e-10 |ll|), including t < t_exp under a widened t_0 prior;
@@ -50,9 +50,17 @@ raises and the script exits non-zero):
     parameters outside the priors and T <= 0: float32 <= 1e-5 and float64
     <= 1e-10 of |ll - c| + |c| (c the epoch's log_norm), identical -inf
     sets, the gradient within 1e-4 (float32) and 1e-9 (float64) of its
-    per-band terms' summed magnitude;
-11. the epoch half-step (h = 0, 1; 256 epochs x 16) against the plain one
-    under shared draws: new states bit-equal except near-ties;
+    per-band terms' summed magnitude; K4 with the gradient timed at 256 x
+    8, the width of the parent's 300 Adam launches; K4p, the Adam polish of
+    the MAP centering in one launch, against ``map_polish_plain`` on the
+    card at the bench shape (256 epochs x 8 starts x 300 steps), float32
+    and float64: the same alive set, centers within POLISH_REL (a near-tie
+    where the two keep different starts), each timed, with its bound;
+11. the epoch half-step (a warp per walker; h = 0, 1; 256 epochs x 16)
+    against the plain one under shared draws, float32 and float64: flags
+    agree except near-ties, new states bit-equal where they agree, new
+    log-posteriors within 1e-5 (1e-10) of ``EpochPosterior.term_scales``;
+    the profiler shows the warp form ran;
 12. K4s and K5 against their plain versions at the bench shape (256 x 3200
     samples): K4s's integral <= 1e-5 relative, K5's percentiles bit-equal,
     ``torch.quantile`` timed beside K5;
@@ -62,8 +70,11 @@ raises and the script exits non-zero):
     100 steps) through ``batched_map_centers`` and
     ``batched_blackbody_mcmc(summaries=..., return_chains=False)``, epochs/s
     over 5 runs, mean acceptance within 0.02 of the JAX package's float64
-    CPU value; the launch counters, reset before (a), show it ran through
-    K4 (with and without the gradient), the epoch half-step, K4s and K5;
+    CPU value, and over seeds 1-8 within 4 combined standard errors of the
+    JAX package's at the same seeds, a profiled run's time split; the
+    launch counters, reset before (a), show it ran through K4, K4p (once a
+    centering; K4's gradient form not at all), the epoch half-step, K4s
+    and K5;
 14. K6a, the tempered half-step (h = 0, 1), against its plain version on the
     ShockCooling2 ladders (a warp per walker) of the evidence bench shape
     (17 rungs x 4096 walkers) and of the PT fit (7 x 32), float32 and
@@ -202,6 +213,10 @@ PLAIN_CHUNK = 16384       # walkers per call of a plain quadrature version: its
 # (tests/test_torch_batched.py::jax_bench_acceptance)
 BOL_EPOCHS, BOL_WALKERS, BOL_BURNIN, BOL_STEPS = 256, 32, 200, 100
 BOL_ACCEPTANCE_REF = 0.706744372844696
+BOL_STARTS, BOL_ITER = 8, 300   # batched_map_centers's Adam polish: starts an epoch, steps
+# K4p's centers against map_polish_plain on the card, relative: float64; and
+# float32, measured on the H100 (PERF.md)
+POLISH_REL = {"f64": 1e-9, "f32": 1e-5}
 
 FP32_FLOPS = 67e12        # H100 SXM, FP32 outside the tensor cores
 FP64_FLOPS = 34e12        # H100 SXM, FP64 outside the tensor cores
@@ -223,6 +238,7 @@ def bound_fields(ops, nbytes, library_ms=None, rate=FP32_FLOPS):
 
 # operations of one evaluation (see the docstring for the counting rule)
 PLANCK_TERM = 5 + 2 * SFU          # K4 / K4s: 5 flops, expm1 and a division
+PLANCK_TERM_GRAD = PLANCK_TERM + 6  # with dS/dT: w lnu (1 + 1/expm1) x / T, accumulated
 QUAD_TERM = 6 + 3 * SFU            # K3: also the extinction exp
 PROPOSAL = 10 + 2 * SFU            # the stretch move and its two logs
 
@@ -554,7 +570,7 @@ def launched_kernels(fn, match, calls=20):
 def expect_kernel(fn, match, *marks, calls=20):
     """The one kernel holding ``match`` that fn launches, whose name must
     also hold each of ``marks`` (a form, a policy, a template argument:
-    "true>" for a warp-per-walker half-step, ", 4>" for ndim 4)."""
+    "true>" for the tempered half-step's warp form, ", 4>" for ndim 4)."""
     names = launched_kernels(fn, match, calls)
     if len(names) != 1 or not all(m in names[0] for m in marks):
         raise AssertionError(f"expected one {match} holding {marks}, the profiler saw {names}")
@@ -628,7 +644,7 @@ def phase_k2(lc, seed=1):
                     sc2.stretch_half_step(lp, xk, lk, 0, u_z, j, u_acc, 2.0, off, sc,
                                           n_accept=ak, check_partners=False)
                 if half == K2_HALVES[0]:
-                    name = expect_kernel(step, "stretch_half_step_kernel", "SC2WarpModel", "true>")
+                    name = expect_kernel(step, "stretch_half_step_kernel", "SC2WarpModel")
                     xp, lpp = x0.clone(), logp0.clone()
                     plain_ms = cuda_ms(lambda: sc2.stretch_half_step_plain(
                         lambda q: sc2.log_posterior_plain(lp, q, off, sc), xp, lpp, 0, u_z, j,
@@ -1003,6 +1019,7 @@ def phase_k4(rng_seed=5):
     from lightcurve_fitting_tpu_torch.kernels import epoch_bb
     from lightcurve_fitting_tpu_torch.models import GaussianPrior
     from lightcurve_fitting_tpu_torch.parallel.batched import EpochPosterior
+    from time_port_kernels import device_ms
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(rng_seed)
@@ -1052,6 +1069,10 @@ def phase_k4(rng_seed=5):
                 if label == "f32" and name == "bench" and not use_sigma:
                     k_ms = cuda_ms(lambda: epoch_bb.log_posterior(ep, q))
                     kg_ms = cuda_ms(lambda: epoch_bb.log_posterior(ep, q, with_grad=True))
+                    q8 = q[:, :BOL_STARTS].contiguous()   # the parent's Adam step's width
+                    kg8 = (cuda_ms(lambda: epoch_bb.log_posterior(ep, q8, with_grad=True)),
+                           device_ms(lambda: epoch_bb.log_posterior(ep, q8, with_grad=True),
+                                     "epoch_logpost_kernel", 20, 1)[0])
                     plain_ms = cuda_ms(lambda: ep.plain(q), repeats=5)
                     ops = float(epoch_eval_ops(ep).sum()) * M
                     k4_bound = bound_fields(ops, q.numel() * 8 + E * M * 8
@@ -1065,76 +1086,220 @@ def phase_k4(rng_seed=5):
     phase("K4", f"{parts}; -inf sets equal; {launches} comparison launches; K4 {k_ms:.4f} ms "
           f"(with the gradient {kg_ms:.4f} ms) vs plain {plain_ms:.4f} ms at {BOL_EPOCHS} "
           f"epochs x 512 (f32, no intrinsic scatter), bound {k4_bound['bound_ms']:.4f} ms "
-          f"({k4_bound['bound_by']})")
+          f"({k4_bound['bound_by']}); with the gradient at {BOL_EPOCHS} x {BOL_STARTS} (the "
+          f"parent's Adam step) {kg8[0]:.4f} ms (events; the profiler's device time "
+          f"{kg8[1]:.4f} ms)")
     return {"max_abs_err": res[("f32", "bench", None)][0], "ms": k_ms, "plain_ms": plain_ms,
             **k4_bound}
+
+
+def polish_ops(ep, n_starts, n_iter):
+    """K4p's operations: each start's n_iter evaluations of the value and
+    gradient (the native terms with dS/dT, ~30 flops a band for the
+    residual and its derivatives, the priors' log and division), its
+    bijection and Adam step (~15 flops, the sigmoid's exp and division,
+    Adam's two divisions and square root a parameter), then its last
+    value."""
+    terms = (ep.n_native * ep.mask).sum(dim=1).double()
+    bands = ep.mask.sum(dim=1).double()
+    ndim = len(ep.priors)
+    step = terms * PLANCK_TERM_GRAD + bands * 30 + 2 * SFU + ndim * (15 + 5 * SFU)
+    last = terms * PLANCK_TERM + bands * 10 + SFU + ndim * 2 * SFU
+    return float((n_starts * (n_iter * step + last)).sum())
+
+
+def check_polish(name, got, want, rel):
+    """K4p's (centers, alive, last iterates, their log-posteriors) against
+    map_polish_plain's: the same alive set; centers within ``rel`` relative
+    where both keep the same start; where they keep different starts, a
+    near-tie (the plain log-posteriors of the two within 1e-5 of their
+    magnitude). Returns (the largest relative and absolute center
+    differences where the starts agree, the near-ties, the largest |du| of
+    the last iterates)."""
+    import torch
+    c, alive, u, lp = got
+    cp, alive_p, up, lpp = want
+    if not torch.equal(alive, alive_p):
+        raise AssertionError(f"{name}: alive sets differ at {int((alive != alive_p).sum())} "
+                             "epochs")
+    def best(v):
+        return torch.argmin(torch.where(torch.isfinite(v), -v, torch.full_like(v, torch.inf)),
+                            dim=1)
+    b, bp = best(lp), best(lpp)
+    rows = torch.arange(len(b), device=b.device)
+    same = (b == bp) & alive
+    d = (c - cp).abs()[same]
+    r = (d / cp.abs()[same]) if d.numel() else d
+    max_r = float(r.max()) if r.numel() else 0.0
+    if max_r > rel:
+        raise AssertionError(f"{name}: centers differ by {max_r:.3e} relative > {rel:.0e}")
+    tie = ~same & alive
+    gap = (lpp[rows, b] - lpp[rows, bp]).abs()
+    if bool((gap > 1e-5 * lpp[rows, bp].abs())[tie].any()):
+        raise AssertionError(f"{name}: a different start kept away from a near-tie")
+    fin = torch.isfinite(lp) & torch.isfinite(lpp)
+    du = (u - up).abs().amax(dim=-1)[fin]
+    return (max_r, float(d.max()) if d.numel() else 0.0, int(tie.sum()),
+            float(du.max()) if du.numel() else 0.0)
+
+
+def phase_k4p(seed=1):
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.kernels import epoch_bb
+    from lightcurve_fitting_tpu_torch.parallel.batched import (EpochPosterior, _generator,
+                                                               _polish_starts)
+    from time_port_kernels import device_ms
+
+    dev = torch.device("cuda")
+    packed = bench_epochs(np.random.default_rng(0), dev)[0]
+    res, times = {}, {}
+    for label in ("f32", "f64"):
+        try:
+            if label == "f64":
+                config.set_compute_dtype(None)
+            ep = EpochPosterior(packed, bol_priors())
+            cloud_u = torch.rand((ep.n_epochs, 512, 2), generator=_generator(dev, seed, -1),
+                                 device=dev, dtype=torch.float64)
+            bounds, u0 = _polish_starts(ep, cloud_u, BOL_STARTS)
+
+            def polish():
+                return epoch_bb.map_polish(ep, u0, bounds, BOL_ITER, return_starts=True)
+            got = polish()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = epoch_bb.map_polish_plain(ep, u0, bounds, BOL_ITER, return_starts=True)
+            end.record()
+            torch.cuda.synchronize()
+            res[label] = check_polish(f"K4p {label}", got, want, POLISH_REL[label])
+            x8 = bounds.to_bounded(u0).contiguous()   # the parent's first Adam step's input
+            times[label] = (cuda_ms(polish, repeats=5),
+                            float(np.mean(device_ms(polish, "epoch_map_polish", 5, 2))),
+                            start.elapsed_time(end),
+                            device_ms(lambda: epoch_bb.log_posterior(ep, x8, with_grad=True),
+                                      "epoch_logpost_kernel", 20, 1)[0])
+            nbytes = (2 * ep.nodes.element_size() * ep.nodes.numel() + u0.numel() * 8
+                      + ep.n_epochs * (2 * 8 + 1))
+            if label == "f32":
+                k4p_bound = bound_fields(polish_ops(ep, BOL_STARTS, BOL_ITER), nbytes)
+            else:
+                k4p_bound64 = bound_fields(polish_ops(ep, BOL_STARTS, BOL_ITER), nbytes,
+                                           rate=FP64_FLOPS)
+        finally:
+            config.set_compute_dtype(config.AUTO)
+    phase("K4p", f"the Adam polish of {BOL_EPOCHS} bench epochs x {BOL_STARTS} starts x "
+          f"{BOL_ITER} steps in one launch (a block per epoch, a warp per start) against "
+          "map_polish_plain on the card: "
+          + "; ".join(f"{lab}: alive sets equal, centers max relative difference {v[0]:.3e} "
+                      f"(max |d| {v[1]:.3e}; <= {POLISH_REL[lab]:.0e}), {v[2]} epochs keep "
+                      f"another start at a near-tie, last iterates max |du| {v[3]:.3e}; K4p "
+                      f"{times[lab][0]:.4f} ms (events; device {times[lab][1]:.4f} ms) vs plain "
+                      f"{times[lab][2]:.1f} ms; the parent's 300 launches of K4 with the gradient "
+                      f"at {BOL_EPOCHS} x {BOL_STARTS}, device {times[lab][3]:.4f} ms each"
+                      for lab, v in res.items())
+          + f"; bound {k4p_bound['bound_ms']:.4f} ms f32 ({k4p_bound['bound_by']}), "
+          f"{k4p_bound64['bound_ms']:.4f} ms f64")
+    return {"max_abs_err": res["f32"][1], "ms": times["f32"][0], "plain_ms": times["f32"][2],
+            **k4p_bound}
 
 
 def phase_epoch_half_step(seed=6):
     import numpy as np
     import torch
+    from lightcurve_fitting_tpu_torch.core import config
     from lightcurve_fitting_tpu_torch.kernels import common, epoch_bb
     from lightcurve_fitting_tpu_torch.parallel.batched import EpochPosterior
+    from time_port_kernels import device_ms
 
     dev = torch.device("cuda")
     E, half = BOL_EPOCHS, BOL_WALKERS // 2
     rng = np.random.default_rng(seed)
     packed, truth = bench_epochs(np.random.default_rng(0), dev)
-    ep = EpochPosterior(packed, bol_priors())
     x0 = np.abs(np.stack([truth, np.full(E, 10.0)], axis=1)[:, None, None, :]
                 * (1 + 0.3 * rng.normal(size=(E, 2, half, 2))))
     x0 = torch.as_tensor(x0, device=dev).float().contiguous()
-    l0 = ep(x0.reshape(E, 2 * half, 2)).reshape(E, 2, half)
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     u_z = torch.rand((E, 2, half), generator=g, device=dev)
     j = torch.randint(0, half, (E, 2, half), generator=g, device=dev)
     u_acc = torch.rand((E, 2, half), generator=g, device=dev)
-    max_abs, n_ties, n_acc = 0.0, 0, 0
-    for h in (0, 1):
-        xk, lk, xp, lpp = x0.clone(), l0.clone(), x0.clone(), l0.clone()
-        ak = torch.zeros((E, 2, half), dtype=torch.int32, device=dev)
-        ap = torch.zeros_like(ak)
-        cx = torch.empty_like(x0)
-        cl = torch.empty((E, 2, half), device=dev)
-        epoch_bb.stretch_half_step(ep, xk, lk, h, u_z, j, u_acc, 2.0, cx, cl, ak)
-        epoch_bb.stretch_half_step_plain(ep.plain, xp, lpp, h, u_z, j, u_acc, 2.0, n_accept=ap)
-        torch.cuda.synchronize()
-        agree = ak[:, h] == ap[:, h]
-        y, z = common.propose_stretch(u_z[:, h], j[:, h], x0[:, h], x0[:, 1 - h])
-        lp_y = ep.plain(y)
-        gap = (torch.log(u_acc[:, h]).double() - (torch.log(z) + lp_y - l0[:, h])).abs()
-        c = ep.log_norm[:, None]
-        tie_ok = gap <= 1e-5 * ((lp_y - c).abs() + c.abs())
-        if not bool((agree | tie_ok).all()):
-            raise AssertionError(f"epoch half-step h={h}: {int((~agree & ~tie_ok).sum())} "
-                                 "accept flags differ away from near-ties")
-        if not torch.equal(xk[:, h][agree], xp[:, h][agree]):
-            raise AssertionError(f"epoch half-step h={h}: new states differ where the flags "
-                                 "agree")
-        if not torch.equal(xk[:, 1 - h], x0[:, 1 - h]) or not torch.equal(cx[:, h], xk[:, h]) \
-                or not torch.equal(cl[:, h], lk[:, h].float()):
-            raise AssertionError(f"epoch half-step h={h}: wrong half or chain slot written")
-        fin = agree & torch.isfinite(lk[:, h])
-        max_abs = max(max_abs, float((lk[:, h][fin] - lpp[:, h][fin]).abs().max()))
-        n_ties += int((~agree).sum())
-        n_acc += int(ak[:, h].sum())
-    xk, lk = x0.clone(), l0.clone()
-    ak = torch.zeros((E, 2, half), dtype=torch.int32, device=dev)
-    k_ms = cuda_ms(lambda: epoch_bb.stretch_half_step(ep, xk, lk, 0, u_z, j, u_acc, 2.0,
-                                                      n_accept=ak, check_partners=False))
-    xp, lpp = x0.clone(), l0.clone()
-    plain_ms = cuda_ms(lambda: epoch_bb.stretch_half_step_plain(ep.plain, xp, lpp, 0, u_z, j,
-                                                                u_acc, 2.0), repeats=5)
-    hs_bound = bound_fields(float(epoch_eval_ops(ep).sum()) * half + E * half * PROPOSAL,
-                            E * half * (2 * 2 * 4 + 8 + 16 + 4) + E * half * (2 * 4 + 8 + 4)
-                            + 2 * 4 * ep.nodes.numel())
-    phase("epoch half-step", f"half-steps h=0,1 of {E} epochs x {half} walkers (f32 state, "
-          f"f64 logp): {n_acc} accepts, flags agree except {n_ties} near-ties, new states "
-          f"bit-equal where they agree, new-logp max |d| {max_abs:.3e}; kernel {k_ms:.4f} ms "
-          f"vs plain {plain_ms:.4f} ms per half-step, bound {hs_bound['bound_ms']:.4f} ms "
-          f"({hs_bound['bound_by']})")
-    return {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": plain_ms, **hs_bound}
+    res, names = {}, {}
+    for label in ("f32", "f64"):
+        try:
+            if label == "f64":
+                config.set_compute_dtype(None)
+            rel = 1e-5 if label == "f32" else 1e-10
+            ep = EpochPosterior(packed, bol_priors())
+            l0 = ep(x0.reshape(E, 2 * half, 2)).reshape(E, 2, half)
+            max_r, max_abs, n_ties, n_acc = 0.0, 0.0, 0, 0
+            for h in (0, 1):
+                xk, lk, xp, lpp = x0.clone(), l0.clone(), x0.clone(), l0.clone()
+                ak = torch.zeros((E, 2, half), dtype=torch.int32, device=dev)
+                ap = torch.zeros_like(ak)
+                cx = torch.empty_like(x0)
+                cl = torch.empty((E, 2, half), device=dev)
+                epoch_bb.stretch_half_step(ep, xk, lk, h, u_z, j, u_acc, 2.0, cx, cl, ak)
+                epoch_bb.stretch_half_step_plain(ep.plain, xp, lpp, h, u_z, j, u_acc, 2.0,
+                                                 n_accept=ap)
+                torch.cuda.synchronize()
+                agree = ak[:, h] == ap[:, h]
+                y, z = common.propose_stretch(u_z[:, h], j[:, h], x0[:, h], x0[:, 1 - h])
+                lp_y = ep.plain(y)
+                scale_y, _ = ep.term_scales(y)
+                gap = (torch.log(u_acc[:, h]).double() - (torch.log(z) + lp_y - l0[:, h])).abs()
+                tie_ok = gap <= rel * scale_y
+                if not bool((agree | tie_ok).all()):
+                    raise AssertionError(f"epoch half-step {label} h={h}: "
+                                         f"{int((~agree & ~tie_ok).sum())} accept flags differ "
+                                         "away from near-ties")
+                if not torch.equal(xk[:, h][agree], xp[:, h][agree]):
+                    raise AssertionError(f"epoch half-step {label} h={h}: new states differ "
+                                         "where the flags agree")
+                if not torch.equal(xk[:, 1 - h], x0[:, 1 - h]) \
+                        or not torch.equal(cx[:, h], xk[:, h]) \
+                        or not torch.equal(cl[:, h], lk[:, h].float()):
+                    raise AssertionError(f"epoch half-step {label} h={h}: wrong half or chain "
+                                         "slot written")
+                moved = agree & (ak[:, h] == 1)
+                d = (lk[:, h] - lpp[:, h]).abs()[moved]
+                r = d / scale_y[moved]
+                if r.numel() and float(r.max()) > rel:
+                    raise AssertionError(f"epoch half-step {label} h={h}: new log-posteriors "
+                                         f"{float(r.max()):.3e} of the term scale > {rel:.0e}")
+                max_r = max(max_r, float(r.max()) if r.numel() else 0.0)
+                max_abs = max(max_abs, float(d.max()) if d.numel() else 0.0)
+                n_ties += int((~agree).sum())
+                n_acc += int(ak[:, h].sum())
+            xk, lk = x0.clone(), l0.clone()
+            ak = torch.zeros((E, 2, half), dtype=torch.int32, device=dev)
+
+            def step():
+                epoch_bb.stretch_half_step(ep, xk, lk, 0, u_z, j, u_acc, 2.0, n_accept=ak,
+                                           check_partners=False)
+            names[label] = expect_kernel(step, "stretch_half_step_kernel", "EpochBBModel")
+            res[label] = (n_acc, n_ties, max_r, cuda_ms(step),
+                          device_ms(step, "stretch_half_step_kernel", 20, 1)[0], max_abs)
+            if label == "f32":
+                xp, lpp = x0.clone(), l0.clone()
+                plain_ms = cuda_ms(lambda: epoch_bb.stretch_half_step_plain(
+                    ep.plain, xp, lpp, 0, u_z, j, u_acc, 2.0), repeats=5)
+                hs_bound = bound_fields(float(epoch_eval_ops(ep).sum()) * half
+                                        + E * half * PROPOSAL,
+                                        E * half * (2 * 2 * 4 + 8 + 16 + 4)
+                                        + E * half * (2 * 4 + 8 + 4) + 2 * 4 * ep.nodes.numel())
+        finally:
+            config.set_compute_dtype(config.AUTO)
+    phase("epoch half-step", f"{names['f32']}: half-steps h=0,1 of {E} epochs x {half} walkers "
+          "(f32 state, f64 logp, a warp per walker) "
+          + "; ".join(f"{lab}: {v[0]} accepts, flags agree except {v[1]} near-ties, new states "
+                      f"bit-equal where they agree, new-logp max |d| {v[5]:.3e}, max "
+                      f"|d|/scale {v[2]:.2e} (<= 1e-5 / 1e-10); kernel "
+                      f"{v[3]:.4f} ms (events; the profiler's device time {v[4]:.4f} ms)"
+                      for lab, v in res.items())
+          + f"; plain {plain_ms:.4f} ms per half-step (f32), bound {hs_bound['bound_ms']:.5f} "
+          f"ms ({hs_bound['bound_by']})")
+    return {"max_abs_err": res["f32"][5], "ms": res["f32"][3], "plain_ms": plain_ms, **hs_bound}
 
 
 def phase_k4s_k5(seed=7):
@@ -1194,8 +1359,28 @@ def phase_k4s_k5(seed=7):
             {"max_abs_err": 0.0, "ms": p_ms, "plain_ms": p_plain_ms, **p_bound})
 
 
-BOL_KERNELS = ("epoch_logpost", "epoch_logpost_grad", "epoch_half_step", "epoch_summary",
+BOL_KERNELS = ("epoch_logpost", "epoch_map_polish", "epoch_half_step", "epoch_summary",
                "percentile")
+# the JAX package's mean acceptance, float64 on the CPU, at the bench shape
+# over seeds 1-8 (each seed's centers and guesses after the previous seed's,
+# as 13b draws them), and its standard error
+# (tests/test_torch_batched.py::jax_bench_acceptance)
+BOL_SEEDS = tuple(range(1, 9))
+BOL_ACCEPTANCE_SEEDS_REF = (0.7061326503753662, 0.0002736880704670472)
+# the bolometric path's kernels in a profile (the first match wins)
+BOL_SPLIT = {"K4 (cloud, initial state)": ("epoch_logpost",),
+             "K4p (Adam polish)": ("epoch_map_polish",),
+             "epoch half-step": ("stretch_half_step",), "K4s": ("epoch_summary",),
+             "K5": ("percentile",)}
+
+
+def bol_launches_ok(launches, what, centerings=1):
+    """Every bolometric kernel ran, K4p once a centering, and K4's gradient
+    form never (the polish runs in K4p)."""
+    if any(launches[k] == 0 for k in BOL_KERNELS) or launches["epoch_logpost_grad"] != 0 \
+            or launches["epoch_map_polish"] != centerings:
+        raise AssertionError(f"{what}: a kernel not launched, K4p not once a centering, or K4's "
+                             f"gradient form launched: {launches}")
 
 
 def phase_bolometric_main_path(smi):
@@ -1220,10 +1405,7 @@ def phase_bolometric_main_path(smi):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    for k in BOL_KERNELS:
-        if launches[k] == 0:
-            raise AssertionError(f"kernel {k} was not launched on the bolometric path: "
-                                 f"{launches}")
+    bol_launches_ok(launches, "13a")
     temp, temp_mcmc = np.asarray(t["temp"], float), np.asarray(t["temp_mcmc"], float)
     if len(t) != 65 or not np.isfinite(temp_mcmc).all() \
             or not np.isfinite(np.asarray(t["L_mcmc"], float)).all():
@@ -1240,11 +1422,19 @@ def phase_bolometric_main_path(smi):
         f"(-{cols['dtemp_mcmc0'][i]:.4f} +{cols['dtemp_mcmc1'][i]:.4f}) R_mcmc "
         f"{cols['radius_mcmc'][i]:8.4f} L_mcmc {cols['L_mcmc'][i]:.4e} L_bol_mcmc "
         f"{cols['L_bol_mcmc'][i]:.4e}" for i in range(len(t)))
+    with warnings.catch_warnings(), contextlib.redirect_stdout(io.StringIO()):
+        warnings.simplefilter("ignore")
+        wall_a, prof_a = profiled(lambda: calculate_bolometric(
+            lc, batch_mode=True, save_corners=False, nwalkers=32, seed=7))
+    parts_a, busy_a = time_split(prof_a, wall_a, BOL_SPLIT)
     phase("bolometric main path 13a", f"calculate_bolometric(batch_mode=True, "
           f"save_corners=False, nwalkers=32, seed=7) on the full SN 2016bkv light curve: "
           f"{len(t)} rows in {elapsed:.3f} s (host stages included; on {smi}); median "
           f"|temp_mcmc - temp| / temp {np.median(dev_t):.4f} over {ok.sum()} curve_fit rows; "
-          f"{len(notes.getvalue().splitlines())} host notes hidden; launches {launches}\n{rows}")
+          f"{len(notes.getvalue().splitlines())} host notes hidden; launches {launches}; a "
+          f"profiled run {wall_a:.4f} s, device busy {busy_a:.4f} s (idle share "
+          f"{1 - busy_a / wall_a:.3f}): " + ", ".join(f"{k} {v:.4f} s" for k, v in parts_a.items())
+          + f"\n{rows}")
 
     # 13b: the bench shape, timed
     dev = torch.device("cuda")
@@ -1271,39 +1461,51 @@ def phase_bolometric_main_path(smi):
     kernels.reset_launch_counts()
     _, acc, summ = run(1)          # the reference's seed; also the warm-up
     launches_b = dict(kernels.LAUNCHES)
+    accs = {1: float(np.mean(acc))}
     times, stages = [], []
     for seed in range(2, 7):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run(seed, stages)
+        accs[seed] = float(np.mean(run(seed, stages)[1]))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     # the device's busy share over one more run: kernel time from the profiler
-    wall, prof = profiled(lambda: run(7))
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    busy = sum(e.self_device_time_total for e in events) / 1e6
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
-    top = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.1f} ms x{e.count}"
-                    for e in top)
-    acc_mean = float(np.mean(acc))
+    out = []
+    wall, prof = profiled(lambda: out.append(run(7)))
+    accs[7] = float(np.mean(out[0][1]))
+    parts, busy = time_split(prof, wall, BOL_SPLIT)
+    for seed in BOL_SEEDS[7:]:
+        accs[seed] = float(np.mean(run(seed)[1]))
+    acc_mean = accs[1]
     if abs(acc_mean - BOL_ACCEPTANCE_REF) > 0.02:
         raise AssertionError(f"13b: mean acceptance {acc_mean:.4f} not within 0.02 of the JAX "
                              f"package's {BOL_ACCEPTANCE_REF:.4f}")
-    if not np.isfinite(summ).all() or any(launches_b[k] == 0 for k in BOL_KERNELS):
-        raise AssertionError(f"13b: non-finite summaries or a kernel not launched: "
-                             f"{launches_b}")
+    if not np.isfinite(summ).all():
+        raise AssertionError("13b: non-finite summaries")
+    bol_launches_ok(launches_b, "13b")
+    a_seeds = np.array([accs[k] for k in BOL_SEEDS])
+    m_port, se_port = float(a_seeds.mean()), float(a_seeds.std(ddof=1) / np.sqrt(len(a_seeds)))
+    m_jax, se_jax = BOL_ACCEPTANCE_SEEDS_REF
+    z = abs(m_port - m_jax) / float(np.hypot(se_port, se_jax))
+    if z > 4:
+        raise AssertionError(f"13b: mean acceptance over seeds 1-8 {m_port:.5f} +- "
+                             f"{se_port:.5f}, {z:.2f} combined standard errors from the JAX "
+                             f"package's {m_jax:.5f} +- {se_jax:.5f}")
     inside = float(np.mean((summ[:, 0, 0] <= truth) & (truth <= summ[:, 0, 2])))
     med = float(np.median(times))
     phase("bolometric main path 13b", f"{BOL_EPOCHS} epochs x {BOL_WALKERS} walkers x "
           f"{BOL_BURNIN}+{BOL_STEPS} steps (centering, MCMC, device summaries): "
           f"{BOL_EPOCHS / med:.2f} epochs/s (median of 5 runs {med:.4f} s, runs "
           f"{', '.join(f'{x:.4f}' for x in times)}; on {smi}); mean acceptance {acc_mean:.4f} "
-          f"(JAX float64 CPU {BOL_ACCEPTANCE_REF:.4f} +- 0.02); true T inside the 16-84 "
-          f"interval for {inside:.3f} of the epochs; stages (median): centering "
-          f"{np.median([a for a, _ in stages]):.4f} s, MCMC and summaries "
-          f"{np.median([b for _, b in stages]):.4f} s; profiled run {wall:.4f} s, device busy "
-          f"{busy:.4f} s ({busy / wall:.3f}; idle share {1 - busy / wall:.3f}), top kernels "
-          f"{top}; launches per run {launches_b}")
+          f"(JAX float64 CPU {BOL_ACCEPTANCE_REF:.4f} +- 0.02); seeds 1-8: "
+          f"{', '.join(f'{a:.5f}' for a in a_seeds)}, mean {m_port:.5f} +- {se_port:.5f} "
+          f"against the JAX package's {m_jax:.5f} +- {se_jax:.5f} ({z:.2f} combined standard "
+          f"errors); true T inside the 16-84 interval for {inside:.3f} of the epochs; stages "
+          f"(median): centering {np.median([a for a, _ in stages]):.4f} s, MCMC and summaries "
+          f"{np.median([b for _, b in stages]):.4f} s; profiled run (seed 7) {wall:.4f} s, "
+          f"device busy {busy:.4f} s (idle share {1 - busy / wall:.3f}): "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in parts.items())
+          + f"; launches per run {launches_b}")
     return launches
 
 
@@ -2935,16 +3137,19 @@ def main():
     from time_port_kernels import ptxas_report
     report = ptxas_report(info["log"])
     block = {}
-    for what, key in (("K9", "nuts_transition_kernel"), ("K7h", "hmc_transition_kernel"),
-                      ("K7's block form", "logpost_grad_block_kernel")):
+    for what, key, n in (("K9", "nuts_transition_kernel", 4), ("K7h", "hmc_transition_kernel", 4),
+                         ("K7's block form", "logpost_grad_block_kernel", 4),
+                         ("K4p", "epoch_map_polish_kernel", 4),
+                         ("the epoch half-step", "EpochBBModel", 32)):
         block[what] = [v for k, v in report.items() if key in k]
-        if len(block[what]) != 4 or any(v[1] or v[2] or v[3] for v in block[what]):
-            raise AssertionError(f"{what} (ndim 4, 5; f32, f64) must keep its state in "
+        if len(block[what]) != n or any(v[1] or v[2] or v[3] for v in block[what]):
+            raise AssertionError(f"{what} ({n} instantiations) must keep its state in "
                                  f"registers: {block[what]}")
     phase("build", f"{'built' if info['built'] else 'reused'} {os.path.relpath(info['path'], REPO)} "
           f"in {time.perf_counter() - t0:.2f} s; ptxas: {len(regs)} kernels, "
-          f"{sorted(set(r.split('Used ')[-1] for r in regs))[:4]}; the block-per-chain kernels' "
-          f"four instantiations each (ndim 4, 5; f32, f64): "
+          f"{sorted(set(r.split('Used ')[-1] for r in regs))[:4]}; the block-per-chain kernels "
+          "(ndim 4, 5; f32, f64), K4p (ndim 2, 3; f32, f64) and the epoch half-step (ndim 2, "
+          "3; its 16 dtype instantiations each): "
           + "; ".join(f"{what} registers {sorted(set(v[0] for v in ks))}, stack frames "
                       f"{sorted(set(v[1] for v in ks))} bytes, spills "
                       f"{sorted(set(v[2] + v[3] for v in ks))}" for what, ks in block.items()))
@@ -2959,6 +3164,7 @@ def main():
     k_sc3_half = phase_sc3_half_step(lcf)
     launches_sc3 = phase_sc3_main_path(lc, smi)
     k4 = phase_k4()
+    k4p = phase_k4p()
     k_epoch_half = phase_epoch_half_step()
     k4s, k5 = phase_k4s_k5()
     launches_bol = phase_bolometric_main_path(smi)
@@ -2986,7 +3192,7 @@ def main():
         dict(name="sc2_logpost_kernel (K1)", route="cuda", source=src,
              replaces="lightcurve_fitting_tpu/fitting.py:62", launches=launches["sc2_logpost"],
              **k1),
-        dict(name="stretch_half_step_kernel<SC2WarpModel, WARP> (K2)", route="cuda", source=src,
+        dict(name="stretch_half_step_kernel<SC2WarpModel> (K2)", route="cuda", source=src,
              replaces="lightcurve_fitting_tpu/parallel/sampler.py:86",
              launches=launches["stretch_half_step"], **k2),
         dict(name="bandflux_kernel (K3)", route="cuda", source=src3,
@@ -3001,8 +3207,11 @@ def main():
         dict(name="epoch_logpost_kernel (K4)", route="cuda", source=src4,
              replaces="lightcurve_fitting_tpu/parallel/batched.py:53",
              launches=launches_bol["epoch_logpost"] + launches_bol["epoch_logpost_grad"], **k4),
-        dict(name="stretch_half_step_kernel<EpochBBModel> (epoch half-step)", route="cuda",
-             source=src4, replaces="lightcurve_fitting_tpu/parallel/batched.py:245",
+        dict(name="epoch_map_polish_kernel (K4p)", route="cuda", source=src4,
+             replaces="lightcurve_fitting_tpu/parallel/batched.py:355",
+             launches=launches_bol["epoch_map_polish"], **k4p),
+        dict(name="stretch_half_step_kernel<EpochBBModel> (epoch half-step)",
+             route="cuda", source=src4, replaces="lightcurve_fitting_tpu/parallel/batched.py:245",
              launches=launches_bol["epoch_half_step"], **k_epoch_half),
         dict(name="epoch_summary_kernel (K4s)", route="cuda", source=src4,
              replaces="lightcurve_fitting_tpu/parallel/batched.py:129",
@@ -3046,7 +3255,7 @@ def main():
         dict(name="cs_logpost_kernel (CS log-posterior)", route="cuda", source=src_cs,
              replaces="lightcurve_fitting_tpu/models/companion_shocking.py:120",
              launches=launches_cs["cs_logpost"], **k_cs["logpost"]),
-        dict(name="stretch_half_step_kernel<CSWarpModel, WARP> (CS half-step)", route="cuda",
+        dict(name="stretch_half_step_kernel<CSWarpModel> (CS half-step)", route="cuda",
              source=src_cs, replaces="lightcurve_fitting_tpu/parallel/sampler.py:86",
              launches=launches_cs["cs_half_step"], **k_cs["half"]),
         dict(name="tempered_half_step_kernel<CSWarpModel, WARP> (K6a over CS)", route="cuda",

@@ -363,7 +363,7 @@ def calculate_bolometric(lc, z=0.0, outpath=".", res=1.0, nwalkers=10, burnin_st
     ``save_chains=True`` saves each epoch's chain with ``np.save``.
 
     Not ported yet, and refused with NotImplementedError: ``batch_mode=False``
-    (ROADMAP Queue 1 item 12), ``min_nfilt < 2`` (items 9 and 12),
+    (ROADMAP Queue 1 item 12), ``min_nfilt < 2`` (item 12),
     ``save_corners=True`` and ``show=True`` (item 18), a ``mesh`` (item 17).
     """
     _refuse_unported(batch_mode, min_nfilt, save_corners, show, mesh)

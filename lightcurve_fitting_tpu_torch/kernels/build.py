@@ -68,6 +68,8 @@ def _declare(lib):
     lib.epoch_logpost_launch.argtypes = [vp, ci, ci, vp, ci, ci, vp, ci, vp, vp]
     lib.epoch_half_step_launch.restype = ci
     lib.epoch_half_step_launch.argtypes = half_step[:-1] + [ci, ctypes.c_longlong, vp]
+    lib.epoch_map_polish_launch.restype = ci
+    lib.epoch_map_polish_launch.argtypes = [vp, vp, ci, ci, vp]
     lib.epoch_summary_launch.restype = ci
     lib.epoch_summary_launch.argtypes = [vp, ci, ci, ci, vp]
     lib.percentile_launch.restype = ci

@@ -17,7 +17,7 @@ MAX_DIM = 9  # LP_MAX_DIM of csrc/stretch.cuh
 #: nothing else does
 LAUNCHES = {"sc2_logpost": 0, "stretch_half_step": 0, "bandflux": 0, "sc3_logpost": 0,
             "sc3_half_step": 0, "epoch_logpost": 0, "epoch_logpost_grad": 0,
-            "epoch_half_step": 0, "epoch_summary": 0, "percentile": 0,
+            "epoch_map_polish": 0, "epoch_half_step": 0, "epoch_summary": 0, "percentile": 0,
             "tempered_half_step": 0, "ladder_init": 0, "replica_swap": 0, "rung_block_terms": 0,
             "logpost_grad": 0, "nuts_transition": 0, "hmc_transition": 0, "sifto": 0,
             "cs_logpost": 0, "cs_half_step": 0}

@@ -374,16 +374,13 @@ struct CSModel {
     static __device__ Data stage(const Params& P, unsigned char* smem, int use_smem, int) {
         return stage_cs<C>(P, smem, use_smem);
     }
-    static __device__ double log_posterior(const double* p, const Data& d, const Params& P) {
-        return cs_log_posterior<C>(p, d, P);
-    }
     static __device__ double log_likelihood(const double* p, const Data& d, const Params& P) {
         return cs_log_likelihood<C>(p, d, P);
     }
 };
 
 // The policy of the CS half-step and of K6a over CS: a warp per walker
-// (stretch_half_step_kernel and tempered_half_step_kernel with WARP), 32
+// (stretch_half_step_kernel, and tempered_half_step_kernel with WARP), 32
 // warps a block in float32 (one block an SM: the tables staged once an SM;
 // 64 registers a thread) and 16 in float64 (whose kernels need ~70),
 // batched: the grid holds only the blocks resident at once, and a warp
@@ -485,9 +482,9 @@ int cs_half_step_launch(const CSParams* P, int device, int compute_f64, void* x,
                         const void* u_acc, double a, void* chain_x, int chain_x_f64,
                         void* chain_lp, int chain_lp_f64, int* n_accept, void* stream) {
     if (P->n_knots < 2) return (int)cudaErrorInvalidValue;
-    return launch_half_step<CSWarpModel, true>(P, device, compute_f64, x, state_f64, logp, half,
-                                               h, u_z, j, u_acc, a, chain_x, chain_x_f64,
-                                               chain_lp, chain_lp_f64, n_accept, stream);
+    return launch_half_step<CSWarpModel>(P, device, compute_f64, x, state_f64, logp, half, h,
+                                         u_z, j, u_acc, a, chain_x, chain_x_f64, chain_lp,
+                                         chain_lp_f64, n_accept, stream);
 }
 
 // K6a launch over the CS models (ladder.cuh), a warp per walker

@@ -1,13 +1,16 @@
 // The per-epoch blackbody posterior of the batched bolometric path (K4), its
-// analytic gradient, the stretch-move half-step over E epochs at once, and the
-// posterior-summary integrand (K4s), for sm_90a, bound to Python through a
-// plain C interface (ctypes).
+// analytic gradient, the Adam polish of the MAP centering (K4p), the
+// stretch-move half-step over E epochs at once, and the posterior-summary
+// integrand (K4s), for sm_90a, bound to Python through a plain C interface
+// (ctypes).
 //
 // Replaces (JAX package, lightcurve_fitting_tpu/):
 //   K4  parallel/batched.py:53-94 _make_epoch_logpost (logpost), fused by XLA
-//       under vmap over epochs and walkers; its jax.grad in the Adam polish
-//       of batched_map_centers (:355-380); models/blackbody.py:27-37
+//       under vmap over epochs and walkers; models/blackbody.py:27-37
 //       planck_lnu and ops/mathx.py planck_denom_inv inside it.
+//   K4p parallel/batched.py:355-380: the Adam lax.scan of batched_map_centers
+//       over the bounds-bijected posterior (jax.grad of K4's graph, optax's
+//       adam under a cosine decay), the final evaluation and the argmin.
 //   epoch half-step: parallel/sampler.py:86-104 (make_stretch_kernel) vmapped
 //       over epochs by batched.py:243-256; the stretch_half_step_kernel
 //       template of stretch.cuh over EpochBBModel.
@@ -17,18 +20,24 @@
 //
 // What bounds it on the H100: the special functions. A Planck term is one
 // expm1 and one division; an epoch evaluation is sum over its real bands of
-// their native node counts (~530 terms for 6 bands) and a summary sample 580
-// terms. The per-epoch data (<= 9 bands x 89 nodes x 2 tables, 6.4 KB in f32)
-// are shared by the epoch's walkers, and the walkers' state is a few bytes, so
-// device-memory traffic is negligible; at the bolometric shapes (32 walkers an
-// epoch, 16 a half) the launches are small and sit on their latency floor.
-// What the design does about it: a block works on one epoch (blockIdx.y) and
-// stages that epoch's tables in shared memory; one thread per parameter
-// vector walks the real bands in order (a warp reads one band's node at a
-// time: broadcasts) and stops at each band's last non-zero weight, and masked
-// (padding) bands are skipped: their terms are exact zeros in the JAX sum.
-// The gradient (T, R[, sigma]) is accumulated in the same pass from the same
-// terms (band_flux<C, true>, planck.cuh).
+// their native node counts (~290 terms for the bench's 6 bands) and a
+// summary sample 580 terms. The per-epoch data (<= 9 bands x 89 nodes x 2
+// tables, 6.4 KB in f32) are shared by the epoch's walkers, and the walkers'
+// state is a few bytes, so device-memory traffic is negligible; at the
+// bolometric shapes (16 walkers a half, 8 Adam starts an epoch) the work is
+// small and a thread's serial walk over an epoch's terms sets the time.
+// What the design does about it: a block works on one epoch and stages that
+// epoch's tables in shared memory. K4 (the cloud's scoring) runs one thread
+// per parameter vector, which walks the real bands in order and stops at
+// each band's last non-zero weight (masked bands are skipped: their terms
+// are exact zeros in the JAX sum), the gradient accumulated in the same
+// pass (band_flux<C, true>, planck.cuh). The half-step and K4p run a warp per
+// walker or start (epoch_log_likelihood_warp): the 32 lanes split each
+// band's terms and one butterfly a band gives every lane the band flux (and
+// its T derivative); their tables also hold the node-only factors of the
+// Planck term (c1 nu, nu^3, the cutoff), staged once a block. K4p runs the
+// whole polish of an epoch in one block, a start a warp, its iterate and
+// Adam's moments in registers for all n_iter steps.
 //
 // Dtype semantics follow the JAX accelerator path (batched.py:60-90): the
 // Planck sum, the residuals and their sum run in the compute type C on
@@ -158,10 +167,11 @@ __device__ EpochBBData<C> stage_epoch(const EpochBBParams& P, unsigned char* sme
     return d;
 }
 
-// d/dp of the prior log-densities at absolute parameters p inside the bounds.
-template <typename Params>
+// d/dp of the prior log-densities at absolute parameters p inside the bounds
+// (D as in log_prior).
+template <int D = 0, typename Params>
 __device__ __forceinline__ void log_prior_grad(const Params& P, const double* p, double* g) {
-    for (int i = 0; i < (int)P.ndim; ++i) {
+    for (int i = 0; i < (D > 0 ? D : (int)P.ndim); ++i) {
         if (P.prior_kind[i] == 1) {
             g[i] = -1.0 / p[i];
         } else if (P.prior_kind[i] == 2) {
@@ -172,33 +182,22 @@ __device__ __forceinline__ void log_prior_grad(const Params& P, const double* p,
     }
 }
 
-// The log-posterior of one parameter vector p = (T, R[, ..., sigma]) of
-// one epoch; with GRAD also its gradient into g[ndim].
-template <typename C, bool GRAD>
-__device__ double epoch_log_posterior(const double* p, const EpochBBData<C>& d,
-                                      const EpochBBParams& P, double* g) {
-    const int ndim = (int)P.ndim;
-    if constexpr (GRAD)
-        for (int k = 0; k < ndim; ++k) g[k] = 0.0;
-    const double lprior = log_prior(P, p);
-    if (!isfinite(lprior)) return -INFINITY;
-    if constexpr (GRAD) log_prior_grad(P, p, g);
-
+// The float64 log-likelihood of one parameter vector of an epoch (-inf when
+// not finite) from its band fluxes: flux(b, &dS) is real band b's flux S
+// (and with GRAD dS/dT into dS), R and sig the vector's radius and scatter
+// in the compute type, d either form's tables (EpochBBData, EpochWarpData).
+// GRAD: also dll/dT, dll/dR and dll/dsigma in the compute type into g[3].
+template <typename C, bool GRAD, typename Data, typename Flux>
+__device__ __forceinline__ double epoch_log_likelihood(const Data& d, const EpochBBParams& P, C R,
+                                                       C sig, Flux flux, C* g) {
     const bool use_sigma = P.use_sigma != 0;
-    const C T = (C)p[0];
-    const C R = (C)p[1];
-    const C sig = use_sigma ? (C)p[ndim - 1] : C(0);
-    const C c1 = (C)P.c1, c2 = (C)P.c2, cutoff = (C)P.cutoff;
-    const bool has_cutoff = P.has_cutoff != 0;
     const int B = (int)P.n_bands;
-    const int K = (int)P.n_nodes;
     C acc = C(0);
     C gT = C(0), gR = C(0), gS = C(0);
     for (int b = 0; b < B; ++b) {
         if (!d.mask[b]) continue;
         C dS = C(0);
-        const C S = band_flux<C, GRAD>(d.nu + b * K, d.w + b * K, nullptr, (int)d.n_native[b],
-                                       T, R, C(0), c1, c2, C(0), has_cutoff, cutoff, &dS);
+        const C S = flux(b, &dS);
         const C y_fit = S * d.inv_h;
         acc += residual_term<C>(use_sigma, y_fit, d.y[b], d.inv_dy[b], d.dy[b], d.su[b], sig);
         if constexpr (GRAD) {
@@ -219,6 +218,11 @@ __device__ double epoch_log_posterior(const double* p, const EpochBBData<C>& d,
             gR += gy * (R != C(0) ? (S + S) / R : C(0));  // dS/dR = 2 S / R
         }
     }
+    if constexpr (GRAD) {
+        g[0] = gT;
+        g[1] = gR;
+        g[2] = gS;
+    }
     double ll;
     if (use_sigma) {
         const C llc = C(-0.5) * acc;
@@ -228,29 +232,361 @@ __device__ double epoch_log_posterior(const double* p, const EpochBBData<C>& d,
         ll = (double)(C(-0.5) * acc) + d.log_norm;
         if (!isfinite(ll)) return -INFINITY;
     }
+    return ll;
+}
+
+// The log-posterior of one parameter vector p = (T, R[, ..., sigma]) from
+// its log-likelihood loglike(gl) (epoch_log_likelihood, its derivatives into
+// gl[3]); with GRAD also its gradient into g[ndim]. Outside the priors -inf
+// and g = 0; where the likelihood is not finite, -inf and the prior's
+// gradient alone. D as in log_prior.
+template <typename C, bool GRAD, int D, typename LogLike>
+__device__ __forceinline__ double epoch_posterior(const double* p, const EpochBBParams& P,
+                                                  double* g, LogLike loglike) {
+    const int ndim = D > 0 ? D : (int)P.ndim;
+    if constexpr (GRAD)
+        for (int k = 0; k < ndim; ++k) g[k] = 0.0;
+    const double lprior = log_prior<D>(P, p);
+    if (!isfinite(lprior)) return -INFINITY;
+    if constexpr (GRAD) log_prior_grad<D>(P, p, g);
+    C gl[3];
+    const double ll = loglike(gl);
+    if (!(ll > -INFINITY)) return -INFINITY;
     if constexpr (GRAD) {
-        g[0] += (double)gT;
-        g[1] += (double)gR;
-        if (use_sigma) g[ndim - 1] += (double)gS;
+        g[0] += (double)gl[0];
+        g[1] += (double)gl[1];
+        if (P.use_sigma) g[ndim - 1] += (double)gl[2];
     }
     return lprior + ll;
 }
 
-// The model policy of stretch.cuh for the epoch blackbody in compute type C.
+// K4's log-posterior of one parameter vector p of one epoch, a thread: the
+// bands' terms in order (band_flux); with GRAD also its gradient into
+// g[ndim].
+template <typename C, bool GRAD>
+__device__ double epoch_log_posterior(const double* p, const EpochBBData<C>& d,
+                                      const EpochBBParams& P, double* g) {
+    const C T = (C)p[0];
+    const C R = (C)p[1];
+    const C sig = P.use_sigma ? (C)p[P.ndim - 1] : C(0);
+    const C c1 = (C)P.c1, c2 = (C)P.c2, cutoff = (C)P.cutoff;
+    const bool has_cutoff = P.has_cutoff != 0;
+    const int K = (int)P.n_nodes;
+    auto flux = [&](int b, C* dS) {
+        return band_flux<C, GRAD>(d.nu + b * K, d.w + b * K, nullptr, (int)d.n_native[b], T, R,
+                                  C(0), c1, c2, C(0), has_cutoff, cutoff, dS);
+    };
+    return epoch_posterior<C, GRAD, 0>(
+        p, P, g, [&](C* gl) { return epoch_log_likelihood<C, GRAD>(d, P, R, sig, flux, gl); });
+}
+
+// ------------------------------------------------------- the warp forms
+
+// An epoch's tables as the warp forms read them (the half-step and K4p):
+// beside the weights, the node-only factors of band_flux's Planck term,
+// c1 nu, nu^3 and min(cutoff / nu, 1) (null without the cutoff), each formed
+// by band_flux's operations in its order, so every term keeps its bits.
 template <typename C>
+struct EpochWarpData {
+    const long long* n_native;
+    const unsigned char* mask;
+    const C* w;
+    const C* c1nu;
+    const C* nu3;
+    const C* cut;
+    const C* y;
+    const C* inv_dy;
+    const C* dy;
+    const C* su;
+    C inv_h;
+    double log_norm;
+};
+
+template <typename C>
+__host__ __device__ inline size_t epoch_warp_stage_bytes(const EpochBBParams& P) {
+    const size_t B = (size_t)P.n_bands, K = (size_t)P.n_nodes;
+    return sizeof(long long) * B + sizeof(C) * ((P.has_cutoff ? 4 : 3) * B * K + 4 * B) + B;
+}
+
+// Epoch e's warp-form tables, formed in shared memory at smem (every thread
+// of the block takes part, so call it before any thread returns). The
+// launches refuse tables larger than the block's shared memory.
+template <typename C>
+__device__ EpochWarpData<C> stage_epoch_warp(const EpochBBParams& P, unsigned char* smem, int e) {
+    const long long B = P.n_bands, BK = P.n_bands * P.n_nodes;
+    const C* nu = (const C*)P.nodes + e * BK;
+    EpochWarpData<C> d;
+    d.inv_h = ((const C*)P.inv_yscale)[e];
+    d.log_norm = P.log_norm[e];
+    long long* si = reinterpret_cast<long long*>(smem);
+    d.n_native = stage_array(P.n_native + e * B, B, si);
+    C* s = reinterpret_cast<C*>(si);
+    d.w = stage_array((const C*)P.weights + e * BK, BK, s);
+    C* c1nu = s;
+    C* nu3 = s + BK;
+    C* cut = P.has_cutoff ? s + 2 * BK : nullptr;
+    const C c1 = (C)P.c1, cutoff = (C)P.cutoff;
+    for (long long i = threadIdx.x; i < BK; i += blockDim.x) {
+        const C nuk = nu[i];
+        c1nu[i] = c1 * nuk;
+        nu3[i] = nuk * nuk * nuk;
+        if (cut != nullptr) {
+            const C c = cutoff / nuk;
+            cut[i] = c < C(1) ? c : C(1);
+        }
+    }
+    s += (cut != nullptr ? 3 : 2) * BK;
+    d.c1nu = c1nu;
+    d.nu3 = nu3;
+    d.cut = cut;
+    d.y = stage_array((const C*)P.y + e * B, B, s);
+    d.inv_dy = stage_array((const C*)P.inv_dy + e * B, B, s);
+    d.dy = stage_array((const C*)P.dy + e * B, B, s);
+    d.su = stage_array((const C*)P.sigma_units + e * B, B, s);
+    unsigned char* sm = reinterpret_cast<unsigned char*>(s);
+    d.mask = stage_array(P.mask + e * B, B, sm);
+    __syncthreads();
+    return d;
+}
+
+// A walker's constants in the compute type: 1 / T (0 where T <= 0 or NaN,
+// as band_flux), c2 R^2 and the intrinsic scatter.
+template <typename C>
+struct EpochWalker {
+    C inv_T, c2R2, sig;
+};
+
+template <typename C>
+__device__ __forceinline__ EpochWalker<C> epoch_walker(double Tp, double Rp, double sig,
+                                                       const EpochBBParams& P) {
+    const C T = (C)Tp;
+    const C R = (C)Rp;
+    EpochWalker<C> w;
+    w.inv_T = T > C(0) ? C(1) / T : C(0);
+    w.c2R2 = (C)P.c2 * (R * R);
+    w.sig = P.use_sigma ? (C)sig : C(0);
+    return w;
+}
+
+// Band flux S (the sum of n Planck terms from table offset off) of walker w,
+// by the 32 lanes of a warp: lane l sums terms l, l + 32, ..., then a
+// butterfly gives every lane the same bits. GRAD: also dS/dT into *dS (the
+// terms of band_flux<C, true>, its butterfly beside S's).
+template <typename C, bool GRAD>
+__device__ __forceinline__ C band_flux_warp(const EpochWarpData<C>& d, int off, int n,
+                                            const EpochWalker<C>& w, C* dS) {
+    C acc = C(0), dacc = C(0);
+    for (int k = off + (threadIdx.x & 31); k < off + n; k += 32) {
+        const C x = d.c1nu[k] * w.inv_T;
+        const C e = m_expm1(x);
+        const C pdi = e > C(0) ? C(1) / e : C(0);  // x <= 0 -> 0; Wien overflow 1/inf = 0
+        C lnu = w.c2R2 * d.nu3[k];
+        if (d.cut != nullptr) lnu = lnu * d.cut[k];
+        lnu = lnu * pdi;
+        acc += d.w[k] * lnu;
+        if constexpr (GRAD) if (lnu != C(0)) dacc += d.w[k] * (lnu * (C(1) + pdi) * (x * w.inv_T));
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+        acc += __shfl_xor_sync(0xffffffffu, acc, o);
+        if constexpr (GRAD) dacc += __shfl_xor_sync(0xffffffffu, dacc, o);
+    }
+    if constexpr (GRAD) *dS = dacc;
+    return acc;
+}
+
+// The float64 log-likelihood of walker w on epoch d (-inf when not
+// finite), by the 32 lanes of a warp together, every lane returning the
+// same bits: epoch_log_likelihood over band_flux_warp (the bands in order,
+// each band's terms split over the lanes). GRAD: its derivatives into g[3],
+// R the walker's radius.
+template <typename C, bool GRAD>
+__device__ __forceinline__ double epoch_log_likelihood_warp(const EpochWalker<C>& w,
+                                                            const EpochWarpData<C>& d,
+                                                            const EpochBBParams& P,
+                                                            C R = C(0), C* g = nullptr) {
+    const int K = (int)P.n_nodes;
+    auto flux = [&](int b, C* dS) {
+        return band_flux_warp<C, GRAD>(d, b * K, (int)d.n_native[b], w, dS);
+    };
+    return epoch_log_likelihood<C, GRAD>(d, P, R, w.sig, flux, g);
+}
+
+// The log-posterior of p[N] (N == P.ndim) on epoch d by a warp, with GRAD
+// its gradient into g[N], the state in registers: epoch_log_posterior's
+// value and rules over the warp's likelihood.
+template <typename C, int N, bool GRAD>
+__device__ __forceinline__ double epoch_log_posterior_warp(const double* p,
+                                                           const EpochWarpData<C>& d,
+                                                           const EpochBBParams& P, double* g) {
+    const EpochWalker<C> w = epoch_walker<C>(p[0], p[1], p[N - 1], P);
+    return epoch_posterior<C, GRAD, N>(p, P, g, [&](C* gl) {
+        return epoch_log_likelihood_warp<C, GRAD>(w, d, P, (C)p[1], gl);
+    });
+}
+
+// The model policy of stretch.cuh for the epoch blackbody in compute type C
+// and N parameters (2, or 3 with the intrinsic scatter): the warp form
+// (stretch_half_step_kernel), a walker a warp (not batched: every
+// lane forms the walker's proposal and constants), up to 16 walkers a block
+// and a block per epoch (blockIdx.y) at the bolometric path's 16 walkers a
+// half; N at compile time keeps the walker's state in registers.
+template <typename C, int N>
 struct EpochBBModel {
     typedef EpochBBParams Params;
-    typedef EpochBBData<C> Data;
+    typedef EpochWarpData<C> Data;
+    typedef EpochWalker<C> Walker;
+    static constexpr int ndim = N;
+    static constexpr int warps_per_block = 16;
+    static constexpr bool batched = false;
     static __host__ __device__ size_t stage_bytes(const Params& P) {
-        return epoch_stage_bytes<C>(P);
+        return epoch_warp_stage_bytes<C>(P);
     }
-    static __device__ Data stage(const Params& P, unsigned char* smem, int use_smem, int e) {
-        return stage_epoch<C>(P, smem, use_smem, e);
+    static __device__ Data stage(const Params& P, unsigned char* smem, int, int e) {
+        return stage_epoch_warp<C>(P, smem, e);
     }
-    static __device__ double log_posterior(const double* p, const Data& d, const Params& P) {
-        return epoch_log_posterior<C, false>(p, d, P, nullptr);
+    static __device__ Walker walker(const double* p, const Params& P) {
+        return epoch_walker<C>(p[0], p[1], p[N - 1], P);
+    }
+    static __device__ double log_likelihood_warp(const Walker& w, const Data& d,
+                                                 const Params& P) {
+        return epoch_log_likelihood_warp<C, false>(w, d, P);
     }
 };
+template <typename C>
+using EpochBBModel2 = EpochBBModel<C, 2>;
+template <typename C>
+using EpochBBModel3 = EpochBBModel<C, 3>;
+
+// --------------------------------------------------------------------- K4p
+
+#define POLISH_WARPS 8        // warps a block of K4p: a start a warp at the default 8 starts
+#define POLISH_MAX_STARTS 32  // starts an epoch: the block's result slots
+
+// K4p's arguments (mirror: kernels/epoch_bb.py _PolishParams). The bounds
+// bijection is BoundsTransform.kernel_spec's (parallel/hmc.py).
+struct PolishParams {
+    const double* u0;            // (E, S, ndim) the starts in the unbounded space
+    const double* sched;         // (n_iter, 3) a step's learning rate, 1 - b1^t, 1 - b2^t
+    double* centers;             // (E, ndim) the best start's parameters
+    unsigned char* alive;        // (E,) 1 where its log-posterior is finite
+    double* u_out;               // (E, S, ndim) each start's last iterate, or null
+    double* lp_out;              // (E, S) its log-posterior, or null
+    long long n_starts;
+    long long n_iter;
+    double b1;
+    double b2;
+    double one_minus_b1;
+    double one_minus_b2;
+    double eps;
+    long long kind[LP_MAX_DIM];  // 0 unbounded, 1 two-sided, 2 lower only, 3 upper only
+    double lo[LP_MAX_DIM];       // the lower bound (two-sided, lower only)
+    double hi[LP_MAX_DIM];       // the upper bound (upper only)
+    double width[LP_MAX_DIM];    // hi - lo (two-sided)
+};
+
+// x = the bounds bijection of u[N] (BoundsTransform.to_bounded, operation
+// for operation), and f[N], the factor its derivative is formed from: the
+// sigmoid s (two-sided), exp(u) (one-sided), else 1.
+template <int N>
+__device__ __forceinline__ void polish_bounded(const PolishParams& Q, const double* u, double* x,
+                                               double* f) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+        if (Q.kind[k] == 1) {
+            f[k] = 1.0 / (1.0 + exp(-u[k]));
+            x[k] = __dadd_rn(Q.lo[k], __dmul_rn(Q.width[k], f[k]));
+        } else if (Q.kind[k] == 2 || Q.kind[k] == 3) {
+            f[k] = exp(u[k]);
+            x[k] = Q.kind[k] == 2 ? __dadd_rn(Q.lo[k], f[k]) : __dsub_rn(Q.hi[k], f[k]);
+        } else {
+            f[k] = 1.0;
+            x[k] = u[k];
+        }
+    }
+}
+
+// K4p: the Adam polish of _map_centers (parallel/batched.py) for epoch
+// blockIdx.x, a start a warp (warp w takes starts w, w + warps, ...). Each
+// of n_iter steps: x = the bijection of u, the warp's value and gradient of
+// the epoch log-posterior at x, the chain rule into the gradient of -lp in u
+// (as autograd runs it through BoundsTransform.to_bounded; a non-finite
+// component 0), and one CosineAdam step with the host's scalars of the step
+// (optimize.py:CosineAdam.step, the same operations, none contracted). Then
+// each start's last log-posterior (-inf -> +inf in the minimized -lp), the
+// first start of the least -lp, its parameters and whether it is finite.
+template <typename C, int N>
+__global__ void __launch_bounds__(32 * POLISH_WARPS, 1)
+epoch_map_polish_kernel(const EpochBBParams P, const PolishParams Q) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    double* s_neg = reinterpret_cast<double*>(smem_raw);    // [POLISH_MAX_STARTS]
+    double* s_u = s_neg + POLISH_MAX_STARTS;                 // [POLISH_MAX_STARTS][N]
+    const int e = blockIdx.x;
+    const EpochWarpData<C> d = stage_epoch_warp<C>(
+        P, smem_raw + sizeof(double) * POLISH_MAX_STARTS * (N + 1), e);
+    const int S = (int)Q.n_starts;
+    const int lane = threadIdx.x & 31;
+    for (int s = threadIdx.x >> 5; s < S; s += blockDim.x >> 5) {
+        const size_t row = (size_t)e * S + s;
+        double u[N], m[N], v[N], x[N], f[N], g[N];
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+            u[k] = Q.u0[row * N + k];
+            m[k] = 0.0;
+            v[k] = 0.0;
+        }
+        for (int t = 0; t < (int)Q.n_iter; ++t) {
+            polish_bounded<N>(Q, u, x, f);
+            epoch_log_posterior_warp<C, N, true>(x, d, P, g);
+            const double lr = __ldg(Q.sched + 3 * t);
+            const double c1 = __ldg(Q.sched + 3 * t + 1);
+            const double c2 = __ldg(Q.sched + 3 * t + 2);
+#pragma unroll
+            for (int k = 0; k < N; ++k) {
+                const double gn = -g[k];   // d(-lp)/dx
+                double gu = gn;
+                if (Q.kind[k] == 1)
+                    gu = __dmul_rn(__dmul_rn(__dmul_rn(gn, Q.width[k]), __dsub_rn(1.0, f[k])),
+                                   f[k]);
+                else if (Q.kind[k] == 2)
+                    gu = __dmul_rn(gn, f[k]);
+                else if (Q.kind[k] == 3)
+                    gu = __dmul_rn(-gn, f[k]);
+                if (!isfinite(gu)) gu = 0.0;
+                m[k] = __dadd_rn(__dmul_rn(Q.one_minus_b1, gu), __dmul_rn(Q.b1, m[k]));
+                v[k] = __dadd_rn(__dmul_rn(Q.one_minus_b2, __dmul_rn(gu, gu)),
+                                 __dmul_rn(Q.b2, v[k]));
+                const double mh = __ddiv_rn(m[k], c1);
+                const double vh = __ddiv_rn(v[k], c2);
+                u[k] = __dadd_rn(u[k], __dmul_rn(-lr, __ddiv_rn(mh, __dadd_rn(__dsqrt_rn(vh),
+                                                                              Q.eps))));
+            }
+        }
+        polish_bounded<N>(Q, u, x, f);
+        const double lp = epoch_log_posterior_warp<C, N, false>(x, d, P, nullptr);
+        const double neg = -lp;
+        if (lane == 0) {
+            s_neg[s] = isfinite(neg) ? neg : INFINITY;
+#pragma unroll
+            for (int k = 0; k < N; ++k) s_u[s * N + k] = u[k];
+            if (Q.u_out != nullptr) {
+#pragma unroll
+                for (int k = 0; k < N; ++k) Q.u_out[row * N + k] = u[k];
+                Q.lp_out[row] = lp;
+            }
+        }
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        int best = 0;   // torch.argmin: the first of the least
+        for (int s = 1; s < S; ++s)
+            if (s_neg[s] < s_neg[best]) best = s;
+        double x[N], f[N];
+        polish_bounded<N>(Q, s_u + best * N, x, f);
+#pragma unroll
+        for (int k = 0; k < N; ++k) Q.centers[(size_t)e * N + k] = x[k];
+        Q.alive[e] = isfinite(s_neg[best]) ? 1 : 0;
+    }
+}
 
 // K4: out[e, m] = the log-posterior of epoch e at q[e, m, :]; with GRAD also
 // grad[e, m, :]. Block (blockIdx.x, e) holds M-chunk blockIdx.x of epoch e.
@@ -322,6 +658,20 @@ static int launch_epoch_logpost(const EpochBBParams& P, const void* q, int M, do
     return (int)cudaGetLastError();
 }
 
+template <typename C, int N>
+static int launch_polish(const EpochBBParams& P, const PolishParams& Q, cudaStream_t stream) {
+    auto kernel = epoch_map_polish_kernel<C, N>;
+    const size_t bytes = sizeof(double) * POLISH_MAX_STARTS * (N + 1)
+                         + epoch_warp_stage_bytes<C>(P);
+    int use_smem = 0;
+    int rc = smem_plan(kernel, bytes, &use_smem);
+    if (rc) return rc;
+    if (!use_smem) return (int)cudaErrorInvalidValue;  // tables larger than shared memory
+    const int warps = Q.n_starts < POLISH_WARPS ? (int)Q.n_starts : POLISH_WARPS;
+    kernel<<<(unsigned)P.n_epochs, 32 * warps, bytes, stream>>>(P, Q);
+    return (int)cudaGetLastError();
+}
+
 template <typename C, typename S>
 static int launch_summary(const SummaryParams& P, cudaStream_t stream) {
     auto kernel = epoch_summary_kernel<C, S>;
@@ -362,19 +712,52 @@ int epoch_logpost_launch(const EpochBBParams* P, int device, int compute_f64, co
     return (int)cudaErrorInvalidValue;
 }
 
-// Epoch half-step launch: the arguments of stretch_half_step_launch
-// (sc2_logpost.cu) over E = n_ens ensembles, x (E, 2, half, ndim), the draws
-// of ensemble e draw_stride elements after those of e - 1. Returns 0 or a
-// cudaError_t code.
+// Epoch half-step launch, a warp per walker (EpochBBModel, ndim 2 or 3):
+// the arguments of stretch_half_step_launch (sc2_logpost.cu) over E = n_ens
+// ensembles, x (E, 2, half, ndim), the draws of ensemble e draw_stride
+// elements after those of e - 1. Returns 0 or a cudaError_t code
+// (cudaErrorInvalidValue for tables larger than a block's shared memory).
 int epoch_half_step_launch(const EpochBBParams* P, int device, int compute_f64, void* x,
                            int state_f64, double* logp, int half, int h, const void* u_z,
                            const long long* j, const void* u_acc, double a, void* chain_x,
                            int chain_x_f64, void* chain_lp, int chain_lp_f64, int* n_accept,
                            int n_ens, long long draw_stride, void* stream) {
-    if (P->ndim < 2) return (int)cudaErrorInvalidValue;
-    return launch_half_step<EpochBBModel>(P, device, compute_f64, x, state_f64, logp, half, h,
-                                          u_z, j, u_acc, a, chain_x, chain_x_f64, chain_lp,
-                                          chain_lp_f64, n_accept, stream, n_ens, draw_stride);
+    int rc = (int)cudaSetDevice(device);
+    if (rc) return rc;
+    const size_t bytes = compute_f64 ? epoch_warp_stage_bytes<double>(*P)
+                                     : epoch_warp_stage_bytes<float>(*P);
+    if ((P->ndim != 2 && P->ndim != 3) || bytes > (size_t)smem_optin_limit())
+        return (int)cudaErrorInvalidValue;
+    if (P->ndim == 2)
+        return launch_half_step<EpochBBModel2>(P, device, compute_f64, x, state_f64, logp, half, h,
+                                               u_z, j, u_acc, a, chain_x, chain_x_f64, chain_lp,
+                                               chain_lp_f64, n_accept, stream, n_ens,
+                                               draw_stride);
+    return launch_half_step<EpochBBModel3>(P, device, compute_f64, x, state_f64, logp, half, h,
+                                           u_z, j, u_acc, a, chain_x, chain_x_f64, chain_lp,
+                                           chain_lp_f64, n_accept, stream, n_ens, draw_stride);
+}
+
+// K4p launch: a block per epoch, min(S, POLISH_WARPS) warps, the tables and
+// the result slots in shared memory; ndim 2 or 3, S <= POLISH_MAX_STARTS.
+// Returns 0 or a cudaError_t code.
+int epoch_map_polish_launch(const EpochBBParams* P, const PolishParams* Q, int device,
+                            int compute_f64, void* stream) {
+    int rc = (int)cudaSetDevice(device);
+    if (rc) return rc;
+    if (P->n_epochs <= 0) return 0;
+    if (P->n_epochs > 65535 || Q->n_starts < 1 || Q->n_starts > POLISH_MAX_STARTS
+        || Q->n_iter < 0 || (P->ndim != 2 && P->ndim != 3))
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    const int key = compute_f64 * 2 + (P->ndim == 3 ? 1 : 0);
+    switch (key) {
+        case 0: return launch_polish<float, 2>(*P, *Q, s);
+        case 1: return launch_polish<float, 3>(*P, *Q, s);
+        case 2: return launch_polish<double, 2>(*P, *Q, s);
+        case 3: return launch_polish<double, 3>(*P, *Q, s);
+    }
+    return (int)cudaErrorInvalidValue;
 }
 
 // K4s launch: out (E, 4, S) in the compute type. Returns 0 or a cudaError_t

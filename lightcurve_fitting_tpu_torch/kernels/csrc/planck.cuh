@@ -1,6 +1,8 @@
 // The blackbody band sum shared by the quadrature kernels: K3 and the
-// ShockCooling3 log-posterior and half-step (sc3_logpost.cu), and K4, its
-// half-step and K4s (epoch_bb.cu). One Planck term for all of them.
+// ShockCooling3 log-posterior and half-step (sc3_logpost.cu), and K4 and K4s
+// (epoch_bb.cu). One Planck term for all of them; the warp forms of
+// epoch_bb.cu (the epoch half-step, K4p) form the same term from staged
+// node factors (band_flux_warp).
 
 #pragma once
 

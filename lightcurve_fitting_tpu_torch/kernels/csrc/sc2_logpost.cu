@@ -563,7 +563,7 @@ struct SC2Model {
 };
 
 // The policy of K2 and of K6a over ShockCooling2: a warp per walker
-// (stretch_half_step_kernel and tempered_half_step_kernel with WARP), 32
+// (stretch_half_step_kernel, and tempered_half_step_kernel with WARP), 32
 // warps a block in float32 (the tables, 28.6 KB, staged once a block) and
 // 16 in float64 (57.2 KB, over the 48 KB default: smem_plan opts in, and
 // warp_layout's occupancy query sees it), batched: a warp takes its walkers
@@ -640,9 +640,9 @@ int stretch_half_step_launch(const SC2Params* P, int device, int compute_f64, vo
                              const long long* j, const void* u_acc, double a, void* chain_x,
                              int chain_x_f64, void* chain_lp, int chain_lp_f64,
                              int* n_accept, void* stream) {
-    return launch_half_step<SC2WarpModel, true>(P, device, compute_f64, x, state_f64, logp, half,
-                                                h, u_z, j, u_acc, a, chain_x, chain_x_f64,
-                                                chain_lp, chain_lp_f64, n_accept, stream);
+    return launch_half_step<SC2WarpModel>(P, device, compute_f64, x, state_f64, logp, half, h,
+                                          u_z, j, u_acc, a, chain_x, chain_x_f64, chain_lp,
+                                          chain_lp_f64, n_accept, stream);
 }
 
 // K6a launch over ShockCooling2 (ladder.cuh), a warp per walker

@@ -332,16 +332,13 @@ struct SC3Model {
     static __device__ Data stage(const Params& P, unsigned char* smem, int use_smem, int) {
         return stage_sc3<C>(P, smem, use_smem, false);
     }
-    static __device__ double log_posterior(const double* p, const Data& d, const Params& P) {
-        return sc3_log_posterior<C>(p, d, P);
-    }
     static __device__ double log_likelihood(const double* p, const Data& d, const Params& P) {
         return sc3_log_likelihood<C>(p, d, P);
     }
 };
 
-// The SC3 half-step's policy: the warp form (stretch_half_step_kernel with
-// WARP), its data with the point order; four warps a block, a walker a warp
+// The SC3 half-step's policy: the warp form (stretch_half_step_kernel), its
+// data with the point order; four warps a block, a walker a warp
 // (not batched: every lane forms the walker's proposal and factors), a block
 // for every four walkers.
 template <typename C>
@@ -445,9 +442,9 @@ int sc3_half_step_launch(const SC3Params* P, int device, int compute_f64, void* 
                          const long long* j, const void* u_acc, double a, void* chain_x,
                          int chain_x_f64, void* chain_lp, int chain_lp_f64, int* n_accept,
                          void* stream) {
-    return launch_half_step<SC3WarpModel, true>(P, device, compute_f64, x, state_f64, logp, half,
-                                                h, u_z, j, u_acc, a, chain_x, chain_x_f64,
-                                                chain_lp, chain_lp_f64, n_accept, stream);
+    return launch_half_step<SC3WarpModel>(P, device, compute_f64, x, state_f64, logp, half, h,
+                                          u_z, j, u_acc, a, chain_x, chain_x_f64, chain_lp,
+                                          chain_lp_f64, n_accept, stream);
 }
 
 // K6a launch over ShockCooling3 (ladder.cuh). Returns 0 or a cudaError_t code.

@@ -9,15 +9,13 @@
 //   static size_t stage_bytes(const Params&);             // host and device
 //   static __device__ Data stage(const Params&, unsigned char* smem, int use_smem, int e);
 // where e is the ensemble (epoch) of the block: always 0 for a single
-// ensemble, whose data do not depend on it. A policy whose half-step runs a
-// thread per walker (the epoch half-step) also provides
-//   static __device__ double log_posterior(const double* p, const Data&, const Params&);
-// A policy whose model runs on the tempered ladder (ladder.cuh) provides
+// ensemble, whose data do not depend on it. A policy whose model runs on
+// the tempered ladder (ladder.cuh) provides
 //   static __device__ double log_likelihood(const double* p, const Data&, const Params&);
 // the float64 log-likelihood alone (-inf when not finite), evaluated whatever
 // the prior (a log_posterior is log_prior plus that value). A policy whose
-// half-step runs a warp per walker (stretch_half_step_kernel with WARP:
-// SC2WarpModel, SC3WarpModel, CSWarpModel; tempered_half_step_kernel with
+// half-step runs a warp per walker (stretch_half_step_kernel: SC2WarpModel,
+// SC3WarpModel, CSWarpModel, EpochBBModel; tempered_half_step_kernel with
 // WARP: SC2WarpModel, CSWarpModel) provides
 //   typedef ... Walker;  // a walker's constants (32-bit words, copied by value)
 //   static __device__ Walker walker(const double* p, const Params&);
@@ -25,7 +23,9 @@
 //   static constexpr int warps_per_block;  // the warps a block
 //   static constexpr bool batched;         // warps take batches of walkers (warp_batch_ll)
 // where log_likelihood_warp is computed by the 32 lanes of a warp together,
-// every lane returning the same bits.
+// every lane returning the same bits, and may provide
+//   static constexpr int ndim;  // the walker's dimension at compile time (policy_dim)
+// which keeps the walker's state in registers.
 // Every Params has the fields ndim, use_sigma, has_affine, prior_kind,
 // p_min, p_max, mean, stddev, affine_offset and affine_scale.
 
@@ -86,6 +86,17 @@ struct block_limit<M, std::void_t<decltype(M::warps_per_block)>> {
     static constexpr int value = 32 * M::warps_per_block;
 };
 
+// The walker dimension of a policy M known at compile time: M::ndim where
+// the policy has one (EpochBBModel), else 0 (P.ndim at run time).
+template <typename M, typename = void>
+struct policy_dim {
+    static constexpr int value = 0;
+};
+template <typename M>
+struct policy_dim<M, std::void_t<decltype(M::ndim)>> {
+    static constexpr int value = M::ndim;
+};
+
 // Lane src's copy of the register struct v, to every lane of the warp, one
 // 32-bit word at a time (the bits unchanged).
 template <typename T>
@@ -116,11 +127,12 @@ __device__ __forceinline__ double to_absolute(const Params& P, int k, S q) {
 }
 
 // Sum of the prior log-densities at absolute parameters p[ndim]: -inf
-// outside the open bounds (NaN included).
-template <typename Params>
+// outside the open bounds (NaN included). D: ndim when it is known at compile
+// time (then p may live in registers), else 0.
+template <int D = 0, typename Params>
 __device__ __forceinline__ double log_prior(const Params& P, const double* p) {
     double sum = 0.0;
-    for (int i = 0; i < (int)P.ndim; ++i) {
+    for (int i = 0; i < (D > 0 ? D : (int)P.ndim); ++i) {
         const double v = p[i];
         if (!(v > P.p_min[i] && v < P.p_max[i])) return -INFINITY;  // also NaN
         double l;
@@ -169,13 +181,13 @@ __device__ __forceinline__ double finish_log_likelihood(C acc, bool use_sigma, d
 // and the uniform u: z = ((a - 1) u + 1)^2 / a, y = xj + z (xm - xj) in the
 // state type with round-to-nearest intrinsics (no contraction, so it equals
 // the plain PyTorch proposal bit for bit), p the absolute float64 parameters
-// of y. Returns z.
-template <typename Params, typename S>
+// of y. Returns z. D as in log_prior.
+template <int D = 0, typename Params, typename S>
 __device__ __forceinline__ S stretch_proposal(const Params& P, const S* xm, const S* xj, S u,
                                               double a, S* y, double* p) {
     const S zw = add_rn(mul_rn((S)(a - 1.0), u), S(1));
     const S z = div_rn(mul_rn(zw, zw), (S)a);
-    for (int k = 0; k < (int)P.ndim; ++k) {
+    for (int k = 0; k < (D > 0 ? D : (int)P.ndim); ++k) {
         y[k] = add_rn(xj[k], mul_rn(z, sub_rn(xm[k], xj[k])));
         p[k] = to_absolute(P, k, y[k]);
     }
@@ -209,12 +221,13 @@ __device__ __forceinline__ double warp_batch_ll(const typename M::Walker& wk, do
 
 // The end of one walker's Goodman-Weare half-step, from its proposal y
 // (log-posterior lp_y, stretch z): the accept decision and its writes
-// (offsets of stretch_half_step_kernel).
-template <typename S, typename X, typename L>
-__device__ __forceinline__ void half_step_accept(int ndim, S* xm, const S* y, S z, double lp_y,
+// (offsets of stretch_half_step_kernel). D: ndim at compile time, or 0.
+template <int D = 0, typename S, typename X, typename L>
+__device__ __forceinline__ void half_step_accept(int n, S* xm, const S* y, S z, double lp_y,
                                                  double* logp, const S* u_acc, size_t w,
                                                  size_t di, X* chain_x, L* chain_lp,
                                                  int* n_accept) {
+    const int ndim = D > 0 ? D : n;
     if (isnan(lp_y)) lp_y = -INFINITY;
     const double lp_x = logp[w];
     const S lz = (S)(ndim - 1) * m_log(z);
@@ -235,35 +248,12 @@ __device__ __forceinline__ void half_step_accept(int ndim, S* xm, const S* y, S 
     }
 }
 
-// One walker's Goodman-Weare half-step, a thread: walker i of half h of
-// ensemble e.
-template <typename M, typename S, typename X, typename L>
-__device__ __forceinline__ void half_step_walker(const typename M::Params& P,
-                                                 const typename M::Data& d, S* x, double* logp,
-                                                 int half, int h, const S* u_z,
-                                                 const long long* j, const S* u_acc, double a,
-                                                 X* chain_x, L* chain_lp, int* n_accept,
-                                                 long long draw_stride, int e, int i) {
-    const int ndim = (int)P.ndim;
-    const size_t ens = (size_t)e * 2 * half;      // walkers of the ensembles before e
-    const size_t di = (size_t)e * draw_stride + i;
-    const size_t w = ens + (size_t)h * half + i;
-    S* xm = x + w * ndim;
-    const S* xj = x + (ens + (size_t)(1 - h) * half + (size_t)j[di]) * ndim;
-
-    // z ~ g(z) on [1/a, a]
-    S y[LP_MAX_DIM];
-    double p[LP_MAX_DIM];
-    const S z = stretch_proposal(P, xm, xj, u_z[di], a, y, p);
-    half_step_accept(ndim, xm, y, z, M::log_posterior(p, d, P), logp, u_acc, w, di, chain_x,
-                     chain_lp, n_accept);
-}
-
 // The half-steps of walkers b0 .. b0 + nb - 1 of half h of ensemble e, a
 // warp per walker: lane l forms walker b0 + l's proposal, log-prior and
 // constants (with nb = 1 every lane forms walker b0's, on the same bits),
 // warp_batch_ll gives each its log-likelihood, and lane l decides and
-// writes for its walker (lane 0 with nb = 1).
+// writes for its walker (lane 0 with nb = 1). A policy with a compile-time
+// dimension (policy_dim) keeps the walker's state in registers.
 template <typename M, typename S, typename X, typename L>
 __device__ __forceinline__ void half_step_batch(const typename M::Params& P,
                                                 const typename M::Data& d, S* x, double* logp,
@@ -274,25 +264,26 @@ __device__ __forceinline__ void half_step_batch(const typename M::Params& P,
     const int lane = threadIdx.x & 31;
     const bool own = nb == 1 || lane < nb;
     const int i = b0 + (nb == 1 ? 0 : lane);
-    const int ndim = (int)P.ndim;
+    constexpr int D = policy_dim<M>::value;
+    const int ndim = D > 0 ? D : (int)P.ndim;
     const size_t ens = (size_t)e * 2 * half;
     const size_t di = (size_t)e * draw_stride + i;
     const size_t w = ens + (size_t)h * half + i;
-    S y[LP_MAX_DIM];
+    S y[D > 0 ? D : LP_MAX_DIM];
     S z = S(1);
     double lprior = -INFINITY;
     typename M::Walker wk;
     if (own) {
         const S* xj = x + (ens + (size_t)(1 - h) * half + (size_t)j[di]) * ndim;
-        double p[LP_MAX_DIM];
-        z = stretch_proposal(P, x + w * ndim, xj, u_z[di], a, y, p);
-        lprior = log_prior(P, p);
+        double p[D > 0 ? D : LP_MAX_DIM];
+        z = stretch_proposal<D>(P, x + w * ndim, xj, u_z[di], a, y, p);
+        lprior = log_prior<D>(P, p);
         if (isfinite(lprior)) wk = M::walker(p, P);
     }
     const double ll = warp_batch_ll<M>(wk, lprior, nb, d, P);
     if (lane >= nb) return;
-    half_step_accept(ndim, x + w * ndim, y, z, isfinite(lprior) ? lprior + ll : -INFINITY, logp,
-                     u_acc, w, di, chain_x, chain_lp, n_accept);
+    half_step_accept<D>(ndim, x + w * ndim, y, z, isfinite(lprior) ? lprior + ll : -INFINITY,
+                        logp, u_acc, w, di, chain_x, chain_lp, n_accept);
 }
 
 // The launch of a warp-per-walker kernel (warp_layout): threads a block,
@@ -311,12 +302,11 @@ struct WarpLayout {
 // x, logp, n_accept and the chain slot are (E, 2, half[, ndim]) and the
 // draws of ensemble e start draw_stride elements after those of e - 1. With
 // one ensemble (e = 0) every offset below is 0.
-// WARP: a warp per walker (half_step_batch) for a policy whose
+// A warp per walker (half_step_batch) for a policy whose
 // log_likelihood_warp the 32 lanes compute together (SC2WarpModel for K2,
-// SC3WarpModel, CSWarpModel), the block's warps striding over batches of
-// `batch` walkers of the ensemble (warp_layout). Otherwise one thread per
-// walker and M::log_posterior (the epoch half-step).
-template <typename M, typename S, typename X, typename L, bool WARP>
+// SC3WarpModel, CSWarpModel, EpochBBModel), the block's warps striding over
+// batches of `batch` walkers of the ensemble (warp_layout).
+template <typename M, typename S, typename X, typename L>
 __global__ void __launch_bounds__(block_limit<M>::value)
 stretch_half_step_kernel(const typename M::Params P, S* __restrict__ x,
                          double* __restrict__ logp, int half, int h,
@@ -327,22 +317,15 @@ stretch_half_step_kernel(const typename M::Params P, S* __restrict__ x,
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int e = blockIdx.y;
     const typename M::Data d = M::stage(P, smem_raw, use_smem, e);
-    if constexpr (WARP) {
-        const int per_block = blockDim.x >> 5;
-        const int bsz = M::batched ? batch : 1;   // (a constant 1 when not batched)
-        const int n_batches = (half + bsz - 1) / bsz;
-        for (int b = blockIdx.x * per_block + (threadIdx.x >> 5); b < n_batches;
-             b += gridDim.x * per_block) {   // (whole warps)
-            const int b0 = b * bsz;
-            half_step_batch<M, S, X, L>(P, d, x, logp, half, h, u_z, j, u_acc, a, chain_x,
-                                        chain_lp, n_accept, draw_stride, e, b0,
-                                        M::batched && half - b0 < bsz ? half - b0 : bsz);
-        }
-    } else {
-        const int i = blockIdx.x * blockDim.x + threadIdx.x;
-        if (i >= half) return;
-        half_step_walker<M, S, X, L>(P, d, x, logp, half, h, u_z, j, u_acc, a, chain_x,
-                                     chain_lp, n_accept, draw_stride, e, i);
+    const int per_block = blockDim.x >> 5;
+    const int bsz = M::batched ? batch : 1;   // (a constant 1 when not batched)
+    const int n_batches = (half + bsz - 1) / bsz;
+    for (int b = blockIdx.x * per_block + (threadIdx.x >> 5); b < n_batches;
+         b += gridDim.x * per_block) {   // (whole warps)
+        const int b0 = b * bsz;
+        half_step_batch<M, S, X, L>(P, d, x, logp, half, h, u_z, j, u_acc, a, chain_x, chain_lp,
+                                    n_accept, draw_stride, e, b0,
+                                    M::batched && half - b0 < bsz ? half - b0 : bsz);
     }
 }
 
@@ -447,20 +430,17 @@ static WarpLayout warp_layout(Kernel kernel, long long n, size_t smem) {
     return L;
 }
 
-template <typename M, typename S, typename X, typename L, bool WARP>
+template <typename M, typename S, typename X, typename L>
 static int launch_half(const typename M::Params& P, void* x, double* logp, int half, int h,
                        const void* u_z, const long long* j, const void* u_acc, double a,
                        void* chain_x, void* chain_lp, int* n_accept, int n_ens,
                        long long draw_stride, cudaStream_t stream) {
-    auto kernel = stretch_half_step_kernel<M, S, X, L, WARP>;
+    auto kernel = stretch_half_step_kernel<M, S, X, L>;
     int use_smem = 0;
     size_t bytes = M::stage_bytes(P);
     int rc = smem_plan(kernel, bytes, &use_smem);
     if (rc) return rc;
-    // a thread per walker, or WarpLayout's warps with WARP
-    WarpLayout lay = {threads_for(half), 0, 1};
-    lay.blocks = (half + lay.threads - 1) / lay.threads;
-    if constexpr (WARP) lay = warp_layout<M>(kernel, half, use_smem ? bytes : 0);
+    const WarpLayout lay = warp_layout<M>(kernel, half, use_smem ? bytes : 0);
     const dim3 grid(lay.blocks, n_ens);
     kernel<<<grid, lay.threads, use_smem ? bytes : 0, stream>>>(
         P, (S*)x, logp, half, h, (const S*)u_z, j, (const S*)u_acc, a, (X*)chain_x,
@@ -471,9 +451,8 @@ static int launch_half(const typename M::Params& P, void* x, double* logp, int h
 // The half-step launch for the model policy M<C> of the run's dtypes: the
 // compute type C, the walker state S, the chain's state X and log-posterior
 // L, each float or double; n_ens ensembles (draw_stride apart in the draws),
-// 1 and 0 for a single one; WARP as in stretch_half_step_kernel. Returns 0
-// or a cudaError_t code.
-template <template <typename> class M, bool WARP = false>
+// 1 and 0 for a single one. Returns 0 or a cudaError_t code.
+template <template <typename> class M>
 static int launch_half_step(const typename M<float>::Params* P, int device, int compute_f64,
                             void* x, int state_f64, double* logp, int half, int h,
                             const void* u_z, const long long* j, const void* u_acc, double a,
@@ -488,8 +467,8 @@ static int launch_half_step(const typename M<float>::Params* P, int device, int 
     const int key = compute_f64 * 8 + state_f64 * 4 + chain_x_f64 * 2 + chain_lp_f64;
 #define LP_HALF_CASE(K, C, S, X, L)                                                      \
     case K:                                                                              \
-        return launch_half<M<C>, S, X, L, WARP>(*P, x, logp, half, h, u_z, j, u_acc, a,       \
-                                                chain_x, chain_lp, n_accept, n_ens, draw_stride, s);
+        return launch_half<M<C>, S, X, L>(*P, x, logp, half, h, u_z, j, u_acc, a, chain_x,  \
+                                          chain_lp, n_accept, n_ens, draw_stride, s);
     switch (key) {
         LP_HALF_CASE(0, float, float, float, float)
         LP_HALF_CASE(1, float, float, float, double)

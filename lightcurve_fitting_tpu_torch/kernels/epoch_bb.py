@@ -5,31 +5,37 @@ batched bolometric path.
   blackbody log-posterior of (E, M) parameter vectors, optionally with its
   analytic gradient; plain version ``EpochPosterior.plain``
   (``parallel/batched.py``). :class:`EpochLogPosterior` is the autograd
-  form the MAP polish differentiates through.
+  form the plain MAP polish differentiates through.
+* :func:`map_polish` (K4p, ``epoch_map_polish_kernel``): the Adam polish of
+  the MAP centering, every epoch's starts for all its steps in one launch;
+  plain version :func:`map_polish_plain`.
 * :func:`stretch_half_step` (``stretch_half_step_kernel`` over
-  ``EpochBBModel``): one stretch-move half-step of E ensembles at once, in
-  place; plain version :func:`stretch_half_step_plain`.
+  ``EpochBBModel``, a warp per walker): one stretch-move half-step of E
+  ensembles at once, in place; plain version :func:`stretch_half_step_plain`.
 * :func:`summary_samples` (K4s, ``epoch_summary_kernel``): the (E, 4, S)
   posterior-summary rows T, R, (R T^2)^2 and the pseudobolometric
   trapezoid; plain version :func:`summary_samples_plain`.
 
 Every wrapper runs its plain version for a CPU tensor; for a CUDA tensor it
 launches its kernel or raises: there is no fallback. Each launch adds one
-to ``LAUNCHES[name]`` (K4 with the gradient under ``epoch_logpost_grad``),
-and nothing else does.
+to ``LAUNCHES[name]`` (K4 with the gradient under ``epoch_logpost_grad``,
+K4p under ``epoch_map_polish``), and nothing else does.
 """
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .common import (LAUNCHES, MAX_DIM, FLOATS, check, cuda_args, fill_priors_and_affine,
                      half_update)
 
-__all__ = ["log_posterior", "EpochLogPosterior", "stretch_half_step",
-           "stretch_half_step_plain", "summary_samples", "summary_samples_plain"]
+__all__ = ["log_posterior", "EpochLogPosterior", "adam_table", "map_polish", "map_polish_plain",
+           "stretch_half_step", "stretch_half_step_plain", "summary_samples",
+           "summary_samples_plain"]
 
 SUMMARY_STEP_CHUNK = 8   # steps per plain summary chunk: the (E, nw, F) cube stays small
+POLISH_MAX_STARTS = 32   # POLISH_MAX_STARTS of csrc/epoch_bb.cu: K4p's result slots a block
 
 
 class _EpochBBParams(ctypes.Structure):
@@ -46,6 +52,17 @@ class _EpochBBParams(ctypes.Structure):
                    ("p_min", "p_max", "mean", "stddev", "affine_offset", "affine_scale")])
 
 
+class _PolishParams(ctypes.Structure):
+    """ctypes mirror of ``struct PolishParams`` (csrc/epoch_bb.cu)."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in
+                 ("u0", "sched", "centers", "alive", "u_out", "lp_out")]
+                + [(n, ctypes.c_longlong) for n in ("n_starts", "n_iter")]
+                + [(n, ctypes.c_double) for n in ("b1", "b2", "one_minus_b1", "one_minus_b2",
+                                                  "eps")]
+                + [("kind", ctypes.c_longlong * MAX_DIM)]
+                + [(n, ctypes.c_double * MAX_DIM) for n in ("lo", "hi", "width")])
+
+
 class _SummaryParams(ctypes.Structure):
     """ctypes mirror of ``struct SummaryParams`` (csrc/epoch_bb.cu)."""
     _fields_ = ([(n, ctypes.c_void_p) for n in ("chain", "nu", "w", "out")]
@@ -60,7 +77,6 @@ _BUFFERS = ("y", "inv_dy", "dy", "sigma_units", "nodes", "weights", "inv_yscale"
 
 
 def _cutoff(P, cutoff_freq):
-    import numpy as np
     from ..core.constants import c1, c2
     P.has_cutoff = int(np.isfinite(cutoff_freq))
     P.cutoff = float(cutoff_freq) if P.has_cutoff else 0.0
@@ -156,6 +172,102 @@ class EpochLogPosterior(torch.autograd.Function):
         return g[..., None] * grad, None
 
 
+# ----------------------------------------------------------------------- K4p
+
+def adam_table(n_iter, lr, alpha):
+    """The host scalars of ``n_iter`` steps of ``CosineAdam(lr, n_iter,
+    alpha)`` (``CosineAdam.scalars``): (n_iter, 3) float64 rows of the
+    learning rate, 1 - b1^(t + 1) and 1 - b2^(t + 1), which K4p reads in
+    place of the device's cos and pow."""
+    from ..parallel.optimize import CosineAdam
+    opt = CosineAdam(torch.zeros(0), lr=lr, n_iter=n_iter, alpha=alpha)
+    return np.array([opt.scalars(t) for t in range(n_iter)], dtype=np.float64).reshape(-1, 3)
+
+
+_ADAM_TABLES = {}
+
+
+def _adam_table_on(device, n_iter, lr, alpha):
+    key = (str(device), n_iter, float(lr), float(alpha))
+    if key not in _ADAM_TABLES:
+        _ADAM_TABLES[key] = torch.as_tensor(adam_table(n_iter, lr, alpha), device=device)
+    return _ADAM_TABLES[key]
+
+
+def map_polish_plain(ep, u0, bounds, n_iter=300, lr=0.05, alpha=0.01, return_starts=False):
+    """Plain PyTorch K4p: ``n_iter`` CosineAdam steps of every start ``u0``
+    (E, S, ndim) float64 in the unbounded space of BoundsTransform
+    ``bounds`` down -log p(to_bounded(u)), gradients by autograd
+    through ``ep.differentiable`` (K4's gradient on CUDA), non-finite
+    components zeroed; then each epoch's start of the least final -log p
+    (non-finite: +inf; the first of equals). Returns (centers (E, ndim)
+    float64, alive (E,) bool: that start's log-posterior is finite), and
+    with ``return_starts`` also the last iterates (E, S, ndim) and their
+    log-posteriors (E, S)."""
+    from ..parallel.optimize import CosineAdam
+    u = u0
+    opt = CosineAdam(u, lr=lr, n_iter=n_iter, alpha=alpha)
+    for _ in range(n_iter):
+        u_g = u.detach().requires_grad_(True)
+        neg = -ep.differentiable(bounds.to_bounded(u_g))
+        g, = torch.autograd.grad(neg.sum(), u_g)
+        g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+        u = opt.step(u, g)
+    lp = ep(bounds.to_bounded(u))
+    neg_fin = -lp
+    neg_fin = torch.where(torch.isfinite(neg_fin), neg_fin, torch.full_like(neg_fin, torch.inf))
+    best = torch.argmin(neg_fin, dim=1)
+    rows = torch.arange(u.shape[0], device=u.device)
+    out = bounds.to_bounded(u[rows, best]), torch.isfinite(neg_fin[rows, best])
+    return out + (u, lp) if return_starts else out
+
+
+def map_polish(ep, u0, bounds, n_iter=300, lr=0.05, alpha=0.01, return_starts=False):
+    """K4p: the Adam polish of EpochPosterior ``ep``'s starts ``u0`` (E, S,
+    ndim) float64, S <= 32, ndim 2 or 3, in one launch (arguments and
+    result: :func:`map_polish_plain`). A CPU tensor takes the plain
+    version."""
+    if u0.device.type == "cpu":
+        return map_polish_plain(ep, u0, bounds, n_iter, lr, alpha, return_starts)
+    if u0.ndim != 3 or u0.shape[0] != ep.n_epochs:
+        raise ValueError(f"u0 must be (E={ep.n_epochs}, n_starts, ndim), got {tuple(u0.shape)}")
+    E, S, ndim = u0.shape
+    if not 1 <= S <= POLISH_MAX_STARTS:
+        raise ValueError(f"the polish kernel takes 1 to {POLISH_MAX_STARTS} starts an epoch, "
+                         f"got {S}")
+    if ndim not in (2, 3) or ndim != len(ep.priors) or len(bounds.lower) != ndim:
+        raise ValueError(f"the polish kernel takes 2 or 3 parameters, as many as the priors "
+                         f"and the bounds; got {ndim}")
+    _require_cuda(u0, "MAP polish")
+    dev = u0.device
+    check(u0, "u0", (E, S, ndim), (torch.float64,), dev)
+    P = _params(ep)
+    centers = torch.empty((E, ndim), dtype=torch.float64, device=dev)
+    alive = torch.empty(E, dtype=torch.bool, device=dev)
+    u_out = torch.empty_like(u0) if return_starts else None
+    lp_out = torch.empty((E, S), dtype=torch.float64, device=dev) if return_starts else None
+    sched = _adam_table_on(dev, n_iter, lr, alpha)
+    from ..parallel.optimize import B1, B2, EPS
+    Q = _PolishParams()
+    Q.u0, Q.sched, Q.centers, Q.alive = (u0.data_ptr(), sched.data_ptr(), centers.data_ptr(),
+                                         alive.data_ptr())
+    Q.u_out = None if u_out is None else u_out.data_ptr()
+    Q.lp_out = None if lp_out is None else lp_out.data_ptr()
+    Q.n_starts, Q.n_iter = S, n_iter
+    Q.b1, Q.b2, Q.one_minus_b1, Q.one_minus_b2, Q.eps = B1, B2, 1 - B1, 1 - B2, EPS
+    for i, (kind, lo, hi, width) in enumerate(bounds.kernel_spec()):
+        Q.kind[i], Q.lo[i], Q.hi[i], Q.width[i] = kind, lo, hi, width
+    from .build import library
+    lib = library()
+    device_index, stream = cuda_args(dev)
+    rc = lib.epoch_map_polish_launch(ctypes.addressof(P), ctypes.addressof(Q), device_index,
+                                     int(ep.compute_dtype == torch.float64), stream)
+    if rc != 0:
+        raise RuntimeError(f"epoch_map_polish_kernel launch failed: cudaError {rc}")
+    LAUNCHES["epoch_map_polish"] += 1
+    return (centers, alive, u_out, lp_out) if return_starts else (centers, alive)
+
+
 # ----------------------------------------------------------- epoch half-step
 
 def stretch_half_step_plain(log_prob, x, logp, h, u_z, j, u_acc, a=2.0, chain_x=None,
@@ -205,8 +317,9 @@ def stretch_half_step(ep, x, logp, h, u_z, j, u_acc, a=2.0, chain_x=None, chain_
     if chain_x is not None:
         check(chain_x, "chain_x", (E, 2, half, ndim), FLOATS, dev)
         check(chain_logp, "chain_logp", (E, 2, half), FLOATS, dev)
-    if ndim != len(ep.priors):
-        raise ValueError(f"x has {ndim} parameters for {len(ep.priors)} priors")
+    if ndim != len(ep.priors) or ndim not in (2, 3):
+        raise ValueError(f"the epoch half-step kernel takes 2 or 3 parameters, as many as the "
+                         f"priors; x has {ndim} for {len(ep.priors)} priors")
     P = _params(ep)
     from .build import library
     lib = library()

@@ -17,7 +17,8 @@ the same recurrence).
 Static per fit: redshift and cutoff frequency are baked into the table.
 Extinction is NOT: the table carries no E(B-V) input, so any model with
 extinction in-graph must keep the full quadrature path
-(``use_band_table = False``, ROADMAP Queue 1 item 8).
+(``use_band_table = False``: ShockCooling3's quadrature, K3 and
+``kernels/csrc/sc3_logpost.cu`` on CUDA).
 """
 
 import numpy as np

@@ -8,7 +8,8 @@ half-step kernel launch moves every epoch's half-ensemble
 epochs in the compute dtype and evaluates the per-epoch log-posterior:
 through K4 on CUDA, through its plain version :meth:`EpochPosterior.plain`
 on the CPU. :func:`batched_map_centers` scores a log-uniform cloud and
-polishes the best starts with Adam through K4's gradient;
+polishes the best starts with Adam, every epoch's whole polish in one
+launch (K4p);
 :func:`batched_blackbody_mcmc` samples and, with ``summaries``, reduces each
 epoch's chain to its percentiles on the device (K4s, then K5).
 
@@ -27,7 +28,6 @@ from ..models.blackbody import planck_lnu
 from ..ops.filterbank import native_lengths
 from ..ops.quantile import percentile_f32
 from .hmc import BoundsTransform
-from .optimize import CosineAdam
 from .sampler import _step_seed
 
 __all__ = ["pack_epochs", "EpochPosterior", "batched_blackbody_mcmc", "batched_map_centers"]
@@ -356,13 +356,12 @@ def _candidate_box(priors):
     return bounds, np.log(lo), np.log(up)
 
 
-def _map_centers(ep, cloud_u, n_starts=8, n_iter=300):
-    """The two centering stages from given cloud uniforms ``cloud_u``
-    (E, n_cloud, ndim) float64 in [0, 1): score the log-uniform cloud, take
-    the ``n_starts`` best of each epoch (ties to the lower index, as
-    ``lax.top_k``), polish them with Adam in the unbounded space and keep
-    each epoch's best. Returns (centers (E, ndim) float64, alive (E,) bool)
-    on the device."""
+def _polish_starts(ep, cloud_u, n_starts=8):
+    """The centering's first stage from given cloud uniforms ``cloud_u``
+    (E, n_cloud, ndim) float64 in [0, 1): score the log-uniform cloud (K4)
+    and take the ``n_starts`` best of each epoch (ties to the lower index,
+    as ``lax.top_k``). Returns (the priors' BoundsTransform, the starts
+    (E, n_starts, ndim) float64 in its unbounded space)."""
     bounds, log_lo, log_up = _candidate_box(ep.priors)
     dev = cloud_u.device
     cloud = torch.exp(cloud_u * torch.as_tensor(log_up - log_lo, device=dev)
@@ -371,19 +370,16 @@ def _map_centers(ep, cloud_u, n_starts=8, n_iter=300):
     scores = torch.where(torch.isfinite(scores), scores, torch.full_like(scores, -torch.inf))
     top = torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :n_starts]
     starts = torch.gather(cloud, 1, top[..., None].expand(-1, -1, cloud.shape[-1]))
-    u = bounds.to_unbounded(starts)
-    opt = CosineAdam(u, lr=0.05, n_iter=n_iter, alpha=0.01)
-    for _ in range(n_iter):
-        u_g = u.detach().requires_grad_(True)
-        neg = -ep.differentiable(bounds.to_bounded(u_g))
-        g, = torch.autograd.grad(neg.sum(), u_g)
-        g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
-        u = opt.step(u, g)
-    neg_fin = -ep(bounds.to_bounded(u))
-    neg_fin = torch.where(torch.isfinite(neg_fin), neg_fin, torch.full_like(neg_fin, torch.inf))
-    best = torch.argmin(neg_fin, dim=1)
-    rows = torch.arange(u.shape[0], device=dev)
-    return bounds.to_bounded(u[rows, best]), torch.isfinite(neg_fin[rows, best])
+    return bounds, bounds.to_unbounded(starts).contiguous()
+
+
+def _map_centers(ep, cloud_u, n_starts=8, n_iter=300):
+    """The two centering stages from given cloud uniforms ``cloud_u``:
+    :func:`_polish_starts`, then Adam from each start in the unbounded
+    space, keeping each epoch's best (K4p: one launch on CUDA). Returns
+    (centers (E, ndim) float64, alive (E,) bool) on the device."""
+    bounds, u = _polish_starts(ep, cloud_u, n_starts)
+    return epoch_bb.map_polish(ep, u, bounds, n_iter, lr=0.05, alpha=0.01)
 
 
 def batched_map_centers(packed, priors, cutoff_freq=np.inf, use_sigma=False,
@@ -399,7 +395,9 @@ def batched_map_centers(packed, priors, cutoff_freq=np.inf, use_sigma=False,
        curved Rayleigh-Jeans valley that traps Adam.
     2. **Adam polish**: ``n_starts`` ascents of the bounds-bijected
        posterior, ``n_iter`` steps of Adam under a cosine-decayed rate
-       (0.05, alpha 0.01), the gradient from K4; then the best start.
+       (0.05, alpha 0.01); then the best start. On CUDA one K4p launch runs
+       every epoch's polish (``kernels.epoch_bb.map_polish``); ``n_starts``
+       is at most 32 there.
 
     Epochs where every start ends non-finite fall back to ``fallback``
     (default: T=10 kK, R=10 kR_sun, sigma=1). ``mesh`` other than None/False

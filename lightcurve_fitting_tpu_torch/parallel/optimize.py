@@ -57,14 +57,20 @@ class CosineAdam:
         self.nu = torch.zeros_like(like)
         self.count = 0
 
+    def scalars(self, count):
+        """The host scalars of the step at 0-based ``count``: the learning
+        rate and the bias corrections 1 - b1^(count + 1), 1 - b2^(count + 1)."""
+        count_inc = count + 1
+        return (cosine_decay_lr(count, self.lr, self.n_iter, self.alpha), 1 - B1 ** count_inc,
+                1 - B2 ** count_inc)
+
     def step(self, u, g):
         self.mu = (1 - B1) * g + B1 * self.mu
         self.nu = (1 - B2) * (g * g) + B2 * self.nu
-        count_inc = self.count + 1
-        mu_hat = self.mu / (1 - B1 ** count_inc)
-        nu_hat = self.nu / (1 - B2 ** count_inc)
-        lr = cosine_decay_lr(self.count, self.lr, self.n_iter, self.alpha)
-        self.count = count_inc
+        lr, corr1, corr2 = self.scalars(self.count)
+        mu_hat = self.mu / corr1
+        nu_hat = self.nu / corr2
+        self.count += 1
         return u + (-lr) * (mu_hat / (torch.sqrt(nu_hat) + EPS))
 
 

@@ -1,8 +1,9 @@
 """The CUDA kernels of ``lightcurve_fitting_tpu_torch/kernels``: K1, K2
 and the gradient path's K7, K9 and K7h (ShockCooling2), K3 (the quadrature
 band flux) and the ShockCooling3 log-posterior and half-step built on it;
-K4 (the per-epoch blackbody log-posterior and its gradient), the epoch
-half-step, K4s (the summary rows) and K5 (percentiles) of the batched
+K4 (the per-epoch blackbody log-posterior and its gradient), K4p (the MAP
+centering's Adam polish in one launch), the epoch half-step (a warp per
+walker), K4s (the summary rows) and K5 (percentiles) of the batched
 bolometric path; K6a-K6d of the
 tempered ladder (the tempered half-step and the initial state over
 ShockCooling2 and ShockCooling3, the replica exchange, the stepping-stone
@@ -30,7 +31,12 @@ and without intrinsic scatter, within 1e-5 (float32) and 1e-10 (float64) of
 its log-posterior's scale and 1e-4 and 1e-9 of its gradient's, the scales of
 ``EpochPosterior.term_scales``: the summed magnitudes of the pieces that
 cancel near an optimum (the rounding follows the pieces, not their sum);
-the epoch half-step as K2; K4s's integral float32 <= 1e-5 relative; K5's
+the epoch half-step as K2, its new log-posteriors within 1e-5 (float32) and
+1e-10 (float64) of the term scale, and on the CPU its warp sum order
+against the plain sum and the JAX package's; K4p against the plain polish
+on the card, the same alive set and centers within POLISH_REL, and on the
+CPU its Adam step and chain rule bit for bit against CosineAdam and
+autograd; K4s's integral float32 <= 1e-5 relative; K5's
 percentiles bit-equal to the plain version's. K6a as K2, its log pi and
 log L held as K1's; K6b's log pi <= 1e-12 relative and log L as K1's; K6c
 bit-equal; K6d float64 <= 1e-12 relative (the sums run in another order).
@@ -322,6 +328,8 @@ def test_sc3_point_order_levels_the_warp_lanes(lc_flux):
     ("EpochBBParams", epoch_bb._EpochBBParams, 8 * (10 + 7 + 3) + 7 * 9 * 8),
     # 4 pointers, 8 ints, 3 doubles
     ("SummaryParams", epoch_bb._SummaryParams, 8 * (4 + 8 + 3)),
+    # 6 pointers, 2 ints, 5 doubles, 4 arrays of LP_MAX_DIM
+    ("PolishParams", epoch_bb._PolishParams, 8 * (6 + 2 + 5) + 4 * 9 * 8),
     # 2 pointers, 3 ints, 3 arrays of PCT_MAX_Q
     ("PercentileParams", kquantile._PercentileParams, 8 * (2 + 3) + 3 * 8 * 8),
 ])
@@ -379,6 +387,93 @@ def test_epoch_wrappers_route_by_device():
                                  np.inf, torch.float32)
     with pytest.raises(ValueError, match="K5 runs on CUDA"):
         kquantile.percentile_rows(rows, [50])
+
+
+def _polish_case(E, device, use_sigma=False, sigma_type="relative", dead=False, seed=3):
+    """An EpochPosterior of E synthetic epochs on ``device`` (with ``dead``
+    epoch 0 has dy = 0: log_norm = -inf, no finite start), its
+    BoundsTransform and 8 starts an epoch (``batched._polish_starts``)."""
+    packed = _epoch_pack(E, device)
+    if dead:
+        packed = dict(packed, dy=packed["dy"].clone())
+        packed["dy"][0] = 0.0
+    priors = _EPOCH_PRIORS + ([GaussianPrior(0.0, 10.0)] if use_sigma else [])
+    ep = batched.EpochPosterior(packed, priors, use_sigma=use_sigma, sigma_type=sigma_type)
+    cloud_u = torch.as_tensor(np.random.default_rng(seed).random((E, 512, len(priors))),
+                              device=device)
+    return (ep, *batched._polish_starts(ep, cloud_u))
+
+
+def test_map_polish_routes_by_device_and_refuses_too_many_starts():
+    ep, bounds, u0 = _polish_case(3, "cpu")
+    before = dict(kernels.LAUNCHES)
+    got = epoch_bb.map_polish(ep, u0, bounds, n_iter=4)
+    want = epoch_bb.map_polish_plain(ep, u0, bounds, n_iter=4)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert got[0].shape == (3, 2) and got[1].dtype == torch.bool
+    assert kernels.LAUNCHES == before           # the plain path launches nothing
+    with pytest.raises(ValueError, match="1 to 32 starts"):
+        epoch_bb.map_polish(ep, torch.empty((3, 33, 2), dtype=torch.float64, device="meta"),
+                            bounds)
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        epoch_bb.map_polish(ep, torch.empty((3, 8, 2), dtype=torch.float64, device="meta"),
+                            bounds)
+
+
+def test_polish_adam_arithmetic_equals_cosine_adam():
+    """K4p's Adam step (``epoch_map_polish_kernel``) emulated in float64 from
+    ``adam_table``'s scalars, in the kernel's order of operations, equals
+    ``CosineAdam.step`` bit for bit over 300 steps, and the table's rows are
+    ``CosineAdam.scalars``."""
+    from lightcurve_fitting_tpu_torch.parallel.optimize import B1, B2, EPS, CosineAdam
+    rng = np.random.default_rng(3)
+    table = epoch_bb.adam_table(300, 0.05, 0.01)
+    assert table.shape == (300, 3) and table.dtype == np.float64
+    u = torch.as_tensor(rng.normal(size=(4, 8, 3)))
+    opt = CosineAdam(u, lr=0.05, n_iter=300, alpha=0.01)
+    uk, m, v = u.clone(), torch.zeros_like(u), torch.zeros_like(u)
+    for t in range(300):
+        g = torch.as_tensor(rng.normal(size=u.shape)) * 10.0 ** rng.uniform(-3.0, 3.0)
+        assert tuple(table[t]) == opt.scalars(t)
+        u = opt.step(u, g)
+        lr, corr1, corr2 = (float(c) for c in table[t])
+        m = (1 - B1) * g + B1 * m
+        v = (1 - B2) * (g * g) + B2 * v
+        uk = uk + (-lr) * ((m / corr1) / (torch.sqrt(v / corr2) + EPS))
+        assert torch.equal(uk, u)
+
+
+def test_polish_chain_rule_is_autograds_through_the_bijection():
+    """K4p's bijection and chain rule (``polish_bounded`` and the gradient of
+    -lp in u, from ``BoundsTransform.kernel_spec``), emulated in float64 from
+    the forward's sigmoid and exp (on the CPU their bits depend on the
+    tensor's layout; the kernel forms them as PyTorch's CUDA kernels do),
+    equal ``BoundsTransform.to_bounded`` and autograd through it bit for bit,
+    for each kind of bound."""
+    from lightcurve_fitting_tpu_torch.parallel.hmc import BoundsTransform
+    bounds = BoundsTransform([1.0, 0.01, 0.0, -np.inf, -np.inf],
+                             [100.0, 1000.0, np.inf, 5.0, np.inf])
+    rng = np.random.default_rng(4)
+    u = torch.as_tensor(rng.normal(scale=3.0, size=(64, 5))).requires_grad_(True)
+    gx = torch.as_tensor(rng.normal(size=(64, 5)) * 10.0 ** rng.uniform(-3, 3, (64, 5)))
+    x = bounds.to_bounded(u)
+    gu, = torch.autograd.grad(x, u, grad_outputs=-gx)
+    u = u.detach()
+    zero = torch.zeros_like(u)
+    sig = torch.sigmoid(torch.where(torch.as_tensor(bounds.two_sided), u, zero))
+    ex = torch.exp(torch.where(torch.as_tensor(bounds.one_sided), u, zero))
+    for k, (kind, lo, hi, width) in enumerate(bounds.kernel_spec()):
+        gn = -gx[:, k]
+        if kind == 1:
+            f = sig[:, k]
+            xk, gk = lo + width * f, ((gn * width) * (1.0 - f)) * f
+        elif kind in (2, 3):
+            f = ex[:, k]
+            xk, gk = (lo + f, gn * f) if kind == 2 else (hi - f, (-gn) * f)
+        else:
+            xk, gk = u[:, k], gn
+        assert torch.equal(xk, x[:, k].detach()) and torch.equal(gk, gu[:, k]), k
+    assert [k for k, *_ in bounds.kernel_spec()] == [1, 1, 2, 3, 0]
 
 
 # ---------------------------------------------------------------- card side
@@ -765,6 +860,108 @@ def test_epoch_half_step_matches_plain_on_card(cuda_device, h):
     assert 0.02 < float(ak[:, h].float().mean()) < 0.98
 
 
+#: K4p's centers against the plain polish on the card: float64 relative;
+#: float32 relative, measured on the H100 (PERF.md: the optimum of a float32
+#: objective moves with its rounding)
+POLISH_REL = {True: 1e-9, False: 1e-5}
+
+
+def _assert_polish_close(got, want, rel):
+    """K4p's (centers, alive, last iterates, their log-posteriors) against the
+    plain polish's: the same alive set; centers within ``rel`` relative
+    where both keep the same start, and where they keep different starts
+    the two are a near-tie (the plain log-posteriors of both within 1e-5 of
+    each other's magnitude)."""
+    c, alive, _, lp = got
+    cp, alive_p, _, lpp = want
+    assert torch.equal(alive, alive_p)
+    neg = torch.where(torch.isfinite(lp), -lp, torch.full_like(lp, torch.inf))
+    neg_p = torch.where(torch.isfinite(lpp), -lpp, torch.full_like(lpp, torch.inf))
+    best, best_p = torch.argmin(neg, dim=1), torch.argmin(neg_p, dim=1)
+    rows = torch.arange(len(best), device=best.device)
+    same = (best == best_p) & alive
+    assert bool(((c - cp).abs() <= rel * cp.abs())[same].all())
+    tie = ~same & alive
+    assert bool(((lpp[rows, best] - lpp[rows, best_p]).abs()
+                 <= 1e-5 * lpp[rows, best_p].abs())[tie].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma_type", [None, "relative", "absolute"],
+                         ids=["no-sigma", "sigma-relative", "sigma-absolute"])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_map_polish_matches_plain_on_card(cuda_device, f64, sigma_type):
+    """K4p (a block per epoch, a warp per start, 300 steps in one launch)
+    against the plain polish on the same device: the same alive set (epoch 0
+    without intrinsic scatter is dead: dy = 0), centers within POLISH_REL."""
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        ep, bounds, u0 = _polish_case(24, cuda_device, use_sigma=sigma_type is not None,
+                                      sigma_type=sigma_type or "relative",
+                                      dead=sigma_type is None)
+        n0 = kernels.LAUNCHES["epoch_map_polish"]
+        got = epoch_bb.map_polish(ep, u0, bounds, return_starts=True)
+        assert kernels.LAUNCHES["epoch_map_polish"] == n0 + 1
+        assert torch.equal(got[0], epoch_bb.map_polish(ep, u0, bounds)[0])
+        want = epoch_bb.map_polish_plain(ep, u0, bounds, return_starts=True)
+        _assert_polish_close(got, want, POLISH_REL[f64])
+        assert (not bool(got[1][0])) == (sigma_type is None) and bool(got[1][1:].all())
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,half", [(256, 16), (40, 5)])
+@pytest.mark.parametrize("sigma_type", [None, "relative"], ids=["no-sigma", "sigma"])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_epoch_warp_half_step_matches_plain_on_card(cuda_device, E, half, sigma_type, f64):
+    """The epoch half-step, a warp per walker, against the plain half-step
+    under shared draws (h = 0, 1): accept flags agree except near-ties, new
+    states bit-equal where they agree, new log-posteriors within 1e-5
+    (float32) or 1e-10 (float64) of ``EpochPosterior.term_scales``."""
+    use_sigma = sigma_type is not None
+    priors = _EPOCH_PRIORS + ([GaussianPrior(0.0, 10.0)] if use_sigma else [])
+    rel = 1e-10 if f64 else 1e-5
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        ep = batched.EpochPosterior(_epoch_pack(E, cuda_device), priors, use_sigma=use_sigma)
+        rng = np.random.default_rng(4)
+        x0 = np.exp(rng.uniform(np.log([5.0, 1.0]), np.log([20.0, 30.0]), size=(E, 2, half, 2)))
+        if use_sigma:
+            x0 = np.concatenate([x0, rng.uniform(0.5, 3.0, size=(E, 2, half, 1))], axis=-1)
+        x0 = torch.as_tensor(x0, device=cuda_device).float().contiguous()
+        ndim = x0.shape[-1]
+        l0 = ep(x0.reshape(E, 2 * half, ndim)).reshape(E, 2, half)
+        g = torch.Generator(device=cuda_device).manual_seed(5)
+        u_z = torch.rand((E, 2, half), generator=g, device=cuda_device)
+        j = torch.randint(0, half, (E, 2, half), generator=g, device=cuda_device)
+        u_acc = torch.rand((E, 2, half), generator=g, device=cuda_device)
+        for h in (0, 1):
+            xk, lk, xp, lpp = x0.clone(), l0.clone(), x0.clone(), l0.clone()
+            ak = torch.zeros((E, 2, half), dtype=torch.int32, device=cuda_device)
+            ap = torch.zeros_like(ak)
+            epoch_bb.stretch_half_step(ep, xk, lk, h, u_z, j, u_acc, 2.0, n_accept=ak)
+            epoch_bb.stretch_half_step_plain(ep.plain, xp, lpp, h, u_z, j, u_acc, 2.0,
+                                             n_accept=ap)
+            agree = ak[:, h] == ap[:, h]
+            y, z = common.propose_stretch(u_z[:, h], j[:, h], x0[:, h], x0[:, 1 - h])
+            lp_y = ep.plain(y)
+            ll_scale, _ = ep.term_scales(y.double())
+            gap = (torch.log(u_acc[:, h]).double()
+                   - ((ndim - 1) * torch.log(z) + lp_y - l0[:, h])).abs()
+            assert bool((agree | (gap <= rel * ll_scale)).all())
+            assert torch.equal(xk[:, h][agree], xp[:, h][agree])
+            assert torch.equal(xk[:, 1 - h], x0[:, 1 - h]) and torch.equal(ak[:, 1 - h],
+                                                                          ap[:, 1 - h])
+            moved = agree & (ak[:, h] == 1)
+            assert bool(((lk[:, h] - lpp[:, h]).abs() <= rel * ll_scale)[moved].all())
+            assert 0.02 < float(ak[:, h].float().mean()) < 0.98
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
 @pytest.mark.cuda
 def test_k4s_and_k5_match_plain_on_card(cuda_device):
     rng = np.random.default_rng(6)
@@ -798,9 +995,10 @@ def test_bolometric_runs_through_the_epoch_kernels_on_card(cuda_device):
                              burnin_steps=50, steps=50, seed=7, save_corners=False,
                              batch_mode=True)
     assert len(t) == 4 and np.isfinite(np.asarray(t["temp_mcmc"], float)).all()
-    for k in ("epoch_logpost", "epoch_logpost_grad", "epoch_half_step", "epoch_summary",
+    for k in ("epoch_logpost", "epoch_map_polish", "epoch_half_step", "epoch_summary",
               "percentile"):
         assert kernels.LAUNCHES[k] > 0, k
+    assert kernels.LAUNCHES["epoch_map_polish"] == 1 and kernels.LAUNCHES["epoch_logpost_grad"] == 0
 
 
 # ------------------------------------------------------------- K6 (ladder)
@@ -1487,6 +1685,121 @@ def test_sc2_warp_sum_order_stays_within_the_yardstick(lc_ext, sigma_type):
     assert bool(((warp - plain).abs() <= 1e-5 * scale).all())
     assert bool((warp != plain).any())
     assert np.all(np.abs((prior + warp).numpy() - want) <= 1e-5 * scale.numpy())
+
+
+def _epoch_warp_emulation(ep, q):
+    """The epoch log-posterior and its gradient as the warp forms compute
+    them (csrc/epoch_bb.cu ``epoch_log_posterior_warp``, the epoch half-step
+    and K4p), in ``ep``'s compute dtype, at q (E, M, ndim) float64 inside
+    the priors: band_flux's Planck terms from the node factors c1 nu and
+    nu^3, each band's sum and its T derivative in the warp order
+    (``_warp_order_sum``), then the bands, residuals and the thread form's
+    gradient in band order. Returns (lp (E, M), grad (E, M, ndim)) float64;
+    asserts that every lane holds the same band sums."""
+    from lightcurve_fitting_tpu_torch.core.constants import c1, c2
+    cdt = ep.compute_dtype
+    one, zero, half = (torch.tensor(v, dtype=cdt) for v in (1.0, 0.0, -0.5))
+    T, R = q[..., 0].to(cdt), q[..., 1].to(cdt)
+    sig = q[..., -1].to(cdt) if ep.use_sigma else torch.zeros_like(T)
+    inv_T = torch.where(T > 0, one / T, zero)
+    c2R2 = torch.tensor(c2, dtype=cdt) * (R * R)
+    acc, gT, gR, gS = (torch.zeros(T.shape, dtype=cdt) for _ in range(4))
+    for e, b in zip(*np.nonzero(ep.mask.numpy())):
+        n = int(ep.n_native[e, b])
+        nu, w = ep.nodes[e, b, :n], ep.weights[e, b, :n]
+        x = (torch.tensor(c1, dtype=cdt) * nu) * inv_T[e, :, None]          # (M, n)
+        ex = torch.expm1(x)
+        pdi = torch.where(ex > 0, one / ex, zero)
+        lnu = (c2R2[e, :, None] * ((nu * nu) * nu)) * pdi
+        lanes = _warp_order_sum(w * lnu)
+        dlanes = _warp_order_sum(torch.where(lnu != 0, w * (lnu * (one + pdi)
+                                                            * (x * inv_T[e, :, None])), zero))
+        assert torch.equal(lanes, lanes[:, :1].expand(-1, 32))
+        assert torch.equal(dlanes, dlanes[:, :1].expand(-1, 32))
+        S, dS = lanes[:, 0], dlanes[:, 0]
+        y_fit = S * ep.inv_yscale[e]
+        y, dy, inv_dy, su = ep.y[e, b], ep.dy[e, b], ep.inv_dy[e, b], ep.sigma_units[e, b]
+        if ep.use_sigma:
+            sg = sig[e] * su
+            sigma2 = dy * dy + sg * sg
+            res = y - y_fit
+            acc[e] = acc[e] + (torch.log(torch.tensor(6.283185307179586, dtype=cdt) * sigma2)
+                               + res * res / sigma2)
+            dll = res / sigma2
+            gS[e] = gS[e] + (-(sg * su)) * (one / sigma2 - (res * res) / (sigma2 * sigma2))
+        else:
+            r = (y - y_fit) * inv_dy
+            acc[e] = acc[e] + r * r
+            dll = r * inv_dy
+        gy = dll * ep.inv_yscale[e]
+        gT[e] = gT[e] + gy * dS
+        gR[e] = gR[e] + gy * torch.where(R[e] != 0, (S + S) / R[e], zero)
+    ll = (half * acc).double() + (0.0 if ep.use_sigma else ep.log_norm[:, None])
+    p = q.clone().requires_grad_(True)
+    log_prior = sum(prior(p[..., i]) for i, prior in enumerate(ep.priors))
+    g, = torch.autograd.grad(log_prior.sum(), p)
+    g[..., 0] += gT.double()
+    g[..., 1] += gR.double()
+    if ep.use_sigma:
+        g[..., -1] += gS.double()
+    return log_prior.detach() + ll, g
+
+
+@pytest.mark.parametrize("sigma_type", [None, "relative", "absolute"],
+                         ids=["no-sigma", "sigma-relative", "sigma-absolute"])
+def test_epoch_warp_sum_order_stays_within_the_yardstick(sigma_type):
+    """The epoch half-step and K4p run a warp per walker, whose lanes split
+    each band's Planck terms: another sum order than the plain version's
+    and K4's thread form. Emulated in float32 (``_epoch_warp_emulation``)
+    on 8 synthetic epochs x 64 vectors near their data, that order stays
+    within the card tests' yardsticks (``EpochPosterior.term_scales``: 1e-5
+    of the log-posterior's, 1e-4 of the gradient's) of the plain float32
+    value and autograd gradient and of the JAX package's float64
+    ``_make_epoch_logpost`` and its ``jax.grad``, and the value differs
+    from the plain sum on some vector: the tolerance, not bit equality,
+    holds the warp kernels to their plain versions. (The JAX package is
+    imported here, not with the module, whose card tests run where it is
+    not installed.)"""
+    jax = pytest.importorskip("jax", reason="the JAX package's reference needs jax")
+    import jax.numpy as jnp
+    from lightcurve_fitting_tpu.models import (GaussianPrior as JG, LogUniformPrior as JLU,
+                                               UniformPrior as JU)
+    from lightcurve_fitting_tpu.parallel import batched as jb
+    use_sigma = sigma_type is not None
+    priors = _EPOCH_PRIORS + ([GaussianPrior(0.0, 10.0)] if use_sigma else [])
+    jpriors = [JU(1.0, 100.0), JLU(0.01, 1000.0)] + ([JG(0.0, 10.0)] if use_sigma else [])
+    packed = _epoch_pack(8, "cpu")
+    rng = np.random.default_rng(9)
+    q = np.exp(rng.uniform(np.log([4.0, 1.0]), np.log([20.0, 30.0]), size=(8, 64, 2)))
+    if use_sigma:
+        q = np.concatenate([q, rng.uniform(0.5, 3.0, size=(8, 64, 1))], axis=-1)
+    make = jb._make_epoch_logpost(jpriors, np.inf, use_sigma, sigma_type or "relative", None)
+    want, g_want = [], []
+    for e in range(8):
+        lp_e = make(*[jnp.asarray(packed[k][e].numpy())
+                      for k in ("y", "dy", "mask", "nodes", "weights", "yscale")])
+        want.append(np.asarray(jax.vmap(lp_e)(jnp.asarray(q[e]))))
+        g_want.append(np.asarray(jax.vmap(jax.grad(lp_e))(jnp.asarray(q[e]))))
+    want, g_want = torch.as_tensor(np.stack(want)), torch.as_tensor(np.stack(g_want))
+    assert want.dtype == torch.float64
+    q = torch.as_tensor(q)
+    try:
+        config.set_compute_dtype(torch.float32)
+        ep = batched.EpochPosterior(packed, priors, use_sigma=use_sigma,
+                                    sigma_type=sigma_type or "relative")
+        lp, grad = _epoch_warp_emulation(ep, q)
+        qq = q.clone().requires_grad_(True)
+        plain = ep.plain(qq)
+        g_plain, = torch.autograd.grad(plain.sum(), qq)
+        ll_scale, g_scale = ep.term_scales(q)
+    finally:
+        config.set_compute_dtype(config.AUTO)
+    plain = plain.detach()
+    assert torch.isfinite(lp).all() and torch.isfinite(plain).all() and torch.isfinite(want).all()
+    for ref, g_ref in ((plain, g_plain), (want, g_want)):
+        assert bool(((lp - ref).abs() <= 1e-5 * ll_scale).all())
+        assert bool(((grad - g_ref).abs() <= 1e-4 * (g_scale + g_ref.abs())).all())
+    assert bool((lp != plain).any())
 
 
 @pytest.mark.cuda

@@ -25,10 +25,19 @@ and of the fits, float32 compute, by CUDA events:
   mean depth and bound);
 * the SC3 half-step per half-step of half 32, 16384 and 65536 (the 64- and
   32768-walker fits and the 131072-walker comparison);
+* the bolometric path at the bench shape (256 epochs): the epoch half-step
+  per half-step of 16 walkers; K4 with its gradient at 256 x 8 (the width
+  of the Adam step that a checkout without K4p launches 300 times a
+  centering) and K4p, the whole polish (8 starts x 300 steps), where the
+  checkout has it, each in float32 and float64; the centering's wall
+  (``_map_centers``: the cloud's scoring and the polish);
 * hashed only, at ``chip_smoke.py``'s shapes: K3, K4 with its gradient,
-  the epoch half-step, K4s, K5, K6c and K6d;
-* with ``--fits``, the wall times of ``lightcurve_map`` (``chip_smoke.py``
-  20a), of ``lightcurve_hmc(sampler="hmc")`` (20d), of ``lightcurve_hmc``
+  K4s, K5, K6c and K6d;
+* with ``--fits``, the wall times of ``calculate_bolometric`` on SN
+  2016bkv (``chip_smoke.py`` 13a) and of the bolometric bench shape (13b:
+  the centering and 256 x 32 x (200 + 100) with summaries, seed 1) with a
+  profiled 13b run's device busy time and idle share, of
+  ``lightcurve_map`` (20a), of ``lightcurve_hmc(sampler="hmc")`` (20d), of ``lightcurve_hmc``
   at its defaults in float32 and float64 (20c), of the ShockCooling3 fit at
   32768 x 300, of the ShockCooling2 fits of phases 5 and 16 (5a: 64
   walkers x 200 + 200; 5b: 131072 x 300; 16a: the evidence at 4096 x 17
@@ -39,14 +48,15 @@ and of the fits, float32 compute, by CUDA events:
 Each time is printed twice: by CUDA events around a run of launches (the
 stream's time per launch, which a kernel shorter than its wrapper's host
 time does not fill) and, as ``NAME_dev`` for the half-steps, K6a, K6b over
-CS, the CS log-posterior, K8, K7 at its small widths and K7h, by the
-profiler's device timestamps (the kernel's own time). ``--sass NAME`` prints a hash of the
+CS, the CS log-posterior, K8, K7 at its small widths, K7h, K4 at 256 x 8
+and K4p, by the profiler's device timestamps (the kernel's own time). The
+centering's wall is in milliseconds, by the host clock to a synchronize. ``--sass NAME`` prints a hash of the
 SASS of each kernel whose name holds NAME (``cuobjdump``), to tell a
 kernel's code apart from its placement.
 Each kernel's outputs at fixed inputs are hashed (``digest``): two checkouts
 whose kernel computes the same bits print the same digest. The ptxas report
-of the gradient kernels and of the SC2, SC3 and CS warp kernels (registers,
-stack frame, spills) comes from the build.
+of the gradient kernels, of the SC2, SC3, CS and epoch warp kernels and of
+K4p (registers, stack frame, spills) comes from the build.
 
 Usage: ``python3 tools/time_port_kernels.py [--repo PATH] [--label NAME]
 [--fits]``. ``--repo`` is the checkout whose ``lightcurve_fitting_tpu_torch``
@@ -83,7 +93,8 @@ SC3_LO = [0.5, 0.5, 5.0, 1.0, D_L - 0.005, 0.0, 57468.5]
 SC3_UP = [2.0, 2.0, 20.0, 5.0, D_L + 0.005, 0.1, 57468.7]
 # the ptxas report covers the entry functions whose mangled names hold these
 PTXAS_KERNELS = ("nuts_transition", "hmc_transition", "logpost_grad", "SC2WarpModel",
-                 "SC3WarpModel", "stretch_half_step_kernelI8SC3Model", "CSWarpModel", "I7CSModel")
+                 "SC3WarpModel", "stretch_half_step_kernelI8SC3Model", "CSWarpModel", "I7CSModel",
+                 "epoch_map_polish", "EpochBBModel")
 
 
 def events_ms(fn, launches, repeats):
@@ -219,7 +230,14 @@ def main():
     off, sc = kw["param_offset"], kw["param_scale"]
     rng = np.random.default_rng(0)
     g = torch.Generator(device=dev)
-    times, digests, info = {}, {}, {}
+    times, digests, info, walls = {}, {}, {}, {}
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
 
     def half_step(name, step, x, logp, half, seed, launches=20):
         """Time one in-place half-step kernel on (x, logp) and hash one step
@@ -422,10 +440,10 @@ def main():
     tempered("K6a_SC3", lp3, torch.as_tensor(q3.reshape(17, 2, 256, 7), device=dev).float()
              .contiguous(), off3, sc3_, 2)
 
-    # digests alone, at chip_smoke.py's shapes: K3 on the flagship's points
-    # (SC3's T and R, E(B-V) per walker), K4 with its gradient, the epoch
-    # half-step, K4s and K5 at the bolometric bench shape, K6c and K6d at the
-    # evidence shape
+    # at chip_smoke.py's shapes: K3 on the flagship's points (SC3's T and R,
+    # E(B-V) per walker), K4 with its gradient, the epoch half-step (also
+    # timed), K4s and K5 at the bolometric bench shape, K6c and K6d at the
+    # evidence shape, hashed
     from lightcurve_fitting_tpu_torch.bolometric import _pseudo_grid
     from lightcurve_fitting_tpu_torch.kernels import epoch_bb, quantile as kq
     from lightcurve_fitting_tpu_torch.models.blackbody import bandflux_pointwise
@@ -453,6 +471,53 @@ def main():
     a4 = torch.zeros((E, 2, 16), dtype=torch.int32, device=dev)
     epoch_bb.stretch_half_step(ep, x4, l4, 0, *draws4, 2.0, n_accept=a4)
     digests["epoch_half"] = digest(x4, l4, a4)
+
+    def epoch_half():
+        epoch_bb.stretch_half_step(ep, x4, l4, 0, *draws4, 2.0, n_accept=a4,
+                                   check_partners=False)
+    times["epoch_half"] = events_ms(epoch_half, 100, args.repeats)
+    times["epoch_half_dev"] = device_ms(epoch_half, "stretch_half_step_kernel", 100, args.repeats)
+    # the MAP centering of the bench epochs (batched_map_centers's polish:
+    # 8 starts x 300 Adam steps): K4 with the gradient at the parent's
+    # per-step width (256 x 8), K4p where the checkout has it, in float32
+    # and float64, and the centering's wall (_map_centers: the cloud's
+    # scoring, the starts and the polish)
+    from lightcurve_fitting_tpu_torch.parallel import batched
+    for label in ("f32", "f64"):
+        try:
+            if label == "f64":
+                config.set_compute_dtype(None)
+            epc = EpochPosterior(packed, chip_smoke.bol_priors())
+            cloud_u = torch.rand((E, 512, 2), generator=batched._generator(dev, 1, -1),
+                                 device=dev, dtype=torch.float64)
+            if label == "f32":
+                times["centering"] = [wall(lambda: batched._map_centers(epc, cloud_u))[0] * 1e3
+                                      for _ in range(args.repeats)]
+            # the starts as _map_centers takes them (the parent has no _polish_starts)
+            bounds4, log_lo, log_up = batched._candidate_box(epc.priors)
+            cloud = torch.exp(cloud_u * torch.as_tensor(log_up - log_lo, device=dev)
+                              + torch.as_tensor(log_lo, device=dev))
+            top = torch.sort(epc(cloud), dim=-1, descending=True, stable=True).indices[:, :8]
+            u8 = bounds4.to_unbounded(torch.gather(cloud, 1, top[..., None].expand(-1, -1, 2)))
+            x8 = bounds4.to_bounded(u8).contiguous()
+            times[f"K4_grad_8_{label}"] = events_ms(
+                lambda: epoch_bb.log_posterior(epc, x8, with_grad=True), 100, args.repeats)
+            times[f"K4_grad_8_{label}_dev"] = device_ms(
+                lambda: epoch_bb.log_posterior(epc, x8, with_grad=True), "epoch_logpost_kernel",
+                100, args.repeats)
+            digests[f"K4_grad_8_{label}"] = digest(*epoch_bb.log_posterior(epc, x8,
+                                                                           with_grad=True))
+            if hasattr(epoch_bb, "map_polish"):
+                u8 = u8.contiguous()
+                times[f"K4p_{label}"] = events_ms(
+                    lambda: epoch_bb.map_polish(epc, u8, bounds4), 1, args.repeats)
+                times[f"K4p_{label}_dev"] = device_ms(
+                    lambda: epoch_bb.map_polish(epc, u8, bounds4), "epoch_map_polish", 1,
+                    args.repeats)
+                digests[f"K4p_{label}"] = digest(*epoch_bb.map_polish(epc, u8, bounds4,
+                                                                      return_starts=True))
+        finally:
+            config.set_compute_dtype(config.AUTO)
     centre = np.exp(rng.uniform(np.log([4.0, 1.0]), np.log([20.0, 30.0]), size=(E, 2)))
     chain = np.abs(centre[None, :, None, :] * (1 + 0.05 * rng.normal(size=(100, E, 32, 2))))
     chain = torch.as_tensor(chain, device=dev).float().contiguous()
@@ -515,16 +580,45 @@ def main():
             digests["CS_K6b"] = digest(*ladder.ladder_init(lpc, x6b, offc, scc))
         tempered(f"CS_K6a_{rc}x{2 * hc}", lpc, xlc, offc, scc, 18)
 
-    walls = {}
-
-    def wall(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, out
-
     if args.fits:
+        # the bolometric fits of chip_smoke.py phase 13, two runs each: (13a)
+        # calculate_bolometric on the full SN 2016bkv curve, (13b) the bench
+        # shape (the centering, then 32 walkers x 200 + 100 steps with the
+        # device summaries) from seed 1's guesses, and a profiled 13b run's
+        # device busy time
+        import warnings
+        from lightcurve_fitting_tpu_torch.bolometric import _pseudo_grid as pseudo_grid
+        from lightcurve_fitting_tpu_torch.bolometric import calculate_bolometric
+        from lightcurve_fitting_tpu_torch.lightcurve import LC
+        lc_full = LC.read(os.path.join(repo, "lightcurve_fitting_tpu", "data", "SN2016bkv.csv"))
+        lc_full.meta.update(META)
+        for rep in range(2):
+            with warnings.catch_warnings(), contextlib.redirect_stdout(io.StringIO()):
+                warnings.simplefilter("ignore")
+                walls[f"bol_13a_{rep}"], _ = wall(lambda: calculate_bolometric(
+                    lc_full, batch_mode=True, save_corners=False, nwalkers=32, seed=7))
+        def bench_13b():
+            centers = batched.batched_map_centers(packed, chip_smoke.bol_priors(), seed=1)
+            gs = np.random.default_rng(1).normal(size=(E, 32, 2)) * 0.5 + centers[:, None, :]
+            gs[gs <= 0.0] = 1.0
+            return batched.batched_blackbody_mcmc(
+                packed, chip_smoke.bol_priors(), gs, 32, 200, 100, seed=1, return_chains=False,
+                summaries={"z": 0.0, "pseudo_nu": pseudo_grid()})
+        for rep in range(2):
+            walls[f"bol_13b_{rep}"], out13 = wall(bench_13b)
+        walls["bol_13b_acceptance"] = float(np.mean(out13[1]))
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            bench_13b()
+            torch.cuda.synchronize()
+            wall13 = time.perf_counter() - t0
+        busy13 = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type.name == "CUDA") / 1e6
+        walls["bol_13b_profiled"] = {"wall": wall13, "busy": busy13,
+                                     "idle_share": 1 - busy13 / wall13}
+
         # the gradient path's fits of chip_smoke.py phase 20, two runs each:
         # (20a) lightcurve_map, (20d) lightcurve_hmc(sampler="hmc") at 16
         # chains x 150 + 100
