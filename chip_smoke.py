@@ -8,8 +8,9 @@ raises and the script exits non-zero):
 
 1. environment: torch/CUDA versions, the card, its power limit;
 2. build: nvcc compiles the kernels from ``kernels/csrc/``; the
-   block-per-chain kernels (K9, K7h, K7's block form), K4p and the epoch
-   half-step must have no stack frame and no spills (ptxas);
+   block-per-chain kernels (K9, K7h, K7's block form), K4p, the epoch
+   half-step, the SC3 log-posterior and K6c must have no stack frame and no
+   spills (ptxas);
 3. K1 against its plain PyTorch version at 131072 walkers on the flagship
    (SN 2016bkv, ShockCooling2), float32 (<= 1e-5 |ll|, same -inf set) and
    float64 (<= 1e-10 |ll|), including t < t_exp under a widened t_0 prior;
@@ -23,14 +24,20 @@ raises and the script exits non-zero):
 5. the public ``fitting.lightcurve_mcmc``: (a) the reference-default
    64-walker fit, (b) 131072 walkers x 300 steps from the init window, whose
    mean acceptance must be 0.4685 +- 0.01; the launch counters show both ran
-   through K1 and K2;
+   through K1 and K2; (c) 4096 walkers x 300 steps at seeds 1-8 in float32
+   and float64, the mean acceptance and its standard error against the JAX
+   package's on the CPU at the same seeds and precision (within 4 combined
+   standard errors);
 6. K3 (``bandflux_kernel``) against ``bandflux_pointwise_plain`` at 131072
    walkers x the 149 flagship points with E(B-V) per walker in [0, 1] and
    t < t_exp walkers, float32 (<= 1e-5 relative per point) and float64
    (<= 1e-12);
-7. the fused ShockCooling3 log-posterior against ``forward_plain`` at 131072
-   walkers (1% outside the priors, a set with t < t_exp): float32
-   <= 1e-5 |ll|, float64 <= 1e-10 |ll|, identical -inf sets;
+7. the fused ShockCooling3 log-posterior (a warp per walker) against
+   ``forward_plain`` at 131072 walkers (1% outside the priors, a set with
+   t < t_exp): float32 <= 1e-5 |ll|, float64 <= 1e-10 |ll|, identical -inf
+   sets; at the fits' widths (64, 4096, 32768) the same values bit for bit,
+   each width timed (events and the profiler's device time) and the
+   profiler showing the warp kernel ran;
 8. the SC3 half-step (a warp per walker) against the plain half-step, as
    in 4, at half 65536 and at the fits' widths, half 16384 and 32, each
    timed;
@@ -38,7 +45,8 @@ raises and the script exits non-zero):
    (a) 64 walkers x 200+200 steps, (b) 32768 walkers x 300 steps from the
    init window, whose mean acceptance must be within 0.01 of the JAX
    package's float64 value, and ``ShockCooling3.evaluate`` on the card at
-   the medians (chi2/dof printed), and a profiled run's time split; the
+   the medians (chi2/dof printed), and a profiled run's time split (the
+   half-steps, the initial state); the
    launch counters, reset before this path, show it ran through K3 and both
    SC3 kernels (1400 half-steps);
    (c) 4096 walkers x 300 steps at seeds 1-8, the mean acceptance and its
@@ -84,8 +92,11 @@ raises and the script exits non-zero):
     tolerances; the proposals' log pi + log L against K7's value as in 4;
 15. K6b, the ladder's initial state, against the plain split of the
     log-posterior (17 x 4096 states, 1% outside the priors), float32 and
-    float64; K6c, the replica exchange, bit-equal to its plain version (both
-    parities, a -inf log L row, the beta = 0 rung); K6d, the stepping-stone
+    float64; K6c, the replica exchange, bit-equal to its plain version at
+    the ladders' shapes (17 rungs x 4096 and x 32, 7 x 32; 17 x 4096 and 7 x
+    64 with 7 parameters; both parities, production and burn-in steps, a
+    -inf log L row, the beta = 0 rung), each timed (events and the
+    profiler's device time); K6d, the stepping-stone
     block terms, float64 <= 1e-12 relative, ``torch.logsumexp`` timed beside
     it;
 16. the tempered-ladder main path: ``lightcurve_evidence`` on ShockCooling2
@@ -143,7 +154,9 @@ raises and the script exits non-zero):
     CompanionShocking3 and CompanionShocking with the scatter (9
     parameters) against its plain version at 131072 walkers (1% outside the
     priors, an eighth with t_0 after the first epochs): float32 <= 1e-5,
-    float64 <= 1e-10 of the term scale, identical -inf sets; the CS
+    float64 <= 1e-10 of the term scale, identical -inf sets; CS2 at the
+    fits' widths (32, 4096, 32768) the same values bit for bit, each timed
+    (events, device time), the profiler showing its kernel ran; the CS
     half-step (h = 0, 1; a warp per walker) at half 65536 and at the fits'
     widths, half 16384 and 16, K6a (a warp per walker) at 17 rungs x 4096
     and at the PT fit's 7 x 64, and K6b over CS2 at 17 x 4096, as in 4, 14,
@@ -189,6 +202,13 @@ P_LO = [20.0, 2.0, 20.0, 57468.5]
 P_UP = [50.0, 5.0, 50.0, 57468.7]
 HEADLINE_WALKERS = 131072
 ACCEPTANCE_REF = 0.4685   # flagship at 131072 x 300 from the init window (chip-free)
+# the JAX package's mean acceptance on the CPU of the flagship fit at 4096
+# walkers x 300 steps from the init window over seeds 1-8, and its standard
+# error: float64, and float32 compute over the float32 rescaled state
+# (tests/test_torch_sc3.py::jax_sc2_acceptance)
+SC2_SEEDS, SC2_SEED_WALKERS = tuple(range(1, 9)), 4096
+SC2_SEEDS_REF = {"f64": (0.47225474039713544, 0.0003145498430522239),
+                 "f32": (0.4722075398763021, 0.0004930160311681418)}
 
 # ShockCooling3 on the same light curve (flux), d_L pinned by dm = 30.79
 D_L = 10 ** (30.79 / 5 + 1) / 1e6
@@ -767,19 +787,56 @@ def phase_k3(lcf, rng_seed=2):
     return {"max_abs_err": res["f32"][0], "ms": k3_ms, "plain_ms": plain_ms, **k3_bound}
 
 
+# the widths whose initial state a fit computes with the SC3 log-posterior:
+# 9a's 64 walkers, 9c's 4096 and 9b's 32768
+SC3_LP_WIDTHS = (64, 4096, SC3_WALKERS)
+
+
+def batch_widths(name, fn, lp, x, off, sc, widths, whole, match, marks, eval_ops):
+    """The batch log-posterior wrapper ``fn`` on the first w rows of the
+    absolute parameters x at each width w of ``widths``: its values equal
+    those of ``whole`` (fn's at every row of x) bit for bit, so they are
+    held to the plain version there; then, on the rows in the sampler's
+    float32 rescaled state (off, sc), its time by events and by the
+    profiler's device time, its bound, and the kernel the profiler saw
+    (holding ``match`` and ``marks``). Returns ({w: (events ms, device ms,
+    bound)}, the kernel's name)."""
+    import torch
+    from time_port_kernels import device_ms
+    dev = x.device
+    out, name_seen = {}, None
+    for w in widths:
+        if not torch.equal(fn(lp, x[:w]), whole[:w]):
+            raise AssertionError(f"{name}: the values at width {w} differ from the batch's")
+        q = ((x[:w] - torch.as_tensor(off, device=dev)) / torch.as_tensor(sc, device=dev)).float()
+
+        def call():
+            return fn(lp, q, off, sc)
+        name_seen = expect_kernel(call, match, *marks)
+        out[w] = (cuda_ms(call), device_ms(call, match, 20, 1)[0],
+                  bound_fields(w * eval_ops, w * (q.shape[1] * 4 + 8)))
+    return out, name_seen
+
+
 def phase_sc3_logpost(lcf, rng_seed=3):
+    """7: the SC3 log-posterior (a warp per walker) against forward_plain at
+    131072 walkers, float32 and float64; at the fits' widths (64, 4096,
+    32768) the same values, each timed on the rescaled float32 state, the
+    profiler showing the warp kernel ran."""
     import numpy as np
     import torch
     from lightcurve_fitting_tpu_torch import kernels
     from lightcurve_fitting_tpu_torch.core import config
-    from lightcurve_fitting_tpu_torch.fitting import make_log_posterior
+    from lightcurve_fitting_tpu_torch.fitting import _state_rescaling, make_log_posterior
+    from lightcurve_fitting_tpu_torch.kernels import sc3
     from lightcurve_fitting_tpu_torch.models import ShockCooling3
 
     dev = torch.device("cuda")
     W = HEADLINE_WALKERS
     p, late = sc3_walkers(np.random.default_rng(rng_seed), W)
     p, late = torch.as_tensor(p, device=dev), torch.as_tensor(late, device=dev)
-    res = {}
+    kw = _state_rescaling(torch.float32, SC3_LO, SC3_UP, dev)   # what "auto" gives on CUDA
+    res, widths, names = {}, {}, {}
     n0 = kernels.LAUNCHES["sc3_logpost"]
     for label in ("f32", "f64"):
         try:
@@ -789,7 +846,8 @@ def phase_sc3_logpost(lcf, rng_seed=3):
             wide = make_log_posterior(ShockCooling3(lcf), lcf, sc3_priors(57480.0), device=dev)
             rel = 1e-5 if label == "f32" else 1e-10
             c = lp.log_likelihood.log_norm_const
-            a = compare_ll(f"SC3 log-posterior {label}", lp(p), chunked(lp.forward_plain, p),
+            got = lp(p)
+            a = compare_ll(f"SC3 log-posterior {label}", got, chunked(lp.forward_plain, p),
                            rel, c)
             got_late = wide(late)
             b = compare_ll(f"SC3 log-posterior {label} t<t_exp", got_late,
@@ -797,20 +855,26 @@ def phase_sc3_logpost(lcf, rng_seed=3):
             if torch.isfinite(got_late).sum() != W:
                 raise AssertionError("t < t_exp walkers must have finite log-posteriors")
             res[label] = (max(a[0], b[0]), max(a[1], b[1]), a[2])
+            widths[label], names[label] = batch_widths(
+                f"SC3 log-posterior {label}", sc3.log_posterior, lp, p, kw["param_offset"],
+                kw["param_scale"], SC3_LP_WIDTHS + (W,), got, "logpost_warp_kernel",
+                ("SC3WarpModel",), sc3_eval_ops(lp.log_likelihood))
             if label == "f32":
-                k_ms = cuda_ms(lambda: lp(p))
                 plain_ms = cuda_ms(lambda: chunked(lp.forward_plain, p), repeats=2)
         finally:
             config.set_compute_dtype(config.AUTO)
-    sc3_bound = bound_fields(W * sc3_eval_ops(lp.log_likelihood), W * (7 * 8 + 8))
-    phase("SC3 log-posterior", f"{W} walkers (1% outside the priors, {W} more with t < t_exp): "
-          f"f32 max |d| {res['f32'][0]:.3e} (max |d|/(|ll - c| + |c|) {res['f32'][1]:.2e} "
-          f"<= 1e-5, c = {c:.2f} the normalization constant), f64 max |d| {res['f64'][0]:.3e} "
-          f"(max |d|/(|ll - c| + |c|) {res['f64'][1]:.2e} <= 1e-10), "
-          f"-inf sets equal; {kernels.LAUNCHES['sc3_logpost'] - n0} comparison launches; "
-          f"kernel {k_ms:.4f} ms vs plain {plain_ms:.4f} ms per {W}-walker batch (f32), bound "
-          f"{sc3_bound['bound_ms']:.4f} ms ({sc3_bound['bound_by']})")
-    return {"max_abs_err": res["f32"][0], "ms": k_ms, "plain_ms": plain_ms, **sc3_bound}
+    t32 = widths["f32"]
+    phase("SC3 log-posterior", f"{names['f32']}, {W} walkers (1% outside the priors, {W} more "
+          f"with t < t_exp): f32 max |d| {res['f32'][0]:.3e} (max |d|/(|ll - c| + |c|) "
+          f"{res['f32'][1]:.2e} <= 1e-5, c = {c:.2f} the normalization constant), f64 max |d| "
+          f"{res['f64'][0]:.3e} (max |d|/(|ll - c| + |c|) {res['f64'][1]:.2e} <= 1e-10), "
+          f"-inf sets equal; at the fits' widths {', '.join(map(str, SC3_LP_WIDTHS))} the "
+          f"same values bit for bit (f32, f64); {kernels.LAUNCHES['sc3_logpost'] - n0} "
+          "comparison launches; kernel (events; the profiler's device time) on the rescaled "
+          "f32 state " + ", ".join(f"{v[0]:.4f}; {v[1]:.4f} ms at {w} (bound "
+                                   f"{v[2]['bound_ms']:.4f})" for w, v in t32.items())
+          + f"; plain {plain_ms:.4f} ms per {W}-walker batch (f32)")
+    return {"max_abs_err": res["f32"][0], "ms": t32[W][0], "plain_ms": plain_ms, **t32[W][2]}
 
 
 def phase_sc3_half_step(lcf, seed=4):
@@ -915,7 +979,7 @@ def phase_sc3_main_path(lc, smi):
         lc, ShockCooling3(lc), priors, p_lo=SC3_LO, p_up=SC3_UP, nwalkers=SC3_WALKERS,
         nsteps=300, nsteps_burnin=0, seed=8, quiet=True))
     parts, busy = time_split(prof, wall, {"half-steps": ("stretch_half_step",),
-                                          "initial state": ("sc3_logpost",)})
+                                          "initial state": ("logpost_warp",)})
     for k in ("bandflux", "sc3_logpost", "sc3_half_step"):
         if launches[k] == 0:
             raise AssertionError(f"kernel {k} was not launched on the SC3 path: {launches}")
@@ -933,13 +997,9 @@ def phase_sc3_main_path(lc, smi):
           + f"; launches on 9a and 9b {launches}")
 
     # 9c: the acceptance at matched seeds against the JAX package's
-    acc = []
-    for seed in SC3_SEEDS:
-        s = lightcurve_mcmc(lc, ShockCooling3(lc), priors, p_lo=SC3_LO, p_up=SC3_UP,
-                            nwalkers=SC3_SEED_WALKERS, nsteps=300, nsteps_burnin=0, seed=seed,
-                            quiet=True)
-        acc.append(float(np.mean(s.acceptance_fraction)))
-    mean, err = float(np.mean(acc)), float(np.std(acc, ddof=1) / np.sqrt(len(acc)))
+    mean, err, acc = seed_acceptance(lambda seed: lightcurve_mcmc(
+        lc, ShockCooling3(lc), priors, p_lo=SC3_LO, p_up=SC3_UP, nwalkers=SC3_SEED_WALKERS,
+        nsteps=300, nsteps_burnin=0, seed=seed, quiet=True), SC3_SEEDS)
     gap = mean - SC3_SEEDS_REF[0]
     if abs(gap) > 4 * np.hypot(err, SC3_SEEDS_REF[1]):
         raise AssertionError(f"9c: mean acceptance {mean:.5f} +- {err:.5f} against the JAX "
@@ -1518,6 +1578,11 @@ EV_LOGZ_BENCH = (-12961.48, 0.35)
 EV_LOGZ_JAX = {1: (-12961.726035036969, 0.35948034181695665),
                2: (-12961.6943474302, 0.36863427679266486)}
 LADDER_KERNELS = ("tempered_half_step", "ladder_init", "replica_swap", "rung_block_terms")
+# K6c's shapes (rungs, walkers, ndim): the evidence of SC2 (16a) and CS2 (24c),
+# compare_models on synthetic photometry (16c), the PT fits of SC2 (16b) and
+# CS2 (24c)
+K6C_SHAPES = ((EV_RUNGS + 1, EV_WALKERS, 4), (EV_RUNGS + 1, 32, 4), (7, 32, 4),
+              (EV_RUNGS + 1, EV_WALKERS, 7), (7, 64, 7))
 
 
 def window_states(rng, lo, up, n, outside=0.0):
@@ -1648,6 +1713,7 @@ def phase_k6bcd(lc, seed=9):
     from lightcurve_fitting_tpu_torch.kernels import ladder
     from lightcurve_fitting_tpu_torch.models import ShockCooling2
     from lightcurve_fitting_tpu_torch.parallel.evidence import make_beta_ladder
+    from time_port_kernels import device_ms
 
     dev = torch.device("cuda")
     R, W, ndim = EV_RUNGS + 1, EV_WALKERS, 4
@@ -1694,47 +1760,67 @@ def phase_k6bcd(lc, seed=9):
           f"best: mean {bias[1][0]:+.4e}, std {bias[1][1]:.4e} over {bias[1][2]}")
     k6b = {"max_abs_err": res["f32"][0], "ms": b_ms, "plain_ms": b_plain_ms, **b_bound}
 
-    # K6c: the replica exchange, bit for bit
-    rng = np.random.default_rng(seed + 1)
-    half = W // 2
-    betas = torch.as_tensor(make_beta_ladder(EV_RUNGS), device=dev)
-    x = torch.as_tensor(rng.normal(size=(R, 2, half, ndim)), device=dev).float()
-    pri = torch.zeros((R, 2, half), dtype=torch.float64, device=dev)
-    ll = torch.as_tensor(-12990.0 + 10.0 * rng.normal(size=(R, 2, half)), device=dev)
-    ll[3, 0, :100] = -np.inf          # NaN-likelihood starts: never exchanged
-    u = torch.as_tensor(rng.random((R, 2, half)), device=dev).float()
-    n_swaps = []
-    for parity in (0, 1):
-        outs = []
-        for fn in (ladder.replica_swap, ladder.replica_swap_plain):
-            state = [x.clone(), pri.clone(), ll.clone()]
-            extra = [torch.zeros((R, 2, half), dtype=torch.int32, device=dev),
-                     torch.empty((R, 2, half), dtype=torch.float64, device=dev),
-                     torch.empty((2, half, ndim), device=dev)]
-            fn(*state, betas, u, parity, *extra)
-            outs.append(state + extra)
-        torch.cuda.synchronize()
-        for name, got, want in zip(("x", "logpri", "logl", "n_swap", "logl_out", "cold"), *outs):
-            if not torch.equal(got, want):
-                raise AssertionError(f"K6c parity {parity}: {name} differs from the plain "
-                                     "version")
-        if int(outs[0][3][3, 0, :100].sum()):
-            raise AssertionError("K6c: a -inf log L state was exchanged")
-        n_swaps.append(int(outs[0][3].sum()) // 2)
-    args = [x.clone(), pri.clone(), ll.clone(), betas, u, 1,
-            torch.zeros((R, 2, half), dtype=torch.int32, device=dev),
-            torch.empty((R, 2, half), dtype=torch.float64, device=dev),
-            torch.empty((2, half, ndim), device=dev)]
-    c_ms = cuda_ms(lambda: ladder.replica_swap(*args))
-    c_plain_ms = cuda_ms(lambda: ladder.replica_swap_plain(*args), repeats=5)
-    c_bound = bound_fields(n * 8, n * (ndim * 4 + 2 * 8 + 4 + 4) + R * 8
-                           + n * (ndim * 4 + 2 * 8 + 4 + 8) + W * ndim * 4)
-    phase("K6c", f"{R} rungs x {W} walkers (beta_0 = 0, 100 walkers of rung 3 at log L = -inf), "
-          f"both parities: states, log pi, log L, swap counts, the production log L row and "
-          f"the cold states bit-equal to the plain version ({n_swaps[0]} and {n_swaps[1]} "
-          f"exchanges); kernel {c_ms:.4f} ms vs plain {c_plain_ms:.4f} ms per production step, "
-          f"bound {c_bound['bound_ms']:.4f} ms ({c_bound['bound_by']})")
-    k6c = {"max_abs_err": 0.0, "ms": c_ms, "plain_ms": c_plain_ms, **c_bound}
+    # K6c: the replica exchange, bit for bit, at the ladders' shapes (the
+    # first shape's inputs drawn from the generator that K6d's continue)
+    rng, rng_more = np.random.default_rng(seed + 1), np.random.default_rng(seed + 2)
+    checks, c_ms, c_bounds = [], {}, {}
+    for R_c, W_c, nd in K6C_SHAPES:
+        half = W_c // 2
+        gen = rng if (R_c, W_c, nd) == K6C_SHAPES[0] else rng_more
+        betas = torch.as_tensor(make_beta_ladder(R_c - 1), device=dev)
+        x = torch.as_tensor(gen.normal(size=(R_c, 2, half, nd)), device=dev).float()
+        pri = torch.zeros((R_c, 2, half), dtype=torch.float64, device=dev)
+        ll = torch.as_tensor(-12990.0 + 10.0 * gen.normal(size=(R_c, 2, half)), device=dev)
+        ll[3, 0, :min(100, half)] = -np.inf    # NaN-likelihood starts: never exchanged
+        u = torch.as_tensor(gen.random((R_c, 2, half)), device=dev).float()
+
+        def outputs():
+            return [torch.zeros((R_c, 2, half), dtype=torch.int32, device=dev),
+                    torch.empty((R_c, 2, half), dtype=torch.float64, device=dev),
+                    torch.empty((2, half, nd), device=dev)]
+        n_swaps = []
+        for parity, production in itertools.product((0, 1), (True, False)):
+            outs = []
+            for fn in (ladder.replica_swap, ladder.replica_swap_plain):
+                state = [x.clone(), pri.clone(), ll.clone()]
+                extra = outputs() if production else []
+                fn(*state, betas, u, parity, *extra)
+                outs.append(state + extra)
+            torch.cuda.synchronize()
+            for name, got, want in zip(("x", "logpri", "logl", "n_swap", "logl_out", "cold"),
+                                       *outs):
+                if not torch.equal(got, want):
+                    raise AssertionError(f"K6c {R_c} x {W_c} (ndim {nd}) parity {parity}: "
+                                         f"{name} differs from the plain version")
+            if production:
+                if int(outs[0][3][3, 0, :min(100, half)].sum()):
+                    raise AssertionError("K6c: a -inf log L state was exchanged")
+                n_swaps.append(int(outs[0][3].sum()) // 2)
+        checks.append(n_swaps)
+        args = [x.clone(), pri.clone(), ll.clone(), betas, u, 1] + outputs()
+        c_ms[(R_c, W_c, nd)] = (cuda_ms(lambda: ladder.replica_swap(*args)),
+                                device_ms(lambda: ladder.replica_swap(*args), "replica_swap",
+                                          100, 1)[0])
+        n = R_c * W_c
+        c_bounds[(R_c, W_c, nd)] = bound_fields(
+            n * 8, n * (nd * 4 + 2 * 8 + 4 + 4) + R_c * 8 + n * (nd * 4 + 2 * 8 + 4 + 8)
+            + W_c * nd * 4)
+        if (R_c, W_c, nd) == K6C_SHAPES[0]:
+            c_plain_ms = cuda_ms(lambda: ladder.replica_swap_plain(*args), repeats=5)
+            c_name = expect_kernel(lambda: ladder.replica_swap(*args), "replica_swap_kernel",
+                                   f", {nd}>")
+    phase("K6c", f"{c_name}: " + "; ".join(
+              f"{r} rungs x {w} walkers, ndim {nd} ({s[0]} and {s[1]} exchanges)"
+              for (r, w, nd), s in zip(K6C_SHAPES, checks))
+          + " (beta_0 = 0, the walkers of rung 3 at log L = -inf), both parities, production "
+          "and burn-in steps: states, log pi, log L, swap counts, the production log L row and "
+          "the cold states bit-equal to the plain version; kernel (events; the profiler's "
+          "device time) " + ", ".join(f"{v[0]:.4f}; {v[1]:.5f} ms at {r} x {w} x {nd} (bound "
+                                      f"{c_bounds[(r, w, nd)]['bound_ms']:.5f})"
+                                      for (r, w, nd), v in c_ms.items())
+          + f"; plain {c_plain_ms:.4f} ms per production step at {R} x {W}")
+    k6c = {"max_abs_err": 0.0, "ms": c_ms[K6C_SHAPES[0]][1], "plain_ms": c_plain_ms,
+           **c_bounds[K6C_SHAPES[0]]}
 
     # K6d: the stepping-stone block terms at the bench shape's production log L
     logl = torch.as_tensor(-12990.0 + 10.0 * rng.normal(size=(EV_STEPS, R, W)), device=dev)
@@ -1934,6 +2020,52 @@ def phase_main_path(lc, smi):
           f"{evals / elapsed:.4e} log-posterior evals/s (information only, on {smi}), "
           f"launches {launches}")
     return launches
+
+def seed_acceptance(fit, seeds):
+    """The mean acceptance of ``fit(seed)`` (a sampler) over ``seeds`` and
+    its standard error, and each seed's."""
+    import numpy as np
+    acc = [float(np.mean(fit(seed).acceptance_fraction)) for seed in seeds]
+    return float(np.mean(acc)), float(np.std(acc, ddof=1) / np.sqrt(len(acc))), acc
+
+
+def phase_sc2_seeds(lc):
+    """5c: the flagship acceptance at matched seeds 1-8, 4096 walkers x 300
+    steps from the init window, in float32 (float32 compute and rescaled
+    state: what the fits run on CUDA) and float64 (compute and state),
+    each held within 4 combined standard errors of the JAX package's on the
+    CPU at the same seeds and precision."""
+    import numpy as np
+    from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.fitting import lightcurve_mcmc
+    from lightcurve_fitting_tpu_torch.models import ShockCooling2
+
+    res = {}
+    for label in ("f32", "f64"):
+        try:
+            if label == "f64":
+                config.set_compute_dtype(None)
+            res[label] = seed_acceptance(lambda seed: lightcurve_mcmc(
+                lc, ShockCooling2(lc), flagship_priors(), p_lo=P_LO, p_up=P_UP,
+                nwalkers=SC2_SEED_WALKERS, nsteps=300, nsteps_burnin=0, seed=seed, quiet=True,
+                state_dtype=np.float32 if label == "f32" else np.float64), SC2_SEEDS)
+        finally:
+            config.set_compute_dtype(config.AUTO)
+        mean, err, _ = res[label]
+        ref, ref_err = SC2_SEEDS_REF[label]
+        if abs(mean - ref) > 4 * np.hypot(err, ref_err):
+            raise AssertionError(f"5c {label}: mean acceptance {mean:.5f} +- {err:.5f} against "
+                                 f"the JAX package's {ref:.5f} +- {ref_err:.5f}")
+    phase("main path 5c", f"lightcurve_mcmc {SC2_SEED_WALKERS} walkers x 300 steps, seeds "
+          f"{SC2_SEEDS[0]}-{SC2_SEEDS[-1]}: " + "; ".join(
+              f"{lab} mean acceptance {m:.5f} +- {e:.5f} (per seed {fmt(a)}) against the JAX "
+              f"package's CPU {SC2_SEEDS_REF[lab][0]:.5f} +- {SC2_SEEDS_REF[lab][1]:.5f}: "
+              f"difference {m - SC2_SEEDS_REF[lab][0]:+.5f} = "
+              f"{(m - SC2_SEEDS_REF[lab][0]) / np.hypot(e, SC2_SEEDS_REF[lab][1]):+.2f} combined "
+              f"standard errors" for lab, (m, e, a) in res.items())
+          + f" (the 131072-walker gate of 5b holds {ACCEPTANCE_REF}, a TPU run of the JAX "
+          "package, +- 0.01)")
+
 
 # ---------------------------------------------------------- the gradient path
 
@@ -2631,6 +2763,9 @@ CS_UP = {2: [57822.0, 1.0, 2.0, 57842.0, 1.2, 1.0, 1.0]}
 CS_LO[1], CS_UP[1] = CS_LO[2][:5] + [0.8] * 3, CS_UP[2][:5] + [1.2] * 3
 CS_LO[3], CS_UP[3] = CS_LO[2][:2] + [0.0] + CS_LO[2][3:], CS_UP[2][:2] + [90.0] + CS_UP[2][3:]
 CS_WALKERS = 32768
+# the widths whose initial state a CS fit computes with the CS log-posterior:
+# 24a's 32 walkers, a 4096-walker fit, 24b's 32768
+CS_LP_WIDTHS = (32, 4096, CS_WALKERS)
 # the JAX package, float64 on the CPU, for CS2 on this curve (its generating
 # model), the priors and window above: the mean acceptance at 32768 walkers
 # x 300 steps, no burn-in, seed 7 (shard=False), and the stepping-stone log Z
@@ -2772,8 +2907,9 @@ def phase_k8(lc, lc0, rng_seed=16):
 
 
 def phase_cs_logpost(lc, lc0, rng_seed=17):
-    """23: the CS log-posterior of CS1, CS2, CS3 and CS1 with the intrinsic
-    scatter (9 parameters) against its plain version at 131072 walkers;
+    """23: the CS log-posterior (a thread per walker) of CS1, CS2, CS3 and
+    CS1 with the intrinsic scatter (9 parameters) against its plain version
+    at 131072 walkers, and CS2 at the fits' widths (32, 4096, 32768) timed;
     over CS2, the CS half-step at half 65536, 16384 and 16, K6a at 17 x 4096
     and 7 x 64 walkers, K6b at 17 x 4096, float32 and float64."""
     import numpy as np
@@ -2789,7 +2925,7 @@ def phase_cs_logpost(lc, lc0, rng_seed=17):
     dev = torch.device("cuda")
     W = HEADLINE_WALKERS
     rng = np.random.default_rng(rng_seed)
-    res = {}
+    res, widths, names = {}, {}, {}
     n0 = kernels.LAUNCHES["cs_logpost"]
     for (variant, use_sigma), label in itertools.product(((1, False), (2, False), (3, False),
                                                           (1, True)), ("f32", "f64")):
@@ -2807,24 +2943,33 @@ def phase_cs_logpost(lc, lc0, rng_seed=17):
             if not torch.isfinite(got[W - W // 8:]).all():
                 raise AssertionError(f"{what}: t < t_0 walkers must have finite log-posteriors")
             res[(variant, use_sigma, label)] = d + (int(torch.isneginf(got).sum()),)
+            if variant == 2 and not use_sigma:
+                kw = _state_rescaling(torch.float32, CS_LO[2], CS_UP[2], dev)
+                widths[label], names[label] = batch_widths(
+                    f"CS log-posterior {label}", cs.log_posterior, lp, p, kw["param_offset"],
+                    kw["param_scale"], CS_LP_WIDTHS + (W,), got, "cs_logpost_kernel", (),
+                    cs_eval_ops(lp.log_likelihood))
             if label == "f32" and variant == 2:
-                k_ms = cuda_ms(lambda: lp(p))
                 plain_ms = cuda_ms(lambda: chunked(lp.forward_plain, p), repeats=3)
                 lp2 = lp
         finally:
             config.set_compute_dtype(config.AUTO)
     launches_cmp = kernels.LAUNCHES["cs_logpost"] - n0
     ll = lp2.log_likelihood
-    lp_bound = bound_fields(W * cs_eval_ops(ll), W * (7 * 8 + 8))
-    phase("CS log-posterior 23", f"{W} walkers (1% outside the priors, {W // 8} with t_0 after "
-          f"the first epochs): " + "; ".join(
+    t32 = widths["f32"]
+    phase("CS log-posterior 23", f"{names['f32']}, {W} walkers (1% outside the priors, {W // 8} "
+          f"with t_0 after the first epochs): " + "; ".join(
               f"CS{v}{' sigma' if s else ''} {lab} max |d| {r[0]:.3e} (max |d|/scale {r[1]:.2e}), "
               f"{r[2]} at -inf" for (v, s, lab), r in res.items())
-          + f" (f32 <= 1e-5, f64 <= 1e-10 of the term scale; -inf sets equal); {launches_cmp} "
-          f"comparison launches; kernel {k_ms:.4f} ms vs plain {plain_ms:.4f} ms per {W}-walker "
-          f"CS2 batch (f32), bound {lp_bound['bound_ms']:.4f} ms ({lp_bound['bound_by']})")
-    out = {"logpost": {"max_abs_err": res[(2, False, "f32")][0], "ms": k_ms, "plain_ms": plain_ms,
-                       **lp_bound}}
+          + f" (f32 <= 1e-5, f64 <= 1e-10 of the term scale; -inf sets equal); CS2 at the fits' "
+          f"widths {', '.join(map(str, CS_LP_WIDTHS))} the same values bit for bit (f32, f64); "
+          f"{launches_cmp} comparison launches; kernel (events; the profiler's device time) on "
+          "the rescaled f32 state " + ", ".join(
+              f"{v[0]:.4f}; {v[1]:.4f} ms at {w} (bound {v[2]['bound_ms']:.5f})"
+              for w, v in t32.items())
+          + f"; plain {plain_ms:.4f} ms per {W}-walker CS2 batch (f32)")
+    out = {"logpost": {"max_abs_err": res[(2, False, "f32")][0], "ms": t32[W][0],
+                       "plain_ms": plain_ms, **t32[W][2]}}
 
     # the CS half-step (a warp per walker) on the sampler's float32 rescaled
     # state, CS2, at half 65536 and at the fits' widths, half 16384 (24b) and
@@ -3140,16 +3285,20 @@ def main():
     for what, key, n in (("K9", "nuts_transition_kernel", 4), ("K7h", "hmc_transition_kernel", 4),
                          ("K7's block form", "logpost_grad_block_kernel", 4),
                          ("K4p", "epoch_map_polish_kernel", 4),
-                         ("the epoch half-step", "EpochBBModel", 32)):
+                         ("the epoch half-step", "EpochBBModel", 32),
+                         ("the SC3 log-posterior", "logpost_warp_kernelI12SC3WarpModel", 8),
+                         ("K6c", "replica_swap_kernel", 18)):
         block[what] = [v for k, v in report.items() if key in k]
         if len(block[what]) != n or any(v[1] or v[2] or v[3] for v in block[what]):
             raise AssertionError(f"{what} ({n} instantiations) must keep its state in "
                                  f"registers: {block[what]}")
     phase("build", f"{'built' if info['built'] else 'reused'} {os.path.relpath(info['path'], REPO)} "
           f"in {time.perf_counter() - t0:.2f} s; ptxas: {len(regs)} kernels, "
-          f"{sorted(set(r.split('Used ')[-1] for r in regs))[:4]}; the block-per-chain kernels "
-          "(ndim 4, 5; f32, f64), K4p (ndim 2, 3; f32, f64) and the epoch half-step (ndim 2, "
-          "3; its 16 dtype instantiations each): "
+          f"{sorted(set(r.split('Used ')[-1] for r in regs))[:4]}; no stack frame and no "
+          "spills in the block-per-chain kernels (ndim 4, 5; f32, f64), K4p (ndim 2, 3; f32, "
+          "f64), the epoch half-step (ndim 2, 3; its 16 dtype instantiations each), the SC3 "
+          "log-posterior (ndim 7, 8; its 4 dtype instantiations each) and K6c (ndim 1-9; f32, "
+          "f64 state): "
           + "; ".join(f"{what} registers {sorted(set(v[0] for v in ks))}, stack frames "
                       f"{sorted(set(v[1] for v in ks))} bytes, spills "
                       f"{sorted(set(v[2] + v[3] for v in ks))}" for what, ks in block.items()))
@@ -3158,6 +3307,7 @@ def main():
     k1 = phase_k1(lc)
     k2 = phase_k2(lc)
     launches = phase_main_path(lc, smi)
+    phase_sc2_seeds(lc)
     lcf = flux_lc(lc)
     k3 = phase_k3(lcf)
     k_sc3 = phase_sc3_logpost(lcf)
@@ -3198,7 +3348,8 @@ def main():
         dict(name="bandflux_kernel (K3)", route="cuda", source=src3,
              replaces="0ee4f99:lightcurve_fitting_tpu/ops/pallas_bandflux.py:61",
              launches=launches_sc3["bandflux"], **k3),
-        dict(name="sc3_logpost_kernel (SC3 log-posterior)", route="cuda", source=src3,
+        dict(name="logpost_warp_kernel<SC3WarpModel> (SC3 log-posterior)", route="cuda",
+             source=src3,
              replaces="lightcurve_fitting_tpu/models/shock_cooling.py:201",
              launches=launches_sc3["sc3_logpost"], **k_sc3),
         dict(name="stretch_half_step_kernel<SC3WarpModel> (SC3 half-step)", route="cuda",
@@ -3228,7 +3379,7 @@ def main():
              source="lightcurve_fitting_tpu_torch/kernels/csrc/ladder.cuh",
              replaces="lightcurve_fitting_tpu/parallel/evidence.py:229",
              launches=launches_ladder["ladder_init"], **k6b),
-        dict(name="replica_swap_kernel (K6c)", route="cuda",
+        dict(name="replica_swap_kernel<S, N> (K6c)", route="cuda",
              source="lightcurve_fitting_tpu_torch/kernels/csrc/ladder.cu",
              replaces="lightcurve_fitting_tpu/parallel/evidence.py:95",
              launches=launches_ladder["replica_swap"], **k6c),

@@ -11,19 +11,27 @@
 //       terms log mean exp(dbeta_k log L_k) over each block of production
 //       steps.
 //
-// What bounds them on the H100: device memory. The swap reads and writes a
-// few dozen bytes a walker with a handful of flops; the block terms read the
-// production log L, (nsteps, K+1, 2, half) float64 (83.6 MB at 150 steps x
-// 17 rungs x 4096 walkers), once for the maximum and once for the sum of
-// exponentials, an exp a value.
-// What the design does about it: the swap is one thread per (rung pair,
-// walker): the lower rung's thread reads both members, decides once (the two
-// rows' acceptance ratios are the same number: both factors change sign) and
-// writes both, so nothing races and the pair shares its uniform as in the
-// JAX graph; the same launch writes the step's production outputs, so they
-// cost no launch of their own. The block terms run one block per (block of
-// steps, rung), a strided max pass and a strided sum pass with warp-shuffle
-// reductions; the second read mostly hits the 50 MB L2 for short blocks.
+// What bounds them on the H100: device memory, and for the swap the latency
+// of its loads. The swap reads and writes a few dozen bytes a walker with a
+// handful of flops: 5.9 MB at the evidence's 17 rungs x 4096 walkers (1.8
+// us at 3.35 TB/s), a few kilobytes at the PT fits' 7 x 32, where a step is
+// the round trips to memory that its dependent loads make. The block terms
+// read the production log L, (nsteps, K+1, 2, half) float64 (83.6 MB at 150
+// steps x 17 rungs x 4096 walkers), once for the maximum and once for the
+// sum of exponentials, an exp a value.
+// What the design does about it: the swap is one thread per (unit, walker),
+// a unit being a rung pair or an unpaired edge rung, so no thread of the
+// grid is idle: a pair's thread issues every load of both members (the two
+// state rows as whole vectors, log pi, log L, the betas, its uniform and
+// the swap counts) before it decides, so a step costs one round trip, then
+// decides once (the two rows' acceptance ratios are the same number: both
+// factors change sign) and writes both rows from registers, so nothing races
+// and the pair shares its uniform as in the JAX graph; the same launch writes
+// the step's production outputs, so they cost no launch of their own. The
+// row's length is a template parameter (1-9). The block terms run one block
+// per (block of steps, rung), a strided max pass and a strided sum pass with
+// warp-shuffle reductions; the second read mostly hits the 50 MB L2 for short
+// blocks.
 
 #include "stretch.cuh"
 
@@ -38,55 +46,116 @@ __device__ __forceinline__ int swap_partner(int r, int parity, int n_rungs) {
     return p >= n_rungs ? r : p;
 }
 
-// K6c: the replica exchange of one step, in place. x (R, W, ndim), logpri and
+// The lower rung of unit u of the exchange at this step's parity: the units
+// are the pairs and the unpaired edge rungs, in rung order (0, 2, 4, ... at
+// even parity; 0, 1, 3, 5, ... at odd parity), ceil(R / 2) and 1 + R / 2 of
+// them.
+__device__ __forceinline__ int unit_rung(int u, int parity) {
+    return parity ? (u == 0 ? 0 : 2 * u - 1) : 2 * u;
+}
+
+static inline int n_units(int n_rungs, int parity) {
+    return parity ? 1 + n_rungs / 2 : (n_rungs + 1) / 2;
+}
+
+// A walker's state row of N elements of S in registers, moved as whole
+// vectors V: the widest of int4, int2 and int whose size divides the row's
+// bytes, so that every row of an aligned array starts on a V boundary (a
+// float32 row of 4 is one 16-byte vector, of 7 seven words).
+template <typename S, int N>
+struct StateRow {
+    static constexpr int bytes = N * (int)sizeof(S);
+    typedef typename std::conditional<
+        bytes % 16 == 0, int4, typename std::conditional<bytes % 8 == 0, int2, int>::type>::type V;
+    static constexpr int n = bytes / (int)sizeof(V);
+    V v[n];
+    __device__ __forceinline__ void load(const S* base, size_t row) {
+        const V* p = reinterpret_cast<const V*>(base) + row * n;
+#pragma unroll
+        for (int k = 0; k < n; ++k) v[k] = p[k];
+    }
+    __device__ __forceinline__ void store(S* base, size_t row) const {
+        V* p = reinterpret_cast<V*>(base) + row * n;
+#pragma unroll
+        for (int k = 0; k < n; ++k) p[k] = v[k];
+    }
+};
+
+// K6c: the replica exchange of one step, in place. x (R, W, N), logpri and
 // logl (R, W) float64 with W = 2 half; betas (R,); u (R, W) uniforms, a pair
 // reading its lower rung's row. A pair (r, r+1) exchanges walker w's states
 // when log u < (beta_{r+1} - beta_r)(ll_r - ll_{r+1}) and both ll are finite.
 // When given: n_swap (R, W) int32 counts the exchanges of both rows,
-// logl_out (R, W) receives the post-swap log L, cold_out (W, ndim) the last
-// rung's post-swap states.
-template <typename S>
-__global__ void replica_swap_kernel(S* __restrict__ x, int ndim, double* __restrict__ logpri,
+// logl_out (R, W) receives the post-swap log L, cold_out (W, N) the last
+// rung's post-swap states. A thread per (unit, walker), blockIdx.y the unit:
+// a pair's thread issues every load of both members (their state rows
+// whether or not they move, as whole vectors) before the decision, so the
+// step costs one round trip to memory, then writes both rows.
+template <typename S, int N>
+__global__ void replica_swap_kernel(S* __restrict__ x, double* __restrict__ logpri,
                                     double* __restrict__ logl, const double* __restrict__ betas,
                                     int n_rungs, int W, const S* __restrict__ u, int parity,
                                     int* __restrict__ n_swap, double* __restrict__ logl_out,
                                     S* __restrict__ cold_out) {
     const int w = blockIdx.x * blockDim.x + threadIdx.x;
     if (w >= W) return;
-    const int r = blockIdx.y;
+    const int r = unit_rung(blockIdx.y, parity);
     const int q = swap_partner(r, parity, n_rungs);
-    if (q < r) return;    // the pair's lower rung does the work
-    const size_t a = (size_t)r * W + w;
     const int cold = n_rungs - 1;
-    if (q != r) {
-        const size_t b = (size_t)q * W + w;
-        const double lla = logl[a], llb = logl[b];
-        const double log_acc = __dmul_rn(__dsub_rn(betas[q], betas[r]), __dsub_rn(lla, llb));
-        // a log L of -inf (a NaN-likelihood start) never moves between rungs
-        const bool acc = (double)m_log(u[a]) < log_acc && isfinite(lla) && isfinite(llb);
-        if (acc) {
-            for (int k = 0; k < ndim; ++k) {
-                const S t = x[a * ndim + k];
-                x[a * ndim + k] = x[b * ndim + k];
-                x[b * ndim + k] = t;
-            }
-            const double tp = logpri[a];
-            logpri[a] = logpri[b];
-            logpri[b] = tp;
-            logl[a] = llb;
-            logl[b] = lla;
+    const size_t a = (size_t)r * W + w;
+    if (q == r) {   // an unpaired edge rung: only the production outputs
+        if (logl_out != nullptr) logl_out[a] = logl[a];
+        if (cold_out != nullptr && r == cold) {
+            StateRow<S, N> xa;
+            xa.load(x, a);
+            xa.store(cold_out, w);
         }
-        if (n_swap != nullptr) {
-            n_swap[a] += acc ? 1 : 0;
-            n_swap[b] += acc ? 1 : 0;
-        }
-        if (logl_out != nullptr) logl_out[b] = logl[b];
-        if (cold_out != nullptr && q == cold)
-            for (int k = 0; k < ndim; ++k) cold_out[(size_t)w * ndim + k] = x[b * ndim + k];
+        return;
     }
-    if (logl_out != nullptr) logl_out[a] = logl[a];
-    if (cold_out != nullptr && r == cold)
-        for (int k = 0; k < ndim; ++k) cold_out[(size_t)w * ndim + k] = x[a * ndim + k];
+    const size_t b = (size_t)q * W + w;
+    StateRow<S, N> xa, xb;
+    xa.load(x, a);
+    xb.load(x, b);
+    const double lla = logl[a], llb = logl[b], pa = logpri[a], pb = logpri[b];
+    const double br = betas[r], bq = betas[q];
+    const S ua = u[a];
+    const int na = n_swap != nullptr ? n_swap[a] : 0, nb = n_swap != nullptr ? n_swap[b] : 0;
+    const double log_acc = __dmul_rn(__dsub_rn(bq, br), __dsub_rn(lla, llb));
+    // a log L of -inf (a NaN-likelihood start) never moves between rungs
+    const bool acc = (double)m_log(ua) < log_acc && isfinite(lla) && isfinite(llb);
+    if (acc) {
+        xb.store(x, a);
+        xa.store(x, b);
+        logpri[a] = pb;
+        logpri[b] = pa;
+        logl[a] = llb;
+        logl[b] = lla;
+    }
+    if (n_swap != nullptr) {
+        n_swap[a] = na + (acc ? 1 : 0);
+        n_swap[b] = nb + (acc ? 1 : 0);
+    }
+    if (logl_out != nullptr) {
+        logl_out[a] = acc ? llb : lla;
+        logl_out[b] = acc ? lla : llb;
+    }
+    if (cold_out != nullptr && q == cold) {   // rung q's post-swap row, chosen word by word
+        StateRow<S, N> c;                      // (a choice of a whole row would address the
+#pragma unroll                                 // rows, and put them on the stack)
+        for (int k = 0; k < StateRow<S, N>::n; ++k) c.v[k] = acc ? xa.v[k] : xb.v[k];
+        c.store(cold_out, w);
+    }
+}
+
+template <typename S, int N>
+static void launch_swap(void* x, double* logpri, double* logl, const double* betas, int n_rungs,
+                        int W, const void* u, int parity, int* n_swap, double* logl_out,
+                        void* cold_out, cudaStream_t stream) {
+    const int threads = 128;
+    const dim3 grid((W + threads - 1) / threads, n_units(n_rungs, parity));
+    replica_swap_kernel<S, N><<<grid, threads, 0, stream>>>(
+        (S*)x, logpri, logl, betas, n_rungs, W, (const S*)u, parity, n_swap, logl_out,
+        (S*)cold_out);
 }
 
 struct TermBlocks {
@@ -152,18 +221,33 @@ int replica_swap_launch(int device, void* x, int state_f64, int ndim, double* lo
     int rc = (int)cudaSetDevice(device);
     if (rc) return rc;
     if (W <= 0 || n_rungs <= 0) return 0;
-    if (n_rungs > 65535 || ndim > LP_MAX_DIM) return (int)cudaErrorInvalidValue;
+    if (n_rungs > 65535 || ndim < 1 || ndim > LP_MAX_DIM) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    const int threads = 128;
-    const dim3 grid((W + threads - 1) / threads, n_rungs);
-    if (state_f64)
-        replica_swap_kernel<double><<<grid, threads, 0, s>>>(
-            (double*)x, ndim, logpri, logl, betas, n_rungs, W, (const double*)u, parity, n_swap,
-            logl_out, (double*)cold_out);
-    else
-        replica_swap_kernel<float><<<grid, threads, 0, s>>>(
-            (float*)x, ndim, logpri, logl, betas, n_rungs, W, (const float*)u, parity, n_swap,
-            logl_out, (float*)cold_out);
+    parity = parity ? 1 : 0;
+    const int key = state_f64 * 16 + ndim;
+#define LP_SWAP_CASE(N)                                                                      \
+    case N:                                                                                  \
+        launch_swap<float, N>(x, logpri, logl, betas, n_rungs, W, u, parity, n_swap,         \
+                              logl_out, cold_out, s);                                        \
+        break;                                                                               \
+    case 16 + N:                                                                             \
+        launch_swap<double, N>(x, logpri, logl, betas, n_rungs, W, u, parity, n_swap,        \
+                               logl_out, cold_out, s);                                       \
+        break;
+    switch (key) {
+        LP_SWAP_CASE(1)
+        LP_SWAP_CASE(2)
+        LP_SWAP_CASE(3)
+        LP_SWAP_CASE(4)
+        LP_SWAP_CASE(5)
+        LP_SWAP_CASE(6)
+        LP_SWAP_CASE(7)
+        LP_SWAP_CASE(8)
+        LP_SWAP_CASE(9)
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
+#undef LP_SWAP_CASE
     return (int)cudaGetLastError();
 }
 

@@ -14,7 +14,8 @@
 //       (ShockCooling3._eval_points), ops/mathx.py and K3.
 //   SC3 half-step: parallel/sampler.py:38-57, :86-95, :97-104 and :205-225,
 //       the stretch_half_step_kernel template of stretch.cuh over
-//       SC3WarpModel, a warp per walker.
+//       SC3WarpModel, a warp per walker; the batch log-posterior (a fit's
+//       initial state) its logpost_warp_kernel over the same policy.
 //   K6a, K6b over ShockCooling3: the templates of ladder.cuh over SC3Model.
 //
 // What bounds it on the H100: the special functions. Each quadrature term
@@ -27,12 +28,13 @@
 // block in shared memory and indexed through each point's band id, so no
 // per-point (N, K) gather is ever materialized, and each point sums only its
 // band's native nodes (the zero-weight padding past them adds nothing to a
-// finite sum), 5738 terms against 13261. The batch log-posterior runs one
-// thread per walker over the points in order, so a warp works on one band
-// at a time (broadcast table reads, one loop length). The half-step runs a
-// warp per walker: a thread per walker left the fits' widths with one warp
-// of 4 per SM (half 16384) or a single warp (half 32), so that the latency
-// of one thread's 5738 terms set both at ~1.25 ms. The lanes take the points
+// finite sum), 5738 terms against 13261. The half-step and the batch
+// log-posterior run a warp per walker: a thread per walker left the fits'
+// widths with one warp of 4 per SM (half 16384, or the 32768 walkers of an
+// initial state) or a single warp (half 32, 64 walkers), so that the latency
+// of one thread's 5738 terms set each at ~1.25 ms. K6a and K6b over SC3 keep
+// a thread per walker over the points in order, so a warp works on one band
+// at a time (broadcast table reads, one loop length). The lanes take the points
 // in the order of kernels/sc3.py::point_order, by descending native node
 // count, so the 32 points a warp runs at once have near-equal loop lengths:
 // a lane runs 212 nodes on the flagship (440 in the time order), 85% of its
@@ -43,9 +45,10 @@
 // One __device__ function (band_flux, planck.cuh) carries the band sum for
 // all the kernels, so a proposal's band fluxes are bit-identical to K3's
 // evaluation of the same T, R and E(B-V) over the same nodes; the epoch
-// blackbody kernels of epoch_bb.cu call it too. The half-step's residual sum
-// runs in another order than the batch kernel's, so their log-posteriors of
-// one point agree to rounding, not bit for bit.
+// blackbody kernels of epoch_bb.cu call it too. The half-step and the batch
+// log-posterior share the warp's residual sum, so a state's batch value has
+// the bits the half-step stored when it accepted that state; K6a and K6b over
+// SC3 sum in another order, and agree with them to rounding.
 //
 // Dtype semantics follow the JAX accelerator path: the SW17 power laws run
 // in the compute type C on C-cast parameters, tt = C(t - t_ref) - C(t_exp -
@@ -232,10 +235,12 @@ struct SC3Walker {
     double dist2;
 };
 
-template <typename C>
+// N: the walker's dimension at compile time (then p may live in
+// registers), or 0 (P.ndim).
+template <typename C, int N = 0>
 __device__ __forceinline__ SC3Walker<C> sc3_walker(const double* p, const SC3Params& P) {
     SC3Walker<C> w;
-    const int ndim = (int)P.ndim;
+    const int ndim = N > 0 ? N : (int)P.ndim;
     w.v_s = (C)p[0];
     const C M_env = (C)p[1];
     const C f_rho_M = (C)p[2];
@@ -311,15 +316,6 @@ __device__ double sc3_log_likelihood_warp(const SC3Walker<C>& w, const SC3Data<C
     return finish_log_likelihood<C>(warp_sum(acc), P.use_sigma, P.ll_offset, P.log_norm_const);
 }
 
-// The log-posterior of one walker: the prior sum (-inf outside the open
-// bounds, and then the likelihood is not evaluated) plus the log-likelihood.
-template <typename C>
-__device__ double sc3_log_posterior(const double* p, const SC3Data<C>& d, const SC3Params& P) {
-    const double lprior = log_prior(P, p);
-    if (!isfinite(lprior)) return -INFINITY;
-    return lprior + sc3_log_likelihood<C>(p, d, P);
-}
-
 // The model policy of stretch.cuh and ladder.cuh for ShockCooling3 in
 // compute type C.
 template <typename C>
@@ -337,17 +333,24 @@ struct SC3Model {
     }
 };
 
-// The SC3 half-step's policy: the warp form (stretch_half_step_kernel), its
-// data with the point order; four warps a block, a walker a warp
+// The policy of the SC3 half-step and batch log-posterior: the warp form
+// (stretch_half_step_kernel, logpost_warp_kernel), its data with the point
+// order; four warps a block, a walker a warp
 // (not batched: every lane forms the walker's proposal and factors), a block
-// for every four walkers.
-template <typename C>
+// for every four walkers. N: the walker's dimension at compile time
+// (policy_dim), or 0 (P.ndim). The batch log-posterior takes N = 7, or 8
+// with the intrinsic scatter, so that the walker's parameters live in
+// registers (at a runtime dimension they took a 72-byte stack frame and
+// 1.2% of its time on the H100); the half-step keeps N = 0 (at N = 8 it
+// spills under its launch bound).
+template <typename C, int N>
 struct SC3WarpModel : SC3Model<C> {
     typedef SC3Walker<C> Walker;
     static constexpr int warps_per_block = 4;
     static constexpr bool batched = false;
+    static constexpr int ndim = N;
     static __device__ Walker walker(const double* p, const SC3Params& P) {
-        return sc3_walker<C>(p, P);
+        return sc3_walker<C, N>(p, P);
     }
     static __device__ double log_likelihood_warp(const Walker& w, const SC3Data<C>& d,
                                                  const SC3Params& P) {
@@ -362,37 +365,14 @@ struct SC3WarpModel : SC3Model<C> {
     }
 };
 
-// out[w] = SC3 log-posterior of walker state q[w, :] (affine-mapped when
-// has_affine), for the initial state and LogPosterior.forward.
-template <typename C, typename S>
-__global__ void __launch_bounds__(LP_THREADS)
-sc3_logpost_kernel(const SC3Params P, const S* __restrict__ q, int W,
-                   double* __restrict__ out, int use_smem) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    const SC3Data<C> d = stage_sc3<C>(P, smem_raw, use_smem, false);
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= W) return;
-    const int ndim = (int)P.ndim;
-    double p[LP_MAX_DIM];
-    for (int k = 0; k < ndim; ++k) p[k] = to_absolute(P, k, q[(size_t)i * ndim + k]);
-    out[i] = sc3_log_posterior<C>(p, d, P);
-}
+template <typename C>
+using SC3WarpModelAnyDim = SC3WarpModel<C, 0>;
+template <typename C>
+using SC3WarpModel7 = SC3WarpModel<C, 7>;
+template <typename C>
+using SC3WarpModel8 = SC3WarpModel<C, 8>;
 
 // ------------------------------------------------------------------ launch
-
-template <typename C, typename S>
-static int launch_sc3_logpost(const SC3Params& P, const void* q, int W, double* out,
-                              cudaStream_t stream) {
-    auto kernel = sc3_logpost_kernel<C, S>;
-    int use_smem = 0;
-    size_t bytes = sc3_stage_bytes<C>(P, false);
-    int rc = smem_plan(kernel, bytes, &use_smem);
-    if (rc) return rc;
-    const int blocks = (W + LP_THREADS - 1) / LP_THREADS;
-    kernel<<<blocks, LP_THREADS, use_smem ? bytes : 0, stream>>>(
-        P, (const S*)q, W, out, use_smem);
-    return (int)cudaGetLastError();
-}
 
 template <typename C>
 static int launch_bandflux(const BandfluxParams& P, cudaStream_t stream) {
@@ -420,31 +400,29 @@ int bandflux_launch(const BandfluxParams* P, int device, int compute_f64, void* 
     return compute_f64 ? launch_bandflux<double>(*P, s) : launch_bandflux<float>(*P, s);
 }
 
-// SC3 log-posterior launch. Returns 0 or a cudaError_t code.
+// SC3 log-posterior launch, a warp per walker (logpost_warp_kernel over
+// SC3WarpModel of the walker's dimension, 7 or 8). Returns 0 or a
+// cudaError_t code.
 int sc3_logpost_launch(const SC3Params* P, int device, int compute_f64, const void* q,
                        int q_f64, int W, double* out, void* stream) {
-    int rc = (int)cudaSetDevice(device);
-    if (rc) return rc;
-    if (W <= 0) return 0;
-    if (P->ndim > LP_MAX_DIM) return (int)cudaErrorInvalidValue;
-    cudaStream_t s = (cudaStream_t)stream;
-    if (compute_f64)
-        return q_f64 ? launch_sc3_logpost<double, double>(*P, q, W, out, s)
-                     : launch_sc3_logpost<double, float>(*P, q, W, out, s);
-    return q_f64 ? launch_sc3_logpost<float, double>(*P, q, W, out, s)
-                 : launch_sc3_logpost<float, float>(*P, q, W, out, s);
+    if (P->ndim == 7)
+        return launch_logpost<SC3WarpModel7>(P, device, compute_f64, q, q_f64, W, out, stream);
+    if (P->ndim == 8)
+        return launch_logpost<SC3WarpModel8>(P, device, compute_f64, q, q_f64, W, out, stream);
+    return (int)cudaErrorInvalidValue;
 }
 
-// SC3 half-step launch, a warp per walker (SC3WarpModel); the arguments of
-// stretch_half_step_launch (sc2_logpost.cu). Returns 0 or a cudaError_t code.
+// SC3 half-step launch, a warp per walker (SC3WarpModel, the walker's
+// dimension at run time); the arguments of stretch_half_step_launch
+// (sc2_logpost.cu). Returns 0 or a cudaError_t code.
 int sc3_half_step_launch(const SC3Params* P, int device, int compute_f64, void* x,
                          int state_f64, double* logp, int half, int h, const void* u_z,
                          const long long* j, const void* u_acc, double a, void* chain_x,
                          int chain_x_f64, void* chain_lp, int chain_lp_f64, int* n_accept,
                          void* stream) {
-    return launch_half_step<SC3WarpModel>(P, device, compute_f64, x, state_f64, logp, half, h,
-                                          u_z, j, u_acc, a, chain_x, chain_x_f64, chain_lp,
-                                          chain_lp_f64, n_accept, stream);
+    return launch_half_step<SC3WarpModelAnyDim>(P, device, compute_f64, x, state_f64, logp,
+                                                half, h, u_z, j, u_acc, a, chain_x, chain_x_f64,
+                                                chain_lp, chain_lp_f64, n_accept, stream);
 }
 
 // K6a launch over ShockCooling3 (ladder.cuh). Returns 0 or a cudaError_t code.

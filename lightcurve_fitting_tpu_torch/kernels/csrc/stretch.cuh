@@ -1,6 +1,7 @@
 // Pieces shared by the fused log-posterior kernels of csrc/*.cu: device math
 // overloads, the priors, the Gaussian residual, and the stretch-move
-// half-step (K2) as a template over a model policy.
+// half-step (K2) and the batch log-posterior as templates over a model
+// policy.
 //
 // A model policy M (SC2Model in sc2_logpost.cu, SC3Model in sc3_logpost.cu,
 // EpochBBModel in epoch_bb.cu, CSModel in companion.cu) provides
@@ -16,7 +17,8 @@
 // the prior (a log_posterior is log_prior plus that value). A policy whose
 // half-step runs a warp per walker (stretch_half_step_kernel: SC2WarpModel,
 // SC3WarpModel, CSWarpModel, EpochBBModel; tempered_half_step_kernel with
-// WARP: SC2WarpModel, CSWarpModel) provides
+// WARP: SC2WarpModel, CSWarpModel; the batch log-posterior
+// logpost_warp_kernel: SC3WarpModel) provides
 //   typedef ... Walker;  // a walker's constants (32-bit words, copied by value)
 //   static __device__ Walker walker(const double* p, const Params&);
 //   static __device__ double log_likelihood_warp(const Walker&, const Data&, const Params&);
@@ -87,7 +89,8 @@ struct block_limit<M, std::void_t<decltype(M::warps_per_block)>> {
 };
 
 // The walker dimension of a policy M known at compile time: M::ndim where
-// the policy has one (EpochBBModel), else 0 (P.ndim at run time).
+// the policy has one (EpochBBModel, SC3WarpModel), else 0; 0 is P.ndim at
+// run time.
 template <typename M, typename = void>
 struct policy_dim {
     static constexpr int value = 0;
@@ -329,6 +332,57 @@ stretch_half_step_kernel(const typename M::Params P, S* __restrict__ x,
     }
 }
 
+// The log-posteriors of walkers b0 .. b0 + nb - 1 of q, a warp per walker, as
+// half_step_batch evaluates a proposal: lane l maps walker b0 + l's state to
+// absolute parameters and forms its log-prior and, where that is finite, its
+// constants (with nb = 1 every lane forms walker b0's), warp_batch_ll gives
+// each its log-likelihood, and lane l writes its walker's value (lane 0 with
+// nb = 1): -inf outside the priors, and for a NaN.
+template <typename M, typename S>
+__device__ __forceinline__ void logpost_batch(const typename M::Params& P,
+                                              const typename M::Data& d, const S* q,
+                                              double* out, int b0, int nb) {
+    const int lane = threadIdx.x & 31;
+    const bool own = nb == 1 || lane < nb;
+    const int i = b0 + (nb == 1 ? 0 : lane);
+    constexpr int D = policy_dim<M>::value;
+    const int ndim = D > 0 ? D : (int)P.ndim;
+    double lprior = -INFINITY;
+    typename M::Walker wk;
+    if (own) {
+        double p[D > 0 ? D : LP_MAX_DIM];
+        for (int k = 0; k < ndim; ++k) p[k] = to_absolute(P, k, q[(size_t)i * ndim + k]);
+        lprior = log_prior<D>(P, p);
+        if (isfinite(lprior)) wk = M::walker(p, P);
+    }
+    const double ll = warp_batch_ll<M>(wk, lprior, nb, d, P);
+    if (lane >= nb) return;
+    const double lp = isfinite(lprior) ? lprior + ll : -INFINITY;
+    out[i] = isnan(lp) ? -INFINITY : lp;
+}
+
+// The batch log-posterior over a warp policy M: out[i] = log_prior + log L of
+// walker state q[i, :] (W, ndim), affine-mapped when has_affine, float64; the
+// initial state of a fit and LogPosterior.forward. A warp per walker
+// (logpost_batch) in the half-step's layout (warp_layout) and staging, so a
+// state's value has the bits that the half-step of the same policy stores
+// when it accepts that state as a proposal.
+template <typename M, typename S>
+__global__ void __launch_bounds__(block_limit<M>::value)
+logpost_warp_kernel(const typename M::Params P, const S* __restrict__ q, int W,
+                    double* __restrict__ out, int use_smem, int batch) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const typename M::Data d = M::stage(P, smem_raw, use_smem, 0);
+    const int per_block = blockDim.x >> 5;
+    const int bsz = M::batched ? batch : 1;   // (a constant 1 when not batched)
+    const int n_batches = (W + bsz - 1) / bsz;
+    for (int b = blockIdx.x * per_block + (threadIdx.x >> 5); b < n_batches;
+         b += gridDim.x * per_block) {   // (whole warps)
+        const int b0 = b * bsz;
+        logpost_batch<M, S>(P, d, q, out, b0, M::batched && W - b0 < bsz ? W - b0 : bsz);
+    }
+}
+
 // ------------------------------------------------------------------ launch
 
 // The card's opt-in shared-memory limit per block, read once per device and
@@ -489,4 +543,36 @@ static int launch_half_step(const typename M<float>::Params* P, int device, int 
     }
 #undef LP_HALF_CASE
     return (int)cudaErrorInvalidValue;
+}
+
+template <typename M, typename S>
+static int launch_logpost_warp(const typename M::Params& P, const void* q, int W, double* out,
+                               cudaStream_t stream) {
+    auto kernel = logpost_warp_kernel<M, S>;
+    int use_smem = 0;
+    const size_t bytes = M::stage_bytes(P);
+    int rc = smem_plan(kernel, bytes, &use_smem);
+    if (rc) return rc;
+    const WarpLayout lay = warp_layout<M>(kernel, W, use_smem ? bytes : 0);
+    kernel<<<lay.blocks, lay.threads, use_smem ? bytes : 0, stream>>>(P, (const S*)q, W, out,
+                                                                      use_smem, lay.batch);
+    return (int)cudaGetLastError();
+}
+
+// The batch log-posterior launch (logpost_warp_kernel) for the warp policy
+// M<C> of the compute type C and the state's type, each float or double.
+// Returns 0 or a cudaError_t code.
+template <template <typename> class M>
+static int launch_logpost(const typename M<float>::Params* P, int device, int compute_f64,
+                          const void* q, int q_f64, int W, double* out, void* stream) {
+    int rc = (int)cudaSetDevice(device);
+    if (rc) return rc;
+    if (W <= 0) return 0;
+    if (P->ndim > LP_MAX_DIM) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (compute_f64)
+        return q_f64 ? launch_logpost_warp<M<double>, double>(*P, q, W, out, s)
+                     : launch_logpost_warp<M<double>, float>(*P, q, W, out, s);
+    return q_f64 ? launch_logpost_warp<M<float>, double>(*P, q, W, out, s)
+                 : launch_logpost_warp<M<float>, float>(*P, q, W, out, s);
 }

@@ -5,8 +5,10 @@ fused ShockCooling3 log-posterior and half-step built on it.
   L_nu per point, the CUDA route of
   :func:`~lightcurve_fitting_tpu_torch.models.blackbody.bandflux_pointwise`,
   whose plain version is ``bandflux_pointwise_plain`` beside it.
-* :func:`log_posterior` (``sc3_logpost_kernel``): the SC3 log-posterior of
-  a batch of walker states; plain version ``LogPosterior.forward_plain``.
+* :func:`log_posterior` (``logpost_warp_kernel`` over ``SC3WarpModel``, a warp
+  per walker as the half-step, whose stored values it repeats bit for bit):
+  the SC3 log-posterior of a batch of walker states; plain version
+  ``LogPosterior.forward_plain``.
 * :func:`stretch_half_step` (``stretch_half_step_kernel`` over
   ``SC3WarpModel``, one warp per walker, its lanes over the points in the
   order of :func:`point_order`): one stretch-move half-step, in place; plain
@@ -203,7 +205,7 @@ def log_posterior(lp, q, param_offset=None, param_scale=None):
                                 q.data_ptr(), int(q.dtype == torch.float64), W,
                                 out.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"sc3_logpost_kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"logpost_warp_kernel (SC3) launch failed: cudaError {rc}")
     LAUNCHES["sc3_logpost"] += 1
     return out
 

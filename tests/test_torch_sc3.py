@@ -308,9 +308,49 @@ def jax_sc3_acceptance(seeds=range(1, 9), nwalkers=4096, nsteps=300):
     return out
 
 
+def jax_sc2_acceptance(seeds=range(1, 9), nwalkers=4096, nsteps=300, f32=False):
+    """The JAX package's mean acceptance on the CPU of the flagship fit
+    (ShockCooling2 on SN 2016bkv's early curve, the flagship priors and init
+    window, ``nwalkers`` x ``nsteps`` steps from the window, no burn-in, one
+    run a seed, ``shard=False``) that ``chip_smoke.py`` phase 5c runs on the
+    card: float64, or with ``f32`` float32 compute over the float32
+    rescaled walker state, as the JAX package runs on an accelerator.
+    Returns {seed: acceptance}. A few seconds a seed."""
+    import contextlib
+    import io
+    from lightcurve_fitting_tpu.fitting import lightcurve_mcmc as j_mcmc
+    from lightcurve_fitting_tpu.models import ShockCooling2 as J2
+    lc = JLC.read(EXAMPLE)
+    lc.meta.update(dm=30.79, redshift=0.002, extinction={
+        "U": 0.069, "B": 0.061, "g": 0.055, "V": 0.045, "0": 0.035,
+        "r": 0.038, "R": 0.035, "i": 0.028, "I": 0.020})
+    lc.calcAbsMag()
+    lc.calcLum()
+    early = lc.where(MJD_min=57468.0, MJD_max=57485.0)
+    priors = [JU(0.0, 100.0), JU(0.0, 100.0), JU(0.0, 100.0), JU(57468.0, 57468.7)]
+    out = {}
+    try:
+        if f32:
+            jconfig.set_compute_dtype(jnp.float32)
+        for seed in seeds:
+            with contextlib.redirect_stdout(io.StringIO()):
+                s = j_mcmc(early, J2(early), priors, p_lo=[20.0, 2.0, 20.0, 57468.5],
+                           p_up=[50.0, 5.0, 50.0, 57468.7], nwalkers=nwalkers, nsteps=nsteps,
+                           nsteps_burnin=0, seed=seed, shard=False, quiet=True,
+                           state_dtype=np.float32 if f32 else np.float64)
+            out[seed] = float(np.mean(s.acceptance_fraction))
+    finally:
+        jconfig.set_compute_dtype(jconfig.AUTO)
+    return out
+
+
 if __name__ == "__main__":
-    acc = jax_sc3_acceptance()
-    for seed, a in acc.items():
-        print(f"seed {seed}: acceptance {a!r}")
-    vals = np.array(list(acc.values()))
-    print(f"mean {vals.mean()!r} +/- {vals.std(ddof=1) / np.sqrt(len(vals))!r}")
+    import sys
+    runs = ({"sc2 f64": jax_sc2_acceptance, "sc2 f32": lambda: jax_sc2_acceptance(f32=True)}
+            if sys.argv[1:] == ["sc2"] else {"sc3": jax_sc3_acceptance})
+    for label, fn in runs.items():
+        acc = fn()
+        for seed, a in acc.items():
+            print(f"{label} seed {seed}: acceptance {a!r}")
+        vals = np.array(list(acc.values()))
+        print(f"{label} mean {vals.mean()!r} +/- {vals.std(ddof=1) / np.sqrt(len(vals))!r}")

@@ -24,7 +24,13 @@ and of the fits, float32 compute, by CUDA events:
   seed 3, over 50 successive transitions from its last state, with their
   mean depth and bound);
 * the SC3 half-step per half-step of half 32, 16384 and 65536 (the 64- and
-  32768-walker fits and the 131072-walker comparison);
+  32768-walker fits and the 131072-walker comparison), hashed from the
+  plain version's initial values;
+* the batch log-posteriors at the widths of the fits' initial states and
+  131072 (SC3: 64, 4096, 32768; CS2: 32, 4096, 32768), hashed; K6c per
+  production step at the ladders' shapes (17 rungs x 4096 and x 32, 7 x 32
+  and x 64), K3 and K8 at one walker (``evaluate``), and a one-element add,
+  the card's time for a kernel with no work;
 * the bolometric path at the bench shape (256 epochs): the epoch half-step
   per half-step of 16 walkers; K4 with its gradient at 256 x 8 (the width
   of the Adam step that a checkout without K4p launches 300 times a
@@ -38,8 +44,9 @@ and of the fits, float32 compute, by CUDA events:
   the centering and 256 x 32 x (200 + 100) with summaries, seed 1) with a
   profiled 13b run's device busy time and idle share, of
   ``lightcurve_map`` (20a), of ``lightcurve_hmc(sampler="hmc")`` (20d), of ``lightcurve_hmc``
-  at its defaults in float32 and float64 (20c), of the ShockCooling3 fit at
-  32768 x 300, of the ShockCooling2 fits of phases 5 and 16 (5a: 64
+  at its defaults in float32 and float64 (20c), of the ShockCooling3 fits
+  of phase 9 (9a: 64 walkers x 200 + 200; 9b: 32768 x 300; 9c: 4096 x 300,
+  seed 1), of the ShockCooling2 fits of phases 5 and 16 (5a: 64
   walkers x 200 + 200; 5b: 131072 x 300; 16a: the evidence at 4096 x 17
   rungs x 150 + 150; 16b: the PT fit, 32 x 7 rungs x 350 + 250) and of the
   CompanionShocking2 fits of phase 24 (a: 32 walkers x 300 + 250; b: 32768
@@ -48,15 +55,16 @@ and of the fits, float32 compute, by CUDA events:
 Each time is printed twice: by CUDA events around a run of launches (the
 stream's time per launch, which a kernel shorter than its wrapper's host
 time does not fill) and, as ``NAME_dev`` for the half-steps, K6a, K6b over
-CS, the CS log-posterior, K8, K7 at its small widths, K7h, K4 at 256 x 8
-and K4p, by the profiler's device timestamps (the kernel's own time). The
-centering's wall is in milliseconds, by the host clock to a synchronize. ``--sass NAME`` prints a hash of the
-SASS of each kernel whose name holds NAME (``cuobjdump``), to tell a
-kernel's code apart from its placement.
+CS, the batch log-posteriors, K6c, K3 and K8 at one walker, K8, K7 at its
+small widths, K7h, K4 at 256 x 8 and K4p, by the profiler's device
+timestamps (the kernel's own time). The centering's wall is in
+milliseconds, by the host clock to a synchronize. ``--sass NAME`` prints a
+hash of the SASS of each kernel whose name holds NAME (``cuobjdump``), to
+tell a kernel's code apart from its placement.
 Each kernel's outputs at fixed inputs are hashed (``digest``): two checkouts
 whose kernel computes the same bits print the same digest. The ptxas report
-of the gradient kernels, of the SC2, SC3, CS and epoch warp kernels and of
-K4p (registers, stack frame, spills) comes from the build.
+of the gradient kernels, of the SC2, SC3, CS and epoch warp kernels, of K4p
+and of K6c (registers, stack frame, spills) comes from the build.
 
 Usage: ``python3 tools/time_port_kernels.py [--repo PATH] [--label NAME]
 [--fits]``. ``--repo`` is the checkout whose ``lightcurve_fitting_tpu_torch``
@@ -94,7 +102,7 @@ SC3_UP = [2.0, 2.0, 20.0, 5.0, D_L + 0.005, 0.1, 57468.7]
 # the ptxas report covers the entry functions whose mangled names hold these
 PTXAS_KERNELS = ("nuts_transition", "hmc_transition", "logpost_grad", "SC2WarpModel",
                  "SC3WarpModel", "stretch_half_step_kernelI8SC3Model", "CSWarpModel", "I7CSModel",
-                 "epoch_map_polish", "EpochBBModel")
+                 "epoch_map_polish", "EpochBBModel", "replica_swap")
 
 
 def events_ms(fn, launches, repeats):
@@ -213,7 +221,7 @@ def main():
                                                       lightcurve_hmc, lightcurve_map,
                                                       lightcurve_mcmc, lightcurve_ptmcmc,
                                                       make_log_posterior)
-    from lightcurve_fitting_tpu_torch.kernels import build, cs, gradient, ladder, sc2, sc3
+    from lightcurve_fitting_tpu_torch.kernels import build, common, cs, gradient, ladder, sc2, sc3
     from lightcurve_fitting_tpu_torch.models import ShockCooling2, ShockCooling3, UniformPrior
     from lightcurve_fitting_tpu_torch.parallel.evidence import make_beta_ladder
     from lightcurve_fitting_tpu_torch.parallel.hmc import (BoundsTransform, WhitenedLogPosterior,
@@ -431,6 +439,10 @@ def main():
         l3 = sc3.log_posterior(lp3, x3.reshape(2 * h3, 7), off3, sc3_).reshape(2, h3)
         if h3 == 65536:
             digests["SC3_logpost"] = digest(l3)
+        # the half-step starts from the plain version's values, so that its
+        # digest holds the half-step's bits alone, not the batch kernel's
+        l3 = torch.cat([common.log_posterior_plain(lp3, c, off3, sc3_)
+                        for c in x3.reshape(2 * h3, 7).split(16384)]).reshape(2, h3)
         half_step(f"SC3_half_{h3}", lambda x_, l_, uz_, j_, ua_, a_: sc3.stretch_half_step(
             lp3, x_, l_, 0, uz_, j_, ua_, 2.0, off3, sc3_, n_accept=a_, check_partners=False),
             x3, l3, h3, 4, launches=20 if h3 > 32 else 100)
@@ -455,6 +467,14 @@ def main():
     ebv = torch.as_tensor(rng.uniform(0.0, 1.0, size=(4096, 1)), device=dev)
     digests["K3"] = digest(bandflux_pointwise(ll3.nodes, ll3.weights, T3, R3, k_ext=ll3.k_ext,
                                               ebv=ebv, band_ids=ll3.band_ids))
+    # K3 at the width of its one launch on the SC3 path (evaluate at 9b's
+    # medians: one walker x the 149 points)
+
+    def k3_one():
+        return bandflux_pointwise(ll3.nodes, ll3.weights, T3[:1], R3[:1], k_ext=ll3.k_ext,
+                                  ebv=ebv[:1], band_ids=ll3.band_ids)
+    times["K3_W1"] = events_ms(k3_one, 100, args.repeats)
+    times["K3_W1_dev"] = device_ms(k3_one, "bandflux", 100, args.repeats)
     packed, truth = chip_smoke.bench_epochs(np.random.default_rng(0), dev)
     ep = EpochPosterior(packed, chip_smoke.bol_priors())
     E = ep.n_epochs
@@ -561,6 +581,11 @@ def main():
     times["K8_dev"] = device_ms(lambda: cs.sifto(t_c, quad_c, *k8_args), "sifto_kernel", 20,
                                 args.repeats)
     digests["K8"] = digest(cs.sifto(t_c, quad_c, *k8_args))
+    # K8 at the width of its launches on the CS path (evaluate: one walker)
+    k8_one = [a[:1] for a in k8_args]
+    times["K8_W1"] = events_ms(lambda: cs.sifto(t_c, quad_c, *k8_one), 100, args.repeats)
+    times["K8_W1_dev"] = device_ms(lambda: cs.sifto(t_c, quad_c, *k8_one), "sifto_kernel", 100,
+                                   args.repeats)
     for hc in (16, 16384, 65536):
         xc = torch.as_tensor((rng.uniform(lo_c, up_c, size=(2 * hc, 7)) - offc) / scc,
                              device=dev).float().reshape(2, hc, 7).contiguous()
@@ -579,6 +604,53 @@ def main():
                                             "ladder_init_kernel", 20, args.repeats)
             digests["CS_K6b"] = digest(*ladder.ladder_init(lpc, x6b, offc, scc))
         tempered(f"CS_K6a_{rc}x{2 * hc}", lpc, xlc, offc, scc, 18)
+
+    # the batch log-posteriors at the widths whose initial state the fits
+    # compute (SC3: 64 in 9a, 4096 in 9c, 32768 in 9b; CS2: 32 in 24a, 32768
+    # in 24b; and 4096 and 131072 beside them), on the sampler's float32
+    # rescaled state, timed and hashed; an rng of their own, so the digests
+    # above keep their inputs
+    rng_b = np.random.default_rng(30)
+    for name, fn_lp, lpb, lo_b, up_b, off_b, sc_b, widths in (
+            ("SC3_logpost", sc3.log_posterior, lp3, SC3_LO, SC3_UP, off3, sc3_,
+             (64, 4096, 32768, 131072)),
+            ("CS_logpost", cs.log_posterior, lpc, lo_c, up_c, offc, scc,
+             (32, 4096, 32768, 131072))):
+        for wb in widths:
+            qb = torch.as_tensor((rng_b.uniform(lo_b, up_b, size=(wb, 7)) - off_b) / sc_b,
+                                 device=dev).float().contiguous()
+
+            def batch(fn_lp=fn_lp, lpb=lpb, qb=qb, off_b=off_b, sc_b=sc_b):
+                return fn_lp(lpb, qb, off_b, sc_b)
+            launches = 20 if wb > 4096 else 100
+            times[f"{name}_W{wb}"] = events_ms(batch, launches, args.repeats)
+            # "logpost": the kernel of either form (the thread form's
+            # sc3_logpost_kernel / cs_logpost_kernel, logpost_warp_kernel)
+            times[f"{name}_W{wb}_dev"] = device_ms(batch, "logpost", launches, args.repeats)
+            digests[f"{name}_W{wb}"] = digest(batch())
+
+    # K6c at the ladders' shapes: the evidence (16a, 24c: 17 rungs x 4096),
+    # compare_models on synthetic photometry (16c: 17 x 32) and the PT fits
+    # (16b: 7 x 32; 24c: 7 x 64), a production step (all outputs); beside
+    # them a one-element add, the card's time for a kernel with no work
+    for Rk, Wk in ((17, 4096), (17, 32), (7, 32), (7, 64)):
+        hk = Wk // 2
+        xk = torch.as_tensor(rng_b.normal(size=(Rk, 2, hk, 4)), device=dev).float()
+        prik = torch.zeros((Rk, 2, hk), dtype=torch.float64, device=dev)
+        llk = torch.as_tensor(-12990.0 + 10.0 * rng_b.normal(size=(Rk, 2, hk)), device=dev)
+        betak = torch.as_tensor(make_beta_ladder(Rk - 1), device=dev)
+        uk = torch.as_tensor(rng_b.random((Rk, 2, hk)), device=dev).float()
+        outk = [torch.zeros((Rk, 2, hk), dtype=torch.int32, device=dev),
+                torch.empty((Rk, 2, hk), dtype=torch.float64, device=dev),
+                torch.empty((2, hk, 4), device=dev)]
+
+        def swap(xk=xk, prik=prik, llk=llk, betak=betak, uk=uk, outk=outk):
+            ladder.replica_swap(xk, prik, llk, betak, uk, 1, *outk)
+        times[f"K6c_{Rk}x{Wk}"] = events_ms(swap, 100, args.repeats)
+        times[f"K6c_{Rk}x{Wk}_dev"] = device_ms(swap, "replica_swap", 100, args.repeats)
+    one = torch.zeros(1, device=dev)
+    times["add1"] = events_ms(lambda: one.add_(1.0), 100, args.repeats)
+    times["add1_dev"] = device_ms(lambda: one.add_(1.0), "elementwise", 100, args.repeats)
 
     if args.fits:
         # the bolometric fits of chip_smoke.py phase 13, two runs each: (13a)
@@ -640,15 +712,23 @@ def main():
                 walls[f"lightcurve_hmc_{label}"] = time.perf_counter() - t0
             finally:
                 config.set_compute_dtype(config.AUTO)
+        # the ShockCooling3 fits of chip_smoke.py phase 9, two runs each:
+        # (9a) 64 walkers x 200 + 200, (9b) 32768 x 300, (9c) 4096 x 300 at
+        # seed 1
+        sc3_kw = dict(p_lo=SC3_LO, p_up=SC3_UP, quiet=True)
         for rep in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            s = lightcurve_mcmc(lc, ShockCooling3(lc), chip_smoke.sc3_priors(), p_lo=SC3_LO,
-                                p_up=SC3_UP, nwalkers=32768, nsteps=300, nsteps_burnin=0, seed=7,
-                                quiet=True)
-            torch.cuda.synchronize()
-            walls[f"sc3_32768x300_{rep}"] = time.perf_counter() - t0
+            walls[f"sc3_9a_{rep}"], _ = wall(lambda: lightcurve_mcmc(
+                lc, ShockCooling3(lc), chip_smoke.sc3_priors(), nwalkers=64, nsteps=200,
+                nsteps_burnin=200, seed=7, **sc3_kw))
+        for rep in range(2):
+            walls[f"sc3_32768x300_{rep}"], s = wall(lambda: lightcurve_mcmc(
+                lc, ShockCooling3(lc), chip_smoke.sc3_priors(), nwalkers=32768, nsteps=300,
+                nsteps_burnin=0, seed=7, **sc3_kw))
         walls["sc3_acceptance"] = float(np.mean(s.acceptance_fraction))
+        for rep in range(2):
+            walls[f"sc3_9c_{rep}"], _ = wall(lambda: lightcurve_mcmc(
+                lc, ShockCooling3(lc), chip_smoke.sc3_priors(), nwalkers=4096, nsteps=300,
+                nsteps_burnin=0, seed=1, **sc3_kw))
 
         # the ShockCooling2 fits of chip_smoke.py phases 5 and 16, two runs
         # each: (5a) 64 walkers x 200 + 200, (5b) 131072 x 300 from the
