@@ -9,11 +9,16 @@ raises and the script exits non-zero):
 1. environment: torch/CUDA versions, the card, its power limit;
 2. build: nvcc compiles the kernels from ``kernels/csrc/``; the
    block-per-chain kernels (K9, K7h, K7's block form), K4p, the epoch
-   half-step, the SC3 log-posterior and K6c must have no stack frame and no
-   spills (ptxas);
-3. K1 against its plain PyTorch version at 131072 walkers on the flagship
-   (SN 2016bkv, ShockCooling2), float32 (<= 1e-5 |ll|, same -inf set) and
-   float64 (<= 1e-10 |ll|), including t < t_exp under a widened t_0 prior;
+   half-step, the SC3 log-posterior, K1, K6b and K6c must have no stack
+   frame and no spills (ptxas);
+3. K1 (a warp per walker, the half-step's form) against its plain PyTorch
+   version at 131072 walkers on the flagship (SN 2016bkv, ShockCooling2),
+   float32 (<= 1e-5 |ll|, same -inf set) and float64 (<= 1e-10 |ll|),
+   including t < t_exp under a widened t_0 prior; at the fits' widths (64,
+   4096, 131072) the same values bit for bit, each timed (events and the
+   profiler's device time) and the profiler showing the warp kernel ran;
+   at the states two K2 half-steps accepted, K2's stored values bit for
+   bit;
 4. K2 (a warp per walker) against the plain half-step on the same state and
    draws at half 65536, 16384 and 32 (the fits' widths), float32 and
    float64: accept flags agree except at near-ties, and where they agree the
@@ -90,9 +95,14 @@ raises and the script exits non-zero):
     ShockCooling3 ladder of 17 x 512: accept flags agree except near-ties,
     new states bit-equal where they agree, log pi and log L within K1's
     tolerances; the proposals' log pi + log L against K7's value as in 4;
-15. K6b, the ladder's initial state, against the plain split of the
-    log-posterior (17 x 4096 states, 1% outside the priors), float32 and
-    float64; K6c, the replica exchange, bit-equal to its plain version at
+15. K6b, the ladder's initial state (a warp per state), against the plain
+    split of the log-posterior, float32 and float64: each rung its own
+    states (17 x 4096, 1% outside the priors), and as the ladders call it,
+    one set of states written to every rung, over each instantiation at
+    its ladders' shapes (SC2 17 x 4096, 7 x 32, 17 x 32; CS2 17 x 4096, 7 x
+    64; SC3 17 x 512), each timed, the profiler showing the warp kernel;
+    K6b at the states K6a left gives K6a's stored values bit for bit (14,
+    23); K6c, the replica exchange, bit-equal to its plain version at
     the ladders' shapes (17 rungs x 4096 and x 32, 7 x 32; 17 x 4096 and 7 x
     64 with 7 parameters; both parities, production and burn-in steps, a
     -inf log L row, the beta = 0 rung), each timed (events and the
@@ -158,9 +168,9 @@ raises and the script exits non-zero):
     fits' widths (32, 4096, 32768) the same values bit for bit, each timed
     (events, device time), the profiler showing its kernel ran; the CS
     half-step (h = 0, 1; a warp per walker) at half 65536 and at the fits'
-    widths, half 16384 and 16, K6a (a warp per walker) at 17 rungs x 4096
-    and at the PT fit's 7 x 64, and K6b over CS2 at 17 x 4096, as in 4, 14,
-    15, float32 and float64;
+    widths, half 16384 and 16, K6a and K6b (a warp per walker) at 17 rungs
+    x 4096 and at the PT fit's 7 x 64, as in 4, 14, 15, float32 and
+    float64;
 24. the companion-shocking main path, counters reset before (a): (a)
     ``lightcurve_mcmc`` CS2 as tests/test_companion_shocking.py:106-123
     (32 walkers x 300 + 250, seed 12) with its truth criteria; (b) CS2 at
@@ -446,14 +456,16 @@ def check_half_step(name, lp, off, sc, x0, seed, rel):
     return ties, acc, max_abs
 
 
-def check_ladder(name, lp, off, sc, x0, seed, rel):
+def check_ladder(name, lp, off, sc, x0, seed, rel, same_bits=True):
     """K6b and K6a (h = 0, 1) over lp's model against their plain versions
     on the rescaled ladder state x0 (R, 2, half, ndim), beta_0 = 0. K6b: log
     pi within 1e-12, log L within ``rel`` of the term scale. K6a: flags
     equal except near-ties, states and log pi bit-equal and log L within
     ``rel`` of the term scale where they agree, the other half and its
-    accept counts untouched. Returns (near-ties, accepts, max |d log L| of
-    K6a, max |d log L| of K6b)."""
+    accept counts untouched. With ``same_bits`` (K6a a warp per walker, the
+    policy of K6b) K6b at the states K6a left gives K6a's stored log pi and
+    log L bit for bit. Returns (near-ties, accepts, max |d log L| of K6a,
+    max |d log L| of K6b)."""
     import torch
     from lightcurve_fitting_tpu_torch.kernels import common, ladder
     from lightcurve_fitting_tpu_torch.parallel.evidence import make_beta_ladder
@@ -503,6 +515,11 @@ def check_ladder(name, lp, off, sc, x0, seed, rel):
         if not torch.equal(xk[:, 1 - h], x0[:, 1 - h]) or not torch.equal(ak[:, 1 - h],
                                                                            ap[:, 1 - h]):
             raise AssertionError(f"{what}: the other half was written")
+        if same_bits:
+            pri_k, ll_k = ladder.ladder_init(lp, xk, off, sc)
+            if not torch.equal(pri_k, pk) or not torch.equal(ll_k, lk):
+                raise AssertionError(f"{what}: K6b at the new states differs from the values "
+                                     "K6a stored")
         d = compare_ll(what, lk[:, h][agree], lpl[:, h][agree], rel,
                        scale=scales(common.absolute_params(xk[:, h], off, sc))[agree])
         max_abs = max(max_abs, d[0])
@@ -511,12 +528,48 @@ def check_ladder(name, lp, off, sc, x0, seed, rel):
     return ties, acc, max_abs, d_init
 
 
+# the widths whose initial state a fit computes with K1: 5a's 64 walkers
+# (and lightcurve_hmc's warm start, 20c), 5c's 4096 and 5b's 131072
+K1_WIDTHS = (64, 4096, HEADLINE_WALKERS)
+
+
+def k1_repeats_k2(lp, off, sc, half, seed):
+    """Two K2 half-steps (h = 0, 1) at u_acc = 0 (every proposal inside the
+    priors accepted) on a rescaled float32 state of 2 x half walkers from
+    the init window, then K1 on the new states: the number of walkers
+    whose K1 value differs in any bit from the log-posterior K2 stored, and
+    the number K2 moved."""
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels import sc2
+    dev = torch.device("cuda")
+    pos = (np.random.default_rng(seed).uniform(P_LO, P_UP, size=(2 * half, 4)) - off) / sc
+    x = torch.as_tensor(pos.reshape(2, half, 4), device=dev).float().contiguous()
+    logp = sc2.log_posterior(lp, x.reshape(-1, 4), off, sc).reshape(2, half)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    acc = torch.zeros((2, half), dtype=torch.int32, device=dev)
+    for h in (0, 1):
+        u_z = torch.rand(half, generator=g, device=dev)
+        j = torch.randint(0, half, (half,), generator=g, device=dev)
+        sc2.stretch_half_step(lp, x, logp, h, u_z, j, torch.zeros_like(u_z), 2.0, off, sc,
+                              n_accept=acc)
+    again = sc2.log_posterior(lp, x.reshape(-1, 4), off, sc)
+    return int((again != logp.reshape(-1)).sum()), int(acc.sum())
+
+
 def phase_k1(lc, rng_seed=0):
+    """3: K1 (a warp per walker, the half-step's form) against forward_plain
+    at 131072 walkers, float32 and float64, t < t_exp included; at the
+    fits' widths (64, 4096, 131072) the same values bit for bit, each
+    timed on the rescaled float32 state, the profiler showing the warp
+    kernel ran; K1 at the states K2 accepted equal to K2's stored values."""
     import numpy as np
     import torch
     from lightcurve_fitting_tpu_torch import kernels
     from lightcurve_fitting_tpu_torch.core import config
-    from lightcurve_fitting_tpu_torch.fitting import make_log_posterior
+    from lightcurve_fitting_tpu_torch.fitting import _state_rescaling, make_log_posterior
+    from lightcurve_fitting_tpu_torch.kernels import sc2
     from lightcurve_fitting_tpu_torch.models import ShockCooling2
 
     dev = torch.device("cuda")
@@ -529,37 +582,51 @@ def phase_k1(lc, rng_seed=0):
     p_late = rng.uniform([20.0, 2.0, 10.0, 57468.8], [50.0, 5.0, 50.0, 57472.0], size=(W, 4))
     p = torch.as_tensor(p, device=dev)
     p_late = torch.as_tensor(p_late, device=dev)
+    kw = _state_rescaling(torch.float32, P_LO, P_UP, dev)   # what "auto" gives on CUDA
+    off, sc = kw["param_offset"], kw["param_scale"]
 
-    res = {}
+    res, widths, names, repeats = {}, {}, {}, {}
     n0 = kernels.LAUNCHES["sc2_logpost"]
-    for label, dtype in (("f32", "auto"), ("f64", None)):
+    for label in ("f32", "f64"):
         try:
-            if dtype is None:
+            if label == "f64":
                 config.set_compute_dtype(None)
             lp = make_log_posterior(ShockCooling2(lc), lc, flagship_priors(), device=dev)
             lp_wide = make_log_posterior(ShockCooling2(lc), lc, flagship_priors(57460.0, 57480.0),
                                          device=dev)
             rel = 1e-5 if label == "f32" else 1e-10
-            a = compare_ll(f"K1 {label}", lp(p), lp.forward_plain(p), rel)
-            b = compare_ll(f"K1 {label} t<t_exp", lp_wide(p_late), lp_wide.forward_plain(p_late),
-                           rel)
-            if torch.isfinite(lp_wide(p_late)).sum() != W:
+            got = lp(p)
+            a = compare_ll(f"K1 {label}", got, lp.forward_plain(p), rel)
+            got_late = lp_wide(p_late)
+            b = compare_ll(f"K1 {label} t<t_exp", got_late, lp_wide.forward_plain(p_late), rel)
+            if torch.isfinite(got_late).sum() != W:
                 raise AssertionError("t < t_exp walkers must have finite log-posteriors")
             res[label] = (max(a[0], b[0]), max(a[1], b[1]), a[2])
+            widths[label], names[label] = batch_widths(
+                f"K1 {label}", sc2.log_posterior, lp, p, off, sc, K1_WIDTHS, got,
+                "logpost_warp_kernel", ("SC2WarpModel", ", 4>"), sc2_eval_ops(lp.log_likelihood))
+            repeats[label] = k1_repeats_k2(lp, off, sc, 2048, rng_seed + 1)
+            if repeats[label][0]:
+                raise AssertionError(f"K1 {label}: {repeats[label][0]} values at states K2 "
+                                     "accepted differ from K2's stored ones")
             if label == "f32":
-                k1_ms = cuda_ms(lambda: lp(p))
                 plain_ms = cuda_ms(lambda: lp.forward_plain(p), repeats=5)
         finally:
             config.set_compute_dtype(config.AUTO)
-    ll = lp.log_likelihood
-    k1_bound = bound_fields(W * sc2_eval_ops(ll), W * (4 * 8 + 8) + 4 * ll.bb_coeffs.numel())
-    phase("K1", f"{W} walkers (1% outside the priors, {W} more with t < t_exp): "
+    t32 = widths["f32"]
+    phase("K1", f"{names['f32']}, {W} walkers (1% outside the priors, {W} more with t < t_exp): "
           f"f32 max |d| {res['f32'][0]:.3e} (max |d|/|ll| {res['f32'][1]:.2e} <= 1e-5), "
           f"f64 max |d| {res['f64'][0]:.3e} (max |d|/|ll| {res['f64'][1]:.2e} <= 1e-10), "
-          f"-inf sets equal; {kernels.LAUNCHES['sc2_logpost'] - n0} comparison launches; "
-          f"K1 {k1_ms:.4f} ms vs plain {plain_ms:.4f} ms per {W}-walker batch (f32), "
-          f"bound {k1_bound['bound_ms']:.4f} ms ({k1_bound['bound_by']})")
-    return {"max_abs_err": res["f32"][0], "ms": k1_ms, "plain_ms": plain_ms, **k1_bound}
+          f"-inf sets equal; at the fits' widths {', '.join(map(str, K1_WIDTHS))} the same "
+          "values bit for bit (f32, f64); at the states two K2 half-steps (u_acc = 0) left, "
+          + ", ".join(f"{lab} {r[0]} of {2 * 2048} values differ from K2's stored ones "
+                      f"({r[1]} moves)" for lab, r in repeats.items())
+          + f"; {kernels.LAUNCHES['sc2_logpost'] - n0} comparison launches; kernel (events; the "
+          "profiler's device time) on the rescaled f32 state "
+          + ", ".join(f"{v[0]:.4f}; {v[1]:.4f} ms at {w} (bound {v[2]['bound_ms']:.5f})"
+                      for w, v in t32.items())
+          + f"; plain {plain_ms:.4f} ms per {W}-walker batch (f32)")
+    return {"max_abs_err": res["f32"][0], "ms": t32[W][0], "plain_ms": plain_ms, **t32[W][2]}
 
 
 # K2's widths: the 131072-walker fit (5b), 16384, and the 64-walker fits (5a
@@ -1685,7 +1752,30 @@ def phase_k6a(lc, lcf, seed=8):
     R = EV_RUNGS + 1
     lp3, off3, sc3_, x3 = ladder_setup(ShockCooling3(lcf), lcf, sc3_priors(), SC3_LO, SC3_UP, R,
                                        512, np.random.default_rng(seed), dev)
-    t3 = check_ladder("SC3 ladder", lp3, off3, sc3_, x3, seed, 1e-5)
+    t3 = check_ladder("SC3 ladder", lp3, off3, sc3_, x3, seed, 1e-5, same_bits=False)
+    # its time (no main path runs it yet)
+    pri3, ll3 = ladder.ladder_init(lp3, x3, off3, sc3_)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    shape3 = (R, 2, 256)
+    uz3 = torch.rand(shape3, generator=g, device=dev)
+    j3 = torch.randint(0, 256, shape3, generator=g, device=dev)
+    ua3 = torch.rand(shape3, generator=g, device=dev)
+    betas3 = torch.as_tensor(make_beta_ladder(R - 1), device=dev)
+    state3 = (x3.clone(), pri3.clone(), ll3.clone())
+    a3 = torch.zeros(shape3, dtype=torch.int32, device=dev)
+
+    def step3():
+        ladder.tempered_half_step(lp3, *state3, betas3, 0, uz3, j3, ua3, 2.0, off3, sc3_, a3,
+                                  check_partners=False)
+    sc3_ms = (cuda_ms(step3), device_ms(step3, "tempered_half_step_kernel", 20, 1)[0])
+    plain3 = (x3.clone(), pri3.clone(), ll3.clone())
+    sc3_plain_ms = cuda_ms(lambda: ladder.tempered_half_step_plain(
+        *ladder.plain_functions(lp3, off3, sc3_), *plain3, betas3, 0, uz3, j3, ua3, 2.0),
+        repeats=2)
+    n3 = R * 256
+    sc3_bound = bound_fields(n3 * (sc3_eval_ops(lp3.log_likelihood) + PROPOSAL),
+                             n3 * (2 * 7 * 4 + 2 * 8 + 4 + 8 + 4) + R * 8 + n3 * (7 * 4 + 2 * 8 + 4))
     top = K6A_LADDERS[0][0]
     phase("K6a", f"{name}: tempered half-steps h=0,1 (f32 rescaled state, f64 log pi and log "
           "L, beta_0 = 0; log L within 1e-5 / 1e-10 of the term scale): SC2 "
@@ -1698,7 +1788,9 @@ def phase_k6a(lc, lcf, seed=8):
           "(events; the profiler's device time) " + ", ".join(
               f"{a_ms[r][0]:.4f}; {a_ms[r][1]:.4f} ms per {r} x half {hh} (bound "
               f"{a_bounds[r]['bound_ms']:.5f})" for r, hh in K6A_LADDERS)
-          + f", plain {plain_ms:.4f} ms per {top} x half {EV_WALKERS // 2} (f32); "
+          + f", plain {plain_ms:.4f} ms per {top} x half {EV_WALKERS // 2} (f32); K6a over SC3 "
+          f"(a thread per walker) {sc3_ms[0]:.4f}; {sc3_ms[1]:.4f} ms per {R} x half 256 (bound "
+          f"{sc3_bound['bound_ms']:.5f}), plain {sc3_plain_ms:.4f} ms; "
           "proposals' log pi + log L (u_acc = 0) that differ from K7's value: "
           + ", ".join(f"{lab} {v[5]} of {v[4]} (max |d| {v[6]:.3e})"
                       for (lab, r, hh), v in lads.items() if len(v) > 4))
@@ -1706,19 +1798,73 @@ def phase_k6a(lc, lcf, seed=8):
             "ms": a_ms[top][0], "plain_ms": plain_ms, **a_bounds[top]}
 
 
-def phase_k6bcd(lc, seed=9):
+# K6b's ladders (rungs, walkers) as the fits call it: the evidence (16a)
+# and compare_models (16c) of SC2, its PT fit (16b); over CS2 the evidence
+# (24c; compare_models CS2 against CS3 at the same shape) and the PT fit;
+# over SC3 phase 14's ladder
+K6B_LADDERS = {"sc2": ((EV_RUNGS + 1, EV_WALKERS), (7, 32), (EV_RUNGS + 1, 32)),
+               "cs": ((EV_RUNGS + 1, EV_WALKERS), (7, 64)),
+               "sc3": ((EV_RUNGS + 1, 512),)}
+
+
+def k6b_as_called(name, lp, lo, up, R, W, rng, eval_ops, marks, plain_repeats=0):
+    """K6b as a ladder of R rungs x W walkers calls it (every rung starts
+    from one set of W states, 1% outside the priors: the set once, copies =
+    R) on the rescaled state of ``ladder_setup``, against its plain version:
+    R equal rows, the same -inf sets, log pi within 1e-12 and log L within
+    1e-5 (float32) or 1e-10 (float64) of the term scale; in float32 also
+    its time (events; the profiler's device time), its bound, the kernel
+    the profiler saw (holding ``marks``) and, with ``plain_repeats``, the
+    plain version's time. Returns (max |d log L|, events ms, device ms,
+    bound fields, kernel name, plain ms); the times None in float64."""
+    import torch
+    from lightcurve_fitting_tpu_torch.fitting import _state_rescaling
+    from lightcurve_fitting_tpu_torch.kernels import common, ladder
+    from time_port_kernels import device_ms
+    dev = torch.device("cuda")
+    kw = _state_rescaling("auto", lo, up, dev)
+    off, sc = kw["param_offset"], kw["param_scale"]
+    x = torch.as_tensor((window_states(rng, lo, up, W, 0.01) - off) / sc, device=dev)
+    x = x.to(kw["dtype"]).reshape(1, 2, W // 2, len(lo)).contiguous()
+    fns = ladder.plain_functions(lp, off, sc)
+    pri, ll = ladder.ladder_init(lp, x, off, sc, copies=R)
+    want_pri, want_ll = ladder.ladder_init_plain(*fns, x, copies=R)
+    if pri.shape != (R, 2, W // 2) or not all(torch.equal(pri[r], pri[0]) and
+                                               torch.equal(ll[r], ll[0]) for r in range(R)):
+        raise AssertionError(f"{name}: the {R} rows of one set of states differ")
+    fin = torch.isfinite(want_pri)
+    if not torch.equal(torch.isneginf(pri), torch.isneginf(want_pri)) \
+            or not bool(((pri - want_pri).abs()[fin] <= 1e-12).all()):
+        raise AssertionError(f"{name}: log pi differs from the plain version")
+    rel = 1e-10 if lp.log_likelihood.compute_dtype == torch.float64 else 1e-5
+    scale = lp.log_likelihood.term_scales(common.absolute_params(x, off, sc))
+    d = compare_ll(f"{name} log L", ll, want_ll, rel, scale=scale.expand(R, -1, -1))[0]
+    if lp.log_likelihood.compute_dtype == torch.float64:
+        return d, None, None, None, None, None
+
+    def call():
+        return ladder.ladder_init(lp, x, off, sc, copies=R)
+    kernel = expect_kernel(call, "ladder_init_kernel", *marks)
+    plain_ms = cuda_ms(lambda: ladder.ladder_init_plain(*fns, x, copies=R),
+                       repeats=plain_repeats) if plain_repeats else None
+    return (d, cuda_ms(call), device_ms(call, "ladder_init_kernel", 20, 1)[0],
+            bound_fields(W * eval_ops, W * x.shape[-1] * 4 + R * W * 2 * 8), kernel, plain_ms)
+
+
+def phase_k6bcd(lc, lcf, lc_ia, lc0, seed=9):
     import numpy as np
     import torch
     from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.fitting import make_log_posterior
     from lightcurve_fitting_tpu_torch.kernels import ladder
-    from lightcurve_fitting_tpu_torch.models import ShockCooling2
+    from lightcurve_fitting_tpu_torch.models import ShockCooling2, ShockCooling3
     from lightcurve_fitting_tpu_torch.parallel.evidence import make_beta_ladder
     from time_port_kernels import device_ms
 
     dev = torch.device("cuda")
-    R, W, ndim = EV_RUNGS + 1, EV_WALKERS, 4
+    R, W = EV_RUNGS + 1, EV_WALKERS
     n = R * W
-    # K6b: the initial state, 1% of the states outside the priors
+    # K6b: each rung its own states (copies = 1), 1% outside the priors
     res = {}
     for label in ("f32", "f64"):
         try:
@@ -1736,11 +1882,6 @@ def phase_k6bcd(lc, seed=9):
                 raise AssertionError(f"K6b {label}: log pi differs from the plain version")
             d = compare_ll(f"K6b {label}", ll, want_ll, 1e-5 if label == "f32" else 1e-10)
             res[label] = (d[0], d[1], int((~fin).sum()), int(torch.isfinite(ll).sum()), ll)
-            if label == "f32":
-                b_ms = cuda_ms(lambda: ladder.ladder_init(lp, x, off, sc))
-                b_plain_ms = cuda_ms(lambda: ladder.ladder_init_plain(*fns, x), repeats=5)
-                b_bound = bound_fields(n * sc2_eval_ops(lp.log_likelihood),
-                                       n * (ndim * 4 + 2 * 8))
         finally:
             config.set_compute_dtype(config.AUTO)
     # the float32 kernel's log L against the float64 kernel's on the same states:
@@ -1750,15 +1891,56 @@ def phase_k6bcd(lc, seed=9):
     near = both & (l64 > l64[both].max() - 1000.0)
     bias = [(float((l32 - l64)[m].mean()), float((l32 - l64)[m].std()), int(m.sum()))
             for m in (both, near)]
-    phase("K6b", f"{n} starting states ({res['f32'][2]} outside the priors, log L finite at "
-          f"{res['f32'][3]}): log pi within 1e-12 of the plain split, -inf sets equal; log L f32 "
-          f"max |d| {res['f32'][0]:.3e} (max |d|/|ll| {res['f32'][1]:.2e} <= 1e-5), f64 max |d| "
-          f"{res['f64'][0]:.3e} (max |d|/|ll| {res['f64'][1]:.2e} <= 1e-10); kernel "
-          f"{b_ms:.4f} ms vs plain {b_plain_ms:.4f} ms (f32), bound {b_bound['bound_ms']:.4f} ms "
-          f"({b_bound['bound_by']}); float32 - float64 kernel log L on the same states: mean "
+    # K6b as the ladders call it (one set of states, copies = the rungs), over
+    # each instantiation (SC2 ndim 4, CS2 ndim 7, SC3 ndim 7) at its ladders'
+    # shapes, float32 and float64 compute; timed in float32
+    models = {"sc2": (lambda: ShockCooling2(lc), lc, flagship_priors(), P_LO, P_UP,
+                      sc2_eval_ops, ("SC2WarpModel", ", 4>")),
+              "cs": (lambda: cs_model(2, lc0), lc_ia, cs_priors(2), CS_LO[2], CS_UP[2],
+                     cs_eval_ops, ("CSWarpModel", ", 7>")),
+              "sc3": (lambda: ShockCooling3(lcf), lcf, sc3_priors(), SC3_LO, SC3_UP,
+                      sc3_eval_ops, ("SC3WarpModel", ", 7>"))}
+    rng = np.random.default_rng(seed + 3)
+    called = {}
+    for which, (model, lc_m, pri_m, lo, up, ops, marks) in models.items():
+        for label in ("f32", "f64"):
+            try:
+                if label == "f64":
+                    config.set_compute_dtype(None)
+                lp = make_log_posterior(model(), lc_m, pri_m, device=dev)
+                for R_b, W_b in K6B_LADDERS[which]:
+                    called[(which, label, R_b, W_b)] = k6b_as_called(
+                        f"K6b over {which} {label} {R_b} x {W_b}", lp, lo, up, R_b, W_b, rng,
+                        ops(lp.log_likelihood), marks,
+                        3 if (R_b, W_b) in ((R, W), (R, 512)) and label == "f32" else 0)
+            finally:
+                config.set_compute_dtype(config.AUTO)
+    timed = {k: v for k, v in called.items() if v[1] is not None}
+    phase("K6b", f"{timed[('sc2', 'f32', R, W)][4]} and its CS2 and SC3 instantiations: each "
+          f"rung its own states (copies = 1), {n} states ({res['f32'][2]} outside the priors, "
+          f"log L finite at {res['f32'][3]}): log pi within 1e-12 of the plain split, -inf sets "
+          f"equal; log L f32 max |d| {res['f32'][0]:.3e} (max |d|/|ll| {res['f32'][1]:.2e} <= "
+          f"1e-5), f64 max |d| {res['f64'][0]:.3e} (max |d|/|ll| {res['f64'][1]:.2e} <= 1e-10); "
+          "float32 - float64 kernel log L on the same states: mean "
           f"{bias[0][0]:+.4e}, std {bias[0][1]:.4e} over {bias[0][2]} states; within 1000 of the "
-          f"best: mean {bias[1][0]:+.4e}, std {bias[1][1]:.4e} over {bias[1][2]}")
-    k6b = {"max_abs_err": res["f32"][0], "ms": b_ms, "plain_ms": b_plain_ms, **b_bound}
+          f"best: mean {bias[1][0]:+.4e}, std {bias[1][1]:.4e} over {bias[1][2]}; as the "
+          "ladders call it (one set of states, 1% outside the priors, each written to every "
+          "rung: rows equal, log pi within 1e-12, log L within 1e-5 / 1e-10 of the term scale "
+          "of the plain version): " + "; ".join(
+              f"{w} {lab} {r} x {wk}: log L max |d| {v[0]:.3e}" for (w, lab, r, wk), v in
+              called.items())
+          + "; kernel (events; the profiler's device time) " + ", ".join(
+              f"{w} {v[1]:.4f}; {v[2]:.5f} ms at {r} x {wk} (bound {v[3]['bound_ms']:.5f})"
+              for (w, lab, r, wk), v in timed.items())
+          + f"; plain {timed[('sc2', 'f32', R, W)][5]:.4f} ms at SC2 {R} x {W}, "
+          f"{timed[('cs', 'f32', R, W)][5]:.4f} ms at CS2 {R} x {W}, "
+          f"{timed[('sc3', 'f32', R, 512)][5]:.4f} ms at SC3 {R} x 512 (f32)")
+    k6b = {}
+    for which in ("sc2", "cs"):
+        v = timed[(which, "f32", R, W)]
+        k6b[which] = {"max_abs_err": max(d[0] for k, d in called.items()
+                                         if k[:2] == (which, "f32")),
+                      "ms": v[1], "plain_ms": v[5], **v[3]}
 
     # K6c: the replica exchange, bit for bit, at the ladders' shapes (the
     # first shape's inputs drawn from the generator that K6d's continue)
@@ -1902,7 +2084,7 @@ def phase_ladder_main_path(lc, smi):
     wall, prof = profiled(lambda: lightcurve_evidence(lc, model, priors, seed=2, **kw))
     parts, busy = time_split(prof, wall, {
         "step loop (K6a)": ("tempered_half_step",), "swaps (K6c)": ("replica_swap",),
-        "reduction (K6d)": ("rung_block_terms",), "init (K6b)": ("ladder_init",)})
+        "reduction (K6d)": ("rung_block_terms",), "init (K6b)": ("ladder_init_kernel",)})
     med = float(np.median(times))
     evals = (EV_RUNGS + 1) * EV_WALKERS * (EV_STEPS + EV_BURNIN)
     logl_mb = EV_STEPS * (EV_RUNGS + 1) * EV_WALKERS * 8 / 1e6
@@ -2560,7 +2742,7 @@ def phase_gradient_main_path(lc, smi):
             config.set_compute_dtype(config.AUTO)
         parts, busy = time_split(prof, wall, {
             "NUTS transitions (K9)": ("nuts_transition",),
-            "warm start (K1, K2)": ("stretch_half_step", "sc2_logpost_kernel"),
+            "warm start (K1, K2)": ("stretch_half_step", "logpost_warp_kernel"),
             "K7": ("logpost_grad",)})
         splits.append(f"profiled {label} run {wall:.4f} s, device busy {busy:.4f} s (idle share "
                       f"{1 - busy / wall:.3f}): "
@@ -2586,7 +2768,7 @@ def phase_gradient_main_path(lc, smi):
     wall, prof = profiled(hmc_run)
     parts, busy = time_split(prof, wall, {
         "HMC transitions (K7h)": ("hmc_transition",),
-        "warm start (K1, K2)": ("stretch_half_step", "sc2_logpost_kernel"),
+        "warm start (K1, K2)": ("stretch_half_step", "logpost_warp_kernel"),
         "K7": ("logpost_grad",)})
     launches = dict(kernels.LAUNCHES)
     if not np.isfinite(h.flatchain).all() or h.flatchain.shape != (1600, 4):
@@ -2682,7 +2864,7 @@ def phase_use_sigma(lc, lcf, lc_ia, lc0, seed=15):
             hs = check_half_step(f"{what} half-step", lp, off, sc, x0, seed, rel)
             xl = torch.as_tensor((window_states(rng, lo, up, 8 * 512, outside=0.01) - off) / sc,
                                  device=dev).float().reshape(8, 2, 256, len(lo)).contiguous()
-            lad = check_ladder(what, lp, off, sc, xl, seed, rel)
+            lad = check_ladder(what, lp, off, sc, xl, seed, rel, same_bits=which != "SC3")
             line = (f"{what}: log-posterior max |d| {d_lp[0]:.3e} (max |d|/scale {d_lp[1]:.2e}), "
                     f"half-step {hs[1]} accepts, {hs[0]} near-ties, new logp max |d| "
                     f"{hs[2]:.3e}, K6a {lad[1]} accepts, {lad[0]} near-ties, log L max |d| "
@@ -2910,8 +3092,9 @@ def phase_cs_logpost(lc, lc0, rng_seed=17):
     """23: the CS log-posterior (a thread per walker) of CS1, CS2, CS3 and
     CS1 with the intrinsic scatter (9 parameters) against its plain version
     at 131072 walkers, and CS2 at the fits' widths (32, 4096, 32768) timed;
-    over CS2, the CS half-step at half 65536, 16384 and 16, K6a at 17 x 4096
-    and 7 x 64 walkers, K6b at 17 x 4096, float32 and float64."""
+    over CS2, the CS half-step at half 65536, 16384 and 16, K6a and K6b
+    (each rung its own states) at 17 x 4096 and 7 x 64 walkers, float32 and
+    float64 (K6b as the ladders call it: phase 15)."""
     import numpy as np
     import torch
     from lightcurve_fitting_tpu_torch import kernels
@@ -3063,16 +3246,10 @@ def phase_cs_logpost(lc, lc0, rng_seed=17):
                     state = (xl.clone(), pri.clone(), lll.clone())
                     a_plain_ms = cuda_ms(lambda: ladder.tempered_half_step_plain(
                         *fns, *state, betas, 0, uz, jl, ua, 2.0), repeats=3)
-                    b_ms = cuda_ms(lambda: ladder.ladder_init(lp2, xl, off, sc))
-                    b_plain_ms = cuda_ms(lambda: ladder.ladder_init_plain(*fns, xl), repeats=3)
-                    n_b = R * EV_WALKERS
         finally:
             config.set_compute_dtype(config.AUTO)
-    lad = lads[("f32", R, EV_WALKERS // 2)]
     out["k6a"] = {"max_abs_err": max(v[2] for k, v in lads.items() if k[0] == "f32"),
                   "ms": a_ms[R][0], "plain_ms": a_plain_ms, **a_bounds[R]}
-    out["k6b"] = {"max_abs_err": lad[3], "ms": b_ms, "plain_ms": b_plain_ms,
-                  **bound_fields(n_b * cs_eval_ops(ll), n_b * (7 * 4 + 2 * 8))}
     phase("CS half-step and ladder 23", "CS half-steps h=0,1 (f32 state, a warp per walker) at "
           "half " + "; ".join(f"{half} {lab}: {c[1]} accepts, {c[0]} near-ties, new-logp max |d| "
                               f"{c[2]:.3e}" for (lab, half), c in hs.items())
@@ -3080,14 +3257,14 @@ def phase_cs_logpost(lc, lc0, rng_seed=17):
           "kernel (events; the profiler's device time) " + ", ".join(
               f"{h_ms[h][0]:.4f}; {h_ms[h][1]:.4f} ms per half {h} (bound "
               f"{h_bounds[h]['bound_ms']:.5f})" for h in halves)
-          + f", plain {h_plain_ms:.4f} ms per half {W // 2}; K6a (a warp per walker) and K6b "
-          f"over CS2 (1% outside the priors): " + "; ".join(
+          + f", plain {h_plain_ms:.4f} ms per half {W // 2}; K6a and K6b (a warp per walker) "
+          f"over CS2 (1% outside the priors; K6b at the states K6a left equal to K6a's stored "
+          "values bit for bit): " + "; ".join(
               f"{r} x {2 * hh} {lab}: {v[1]} accepts, {v[0]} near-ties, K6a log L max |d| "
               f"{v[2]:.3e}, K6b log L max |d| {v[3]:.3e}" for (lab, r, hh), v in lads.items())
           + "; K6a " + ", ".join(f"{a_ms[r][0]:.4f}; {a_ms[r][1]:.4f} ms per {r} x half {hh} "
                                  f"(bound {a_bounds[r]['bound_ms']:.5f})" for r, hh in ladders)
-          + f", plain {a_plain_ms:.4f} ms per {R} x half {EV_WALKERS // 2}; K6b {b_ms:.4f} ms at "
-          f"{R} x {EV_WALKERS} (plain {b_plain_ms:.4f}, bound {out['k6b']['bound_ms']:.4f}) (f32)")
+          + f", plain {a_plain_ms:.4f} ms per {R} x half {EV_WALKERS // 2} (f32)")
     return out
 
 
@@ -3204,7 +3381,7 @@ def phase_cs_main_path(lc, lc0, smi):
             lc, cs_model(2, lc0), cs_priors(2), p_lo=CS_LO[2], p_up=CS_UP[2], seed=1, **kw))
         ev_parts, ev_busy = time_split(prof, ev_wall, {
             "K6a": ("tempered_half_step",), "swaps": ("replica_swap",),
-            "init": ("ladder_init", "cs_logpost"), "block terms": ("rung_block_terms",)})
+            "init (K6b)": ("ladder_init_kernel",), "block terms": ("rung_block_terms",)})
         table = compare_models(lc, [cs_model(2, lc0), cs_model(3, lc0)],
                                [cs_priors(2), cs_priors(3)], p_lo=[CS_LO[2], CS_LO[3]],
                                p_up=[CS_UP[2], CS_UP[3]], labels=["CS2", "CS3"], seed=2, **kw)
@@ -3287,6 +3464,8 @@ def main():
                          ("K4p", "epoch_map_polish_kernel", 4),
                          ("the epoch half-step", "EpochBBModel", 32),
                          ("the SC3 log-posterior", "logpost_warp_kernelI12SC3WarpModel", 8),
+                         ("K1", "logpost_warp_kernelI12SC2WarpModel", 8),
+                         ("K6b", "ladder_init_kernel", 28),
                          ("K6c", "replica_swap_kernel", 18)):
         block[what] = [v for k, v in report.items() if key in k]
         if len(block[what]) != n or any(v[1] or v[2] or v[3] for v in block[what]):
@@ -3297,8 +3476,9 @@ def main():
           f"{sorted(set(r.split('Used ')[-1] for r in regs))[:4]}; no stack frame and no "
           "spills in the block-per-chain kernels (ndim 4, 5; f32, f64), K4p (ndim 2, 3; f32, "
           "f64), the epoch half-step (ndim 2, 3; its 16 dtype instantiations each), the SC3 "
-          "log-posterior (ndim 7, 8; its 4 dtype instantiations each) and K6c (ndim 1-9; f32, "
-          "f64 state): "
+          "log-posterior (ndim 7, 8; its 4 dtype instantiations each), K1 (ndim 4, 5; 4 each), "
+          "K6b (over SC2 ndim 4, 5, over SC3 7, 8, over CS 7, 8, 9; 4 each) and K6c (ndim 1-9; "
+          "f32, f64 state): "
           + "; ".join(f"{what} registers {sorted(set(v[0] for v in ks))}, stack frames "
                       f"{sorted(set(v[1] for v in ks))} bytes, spills "
                       f"{sorted(set(v[2] + v[3] for v in ks))}" for what, ks in block.items()))
@@ -3319,13 +3499,13 @@ def main():
     k4s, k5 = phase_k4s_k5()
     launches_bol = phase_bolometric_main_path(smi)
     k6a = phase_k6a(lc, lcf)
-    k6b, k6c, k6d = phase_k6bcd(lc)
+    lc_ia, lc0 = ia_lc()
+    k6b, k6c, k6d = phase_k6bcd(lc, lcf, lc_ia, lc0)
     launches_ladder = phase_ladder_main_path(lc, smi)
     k7 = phase_k7(lc)
     k9 = phase_k9(lc)
     k7h = phase_k7h(lc)
     launches_grad = phase_gradient_main_path(lc, smi)
-    lc_ia, lc0 = ia_lc()
     phase_use_sigma(lc, lcf, lc_ia, lc0)
     k8 = phase_k8(lc_ia, lc0)
     k_cs = phase_cs_logpost(lc_ia, lc0)
@@ -3339,7 +3519,7 @@ def main():
     src4 = "lightcurve_fitting_tpu_torch/kernels/csrc/epoch_bb.cu"
     src_cs = "lightcurve_fitting_tpu_torch/kernels/csrc/companion.cu"
     kernels = [
-        dict(name="sc2_logpost_kernel (K1)", route="cuda", source=src,
+        dict(name="logpost_warp_kernel<SC2WarpModel<C, N>> (K1)", route="cuda", source=src,
              replaces="lightcurve_fitting_tpu/fitting.py:62", launches=launches["sc2_logpost"],
              **k1),
         dict(name="stretch_half_step_kernel<SC2WarpModel> (K2)", route="cuda", source=src,
@@ -3375,10 +3555,10 @@ def main():
              source=src,
              replaces="lightcurve_fitting_tpu/parallel/evidence.py:60",
              launches=launches_ladder["tempered_half_step"], **k6a),
-        dict(name="ladder_init_kernel<SC2Model> (K6b)", route="cuda",
+        dict(name="ladder_init_kernel<SC2WarpModel<C, N>> (K6b)", route="cuda",
              source="lightcurve_fitting_tpu_torch/kernels/csrc/ladder.cuh",
              replaces="lightcurve_fitting_tpu/parallel/evidence.py:229",
-             launches=launches_ladder["ladder_init"], **k6b),
+             launches=launches_ladder["ladder_init"], **k6b["sc2"]),
         dict(name="replica_swap_kernel<S, N> (K6c)", route="cuda",
              source="lightcurve_fitting_tpu_torch/kernels/csrc/ladder.cu",
              replaces="lightcurve_fitting_tpu/parallel/evidence.py:95",
@@ -3412,9 +3592,9 @@ def main():
         dict(name="tempered_half_step_kernel<CSWarpModel, WARP> (K6a over CS)", route="cuda",
              source=src_cs, replaces="lightcurve_fitting_tpu/parallel/evidence.py:60",
              launches=launches_cs["tempered_half_step"], **k_cs["k6a"]),
-        dict(name="ladder_init_kernel<CSModel> (K6b over CS)", route="cuda",
+        dict(name="ladder_init_kernel<CSWarpModel<C, N>> (K6b over CS)", route="cuda",
              source=src_cs, replaces="lightcurve_fitting_tpu/parallel/evidence.py:229",
-             launches=launches_cs["ladder_init"], **k_cs["k6b"]),
+             launches=launches_cs["ladder_init"], **k6b["cs"]),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -86,7 +86,7 @@ def _declare(lib):
         fn.argtypes = [vp, ci, ci, vp, ci, vp, vp, vp, ci, ci, ci, vp, vp, vp, cd, vp, vp]
         fn = getattr(lib, f"{prefix}_ladder_init_launch")
         fn.restype = ci
-        fn.argtypes = [vp, ci, ci, vp, ci, ci, vp, vp, vp]
+        fn.argtypes = [vp, ci, ci, vp, ci, ci, ci, ci, vp, vp, vp]
     lib.replica_swap_launch.restype = ci
     lib.replica_swap_launch.argtypes = [ci, vp, ci, ci, vp, vp, vp, ci, ci, vp, ci, vp, vp, vp,
                                         vp]

@@ -12,9 +12,9 @@ the fused CompanionShocking 1-3 log-posterior and half-step.
   plain version
   :func:`~lightcurve_fitting_tpu_torch.kernels.common.stretch_half_step_plain`.
 
-The tempered ladder's kernels over CS (``cs_tempered_half_step``, K6a a warp
-per walker over ``CSWarpModel``; ``cs_ladder_init``, K6b over ``CSModel``)
-are reached through :mod:`.ladder`. The log-posterior
+The tempered ladder's kernels over CS (``cs_tempered_half_step``, K6a, and
+``cs_ladder_init``, K6b, a warp per walker over ``CSWarpModel``) are reached
+through :mod:`.ladder`. The log-posterior
 wrappers run their plain version for a CPU tensor; for a CUDA tensor every
 wrapper launches its kernel or raises: there is no fallback. Each launch adds
 one to ``LAUNCHES[name]``, and nothing else does.

@@ -15,7 +15,7 @@
 //       ops/bandtable.py:152-181 (chebyshev_bandflux); its half-step
 //       parallel/sampler.py:38-57, :86-104, :205-225 (stretch.cuh over
 //       CSWarpModel) and the tempered ladder's parallel/evidence.py:60-83
-//       (ladder.cuh over CSWarpModel) and :229-235 (over CSModel).
+//       and :229-235 (ladder.cuh over CSWarpModel).
 //
 // What bounds it on the H100: FP32 ALU and special-function work. One
 // evaluation runs per point the Chebyshev table's Clenshaw recurrence (24
@@ -29,8 +29,8 @@
 // block in shared memory; the walker-constant parts of the Kasen product,
 // the CS3 viewing-angle factor and the scale factors hoisted out of the
 // point loop (cs_walker); an out-of-prior walker returns -inf without
-// touching the likelihood. The batch log-posterior and K6b run one thread
-// per walker, as K1. The half-step and K6a run a warp per walker
+// touching the likelihood. The batch log-posterior runs one thread per
+// walker. The half-step, K6a and K6b run a warp per walker
 // (CSWarpModel): a thread per walker left the fits' widths a few warps an
 // SM (half 16 is one warp on one SM, half 16384 four warps on each), whose
 // 108 dependent point evaluations (the recurrence, the knot search) set
@@ -124,7 +124,8 @@ struct SiftoParams {
 // (4, S-1) coefficients are row, over the S knots: searchsorted(side="right")
 // - 1 clipped to [0, S-2], then a Horner cubic; 0 outside [knots[0],
 // knots[S-1]] and for a NaN phase (the JAX graph's NaN, then nan_to_num).
-template <typename C>
+// EXACT: the cubic's multiply-adds fused by hand in float64 (cs_point).
+template <typename C, bool EXACT = false>
 __device__ __forceinline__ C sifto_value(const C* knots, int S, const C* row, C x) {
     if (!(x >= knots[0] && x <= knots[S - 1])) return C(0);
     int lo = 0, hi = S;  // the first knot > x
@@ -137,7 +138,9 @@ __device__ __forceinline__ C sifto_value(const C* knots, int S, const C* row, C 
     i = i < 0 ? 0 : (i > S - 2 ? S - 2 : i);
     const int M = S - 1;
     const C t = x - knots[i];
-    const C v = ((row[i] * t + row[M + i]) * t + row[2 * M + i]) * t + row[3 * M + i];
+    const C v = EXACT && sizeof(C) == sizeof(double)
+        ? fma(fma(fma(row[i], t, row[M + i]), t, row[2 * M + i]), t, row[3 * M + i])
+        : ((row[i] * t + row[M + i]) * t + row[2 * M + i]) * t + row[3 * M + i];
     return isnan(v) ? C(0) : v;
 }
 
@@ -249,10 +252,10 @@ struct CSWalker {
     C t_exp, t_peak, stretch, ln_k, kM, f_kasen, rU, rr, ri, dtU, dti, inv_yscale, sig;
 };
 
-template <typename C>
+template <typename C, int N = 0>
 __device__ __forceinline__ CSWalker<C> cs_walker(const double* p, const CSParams& P) {
     CSWalker<C> w;
-    const int ndim = (int)P.ndim;
+    const int ndim = N > 0 ? N : (int)P.ndim;
     const int variant = (int)P.variant;
     w.t_exp = (C)(p[0] - P.t_ref);
     w.t_peak = (C)(p[3] - P.t_ref);
@@ -274,8 +277,14 @@ __device__ __forceinline__ CSWalker<C> cs_walker(const double* p, const CSParams
         w.dti = (C)p[6];
     }
     if (variant == 3) {  // Brown et al. (2012) viewing angle, theta in degrees
+        // cos(th) as cospi(theta / 180): exact argument reduction at any
+        // theta, where cos's reduction of a large argument needs a 40-byte
+        // local array (a stack frame in every kernel over this policy); the
+        // multiply-adds by hand, so that every kernel rounds them alike
         const double th = p[2] * (3.141592653589793 / 180.0);
-        w.f_kasen = (C)((0.5 * cos(th) + 0.5) * (0.14 * (th * th) - 0.4 * th + 1.0));
+        w.f_kasen = (C)__dmul_rn(__fma_rn(0.5, cospi(p[2] / 180.0), 0.5),
+                                 __dadd_rn(__fma_rn(0.14, __dmul_rn(th, th), __dmul_rn(-0.4, th)),
+                                           1.0));
     }
     w.inv_yscale = (C)P.inv_yscale;
     w.sig = P.use_sigma ? (C)p[ndim - 1] : C(0);
@@ -285,11 +294,16 @@ __device__ __forceinline__ CSWalker<C> cs_walker(const double* p, const CSParams
 // Point n's residual term: the Kasen T and R, the Chebyshev band table's
 // Clenshaw recurrence, K8's SiFTO value and the Gaussian residual. The
 // thread and warp forms of the log-likelihood share it, so that they differ
-// only in the order of their residual sums.
-template <typename C>
+// only in the order of their residual sums. EXACT (the warp form): in
+// float64 the products that meet a sum are fused or rounded by hand, so
+// that the two copies warp_batch_ll inlines (one walker a warp, a batch a
+// warp) round alike, as sc2_forward's EXACT: left to the compiler they did
+// not, and K6b's values at the states K6a accepted differed in last bits.
+template <typename C, bool EXACT = false>
 __device__ __forceinline__ C cs_point(int n, const CSWalker<C>& w, const CSData<C>& d,
                                       const CSParams& P) {
     const bool f64 = sizeof(C) == sizeof(double);
+    constexpr bool X = EXACT && sizeof(C) == sizeof(double);
     const int K1 = (int)P.n_coef;
     const int S = (int)P.n_knots;
     const C tt = d.tc[n] - w.t_exp;
@@ -302,27 +316,40 @@ __device__ __forceinline__ C cs_point(int n, const CSWalker<C>& w, const CSData<
     const C R = C(2.7) * power0(w.kM * m_pow(tt, C(7)), C(1.0 / 9.0));
     C kasen = C(0);
     if (T > C(0)) {  // T <= 0 (t before t_exp) or NaN: zero flux (K1's loop)
-        C s = m_log(T) * d.s_a[n] - d.s_b[n];
+        C s = X ? fma(m_log(T), d.s_a[n], -d.s_b[n]) : m_log(T) * d.s_a[n] - d.s_b[n];
         s = s < C(-1) ? C(-1) : (s > C(1) ? C(1) : s);  // clip, NaN stays NaN
         const C two_s = C(2) * s;
         const C* c = d.coef + (size_t)n * K1;
         C b1 = C(0), b2 = C(0);
         for (int k = K1 - 1; k >= 1; --k) {
-            const C b0 = two_s * b1 - b2 + c[k];
+            const C b0 = X ? add_rn(fma(two_s, b1, -b2), c[k]) : two_s * b1 - b2 + c[k];
             b2 = b1;
             b1 = b0;
         }
-        const C ln_g = s * b1 - b2 + c[0];
+        const C ln_g = X ? add_rn(fma(s, b1, -b2), c[0]) : s * b1 - b2 + c[0];
         kasen = R * R * m_exp(ln_g);
     }
     const bool U = d.is_U[n], I = d.is_i[n];
     const C dt = U ? w.dtU : (I ? w.dti : C(0));
     const C arg = ((d.tc[n] - w.t_peak) - dt) / w.stretch;
-    const C sif = sifto_value<C>(d.knots, S, d.rows + d.band[n] * 4 * (S - 1), arg);
+    const C sif = sifto_value<C, EXACT>(d.knots, S, d.rows + d.band[n] * 4 * (S - 1), arg);
     const C kf = U ? w.f_kasen * w.rU : w.f_kasen;
     const C sf = d.is_r[n] ? w.rr : (I ? w.ri : C(1));
-    const C y_fit = (kasen * kf + sif * sf) * w.inv_yscale;
-    return residual_term<C>(P.use_sigma, y_fit, d.y[n], d.inv_dy[n], d.dy[n], d.su[n], w.sig);
+    if (!X) {
+        const C y_fit = (kasen * kf + sif * sf) * w.inv_yscale;
+        return residual_term<C>(P.use_sigma, y_fit, d.y[n], d.inv_dy[n], d.dy[n], d.su[n],
+                                w.sig);
+    }
+    const C y_fit = mul_rn(fma(kasen, kf, mul_rn(sif, sf)), w.inv_yscale);
+    if (P.use_sigma) {
+        const C sg = mul_rn(w.sig, d.su[n]);
+        const C sigma2 = fma(d.dy[n], d.dy[n], mul_rn(sg, sg));
+        const C res = sub_rn(d.y[n], y_fit);
+        return add_rn(m_log(mul_rn((C)6.283185307179586, sigma2)),
+                      div_rn(mul_rn(res, res), sigma2));
+    }
+    const C r = mul_rn(sub_rn(d.y[n], y_fit), d.inv_dy[n]);
+    return mul_rn(r, r);
 }
 
 // The Gaussian log-likelihood of one walker at absolute parameters p[ndim]
@@ -349,7 +376,7 @@ __device__ double cs_log_likelihood_warp(const CSWalker<C>& w, const CSData<C>& 
                                          const CSParams& P) {
     const int N = (int)P.n_points;
     C acc = C(0);
-    for (int n = threadIdx.x & 31; n < N; n += 32) acc += cs_point<C>(n, w, d, P);
+    for (int n = threadIdx.x & 31; n < N; n += 32) acc += cs_point<C, true>(n, w, d, P);
     return finish_log_likelihood<C>(warp_sum(acc), P.use_sigma, P.ll_offset, P.log_norm_const);
 }
 
@@ -374,32 +401,43 @@ struct CSModel {
     static __device__ Data stage(const Params& P, unsigned char* smem, int use_smem, int) {
         return stage_cs<C>(P, smem, use_smem);
     }
-    static __device__ double log_likelihood(const double* p, const Data& d, const Params& P) {
-        return cs_log_likelihood<C>(p, d, P);
-    }
 };
 
-// The policy of the CS half-step and of K6a over CS: a warp per walker
-// (stretch_half_step_kernel, and tempered_half_step_kernel with WARP), 32
-// warps a block in float32 (one block an SM: the tables staged once an SM;
-// 64 registers a thread) and 16 in float64 (whose kernels need ~70),
-// batched: the grid holds only the blocks resident at once, and a warp
-// takes its walkers in batches whose prologues (the proposal, the prior and
-// cs_walker's float64 constants, ~35% of a walker's time when every lane
-// repeats them) run one walker a lane (warp_layout).
-template <typename C>
+// The policy of the CS half-step, of K6a and of K6b over CS: a warp per
+// walker (stretch_half_step_kernel, tempered_half_step_kernel with WARP,
+// ladder_init_kernel), 32 warps a block in float32 (one block an SM: the
+// tables staged once an SM; 64 registers a thread) and 16 in float64 (whose
+// kernels need ~70), batched: the grid holds only the blocks resident at
+// once, and a warp takes its walkers in batches whose prologues (the
+// proposal, the prior and cs_walker's float64 constants, ~35% of a walker's
+// time when every lane repeats them) run one walker a lane (warp_layout).
+// N: the walker's dimension at compile time (policy_dim), or 0 (P.ndim).
+// K6b takes N = 7, 8 or 9 (the variant's parameters and the intrinsic
+// scatter), so that the walker's parameters live in registers; the
+// half-steps keep N = 0, their code and bits unchanged.
+template <typename C, int N>
 struct CSWarpModel : CSModel<C> {
     typedef CSWalker<C> Walker;
     static constexpr int warps_per_block = sizeof(C) == sizeof(float) ? 32 : 16;
     static constexpr bool batched = true;
+    static constexpr int ndim = N;
     static __device__ Walker walker(const double* p, const CSParams& P) {
-        return cs_walker<C>(p, P);
+        return cs_walker<C, N>(p, P);
     }
     static __device__ double log_likelihood_warp(const Walker& w, const CSData<C>& d,
                                                  const CSParams& P) {
         return cs_log_likelihood_warp<C>(w, d, P);
     }
 };
+
+template <typename C>
+using CSWarpModelAnyDim = CSWarpModel<C, 0>;
+template <typename C>
+using CSWarpModel7 = CSWarpModel<C, 7>;
+template <typename C>
+using CSWarpModel8 = CSWarpModel<C, 8>;
+template <typename C>
+using CSWarpModel9 = CSWarpModel<C, 9>;
 
 // out[w] = CS log-posterior of walker state q[w, :] (affine-mapped when
 // has_affine), for the initial state and LogPosterior.forward.
@@ -482,7 +520,7 @@ int cs_half_step_launch(const CSParams* P, int device, int compute_f64, void* x,
                         const void* u_acc, double a, void* chain_x, int chain_x_f64,
                         void* chain_lp, int chain_lp_f64, int* n_accept, void* stream) {
     if (P->n_knots < 2) return (int)cudaErrorInvalidValue;
-    return launch_half_step<CSWarpModel>(P, device, compute_f64, x, state_f64, logp, half, h,
+    return launch_half_step<CSWarpModelAnyDim>(P, device, compute_f64, x, state_f64, logp, half, h,
                                          u_z, j, u_acc, a, chain_x, chain_x_f64, chain_lp,
                                          chain_lp_f64, n_accept, stream);
 }
@@ -495,17 +533,27 @@ int cs_tempered_half_step_launch(const CSParams* P, int device, int compute_f64,
                                  const void* u_z, const long long* j, const void* u_acc, double a,
                                  int* n_accept, void* stream) {
     if (P->n_knots < 2) return (int)cudaErrorInvalidValue;
-    return launch_tempered_half_step<CSWarpModel, true>(P, device, compute_f64, x, state_f64,
-                                                        logpri, logl, betas, n_rungs, half, h,
-                                                        u_z, j, u_acc, a, n_accept, stream);
+    return launch_tempered_half_step<CSWarpModelAnyDim, true>(P, device, compute_f64, x,
+                                                              state_f64, logpri, logl, betas,
+                                                              n_rungs, half, h, u_z, j, u_acc, a,
+                                                              n_accept, stream);
 }
 
-// K6b launch over the CS models (ladder.cuh). Returns 0 or a cudaError_t code.
+// K6b launch over the CS models (ladder.cuh), a warp per state (CSWarpModel
+// of the walker's dimension, 7-9); the arguments of sc2_ladder_init_launch.
+// Returns 0 or a cudaError_t code.
 int cs_ladder_init_launch(const CSParams* P, int device, int compute_f64, const void* x,
-                          int state_f64, int n, double* logpri, double* logl, void* stream) {
+                          int state_f64, int n, int per_set, int copies, double* logpri,
+                          double* logl, void* stream) {
     if (P->n_knots < 2) return (int)cudaErrorInvalidValue;
-    return launch_ladder_init<CSModel>(P, device, compute_f64, x, state_f64, n, logpri, logl,
-                                       stream);
+#define LP_CS_INIT(M_)                                                                         \
+    launch_ladder_init<M_>(P, device, compute_f64, x, state_f64, n, per_set, copies, logpri, \
+                           logl, stream)
+    if (P->ndim == 7) return LP_CS_INIT(CSWarpModel7);
+    if (P->ndim == 8) return LP_CS_INIT(CSWarpModel8);
+    if (P->ndim == 9) return LP_CS_INIT(CSWarpModel9);
+#undef LP_CS_INIT
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,9 +1,10 @@
 // K6: the tempered ladder's model kernels, templates over a model policy M of
-// stretch.cuh that provides log_likelihood (SC2Model in sc2_logpost.cu,
-// SC3Model in sc3_logpost.cu, CSModel in companion.cu; K6a over SC2 and
-// over CS runs a warp per walker, SC2WarpModel and CSWarpModel). The
-// model-free K6 kernels (the replica exchange and the stepping-stone block
-// terms) are in ladder.cu.
+// stretch.cuh (K6a over SC2 and over CS a warp per walker, SC2WarpModel and
+// CSWarpModel in sc2_logpost.cu and companion.cu; over SC3 a thread per
+// walker, SC3Model in sc3_logpost.cu; K6b a warp per state over
+// SC2WarpModel, SC3WarpModel and CSWarpModel). The model-free K6 kernels
+// (the replica exchange and the stepping-stone block terms) are in
+// ladder.cu.
 //
 // Replaces (JAX package, lightcurve_fitting_tpu/):
 //   K6a parallel/evidence.py:60-74 (half_update) and :76-83 (the step_one
@@ -31,6 +32,15 @@
 // x half 16 or 32, 17 x 2048) a few warps an SM, each walking 149 (SC2) or
 // 108 (CS) dependent point evaluations. K6a over SC3 keeps a thread per
 // walker.
+// K6b runs the batch log-posterior's warp form (logpost_batch) with the
+// likelihood evaluated whatever the prior, so a starting state's log pi and
+// log L have the bits that K6a over the same policy stores when it accepts
+// that state. The ladder starts every rung from the same states (one p0
+// broadcast to the K+1 rungs, as the JAX package's init_carry), so K6b
+// takes the distinct states once and each lane writes its state's two
+// values into the `copies` rows that hold it: at the evidence's 17 x 4096
+// that is 4096 evaluations, not 69632 (a thread per state and rung took
+// ~0.35 ms there, at the floor of a thread per walker).
 
 #pragma once
 
@@ -162,21 +172,63 @@ tempered_half_step_kernel(const typename M::Params P, S* __restrict__ x,
     }
 }
 
-// K6b: logpri[i] and logl[i] of the n walker states x[i, :] (every rung's),
-// the likelihood evaluated whatever the prior (the swaps read it alone).
+// The initial values of the states b0 .. b0 + nb - 1 of x, a warp per
+// state, as logpost_batch evaluates a batch (the same layout, staging and
+// warp_batch_ll) but with the likelihood of every state, whatever its prior:
+// lane l maps state b0 + l to absolute parameters and forms its log pi and
+// constants (with nb = 1 every lane forms state b0's), and writes log pi
+// and log L (-inf for a NaN) into each of its `copies` rows: state i of set
+// s (per_set states a set) goes to rows s copies + c, c < copies.
 template <typename M, typename S>
-__global__ void __launch_bounds__(LP_THREADS)
-ladder_init_kernel(const typename M::Params P, const S* __restrict__ x, int n,
-                   double* __restrict__ logpri, double* __restrict__ logl, int use_smem) {
+__device__ __forceinline__ void ladder_init_batch(const typename M::Params& P,
+                                                  const typename M::Data& d, const S* x,
+                                                  int per_set, int copies, double* logpri,
+                                                  double* logl, int b0, int nb) {
+    const int lane = threadIdx.x & 31;
+    const bool own = nb == 1 || lane < nb;
+    const int i = b0 + (nb == 1 ? 0 : lane);
+    constexpr int D = policy_dim<M>::value;
+    const int ndim = D > 0 ? D : (int)P.ndim;
+    double lpri = -INFINITY;
+    typename M::Walker wk;
+    if (own) {
+        double p[D > 0 ? D : LP_MAX_DIM];
+        for (int k = 0; k < ndim; ++k) p[k] = to_absolute(P, k, x[(size_t)i * ndim + k]);
+        lpri = log_prior<D>(P, p);
+        wk = M::walker(p, P);
+    }
+    double ll = warp_batch_ll<M, true>(wk, lpri, nb, d, P);
+    if (lane >= nb) return;
+    if (isnan(ll)) ll = -INFINITY;
+    const int s = i / per_set;
+    size_t row = (size_t)s * copies * per_set + (size_t)(i - s * per_set);
+    for (int c = 0; c < copies; ++c, row += per_set) {
+        logpri[row] = lpri;
+        logl[row] = ll;
+    }
+}
+
+// K6b: log pi and log L of the n states x (n, ndim), n = sets x per_set,
+// the likelihood evaluated whatever the prior (the swaps read it alone),
+// each written to `copies` rows: logpri and logl (sets x copies x per_set).
+// A warp per state (ladder_init_batch), the block's warps striding over
+// batches of `batch` states (warp_layout), as logpost_warp_kernel.
+template <typename M, typename S>
+__global__ void __launch_bounds__(block_limit<M>::value)
+ladder_init_kernel(const typename M::Params P, const S* __restrict__ x, int n, int per_set,
+                   int copies, double* __restrict__ logpri, double* __restrict__ logl,
+                   int use_smem, int batch) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const typename M::Data d = M::stage(P, smem_raw, use_smem, 0);
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const int ndim = (int)P.ndim;
-    double p[LP_MAX_DIM];
-    for (int k = 0; k < ndim; ++k) p[k] = to_absolute(P, k, x[(size_t)i * ndim + k]);
-    logpri[i] = log_prior(P, p);
-    logl[i] = M::log_likelihood(p, d, P);
+    const int per_block = blockDim.x >> 5;
+    const int bsz = M::batched ? batch : 1;   // (a constant 1 when not batched)
+    const int n_batches = (n + bsz - 1) / bsz;
+    for (int b = blockIdx.x * per_block + (threadIdx.x >> 5); b < n_batches;
+         b += gridDim.x * per_block) {   // (whole warps)
+        const int b0 = b * bsz;
+        ladder_init_batch<M, S>(P, d, x, per_set, copies, logpri, logl, b0,
+                                M::batched && n - b0 < bsz ? n - b0 : bsz);
+    }
 }
 
 // ------------------------------------------------------------------ launch
@@ -205,16 +257,16 @@ static int launch_tempered(const typename M::Params& P, void* x, double* logpri,
 }
 
 template <typename M, typename S>
-static int launch_init(const typename M::Params& P, const void* x, int n, double* logpri,
-                       double* logl, cudaStream_t stream) {
+static int launch_init(const typename M::Params& P, const void* x, int n, int per_set,
+                       int copies, double* logpri, double* logl, cudaStream_t stream) {
     auto kernel = ladder_init_kernel<M, S>;
     int use_smem = 0;
     const size_t bytes = M::stage_bytes(P);
     int rc = smem_plan(kernel, bytes, &use_smem);
     if (rc) return rc;
-    const int blocks = (n + LP_THREADS - 1) / LP_THREADS;
-    kernel<<<blocks, LP_THREADS, use_smem ? bytes : 0, stream>>>(P, (const S*)x, n, logpri, logl,
-                                                                 use_smem);
+    const WarpLayout lay = warp_layout<M>(kernel, n, use_smem ? bytes : 0);
+    kernel<<<lay.blocks, lay.threads, use_smem ? bytes : 0, stream>>>(
+        P, (const S*)x, n, per_set, copies, logpri, logl, use_smem, lay.batch);
     return (int)cudaGetLastError();
 }
 
@@ -242,20 +294,25 @@ static int launch_tempered_half_step(const typename M<float>::Params* P, int dev
 #undef LADDER_ARGS
 }
 
-// The K6b launch for the model policy M<C> over n states. Returns 0 or a
-// cudaError_t code.
+// The K6b launch for the warp policy M<C> over the n states x (sets x
+// per_set, ndim), each written to `copies` rows. Returns 0 or a cudaError_t
+// code.
 template <template <typename> class M>
 static int launch_ladder_init(const typename M<float>::Params* P, int device, int compute_f64,
-                              const void* x, int state_f64, int n, double* logpri, double* logl,
-                              void* stream) {
+                              const void* x, int state_f64, int n, int per_set, int copies,
+                              double* logpri, double* logl, void* stream) {
     int rc = (int)cudaSetDevice(device);
     if (rc) return rc;
     if (n <= 0) return 0;
-    if (P->ndim > LP_MAX_DIM) return (int)cudaErrorInvalidValue;
+    if (P->ndim > LP_MAX_DIM || per_set <= 0 || n % per_set || copies < 1 ||
+        (long long)n * copies > 2147483647LL)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
+#define LADDER_INIT_ARGS *P, x, n, per_set, copies, logpri, logl, s
     if (compute_f64)
-        return state_f64 ? launch_init<M<double>, double>(*P, x, n, logpri, logl, s)
-                         : launch_init<M<double>, float>(*P, x, n, logpri, logl, s);
-    return state_f64 ? launch_init<M<float>, double>(*P, x, n, logpri, logl, s)
-                     : launch_init<M<float>, float>(*P, x, n, logpri, logl, s);
+        return state_f64 ? launch_init<M<double>, double>(LADDER_INIT_ARGS)
+                         : launch_init<M<double>, float>(LADDER_INIT_ARGS);
+    return state_f64 ? launch_init<M<float>, double>(LADDER_INIT_ARGS)
+                     : launch_init<M<float>, float>(LADDER_INIT_ARGS);
+#undef LADDER_INIT_ARGS
 }

@@ -10,7 +10,7 @@
 //       :97-104 (step) and :205-225 (thinned_step).
 //   K6a, K6b over ShockCooling2: the tempered half-step and the ladder's
 //       initial state (parallel/evidence.py:60-83, :229-235), the templates
-//       of ladder.cuh over SC2WarpModel (K6a) and SC2Model (K6b).
+//       of ladder.cuh over SC2WarpModel.
 //   K7, K7h, K9 over ShockCooling2: the value and gradient of the
 //       log-posterior (jax.value_and_grad of K1's graph), the HMC and the
 //       NUTS transitions, the templates of gradient.cuh over SC2Model, whose
@@ -26,27 +26,30 @@
 // What the design does about it: the per-point constants are staged once
 // per block in shared memory and the prior bounds are tested first (an
 // out-of-prior walker returns -inf without touching the likelihood; the JAX
-// graph evaluates it and masks it afterwards: same value). Every kernel
+// graph evaluates it and masks it afterwards: same value; K6b evaluates it,
+// as the ladder's swaps read log L alone). Every kernel
 // computes a point through one __device__ function, sc2_forward (T, L and R
 // with their power laws, the clip, the Clenshaw recurrence, the residual);
 // the kernels differ in who sums the points, and in what order:
-// - K1 and K6b (2 and 1 launches a run) run a thread per walker, which sums
-//   the points in time order (sc2_log_likelihood; every thread of a warp
-//   reads the same address: a broadcast). A launch never takes less than
-//   ~0.18 ms however few the walkers (one thread walks all 149 points
-//   through a dependent Clenshaw chain: latency, not the ALU rate).
-// - K2 and K6a (the step loops) run a warp per walker (SC2WarpModel): lane l
-//   takes the points l, l + 32, ... (five at most, 93% of the slots busy),
-//   sums its terms in that order, and a butterfly sums the lanes
+// - K1, K2, K6a and K6b run a warp per walker (SC2WarpModel): lane l takes
+//   the points l, l + 32, ... (five at most, 93% of the slots busy), sums
+//   its terms in that order, and a butterfly sums the lanes
 //   (sc2_log_likelihood_warp). A warp takes its walkers in batches whose
 //   prologues (proposal, prior, constants) run a walker a lane
-//   (stretch.cuh, warp_batch_ll). This is K7's order and code, so in
-//   float32 a proposal's log-posterior in K2 and K6a has K7's value bits at
-//   the same parameters (chip_smoke.py checks it). In float64 the compiler
-//   fuses y - F / yscale into one FMA in K7 and rounds the product first in
-//   K2, so a quarter of the values differ from K7's in the last bits
-//   (~1e-13 relative). Either differs from K1's by the rounding of the sum
-//   order (an unmoved walker keeps K1's value).
+//   (stretch.cuh, warp_batch_ll). K1 (the batch log-posterior,
+//   logpost_warp_kernel) and K6b (the ladder's initial state,
+//   ladder_init_kernel) are the half-steps' warp form without the
+//   proposal, at a compile-time ndim (SC2WarpModel<C, 4 or 5>: the
+//   walker's parameters in registers), so a state's initial value has the
+//   bits that K2 or K6a stores when it accepts that state. A thread per
+//   walker, their earlier form, summed the points in time order and never
+//   took less than ~0.18 ms however few the walkers (one thread walking all
+//   149 points through a dependent Clenshaw chain: latency, not the ALU
+//   rate). This is K7's order and code, so a proposal's log-posterior in
+//   K2 and K6a has K7's value bits at the same parameters (chip_smoke.py
+//   checks it): in float32 through the compiler's forms, in float64 through
+//   K7's forms written by hand (sc2_forward's EXACT; without the intrinsic
+//   scatter, whose variance K7 may fuse otherwise).
 // - K7, K7h and K9 add the derivative recurrence and the reverse pass to
 //   sc2_forward (sc2_point) and fold the points in the warp's order.
 // Lane l reads row l of the (N, 41) coefficient table at offset 41 l + k:
@@ -204,10 +207,21 @@ struct SC2Forward {
 // are known and before the recurrence, and link(two_s, b1, b2), called at
 // each link of the recurrence before it moves; the value alone passes
 // no-ops (sc2_no_before, sc2_no_link).
-template <typename C, typename Before, typename Link>
+// EXACT (the value path of K1, K2, K6a and K6b): in float64 the products
+// that meet a sum are fused or rounded by hand, in the forms of K7's
+// compiled point (fma in s, in the recurrence's links, in ln g and in the
+// residual y - F / yscale; the squared residual rounded before it is
+// summed), so that every inlined copy of the point rounds alike and as K7.
+// Left to the compiler, the two copies that warp_batch_ll inlines (one
+// walker a warp, a batch a warp) fused them differently in float64: a
+// state's value depended on the batch size of the launch that evaluated it,
+// and differed from K7's in the last bit of ~20% of the values at the
+// large widths. Float32 keeps the compiler's forms, whose copies agree.
+template <typename C, bool EXACT = false, typename Before, typename Link>
 __device__ __forceinline__ SC2Forward<C> sc2_forward(int n, const SC2Walker<C>& w,
                                                      const PointData<C>& d, int K,
                                                      bool use_sigma, Before before, Link link) {
+    constexpr bool X = EXACT && sizeof(C) == sizeof(double);
     SC2Forward<C> f;
     f.tt = d.tc[n] - w.t_exp;
     f.tpos = f.tt > C(0);
@@ -230,7 +244,7 @@ __device__ __forceinline__ SC2Forward<C> sc2_forward(int n, const SC2Walker<C>& 
     f.clipped = false;
     if (f.Tpos) {
         f.s_a = d.s_a[n];
-        const C s_raw = m_log(f.T) * f.s_a - d.s_b[n];
+        const C s_raw = X ? fma(m_log(f.T), f.s_a, -d.s_b[n]) : m_log(f.T) * f.s_a - d.s_b[n];
         f.clipped = !(s_raw >= C(-1) && s_raw <= C(1));
         f.s = s_raw < C(-1) ? C(-1) : (s_raw > C(1) ? C(1) : s_raw);   // NaN stays NaN
         const C two_s = C(2) * f.s;
@@ -238,15 +252,29 @@ __device__ __forceinline__ SC2Forward<C> sc2_forward(int n, const SC2Walker<C>& 
         C b1 = C(0), b2 = C(0);
         for (int k = K - 1; k >= 1; --k) {
             link(two_s, b1, b2);
-            const C b0 = two_s * b1 - b2 + c[k];
+            const C b0 = X ? add_rn(fma(two_s, b1, -b2), c[k]) : two_s * b1 - b2 + c[k];
             b2 = b1;
             b1 = b0;
         }
         f.b1 = b1;
         f.b2 = b2;
-        const C ln_g = f.s * b1 - b2 + c[0];
+        const C ln_g = X ? add_rn(fma(f.s, b1, -b2), c[0]) : f.s * b1 - b2 + c[0];
         f.G = m_exp(ln_g);
         f.F = f.R * f.R * f.G;
+    }
+    if (X) {   // the residual y - F / yscale fused
+        const C res = fma(-f.F, w.inv_yscale, d.y[n]);
+        if (use_sigma) {
+            f.res = res;
+            f.sg = mul_rn(w.sig, d.su[n]);
+            f.sigma2 = fma(d.dy[n], d.dy[n], mul_rn(f.sg, f.sg));
+            f.r = add_rn(m_log(mul_rn((C)6.283185307179586, f.sigma2)),
+                         div_rn(mul_rn(res, res), f.sigma2));
+        } else {
+            f.r = mul_rn(res, d.inv_dy[n]);
+            f.res = f.sigma2 = f.sg = C(0);
+        }
+        return f;
     }
     const C y_fit = f.F * w.inv_yscale;
     if (use_sigma) {
@@ -272,33 +300,21 @@ struct sc2_no_link {
 };
 
 // The point's term added to the residual sum: r * r, or r itself with the
-// intrinsic scatter.
-template <typename C>
+// intrinsic scatter (EXACT: by hand in float64, as sc2_forward).
+template <typename C, bool EXACT = false>
 __device__ __forceinline__ void sc2_add_term(C& acc, C r, bool use_sigma) {
+    constexpr bool X = EXACT && sizeof(C) == sizeof(double);
     if (use_sigma) {
-        acc += r;
+        acc = X ? add_rn(acc, r) : acc + r;
     } else {
-        acc += r * r;
+        acc = X ? add_rn(acc, mul_rn(r, r)) : acc + r * r;
     }
 }
 
-// The Gaussian log-likelihood of the ShockCooling2 band fluxes of one walker
-// at absolute parameters p[ndim], float64; -inf when not finite. It does not
-// look at the priors. One thread sums the points in time order (K1, K6b).
-template <typename C>
-__device__ double sc2_log_likelihood(const double* p, const PointData<C>& d, const SC2Params& P) {
-    const SC2Walker<C> w = sc2_walker<C>(p, P, (int)P.ndim);
-    const int N = (int)P.n_points, K = (int)P.n_coef;
-    const bool use_sigma = P.use_sigma != 0;
-    C acc = C(0);
-    for (int n = 0; n < N; ++n)
-        sc2_add_term(acc, sc2_forward<C>(n, w, d, K, use_sigma, sc2_no_before(), sc2_no_link()).r,
-                     use_sigma);
-    return finish_log_likelihood<C>(acc, P.use_sigma, P.ll_offset, P.log_norm_const);
-}
-
-// The same log-likelihood of the walker with constants w, computed by the 32
-// lanes of a warp together (K2, K6a), every lane returning the same bits:
+// The Gaussian log-likelihood of the ShockCooling2 band fluxes of the walker
+// with constants w, float64, -inf when not finite; it does not look at the
+// priors. Computed by the 32 lanes of a warp together (K1, K2, K6a, K6b),
+// every lane returning the same bits:
 // lane l sums the terms of points l, l + 32, l + 64, ... in that order, then
 // a butterfly shuffle sums the lanes. This is the order of K7's value
 // (sc2_value_and_grad_warp), without the derivatives.
@@ -309,19 +325,10 @@ __device__ double sc2_log_likelihood_warp(const SC2Walker<C>& w, const PointData
     const bool use_sigma = P.use_sigma != 0;
     C acc = C(0);
     for (int n = threadIdx.x & 31; n < N; n += 32)
-        sc2_add_term(acc, sc2_forward<C>(n, w, d, K, use_sigma, sc2_no_before(), sc2_no_link()).r,
-                     use_sigma);
+        sc2_add_term<C, true>(
+            acc, sc2_forward<C, true>(n, w, d, K, use_sigma, sc2_no_before(), sc2_no_link()).r,
+            use_sigma);
     return finish_log_likelihood<C>(warp_sum(acc), P.use_sigma, P.ll_offset, P.log_norm_const);
-}
-
-// The log-posterior of one walker at absolute parameters p[ndim]: the sum of
-// the prior log-densities (-inf outside the open bounds, and then the
-// likelihood is not evaluated) plus the log-likelihood; -inf when not finite.
-template <typename C>
-__device__ double sc2_log_posterior(const double* p, const PointData<C>& d, const SC2Params& P) {
-    const double lprior = log_prior(P, p);
-    if (!isfinite(lprior)) return -INFINITY;
-    return lprior + sc2_log_likelihood<C>(p, d, P);
 }
 
 // The value and gradient of the log-posterior (K7's device function in its
@@ -544,9 +551,6 @@ struct SC2Model {
     static __device__ Data stage(const Params& P, unsigned char* smem, int use_smem, int) {
         return stage_points<C>(P, reinterpret_cast<C*>(smem), use_smem);
     }
-    static __device__ double log_likelihood(const double* p, const Data& d, const Params& P) {
-        return sc2_log_likelihood<C>(p, d, P);
-    }
     static __device__ double value_and_grad(const double* p, const Data& d, const Params& P,
                                             double* g) {
         return sc2_value_and_grad_warp<C>(p, d, P, g);
@@ -562,21 +566,27 @@ struct SC2Model {
     }
 };
 
-// The policy of K2 and of K6a over ShockCooling2: a warp per walker
-// (stretch_half_step_kernel, and tempered_half_step_kernel with WARP), 32
-// warps a block in float32 (the tables, 28.6 KB, staged once a block) and
-// 16 in float64 (57.2 KB, over the 48 KB default: smem_plan opts in, and
-// warp_layout's occupancy query sees it), batched: a warp takes its walkers
-// in batches whose prologues (the proposal, the prior, sc2_walker's casts)
-// run a walker a lane, the walker's 11 constants shuffled to the warp for
-// its points (warp_layout, warp_batch_ll).
-template <typename C>
+// The policy of K1, K2, K6a and K6b over ShockCooling2: a warp per walker
+// (logpost_warp_kernel, stretch_half_step_kernel, tempered_half_step_kernel
+// with WARP, ladder_init_kernel), 32 warps a block in float32 (the tables,
+// 28.6 KB, staged once a block) and 16 in float64 (57.2 KB, over the 48 KB
+// default: smem_plan opts in, and warp_layout's occupancy query sees it),
+// batched: a warp takes its walkers in batches whose prologues (the
+// proposal, the prior, sc2_walker's casts) run a walker a lane, the
+// walker's 11 constants shuffled to the warp for its points (warp_layout,
+// warp_batch_ll). N: the walker's dimension at compile time (policy_dim),
+// or 0 (P.ndim). K1 and K6b take N = 4, or 5 with the intrinsic scatter, so
+// that the walker's parameters live in registers (at a runtime dimension
+// the SC3 batch kernel took a 72-byte stack frame); the half-steps keep
+// N = 0, their code and bits unchanged.
+template <typename C, int N>
 struct SC2WarpModel : SC2Model<C> {
     typedef SC2Walker<C> Walker;
     static constexpr int warps_per_block = sizeof(C) == sizeof(float) ? 32 : 16;
     static constexpr bool batched = true;
+    static constexpr int ndim = N;
     static __device__ Walker walker(const double* p, const SC2Params& P) {
-        return sc2_walker<C>(p, P, (int)P.ndim);
+        return sc2_walker<C>(p, P, N > 0 ? N : (int)P.ndim);
     }
     static __device__ double log_likelihood_warp(const Walker& w, const PointData<C>& d,
                                                  const SC2Params& P) {
@@ -584,63 +594,37 @@ struct SC2WarpModel : SC2Model<C> {
     }
 };
 
-// K1: out[w] = log-posterior of walker state q[w, :] (affine-mapped when
-// has_affine), for the initial state and LogPosterior.forward.
-template <typename C, typename S>
-__global__ void __launch_bounds__(LP_THREADS)
-sc2_logpost_kernel(const SC2Params P, const S* __restrict__ q, int W,
-                   double* __restrict__ out, int use_smem) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    const PointData<C> d = stage_points<C>(P, reinterpret_cast<C*>(smem_raw), use_smem);
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= W) return;
-    const int ndim = (int)P.ndim;
-    double p[LP_MAX_DIM];
-    for (int k = 0; k < ndim; ++k) p[k] = to_absolute(P, k, q[(size_t)i * ndim + k]);
-    out[i] = sc2_log_posterior<C>(p, d, P);
-}
+template <typename C>
+using SC2WarpModelAnyDim = SC2WarpModel<C, 0>;
+template <typename C>
+using SC2WarpModel4 = SC2WarpModel<C, 4>;
+template <typename C>
+using SC2WarpModel5 = SC2WarpModel<C, 5>;
 
 // ------------------------------------------------------------------ launch
 
-template <typename C, typename S>
-static int launch_logpost(const SC2Params& P, const void* q, int W, double* out,
-                          cudaStream_t stream) {
-    auto kernel = sc2_logpost_kernel<C, S>;
-    int use_smem = 0;
-    size_t bytes = stage_bytes<C>(P);
-    int rc = smem_plan(kernel, bytes, &use_smem);
-    if (rc) return rc;
-    const int blocks = (W + LP_THREADS - 1) / LP_THREADS;
-    kernel<<<blocks, LP_THREADS, use_smem ? bytes : 0, stream>>>(
-        P, (const S*)q, W, out, use_smem);
-    return (int)cudaGetLastError();
-}
-
 extern "C" {
 
-// K1 launch. Returns 0 or a cudaError_t code.
+// K1 launch, a warp per walker (logpost_warp_kernel over SC2WarpModel of
+// the walker's dimension, 4 or 5). Returns 0 or a cudaError_t code.
 int sc2_logpost_launch(const SC2Params* P, int device, int compute_f64, const void* q,
                        int q_f64, int W, double* out, void* stream) {
-    int rc = (int)cudaSetDevice(device);
-    if (rc) return rc;
-    if (W <= 0) return 0;
-    if (P->ndim > LP_MAX_DIM) return (int)cudaErrorInvalidValue;
-    cudaStream_t s = (cudaStream_t)stream;
-    if (compute_f64)
-        return q_f64 ? launch_logpost<double, double>(*P, q, W, out, s)
-                     : launch_logpost<double, float>(*P, q, W, out, s);
-    return q_f64 ? launch_logpost<float, double>(*P, q, W, out, s)
-                 : launch_logpost<float, float>(*P, q, W, out, s);
+    if (P->ndim == 4)
+        return launch_logpost<SC2WarpModel4>(P, device, compute_f64, q, q_f64, W, out, stream);
+    if (P->ndim == 5)
+        return launch_logpost<SC2WarpModel5>(P, device, compute_f64, q, q_f64, W, out, stream);
+    return (int)cudaErrorInvalidValue;
 }
 
-// K2 launch, a warp per walker (SC2WarpModel). chain_x/chain_lp may be null
-// (a thinned step that is not stored). Returns 0 or a cudaError_t code.
+// K2 launch, a warp per walker (SC2WarpModel, the walker's dimension at run
+// time). chain_x/chain_lp may be null (a thinned step that is not stored).
+// Returns 0 or a cudaError_t code.
 int stretch_half_step_launch(const SC2Params* P, int device, int compute_f64, void* x,
                              int state_f64, double* logp, int half, int h, const void* u_z,
                              const long long* j, const void* u_acc, double a, void* chain_x,
                              int chain_x_f64, void* chain_lp, int chain_lp_f64,
                              int* n_accept, void* stream) {
-    return launch_half_step<SC2WarpModel>(P, device, compute_f64, x, state_f64, logp, half, h,
+    return launch_half_step<SC2WarpModelAnyDim>(P, device, compute_f64, x, state_f64, logp, half, h,
                                           u_z, j, u_acc, a, chain_x, chain_x_f64, chain_lp,
                                           chain_lp_f64, n_accept, stream);
 }
@@ -652,16 +636,26 @@ int sc2_tempered_half_step_launch(const SC2Params* P, int device, int compute_f6
                                   const double* betas, int n_rungs, int half, int h,
                                   const void* u_z, const long long* j, const void* u_acc,
                                   double a, int* n_accept, void* stream) {
-    return launch_tempered_half_step<SC2WarpModel, true>(P, device, compute_f64, x, state_f64,
-                                                         logpri, logl, betas, n_rungs, half, h,
-                                                         u_z, j, u_acc, a, n_accept, stream);
+    return launch_tempered_half_step<SC2WarpModelAnyDim, true>(P, device, compute_f64, x,
+                                                               state_f64, logpri, logl, betas,
+                                                               n_rungs, half, h, u_z, j, u_acc,
+                                                               a, n_accept, stream);
 }
 
-// K6b launch over ShockCooling2 (ladder.cuh). Returns 0 or a cudaError_t code.
+// K6b launch over ShockCooling2 (ladder.cuh), a warp per state
+// (SC2WarpModel of the walker's dimension, 4 or 5): n states, per_set a
+// set, each set's values written to `copies` consecutive rows of per_set.
+// Returns 0 or a cudaError_t code.
 int sc2_ladder_init_launch(const SC2Params* P, int device, int compute_f64, const void* x,
-                           int state_f64, int n, double* logpri, double* logl, void* stream) {
-    return launch_ladder_init<SC2Model>(P, device, compute_f64, x, state_f64, n, logpri, logl,
-                                        stream);
+                           int state_f64, int n, int per_set, int copies, double* logpri,
+                           double* logl, void* stream) {
+    if (P->ndim == 4)
+        return launch_ladder_init<SC2WarpModel4>(P, device, compute_f64, x, state_f64, n,
+                                                 per_set, copies, logpri, logl, stream);
+    if (P->ndim == 5)
+        return launch_ladder_init<SC2WarpModel5>(P, device, compute_f64, x, state_f64, n,
+                                                 per_set, copies, logpri, logl, stream);
+    return (int)cudaErrorInvalidValue;
 }
 
 // K7 launch: val (W,) and grad (W, ndim) at the float64 rows q, in the

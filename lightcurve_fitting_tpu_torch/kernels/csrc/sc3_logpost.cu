@@ -16,7 +16,8 @@
 //       the stretch_half_step_kernel template of stretch.cuh over
 //       SC3WarpModel, a warp per walker; the batch log-posterior (a fit's
 //       initial state) its logpost_warp_kernel over the same policy.
-//   K6a, K6b over ShockCooling3: the templates of ladder.cuh over SC3Model.
+//   K6a, K6b over ShockCooling3: the templates of ladder.cuh, K6a over
+//       SC3Model, K6b over SC3WarpModel (the batch log-posterior's form).
 //
 // What bounds it on the H100: the special functions. Each quadrature term
 // is one expm1, one exp and one division (~60 instructions in all), and one
@@ -32,9 +33,10 @@
 // log-posterior run a warp per walker: a thread per walker left the fits'
 // widths with one warp of 4 per SM (half 16384, or the 32768 walkers of an
 // initial state) or a single warp (half 32, 64 walkers), so that the latency
-// of one thread's 5738 terms set each at ~1.25 ms. K6a and K6b over SC3 keep
-// a thread per walker over the points in order, so a warp works on one band
-// at a time (broadcast table reads, one loop length). The lanes take the points
+// of one thread's 5738 terms set each at ~1.25 ms; K6b runs the same warp
+// form. K6a over SC3 keeps a thread per walker over the points in order, so
+// a warp works on one band at a time (broadcast table reads, one loop
+// length). The lanes take the points
 // in the order of kernels/sc3.py::point_order, by descending native node
 // count, so the 32 points a warp runs at once have near-equal loop lengths:
 // a lane runs 212 nodes on the flagship (440 in the time order), 85% of its
@@ -46,9 +48,9 @@
 // all the kernels, so a proposal's band fluxes are bit-identical to K3's
 // evaluation of the same T, R and E(B-V) over the same nodes; the epoch
 // blackbody kernels of epoch_bb.cu call it too. The half-step and the batch
-// log-posterior share the warp's residual sum, so a state's batch value has
-// the bits the half-step stored when it accepted that state; K6a and K6b over
-// SC3 sum in another order, and agree with them to rounding.
+// log-posterior (and K6b) share the warp's residual sum, so a state's batch
+// value has the bits the half-step stored when it accepted that state; K6a
+// over SC3 sums in another order, and agrees with them to rounding.
 //
 // Dtype semantics follow the JAX accelerator path: the SW17 power laws run
 // in the compute type C on C-cast parameters, tt = C(t - t_ref) - C(t_exp -
@@ -333,13 +335,13 @@ struct SC3Model {
     }
 };
 
-// The policy of the SC3 half-step and batch log-posterior: the warp form
-// (stretch_half_step_kernel, logpost_warp_kernel), its data with the point
-// order; four warps a block, a walker a warp
+// The policy of the SC3 half-step, batch log-posterior and K6b: the warp
+// form (stretch_half_step_kernel, logpost_warp_kernel, ladder_init_kernel),
+// its data with the point order; four warps a block, a walker a warp
 // (not batched: every lane forms the walker's proposal and factors), a block
 // for every four walkers. N: the walker's dimension at compile time
-// (policy_dim), or 0 (P.ndim). The batch log-posterior takes N = 7, or 8
-// with the intrinsic scatter, so that the walker's parameters live in
+// (policy_dim), or 0 (P.ndim). The batch log-posterior and K6b take N = 7,
+// or 8 with the intrinsic scatter, so that the walker's parameters live in
 // registers (at a runtime dimension they took a 72-byte stack frame and
 // 1.2% of its time on the H100); the half-step keeps N = 0 (at N = 8 it
 // spills under its launch bound).
@@ -436,11 +438,20 @@ int sc3_tempered_half_step_launch(const SC3Params* P, int device, int compute_f6
                                                n_accept, stream);
 }
 
-// K6b launch over ShockCooling3 (ladder.cuh). Returns 0 or a cudaError_t code.
+// K6b launch over ShockCooling3 (ladder.cuh), a warp per state
+// (SC3WarpModel of the walker's dimension, 7 or 8: the batch log-posterior's
+// form and bits); the arguments of sc2_ladder_init_launch. Returns 0 or a
+// cudaError_t code.
 int sc3_ladder_init_launch(const SC3Params* P, int device, int compute_f64, const void* x,
-                           int state_f64, int n, double* logpri, double* logl, void* stream) {
-    return launch_ladder_init<SC3Model>(P, device, compute_f64, x, state_f64, n, logpri, logl,
-                                        stream);
+                           int state_f64, int n, int per_set, int copies, double* logpri,
+                           double* logl, void* stream) {
+    if (P->ndim == 7)
+        return launch_ladder_init<SC3WarpModel7>(P, device, compute_f64, x, state_f64, n,
+                                                 per_set, copies, logpri, logl, stream);
+    if (P->ndim == 8)
+        return launch_ladder_init<SC3WarpModel8>(P, device, compute_f64, x, state_f64, n,
+                                                 per_set, copies, logpri, logl, stream);
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -10,15 +10,15 @@
 //   static size_t stage_bytes(const Params&);             // host and device
 //   static __device__ Data stage(const Params&, unsigned char* smem, int use_smem, int e);
 // where e is the ensemble (epoch) of the block: always 0 for a single
-// ensemble, whose data do not depend on it. A policy whose model runs on
-// the tempered ladder (ladder.cuh) provides
+// ensemble, whose data do not depend on it. A policy whose tempered
+// half-step runs a thread per walker (ladder.cuh, SC3Model) provides
 //   static __device__ double log_likelihood(const double* p, const Data&, const Params&);
-// the float64 log-likelihood alone (-inf when not finite), evaluated whatever
-// the prior (a log_posterior is log_prior plus that value). A policy whose
-// half-step runs a warp per walker (stretch_half_step_kernel: SC2WarpModel,
+// the float64 log-likelihood alone (-inf when not finite). A policy whose
+// kernels run a warp per walker (stretch_half_step_kernel: SC2WarpModel,
 // SC3WarpModel, CSWarpModel, EpochBBModel; tempered_half_step_kernel with
 // WARP: SC2WarpModel, CSWarpModel; the batch log-posterior
-// logpost_warp_kernel: SC3WarpModel) provides
+// logpost_warp_kernel: SC2WarpModel, SC3WarpModel; the ladder's initial
+// state ladder_init_kernel: SC2WarpModel, SC3WarpModel, CSWarpModel) provides
 //   typedef ... Walker;  // a walker's constants (32-bit words, copied by value)
 //   static __device__ Walker walker(const double* p, const Params&);
 //   static __device__ double log_likelihood_warp(const Walker&, const Data&, const Params&);
@@ -89,8 +89,8 @@ struct block_limit<M, std::void_t<decltype(M::warps_per_block)>> {
 };
 
 // The walker dimension of a policy M known at compile time: M::ndim where
-// the policy has one (EpochBBModel, SC3WarpModel), else 0; 0 is P.ndim at
-// run time.
+// the policy has one (EpochBBModel; SC2WarpModel, SC3WarpModel and
+// CSWarpModel, whose N = 0 means none), else 0; 0 is P.ndim at run time.
 template <typename M, typename = void>
 struct policy_dim {
     static constexpr int value = 0;
@@ -199,23 +199,28 @@ __device__ __forceinline__ S stretch_proposal(const Params& P, const S* xm, cons
 
 // The log-likelihoods of a warp's batch of nb <= 32 walkers, a warp per
 // walker: lane l has prepared walker l's log-prior lprior and, where it is
-// finite, its constants wk (with nb = 1 every lane has prepared the batch's
-// one walker, on the same bits). For each walker k whose prior is finite
-// (a uniform branch: the flag is lane k's), the 32 lanes evaluate
-// M::log_likelihood_warp on walker k's constants, broadcast from lane k.
-// Returns the value of the lane's own walker, -inf where its prior is not
-// finite (its likelihood is never evaluated); the bits do not depend on nb.
-// With a policy that is not batched nb is 1 and nothing is broadcast.
-template <typename M>
+// finite (or, with EVERY, whatever it is), its constants wk (with nb = 1
+// every lane has prepared the batch's one walker, on the same bits). For
+// each walker k whose prior is finite (a uniform branch: the flag is lane
+// k's), the 32 lanes evaluate M::log_likelihood_warp on walker k's
+// constants, broadcast from lane k. Returns the value of the lane's own
+// walker, -inf where its prior is not finite (its likelihood is never
+// evaluated); with EVERY every walker's likelihood is evaluated, whatever
+// its prior (the ladder's initial state: the swaps read log L alone). The
+// point is inlined twice here (nb = 1, and the batch), so the batched
+// policies (SC2WarpModel, CSWarpModel) round their float64 points by hand:
+// then the bits do not depend on nb or EVERY. With a policy that is not
+// batched nb is 1 and nothing is broadcast.
+template <typename M, bool EVERY = false>
 __device__ __forceinline__ double warp_batch_ll(const typename M::Walker& wk, double lprior,
                                                 int nb, const typename M::Data& d,
                                                 const typename M::Params& P) {
     if (!M::batched || nb == 1)
-        return isfinite(lprior) ? M::log_likelihood_warp(wk, d, P) : -INFINITY;
+        return EVERY || isfinite(lprior) ? M::log_likelihood_warp(wk, d, P) : -INFINITY;
     const int lane = threadIdx.x & 31;
     double own = -INFINITY;
     for (int k = 0; k < nb; ++k) {
-        if (!isfinite(__shfl_sync(0xffffffffu, lprior, k))) continue;
+        if (!EVERY && !isfinite(__shfl_sync(0xffffffffu, lprior, k))) continue;
         const double ll = M::log_likelihood_warp(shfl_struct(wk, k), d, P);
         if (lane == k) own = ll;
     }

@@ -7,8 +7,10 @@ versions beside them.
   ShockCooling2 and the companion-shocking models, a thread per walker over
   ShockCooling3): one stretch-move half-step of every rung's ensemble,
   accepting by log pi + beta log L;
-* :func:`ladder_init` (K6b, ``ladder_init_kernel``): log pi and log L of
-  every starting state of every rung;
+* :func:`ladder_init` (K6b, ``ladder_init_kernel``, a warp per state over
+  the model's warp policy): log pi and log L of the ladder's starting
+  states, each distinct state evaluated once and written to every rung
+  that starts from it (``copies``);
 * :func:`replica_swap` (K6c, ``replica_swap_kernel`` of ``csrc/ladder.cu``):
   the exchange between neighbouring rungs, writing a production step's
   outputs;
@@ -28,6 +30,7 @@ launches its kernel or raises: there is no fallback. Each launch adds one to
 """
 
 import ctypes
+import numbers
 
 import numpy as np
 import torch
@@ -175,36 +178,48 @@ def tempered_half_step(target, x, logpri, logl, betas, h, u_z, j, u_acc, a=2.0,
 
 # ----------------------------------------------------------------------- K6b
 
-def ladder_init_plain(log_prior, log_like, x):
-    """Plain K6b: (logpri, logl) of the states x (..., ndim), a NaN log L
-    mapped to -inf (evidence.py:229-235)."""
+def ladder_init_plain(log_prior, log_like, x, copies=1):
+    """Plain K6b: (logpri, logl) of the states x (S, ..., ndim), a NaN log L
+    mapped to -inf (evidence.py:229-235), each state's values repeated in
+    ``copies`` consecutive rows of the first axis: (S * copies, ...)."""
     logl = log_like(x)
-    return log_prior(x), torch.where(torch.isnan(logl), torch.full_like(logl, -torch.inf), logl)
+    logpri = log_prior(x)
+    logl = torch.where(torch.isnan(logl), torch.full_like(logl, -torch.inf), logl)
+    if copies == 1:
+        return logpri, logl
+    return logpri.repeat_interleave(copies, dim=0), logl.repeat_interleave(copies, dim=0)
 
 
-def ladder_init(target, x, param_offset=None, param_scale=None):
-    """K6b: (logpri, logl), each (R, 2, half) float64, of the ladder's
-    starting states x (R, 2, half, ndim); the likelihood is evaluated
-    whatever the prior."""
+def ladder_init(target, x, param_offset=None, param_scale=None, copies=1):
+    """K6b: (logpri, logl), each (S * copies, 2, half) float64, of the
+    ladder's starting states x (S, 2, half, ndim): set s of states fills
+    the ``copies`` rows s * copies, ..., s * copies + copies - 1 (the
+    ladder, whose rungs all start from one set, passes that set and its
+    rung count; ``copies=1`` gives each of S rungs its own states). The
+    likelihood is evaluated whatever the prior. The outputs are buffers of
+    their own, row by row (the half-steps and swaps write them in place)."""
+    if isinstance(copies, bool) or not isinstance(copies, numbers.Integral) or copies < 1:
+        raise ValueError(f"copies must be a positive integer, got {copies!r}")
+    copies = int(copies)
     if x.device.type == "cpu":
-        return ladder_init_plain(*plain_functions(target, param_offset, param_scale), x)
+        return ladder_init_plain(*plain_functions(target, param_offset, param_scale), x, copies)
     lp, mod = _fused(target, "the ladder's initial state")
     if x.ndim != 4 or x.shape[1] != 2:
-        raise ValueError(f"x must be (R, 2, half, ndim), got shape {tuple(x.shape)}")
-    R, _, half, ndim = x.shape
+        raise ValueError(f"x must be (S, 2, half, ndim), got shape {tuple(x.shape)}")
+    S, _, half, ndim = x.shape
     check(x, "x", tuple(x.shape), FLOATS, x.device)
     check_buffers(lp.log_likelihood, mod._BUFFERS, x.device)
     from .build import library
     lib = library()
     P = mod._kernel_params(lp, ndim, param_offset, param_scale)
-    logpri = torch.empty((R, 2, half), dtype=torch.float64, device=x.device)
+    logpri = torch.empty((S * copies, 2, half), dtype=torch.float64, device=x.device)
     logl = torch.empty_like(logpri)
     device_index, stream = cuda_args(x.device)
     launch = getattr(lib, f"{mod.__name__.rsplit('.', 1)[-1]}_ladder_init_launch")
     rc = launch(ctypes.addressof(P), device_index,
                 int(lp.log_likelihood.compute_dtype == torch.float64), x.data_ptr(),
-                int(x.dtype == torch.float64), R * 2 * half, logpri.data_ptr(), logl.data_ptr(),
-                stream)
+                int(x.dtype == torch.float64), S * 2 * half, 2 * half, copies,
+                logpri.data_ptr(), logl.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"ladder_init_kernel launch failed: cudaError {rc}")
     LAUNCHES["ladder_init"] += 1

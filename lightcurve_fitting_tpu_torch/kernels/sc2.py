@@ -1,13 +1,13 @@
 """Wrappers of the fused ShockCooling2 kernels, K1, K2 and K7, with their
 plain PyTorch versions beside them.
 
-* :func:`log_posterior` (K1, ``sc2_logpost_kernel``): the log-posterior of a
-  batch of walker states.
+* :func:`log_posterior` (K1, ``logpost_warp_kernel`` over ``SC2WarpModel``,
+  a warp per walker as the half-step, whose stored values it repeats bit
+  for bit): the log-posterior of a batch of walker states.
 * :func:`stretch_half_step` (K2, ``stretch_half_step_kernel`` over
   ``SC2WarpModel``, a warp per walker): one Goodman-Weare half-step of the
   ensemble, in place; the proposal's log-posterior sums the points as K7's
-  value does (K1 sums them in time order: the two differ by float32
-  rounding).
+  value does.
 * :func:`log_posterior_and_grad` (K7, ``logpost_grad_kernel`` and
   ``logpost_grad_block_kernel`` of ``csrc/gradient.cuh`` over
   ``SC2Model``): the log-posterior and its gradient, in the model's
@@ -108,7 +108,7 @@ def log_posterior(lp, q, param_offset=None, param_scale=None):
                                 q.data_ptr(), int(q.dtype == torch.float64), W,
                                 out.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"sc2_logpost_kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"logpost_warp_kernel (SC2) launch failed: cudaError {rc}")
     LAUNCHES["sc2_logpost"] += 1
     return out
 
@@ -173,7 +173,8 @@ def log_posterior_and_grad(lp, p, white=None):
     ``lp``), its whitened space. The gradient is masked as the JAX callers
     mask it; in the whitened space the mask applies after the chain rule
     (a NaN model derivative zeroes the whitened components it reaches). The
-    value is not bit-equal to K1's: the points are summed in another order.
+    value has K1's bits (the same points, order and roundings; with the
+    intrinsic scatter, in float64, up to its last bits).
     On CUDA the form (a block or a warp per row) is
     :func:`~.gradient.k7_form`'s for W and the card's SM count."""
     if p.device.type == "cpu":

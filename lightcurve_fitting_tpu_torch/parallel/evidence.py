@@ -125,7 +125,8 @@ def _run_tempered_ladder(target, p0, betas_all, nsteps, nsteps_burnin, a=2.0, se
     x = torch.as_tensor(np.ascontiguousarray(np.broadcast_to(p0.reshape(1, 2, half, ndim),
                                                              (K, 2, half, ndim))),
                         device=dev).to(sdt)
-    logpri, logl = ladder.ladder_init(target, x, param_offset, param_scale)
+    # every rung starts from p0: its values once, written to all K rungs
+    logpri, logl = ladder.ladder_init(target, x[:1], param_offset, param_scale, copies=K)
     betas = torch.as_tensor(np.asarray(betas_all, float), device=dev)
     shape = (K, 2, half)
     n_burn = torch.zeros(shape, dtype=torch.int32, device=dev)

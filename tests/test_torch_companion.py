@@ -351,6 +351,37 @@ def test_log_posterior_batch_matches_jax(lcs, variant, use_sigma, sigma_type, f3
     assert np.all(d <= (1e-5 if f32 else 1e-10)), d.max()
 
 
+def test_ladder_init_copies_match_jax_init_carry(lcs):
+    """K6b's plain version with copies > 1 (the ladder's call: one set of
+    starting states for every rung) against the JAX package's init_carry
+    on the rungs' copies, CS2 with the intrinsic scatter in float64: states
+    outside the priors (log L evaluated all the same; a NaN a13 zeroes the
+    Kasen term, as in the JAX package), a NaN scatter (log L NaN, so -inf)
+    and t_0 after the first epochs (t < t_0 there), within 1e-10 of the
+    term scale."""
+    from lightcurve_fitting_tpu import fitting as jfit
+    from test_torch_evidence import check_init_copies
+    jlc, tlc = lcs
+    p = _params(2, 40, 2)
+    bad = p[:4].copy()
+    bad[0, 0], bad[1, 4], bad[2, 1] = 57814.0, 1.7, np.nan     # outside the priors
+    p = np.concatenate([np.concatenate([p, bad]),
+                        np.random.default_rng(3).uniform(0.5, 3.0, (44, 1))], axis=1)
+    p[43, 7] = np.nan
+    pri_j = PRIORS[2] + [JLU(0.01, 10.0)]
+    jm = jmodels.CompanionShocking2(jlc)
+    jpri, jll, _, _, _ = jfit._tempered_setup(jlc, jm, pri_j, None, None, len(p), True,
+                                              "relative", 0)
+    ll = interop.log_likelihood_from_numpy(
+        jm.prepare_quad(np.asarray(jlc["filter"])), np.asarray(tlc["MJD"], float),
+        np.asarray(tlc["lum"], float), np.asarray(tlc["dlum"], float), True, "relative",
+        model=tmodels.CompanionShocking2(tlc))
+    pri, logl = check_init_copies(LogPosterior(ll, interop.priors_from_jax(pri_j)), jpri, jll,
+                                  p, 4, 1e-10, ll.term_scales(torch.as_tensor(p)).numpy())
+    assert np.isfinite(pri[:, :40]).all() and np.isneginf(pri[:, 40:]).all()
+    assert np.isfinite(logl[:, :43]).all() and np.isneginf(logl[:, 43]).all()
+
+
 def test_warp_sum_order_stays_within_the_yardstick(lcs):
     """The CS half-step and K6a over CS run a warp per walker, which sums a
     walker's 108 residual terms in another order than the plain version.

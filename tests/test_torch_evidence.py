@@ -10,6 +10,11 @@ Exact checks, float64:
   (``make_xs``, then ``step_one``'s and ``half_update``'s ``jr.split``):
   accept and swap flags identical over both parities, states, log pi and
   log L <= 1e-12 relative;
+* the ladder's initial state with ``copies`` (one set of states for every
+  rung) against the JAX package's ``init_carry`` on ShockCooling2 (here),
+  ShockCooling3 and CompanionShocking2 (``test_torch_sc3.py``,
+  ``test_torch_companion.py``), states outside the priors, with t < t_exp
+  and NaN among them: log pi <= 1e-12 relative, log L to float64 rounding;
 * ``_rung_block_terms`` on one random log L array: <= 1e-12 relative (the
   means are summed in another order);
 * ``_prior_log_norm``: <= 1e-12 relative (``logp`` on the same grid, the
@@ -29,6 +34,7 @@ import torch
 
 torch.set_num_threads(1)
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import jax.random as jr  # noqa: E402
 
@@ -150,6 +156,67 @@ def test_ladder_steps_match_jax_under_shared_draws(route):
         n_swap += int(sw.sum())
     assert kernels.LAUNCHES == before          # the CPU runs the plain versions
     assert 0 < n_acc < 5 * K * W and 0 < n_swap < 5 * K * W
+
+
+def jax_init_carry(jpri, jll, p, K):
+    """The JAX package's ``init_carry`` arithmetic (evidence.py:229-235) on K
+    copies of the states p (W, ndim): its ``batched_pri`` and ``batched_ll``
+    vmapped over the rungs, a NaN log L mapped to -inf; (K, W) numpy each."""
+    W, ndim = p.shape
+    _, jbpri, jbll = jev._make_tempered_step(jpri, jll, W // 2, ndim,
+                                             jev.make_beta_ladder(K - 1))
+    jx = jnp.asarray(np.broadcast_to(p, (K, W, ndim)))
+    logl = jax.vmap(jbll)(jx)
+    return np.asarray(jax.vmap(jbpri)(jx)), np.asarray(jnp.where(jnp.isnan(logl), -jnp.inf, logl))
+
+
+def check_init_copies(lp, jpri, jll, p, K, rel, scale):
+    """``ladder.ladder_init`` on the CPU with ``copies=K`` (the plain
+    version: one evaluation of the W states p, repeated) against
+    ``jax_init_carry`` on K copies: (K, 2, W/2) buffers of their own, no
+    launch, the same -inf sets, log pi within 1e-12 relative and log L
+    within ``rel`` of ``scale`` (W,) where finite. Returns (logpri, logl),
+    (K, W) numpy."""
+    want_pri, want_ll = jax_init_carry(jpri, jll, p, K)
+    W, ndim = p.shape
+    before = dict(kernels.LAUNCHES)
+    pri, ll = ladder.ladder_init(lp, torch.as_tensor(p.reshape(1, 2, W // 2, ndim)), copies=K)
+    assert kernels.LAUNCHES == before           # the CPU runs the plain version
+    assert pri.shape == ll.shape == (K, 2, W // 2) and pri.is_contiguous() and ll.is_contiguous()
+    pri, ll = pri.reshape(K, W).numpy(), ll.reshape(K, W).numpy()
+    assert not np.isnan(pri).any() and not np.isnan(ll).any()
+    assert np.array_equal(np.isneginf(pri), np.isneginf(want_pri))
+    assert np.array_equal(np.isneginf(ll), np.isneginf(want_ll))
+    fin = np.isfinite(want_pri)
+    np.testing.assert_allclose(pri[fin], want_pri[fin], rtol=1e-12, atol=0)
+    fin = np.isfinite(want_ll)
+    d = np.abs(ll[fin] - want_ll[fin]) / np.broadcast_to(scale, ll.shape)[fin]
+    assert np.all(d <= rel), d.max()
+    return pri, ll
+
+
+def test_ladder_init_copies_match_jax_init_carry():
+    """K6b's plain version with copies > 1 on ShockCooling2 (the ladder's
+    call: one set of starting states for every rung) against the JAX
+    package's init_carry on the rungs' copies, float64: states outside the
+    priors (their log L evaluated all the same), one with t < t_exp at the
+    first epochs and a NaN one (log L -inf)."""
+    jlc, tlc = _synthetic(11)
+    W, seed, K = 16, 5, 4
+    jpri, jll, jp0, _, _ = jfit._tempered_setup(jlc, JSC2(jlc), SNUG, None, None, W, False,
+                                                "relative", seed)
+    priors, ll, p0, _ = tfit._tempered_setup(tlc, TSC2(tlc), interop.priors_from_jax(SNUG),
+                                             None, None, W, False, "relative", seed,
+                                             device="cpu")
+    p = np.array(p0)
+    p[0, 0] = 20.0                     # T_1 above its prior
+    p[1, 3] = 3.0                      # t_0 after the first epochs (and above its prior)
+    p[2, 1] = np.nan
+    pri, logl = check_init_copies(tfit.LogPosterior(ll, priors), jpri, jll, p, K, 1e-12,
+                                  np.abs(jax_init_carry(jpri, jll, p, 1)[1][0]))
+    assert np.isneginf(pri[:, :3]).all() and np.isfinite(pri[:, 3:]).all()
+    assert np.isfinite(logl[:, :2]).all() and np.isneginf(logl[:, 2]).all()
+    assert np.isfinite(logl[:, 3:]).all() and (logl == logl[0]).all()
 
 
 def test_rung_block_terms_match_jax():

@@ -38,7 +38,11 @@ on the card, the same alive set and centers within POLISH_REL, and on the
 CPU its Adam step and chain rule bit for bit against CosineAdam and
 autograd; K4s's integral float32 <= 1e-5 relative; K5's
 percentiles bit-equal to the plain version's. K6a as K2, its log pi and
-log L held as K1's; K6b's log pi <= 1e-12 relative and log L as K1's; K6c
+log L held as K1's; K6b's log pi <= 1e-12 relative and log L as K1's at the
+ladders' shapes, each rung its own states and one set written to every
+rung (``copies``), and over ShockCooling2 and CompanionShocking2 bit for
+bit the values K6a stored at the states it accepted; on the CPU its
+``copies`` routing and refusals; K6c
 bit-equal at the ladders' shapes and every row length of its template;
 K6d float64 <= 1e-12 relative (the sums run in another order).
 K7's values as K1's and its gradients within 1e-4 (float32) and 1e-9
@@ -51,9 +55,11 @@ K9's new log-posteriors equal to K7's at the new states bit for bit (the
 block form folds the points in the warp form's order). K2 and K6a over
 ShockCooling2 (a warp per walker) at the fits' widths (half 32, 16384,
 65536; 7 rungs x half 16, 17 x 2048) in float32 and float64, their
-proposals' log-posteriors K7's values (bit for bit in float32), and on the
+proposals' log-posteriors K7's values (bit for bit), and on the
 CPU their sum order against the plain sum and the JAX package's float64
-log-posterior. The SC3 half-step,
+log-posterior. K1, the same warp form, at the fits' widths (64, 4096,
+131072), and bit for bit the values K2 stored at the states it accepted
+(ndim 4 and 5, float32 and float64). The SC3 half-step,
 a warp per walker, as K2 at the fits' widths (half 32, 16384) and 65536;
 the SC3 log-posterior, the same warp form, as K1 at the widths of the
 fits' initial states (64, 4096, 32768) and 131072, bit for bit the values
@@ -484,16 +490,22 @@ def test_polish_chain_rule_is_autograds_through_the_bijection():
 
 # ---------------------------------------------------------------- card side
 
+# K1's widths: the fits' initial states (5a and lightcurve_hmc's warm start:
+# 64; 5c: 4096; 5b: 131072)
+K1_WIDTHS = (64, 4096, 131072)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("W", K1_WIDTHS)
 @pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
-def test_k1_matches_plain_on_card(lc, cuda_device, f64):
+def test_k1_matches_plain_on_card(lc, cuda_device, f64, W):
     try:
         if f64:
             config.set_compute_dtype(None)
         lp = make_log_posterior(ShockCooling2(lc), lc, _priors(), device=cuda_device)
         wide = make_log_posterior(ShockCooling2(lc), lc, _priors(57480.0), device=cuda_device)
         assert lp.log_likelihood.compute_dtype == (torch.float64 if f64 else torch.float32)
-        p = torch.as_tensor(_walkers(4096), device=cuda_device)
+        p = torch.as_tensor(_walkers(W), device=cuda_device)
         late = np.random.default_rng(1).uniform([20, 2, 10, 57468.8], [50, 5, 50, 57472.0],
                                                 size=(512, 4))
         late = torch.as_tensor(late, device=cuda_device)
@@ -501,6 +513,9 @@ def test_k1_matches_plain_on_card(lc, cuda_device, f64):
         got = lp(p)
         assert kernels.LAUNCHES["sc2_logpost"] == n0 + 1
         _assert_ll_close(got, lp.forward_plain(p), 1e-10 if f64 else 1e-5)
+        # a walker's bits do not depend on the launch's width (one walker a
+        # warp at 64, batches of walkers a warp at the larger widths)
+        assert torch.equal(lp(p[:64]), got[:64]) and torch.equal(lp(p[:4096]), got[:4096])
         assert torch.isneginf(got[-4:]).all() and torch.isfinite(got[:-4]).all()
         got_late = wide(late)
         assert torch.isfinite(got_late).all()
@@ -510,6 +525,42 @@ def test_k1_matches_plain_on_card(lc, cuda_device, f64):
              / torch.as_tensor(SCALE, device=cuda_device)).float()
         _assert_ll_close(sc2.log_posterior(lp, q, OFFSET, SCALE),
                          sc2.log_posterior_plain(lp, q, OFFSET, SCALE), 1e-10 if f64 else 1e-5)
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma_type", [None, "relative"], ids=["ndim4", "ndim5-sigma"])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_k1_repeats_the_half_steps_values_on_card(lc, lc_flux, cuda_device, f64, sigma_type):
+    """K1 and K2 run one warp form (SC2WarpModel; K1 at a compile-time
+    ndim, K2 at a runtime one): on the states that two K2 half-steps left
+    at u_acc = 0 (every proposal inside the priors accepted), K1 returns
+    the log-posterior K2 stored, bit for bit, on the sampler's float32
+    rescaled state, with and without the intrinsic scatter."""
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        if sigma_type is None:
+            lp = make_log_posterior(ShockCooling2(lc), lc, _priors(), device=cuda_device)
+            lo, up = P_LO, P_UP
+        else:
+            lp, lo, up = _sigma_case("sc2", lc, lc_flux, cuda_device, sigma_type)
+        ndim, half = len(lo), 2048
+        off, sc = (lo + up) / 2, (up - lo) / 2 * (1 + 1e-6)
+        pos = (np.random.default_rng(5).uniform(lo, up, size=(2 * half, ndim)) - off) / sc
+        x = torch.as_tensor(pos.reshape(2, half, ndim), device=cuda_device).float().contiguous()
+        logp = sc2.log_posterior(lp, x.reshape(-1, ndim), off, sc).reshape(2, half)
+        g = torch.Generator(device=cuda_device).manual_seed(6)
+        acc = torch.zeros((2, half), dtype=torch.int32, device=cuda_device)
+        for h in (0, 1):
+            u_z = torch.rand(half, generator=g, device=cuda_device)
+            j = torch.randint(0, half, (half,), generator=g, device=cuda_device)
+            sc2.stretch_half_step(lp, x, logp, h, u_z, j, torch.zeros_like(u_z), 2.0, off, sc,
+                                  n_accept=acc)
+        assert 0.5 < float(acc.float().mean()) < 1.0   # the proposals inside the priors
+        assert torch.equal(sc2.log_posterior(lp, x.reshape(-1, ndim), off, sc),
+                           logp.reshape(-1))
     finally:
         config.set_compute_dtype(config.AUTO)
 
@@ -572,11 +623,12 @@ def test_k2_matches_plain_on_card(lc, cuda_device, half, f64, h):
 @pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
 def test_k2_and_k6a_proposals_have_k7_values_on_card(lc, cuda_device, f64):
     """K2 and K6a over ShockCooling2 sum a proposal's points in K7's order
-    through the same device code, so with u_acc = 0 (every proposal inside
-    the priors accepted) the new log-posterior of each walker, and K6a's
-    log pi + log L, are K7's value at its new state: bit for bit in
-    float32; in float64, where the compiler fuses y - F / yscale into one
-    FMA in K7 and not in K2, within 1e-12 of the term scale."""
+    through the same device code (in float64 with K7's fused multiply-adds
+    written by hand), so with u_acc = 0 (every proposal inside the priors
+    accepted) the new log-posterior of each walker, and K6a's log pi + log
+    L, are K7's value at its new state, bit for bit in float32 and float64,
+    at half 4096 (batches of walkers a warp in float64) and on 5 rungs x
+    half 256 (one walker a warp)."""
     try:
         if f64:
             config.set_compute_dtype(None)
@@ -595,11 +647,7 @@ def test_k2_and_k6a_proposals_have_k7_values_on_card(lc, cuda_device, f64):
         assert int(moved.sum()) > half // 2
         pa = common.absolute_params(x[0], OFFSET, SCALE)
         k7 = sc2.log_posterior_and_grad(lp, pa)[0]
-        if f64:
-            _assert_scaled(logp[0][moved], k7[moved], 1e-12,
-                           lp.log_likelihood.term_scales(pa)[moved])
-        else:
-            assert torch.equal(logp[0][moved], k7[moved])
+        assert torch.equal(logp[0][moved], k7[moved])
 
         R = 5
         lp_l, off, sc, xl = _ladder_case("sc2", lc, lc, cuda_device, R, 512, seed=6)
@@ -615,11 +663,7 @@ def test_k2_and_k6a_proposals_have_k7_values_on_card(lc, cuda_device, f64):
         assert int(moved.sum()) > R * 128
         pa = common.absolute_params(xl[:, 1], off, sc)
         k7 = sc2.log_posterior_and_grad(lp_l, pa.reshape(-1, 4))[0].reshape(R, 256)
-        if f64:
-            _assert_scaled((pri[:, 1] + ll[:, 1])[moved], k7[moved], 1e-12,
-                           lp_l.log_likelihood.term_scales(pa)[moved])
-        else:
-            assert torch.equal((pri[:, 1] + ll[:, 1])[moved], k7[moved])
+        assert torch.equal((pri[:, 1] + ll[:, 1])[moved], k7[moved])
     finally:
         config.set_compute_dtype(config.AUTO)
 
@@ -1061,12 +1105,18 @@ def test_bolometric_runs_through_the_epoch_kernels_on_card(cuda_device):
 
 # ------------------------------------------------------------- K6 (ladder)
 
-def _ladder_case(which, lc, lc_flux, dev, R, W, seed=0):
+def _ladder_case(which, lc, lc_flux, dev, R, W, seed=0, ia=None):
     """A LogPosterior, its rescaling, and a float32 ladder state (R, 2, W/2,
-    ndim) from the init window with 1% of the walkers outside the priors."""
+    ndim) from the init window with 1% of the walkers outside the priors:
+    ShockCooling2, ShockCooling3, or CompanionShocking2 on the synthetic Ia
+    curve ``ia``."""
     if which == "sc2":
         lp = make_log_posterior(ShockCooling2(lc), lc, _priors(), device=dev)
         lo, up, off, sc = P_LO, P_UP, OFFSET, SCALE
+    elif which == "cs":
+        lp = make_log_posterior(_cs_model(2, ia), ia[0], CS_PRIORS[2], device=dev)
+        lo, up = CS_LO[2], CS_UP[2]
+        off, sc = (lo + up) / 2, (up - lo) / 2 * (1 + 1e-6)
     else:
         lp = make_log_posterior(ShockCooling3(lc_flux), lc_flux, _sc3_priors(), device=dev)
         lo, up, off, sc = SC3_LO, SC3_UP, SC3_OFFSET, SC3_SCALE
@@ -1108,21 +1158,105 @@ def test_ladder_wrappers_route_by_device(lc):
         ladder.ladder_init((lambda p: p[:, 0], lambda p: p[:, 0]), meta)
 
 
+def test_ladder_init_copies_route_and_refuse(lc):
+    """``ladder_init(..., copies=K)`` (the ladder's call: one set of
+    starting states for every rung): on the CPU the plain version evaluates
+    the set once and fills K rows of buffers of their own, equal to the
+    states' own values row by row, and launches nothing; ``copies`` must be
+    a positive integer (checked before the device is), and off the CPU the
+    states must be (S, 2, half, ndim)."""
+    lp = make_log_posterior(ShockCooling2(lc), lc, _priors(), device="cpu")
+    x = torch.as_tensor(_walkers(8).reshape(2, 2, 2, 4)).contiguous()
+    before = dict(kernels.LAUNCHES)
+    pri1, ll1 = ladder.ladder_init(lp, x)
+    pri, ll = ladder.ladder_init(lp, x, copies=3)
+    assert kernels.LAUNCHES == before
+    assert pri.shape == ll.shape == (6, 2, 2) and pri.is_contiguous() and ll.is_contiguous()
+    for r in range(6):
+        assert torch.equal(pri[r], pri1[r // 3]) and torch.equal(ll[r], ll1[r // 3])
+    pri[0] += 1.0                                  # the rows do not share storage
+    assert torch.equal(pri[1], pri1[0])
+    assert torch.equal(ladder.ladder_init(lp, x, copies=np.int64(2))[1],
+                       ll1.repeat_interleave(2, dim=0))
+    meta = torch.empty((1, 2, 2, 4), device="meta")
+    for bad in (0, -1, 2.5, True, "2", None):
+        for xx in (x, meta):
+            with pytest.raises(ValueError, match="copies"):
+                ladder.ladder_init(lp, xx, copies=bad)
+    with pytest.raises(ValueError, match=r"\(S, 2, half, ndim\)"):
+        ladder.ladder_init(lp, torch.empty((2, 2, 4), device="meta"), copies=2)
+    with pytest.raises(NotImplementedError, match="CPU"):
+        ladder.ladder_init((lambda p: p[:, 0], lambda p: p[:, 0]), meta, copies=2)
+    assert kernels.LAUNCHES == before
+
+
+# K6b's ladders (rungs, walkers): SC2's evidence (16a), PT fit (16b) and
+# compare_models (16c); CS2's evidence and PT fit (24c); SC3's ladder of
+# chip_smoke.py phase 14; and 5 x 512 beside them
+K6B_LADDERS = [("sc2", 17, 4096), ("sc2", 7, 32), ("sc2", 17, 32), ("sc2", 5, 512),
+               ("cs", 17, 4096), ("cs", 7, 64), ("sc3", 17, 512), ("sc3", 5, 512)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["sc2", "sc3"])
-def test_k6b_matches_plain_on_card(lc, lc_flux, cuda_device, which):
-    lp, off, sc, x = _ladder_case(which, lc, lc_flux, cuda_device, 5, 512)
-    n0 = kernels.LAUNCHES["ladder_init"]
-    pri, ll = ladder.ladder_init(lp, x, off, sc)
-    assert kernels.LAUNCHES["ladder_init"] == n0 + 1
-    want_pri, want_ll = ladder.ladder_init_plain(*ladder.plain_functions(lp, off, sc), x)
-    assert torch.equal(torch.isneginf(pri), torch.isneginf(want_pri))
-    fin = torch.isfinite(want_pri)
-    assert 0 < int((~fin).sum()) and bool(((pri - want_pri).abs()[fin] <= 1e-12).all())
-    # the likelihood is evaluated outside the priors too
-    assert int(torch.isfinite(ll).sum()) > int(fin.sum())
+@pytest.mark.parametrize("which,R,W", K6B_LADDERS,
+                         ids=[f"{w}-{r}x{n}" for w, r, n in K6B_LADDERS])
+def test_k6b_matches_plain_on_card(lc, lc_flux, cuda_device, request, which, R, W):
+    """K6b (a warp per state) against its plain version at the ladders'
+    shapes, float32 compute: each rung its own states (copies = 1), and as
+    the ladders call it, one set of states written to all R rows (copies =
+    R): the same -inf sets, log pi within 1e-12, the likelihood evaluated
+    outside the priors too, log L within 1e-5 of |ll - c| + |c|."""
+    ia = request.getfixturevalue("ia") if which == "cs" else None
+    lp, off, sc, x = _ladder_case(which, lc, lc_flux, cuda_device, R, W, ia=ia)
+    x[0, 0, 0, 0] = -1e3                  # the first set holds a state outside the priors too
+    fns = ladder.plain_functions(lp, off, sc)
     c = lp.log_likelihood.log_norm_const if which == "sc3" else 0.0
-    _assert_ll_close(ll, want_ll, 1e-5, c)
+    for xs, copies in ((x, 1), (x[:1], R)):
+        n0 = kernels.LAUNCHES["ladder_init"]
+        pri, ll = ladder.ladder_init(lp, xs, off, sc, copies=copies)
+        assert kernels.LAUNCHES["ladder_init"] == n0 + 1
+        assert pri.shape == ll.shape == (R, 2, W // 2)
+        want_pri, want_ll = ladder.ladder_init_plain(*fns, xs, copies=copies)
+        assert torch.equal(torch.isneginf(pri), torch.isneginf(want_pri))
+        fin = torch.isfinite(want_pri)
+        assert 0 < int((~fin).sum()) and bool(((pri - want_pri).abs()[fin] <= 1e-12).all())
+        # the likelihood is evaluated outside the priors too
+        assert int(torch.isfinite(ll).sum()) > int(fin.sum())
+        _assert_ll_close(ll, want_ll, 1e-5, c)
+    for r in range(R):                     # each of the R rows holds the set's values
+        assert torch.equal(pri[r], pri[0]) and torch.equal(ll[r], ll[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["sc2", "cs"])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_k6b_repeats_k6a_values_on_card(lc, lc_flux, cuda_device, request, which, f64):
+    """K6b and K6a over ShockCooling2 and CompanionShocking2 run one warp
+    policy (K6b at a compile-time ndim, K6a at a runtime one): at the
+    states two K6a half-steps left at u_acc = 0 (every proposal inside the
+    priors accepted, on every rung), K6b gives the log pi and log L that
+    K6a stored, bit for bit, at every walker."""
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        ia = request.getfixturevalue("ia") if which == "cs" else None
+        R, half = 7, 512
+        lp, off, sc, x = _ladder_case(which, lc, lc_flux, cuda_device, R, 2 * half, seed=3,
+                                      ia=ia)
+        pri, ll = ladder.ladder_init(lp, x, off, sc)
+        betas = torch.as_tensor(make_beta_ladder(R - 1), device=cuda_device)
+        g = torch.Generator(device=cuda_device).manual_seed(4)
+        acc = torch.zeros((R, 2, half), dtype=torch.int32, device=cuda_device)
+        for h in (0, 1):
+            u_z = torch.rand((R, 2, half), generator=g, device=cuda_device)
+            j = torch.randint(0, half, (R, 2, half), generator=g, device=cuda_device)
+            ladder.tempered_half_step(lp, x, pri, ll, betas, h, u_z, j, torch.zeros_like(u_z),
+                                      2.0, off, sc, acc)
+        assert 0.3 < float(acc.float().mean()) < 1.0
+        pri2, ll2 = ladder.ladder_init(lp, x, off, sc)
+        assert torch.equal(pri2, pri) and torch.equal(ll2, ll)
+    finally:
+        config.set_compute_dtype(config.AUTO)
 
 
 @pytest.mark.cuda

@@ -199,6 +199,31 @@ def test_temperature_radius_and_validity_window():
     assert tm.t_max(p[:4]) == jm.t_max(p[:4])
 
 
+def test_ladder_init_copies_match_jax_init_carry(lcs):
+    """K6b's plain version with copies > 1 (the ladder's call: one set of
+    starting states for every rung) against the JAX package's init_carry
+    on the rungs' copies, float64, on the states of ``_batch``: outside the
+    priors (log L evaluated all the same), NaN (log L -inf), and t_0 after
+    the first points (t < t_exp there; outside the t_0 prior), within
+    1e-10 of |ll - c| + |c|."""
+    from lightcurve_fitting_tpu import fitting as jfit
+    from test_torch_evidence import check_init_copies, jax_init_carry
+    jlc, tlc = lcs
+    p = _batch()
+    jpri, jll, _, _, _ = jfit._tempered_setup(jlc, J3(jlc), PRIORS, None, None, len(p), False,
+                                              "relative", 0)
+    quad = J3(jlc).prepare_quad(np.asarray(jlc["filter"]))
+    ll = interop.log_likelihood_from_numpy(
+        quad, np.asarray(tlc["MJD"], float), np.asarray(tlc["flux"], float),
+        np.asarray(tlc["dflux"], float), False, "relative", model=T3(tlc))
+    c = ll.log_norm_const
+    want = jax_init_carry(jpri, jll, p, 1)[1][0]
+    pri, logl = check_init_copies(LogPosterior(ll, interop.priors_from_jax(PRIORS)), jpri, jll,
+                                  p, 3, 1e-10, np.abs(want - c) + abs(c))
+    assert np.isfinite(pri[:, :64]).all() and np.isneginf(pri[:, 64:]).all()
+    assert np.isneginf(logl[:, 69]).all() and np.isfinite(logl[:, 70:]).all()
+
+
 def _jax_draws(key, half):
     """The draws half_update makes from ``key`` (parallel/sampler.py:87-92)."""
     kz, kj, ku = jr.split(key, 3)

@@ -89,7 +89,7 @@ def main():
         print(f"[probe] {args.label} {k}: events min {min(ev):.4f} median {np.median(ev):.4f} ms; "
               f"device min {min(de):.4f} median {np.median(de):.4f} ms; digest {dg}", flush=True)
     for k, v in ptxas_report(build.build_info()["log"]).items():
-        if "CSWarpModelIfEfff" in k or "tempered_half_step_kernelI11CSWarpModelIfEf" in k:
+        if "CSWarpModelIfLi0EEfff" in k or "tempered_half_step_kernelI11CSWarpModelIfLi0EEf" in k:
             print(f"[probe] {args.label} ptxas {k}: registers {v[0]}, stack frame {v[1]} bytes, "
                   f"spill stores {v[2]}, spill loads {v[3]}", flush=True)
 

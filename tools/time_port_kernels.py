@@ -37,6 +37,13 @@ and of the fits, float32 compute, by CUDA events:
   centering) and K4p, the whole polish (8 starts x 300 steps), where the
   checkout has it, each in float32 and float64; the centering's wall
   (``_map_centers``: the cloud's scoring and the polish);
+* K1 at the widths of the SC2 fits' initial states (48, 64, 4096 and
+  131072: ``K1_W*_f32``, ``K1_W*_f64``, float32 and float64 compute); K6b as
+  each ladder calls it, one set of starting states for every rung (over
+  SC2 at 17 rungs x 4096, 7 x 32 and 17 x 32, over CS2 at 17 x 4096 and 7
+  x 64, over SC3 at 17 x 512: ``K6b_*``; a checkout whose ``ladder_init``
+  has no ``copies`` evaluates every rung's copy); K4s at the bolometric
+  paths' 65 and 256 epochs (``K4s_E*``); each timed and hashed;
 * hashed only, at ``chip_smoke.py``'s shapes: K3, K4 with its gradient,
   K4s, K5, K6c and K6d;
 * with ``--fits``, the wall times of ``calculate_bolometric`` on SN
@@ -54,9 +61,9 @@ and of the fits, float32 compute, by CUDA events:
 
 Each time is printed twice: by CUDA events around a run of launches (the
 stream's time per launch, which a kernel shorter than its wrapper's host
-time does not fill) and, as ``NAME_dev`` for the half-steps, K6a, K6b over
-CS, the batch log-posteriors, K6c, K3 and K8 at one walker, K8, K7 at its
-small widths, K7h, K4 at 256 x 8 and K4p, by the profiler's device
+time does not fill) and, as ``NAME_dev`` for the half-steps, K6a, K6b, K1,
+the batch log-posteriors, K6c, K3 and K8 at one walker, K8, K7 at its
+small widths, K7h, K4 at 256 x 8, K4p and K4s, by the profiler's device
 timestamps (the kernel's own time). The centering's wall is in
 milliseconds, by the host clock to a synchronize. ``--sass NAME`` prints a
 hash of the SASS of each kernel whose name holds NAME (``cuobjdump``), to
@@ -101,7 +108,7 @@ SC3_LO = [0.5, 0.5, 5.0, 1.0, D_L - 0.005, 0.0, 57468.5]
 SC3_UP = [2.0, 2.0, 20.0, 5.0, D_L + 0.005, 0.1, 57468.7]
 # the ptxas report covers the entry functions whose mangled names hold these
 PTXAS_KERNELS = ("nuts_transition", "hmc_transition", "logpost_grad", "SC2WarpModel",
-                 "SC3WarpModel", "stretch_half_step_kernelI8SC3Model", "CSWarpModel", "I7CSModel",
+                 "SC3WarpModel", "stretch_half_step_kernelI8SC3Model", "CSWarpModel",
                  "epoch_map_polish", "EpochBBModel", "replica_swap")
 
 
@@ -651,6 +658,76 @@ def main():
     one = torch.zeros(1, device=dev)
     times["add1"] = events_ms(lambda: one.add_(1.0), 100, args.repeats)
     times["add1_dev"] = device_ms(lambda: one.add_(1.0), "elementwise", 100, args.repeats)
+
+    # K1 at the widths of the SC2 fits' initial states (20b: 48; 5a and 20c's
+    # warm start: 64; 5c: 4096; 5b: 131072), float32 and float64 compute on
+    # the sampler's rescaled state of the same precision; K6b as each
+    # ladder calls it (16a: 17 rungs x 4096 walkers; 16b: 7 x 32; 16c: 17 x
+    # 32; over CS, 24c: 17 x 4096 and 7 x 64; over SC3, phase 14's 17 x 512;
+    # a checkout whose ladder_init takes ``copies`` evaluates the rungs'
+    # one set of starting states once, an older one every rung's copy of
+    # it); K4s at the bolometric paths' shapes (13a: 65 epochs, 13b: 256;
+    # 100 steps x 32 walkers); device times and digests, an rng of their own
+    rng_m = np.random.default_rng(40)
+    import inspect
+    copies_arg = "copies" in inspect.signature(ladder.ladder_init).parameters
+    for label, cdt in (("f32", torch.float32), ("f64", torch.float64)):
+        try:
+            config.set_compute_dtype(cdt)
+            lp_m = make_log_posterior(ShockCooling2(lc), lc, priors, device=dev)
+            # float32: the rescaled float32 state; float64: absolute float64
+            kw_m = _state_rescaling(cdt, P_LO, P_UP, dev)
+            off_m, sc_m = kw_m.get("param_offset", 0.0), kw_m.get("param_scale", 1.0)
+            for wm in (48, 64, 4096, 131072):
+                qm = torch.as_tensor((rng_m.uniform(P_LO, P_UP, size=(wm, 4)) - off_m) / sc_m,
+                                     device=dev).to(kw_m.get("dtype", torch.float64))
+
+                def k1(lp_m=lp_m, qm=qm.contiguous(), kw_m=kw_m):
+                    return sc2.log_posterior(lp_m, qm, kw_m.get("param_offset"),
+                                             kw_m.get("param_scale"))
+                launches = 20 if wm > 4096 else 100
+                times[f"K1_W{wm}_{label}"] = events_ms(k1, launches, args.repeats)
+                # "logpost": the kernel of either form (a checkout's thread
+                # form or logpost_warp_kernel)
+                times[f"K1_W{wm}_{label}_dev"] = device_ms(k1, "logpost", launches, args.repeats)
+                digests[f"K1_W{wm}_{label}"] = digest(k1())
+        finally:
+            config.set_compute_dtype(config.AUTO)
+
+    def k6b_as_called(name, target, lo, up, off_, sc_, R_, W_):
+        """K6b as a ladder of R_ rungs x W_ walkers calls it: one set of
+        starting states for every rung."""
+        q_ = (rng_m.uniform(lo, up, size=(W_, len(lo))) - off_) / sc_
+        x1 = torch.as_tensor(q_.reshape(1, 2, W_ // 2, len(lo)), device=dev).float().contiguous()
+        xr = x1.expand(R_, 2, W_ // 2, len(lo)).contiguous()
+
+        def init(target=target, x1=x1, xr=xr):
+            if copies_arg:
+                return ladder.ladder_init(target, x1, off_, sc_, copies=R_)
+            return ladder.ladder_init(target, xr, off_, sc_)
+        launches = 20 if R_ * W_ > 4096 else 100
+        times[name] = events_ms(init, launches, args.repeats)
+        times[name + "_dev"] = device_ms(init, "ladder_init_kernel", launches, args.repeats)
+        digests[name] = digest(*init())
+    for R_, W_ in ((17, 4096), (7, 32), (17, 32)):
+        k6b_as_called(f"K6b_SC2_{R_}x{W_}", lp, P_LO, P_UP, off, sc, R_, W_)
+    for R_, W_ in ((17, 4096), (7, 64)):
+        k6b_as_called(f"K6b_CS_{R_}x{W_}", lpc, lo_c, up_c, offc, scc, R_, W_)
+    k6b_as_called("K6b_SC3_17x512", lp3, SC3_LO, SC3_UP, off3, sc3_, 17, 512)
+    nu_m = torch.as_tensor(_pseudo_grid(), device=dev)
+    wq_m = torch.ones_like(nu_m)
+    wq_m[0] = wq_m[-1] = 0.5
+    for Em in (65, 256):
+        centre_m = np.exp(rng_m.uniform(np.log([4.0, 1.0]), np.log([20.0, 30.0]), size=(Em, 2)))
+        chain_m = np.abs(centre_m[None, :, None, :]
+                         * (1 + 0.05 * rng_m.normal(size=(100, Em, 32, 2))))
+        chain_m = torch.as_tensor(chain_m, device=dev).float().contiguous()
+
+        def k4s(chain_m=chain_m):
+            return epoch_bb.summary_samples(chain_m, nu_m, wq_m, np.inf, torch.float32)
+        times[f"K4s_E{Em}"] = events_ms(k4s, 20, args.repeats)
+        times[f"K4s_E{Em}_dev"] = device_ms(k4s, "epoch_summary", 20, args.repeats)
+        digests[f"K4s_E{Em}"] = digest(k4s())
 
     if args.fits:
         # the bolometric fits of chip_smoke.py phase 13, two runs each: (13a)
