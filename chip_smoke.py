@@ -9,8 +9,8 @@ raises and the script exits non-zero):
 1. environment: torch/CUDA versions, the card, its power limit;
 2. build: nvcc compiles the kernels from ``kernels/csrc/``; the
    block-per-chain kernels (K9, K7h, K7's block form), K4p, the epoch
-   half-step, the SC3 log-posterior, K1, K6b and K6c must have no stack
-   frame and no spills (ptxas);
+   half-step, the SC3 and CS log-posteriors, K1, K6b, K6c and K4s must have
+   no stack frame and no spills (ptxas);
 3. K1 (a warp per walker, the half-step's form) against its plain PyTorch
    version at 131072 walkers on the flagship (SN 2016bkv, ShockCooling2),
    float32 (<= 1e-5 |ll|, same -inf set) and float64 (<= 1e-10 |ll|),
@@ -75,8 +75,12 @@ raises and the script exits non-zero):
     log-posteriors within 1e-5 (1e-10) of ``EpochPosterior.term_scales``;
     the profiler shows the warp form ran;
 12. K4s and K5 against their plain versions at the bench shape (256 x 3200
-    samples): K4s's integral <= 1e-5 relative, K5's percentiles bit-equal,
-    ``torch.quantile`` timed beside K5;
+    samples): K4s's integral <= 1e-5 relative without a cutoff and with one
+    at 600 THz, T, R and (R T^2)^2 equal; K4s's float32 Planck term on a
+    one-node grid against 1 / expm1 at its own rounded exponent, x from
+    0.05 to 80, in ulp (within 3 / (1 - exp(-x)) + 3 on the special-function
+    unit, 3 below x = 0.25); K5's percentiles bit-equal, ``torch.quantile``
+    timed beside K5;
 13. the bolometric main path: (a) ``calculate_bolometric(batch_mode=True,
     save_corners=False, nwalkers=32, seed=7)`` on the full SN 2016bkv light
     curve (65 rows); (b) the bench shape (256 epochs x 32 walkers x 200 +
@@ -160,13 +164,14 @@ raises and the script exits non-zero):
     and on whole-day times whose phases fall on the knots, at both ends,
     outside, NaN and infinite: float32 <= 1e-6 and float64 <= 1e-13 of the
     band's template peak, identical zero sets;
-23. the CS log-posterior of CompanionShocking, CompanionShocking2,
-    CompanionShocking3 and CompanionShocking with the scatter (9
-    parameters) against its plain version at 131072 walkers (1% outside the
+23. the CS log-posterior (a warp per walker, the half-step's form) of
+    CompanionShocking, CompanionShocking2, CompanionShocking3 and
+    CompanionShocking with the scatter (9 parameters) against its plain
+    version at 131072 walkers (1% outside the
     priors, an eighth with t_0 after the first epochs): float32 <= 1e-5,
     float64 <= 1e-10 of the term scale, identical -inf sets; CS2 at the
     fits' widths (32, 4096, 32768) the same values bit for bit, each timed
-    (events, device time), the profiler showing its kernel ran; the CS
+    (events, device time), the profiler showing the warp kernel ran; the CS
     half-step (h = 0, 1; a warp per walker) at half 65536 and at the fits'
     widths, half 16384 and 16, K6a and K6b (a warp per walker) at 17 rungs
     x 4096 and at the PT fit's 7 x 64, as in 4, 14, 15, float32 and
@@ -186,11 +191,14 @@ raises and the script exits non-zero):
 
 The last lines are the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and library time, and ``{"ok": true,
-"device": ...}``. A kernel's bound is the larger of its operations over the
-FP32 rate (67 TFLOP/s; a special function, expm1, exp, log, pow, sqrt or an
-IEEE division, counted as 16 operations: the SFU issues 16 a clock per SM
-against 128 FP32 lanes of 2 flops) and its bytes (inputs read once, outputs
-written once) over 3.35 TB/s, from this run's shapes.
+"device": ...}``. A kernel's bound is the larger of its operations' time and
+its bytes (inputs read once, outputs written once) over 3.35 TB/s, from
+this run's shapes. Operations count on two pipes: arithmetic at the FP32
+rate (67 TFLOP/s) and special functions (expm1, exp, log, pow, sqrt, an
+IEEE division), each the time of 16 FP32 operations (the special-function
+unit issues 16 a clock per SM against 128 FP32 lanes of 2 flops). In float32
+the unit issues beside the FP32 pipe, so the time is the larger pipe's; a
+kernel bound at the FP64 rate (34 TFLOP/s) has no such unit and adds them.
 """
 
 import contextlib
@@ -251,13 +259,40 @@ POLISH_REL = {"f64": 1e-9, "f32": 1e-5}
 FP32_FLOPS = 67e12        # H100 SXM, FP32 outside the tensor cores
 FP64_FLOPS = 34e12        # H100 SXM, FP64 outside the tensor cores
 HBM_BYTES = 3.35e12       # H100 SXM HBM3
-SFU = 16                  # operations a special function is counted as
+SFU_OPS = 16              # FP32 operations' time a special function is counted as
+
+
+class Ops:
+    """An operation count on two pipes: ``fp`` arithmetic operations and
+    ``sf`` special functions. Adds, and scales by numbers, like a number."""
+    __array_ufunc__ = None    # a numpy scalar times Ops defers to __rmul__
+
+    def __init__(self, fp=0.0, sf=0.0):
+        self.fp, self.sf = float(fp), float(sf)
+
+    def __add__(self, other):
+        o = other if isinstance(other, Ops) else Ops(other)
+        return Ops(self.fp + o.fp, self.sf + o.sf)
+
+    __radd__ = __add__
+
+    def __mul__(self, k):
+        return Ops(self.fp * float(k), self.sf * float(k))
+
+    __rmul__ = __mul__
+
+
+SFU = Ops(sf=1)           # one special function
 
 
 def bound(ops, nbytes, rate=FP32_FLOPS):
-    """(bound_ms, bound_by): the least time for ``ops`` operations at
-    ``rate`` (FP32 unless given) and ``nbytes`` of device-memory traffic."""
-    t_ops, t_bytes = ops / rate, nbytes / HBM_BYTES
+    """(bound_ms, bound_by): the least time for ``ops`` (an Ops or a number
+    of arithmetic operations) at ``rate`` (FP32 unless given; see the
+    docstring for the two pipes) and ``nbytes`` of device-memory traffic."""
+    ops = ops if isinstance(ops, Ops) else Ops(ops)
+    sf = SFU_OPS * ops.sf
+    t_ops = (max(ops.fp, sf) if rate == FP32_FLOPS else ops.fp + sf) / rate
+    t_bytes = nbytes / HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -267,7 +302,7 @@ def bound_fields(ops, nbytes, library_ms=None, rate=FP32_FLOPS):
 
 
 # operations of one evaluation (see the docstring for the counting rule)
-PLANCK_TERM = 5 + 2 * SFU          # K4 / K4s: 5 flops, expm1 and a division
+PLANCK_TERM = 5 + 2 * SFU          # K4: 5 flops, expm1 and a division
 PLANCK_TERM_GRAD = PLANCK_TERM + 6  # with dS/dT: w lnu (1 + 1/expm1) x / T, accumulated
 QUAD_TERM = 6 + 3 * SFU            # K3: also the extinction exp
 PROPOSAL = 10 + 2 * SFU            # the stretch move and its two logs
@@ -288,10 +323,11 @@ def sc3_eval_ops(ll):
 
 
 def epoch_eval_ops(ep):
-    """K4 on one parameter vector, per epoch: the native terms of its real
-    bands plus ~10 flops a band and the log-uniform prior's log. (E,)"""
-    terms = (ep.n_native * ep.mask).sum(dim=1).double()
-    return terms * PLANCK_TERM + ep.mask.sum(dim=1).double() * 10 + SFU
+    """K4 on one parameter vector, summed over the epochs: the native terms
+    of their real bands plus ~10 flops a band and the log-uniform prior's
+    log an epoch."""
+    terms = float((ep.n_native * ep.mask).sum())
+    return terms * PLANCK_TERM + float(ep.mask.sum()) * 10 + ep.n_epochs * SFU
 
 
 DRAW_KERNELS = ("distribution", "random", "philox", "uniform", "normal")
@@ -1201,7 +1237,7 @@ def phase_k4(rng_seed=5):
                            device_ms(lambda: epoch_bb.log_posterior(ep, q8, with_grad=True),
                                      "epoch_logpost_kernel", 20, 1)[0])
                     plain_ms = cuda_ms(lambda: ep.plain(q), repeats=5)
-                    ops = float(epoch_eval_ops(ep).sum()) * M
+                    ops = epoch_eval_ops(ep) * M
                     k4_bound = bound_fields(ops, q.numel() * 8 + E * M * 8
                                             + 2 * 4 * ep.nodes.numel())
         finally:
@@ -1227,12 +1263,12 @@ def polish_ops(ep, n_starts, n_iter):
     bijection and Adam step (~15 flops, the sigmoid's exp and division,
     Adam's two divisions and square root a parameter), then its last
     value."""
-    terms = (ep.n_native * ep.mask).sum(dim=1).double()
-    bands = ep.mask.sum(dim=1).double()
-    ndim = len(ep.priors)
-    step = terms * PLANCK_TERM_GRAD + bands * 30 + 2 * SFU + ndim * (15 + 5 * SFU)
-    last = terms * PLANCK_TERM + bands * 10 + SFU + ndim * 2 * SFU
-    return float((n_starts * (n_iter * step + last)).sum())
+    terms = float((ep.n_native * ep.mask).sum())
+    bands = float(ep.mask.sum())
+    E, ndim = ep.n_epochs, len(ep.priors)
+    step = terms * PLANCK_TERM_GRAD + bands * 30 + E * (2 * SFU + ndim * (15 + 5 * SFU))
+    last = terms * PLANCK_TERM + bands * 10 + E * (SFU + ndim * 2 * SFU)
+    return n_starts * (n_iter * step + last)
 
 
 def check_polish(name, got, want, rel):
@@ -1411,7 +1447,7 @@ def phase_epoch_half_step(seed=6):
                 xp, lpp = x0.clone(), l0.clone()
                 plain_ms = cuda_ms(lambda: epoch_bb.stretch_half_step_plain(
                     ep.plain, xp, lpp, 0, u_z, j, u_acc, 2.0), repeats=5)
-                hs_bound = bound_fields(float(epoch_eval_ops(ep).sum()) * half
+                hs_bound = bound_fields(epoch_eval_ops(ep) * half
                                         + E * half * PROPOSAL,
                                         E * half * (2 * 2 * 4 + 8 + 16 + 4)
                                         + E * half * (2 * 4 + 8 + 4) + 2 * 4 * ep.nodes.numel())
@@ -1427,6 +1463,53 @@ def phase_epoch_half_step(seed=6):
           + f"; plain {plain_ms:.4f} ms per half-step (f32), bound {hs_bound['bound_ms']:.5f} "
           f"ms ({hs_bound['bound_by']})")
     return {"max_abs_err": res["f32"][5], "ms": res["f32"][3], "plain_ms": plain_ms, **hs_bound}
+
+
+K4S_CUTOFF = 600.0   # THz, a cutoff frequency inside the pseudobolometric grid
+
+
+def k4s_term_ulps(dev):
+    """K4s's float32 Planck term on a one-node grid (nu 500 THz, w = 1, R =
+    1) over T such that x = c1 nu / T runs from 0.05 to 87, against 1 /
+    expm1 in float64 at the kernel's own rounded exponent (t = b / T on the
+    special-function unit, t in [-125, -0.25 log2(e)]; c1 nu / T elsewhere),
+    in ulp (2^-23 relative). Fails beyond 3 / (1 - exp(-x)) + 3 ulp on the
+    unit (ex2's error grown by the cancellation in 1 - q, then rcp and the
+    three products' roundings) or 3 elsewhere (expm1, the division, the
+    products), unless both forms ran, or unless T <= 0 gives 0. Returns
+    (max ulp on the unit, max ulp / bound there, max ulp elsewhere)."""
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch.core.constants import c1, c2
+    from lightcurve_fitting_tpu_torch.kernels import epoch_bb
+
+    f32 = np.float32
+    nu = 500.0
+    T = np.append(f32(c1 * nu) / np.geomspace(0.05, 87.0, 4096), [0.0, -1.0]).astype(f32)
+    chain = torch.as_tensor(np.stack([T, np.ones_like(T)], axis=-1)[:, None, None, :],
+                            device=dev)
+    one = torch.full((1,), nu, dtype=torch.float64, device=dev)
+    got = epoch_bb.summary_samples(chain, one, torch.ones_like(one), np.inf, torch.float32)
+    got = got[0, 3].cpu().numpy().astype(np.float64)
+    if not (got[-2:] == 0).all():
+        raise AssertionError(f"K4s: T <= 0 must give 0, got {got[-2:]}")
+    T, got = T[:-2], got[:-2]
+    inv_T = (f32(1) / T).astype(f32)
+    t = (f32(-c1 * nu * 1.4426950408889634) * inv_T).astype(f32)
+    sfu = (t <= f32(-0.36067376022224085)) & (t >= f32(-125.0))
+    if not 0 < sfu.sum() < sfu.size:
+        raise AssertionError(f"K4s: {sfu.sum()} of {sfu.size} terms on the unit; both forms "
+                             "must run")
+    x = np.where(sfu, -t.astype(np.float64) * np.log(2.0),
+                 (f32(f32(c1) * f32(nu)) * inv_T).astype(f32).astype(np.float64))
+    want = float(f32(c2)) * float(f32(nu ** 3)) / np.expm1(x)
+    ulps = np.abs(got - want) / (want * 2.0 ** -23)
+    bound = np.where(sfu, 3.0 / -np.expm1(-x) + 3.0, 3.0)
+    if not (ulps <= bound).all():
+        i = int((ulps / bound).argmax())
+        raise AssertionError(f"K4s: the float32 term {ulps[i]:.2f} ulp from 1 / expm1 at x = "
+                             f"{x[i]:.4f} (bound {bound[i]:.2f})")
+    return float(ulps[sfu].max()), float((ulps / bound)[sfu].max()), float(ulps[~sfu].max())
 
 
 def phase_k4s_k5(seed=7):
@@ -1445,23 +1528,35 @@ def phase_k4s_k5(seed=7):
     nu = torch.as_tensor(_pseudo_grid(), device=dev)
     w = torch.ones_like(nu)
     w[0] = w[-1] = 0.5
-    rows = epoch_bb.summary_samples(chain, nu, w, np.inf, torch.float32)
-    want = epoch_bb.summary_samples_plain(chain, nu, w, np.inf, torch.float32)
-    if not torch.equal(rows[:, :3], want[:, :3]):
-        raise AssertionError("K4s: T, R or (R T^2)^2 differ from the plain version")
-    d = (rows[:, 3] - want[:, 3]).abs().double()
-    r = float((d / want[:, 3].abs().double()).max())
-    if r > 1e-5:
-        raise AssertionError(f"K4s: integral max relative difference {r:.3e} > 1e-5")
+    res = {}
+    for cutoff in (K4S_CUTOFF, np.inf):   # the rows without one kept for K5
+        rows = epoch_bb.summary_samples(chain, nu, w, cutoff, torch.float32)
+        want = epoch_bb.summary_samples_plain(chain, nu, w, cutoff, torch.float32)
+        if not torch.equal(rows[:, :3], want[:, :3]):
+            raise AssertionError(f"K4s (cutoff {cutoff}): T, R or (R T^2)^2 differ from the "
+                                 "plain version")
+        d = (rows[:, 3] - want[:, 3]).abs().double()
+        r = float((d / want[:, 3].abs().double()).max())
+        if r > 1e-5:
+            raise AssertionError(f"K4s (cutoff {cutoff}): integral max relative difference "
+                                 f"{r:.3e} > 1e-5")
+        res[cutoff] = (float(d.max()), r)
+    ulps = k4s_term_ulps(dev)
     s_ms = cuda_ms(lambda: epoch_bb.summary_samples(chain, nu, w, np.inf, torch.float32))
     s_plain_ms = cuda_ms(lambda: epoch_bb.summary_samples_plain(chain, nu, w, np.inf,
                                                                 torch.float32), repeats=5)
     S, F = steps * nw, nu.shape[0]
-    s_bound = bound_fields(E * S * (F * PLANCK_TERM + 5), chain.numel() * 4 + rows.numel() * 4)
+    s_bound = bound_fields(E * S * (F * PLANCK_TERM + 5),
+                           chain.numel() * 4 + rows.numel() * 4)
     phase("K4s", f"{E} epochs x {S} samples x {F} frequencies: T, R, (R T^2)^2 equal, the "
-          f"integral max |d| {float(d.max()):.3e} W/Hz (max relative {r:.2e} <= 1e-5); kernel "
-          f"{s_ms:.4f} ms vs plain {s_plain_ms:.4f} ms (f32), bound {s_bound['bound_ms']:.4f} "
-          f"ms ({s_bound['bound_by']})")
+          "integral " + "; ".join(f"cutoff {c} max |d| {v[0]:.3e} W/Hz (max relative {v[1]:.2e} "
+                                  "<= 1e-5)" for c, v in res.items())
+          + f"; the float32 term on the special-function unit (x 0.25-86.6) within "
+          f"{ulps[0]:.2f} ulp of 1 / expm1 at its exponent ({ulps[1]:.3f} of its bound), "
+          f"elsewhere (x 0.05-0.25, 86.6-87) within {ulps[2]:.2f} ulp (bound 3); kernel "
+          f"{s_ms:.4f} ms vs plain "
+          f"{s_plain_ms:.4f} ms (f32), bound {s_bound['bound_ms']:.4f} ms "
+          f"({s_bound['bound_by']})")
 
     flat = want.reshape(E * 4, S).contiguous()
     q = [16.0, 50.0, 84.0]
@@ -3089,9 +3184,11 @@ def phase_k8(lc, lc0, rng_seed=16):
 
 
 def phase_cs_logpost(lc, lc0, rng_seed=17):
-    """23: the CS log-posterior (a thread per walker) of CS1, CS2, CS3 and
-    CS1 with the intrinsic scatter (9 parameters) against its plain version
-    at 131072 walkers, and CS2 at the fits' widths (32, 4096, 32768) timed;
+    """23: the CS log-posterior (a warp per walker, the half-step's form) of
+    CS1, CS2, CS3 and CS1 with the intrinsic scatter (9 parameters) against
+    its plain version at 131072 walkers, and CS2 at the fits' widths (32,
+    4096, 32768) the same values bit for bit, timed, the profiler showing
+    the warp kernel;
     over CS2, the CS half-step at half 65536, 16384 and 16, K6a and K6b
     (each rung its own states) at 17 x 4096 and 7 x 64 walkers, float32 and
     float64 (K6b as the ladders call it: phase 15)."""
@@ -3130,8 +3227,8 @@ def phase_cs_logpost(lc, lc0, rng_seed=17):
                 kw = _state_rescaling(torch.float32, CS_LO[2], CS_UP[2], dev)
                 widths[label], names[label] = batch_widths(
                     f"CS log-posterior {label}", cs.log_posterior, lp, p, kw["param_offset"],
-                    kw["param_scale"], CS_LP_WIDTHS + (W,), got, "cs_logpost_kernel", (),
-                    cs_eval_ops(lp.log_likelihood))
+                    kw["param_scale"], CS_LP_WIDTHS + (W,), got, "logpost_warp_kernel",
+                    ("CSWarpModel",), cs_eval_ops(lp.log_likelihood))
             if label == "f32" and variant == 2:
                 plain_ms = cuda_ms(lambda: chunked(lp.forward_plain, p), repeats=3)
                 lp2 = lp
@@ -3355,7 +3452,7 @@ def phase_cs_main_path(lc, lc0, smi):
             lc, cs_model(2, lc0), cs_priors(2), p_lo=CS_LO[2], p_up=CS_UP[2],
             nwalkers=CS_WALKERS, nsteps=300, nsteps_burnin=0, seed=11, quiet=True))
         parts, busy = time_split(prof, wall, {"half-steps": ("stretch_half_step",),
-                                              "initial state": ("cs_logpost",)})
+                                              "initial state": ("logpost_warp_kernel",)})
         evals = CS_WALKERS * 300
         med_t = float(np.median(times))
         phase("CS main path 24b", f"lightcurve_mcmc CompanionShocking2 {CS_WALKERS} walkers x 300 "
@@ -3466,7 +3563,9 @@ def main():
                          ("the SC3 log-posterior", "logpost_warp_kernelI12SC3WarpModel", 8),
                          ("K1", "logpost_warp_kernelI12SC2WarpModel", 8),
                          ("K6b", "ladder_init_kernel", 28),
-                         ("K6c", "replica_swap_kernel", 18)):
+                         ("K6c", "replica_swap_kernel", 18),
+                         ("the CS log-posterior", "logpost_warp_kernelI11CSWarpModel", 12),
+                         ("K4s", "epoch_summary_kernel", 4)):
         block[what] = [v for k, v in report.items() if key in k]
         if len(block[what]) != n or any(v[1] or v[2] or v[3] for v in block[what]):
             raise AssertionError(f"{what} ({n} instantiations) must keep its state in "
@@ -3477,8 +3576,9 @@ def main():
           "spills in the block-per-chain kernels (ndim 4, 5; f32, f64), K4p (ndim 2, 3; f32, "
           "f64), the epoch half-step (ndim 2, 3; its 16 dtype instantiations each), the SC3 "
           "log-posterior (ndim 7, 8; its 4 dtype instantiations each), K1 (ndim 4, 5; 4 each), "
-          "K6b (over SC2 ndim 4, 5, over SC3 7, 8, over CS 7, 8, 9; 4 each) and K6c (ndim 1-9; "
-          "f32, f64 state): "
+          "K6b (over SC2 ndim 4, 5, over SC3 7, 8, over CS 7, 8, 9; 4 each), K6c (ndim 1-9; "
+          "f32, f64 state), the CS log-posterior (ndim 7, 8, 9; 4 each) and K4s (4 dtype "
+          "instantiations): "
           + "; ".join(f"{what} registers {sorted(set(v[0] for v in ks))}, stack frames "
                       f"{sorted(set(v[1] for v in ks))} bytes, spills "
                       f"{sorted(set(v[2] + v[3] for v in ks))}" for what, ks in block.items()))
@@ -3583,7 +3683,8 @@ def main():
         dict(name="sifto_kernel (K8)", route="cuda", source=src_cs,
              replaces="lightcurve_fitting_tpu/models/companion_shocking.py:45",
              launches=launches_cs["sifto"], **k8),
-        dict(name="cs_logpost_kernel (CS log-posterior)", route="cuda", source=src_cs,
+        dict(name="logpost_warp_kernel<CSWarpModel<C, N>> (CS log-posterior)", route="cuda",
+             source=src_cs,
              replaces="lightcurve_fitting_tpu/models/companion_shocking.py:120",
              launches=launches_cs["cs_logpost"], **k_cs["logpost"]),
         dict(name="stretch_half_step_kernel<CSWarpModel> (CS half-step)", route="cuda",

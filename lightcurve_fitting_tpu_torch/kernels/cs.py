@@ -5,8 +5,9 @@ the fused CompanionShocking 1-3 log-posterior and half-step.
   every point for every walker, the CUDA route of
   :func:`~lightcurve_fitting_tpu_torch.models.companion_shocking.sifto_points`,
   whose plain version is ``sifto_points_plain`` beside it.
-* :func:`log_posterior` (``cs_logpost_kernel``): the CS log-posterior of a
-  batch of walker states; plain version ``LogPosterior.forward_plain``.
+* :func:`log_posterior` (``logpost_warp_kernel`` over ``CSWarpModel``, a
+  warp per walker): the CS log-posterior of a batch of walker states; plain
+  version ``LogPosterior.forward_plain``.
 * :func:`stretch_half_step` (``stretch_half_step_kernel`` over
   ``CSWarpModel``, a warp per walker): one stretch-move half-step, in place;
   plain version
@@ -199,7 +200,7 @@ def log_posterior(lp, q, param_offset=None, param_scale=None):
                                _compute_f64(lp.log_likelihood.compute_dtype), q.data_ptr(),
                                int(q.dtype == torch.float64), W, out.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"cs_logpost_kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"logpost_warp_kernel (CS) launch failed: cudaError {rc}")
     LAUNCHES["cs_logpost"] += 1
     return out
 

@@ -29,12 +29,12 @@
 // block in shared memory; the walker-constant parts of the Kasen product,
 // the CS3 viewing-angle factor and the scale factors hoisted out of the
 // point loop (cs_walker); an out-of-prior walker returns -inf without
-// touching the likelihood. The batch log-posterior runs one thread per
-// walker. The half-step, K6a and K6b run a warp per walker
-// (CSWarpModel): a thread per walker left the fits' widths a few warps an
-// SM (half 16 is one warp on one SM, half 16384 four warps on each), whose
-// 108 dependent point evaluations (the recurrence, the knot search) set
-// both at ~0.15-0.2 ms. The lanes split the points (lane l takes l, l + 32,
+// touching the likelihood. The batch log-posterior (logpost_warp_kernel),
+// the half-step, K6a and K6b run a warp per walker (CSWarpModel): a thread
+// per walker left the fits' widths a few warps an SM (half 16 is one warp
+// on one SM, half 16384 four warps on each), whose 108 dependent point
+// evaluations (the recurrence, the knot search) set them at ~0.15-0.2 ms.
+// The lanes split the points (lane l takes l, l + 32,
 // ...: four evaluations at most). A warp per walker repeats the walker's
 // prologue (the proposal, the prior, the float64 Kasen constant's pow and
 // log) on all 32 lanes, ~35% of its time at the large widths, so a warp
@@ -42,9 +42,9 @@
 // walker l's prologue, and for each walker the lanes evaluate its points on
 // its constants, shuffled from its lane. The grid holds the blocks resident
 // at once (32 warps a block in float32: one block an SM, the tables staged
-// once an SM), the batch is as large as that takes. The points share one
-// __device__ function (cs_point) in both forms, which differ only in the
-// order of the residual sum; the bits do not depend on the batch. The
+// once an SM), the batch is as large as that takes. Every kernel over the
+// policy evaluates a point with one __device__ function (cs_point), so a
+// state's value has the same bits in each of them, whatever the batch. The
 // standalone K8 strides over (walker, point) elements with the rows staged
 // once per block.
 //
@@ -292,23 +292,20 @@ __device__ __forceinline__ CSWalker<C> cs_walker(const double* p, const CSParams
 }
 
 // Point n's residual term: the Kasen T and R, the Chebyshev band table's
-// Clenshaw recurrence, K8's SiFTO value and the Gaussian residual. The
-// thread and warp forms of the log-likelihood share it, so that they differ
-// only in the order of their residual sums. EXACT (the warp form): in
-// float64 the products that meet a sum are fused or rounded by hand, so
+// Clenshaw recurrence, K8's SiFTO value and the Gaussian residual. In
+// float64 (X) the products that meet a sum are fused or rounded by hand, so
 // that the two copies warp_batch_ll inlines (one walker a warp, a batch a
 // warp) round alike, as sc2_forward's EXACT: left to the compiler they did
 // not, and K6b's values at the states K6a accepted differed in last bits.
-template <typename C, bool EXACT = false>
+template <typename C>
 __device__ __forceinline__ C cs_point(int n, const CSWalker<C>& w, const CSData<C>& d,
                                       const CSParams& P) {
-    const bool f64 = sizeof(C) == sizeof(double);
-    constexpr bool X = EXACT && sizeof(C) == sizeof(double);
+    constexpr bool X = sizeof(C) == sizeof(double);
     const int K1 = (int)P.n_coef;
     const int S = (int)P.n_knots;
     const C tt = d.tc[n] - w.t_exp;
     C T;
-    if (f64) {
+    if (X) {
         T = C(25) * power0((C)w.K * power0(tt, C(-74)), C(1.0 / 144.0));
     } else {
         T = tt > C(0) ? C(25) * m_exp((w.ln_k - C(74) * m_log(tt)) * C(1.0 / 144.0)) : C(0);
@@ -332,7 +329,7 @@ __device__ __forceinline__ C cs_point(int n, const CSWalker<C>& w, const CSData<
     const bool U = d.is_U[n], I = d.is_i[n];
     const C dt = U ? w.dtU : (I ? w.dti : C(0));
     const C arg = ((d.tc[n] - w.t_peak) - dt) / w.stretch;
-    const C sif = sifto_value<C, EXACT>(d.knots, S, d.rows + d.band[n] * 4 * (S - 1), arg);
+    const C sif = sifto_value<C, X>(d.knots, S, d.rows + d.band[n] * 4 * (S - 1), arg);
     const C kf = U ? w.f_kasen * w.rU : w.f_kasen;
     const C sf = d.is_r[n] ? w.rr : (I ? w.ri : C(1));
     if (!X) {
@@ -352,20 +349,9 @@ __device__ __forceinline__ C cs_point(int n, const CSWalker<C>& w, const CSData<
     return mul_rn(r, r);
 }
 
-// The Gaussian log-likelihood of one walker at absolute parameters p[ndim]
-// (cs_walker's), float64, -inf when not finite. It does not look at the
-// priors. One thread walks the points in order.
-template <typename C>
-__device__ double cs_log_likelihood(const double* p, const CSData<C>& d, const CSParams& P) {
-    const CSWalker<C> w = cs_walker<C>(p, P);
-    const int N = (int)P.n_points;
-    C acc = C(0);
-    for (int n = 0; n < N; ++n) acc += cs_point<C>(n, w, d, P);
-    return finish_log_likelihood<C>(acc, P.use_sigma, P.ll_offset, P.log_norm_const);
-}
-
-// The same log-likelihood of the walker with constants w, computed by the
-// 32 lanes of a warp together (every lane returns the same bits): lane l
+// The Gaussian log-likelihood (float64, -inf when not finite) of the walker
+// with constants w (cs_walker's; the priors are not looked at), computed by
+// the 32 lanes of a warp together (every lane returns the same bits): lane l
 // takes the points l, l + 32, l + 64, ... in time order, sums its residual
 // terms in that order, and a butterfly shuffle sums the lanes, a fixed order
 // from run to run. CS points have equal loop lengths but for the walker's
@@ -376,17 +362,8 @@ __device__ double cs_log_likelihood_warp(const CSWalker<C>& w, const CSData<C>& 
                                          const CSParams& P) {
     const int N = (int)P.n_points;
     C acc = C(0);
-    for (int n = threadIdx.x & 31; n < N; n += 32) acc += cs_point<C, true>(n, w, d, P);
+    for (int n = threadIdx.x & 31; n < N; n += 32) acc += cs_point<C>(n, w, d, P);
     return finish_log_likelihood<C>(warp_sum(acc), P.use_sigma, P.ll_offset, P.log_norm_const);
-}
-
-// The log-posterior of one walker: the prior sum (-inf outside the open
-// bounds, and then the likelihood is not evaluated) plus the log-likelihood.
-template <typename C>
-__device__ double cs_log_posterior(const double* p, const CSData<C>& d, const CSParams& P) {
-    const double lprior = log_prior(P, p);
-    if (!isfinite(lprior)) return -INFINITY;
-    return lprior + cs_log_likelihood<C>(p, d, P);
 }
 
 // The model policy of stretch.cuh and ladder.cuh for the companion-shocking
@@ -403,18 +380,20 @@ struct CSModel {
     }
 };
 
-// The policy of the CS half-step, of K6a and of K6b over CS: a warp per
-// walker (stretch_half_step_kernel, tempered_half_step_kernel with WARP,
-// ladder_init_kernel), 32 warps a block in float32 (one block an SM: the
-// tables staged once an SM; 64 registers a thread) and 16 in float64 (whose
-// kernels need ~70), batched: the grid holds only the blocks resident at
-// once, and a warp takes its walkers in batches whose prologues (the
-// proposal, the prior and cs_walker's float64 constants, ~35% of a walker's
-// time when every lane repeats them) run one walker a lane (warp_layout).
+// The policy of the CS batch log-posterior, half-step, K6a and K6b: a warp
+// per walker (logpost_warp_kernel, stretch_half_step_kernel,
+// tempered_half_step_kernel with WARP, ladder_init_kernel), 32 warps a
+// block in float32 (one block an SM: the tables staged once an SM; 64
+// registers a thread) and 16 in float64 (whose kernels need ~70), batched:
+// the grid holds only the blocks resident at once, and a warp takes its
+// walkers in batches whose prologues (the proposal, the prior and
+// cs_walker's float64 constants, ~35% of a walker's time when every lane
+// repeats them) run one walker a lane (warp_layout).
 // N: the walker's dimension at compile time (policy_dim), or 0 (P.ndim).
-// K6b takes N = 7, 8 or 9 (the variant's parameters and the intrinsic
-// scatter), so that the walker's parameters live in registers; the
-// half-steps keep N = 0, their code and bits unchanged.
+// The batch log-posterior and K6b take N = 7, 8 or 9 (the variant's
+// parameters and the intrinsic scatter), so that the walker's parameters
+// live in registers; the half-steps keep N = 0, their code and bits
+// unchanged.
 template <typename C, int N>
 struct CSWarpModel : CSModel<C> {
     typedef CSWalker<C> Walker;
@@ -439,37 +418,7 @@ using CSWarpModel8 = CSWarpModel<C, 8>;
 template <typename C>
 using CSWarpModel9 = CSWarpModel<C, 9>;
 
-// out[w] = CS log-posterior of walker state q[w, :] (affine-mapped when
-// has_affine), for the initial state and LogPosterior.forward.
-template <typename C, typename S>
-__global__ void __launch_bounds__(LP_THREADS)
-cs_logpost_kernel(const CSParams P, const S* __restrict__ q, int W,
-                  double* __restrict__ out, int use_smem) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    const CSData<C> d = stage_cs<C>(P, smem_raw, use_smem);
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= W) return;
-    const int ndim = (int)P.ndim;
-    double p[LP_MAX_DIM];
-    for (int k = 0; k < ndim; ++k) p[k] = to_absolute(P, k, q[(size_t)i * ndim + k]);
-    out[i] = cs_log_posterior<C>(p, d, P);
-}
-
 // ------------------------------------------------------------------ launch
-
-template <typename C, typename S>
-static int launch_cs_logpost(const CSParams& P, const void* q, int W, double* out,
-                             cudaStream_t stream) {
-    auto kernel = cs_logpost_kernel<C, S>;
-    int use_smem = 0;
-    const size_t bytes = cs_stage_bytes<C>(P);
-    int rc = smem_plan(kernel, bytes, &use_smem);
-    if (rc) return rc;
-    const int blocks = (W + LP_THREADS - 1) / LP_THREADS;
-    kernel<<<blocks, LP_THREADS, use_smem ? bytes : 0, stream>>>(P, (const S*)q, W, out,
-                                                                 use_smem);
-    return (int)cudaGetLastError();
-}
 
 template <typename C>
 static int launch_sifto(const SiftoParams& P, cudaStream_t stream) {
@@ -498,19 +447,19 @@ int sifto_launch(const SiftoParams* P, int device, int compute_f64, void* stream
     return compute_f64 ? launch_sifto<double>(*P, s) : launch_sifto<float>(*P, s);
 }
 
-// CS log-posterior launch. Returns 0 or a cudaError_t code.
+// CS log-posterior launch, a warp per walker (logpost_warp_kernel over
+// CSWarpModel of the walker's dimension, 7-9). Returns 0 or a cudaError_t
+// code.
 int cs_logpost_launch(const CSParams* P, int device, int compute_f64, const void* q, int q_f64,
                       int W, double* out, void* stream) {
-    int rc = (int)cudaSetDevice(device);
-    if (rc) return rc;
-    if (W <= 0) return 0;
-    if (P->ndim > LP_MAX_DIM || P->n_knots < 2) return (int)cudaErrorInvalidValue;
-    cudaStream_t s = (cudaStream_t)stream;
-    if (compute_f64)
-        return q_f64 ? launch_cs_logpost<double, double>(*P, q, W, out, s)
-                     : launch_cs_logpost<double, float>(*P, q, W, out, s);
-    return q_f64 ? launch_cs_logpost<float, double>(*P, q, W, out, s)
-                 : launch_cs_logpost<float, float>(*P, q, W, out, s);
+    if (P->n_knots < 2) return (int)cudaErrorInvalidValue;
+    if (P->ndim == 7)
+        return launch_logpost<CSWarpModel7>(P, device, compute_f64, q, q_f64, W, out, stream);
+    if (P->ndim == 8)
+        return launch_logpost<CSWarpModel8>(P, device, compute_f64, q, q_f64, W, out, stream);
+    if (P->ndim == 9)
+        return launch_logpost<CSWarpModel9>(P, device, compute_f64, q, q_f64, W, out, stream);
+    return (int)cudaErrorInvalidValue;
 }
 
 // CS half-step launch, a warp per walker (CSWarpModel); the arguments of

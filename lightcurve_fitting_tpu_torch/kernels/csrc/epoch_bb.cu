@@ -37,7 +37,12 @@
 // its T derivative); their tables also hold the node-only factors of the
 // Planck term (c1 nu, nu^3, the cutoff), staged once a block. K4p runs the
 // whole polish of an epoch in one block, a start a warp, its iterate and
-// Adam's moments in registers for all n_iter steps.
+// Adam's moments in registers for all n_iter steps. K4s runs a thread per
+// sample over the grid's nodes, staged once a block with each node's
+// factors in one (a = w nu^3 cut, c1 nu, and in float32 the exponent
+// factor), c2 R^2 taken out of the sum; in float32 a term with x in [0.25,
+// 86.6] runs on the special-function unit (ex2, rcp: the two special
+// functions its bound counts) instead of expm1 and an IEEE division.
 //
 // Dtype semantics follow the JAX accelerator path (batched.py:60-90): the
 // Planck sum, the residuals and their sum run in the compute type C on
@@ -609,17 +614,105 @@ epoch_logpost_kernel(const EpochBBParams P, const S* __restrict__ q, int M,
         for (int k = 0; k < ndim; ++k) grad[w * ndim + k] = g[k];
 }
 
+// K4s's node f of the frequency grid, formed once a block in shared memory:
+// band_flux's node-only factors in one, a = w nu^3 min(1, cutoff / nu)
+// (formed in float64 and rounded once: no division a term), and c1 nu,
+// band_flux's x = c1 nu / T; in float32 also b = -c1 nu log2(e) (float64,
+// rounded once), the exponent of the special-function-unit term. A term
+// reads its node with one shared load, the same address on every lane.
+template <typename C>
+struct SummaryNode;
+template <>
+struct __align__(16) SummaryNode<float> { float a, b, c1nu, pad; };
+template <>
+struct __align__(16) SummaryNode<double> { double a, c1nu; };
+
+template <typename C>
+__device__ __forceinline__ SummaryNode<C> summary_node(const SummaryParams& P, int f) {
+    const C nuc = ((const C*)P.nu)[f];
+    const double nu = (double)nuc;
+    const double cut = P.has_cutoff && P.cutoff / nu < 1.0 ? P.cutoff / nu : 1.0;
+    SummaryNode<C> n;
+    n.a = (C)((double)((const C*)P.w)[f] * (nu * nu * nu) * cut);
+    n.c1nu = (C)P.c1 * nuc;
+    if constexpr (sizeof(C) == sizeof(float)) {
+        n.b = (float)(-P.c1 * nu * 1.4426950408889634);
+        n.pad = 0.0f;
+    }
+    return n;
+}
+
+// The float32 terms with t = b / T in [-125, -0.25 log2(e)], x in [0.25,
+// 86.6], run on the special-function unit: q = 2^t = exp(-x) (ex2.approx; a
+// normal number over the range, so its flush to zero never fires), then 1 /
+// expm1(x) = q / (1 - q) (rcp.approx), two MUFU instructions and four FP32
+// ones a term with the multiply-add. For x >= 0.25, 1 - q >= 0.22 bounds
+// the cancellation: q's relative error reaches q / (1 - q) at most
+// 4.6-fold. Other terms (T <= 0 and NaN give x = 0; the Wien tail, where q
+// would be subnormal) take band_flux's term: libdevice expm1 and an IEEE
+// division, x <= 0 -> 0, 1 / inf = 0.
+#define SUMMARY_T0 (-0.36067376022224085f)   // -0.25 log2(e)
+#define SUMMARY_T1 (-125.0f)                  // 2^t normal with room for ex2's error
+
+__device__ __forceinline__ float planck_pdi_sfu(float t) {
+    float q, r;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(q) : "f"(t));
+    asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(1.0f - q));
+    return q * r;
+}
+
+template <typename C>
+__device__ __forceinline__ C planck_pdi(C x) {
+    const C e = m_expm1(x);
+    return e > C(0) ? C(1) / e : C(0);  // x <= 0 -> 0; Wien overflow 1/inf = 0
+}
+
+// The trapezoid sum without c2 R^2, sum_f a_f pdi(node f) over the F staged
+// nodes, pdi(n) = 1 / expm1(c1 nu / T) by one of the forms above: node f
+// into partial sum f mod 4, the four added at the end (in float32 a
+// quarter of one sum's rounding over the 580 nodes, and four independent
+// multiply-add chains).
+template <typename C, typename Pdi>
+__device__ __forceinline__ C summary_sum(const SummaryNode<C>* node, int F, Pdi pdi) {
+    C acc[4] = {C(0), C(0), C(0), C(0)};
+    int f = 0;
+    for (; f + 4 <= F; f += 4) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[k] = fma(node[f + k].a, pdi(node[f + k]), acc[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+        if (f + k < F) acc[k] = fma(node[f + k].a, pdi(node[f + k]), acc[k]);
+    return (acc[0] + acc[1]) + (acc[2] + acc[3]);
+}
+
 // K4s: for sample s of epoch e, T, R, u = (R T^2)^2 (f64, then C) and the
-// trapezoid sum over the grid of L_nu(nu_f; T, R) in C.
+// trapezoid sum over the grid of L_nu(nu_f; T, R) in C, c2 R^2 times
+// summary_sum (c2 R^2 out of the sum: on the bolometric priors, T in [1,
+// 100] kK, the float32 partial sums over the pseudobolometric grid stay
+// within ~[0.8, 5e11], normal and far from overflow). A thread per
+// sample (65 x 3200 and 256 x 3200 samples fill the card), the grid's nodes
+// staged once a block; a float32 sample whose x lie in [0.25, 86.6] at
+// every node runs every term on the special-function unit, any other
+// sample each term by its x (the fork measured 11-30% faster than the
+// per-term choice alone on the H100, PERF.md).
 template <typename C, typename S>
 __global__ void __launch_bounds__(256) epoch_summary_kernel(const SummaryParams P) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    C* s_nu = reinterpret_cast<C*>(smem_raw);
+    __shared__ float2 s_b[8];   // a warp's largest and smallest b (float32)
+    constexpr bool F32 = sizeof(C) == sizeof(float);
+    SummaryNode<C>* node = reinterpret_cast<SummaryNode<C>*>(smem_raw);
     const int F = (int)P.n_freq;
-    C* s_w = s_nu + F;
+    float bmax = -INFINITY, bmin = INFINITY;
     for (int f = threadIdx.x; f < F; f += blockDim.x) {
-        s_nu[f] = ((const C*)P.nu)[f];
-        s_w[f] = ((const C*)P.w)[f];
+        const SummaryNode<C> n = summary_node<C>(P, f);
+        node[f] = n;
+        if constexpr (F32) bmax = fmaxf(bmax, n.b), bmin = fminf(bmin, n.b);
+    }
+    if constexpr (F32) {
+        bmax = warp_max(bmax);
+        bmin = -warp_max(-bmin);
+        if ((threadIdx.x & 31) == 0) s_b[threadIdx.x >> 5] = make_float2(bmax, bmin);
     }
     __syncthreads();
     const long long e = blockIdx.y;
@@ -632,13 +725,36 @@ __global__ void __launch_bounds__(256) epoch_summary_kernel(const SummaryParams 
     const double T = (double)Ts, R = (double)Rs;
     const double v = __dmul_rn(__dmul_rn(R, T), T);
     const double u = __dmul_rn(v, v);
-    const C sv = band_flux<C>(s_nu, s_w, nullptr, F, (C)Ts, (C)Rs, C(0), (C)P.c1, (C)P.c2, C(0),
-                              P.has_cutoff != 0, (C)P.cutoff);
+    const C Tc = (C)Ts, Rc = (C)Rs;
+    const C inv_T = Tc > C(0) ? C(1) / Tc : C(0);  // safe_reciprocal: T <= 0 or NaN -> 0
+    C sum;
+    if constexpr (F32) {
+        bmax = s_b[0].x, bmin = s_b[0].y;
+        for (int k = 1; k < (int)(blockDim.x >> 5); ++k)
+            bmax = fmaxf(bmax, s_b[k].x), bmin = fminf(bmin, s_b[k].y);
+        // every t_f = b_f inv_T lies in [bmin inv_T, bmax inv_T] (inv_T >= 0;
+        // rounding is monotone)
+        if (bmax * inv_T <= SUMMARY_T0 && bmin * inv_T >= SUMMARY_T1) {
+            sum = summary_sum(node, F, [&](const SummaryNode<C>& n) {
+                return planck_pdi_sfu(n.b * inv_T);
+            });
+        } else {
+            sum = summary_sum(node, F, [&](const SummaryNode<C>& n) {
+                const float t = n.b * inv_T;
+                return t <= SUMMARY_T0 && t >= SUMMARY_T1 ? planck_pdi_sfu(t)
+                                                          : planck_pdi(n.c1nu * inv_T);
+            });
+        }
+    } else {
+        sum = summary_sum(node, F, [&](const SummaryNode<C>& n) {
+            return planck_pdi(n.c1nu * inv_T);
+        });
+    }
     C* o = (C*)P.out + e * 4 * NS;
     o[s] = (C)T;
     o[NS + s] = (C)R;
     o[2 * NS + s] = (C)u;
-    o[3 * NS + s] = sv;
+    o[3 * NS + s] = ((C)P.c2 * (Rc * Rc)) * sum;
 }
 
 // ------------------------------------------------------------------ launch
@@ -675,7 +791,7 @@ static int launch_polish(const EpochBBParams& P, const PolishParams& Q, cudaStre
 template <typename C, typename S>
 static int launch_summary(const SummaryParams& P, cudaStream_t stream) {
     auto kernel = epoch_summary_kernel<C, S>;
-    const size_t bytes = 2 * sizeof(C) * (size_t)P.n_freq;
+    const size_t bytes = sizeof(SummaryNode<C>) * (size_t)P.n_freq;
     int use_smem = 0;
     int rc = smem_plan(kernel, bytes, &use_smem);
     if (rc) return rc;

@@ -1,8 +1,9 @@
 // The blackbody band sum shared by the quadrature kernels: K3 and the
-// ShockCooling3 log-posterior and half-step (sc3_logpost.cu), and K4 and K4s
+// ShockCooling3 log-posterior and half-step (sc3_logpost.cu), and K4
 // (epoch_bb.cu). One Planck term for all of them; the warp forms of
 // epoch_bb.cu (the epoch half-step, K4p) form the same term from staged
-// node factors (band_flux_warp).
+// node factors (band_flux_warp), and K4s from its staged nodes (in float32
+// on the special-function unit: summary_sum).
 
 #pragma once
 

@@ -17,8 +17,8 @@
 // kernels run a warp per walker (stretch_half_step_kernel: SC2WarpModel,
 // SC3WarpModel, CSWarpModel, EpochBBModel; tempered_half_step_kernel with
 // WARP: SC2WarpModel, CSWarpModel; the batch log-posterior
-// logpost_warp_kernel: SC2WarpModel, SC3WarpModel; the ladder's initial
-// state ladder_init_kernel: SC2WarpModel, SC3WarpModel, CSWarpModel) provides
+// logpost_warp_kernel and the ladder's initial state ladder_init_kernel:
+// SC2WarpModel, SC3WarpModel, CSWarpModel) provides
 //   typedef ... Walker;  // a walker's constants (32-bit words, copied by value)
 //   static __device__ Walker walker(const double* p, const Params&);
 //   static __device__ double log_likelihood_warp(const Walker&, const Data&, const Params&);

@@ -350,9 +350,11 @@ def _chain_for(truth, steps, nwalkers, seed=8):
     return np.abs(truth[:, None, None, :] * (1 + 0.1 * rng.normal(size=(E, steps, nwalkers, 2))))
 
 
-def test_epoch_summary_matches_jax(packs):
+@pytest.mark.parametrize("cutoff_freq", [np.inf, 600.0], ids=["no-cutoff", "cutoff600"])
+def test_epoch_summary_matches_jax(packs, cutoff_freq):
     """_epoch_summary on one chain per epoch: float64 within 1e-12, the
-    float32 path (float32 rows, counting-bisection percentiles) within 1e-5."""
+    float32 path (float32 rows, counting-bisection percentiles) within 1e-5;
+    without a cutoff and with one inside the grid (600 THz)."""
     _, _, truth = packs
     steps, nw = 12, 10
     chain = _chain_for(truth, steps, nw)                       # (E, steps, nw, 2)
@@ -363,9 +365,9 @@ def test_epoch_summary_matches_jax(packs):
     for dt_j, dt_t, rtol in ((None, None, 1e-12), (jnp.float32, torch.float32, 1e-5)):
         want = np.stack([np.asarray(jb._epoch_summary(
             jnp.asarray(c.reshape(-1, 2)), jnp.float64, dt_j, jnp.asarray(nu), jnp.asarray(w),
-            np.inf, nw)) for c in chain])
+            cutoff_freq, nw)) for c in chain])
         x = tchain.float() if dt_t is not None else tchain
-        got = tb._epoch_summary(x, dt_t, torch.as_tensor(nu), torch.as_tensor(w), np.inf)
+        got = tb._epoch_summary(x, dt_t, torch.as_tensor(nu), torch.as_tensor(w), cutoff_freq)
         assert got.shape == (5, 4, 3) and got.dtype == torch.float64
         np.testing.assert_allclose(got.numpy(), want, rtol=rtol, atol=0.0)
 

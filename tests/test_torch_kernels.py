@@ -1065,26 +1065,49 @@ def test_epoch_warp_half_step_matches_plain_on_card(cuda_device, E, half, sigma_
 
 
 @pytest.mark.cuda
-def test_k4s_and_k5_match_plain_on_card(cuda_device):
+@pytest.mark.parametrize("cutoff_freq", [np.inf, 600.0], ids=["no-cutoff", "cutoff600"])
+def test_k4s_and_k5_match_plain_on_card(cuda_device, cutoff_freq):
+    """K4s against its plain version without a cutoff and with one inside
+    the grid, float32 and float64 compute: T, R and (R T^2)^2 equal, the
+    integral within 1e-5 and 1e-12 relative, on samples whose terms all run
+    on the special-function unit and on samples with T <= 0 (0 exactly) or
+    x < 0.25 at some or every node (T 80 and 200 kK); K5 bit-equal to its
+    plain version on the float32 rows."""
     rng = np.random.default_rng(6)
     E, steps, nw = 20, 50, 32
-    chain = torch.as_tensor(np.exp(rng.uniform(np.log([5.0, 1.0]), np.log([20.0, 30.0]),
-                                               size=(steps, E, nw, 2))),
-                            device=cuda_device).float()
+    chain = np.exp(rng.uniform(np.log([5.0, 1.0]), np.log([20.0, 30.0]),
+                               size=(steps, E, nw, 2)))
+    chain[0, :, :4, 0] = [0.0, -1.0, 80.0, 200.0]
+    chain = torch.as_tensor(chain, device=cuda_device)
     nu = torch.arange(380.0, 960.0, dtype=torch.float64, device=cuda_device)
     w = torch.ones_like(nu)
     w[0] = w[-1] = 0.5
     n0 = dict(kernels.LAUNCHES)
-    rows = epoch_bb.summary_samples(chain, nu, w, np.inf, torch.float32)
-    want = epoch_bb.summary_samples_plain(chain, nu, w, np.inf, torch.float32)
-    assert rows.shape == (E, 4, steps * nw) and rows.dtype == torch.float32
-    assert torch.equal(rows[:, :3], want[:, :3])
-    assert bool(((rows[:, 3] - want[:, 3]).abs() <= 1e-5 * want[:, 3].abs()).all())
+    for dt, rel in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        x = chain.to(dt)
+        rows = epoch_bb.summary_samples(x, nu, w, cutoff_freq, dt)
+        want = epoch_bb.summary_samples_plain(x, nu, w, cutoff_freq, dt)
+        assert rows.shape == (E, 4, steps * nw) and rows.dtype == dt
+        assert torch.equal(rows[:, :3], want[:, :3])
+        assert bool(((rows[:, 3] - want[:, 3]).abs() <= rel * want[:, 3].abs()).all())
+        assert bool((rows[:, 3, :2] == 0).all()) and bool((rows[:, 3, 2:] > 0).all())
     flat = rows.reshape(E * 4, -1).contiguous()
     pct = kquantile.percentile_rows(flat, [16, 50, 84])
     assert torch.equal(pct, percentile_f32_plain(flat, [16, 50, 84], axis=1))
-    assert kernels.LAUNCHES["epoch_summary"] == n0["epoch_summary"] + 1
+    assert kernels.LAUNCHES["epoch_summary"] == n0["epoch_summary"] + 2
     assert kernels.LAUNCHES["percentile"] == n0["percentile"] + 1
+
+
+@pytest.mark.cuda
+def test_k4s_term_is_one_over_expm1_within_a_few_ulp_on_card(cuda_device):
+    """K4s's float32 Planck term on a one-node grid over x = c1 nu / T from
+    0.05 to 87, against 1 / expm1 in float64 at the kernel's own rounded
+    exponent: within a few ulp on the special-function unit and off it, T
+    <= 0 giving 0 (``chip_smoke.k4s_term_ulps``, which ``chip_smoke.py``'s
+    K4s phase runs too, holds the ulp model)."""
+    import chip_smoke
+    on_unit, of_bound, off_unit = chip_smoke.k4s_term_ulps(cuda_device)
+    assert of_bound <= 1.0 and off_unit <= 3.0, (on_unit, of_bound, off_unit)
 
 
 @pytest.mark.cuda
@@ -2555,6 +2578,60 @@ def test_cs_logpost_matches_plain_on_card(ia, ia_lc, cuda_device, variant, use_s
         _assert_scaled(cs.log_posterior(lp, q, off, sc),
                        _chunked(lambda c: common.log_posterior_plain(lp, c, off, sc), q),
                        rel, lp.log_likelihood.term_scales(common.absolute_params(q, off, sc)))
+        # any other walker dimension is refused: by the wrapper, and by the
+        # launch itself (cudaErrorInvalidValue = 1), which has the warp form
+        # at ndim 7, 8 and 9 only
+        with pytest.raises(ValueError, match="ndim"):
+            cs.log_posterior(lp, q[:, :-1].contiguous(), off[:-1], sc[:-1])
+        P = cs._CSParams.from_buffer_copy(cs._kernel_params(lp, len(lo), off, sc))
+        out = torch.empty(q.shape[0], dtype=torch.float64, device=cuda_device)
+        dev, stream = common.cuda_args(q.device)
+        for bad in (6, 10):
+            P.ndim = bad
+            assert build.library().cs_logpost_launch(ctypes.addressof(P), dev, int(f64),
+                                                     q.data_ptr(), 0, q.shape[0],
+                                                     out.data_ptr(), stream) == 1
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,use_sigma", [(1, False), (2, False), (3, False), (1, True)],
+                         ids=["cs1", "cs2", "cs3", "cs1-sigma"])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_cs_logpost_repeats_the_half_steps_values_on_card(ia, ia_lc, cuda_device, variant,
+                                                           use_sigma, f64):
+    """The CS batch log-posterior and half-step run one warp form
+    (CSWarpModel; the batch kernel at a compile-time ndim, 7-9, the
+    half-step at a runtime one): on the states that two half-steps left at
+    u_acc = 0 (every proposal inside the priors accepted), the batch kernel
+    returns the log-posterior the half-step stored, bit for bit, on the
+    sampler's float32 rescaled state."""
+    from lightcurve_fitting_tpu_torch.kernels import cs
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        pri = CS_PRIORS[variant] + ([_SIGMA_PRIOR] if use_sigma else [])
+        lp = make_log_posterior(_cs_model(variant, ia), ia_lc, pri, use_sigma=use_sigma,
+                                device=cuda_device)
+        lo, up = CS_LO[variant], CS_UP[variant]
+        if use_sigma:
+            lo, up = np.append(lo, 0.5), np.append(up, 3.0)
+        ndim, half = len(lo), 1024
+        off, sc = (lo + up) / 2, (up - lo) / 2 * (1 + 1e-6)
+        pos = (np.random.default_rng(5).uniform(lo, up, size=(2 * half, ndim)) - off) / sc
+        x = torch.as_tensor(pos.reshape(2, half, ndim), device=cuda_device).float().contiguous()
+        logp = cs.log_posterior(lp, x.reshape(-1, ndim), off, sc).reshape(2, half)
+        g = torch.Generator(device=cuda_device).manual_seed(6)
+        acc = torch.zeros((2, half), dtype=torch.int32, device=cuda_device)
+        for h in (0, 1):
+            u_z = torch.rand(half, generator=g, device=cuda_device)
+            j = torch.randint(0, half, (half,), generator=g, device=cuda_device)
+            cs.stretch_half_step(lp, x, logp, h, u_z, j, torch.zeros_like(u_z), 2.0, off, sc,
+                                 n_accept=acc)
+        assert 0.5 < float(acc.float().mean()) < 1.0   # the proposals inside the priors
+        assert torch.equal(cs.log_posterior(lp, x.reshape(-1, ndim), off, sc),
+                           logp.reshape(-1))
     finally:
         config.set_compute_dtype(config.AUTO)
 

@@ -43,7 +43,9 @@ and of the fits, float32 compute, by CUDA events:
   SC2 at 17 rungs x 4096, 7 x 32 and 17 x 32, over CS2 at 17 x 4096 and 7
   x 64, over SC3 at 17 x 512: ``K6b_*``; a checkout whose ``ladder_init``
   has no ``copies`` evaluates every rung's copy); K4s at the bolometric
-  paths' 65 and 256 epochs (``K4s_E*``); each timed and hashed;
+  paths' 65 and 256 epochs (``K4s_E*``, ``K4s_E*_f64``: float32 and float64
+  compute); the CS log-posterior in float64 compute at 32, 4096, 32768 and
+  131072 walkers (``CS_logpost_W*_f64``); each timed and hashed;
 * hashed only, at ``chip_smoke.py``'s shapes: K3, K4 with its gradient,
   K4s, K5, K6c and K6d;
 * with ``--fits``, the wall times of ``calculate_bolometric`` on SN
@@ -70,8 +72,8 @@ hash of the SASS of each kernel whose name holds NAME (``cuobjdump``), to
 tell a kernel's code apart from its placement.
 Each kernel's outputs at fixed inputs are hashed (``digest``): two checkouts
 whose kernel computes the same bits print the same digest. The ptxas report
-of the gradient kernels, of the SC2, SC3, CS and epoch warp kernels, of K4p
-and of K6c (registers, stack frame, spills) comes from the build.
+of the gradient kernels, of the SC2, SC3, CS and epoch warp kernels, of K4p,
+K6c and K4s (registers, stack frame, spills) comes from the build.
 
 Usage: ``python3 tools/time_port_kernels.py [--repo PATH] [--label NAME]
 [--fits]``. ``--repo`` is the checkout whose ``lightcurve_fitting_tpu_torch``
@@ -109,7 +111,7 @@ SC3_UP = [2.0, 2.0, 20.0, 5.0, D_L + 0.005, 0.1, 57468.7]
 # the ptxas report covers the entry functions whose mangled names hold these
 PTXAS_KERNELS = ("nuts_transition", "hmc_transition", "logpost_grad", "SC2WarpModel",
                  "SC3WarpModel", "stretch_half_step_kernelI8SC3Model", "CSWarpModel",
-                 "epoch_map_polish", "EpochBBModel", "replica_swap")
+                 "epoch_map_polish", "EpochBBModel", "replica_swap", "epoch_summary")
 
 
 def events_ms(fn, launches, repeats):
@@ -579,7 +581,9 @@ def main():
     offc, scc = kwc["param_offset"], kwc["param_scale"]
     pc = torch.as_tensor(rng.uniform(lo_c, up_c, size=(W, 7)), device=dev)
     times["CS_logpost"] = events_ms(lambda: cs.log_posterior(lpc, pc), 20, args.repeats)
-    times["CS_logpost_dev"] = device_ms(lambda: cs.log_posterior(lpc, pc), "cs_logpost_kernel", 20,
+    # "logpost": the kernel of either form (a checkout's cs_logpost_kernel or
+    # logpost_warp_kernel)
+    times["CS_logpost_dev"] = device_ms(lambda: cs.log_posterior(lpc, pc), "logpost", 20,
                                         args.repeats)
     digests["CS_logpost"] = digest(cs.log_posterior(lpc, pc))
     t_c, quad_c = lpc.log_likelihood.t, lpc.log_likelihood.quad
@@ -728,6 +732,31 @@ def main():
         times[f"K4s_E{Em}"] = events_ms(k4s, 20, args.repeats)
         times[f"K4s_E{Em}_dev"] = device_ms(k4s, "epoch_summary", 20, args.repeats)
         digests[f"K4s_E{Em}"] = digest(k4s())
+
+        def k4s_f64(chain_m=chain_m.double()):
+            return epoch_bb.summary_samples(chain_m, nu_m, wq_m, np.inf, torch.float64)
+        times[f"K4s_E{Em}_f64"] = events_ms(k4s_f64, 20, args.repeats)
+        times[f"K4s_E{Em}_f64_dev"] = device_ms(k4s_f64, "epoch_summary", 20, args.repeats)
+        digests[f"K4s_E{Em}_f64"] = digest(k4s_f64())
+
+    # the CS log-posterior in float64 compute at the widths above, on the
+    # absolute float64 state of a float64 fit (CS_logpost_W*_f64)
+    try:
+        config.set_compute_dtype(torch.float64)
+        lpc64 = make_log_posterior(chip_smoke.cs_model(2, lc0), lc_ia, chip_smoke.cs_priors(2),
+                                   device=dev)
+        for wb in (32, 4096, 32768, 131072):
+            qb = torch.as_tensor(rng_m.uniform(lo_c, up_c, size=(wb, 7)), device=dev)
+
+            def batch64(qb=qb):
+                return cs.log_posterior(lpc64, qb)
+            launches = 20 if wb > 4096 else 100
+            times[f"CS_logpost_W{wb}_f64"] = events_ms(batch64, launches, args.repeats)
+            times[f"CS_logpost_W{wb}_f64_dev"] = device_ms(batch64, "logpost", launches,
+                                                           args.repeats)
+            digests[f"CS_logpost_W{wb}_f64"] = digest(batch64())
+    finally:
+        config.set_compute_dtype(config.AUTO)
 
     if args.fits:
         # the bolometric fits of chip_smoke.py phase 13, two runs each: (13a)
