@@ -9,8 +9,8 @@ raises and the script exits non-zero):
 1. environment: torch/CUDA versions, the card, its power limit;
 2. build: nvcc compiles the kernels from ``kernels/csrc/``; the
    block-per-chain kernels (K9, K7h, K7's block form), K4p, the epoch
-   half-step, the SC3 and CS log-posteriors, K1, K6b, K6c and K4s must have
-   no stack frame and no spills (ptxas);
+   half-step, K4's values in both forms, the SC3 and CS log-posteriors, K1,
+   K6b, K6c, K6d and K4s must have no stack frame and no spills (ptxas);
 3. K1 (a warp per walker, the half-step's form) against its plain PyTorch
    version at 131072 walkers on the flagship (SN 2016bkv, ShockCooling2),
    float32 (<= 1e-5 |ll|, same -inf set) and float64 (<= 1e-10 |ll|),
@@ -63,7 +63,14 @@ raises and the script exits non-zero):
     parameters outside the priors and T <= 0: float32 <= 1e-5 and float64
     <= 1e-10 of |ll - c| + |c| (c the epoch's log_norm), identical -inf
     sets, the gradient within 1e-4 (float32) and 1e-9 (float64) of its
-    per-band terms' summed magnitude; K4 with the gradient timed at 256 x
+    per-band terms' summed magnitude; K4's values (the epoch half-step's
+    warp form, and a thread per vector where the vectors hide the longest
+    vector's walk, ``kernels/epoch_bb.py::k4_form``) the same bits in both forms and at
+    widths 32 and 512, and at the states two epoch half-steps accepted (256
+    x 32 float32 walkers, with and without the scatter) the half-step's
+    stored values bit for bit, float32 and float64; the values timed at
+    the cloud (256 x 512) and the initial state (256 x 32) in each form;
+    K4 with the gradient timed at 256 x
     8, the width of the parent's 300 Adam launches; K4p, the Adam polish of
     the MAP centering in one launch, against ``map_polish_plain`` on the
     card at the bench shape (256 epochs x 8 starts x 300 steps), float32
@@ -110,9 +117,15 @@ raises and the script exits non-zero):
     the ladders' shapes (17 rungs x 4096 and x 32, 7 x 32; 17 x 4096 and 7 x
     64 with 7 parameters; both parities, production and burn-in steps, a
     -inf log L row, the beta = 0 rung), each timed (events and the
-    profiler's device time); K6d, the stepping-stone
-    block terms, float64 <= 1e-12 relative, ``torch.logsumexp`` timed beside
-    it;
+    profiler's device time); K6d, the stepping-stone block terms (one pass,
+    the splits of each block combined in the same launch), float64 <= 1e-12
+    relative at the evidence bench shape and two launches bit-equal; its
+    edge cases (a NaN, a +inf, one -inf, a split of -inf in a finite block,
+    a block of -inf) at block lengths the splits do not divide, with 16-byte
+    and scalar loads, NaN positions equal to the plain version's; the one-
+    split shapes of the PT fits and compare_models (250 steps x 7 x 32, 17
+    x 32, 7 x 64) with a -inf row and the same edge cases;
+    ``torch.logsumexp`` timed beside it;
 16. the tempered-ladder main path: ``lightcurve_evidence`` on ShockCooling2
     and SN 2016bkv at the JAX package's bench shape (4096 walkers x 16 rungs
     + beta = 1 x 150 + 150 steps; seeds 1, 2 and 1 again, the repeat
@@ -1174,6 +1187,33 @@ def epoch_params(rng, E, M):
     return p
 
 
+def k4_repeats_the_half_step(ep, x0, seed):
+    """K4's values at the states that two epoch half-steps left at u_acc = 0
+    (every proposal inside the priors accepted) against the log-posteriors
+    the half-steps stored, bit for bit, in each of K4's two forms; x0 (E, 2,
+    half, ndim) the float32 walker state. Returns the accepts."""
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels import epoch_bb
+    E, _, half, ndim = x0.shape
+    x = x0.clone()
+    logp = ep(x.reshape(E, 2 * half, ndim)).reshape(E, 2, half).contiguous()
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    acc = torch.zeros((E, 2, half), dtype=torch.int32, device=x.device)
+    for h in (0, 1):
+        u_z = torch.rand((E, 2, half), generator=g, device=x.device)
+        j = torch.randint(0, half, (E, 2, half), generator=g, device=x.device)
+        epoch_bb.stretch_half_step(ep, x, logp, h, u_z, j, torch.zeros_like(u_z), 2.0,
+                                   n_accept=acc)
+    xs = x.reshape(E, 2 * half, ndim)
+    for form in ("warp", "thread"):
+        if not torch.equal(epoch_bb._launch_k4(ep, xs, False, form)[0], logp.reshape(E, -1)):
+            raise AssertionError(f"K4's {form} form: the initial state's values differ from "
+                                 "the half-step's stored values")
+    if not torch.equal(ep(xs), logp.reshape(E, -1)):
+        raise AssertionError("K4: the initial state's values differ from the half-step's")
+    return int(acc.sum())
+
+
 def phase_k4(rng_seed=5):
     import numpy as np
     import torch
@@ -1186,9 +1226,9 @@ def phase_k4(rng_seed=5):
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(rng_seed)
-    shapes = {"bench": (bench_epochs(np.random.default_rng(0), dev)[0], 512),
-              "SN 2016bkv": (sn2016bkv_packed(dev), 32)}
-    res = {}
+    bench_packed, truth = bench_epochs(np.random.default_rng(0), dev)
+    shapes = {"bench": (bench_packed, 512), "SN 2016bkv": (sn2016bkv_packed(dev), 32)}
+    res, repeats = {}, {}
     n0 = kernels.LAUNCHES["epoch_logpost"] + kernels.LAUNCHES["epoch_logpost_grad"]
     for label in ("f32", "f64"):
         try:
@@ -1212,14 +1252,20 @@ def phase_k4(rng_seed=5):
                 ll_scale, g_scale = ep.term_scales(q)
                 fin = torch.isfinite(want)
                 what = f"K4 {label} {name} sigma={sigma_type}"
-                if not torch.equal(torch.isneginf(lp), torch.isneginf(want)) \
-                        or not torch.equal(lp, lp0):
-                    raise AssertionError(f"{what}: -inf sets differ, or the gradient launch "
-                                         "changed the log-posterior")
-                d = (lp - want).abs()[fin]
-                r = float((d / ll_scale[fin]).max())
-                if r > rel:
-                    raise AssertionError(f"{what}: max |d|/scale {r:.3e} > {rel:.0e}")
+                # the values' two forms, and a vector's value at another width
+                forms = [epoch_bb._launch_k4(ep, q, False, f)[0] for f in ("warp", "thread")]
+                if not all(torch.equal(lp0, v) for v in forms) or not torch.equal(
+                        epoch_bb.log_posterior(ep, q[:, :32].contiguous())[0], lp0[:, :32]):
+                    raise AssertionError(f"{what}: the value forms or widths differ in bits")
+                r = 0.0
+                for v in (lp0, lp):
+                    if not torch.equal(torch.isneginf(v), torch.isneginf(want)):
+                        raise AssertionError(f"{what}: -inf sets differ")
+                    d = (v - want).abs()[fin]
+                    r = max(r, float((d / ll_scale[fin]).max()))
+                    if r > rel:
+                        raise AssertionError(f"{what}: max |d|/scale {r:.3e} > {rel:.0e}")
+                d = (lp0 - want).abs()[fin]
                 qq = q.clone().requires_grad_(True)
                 g_want, = torch.autograd.grad(ep.plain(qq).sum(), qq)
                 ok = fin[..., None] & torch.isfinite(g_want)
@@ -1229,6 +1275,15 @@ def phase_k4(rng_seed=5):
                     raise AssertionError(f"{what}: gradient max |d|/scale per parameter "
                                          f"{fmt(gr)} > {grel:.0e}")
                 res[(label, name, sigma_type)] = (float(d.max()), r, gr, int(fin.sum()), E * M)
+                if name == "bench" and sigma_type in (None, "relative"):
+                    # the initial state: the bench's 256 epochs x 32 float32 walkers
+                    x0 = np.abs(np.stack([truth, np.full(E, 10.0)], axis=1)[:, None, None, :]
+                                * (1 + 0.3 * rng.normal(size=(E, 2, BOL_WALKERS // 2, 2))))
+                    if use_sigma:
+                        x0 = np.concatenate([x0, rng.uniform(0.5, 3.0, x0.shape[:-1] + (1,))],
+                                            axis=-1)
+                    x0 = torch.as_tensor(x0, device=dev).float().contiguous()
+                    repeats[(label, sigma_type)] = k4_repeats_the_half_step(ep, x0, rng_seed)
                 if label == "f32" and name == "bench" and not use_sigma:
                     k_ms = cuda_ms(lambda: epoch_bb.log_posterior(ep, q))
                     kg_ms = cuda_ms(lambda: epoch_bb.log_posterior(ep, q, with_grad=True))
@@ -1236,6 +1291,16 @@ def phase_k4(rng_seed=5):
                     kg8 = (cuda_ms(lambda: epoch_bb.log_posterior(ep, q8, with_grad=True)),
                            device_ms(lambda: epoch_bb.log_posterior(ep, q8, with_grad=True),
                                      "epoch_logpost_kernel", 20, 1)[0])
+                    xi = x0.reshape(E, BOL_WALKERS, 2)
+                    dev_ms = {(w, f): device_ms(lambda: epoch_bb._launch_k4(ep, qw, False, f),
+                                                "logpost", 20, 1)[0]
+                              for w, qw in (("cloud", q), ("init", xi))
+                              for f in ("warp", "thread")}
+                    forms_run = {w: epoch_bb.k4_form(qw.shape[0] * qw.shape[1],
+                                                     torch.cuda.get_device_properties(dev)
+                                                     .multi_processor_count,
+                                                     epoch_bb.longest_terms(ep))
+                                 for w, qw in (("cloud", q), ("init", xi))}
                     plain_ms = cuda_ms(lambda: ep.plain(q), repeats=5)
                     ops = epoch_eval_ops(ep) * M
                     k4_bound = bound_fields(ops, q.numel() * 8 + E * M * 8
@@ -1244,13 +1309,23 @@ def phase_k4(rng_seed=5):
             config.set_compute_dtype(config.AUTO)
     launches = kernels.LAUNCHES["epoch_logpost"] + kernels.LAUNCHES["epoch_logpost_grad"] - n0
     parts = "; ".join(f"{lab} {name} sigma={st} ({v[4]} vectors, {v[3]} finite): max |d| "
-                      f"{v[0]:.3e}, max |d|/scale {v[1]:.2e}, gradient max |d|/scale per "
-                      f"parameter [{', '.join(f'{x:.2e}' for x in v[2])}]" for (lab, name, st), v in res.items())
-    phase("K4", f"{parts}; -inf sets equal; {launches} comparison launches; K4 {k_ms:.4f} ms "
-          f"(with the gradient {kg_ms:.4f} ms) vs plain {plain_ms:.4f} ms at {BOL_EPOCHS} "
-          f"epochs x 512 (f32, no intrinsic scatter), bound {k4_bound['bound_ms']:.4f} ms "
-          f"({k4_bound['bound_by']}); with the gradient at {BOL_EPOCHS} x {BOL_STARTS} (the "
-          f"parent's Adam step) {kg8[0]:.4f} ms (events; the profiler's device time "
+                      f"{v[0]:.3e}, max |d|/scale {v[1]:.2e} (values, and with the gradient), "
+                      f"gradient max |d|/scale per parameter "
+                      f"[{', '.join(f'{x:.2e}' for x in v[2])}]"
+                      for (lab, name, st), v in res.items())
+    phase("K4", f"{parts}; -inf sets equal; the values' warp and thread forms bit-equal, and "
+          f"at width 32 the values at 512; at the states two epoch half-steps accepted "
+          f"(u_acc = 0, {BOL_EPOCHS} x {BOL_WALKERS}) both forms give the stored values bit for "
+          f"bit (" + ", ".join(f"{lab} sigma={st}: {n} accepts" for (lab, st), n in
+                               repeats.items()) + f"); {launches} comparison launches; K4's "
+          f"values {k_ms:.4f} ms (events; the {forms_run['cloud']} form) at {BOL_EPOCHS} epochs "
+          f"x 512 (f32, no intrinsic scatter; with the gradient {kg_ms:.4f} ms) vs plain "
+          f"{plain_ms:.4f} ms, bound {k4_bound['bound_ms']:.4f} ms ({k4_bound['bound_by']}); "
+          "device time " + ", ".join(f"{f} {v:.4f} ms at the {w}" for (w, f), v in
+                                     dev_ms.items())
+          + f" (the rule runs the {forms_run['init']} form at the initial state's "
+          f"{BOL_EPOCHS} x {BOL_WALKERS}); with the gradient at {BOL_EPOCHS} x {BOL_STARTS} "
+          f"(the parent's Adam step) {kg8[0]:.4f} ms (events; the profiler's device time "
           f"{kg8[1]:.4f} ms)")
     return {"max_abs_err": res[("f32", "bench", None)][0], "ms": k_ms, "plain_ms": plain_ms,
             **k4_bound}
@@ -1590,7 +1665,7 @@ BOL_KERNELS = ("epoch_logpost", "epoch_map_polish", "epoch_half_step", "epoch_su
 BOL_SEEDS = tuple(range(1, 9))
 BOL_ACCEPTANCE_SEEDS_REF = (0.7061326503753662, 0.0002736880704670472)
 # the bolometric path's kernels in a profile (the first match wins)
-BOL_SPLIT = {"K4 (cloud, initial state)": ("epoch_logpost",),
+BOL_SPLIT = {"K4 (cloud, initial state)": ("epoch_logpost", "logpost_warp_kernel"),
              "K4p (Adam polish)": ("epoch_map_polish",),
              "epoch half-step": ("stretch_half_step",), "K4s": ("epoch_summary",),
              "K5": ("percentile",)}
@@ -1745,6 +1820,9 @@ LADDER_KERNELS = ("tempered_half_step", "ladder_init", "replica_swap", "rung_blo
 # CS2 (24c)
 K6C_SHAPES = ((EV_RUNGS + 1, EV_WALKERS, 4), (EV_RUNGS + 1, 32, 4), (7, 32, 4),
               (EV_RUNGS + 1, EV_WALKERS, 7), (7, 64, 7))
+# K6d's one-split shapes (steps, rungs, walkers): the production log L of the
+# PT fits of SC2 (16b) and CS2 (24c) and of compare_models (16c)
+K6D_ONE_SPLIT_SHAPES = ((250, 7, 32), (250, 17, 32), (250, 7, 64))
 
 
 def window_states(rng, lo, up, n, outside=0.0):
@@ -2099,7 +2177,11 @@ def phase_k6bcd(lc, lcf, lc_ia, lc0, seed=9):
     k6c = {"max_abs_err": 0.0, "ms": c_ms[K6C_SHAPES[0]][1], "plain_ms": c_plain_ms,
            **c_bounds[K6C_SHAPES[0]]}
 
-    # K6d: the stepping-stone block terms at the bench shape's production log L
+    # K6d: the stepping-stone block terms at the bench shape's production log L,
+    # two launches bit-equal; then the edge cases (a NaN, a +inf, one -inf
+    # among finite values, a whole split of -inf in a finite block, a block of
+    # -inf) at block lengths that the splits do not divide, over the 16-byte
+    # loads (an even walker count) and the scalar ones (an odd count)
     logl = torch.as_tensor(-12990.0 + 10.0 * rng.normal(size=(EV_STEPS, R, W)), device=dev)
     db = torch.as_tensor(np.diff(make_beta_ladder(EV_RUNGS)), device=dev)
     bounds = tuple((int(i[0]), int(i[-1]) + 1)
@@ -2109,15 +2191,85 @@ def phase_k6bcd(lc, lcf, lc_ia, lc0, seed=9):
     rel = float(((got - want).abs() / want.abs()).max())
     if got.shape != (4, EV_RUNGS) or rel > 1e-12:
         raise AssertionError(f"K6d: max relative difference {rel:.3e} > 1e-12")
+    if not torch.equal(ladder.rung_block_terms(logl, db, bounds), got):
+        raise AssertionError("K6d: two launches on the same log L gave other bits")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = ladder.k6d_splits(4 * EV_RUNGS, (EV_STEPS // 4) * W // 2, n_sm)
+    edge = {}
+    for We in (998, 999):
+        steps_e, R_e = 37, 9
+        ll = torch.as_tensor(-5000.0 - 100.0 * rng.random((steps_e, R_e, We)), device=dev)
+        bnd = tuple((int(i[0]), int(i[-1]) + 1) for i in np.array_split(np.arange(steps_e), 4))
+        ll[bnd[0][0] + 3, 1, 7] = np.nan                  # rung 1, block 0: NaN
+        ll[bnd[1][0] + 2, 2, 5] = np.inf                  # rung 2, block 1: NaN
+        ll[bnd[2][0] + 1, 3, 11] = -np.inf                # rung 3, block 2: the -inf adds 0
+        ll[bnd[3][0]:bnd[3][0] + 3, 4] = -np.inf          # rung 4, block 3: split 0 all -inf
+        ll[bnd[1][0]:bnd[1][1], 5] = -np.inf              # rung 5, block 1: NaN
+        dbe = torch.as_tensor(np.diff(make_beta_ladder(R_e - 1)), device=dev)
+        ge = ladder.rung_block_terms(ll, dbe, bnd)
+        we = ladder.rung_block_terms_plain(ll, dbe, bnd)
+        nan = torch.isnan(we)
+        re = float(((ge - we).abs() / we.abs())[~nan].max())
+        if not torch.equal(torch.isnan(ge), nan) or int(nan.sum()) != 3 or re > 1e-12 \
+                or not torch.equal(ladder.rung_block_terms(ll, dbe, bnd).nan_to_num(),
+                                   ge.nan_to_num()):
+            raise AssertionError(f"K6d edge cases at {We} walkers: NaN at "
+                                 f"{nan.nonzero().tolist()} against "
+                                 f"{torch.isnan(ge).nonzero().tolist()}, max relative "
+                                 f"difference {re:.3e}")
+        edge[We] = (re, ladder.k6d_splits(4 * (R_e - 1), 9 * (We // 2 if We % 2 == 0 else We),
+                                          n_sm))
+    # the small ladders' shapes run one split, where the CTA writes the term
+    # itself: each with a -inf row (a walker's NaN-likelihood start, every
+    # rung) and the edge cases above, against the plain version
+    rng1 = np.random.default_rng(15)
+    one = {}
+    for steps_o, R_o, W_o in K6D_ONE_SPLIT_SHAPES:
+        ll = torch.as_tensor(-12990.0 + 10.0 * rng1.normal(size=(steps_o, R_o, W_o)), device=dev)
+        bnd = tuple((int(i[0]), int(i[-1]) + 1) for i in np.array_split(np.arange(steps_o), 4))
+        splits_o = ladder.k6d_splits(4 * (R_o - 1), min(b1 - b0 for b0, b1 in bnd) * W_o // 2,
+                                     n_sm)
+        if splits_o != 1:
+            raise AssertionError(f"K6d at {steps_o} x {R_o} x {W_o}: {splits_o} splits, not 1")
+        ll[bnd[0][0] + 5, :, 3] = -np.inf                 # every rung, block 0: adds 0
+        ll[bnd[0][0] + 3, 1, 7] = np.nan                  # rung 1, block 0: NaN
+        ll[bnd[1][0] + 2, 2, 5] = np.inf                  # rung 2, block 1: NaN
+        ll[bnd[2][0] + 1, 3, 11] = -np.inf                # rung 3, block 2: adds 0
+        ll[bnd[1][0]:bnd[1][1], 5] = -np.inf              # rung 5, block 1: NaN
+        dbo = torch.as_tensor(np.diff(make_beta_ladder(R_o - 1)), device=dev)
+        go = ladder.rung_block_terms(ll, dbo, bnd)
+        wo = ladder.rung_block_terms_plain(ll, dbo, bnd)
+        nan = torch.isnan(wo)
+        ro = float(((go - wo).abs() / wo.abs())[~nan].max())
+        if nan.nonzero().tolist() != [[0, 1], [1, 2], [1, 5]] \
+                or not torch.equal(torch.isnan(go), nan) or ro > 1e-12 \
+                or not torch.equal(ladder.rung_block_terms(ll, dbo, bnd).nan_to_num(),
+                                   go.nan_to_num()):
+            raise AssertionError(f"K6d at {steps_o} x {R_o} x {W_o} (one split): NaN at "
+                                 f"{nan.nonzero().tolist()} against "
+                                 f"{torch.isnan(go).nonzero().tolist()}, max relative "
+                                 f"difference {ro:.3e}")
+        one[(steps_o, R_o, W_o)] = ro
     w = db[None, :, None] * logl[:, :EV_RUNGS]
     d_ms = cuda_ms(lambda: ladder.rung_block_terms(logl, db, bounds))
+    d_dev = device_ms(lambda: ladder.rung_block_terms(logl, db, bounds), "rung_block_terms",
+                      20, 1)[0]
     d_plain_ms = cuda_ms(lambda: ladder.rung_block_terms_plain(logl, db, bounds), repeats=5)
     lib_ms = cuda_ms(lambda: [torch.logsumexp(w[b0:b1], dim=(0, 2)) for b0, b1 in bounds])
     m = EV_STEPS * EV_RUNGS * W
-    d_bound = bound_fields(m * (5 + SFU), m * 8 + EV_RUNGS * 8 + 4 * EV_RUNGS * 8, lib_ms,
+    # one pass: a multiply, a compare, a subtraction, an exp and an add a value
+    d_bound = bound_fields(m * (4 + SFU), m * 8 + EV_RUNGS * 8 + 4 * EV_RUNGS * 8, lib_ms,
                            rate=FP64_FLOPS)
-    phase("K6d", f"{EV_STEPS} steps x {R} rungs x {W} walkers, 4 blocks: max relative "
-          f"difference {rel:.2e} <= 1e-12; kernel {d_ms:.4f} ms vs plain {d_plain_ms:.4f} ms vs "
+    phase("K6d", f"{EV_STEPS} steps x {R} rungs x {W} walkers, 4 blocks, {splits} splits a "
+          f"(block, rung): max relative difference {rel:.2e} <= 1e-12, two launches bit-equal; "
+          "edge cases (a NaN, a +inf, a block of -inf: NaN as the plain version; one -inf, a "
+          "split of -inf: 0) at 37 steps x 9 rungs: " + ", ".join(
+              f"{We} walkers ({v[1]} splits, blocks of 9-10 steps) max relative difference "
+              f"{v[0]:.2e}" for We, v in edge.items())
+          + "; one split, a -inf row and the edge cases: " + ", ".join(
+              f"{a} x {b} x {c} max relative difference {v:.2e}" for (a, b, c), v in one.items())
+          + f", NaN positions equal, repeat bit-equal; kernel {d_ms:.4f} ms (events; the "
+          f"profiler's device time {d_dev:.4f} ms) vs plain {d_plain_ms:.4f} ms vs "
           f"torch.logsumexp over the 4 blocks of dbeta log L {lib_ms:.4f} ms, bound "
           f"{d_bound['bound_ms']:.4f} ms ({d_bound['bound_by']}, float64)")
     k6d = {"max_abs_err": float((got - want).abs().max()), "ms": d_ms, "plain_ms": d_plain_ms,
@@ -3559,7 +3711,10 @@ def main():
     for what, key, n in (("K9", "nuts_transition_kernel", 4), ("K7h", "hmc_transition_kernel", 4),
                          ("K7's block form", "logpost_grad_block_kernel", 4),
                          ("K4p", "epoch_map_polish_kernel", 4),
-                         ("the epoch half-step", "EpochBBModel", 32),
+                         ("the epoch half-step", "stretch_half_step_kernelI12EpochBBModel", 32),
+                         ("K4's warp form", "logpost_warp_kernelI12EpochBBModel", 8),
+                         ("K4's thread form", "epoch_logpost_thread_kernel", 8),
+                         ("K6d", "rung_block_terms_kernel", 2),
                          ("the SC3 log-posterior", "logpost_warp_kernelI12SC3WarpModel", 8),
                          ("K1", "logpost_warp_kernelI12SC2WarpModel", 8),
                          ("K6b", "ladder_init_kernel", 28),
@@ -3574,7 +3729,9 @@ def main():
           f"in {time.perf_counter() - t0:.2f} s; ptxas: {len(regs)} kernels, "
           f"{sorted(set(r.split('Used ')[-1] for r in regs))[:4]}; no stack frame and no "
           "spills in the block-per-chain kernels (ndim 4, 5; f32, f64), K4p (ndim 2, 3; f32, "
-          "f64), the epoch half-step (ndim 2, 3; its 16 dtype instantiations each), the SC3 "
+          "f64), the epoch half-step (ndim 2, 3; its 16 dtype instantiations each), K4's "
+          "values in both forms (ndim 2, 3; 4 dtype instantiations each), K6d (16-byte and "
+          "scalar loads), the SC3 "
           "log-posterior (ndim 7, 8; its 4 dtype instantiations each), K1 (ndim 4, 5; 4 each), "
           "K6b (over SC2 ndim 4, 5, over SC3 7, 8, over CS 7, 8, 9; 4 each), K6c (ndim 1-9; "
           "f32, f64 state), the CS log-posterior (ndim 7, 8, 9; 4 each) and K4s (4 dtype "
@@ -3635,7 +3792,8 @@ def main():
         dict(name="stretch_half_step_kernel<SC3WarpModel> (SC3 half-step)", route="cuda",
              source=src3, replaces="lightcurve_fitting_tpu/parallel/sampler.py:86",
              launches=launches_sc3["sc3_half_step"], **k_sc3_half),
-        dict(name="epoch_logpost_kernel (K4)", route="cuda", source=src4,
+        dict(name="logpost_warp_kernel<EpochBBModel<C, N>> / epoch_logpost_thread_kernel<C, S, "
+                  "N> (K4)", route="cuda", source=src4,
              replaces="lightcurve_fitting_tpu/parallel/batched.py:53",
              launches=launches_bol["epoch_logpost"] + launches_bol["epoch_logpost_grad"], **k4),
         dict(name="epoch_map_polish_kernel (K4p)", route="cuda", source=src4,
@@ -3663,7 +3821,7 @@ def main():
              source="lightcurve_fitting_tpu_torch/kernels/csrc/ladder.cu",
              replaces="lightcurve_fitting_tpu/parallel/evidence.py:95",
              launches=launches_ladder["replica_swap"], **k6c),
-        dict(name="rung_block_terms_kernel (K6d)", route="cuda",
+        dict(name="rung_block_terms_kernel<V> (K6d)", route="cuda",
              source="lightcurve_fitting_tpu_torch/kernels/csrc/ladder.cu",
              replaces="lightcurve_fitting_tpu/parallel/evidence.py:473",
              launches=launches_ladder["rung_block_terms"], **k6d),

@@ -65,7 +65,7 @@ def _declare(lib):
     lib.sc3_half_step_launch.restype = ci
     lib.sc3_half_step_launch.argtypes = half_step
     lib.epoch_logpost_launch.restype = ci
-    lib.epoch_logpost_launch.argtypes = [vp, ci, ci, vp, ci, ci, vp, ci, vp, vp]
+    lib.epoch_logpost_launch.argtypes = [vp, ci, ci, vp, ci, ci, vp, ci, vp, ci, vp]
     lib.epoch_half_step_launch.restype = ci
     lib.epoch_half_step_launch.argtypes = half_step[:-1] + [ci, ctypes.c_longlong, vp]
     lib.epoch_map_polish_launch.restype = ci
@@ -91,7 +91,8 @@ def _declare(lib):
     lib.replica_swap_launch.argtypes = [ci, vp, ci, ci, vp, vp, vp, ci, ci, vp, ci, vp, vp, vp,
                                         vp]
     lib.rung_block_terms_launch.restype = ci
-    lib.rung_block_terms_launch.argtypes = [ci, vp, ci, ci, vp, ci, ci, vp, vp, vp, vp]
+    lib.rung_block_terms_launch.argtypes = [ci, vp, ci, ci, vp, ci, ci, vp, vp, ci, ci, vp, vp,
+                                            vp, vp]
     lib.sc2_logpost_grad_launch.restype = ci
     lib.sc2_logpost_grad_launch.argtypes = [vp, ci, ci, vp, vp, ci, vp, vp, ci, vp, vp]
     lib.sc2_nuts_transition_launch.restype = ci

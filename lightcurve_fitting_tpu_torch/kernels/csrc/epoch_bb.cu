@@ -27,15 +27,22 @@
 // bolometric shapes (16 walkers a half, 8 Adam starts an epoch) the work is
 // small and a thread's serial walk over an epoch's terms sets the time.
 // What the design does about it: a block works on one epoch and stages that
-// epoch's tables in shared memory. K4 (the cloud's scoring) runs one thread
-// per parameter vector, which walks the real bands in order and stops at
-// each band's last non-zero weight (masked bands are skipped: their terms
-// are exact zeros in the JAX sum), the gradient accumulated in the same
-// pass (band_flux<C, true>, planck.cuh). The half-step and K4p run a warp per
-// walker or start (epoch_log_likelihood_warp): the 32 lanes split each
+// epoch's tables in shared memory. The half-step, K4's values (the cloud's
+// scoring and the initial state: logpost_warp_kernel over the half-step's
+// policy, the epochs along its ensemble axis) and K4p run a warp per walker,
+// vector or start (epoch_log_likelihood_warp): the 32 lanes split each
 // band's terms and one butterfly a band gives every lane the band flux (and
 // its T derivative); their tables also hold the node-only factors of the
-// Planck term (c1 nu, nu^3, the cutoff), staged once a block. K4p runs the
+// Planck term (c1 nu, nu^3, the cutoff), staged once a block. So a walker's
+// initial value has the bits the half-step stores when it accepts that
+// state. Where the vectors hide the longest vector's walk (the bench's
+// cloud), K4's values run a thread per vector on the same tables, the
+// lanes' 32 partial sums in its registers and added in the butterfly's
+// order (band_flux_lanes): the same bits. K4 with the gradient (the plain polish's
+// autograd form) runs a thread per vector, which walks the real bands in
+// order and stops at each band's last non-zero weight (masked bands are
+// skipped: their terms are exact zeros in the JAX sum), the gradient
+// accumulated in the same pass (band_flux<C, true>, planck.cuh). K4p runs the
 // whole polish of an epoch in one block, a start a warp, its iterate and
 // Adam's moments in registers for all n_iter steps. K4s runs a thread per
 // sample over the grid's nodes, staged once a block with each node's
@@ -265,12 +272,11 @@ __device__ __forceinline__ double epoch_posterior(const double* p, const EpochBB
     return lprior + ll;
 }
 
-// K4's log-posterior of one parameter vector p of one epoch, a thread: the
-// bands' terms in order (band_flux); with GRAD also its gradient into
-// g[ndim].
-template <typename C, bool GRAD>
-__device__ double epoch_log_posterior(const double* p, const EpochBBData<C>& d,
-                                      const EpochBBParams& P, double* g) {
+// K4's log-posterior of one parameter vector p of one epoch and its gradient
+// into g[ndim], a thread: the bands' terms in order (band_flux).
+template <typename C>
+__device__ double epoch_log_posterior_grad(const double* p, const EpochBBData<C>& d,
+                                           const EpochBBParams& P, double* g) {
     const C T = (C)p[0];
     const C R = (C)p[1];
     const C sig = P.use_sigma ? (C)p[P.ndim - 1] : C(0);
@@ -278,11 +284,11 @@ __device__ double epoch_log_posterior(const double* p, const EpochBBData<C>& d,
     const bool has_cutoff = P.has_cutoff != 0;
     const int K = (int)P.n_nodes;
     auto flux = [&](int b, C* dS) {
-        return band_flux<C, GRAD>(d.nu + b * K, d.w + b * K, nullptr, (int)d.n_native[b], T, R,
+        return band_flux<C, true>(d.nu + b * K, d.w + b * K, nullptr, (int)d.n_native[b], T, R,
                                   C(0), c1, c2, C(0), has_cutoff, cutoff, dS);
     };
-    return epoch_posterior<C, GRAD, 0>(
-        p, P, g, [&](C* gl) { return epoch_log_likelihood<C, GRAD>(d, P, R, sig, flux, gl); });
+    return epoch_posterior<C, true, 0>(
+        p, P, g, [&](C* gl) { return epoch_log_likelihood<C, true>(d, P, R, sig, flux, gl); });
 }
 
 // ------------------------------------------------------- the warp forms
@@ -373,6 +379,21 @@ __device__ __forceinline__ EpochWalker<C> epoch_walker(double Tp, double Rp, dou
     return w;
 }
 
+// Node k's Planck term of walker w without its weight, c2 R^2 nu^3
+// min(1, cutoff / nu) / expm1(x) with x = c1 nu / T, from the staged node
+// factors (band_flux's operations in its order); x and 1 / expm1(x) into x
+// and pdi.
+template <typename C>
+__device__ __forceinline__ C epoch_node_lnu(const EpochWarpData<C>& d, int k,
+                                            const EpochWalker<C>& w, C& x, C& pdi) {
+    x = d.c1nu[k] * w.inv_T;
+    const C e = m_expm1(x);
+    pdi = e > C(0) ? C(1) / e : C(0);  // x <= 0 -> 0; Wien overflow 1/inf = 0
+    C lnu = w.c2R2 * d.nu3[k];
+    if (d.cut != nullptr) lnu = lnu * d.cut[k];
+    return lnu * pdi;
+}
+
 // Band flux S (the sum of n Planck terms from table offset off) of walker w,
 // by the 32 lanes of a warp: lane l sums terms l, l + 32, ..., then a
 // butterfly gives every lane the same bits. GRAD: also dS/dT into *dS (the
@@ -382,12 +403,8 @@ __device__ __forceinline__ C band_flux_warp(const EpochWarpData<C>& d, int off, 
                                             const EpochWalker<C>& w, C* dS) {
     C acc = C(0), dacc = C(0);
     for (int k = off + (threadIdx.x & 31); k < off + n; k += 32) {
-        const C x = d.c1nu[k] * w.inv_T;
-        const C e = m_expm1(x);
-        const C pdi = e > C(0) ? C(1) / e : C(0);  // x <= 0 -> 0; Wien overflow 1/inf = 0
-        C lnu = w.c2R2 * d.nu3[k];
-        if (d.cut != nullptr) lnu = lnu * d.cut[k];
-        lnu = lnu * pdi;
+        C x, pdi;
+        const C lnu = epoch_node_lnu(d, k, w, x, pdi);
         acc += d.w[k] * lnu;
         if constexpr (GRAD) if (lnu != C(0)) dacc += d.w[k] * (lnu * (C(1) + pdi) * (x * w.inv_T));
     }
@@ -397,6 +414,44 @@ __device__ __forceinline__ C band_flux_warp(const EpochWarpData<C>& d, int off, 
     }
     if constexpr (GRAD) *dS = dacc;
     return acc;
+}
+
+// band_flux_warp's S by one thread, its bits: the lanes' partial sums
+// (lane l's the terms off + l, off + l + 32, ... in order) added in the
+// butterfly's tree, v(x, o) = v(x, 2o) + v(x + o, 2o) for o = 16, 8, 4, 2, 1
+// and x < o, v(x, 32) lane x's partial, S = v(0, 1). The lanes are taken
+// eight at a time, x, x + 4, ..., x + 28, whose partials form v(x, 4) and
+// are summed over the band's rounds of 32 terms together.
+template <typename C>
+__device__ __forceinline__ C band_flux_lanes(const EpochWarpData<C>& d, int off, int n,
+                                             const EpochWalker<C>& w) {
+    C s1 = C(0);
+    for (int a = 0; a < 2; ++a) {
+        C s2 = C(0);
+        for (int b = 0; b < 2; ++b) {
+            const int x = a + 2 * b;
+            C acc[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) acc[i] = C(0);
+            for (int r = off + x; r < off + n; r += 32) {
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    const int k = r + 4 * i;
+                    if (k < off + n) {
+                        C xk, pdi;
+                        const C lnu = epoch_node_lnu(d, k, w, xk, pdi);
+                        acc[i] += d.w[k] * lnu;
+                    }
+                }
+            }
+            // v(x, 4) = (v(x, 16) + v(x + 8, 16)) + (v(x + 4, 16) + v(x + 12, 16))
+            const C s4 = ((acc[0] + acc[4]) + (acc[2] + acc[6]))
+                         + ((acc[1] + acc[5]) + (acc[3] + acc[7]));
+            s2 = b ? s2 + s4 : s4;
+        }
+        s1 = a ? s1 + s2 : s2;
+    }
+    return s1;
 }
 
 // The float64 log-likelihood of walker w on epoch d (-inf when not
@@ -417,7 +472,7 @@ __device__ __forceinline__ double epoch_log_likelihood_warp(const EpochWalker<C>
 }
 
 // The log-posterior of p[N] (N == P.ndim) on epoch d by a warp, with GRAD
-// its gradient into g[N], the state in registers: epoch_log_posterior's
+// its gradient into g[N], the state in registers: epoch_log_posterior_grad's
 // value and rules over the warp's likelihood.
 template <typename C, int N, bool GRAD>
 __device__ __forceinline__ double epoch_log_posterior_warp(const double* p,
@@ -593,9 +648,11 @@ epoch_map_polish_kernel(const EpochBBParams P, const PolishParams Q) {
     }
 }
 
-// K4: out[e, m] = the log-posterior of epoch e at q[e, m, :]; with GRAD also
-// grad[e, m, :]. Block (blockIdx.x, e) holds M-chunk blockIdx.x of epoch e.
-template <typename C, typename S, bool GRAD>
+// K4 with the gradient: out[e, m] = the log-posterior of epoch e at q[e, m,
+// :] and grad[e, m, :] its gradient, a thread per vector (EpochLogPosterior:
+// the plain polish's autograd form). Block (blockIdx.x, e) holds M-chunk
+// blockIdx.x of epoch e.
+template <typename C, typename S>
 __global__ void __launch_bounds__(LP_THREADS)
 epoch_logpost_kernel(const EpochBBParams P, const S* __restrict__ q, int M,
                      double* __restrict__ out, double* __restrict__ grad, int use_smem) {
@@ -609,9 +666,41 @@ epoch_logpost_kernel(const EpochBBParams P, const S* __restrict__ q, int M,
     double p[LP_MAX_DIM];
     double g[LP_MAX_DIM];
     for (int k = 0; k < ndim; ++k) p[k] = (double)q[w * ndim + k];
-    out[w] = epoch_log_posterior<C, GRAD>(p, d, P, g);
-    if constexpr (GRAD)
-        for (int k = 0; k < ndim; ++k) grad[w * ndim + k] = g[k];
+    out[w] = epoch_log_posterior_grad<C>(p, d, P, g);
+    for (int k = 0; k < ndim; ++k) grad[w * ndim + k] = g[k];
+}
+
+// K4's values a thread per vector (the form for widths whose vectors hide
+// the longest vector's walk: kernels/epoch_bb.py::k4_form): out[e, m] as
+// logpost_warp_kernel over EpochBBModel<C, N> computes it, on that form's
+// staged tables, in its order (band_flux_lanes), a vector's state in
+// registers (N at compile time), so the two forms give the same bits. The
+// launch bound asks for four blocks an SM: without it ptxas gave the
+// float64 kernels 56 registers and a 16-32-byte stack frame (spills).
+template <typename C, typename S, int N>
+__global__ void __launch_bounds__(LP_THREADS, 4)
+epoch_logpost_thread_kernel(const EpochBBParams P, const S* __restrict__ q, int M,
+                            double* __restrict__ out) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int e = blockIdx.y;
+    const EpochWarpData<C> d = stage_epoch_warp<C>(P, smem_raw, e);
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= M) return;
+    const size_t w = (size_t)e * M + i;
+    double p[N];
+#pragma unroll
+    for (int k = 0; k < N; ++k) p[k] = to_absolute(P, k, q[w * N + k]);
+    const double lprior = log_prior<N>(P, p);
+    double lp = -INFINITY;
+    if (isfinite(lprior)) {
+        const EpochWalker<C> wk = epoch_walker<C>(p[0], p[1], p[N - 1], P);
+        const int K = (int)P.n_nodes;
+        auto flux = [&](int b, C*) {
+            return band_flux_lanes<C>(d, b * K, (int)d.n_native[b], wk);
+        };
+        lp = lprior + epoch_log_likelihood<C, false>(d, P, C(0), wk.sig, flux, nullptr);
+    }
+    out[w] = isnan(lp) ? -INFINITY : lp;
 }
 
 // K4s's node f of the frequency grid, formed once a block in shared memory:
@@ -759,10 +848,10 @@ __global__ void __launch_bounds__(256) epoch_summary_kernel(const SummaryParams 
 
 // ------------------------------------------------------------------ launch
 
-template <typename C, typename S, bool GRAD>
-static int launch_epoch_logpost(const EpochBBParams& P, const void* q, int M, double* out,
-                                double* grad, cudaStream_t stream) {
-    auto kernel = epoch_logpost_kernel<C, S, GRAD>;
+template <typename C, typename S>
+static int launch_epoch_logpost_grad(const EpochBBParams& P, const void* q, int M, double* out,
+                                     double* grad, cudaStream_t stream) {
+    auto kernel = epoch_logpost_kernel<C, S>;
     int use_smem = 0;
     const size_t bytes = epoch_stage_bytes<C>(P);
     int rc = smem_plan(kernel, bytes, &use_smem);
@@ -772,6 +861,44 @@ static int launch_epoch_logpost(const EpochBBParams& P, const void* q, int M, do
     kernel<<<grid, threads, use_smem ? bytes : 0, stream>>>(P, (const S*)q, M, out, grad,
                                                             use_smem);
     return (int)cudaGetLastError();
+}
+
+template <typename C, typename S, int N>
+static int launch_epoch_logpost_thread(const EpochBBParams& P, const void* q, int M, double* out,
+                                       cudaStream_t stream) {
+    auto kernel = epoch_logpost_thread_kernel<C, S, N>;
+    int use_smem = 0;
+    const size_t bytes = epoch_warp_stage_bytes<C>(P);
+    int rc = smem_plan(kernel, bytes, &use_smem);
+    if (rc) return rc;
+    if (!use_smem) return (int)cudaErrorInvalidValue;  // tables larger than shared memory
+    const int threads = threads_for(M);
+    const dim3 grid((M + threads - 1) / threads, (unsigned)P.n_epochs);
+    kernel<<<grid, threads, bytes, stream>>>(P, (const S*)q, M, out);
+    return (int)cudaGetLastError();
+}
+
+// K4's values for ndim N: the warp form (logpost_warp_kernel over
+// EpochBBModel<C, N>, the epochs along its ensemble axis) or the thread form.
+template <int N>
+static int launch_epoch_values(const EpochBBParams* P, int device, int compute_f64,
+                               const void* q, int q_f64, int M, double* out, int thread_form,
+                               cudaStream_t s) {
+    if (!thread_form) {
+        if constexpr (N == 2)
+            return launch_logpost<EpochBBModel2>(P, device, compute_f64, q, q_f64, M, out, s,
+                                                 (int)P->n_epochs);
+        else
+            return launch_logpost<EpochBBModel3>(P, device, compute_f64, q, q_f64, M, out, s,
+                                                 (int)P->n_epochs);
+    }
+    switch (compute_f64 * 2 + q_f64) {
+        case 0: return launch_epoch_logpost_thread<float, float, N>(*P, q, M, out, s);
+        case 1: return launch_epoch_logpost_thread<float, double, N>(*P, q, M, out, s);
+        case 2: return launch_epoch_logpost_thread<double, float, N>(*P, q, M, out, s);
+        case 3: return launch_epoch_logpost_thread<double, double, N>(*P, q, M, out, s);
+    }
+    return (int)cudaErrorInvalidValue;
 }
 
 template <typename C, int N>
@@ -803,27 +930,37 @@ static int launch_summary(const SummaryParams& P, cudaStream_t stream) {
 
 extern "C" {
 
-// K4 launch: q (E, M, ndim) f32 or f64, out (E, M) f64, grad (E, M, ndim)
-// f64 when with_grad. Returns 0 or a cudaError_t code.
+// K4 launch: q (E, M, ndim) f32 or f64, out (E, M) f64. With with_grad also
+// grad (E, M, ndim) f64, a thread per vector (ndim 2-9); without it the
+// values alone, ndim 2 or 3, the warp form or (thread_form) the thread form,
+// the same bits. Returns 0 or a cudaError_t code (cudaErrorInvalidValue for
+// any other ndim of the values, or their tables larger than a block's
+// shared memory).
 int epoch_logpost_launch(const EpochBBParams* P, int device, int compute_f64, const void* q,
                          int q_f64, int M, double* out, int with_grad, double* grad,
-                         void* stream) {
+                         int thread_form, void* stream) {
     int rc = (int)cudaSetDevice(device);
     if (rc) return rc;
     if (M <= 0 || P->n_epochs <= 0) return 0;
     if (P->ndim > LP_MAX_DIM || P->ndim < 2 || P->n_epochs > 65535)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    const int key = compute_f64 * 4 + q_f64 * 2 + (with_grad ? 1 : 0);
-    switch (key) {
-        case 0: return launch_epoch_logpost<float, float, false>(*P, q, M, out, grad, s);
-        case 1: return launch_epoch_logpost<float, float, true>(*P, q, M, out, grad, s);
-        case 2: return launch_epoch_logpost<float, double, false>(*P, q, M, out, grad, s);
-        case 3: return launch_epoch_logpost<float, double, true>(*P, q, M, out, grad, s);
-        case 4: return launch_epoch_logpost<double, float, false>(*P, q, M, out, grad, s);
-        case 5: return launch_epoch_logpost<double, float, true>(*P, q, M, out, grad, s);
-        case 6: return launch_epoch_logpost<double, double, false>(*P, q, M, out, grad, s);
-        case 7: return launch_epoch_logpost<double, double, true>(*P, q, M, out, grad, s);
+    if (!with_grad) {
+        const size_t bytes = compute_f64 ? epoch_warp_stage_bytes<double>(*P)
+                                         : epoch_warp_stage_bytes<float>(*P);
+        if ((P->ndim != 2 && P->ndim != 3) || bytes > (size_t)smem_optin_limit())
+            return (int)cudaErrorInvalidValue;
+        return P->ndim == 2
+                   ? launch_epoch_values<2>(P, device, compute_f64, q, q_f64, M, out,
+                                            thread_form, s)
+                   : launch_epoch_values<3>(P, device, compute_f64, q, q_f64, M, out,
+                                            thread_form, s);
+    }
+    switch (compute_f64 * 2 + q_f64) {
+        case 0: return launch_epoch_logpost_grad<float, float>(*P, q, M, out, grad, s);
+        case 1: return launch_epoch_logpost_grad<float, double>(*P, q, M, out, grad, s);
+        case 2: return launch_epoch_logpost_grad<double, float>(*P, q, M, out, grad, s);
+        case 3: return launch_epoch_logpost_grad<double, double>(*P, q, M, out, grad, s);
     }
     return (int)cudaErrorInvalidValue;
 }

@@ -16,9 +16,9 @@
 // handful of flops: 5.9 MB at the evidence's 17 rungs x 4096 walkers (1.8
 // us at 3.35 TB/s), a few kilobytes at the PT fits' 7 x 32, where a step is
 // the round trips to memory that its dependent loads make. The block terms
-// read the production log L, (nsteps, K+1, 2, half) float64 (83.6 MB at 150
-// steps x 17 rungs x 4096 walkers), once for the maximum and once for the
-// sum of exponentials, an exp a value.
+// read the production log L, (nsteps, K+1, 2, half) float64, of the K rungs
+// below the cold one (78.6 MB at 150 steps x 16 rungs x 4096 walkers), and
+// take an exp a value.
 // What the design does about it: the swap is one thread per (unit, walker),
 // a unit being a rung pair or an unpaired edge rung, so no thread of the
 // grid is idle: a pair's thread issues every load of both members (the two
@@ -28,15 +28,20 @@
 // factors change sign) and writes both rows from registers, so nothing races
 // and the pair shares its uniform as in the JAX graph; the same launch writes
 // the step's production outputs, so they cost no launch of their own. The
-// row's length is a template parameter (1-9). The block terms run one block
-// per (block of steps, rung), a strided max pass and a strided sum pass with
-// warp-shuffle reductions; the second read mostly hits the 50 MB L2 for short
-// blocks.
+// row's length is a template parameter (1-9). The block terms read the log L
+// once: a CTA per (split, rung, block of steps), enough splits of each
+// block's values to put several CTAs on every SM; a thread keeps a running
+// maximum and sum of exponentials over its values, loaded as 16-byte pairs a
+// chunk at a time, and rescales the sum at most once a chunk; the last CTA
+// of each (block, rung) combines the splits' partials in split order in the
+// same launch, so the same inputs give the same bits on every run.
 
 #include "stretch.cuh"
 
 #define LADDER_MAX_BLOCKS 8
-#define TERMS_THREADS 512
+#define TERMS_THREADS 256
+#define TERMS_CHUNK 4        // loads a thread issues before it reduces them
+#define TERMS_MAX_SPLITS 32  // the last CTA's warp combines one split a lane
 
 // The rung that rung r exchanges with at this step's parity: even parity
 // pairs (0,1), (2,3), ...; odd parity (1,2), (3,4), ...; an unpaired edge
@@ -183,31 +188,116 @@ __device__ double block_reduce(double v, Op op, double* scratch) {
     return v;
 }
 
+// The finished term m + log(s / n) of a (block, rung) from the maximum m
+// and the sum s of exp(v - m) over its n values: NaN where m is not finite
+// (a NaN or +inf among the values, or every value -inf), as the plain
+// m + log(mean(exp(v - m))) gives.
+__device__ __forceinline__ double block_term(double m, double s, double n) {
+    return isfinite(m) ? m + log(s / n) : (double)NAN;
+}
+
 // K6d: out[b, k] = log mean exp(dbetas[k] * logl[s, k, w]) over the steps s of
 // block b and all W walkers, for the rungs k < K of logl (nsteps, R, W)
-// float64: m + log(sum exp(v - m) / n) with m the maximum, in float64. One
-// CUDA block per (b, k).
+// float64, in float64. CTA (p, k, b) takes split p of the splits contiguous
+// ranges of block b's values in (step, walker) order, V values an item (V =
+// 2: 16-byte loads, W even and logl 16-byte aligned). Each thread keeps (m,
+// s) over its items, s the sum of exp(v - m) with m their maximum: a chunk of
+// TERMS_CHUNK items at a time, its maximum first and s rescaled to it once,
+// then its exps; a -inf adds 0 where the maximum is finite, and a thread
+// that has seen only -inf keeps (-inf, 0). The CTA's (M, S) is the block
+// maximum and the sum of each thread's s rescaled to it. With one split the
+// CTA writes the term; else it writes (M, S) to partial[(b K + k) splits +
+// p], and the last CTA of (b, k) to finish (atomicInc on ctr[b K + k], which
+// wraps back to 0 at splits - 1, so the counters stay zero between launches
+// and need no reset) combines the splits' partials in split order: the
+// bits do not depend on the order in which the CTAs ran. The counters and
+// partials are one buffer a (device, stream) (kernels/ladder.py): the
+// launches that share one run one after another.
+template <int V>
 __global__ void __launch_bounds__(TERMS_THREADS)
 rung_block_terms_kernel(const double* __restrict__ logl, int n_rungs, int W,
                         const double* __restrict__ dbetas, int K, const TermBlocks blocks,
+                        int splits, double2* __restrict__ partial, unsigned int* __restrict__ ctr,
                         double* __restrict__ out) {
     __shared__ double scratch[32];
-    const int b = blockIdx.x, k = blockIdx.y;
+    __shared__ bool s_last;
+    const int p = blockIdx.x, k = blockIdx.y, b = blockIdx.z;
     const double db = dbetas[k];
-    const long long s0 = blocks.lo[b], s1 = blocks.hi[b];
-    double m = -INFINITY;
-    for (long long s = s0; s < s1; ++s) {
-        const double* row = logl + (s * n_rungs + k) * (long long)W;
-        for (int w = threadIdx.x; w < W; w += blockDim.x) m = nan_max(m, __dmul_rn(db, row[w]));
+    long long s0 = 0, s1 = 0;   // block b's steps (constant indices: no stack copy)
+#pragma unroll
+    for (int j = 0; j < LADDER_MAX_BLOCKS; ++j)
+        if (j == b) s0 = blocks.lo[j], s1 = blocks.hi[j];
+    const unsigned per_row = (unsigned)(W / V);                 // items a step
+    const unsigned items = (unsigned)(s1 - s0) * per_row;
+    const unsigned i0 = (unsigned)((unsigned long long)items * p / splits);
+    const unsigned i1 = (unsigned)((unsigned long long)items * (p + 1) / splits);
+    const size_t row_stride = (size_t)n_rungs * W;
+    const double* base = logl + (size_t)s0 * row_stride + (size_t)k * W;
+    // item i lies in step r = i / per_row of the block, at column c = i % per_row;
+    // a thread's items are TERMS_THREADS apart: (r, c) advance by (dr, dc)
+    const unsigned dr = TERMS_THREADS / per_row, dc = TERMS_THREADS % per_row;
+    unsigned i = i0 + threadIdx.x;
+    unsigned r = i / per_row, c = i - r * per_row;
+    double m = -INFINITY, sum = 0.0;
+    while (i < i1) {
+        double v[TERMS_CHUNK * V];
+        double mc = m;
+#pragma unroll
+        for (int u = 0; u < TERMS_CHUNK; ++u) {
+            if (i < i1) {
+                const double* src = base + r * row_stride + (size_t)c * V;
+                if constexpr (V == 2) {
+                    const double2 x = __ldg(reinterpret_cast<const double2*>(src));
+                    v[2 * u] = __dmul_rn(db, x.x);
+                    v[2 * u + 1] = __dmul_rn(db, x.y);
+                } else {
+                    v[u] = __dmul_rn(db, __ldg(src));
+                }
+            } else {
+#pragma unroll
+                for (int j = 0; j < V; ++j) v[V * u + j] = -INFINITY;   // adds nothing
+            }
+            i += TERMS_THREADS;
+            r += dr;
+            c += dc;
+            if (c >= per_row) c -= per_row, ++r;
+        }
+#pragma unroll
+        for (int j = 0; j < TERMS_CHUNK * V; ++j) mc = nan_max(mc, v[j]);
+        if (mc == -INFINITY) continue;            // every value so far -inf: (m, s) = (-inf, 0)
+        if (mc != m) sum *= exp(m - mc);          // (a NaN m stays NaN)
+        m = mc;
+#pragma unroll
+        for (int j = 0; j < TERMS_CHUNK * V; ++j) sum += exp(v[j] - m);
     }
-    m = block_reduce(m, [](double p, double q) { return nan_max(p, q); }, scratch);
-    double sum = 0.0;
-    for (long long s = s0; s < s1; ++s) {
-        const double* row = logl + (s * n_rungs + k) * (long long)W;
-        for (int w = threadIdx.x; w < W; w += blockDim.x) sum += exp(__dmul_rn(db, row[w]) - m);
+    const double M = block_reduce(m, [](double x, double y) { return nan_max(x, y); }, scratch);
+    const double S = block_reduce(M == -INFINITY ? 0.0 : sum * exp(m - M),
+                                  [](double x, double y) { return x + y; }, scratch);
+    const double n = (double)(s1 - s0) * W;
+    const size_t slot = (size_t)b * K + k;
+    if (splits == 1) {
+        if (threadIdx.x == 0) out[slot] = block_term(M, S, n);
+        return;
     }
-    sum = block_reduce(sum, [](double p, double q) { return p + q; }, scratch);
-    if (threadIdx.x == 0) out[(size_t)b * K + k] = m + log(sum / (double)((s1 - s0) * W));
+    if (threadIdx.x == 0) {
+        partial[slot * splits + p] = make_double2(M, S);
+        __threadfence();
+        s_last = atomicInc(ctr + slot, (unsigned)splits - 1) == (unsigned)splits - 1;
+    }
+    __syncthreads();
+    if (!s_last || threadIdx.x >= 32) return;
+    // the last CTA: lane l reads split l's partial (from L2: other SMs wrote
+    // it), the maximum over the splits, each partial's sum rescaled to it,
+    // and lane 0 adds them in split order
+    const int lane = threadIdx.x;
+    const double2 part = lane < splits ? __ldcg(partial + slot * splits + lane)
+                                       : make_double2(-INFINITY, 0.0);
+    double mx = part.x;
+    for (int o = 16; o > 0; o >>= 1) mx = nan_max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const double scaled = isfinite(mx) ? part.y * exp(part.x - mx) : 0.0;
+    double total = 0.0;
+    for (int q = 0; q < splits; ++q) total += __shfl_sync(0xffffffffu, scaled, q);
+    if (lane == 0) out[slot] = block_term(mx, total, n);
 }
 
 extern "C" {
@@ -252,22 +342,35 @@ int replica_swap_launch(int device, void* x, int state_f64, int ndim, double* lo
 }
 
 // K6d launch: n_blocks blocks of steps [lo[b], hi[b]) (host arrays), out
-// (n_blocks, K) float64. Returns 0 or a cudaError_t code.
+// (n_blocks, K) float64; splits (1-32) CTAs a (block, rung), vec 1 for
+// 16-byte loads (W even, logl 16-byte aligned); partial (n_blocks K splits)
+// double2 and ctr (n_blocks K) zeroed counters when splits > 1. Returns 0
+// or a cudaError_t code.
 int rung_block_terms_launch(int device, const double* logl, int n_rungs, int W,
                             const double* dbetas, int K, int n_blocks, const long long* lo,
-                            const long long* hi, double* out, void* stream) {
+                            const long long* hi, int splits, int vec, void* partial,
+                            unsigned int* ctr, double* out, void* stream) {
     int rc = (int)cudaSetDevice(device);
     if (rc) return rc;
     if (n_blocks <= 0 || K <= 0) return 0;
-    if (n_blocks > LADDER_MAX_BLOCKS || K > n_rungs || K > 65535)
+    if (n_blocks > LADDER_MAX_BLOCKS || K > n_rungs || K > 65535 || splits < 1
+        || splits > TERMS_MAX_SPLITS || (vec && W % 2) || W <= 0)
         return (int)cudaErrorInvalidValue;
     TermBlocks blocks;
     for (int b = 0; b < n_blocks; ++b) {
+        if (lo[b] < 0 || hi[b] <= lo[b] || (hi[b] - lo[b]) * W >= (1LL << 31))
+            return (int)cudaErrorInvalidValue;   // an item index is 32 bits
         blocks.lo[b] = lo[b];
         blocks.hi[b] = hi[b];
     }
-    rung_block_terms_kernel<<<dim3(n_blocks, K), TERMS_THREADS, 0, (cudaStream_t)stream>>>(
-        logl, n_rungs, W, dbetas, K, blocks, out);
+    const dim3 grid(splits, K, n_blocks);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (vec)
+        rung_block_terms_kernel<2><<<grid, TERMS_THREADS, 0, s>>>(
+            logl, n_rungs, W, dbetas, K, blocks, splits, (double2*)partial, ctr, out);
+    else
+        rung_block_terms_kernel<1><<<grid, TERMS_THREADS, 0, s>>>(
+            logl, n_rungs, W, dbetas, K, blocks, splits, (double2*)partial, ctr, out);
     return (int)cudaGetLastError();
 }
 

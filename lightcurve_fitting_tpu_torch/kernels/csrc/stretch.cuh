@@ -17,7 +17,8 @@
 // kernels run a warp per walker (stretch_half_step_kernel: SC2WarpModel,
 // SC3WarpModel, CSWarpModel, EpochBBModel; tempered_half_step_kernel with
 // WARP: SC2WarpModel, CSWarpModel; the batch log-posterior
-// logpost_warp_kernel and the ladder's initial state ladder_init_kernel:
+// logpost_warp_kernel: SC2WarpModel, SC3WarpModel, CSWarpModel,
+// EpochBBModel; the ladder's initial state ladder_init_kernel:
 // SC2WarpModel, SC3WarpModel, CSWarpModel) provides
 //   typedef ... Walker;  // a walker's constants (32-bit words, copied by value)
 //   static __device__ Walker walker(const double* p, const Params&);
@@ -368,16 +369,24 @@ __device__ __forceinline__ void logpost_batch(const typename M::Params& P,
 
 // The batch log-posterior over a warp policy M: out[i] = log_prior + log L of
 // walker state q[i, :] (W, ndim), affine-mapped when has_affine, float64; the
-// initial state of a fit and LogPosterior.forward. A warp per walker
-// (logpost_batch) in the half-step's layout (warp_layout) and staging, so a
-// state's value has the bits that the half-step of the same policy stores
-// when it accepts that state as a proposal.
+// initial state of a fit, LogPosterior.forward and the epochs' K4. A warp per
+// walker (logpost_batch) in the half-step's layout (warp_layout) and staging,
+// so a state's value has the bits that the half-step of the same policy
+// stores when it accepts that state as a proposal. Several ensembles along
+// blockIdx.y, as the half-step takes them: q (E, W, ndim) and out (E, W),
+// ensemble e's data staged by its blocks; with one ensemble (e = 0) every
+// offset is 0.
 template <typename M, typename S>
 __global__ void __launch_bounds__(block_limit<M>::value)
 logpost_warp_kernel(const typename M::Params P, const S* __restrict__ q, int W,
                     double* __restrict__ out, int use_smem, int batch) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    const typename M::Data d = M::stage(P, smem_raw, use_smem, 0);
+    const int e = blockIdx.y;
+    const typename M::Data d = M::stage(P, smem_raw, use_smem, e);
+    constexpr int D = policy_dim<M>::value;
+    const size_t ens = (size_t)e * W;
+    q += ens * (D > 0 ? D : (int)P.ndim);
+    out += ens;
     const int per_block = blockDim.x >> 5;
     const int bsz = M::batched ? batch : 1;   // (a constant 1 when not batched)
     const int n_batches = (W + bsz - 1) / bsz;
@@ -550,34 +559,42 @@ static int launch_half_step(const typename M<float>::Params* P, int device, int 
     return (int)cudaErrorInvalidValue;
 }
 
+// The layout of a batched policy takes its batch from the walkers of all
+// n_ens ensembles (a grid sized for one ensemble's warps, n_ens times over,
+// would oversubscribe the card); a walker a warp needs no such care.
 template <typename M, typename S>
-static int launch_logpost_warp(const typename M::Params& P, const void* q, int W, double* out,
-                               cudaStream_t stream) {
+static int launch_logpost_warp(const typename M::Params& P, const void* q, int W, int n_ens,
+                               double* out, cudaStream_t stream) {
     auto kernel = logpost_warp_kernel<M, S>;
     int use_smem = 0;
     const size_t bytes = M::stage_bytes(P);
     int rc = smem_plan(kernel, bytes, &use_smem);
     if (rc) return rc;
-    const WarpLayout lay = warp_layout<M>(kernel, W, use_smem ? bytes : 0);
-    kernel<<<lay.blocks, lay.threads, use_smem ? bytes : 0, stream>>>(P, (const S*)q, W, out,
-                                                                      use_smem, lay.batch);
+    const WarpLayout lay = warp_layout<M>(kernel, M::batched ? (long long)n_ens * W : W,
+                                          use_smem ? bytes : 0);
+    const long long n_batches = (W + lay.batch - 1) / lay.batch;
+    const int per_block = lay.threads / 32;
+    const dim3 grid((unsigned)((n_batches + per_block - 1) / per_block), (unsigned)n_ens);
+    kernel<<<grid, lay.threads, use_smem ? bytes : 0, stream>>>(P, (const S*)q, W, out,
+                                                                use_smem, lay.batch);
     return (int)cudaGetLastError();
 }
 
 // The batch log-posterior launch (logpost_warp_kernel) for the warp policy
-// M<C> of the compute type C and the state's type, each float or double.
-// Returns 0 or a cudaError_t code.
+// M<C> of the compute type C and the state's type, each float or double,
+// over n_ens ensembles of W walkers. Returns 0 or a cudaError_t code.
 template <template <typename> class M>
 static int launch_logpost(const typename M<float>::Params* P, int device, int compute_f64,
-                          const void* q, int q_f64, int W, double* out, void* stream) {
+                          const void* q, int q_f64, int W, double* out, void* stream,
+                          int n_ens = 1) {
     int rc = (int)cudaSetDevice(device);
     if (rc) return rc;
-    if (W <= 0) return 0;
-    if (P->ndim > LP_MAX_DIM) return (int)cudaErrorInvalidValue;
+    if (W <= 0 || n_ens <= 0) return 0;
+    if (P->ndim > LP_MAX_DIM || n_ens > 65535) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     if (compute_f64)
-        return q_f64 ? launch_logpost_warp<M<double>, double>(*P, q, W, out, s)
-                     : launch_logpost_warp<M<double>, float>(*P, q, W, out, s);
-    return q_f64 ? launch_logpost_warp<M<float>, double>(*P, q, W, out, s)
-                 : launch_logpost_warp<M<float>, float>(*P, q, W, out, s);
+        return q_f64 ? launch_logpost_warp<M<double>, double>(*P, q, W, n_ens, out, s)
+                     : launch_logpost_warp<M<double>, float>(*P, q, W, n_ens, out, s);
+    return q_f64 ? launch_logpost_warp<M<float>, double>(*P, q, W, n_ens, out, s)
+                 : launch_logpost_warp<M<float>, float>(*P, q, W, n_ens, out, s);
 }

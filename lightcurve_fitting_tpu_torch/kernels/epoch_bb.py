@@ -1,11 +1,16 @@
 """Wrappers of the epoch blackbody kernels (``csrc/epoch_bb.cu``) of the
 batched bolometric path.
 
-* :func:`log_posterior` (K4, ``epoch_logpost_kernel``): the per-epoch
-  blackbody log-posterior of (E, M) parameter vectors, optionally with its
-  analytic gradient; plain version ``EpochPosterior.plain``
-  (``parallel/batched.py``). :class:`EpochLogPosterior` is the autograd
-  form the plain MAP polish differentiates through.
+* :func:`log_posterior` (K4): the per-epoch blackbody log-posterior of (E,
+  M) parameter vectors, ndim 2 or 3, on the epoch half-step's warp form
+  (``logpost_warp_kernel`` over ``EpochBBModel``, a warp per vector), so a
+  walker's initial value has the bits the half-step stores; where the
+  vectors are enough to hide the longest vector's walk the same bits a
+  thread per vector (``epoch_logpost_thread_kernel``; :func:`k4_form`). With its analytic
+  gradient (``epoch_logpost_kernel``, a thread per vector, ndim 2-9)
+  :class:`EpochLogPosterior` is the autograd form the plain MAP polish
+  differentiates through. Plain version ``EpochPosterior.plain``
+  (``parallel/batched.py``).
 * :func:`map_polish` (K4p, ``epoch_map_polish_kernel``): the Adam polish of
   the MAP centering, every epoch's starts for all its steps in one launch;
   plain version :func:`map_polish_plain`.
@@ -30,12 +35,45 @@ import torch
 from .common import (LAUNCHES, MAX_DIM, FLOATS, check, cuda_args, fill_priors_and_affine,
                      half_update)
 
-__all__ = ["log_posterior", "EpochLogPosterior", "adam_table", "map_polish", "map_polish_plain",
-           "stretch_half_step", "stretch_half_step_plain", "summary_samples",
-           "summary_samples_plain"]
+__all__ = ["log_posterior", "k4_form", "longest_terms", "EpochLogPosterior", "adam_table",
+           "map_polish", "map_polish_plain", "stretch_half_step", "stretch_half_step_plain",
+           "summary_samples", "summary_samples_plain"]
 
 SUMMARY_STEP_CHUNK = 8   # steps per plain summary chunk: the (E, nw, F) cube stays small
 POLISH_MAX_STARTS = 32   # POLISH_MAX_STARTS of csrc/epoch_bb.cu: K4p's result slots a block
+
+#: K4's values run a thread per vector where the vectors an SM reach this
+#: many for each term of the longest vector (its epoch's bands' nodes), a
+#: warp per vector below (k4_form): the thread form's time at small widths
+#: is the longest vector's walk, the warp form's grows with the vectors. On
+#: the H100 the forms met at ~0.75 on both measured sets of epochs: the
+#: bench's (286 terms) at ~55 x 512 vectors, SN 2016bkv's (416) at ~82 x
+#: 512 (tools/time_port_kernels.py, K4_cross_E* and K4_cloud_E65; PERF.md).
+K4_THREAD_VECTORS_PER_SM_TERM = 0.75
+
+
+def k4_form(n_vectors, n_sm, max_terms):
+    """The form of K4's values for ``n_vectors`` (E x M) on a card of
+    ``n_sm`` SMs, where the longest vector sums ``max_terms`` Planck terms:
+    ``"warp"`` (a warp per vector, the lanes over each band's terms) where
+    a thread per vector would wait on its longest walk, ``"thread"`` (a
+    thread per vector, the lanes' partial sums in its registers) where the
+    vectors are enough to hide it. Both give the same bits."""
+    return "thread" if n_vectors >= K4_THREAD_VECTORS_PER_SM_TERM * max_terms * n_sm \
+        else "warp"
+
+
+def longest_terms(ep):
+    """The most Planck terms one vector of EpochPosterior ``ep`` sums (its
+    epoch's real bands' node counts): read from the device once, cached on
+    ``ep`` and keyed by its buffers' addresses."""
+    key = (ep.n_native.data_ptr(), ep.mask.data_ptr())
+    cached = ep.__dict__.get("_longest_terms")
+    if cached is None or cached[0] != key:
+        terms = (ep.n_native * ep.mask).sum(1)
+        cached = (key, int(terms.max()) if terms.numel() else 0)
+        ep.__dict__["_longest_terms"] = cached
+    return cached[1]
 
 
 class _EpochBBParams(ctypes.Structure):
@@ -121,9 +159,10 @@ def _require_cuda(t, what):
 
 def log_posterior(ep, q, with_grad=False):
     """K4: the log-posterior (E, M) float64 of EpochPosterior ``ep`` at
-    absolute parameters ``q`` (E, M, ndim) float32/float64, and with
-    ``with_grad`` its gradient (E, M, ndim) float64 (else None). A CPU
-    tensor takes the plain version (its gradient by autograd)."""
+    absolute parameters ``q`` (E, M, ndim) float32/float64, ndim 2 or 3 (2-9
+    with the gradient), and with ``with_grad`` its gradient (E, M, ndim)
+    float64 (else None). A CPU tensor takes the plain version (its gradient
+    by autograd)."""
     if q.device.type == "cpu":
         if not with_grad:
             return ep.plain(q), None
@@ -131,13 +170,25 @@ def log_posterior(ep, q, with_grad=False):
         lp = ep.plain(p)
         g, = torch.autograd.grad(lp.sum(), p)
         return lp.detach(), g
-    _require_cuda(q, "epoch log-posterior")
     if q.ndim != 3 or q.shape[0] != ep.n_epochs:
         raise ValueError(f"q must be (E={ep.n_epochs}, M, ndim), got {tuple(q.shape)}")
     E, M, ndim = q.shape
-    check(q, "q", (E, M, ndim), FLOATS, q.device)
     if ndim != len(ep.priors):
         raise ValueError(f"q has {ndim} parameters for {len(ep.priors)} priors")
+    if not with_grad and ndim not in (2, 3):
+        raise ValueError(f"K4's values take 2 or 3 parameters (the epoch half-step's policy), "
+                         f"got {ndim}")
+    _require_cuda(q, "epoch log-posterior")
+    check(q, "q", (E, M, ndim), FLOATS, q.device)
+    from .gradient import sm_count
+    form = None if with_grad else k4_form(E * M, sm_count(q.device), longest_terms(ep))
+    return _launch_k4(ep, q, with_grad, form)
+
+
+def _launch_k4(ep, q, with_grad, form):
+    """One K4 launch on checked CUDA ``q``: with the gradient, or the values
+    in ``form`` ("warp" or "thread", :func:`k4_form`)."""
+    E, M, ndim = q.shape
     P = _params(ep)
     out = torch.empty((E, M), dtype=torch.float64, device=q.device)
     grad = torch.empty((E, M, ndim), dtype=torch.float64, device=q.device) if with_grad else None
@@ -148,9 +199,10 @@ def log_posterior(ep, q, with_grad=False):
                                   int(ep.compute_dtype == torch.float64), q.data_ptr(),
                                   int(q.dtype == torch.float64), M, out.data_ptr(),
                                   int(with_grad), None if grad is None else grad.data_ptr(),
-                                  stream)
+                                  int(form == "thread"), stream)
     if rc != 0:
-        raise RuntimeError(f"epoch_logpost_kernel launch failed: cudaError {rc}")
+        what = "epoch_logpost_kernel" if with_grad else f"K4's {form} form"
+        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
     LAUNCHES["epoch_logpost_grad" if with_grad else "epoch_logpost"] += 1
     return out, grad
 

@@ -16,7 +16,8 @@ versions beside them.
   outputs;
 * :func:`rung_block_terms` (K6d, ``rung_block_terms_kernel``): the
   stepping-stone terms log mean exp(dbeta_k log L_k) of each block of
-  production steps.
+  production steps, in one pass over the log L by enough CTAs to fill the
+  card (:func:`k6d_splits`), the same bits on every run.
 
 The ladder's target is a LogPosterior (the priors and the
 :class:`~lightcurve_fitting_tpu_torch.models.base.LogLikelihood` of
@@ -41,9 +42,17 @@ from .common import (LAUNCHES, FLOATS, absolute_params, check, check_buffers, cu
 __all__ = ["tempered_half_step", "ladder_init", "replica_swap", "rung_block_terms",
            "plain_functions", "tempered_half_update", "replica_swap_update", "swap_partners",
            "tempered_half_step_plain", "ladder_init_plain", "replica_swap_plain",
-           "rung_block_terms_plain"]
+           "rung_block_terms_plain", "k6d_splits"]
 
 MAX_BLOCKS = 8   # LADDER_MAX_BLOCKS of csrc/ladder.cu
+MAX_SPLITS = 32  # TERMS_MAX_SPLITS of csrc/ladder.cu
+#: K6d's CTAs a card aims at, per SM (k6d_splits). On the H100 at the
+#: evidence bench shape 2 (5 splits) took 0.0402 ms, 4 (9) 0.0422 and 8
+#: (17) 0.0419 (tools/time_port_kernels.py K6d_cta*_dev; PERF.md)
+K6D_CTAS_PER_SM = 2
+#: the least items (16-byte pairs of values, or values) a K6d split takes:
+#: one chunk of loads of each of its threads (TERMS_THREADS x TERMS_CHUNK)
+K6D_SPLIT_ITEMS = 256 * 4
 
 
 def plain_functions(target, param_offset=None, param_scale=None):
@@ -324,14 +333,47 @@ def rung_block_terms_plain(logl_samples, dbetas, boundaries):
     return torch.stack(outs)
 
 
+def k6d_splits(n_terms, min_items, n_sm):
+    """K6d's CTAs a (block, rung) for ``n_terms`` blocks x rungs whose
+    smallest block has ``min_items`` items, on a card of ``n_sm`` SMs:
+    enough that the grid puts ~K6D_CTAS_PER_SM CTAs on every SM, none with
+    less than one chunk of loads a thread, at most MAX_SPLITS (the last
+    CTA's warp combines one split a lane), at least 1."""
+    want = -(-K6D_CTAS_PER_SM * n_sm // n_terms)
+    return max(1, min(want, min_items // K6D_SPLIT_ITEMS, MAX_SPLITS))
+
+
+#: {(device index, stream handle): (counters int32, partials float64)} of
+#: K6d's combine: the counters are zeroed when allocated, and each launch
+#: leaves them zero; launches on one stream run one after another, so no two
+#: launches share a buffer at once
+_K6D_WORKSPACE = {}
+
+
+def _k6d_workspace(index, stream, n_slots, splits):
+    ctr, part = _K6D_WORKSPACE.get((index, stream), (None, None))
+    dev = torch.device("cuda", index)
+    if ctr is None or ctr.numel() < n_slots:
+        ctr = torch.zeros(n_slots, dtype=torch.int32, device=dev)
+    if part is None or part.numel() < 2 * n_slots * splits:
+        part = torch.empty(2 * n_slots * splits, dtype=torch.float64, device=dev)
+    _K6D_WORKSPACE[(index, stream)] = (ctr, part)
+    return ctr, part
+
+
 def rung_block_terms(logl_samples, dbetas, boundaries):
     """K6d: the stepping-stone block terms (len(boundaries), K) float64 of
     the production log L ``logl_samples`` (nsteps, R, ...) float64, for the
     rungs k < K = len(dbetas) (dbetas a float64 tensor on the same device),
-    over blocks of steps ``boundaries`` ((b0, b1), ...), at most 8."""
+    over blocks of steps ``boundaries`` ((b0, b1), ...), at most 8. NaN where
+    a block holds a NaN or +inf, or only -inf, as the plain version. Its
+    CTAs combine through a buffer of the current stream's own."""
     dev = logl_samples.device
     if dev.type == "cpu":
         return rung_block_terms_plain(logl_samples, dbetas, boundaries)
+    nb = len(boundaries)
+    if not 0 < nb <= MAX_BLOCKS:
+        raise ValueError(f"K6d takes 1 to {MAX_BLOCKS} blocks of steps, got {nb}")
     if dev.type != "cuda":
         raise ValueError(f"K6d runs on CUDA (or its plain version on the CPU), not {dev}")
     if logl_samples.ndim < 3:
@@ -341,19 +383,27 @@ def rung_block_terms(logl_samples, dbetas, boundaries):
     check(ll, "logl_samples", tuple(ll.shape), (torch.float64,), dev)
     K = dbetas.shape[0]
     check(dbetas, "dbetas", (K,), (torch.float64,), dev)
-    nb = len(boundaries)
-    if not 0 < nb <= MAX_BLOCKS or K > R:
-        raise ValueError(f"K6d takes 1 to {MAX_BLOCKS} blocks and K <= R rungs")
+    W = ll.shape[2]
+    if K > R:
+        raise ValueError(f"K6d takes K <= R rungs, got K = {K} for R = {R}")
     if any(not 0 <= b0 < b1 <= nsteps for b0, b1 in boundaries):
         raise ValueError(f"blocks must be non-empty ranges of the {nsteps} steps")
+    if max(b1 - b0 for b0, b1 in boundaries) * W >= 2 ** 31:
+        raise ValueError("K6d takes fewer than 2^31 values a block")
+    vec = W % 2 == 0 and ll.data_ptr() % 16 == 0
+    from .gradient import sm_count
+    splits = k6d_splits(nb * K, min(b1 - b0 for b0, b1 in boundaries) * (W // 2 if vec else W),
+                        sm_count(dev))
+    device_index, stream = cuda_args(dev)
+    ctr, part = _k6d_workspace(device_index, stream, nb * K, splits)
     lo = (ctypes.c_longlong * nb)(*[int(b0) for b0, _ in boundaries])
     hi = (ctypes.c_longlong * nb)(*[int(b1) for _, b1 in boundaries])
     out = torch.empty((nb, K), dtype=torch.float64, device=dev)
     from .build import library
     lib = library()
-    device_index, stream = cuda_args(dev)
-    rc = lib.rung_block_terms_launch(device_index, ll.data_ptr(), R, ll.shape[2],
-                                     dbetas.data_ptr(), K, nb, lo, hi, out.data_ptr(), stream)
+    rc = lib.rung_block_terms_launch(device_index, ll.data_ptr(), R, W, dbetas.data_ptr(), K, nb,
+                                     lo, hi, splits, int(vec), part.data_ptr(), ctr.data_ptr(),
+                                     out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"rung_block_terms_kernel launch failed: cudaError {rc}")
     LAUNCHES["rung_block_terms"] += 1

@@ -233,6 +233,35 @@ def test_rung_block_terms_match_jax():
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
 
 
+@pytest.mark.parametrize("case", ["nan", "posinf", "one-neginf", "all-neginf"])
+def test_rung_block_terms_edge_cases_match_jax(case):
+    """The block terms where a block holds a NaN, a +inf or only -inf (NaN
+    in both packages: nan_max, inf - inf, exp(-inf + inf)) and where one
+    -inf lies among finite values (exp(-inf) = 0: a finite term): NaN at
+    the same places, the rest <= 1e-12 relative."""
+    rng = np.random.default_rng(6)
+    nsteps, K1, W = 37, 6, 16
+    ll = -50.0 - 40.0 * rng.random((nsteps, K1, W))
+    boundaries = tuple((int(ix[0]), int(ix[-1]) + 1)
+                       for ix in np.array_split(np.arange(nsteps), 4))
+    b0, b1 = boundaries[1]
+    if case == "nan":
+        ll[b0 + 2, 3, 4] = np.nan
+    elif case == "posinf":
+        ll[b0 + 2, 3, 4] = np.inf
+    elif case == "one-neginf":
+        ll[b0 + 2, 3, 4] = -np.inf
+    else:
+        ll[b0:b1, 3] = -np.inf
+    dbetas = np.diff(jev.make_beta_ladder(K1 - 1))
+    want = jev._rung_block_terms(ll, dbetas, boundaries)
+    got = tev._rung_block_terms(torch.as_tensor(ll), dbetas, boundaries)
+    nan = np.isnan(want)
+    assert np.array_equal(np.isnan(got), nan)
+    assert nan.sum() == (0 if case == "one-neginf" else 1) and not nan[[0, 2, 3]].any()
+    np.testing.assert_allclose(got[~nan], want[~nan], rtol=1e-12, atol=0)
+
+
 @pytest.mark.parametrize("prior", [JU(2.0, 7.0), JG(-100.0, 100.0, 1.0, 2.0),
                                    JG(1.0, 5.0, 1.0, 2.0), JG(0.0, 10.0, -100.0, 1.0),
                                    JLU(1.0, 100.0)],

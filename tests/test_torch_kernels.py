@@ -44,7 +44,14 @@ rung (``copies``), and over ShockCooling2 and CompanionShocking2 bit for
 bit the values K6a stored at the states it accepted; on the CPU its
 ``copies`` routing and refusals; K6c
 bit-equal at the ladders' shapes and every row length of its template;
-K6d float64 <= 1e-12 relative (the sums run in another order).
+K6d float64 <= 1e-12 relative (the sums run in another order), NaN where
+the plain version gives NaN (a NaN, a +inf or only -inf in a block), at
+block lengths its splits do not divide, two launches bit-equal, and on the
+CPU its split rule and refusals. K4's values (the epoch half-step's warp
+form, and a thread per vector in the warp's sum order) within K4's
+tolerances, the two forms bit-equal to each other and, at the states two
+half-steps accepted, to the values the half-step stored; on the CPU the
+rule choosing the form and the value path's refusal of other ndims.
 K7's values as K1's and its gradients within 1e-4 (float32) and 1e-9
 (float64) of the summed magnitudes of their per-point terms; K7's two forms
 (a block per row at small widths, a warp per row at large ones) bit-equal
@@ -399,6 +406,82 @@ def test_epoch_wrappers_route_by_device():
                                  np.inf, torch.float32)
     with pytest.raises(ValueError, match="K5 runs on CUDA"):
         kquantile.percentile_rows(rows, [50])
+
+
+@pytest.mark.parametrize("case", ["k4-values-ndim4", "k6d-9-blocks"])
+def test_value_wrappers_refuse_before_the_device(case):
+    """K4's values run the epoch half-step's policy, ndim 2 or 3, and K6d
+    takes at most 8 blocks of steps: each wrapper refuses anything else
+    before it looks at the device (here a meta tensor, which would be
+    refused for its device), and launches nothing."""
+    before = dict(kernels.LAUNCHES)
+    if case == "k4-values-ndim4":
+        ep = batched.EpochPosterior(_epoch_pack(3, "cpu"),
+                                    _EPOCH_PRIORS + [UniformPrior(0.0, 1.0)] * 2)
+        q = torch.empty((3, 4, 4), dtype=torch.float64, device="meta")
+        with pytest.raises(ValueError, match="2 or 3 parameters"):
+            epoch_bb.log_posterior(ep, q)
+        with pytest.raises(ValueError, match="runs on CUDA"):   # the gradient takes 2-9
+            epoch_bb.log_posterior(ep, q, with_grad=True)
+    else:
+        ll = torch.empty((9, 3, 4), dtype=torch.float64, device="meta")
+        db = torch.empty(2, dtype=torch.float64, device="meta")
+        with pytest.raises(ValueError, match="1 to 8 blocks"):
+            ladder.rung_block_terms(ll, db, tuple((b, b + 1) for b in range(9)))
+        with pytest.raises(ValueError, match="K6d runs on CUDA"):
+            ladder.rung_block_terms(ll, db, tuple((b, b + 1) for b in range(8)))
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("n_sm", [132, 114])
+def test_k4_form_runs_a_thread_per_vector_where_the_vectors_fill_the_card(n_sm):
+    """k4_form on an H100 (SXM 132 SMs, PCIe 114): the warp form at the
+    bolometric initial states (256 and 65 epochs x 32 walkers) and at SN
+    2016bkv's cloud (65 x 512, its longest vector 416 terms), below the
+    crossover of K4_THREAD_VECTORS_PER_SM_TERM vectors an SM a term of the
+    longest vector; the thread form from it, at the bench's clouds (64 and
+    256 epochs x 512, 286 terms). The rule scales with the SM count and the
+    longest vector."""
+    for terms in (286, 416):
+        cross = epoch_bb.K4_THREAD_VECTORS_PER_SM_TERM * terms * n_sm
+        for n in (1, 65 * 32, 256 * 32, int(np.ceil(cross)) - 1):
+            assert epoch_bb.k4_form(n, n_sm, terms) == "warp", (n, terms)
+        for n in (int(np.ceil(cross)), 4 * int(cross)):
+            assert epoch_bb.k4_form(n, n_sm, terms) == "thread", (n, terms)
+    assert epoch_bb.k4_form(65 * 512, n_sm, 416) == "warp"
+    for E in (64, 256):
+        assert epoch_bb.k4_form(E * 512, n_sm, 286) == "thread", E
+
+
+def test_longest_terms_counts_the_real_bands_nodes():
+    """longest_terms: the most node counts one epoch's real bands sum (the
+    6-, 5- and 4-band epochs of _epoch_pack), cached on the posterior until
+    its buffers change."""
+    ep = batched.EpochPosterior(_epoch_pack(5, "cpu"), _EPOCH_PRIORS)
+    n = ep.n_native.numpy() * ep.mask.numpy()
+    assert epoch_bb.longest_terms(ep) == int(n.sum(1).max()) == int(n[0].sum())
+    assert int(n[2].sum()) < int(n[0].sum())
+    ep.mask = ep.mask.clone()
+    ep.mask[:, 0] = False
+    assert epoch_bb.longest_terms(ep) == int((n * ep.mask.numpy()).sum(1).max())
+
+
+@pytest.mark.parametrize("n_sm", [132, 114])
+def test_k6d_splits_fill_the_card(n_sm):
+    """k6d_splits: at the evidence bench shape (4 blocks of ~37 steps x 16
+    rungs x 2048 pairs of walkers) enough splits that the grid holds
+    K6D_CTAS_PER_SM CTAs an SM or more; one split where a block holds less
+    than one chunk of loads a thread (the PT fits' and compare_models' 32-
+    and 64-walker ladders); never more than MAX_SPLITS, never fewer than
+    one."""
+    s = ladder.k6d_splits(4 * 16, 37 * 2048, n_sm)
+    assert s * 4 * 16 >= ladder.K6D_CTAS_PER_SM * n_sm
+    assert (s - 1) * 4 * 16 < ladder.K6D_CTAS_PER_SM * n_sm
+    assert 37 * 2048 // s >= ladder.K6D_SPLIT_ITEMS
+    for n_terms, items in ((4 * 6, 62 * 16), (4 * 16, 62 * 16), (4 * 6, 62 * 32), (1, 1)):
+        assert ladder.k6d_splits(n_terms, items, n_sm) == 1
+    assert ladder.k6d_splits(1, 10 ** 9, n_sm) == ladder.MAX_SPLITS
+    assert ladder.k6d_splits(10 ** 6, 10 ** 9, n_sm) == 1
 
 
 def _polish_case(E, device, use_sigma=False, sigma_type="relative", dead=False, seed=3):
@@ -913,17 +996,56 @@ def test_k4_matches_plain_on_card(cuda_device, f64, sigma_type):
         n0 = kernels.LAUNCHES["epoch_logpost_grad"]
         lp, grad = epoch_bb.log_posterior(ep, q, with_grad=True)
         assert kernels.LAUNCHES["epoch_logpost_grad"] == n0 + 1
-        assert torch.equal(lp, epoch_bb.log_posterior(ep, q)[0])
         want = ep.plain(q)
         rel, grel = (1e-10, 1e-9) if f64 else (1e-5, 1e-4)
         ll_scale, g_scale = ep.term_scales(q)
         fin = torch.isfinite(want)
-        assert torch.equal(torch.isneginf(lp), torch.isneginf(want)) and int(fin.sum()) > 1000
-        assert bool(((lp - want).abs()[fin] <= rel * ll_scale[fin]).all())
+        # the gradient launch's values, and the value launch's (the warp form)
+        for v in (lp, epoch_bb.log_posterior(ep, q)[0]):
+            assert torch.equal(torch.isneginf(v), torch.isneginf(want)) and int(fin.sum()) > 1000
+            assert bool(((v - want).abs()[fin] <= rel * ll_scale[fin]).all())
         qq = q.clone().requires_grad_(True)
         g_want, = torch.autograd.grad(ep.plain(qq).sum(), qq)
         ok = fin[..., None] & torch.isfinite(g_want)
         assert bool(((grad - g_want).abs()[ok] <= grel * (g_scale + g_want.abs())[ok]).all())
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma_type", [None, "relative", "absolute"],
+                         ids=["no-sigma", "sigma-relative", "sigma-absolute"])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_k4_value_forms_match_plain_on_card(cuda_device, f64, sigma_type):
+    """K4's values in both forms (the epoch half-step's warp form, and a
+    thread per vector in the warp's sum order) against ``EpochPosterior.plain``
+    at 24 epochs x 512 vectors beyond the priors: within 1e-5 (float32) or
+    1e-10 (float64) of the term scale, identical -inf sets, the two forms and
+    the wrapper's choice (k4_form) bit-equal, and a vector's value the same
+    at width 32."""
+    use_sigma = sigma_type is not None
+    priors = _EPOCH_PRIORS + ([GaussianPrior(0.0, 10.0)] if use_sigma else [])
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        ep = batched.EpochPosterior(_epoch_pack(24, cuda_device), priors, use_sigma=use_sigma,
+                                    sigma_type=sigma_type or "relative")
+        q = _epoch_params(24, 512)
+        if use_sigma:
+            q = np.concatenate([q, np.random.default_rng(2).uniform(-4.0, 6.0, (24, 512, 1))], -1)
+        q = torch.as_tensor(q, device=cuda_device)
+        n0 = kernels.LAUNCHES["epoch_logpost"]
+        lw = epoch_bb._launch_k4(ep, q, False, "warp")[0]
+        lt = epoch_bb._launch_k4(ep, q, False, "thread")[0]
+        assert kernels.LAUNCHES["epoch_logpost"] == n0 + 2
+        assert torch.equal(lw, lt) and torch.equal(epoch_bb.log_posterior(ep, q)[0], lw)
+        assert torch.equal(epoch_bb.log_posterior(ep, q[:, :32].contiguous())[0], lw[:, :32])
+        want = ep.plain(q)
+        rel = 1e-10 if f64 else 1e-5
+        ll_scale, _ = ep.term_scales(q)
+        fin = torch.isfinite(want)
+        assert torch.equal(torch.isneginf(lw), torch.isneginf(want)) and int(fin.sum()) > 1000
+        assert bool(((lw - want).abs()[fin] <= rel * ll_scale[fin]).all())
     finally:
         config.set_compute_dtype(config.AUTO)
 
@@ -1394,6 +1516,68 @@ def test_k6d_matches_plain_on_card(cuda_device):
     want = ladder.rung_block_terms_plain(ll, db, bounds)
     assert got.shape == (4, R - 1)
     assert bool(((got - want).abs() <= 1e-12 * want.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [998, 999], ids=["pairs", "scalar"])
+def test_k6d_edge_cases_match_plain_on_card(cuda_device, W):
+    """K6d's splits against its plain version where a block holds a NaN, a
+    +inf or only -inf (NaN, at the same places), one -inf among finite
+    values (it adds 0) and a whole split of -inf in a finite block; blocks
+    of 9 and 10 steps that the splits do not divide; 16-byte loads (an even
+    walker count) and scalar ones (odd); two launches bit-equal."""
+    rng = np.random.default_rng(5)
+    nsteps, R = 37, 9
+    ll = torch.as_tensor(-5000.0 - 100.0 * rng.random((nsteps, R, W)), device=cuda_device)
+    bounds = tuple((int(i[0]), int(i[-1]) + 1) for i in np.array_split(np.arange(nsteps), 4))
+    ll[bounds[0][0] + 3, 1, 7] = np.nan
+    ll[bounds[1][0] + 2, 2, 5] = np.inf
+    ll[bounds[2][0] + 1, 3, 11] = -np.inf
+    ll[bounds[3][0]:bounds[3][0] + 3, 4] = -np.inf     # more than a split's values
+    ll[bounds[1][0]:bounds[1][1], 5] = -np.inf
+    db = torch.as_tensor(np.diff(make_beta_ladder(R - 1)), device=cuda_device)
+    items = 9 * (W // 2 if W % 2 == 0 else W)   # the smallest block's pairs, or values
+    splits = ladder.k6d_splits(4 * (R - 1), items, gradient.sm_count(cuda_device))
+    assert splits > 1 and items % splits != 0
+    got = ladder.rung_block_terms(ll, db, bounds)
+    want = ladder.rung_block_terms_plain(ll, db, bounds)
+    nan = torch.isnan(want)
+    assert nan.nonzero().tolist() == [[0, 1], [1, 2], [1, 5]]
+    assert torch.equal(torch.isnan(got), nan)
+    assert bool(((got - want).abs() <= 1e-12 * want.abs())[~nan].all())
+    assert torch.equal(ladder.rung_block_terms(ll, db, bounds).nan_to_num(), got.nan_to_num())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(250, 7, 32), (250, 17, 32), (250, 7, 64), (250, 7, 33)],
+                         ids=["16b", "16c", "24c_pt", "scalar"])
+def test_k6d_one_split_matches_plain_on_card(cuda_device, shape):
+    """K6d where a (block, rung) is one split and its CTA writes the term
+    itself: the production log L of the PT fits and compare_models (and an
+    odd walker count, scalar loads), with a -inf row (a walker's
+    NaN-likelihood start on every rung) and the edge cases, against the
+    plain version; two launches bit-equal."""
+    nsteps, R, W = shape
+    rng = np.random.default_rng(6)
+    ll = torch.as_tensor(-12990.0 + 10.0 * rng.normal(size=shape), device=cuda_device)
+    bounds = tuple((int(i[0]), int(i[-1]) + 1) for i in np.array_split(np.arange(nsteps), 4))
+    items = min(b1 - b0 for b0, b1 in bounds) * (W // 2 if W % 2 == 0 else W)
+    assert ladder.k6d_splits(4 * (R - 1), items, gradient.sm_count(cuda_device)) == 1
+    ll[bounds[0][0] + 5, :, 3] = -np.inf
+    ll[bounds[0][0] + 3, 1, 7] = np.nan
+    ll[bounds[1][0] + 2, 2, 5] = np.inf
+    ll[bounds[2][0] + 1, 3, 11] = -np.inf
+    ll[bounds[1][0]:bounds[1][1], 5] = -np.inf
+    db = torch.as_tensor(np.diff(make_beta_ladder(R - 1)), device=cuda_device)
+    n0 = kernels.LAUNCHES["rung_block_terms"]
+    got = ladder.rung_block_terms(ll, db, bounds)
+    assert kernels.LAUNCHES["rung_block_terms"] == n0 + 1
+    want = ladder.rung_block_terms_plain(ll, db, bounds)
+    nan = torch.isnan(want)
+    assert nan.nonzero().tolist() == [[0, 1], [1, 2], [1, 5]]
+    assert torch.equal(torch.isnan(got), nan)
+    assert bool(((got - want).abs() <= 1e-12 * want.abs())[~nan].all())
+    assert torch.equal(ladder.rung_block_terms(ll, db, bounds).nan_to_num(), got.nan_to_num())
 
 
 @pytest.mark.cuda
@@ -2632,6 +2816,45 @@ def test_cs_logpost_repeats_the_half_steps_values_on_card(ia, ia_lc, cuda_device
         assert 0.5 < float(acc.float().mean()) < 1.0   # the proposals inside the priors
         assert torch.equal(cs.log_posterior(lp, x.reshape(-1, ndim), off, sc),
                            logp.reshape(-1))
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma_type", [None, "relative"], ids=["no-sigma", "sigma"])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_epoch_logpost_repeats_the_half_steps_values_on_card(cuda_device, f64, sigma_type):
+    """K4's values and the epoch half-step run one warp form (EpochBBModel):
+    on the states that two half-steps of 40 epochs x 32 walkers left at
+    u_acc = 0 (every proposal inside the priors accepted), K4 returns the
+    log-posterior the half-step stored, bit for bit, in both of its forms,
+    on the bolometric path's float32 walker state."""
+    use_sigma = sigma_type is not None
+    priors = _EPOCH_PRIORS + ([GaussianPrior(0.0, 10.0)] if use_sigma else [])
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        E, half = 40, 16
+        ep = batched.EpochPosterior(_epoch_pack(E, cuda_device), priors, use_sigma=use_sigma)
+        rng = np.random.default_rng(4)
+        x = np.exp(rng.uniform(np.log([5.0, 1.0]), np.log([20.0, 30.0]), size=(E, 2, half, 2)))
+        if use_sigma:
+            x = np.concatenate([x, rng.uniform(0.5, 3.0, size=(E, 2, half, 1))], axis=-1)
+        x = torch.as_tensor(x, device=cuda_device).float().contiguous()
+        ndim = x.shape[-1]
+        logp = ep(x.reshape(E, 2 * half, ndim)).reshape(E, 2, half).contiguous()
+        g = torch.Generator(device=cuda_device).manual_seed(6)
+        acc = torch.zeros((E, 2, half), dtype=torch.int32, device=cuda_device)
+        for h in (0, 1):
+            u_z = torch.rand((E, 2, half), generator=g, device=cuda_device)
+            j = torch.randint(0, half, (E, 2, half), generator=g, device=cuda_device)
+            epoch_bb.stretch_half_step(ep, x, logp, h, u_z, j, torch.zeros_like(u_z), 2.0,
+                                       n_accept=acc)
+        assert 0.5 < float(acc.float().mean()) <= 1.0   # the proposals inside the priors
+        xs = x.reshape(E, 2 * half, ndim)
+        assert torch.equal(ep(xs), logp.reshape(E, -1))
+        for form in ("warp", "thread"):
+            assert torch.equal(epoch_bb._launch_k4(ep, xs, False, form)[0], logp.reshape(E, -1))
     finally:
         config.set_compute_dtype(config.AUTO)
 

@@ -46,6 +46,17 @@ and of the fits, float32 compute, by CUDA events:
   paths' 65 and 256 epochs (``K4s_E*``, ``K4s_E*_f64``: float32 and float64
   compute); the CS log-posterior in float64 compute at 32, 4096, 32768 and
   131072 walkers (``CS_logpost_W*_f64``); each timed and hashed;
+* K4's values at the bolometric paths' widths: the centering's cloud (256
+  and 65 epochs x 512 float64 candidates, ``K4_cloud_E*``) and the initial
+  state (x 32 float32 walkers, ``K4_init_E*``), float32 and float64
+  compute (``_f64``), and, where the checkout has K4's two value forms,
+  each form (``K4_*_thread_dev``, ``K4_*_warp_dev``) and each form's cloud
+  at 64, 96, 128 and 192 of the bench epochs (``K4_cross_E*``: about the
+  forms' crossover); K6d at the ladders' shapes
+  (150 steps x 17 rungs x 4096 walkers: ``K6d``; 250 x 7 x 32, 250 x 17 x
+  32 and 250 x 7 x 64: ``K6d_*``); each timed and hashed; K6d at the
+  bench shape with its splits aimed at 2, 4 and 8 CTAs an SM
+  (``K6d_cta*_dev``), timed;
 * hashed only, at ``chip_smoke.py``'s shapes: K3, K4 with its gradient,
   K4s, K5, K6c and K6d;
 * with ``--fits``, the wall times of ``calculate_bolometric`` on SN
@@ -65,15 +76,16 @@ Each time is printed twice: by CUDA events around a run of launches (the
 stream's time per launch, which a kernel shorter than its wrapper's host
 time does not fill) and, as ``NAME_dev`` for the half-steps, K6a, K6b, K1,
 the batch log-posteriors, K6c, K3 and K8 at one walker, K8, K7 at its
-small widths, K7h, K4 at 256 x 8, K4p and K4s, by the profiler's device
-timestamps (the kernel's own time). The centering's wall is in
+small widths, K7h, K4 at 256 x 8, K4's values, K4p, K4s and K6d, by the
+profiler's device timestamps (the kernel's own time). The centering's wall is in
 milliseconds, by the host clock to a synchronize. ``--sass NAME`` prints a
 hash of the SASS of each kernel whose name holds NAME (``cuobjdump``), to
 tell a kernel's code apart from its placement.
 Each kernel's outputs at fixed inputs are hashed (``digest``): two checkouts
 whose kernel computes the same bits print the same digest. The ptxas report
-of the gradient kernels, of the SC2, SC3, CS and epoch warp kernels, of K4p,
-K6c and K4s (registers, stack frame, spills) comes from the build.
+of the gradient kernels, of the SC2, SC3, CS and epoch warp kernels, of K4
+(both forms), K4p, K6c, K6d and K4s (registers, stack frame, spills) comes
+from the build.
 
 Usage: ``python3 tools/time_port_kernels.py [--repo PATH] [--label NAME]
 [--fits]``. ``--repo`` is the checkout whose ``lightcurve_fitting_tpu_torch``
@@ -111,7 +123,8 @@ SC3_UP = [2.0, 2.0, 20.0, 5.0, D_L + 0.005, 0.1, 57468.7]
 # the ptxas report covers the entry functions whose mangled names hold these
 PTXAS_KERNELS = ("nuts_transition", "hmc_transition", "logpost_grad", "SC2WarpModel",
                  "SC3WarpModel", "stretch_half_step_kernelI8SC3Model", "CSWarpModel",
-                 "epoch_map_polish", "EpochBBModel", "replica_swap", "epoch_summary")
+                 "epoch_map_polish", "EpochBBModel", "replica_swap", "epoch_summary",
+                 "epoch_logpost", "rung_block_terms")
 
 
 def events_ms(fn, launches, repeats):
@@ -757,6 +770,85 @@ def main():
             digests[f"CS_logpost_W{wb}_f64"] = digest(batch64())
     finally:
         config.set_compute_dtype(config.AUTO)
+
+    # K4's values at the bolometric paths' widths, the centering's cloud
+    # (float64 candidates, 512 an epoch) and the initial state (the float32
+    # walker state, 32 an epoch), at 13b's 256 bench epochs and 13a's 65 SN
+    # 2016bkv epochs (K4_cloud_E*, K4_init_E*; _f64: float64 compute);
+    # where the checkout has K4's two value forms, each form alone
+    # (K4_*_thread_dev, K4_*_warp_dev), and the cloud's first 64, 96, 128
+    # and 192 bench epochs in each form (K4_cross_E*: the widths about
+    # k4_form's crossover); and K6d at the ladders' shapes (16a
+    # and 24c: 150 steps x 17 rungs x 4096 walkers, K6d; 16b: 250 x 7 x 32;
+    # 16c: 250 x 17 x 32; 24c's PT fit: 250 x 7 x 64), 4 blocks, and at the
+    # bench shape with the splits aimed at 2, 4 and 8 CTAs an SM in place
+    # of K6D_CTAS_PER_SM (K6d_cta*_dev); device times and
+    # digests, an rng of their own
+    rng_k = np.random.default_rng(41)
+    shapes4 = {256: packed, 65: chip_smoke.sn2016bkv_packed(dev)}
+    clouds = {}
+    for label, cdt in (("", torch.float32), ("_f64", torch.float64)):
+        try:
+            config.set_compute_dtype(cdt)
+            for Ek, packed_k in shapes4.items():
+                epk = EpochPosterior(packed_k, chip_smoke.bol_priors())
+                _, log_lo, log_up = batched._candidate_box(epk.priors)
+                u_k = torch.as_tensor(rng_k.random((Ek, 512, 2)), device=dev)
+                cloud_k = torch.exp(u_k * torch.as_tensor(log_up - log_lo, device=dev)
+                                    + torch.as_tensor(log_lo, device=dev)).contiguous()
+                clouds[Ek] = cloud_k
+                init_k = torch.as_tensor(np.exp(rng_k.uniform(np.log([4.0, 1.0]),
+                                                              np.log([20.0, 30.0]),
+                                                              size=(Ek, 32, 2))),
+                                         device=dev).float().contiguous()
+                for what, qk in (("cloud", cloud_k), ("init", init_k)):
+                    name = f"K4_{what}_E{Ek}{label}"
+
+                    def k4(epk=epk, qk=qk):
+                        return epoch_bb.log_posterior(epk, qk)[0]
+                    times[name] = events_ms(k4, 20, args.repeats)
+                    times[name + "_dev"] = device_ms(k4, "logpost", 20, args.repeats)
+                    digests[name] = digest(k4())
+                    if hasattr(epoch_bb, "k4_form"):
+                        for form in ("warp", "thread"):
+                            def k4f(epk=epk, qk=qk, form=form):
+                                return epoch_bb._launch_k4(epk, qk, False, form)[0]
+                            times[f"{name}_{form}_dev"] = device_ms(k4f, "logpost", 20,
+                                                                   args.repeats)
+                            digests[f"{name}_{form}"] = digest(k4f())
+            if hasattr(epoch_bb, "k4_form"):
+                for Ek in (64, 96, 128, 192):
+                    epk = EpochPosterior({k: v[:Ek] for k, v in packed.items()},
+                                         chip_smoke.bol_priors())
+                    for form in ("warp", "thread"):
+                        def k4c(epk=epk, qk=clouds[256][:Ek].contiguous(), form=form):
+                            return epoch_bb._launch_k4(epk, qk, False, form)[0]
+                        times[f"K4_cross_E{Ek}{label}_{form}_dev"] = device_ms(
+                            k4c, "logpost", 20, args.repeats)
+        finally:
+            config.set_compute_dtype(config.AUTO)
+    for steps_k, R_k, W_k in ((150, 17, 4096), (250, 7, 32), (250, 17, 32), (250, 7, 64)):
+        ll_k = torch.as_tensor(-12990.0 + 10.0 * rng_k.normal(size=(steps_k, R_k, W_k)),
+                               device=dev)
+        db_k = torch.as_tensor(np.diff(make_beta_ladder(R_k - 1)), device=dev)
+        bounds_k = tuple((int(i[0]), int(i[-1]) + 1)
+                         for i in np.array_split(np.arange(steps_k), 4))
+        name = "K6d" if W_k == 4096 else f"K6d_{steps_k}x{R_k}x{W_k}"
+
+        def k6d(ll_k=ll_k, db_k=db_k, bounds_k=bounds_k):
+            return ladder.rung_block_terms(ll_k, db_k, bounds_k)
+        times[name] = events_ms(k6d, 100, args.repeats)
+        times[name + "_dev"] = device_ms(k6d, "rung_block_terms", 100, args.repeats)
+        digests[name + ("_timed" if W_k == 4096 else "")] = digest(k6d())
+        if W_k == 4096 and hasattr(ladder, "K6D_CTAS_PER_SM"):
+            aim = ladder.K6D_CTAS_PER_SM
+            try:
+                for c in (2, 4, 8):
+                    ladder.K6D_CTAS_PER_SM = c
+                    times[f"K6d_cta{c}_dev"] = device_ms(k6d, "rung_block_terms", 100,
+                                                         args.repeats)
+            finally:
+                ladder.K6D_CTAS_PER_SM = aim
 
     if args.fits:
         # the bolometric fits of chip_smoke.py phase 13, two runs each: (13a)
