@@ -10,7 +10,8 @@ raises and the script exits non-zero):
 2. build: nvcc compiles the kernels from ``kernels/csrc/``; the
    block-per-chain kernels (K9, K7h, K7's block form), K4p, the epoch
    half-step, K4's values in both forms, the SC3 and CS log-posteriors, K1,
-   K6b, K6c, K6d and K4s must have no stack frame and no spills (ptxas);
+   K6b, K6c, K6d, K4s, K3's warp form and K5 must have no stack frame and
+   no spills (ptxas);
 3. K1 (a warp per walker, the half-step's form) against its plain PyTorch
    version at 131072 walkers on the flagship (SN 2016bkv, ShockCooling2),
    float32 (<= 1e-5 |ll|, same -inf set) and float64 (<= 1e-10 |ll|),
@@ -33,10 +34,14 @@ raises and the script exits non-zero):
    and float64, the mean acceptance and its standard error against the JAX
    package's on the CPU at the same seeds and precision (within 4 combined
    standard errors);
-6. K3 (``bandflux_kernel``) against ``bandflux_pointwise_plain`` at 131072
-   walkers x the 149 flagship points with E(B-V) per walker in [0, 1] and
-   t < t_exp walkers, float32 (<= 1e-5 relative per point) and float64
-   (<= 1e-12);
+6. K3 (``bandflux_kernel``, a thread per (walker, point)) against
+   ``bandflux_pointwise_plain`` at 131072 walkers x the 149 flagship points
+   with E(B-V) per walker in [0, 1] and t < t_exp walkers, float32 (<= 1e-5
+   relative per point) and float64 (<= 1e-12); its two forms (a thread or a
+   warp per pair, ``kernels/sc3.py::k3_form``) bit-equal in float32 and
+   float64 at one walker, on each side of the crossover and at 131072, the
+   profiler showing the form the wrapper picks, each form timed (the
+   profiler's device time);
 7. the fused ShockCooling3 log-posterior (a warp per walker) against
    ``forward_plain`` at 131072 walkers (1% outside the priors, a set with
    t < t_exp): float32 <= 1e-5 |ll|, float64 <= 1e-10 |ll|, identical -inf
@@ -50,7 +55,8 @@ raises and the script exits non-zero):
    (a) 64 walkers x 200+200 steps, (b) 32768 walkers x 300 steps from the
    init window, whose mean acceptance must be within 0.01 of the JAX
    package's float64 value, and ``ShockCooling3.evaluate`` on the card at
-   the medians (chi2/dof printed), and a profiled run's time split (the
+   the medians (chi2/dof printed; the profiler showing K3's warp form ran),
+   and a profiled run's time split (the
    half-steps, the initial state); the
    launch counters, reset before this path, show it ran through K3 and both
    SC3 kernels (1400 half-steps);
@@ -86,8 +92,11 @@ raises and the script exits non-zero):
     at 600 THz, T, R and (R T^2)^2 equal; K4s's float32 Planck term on a
     one-node grid against 1 / expm1 at its own rounded exponent, x from
     0.05 to 80, in ulp (within 3 / (1 - exp(-x)) + 3 on the special-function
-    unit, 3 below x = 0.25); K5's percentiles bit-equal, ``torch.quantile``
-    timed beside K5;
+    unit, 3 below x = 0.25); K5 (a radix select) bit-equal to its plain
+    version there and on its edge cases (``K5_EDGE_CASES``: IEEE specials,
+    subnormals, ties, 1, 2 and 3201 values, a 70000-value row past the
+    block's shared memory, 1 and 8 percentiles, 0 and 100), the profiler
+    showing the kernel ran, ``torch.quantile`` timed beside K5;
 13. the bolometric main path: (a) ``calculate_bolometric(batch_mode=True,
     save_corners=False, nwalkers=32, seed=7)`` on the full SN 2016bkv light
     curve (65 rows); (b) the bench shape (256 epochs x 32 walkers x 200 +
@@ -272,6 +281,7 @@ POLISH_REL = {"f64": 1e-9, "f32": 1e-5}
 FP32_FLOPS = 67e12        # H100 SXM, FP32 outside the tensor cores
 FP64_FLOPS = 34e12        # H100 SXM, FP64 outside the tensor cores
 HBM_BYTES = 3.35e12       # H100 SXM HBM3
+INT32_OPS = 16.7e12       # H100 SXM, 32-bit integer: 64 lanes an SM x 132 SMs x 1.98 GHz
 SFU_OPS = 16              # FP32 operations' time a special function is counted as
 
 
@@ -900,7 +910,73 @@ def phase_k3(lcf, rng_seed=2):
           f"{kernels.LAUNCHES['bandflux'] - n0} comparison launches; K3 {k3_ms:.4f} ms vs "
           f"plain {plain_ms:.4f} ms per {W}-walker batch (f32), bound "
           f"{k3_bound['bound_ms']:.4f} ms ({k3_bound['bound_by']})")
-    return {"max_abs_err": res["f32"][0], "ms": k3_ms, "plain_ms": plain_ms, **k3_bound}
+    return k3_forms(ll, T, R, ebv)
+
+
+def k3_forms(ll, T, R, ebv):
+    """K3's two forms at one walker (ShockCooling3.evaluate's width), on
+    each side of k3_form's crossover and at the whole batch of T, R (W, 149)
+    with E(B-V) (W, 1), float32 and float64: the same bits, both held to the
+    plain version at phase_k3's tolerances, the form the wrapper picks seen
+    by the profiler, each form's device time. Returns the kernel line's
+    fields at one walker: the warp form's float32 error and device time."""
+    import torch
+    from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.kernels import sc3
+    from lightcurve_fitting_tpu_torch.kernels.gradient import sm_count
+    from lightcurve_fitting_tpu_torch.models.blackbody import (bandflux_pointwise,
+                                                               bandflux_pointwise_plain)
+    from time_port_kernels import device_ms
+    N, K = ll.band_ids.shape[0], ll.nodes.shape[1]
+    n_sm = sm_count(T.device)
+    cross = -(-sc3.K3_THREAD_PAIRS_PER_SM * n_sm // N)     # the fewest walkers a thread each
+    widths = (1, cross - 1, cross, T.shape[0])
+    kernel_of = {"warp": "bandflux_warp_kernel", "thread": "bandflux_kernel"}
+    lines, ms, err = [], {}, {}
+    for w in widths:
+        args = (ll.nodes, ll.weights, T[:w], R[:w])
+        kw = dict(k_ext=ll.k_ext, ebv=ebv[:w], band_ids=ll.band_ids)
+        for label in ("f32", "f64"):
+            try:
+                if label == "f64":
+                    config.set_compute_dtype(None)
+                forms = {f: sc3.bandflux_launch(f, *args, **kw) for f in kernel_of}
+                if not torch.equal(forms["warp"], forms["thread"]):
+                    d = (forms["warp"] - forms["thread"]).abs().max()
+                    raise AssertionError(f"K3 at {w} walkers ({label}): the warp and thread "
+                                         f"forms differ, max |d| {float(d):.3e}")
+                want = chunked(lambda T_, R_, e_: bandflux_pointwise_plain(
+                    ll.nodes, ll.weights, T_, R_, k_ext=ll.k_ext, ebv=e_,
+                    band_ids=ll.band_ids), T[:w], R[:w], ebv[:w])
+                d = (forms["warp"] - want).abs()
+                rel = 1e-5 if label == "f32" else 1e-12
+                if not bool((d <= rel * want.abs()).all()):
+                    r = float((d / want.abs().clamp_min(torch.finfo(want.dtype).tiny)).max())
+                    raise AssertionError(f"K3's warp form at {w} walkers ({label}): max "
+                                         f"relative difference {r:.3e} > {rel:.0e}")
+                err[w, label] = float(d.max())
+                picked = sc3.k3_form(w * N, n_sm)
+                seen = expect_kernel(lambda: bandflux_pointwise(*args, **kw), "bandflux",
+                                     kernel_of[picked] + "<")
+                if label == "f32":
+                    for f in kernel_of:
+                        ms[w, f] = device_ms(lambda f=f: sc3.bandflux_launch(f, *args, **kw),
+                                             "bandflux", 20, 1)[0]
+            finally:
+                config.set_compute_dtype(config.AUTO)
+        lines.append(f"{w} walkers: the {picked} form ({seen}); max |d| to plain f32 "
+                     f"{err[w, 'f32']:.3e}, f64 {err[w, 'f64']:.3e}; device ms warp "
+                     f"{ms[w, 'warp']:.4f}, thread {ms[w, 'thread']:.4f}")
+    args1 = (ll.nodes, ll.weights, T[:1], R[:1])
+    kw1 = dict(k_ext=ll.k_ext, ebv=ebv[:1], band_ids=ll.band_ids)
+    plain_ms = cuda_ms(lambda: bandflux_pointwise_plain(*args1, **kw1))
+    one = bound_fields(N * K * QUAD_TERM, N * 4 * 4 + 4)
+    phase("K3 forms", f"crossover at {cross} walkers x {N} points ({sc3.K3_THREAD_PAIRS_PER_SM} "
+          f"pairs an SM, {n_sm} SMs); the two forms bit-equal in f32 and f64 at each width, "
+          f"and within 1e-5 (f32), 1e-12 (f64) relative of the plain version; "
+          + "; ".join(lines) + f"; at one walker plain {plain_ms:.4f} ms, bound "
+          f"{one['bound_ms']:.6f} ms ({one['bound_by']})")
+    return {"max_abs_err": err[1, "f32"], "ms": ms[1, "warp"], "plain_ms": plain_ms, **one}
 
 
 # the widths whose initial state a fit computes with the SC3 log-posterior:
@@ -1085,7 +1161,13 @@ def phase_sc3_main_path(lc, smi):
     med = np.median(flat, axis=0)
     model = ShockCooling3(lc, device="cuda")
     t = np.asarray(lc["MJD"], float)
-    y_fit = model.evaluate(t, np.asarray(lc["filter"]), *med)
+    fits = []
+    k3_seen = launched_kernels(lambda: fits.append(model.evaluate(t, np.asarray(lc["filter"]),
+                                                                  *med)), "bandflux", calls=1)
+    if k3_seen != [k for k in k3_seen if "bandflux_warp_kernel<" in k] or not k3_seen:
+        raise AssertionError(f"9b: evaluate at one walker must run K3's warp form, the "
+                             f"profiler saw {k3_seen}")
+    y_fit = fits[-1]
     resid = (np.asarray(lc["flux"], float) - y_fit) / np.asarray(lc["dflux"], float)
     if y_fit.shape != t.shape or not np.isfinite(y_fit).all() or not (y_fit > 0).any():
         raise AssertionError("9b: evaluate at the medians gave no finite flux")
@@ -1106,7 +1188,8 @@ def phase_sc3_main_path(lc, smi):
           f"steps: mean acceptance {acc:.4f} (JAX float64 CPU {SC3_ACCEPTANCE_REF:.4f} +- 0.01), "
           f"medians {fmt(med)}, {elapsed:.3f} s end to end incl. setup and chain readback, "
           f"{evals / elapsed:.4e} log-posterior evals/s (information only, on {smi}); "
-          f"evaluate on the card at the medians: chi2/dof {chi2_dof:.2f} (the JAX CPU probe's "
+          f"evaluate on the card at the medians (K3's warp form): chi2/dof {chi2_dof:.2f} "
+          f"(the JAX CPU probe's "
           f"best draw: ~{SC3_CHI2_PROBE:.0f}); profiled run (seed 8) {wall:.4f} s, device busy "
           f"{busy:.4f} s (idle share {1 - busy / wall:.3f}): "
           + ", ".join(f"{k} {v:.4f} s" for k, v in parts.items())
@@ -1587,12 +1670,85 @@ def k4s_term_ulps(dev):
     return float(ulps[sfu].max()), float((ulps / bound)[sfu].max()), float(ulps[~sfu].max())
 
 
+# K5's edge cases, each bit-equal to the plain version on the card
+# (tests/test_torch_quantile.py holds the plain version to the JAX function
+# on all but "long"): IEEE specials, subnormals, ties, short rows, a row
+# length the block does not divide, a row past the block's shared memory
+# (the global-memory branch), one and eight percentiles, the ends 0 and 100
+K5_EDGE_CASES = ("specials", "subnormal", "all-equal", "n1", "n2", "n3201", "long", "q1", "q8",
+                 "q0-100")
+K5_Q = [16.0, 50.0, 84.0]
+
+
+def k5_edge_case(name):
+    """(rows (B, N) float32 numpy, percentiles) of K5's edge case ``name``."""
+    import numpy as np
+    rng = np.random.default_rng(K5_EDGE_CASES.index(name))
+    rows = rng.normal(scale=5.0, size=(4, 3200)).astype(np.float32)
+    q = K5_Q
+    if name == "specials":           # +-0.0, +-inf among normal values, ties at each
+        specials = np.array([0.0, -0.0, np.inf, -np.inf], np.float32)
+        for r in range(4):
+            idx = rng.choice(3200, 800 * (r + 1) // 2, replace=False)
+            rows[r, idx] = rng.choice(specials, idx.size)
+    elif name == "subnormal":        # below 1.18e-38, both signs, beside zeros and normals
+        sub = np.array([1e-45, -1e-45, 1e-40, -1e-40, 1.1e-38, -1.1e-38, 0.0, -0.0], np.float32)
+        rows[:2] = rng.choice(sub, size=(2, 3200))
+        rows[2:, ::2] = rng.choice(sub, size=(2, 1600))
+    elif name == "all-equal":
+        rows[:] = np.float32(2.5)
+        rows[1] = np.float32(-0.0)
+    elif name == "n1":
+        rows = rows[:, :1]
+    elif name == "n2":
+        rows = rows[:, :2]
+    elif name == "n3201":
+        rows = rng.normal(scale=5.0, size=(4, 3201)).astype(np.float32)
+    elif name == "long":             # 280 KB of keys: past the block's shared-memory limit
+        rows = rng.normal(scale=5.0, size=(3, 70000)).astype(np.float32)
+        rows[2, ::7] = np.float32(1.0)
+    elif name == "q1":
+        q = [50.0]
+    elif name == "q8":
+        q = [0.0, 5.0, 16.0, 25.0, 50.0, 75.0, 84.0, 100.0]
+    elif name == "q0-100":
+        q = [0.0, 100.0]
+    return rows, q
+
+
+def k5_edge_cases_match(dev):
+    """K5 on every edge case against the plain version on the same card,
+    bit for bit; returns the number of percentiles compared."""
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels import quantile as kq
+    from lightcurve_fitting_tpu_torch.ops.quantile import percentile_f32_plain
+    n = 0
+    for name in K5_EDGE_CASES:
+        rows, q = k5_edge_case(name)
+        x = torch.as_tensor(rows, device=dev)
+        got, want = kq.percentile_rows(x, q), percentile_f32_plain(x, q, axis=1)
+        if not torch.equal(got.view(torch.int64), want.view(torch.int64)):
+            raise AssertionError(f"K5 edge case {name}: {int((got != want).sum())} of "
+                                 f"{got.numel()} percentiles differ from the plain version")
+        n += got.numel()
+    return n
+
+
+def k5_ops(keys, n_q):
+    """The radix select's integer operations on ``keys`` values: the key
+    and the first pass's digit and add (5), then in each of three passes
+    the key's load, the 2Q prefix compares, the digit (2) and the add; at
+    INT32_OPS, not the FP32 rate."""
+    return keys * (5 + 3 * (1 + 2 * n_q + 2 + 1))
+
+
 def phase_k4s_k5(seed=7):
     import numpy as np
     import torch
     from lightcurve_fitting_tpu_torch.bolometric import _pseudo_grid
     from lightcurve_fitting_tpu_torch.kernels import epoch_bb, quantile as kq
     from lightcurve_fitting_tpu_torch.ops.quantile import percentile_f32_plain
+    from time_port_kernels import device_ms
 
     dev = torch.device("cuda")
     E, nw, steps = BOL_EPOCHS, BOL_WALKERS, BOL_STEPS
@@ -1634,24 +1790,32 @@ def phase_k4s_k5(seed=7):
           f"({s_bound['bound_by']})")
 
     flat = want.reshape(E * 4, S).contiguous()
-    q = [16.0, 50.0, 84.0]
+    q = K5_Q
     got = kq.percentile_rows(flat, q)
     ref = percentile_f32_plain(flat, q, axis=1)
     if not torch.equal(got, ref):
         raise AssertionError(f"K5: {int((got != ref).sum())} percentiles differ from the plain "
                              "version")
+    n_edge = k5_edge_cases_match(dev)
+    k5_kernel = expect_kernel(lambda: kq.percentile_rows(flat, q), "percentile_kernel", "<6>")
     qs = torch.tensor([0.16, 0.50, 0.84], device=dev)
     lib = torch.quantile(flat, qs, dim=1, interpolation="linear")
     lib_err = float(((lib.double() - got).abs() / got.abs()).max())
-    p_ms = cuda_ms(lambda: kq.percentile_rows(flat, q))
+    p_events_ms = cuda_ms(lambda: kq.percentile_rows(flat, q))
+    p_ms = device_ms(lambda: kq.percentile_rows(flat, q), "percentile_kernel", 20, 1)[0]
     p_plain_ms = cuda_ms(lambda: percentile_f32_plain(flat, q, axis=1), repeats=5)
     lib_ms = cuda_ms(lambda: torch.quantile(flat, qs, dim=1, interpolation="linear"))
-    p_bound = bound_fields(E * 4 * (32 * 2 * len(q) * S + 4 * S),
-                           flat.numel() * 4 + len(q) * E * 4 * 8, lib_ms)
+    p_bound = bound_fields(k5_ops(flat.numel(), len(q)),
+                           flat.numel() * 4 + len(q) * E * 4 * 8, lib_ms, rate=INT32_OPS)
+    bisection_bound = bound(E * 4 * (32 * 2 * len(q) * S + 4 * S), 0)[0]
     phase("K5", f"{E * 4} rows x {S}: percentiles 16/50/84 bit-equal to the plain version "
-          f"(torch.quantile in f32 differs by up to {lib_err:.1e} relative); kernel {p_ms:.4f} ms vs "
-          f"plain {p_plain_ms:.4f} ms vs torch.quantile {lib_ms:.4f} ms, bound "
-          f"{p_bound['bound_ms']:.4f} ms ({p_bound['bound_by']})")
+          f"(torch.quantile in f32 differs by up to {lib_err:.1e} relative); the edge cases "
+          f"({', '.join(K5_EDGE_CASES)}: {n_edge} percentiles) bit-equal; the profiler saw "
+          f"{k5_kernel}; kernel {p_ms:.4f} ms (the profiler's device time; events "
+          f"{p_events_ms:.4f}) vs plain {p_plain_ms:.4f} ms vs torch.quantile "
+          f"{lib_ms:.4f} ms, bound {p_bound['bound_ms']:.4f} ms ({p_bound['bound_by']}: the "
+          f"radix select's bytes against its integer operations; the bisection's compares "
+          f"bounded it at {bisection_bound:.4f} ms)")
     return ({"max_abs_err": float(d.max()), "ms": s_ms, "plain_ms": s_plain_ms, **s_bound},
             {"max_abs_err": 0.0, "ms": p_ms, "plain_ms": p_plain_ms, **p_bound})
 
@@ -3720,7 +3884,9 @@ def main():
                          ("K6b", "ladder_init_kernel", 28),
                          ("K6c", "replica_swap_kernel", 18),
                          ("the CS log-posterior", "logpost_warp_kernelI11CSWarpModel", 12),
-                         ("K4s", "epoch_summary_kernel", 4)):
+                         ("K4s", "epoch_summary_kernel", 4),
+                         ("K3's warp form", "bandflux_warp_kernel", 2),
+                         ("K5", "percentile_kernel", 8)):
         block[what] = [v for k, v in report.items() if key in k]
         if len(block[what]) != n or any(v[1] or v[2] or v[3] for v in block[what]):
             raise AssertionError(f"{what} ({n} instantiations) must keep its state in "
@@ -3734,8 +3900,8 @@ def main():
           "scalar loads), the SC3 "
           "log-posterior (ndim 7, 8; its 4 dtype instantiations each), K1 (ndim 4, 5; 4 each), "
           "K6b (over SC2 ndim 4, 5, over SC3 7, 8, over CS 7, 8, 9; 4 each), K6c (ndim 1-9; "
-          "f32, f64 state), the CS log-posterior (ndim 7, 8, 9; 4 each) and K4s (4 dtype "
-          "instantiations): "
+          "f32, f64 state), the CS log-posterior (ndim 7, 8, 9; 4 each), K4s (4 dtype "
+          "instantiations), K3's warp form (f32, f64) and K5 (1-8 percentiles): "
           + "; ".join(f"{what} registers {sorted(set(v[0] for v in ks))}, stack frames "
                       f"{sorted(set(v[1] for v in ks))} bytes, spills "
                       f"{sorted(set(v[2] + v[3] for v in ks))}" for what, ks in block.items()))
@@ -3782,7 +3948,7 @@ def main():
         dict(name="stretch_half_step_kernel<SC2WarpModel> (K2)", route="cuda", source=src,
              replaces="lightcurve_fitting_tpu/parallel/sampler.py:86",
              launches=launches["stretch_half_step"], **k2),
-        dict(name="bandflux_kernel (K3)", route="cuda", source=src3,
+        dict(name="bandflux_warp_kernel / bandflux_kernel (K3)", route="cuda", source=src3,
              replaces="0ee4f99:lightcurve_fitting_tpu/ops/pallas_bandflux.py:61",
              launches=launches_sc3["bandflux"], **k3),
         dict(name="logpost_warp_kernel<SC3WarpModel> (SC3 log-posterior)", route="cuda",
@@ -3805,7 +3971,7 @@ def main():
         dict(name="epoch_summary_kernel (K4s)", route="cuda", source=src4,
              replaces="lightcurve_fitting_tpu/parallel/batched.py:129",
              launches=launches_bol["epoch_summary"], **k4s),
-        dict(name="percentile_kernel (K5)", route="cuda",
+        dict(name="percentile_kernel<T> (K5, radix select)", route="cuda",
              source="lightcurve_fitting_tpu_torch/kernels/csrc/quantile.cu",
              replaces="lightcurve_fitting_tpu/ops/quantile.py:46",
              launches=launches_bol["percentile"], **k5),

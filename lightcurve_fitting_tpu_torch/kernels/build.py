@@ -59,7 +59,7 @@ def _declare(lib):
     half_step = [vp, ci, ci, vp, ci, vp, ci, ci, vp, vp, vp, cd, vp, ci, vp, ci, vp, vp]
     lib.stretch_half_step_launch.argtypes = half_step
     lib.bandflux_launch.restype = ci
-    lib.bandflux_launch.argtypes = [vp, ci, ci, vp]
+    lib.bandflux_launch.argtypes = [vp, ci, ci, ci, vp]
     lib.sc3_logpost_launch.restype = ci
     lib.sc3_logpost_launch.argtypes = [vp, ci, ci, vp, ci, ci, vp, vp]
     lib.sc3_half_step_launch.restype = ci

@@ -43,7 +43,11 @@
 // slots busy; each lane sums its residual terms in that order and a
 // butterfly sums the lanes, a fixed order from run to run. The standalone K3
 // runs one block column per point and one thread per walker, over all K
-// nodes: the JAX function's padded sum.
+// nodes: the JAX function's padded sum. Where the (walker, point) pairs are
+// too few for a thread each to fill the card (ShockCooling3.evaluate at one
+// walker: 149 blocks of one live thread, each walking 89 terms alone), K3
+// runs a warp per pair instead, the lanes forming the terms 32 at a time and
+// one lane summing them in the thread's order: the same bits.
 // One __device__ function (band_flux, planck.cuh) carries the band sum for
 // all the kernels, so a proposal's band fluxes are bit-identical to K3's
 // evaluation of the same T, R and E(B-V) over the same nodes; the epoch
@@ -135,9 +139,10 @@ struct BandfluxParams {
     double ext_coef;             // -0.4 ln 10
 };
 
-// K3: out[w, n] = the band flux of point n (row band_ids[n]) at T[w, n],
-// R[w, n], ebv[w, n]. Block column blockIdx.x is point n, its threads are
-// walkers (grid-stride over blockIdx.y); the block stages row n's tables.
+// K3's thread form: out[w, n] = the band flux of point n (row band_ids[n])
+// at T[w, n], R[w, n], ebv[w, n]. Block column blockIdx.x is point n, its
+// threads are walkers (grid-stride over blockIdx.y); the block stages row
+// n's tables.
 template <typename C>
 __global__ void __launch_bounds__(LP_THREADS) bandflux_kernel(const BandfluxParams P) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -163,6 +168,57 @@ __global__ void __launch_bounds__(LP_THREADS) bandflux_kernel(const BandfluxPara
         ((C*)P.out)[e] = band_flux<C>(s_nu, s_w, has_ext ? s_k : nullptr, K, ((const C*)P.T)[e],
                                       ((const C*)P.R)[e], ebv, c1, c2, ext_coef,
                                       P.has_cutoff != 0, cutoff);
+    }
+}
+
+// K3's warp form, where a thread per (walker, point) would leave the card
+// idle (kernels/sc3.py::k3_form): a warp per (walker, point), up to K3_WARPS
+// warps a block (fewer where a long row's terms would not fit in shared
+// memory), grid-stride over the pairs in the output's order. The lanes form
+// the terms of nodes k = lane, lane + 32, ... with band_flux's operations
+// (planck_term, then the extinction), staged in shared memory with their
+// weights; lane 0 then sums them in band_flux's order, k = 0 ... K - 1, the
+// same multiply-add chain: the thread form's bits. A warp stages 2 K values,
+// less than the thread form's block, so it takes every row that form takes.
+// (Lane 0 reading the weights from global memory instead costs a third
+// more time at one walker: PERF.md.)
+#define K3_WARPS 4
+
+template <typename C>
+__global__ void __launch_bounds__(K3_WARPS * 32) bandflux_warp_kernel(const BandfluxParams P) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int K = (int)P.n_nodes;
+    const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5, warps = blockDim.x >> 5;
+    C* s_t = reinterpret_cast<C*>(smem_raw) + (size_t)wib * 2 * K;   // this warp's terms
+    C* s_w = s_t + K;                                                // and their weights
+    const bool has_ext = P.k_ext != nullptr;
+    const C c1 = (C)P.c1, c2 = (C)P.c2, ext_coef = (C)P.ext_coef, cutoff = (C)P.cutoff;
+    const bool has_cutoff = P.has_cutoff != 0;
+    const long long N = P.n_points, pairs = P.n_walkers * N;
+    for (long long e = (long long)blockIdx.x * warps + wib; e < pairs;
+         e += (long long)gridDim.x * warps) {
+        const long long w = e / N, n = e - w * N;
+        const long long row = P.band_ids != nullptr ? P.band_ids[n] : n;
+        const C* nu = (const C*)P.nodes + row * K;
+        const C* wt = (const C*)P.weights + row * K;
+        const C* kx = has_ext ? (const C*)P.k_ext + row * K : nullptr;
+        const C ebv = has_ext ? ((const C*)P.ebv)[w * P.ebv_stride_w + n * P.ebv_stride_n] : C(0);
+        const C inv_T = planck_inv_T(((const C*)P.T)[e]);
+        const C R = ((const C*)P.R)[e];
+        const C c2R2 = c2 * (R * R);
+        for (int k = lane; k < K; k += 32) {
+            C lnu = planck_term(nu[k], inv_T, c2R2, c1, has_cutoff, cutoff).lnu;
+            if (has_ext) lnu = lnu * m_exp((kx[k] * ebv) * ext_coef);
+            s_t[k] = lnu;
+            s_w[k] = wt[k];
+        }
+        __syncwarp();
+        if (lane == 0) {
+            C acc = C(0);
+            for (int k = 0; k < K; ++k) acc += s_w[k] * s_t[k];
+            ((C*)P.out)[e] = acc;
+        }
+        __syncwarp();
     }
 }
 
@@ -390,15 +446,38 @@ static int launch_bandflux(const BandfluxParams& P, cudaStream_t stream) {
     return (int)cudaGetLastError();
 }
 
+template <typename C>
+static int launch_bandflux_warp(const BandfluxParams& P, cudaStream_t stream) {
+    auto kernel = bandflux_warp_kernel<C>;
+    const size_t per_warp = 2 * sizeof(C) * (size_t)P.n_nodes;
+    const long long fit = per_warp ? (long long)smem_optin_limit() / (long long)per_warp
+                                   : K3_WARPS;
+    const int warps = (int)(fit < K3_WARPS ? (fit < 1 ? 1 : fit) : K3_WARPS);
+    const size_t bytes = warps * per_warp;
+    int use_smem = 0;
+    int rc = smem_plan(kernel, bytes, &use_smem);
+    if (rc) return rc;
+    if (!use_smem) return (int)cudaErrorInvalidValue;  // a row longer than shared memory
+    const long long blocks = (P.n_walkers * P.n_points + warps - 1) / warps;
+    kernel<<<(unsigned)(blocks < 2147483647LL ? blocks : 2147483647LL), warps * 32, bytes,
+             stream>>>(P);
+    return (int)cudaGetLastError();
+}
+
 extern "C" {
 
-// K3 launch. Returns 0 or a cudaError_t code.
-int bandflux_launch(const BandfluxParams* P, int device, int compute_f64, void* stream) {
+// K3 launch: a warp per (walker, point) when warp_form, else a thread.
+// Returns 0 or a cudaError_t code.
+int bandflux_launch(const BandfluxParams* P, int device, int compute_f64, int warp_form,
+                    void* stream) {
     int rc = (int)cudaSetDevice(device);
     if (rc) return rc;
     if (P->n_walkers <= 0 || P->n_points <= 0) return 0;
     if (P->n_points > 2147483647LL) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
+    if (warp_form)
+        return compute_f64 ? launch_bandflux_warp<double>(*P, s)
+                           : launch_bandflux_warp<float>(*P, s);
     return compute_f64 ? launch_bandflux<double>(*P, s) : launch_bandflux<float>(*P, s);
 }
 

@@ -1,5 +1,7 @@
 """Wrapper of K5 (``csrc/quantile.cu``, ``percentile_kernel``): exact
-percentiles of float32 rows by counting bisection. The plain version is
+percentiles of float32 rows by a radix select, four 8-bit digits of the
+order-isomorphic key, the same order statistics as the counting bisection
+of the JAX function and of the plain version. The plain version is
 :func:`~lightcurve_fitting_tpu_torch.ops.quantile.percentile_f32_plain`;
 :func:`~lightcurve_fitting_tpu_torch.ops.quantile.percentile_f32` routes a
 CPU tensor there and a CUDA one here. Each launch adds one to
@@ -28,18 +30,21 @@ class _PercentileParams(ctypes.Structure):
 
 def percentile_rows(rows, q):
     """K5 on a CUDA float32 tensor ``rows`` (B, N), contiguous: the
-    percentiles ``q`` of each row, (len(q), B) float64."""
+    percentiles ``q`` of each row, (len(q), B) float64. The shape, dtype
+    and percentiles are refused before the device."""
     from ..ops.quantile import bisection_targets
-    if rows.device.type != "cuda":
-        raise ValueError(f"K5 runs on CUDA (or its plain version on the CPU), not {rows.device}")
     if rows.ndim != 2 or rows.shape[1] == 0:
         raise ValueError(f"rows must be (B, N) with N > 0, got {tuple(rows.shape)}")
-    check(rows, "rows", rows.shape, (torch.float32,), rows.device)
+    if rows.dtype != torch.float32:
+        raise TypeError(f"K5 takes float32 rows, not {rows.dtype}")
     B, N = rows.shape
     lo_rank, hi_rank, frac = bisection_targets(N, q)
     Q = len(frac)
     if not 0 < Q <= MAX_Q or not np.all((lo_rank >= 0) & (hi_rank < N)):
         raise ValueError(f"K5 takes 1 to {MAX_Q} percentiles in [0, 100], got {q}")
+    if rows.device.type != "cuda":
+        raise ValueError(f"K5 runs on CUDA (or its plain version on the CPU), not {rows.device}")
+    check(rows, "rows", rows.shape, (torch.float32,), rows.device)
     out = torch.empty((Q, B), dtype=torch.float64, device=rows.device)
     P = _PercentileParams()
     P.a, P.out, P.rows, P.n, P.n_q = rows.data_ptr(), out.data_ptr(), B, N, Q

@@ -1,10 +1,14 @@
 """Wrappers of the quadrature kernels (``csrc/sc3_logpost.cu``): K3 and the
 fused ShockCooling3 log-posterior and half-step built on it.
 
-* :func:`bandflux` (K3, ``bandflux_kernel``): the band-averaged blackbody
-  L_nu per point, the CUDA route of
+* :func:`bandflux` (K3): the band-averaged blackbody L_nu per point, the
+  CUDA route of
   :func:`~lightcurve_fitting_tpu_torch.models.blackbody.bandflux_pointwise`,
-  whose plain version is ``bandflux_pointwise_plain`` beside it.
+  whose plain version is ``bandflux_pointwise_plain`` beside it: a thread
+  per (walker, point) (``bandflux_kernel``) or, where those are too few to
+  fill the card, a warp per (walker, point) (``bandflux_warp_kernel``), by
+  :func:`k3_form`; the two give the same bits. :func:`bandflux_launch` runs
+  either form.
 * :func:`log_posterior` (``logpost_warp_kernel`` over ``SC3WarpModel``, a warp
   per walker as the half-step, whose stored values it repeats bit for bit):
   the SC3 log-posterior of a batch of walker states; plain version
@@ -29,7 +33,12 @@ from .common import (LAUNCHES, MAX_DIM, FLOATS, check, check_buffers, cuda_args,
                      fill_priors_and_affine, half_step_checks, half_step_args,
                      log_posterior_plain, stretch_half_step_plain)
 
-__all__ = ["bandflux", "log_posterior", "stretch_half_step", "point_order"]
+__all__ = ["bandflux", "bandflux_launch", "k3_form", "log_posterior", "stretch_half_step",
+           "point_order"]
+
+#: K3 runs a thread per (walker, point) from this many pairs an SM, a warp
+#: per pair below (k3_form)
+K3_THREAD_PAIRS_PER_SM = 176
 
 
 class _SC3Params(ctypes.Structure):
@@ -68,17 +77,35 @@ def _compute_f64(dtype):
 
 # ------------------------------------------------------------------------ K3
 
+def k3_form(pairs, n_sm):
+    """K3's form for ``pairs`` (walker, point) pairs on a card of ``n_sm``
+    SMs: ``"warp"`` (a warp per pair, the lanes forming its terms) where a
+    thread per pair would leave most of the card's schedulers idle, each
+    thread walking its K terms alone; ``"thread"`` (a thread per pair)
+    where the pairs fill the card. Both give the same bits."""
+    return "thread" if pairs >= K3_THREAD_PAIRS_PER_SM * n_sm else "warp"
+
+
 def bandflux(nodes_emit, weights, T, R, cutoff_freq=np.inf, k_ext=None, ebv=0.0,
              band_ids=None):
     """K3 on CUDA tensors: ``bandflux_pointwise_plain``'s result, from the
-    hand-written ``bandflux_kernel``. Same arguments: tables (N, K) per
-    point, or (B, K) per band with ``band_ids`` (N,); T, R (..., N); ebv
-    broadcastable to (..., N), read in place (stride 0 where broadcast).
-    The sum runs in the compute dtype of the device; the result has T's
-    dtype."""
+    hand-written kernel in the form :func:`k3_form` picks. Same arguments:
+    tables (N, K) per point, or (B, K) per band with ``band_ids`` (N,); T, R
+    (..., N); ebv broadcastable to (..., N), read in place (stride 0 where
+    broadcast). The sum runs in the compute dtype of the device; the result
+    has T's dtype."""
+    return bandflux_launch(None, nodes_emit, weights, T, R, cutoff_freq, k_ext, ebv, band_ids)
+
+
+def bandflux_launch(form, nodes_emit, weights, T, R, cutoff_freq=np.inf, k_ext=None, ebv=0.0,
+                    band_ids=None):
+    """:func:`bandflux` in ``form``, ``"thread"`` or ``"warp"`` (None: the
+    form :func:`k3_form` picks)."""
     from ..core import config
     from ..core.constants import c1, c2
     from ..ops.extinction import EXT_COEF
+    if form not in (None, "thread", "warp"):
+        raise ValueError(f"K3's form is 'thread' or 'warp', not {form!r}")
     dev = T.device
     if dev.type != "cuda":
         raise ValueError(f"K3 runs on CUDA (or its plain version on the CPU), not {dev}")
@@ -124,12 +151,16 @@ def bandflux(nodes_emit, weights, T, R, cutoff_freq=np.inf, k_ext=None, ebv=0.0,
     P.has_cutoff = int(np.isfinite(cutoff_freq))
     P.cutoff = float(cutoff_freq) if P.has_cutoff else 0.0
     P.c1, P.c2, P.ext_coef = c1, c2, EXT_COEF
+    if form is None:
+        from .gradient import sm_count
+        form = k3_form(W * N, sm_count(dev))
     from .build import library
     lib = library()
     device_index, stream = cuda_args(dev)
-    rc = lib.bandflux_launch(ctypes.addressof(P), device_index, _compute_f64(cdt), stream)
+    rc = lib.bandflux_launch(ctypes.addressof(P), device_index, _compute_f64(cdt),
+                             int(form == "warp"), stream)
     if rc != 0:
-        raise RuntimeError(f"bandflux_kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"K3's {form} form launch failed: cudaError {rc}")
     LAUNCHES["bandflux"] += 1
     return out.reshape(T.shape).to(T.dtype)
 

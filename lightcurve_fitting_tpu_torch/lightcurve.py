@@ -335,8 +335,10 @@ class LC(Table):
     def bin(self, delta=0.3, groupby=None):
         """Average points within ``delta`` days, grouped by {filter, source}
         (spec: reference lightcurve.py:206-238)."""
-        self.groupby = list(set(groupby if groupby is not None else self.groupby)
-                            & set(self.colnames))
+        # sorted: a set's order follows PYTHONHASHSEED, and the group order
+        # (so every epoch's band order) would change from process to process
+        self.groupby = sorted(set(groupby if groupby is not None else self.groupby)
+                              & set(self.colnames))
         if self.groupby:
             grouped = self.group_by(self.groupby)
             pairs = list(zip(grouped.groups, grouped.groups.keys))

@@ -13,10 +13,14 @@ Tolerances, each with its reason:
 - the MCMC columns: the criterion of tests/test_bolometric.py:168-177,
   |a - b| < 2 sigma + 0.1 |a| with sigma the JAX run's 16-84 width (the
   random streams of the two packages differ);
-- grouping, record layout, ``L_int``, colors: equal (same host code).
+- grouping, record layout, ``L_int``, colors: equal (same host code), the
+  SED rows compared in one canonical order (``_canonical``);
+- the packed SN 2016bkv epochs under two hash seeds: equal bits.
 """
 
 import os
+import subprocess
+import sys
 import warnings
 
 import numpy as np
@@ -81,15 +85,25 @@ def test_host_helpers_match_jax():
             assert got[k] == pytest.approx(want[k], rel=1e-12), k
 
 
+def _canonical(epoch1):
+    """The row order of an epoch's SED sorted by (filter name, source, MJD).
+    The port bins by the sorted group keys; the JAX package by a set's
+    order, which follows PYTHONHASHSEED, so rows are compared in this order."""
+    return np.lexsort((np.asarray(epoch1["MJD"], float),
+                       np.asarray(epoch1["source"]).astype(str),
+                       np.array([f.name for f in epoch1["filter"]])))
+
+
 def test_epoch_grouping_and_seds_match_jax():
     g_t = tbol._prepare_epoch_seds(_lc(TLC), 1.0, ())
     g_j = jbol._prepare_epoch_seds(_lc(JLC), 1.0, ())
     assert len(g_t) == len(g_j) > 3
     for a, b in zip(g_t, g_j):
-        assert [f.name for f in a["filter"]] == [f.name for f in b["filter"]]
+        ia, ib = _canonical(a), _canonical(b)
+        assert [a["filter"][i].name for i in ia] == [b["filter"][i].name for i in ib]
         for col in ("MJD", "lum", "dlum", "freq"):
-            np.testing.assert_allclose(np.asarray(a[col], float), np.asarray(b[col], float),
-                                       rtol=1e-12)
+            np.testing.assert_allclose(np.asarray(a[col], float)[ia],
+                                       np.asarray(b[col], float)[ib], rtol=1e-12)
     lst_t = tbol.blackbody_lstsq(g_t[-1], 0.002)
     lst_j = jbol.blackbody_lstsq(g_j[-1], 0.002)
     np.testing.assert_allclose(lst_t, lst_j, rtol=1e-6)
@@ -150,3 +164,37 @@ def test_do_mcmc_false_masks_the_mcmc_columns():
 def test_refusals(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         tbol.calculate_bolometric(_lc(TLC), device="cpu", **kwargs)
+
+
+# Packs the 65 epochs of >= 3 filters of SN 2016bkv by chip_smoke.sn2016bkv_packed,
+# on the CPU, importing only the port, and prints a digest of the arrays.
+_PACK_DIGEST = """
+import hashlib, sys
+import chip_smoke
+packed = chip_smoke.sn2016bkv_packed("cpu")
+assert not any(m == "jax" or m.startswith(("jax.", "lightcurve_fitting_tpu."))
+               for m in sys.modules)
+h = hashlib.sha256()
+for k in ("y", "dy", "nodes", "weights", "mask", "yscale"):
+    h.update(k.encode())
+    h.update(packed[k].numpy().tobytes())
+print(packed["y"].shape[0], h.hexdigest())
+"""
+
+
+def test_packing_is_the_same_under_any_hash_seed():
+    """SN 2016bkv's packed epochs have the same bits under PYTHONHASHSEED 1
+    and 2, which binned the bands in different orders while ``LC.bin`` took
+    its group keys in a set's order."""
+    root = os.path.join(os.path.dirname(__file__), "..")
+    procs = [subprocess.Popen([sys.executable, "-c", _PACK_DIGEST], cwd=root,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env={**os.environ, "PYTHONHASHSEED": str(seed),
+                                   "PYTHONPATH": root})
+             for seed in (1, 2)]
+    digests = []
+    for proc in procs:
+        out, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, err
+        digests.append(out.split()[-2:])
+    assert digests[0] == digests[1] and int(digests[0][0]) == 65

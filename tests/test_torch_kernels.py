@@ -26,7 +26,9 @@ constant added in the compute dtype: near the best fit the residual sum and
 c cancel, and float32 rounding scales with the terms, not with their sum
 (plain float32 itself is 1e-3 |ll| from float64 there). K3 per point:
 float32 <= 1e-5 relative (a sum of up to 89 non-negative float32 terms in
-another order, ~89 ulps at worst), float64 <= 1e-12 relative. K4, with
+another order, ~89 ulps at worst), float64 <= 1e-12 relative; its two
+forms (a thread or a warp per (walker, point)) bit-equal, and on the CPU
+the rule choosing the form. K4, with
 and without intrinsic scatter, within 1e-5 (float32) and 1e-10 (float64) of
 its log-posterior's scale and 1e-4 and 1e-9 of its gradient's, the scales of
 ``EpochPosterior.term_scales``: the summed magnitudes of the pieces that
@@ -36,9 +38,10 @@ the epoch half-step as K2, its new log-posteriors within 1e-5 (float32) and
 against the plain sum and the JAX package's; K4p against the plain polish
 on the card, the same alive set and centers within POLISH_REL, and on the
 CPU its Adam step and chain rule bit for bit against CosineAdam and
-autograd; K4s's integral float32 <= 1e-5 relative; K5's
-percentiles bit-equal to the plain version's. K6a as K2, its log pi and
-log L held as K1's; K6b's log pi <= 1e-12 relative and log L as K1's at the
+autograd; K4s's integral float32 <= 1e-5 relative; K5's percentiles
+bit-equal to the plain version's, on its edge cases too
+(``chip_smoke.K5_EDGE_CASES``), and on the CPU its refusals. K6a as K2,
+its log pi and log L held as K1's; K6b's log pi <= 1e-12 relative and log L as K1's at the
 ladders' shapes, each rung its own states and one set written to every
 rung (``copies``), and over ShockCooling2 and CompanionShocking2 bit for
 bit the values K6a stored at the states it accepted; on the CPU its
@@ -467,6 +470,50 @@ def test_longest_terms_counts_the_real_bands_nodes():
 
 
 @pytest.mark.parametrize("n_sm", [132, 114])
+def test_k3_form_runs_a_warp_per_pair_where_the_pairs_cannot_fill_the_card(n_sm):
+    """k3_form on an H100 (SXM 132 SMs, PCIe 114): the warp form at
+    ShockCooling3.evaluate's one walker x 149 points and up to
+    K3_THREAD_PAIRS_PER_SM pairs an SM, the thread form from there, and at
+    the 131072 x 149 batch."""
+    cross = sc3.K3_THREAD_PAIRS_PER_SM * n_sm
+    for pairs in (1, 149, 8 * 149, cross - 1):
+        assert sc3.k3_form(pairs, n_sm) == "warp", pairs
+    for pairs in (cross, 4096 * 149, 131072 * 149):
+        assert sc3.k3_form(pairs, n_sm) == "thread", pairs
+    # a form the wrapper does not know is refused before anything else
+    meta = torch.empty((2, 3), dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="'thread' or 'warp', not 'block'"):
+        sc3.bandflux_launch("block", meta, meta, meta, meta)
+
+
+@pytest.mark.parametrize("case", ["q0", "q9", "n0", "float64", "rank-1d"])
+def test_k5_refuses_before_the_device(case):
+    """K5's wrapper refuses no percentile or more than MAX_Q of them, an
+    empty row, rows that are not float32 and a 1-D tensor before it looks
+    at the device (here a meta tensor, which would be refused for its
+    device), and launches nothing."""
+    before = dict(kernels.LAUNCHES)
+    rows = torch.empty((4, 50), device="meta")
+    q = [16.0, 50.0, 84.0]
+    err, match = ValueError, "1 to 8 percentiles"
+    if case == "q0":
+        q = []
+    elif case == "q9":
+        q = list(np.linspace(0.0, 100.0, kquantile.MAX_Q + 1))
+    elif case == "n0":
+        rows, match = torch.empty((4, 0), device="meta"), "N > 0"
+    elif case == "float64":
+        rows, err, match = rows.double(), TypeError, "float32"
+    else:
+        rows, match = rows[0], "N > 0"
+    with pytest.raises(err, match=match):
+        kquantile.percentile_rows(rows, q)
+    with pytest.raises(ValueError, match="K5 runs on CUDA"):   # the same call, well formed
+        kquantile.percentile_rows(torch.empty((4, 50), device="meta"), [16.0, 50.0, 84.0])
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("n_sm", [132, 114])
 def test_k6d_splits_fill_the_card(n_sm):
     """k6d_splits: at the evidence bench shape (4 blocks of ~37 steps x 16
     rungs x 2048 pairs of walkers) enough splits that the grid holds
@@ -814,6 +861,56 @@ def test_k3_matches_plain_on_card(lc_flux, cuda_device, f64):
         want = bandflux_pointwise_plain(nodes[ids], weights[ids], T[:64], R[:64], 500.0,
                                         k_ext[ids], 0.3)
         assert bool(((got - want).abs() <= rel * want.abs()).all())
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+@pytest.mark.parametrize("W", [1, 64, 4096])
+def test_k3_forms_equal_on_card(lc_flux, cuda_device, f64, W):
+    """K3's warp form (a warp per (walker, point)) and thread form give the
+    same bits, with and without the extinction and a cutoff, and the
+    wrapper's pick equals both; each launch counted once."""
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        (nodes, weights, k_ext), ids, T, R, ebv = _k3_inputs(lc_flux, cuda_device, W, 9)
+        n0 = kernels.LAUNCHES["bandflux"]
+        for cutoff, kx in ((np.inf, k_ext), (np.inf, None), (500.0, k_ext), (500.0, None)):
+            kw = dict(k_ext=kx, ebv=ebv, band_ids=ids)
+            warp = sc3.bandflux_launch("warp", nodes, weights, T, R, cutoff, **kw)
+            thread = sc3.bandflux_launch("thread", nodes, weights, T, R, cutoff, **kw)
+            assert torch.equal(warp, thread), (cutoff, kx is None)
+            assert torch.equal(bandflux_pointwise(nodes, weights, T, R, cutoff, **kw), warp)
+        assert kernels.LAUNCHES["bandflux"] == n0 + 12
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_k3_warp_form_takes_long_rows_on_card(lc_flux, cuda_device, f64):
+    """Rows of 9000 nodes, which the thread form's block still stages and
+    of which fewer than four warps' terms and weights fit a block (three in
+    float32, one in float64): the warp form takes them and gives the thread
+    form's bits."""
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        (nodes, weights, k_ext), ids, T, R, ebv = _k3_inputs(lc_flux, cuda_device, 3, 10)
+        K = 9000
+        s = torch.linspace(0.0, 1.0, K, dtype=torch.float64, device=cuda_device)
+        lo, hi = nodes.min(1, keepdim=True).values, nodes.max(1, keepdim=True).values
+        long_nodes = (lo + (hi - lo) * s).contiguous()
+        long_weights = (weights.sum(1, keepdim=True) / K).expand(-1, K).contiguous()
+        long_k = (k_ext.mean(1, keepdim=True) * (1.5 - s)).contiguous()
+        for cutoff in (np.inf, 500.0):
+            kw = dict(k_ext=long_k, ebv=ebv, band_ids=ids)
+            warp = sc3.bandflux_launch("warp", long_nodes, long_weights, T, R, cutoff, **kw)
+            thread = sc3.bandflux_launch("thread", long_nodes, long_weights, T, R, cutoff, **kw)
+            assert torch.isfinite(warp).all() and bool((warp >= 0).all())
+            assert torch.equal(warp, thread), cutoff
     finally:
         config.set_compute_dtype(config.AUTO)
 
@@ -1216,8 +1313,12 @@ def test_k4s_and_k5_match_plain_on_card(cuda_device, cutoff_freq):
     flat = rows.reshape(E * 4, -1).contiguous()
     pct = kquantile.percentile_rows(flat, [16, 50, 84])
     assert torch.equal(pct, percentile_f32_plain(flat, [16, 50, 84], axis=1))
+    # the edge cases: IEEE specials, subnormals, ties, N = 1, 2, 3201, a row
+    # past the block's shared memory, 1 and 8 percentiles, 0 and 100
+    import chip_smoke
+    assert chip_smoke.k5_edge_cases_match(cuda_device) > 0
     assert kernels.LAUNCHES["epoch_summary"] == n0["epoch_summary"] + 2
-    assert kernels.LAUNCHES["percentile"] == n0["percentile"] + 1
+    assert kernels.LAUNCHES["percentile"] == n0["percentile"] + 1 + len(chip_smoke.K5_EDGE_CASES)
 
 
 @pytest.mark.cuda

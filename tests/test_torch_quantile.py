@@ -6,7 +6,12 @@ Tolerances: the order statistics are identical (bit for bit, the sign of
 zero included: both find the same int32 key); the float64 interpolation
 between them within 1e-13 relative (the two frameworks round the same
 three operations); non-float32 input goes to ``torch.quantile`` and
-``jnp.percentile``, which agree within 1e-13 relative.
+``jnp.percentile``, which agree within 1e-13 relative. K5's edge cases
+(``chip_smoke.K5_EDGE_CASES``, which the card holds K5 to bit for bit) are
+held here the same way, but for subnormal values: the JAX function flushes
+them to zero (its docstring), so there the order statistics are held to
+numpy's sort and the percentiles to the JAX function's where neither is
+subnormal.
 """
 
 import numpy as np
@@ -21,6 +26,8 @@ import jax.numpy as jnp  # noqa: E402
 from lightcurve_fitting_tpu.ops import quantile as jq  # noqa: E402
 
 from lightcurve_fitting_tpu_torch.ops import quantile as tq  # noqa: E402
+
+import chip_smoke  # noqa: E402  (run from the repository's root)
 
 Q = [16.0, 50.0, 84.0]
 
@@ -67,6 +74,48 @@ def test_order_statistics_identical(n):
     # exact integer, so +-inf brackets interpolate to nan in both packages
     comparable = (ref != 0) & np.isfinite(ref)
     assert np.array_equal(got[comparable], ref[comparable])
+
+
+def _integer_ranks(n):
+    """Percentiles whose rank over n values is an exact integer (the first,
+    the middle and the last order statistic), and those ranks."""
+    ranks = sorted({0, n // 2, n - 1})
+    q = np.array([100.0 * k / (n - 1) if n > 1 else 50.0 for k in ranks])
+    h = (n - 1) * q / 100.0
+    keep = h == np.floor(h)
+    return list(q[keep]), list(h[keep].astype(np.int64))
+
+
+@pytest.mark.parametrize("name", [c for c in chip_smoke.K5_EDGE_CASES if c != "long"])
+def test_k5_edge_rows_match_jax(name):
+    """K5's edge cases but the 70000-value row (the card's global-memory
+    branch, the same arithmetic): +-0.0 and +-inf, subnormals, an all-equal
+    row, N = 1, 2 and 3201, one and eight percentiles, 0 and 100. The
+    percentiles within 1e-13 of the JAX function's, the order statistics
+    (integer ranks) bit for bit, and equal to numpy's sort. Subnormals
+    flush to zero in the JAX function, so in that case only the order
+    statistics are held bit for bit (to numpy's sort), and the percentiles
+    to the JAX function's where neither side is subnormal."""
+    rows, q = chip_smoke.k5_edge_case(name)
+    n = rows.shape[1]
+    got, want = _both(rows, q, axis=1)
+    assert got.shape == want.shape == (len(q), rows.shape[0]) and got.dtype == np.float64
+    q_os, ranks = _integer_ranks(n)
+    os_got, os_want = _both(rows, q_os, axis=1)
+    ref = np.sort(rows.astype(np.float64), axis=1)[:, ranks].T
+    # numpy's sort ties -0.0 with +0.0 (the keys order them), and an
+    # infinite order statistic interpolates to nan (inf + 0 x nan)
+    comparable = (ref != 0) & np.isfinite(ref)
+    assert np.array_equal(os_got[comparable], ref[comparable])
+    if name == "subnormal":
+        tiny = np.finfo(np.float32).tiny
+        assert (np.abs(os_got[comparable]) < tiny).any()      # the case holds subnormals
+        normal = ~((np.abs(got) < tiny) & (got != 0)) & ~((np.abs(want) < tiny) & (want != 0))
+        normal &= ~((want == 0) & (got != 0))                  # flushed by the JAX function
+        np.testing.assert_allclose(got[normal], want[normal], rtol=1e-13, atol=0.0)
+    else:
+        assert np.array_equal(os_got.view(np.int64), os_want.view(np.int64))
+        np.testing.assert_allclose(got, want, rtol=1e-13, atol=0.0, equal_nan=True)
 
 
 def test_leading_axis_and_batch_shape():

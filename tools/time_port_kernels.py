@@ -57,8 +57,18 @@ and of the fits, float32 compute, by CUDA events:
   32 and 250 x 7 x 64: ``K6d_*``); each timed and hashed; K6d at the
   bench shape with its splits aimed at 2, 4 and 8 CTAs an SM
   (``K6d_cta*_dev``), timed;
+* K3 in each of its forms at 1, 8, 64, 96, 128, 160, 192, 256, 512 and
+  4096 walkers x the 149 flagship points (``K3_W*_thread_dev``,
+  ``K3_W*_warp_dev``: the forms' crossover lies among them; a checkout
+  with one form times it as ``thread``) and at 131072 (``K3_W131072_dev``),
+  and K5 (16/50/84) on the summary rows of the bolometric paths' 65 and
+  256 epochs x 3200 samples (``K5_E65``, ``K5_E256``, each ``_dev``); each
+  timed and hashed;
 * hashed only, at ``chip_smoke.py``'s shapes: K3, K4 with its gradient,
-  K4s, K5, K6c and K6d;
+  K4s, K5, K6c and K6d; and SN 2016bkv's 65 packed epochs
+  (``SN2016bkv_inputs``: ``y``, ``dy``, ``nodes``, ``weights``, ``mask``,
+  ``yscale``), which tells a change of the bolometric inputs from one of
+  the kernels;
 * with ``--fits``, the wall times of ``calculate_bolometric`` on SN
   2016bkv (``chip_smoke.py`` 13a) and of the bolometric bench shape (13b:
   the centering and 256 x 32 x (200 + 100) with summaries, seed 1) with a
@@ -84,8 +94,8 @@ tell a kernel's code apart from its placement.
 Each kernel's outputs at fixed inputs are hashed (``digest``): two checkouts
 whose kernel computes the same bits print the same digest. The ptxas report
 of the gradient kernels, of the SC2, SC3, CS and epoch warp kernels, of K4
-(both forms), K4p, K6c, K6d and K4s (registers, stack frame, spills) comes
-from the build.
+(both forms), K4p, K6c, K6d, K4s, K3 (both forms) and K5 (registers, stack
+frame, spills) comes from the build.
 
 Usage: ``python3 tools/time_port_kernels.py [--repo PATH] [--label NAME]
 [--fits]``. ``--repo`` is the checkout whose ``lightcurve_fitting_tpu_torch``
@@ -124,7 +134,7 @@ SC3_UP = [2.0, 2.0, 20.0, 5.0, D_L + 0.005, 0.1, 57468.7]
 PTXAS_KERNELS = ("nuts_transition", "hmc_transition", "logpost_grad", "SC2WarpModel",
                  "SC3WarpModel", "stretch_half_step_kernelI8SC3Model", "CSWarpModel",
                  "epoch_map_polish", "EpochBBModel", "replica_swap", "epoch_summary",
-                 "epoch_logpost", "rung_block_terms")
+                 "epoch_logpost", "rung_block_terms", "bandflux", "percentile")
 
 
 def events_ms(fn, launches, repeats):
@@ -497,6 +507,33 @@ def main():
                                   ebv=ebv[:1], band_ids=ll3.band_ids)
     times["K3_W1"] = events_ms(k3_one, 100, args.repeats)
     times["K3_W1_dev"] = device_ms(k3_one, "bandflux", 100, args.repeats)
+    # K3 in each form at 1-4096 walkers x the 149 points, about k3_form's
+    # crossover (96-256 walkers on 132 SMs; a checkout without
+    # sc3.bandflux_launch times its one form as "thread"), and at 131072 as
+    # the wrapper picks
+    rng_k3 = np.random.default_rng(41)   # its own stream: the draws below stay as they were
+    p3w = torch.as_tensor(rng_k3.uniform(SC3_LO, SC3_UP, size=(131072, 7)), device=dev)
+    T3w, R3w = ShockCooling3(lcf, device=dev)._tr_points(ll3.t, *[p3w[:, i:i + 1] for i in
+                                                                (0, 1, 2, 3, 6)])
+    ebv3w = torch.as_tensor(rng_k3.uniform(0.0, 1.0, size=(131072, 1)), device=dev)
+    k3_forms = ("thread", "warp") if hasattr(sc3, "bandflux_launch") else ("thread",)
+    for w3 in (1, 8, 64, 96, 128, 160, 192, 256, 512, 4096):
+        for form in k3_forms:
+            def k3(w3=w3, form=form):
+                args3 = (ll3.nodes, ll3.weights, T3w[:w3], R3w[:w3])
+                kw3_ = dict(k_ext=ll3.k_ext, ebv=ebv3w[:w3], band_ids=ll3.band_ids)
+                if len(k3_forms) == 1:
+                    return bandflux_pointwise(*args3, **kw3_)
+                return sc3.bandflux_launch(form, *args3, **kw3_)
+            times[f"K3_W{w3}_{form}_dev"] = device_ms(k3, "bandflux", 100 if w3 < 4096 else 20,
+                                                      args.repeats)
+            digests[f"K3_W{w3}_{form}"] = digest(k3())
+
+    def k3_wide():
+        return bandflux_pointwise(ll3.nodes, ll3.weights, T3w, R3w, k_ext=ll3.k_ext, ebv=ebv3w,
+                                  band_ids=ll3.band_ids)
+    times["K3_W131072_dev"] = device_ms(k3_wide, "bandflux", 5, args.repeats)
+    digests["K3_W131072"] = digest(k3_wide())
     packed, truth = chip_smoke.bench_epochs(np.random.default_rng(0), dev)
     ep = EpochPosterior(packed, chip_smoke.bol_priors())
     E = ep.n_epochs
@@ -751,6 +788,14 @@ def main():
         times[f"K4s_E{Em}_f64"] = events_ms(k4s_f64, 20, args.repeats)
         times[f"K4s_E{Em}_f64_dev"] = device_ms(k4s_f64, "epoch_summary", 20, args.repeats)
         digests[f"K4s_E{Em}_f64"] = digest(k4s_f64())
+        # K5 on those summary rows (Em x 4 rows of 3200 samples: 13a's and
+        # 13b's widths), 16/50/84
+
+        def k5(rows_m=k4s().reshape(Em * 4, -1).contiguous()):
+            return kq.percentile_rows(rows_m, [16.0, 50.0, 84.0])
+        times[f"K5_E{Em}"] = events_ms(k5, 20, args.repeats)
+        times[f"K5_E{Em}_dev"] = device_ms(k5, "percentile", 20, args.repeats)
+        digests[f"K5_E{Em}"] = digest(k5())
 
     # the CS log-posterior in float64 compute at the widths above, on the
     # absolute float64 state of a float64 fit (CS_logpost_W*_f64)
@@ -786,6 +831,9 @@ def main():
     # digests, an rng of their own
     rng_k = np.random.default_rng(41)
     shapes4 = {256: packed, 65: chip_smoke.sn2016bkv_packed(dev)}
+    digests["SN2016bkv_inputs"] = digest(*(shapes4[65][k] for k in ("y", "dy", "nodes",
+                                                                     "weights", "mask",
+                                                                     "yscale")))
     clouds = {}
     for label, cdt in (("", torch.float32), ("_f64", torch.float64)):
         try:
