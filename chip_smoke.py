@@ -10,8 +10,10 @@ raises and the script exits non-zero):
 2. build: nvcc compiles the kernels from ``kernels/csrc/``; the
    block-per-chain kernels (K9, K7h, K7's block form), K4p, the epoch
    half-step, K4's values in both forms, the SC3 and CS log-posteriors, K1,
-   K6b, K6c, K6d, K4s, K3's warp form and K5 must have no stack frame and
-   no spills (ptxas);
+   K6b, K6c, K6d, K4s, K3's warp form, K5 and K8 must have no stack frame
+   and no spills (ptxas); K6a over SC3's report is printed; the native host
+   kernels must have built from the port's own source
+   (``utils/native/lcf_native.cpp``: the bolometric packing assumes them);
 3. K1 (a warp per walker, the half-step's form) against its plain PyTorch
    version at 131072 walkers on the flagship (SN 2016bkv, ShockCooling2),
    float32 (<= 1e-5 |ll|, same -inf set) and float64 (<= 1e-10 |ll|),
@@ -111,10 +113,14 @@ raises and the script exits non-zero):
 14. K6a, the tempered half-step (h = 0, 1), against its plain version on the
     ShockCooling2 ladders (a warp per walker) of the evidence bench shape
     (17 rungs x 4096 walkers) and of the PT fit (7 x 32), float32 and
-    float64 compute on the float32 rescaled state, each timed, and on a
-    ShockCooling3 ladder of 17 x 512: accept flags agree except near-ties,
-    new states bit-equal where they agree, log pi and log L within K1's
-    tolerances; the proposals' log pi + log L against K7's value as in 4;
+    float64 compute on the float32 rescaled state, each timed, and on the
+    ShockCooling3 ladder of the SC3 evidence (16d: 17 x 512, a warp per
+    walker, the profiler showing ``SC3WarpModel``; float32 within 1e-5 and
+    float64 within 1e-12 of the term scale), timed: accept flags agree
+    except near-ties, new states bit-equal where they agree, log pi and log
+    L within K1's tolerances, and K6b at the states K6a left gives its
+    stored values bit for bit; the proposals' log pi + log L against K7's
+    value as in 4;
 15. K6b, the ladder's initial state (a warp per state), against the plain
     split of the log-posterior, float32 and float64: each rung its own
     states (17 x 4096, 1% outside the priors), and as the ladders call it,
@@ -123,12 +129,14 @@ raises and the script exits non-zero):
     64; SC3 17 x 512), each timed, the profiler showing the warp kernel;
     K6b at the states K6a left gives K6a's stored values bit for bit (14,
     23); K6c, the replica exchange, bit-equal to its plain version at
-    the ladders' shapes (17 rungs x 4096 and x 32, 7 x 32; 17 x 4096 and 7 x
-    64 with 7 parameters; both parities, production and burn-in steps, a
+    the ladders' shapes (17 rungs x 4096 and x 32, 7 x 32; 17 x 4096, 7 x
+    64 and 17 x 512 with 7 parameters; both parities, production and
+    burn-in steps, a
     -inf log L row, the beta = 0 rung), each timed (events and the
     profiler's device time); K6d, the stepping-stone block terms (one pass,
     the splits of each block combined in the same launch), float64 <= 1e-12
-    relative at the evidence bench shape and two launches bit-equal; its
+    relative at the evidence bench shape and at the SC3 evidence's (150 x 17
+    x 512), two launches bit-equal; its
     edge cases (a NaN, a +inf, one -inf, a split of -inf in a finite block,
     a block of -inf) at block lengths the splits do not divide, with 16-byte
     and scalar loads, NaN positions equal to the plain version's; the one-
@@ -144,7 +152,12 @@ raises and the script exits non-zero):
     (32 walkers, 6 rungs, 250 + 350 steps), cold medians in range; (c)
     ``compare_models`` on synthetic ShockCooling2 photometry, snug priors
     against wide ones, the log Bayes factor in (3, 20); the launch counters,
-    reset before (a), show it ran through K6a-K6d;
+    reset before (a), show it ran through K6a-K6d; (d) ``lightcurve_evidence``
+    on ShockCooling3 (the priors and window of 9; 512 walkers x 16 rungs +
+    beta = 1 x 150 + 150; seeds 1 and 2), log Z within 4 hypot(err,
+    err_jax) of the JAX package's float64 CPU values, the counters, reset
+    before, showing one run's 600 K6a (over ``SC3WarpModel``), 300 K6c, 1 K6b
+    and 1 K6d launches and no plain version, a profiled run's time split;
 17. K7, the log-posterior and its gradient, against autograd through the
     plain log-posterior at 131072 flagship walkers (1% outside the priors,
     and 131072 more with t < t_exp) and at the MAP's 64 starts: values as
@@ -180,12 +193,16 @@ raises and the script exits non-zero):
     gradient included; the block form's N = 5), K9 and K7h over SC2, held
     to the tolerances above over the term scale (0.5 x the summed residual
     terms' magnitudes, the scatter's log term included, + |constant|);
-22. K8, the SiFTO spline, against ``sifto_points_plain`` at 131072 walkers x
-    the 108 points of the synthetic SN 2017cbv-style Ia curve
+22. K8, the SiFTO spline, in each form (the rows staged once a block, or
+    read where they lie: ``kernels/cs.py::k8_form``) against
+    ``sifto_points_plain`` at 131072 walkers x the 108 points of the
+    synthetic SN 2017cbv-style Ia curve
     (tests/test_companion_shocking.py::make_ia_lc, rebuilt with the port),
     and on whole-day times whose phases fall on the knots, at both ends,
     outside, NaN and infinite: float32 <= 1e-6 and float64 <= 1e-13 of the
-    band's template peak, identical zero sets;
+    band's template peak, identical zero sets; the two forms bit-equal
+    there and at 1, 2 and the crossover's walkers +- 1, the profiler showing
+    the form the wrapper picks; each form timed at 1 and 131072 walkers;
 23. the CS log-posterior (a warp per walker, the half-step's form) of
     CompanionShocking, CompanionShocking2, CompanionShocking3 and
     CompanionShocking with the scatter (9 parameters) against its plain
@@ -1979,11 +1996,19 @@ EV_LOGZ_BENCH = (-12961.48, 0.35)
 EV_LOGZ_JAX = {1: (-12961.726035036969, 0.35948034181695665),
                2: (-12961.6943474302, 0.36863427679266486)}
 LADDER_KERNELS = ("tempered_half_step", "ladder_init", "replica_swap", "rung_block_terms")
+# ShockCooling3's evidence (16d): SC3's priors and window (phase 9), 512
+# walkers x 16 rungs + beta = 1 x 150 + 150 steps, held to the JAX package's
+# float64 CPU log Z at the same seeds and shape, made by
+# `PYTHONPATH=. python tests/test_torch_evidence.py sc3`
+# (tests/test_torch_evidence.py::jax_sc3_evidence)
+SC3_EV_WALKERS = 512
+SC3_EV_LOGZ_JAX = {1: (2472.1758707502495, 77.54078680865939),
+                   2: (2478.443727283485, 91.37822305342651)}
 # K6c's shapes (rungs, walkers, ndim): the evidence of SC2 (16a) and CS2 (24c),
 # compare_models on synthetic photometry (16c), the PT fits of SC2 (16b) and
-# CS2 (24c)
+# CS2 (24c), the evidence of SC3 (16d)
 K6C_SHAPES = ((EV_RUNGS + 1, EV_WALKERS, 4), (EV_RUNGS + 1, 32, 4), (7, 32, 4),
-              (EV_RUNGS + 1, EV_WALKERS, 7), (7, 64, 7))
+              (EV_RUNGS + 1, EV_WALKERS, 7), (7, 64, 7), (EV_RUNGS + 1, SC3_EV_WALKERS, 7))
 # K6d's one-split shapes (steps, rungs, walkers): the production log L of the
 # PT fits of SC2 (16b) and CS2 (24c) and of compare_models (16c)
 K6D_ONE_SPLIT_SHAPES = ((250, 7, 32), (250, 17, 32), (250, 7, 64))
@@ -2077,26 +2102,36 @@ def phase_k6a(lc, lcf, seed=8):
                                                n * (2 * 4 * 4 + 2 * 8 + 4 + 8 + 4) + rungs * 8
                                                + n * (4 * 4 + 2 * 8 + 4))
                 if rungs == K6A_LADDERS[0][0]:
-                    name = expect_kernel(step, "tempered_half_step_kernel", "SC2WarpModel",
-                                         "true>")
+                    name = expect_kernel(step, "tempered_half_step_kernel", "SC2WarpModel")
                     fns = ladder.plain_functions(lp, off, sc)
                     xp, pp, lpl = x0.clone(), pri0.clone(), ll0.clone()
                     plain_ms = cuda_ms(lambda: ladder.tempered_half_step_plain(
                         *fns, xp, pp, lpl, betas, 0, u_z, j, u_acc, 2.0), repeats=5)
         finally:
             config.set_compute_dtype(config.AUTO)
-    # K6a over SC3 (a thread per walker), 17 rungs x 512
+    # K6a over SC3 (a warp per walker), 17 rungs x 512: the ladder of the
+    # SC3 evidence (16d), float32 and float64 compute, K6b at the states it
+    # left giving its stored values bit for bit; timed in float32
     R = EV_RUNGS + 1
-    lp3, off3, sc3_, x3 = ladder_setup(ShockCooling3(lcf), lcf, sc3_priors(), SC3_LO, SC3_UP, R,
-                                       512, np.random.default_rng(seed), dev)
-    t3 = check_ladder("SC3 ladder", lp3, off3, sc3_, x3, seed, 1e-5, same_bits=False)
-    # its time (no main path runs it yet)
+    t3 = {}
+    for label in ("f64", "f32"):       # (float32 last: its ladder is timed below)
+        try:
+            if label == "f64":
+                config.set_compute_dtype(None)
+            lp3, off3, sc3_, x3 = ladder_setup(ShockCooling3(lcf), lcf, sc3_priors(), SC3_LO,
+                                               SC3_UP, R, SC3_EV_WALKERS,
+                                               np.random.default_rng(seed), dev)
+            t3[label] = check_ladder(f"SC3 ladder {label}", lp3, off3, sc3_, x3, seed,
+                                     1e-5 if label == "f32" else 1e-12)
+        finally:
+            config.set_compute_dtype(config.AUTO)
     pri3, ll3 = ladder.ladder_init(lp3, x3, off3, sc3_)
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
-    shape3 = (R, 2, 256)
+    h3 = SC3_EV_WALKERS // 2
+    shape3 = (R, 2, h3)
     uz3 = torch.rand(shape3, generator=g, device=dev)
-    j3 = torch.randint(0, 256, shape3, generator=g, device=dev)
+    j3 = torch.randint(0, h3, shape3, generator=g, device=dev)
     ua3 = torch.rand(shape3, generator=g, device=dev)
     betas3 = torch.as_tensor(make_beta_ladder(R - 1), device=dev)
     state3 = (x3.clone(), pri3.clone(), ll3.clone())
@@ -2105,12 +2140,13 @@ def phase_k6a(lc, lcf, seed=8):
     def step3():
         ladder.tempered_half_step(lp3, *state3, betas3, 0, uz3, j3, ua3, 2.0, off3, sc3_, a3,
                                   check_partners=False)
+    name3 = expect_kernel(step3, "tempered_half_step_kernel", "SC3WarpModel<float, 0>")
     sc3_ms = (cuda_ms(step3), device_ms(step3, "tempered_half_step_kernel", 20, 1)[0])
     plain3 = (x3.clone(), pri3.clone(), ll3.clone())
     sc3_plain_ms = cuda_ms(lambda: ladder.tempered_half_step_plain(
         *ladder.plain_functions(lp3, off3, sc3_), *plain3, betas3, 0, uz3, j3, ua3, 2.0),
         repeats=2)
-    n3 = R * 256
+    n3 = R * h3
     sc3_bound = bound_fields(n3 * (sc3_eval_ops(lp3.log_likelihood) + PROPOSAL),
                              n3 * (2 * 7 * 4 + 2 * 8 + 4 + 8 + 4) + R * 8 + n3 * (7 * 4 + 2 * 8 + 4))
     top = K6A_LADDERS[0][0]
@@ -2119,29 +2155,34 @@ def phase_k6a(lc, lcf, seed=8):
           + "; ".join(f"{r} x {2 * hh} {lab}: {v[1]} accepts, flags agree except {v[0]} "
                       f"near-ties, log L max |d| {v[2]:.3e} (K6b {v[3]:.3e})"
                       for (lab, r, hh), v in lads.items())
-          + f"; SC3 {R} x 512: {t3[1]} accepts, {t3[0]} near-ties, log L max |d| {t3[2]:.3e} "
-          f"(K6b {t3[3]:.3e}); states and log pi bit-equal where the flags agree; "
+          + "; SC3 " + "; ".join(
+              f"{R} x {SC3_EV_WALKERS} {lab}: {v[1]} accepts, {v[0]} near-ties, log L max |d| "
+              f"{v[2]:.3e} (K6b {v[3]:.3e})" for lab, v in t3.items())
+          + "; states and log pi bit-equal where the flags agree, and K6b at the states K6a "
+          "left (SC2, SC3) its stored log pi and log L bit for bit; "
           f"{kernels.LAUNCHES['tempered_half_step'] - n0} comparison launches; K6a over SC2 "
           "(events; the profiler's device time) " + ", ".join(
               f"{a_ms[r][0]:.4f}; {a_ms[r][1]:.4f} ms per {r} x half {hh} (bound "
               f"{a_bounds[r]['bound_ms']:.5f})" for r, hh in K6A_LADDERS)
           + f", plain {plain_ms:.4f} ms per {top} x half {EV_WALKERS // 2} (f32); K6a over SC3 "
-          f"(a thread per walker) {sc3_ms[0]:.4f}; {sc3_ms[1]:.4f} ms per {R} x half 256 (bound "
+          f"({name3}) {sc3_ms[0]:.4f}; {sc3_ms[1]:.4f} ms per {R} x half {h3} (bound "
           f"{sc3_bound['bound_ms']:.5f}), plain {sc3_plain_ms:.4f} ms; "
           "proposals' log pi + log L (u_acc = 0) that differ from K7's value: "
           + ", ".join(f"{lab} {v[5]} of {v[4]} (max |d| {v[6]:.3e})"
                       for (lab, r, hh), v in lads.items() if len(v) > 4))
-    return {"max_abs_err": max(v[2] for k, v in lads.items() if k[0] == "f32"),
-            "ms": a_ms[top][0], "plain_ms": plain_ms, **a_bounds[top]}
+    return ({"max_abs_err": max(v[2] for k, v in lads.items() if k[0] == "f32"),
+             "ms": a_ms[top][0], "plain_ms": plain_ms, **a_bounds[top]},
+            {"max_abs_err": t3["f32"][2], "ms": sc3_ms[1], "plain_ms": sc3_plain_ms,
+             **sc3_bound})
 
 
 # K6b's ladders (rungs, walkers) as the fits call it: the evidence (16a)
 # and compare_models (16c) of SC2, its PT fit (16b); over CS2 the evidence
 # (24c; compare_models CS2 against CS3 at the same shape) and the PT fit;
-# over SC3 phase 14's ladder
+# over SC3 the evidence (16d)
 K6B_LADDERS = {"sc2": ((EV_RUNGS + 1, EV_WALKERS), (7, 32), (EV_RUNGS + 1, 32)),
                "cs": ((EV_RUNGS + 1, EV_WALKERS), (7, 64)),
-               "sc3": ((EV_RUNGS + 1, 512),)}
+               "sc3": ((EV_RUNGS + 1, SC3_EV_WALKERS),)}
 
 
 def k6b_as_called(name, lp, lo, up, R, W, rng, eval_ops, marks, plain_repeats=0):
@@ -2249,7 +2290,8 @@ def phase_k6bcd(lc, lcf, lc_ia, lc0, seed=9):
                     called[(which, label, R_b, W_b)] = k6b_as_called(
                         f"K6b over {which} {label} {R_b} x {W_b}", lp, lo, up, R_b, W_b, rng,
                         ops(lp.log_likelihood), marks,
-                        3 if (R_b, W_b) in ((R, W), (R, 512)) and label == "f32" else 0)
+                        3 if (R_b, W_b) in ((R, W), (R, SC3_EV_WALKERS)) and label == "f32"
+                        else 0)
             finally:
                 config.set_compute_dtype(config.AUTO)
     timed = {k: v for k, v in called.items() if v[1] is not None}
@@ -2271,10 +2313,11 @@ def phase_k6bcd(lc, lcf, lc_ia, lc0, seed=9):
               for (w, lab, r, wk), v in timed.items())
           + f"; plain {timed[('sc2', 'f32', R, W)][5]:.4f} ms at SC2 {R} x {W}, "
           f"{timed[('cs', 'f32', R, W)][5]:.4f} ms at CS2 {R} x {W}, "
-          f"{timed[('sc3', 'f32', R, 512)][5]:.4f} ms at SC3 {R} x 512 (f32)")
+          f"{timed[('sc3', 'f32', R, SC3_EV_WALKERS)][5]:.4f} ms at SC3 {R} x "
+          f"{SC3_EV_WALKERS} (f32)")
     k6b = {}
-    for which in ("sc2", "cs"):
-        v = timed[(which, "f32", R, W)]
+    for which, w_b in (("sc2", W), ("cs", W), ("sc3", SC3_EV_WALKERS)):
+        v = timed[(which, "f32", R, w_b)]
         k6b[which] = {"max_abs_err": max(d[0] for k, d in called.items()
                                          if k[:2] == (which, "f32")),
                       "ms": v[1], "plain_ms": v[5], **v[3]}
@@ -2357,6 +2400,15 @@ def phase_k6bcd(lc, lcf, lc_ia, lc0, seed=9):
         raise AssertionError(f"K6d: max relative difference {rel:.3e} > 1e-12")
     if not torch.equal(ladder.rung_block_terms(logl, db, bounds), got):
         raise AssertionError("K6d: two launches on the same log L gave other bits")
+    # the SC3 evidence's production log L (16d: 150 steps x 17 rungs x 512)
+    logl3 = torch.as_tensor(2400.0 + 10.0 * np.random.default_rng(seed + 4).normal(
+        size=(EV_STEPS, R, SC3_EV_WALKERS)), device=dev)
+    got3 = ladder.rung_block_terms(logl3, db, bounds)
+    rel3 = float(((got3 - ladder.rung_block_terms_plain(logl3, db, bounds)).abs()
+                  / got3.abs()).max())
+    if rel3 > 1e-12 or not torch.equal(ladder.rung_block_terms(logl3, db, bounds), got3):
+        raise AssertionError(f"K6d at {EV_STEPS} x {R} x {SC3_EV_WALKERS}: max relative "
+                             f"difference {rel3:.3e} > 1e-12, or two launches differ")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     splits = ladder.k6d_splits(4 * EV_RUNGS, (EV_STEPS // 4) * W // 2, n_sm)
     edge = {}
@@ -2426,6 +2478,7 @@ def phase_k6bcd(lc, lcf, lc_ia, lc0, seed=9):
                            rate=FP64_FLOPS)
     phase("K6d", f"{EV_STEPS} steps x {R} rungs x {W} walkers, 4 blocks, {splits} splits a "
           f"(block, rung): max relative difference {rel:.2e} <= 1e-12, two launches bit-equal; "
+          f"at the SC3 evidence's {EV_STEPS} x {R} x {SC3_EV_WALKERS} {rel3:.2e}, bit-equal; "
           "edge cases (a NaN, a +inf, a block of -inf: NaN as the plain version; one -inf, a "
           "split of -inf: 0) at 37 steps x 9 rungs: " + ", ".join(
               f"{We} walkers ({v[1]} splits, blocks of 9-10 steps) max relative difference "
@@ -2560,6 +2613,68 @@ def phase_ladder_main_path(lc, smi):
           f"snug {rows['snug'][0]:.4f} +- {rows['snug'][1]:.4f}, wide {rows['wide'][0]:.4f} +- "
           f"{rows['wide'][1]:.4f}, log Bayes factor {dz:.4f} in (3, 20); launches since 16a "
           f"began {dict(kernels.LAUNCHES)}")
+    return launches
+
+
+def phase_sc3_ladder_main_path(lc, smi):
+    """16d: lightcurve_evidence on ShockCooling3 (SC3's priors and window,
+    SC3_EV_WALKERS walkers x 16 rungs + beta = 1 x 150 + 150 steps), seeds 1
+    and 2, each log Z within 4 hypot(err, err_jax) of the JAX package's
+    float64 CPU value; the counters, reset first, show one run's 600 K6a,
+    300 K6c, 1 K6b and 1 K6d launches and no plain version; the profiler
+    shows K6a over SC3WarpModel; a profiled run's time split."""
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch import kernels
+    from lightcurve_fitting_tpu_torch.fitting import lightcurve_evidence
+    from lightcurve_fitting_tpu_torch.models import ShockCooling3
+
+    priors = sc3_priors()
+    kw = dict(p_lo=SC3_LO, p_up=SC3_UP, nwalkers=SC3_EV_WALKERS, n_rungs=EV_RUNGS,
+              nsteps=EV_STEPS, nsteps_burnin=EV_BURNIN, quiet=True)
+    kernels.reset_launch_counts()
+    runs, times = [], []
+    with PlainCalls() as plain:
+        for seed in (1, 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs.append(lightcurve_evidence(lc, ShockCooling3(lc), priors, seed=seed, **kw))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if seed == 1:
+                launches = dict(kernels.LAUNCHES)
+        wall, prof = profiled(lambda: lightcurve_evidence(lc, ShockCooling3(lc), priors, seed=2,
+                                                          **kw))
+    if plain.count:
+        raise AssertionError(f"{plain.count} plain versions ran on the SC3 ladder path")
+    want = {"tempered_half_step": 2 * (EV_STEPS + EV_BURNIN), "replica_swap": EV_STEPS + EV_BURNIN,
+            "ladder_init": 1, "rung_block_terms": 1}
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"16d: one run launches {want}, not {launches}")
+    k6a_names = sorted({e.key.split("(")[0] for e in prof.key_averages()
+                        if e.device_type.name == "CUDA" and "tempered_half_step" in e.key})
+    if len(k6a_names) != 1 or "SC3WarpModel" not in k6a_names[0]:
+        raise AssertionError(f"16d: K6a must run over SC3WarpModel, the profiler saw {k6a_names}")
+    for (log_z, err, _), seed in zip(runs, (1, 2)):
+        z_ref, e_ref = SC3_EV_LOGZ_JAX[seed]
+        if not np.isfinite(err) or abs(log_z - z_ref) > 4 * np.hypot(err, e_ref):
+            raise AssertionError(f"16d seed {seed}: log Z {log_z:.4f} +- {err:.4f} not within 4 "
+                                 f"hypot of the JAX package's {z_ref} +- {e_ref}")
+    parts, busy = time_split(prof, wall, {
+        "step loop (K6a)": ("tempered_half_step",), "swaps (K6c)": ("replica_swap",),
+        "reduction (K6d)": ("rung_block_terms",), "init (K6b)": ("ladder_init_kernel",)})
+    info = runs[0][2]
+    evals = (EV_RUNGS + 1) * SC3_EV_WALKERS * (EV_STEPS + EV_BURNIN)
+    phase("ladder main path 16d", f"lightcurve_evidence ShockCooling3 {SC3_EV_WALKERS} walkers x "
+          f"{EV_RUNGS} rungs + beta = 1 x {EV_BURNIN}+{EV_STEPS} steps: log Z seed 1 "
+          f"{runs[0][0]:.4f} +- {runs[0][1]:.4f}, seed 2 {runs[1][0]:.4f} +- {runs[1][1]:.4f} "
+          f"(JAX float64 CPU seed 1 {SC3_EV_LOGZ_JAX[1][0]:.4f} +- {SC3_EV_LOGZ_JAX[1][1]:.4f}, "
+          f"seed 2 {SC3_EV_LOGZ_JAX[2][0]:.4f} +- {SC3_EV_LOGZ_JAX[2][1]:.4f}; within 4 hypot); "
+          f"rung acceptance {fmt(info['acceptance'])}; swap rates {fmt(info['swap_rate'])}; "
+          f"{evals / times[0]:.4e} ladder evals/s (runs {', '.join(f'{t:.4f}' for t in times)} s"
+          f"; on {smi}); profiled run {wall:.4f} s, device busy {busy:.4f} s (idle share "
+          f"{1 - busy / wall:.3f}): " + ", ".join(f"{k} {v:.4f} s" for k, v in parts.items())
+          + f"; K6a {k6a_names[0]}; no plain version ran; launches in one run {launches}")
     return launches
 
 
@@ -3431,20 +3546,35 @@ def cs_walkers(rng, variant, W, use_sigma=False):
     return p
 
 
+def k8_bound(W, N, quad):
+    """K8's bound at W walkers x N points: its operations (SIFTO_OPS an
+    element) against its bytes (the output written once, each walker's four
+    parameters and each point's record read once, the rows and knots)."""
+    return bound_fields(W * N * SIFTO_OPS, W * N * 4 + W * 4 * 8 + N * (4 + 8 + 2)
+                        + 4 * (quad["sifto_rows"].numel() + quad["sifto_knots"].numel()))
+
+
 def phase_k8(lc, lc0, rng_seed=16):
-    """22: K8 against sifto_points_plain at 131072 walkers x the 108 points,
-    and on a grid of 108 whole-day times whose phases fall on the knots, at
-    both ends, just and far outside, with NaN and infinite phases."""
+    """22: K8 in each form (the rows staged once a block, or read where they
+    lie: kernels/cs.py::k8_form) against sifto_points_plain at 131072
+    walkers x the 108 points, and on a grid of 108 whole-day times whose
+    phases fall on the knots, at both ends, just and far outside, with NaN
+    and infinite phases; the two forms bit-equal there, at one and two
+    walkers and about the crossover, where the profiler shows the form the
+    wrapper picks; each form timed (the profiler's device time)."""
     import numpy as np
     import torch
     from lightcurve_fitting_tpu_torch import kernels
     from lightcurve_fitting_tpu_torch.core import config
-    from lightcurve_fitting_tpu_torch.kernels import cs
+    from lightcurve_fitting_tpu_torch.kernels import cs, gradient
     from lightcurve_fitting_tpu_torch.models.base import _quad_tensors
     from lightcurve_fitting_tpu_torch.models.companion_shocking import sifto_points_plain
+    from time_port_kernels import device_ms
 
     dev = torch.device("cuda")
     W = HEADLINE_WALKERS
+    N = len(lc)
+    cross = -(-cs.K8_STAGED_ELEMENTS_PER_SM * gradient.sm_count(dev) // N)
     rng = np.random.default_rng(rng_seed)
     f = np.asarray(lc["filter"])
     t_lc = np.asarray(lc["MJD"], float)
@@ -3457,7 +3587,7 @@ def phase_k8(lc, lc0, rng_seed=16):
     g_di = np.where(rng.random(W) < 0.5, rng.integers(-5, 6, W), rng.uniform(-5.0, 5.0, W))
     g_tpk[0], g_s[1], g_s[2] = np.nan, 0.0, np.inf
     cols["grid"] = [g_tpk, g_s, g_du, g_di]
-    res = {}
+    res, picks, dev_ms = {}, {}, {}
     n0 = kernels.LAUNCHES["sifto"]
     for label in ("f32", "f64"):
         try:
@@ -3469,34 +3599,68 @@ def phase_k8(lc, lc0, rng_seed=16):
             for name, t in (("curve", t_lc), ("grid", t_grid)):
                 t = torch.as_tensor(t, device=dev)
                 args = [torch.as_tensor(c[:, None], device=dev) for c in cols[name]]
-                got = cs.sifto(t, quad, *args)
                 want = sifto_points_plain(t, quad, *args)
-                if not torch.equal(got == 0, want == 0) or not torch.isfinite(got).all():
-                    raise AssertionError(f"K8 {label} {name}: the zero sets differ, or a value "
-                                         "is not finite")
-                d = (got - want).abs() / peak
-                if float(d.max()) > tol:
-                    raise AssertionError(f"K8 {label} {name}: max |d|/peak {float(d.max()):.3e} "
-                                         f"> {tol:.0e}")
-                res[(label, name)] = (float((got - want).abs().max()), float(d.max()),
-                                      int((got == 0).sum()))
+                got = {form: cs.sifto_launch(form, t, quad, *args)
+                       for form in ("staged", "direct")}
+                if not torch.equal(got["staged"], got["direct"]) \
+                        or not torch.equal(cs.sifto(t, quad, *args), got["staged"]):
+                    raise AssertionError(f"K8 {label} {name}: the two forms differ")
+                for form, k in got.items():
+                    if not torch.equal(k == 0, want == 0) or not torch.isfinite(k).all():
+                        raise AssertionError(f"K8 {label} {name} {form}: the zero sets differ, "
+                                             "or a value is not finite")
+                    d = (k - want).abs() / peak
+                    if float(d.max()) > tol:
+                        raise AssertionError(f"K8 {label} {name} {form}: max |d|/peak "
+                                             f"{float(d.max()):.3e} > {tol:.0e}")
+                res[(label, name)] = (float((got["direct"] - want).abs().max()),
+                                      float(((got["direct"] - want).abs() / peak).max()),
+                                      int((got["direct"] == 0).sum()))
+                # the forms at the path's width (one walker), two, and about the crossover
+                for w in (1, 2, cross - 1, cross):
+                    sub = [a[:w] for a in args]
+                    one = {form: cs.sifto_launch(form, t, quad, *sub)
+                           for form in ("staged", "direct")}
+                    if not torch.equal(one["staged"], one["direct"]) \
+                            or not torch.equal(one["direct"], got["direct"][:w]):
+                        raise AssertionError(f"K8 {label} {name} at {w} walkers: the forms "
+                                             "differ, or differ from the full batch's rows")
+                    if label == "f32" and name == "curve":
+                        picks[w] = expect_kernel(lambda: cs.sifto(t, quad, *sub), "sifto_kernel",
+                                                 "true>" if w >= cross else "false>", calls=3)
                 if label == "f32" and name == "curve":
+                    for form in ("staged", "direct"):
+                        dev_ms[(form, W)] = device_ms(
+                            lambda: cs.sifto_launch(form, t, quad, *args), "sifto_kernel", 20,
+                            1)[0]
+                        one_w = [a[:1] for a in args]
+                        dev_ms[(form, 1)] = device_ms(
+                            lambda: cs.sifto_launch(form, t, quad, *one_w), "sifto_kernel", 100,
+                            1)[0]
                     k_ms = cuda_ms(lambda: cs.sifto(t, quad, *args))
                     plain_ms = cuda_ms(lambda: sifto_points_plain(t, quad, *args), repeats=5)
+                    plain1_ms = cuda_ms(lambda: sifto_points_plain(t, quad, *one_w), repeats=20)
+                    quad32 = quad
         finally:
             config.set_compute_dtype(config.AUTO)
-    N = len(f)
-    rows = quad["sifto_rows"]
-    k8_bound = bound_fields(W * N * SIFTO_OPS, W * N * 4 + W * 4 * 8 + N * (4 + 8 + 2)
-                            + 4 * (rows.numel() + quad["sifto_knots"].numel()))
+    big, one = k8_bound(W, N, quad32), k8_bound(1, N, quad32)
     phase("K8 22", f"{W} walkers x {N} points, the curve's times and a grid of whole days "
-          f"(knots, both ends, outside; t_peak NaN, stretch 0 and inf): f32 max |d| "
+          f"(knots, both ends, outside; t_peak NaN, stretch 0 and inf): both forms (staged, "
+          f"direct) bit-equal and equal to the wrapper's pick; f32 max |d| "
           f"{res[('f32', 'curve')][0]:.3e} W/Hz, max |d|/peak {max(res[('f32', n)][1] for n in cols):.2e}"
           f" <= 1e-6; f64 max |d|/peak {max(res[('f64', n)][1] for n in cols):.2e} <= 1e-13; zero "
-          f"sets equal ({res[('f32', 'grid')][2]} zeros on the grid); "
-          f"{kernels.LAUNCHES['sifto'] - n0} comparison launches; K8 {k_ms:.4f} ms vs plain "
-          f"{plain_ms:.4f} ms (f32), bound {k8_bound['bound_ms']:.4f} ms ({k8_bound['bound_by']})")
-    return {"max_abs_err": res[("f32", "curve")][0], "ms": k_ms, "plain_ms": plain_ms, **k8_bound}
+          f"sets equal ({res[('f32', 'grid')][2]} zeros on the grid); at 1, 2, {cross - 1} and "
+          f"{cross} walkers (the crossover, {cs.K8_STAGED_ELEMENTS_PER_SM} elements an SM) the "
+          f"forms bit-equal, the wrapper running " + ", ".join(
+              f"{w}: {k}" for w, k in picks.items())
+          + f"; {kernels.LAUNCHES['sifto'] - n0} comparison launches; device ms (the profiler's)"
+          f" at {W} x {N}: staged {dev_ms[('staged', W)]:.4f}, direct {dev_ms[('direct', W)]:.4f}"
+          f" (the wrapper {k_ms:.4f} ms by events, plain {plain_ms:.4f} ms; bound "
+          f"{big['bound_ms']:.4f} ms, {big['bound_by']}); at 1 x {N} (evaluate's width): staged "
+          f"{dev_ms[('staged', 1)]:.4f}, direct {dev_ms[('direct', 1)]:.4f} (plain "
+          f"{plain1_ms:.4f} ms; bound {one['bound_ms']:.6f} ms, {one['bound_by']})")
+    return {"max_abs_err": res[("f32", "curve")][0], "ms": dev_ms[("direct", 1)],
+            "plain_ms": plain1_ms, **one}
 
 
 def phase_cs_logpost(lc, lc0, rng_seed=17):
@@ -3682,13 +3846,16 @@ def phase_cs_logpost(lc, lc0, rng_seed=17):
 
 
 class PlainCalls:
-    """Counts the calls of the plain versions of the CS path's kernels while
-    it is entered (each wrapped where the wrappers look it up)."""
+    """Counts the calls of the plain versions of the CS and SC3 paths'
+    kernels while it is entered (each wrapped where the wrappers look it
+    up)."""
 
     NAMES = [("lightcurve_fitting_tpu_torch.kernels", "log_posterior_plain"),
              ("lightcurve_fitting_tpu_torch.kernels", "stretch_half_step_plain"),
              ("lightcurve_fitting_tpu_torch.kernels.cs", "log_posterior_plain"),
              ("lightcurve_fitting_tpu_torch.kernels.cs", "stretch_half_step_plain"),
+             ("lightcurve_fitting_tpu_torch.kernels.sc3", "log_posterior_plain"),
+             ("lightcurve_fitting_tpu_torch.kernels.sc3", "stretch_half_step_plain"),
              ("lightcurve_fitting_tpu_torch.kernels.ladder", "tempered_half_step_plain"),
              ("lightcurve_fitting_tpu_torch.kernels.ladder", "ladder_init_plain"),
              ("lightcurve_fitting_tpu_torch.kernels.ladder", "replica_swap_plain"),
@@ -3886,7 +4053,8 @@ def main():
                          ("the CS log-posterior", "logpost_warp_kernelI11CSWarpModel", 12),
                          ("K4s", "epoch_summary_kernel", 4),
                          ("K3's warp form", "bandflux_warp_kernel", 2),
-                         ("K5", "percentile_kernel", 8)):
+                         ("K5", "percentile_kernel", 8),
+                         ("K8", "sifto_kernel", 4)):
         block[what] = [v for k, v in report.items() if key in k]
         if len(block[what]) != n or any(v[1] or v[2] or v[3] for v in block[what]):
             raise AssertionError(f"{what} ({n} instantiations) must keep its state in "
@@ -3901,10 +4069,24 @@ def main():
           "log-posterior (ndim 7, 8; its 4 dtype instantiations each), K1 (ndim 4, 5; 4 each), "
           "K6b (over SC2 ndim 4, 5, over SC3 7, 8, over CS 7, 8, 9; 4 each), K6c (ndim 1-9; "
           "f32, f64 state), the CS log-posterior (ndim 7, 8, 9; 4 each), K4s (4 dtype "
-          "instantiations), K3's warp form (f32, f64) and K5 (1-8 percentiles): "
+          "instantiations), K3's warp form (f32, f64), K5 (1-8 percentiles) and K8 (both "
+          "forms, f32, f64): "
           + "; ".join(f"{what} registers {sorted(set(v[0] for v in ks))}, stack frames "
                       f"{sorted(set(v[1] for v in ks))} bytes, spills "
-                      f"{sorted(set(v[2] + v[3] for v in ks))}" for what, ks in block.items()))
+                      f"{sorted(set(v[2] + v[3] for v in ks))}" for what, ks in block.items())
+          + "; K6a over SC3 (the walker's dimension at run time) " + "; ".join(
+              f"registers {v[0]}, stack frame {v[1]} bytes, spills {v[2] + v[3]}"
+              for k, v in report.items()
+              if "tempered_half_step_kernelI12SC3WarpModel" in k))
+    # the bolometric packing (SN 2016bkv's bins) assumes the native binning,
+    # built from the port's own source: the numpy fallback gives other bits
+    from lightcurve_fitting_tpu_torch.utils import native
+    if not native.available():
+        raise AssertionError(f"the native host kernels did not build from "
+                             f"{os.path.relpath(native._SRC, REPO)} (g++?): the bolometric "
+                             "packing assumes them")
+    phase("native", f"host kernels built from {os.path.relpath(native._SRC, REPO)} into "
+          f"{os.path.relpath(native._LIB_PATH, REPO)}")
 
     lc = flagship_lc()
     k1 = phase_k1(lc)
@@ -3921,10 +4103,11 @@ def main():
     k_epoch_half = phase_epoch_half_step()
     k4s, k5 = phase_k4s_k5()
     launches_bol = phase_bolometric_main_path(smi)
-    k6a = phase_k6a(lc, lcf)
+    k6a, k6a_sc3 = phase_k6a(lc, lcf)
     lc_ia, lc0 = ia_lc()
     k6b, k6c, k6d = phase_k6bcd(lc, lcf, lc_ia, lc0)
     launches_ladder = phase_ladder_main_path(lc, smi)
+    launches_sc3_ladder = phase_sc3_ladder_main_path(lc, smi)
     k7 = phase_k7(lc)
     k9 = phase_k9(lc)
     k7h = phase_k7h(lc)
@@ -3975,7 +4158,7 @@ def main():
              source="lightcurve_fitting_tpu_torch/kernels/csrc/quantile.cu",
              replaces="lightcurve_fitting_tpu/ops/quantile.py:46",
              launches=launches_bol["percentile"], **k5),
-        dict(name="tempered_half_step_kernel<SC2WarpModel, WARP> (K6a)", route="cuda",
+        dict(name="tempered_half_step_kernel<SC2WarpModel> (K6a)", route="cuda",
              source=src,
              replaces="lightcurve_fitting_tpu/parallel/evidence.py:60",
              launches=launches_ladder["tempered_half_step"], **k6a),
@@ -4004,7 +4187,7 @@ def main():
              source="lightcurve_fitting_tpu_torch/kernels/csrc/gradient.cuh",
              replaces="lightcurve_fitting_tpu/parallel/hmc.py:241",
              launches=launches_grad["hmc_transition"], **k7h),
-        dict(name="sifto_kernel (K8)", route="cuda", source=src_cs,
+        dict(name="sifto_kernel<C, STAGE> (K8)", route="cuda", source=src_cs,
              replaces="lightcurve_fitting_tpu/models/companion_shocking.py:45",
              launches=launches_cs["sifto"], **k8),
         dict(name="logpost_warp_kernel<CSWarpModel<C, N>> (CS log-posterior)", route="cuda",
@@ -4014,12 +4197,18 @@ def main():
         dict(name="stretch_half_step_kernel<CSWarpModel> (CS half-step)", route="cuda",
              source=src_cs, replaces="lightcurve_fitting_tpu/parallel/sampler.py:86",
              launches=launches_cs["cs_half_step"], **k_cs["half"]),
-        dict(name="tempered_half_step_kernel<CSWarpModel, WARP> (K6a over CS)", route="cuda",
+        dict(name="tempered_half_step_kernel<CSWarpModel> (K6a over CS)", route="cuda",
              source=src_cs, replaces="lightcurve_fitting_tpu/parallel/evidence.py:60",
              launches=launches_cs["tempered_half_step"], **k_cs["k6a"]),
         dict(name="ladder_init_kernel<CSWarpModel<C, N>> (K6b over CS)", route="cuda",
              source=src_cs, replaces="lightcurve_fitting_tpu/parallel/evidence.py:229",
              launches=launches_cs["ladder_init"], **k6b["cs"]),
+        dict(name="tempered_half_step_kernel<SC3WarpModel> (K6a over SC3)", route="cuda",
+             source=src3, replaces="lightcurve_fitting_tpu/parallel/evidence.py:60",
+             launches=launches_sc3_ladder["tempered_half_step"], **k6a_sc3),
+        dict(name="ladder_init_kernel<SC3WarpModel<C, N>> (K6b over SC3)", route="cuda",
+             source=src3, replaces="lightcurve_fitting_tpu/parallel/evidence.py:229",
+             launches=launches_sc3_ladder["ladder_init"], **k6b["sc3"]),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,7 +4,11 @@ the fused CompanionShocking 1-3 log-posterior and half-step.
 * :func:`sifto` (K8, ``sifto_kernel``): the stretched SiFTO term (W, N) of
   every point for every walker, the CUDA route of
   :func:`~lightcurve_fitting_tpu_torch.models.companion_shocking.sifto_points`,
-  whose plain version is ``sifto_points_plain`` beside it.
+  whose plain version is ``sifto_points_plain`` beside it; a warp a
+  walker, its lanes over the points, the knots and cubics staged in shared
+  memory once a block where the elements an SM pay for it, else read
+  where they lie (:func:`k8_form`; the two forms give the same bits).
+  :func:`sifto_launch` runs either form.
 * :func:`log_posterior` (``logpost_warp_kernel`` over ``CSWarpModel``, a
   warp per walker): the CS log-posterior of a batch of walker states; plain
   version ``LogPosterior.forward_plain``.
@@ -30,10 +34,17 @@ from .common import (LAUNCHES, MAX_DIM, FLOATS, check, check_buffers, cuda_args,
                      fill_priors_and_affine, half_step_checks, half_step_args,
                      log_posterior_plain, stretch_half_step_plain)
 
-__all__ = ["sifto", "log_posterior", "stretch_half_step"]
+__all__ = ["sifto", "sifto_launch", "k8_form", "log_posterior", "stretch_half_step"]
 
 #: model parameters (before the intrinsic scatter) of each variant
 _N_MODEL_PARAMS = {1: 8, 2: 7, 3: 7}
+#: K8 stages the SiFTO table once a block from this many (walker, point)
+#: elements an SM, and reads it where it lies below (k8_form). On the H100
+#: at 108 points the direct form took 0.0026-0.0037 ms through 2048
+#: walkers against the staged form's 0.0045-0.0054, the two 0.0061 and
+#: 0.0060 at 4096, the staged form 0.0074 against 0.0105 at 8192
+#: (tools/time_port_kernels.py K8_W*_dev; PERF.md): the switch at ~4034
+K8_STAGED_ELEMENTS_PER_SM = 3300
 
 
 class _CSParams(ctypes.Structure):
@@ -82,15 +93,33 @@ def _check_rows(rows, knots, band):
 
 # ------------------------------------------------------------------------ K8
 
+def k8_form(elements, n_sm):
+    """K8's form for ``elements`` (walker, point) pairs on a card of ``n_sm``
+    SMs: ``"staged"`` (the rows and knots copied into shared memory once a
+    block, in a grid of the blocks resident at once) where the elements an
+    SM pay for the copy, ``"direct"`` (read where they lie, through the
+    read-only path) below. Both give the same bits."""
+    return "staged" if elements >= K8_STAGED_ELEMENTS_PER_SM * n_sm else "direct"
+
+
 def sifto(t, quad, t_peak, stretch, dtU=None, dti=None):
     """K8 on CUDA tensors: ``sifto_points_plain``'s result from the
-    hand-written ``sifto_kernel``. ``t`` (N,) float64 absolute times;
-    ``quad`` the model's per-point dict with ``sifto_rows`` (B, 4, S-1),
-    ``sifto_band`` (N,), ``sifto_knots`` (S,), ``is_U`` and ``is_i``;
-    parameters 0-d or (W, 1) columns (float64). Returns (N,) for 0-d
-    parameters, else (W, N), in the compute dtype of the device."""
+    hand-written ``sifto_kernel`` in the form :func:`k8_form` picks. ``t``
+    (N,) float64 absolute times; ``quad`` the model's per-point dict with
+    ``sifto_rows`` (B, 4, S-1), ``sifto_band`` (N,), ``sifto_knots`` (S,),
+    ``is_U`` and ``is_i``; parameters 0-d or (W, 1) columns (float64).
+    Returns (N,) for 0-d parameters, else (W, N), in the compute dtype of
+    the device."""
+    return sifto_launch(None, t, quad, t_peak, stretch, dtU, dti)
+
+
+def sifto_launch(form, t, quad, t_peak, stretch, dtU=None, dti=None):
+    """:func:`sifto` in ``form``, ``"staged"`` or ``"direct"`` (None: the
+    form :func:`k8_form` picks)."""
     from ..core import config
     from ..ops.mathx import epoch_reference
+    if form not in (None, "staged", "direct"):
+        raise ValueError(f"K8's form is 'staged' or 'direct', not {form!r}")
     dev = t.device
     if dev.type != "cuda":
         raise ValueError(f"K8 runs on CUDA (or its plain version on the CPU), not {dev}")
@@ -128,12 +157,16 @@ def sifto(t, quad, t_peak, stretch, dtU=None, dti=None):
     P.is_U, P.is_i, P.out = quad["is_U"].data_ptr(), quad["is_i"].data_ptr(), out.data_ptr()
     P.n_walkers, P.n_points, P.n_bands, P.n_knots = W, N, B, S
     P.t_ref = t_ref
+    if form is None:
+        from .gradient import sm_count
+        form = k8_form(W * N, sm_count(dev))
     from .build import library
     lib = library()
     device_index, stream = cuda_args(dev)
-    rc = lib.sifto_launch(ctypes.addressof(P), device_index, _compute_f64(cdt), stream)
+    rc = lib.sifto_launch(ctypes.addressof(P), device_index, _compute_f64(cdt),
+                          int(form == "staged"), stream)
     if rc != 0:
-        raise RuntimeError(f"sifto_kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"sifto_kernel ({form}) launch failed: cudaError {rc}")
     LAUNCHES["sifto"] += 1
     vector = any(c.ndim > 0 for c in given)
     return out if vector else out[0]

@@ -20,7 +20,7 @@
 // What bounds it on the H100: FP32 ALU and special-function work. One
 // evaluation runs per point the Chebyshev table's Clenshaw recurrence (24
 // steps, ~75 flops), ~10 special functions (the Kasen power laws, log T, exp)
-// and K8 (a 7-step binary search over the 103 knots and a cubic); the
+// and K8 (the knot interval from a guess, a cubic); the
 // per-point data (25.2 KB in float32 at 108 points, the SiFTO rows included;
 // 49.2 KB in float64) is shared by every walker, so device-memory traffic is
 // negligible.
@@ -44,9 +44,19 @@
 // at once (32 warps a block in float32: one block an SM, the tables staged
 // once an SM), the batch is as large as that takes. Every kernel over the
 // policy evaluates a point with one __device__ function (cs_point), so a
-// state's value has the same bits in each of them, whatever the batch. The
-// standalone K8 strides over (walker, point) elements with the rows staged
-// once per block.
+// state's value has the same bits in each of them, whatever the batch.
+// K8 alone (the SiFTO term of every (walker, point), the CS models'
+// evaluate) has the bytes of its (W, N) output for its bound: a warp takes
+// a walker, its lanes over the points (coalesced stores along the output's
+// rows), each lane holding its points' records and rounding each walker's
+// four parameters once for them; the knot interval comes from a guess for
+// uniform knots corrected against its neighbours (sifto_value), not a
+// binary search, and no 64-bit division indexes the elements. The knots
+// (as pairs) and the cubics (an interval's four coefficients together) are
+// staged once a block only where a block has enough elements to pay for
+// it (kernels/cs.py::k8_form); else they are read where they lie, through
+// the read-only path. At large widths the random gathers from the table
+// (32 lanes' intervals, conflicting in the banks) set its time.
 //
 // Dtype semantics: as K1, parameters are absolute float64 and cast to the
 // compute type C after the epoch centring (tt = C(t - t_ref) - C(t_exp -
@@ -120,51 +130,160 @@ struct SiftoParams {
     double t_ref;
 };
 
+// A load, through the read-only data path when LDG (global memory only).
+template <bool LDG, typename T>
+__device__ __forceinline__ T ld(const T* p) {
+    if constexpr (LDG) return __ldg(p);
+    else return *p;
+}
+
+// The first guess at the knot interval of x in [k_0, k_{S-1}]: (x - k_0)
+// inv, inv = (S - 1) / (k_{S-1} - k_0) from a fast reciprocal, clipped to
+// [0, S-2], in float (a NaN guess starts at 0): the interval of uniform
+// knots up to its rounding (the SiFTO knots are whole days). The callers
+// step from it against the neighbouring knots to the exact interval.
+template <typename C>
+__device__ __forceinline__ int knot_guess(C x, C k0, float inv, int S) {
+    float g = (float)(x - k0) * inv;
+    g = g > 0.0f ? g : 0.0f;
+    g = g < (float)(S - 2) ? g : (float)(S - 2);
+    return (int)g;
+}
+
+// knot_guess's scale, (S - 1) / (k_{S-1} - k_0), by a fast reciprocal.
+template <typename C>
+__device__ __forceinline__ float knot_inv(C k0, C k_end, int S) {
+    return __fdividef((float)(S - 1), (float)(k_end - k0));
+}
+
 // K8's device function: the SiFTO term at template phase x of the band whose
 // (4, S-1) coefficients are row, over the S knots: searchsorted(side="right")
 // - 1 clipped to [0, S-2], then a Horner cubic; 0 outside [knots[0],
 // knots[S-1]] and for a NaN phase (the JAX graph's NaN, then nan_to_num).
-// EXACT: the cubic's multiply-adds fused by hand in float64 (cs_point).
-template <typename C, bool EXACT = false>
+// The interval starts from knot_guess and steps against the neighbouring
+// knots until k_i <= x < k_{i+1} (or an end): at most a step for uniform
+// knots, at most S - 2 for any non-decreasing ones, the searchsorted
+// interval exactly in every case, so the cubic and its bits are a binary
+// search's. EXACT: the cubic's multiply-adds fused by hand in float64
+// (cs_point). LDG: knots and row in global memory, read through the
+// read-only path.
+template <typename C, bool EXACT = false, bool LDG = false>
 __device__ __forceinline__ C sifto_value(const C* knots, int S, const C* row, C x) {
-    if (!(x >= knots[0] && x <= knots[S - 1])) return C(0);
-    int lo = 0, hi = S;  // the first knot > x
-    while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (knots[mid] <= x) lo = mid + 1;
-        else hi = mid;
-    }
-    int i = lo - 1;
-    i = i < 0 ? 0 : (i > S - 2 ? S - 2 : i);
+    const C k0 = ld<LDG>(knots), k_end = ld<LDG>(knots + S - 1);
+    if (!(x >= k0 && x <= k_end)) return C(0);
+    int i = knot_guess(x, k0, knot_inv(k0, k_end, S), S);
+    while (i > 0 && ld<LDG>(knots + i) > x) --i;
+    while (i < S - 2 && ld<LDG>(knots + i + 1) <= x) ++i;
     const int M = S - 1;
-    const C t = x - knots[i];
+    const C t = x - ld<LDG>(knots + i);
+    const C c3 = ld<LDG>(row + i), c2 = ld<LDG>(row + M + i), c1 = ld<LDG>(row + 2 * M + i),
+            c0 = ld<LDG>(row + 3 * M + i);
     const C v = EXACT && sizeof(C) == sizeof(double)
-        ? fma(fma(fma(row[i], t, row[M + i]), t, row[2 * M + i]), t, row[3 * M + i])
-        : ((row[i] * t + row[M + i]) * t + row[2 * M + i]) * t + row[3 * M + i];
+        ? fma(fma(fma(c3, t, c2), t, c1), t, c0)
+        : ((c3 * t + c2) * t + c1) * t + c0;
     return isnan(v) ? C(0) : v;
 }
 
-// K8: out[w, n] = the SiFTO term of point n for walker w, elements strided
-// over the grid; the rows and knots staged once per block.
+// K8's staged table: an interval's two knots, and its cubic's coefficients,
+// each read with one vector load from shared memory (the (B, 4, S-1) rows
+// would take four scalar loads a gather, each conflicting in the banks).
 template <typename C>
-__global__ void __launch_bounds__(LP_THREADS) sifto_kernel(const SiftoParams P) {
+struct alignas(2 * sizeof(C)) KnotPair {
+    C lo, hi;
+};
+template <typename C>
+struct alignas(4 * sizeof(C)) Cubic {
+    C c3, c2, c1, c0;
+};
+
+// sifto_value on the staged table: kp[i] = (k_i, k_{i+1}), cf[i] interval
+// i's coefficients of the point's band, k0, k_end and inv the knots' ends
+// and knot_inv, held by the thread. The same interval and cubic: the same
+// bits.
+template <typename C>
+__device__ __forceinline__ C sifto_value_staged(const KnotPair<C>* kp, const Cubic<C>* cf, int S,
+                                                C k0, C k_end, float inv, C x) {
+    if (!(x >= k0 && x <= k_end)) return C(0);
+    int i = knot_guess(x, k0, inv, S);
+    KnotPair<C> k = kp[i];
+    while (i > 0 && k.lo > x) k = kp[--i];
+    while (i < S - 2 && k.hi <= x) k = kp[++i];
+    const C t = x - k.lo;
+    const Cubic<C> c = cf[i];
+    const C v = ((c.c3 * t + c.c2) * t + c.c1) * t + c.c0;
+    return isnan(v) ? C(0) : v;
+}
+
+#define K8_WARPS 8   // warps a block, at most
+
+// K8: out[w, n] = the SiFTO term of point n for walker w. A warp takes a
+// walker at a time and a group of the points, its lanes over them (lane l:
+// n0 + l, n0 + l + 32, ..., PTS of them, so a warp's stores fill
+// neighbouring elements of a row of the output), the block's warps
+// striding over the walkers and blockIdx.y over the groups: a lane forms
+// its points' records once (the phase origin, the band's row, the walker
+// shift the point takes: dti for an i point, else dtU for a U point), and
+// each walker's four parameters are read and rounded to C once a lane, for
+// its PTS points. STAGE: four points a lane (a group of 128), the knots (as
+// pairs) and the rows (an interval's cubic together) staged in shared
+// memory once per block, in a grid of the blocks resident at once; else
+// one point a lane, so that few walkers still spread their points over
+// warps and SMs (each point's walk and cubic a chain of dependent loads),
+// the table read where it lies, through the read-only path
+// (kernels/cs.py::k8_form).
+template <typename C, bool STAGE>
+__global__ void __launch_bounds__(32 * K8_WARPS) sifto_kernel(const SiftoParams P) {
+    constexpr int PTS = STAGE ? 4 : 1;
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    C* s = reinterpret_cast<C*>(smem_raw);
-    const int S = (int)P.n_knots;
-    const C* rows = stage_array((const C*)P.rows, P.n_bands * 4 * (S - 1), s);
-    const C* knots = stage_array((const C*)P.knots, (long long)S, s);
-    __syncthreads();
-    const long long N = P.n_points, total = P.n_walkers * N;
-    const C* tc = (const C*)P.t_centered;
-    for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-         e += (long long)gridDim.x * blockDim.x) {
-        const long long w = e / N, n = e - w * N;
-        const C ph = tc[n] - (C)(P.t_peak[w] - P.t_ref);
-        C dt = C(0);
-        if (P.dtU != nullptr && P.is_U[n]) dt = (C)P.dtU[w];
-        if (P.dti != nullptr && P.is_i[n]) dt = (C)P.dti[w];
-        const C arg = (ph - dt) / (C)P.stretch[w];
-        ((C*)P.out)[e] = sifto_value<C>(knots, S, rows + P.band[n] * 4 * (S - 1), arg);
+    const int S = (int)P.n_knots, M = S - 1;
+    const C* rows = (const C*)P.rows;
+    const C* knots = (const C*)P.knots;
+    Cubic<C>* cf = reinterpret_cast<Cubic<C>*>(smem_raw);
+    KnotPair<C>* kp = reinterpret_cast<KnotPair<C>*>(cf + P.n_bands * M);
+    if constexpr (STAGE) {
+        const int n_cf = (int)P.n_bands * M;
+        for (int e = threadIdx.x; e < n_cf; e += blockDim.x) {
+            const int b = e / M, i = e - b * M;
+            const C* r = rows + (size_t)b * 4 * M + i;
+            cf[e] = Cubic<C>{r[0], r[M], r[2 * M], r[3 * M]};
+        }
+        for (int i = threadIdx.x; i < M; i += blockDim.x)
+            kp[i] = KnotPair<C>{knots[i], knots[i + 1]};
+        __syncthreads();
+    }
+    const C k0 = __ldg(knots), k_end = __ldg(knots + M);
+    const float inv = knot_inv(k0, k_end, S);
+    const int N = (int)P.n_points, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+    const long long W = P.n_walkers;
+    C* out = (C*)P.out;
+    for (int n0 = blockIdx.y * 32 * PTS; n0 < N; n0 += gridDim.y * 32 * PTS) {
+        C tc[PTS];
+        int row[PTS], shift[PTS];
+#pragma unroll
+        for (int k = 0; k < PTS; ++k) {
+            const int n = n0 + lane + 32 * k;
+            if (n >= N) continue;
+            tc[k] = ((const C*)P.t_centered)[n];
+            row[k] = (int)P.band[n] * M;
+            shift[k] = P.dti != nullptr && P.is_i[n] ? 2 : (P.dtU != nullptr && P.is_U[n] ? 1 : 0);
+        }
+        for (long long w = (long long)blockIdx.x * warps + (threadIdx.x >> 5); w < W;
+             w += (long long)gridDim.x * warps) {
+            const C tpk = (C)(P.t_peak[w] - P.t_ref), s = (C)P.stretch[w];
+            const C dU = P.dtU != nullptr ? (C)P.dtU[w] : C(0);
+            const C di = P.dti != nullptr ? (C)P.dti[w] : C(0);
+#pragma unroll
+            for (int k = 0; k < PTS; ++k) {
+                const int n = n0 + lane + 32 * k;
+                if (n >= N) continue;
+                const C dt = shift[k] == 2 ? di : (shift[k] == 1 ? dU : C(0));
+                const C x = ((tc[k] - tpk) - dt) / s;
+                C v;
+                if constexpr (STAGE) v = sifto_value_staged(kp, cf + row[k], S, k0, k_end, inv, x);
+                else v = sifto_value<C, false, true>(knots, S, rows + (size_t)row[k] * 4, x);
+                out[w * N + n] = v;
+            }
+        }
     }
 }
 
@@ -382,7 +501,7 @@ struct CSModel {
 
 // The policy of the CS batch log-posterior, half-step, K6a and K6b: a warp
 // per walker (logpost_warp_kernel, stretch_half_step_kernel,
-// tempered_half_step_kernel with WARP, ladder_init_kernel), 32 warps a
+// tempered_half_step_kernel, ladder_init_kernel), 32 warps a
 // block in float32 (one block an SM: the tables staged once an SM; 64
 // registers a thread) and 16 in float64 (whose kernels need ~70), batched:
 // the grid holds only the blocks resident at once, and a warp takes its
@@ -420,31 +539,63 @@ using CSWarpModel9 = CSWarpModel<C, 9>;
 
 // ------------------------------------------------------------------ launch
 
+// The staged K8 table's bytes: every band's cubics and the knot pairs.
 template <typename C>
-static int launch_sifto(const SiftoParams& P, cudaStream_t stream) {
-    auto kernel = sifto_kernel<C>;
-    const size_t bytes = sizeof(C) * (size_t)(P.n_bands * 4 * (P.n_knots - 1) + P.n_knots);
-    int use_smem = 0;
-    int rc = smem_plan(kernel, bytes, &use_smem);
-    if (rc) return rc;
-    if (!use_smem) return (int)cudaErrorInvalidValue;  // rows larger than shared memory
-    const long long total = P.n_walkers * P.n_points;
-    long long blocks = (total + LP_THREADS - 1) / LP_THREADS;
-    if (blocks > 132 * 16) blocks = 132 * 16;  // a grid-stride loop amortizes the staging
-    kernel<<<(unsigned)blocks, LP_THREADS, bytes, stream>>>(P);
+static size_t sifto_stage_bytes(const SiftoParams& P) {
+    return (size_t)(P.n_knots - 1) * (P.n_bands * sizeof(Cubic<C>) + sizeof(KnotPair<C>));
+}
+
+// K8's launch in the form `staged` (kernels/cs.py::k8_form; the direct form
+// where the table would not fit in shared memory): the staged form's grid
+// holds the blocks of K8_WARPS warps resident at once (its occupancy, read
+// once per device and shared memory, and kept), the direct form's a block
+// for every K8_WARPS walkers (fewer warps for fewer walkers) and every 32
+// points.
+template <typename C>
+static int launch_sifto(const SiftoParams& P, int staged, cudaStream_t stream) {
+    const long long blocks = (P.n_walkers + K8_WARPS - 1) / K8_WARPS;
+    const size_t bytes = sifto_stage_bytes<C>(P);
+    if (staged && bytes <= (size_t)smem_optin_limit()) {
+        auto kernel = sifto_kernel<C, true>;
+        int use_smem = 0;
+        int rc = smem_plan(kernel, bytes, &use_smem);
+        if (rc) return rc;
+        static int key_dev = -1, resident = 1;
+        static size_t key_bytes = 0;
+        int dev = 0;
+        cudaGetDevice(&dev);
+        if (dev != key_dev || bytes != key_bytes) {
+            int sms = 1, per_sm = 0;
+            cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * K8_WARPS, bytes);
+            resident = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+            key_dev = dev, key_bytes = bytes;
+        }
+        kernel<<<(unsigned)(blocks < resident ? blocks : resident), 32 * K8_WARPS, bytes,
+                 stream>>>(P);
+    } else {
+        const long long groups = (P.n_points + 31) / 32;
+        const dim3 grid((unsigned)(blocks < 2147483647LL ? blocks : 2147483647LL),
+                        (unsigned)(groups < 65535 ? groups : 65535));
+        const int warps = (int)(P.n_walkers < K8_WARPS ? P.n_walkers : K8_WARPS);
+        sifto_kernel<C, false><<<grid, 32 * warps, 0, stream>>>(P);
+    }
     return (int)cudaGetLastError();
 }
 
 extern "C" {
 
-// K8 launch. Returns 0 or a cudaError_t code.
-int sifto_launch(const SiftoParams* P, int device, int compute_f64, void* stream) {
+// K8 launch, the rows staged once a block when `staged`, else read where
+// they lie. Returns 0 or a cudaError_t code.
+int sifto_launch(const SiftoParams* P, int device, int compute_f64, int staged, void* stream) {
     int rc = (int)cudaSetDevice(device);
     if (rc) return rc;
     if (P->n_walkers <= 0 || P->n_points <= 0) return 0;
-    if (P->n_knots < 2) return (int)cudaErrorInvalidValue;
+    if (P->n_knots < 2 || P->n_points > 2147483647LL || P->n_bands * P->n_knots > 2147483647LL)
+        return (int)cudaErrorInvalidValue;   // (int indices: a point, a band's row)
     cudaStream_t s = (cudaStream_t)stream;
-    return compute_f64 ? launch_sifto<double>(*P, s) : launch_sifto<float>(*P, s);
+    return compute_f64 ? launch_sifto<double>(*P, staged, s)
+                       : launch_sifto<float>(*P, staged, s);
 }
 
 // CS log-posterior launch, a warp per walker (logpost_warp_kernel over
@@ -482,7 +633,7 @@ int cs_tempered_half_step_launch(const CSParams* P, int device, int compute_f64,
                                  const void* u_z, const long long* j, const void* u_acc, double a,
                                  int* n_accept, void* stream) {
     if (P->n_knots < 2) return (int)cudaErrorInvalidValue;
-    return launch_tempered_half_step<CSWarpModelAnyDim, true>(P, device, compute_f64, x,
+    return launch_tempered_half_step<CSWarpModelAnyDim>(P, device, compute_f64, x,
                                                               state_f64, logpri, logl, betas,
                                                               n_rungs, half, h, u_z, j, u_acc, a,
                                                               n_accept, stream);

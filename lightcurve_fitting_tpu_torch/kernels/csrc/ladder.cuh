@@ -1,10 +1,8 @@
-// K6: the tempered ladder's model kernels, templates over a model policy M of
-// stretch.cuh (K6a over SC2 and over CS a warp per walker, SC2WarpModel and
-// CSWarpModel in sc2_logpost.cu and companion.cu; over SC3 a thread per
-// walker, SC3Model in sc3_logpost.cu; K6b a warp per state over
-// SC2WarpModel, SC3WarpModel and CSWarpModel). The model-free K6 kernels
-// (the replica exchange and the stepping-stone block terms) are in
-// ladder.cu.
+// K6: the tempered ladder's model kernels, templates over a warp policy M of
+// stretch.cuh (K6a and K6b a warp per walker or state over SC2WarpModel,
+// SC3WarpModel and CSWarpModel, instantiated in sc2_logpost.cu,
+// sc3_logpost.cu and companion.cu). The model-free K6 kernels (the replica
+// exchange and the stepping-stone block terms) are in ladder.cu.
 //
 // Replaces (JAX package, lightcurve_fitting_tpu/):
 //   K6a parallel/evidence.py:60-74 (half_update) and :76-83 (the step_one
@@ -17,21 +15,22 @@
 // for ShockCooling2, special functions for ShockCooling3); the state, the
 // draws and the two float64 values a walker are a few dozen bytes.
 // What the design does about it: the stretch-move half-step of stretch.cuh
-// with the rung on blockIdx.y, so one launch advances half of every rung's
+// over every rung at once, so one launch advances half of every rung's
 // ensemble: the per-point data are staged once per block in shared memory
-// as in K2, and one thread per walker runs the proposal (the same
-// stretch_proposal as K2, bit for bit), log_prior and, only when the prior is
-// finite, M::log_likelihood (a proposal outside the priors is always
-// rejected, so its likelihood is never read). The acceptance sums run in
-// float64 with round-to-nearest intrinsics, in the JAX graph's order, so that
-// no multiply-add contraction moves a near-tie; beta log L is 0 on a
-// beta = 0 rung, where 0 x (-inf) would be NaN. With WARP (SC2WarpModel,
-// CSWarpModel) a warp runs each walker, its lanes over the points, in
-// batches of walkers as the warp form of the stretch half-step (stretch.cuh,
-// warp_batch_ll): a thread per walker left the ladders of the fits (7 rungs
-// x half 16 or 32, 17 x 2048) a few warps an SM, each walking 149 (SC2) or
-// 108 (CS) dependent point evaluations. K6a over SC3 keeps a thread per
-// walker.
+// as in K2, and a warp runs each walker, its lanes over the points, in
+// batches of walkers as the warp form of the stretch half-step
+// (stretch.cuh, warp_batch_ll; a batch of one walker for a policy that is
+// not batched, SC3WarpModel): the proposal (the same stretch_proposal as K2,
+// bit for bit), log_prior and, only when the prior is finite, the
+// log-likelihood (a proposal outside the priors is always rejected, so its
+// likelihood is never read). A thread per walker left the ladders of the
+// fits (7 rungs x half 16 or 32, 17 x 2048 over SC2 and CS; 17 x 256 over
+// SC3) a few warps an SM, each walking 149 (SC2, SC3) or 108 (CS) dependent
+// point evaluations, an SC3 point ~39 Planck terms (~1.2 ms a launch over
+// SC3, against ~0.06 ms for the warp form's one walker). The acceptance sums
+// run in float64 with round-to-nearest intrinsics, in the JAX graph's
+// order, so that no multiply-add contraction moves a near-tie; beta log L
+// is 0 on a beta = 0 rung, where 0 x (-inf) would be NaN.
 // K6b runs the batch log-posterior's warp form (logpost_batch) with the
 // likelihood evaluated whatever the prior, so a starting state's log pi and
 // log L have the bits that K6a over the same policy stores when it accepts
@@ -76,29 +75,6 @@ __device__ __forceinline__ void tempered_accept(int ndim, S* xm, const S* y, S z
     n_accept[w] += accept ? 1 : 0;
 }
 
-// One walker's tempered half-step, a thread: walker i of half h of rung r.
-template <typename M, typename S>
-__device__ __forceinline__ void tempered_walker(const typename M::Params& P,
-                                                const typename M::Data& d, S* x, double* logpri,
-                                                double* logl, const double* betas, int half,
-                                                int h, const S* u_z, const long long* j,
-                                                const S* u_acc, double a, int* n_accept, int r,
-                                                int i) {
-    const int ndim = (int)P.ndim;
-    const size_t rung = (size_t)r * 2 * half;    // walkers of the rungs before r
-    const size_t w = rung + (size_t)h * half + i;  // this walker, its values and its draws
-    S* xm = x + w * ndim;
-    const S* xj = x + (rung + (size_t)(1 - h) * half + (size_t)j[w]) * ndim;
-
-    S y[LP_MAX_DIM];
-    double p[LP_MAX_DIM];
-    const S z = stretch_proposal(P, xm, xj, u_z[w], a, y, p);
-    const double lpri_y = log_prior(P, p);
-    double ll_y = -INFINITY;
-    if (isfinite(lpri_y)) ll_y = M::log_likelihood(p, d, P);
-    tempered_accept(ndim, xm, y, z, lpri_y, ll_y, logpri, logl, betas[r], u_acc, w, n_accept);
-}
-
 // The tempered half-steps of the walkers b0 .. b0 + nb - 1 of the R x half
 // flattened over the rungs, a warp per walker: lane l forms walker b0 + l's
 // proposal, log pi and constants (with nb = 1 every lane forms walker b0's,
@@ -140,11 +116,11 @@ __device__ __forceinline__ void tempered_batch(const typename M::Params& P,
 // x (R, 2, half, ndim) walker states; logpri and logl (R, 2, half) float64;
 // betas (R,); the draws u_z, j, u_acc (R, 2, half), the half-step reading the
 // [r, h] slice; n_accept (R, 2, half) int32, incremented. The partner pool of
-// a walker is the other half of its own rung. A thread per walker, the rung
-// on blockIdx.y; with WARP a warp per walker (tempered_batch), the block's
-// warps striding over batches of `batch` of the R x half walkers of every
-// rung (the data do not depend on the rung; warp_layout).
-template <typename M, typename S, bool WARP>
+// a walker is the other half of its own rung. A warp per walker
+// (tempered_batch), the block's warps striding over batches of `batch` of
+// the R x half walkers of every rung (the data do not depend on the rung;
+// warp_layout), a batch of one for a policy that is not batched.
+template <typename M, typename S>
 __global__ void __launch_bounds__(block_limit<M>::value)
 tempered_half_step_kernel(const typename M::Params P, S* __restrict__ x,
                           double* __restrict__ logpri, double* __restrict__ logl,
@@ -154,21 +130,15 @@ tempered_half_step_kernel(const typename M::Params P, S* __restrict__ x,
                           int use_smem, int n_rungs, int batch) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const typename M::Data d = M::stage(P, smem_raw, use_smem, 0);
-    if constexpr (WARP) {
-        const int per_block = blockDim.x >> 5;
-        const long long n = (long long)n_rungs * half;
-        const long long n_batches = (n + batch - 1) / batch;
-        for (long long b = (long long)blockIdx.x * per_block + (threadIdx.x >> 5); b < n_batches;
-             b += (long long)gridDim.x * per_block) {   // (whole warps)
-            const long long b0 = b * batch;
-            tempered_batch<M, S>(P, d, x, logpri, logl, betas, half, h, u_z, j, u_acc, a,
-                                 n_accept, b0, (int)(n - b0 < batch ? n - b0 : batch));
-        }
-    } else {
-        const int i = blockIdx.x * blockDim.x + threadIdx.x;
-        if (i >= half) return;
-        tempered_walker<M, S>(P, d, x, logpri, logl, betas, half, h, u_z, j, u_acc, a, n_accept,
-                              blockIdx.y, i);
+    const int per_block = blockDim.x >> 5;
+    const int bsz = M::batched ? batch : 1;   // (a constant 1 when not batched)
+    const long long n = (long long)n_rungs * half;
+    const long long n_batches = (n + bsz - 1) / bsz;
+    for (long long b = (long long)blockIdx.x * per_block + (threadIdx.x >> 5); b < n_batches;
+         b += (long long)gridDim.x * per_block) {   // (whole warps)
+        const long long b0 = b * bsz;
+        tempered_batch<M, S>(P, d, x, logpri, logl, betas, half, h, u_z, j, u_acc, a, n_accept,
+                             b0, M::batched && n - b0 < bsz ? (int)(n - b0) : bsz);
     }
 }
 
@@ -233,24 +203,19 @@ ladder_init_kernel(const typename M::Params P, const S* __restrict__ x, int n, i
 
 // ------------------------------------------------------------------ launch
 
-template <typename M, typename S, bool WARP>
+template <typename M, typename S>
 static int launch_tempered(const typename M::Params& P, void* x, double* logpri, double* logl,
                            const double* betas, int n_rungs, int half, int h, const void* u_z,
                            const long long* j, const void* u_acc, double a, int* n_accept,
                            cudaStream_t stream) {
-    auto kernel = tempered_half_step_kernel<M, S, WARP>;
+    auto kernel = tempered_half_step_kernel<M, S>;
     int use_smem = 0;
     const size_t bytes = M::stage_bytes(P);
     int rc = smem_plan(kernel, bytes, &use_smem);
     if (rc) return rc;
-    // a thread per walker, the rung on blockIdx.y, or WarpLayout's warps with WARP
-    WarpLayout lay = {threads_for(half), 0, 1};
-    dim3 grid((half + lay.threads - 1) / lay.threads, n_rungs);
-    if constexpr (WARP) {
-        lay = warp_layout<M>(kernel, (long long)n_rungs * half, use_smem ? bytes : 0);
-        grid = dim3(lay.blocks, 1);
-    }
-    kernel<<<grid, lay.threads, use_smem ? bytes : 0, stream>>>(
+    const WarpLayout lay = warp_layout<M>(kernel, (long long)n_rungs * half,
+                                          use_smem ? bytes : 0);
+    kernel<<<lay.blocks, lay.threads, use_smem ? bytes : 0, stream>>>(
         P, (S*)x, logpri, logl, betas, half, h, (const S*)u_z, j, (const S*)u_acc, a, n_accept,
         use_smem, n_rungs, lay.batch);
     return (int)cudaGetLastError();
@@ -270,10 +235,10 @@ static int launch_init(const typename M::Params& P, const void* x, int n, int pe
     return (int)cudaGetLastError();
 }
 
-// The K6a launch for the model policy M<C> in the compute type C (float or
-// double) and the walker state's type (float or double); WARP as in
-// tempered_half_step_kernel. Returns 0 or a cudaError_t code.
-template <template <typename> class M, bool WARP = false>
+// The K6a launch for the warp policy M<C> in the compute type C (float or
+// double) and the walker state's type (float or double). Returns 0 or a
+// cudaError_t code.
+template <template <typename> class M>
 static int launch_tempered_half_step(const typename M<float>::Params* P, int device,
                                      int compute_f64, void* x, int state_f64, double* logpri,
                                      double* logl, const double* betas, int n_rungs, int half,
@@ -282,15 +247,14 @@ static int launch_tempered_half_step(const typename M<float>::Params* P, int dev
     int rc = (int)cudaSetDevice(device);
     if (rc) return rc;
     if (half <= 0 || n_rungs <= 0) return 0;
-    if (P->ndim > LP_MAX_DIM || n_rungs > 65535 || (h != 0 && h != 1))
-        return (int)cudaErrorInvalidValue;
+    if (P->ndim > LP_MAX_DIM || (h != 0 && h != 1)) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
 #define LADDER_ARGS *P, x, logpri, logl, betas, n_rungs, half, h, u_z, j, u_acc, a, n_accept, s
     if (compute_f64)
-        return state_f64 ? launch_tempered<M<double>, double, WARP>(LADDER_ARGS)
-                         : launch_tempered<M<double>, float, WARP>(LADDER_ARGS);
-    return state_f64 ? launch_tempered<M<float>, double, WARP>(LADDER_ARGS)
-                     : launch_tempered<M<float>, float, WARP>(LADDER_ARGS);
+        return state_f64 ? launch_tempered<M<double>, double>(LADDER_ARGS)
+                         : launch_tempered<M<double>, float>(LADDER_ARGS);
+    return state_f64 ? launch_tempered<M<float>, double>(LADDER_ARGS)
+                     : launch_tempered<M<float>, float>(LADDER_ARGS);
 #undef LADDER_ARGS
 }
 

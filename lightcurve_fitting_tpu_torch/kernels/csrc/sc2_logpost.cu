@@ -567,8 +567,8 @@ struct SC2Model {
 };
 
 // The policy of K1, K2, K6a and K6b over ShockCooling2: a warp per walker
-// (logpost_warp_kernel, stretch_half_step_kernel, tempered_half_step_kernel
-// with WARP, ladder_init_kernel), 32 warps a block in float32 (the tables,
+// (logpost_warp_kernel, stretch_half_step_kernel, tempered_half_step_kernel,
+// ladder_init_kernel), 32 warps a block in float32 (the tables,
 // 28.6 KB, staged once a block) and 16 in float64 (57.2 KB, over the 48 KB
 // default: smem_plan opts in, and warp_layout's occupancy query sees it),
 // batched: a warp takes its walkers in batches whose prologues (the
@@ -636,7 +636,7 @@ int sc2_tempered_half_step_launch(const SC2Params* P, int device, int compute_f6
                                   const double* betas, int n_rungs, int half, int h,
                                   const void* u_z, const long long* j, const void* u_acc,
                                   double a, int* n_accept, void* stream) {
-    return launch_tempered_half_step<SC2WarpModelAnyDim, true>(P, device, compute_f64, x,
+    return launch_tempered_half_step<SC2WarpModelAnyDim>(P, device, compute_f64, x,
                                                                state_f64, logpri, logl, betas,
                                                                n_rungs, half, h, u_z, j, u_acc,
                                                                a, n_accept, stream);

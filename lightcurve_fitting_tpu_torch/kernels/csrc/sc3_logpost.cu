@@ -16,8 +16,8 @@
 //       the stretch_half_step_kernel template of stretch.cuh over
 //       SC3WarpModel, a warp per walker; the batch log-posterior (a fit's
 //       initial state) its logpost_warp_kernel over the same policy.
-//   K6a, K6b over ShockCooling3: the templates of ladder.cuh, K6a over
-//       SC3Model, K6b over SC3WarpModel (the batch log-posterior's form).
+//   K6a, K6b over ShockCooling3: the templates of ladder.cuh over
+//       SC3WarpModel, a warp per walker (K6b the batch log-posterior's form).
 //
 // What bounds it on the H100: the special functions. Each quadrature term
 // is one expm1, one exp and one division (~60 instructions in all), and one
@@ -33,10 +33,9 @@
 // log-posterior run a warp per walker: a thread per walker left the fits'
 // widths with one warp of 4 per SM (half 16384, or the 32768 walkers of an
 // initial state) or a single warp (half 32, 64 walkers), so that the latency
-// of one thread's 5738 terms set each at ~1.25 ms; K6b runs the same warp
-// form. K6a over SC3 keeps a thread per walker over the points in order, so
-// a warp works on one band at a time (broadcast table reads, one loop
-// length). The lanes take the points
+// of one thread's 5738 terms set each at ~1.25 ms; K6a and K6b run the same
+// warp form (K6a's ladder, 17 rungs x half 256, is 4352 walkers: a thread
+// each was ~1.2 ms a launch). The lanes take the points
 // in the order of kernels/sc3.py::point_order, by descending native node
 // count, so the 32 points a warp runs at once have near-equal loop lengths:
 // a lane runs 212 nodes on the flagship (440 in the time order), 85% of its
@@ -51,10 +50,10 @@
 // One __device__ function (band_flux, planck.cuh) carries the band sum for
 // all the kernels, so a proposal's band fluxes are bit-identical to K3's
 // evaluation of the same T, R and E(B-V) over the same nodes; the epoch
-// blackbody kernels of epoch_bb.cu call it too. The half-step and the batch
-// log-posterior (and K6b) share the warp's residual sum, so a state's batch
-// value has the bits the half-step stored when it accepted that state; K6a
-// over SC3 sums in another order, and agrees with them to rounding.
+// blackbody kernels of epoch_bb.cu call it too. The half-step, the batch
+// log-posterior, K6a and K6b share the warp's residual sum, so a state's
+// batch value (and K6b's) has the bits the half-step (and K6a) stored when
+// it accepted that state.
 //
 // Dtype semantics follow the JAX accelerator path: the SW17 power laws run
 // in the compute type C on C-cast parameters, tt = C(t - t_ref) - C(t_exp -
@@ -226,7 +225,7 @@ template <typename C>
 struct SC3Data {
     const long long* band;
     const long long* n_native;
-    const long long* order;      // the warp form's point order (null for the thread form)
+    const long long* order;      // the warp's point order (kernels/sc3.py::point_order)
     const C* nu;
     const C* w;
     const C* kx;
@@ -238,26 +237,24 @@ struct SC3Data {
 };
 
 template <typename C>
-__host__ __device__ inline size_t sc3_stage_bytes(const SC3Params& P, bool order) {
-    return sizeof(long long) * (size_t)(P.n_points * (order ? 2 : 1) + P.n_bands)
+__host__ __device__ inline size_t sc3_stage_bytes(const SC3Params& P) {
+    return sizeof(long long) * (size_t)(P.n_points * 2 + P.n_bands)
            + sizeof(C) * (size_t)(3 * P.n_bands * P.n_nodes + 5 * P.n_points);
 }
 
-// Copy the band tables, band ids (and the point order, for the warp form)
-// and per-point data into shared memory (every thread of the block takes
-// part, so call it before any thread returns), or point at global memory
-// when they exceed the block's limit.
+// Copy the band tables, band ids, the point order and per-point data into
+// shared memory (every thread of the block takes part, so call it before
+// any thread returns), or point at global memory when they exceed the
+// block's limit.
 template <typename C>
-__device__ SC3Data<C> stage_sc3(const SC3Params& P, unsigned char* smem, int use_smem,
-                                bool order) {
+__device__ SC3Data<C> stage_sc3(const SC3Params& P, unsigned char* smem, int use_smem) {
     const long long N = P.n_points, BK = P.n_bands * P.n_nodes;
     SC3Data<C> d;
-    d.order = nullptr;
     if (use_smem) {
         long long* si = reinterpret_cast<long long*>(smem);
         d.band = stage_array(P.band_ids, N, si);
         d.n_native = stage_array(P.n_native, P.n_bands, si);
-        if (order) d.order = stage_array(P.point_order, N, si);
+        d.order = stage_array(P.point_order, N, si);
         C* s = reinterpret_cast<C*>(si);
         d.nu = stage_array((const C*)P.nodes, BK, s);
         d.w = stage_array((const C*)P.weights, BK, s);
@@ -271,7 +268,7 @@ __device__ SC3Data<C> stage_sc3(const SC3Params& P, unsigned char* smem, int use
     } else {
         d.band = P.band_ids;
         d.n_native = P.n_native;
-        if (order) d.order = P.point_order;
+        d.order = P.point_order;
         d.nu = (const C*)P.nodes;
         d.w = (const C*)P.weights;
         d.kx = (const C*)P.k_ext;
@@ -342,24 +339,12 @@ __device__ __forceinline__ C sc3_point(int n, const SC3Walker<C>& w, const SC3Da
     return residual_term<C>(P.use_sigma, y_fit, d.y[n], d.inv_dy[n], d.dy[n], d.su[n], w.sig);
 }
 
-// The Gaussian log-likelihood of the ShockCooling3 fluxes of one walker at
-// absolute parameters p[ndim] = (v_s*, M_env, f_rho M, R, d_L, E(B-V),
-// t_0[, sigma]), float64; -inf when not finite. It does not look at the
-// priors. One thread walks the points in order.
-template <typename C>
-__device__ double sc3_log_likelihood(const double* p, const SC3Data<C>& d, const SC3Params& P) {
-    const SC3Walker<C> w = sc3_walker<C>(p, P);
-    const int N = (int)P.n_points;
-    const int K = (int)P.n_nodes;
-    C acc = C(0);
-    for (int n = 0; n < N; ++n) acc += sc3_point<C>(n, w, d, P, K);
-    return finish_log_likelihood<C>(acc, P.use_sigma, P.ll_offset, P.log_norm_const);
-}
-
-// The same log-likelihood of the walker with factors w, computed by the 32
-// lanes of a warp together (every lane returns the same bits): lane l takes
-// the points d.order[l], d.order[l
-// + 32], ..., in that order, and a butterfly shuffle sums the lanes. The
+// The Gaussian log-likelihood (float64, -inf when not finite) of the
+// ShockCooling3 fluxes of the walker with factors w (sc3_walker's; the
+// priors are not looked at), computed by the 32 lanes of a warp together
+// (every lane returns the same bits): lane l takes the points d.order[l],
+// d.order[l + 32], ..., in that order, and a butterfly shuffle sums the
+// lanes. The
 // order sorts the points by descending native node count, so the 32 points
 // a warp works on at once have near-equal quadrature lengths (on the
 // flagship a lane runs 212 nodes where the longest band alone has 88 per
@@ -375,34 +360,20 @@ __device__ double sc3_log_likelihood_warp(const SC3Walker<C>& w, const SC3Data<C
 }
 
 // The model policy of stretch.cuh and ladder.cuh for ShockCooling3 in
-// compute type C.
-template <typename C>
-struct SC3Model {
+// compute type C, the policy of the SC3 half-step, batch log-posterior, K6a
+// and K6b (stretch_half_step_kernel, logpost_warp_kernel,
+// tempered_half_step_kernel, ladder_init_kernel): four warps a block, a
+// walker a warp (not batched: every lane forms the walker's proposal and
+// factors), a block for every four walkers. N: the walker's dimension at
+// compile time (policy_dim), or 0 (P.ndim). The batch log-posterior and K6b
+// take N = 7, or 8 with the intrinsic scatter, so that the walker's
+// parameters live in registers (at a runtime dimension they took a 72-byte
+// stack frame and 1.2% of its time on the H100); the half-step and K6a keep
+// N = 0 (at N = 8 the half-step spills under its launch bound).
+template <typename C, int N>
+struct SC3WarpModel {
     typedef SC3Params Params;
     typedef SC3Data<C> Data;
-    static __host__ __device__ size_t stage_bytes(const Params& P) {
-        return sc3_stage_bytes<C>(P, false);
-    }
-    static __device__ Data stage(const Params& P, unsigned char* smem, int use_smem, int) {
-        return stage_sc3<C>(P, smem, use_smem, false);
-    }
-    static __device__ double log_likelihood(const double* p, const Data& d, const Params& P) {
-        return sc3_log_likelihood<C>(p, d, P);
-    }
-};
-
-// The policy of the SC3 half-step, batch log-posterior and K6b: the warp
-// form (stretch_half_step_kernel, logpost_warp_kernel, ladder_init_kernel),
-// its data with the point order; four warps a block, a walker a warp
-// (not batched: every lane forms the walker's proposal and factors), a block
-// for every four walkers. N: the walker's dimension at compile time
-// (policy_dim), or 0 (P.ndim). The batch log-posterior and K6b take N = 7,
-// or 8 with the intrinsic scatter, so that the walker's parameters live in
-// registers (at a runtime dimension they took a 72-byte stack frame and
-// 1.2% of its time on the H100); the half-step keeps N = 0 (at N = 8 it
-// spills under its launch bound).
-template <typename C, int N>
-struct SC3WarpModel : SC3Model<C> {
     typedef SC3Walker<C> Walker;
     static constexpr int warps_per_block = 4;
     static constexpr bool batched = false;
@@ -415,11 +386,11 @@ struct SC3WarpModel : SC3Model<C> {
         return sc3_log_likelihood_warp<C>(w, d, P);
     }
     static __host__ __device__ size_t stage_bytes(const SC3Params& P) {
-        return sc3_stage_bytes<C>(P, true);
+        return sc3_stage_bytes<C>(P);
     }
     static __device__ SC3Data<C> stage(const SC3Params& P, unsigned char* smem, int use_smem,
                                        int) {
-        return stage_sc3<C>(P, smem, use_smem, true);
+        return stage_sc3<C>(P, smem, use_smem);
     }
 };
 
@@ -506,15 +477,17 @@ int sc3_half_step_launch(const SC3Params* P, int device, int compute_f64, void* 
                                                 chain_lp, chain_lp_f64, n_accept, stream);
 }
 
-// K6a launch over ShockCooling3 (ladder.cuh). Returns 0 or a cudaError_t code.
+// K6a launch over ShockCooling3 (ladder.cuh), a warp per walker
+// (SC3WarpModel, the walker's dimension at run time, as the half-step).
+// Returns 0 or a cudaError_t code.
 int sc3_tempered_half_step_launch(const SC3Params* P, int device, int compute_f64, void* x,
                                   int state_f64, double* logpri, double* logl,
                                   const double* betas, int n_rungs, int half, int h,
                                   const void* u_z, const long long* j, const void* u_acc,
                                   double a, int* n_accept, void* stream) {
-    return launch_tempered_half_step<SC3Model>(P, device, compute_f64, x, state_f64, logpri, logl,
-                                               betas, n_rungs, half, h, u_z, j, u_acc, a,
-                                               n_accept, stream);
+    return launch_tempered_half_step<SC3WarpModelAnyDim>(P, device, compute_f64, x, state_f64,
+                                                         logpri, logl, betas, n_rungs, half, h,
+                                                         u_z, j, u_acc, a, n_accept, stream);
 }
 
 // K6b launch over ShockCooling3 (ladder.cuh), a warp per state

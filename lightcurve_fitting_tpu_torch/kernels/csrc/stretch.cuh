@@ -3,23 +3,21 @@
 // half-step (K2) and the batch log-posterior as templates over a model
 // policy.
 //
-// A model policy M (SC2Model in sc2_logpost.cu, SC3Model in sc3_logpost.cu,
-// EpochBBModel in epoch_bb.cu, CSModel in companion.cu) provides
+// A model policy M (SC2Model in sc2_logpost.cu, SC3WarpModel in
+// sc3_logpost.cu, EpochBBModel in epoch_bb.cu, CSModel in companion.cu)
+// provides
 //   typedef ... Params;  // the model's parameter block (8-byte fields)
 //   typedef ... Data;    // the per-point data as the kernel reads it
 //   static size_t stage_bytes(const Params&);             // host and device
 //   static __device__ Data stage(const Params&, unsigned char* smem, int use_smem, int e);
 // where e is the ensemble (epoch) of the block: always 0 for a single
-// ensemble, whose data do not depend on it. A policy whose tempered
-// half-step runs a thread per walker (ladder.cuh, SC3Model) provides
-//   static __device__ double log_likelihood(const double* p, const Data&, const Params&);
-// the float64 log-likelihood alone (-inf when not finite). A policy whose
-// kernels run a warp per walker (stretch_half_step_kernel: SC2WarpModel,
-// SC3WarpModel, CSWarpModel, EpochBBModel; tempered_half_step_kernel with
-// WARP: SC2WarpModel, CSWarpModel; the batch log-posterior
-// logpost_warp_kernel: SC2WarpModel, SC3WarpModel, CSWarpModel,
-// EpochBBModel; the ladder's initial state ladder_init_kernel:
-// SC2WarpModel, SC3WarpModel, CSWarpModel) provides
+// ensemble, whose data do not depend on it. A policy whose kernels run a
+// warp per walker (stretch_half_step_kernel: SC2WarpModel, SC3WarpModel,
+// CSWarpModel, EpochBBModel; the tempered half-step
+// tempered_half_step_kernel and the ladder's initial state
+// ladder_init_kernel: SC2WarpModel, SC3WarpModel, CSWarpModel; the batch
+// log-posterior logpost_warp_kernel: SC2WarpModel, SC3WarpModel,
+// CSWarpModel, EpochBBModel) provides
 //   typedef ... Walker;  // a walker's constants (32-bit words, copied by value)
 //   static __device__ Walker walker(const double* p, const Params&);
 //   static __device__ double log_likelihood_warp(const Walker&, const Data&, const Params&);

@@ -4,9 +4,9 @@ versions beside them.
 * :func:`tempered_half_step` (K6a, ``tempered_half_step_kernel`` of
   ``csrc/ladder.cuh`` over the model's policy, in ``sc2_logpost.cu``,
   ``sc3_logpost.cu`` or ``companion.cu``: a warp per walker over
-  ShockCooling2 and the companion-shocking models, a thread per walker over
-  ShockCooling3): one stretch-move half-step of every rung's ensemble,
-  accepting by log pi + beta log L;
+  ShockCooling2, ShockCooling3 and the companion-shocking models): one
+  stretch-move half-step of every rung's ensemble, accepting by log pi +
+  beta log L;
 * :func:`ladder_init` (K6b, ``ladder_init_kernel``, a warp per state over
   the model's warp policy): log pi and log L of the ladder's starting
   states, each distinct state evaluated once and written to every rung

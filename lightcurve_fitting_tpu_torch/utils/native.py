@@ -1,8 +1,11 @@
-"""ctypes loader for the native host kernels (utils/native/lcf_native.cpp).
+"""ctypes loader for the native host kernels (utils/native/lcf_native.cpp,
+the port's own copy of the JAX package's source).
 
-The shared library is compiled lazily with g++ on first use and cached next to
-the source; every entry point has a pure-numpy fallback so the framework works
-without a toolchain. Use :func:`available` to check which path is active.
+The shared library is compiled lazily with g++ on first use into the
+package's build directory (``kernels/_build/``, ignored by git, where the
+CUDA kernels' library lands too); every entry point has a pure-numpy
+fallback so the framework works without a toolchain. Use :func:`available`
+to check which path is active.
 """
 
 import ctypes
@@ -12,20 +15,23 @@ import threading
 
 import numpy as np
 
-# the C++ source is the JAX package's, read by path (importing that package
-# would import jax); the library is built next to this module
-_SRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "lightcurve_fitting_tpu", "utils", "native")
-_SRC = os.path.join(_SRC_DIR, "lcf_native.cpp")
-_LIB_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "liblcf_native.so")
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(_PKG_DIR, "utils", "native", "lcf_native.cpp")
+_BUILD_DIR = os.path.join(_PKG_DIR, "kernels", "_build")
+_LIB_PATH = os.path.join(_BUILD_DIR, "liblcf_native.so")
 _lock = threading.Lock()
 _lib = None
 _tried = False
 
 
 def _build():
-    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-o", _LIB_PATH, _SRC]
+    """g++ into a file of this process's own, then renamed into place, so
+    that processes building at once never load a half-written library."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-o", tmp, _SRC]
     subprocess.run(cmd, check=True, capture_output=True)
+    os.replace(tmp, _LIB_PATH)
 
 
 def _load():

@@ -508,6 +508,40 @@ def jax_bench_evidence(seeds=(1, 2)):
     return out
 
 
+def jax_sc3_evidence(seeds=(1, 2)):
+    """The JAX package's stepping-stone log Z, float64 on the CPU, of
+    ShockCooling3 on SN 2016bkv's early curve (the SC3 priors and init
+    window of ``chip_smoke.py`` phase 9; 512 walkers, 16 rungs + beta = 1,
+    150 + 150 steps): the reference ``chip_smoke.py`` phase 16d holds the
+    port's card run to. A few minutes a seed on 8 CPU cores."""
+    import contextlib
+    import io
+    import os
+    from lightcurve_fitting_tpu.models import ShockCooling3 as JSC3
+    lc = JLC.read(os.path.join(os.path.dirname(__file__), "..", "lightcurve_fitting_tpu", "data",
+                               "SN2016bkv.csv"))
+    lc.meta.update(dm=30.79, redshift=0.002, extinction={
+        "U": 0.069, "B": 0.061, "g": 0.055, "V": 0.045, "0": 0.035,
+        "r": 0.038, "R": 0.035, "i": 0.028, "I": 0.020})
+    lc.calcAbsMag()
+    lc.calcLum()
+    early = lc.where(MJD_min=57468.0, MJD_max=57485.0)
+    d_l = 10 ** (30.79 / 5 + 1) / 1e6
+    priors = [JU(0.0, 10.0), JU(0.0, 10.0), JU(0.0, 100.0), JU(0.0, 100.0),
+              JU(d_l - 0.01, d_l + 0.01), JU(0.0, 1.0), JU(57468.0, 57468.7)]
+    out = {}
+    for seed in seeds:
+        with contextlib.redirect_stdout(io.StringIO()):
+            out[seed] = jfit.lightcurve_evidence(
+                early, JSC3(early), priors,
+                p_lo=[0.5, 0.5, 5.0, 1.0, d_l - 0.005, 0.0, 57468.5],
+                p_up=[2.0, 2.0, 20.0, 5.0, d_l + 0.005, 0.1, 57468.7], nwalkers=512,
+                n_rungs=16, nsteps=150, nsteps_burnin=150, seed=seed, quiet=True)[:2]
+    return out
+
+
 if __name__ == "__main__":
-    for seed, (log_z, err) in jax_bench_evidence().items():
+    import sys
+    which = jax_sc3_evidence if sys.argv[1:] == ["sc3"] else jax_bench_evidence
+    for seed, (log_z, err) in which().items():
         print(f"seed {seed}: log Z {log_z!r} +/- {err!r}")

@@ -78,7 +78,13 @@ order against the plain sum and the JAX package's float64 log-posterior;
 the CS log-posterior (a thread per walker) at 32, 2048, 32768 and 131072;
 the CS half-step and K6a over CS, a warp per walker, as K2 and K6a at the
 fits' widths (half 16, 16384; 7 rungs x half 32, 17 x 2048), CS1 with the
-intrinsic scatter beside them.
+intrinsic scatter beside them. K6a over ShockCooling3 (a warp per walker)
+at the SC3 evidence's 17 rungs x half 256, float32 within 1e-5 and float64
+within 1e-12 of the term scale, K6b at its states its stored values bit
+for bit. K8 in each form (the table staged, or read where it lies) within
+1e-6 (float32) and 1e-13 (float64) of each band's template peak, the same
+zero set, the two forms and the wrapper's pick bit-equal at 1, 2, the
+crossover's walkers +- 1 and 131072; on the CPU the rule choosing the form.
 """
 
 import ctypes
@@ -484,6 +490,24 @@ def test_k3_form_runs_a_warp_per_pair_where_the_pairs_cannot_fill_the_card(n_sm)
     meta = torch.empty((2, 3), dtype=torch.float64, device="meta")
     with pytest.raises(ValueError, match="'thread' or 'warp', not 'block'"):
         sc3.bandflux_launch("block", meta, meta, meta, meta)
+
+
+@pytest.mark.parametrize("n_sm", [132, 114])
+def test_k8_form_stages_the_rows_where_the_elements_pay(n_sm):
+    """k8_form on an H100 (SXM 132 SMs, PCIe 114): the direct form (the
+    rows read where they lie) at the CS models' evaluate, one walker x 108
+    points, and up to K8_STAGED_ELEMENTS_PER_SM elements an SM; the staged
+    form from there and at the 131072 x 108 batch."""
+    from lightcurve_fitting_tpu_torch.kernels import cs
+    cross = cs.K8_STAGED_ELEMENTS_PER_SM * n_sm
+    for elements in (1, 108, 2 * 108, cross - 1):
+        assert cs.k8_form(elements, n_sm) == "direct", elements
+    for elements in (cross, 131072 * 108):
+        assert cs.k8_form(elements, n_sm) == "staged", elements
+    # a form the wrapper does not know is refused before anything else
+    meta = torch.empty(3, dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="'staged' or 'direct', not 'thread'"):
+        cs.sifto_launch("thread", meta, {}, 57840.0, 1.0)
 
 
 @pytest.mark.parametrize("case", ["q0", "q9", "n0", "float64", "rank-1d"])
@@ -1474,14 +1498,14 @@ def test_k6b_matches_plain_on_card(lc, lc_flux, cuda_device, request, which, R, 
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["sc2", "cs"])
+@pytest.mark.parametrize("which", ["sc2", "cs", "sc3"])
 @pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
 def test_k6b_repeats_k6a_values_on_card(lc, lc_flux, cuda_device, request, which, f64):
-    """K6b and K6a over ShockCooling2 and CompanionShocking2 run one warp
-    policy (K6b at a compile-time ndim, K6a at a runtime one): at the
-    states two K6a half-steps left at u_acc = 0 (every proposal inside the
-    priors accepted, on every rung), K6b gives the log pi and log L that
-    K6a stored, bit for bit, at every walker."""
+    """K6b and K6a over ShockCooling2, CompanionShocking2 and ShockCooling3
+    run one warp policy (K6b at a compile-time ndim, K6a at a runtime one):
+    at the states two K6a half-steps left at u_acc = 0 (every proposal
+    inside the priors accepted, on every rung), K6b gives the log pi and log
+    L that K6a stored, bit for bit, at every walker."""
     try:
         if f64:
             config.set_compute_dtype(None)
@@ -1513,8 +1537,8 @@ def test_k6b_repeats_k6a_values_on_card(lc, lc_flux, cuda_device, request, which
 @pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
 @pytest.mark.parametrize("h", [0, 1])
 def test_k6a_matches_plain_on_card(lc, lc_flux, cuda_device, which, R, half, f64, h):
-    """K6a (over ShockCooling2 a warp per walker, over ShockCooling3 a
-    thread per walker) against its plain version under shared draws, on R
+    """K6a (over ShockCooling2 and ShockCooling3 a warp per walker) against
+    its plain version under shared draws, on R
     rungs x half walkers a half (SC2 at the PT fit's 7 x 16 and the
     evidence's 17 x 2048 besides 5 x 256), float32 and float64: flags equal
     except near-ties, states and log pi bit-equal and log L within 1e-5
@@ -1555,6 +1579,38 @@ def test_k6a_matches_plain_on_card(lc, lc_flux, cuda_device, which, R, half, f64
         assert torch.equal(pk[:, h][agree], pp[:, h][agree])
         _assert_ll_close(lk[:, h][agree], lpl[:, h][agree], 1e-10 if f64 else 1e-5, c)
         assert 0.02 < float(ak[:, h].float().mean()) < 0.98
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+@pytest.mark.parametrize("h", [0, 1])
+def test_k6a_over_sc3_matches_plain_on_card(lc, lc_flux, cuda_device, f64, h):
+    """K6a over ShockCooling3 (a warp per walker, SC3WarpModel) at the SC3
+    evidence's ladder, 17 rungs x half 256 (chip_smoke.py 16d), against its
+    plain version under shared draws: flags equal except near-ties, states
+    and log pi bit-equal and log L within 1e-5 (float32) or 1e-12 (float64)
+    of the term scale where they agree; then K6b at the states it left gives
+    its stored log pi and log L bit for bit."""
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        lp, off, sc, x0 = _ladder_case("sc3", lc, lc_flux, cuda_device, 17, 512, seed=5)
+        _tempered_case(lp, off, sc, x0, h, 6 + h, 1e-12 if f64 else 1e-5)
+        pri, ll = ladder.ladder_init(lp, x0, off, sc)
+        betas = torch.as_tensor(make_beta_ladder(16), device=cuda_device)
+        g = torch.Generator(device=cuda_device).manual_seed(7 + h)
+        shape = (17, 2, 256)
+        acc = torch.zeros(shape, dtype=torch.int32, device=cuda_device)
+        ladder.tempered_half_step(lp, x0, pri, ll, betas, h,
+                                  torch.rand(shape, generator=g, device=cuda_device),
+                                  torch.randint(0, 256, shape, generator=g, device=cuda_device),
+                                  torch.rand(shape, generator=g, device=cuda_device), 2.0, off,
+                                  sc, acc)
+        assert int(acc.sum()) > 0
+        pri2, ll2 = ladder.ladder_init(lp, x0, off, sc)
+        assert torch.equal(pri2, pri) and torch.equal(ll2, ll)
     finally:
         config.set_compute_dtype(config.AUTO)
 
@@ -2784,6 +2840,39 @@ def _k8_case(ia, ia_lc, device, W=4096, seed=0):
     cols = [torch.as_tensor(c[:, None], device=device) for c in (tpk, s, dtu, dti)]
     peak = quad["sifto_rows"][quad["sifto_band"], 3].abs().amax(dim=-1)
     return model, t, quad, cols, peak
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", ["1", "2", "cross-1", "cross", "131072"])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_k8_forms_match_plain_on_card(ia, ia_lc, cuda_device, f64, width):
+    """K8 in each form (the rows staged once a block, or read where they
+    lie) against sifto_points_plain at 1 and 2 walkers, on each side of
+    k8_form's crossover for the card's SMs and at 131072 walkers x 108
+    points: within 1e-6 (float32) and 1e-13 (float64) of each band's
+    template peak, the same zero set; the two forms and the wrapper's pick
+    bit-equal."""
+    from lightcurve_fitting_tpu_torch.kernels import cs, gradient
+    from lightcurve_fitting_tpu_torch.models.companion_shocking import sifto_points_plain
+    cross = -(-cs.K8_STAGED_ELEMENTS_PER_SM * gradient.sm_count(cuda_device) // 108)
+    W = {"1": 1, "2": 2, "cross-1": cross - 1, "cross": cross, "131072": 131072}[width]
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        # (the first four rows: t_peak NaN, stretch 0, inf and -1; 1 and 2 walkers
+        # take drawn rows)
+        _, t, quad, cols, peak = _k8_case(ia, ia_lc, cuda_device, W=max(W, 16))
+        cols = [c[-W:] for c in cols]
+        want = sifto_points_plain(t, quad, *cols)
+        got = {form: cs.sifto_launch(form, t, quad, *cols) for form in ("staged", "direct")}
+        assert torch.equal(got["staged"], got["direct"])
+        assert torch.equal(cs.sifto(t, quad, *cols), got["direct"])
+        for k in got.values():
+            assert k.shape == want.shape == (W, 108)
+            assert torch.equal(k == 0, want == 0) and torch.isfinite(k).all()
+            assert bool(((k - want).abs() <= (1e-13 if f64 else 1e-6) * peak).all())
+    finally:
+        config.set_compute_dtype(config.AUTO)
 
 
 @pytest.mark.cuda

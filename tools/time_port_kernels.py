@@ -61,7 +61,11 @@ and of the fits, float32 compute, by CUDA events:
   4096 walkers x the 149 flagship points (``K3_W*_thread_dev``,
   ``K3_W*_warp_dev``: the forms' crossover lies among them; a checkout
   with one form times it as ``thread``) and at 131072 (``K3_W131072_dev``),
-  and K5 (16/50/84) on the summary rows of the bolometric paths' 65 and
+  and K8 in each of its forms at 1-16384 walkers and 131072 x the 108
+  points of the synthetic Ia curve (``K8_W*_staged_dev``,
+  ``K8_W*_direct_dev``: the forms' crossover lies among them; a checkout
+  with one form times it as ``staged``), and K5 (16/50/84) on the summary
+  rows of the bolometric paths' 65 and
   256 epochs x 3200 samples (``K5_E65``, ``K5_E256``, each ``_dev``); each
   timed and hashed;
 * hashed only, at ``chip_smoke.py``'s shapes: K3, K4 with its gradient,
@@ -78,7 +82,9 @@ and of the fits, float32 compute, by CUDA events:
   of phase 9 (9a: 64 walkers x 200 + 200; 9b: 32768 x 300; 9c: 4096 x 300,
   seed 1), of the ShockCooling2 fits of phases 5 and 16 (5a: 64
   walkers x 200 + 200; 5b: 131072 x 300; 16a: the evidence at 4096 x 17
-  rungs x 150 + 150; 16b: the PT fit, 32 x 7 rungs x 350 + 250) and of the
+  rungs x 150 + 150; 16b: the PT fit, 32 x 7 rungs x 350 + 250), of the
+  ShockCooling3 evidence of phase 16d (512 walkers x 17 rungs x 150 + 150,
+  seed 1: ``sc3_16d_*``) and of the
   CompanionShocking2 fits of phase 24 (a: 32 walkers x 300 + 250; b: 32768
   x 300; c: the evidence at 4096 x 17 rungs x 150 + 150).
 
@@ -132,9 +138,9 @@ SC3_LO = [0.5, 0.5, 5.0, 1.0, D_L - 0.005, 0.0, 57468.5]
 SC3_UP = [2.0, 2.0, 20.0, 5.0, D_L + 0.005, 0.1, 57468.7]
 # the ptxas report covers the entry functions whose mangled names hold these
 PTXAS_KERNELS = ("nuts_transition", "hmc_transition", "logpost_grad", "SC2WarpModel",
-                 "SC3WarpModel", "stretch_half_step_kernelI8SC3Model", "CSWarpModel",
+                 "SC3WarpModel", "CSWarpModel",
                  "epoch_map_polish", "EpochBBModel", "replica_swap", "epoch_summary",
-                 "epoch_logpost", "rung_block_terms", "bandflux", "percentile")
+                 "epoch_logpost", "rung_block_terms", "bandflux", "percentile", "sifto_kernel")
 
 
 def events_ms(fn, launches, repeats):
@@ -647,6 +653,19 @@ def main():
     times["K8_W1"] = events_ms(lambda: cs.sifto(t_c, quad_c, *k8_one), 100, args.repeats)
     times["K8_W1_dev"] = device_ms(lambda: cs.sifto(t_c, quad_c, *k8_one), "sifto_kernel", 100,
                                    args.repeats)
+    # K8 in each form about its crossover (K8_W*_{staged,direct}_dev; a
+    # checkout with one form, which stages the rows, times it as staged)
+    k8_forms = ("staged", "direct") if hasattr(cs, "sifto_launch") else ("staged",)
+    for w8 in (1, 2, 8, 32, 128, 512, 1024, 2048, 4096, 8192, 16384, W):
+        k8_w = [a[:w8] for a in k8_args]
+        for form in k8_forms:
+            def k8(k8_w=k8_w, form=form):
+                if len(k8_forms) == 1:
+                    return cs.sifto(t_c, quad_c, *k8_w)
+                return cs.sifto_launch(form, t_c, quad_c, *k8_w)
+            times[f"K8_W{w8}_{form}_dev"] = device_ms(k8, "sifto_kernel",
+                                                      100 if w8 <= 4096 else 20, args.repeats)
+            digests[f"K8_W{w8}_{form}_dev"] = digest(k8())
     for hc in (16, 16384, 65536):
         xc = torch.as_tensor((rng.uniform(lo_c, up_c, size=(2 * hc, 7)) - offc) / scc,
                              device=dev).float().reshape(2, hc, 7).contiguous()
@@ -997,6 +1016,14 @@ def main():
                 n_rungs=chip_smoke.EV_RUNGS, nsteps=chip_smoke.EV_STEPS,
                 nsteps_burnin=chip_smoke.EV_BURNIN, seed=1, **sc2_kw))
         walls["sc2_16a_log_z"] = [float(ev[0]), float(ev[1])]
+        # (16d) lightcurve_evidence on ShockCooling3 at 512 walkers x 16 rungs +
+        # beta = 1 x 150 + 150, seed 1
+        for rep in range(2):
+            walls[f"sc3_16d_{rep}"], ev = wall(lambda: lightcurve_evidence(
+                lc, ShockCooling3(lc), chip_smoke.sc3_priors(), p_lo=SC3_LO, p_up=SC3_UP,
+                nwalkers=512, n_rungs=chip_smoke.EV_RUNGS, nsteps=chip_smoke.EV_STEPS,
+                nsteps_burnin=chip_smoke.EV_BURNIN, seed=1, quiet=True))
+        walls["sc3_16d_log_z"] = [float(ev[0]), float(ev[1])]
         for rep in range(2):
             walls[f"sc2_16b_{rep}"], _ = wall(lambda: lightcurve_ptmcmc(
                 lc, ShockCooling2(lc), gpri, p_lo=[20, 2, 20, 57468.4],
