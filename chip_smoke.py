@@ -155,9 +155,11 @@ raises and the script exits non-zero):
     reset before (a), show it ran through K6a-K6d; (d) ``lightcurve_evidence``
     on ShockCooling3 (the priors and window of 9; 512 walkers x 16 rungs +
     beta = 1 x 150 + 150; seeds 1 and 2), log Z within 4 hypot(err,
-    err_jax) of the JAX package's float64 CPU values, the counters, reset
-    before, showing one run's 600 K6a (over ``SC3WarpModel``), 300 K6c, 1 K6b
-    and 1 K6d launches and no plain version, a profiled run's time split;
+    err_jax) of the JAX package's float64 CPU values and the mean rung
+    acceptance within 4 sigma of the JAX package's seeds 1-8, the counters,
+    reset before, showing one run's 600 K6a (over ``SC3WarpModel``), 300
+    K6c, 1 K6b and 1 K6d launches and no plain version, a profiled run's
+    time split, and seed 1's log Z at 32 and 64 rungs beside it;
 17. K7, the log-posterior and its gradient, against autograd through the
     plain log-posterior at 131072 flagship walkers (1% outside the priors,
     and 131072 more with t < t_exp) and at the MAP's 64 starts: values as
@@ -202,7 +204,9 @@ raises and the script exits non-zero):
     outside, NaN and infinite: float32 <= 1e-6 and float64 <= 1e-13 of the
     band's template peak, identical zero sets; the two forms bit-equal
     there and at 1, 2 and the crossover's walkers +- 1, the profiler showing
-    the form the wrapper picks; each form timed at 1 and 131072 walkers;
+    the form the wrapper picks; each form timed at 1 and 131072 walkers; the
+    direct form's row of the kernels line at one walker (evaluate's width),
+    its bytes the table entries that its phases touch;
 23. the CS log-posterior (a warp per walker, the half-step's form) of
     CompanionShocking, CompanionShocking2, CompanionShocking3 and
     CompanionShocking with the scatter (9 parameters) against its plain
@@ -225,8 +229,13 @@ raises and the script exits non-zero):
     value, a profiled run's time split, ``compare_models`` CS2 against CS3
     and ``lightcurve_ptmcmc`` CS2
     (t_0 and t_peak within 1 d); (d) the three models' ``evaluate`` on the
-    card (K8); the counters show K8, the CS log-posterior
-    and half-step, K6a and K6b ran, and no plain version did.
+    card (K8's direct form); (e) the model plot's posterior curves (the JAX
+    package's ``lightcurve_model_plot``): CS2's ``evaluate`` over 100 draws
+    of the 24b chain x 1000 times x the 6 bands on the card (K8's staged
+    form), held to the CPU's float64 evaluate (rtol 1e-5, atol 1e-6 of the
+    peak), K8's staged form timed on that input (its row of the kernels
+    line); the counters show each form of K8, the CS log-posterior and
+    half-step, K6a and K6b ran, and no plain version did.
 
 The last lines are the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and library time, and ``{"ok": true,
@@ -2004,6 +2013,47 @@ LADDER_KERNELS = ("tempered_half_step", "ladder_init", "replica_swap", "rung_blo
 SC3_EV_WALKERS = 512
 SC3_EV_LOGZ_JAX = {1: (2472.1758707502495, 77.54078680865939),
                    2: (2478.443727283485, 91.37822305342651)}
+# and its per-rung stretch acceptance (beta = 0 first) at seeds 1-8, the
+# same command: each card run's mean over the rungs is held to these seeds'
+# (sc3_acceptance_gate)
+SC3_EV_ACC_JAX = {
+    1: [0.21678385416666668, 0.15157552083333334, 0.13830729166666667, 0.145234375,
+        0.15473958333333335, 0.17028645833333333, 0.18126302083333334, 0.19019531250000002,
+        0.20888020833333334, 0.21748697916666668, 0.23089843750000003, 0.24481770833333336,
+        0.2646875, 0.30641927083333337, 0.3261979166666667, 0.3472526041666667,
+        0.37214843750000004],
+    2: [0.21639322916666667, 0.15276041666666668, 0.14039062500000002, 0.14579427083333335,
+        0.16466145833333334, 0.1758984375, 0.19131510416666667, 0.20397135416666667,
+        0.22153645833333335, 0.2251171875, 0.23843750000000002, 0.25661458333333337,
+        0.2777213541666667, 0.301640625, 0.3086197916666667, 0.34523437500000004,
+        0.37270833333333336],
+    3: [0.21602864583333334, 0.15389322916666667, 0.14134114583333335, 0.14579427083333335,
+        0.1584375, 0.17430989583333334, 0.18803385416666668, 0.2037890625, 0.207109375,
+        0.2179947916666667, 0.22074218750000002, 0.23625000000000002, 0.2521744791666667,
+        0.263359375, 0.29794270833333336, 0.3027473958333334, 0.35638020833333334],
+    4: [0.21690104166666668, 0.15709635416666667, 0.14184895833333333, 0.15302083333333336,
+        0.16100260416666667, 0.17511718750000002, 0.19516927083333335, 0.2034635416666667,
+        0.213671875, 0.23184895833333335, 0.24091145833333336, 0.26394531250000003, 0.285859375,
+        0.2999348958333333, 0.30779947916666667, 0.3425651041666667, 0.34856770833333334],
+    5: [0.21567708333333335, 0.15899739583333333, 0.1436328125, 0.14986979166666667,
+        0.15759114583333333, 0.178984375, 0.19108072916666669, 0.205078125, 0.21927083333333336,
+        0.23497395833333334, 0.2523958333333334, 0.2664973958333334, 0.2931119791666667,
+        0.3030859375, 0.33319010416666667, 0.36066406250000005, 0.36375],
+    6: [0.21071614583333334, 0.1625390625, 0.15027343750000002, 0.15330729166666668,
+        0.16404947916666668, 0.17897135416666668, 0.19970052083333334, 0.21071614583333334,
+        0.2221744791666667, 0.22759114583333334, 0.23977864583333336, 0.26058593750000003,
+        0.2721744791666667, 0.30391927083333337, 0.32438802083333335, 0.34088541666666666,
+        0.3639453125],
+    7: [0.21997395833333336, 0.15589843750000001, 0.1414453125, 0.15235677083333335,
+        0.16432291666666668, 0.18498697916666668, 0.19394531250000002, 0.20765625000000001,
+        0.22614583333333335, 0.24223958333333334, 0.24927083333333336, 0.24759114583333336,
+        0.2719270833333334, 0.29664062500000005, 0.328671875, 0.34352864583333337, 0.3644921875],
+    8: [0.21859375, 0.15610677083333335, 0.14608072916666667, 0.15364583333333334,
+        0.17118489583333335, 0.18973958333333335, 0.2076953125, 0.2167057291666667,
+        0.23859375000000002, 0.2504296875, 0.2643359375, 0.27665364583333335, 0.2974479166666667,
+        0.31972656250000003, 0.32941406250000005, 0.3623307291666667, 0.3654557291666667]}
+# the ladders beside 16d's (seed 1, not gated): the log Z error by rungs
+SC3_EV_MORE_RUNGS = (32, 64)
 # K6c's shapes (rungs, walkers, ndim): the evidence of SC2 (16a) and CS2 (24c),
 # compare_models on synthetic photometry (16c), the PT fits of SC2 (16b) and
 # CS2 (24c), the evidence of SC3 (16d)
@@ -2616,12 +2666,28 @@ def phase_ladder_main_path(lc, smi):
     return launches
 
 
+def sc3_acceptance_gate(acc):
+    """A card run's mean stretch acceptance over the rungs (``acc``) against
+    the JAX package's seeds (SC3_EV_ACC_JAX): |mean - m| / (4 sigma), m the
+    seeds' mean of it, sigma^2 = s^2 (1 + 1/S) the variance of a run's
+    difference from m, s the seeds' standard deviation, S the seeds. At most
+    1 passes. (Each rung alone spreads too unevenly over the seeds, 0.0004
+    at beta = 0 to 0.02 near beta = 1, to gate it from S seeds.)"""
+    import numpy as np
+    ref = np.array(list(SC3_EV_ACC_JAX.values())).mean(axis=1)
+    sigma = ref.std(ddof=1) * np.sqrt(1 + 1 / ref.size)
+    return float(abs(np.mean(acc) - ref.mean()) / (4 * sigma)), float(ref.mean()), float(sigma)
+
+
 def phase_sc3_ladder_main_path(lc, smi):
     """16d: lightcurve_evidence on ShockCooling3 (SC3's priors and window,
     SC3_EV_WALKERS walkers x 16 rungs + beta = 1 x 150 + 150 steps), seeds 1
     and 2, each log Z within 4 hypot(err, err_jax) of the JAX package's
-    float64 CPU value; the counters, reset first, show one run's 600 K6a,
-    300 K6c, 1 K6b and 1 K6d launches and no plain version; the profiler
+    float64 CPU value and the mean rung acceptance within 4 sigma of the
+    JAX package's seeds (sc3_acceptance_gate); seed 1's log Z at
+    SC3_EV_MORE_RUNGS rungs, not gated; the counters, reset first, show one
+    run's 600 K6a, 300 K6c, 1 K6b and 1 K6d launches and no plain version;
+    the profiler
     shows K6a over SC3WarpModel; a profiled run's time split."""
     import numpy as np
     import torch
@@ -2655,11 +2721,20 @@ def phase_sc3_ladder_main_path(lc, smi):
                         if e.device_type.name == "CUDA" and "tempered_half_step" in e.key})
     if len(k6a_names) != 1 or "SC3WarpModel" not in k6a_names[0]:
         raise AssertionError(f"16d: K6a must run over SC3WarpModel, the profiler saw {k6a_names}")
-    for (log_z, err, _), seed in zip(runs, (1, 2)):
+    gates = []
+    for (log_z, err, info), seed in zip(runs, (1, 2)):
         z_ref, e_ref = SC3_EV_LOGZ_JAX[seed]
         if not np.isfinite(err) or abs(log_z - z_ref) > 4 * np.hypot(err, e_ref):
             raise AssertionError(f"16d seed {seed}: log Z {log_z:.4f} +- {err:.4f} not within 4 "
                                  f"hypot of the JAX package's {z_ref} +- {e_ref}")
+        gate, acc_ref, acc_sigma = sc3_acceptance_gate(info["acceptance"])
+        gates.append(gate)
+        if gate > 1:
+            raise AssertionError(f"16d seed {seed}: mean rung acceptance "
+                                 f"{np.mean(info['acceptance']):.5f} not within 4 sigma of the "
+                                 f"JAX package's {acc_ref:.5f} +- {acc_sigma:.5f}")
+    more = {k: lightcurve_evidence(lc, ShockCooling3(lc), priors, seed=1,
+                                   **dict(kw, n_rungs=k))[:2] for k in SC3_EV_MORE_RUNGS}
     parts, busy = time_split(prof, wall, {
         "step loop (K6a)": ("tempered_half_step",), "swaps (K6c)": ("replica_swap",),
         "reduction (K6d)": ("rung_block_terms",), "init (K6b)": ("ladder_init_kernel",)})
@@ -2670,7 +2745,14 @@ def phase_sc3_ladder_main_path(lc, smi):
           f"{runs[0][0]:.4f} +- {runs[0][1]:.4f}, seed 2 {runs[1][0]:.4f} +- {runs[1][1]:.4f} "
           f"(JAX float64 CPU seed 1 {SC3_EV_LOGZ_JAX[1][0]:.4f} +- {SC3_EV_LOGZ_JAX[1][1]:.4f}, "
           f"seed 2 {SC3_EV_LOGZ_JAX[2][0]:.4f} +- {SC3_EV_LOGZ_JAX[2][1]:.4f}; within 4 hypot); "
-          f"rung acceptance {fmt(info['acceptance'])}; swap rates {fmt(info['swap_rate'])}; "
+          f"rung acceptance {fmt(info['acceptance'])}, mean seed 1 "
+          f"{np.mean(runs[0][2]['acceptance']):.5f}, seed 2 "
+          f"{np.mean(runs[1][2]['acceptance']):.5f} (the JAX package's seeds "
+          f"{min(SC3_EV_ACC_JAX)}-{max(SC3_EV_ACC_JAX)} {acc_ref:.5f} +- {acc_sigma:.5f}; within "
+          f"4 sigma, the farther {4 * max(gates):.2f}); swap rates {fmt(info['swap_rate'])}; "
+          f"seed 1 at "
+          + ", ".join(f"{k} rungs log Z {z:.4f} +- {e:.4f}" for k, (z, e) in more.items())
+          + "; "
           f"{evals / times[0]:.4e} ladder evals/s (runs {', '.join(f'{t:.4f}' for t in times)} s"
           f"; on {smi}); profiled run {wall:.4f} s, device busy {busy:.4f} s (idle share "
           f"{1 - busy / wall:.3f}): " + ", ".join(f"{k} {v:.4f} s" for k, v in parts.items())
@@ -3481,7 +3563,11 @@ CS_LP_WIDTHS = (32, 4096, CS_WALKERS)
 # (tests/test_torch_companion.py::jax_cs_references)
 CS_ACCEPTANCE_REF = 0.34658192952473954
 CS_LOGZ_REF = (-4776.580381286037, 0.09502462437832584)
-CS_KERNELS = ("sifto", "cs_logpost", "cs_half_step", "tempered_half_step", "ladder_init")
+CS_KERNELS = ("sifto_direct", "sifto_staged", "cs_logpost", "cs_half_step", "tempered_half_step",
+              "ladder_init")
+# the posterior draws of the model plot's curves (24e): the default
+# num_models_to_plot of the JAX package's lightcurve_model_plot (fitting.py:1809)
+POSTERIOR_CURVES = 100
 
 
 def cs_priors(variant):
@@ -3546,12 +3632,33 @@ def cs_walkers(rng, variant, W, use_sigma=False):
     return p
 
 
-def k8_bound(W, N, quad):
-    """K8's bound at W walkers x N points: its operations (SIFTO_OPS an
-    element) against its bytes (the output written once, each walker's four
-    parameters and each point's record read once, the rows and knots)."""
+def k8_table_entries(t, quad, cols):
+    """The SiFTO table's entries that K8's (walker, point) phases inside the
+    template touch: the four coefficients of each (band, interval) pair and
+    the knots that bound those intervals (the searchsorted interval of each
+    phase, in float64). ``cols``: t_peak, stretch, dtU, dti as (W, 1)
+    columns, dtU and dti possibly None."""
+    import numpy as np
+    knots = quad["sifto_knots"].cpu().numpy()
+    band = quad["sifto_band"].cpu().numpy()
+    is_U, is_i = quad["is_U"].cpu().numpy(), quad["is_i"].cpu().numpy()
+    tpk, s, du, di = [np.zeros((1, 1)) if c is None else c.cpu().numpy().reshape(-1, 1)
+                      for c in cols]
+    x = (t.cpu().numpy() - tpk - np.where(is_i, di, np.where(is_U, du, 0.0))) / s
+    inside = (x >= knots[0]) & (x <= knots[-1])
+    i = np.clip(np.searchsorted(knots, x[inside], side="right") - 1, 0, len(knots) - 2)
+    pairs = np.unique(np.broadcast_to(band, x.shape)[inside] * (len(knots) - 1) + i).size
+    return 4 * pairs + np.unique(np.concatenate([i, i + 1])).size
+
+
+def k8_bound(t, quad, cols):
+    """K8's float32 bound at W walkers x N points: its operations (SIFTO_OPS
+    an element) against its bytes (the output written once, each walker's
+    four parameters and each point's record read once, and the table entries
+    these phases touch, k8_table_entries)."""
+    W, N = cols[0].shape[0], t.shape[-1]
     return bound_fields(W * N * SIFTO_OPS, W * N * 4 + W * 4 * 8 + N * (4 + 8 + 2)
-                        + 4 * (quad["sifto_rows"].numel() + quad["sifto_knots"].numel()))
+                        + 4 * k8_table_entries(t, quad, cols))
 
 
 def phase_k8(lc, lc0, rng_seed=16):
@@ -3588,7 +3695,7 @@ def phase_k8(lc, lc0, rng_seed=16):
     g_tpk[0], g_s[1], g_s[2] = np.nan, 0.0, np.inf
     cols["grid"] = [g_tpk, g_s, g_du, g_di]
     res, picks, dev_ms = {}, {}, {}
-    n0 = kernels.LAUNCHES["sifto"]
+    n0 = kernels.LAUNCHES["sifto_direct"] + kernels.LAUNCHES["sifto_staged"]
     for label in ("f32", "f64"):
         try:
             if label == "f64":
@@ -3629,21 +3736,23 @@ def phase_k8(lc, lc0, rng_seed=16):
                         picks[w] = expect_kernel(lambda: cs.sifto(t, quad, *sub), "sifto_kernel",
                                                  "true>" if w >= cross else "false>", calls=3)
                 if label == "f32" and name == "curve":
+                    one_w = [a[:1] for a in args]
                     for form in ("staged", "direct"):
                         dev_ms[(form, W)] = device_ms(
                             lambda: cs.sifto_launch(form, t, quad, *args), "sifto_kernel", 20,
                             1)[0]
-                        one_w = [a[:1] for a in args]
                         dev_ms[(form, 1)] = device_ms(
                             lambda: cs.sifto_launch(form, t, quad, *one_w), "sifto_kernel", 100,
                             1)[0]
                     k_ms = cuda_ms(lambda: cs.sifto(t, quad, *args))
                     plain_ms = cuda_ms(lambda: sifto_points_plain(t, quad, *args), repeats=5)
                     plain1_ms = cuda_ms(lambda: sifto_points_plain(t, quad, *one_w), repeats=20)
-                    quad32 = quad
+                    # the direct form's row at the path's width: the timed input's error
+                    err1 = float((cs.sifto_launch("direct", t, quad, *one_w)
+                                  - sifto_points_plain(t, quad, *one_w)).abs().max())
+                    b_big, b_one = k8_bound(t, quad, args), k8_bound(t, quad, one_w)
         finally:
             config.set_compute_dtype(config.AUTO)
-    big, one = k8_bound(W, N, quad32), k8_bound(1, N, quad32)
     phase("K8 22", f"{W} walkers x {N} points, the curve's times and a grid of whole days "
           f"(knots, both ends, outside; t_peak NaN, stretch 0 and inf): both forms (staged, "
           f"direct) bit-equal and equal to the wrapper's pick; f32 max |d| "
@@ -3653,14 +3762,16 @@ def phase_k8(lc, lc0, rng_seed=16):
           f"{cross} walkers (the crossover, {cs.K8_STAGED_ELEMENTS_PER_SM} elements an SM) the "
           f"forms bit-equal, the wrapper running " + ", ".join(
               f"{w}: {k}" for w, k in picks.items())
-          + f"; {kernels.LAUNCHES['sifto'] - n0} comparison launches; device ms (the profiler's)"
+          + f"; {kernels.LAUNCHES['sifto_direct'] + kernels.LAUNCHES['sifto_staged'] - n0} "
+          f"comparison launches; device ms (the profiler's)"
           f" at {W} x {N}: staged {dev_ms[('staged', W)]:.4f}, direct {dev_ms[('direct', W)]:.4f}"
           f" (the wrapper {k_ms:.4f} ms by events, plain {plain_ms:.4f} ms; bound "
-          f"{big['bound_ms']:.4f} ms, {big['bound_by']}); at 1 x {N} (evaluate's width): staged "
-          f"{dev_ms[('staged', 1)]:.4f}, direct {dev_ms[('direct', 1)]:.4f} (plain "
-          f"{plain1_ms:.4f} ms; bound {one['bound_ms']:.6f} ms, {one['bound_by']})")
-    return {"max_abs_err": res[("f32", "curve")][0], "ms": dev_ms[("direct", 1)],
-            "plain_ms": plain1_ms, **one}
+          f"{b_big['bound_ms']:.4f} ms, {b_big['bound_by']}); at 1 x {N} (evaluate's width): "
+          f"staged "
+          f"{dev_ms[('staged', 1)]:.4f}, direct {dev_ms[('direct', 1)]:.4f} (max |d| "
+          f"{err1:.3e} W/Hz; plain {plain1_ms:.4f} ms; bound {b_one['bound_ms']:.6f} ms, "
+          f"{b_one['bound_by']})")
+    return {"max_abs_err": err1, "ms": dev_ms[("direct", 1)], "plain_ms": plain1_ms, **b_one}
 
 
 def phase_cs_logpost(lc, lc0, rng_seed=17):
@@ -3888,7 +3999,11 @@ def phase_cs_main_path(lc, lc0, smi):
     held to the JAX package's float64 value; (c) lightcurve_evidence CS2,
     log Z held to the JAX package's, a profiled run's time split,
     compare_models CS2 against CS3 and lightcurve_ptmcmc CS2;
-    (d) CompanionShocking{,2,3}.evaluate on the card at the medians."""
+    (d) CompanionShocking{,2,3}.evaluate on the card at the medians (K8's
+    direct form); (e) the model plot's posterior curves, POSTERIOR_CURVES
+    draws of the 24b chain over 1000 times in each band (K8's staged form),
+    checked and measured by phase_posterior_curves. Returns the launches and
+    the staged form's row."""
     import numpy as np
     import torch
     from lightcurve_fitting_tpu_torch import kernels
@@ -4001,6 +4116,18 @@ def phase_cs_main_path(lc, lc0, smi):
             if y_fit.shape != t.shape or not np.isfinite(y_fit).all() or not (y_fit > 0).any():
                 raise AssertionError(f"24d: CS{variant} evaluate gave no finite luminosity")
             chi.append(float(np.sum(((y - y_fit) / dy) ** 2) / (len(t) - 7)))
+
+        # (e) the model plot's posterior curves (the JAX package's
+        # lightcurve_model_plot, fitting.py:1808, through _model_plot_grid and
+        # _posterior_curves): POSTERIOR_CURVES draws of the 24b chain over
+        # 1000 times in each of the curve's bands, one evaluate in outer mode
+        t_fit = np.linspace(t.min(), t.max(), 1000)
+        ufilts = np.array(sorted(set(f)), dtype=object)
+        draws = flat[np.random.default_rng(0).choice(flat.shape[0], POSTERIOR_CURVES)].T
+        staged0 = kernels.LAUNCHES["sifto_staged"]
+        curves = cs_model(2, lc0, device="cuda")(t_fit, ufilts, *draws)
+        if kernels.LAUNCHES["sifto_staged"] != staged0 + 1:
+            raise AssertionError("24e: the posterior curves must run K8's staged form once")
     launches = dict(kernels.LAUNCHES)
     for k in CS_KERNELS:
         if launches[k] == 0:
@@ -4009,8 +4136,57 @@ def phase_cs_main_path(lc, lc0, smi):
         raise AssertionError(f"{plain.count} plain versions ran on the CS path")
     phase("CS main path 24d", f"CompanionShocking2, CompanionShocking (factors 1) and "
           f"CompanionShocking3 (theta 0) evaluate on the card at the 24b medians: chi2/dof "
-          f"{fmt(chi)}; no plain version ran on 24a-d; launches {launches}")
-    return launches
+          f"{fmt(chi)}; no plain version ran on 24a-e; launches {launches}")
+    return launches, phase_posterior_curves(lc0, t_fit, ufilts, draws, curves)
+
+
+def phase_posterior_curves(lc0, t_fit, ufilts, draws, curves):
+    """24e: the card's posterior curves (B, 1000, POSTERIOR_CURVES) against
+    the same evaluate on the CPU in float64 (rtol 1e-5, atol 1e-6 of the
+    peak, as test_k8_matches_plain_on_card), finite, the same zero set; K8's
+    staged form on the curves' input (the evaluate's outer-mode tiling)
+    timed against sifto_points_plain, its error and bound: the kernels
+    line's row of the staged form."""
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels import cs, gradient
+    from lightcurve_fitting_tpu_torch.models.base import _quad_tensors
+    from lightcurve_fitting_tpu_torch.models.companion_shocking import sifto_points_plain
+    from time_port_kernels import device_ms
+
+    B, N, W = len(ufilts), len(t_fit), draws.shape[1]
+    want = cs_model(2, lc0, device="cpu")(t_fit, ufilts, *draws)
+    if curves.shape != (B, N, W) or not np.isfinite(curves).all() \
+            or not np.array_equal(curves == 0, want == 0):
+        raise AssertionError(f"24e: curves {curves.shape}, not finite or other zeros than the "
+                             "CPU's")
+    np.testing.assert_allclose(curves, want, rtol=1e-5, atol=1e-6 * np.abs(want).max())
+    rel = float((np.abs(curves - want) / np.abs(want).max()).max())
+
+    dev = torch.device("cuda")
+    t = torch.as_tensor(np.tile(t_fit, B), device=dev)
+    quad = _quad_tensors(cs_model(2, lc0).prepare_quad(np.repeat(ufilts, N)), dev)
+    args = [torch.as_tensor(draws[k][:, None], device=dev) for k in (3, 4, 5, 6)]
+    if cs.k8_form(W * B * N, gradient.sm_count(dev)) != "staged":
+        raise AssertionError("24e: the curves' width must take K8's staged form")
+    ms = device_ms(lambda: cs.sifto(t, quad, *args), "sifto_kernel", 20, 1)[0]
+    direct_ms = device_ms(lambda: cs.sifto_launch("direct", t, quad, *args), "sifto_kernel", 20,
+                          1)[0]
+    plain_ms = cuda_ms(lambda: sifto_points_plain(t, quad, *args), repeats=20)
+    got = cs.sifto(t, quad, *args)
+    if not torch.equal(got, cs.sifto_launch("direct", t, quad, *args)):
+        raise AssertionError("24e: K8's two forms differ on the curves' input")
+    err = float((got - sifto_points_plain(t, quad, *args)).abs().max())
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **k8_bound(t, quad, args)}
+    phase("CS main path 24e", f"the model plot's posterior curves: CompanionShocking2 evaluate "
+          f"on the card over {W} draws of the 24b chain x {N} times x {B} bands (K8's staged "
+          f"form, {W} x {B * N}): max |d| {rel:.2e} of the peak against the CPU's float64 "
+          f"evaluate (rtol 1e-5, atol 1e-6 of the peak), the same {int((want == 0).sum())} "
+          f"zeros; K8 staged on that input {ms:.4f} ms (the profiler's; the direct form "
+          f"{direct_ms:.4f}, the same bits), max |d| {err:.3e} W/Hz "
+          f"against sifto_points_plain ({plain_ms:.4f} ms; bound {row['bound_ms']:.6f} ms, "
+          f"{row['bound_by']}, {k8_table_entries(t, quad, args)} table entries touched)")
+    return row
 
 
 def main():
@@ -4115,7 +4291,7 @@ def main():
     phase_use_sigma(lc, lcf, lc_ia, lc0)
     k8 = phase_k8(lc_ia, lc0)
     k_cs = phase_cs_logpost(lc_ia, lc0)
-    launches_cs = phase_cs_main_path(lc_ia, lc0, smi)
+    launches_cs, k8_staged = phase_cs_main_path(lc_ia, lc0, smi)
     if any(m.startswith("jax") or m.startswith("lightcurve_fitting_tpu.") or
            m == "lightcurve_fitting_tpu" for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
@@ -4187,9 +4363,12 @@ def main():
              source="lightcurve_fitting_tpu_torch/kernels/csrc/gradient.cuh",
              replaces="lightcurve_fitting_tpu/parallel/hmc.py:241",
              launches=launches_grad["hmc_transition"], **k7h),
-        dict(name="sifto_kernel<C, STAGE> (K8)", route="cuda", source=src_cs,
+        dict(name="sifto_kernel<C, false> (K8, direct form)", route="cuda", source=src_cs,
              replaces="lightcurve_fitting_tpu/models/companion_shocking.py:45",
-             launches=launches_cs["sifto"], **k8),
+             launches=launches_cs["sifto_direct"], **k8),
+        dict(name="sifto_kernel<C, true> (K8, staged form)", route="cuda", source=src_cs,
+             replaces="lightcurve_fitting_tpu/models/companion_shocking.py:45",
+             launches=launches_cs["sifto_staged"], **k8_staged),
         dict(name="logpost_warp_kernel<CSWarpModel<C, N>> (CS log-posterior)", route="cuda",
              source=src_cs,
              replaces="lightcurve_fitting_tpu/models/companion_shocking.py:120",

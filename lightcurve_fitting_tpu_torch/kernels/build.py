@@ -79,7 +79,7 @@ def _declare(lib):
     lib.cs_half_step_launch.restype = ci
     lib.cs_half_step_launch.argtypes = half_step
     lib.sifto_launch.restype = ci
-    lib.sifto_launch.argtypes = [vp, ci, ci, ci, vp]
+    lib.sifto_launch.argtypes = [vp, ci, ci, ctypes.POINTER(ci), vp]
     for prefix in ("sc2", "sc3", "cs"):
         fn = getattr(lib, f"{prefix}_tempered_half_step_launch")
         fn.restype = ci

@@ -19,8 +19,8 @@ LAUNCHES = {"sc2_logpost": 0, "stretch_half_step": 0, "bandflux": 0, "sc3_logpos
             "sc3_half_step": 0, "epoch_logpost": 0, "epoch_logpost_grad": 0,
             "epoch_map_polish": 0, "epoch_half_step": 0, "epoch_summary": 0, "percentile": 0,
             "tempered_half_step": 0, "ladder_init": 0, "replica_swap": 0, "rung_block_terms": 0,
-            "logpost_grad": 0, "nuts_transition": 0, "hmc_transition": 0, "sifto": 0,
-            "cs_logpost": 0, "cs_half_step": 0}
+            "logpost_grad": 0, "nuts_transition": 0, "hmc_transition": 0, "sifto_direct": 0,
+            "sifto_staged": 0, "cs_logpost": 0, "cs_half_step": 0}
 
 FLOATS = (torch.float32, torch.float64)
 

@@ -8,7 +8,9 @@ the fused CompanionShocking 1-3 log-posterior and half-step.
   walker, its lanes over the points, the knots and cubics staged in shared
   memory once a block where the elements an SM pay for it, else read
   where they lie (:func:`k8_form`; the two forms give the same bits).
-  :func:`sifto_launch` runs either form.
+  :func:`sifto_launch` runs either form; a launch counts under
+  ``LAUNCHES["sifto_staged"]`` or ``LAUNCHES["sifto_direct"]``, the form
+  that ran.
 * :func:`log_posterior` (``logpost_warp_kernel`` over ``CSWarpModel``, a
   warp per walker): the CS log-posterior of a batch of walker states; plain
   version ``LogPosterior.forward_plain``.
@@ -163,11 +165,12 @@ def sifto_launch(form, t, quad, t_peak, stretch, dtU=None, dti=None):
     from .build import library
     lib = library()
     device_index, stream = cuda_args(dev)
+    staged = ctypes.c_int(int(form == "staged"))
     rc = lib.sifto_launch(ctypes.addressof(P), device_index, _compute_f64(cdt),
-                          int(form == "staged"), stream)
+                          ctypes.byref(staged), stream)
     if rc != 0:
         raise RuntimeError(f"sifto_kernel ({form}) launch failed: cudaError {rc}")
-    LAUNCHES["sifto"] += 1
+    LAUNCHES["sifto_staged" if staged.value else "sifto_direct"] += 1
     vector = any(c.ndim > 0 for c in given)
     return out if vector else out[0]
 

@@ -50,9 +50,9 @@
 // a walker, its lanes over the points (coalesced stores along the output's
 // rows), each lane holding its points' records and rounding each walker's
 // four parameters once for them; the knot interval comes from a guess for
-// uniform knots corrected against its neighbours (sifto_value), not a
+// uniform knots corrected against its neighbours (sifto_eval), not a
 // binary search, and no 64-bit division indexes the elements. The knots
-// (as pairs) and the cubics (an interval's four coefficients together) are
+// and the cubics (an interval's four coefficients together) are
 // staged once a block only where a block has enough elements to pay for
 // it (kernels/cs.py::k8_form); else they are read where they lie, through
 // the read-only path. At large widths the random gathers from the table
@@ -156,62 +156,73 @@ __device__ __forceinline__ float knot_inv(C k0, C k_end, int S) {
     return __fdividef((float)(S - 1), (float)(k_end - k0));
 }
 
-// K8's device function: the SiFTO term at template phase x of the band whose
-// (4, S-1) coefficients are row, over the S knots: searchsorted(side="right")
-// - 1 clipped to [0, S-2], then a Horner cubic; 0 outside [knots[0],
-// knots[S-1]] and for a NaN phase (the JAX graph's NaN, then nan_to_num).
-// The interval starts from knot_guess and steps against the neighbouring
-// knots until k_i <= x < k_{i+1} (or an end): at most a step for uniform
-// knots, at most S - 2 for any non-decreasing ones, the searchsorted
-// interval exactly in every case, so the cubic and its bits are a binary
-// search's. EXACT: the cubic's multiply-adds fused by hand in float64
-// (cs_point). LDG: knots and row in global memory, read through the
-// read-only path.
-template <typename C, bool EXACT = false, bool LDG = false>
-__device__ __forceinline__ C sifto_value(const C* knots, int S, const C* row, C x) {
-    const C k0 = ld<LDG>(knots), k_end = ld<LDG>(knots + S - 1);
-    if (!(x >= k0 && x <= k_end)) return C(0);
-    int i = knot_guess(x, k0, knot_inv(k0, k_end, S), S);
-    while (i > 0 && ld<LDG>(knots + i) > x) --i;
-    while (i < S - 2 && ld<LDG>(knots + i + 1) <= x) ++i;
-    const int M = S - 1;
-    const C t = x - ld<LDG>(knots + i);
-    const C c3 = ld<LDG>(row + i), c2 = ld<LDG>(row + M + i), c1 = ld<LDG>(row + 2 * M + i),
-            c0 = ld<LDG>(row + 3 * M + i);
-    const C v = EXACT && sizeof(C) == sizeof(double)
-        ? fma(fma(fma(c3, t, c2), t, c1), t, c0)
-        : ((c3 * t + c2) * t + c1) * t + c0;
-    return isnan(v) ? C(0) : v;
-}
-
-// K8's staged table: an interval's two knots, and its cubic's coefficients,
-// each read with one vector load from shared memory (the (B, 4, S-1) rows
-// would take four scalar loads a gather, each conflicting in the banks).
-template <typename C>
-struct alignas(2 * sizeof(C)) KnotPair {
-    C lo, hi;
-};
+// An interval's cubic, its four coefficients side by side: in K8's staged
+// table one vector load from shared memory (the (B, 4, S-1) rows would take
+// four scalar loads a gather, each conflicting in the banks).
 template <typename C>
 struct alignas(4 * sizeof(C)) Cubic {
     C c3, c2, c1, c0;
 };
 
-// sifto_value on the staged table: kp[i] = (k_i, k_{i+1}), cf[i] interval
-// i's coefficients of the point's band, k0, k_end and inv the knots' ends
-// and knot_inv, held by the thread. The same interval and cubic: the same
-// bits.
+// The SiFTO table where it lies: the S knots and a band's (4, S-1) row, read
+// through the read-only path when LDG (global memory only).
+template <typename C, bool LDG>
+struct RowTable {
+    const C* knots;
+    const C* row;
+    int M;   // S - 1
+    __device__ __forceinline__ C lo(int i) const { return ld<LDG>(knots + i); }
+    __device__ __forceinline__ C hi(int i) const { return ld<LDG>(knots + i + 1); }
+    __device__ __forceinline__ Cubic<C> cubic(int i) const {
+        return {ld<LDG>(row + i), ld<LDG>(row + M + i), ld<LDG>(row + 2 * M + i),
+                ld<LDG>(row + 3 * M + i)};
+    }
+};
+
+// The staged table (K8's staged form): the S knots, and cf[i] interval i's
+// cubic of the point's band.
 template <typename C>
-__device__ __forceinline__ C sifto_value_staged(const KnotPair<C>* kp, const Cubic<C>* cf, int S,
-                                                C k0, C k_end, float inv, C x) {
+struct StagedTable {
+    const C* knots;
+    const Cubic<C>* cf;
+    __device__ __forceinline__ C lo(int i) const { return knots[i]; }
+    __device__ __forceinline__ C hi(int i) const { return knots[i + 1]; }
+    __device__ __forceinline__ Cubic<C> cubic(int i) const { return cf[i]; }
+};
+
+// K8's device function, on either table (lo(i) and hi(i) the knots that
+// bound interval i, cubic(i) its coefficients; the knots read one at a
+// time: a pair read at once costs the 64-register float32 CS log-posterior
+// a stack frame): the SiFTO term at template phase x over the S knots, k0
+// and k_end their ends and inv their knot_inv:
+// searchsorted(side="right") - 1 clipped to [0, S-2], then a Horner cubic; 0
+// outside [k0, k_end] and for a NaN phase (the JAX graph's NaN, then
+// nan_to_num). The interval starts from knot_guess and steps against the
+// neighbouring knots until k_i <= x < k_{i+1} (or an end): at most a step
+// for uniform knots, at most S - 2 for any non-decreasing ones, the
+// searchsorted interval exactly in every case, so the cubic and its bits are
+// a binary search's. EXACT: the cubic's multiply-adds fused by hand in
+// float64 (cs_point).
+template <typename C, bool EXACT, typename Table>
+__device__ __forceinline__ C sifto_eval(const Table& tab, int S, C k0, C k_end, float inv, C x) {
     if (!(x >= k0 && x <= k_end)) return C(0);
     int i = knot_guess(x, k0, inv, S);
-    KnotPair<C> k = kp[i];
-    while (i > 0 && k.lo > x) k = kp[--i];
-    while (i < S - 2 && k.hi <= x) k = kp[++i];
-    const C t = x - k.lo;
-    const Cubic<C> c = cf[i];
-    const C v = ((c.c3 * t + c.c2) * t + c.c1) * t + c.c0;
+    while (i > 0 && tab.lo(i) > x) --i;
+    while (i < S - 2 && tab.hi(i) <= x) ++i;
+    const C t = x - tab.lo(i);
+    const Cubic<C> c = tab.cubic(i);
+    const C v = EXACT && sizeof(C) == sizeof(double)
+        ? fma(fma(fma(c.c3, t, c.c2), t, c.c1), t, c.c0)
+        : ((c.c3 * t + c.c2) * t + c.c1) * t + c.c0;
     return isnan(v) ? C(0) : v;
+}
+
+// sifto_eval over the knots and a band's (4, S-1) row where they lie.
+template <typename C, bool EXACT = false, bool LDG = false>
+__device__ __forceinline__ C sifto_value(const C* knots, int S, const C* row, C x) {
+    const C k0 = ld<LDG>(knots), k_end = ld<LDG>(knots + S - 1);
+    return sifto_eval<C, EXACT>(RowTable<C, LDG>{knots, row, S - 1}, S, k0, k_end,
+                                knot_inv(k0, k_end, S), x);
 }
 
 #define K8_WARPS 8   // warps a block, at most
@@ -224,9 +235,9 @@ __device__ __forceinline__ C sifto_value_staged(const KnotPair<C>* kp, const Cub
 // its points' records once (the phase origin, the band's row, the walker
 // shift the point takes: dti for an i point, else dtU for a U point), and
 // each walker's four parameters are read and rounded to C once a lane, for
-// its PTS points. STAGE: four points a lane (a group of 128), the knots (as
-// pairs) and the rows (an interval's cubic together) staged in shared
-// memory once per block, in a grid of the blocks resident at once; else
+// its PTS points. STAGE: four points a lane (a group of 128), the knots and
+// the rows (an interval's cubic together) staged in shared memory once per
+// block, in a grid of the blocks resident at once; else
 // one point a lane, so that few walkers still spread their points over
 // warps and SMs (each point's walk and cubic a chain of dependent loads),
 // the table read where it lies, through the read-only path
@@ -239,7 +250,7 @@ __global__ void __launch_bounds__(32 * K8_WARPS) sifto_kernel(const SiftoParams 
     const C* rows = (const C*)P.rows;
     const C* knots = (const C*)P.knots;
     Cubic<C>* cf = reinterpret_cast<Cubic<C>*>(smem_raw);
-    KnotPair<C>* kp = reinterpret_cast<KnotPair<C>*>(cf + P.n_bands * M);
+    C* ks = reinterpret_cast<C*>(cf + P.n_bands * M);
     if constexpr (STAGE) {
         const int n_cf = (int)P.n_bands * M;
         for (int e = threadIdx.x; e < n_cf; e += blockDim.x) {
@@ -247,8 +258,7 @@ __global__ void __launch_bounds__(32 * K8_WARPS) sifto_kernel(const SiftoParams 
             const C* r = rows + (size_t)b * 4 * M + i;
             cf[e] = Cubic<C>{r[0], r[M], r[2 * M], r[3 * M]};
         }
-        for (int i = threadIdx.x; i < M; i += blockDim.x)
-            kp[i] = KnotPair<C>{knots[i], knots[i + 1]};
+        for (int i = threadIdx.x; i < S; i += blockDim.x) ks[i] = knots[i];
         __syncthreads();
     }
     const C k0 = __ldg(knots), k_end = __ldg(knots + M);
@@ -279,8 +289,11 @@ __global__ void __launch_bounds__(32 * K8_WARPS) sifto_kernel(const SiftoParams 
                 const C dt = shift[k] == 2 ? di : (shift[k] == 1 ? dU : C(0));
                 const C x = ((tc[k] - tpk) - dt) / s;
                 C v;
-                if constexpr (STAGE) v = sifto_value_staged(kp, cf + row[k], S, k0, k_end, inv, x);
-                else v = sifto_value<C, false, true>(knots, S, rows + (size_t)row[k] * 4, x);
+                if constexpr (STAGE)
+                    v = sifto_eval<C, false>(StagedTable<C>{ks, cf + row[k]}, S, k0, k_end, inv, x);
+                else
+                    v = sifto_eval<C, false>(RowTable<C, true>{knots, rows + (size_t)row[k] * 4, M},
+                                             S, k0, k_end, inv, x);
                 out[w * N + n] = v;
             }
         }
@@ -539,40 +552,35 @@ using CSWarpModel9 = CSWarpModel<C, 9>;
 
 // ------------------------------------------------------------------ launch
 
-// The staged K8 table's bytes: every band's cubics and the knot pairs.
+// The staged K8 table's bytes: every band's cubics and the knots.
 template <typename C>
 static size_t sifto_stage_bytes(const SiftoParams& P) {
-    return (size_t)(P.n_knots - 1) * (P.n_bands * sizeof(Cubic<C>) + sizeof(KnotPair<C>));
+    return (size_t)(P.n_knots - 1) * P.n_bands * sizeof(Cubic<C>) + (size_t)P.n_knots * sizeof(C);
 }
 
 // K8's launch in the form `staged` (kernels/cs.py::k8_form; the direct form
 // where the table would not fit in shared memory): the staged form's grid
-// holds the blocks of K8_WARPS warps resident at once (its occupancy, read
-// once per device and shared memory, and kept), the direct form's a block
-// for every K8_WARPS walkers (fewer warps for fewer walkers) and every 32
-// points.
+// holds the blocks of K8_WARPS warps resident at once (resident_blocks,
+// stretch.cuh), a block for every K8_WARPS walkers and, where the walkers
+// leave blocks over (a few posterior draws over a dense grid), for every 128
+// points; the direct form's a block for every K8_WARPS walkers (fewer warps
+// for fewer walkers) and every 32 points.
 template <typename C>
-static int launch_sifto(const SiftoParams& P, int staged, cudaStream_t stream) {
+static int launch_sifto(const SiftoParams& P, int* staged, cudaStream_t stream) {
     const long long blocks = (P.n_walkers + K8_WARPS - 1) / K8_WARPS;
     const size_t bytes = sifto_stage_bytes<C>(P);
-    if (staged && bytes <= (size_t)smem_optin_limit()) {
+    *staged = *staged && bytes <= (size_t)smem_optin_limit();
+    if (*staged) {
         auto kernel = sifto_kernel<C, true>;
         int use_smem = 0;
         int rc = smem_plan(kernel, bytes, &use_smem);
         if (rc) return rc;
-        static int key_dev = -1, resident = 1;
-        static size_t key_bytes = 0;
-        int dev = 0;
-        cudaGetDevice(&dev);
-        if (dev != key_dev || bytes != key_bytes) {
-            int sms = 1, per_sm = 0;
-            cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * K8_WARPS, bytes);
-            resident = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
-            key_dev = dev, key_bytes = bytes;
-        }
-        kernel<<<(unsigned)(blocks < resident ? blocks : resident), 32 * K8_WARPS, bytes,
-                 stream>>>(P);
+        // the walkers' blocks first, the groups of 128 points on what is left
+        const int resident = resident_blocks(kernel, 32 * K8_WARPS, bytes);
+        const long long gx = blocks < resident ? blocks : resident;
+        const long long groups = (P.n_points + 127) / 128, spare = resident / gx;
+        const dim3 grid((unsigned)gx, (unsigned)(groups < spare ? groups : spare));
+        kernel<<<grid, 32 * K8_WARPS, bytes, stream>>>(P);
     } else {
         const long long groups = (P.n_points + 31) / 32;
         const dim3 grid((unsigned)(blocks < 2147483647LL ? blocks : 2147483647LL),
@@ -585,9 +593,10 @@ static int launch_sifto(const SiftoParams& P, int staged, cudaStream_t stream) {
 
 extern "C" {
 
-// K8 launch, the rows staged once a block when `staged`, else read where
-// they lie. Returns 0 or a cudaError_t code.
-int sifto_launch(const SiftoParams* P, int device, int compute_f64, int staged, void* stream) {
+// K8 launch, the rows staged once a block when `*staged`, else read where
+// they lie; `*staged` is left 1 where the staged form ran (0 where its table
+// would not fit in shared memory). Returns 0 or a cudaError_t code.
+int sifto_launch(const SiftoParams* P, int device, int compute_f64, int* staged, void* stream) {
     int rc = (int)cudaSetDevice(device);
     if (rc) return rc;
     if (P->n_walkers <= 0 || P->n_points <= 0) return 0;

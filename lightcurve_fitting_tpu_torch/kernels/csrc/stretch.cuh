@@ -444,17 +444,48 @@ static inline int threads_for(long long n, int max_threads = LP_THREADS) {
     return t < max_threads ? (int)t : max_threads;
 }
 
+// The current device's SMs (read once per device, and kept).
+static inline int device_sms() {
+    static int key_dev = -1, sms = 1;
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (dev != key_dev) {
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (sms < 1) sms = 1;
+        key_dev = dev;
+    }
+    return sms;
+}
+
+// The blocks of `threads` threads and `smem` bytes of dynamic shared memory
+// that the card holds at once for `kernel`: its occupancy times the SMs
+// (read once per kernel, device, block size and shared memory, and kept).
+template <typename Kernel>
+static int resident_blocks(Kernel kernel, int threads, size_t smem) {
+    static const void* key_fn = nullptr;
+    static int key_dev = -1, key_threads = 0, resident = 1;
+    static size_t key_smem = 0;
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if ((const void*)kernel != key_fn || dev != key_dev || threads != key_threads
+        || smem != key_smem) {
+        int per_sm = 0;
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+        resident = device_sms() * (per_sm > 0 ? per_sm : 1);
+        key_fn = (const void*)kernel, key_dev = dev, key_threads = threads, key_smem = smem;
+    }
+    return resident;
+}
+
 // The WarpLayout of a warp-per-walker kernel over n walkers for the policy
 // M. Not batched: M::warps_per_block warps a block (fewer for a small n), a
 // walker a warp, a block for every warps_per_block walkers. Batched: a
 // small launch spread over the SMs (no more warps a block than ceil(n /
 // SMs), but 8 at least: a block stages the tables with its own threads, and
 // 32 take ~3x as long), and batches of ceil(n / W) walkers (at most 32), W
-// the warps the card holds at once, so that every batch runs in one wave
-// and a walker's prologue (proposal, prior, constants) runs on a lane of
-// its own. The card's resident blocks come from the kernel's occupancy at
-// the block size and shared memory, times the SMs (read once per kernel,
-// block size and shared memory, and kept).
+// the warps the card holds at once (resident_blocks), so that every batch
+// runs in one wave and a walker's prologue (proposal, prior, constants)
+// runs on a lane of its own.
 template <typename M, typename Kernel>
 static WarpLayout warp_layout(Kernel kernel, long long n, size_t smem) {
     static_assert(32 * M::warps_per_block <= 1024, "block too large");
@@ -462,29 +493,12 @@ static WarpLayout warp_layout(Kernel kernel, long long n, size_t smem) {
     int per_block = M::warps_per_block;
     L.batch = 1;
     if (M::batched) {
-        static const void* key_fn = nullptr;
-        static int key_dev = -1, key_threads = 0, sms = 1, resident = 1;
-        static size_t key_smem = 0;
-        int dev = 0;
-        cudaGetDevice(&dev);
-        if (dev != key_dev) {
-            cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-            if (sms < 1) sms = 1;
-            key_fn = nullptr;
-        }
+        const int sms = device_sms();
         const long long spread = (n + sms - 1) / sms;
         const int fewest = per_block < 8 ? per_block : 8;
         if (spread < per_block) per_block = spread > fewest ? (int)spread : fewest;
         L.threads = 32 * per_block;
-        if ((const void*)kernel != key_fn || dev != key_dev || L.threads != key_threads
-            || smem != key_smem) {
-            int per_sm = 0;
-            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, L.threads, smem);
-            resident = sms * (per_sm > 0 ? per_sm : 1);
-            key_fn = (const void*)kernel, key_dev = dev, key_threads = L.threads;
-            key_smem = smem;
-        }
-        const long long warps = (long long)resident * per_block;
+        const long long warps = (long long)resident_blocks(kernel, L.threads, smem) * per_block;
         const long long batch = (n + warps - 1) / warps;
         L.batch = (int)(batch < 32 ? batch : 32);
     } else {

@@ -508,12 +508,14 @@ def jax_bench_evidence(seeds=(1, 2)):
     return out
 
 
-def jax_sc3_evidence(seeds=(1, 2)):
-    """The JAX package's stepping-stone log Z, float64 on the CPU, of
-    ShockCooling3 on SN 2016bkv's early curve (the SC3 priors and init
-    window of ``chip_smoke.py`` phase 9; 512 walkers, 16 rungs + beta = 1,
-    150 + 150 steps): the reference ``chip_smoke.py`` phase 16d holds the
-    port's card run to. A few minutes a seed on 8 CPU cores."""
+def jax_sc3_evidence(seeds=(1, 2, 3, 4, 5, 6, 7, 8)):
+    """The JAX package's stepping-stone log Z, its error and the per-rung
+    stretch acceptance, float64 on the CPU, of ShockCooling3 on SN 2016bkv's
+    early curve (the SC3 priors and init window of ``chip_smoke.py`` phase
+    9; 512 walkers, 16 rungs + beta = 1, 150 + 150 steps): the reference
+    ``chip_smoke.py`` phase 16d holds the port's card run to (log Z at
+    seeds 1 and 2; the mean acceptance over the rungs against these seeds'
+    mean and spread). About 100 s a seed on 8 CPU cores."""
     import contextlib
     import io
     import os
@@ -536,12 +538,14 @@ def jax_sc3_evidence(seeds=(1, 2)):
                 early, JSC3(early), priors,
                 p_lo=[0.5, 0.5, 5.0, 1.0, d_l - 0.005, 0.0, 57468.5],
                 p_up=[2.0, 2.0, 20.0, 5.0, d_l + 0.005, 0.1, 57468.7], nwalkers=512,
-                n_rungs=16, nsteps=150, nsteps_burnin=150, seed=seed, quiet=True)[:2]
+                n_rungs=16, nsteps=150, nsteps_burnin=150, seed=seed, quiet=True)
+        out[seed] = (out[seed][0], out[seed][1], out[seed][2]["acceptance"])
     return out
 
 
 if __name__ == "__main__":
     import sys
     which = jax_sc3_evidence if sys.argv[1:] == ["sc3"] else jax_bench_evidence
-    for seed, (log_z, err) in which().items():
-        print(f"seed {seed}: log Z {log_z!r} +/- {err!r}")
+    for seed, (log_z, err, *acceptance) in which().items():
+        print(f"seed {seed}: log Z {log_z!r} +/- {err!r}"
+              + (f"; rung acceptance {list(map(float, acceptance[0]))!r}" if acceptance else ""))

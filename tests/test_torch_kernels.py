@@ -2819,15 +2819,17 @@ def test_module_for_routes_the_companion_models(ia, ia_lc):
                                                        device="meta"))
 
 
-def _k8_case(ia, ia_lc, device, W=4096, seed=0):
+def _k8_case(ia, ia_lc, device, W=4096, seed=0, reps=1):
     """K8's inputs: 108 points a day apart from t_ref (integer phases: knots,
-    both ends, just and far outside) through the model's bands; W walkers
-    with t_peak on whole days, stretches 1, 0.5, 2 or drawn, integer or
-    drawn U/i shifts; the first rows with t_peak NaN, stretch 0, inf and -1."""
+    both ends, just and far outside) through the model's bands, ``reps``
+    times over; W walkers with t_peak on whole days, stretches 1, 0.5, 2 or
+    drawn, integer or drawn U/i shifts; the first rows with t_peak NaN,
+    stretch 0, inf and -1."""
     from lightcurve_fitting_tpu_torch.models.base import _quad_tensors
     model = _cs_model(2, ia, device)
-    f = np.asarray(ia_lc["filter"])
-    t = torch.as_tensor(57820.0 + np.arange(len(f)) - 30.0, device=device)
+    f = np.tile(np.asarray(ia_lc["filter"]), reps)
+    t = torch.as_tensor(np.tile(57820.0 + np.arange(len(f) // reps) - 30.0, reps),
+                        device=device)
     quad = _quad_tensors(model.prepare_quad(f), device)
     rng = np.random.default_rng(seed)
     tpk = 57820.0 + rng.integers(-20, 120, size=W).astype(float)
@@ -2843,36 +2845,49 @@ def _k8_case(ia, ia_lc, device, W=4096, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", ["1", "2", "cross-1", "cross", "131072"])
+@pytest.mark.parametrize("width", ["1", "2", "cross-1", "cross", "131072", "100x6048"])
 @pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
 def test_k8_forms_match_plain_on_card(ia, ia_lc, cuda_device, f64, width):
     """K8 in each form (the rows staged once a block, or read where they
     lie) against sifto_points_plain at 1 and 2 walkers, on each side of
     k8_form's crossover for the card's SMs and at 131072 walkers x 108
-    points: within 1e-6 (float32) and 1e-13 (float64) of each band's
-    template peak, the same zero set; the two forms and the wrapper's pick
-    bit-equal."""
+    points, and at 100 walkers x 56 times the points (the model plot's
+    posterior curves: few walkers, many points, the staged form's blocks
+    over the points): within 1e-6 (float32) and 1e-13 (float64) of each
+    band's template peak, the same zero set; the two forms and the
+    wrapper's pick bit-equal; each form's launch counted under its name."""
     from lightcurve_fitting_tpu_torch.kernels import cs, gradient
     from lightcurve_fitting_tpu_torch.models.companion_shocking import sifto_points_plain
     cross = -(-cs.K8_STAGED_ELEMENTS_PER_SM * gradient.sm_count(cuda_device) // 108)
-    W = {"1": 1, "2": 2, "cross-1": cross - 1, "cross": cross, "131072": 131072}[width]
+    W = {"1": 1, "2": 2, "cross-1": cross - 1, "cross": cross, "131072": 131072,
+         "100x6048": 100}[width]
+    reps = 56 if width == "100x6048" else 1
     try:
         if f64:
             config.set_compute_dtype(None)
         # (the first four rows: t_peak NaN, stretch 0, inf and -1; 1 and 2 walkers
         # take drawn rows)
-        _, t, quad, cols, peak = _k8_case(ia, ia_lc, cuda_device, W=max(W, 16))
+        _, t, quad, cols, peak = _k8_case(ia, ia_lc, cuda_device, W=max(W, 16), reps=reps)
         cols = [c[-W:] for c in cols]
         want = sifto_points_plain(t, quad, *cols)
+        n0 = dict(kernels.LAUNCHES)
         got = {form: cs.sifto_launch(form, t, quad, *cols) for form in ("staged", "direct")}
+        # each form counts under its own name
+        assert all(kernels.LAUNCHES[f"sifto_{form}"] == n0[f"sifto_{form}"] + 1
+                   for form in ("staged", "direct"))
         assert torch.equal(got["staged"], got["direct"])
         assert torch.equal(cs.sifto(t, quad, *cols), got["direct"])
         for k in got.values():
-            assert k.shape == want.shape == (W, 108)
+            assert k.shape == want.shape == (W, 108 * reps)
             assert torch.equal(k == 0, want == 0) and torch.isfinite(k).all()
             assert bool(((k - want).abs() <= (1e-13 if f64 else 1e-6) * peak).all())
     finally:
         config.set_compute_dtype(config.AUTO)
+
+
+def _k8_launches():
+    """K8's launches in either form."""
+    return kernels.LAUNCHES["sifto_direct"] + kernels.LAUNCHES["sifto_staged"]
 
 
 @pytest.mark.cuda
@@ -2887,9 +2902,9 @@ def test_k8_matches_plain_on_card(ia, ia_lc, cuda_device, f64):
         if f64:
             config.set_compute_dtype(None)
         model, t, quad, cols, peak = _k8_case(ia, ia_lc, cuda_device)
-        n0 = kernels.LAUNCHES["sifto"]
+        n0 = _k8_launches()
         got = cs.sifto(t, quad, *cols)
-        assert kernels.LAUNCHES["sifto"] == n0 + 1
+        assert _k8_launches() == n0 + 1
         want = sifto_points_plain(t, quad, *cols)
         assert got.dtype == (torch.float64 if f64 else torch.float32) and got.shape == want.shape
         assert torch.equal(got == 0, want == 0) and torch.isfinite(got).all()
@@ -2903,9 +2918,9 @@ def test_k8_matches_plain_on_card(ia, ia_lc, cuda_device, f64):
         t_np = np.asarray(ia_lc["MJD"], float)
         f = np.asarray(ia_lc["filter"])
         args = (57820.0, 0.5, 1.0, 57840.0, 1.0, 0.3, -0.2)
-        n0 = kernels.LAUNCHES["sifto"]
+        n0 = kernels.LAUNCHES["sifto_direct"]
         y = model.evaluate(t_np, f, *args)
-        assert kernels.LAUNCHES["sifto"] == n0 + 1
+        assert kernels.LAUNCHES["sifto_direct"] == n0 + 1
         want = _cs_model(2, ia).evaluate(t_np, f, *args)
         np.testing.assert_allclose(y, want, rtol=1e-12 if f64 else 1e-5,
                                    atol=0.0 if f64 else 1e-6 * np.abs(want).max())
