@@ -10,8 +10,9 @@ raises and the script exits non-zero):
 2. build: nvcc compiles the kernels from ``kernels/csrc/``; the
    block-per-chain kernels (K9, K7h, K7's block form), K4p, the epoch
    half-step, K4's values in both forms, the SC3 and CS log-posteriors, K1,
-   K6b, K6c, K6d, K4s, K3's warp form, K5 and K8 must have no stack frame
-   and no spills (ptxas); K6a over SC3's report is printed; the native host
+   K6b, K6c, K6d, K4s, K3's warp form, K5, K8 and K10 must have no stack
+   frame and no spills (ptxas); K6a over SC3's and K10's half-step's
+   reports are printed; the native host
    kernels must have built from the port's own source
    (``utils/native/lcf_native.cpp``: the bolometric packing assumes them);
 3. K1 (a warp per walker, the half-step's form) against its plain PyTorch
@@ -99,7 +100,20 @@ raises and the script exits non-zero):
     subnormals, ties, 1, 2 and 3201 values, a 70000-value row past the
     block's shared memory, 1 and 8 percentiles, 0 and 100), the profiler
     showing the kernel ran, ``torch.quantile`` timed beside K5;
-13. the bolometric main path: (a) ``calculate_bolometric(batch_mode=True,
+13. K10, the SED log-posterior of the sequential bolometric path (a warp
+    per walker, ``logpost_warp_kernel<SEDWarpModel<C, N>>``), against its
+    plain version on every SN 2016bkv epoch of at least one filter (79), 64
+    states each (R < 0; T <= 0 inside a KDE prior), under the default
+    priors and KDE temperature priors of 512 and 100 components, with and
+    without the intrinsic scatter, float32 (<= 1e-5) and float64 (<= 1e-12
+    of the term scale), identical -inf sets; timed at the path's width (5
+    walkers) and at 4096 on the 9-filter epoch, with and without the KDE
+    prior, beside the plain KDE prior and ``torch.logsumexp`` over its
+    components; K10's half-step (h = 0, 1) against the plain half-step
+    under shared draws at half 5 and 2048, on the 9-filter epoch and on a
+    KDE single-filter one, float32 and float64, as in 4, and K10 at the
+    states two half-steps left giving their stored values bit for bit;
+    the bolometric main path: (a) ``calculate_bolometric(batch_mode=True,
     save_corners=False, nwalkers=32, seed=7)`` on the full SN 2016bkv light
     curve (65 rows); (b) the bench shape (256 epochs x 32 walkers x 200 +
     100 steps) through ``batched_map_centers`` and
@@ -109,7 +123,27 @@ raises and the script exits non-zero):
     JAX package's at the same seeds, a profiled run's time split; the
     launch counters, reset before (a), show it ran through K4, K4p (once a
     centering; K4's gradient form not at all), the epoch half-step, K4s
-    and K5;
+    and K5; (c) ``calculate_bolometric(batch_mode=False, save_corners=False,
+    seed=7)`` on the full curve at the defaults (65 rows) and at
+    ``min_nfilt=1`` (77 fits, ~66 under a KDE prior), every fit one K10
+    launch and 600 half-steps and nothing else, the least-squares columns
+    the JAX package's (rtol 1e-6; a single-filter row its own solve from
+    the previous chain's medians), the MCMC medians of T and R within 2
+    hypot(half-widths) of the JAX package's float64 CPU run (seed 7) in >=
+    95% of the epochs and within 4 in all: every epoch at the defaults, at
+    ``min_nfilt=1`` the epochs up to the first chained one; and at
+    ``min_nfilt=1`` every epoch, the port's median over seeds 7-9 against
+    the JAX package's, the scale both packages' widths and seed scatter
+    (downstream of the chaining each prior is a KDE of an earlier chain;
+    ``tests/jax_sequential_bolometric.json``), each package's agreement
+    with itself over its seed pairs printed beside it;
+    ``batch_mode=True, min_nfilt=1`` bit-equal to it, the walls, and a
+    profiled run over the curve's first 15 fits (6 chained): its idle share
+    and time split, the profiler showing K10 and no plain version; (d)
+    ``spectrum_mcmc(planck_fast)`` at 64 walkers x 300 + 300 steps, seeds
+    1-8, on the 9-filter epoch and on a KDE single-filter epoch, the mean
+    acceptance within 4 combined standard errors of the JAX package's at
+    the same seeds;
 14. K6a, the tempered half-step (h = 0, 1), against its plain version on the
     ShockCooling2 ladders (a warp per walker) of the evidence bench shape
     (17 rungs x 4096 walkers) and of the PT fit (7 x 32), float32 and
@@ -254,8 +288,10 @@ import io
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -382,14 +418,16 @@ def epoch_eval_ops(ep):
 DRAW_KERNELS = ("distribution", "random", "philox", "uniform", "normal")
 
 
-def time_split(prof, wall, kernels):
+def time_split(prof, wall, kernels, averages=None):
     """Seconds of device time by part of a run from a profiler trace: the
     parts of ``kernels`` (name -> substrings of their kernels' names; the
     first match wins), the draws and the rest, and the host's share (the
-    wall time the device was idle). Returns (parts, busy)."""
+    wall time the device was idle). ``averages``: the trace's
+    ``key_averages()`` where the caller has them (a long trace takes tens
+    of seconds to reduce). Returns (parts, busy)."""
     parts = dict.fromkeys(kernels, 0.0)
     parts.update(draws=0.0, other=0.0)
-    for e in prof.key_averages():
+    for e in (prof.key_averages() if averages is None else averages):
         if e.device_type.name != "CUDA":
             continue
         k = e.key.lower()
@@ -402,12 +440,15 @@ def time_split(prof, wall, kernels):
     return parts, busy
 
 
-def profiled(fn):
-    """Wall seconds of fn() under the profiler, and the profile."""
+def profiled(fn, cpu=True):
+    """Wall seconds of fn() under the profiler, and the profile; with
+    ``cpu=False`` the device's activity alone (a long host-led run records
+    ~10x fewer events)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -719,16 +760,28 @@ def phase_k1(lc, rng_seed=0):
 K2_HALVES = (HEADLINE_WALKERS // 2, 16384, 32)
 
 
+# one-element adds launched at the start of each profile of
+# launched_kernels, by try: the profiler can drop the first kernel records
+# of a window (on the H100 with torch 2.11: the first 3-5 of every window
+# after a long device-only trace, up to 20 or more of every other window
+# after idle minutes, whatever the kernels' length; PERF.md,
+# tools/profiler_window_probe.py), so these take the loss
+PROFILE_PRIMES = (256, 4096, 65536)
+
+
 def launched_kernels(fn, match, calls=20):
     """The names of the CUDA kernels holding ``match`` that ``calls`` calls
-    of fn launch, from the profiler. A profile of a few calls can come back
-    empty (3 calls of K7 at 131072 rows did once on the H100), so an empty
-    one is taken again, twice at most."""
+    of fn launch, from the profiler. Each window first launches
+    ``PROFILE_PRIMES`` one-element adds; an empty profile is taken again,
+    twice at most, with more of them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    one = torch.zeros(1, device="cuda")
+    for prime in PROFILE_PRIMES:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(prime):
+                one.add_(1.0)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
@@ -1993,6 +2046,706 @@ def phase_bolometric_main_path(smi):
           f"device busy {busy:.4f} s (idle share {1 - busy / wall:.3f}): "
           + ", ".join(f"{k} {v:.4f} s" for k, v in parts.items())
           + f"; launches per run {launches_b}")
+    return launches
+
+
+# ------------------------------------------------- the sequential bolometric path
+
+# K10 and its half-step on SN 2016bkv's SEDs: the epochs at res = 1 day with
+# at least one detected filter (79 of 91), each under the default priors and
+# under KDE temperature priors of 512 (subsampled from 5000) and 100
+# components, with and without the intrinsic scatter, 64 states each
+SED_STATES = 64
+SED_REL = {"f32": 1e-5, "f64": 1e-12}    # of SEDLogPosterior.term_scales
+SED_PATH_WALKERS = 5                     # calculate_bolometric's 10 walkers, a half
+SED_WIDE = 4096
+# the JAX package's float64 CPU references of 13c and 13d
+# (tests/test_torch_sed.py::jax_sequential_bolometric, jax_sed_acceptance)
+SED_REFERENCE = os.path.join("tests", "jax_sequential_bolometric.json")
+SED_SEEDS, SED_WALKERS, SED_BURNIN, SED_STEPS = tuple(range(1, 9)), 64, 300, 300
+SED_CHAIN_SEEDS = (7, 8, 9)              # 13c's min_nfilt=1 seeds, as the JAX reference's
+SED_PROFILE_MJD_MAX = 57495.0            # 13c profiles the curve up to here: 15 fits, 6 chained
+SED_SPLIT = {"K10 (initial state)": ("logpost_warp_kernel",),
+             "K10 half-step": ("stretch_half_step_kernel",)}
+# what a plain SED log-posterior launches on the card, and K10 does not
+PLAIN_MARKS = ("log_kernel", "exp_kernel", "logsumexp", "clamp", "where", "pow_tensor",
+               "reduce_kernel")
+
+
+def sn2016bkv_seds():
+    """SN 2016bkv's per-epoch SEDs at res = 1 day, as calculate_bolometric
+    prepares them (91 epochs; the port's host code)."""
+    import numpy as np
+    from lightcurve_fitting_tpu_torch.bolometric import _prepare_epoch_seds
+    from lightcurve_fitting_tpu_torch.lightcurve import LC
+    lc = LC.read(os.path.join(REPO, "lightcurve_fitting_tpu", "data", "SN2016bkv.csv"))
+    lc.meta.update(META)
+    dmag = np.ma.MaskedArray(lc["dmag"])
+    lc = lc[np.isfinite(np.ma.filled(dmag.astype(float), np.nan)) & np.ma.filled(dmag > 0, False)]
+    with contextlib.redirect_stdout(io.StringIO()):     # per-epoch extinction notes
+        return _prepare_epoch_seds(lc, 1.0, ())
+
+
+def n_detected(epoch1):
+    return len(set(epoch1.where(nondet=False)["filter"]))
+
+
+def sed_priors(which, use_sigma, kdes):
+    from lightcurve_fitting_tpu_torch.models import GaussianPrior, LogUniformPrior, UniformPrior
+    first = UniformPrior(1.0, 100.0) if which == "default" else kdes[which]
+    return [first, LogUniformPrior(0.01, 1000.0)] + ([GaussianPrior(0.0, 10.0)] if use_sigma
+                                                      else [])
+
+
+def sed_kdes():
+    """The KDE temperature priors of K10's checks: 512 components subsampled
+    from 5000 draws, and 100 (all of them)."""
+    import numpy as np
+    from lightcurve_fitting_tpu_torch.models import KDEPrior
+    rng = np.random.default_rng(21)
+    return {"kde512": KDEPrior(rng.normal(10.7, 0.3, 5000)),
+            "kde100": KDEPrior(rng.normal(10.7, 0.3, 100))}
+
+
+def sed_states(rng, ndim, W, dev):
+    """W float64 states around SN 2016bkv's temperatures and radii: R < 0
+    (outside every prior) in state 7, T = -1 and T = 0 in states 8 and 9
+    (outside the uniform prior, inside a KDE one: zero flux)."""
+    import numpy as np
+    import torch
+    p = np.abs(rng.normal([10.0, 4.0, 1.0][:ndim], [3.0, 1.5, 0.5][:ndim], size=(W, ndim)))
+    if W > 9:
+        p[7, 1] = -0.5
+        p[8, 0], p[9, 0] = -1.0, 0.0
+    return torch.as_tensor(p, device=dev).contiguous()
+
+
+def kde_ops(n):
+    """What the KDE prior's log-density needs a walker over ``n`` components:
+    one pass of a subtraction, a multiply by 1/bandwidth, a square, the max,
+    the add and an exp each (float64; the kernel's separate max pass is its
+    own cost, not the function's)."""
+    return n * (5 + SFU)
+
+
+def k10_ops(lp, W):
+    """K10's operations on W walkers: per point the Clenshaw recurrence (3 a
+    link), ~6 float32 operations, ln T and the exp (float32); ~8 float64
+    operations, a log and a division; per walker the priors (a log, or the
+    KDE prior's ``kde_ops``). Returns (float32 ops, float64 ops)."""
+    from lightcurve_fitting_tpu_torch.kernels import sed
+    N, K = lp.coef.shape
+    kde = sed.kde_prior_of(lp.priors)
+    prior = kde_ops(len(kde.samples)) if kde is not None else 2 + SFU
+    return (W * N * (3 * (K - 1) + 6 + 2 * SFU),
+            W * (N * (8 + 2 * SFU) + prior + 4 + SFU))
+
+
+def k10_bound(lp, W, extra64=0.0, library_ms=None):
+    """K10's bound on W walkers: the larger of the float32 and float64
+    operations' times (separate pipes, which overlap across warps), against
+    the bytes (the states and the values, the points' rows, the
+    components); ``extra64``: float64 operations besides (the half-step's
+    proposals)."""
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels import sed
+    o32, o64 = k10_ops(lp, W)
+    f32 = lp.compute_dtype == torch.float32
+    t32 = bound(o32, 0, FP32_FLOPS if f32 else FP64_FLOPS)[0]
+    t64 = bound(o64 + extra64, 0, FP64_FLOPS)[0]
+    N, K = lp.coef.shape
+    kde = sed.kde_prior_of(lp.priors)
+    nbytes = (W * (lp.ndim + 1) * 8 + N * (K + 2) * (4 if f32 else 8) + 3 * N * 8
+              + (8 * len(kde.samples) if kde is not None else 0))
+    t_bytes = 1e3 * nbytes / HBM_BYTES
+    return {"bound_ms": max(t32, t64, t_bytes),
+            "bound_by": "operations" if max(t32, t64) >= t_bytes else "bytes",
+            "library_ms": library_ms}
+
+
+def phase_k10(groups, seed=18):
+    """K10 against its plain version on every epoch of at least one filter;
+    its times at the path's width and at 4096 walkers, with the KDE
+    prior's."""
+    t_phase = time.perf_counter()
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch import kernels
+    from lightcurve_fitting_tpu_torch.bolometric import SEDLogPosterior
+    from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.kernels import sed
+    from time_port_kernels import device_ms
+
+    dev = torch.device("cuda")
+    z = META["redshift"]
+    kdes = sed_kdes()
+    epochs = [g for g in groups if n_detected(g) >= 1]
+    rng = np.random.default_rng(seed)
+    worst, counts = {}, {}
+    for label in ("f32", "f64"):
+        try:
+            if label == "f64":
+                config.set_compute_dtype(None)
+            for which in ("default", "kde512", "kde100"):
+                for use_sigma in (False, True):
+                    key = (label, which, use_sigma)
+                    worst[key], counts[key] = (0.0, 0.0), [0, 0]
+                    for ep in epochs:
+                        pri = sed_priors(which, use_sigma, kdes)
+                        lp = SEDLogPosterior(ep, pri, z, 0.0, {}, use_sigma,
+                                             device=dev)
+                        q = sed_states(rng, lp.ndim, SED_STATES, dev)
+                        n0 = kernels.LAUNCHES["sed_logpost"]
+                        got = sed.log_posterior(lp, q)
+                        if kernels.LAUNCHES["sed_logpost"] != n0 + 1:
+                            raise AssertionError("K10 did not count its launch")
+                        d = compare_ll(f"K10 {key}", got, lp.forward_plain(q), SED_REL[label],
+                                       scale=lp.term_scales(q))
+                        worst[key] = (max(worst[key][0], d[0]), max(worst[key][1], d[1]))
+                        counts[key][0] += d[2]
+                        counts[key][1] += int(torch.isneginf(got).sum())
+        finally:
+            config.set_compute_dtype(config.AUTO)
+
+    # times (float32, the card's default) on the 9-filter epoch (11 points)
+    nine = next(g for g in epochs if n_detected(g) == 9)
+    times = {}
+    for which in ("default", "kde512"):
+        lp = SEDLogPosterior(nine, sed_priors(which, False, kdes), z, device=dev)
+        for W in (SED_PATH_WALKERS, SED_WIDE):
+            q = sed_states(np.random.default_rng(W), 2, W, dev)
+            if W > 9:
+                q[7:10] = q[10:13]                      # all inside the priors
+            fn = lambda: sed.log_posterior(lp, q)       # noqa: E731
+            if W == SED_PATH_WALKERS and which == "default":
+                name = expect_kernel(fn, "logpost_warp_kernel", "SEDWarpModel")
+            times[(which, W)] = dict(
+                ms=float(np.nanmin(device_ms(fn, "logpost_warp_kernel", 20, 3))),
+                events=cuda_ms(fn),
+                plain=cuda_ms(lambda: lp.forward_plain(q), repeats=5), lp=lp, q=q)
+    # the KDE prior alone: its plain version and torch.logsumexp over the
+    # components (the library call), at both widths
+    kde = kdes["kde512"]
+    comp = kde.components(dev)
+    kde_rows = {}
+    for W in (SED_PATH_WALKERS, SED_WIDE):
+        t = times[("kde512", W)]["q"][:, 0].contiguous()
+        zz = (t[:, None] - comp) / kde.bandwidth
+        a = -0.5 * zz * zz
+        kde_rows[W] = dict(plain=cuda_ms(lambda: kde.logp(t), repeats=5),
+                           library=cuda_ms(lambda: torch.logsumexp(a, dim=-1)),
+                           share=times[("kde512", W)]["ms"] - times[("default", W)]["ms"])
+    rows = {}
+    for which in ("default", "kde512"):
+        for W in (SED_PATH_WALKERS, SED_WIDE):
+            t = times[(which, W)]
+            rows[(which, W)] = {**k10_bound(t["lp"], W), "ms": t["ms"], "plain_ms": t["plain"]}
+    kde_bound = {W: bound(W * kde_ops(len(kde.samples)), 8 * len(kde.samples) + 16 * W,
+                          FP64_FLOPS) for W in kde_rows}
+    phase("K10", f"in {time.perf_counter() - t_phase:.1f} s: "
+          f"{name}: against its plain version (f32 compute <= {SED_REL['f32']:.0e}, "
+          f"f64 <= {SED_REL['f64']:.0e} of the term scale; -inf sets equal) on {len(epochs)} "
+          f"SN 2016bkv epochs x {SED_STATES} states: "
+          + "; ".join(f"{lab} {wh}{' sigma' if us else ''}: max |d| {w[0]:.3e} (scaled "
+                      f"{w[1]:.2e}), {counts[(lab, wh, us)][0]} finite, "
+                      f"{counts[(lab, wh, us)][1]} -inf"
+                      for (lab, wh, us), w in worst.items())
+          + "; times (f32, the 9-filter epoch, 11 points; the profiler's device time, events, "
+          "plain, bound): "
+          + "; ".join(f"{wh} W={W} {times[(wh, W)]['ms']:.4f}, {times[(wh, W)]['events']:.4f}, "
+                      f"{times[(wh, W)]['plain']:.4f}, {rows[(wh, W)]['bound_ms']:.6f} ms"
+                      for (wh, W) in times)
+          + "; the KDE prior (512 components): "
+          + "; ".join(f"W={W} its share of K10 {r['share']:.4f} ms, plain {r['plain']:.4f}, "
+                      f"torch.logsumexp {r['library']:.4f}, bound {kde_bound[W][0]:.6f} ms"
+                      for W, r in kde_rows.items()))
+    f32_err = max(w[0] for (lab, _, _), w in worst.items() if lab == "f32")
+    return {"max_abs_err": f32_err, **rows[("default", SED_PATH_WALKERS)]}
+
+
+def check_sed_half_step(name, lp, x0, seed, rel):
+    """K10's half-step (h = 0, 1) against the plain half-step under shared
+    draws on the float64 state x0 (2, half, ndim), as check_half_step;
+    then K10 at the states the kernel left gives its stored values bit for
+    bit. Returns (near-ties, accepts, max |d logp|)."""
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels import common, sed
+    dev = x0.device
+    half, ndim = x0.shape[1], x0.shape[2]
+    l0 = sed.log_posterior(lp, x0.reshape(-1, ndim)).reshape(2, half)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    u_z = torch.rand(half, generator=g, device=dev, dtype=x0.dtype)
+    j = torch.randint(0, half, (half,), generator=g, device=dev)
+    u_acc = torch.rand(half, generator=g, device=dev, dtype=x0.dtype)
+    ties, acc, max_abs = 0, 0, 0.0
+    xs, ls = x0.clone(), l0.clone()              # two half-steps in a row
+    a_s = torch.zeros((2, half), dtype=torch.int32, device=dev)
+    for h in (0, 1):
+        what = f"{name} h={h}"
+        xk, lk, xp, lpp = x0.clone(), l0.clone(), x0.clone(), l0.clone()
+        ak = torch.zeros((2, half), dtype=torch.int32, device=dev)
+        ap = torch.zeros_like(ak)
+        ck = torch.empty_like(x0)
+        clk = torch.empty((2, half), dtype=torch.float64, device=dev)
+        sed.stretch_half_step(lp, xk, lk, h, u_z, j, u_acc, 2.0, None, None, ck, clk, ak)
+        sed.stretch_half_step_plain(lp, xp, lpp, h, u_z, j, u_acc, 2.0, n_accept=ap)
+        sed.stretch_half_step(lp, xs, ls, h, u_z, j, u_acc, 2.0, n_accept=a_s)
+        torch.cuda.synchronize()
+        agree = ak[h] == ap[h]
+        y, zst = common.propose_stretch(u_z, j, x0[h], x0[1 - h])
+        gap = (torch.log(u_acc)
+               - ((ndim - 1.0) * torch.log(zst) + lp.forward_plain(y) - l0[h])).abs()
+        tie_ok = gap <= 1e-5 * (lp.term_scales(y) + lp.term_scales(x0[h]))
+        if not bool((agree | tie_ok).all()):
+            raise AssertionError(f"{what}: {int((~agree & ~tie_ok).sum())} accept flags differ "
+                                 "away from near-ties")
+        if not torch.equal(xk[h][agree], xp[h][agree]):
+            raise AssertionError(f"{what}: new states differ where the flags agree")
+        if not torch.equal(xk[1 - h], x0[1 - h]) or not torch.equal(ak[1 - h], ap[1 - h]) \
+                or not torch.equal(ck[h], xk[h]) or not torch.equal(clk[h], lk[h]):
+            raise AssertionError(f"{what}: wrong half or chain slot written")
+        d = compare_ll(f"{what} new logp", lk[h][agree], lpp[h][agree], rel,
+                       scale=lp.term_scales(xk[h])[agree])
+        max_abs = max(max_abs, d[0])
+        ties += int((~agree).sum())
+        acc += int(ak[h].sum())
+    again = sed.log_posterior(lp, xs.reshape(-1, ndim)).reshape(2, half)
+    if not torch.equal(again, ls):
+        raise AssertionError(f"{name}: K10 at the half-steps' states differs from their stored "
+                             f"values at {int((again != ls).sum())} walkers")
+    return ties, acc, max_abs
+
+
+def phase_k10_half(groups, seed=19):
+    t_phase = time.perf_counter()
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch.bolometric import SEDLogPosterior
+    from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.kernels import sed
+    from time_port_kernels import device_ms
+
+    dev = torch.device("cuda")
+    z = META["redshift"]
+    kdes = sed_kdes()
+    nine = next(g for g in groups if n_detected(g) == 9)
+    single = next(g for g in groups if n_detected(g) == 1
+                  and abs(float(np.median(np.asarray(g["MJD"], float))) - 57487.1) < 0.5)
+    res = {}
+    rng = np.random.default_rng(seed)
+    for label in ("f32", "f64"):
+        try:
+            if label == "f64":
+                config.set_compute_dtype(None)
+            for ep_name, ep, which in (("nine", nine, "default"), ("single", single, "kde512")):
+                for use_sigma in (False, True):
+                    lp = SEDLogPosterior(ep, sed_priors(which, use_sigma, kdes), z,
+                                         0.0, {}, use_sigma, device=dev)
+                    for half in (SED_PATH_WALKERS, SED_WIDE // 2):
+                        centre = [10.7, 3.6, 1.0][:lp.ndim]
+                        x0 = torch.as_tensor(np.abs(np.array(centre) * (
+                            1 + 0.05 * rng.normal(size=(2, half, lp.ndim)))), device=dev)
+                        res[(label, ep_name, use_sigma, half)] = check_sed_half_step(
+                            f"K10 half {label} {ep_name} {half}", lp, x0.contiguous(), seed,
+                            SED_REL[label])
+        finally:
+            config.set_compute_dtype(config.AUTO)
+    # times (f32) on the 9-filter epoch
+    lp = SEDLogPosterior(nine, sed_priors("default", False, kdes), z, device=dev)
+    timed = {}
+    for half in (SED_PATH_WALKERS, SED_WIDE // 2):
+        x0 = torch.as_tensor(np.abs(np.array([12.0, 3.0]) * (
+            1 + 0.02 * rng.normal(size=(2, half, 2)))), device=dev).contiguous()
+        l0 = sed.log_posterior(lp, x0.reshape(-1, 2)).reshape(2, half)
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        u_z = torch.rand(half, generator=g, device=dev, dtype=torch.float64)
+        j = torch.randint(0, half, (half,), generator=g, device=dev)
+        u_acc = torch.rand(half, generator=g, device=dev, dtype=torch.float64)
+        xk, lk = x0.clone(), l0.clone()
+        ak = torch.zeros((2, half), dtype=torch.int32, device=dev)
+
+        def step():
+            sed.stretch_half_step(lp, xk, lk, 0, u_z, j, u_acc, 2.0, n_accept=ak,
+                                  check_partners=False)
+        if half == SED_PATH_WALKERS:
+            name = expect_kernel(step, "stretch_half_step_kernel", "SEDWarpModel")
+        xp, lpp = x0.clone(), l0.clone()
+        plain = cuda_ms(lambda: sed.stretch_half_step_plain(lp, xp, lpp, 0, u_z, j, u_acc, 2.0),
+                        repeats=5)
+        bnd = k10_bound(lp, half, extra64=half * PROPOSAL)
+        timed[half] = {"ms": float(np.nanmin(device_ms(step, "stretch_half_step_kernel", 20, 3))),
+                       "events": cuda_ms(step), "plain_ms": plain, **bnd}
+    phase("K10 half", f"in {time.perf_counter() - t_phase:.1f} s: "
+          f"{name}: half-steps h=0,1 (f64 state and logp, a warp per walker) "
+          "against the plain half-step under shared draws, at half "
+          + "; ".join(f"{h} {lab} {ep}{' sigma' if us else ''}: {c[1]} accepts, {c[0]} "
+                      f"near-ties, new-logp max |d| {c[2]:.3e}"
+                      for (lab, ep, us, h), c in res.items())
+          + " (flags agree except the near-ties, new states bit-equal where they agree; "
+          f"<= {SED_REL['f32']:.0e} / {SED_REL['f64']:.0e} of the term scale; K10 at the states "
+          "two half-steps left gives their stored values bit for bit); times (f32, the 9-filter "
+          "epoch; device, events, plain, bound): "
+          + "; ".join(f"half {h} {t['ms']:.4f}, {t['events']:.4f}, {t['plain_ms']:.4f}, "
+                      f"{t['bound_ms']:.6f} ms" for h, t in timed.items()))
+    err = max(c[2] for (lab, _, _, _), c in res.items() if lab == "f32")
+    t = timed[SED_PATH_WALKERS]
+    return {"max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None}
+
+
+def sed_reference():
+    with open(os.path.join(REPO, SED_REFERENCE)) as f:
+        return json.load(f)
+
+
+def mcmc_columns(t):
+    """The MCMC medians and half-widths of T and R of a bolometric table (the
+    port's, or the JAX reference's dict of lists) as float arrays, NaN where
+    masked: {"temp": (medians, half-widths), "radius": ...}."""
+    import numpy as np
+
+    def col(name):
+        return np.ma.filled(np.ma.MaskedArray(t[name]).astype(float), np.nan)
+
+    return {c: (col(f"{c}_mcmc"), (col(f"d{c}_mcmc0") + col(f"d{c}_mcmc1")) / 2)
+            for c in ("temp", "radius")}
+
+
+def width_distances(t, ref):
+    """Each epoch's MCMC median of T and R against the JAX package's, in units
+    of hypot(the two half-widths)."""
+    import numpy as np
+    a, b = mcmc_columns(ref), mcmc_columns(t)
+    return {c: np.abs(a[c][0] - b[c][0]) / np.hypot(a[c][1], b[c][1]) for c in a}
+
+
+def seed_distances(tables, refs):
+    """Each epoch's median over seeds of the port's MCMC medians (``tables``)
+    against the same of the JAX package's (``refs``), in units of
+    hypot(both packages' mean half-widths, both packages' standard deviations
+    of the medians over their seeds). Also each package's agreement with
+    itself: for every pair of its seeds, the share of epochs whose medians
+    lie within 2 hypot(half-widths) of each other; and the root mean square
+    of each package's seed spread. Returns (distances, {package: {column:
+    (pair shares, rms spread)}})."""
+    import itertools
+    import numpy as np
+    cols = {"port": [mcmc_columns(t) for t in tables], "JAX": [mcmc_columns(r) for r in refs]}
+    dist, own = {}, {}
+    for c in ("temp", "radius"):
+        med = {k: np.stack([v[c][0] for v in vs]) for k, vs in cols.items()}
+        hw = {k: np.stack([v[c][1] for v in vs]) for k, vs in cols.items()}
+        sd = {k: np.std(m, axis=0, ddof=1) for k, m in med.items()}
+        scale = np.sqrt(sum(np.mean(hw[k], axis=0) ** 2 + sd[k] ** 2 for k in med))
+        dist[c] = np.abs(np.median(med["port"], axis=0) - np.median(med["JAX"], axis=0)) / scale
+        for k in med:
+            pairs = [float(np.mean(np.abs(med[k][i] - med[k][j])
+                                   <= 2 * np.hypot(hw[k][i], hw[k][j])))
+                     for i, j in itertools.combinations(range(len(med[k])), 2)]
+            own.setdefault(k, {})[c] = (pairs, float(np.sqrt(np.mean(sd[k] ** 2))))
+    return dist, own
+
+
+def within_widths(k, name, rows=slice(None)):
+    """The gate on ``width_distances``: within 2 in >= 95% of the epochs (of
+    ``rows``) and within 4 in all. Returns (share within 2, max) a column."""
+    import numpy as np
+    out = {}
+    for c, kc in k.items():
+        kc = kc[rows]
+        if not np.isfinite(kc).all() or np.mean(kc <= 2) < 0.95 or kc.max() > 4:
+            raise AssertionError(f"{name}: {c}_mcmc against the JAX package's: share within 2 "
+                                 f"{np.mean(kc <= 2):.3f}, max {kc.max():.2f}")
+        out[c] = (float(np.mean(kc <= 2)), float(kc.max()))
+    return out
+
+
+def lstsq_consistent(t, ref, groups, name):
+    """The least-squares columns: where the epoch has several filters (p0 =
+    (10, 10) in both packages) the JAX package's within rtol 1e-6; where it
+    has one (p0 = the previous chain's medians) the port's own solve from
+    the previous row's medians, under the KDE prior's bounds. Returns the
+    largest relative difference of each kind."""
+    import numpy as np
+    from lightcurve_fitting_tpu_torch.bolometric import blackbody_lstsq
+    T = np.ma.filled(np.ma.MaskedArray(t["temp"]).astype(float), np.nan)
+    R = np.ma.filled(np.ma.MaskedArray(t["radius"]).astype(float), np.nan)
+    npts = np.asarray(t["npoints"], int)
+    multi = npts > 1
+    rel = 0.0
+    for mine, want in ((T, ref["temp"]), (R, ref["radius"])):
+        mine, want = mine[multi], np.asarray(want, float)[multi]
+        if not np.array_equal(np.isnan(mine), np.isnan(want)):
+            raise AssertionError(f"{name}: least-squares failures differ from the JAX package's")
+        ok = ~np.isnan(want)
+        rel = max(rel, float(np.max(np.abs(mine[ok] / want[ok] - 1), initial=0.0)))
+    if not rel <= 1e-6:
+        raise AssertionError(f"{name}: least squares {rel:.2e} from the JAX package's (rtol 1e-6)")
+    fitted = [g for g in groups if n_detected(g) >= 1]
+    fitted = fitted[len(fitted) - len(npts):]       # the epochs with a row
+    own = 0.0
+    for i in np.flatnonzero(~multi):
+        p0 = [float(t["temp_mcmc"][i - 1]), float(t["radius_mcmc"][i - 1])]
+        with contextlib.redirect_stdout(io.StringIO()):
+            mine = blackbody_lstsq(fitted[i], META["redshift"], p0, (-np.inf, np.inf),
+                                   (0.01, 1000.0))
+        if np.isnan(T[i]):
+            continue                        # a failed solve: masked, as the JAX package's
+        own = max(own, abs(mine[0] / T[i] - 1), abs(mine[1] / R[i] - 1))
+    if not own <= 1e-6:
+        raise AssertionError(f"{name}: a single-filter epoch's least squares {own:.2e} from the "
+                             "solve from the previous chain's medians")
+    return rel, own, int((~multi).sum())
+
+
+def phase_sequential_bolometric(groups, smi):
+    """13c: calculate_bolometric(batch_mode=False) on the full SN 2016bkv curve."""
+    t_phase = time.perf_counter()
+    import warnings
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch import bolometric as tbol, kernels
+    from lightcurve_fitting_tpu_torch.lightcurve import LC
+
+    ref = sed_reference()
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_")   # the fits' outpath; they save nothing
+    lc0 = LC.read(os.path.join(REPO, "lightcurve_fitting_tpu", "data", "SN2016bkv.csv"))
+    lc0.meta.update(META)
+    real = tbol.spectrum_mcmc
+    fits = []
+
+    def spy(*args, **kwargs):
+        before = dict(kernels.LAUNCHES)
+        s = real(*args, **kwargs)
+        fits.append((type(args[2][0]).__name__,
+                     {k: kernels.LAUNCHES[k] - before[k] for k in ("sed_logpost",
+                                                                   "sed_half_step")}))
+        return s
+
+    def run(lc=lc0, seed=7, **kw):
+        with warnings.catch_warnings(), contextlib.redirect_stdout(io.StringIO()):
+            warnings.simplefilter("ignore")
+            return tbol.calculate_bolometric(lc.copy(), batch_mode=kw.pop("batch_mode", False),
+                                             save_corners=False, seed=seed, outpath=outdir, **kw)
+
+    out, walls, launches = {}, {}, {}
+
+    def counted(label, fn):
+        """fn() with the counters reset before; every fit must be one K10
+        launch and 600 half-steps, and nothing else may run."""
+        fits.clear()
+        kernels.reset_launch_counts()
+        t = fn()
+        got = dict(kernels.LAUNCHES)
+        n = len(fits)
+        moved = {k: v for k, v in got.items() if v and not k.startswith("sed_")}
+        if moved or got["sed_logpost"] != n or got["sed_half_step"] != 600 * n \
+                or any(f[1] != {"sed_logpost": 1, "sed_half_step": 600} for f in fits):
+            raise AssertionError(f"13c {label}: launches {got} for {n} fits (1 K10 and 600 "
+                                 "half-steps a fit, nothing else)")
+        got["kde_fits"] = sum(f[0] == "KDEPrior" for f in fits)
+        return t, got
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t = fn()
+        torch.cuda.synchronize()
+        return t, time.perf_counter() - t0
+
+    tbol.spectrum_mcmc = spy
+    try:
+        (out["defaults"], walls["defaults"]), launches["defaults"] = counted(
+            "defaults", lambda: timed(run))
+        # min_nfilt=1 at each seed of the JAX reference's; then at seed 7 with
+        # batch_mode=True: the chain cut falls at epoch 0 (a single-filter
+        # epoch), so nothing batches and the run must give the same table
+        chain_runs, chain_walls = {}, {}
+        for seed in SED_CHAIN_SEEDS:
+            (chain_runs[seed], chain_walls[seed]), got = counted(
+                f"min_nfilt_1 seed {seed}", lambda: timed(lambda: run(seed=seed, min_nfilt=1)))
+            launches.setdefault("min_nfilt_1", got)
+        out["min_nfilt_1"], walls["min_nfilt_1"] = chain_runs[7], chain_walls[7]
+        (t_c, _), launches_c = counted(
+            "batch_mode=True", lambda: timed(lambda: run(batch_mode=True, min_nfilt=1)))
+        # the device's activity (its busy time and the kernels by name) over
+        # the curve's first fits, 6 of them chained: a trace of the whole
+        # curve holds ~10^5 kernels and takes ~40 s to reduce
+        res = []
+        (wall_p, prof), launches_p = counted("profiled", lambda: profiled(
+            lambda: res.append(run(lc=lc0.where(MJD_max=SED_PROFILE_MJD_MAX), min_nfilt=1)),
+            cpu=False))
+    finally:
+        tbol.spectrum_mcmc = real
+    kde_fits = launches["min_nfilt_1"]["kde_fits"]
+    if launches_c != launches["min_nfilt_1"]:
+        raise AssertionError(f"13c: batch_mode=True launched {launches_c}")
+    for c in out["min_nfilt_1"].colnames:
+        if not np.array_equal(np.asarray(out["min_nfilt_1"][c]), np.asarray(t_c[c])):
+            raise AssertionError(f"13c: batch_mode=True column {c} differs from batch_mode=False")
+    averages = prof.key_averages()
+    parts, busy = time_split(prof, wall_p, SED_SPLIT, averages)
+    del prof
+    names = sorted({e.key for e in averages if e.device_type.name == "CUDA"})
+    k10_names = [n for n in names if "SEDWarpModel" in n]
+    plain_kernels = [n for n in names if any(m in n for m in PLAIN_MARKS)]
+    if len(k10_names) != 2 or plain_kernels:
+        raise AssertionError(f"13c: the profiler saw K10 as {k10_names} and plain kernels "
+                             f"{plain_kernels}")
+    checks, chained = {}, {}
+    for label, t in out.items():
+        r = ref["sequential"][label]
+        want_rows = {"defaults": 65, "min_nfilt_1": 77}[label]
+        if len(t) != want_rows or len(r["MJD"]) != want_rows:
+            raise AssertionError(f"13c {label}: {len(t)} rows, the JAX package {len(r['MJD'])}, "
+                                 f"{want_rows} expected")
+        if not np.allclose(np.asarray(t["MJD"], float), r["MJD"], rtol=1e-12, atol=0):
+            raise AssertionError(f"13c {label}: MJD differs from the JAX package's")
+        # the medians against the JAX package's at seed 7: every row at the
+        # defaults; at min_nfilt=1 the rows up to the first single-filter fit
+        # (no earlier chain in their prior). Downstream of the chaining each
+        # epoch's temperature prior is a KDE of an earlier chain, so two runs
+        # of either package differ by more than their widths (the JAX
+        # package's seeds 7 and 8: 26% of the epochs within 2, up to 11.4;
+        # PERF.md): there every row holds the port's median over seeds 7-9
+        # to the JAX package's, the scale both packages' seed scatter and
+        # widths (seed_distances)
+        plain = width_distances(t, r)
+        first = int(np.flatnonzero(np.asarray(r["npoints"]) == 1)[0]) \
+            if label == "min_nfilt_1" else len(t) - 1
+        gated = within_widths(plain, f"13c {label}", slice(0, first + 1))
+        if label == "min_nfilt_1":
+            refs = [r] + [ref["sequential"]["min_nfilt_1_seeds"][str(s_)]
+                          for s_ in SED_CHAIN_SEEDS[1:]]
+            for s_, t_s in chain_runs.items():
+                if not np.allclose(np.asarray(t_s["MJD"], float), r["MJD"], rtol=1e-12, atol=0):
+                    raise AssertionError(f"13c {label} seed {s_}: MJD differs from the JAX "
+                                         "package's")
+            dist, own = seed_distances(list(chain_runs.values()), refs)
+            chained[label] = (first, within_widths(dist, f"13c {label} (medians over seeds "
+                                                         f"{SED_CHAIN_SEEDS})"),
+                              {c: (float(np.mean(k <= 2)), float(k.max()))
+                               for c, k in plain.items()}, own)
+        checks[label] = (lstsq_consistent(t, r, groups, f"13c {label}"), gated)
+    phase("bolometric main path 13c", f"in {time.perf_counter() - t_phase:.1f} s: "
+          f"calculate_bolometric(batch_mode=False, "
+          f"save_corners=False, seed=7) on the full SN 2016bkv curve: "
+          + "; ".join(f"{lab} {len(out[lab])} rows in {walls[lab]:.3f} s "
+                      f"({launches[lab]['sed_logpost']} fits, {launches[lab]['kde_fits']} under "
+                      f"a KDE prior, {launches[lab]['sed_half_step']} K10 half-steps; least "
+                      f"squares within {checks[lab][0][0]:.1e} of the JAX package's, "
+                      f"{checks[lab][0][2]} single-filter rows within {checks[lab][0][1]:.1e} of "
+                      f"their own solve; T, R medians within 2 hypot(half-widths) of the JAX "
+                      f"package's in {checks[lab][1]['temp'][0]:.3f}, "
+                      f"{checks[lab][1]['radius'][0]:.3f} of the epochs "
+                      + ("" if lab not in chained else f"up to the first chained one (row "
+                         f"{chained[lab][0]}) ")
+                      + f"and at most {checks[lab][1]['temp'][1]:.2f}, "
+                      f"{checks[lab][1]['radius'][1]:.2f}"
+                      + ("" if lab not in chained else
+                         f"; every row, the port's median over seeds {SED_CHAIN_SEEDS} against "
+                         f"the JAX package's, in hypot(both packages' widths and seed "
+                         f"scatter): {chained[lab][1]['temp'][0]:.3f}, "
+                         f"{chained[lab][1]['radius'][0]:.3f} within 2, at most "
+                         f"{chained[lab][1]['temp'][1]:.2f}, {chained[lab][1]['radius'][1]:.2f} "
+                         f"(seed 7 alone against the JAX package's seed 7 in hypot(widths): "
+                         f"{chained[lab][2]['temp'][0]:.3f}, "
+                         f"{chained[lab][2]['radius'][0]:.3f} within 2, at most "
+                         f"{chained[lab][2]['temp'][1]:.2f}, {chained[lab][2]['radius'][1]:.2f}); "
+                         f"each package against itself, the share of epochs within 2 "
+                         f"hypot(widths) for the seed pairs 7-8, 7-9, 8-9 and the rms seed "
+                         f"scatter: " + "; ".join(
+                             f"{k} {c} {', '.join(f'{v:.3f}' for v in o[c][0])}, rms "
+                             f"{o[c][1]:.4g}" for k, o in chained[lab][3].items()
+                             for c in ("temp", "radius"))
+                         + f"; walls at seeds {SED_CHAIN_SEEDS} "
+                         + ", ".join(f"{w:.3f}" for w in chain_walls.values()) + " s")
+                      + ")" for lab in out)
+          + f"; batch_mode=True, min_nfilt=1 bit-equal to batch_mode=False (the cut at epoch "
+          f"0); the profiled min_nfilt=1 run to MJD {SED_PROFILE_MJD_MAX} "
+          f"({launches_p['sed_logpost']} fits, {launches_p['kde_fits']} under a KDE prior) "
+          f"{wall_p:.3f} s, device busy {busy:.4f} s (idle share {1 - busy / wall_p:.3f}): "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in parts.items())
+          + f"; the profiler saw {k10_names} and no plain version; JAX reference: "
+          f"{ref['run']}; on {smi}")
+    if not kde_fits >= 60:
+        raise AssertionError(f"13c: {kde_fits} fits under a KDE prior (~66 expected)")
+    shutil.rmtree(outdir, ignore_errors=True)
+    return launches
+
+
+def sed_acceptance_epochs(groups):
+    """13d's epochs with their priors and starting centers, as
+    tests/test_torch_sed.py::sed_acceptance_epochs builds them: the 9-filter
+    epoch under the default priors from its least-squares solution, and the
+    single-filter epoch of MJD 57487.1 (U) under a KDE temperature prior of
+    default_rng(4).normal(10.7, 0.12, 2000), from (10.7, 3.6)."""
+    import numpy as np
+    from lightcurve_fitting_tpu_torch.bolometric import blackbody_lstsq
+    from lightcurve_fitting_tpu_torch.models import KDEPrior, LogUniformPrior, UniformPrior
+    nine = next(g for g in groups if n_detected(g) == 9)
+    single = next(g for g in groups
+                  if abs(float(np.median(np.asarray(g["MJD"], float))) - 57487.1) < 0.5)
+    with contextlib.redirect_stdout(io.StringIO()):
+        center = np.array(blackbody_lstsq(nine, META["redshift"], [10.0, 10.0], (1.0, 100.0),
+                                          (0.01, 1000.0))[:2])
+    kde = KDEPrior(np.random.default_rng(4).normal(10.7, 0.12, size=2000))
+    return {"nine": (nine, [UniformPrior(1.0, 100.0), LogUniformPrior(0.01, 1000.0)], center),
+            "single": (single, [kde, LogUniformPrior(0.01, 1000.0)], np.array([10.7, 3.6]))}
+
+
+def phase_sed_acceptance(groups, smi):
+    """13d: spectrum_mcmc's mean acceptance at seeds 1-8 against the JAX
+    package's float64 CPU seeds."""
+    t_phase = time.perf_counter()
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch import bolometric as tbol, kernels
+    from lightcurve_fitting_tpu_torch.models.blackbody import planck_fast
+
+    ref = sed_reference()["acceptance"]
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_")   # spectrum_mcmc's outpath; it saves nothing
+    kernels.reset_launch_counts()
+    res, walls = {}, {}
+    for name, (ep, pri, center) in sed_acceptance_epochs(groups).items():
+        accs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for seed in SED_SEEDS:
+            guesses = np.random.default_rng(seed).normal(size=(SED_WALKERS, 2)) + center
+            guesses[guesses <= 0.0] = 1.0
+            s = tbol.spectrum_mcmc(planck_fast, ep, pri, guesses, z=META["redshift"],
+                                   nwalkers=SED_WALKERS, burnin_steps=SED_BURNIN,
+                                   steps=SED_STEPS, seed=seed, make_corner=False,
+                                   outpath=outdir)
+            accs.append(float(np.mean(s.acceptance_fraction)))
+        walls[name] = (time.perf_counter() - t0) / len(SED_SEEDS)
+        a, b = np.array(accs), np.array(ref[name])
+        m_p, se_p = a.mean(), a.std(ddof=1) / np.sqrt(len(a))
+        m_j, se_j = b.mean(), b.std(ddof=1) / np.sqrt(len(b))
+        zz = abs(m_p - m_j) / np.hypot(se_p, se_j)
+        if zz > 4:
+            raise AssertionError(f"13d {name}: mean acceptance {m_p:.5f} +- {se_p:.5f}, {zz:.2f} "
+                                 f"combined standard errors from the JAX package's {m_j:.5f} +- "
+                                 f"{se_j:.5f}")
+        res[name] = (accs, m_p, se_p, m_j, se_j, zz)
+    shutil.rmtree(outdir, ignore_errors=True)
+    launches = dict(kernels.LAUNCHES)
+    n = 2 * len(SED_SEEDS)
+    if launches["sed_logpost"] != n or launches["sed_half_step"] != n * 2 * (SED_BURNIN
+                                                                             + SED_STEPS):
+        raise AssertionError(f"13d: launches {launches}")
+    phase("bolometric main path 13d", f"in {time.perf_counter() - t_phase:.1f} s: "
+          f"spectrum_mcmc(planck_fast) {SED_WALKERS} walkers x "
+          f"{SED_BURNIN}+{SED_STEPS} steps at seeds 1-8: "
+          + "; ".join(f"{k} epoch: acceptance {', '.join(f'{x:.4f}' for x in r[0])}, mean "
+                      f"{r[1]:.5f} +- {r[2]:.5f} against the JAX package's {r[3]:.5f} +- "
+                      f"{r[4]:.5f} ({r[5]:.2f} combined standard errors); {walls[k]:.3f} s a fit"
+                      for k, r in res.items())
+          + f"; launches {launches['sed_logpost']} K10, {launches['sed_half_step']} half-steps; "
+          f"on {smi}")
     return launches
 
 
@@ -4230,7 +4983,8 @@ def main():
                          ("K4s", "epoch_summary_kernel", 4),
                          ("K3's warp form", "bandflux_warp_kernel", 2),
                          ("K5", "percentile_kernel", 8),
-                         ("K8", "sifto_kernel", 4)):
+                         ("K8", "sifto_kernel", 4),
+                         ("K10", "logpost_warp_kernelI12SEDWarpModel", 8)):
         block[what] = [v for k, v in report.items() if key in k]
         if len(block[what]) != n or any(v[1] or v[2] or v[3] for v in block[what]):
             raise AssertionError(f"{what} ({n} instantiations) must keep its state in "
@@ -4245,15 +4999,19 @@ def main():
           "log-posterior (ndim 7, 8; its 4 dtype instantiations each), K1 (ndim 4, 5; 4 each), "
           "K6b (over SC2 ndim 4, 5, over SC3 7, 8, over CS 7, 8, 9; 4 each), K6c (ndim 1-9; "
           "f32, f64 state), the CS log-posterior (ndim 7, 8, 9; 4 each), K4s (4 dtype "
-          "instantiations), K3's warp form (f32, f64), K5 (1-8 percentiles) and K8 (both "
-          "forms, f32, f64): "
+          "instantiations), K3's warp form (f32, f64), K5 (1-8 percentiles), K8 (both "
+          "forms, f32, f64) and K10 (ndim 2, 3; 4 dtype instantiations each): "
           + "; ".join(f"{what} registers {sorted(set(v[0] for v in ks))}, stack frames "
                       f"{sorted(set(v[1] for v in ks))} bytes, spills "
                       f"{sorted(set(v[2] + v[3] for v in ks))}" for what, ks in block.items())
           + "; K6a over SC3 (the walker's dimension at run time) " + "; ".join(
               f"registers {v[0]}, stack frame {v[1]} bytes, spills {v[2] + v[3]}"
               for k, v in report.items()
-              if "tempered_half_step_kernelI12SC3WarpModel" in k))
+              if "tempered_half_step_kernelI12SC3WarpModel" in k)
+          + "; K10's half-step (SEDWarpModel, 32 instantiations) " + ", ".join(
+              f"registers {v[0]}, stack frame {v[1]} bytes, spills {v[2] + v[3]}"
+              for v in sorted({tuple(v) for k, v in report.items()
+                               if "stretch_half_step_kernelI12SEDWarpModel" in k})))
     # the bolometric packing (SN 2016bkv's bins) assumes the native binning,
     # built from the port's own source: the numpy fallback gives other bits
     from lightcurve_fitting_tpu_torch.utils import native
@@ -4279,6 +5037,11 @@ def main():
     k_epoch_half = phase_epoch_half_step()
     k4s, k5 = phase_k4s_k5()
     launches_bol = phase_bolometric_main_path(smi)
+    groups = sn2016bkv_seds()
+    k10 = phase_k10(groups)
+    k10_half = phase_k10_half(groups)
+    launches_seq = phase_sequential_bolometric(groups, smi)
+    phase_sed_acceptance(groups, smi)
     k6a, k6a_sc3 = phase_k6a(lc, lcf)
     lc_ia, lc0 = ia_lc()
     k6b, k6c, k6d = phase_k6bcd(lc, lcf, lc_ia, lc0)
@@ -4388,6 +5151,14 @@ def main():
         dict(name="ladder_init_kernel<SC3WarpModel<C, N>> (K6b over SC3)", route="cuda",
              source=src3, replaces="lightcurve_fitting_tpu/parallel/evidence.py:229",
              launches=launches_sc3_ladder["ladder_init"], **k6b["sc3"]),
+        dict(name="logpost_warp_kernel<SEDWarpModel<C, N>> (K10)", route="cuda",
+             source="lightcurve_fitting_tpu_torch/kernels/csrc/sed.cu",
+             replaces="lightcurve_fitting_tpu/bolometric.py:81",
+             launches=launches_seq["min_nfilt_1"]["sed_logpost"], **k10),
+        dict(name="stretch_half_step_kernel<SEDWarpModel<C, N>> (K10 half-step)", route="cuda",
+             source="lightcurve_fitting_tpu_torch/kernels/csrc/sed.cu",
+             replaces="lightcurve_fitting_tpu/parallel/sampler.py:86",
+             launches=launches_seq["min_nfilt_1"]["sed_half_step"], **k10_half),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,21 +1,27 @@
 """Bolometric light curves from per-epoch blackbody SED fits (the port of
 ``lightcurve_fitting_tpu/bolometric.py``).
 
-``calculate_bolometric(batch_mode=True)`` fits every multi-filter epoch at
-once on the device (``parallel/batched.py``): the MAP centers through K4
-and its gradient, the per-epoch stretch-move ensembles through the epoch
-half-step kernel, and the posterior summaries through K4s and K5
-(``kernels/csrc/epoch_bb.cu``, ``kernels/csrc/quantile.cu``). The estimators
-that run on the host (bounded least squares, direct SED integration,
-colors) are numpy/scipy copies of the JAX package's.
+``calculate_bolometric`` fits one epoch at a time by default
+(``batch_mode=False``): each epoch's stretch-move ensemble runs through
+:func:`spectrum_mcmc` over :class:`SEDLogPosterior`, on CUDA through the SED
+kernel K10 (``kernels/csrc/sed.cu``: the log-posterior and the half-step, the
+KDE prior of the single-filter epochs inside it). ``batch_mode=True`` fits
+every multi-filter epoch before the first single-filter one at once on the
+device (``parallel/batched.py``): the MAP centers through K4 and its
+gradient, the per-epoch ensembles through the epoch half-step kernel, and
+the posterior summaries through K4s and K5 (``kernels/csrc/epoch_bb.cu``,
+``kernels/csrc/quantile.cu``). KDE prior chaining into single-filter epochs
+(``min_nfilt < 2``) runs in both modes. The estimators that run on the host
+(bounded least squares, direct SED integration, colors) are numpy/scipy
+copies of the JAX package's.
 
 Not in this slice of the port, and refused with NotImplementedError naming
-their ROADMAP Queue 1 item: the sequential ``spectrum_mcmc`` path
-(``batch_mode=False``, item 12), KDE prior chaining into single-filter
-epochs (``min_nfilt < 2``, item 12), corner plots and the other
-figures (``save_corners=True``, ``show=True``, ``plot_bolometric_results``,
-``plot_color_curves``, ``plot_chain``, ``spectrum_corner``: item 18), and
-sharding the epochs over a mesh (item 17).
+their ROADMAP Queue 1 item: corner plots and the other figures
+(``save_corners=True``, ``show=True``, ``make_corner=True``,
+``plot_bolometric_results``, ``plot_color_curves``, ``plot_chain``,
+``spectrum_corner``: item 18), sharding the epochs over a mesh (item 17),
+and on CUDA the quadrature SED form of a reddened ``planck_fast``
+(``ebv != 0``: item 20).
 """
 
 import os
@@ -24,17 +30,23 @@ import warnings
 import numpy as np
 from scipy.optimize import curve_fit, OptimizeWarning
 
+import torch
+
+from .core import config
 from .core.constants import sigma_sb
 from .core.device import resolve_device
-from .filters import filtdict
+from .filters import filtdict, extinction_law
 from .lightcurve import LC
-from .models.blackbody import planck_fast
-from .models.priors import GaussianPrior, LogUniformPrior, UniformPrior
-from .ops.filterbank import bank_for
+from .models.base import intrinsic_scatter_units
+from .models.blackbody import planck_fast, planck_lnu
+from .models.priors import GaussianPrior, KDEPrior, LogUniformPrior, UniformPrior
+from .ops.bandtable import chebyshev_bandflux
+from .ops.filterbank import bank_for, band_table_for
 from .utils import units as u
 
-__all__ = ["calculate_bolometric", "blackbody_lstsq", "integrate_sed", "pseudo",
-           "stefan_boltzmann", "group_by_epoch", "median_and_unc", "calc_colors"]
+__all__ = ["calculate_bolometric", "spectrum_mcmc", "SEDLogPosterior", "blackbody_lstsq",
+           "integrate_sed", "pseudo", "stefan_boltzmann", "group_by_epoch", "median_and_unc",
+           "calc_colors"]
 
 DEPRECATED_BOLOMETRIC_COLNAMES = [  # (old, new)
     ("L_opt", "L"),
@@ -174,9 +186,236 @@ def calc_colors(epoch1, colors):
     return mags, dmags, lolims, uplims
 
 
+class SEDLogPosterior:
+    """The log-posterior of a blackbody (``planck_fast``) fit to one epoch's
+    photometry (the JAX package's ``_make_sed_log_posterior``,
+    bolometric.py:81-140), batched over walkers: ``lp(p)`` maps absolute
+    parameters (W, ndim) to (W,) float64. Any other spectrum function runs
+    on the host (:func:`spectrum_mcmc`).
+
+    The luminosities are divided by ``yscale`` (the median of the nonzero
+    |lum|), and ``offset = -N log(yscale)`` restores the likelihood's
+    normalization. Two forms, as in the JAX package:
+
+    * ``"table"``: ``planck_fast`` without reddening (``ebv`` 0). The band
+      integral factorizes, so each point is one lookup of the epoch's
+      Chebyshev band table, ``R^2 exp(ln g(ln T))``
+      (``ops/bandtable.py::chebyshev_bandflux``, in the compute dtype of
+      ``device``). On CUDA this form runs the SED kernel K10
+      (``kernels/sed.py``).
+    * ``"quadrature"``: ``planck_fast`` with ``ebv != 0``: the Planck sum
+      over each band's emitted-frame nodes times the extinction factor, in
+      float64. Plain PyTorch only; CUDA raises (ROADMAP Queue 1 item 20).
+
+    The Gaussian likelihood carries the full ``log(2 pi sigma^2)`` sum, with
+    the intrinsic scatter ``p[-1]`` in units of ``sigma_type`` when
+    ``use_sigma``; a non-finite likelihood is -inf, as is any state outside
+    the priors.
+    """
+
+    def __init__(self, epoch1, priors, z=0.0, ebv=0.0, spectrum_kwargs=None, use_sigma=False,
+                 sigma_type="relative", device="cpu"):
+        device = torch.device(device)
+        spectrum_kwargs = dict(spectrum_kwargs or {})
+        y_np = np.asarray(epoch1["lum"], float)
+        dy_np = np.asarray(epoch1["dlum"], float)
+        # O(1) data scale for float32 safety (see models/base.py)
+        yscale = float(np.median(np.abs(y_np[y_np != 0]))) if np.any(y_np != 0) else 1.0
+        self.offset = -len(y_np) * np.log(yscale)
+        self.inv_yscale = 1.0 / yscale
+        self.priors = list(priors)
+        self.use_sigma = bool(use_sigma)
+        self.spectrum_kwargs = spectrum_kwargs
+        self.compute_dtype = config.get_compute_dtype(device) or torch.float64
+
+        def f64(a):
+            return torch.tensor(np.asarray(a, float), dtype=torch.float64, device=device)
+
+        self.y = f64(y_np / yscale)
+        self.dy = f64(dy_np / yscale)
+        self.sigma_units = f64(np.broadcast_to(
+            intrinsic_scatter_units(dy_np / yscale, sigma_type), y_np.shape))
+        filters = list(epoch1["filter"])
+        bank = bank_for(sorted(set(filters)))
+        ids = bank.band_ids(filters)
+        if not np.any(ebv):
+            # blackbody: the band integral factorizes -> per-band Chebyshev
+            # of ln g(ln T)
+            self.form = "table"
+            table = band_table_for(bank, z=z,
+                                   cutoff_freq=spectrum_kwargs.get("cutoff_freq", np.inf))
+            coef, s_a, s_b = table.gather(ids, device=False)
+            cdt = self.compute_dtype
+            self.coef = torch.as_tensor(coef, device=device).to(cdt).contiguous()
+            self.s_a = torch.as_tensor(s_a, device=device).to(cdt).contiguous()
+            self.s_b = torch.as_tensor(s_b, device=device).to(cdt).contiguous()
+        else:
+            self.form = "quadrature"
+            nodes, weights, _ = bank.gather(ids, z=z, device=False)
+            self.nodes, self.weights = f64(nodes), f64(weights)
+            ext = extinction_law(np.asarray(bank.emitted_nodes(z)[ids]).ravel(), ebv)
+            self.ext = f64(np.reshape(ext, nodes.shape))
+
+    @property
+    def ndim(self):
+        return len(self.priors)
+
+    @property
+    def kernel_module(self):
+        """The kernel module that evaluates this log-posterior on CUDA:
+        :mod:`.kernels.sed` (K10)."""
+        from .kernels import sed
+        return sed
+
+    def log_prior(self, p):
+        """The summed prior log-densities (W,) float64 at ``p`` (W, ndim)."""
+        log_prior = 0.0
+        for i, prior in enumerate(self.priors):
+            log_prior = log_prior + prior(p[:, i])
+        return log_prior
+
+    def band_flux(self, p):
+        """The model's band-averaged L_nu / yscale (W, N) float64 at ``p``."""
+        if self.form == "table":
+            shape = (p.shape[0], self.y.shape[0])
+            return chebyshev_bandflux(self.coef, p[:, 0:1].expand(shape),
+                                      p[:, 1:2].expand(shape), self.s_a,
+                                      self.s_b) * self.inv_yscale
+        lnu = planck_lnu(self.nodes, p[:, 0, None, None], p[:, 1, None, None],
+                         **self.spectrum_kwargs) * self.ext
+        return torch.sum(self.weights * lnu, dim=-1) * self.inv_yscale
+
+    def residual_terms(self, p):
+        """Each point's log(2 pi sigma^2) + (y - y_fit)^2 / sigma^2, (W, N)."""
+        y_fit = self.band_flux(p)
+        if self.use_sigma:
+            sigma2 = self.dy ** 2.0 + (p[:, -1:] * self.sigma_units) ** 2.0
+        else:
+            sigma2 = self.dy ** 2.0
+        return torch.log(2 * np.pi * sigma2) + (self.y - y_fit) ** 2.0 / sigma2
+
+    def forward_plain(self, p):
+        """The plain PyTorch log-posterior (W,) float64 at ``p`` (W, ndim),
+        on any device (the version beside K10 and the CPU path)."""
+        p = p.to(torch.float64)
+        log_prior = self.log_prior(p)
+        ll = -0.5 * torch.sum(self.residual_terms(p), dim=-1) + self.offset
+        ll = torch.where(torch.isfinite(ll), ll, torch.full_like(ll, -torch.inf))
+        return torch.where(torch.isfinite(log_prior), log_prior + ll,
+                           torch.full_like(ll, -torch.inf))
+
+    def term_scales(self, p):
+        """The magnitude the log-posterior's rounding scales with, (W,):
+        0.5 x the summed residual terms' magnitudes, plus |offset| and the
+        prior's magnitude."""
+        p = p.to(torch.float64)
+        terms = self.residual_terms(p).abs()
+        terms = torch.where(torch.isfinite(terms), terms, torch.zeros_like(terms))
+        prior = self.log_prior(p).abs()
+        prior = torch.where(torch.isfinite(prior), prior, torch.zeros_like(prior))
+        return 0.5 * terms.sum(-1) + abs(self.offset) + prior
+
+    def __call__(self, p):
+        """The log-posterior (W,) float64 at absolute parameters ``p`` (W,
+        ndim): K10 on CUDA, the plain version on the CPU."""
+        from . import kernels
+        return kernels.log_posterior(self, p)
+
+
+def _host_log_posterior(spectrum, epoch1, priors, z, ebv, spectrum_kwargs, use_sigma,
+                        sigma_type):
+    """The JAX package's host log-posterior (bolometric.py:186-204): numpy,
+    one walker at a time, each band through ``Filter.synthesize``."""
+    filters = list(epoch1["filter"])
+    y_np = np.asarray(epoch1["lum"], float)
+    dy_np = np.asarray(epoch1["dlum"], float)
+    sigma_units = intrinsic_scatter_units(dy_np, sigma_type)
+
+    def log_posterior_host(p):
+        log_prior = 0.0
+        for prior, p_i in zip(priors, p):
+            log_prior += float(prior(p_i))
+        if np.isinf(log_prior):
+            return log_prior
+        y_fit = np.array([f.synthesize(spectrum, *p[: -1 if use_sigma else None],
+                                       z=z, ebv=ebv, **spectrum_kwargs) for f in filters])
+        sigma = np.sqrt(dy_np ** 2 + (p[-1] * sigma_units) ** 2) if use_sigma else dy_np
+        ll = -0.5 * np.sum(np.log(2 * np.pi * sigma ** 2) + ((y_np - y_fit) / sigma) ** 2)
+        return log_prior + ll
+
+    return log_posterior_host
+
+
+def spectrum_mcmc(spectrum, epoch1, priors, starting_guesses, z=0.0, ebv=0.0,
+                  spectrum_kwargs=None, show=False, outpath=".", nwalkers=10,
+                  burnin_steps=200, steps=100, save_chains=False, use_sigma=False,
+                  sigma_type="relative", labels=None, freq_min=100.0, freq_max=1000.0,
+                  seed=None, make_corner=True, device=None):
+    """Fit an SED function to one epoch of photometry with ensemble MCMC
+    (reference bolometric.py:87-190), with the JAX package's signature plus
+    ``device`` (default: CUDA when present).
+
+    ``planck_fast`` runs the device sampler over :class:`SEDLogPosterior`:
+    on CUDA every log-posterior and half-step is K10 (a failure there
+    raises, as the JAX package's device path does), on the CPU the plain
+    versions. Any other spectrum function takes the JAX package's host path,
+    with its loud warning: the numpy stretch move
+    (:class:`~.parallel.host_sampler.HostEnsembleSampler`) over
+    ``Filter.synthesize``, orders of magnitude slower. An odd ``nwalkers``
+    is made even by repeating the last starting guess. ``save_chains``
+    writes the flat chain to ``outpath/<median MJD>.npy``.
+
+    Not ported yet, and refused with NotImplementedError before any work:
+    ``make_corner=True`` and ``show=True`` (ROADMAP Queue 1 item 18).
+    """
+    if make_corner:
+        raise NotImplementedError("the corner plot of spectrum_mcmc (make_corner=True) is not "
+                                  "ported yet (ROADMAP Queue 1 item 18); pass make_corner=False")
+    if show:
+        raise NotImplementedError("chain plots (show=True) are not ported yet "
+                                  "(ROADMAP Queue 1 item 18)")
+    mjdavg = float(np.median(np.asarray(epoch1["MJD"], float)))
+    if spectrum_kwargs is None:
+        spectrum_kwargs = {}
+    # drop a non-finite cutoff: the table's and planck_lnu's default
+    sk = {k: v for k, v in spectrum_kwargs.items() if not (k == "cutoff_freq" and np.isinf(v))}
+
+    ndim = len(priors)
+    if nwalkers % 2:
+        nwalkers += 1
+        starting_guesses = np.vstack([starting_guesses, starting_guesses[-1:]])
+    if spectrum is planck_fast:
+        from .parallel.sampler import EnsembleSampler
+        dev = resolve_device(device)
+        log_posterior = SEDLogPosterior(epoch1, priors, z, ebv, sk, use_sigma, sigma_type,
+                                        device=dev)
+        sampler = EnsembleSampler(nwalkers, ndim, log_posterior, seed=seed, device=dev)
+    else:
+        from .parallel.host_sampler import HostEnsembleSampler
+        warnings.warn(
+            f"device SED path unavailable for spectrum function "
+            f"{getattr(spectrum, '__name__', spectrum)!r} (the port's kernels evaluate "
+            f"planck_fast only); falling back to the host sampler (reference-parity path, "
+            f"orders of magnitude slower)")
+        sampler = HostEnsembleSampler(nwalkers, ndim,
+                                      _host_log_posterior(spectrum, epoch1, priors, z, ebv, sk,
+                                                          use_sigma, sigma_type), seed=seed)
+    pos, _, _ = sampler.run_mcmc(starting_guesses, burnin_steps, skip_initial_state_check=True)
+    sampler.reset()
+    # continue from the burn-in's last state: the positions and their
+    # log-posteriors that run_mcmc(pos) would recompute, bit for bit
+    sampler.run_mcmc(None, steps, skip_initial_state_check=True)
+
+    os.makedirs(outpath, exist_ok=True)
+    if save_chains:
+        chain_filename = os.path.join(outpath, f"{mjdavg:.3f}.npy")
+        np.save(chain_filename, sampler.flatchain)
+    return sampler
+
+
 class _FlatchainSampler:
     """Minimal sampler shim so batched results feed the same downstream code
-    (chain saving) as the sequential path."""
+    (chain saving, KDE chaining) as the sequential path."""
 
     def __init__(self, flatchain):
         self.flatchain = flatchain
@@ -324,14 +563,7 @@ def _prepare_epoch_seds(lc, res, also_group_by):
     return groups
 
 
-def _refuse_unported(batch_mode, min_nfilt, save_corners, show, mesh):
-    if not batch_mode:
-        raise NotImplementedError("the sequential spectrum_mcmc path (batch_mode=False) is not "
-                                  "ported yet (ROADMAP Queue 1 item 12); pass batch_mode=True")
-    if min_nfilt < 2:
-        raise NotImplementedError("KDE prior chaining into single-filter epochs (min_nfilt < 2) "
-                                  "needs KDEPrior and the sequential path, not ported yet "
-                                  "(ROADMAP Queue 1 item 12)")
+def _refuse_unported(save_corners, show, mesh):
     if save_corners:
         raise NotImplementedError("corner plots (save_corners=True) are not ported yet "
                                   "(ROADMAP Queue 1 item 18); pass save_corners=False")
@@ -341,6 +573,10 @@ def _refuse_unported(batch_mode, min_nfilt, save_corners, show, mesh):
     if mesh is not None and mesh is not False:
         raise NotImplementedError("sharding the epochs over a device mesh is not ported yet "
                                   "(ROADMAP Queue 1 item 17)")
+
+
+def _n_detected(epoch1):
+    return len(set(epoch1.where(nondet=False)["filter"]))
 
 
 def calculate_bolometric(lc, z=0.0, outpath=".", res=1.0, nwalkers=10, burnin_steps=200,
@@ -353,22 +589,29 @@ def calculate_bolometric(lc, z=0.0, outpath=".", res=1.0, nwalkers=10, burnin_st
     spec: reference bolometric.py:648-832), with the JAX package's
     signature plus ``device`` (default: CUDA when present).
 
-    ``batch_mode=True`` fits every epoch with at least ``min_nfilt`` filters
-    at once on ``device``: MAP centers, then one stretch-move ensemble per
-    epoch started around its center (starting guesses drawn with host numpy
-    from ``seed``), then the posterior summaries on the device; on CUDA
-    through the epoch kernels, on the CPU through their plain versions. The
-    result is the JAX package's table: the curve_fit estimate, the MCMC
-    percentiles, the direct SED integral and colors, one row per epoch.
+    Each epoch with at least ``min_nfilt`` detected filters gets a row: the
+    bounded least-squares blackbody (curve_fit), the MCMC percentiles of T,
+    R and the luminosities, the direct SED integral and colors. By default
+    (``batch_mode=False``) the epochs are fitted one after another through
+    :func:`spectrum_mcmc` on ``device`` (on CUDA through K10), each seeded
+    from ``seed`` and its index, its walkers started around the least-squares
+    solution. A single-filter epoch (``min_nfilt < 2``) takes the previous
+    epoch's temperature posterior as its temperature prior (a
+    :class:`~.models.priors.KDEPrior`, kept for every later epoch) and starts
+    from that chain's medians (KDE chaining, reference bolometric.py:753-759).
+    ``batch_mode=True`` fits the multi-filter epochs before the first
+    single-filter one (all of them when ``min_nfilt >= 2``) at once on the
+    device: MAP centers, then one stretch-move ensemble per epoch, then the
+    posterior summaries, through the epoch kernels on CUDA; the later epochs
+    run sequentially, so the chaining is preserved. The starting guesses are
+    drawn with host numpy from ``seed`` as in the JAX package.
     ``save_chains=True`` saves each epoch's chain with ``np.save``.
 
-    Not ported yet, and refused with NotImplementedError: ``batch_mode=False``
-    (ROADMAP Queue 1 item 12), ``min_nfilt < 2`` (item 12),
-    ``save_corners=True`` and ``show=True`` (item 18), a ``mesh`` (item 17).
+    Not ported yet, and refused with NotImplementedError:
+    ``save_corners=True`` and ``show=True`` (ROADMAP Queue 1 item 18), a
+    ``mesh`` (item 17).
     """
-    _refuse_unported(batch_mode, min_nfilt, save_corners, show, mesh)
-    from .parallel.batched import (batched_blackbody_mcmc, batched_map_centers,
-                                   pack_epochs)
+    _refuse_unported(save_corners, show, mesh)
     if z:
         warnings.warn('The z keyword is deprecated. Include the redshift in `lc.meta["redshift"]` instead.')
     z = lc.meta.get("redshift", z)
@@ -383,20 +626,34 @@ def calculate_bolometric(lc, z=0.0, outpath=".", res=1.0, nwalkers=10, burnin_st
         if use_sigma:
             priors.append(GaussianPrior(0.0, 10.0))
     else:
+        # copy: KDE chaining rebinds priors[0] below, which must not leak into
+        # a caller-owned list
         priors = list(priors)
 
+    sampler = None
     finite = np.isfinite(np.ma.filled(np.ma.MaskedArray(lc["dmag"]).astype(float), np.nan))
     lc = lc[finite & np.ma.filled(np.ma.MaskedArray(lc["dmag"]) > 0.0, False)]
     rng = np.random.default_rng(seed)
 
     groups = _prepare_epoch_seds(lc, res, also_group_by)
 
-    # fit all multi-filter epochs concurrently on the device
+    # batch mode: fit the multi-filter epochs concurrently on the device
     batched_chains = {}
     batched_summaries = {}
-    if do_mcmc:
-        eligible = [i for i, ep in enumerate(groups)
-                    if len(set(ep.where(nondet=False)["filter"])) >= min_nfilt]
+    if batch_mode and do_mcmc:
+        from .parallel.batched import (batched_blackbody_mcmc, batched_map_centers,
+                                       pack_epochs)
+        # KDE chaining (min_nfilt <= 1): a single-filter epoch replaces the
+        # temperature prior for every later epoch, so only the epochs before
+        # the first single-filter one batch; the rest fit sequentially
+        chain_cut = len(groups)
+        if min_nfilt <= 1:
+            for i, ep in enumerate(groups):
+                if _n_detected(ep) == 1:
+                    chain_cut = i
+                    break
+        eligible = [i for i, ep in enumerate(groups[:chain_cut])
+                    if _n_detected(ep) >= min_nfilt and _n_detected(ep) > 1]
         if eligible:
             all_filts = sorted({f for i in eligible for f in groups[i]["filter"]})
             bank = bank_for(all_filts)
@@ -410,12 +667,15 @@ def calculate_bolometric(lc, z=0.0, outpath=".", res=1.0, nwalkers=10, burnin_st
             nw_batch = nwalkers + (nwalkers % 2)
             guesses = rng.normal(size=(len(eligible), nw_batch, ndim)) + centers[:, None, :]
             guesses[guesses <= 0.0] = 1.0
+            # the chains come to the host only when something needs them:
+            # saved chains, or KDE chaining into a later single-filter epoch
+            need_chains = bool(save_chains or min_nfilt < 2)
             flat, _acc, summ = batched_blackbody_mcmc(
                 packed, priors, guesses, nw_batch, burnin_steps, steps,
                 cutoff_freq, use_sigma, sigma_type,
                 seed=seed if seed is not None else 0,
                 summaries={"z": z, "pseudo_nu": _pseudo_grid()},
-                return_chains=bool(save_chains))
+                return_chains=need_chains)
             batched_summaries = {i: summ[j] for j, i in enumerate(eligible)}
             if flat is not None:
                 batched_chains = {i: flat[j] for j, i in enumerate(eligible)}
@@ -425,7 +685,18 @@ def calculate_bolometric(lc, z=0.0, outpath=".", res=1.0, nwalkers=10, burnin_st
         nfilt = len(detected)
         if nfilt < min_nfilt:
             continue
-        p0 = np.array([10.0, 10.0])
+
+        if nfilt > 1:
+            p0 = np.array([10.0, 10.0])
+        elif sampler is not None:
+            # single-filter epoch: the previous posterior's temperature
+            # becomes the prior (KDE chaining, reference bolometric.py:753-759)
+            priors[0] = KDEPrior(sampler.flatchain[:, 0])
+            # (T, R) columns only: with use_sigma the flatchain carries the
+            # intrinsic-scatter column
+            p0 = np.median(sampler.flatchain[:, :2], axis=0)
+        else:
+            continue
 
         mjdavg, dmjd0, dmjd1 = median_and_unc(np.asarray(epoch1["MJD"], float), 100.0)
         record = {"MJD": mjdavg, "dMJD0": dmjd0, "dMJD1": dmjd1, "npoints": nfilt,
@@ -433,19 +704,43 @@ def calculate_bolometric(lc, z=0.0, outpath=".", res=1.0, nwalkers=10, burnin_st
         if use_src:
             record["source"] = epoch1["source"][0]
 
-        # stage 1: bounded least squares
+        # stage 1: bounded least squares (also recenters the MCMC guesses)
         lstsq, p0 = _lstsq_record(epoch1, z, p0, priors, cutoff_freq)
         record.update(lstsq)
 
-        # stage 2: the batched MCMC posterior summaries
-        if i_epoch in batched_summaries:
-            record.update(_summary_record(batched_summaries[i_epoch]))
-            if i_epoch in batched_chains:
-                sampler = _FlatchainSampler(batched_chains[i_epoch])
-                os.makedirs(outpath, exist_ok=True)
-                np.save(os.path.join(outpath, f"{mjdavg:.3f}.npy"), sampler.flatchain)
-        else:
-            print("do_mcmc=False")
+        starting_guesses = rng.normal(size=(nwalkers, 2)) + p0
+        starting_guesses[starting_guesses <= 0.0] = 1.0
+        if use_sigma:
+            starting_guesses = np.append(starting_guesses,
+                                         np.abs(rng.normal(size=(nwalkers, 1))), axis=1)
+
+        # stage 2: MCMC posterior (the batched summaries where precomputed)
+        try:
+            if not do_mcmc:
+                raise ValueError("do_mcmc=False")
+            if i_epoch in batched_summaries:
+                record.update(_summary_record(batched_summaries[i_epoch]))
+                if i_epoch in batched_chains:
+                    sampler = _FlatchainSampler(batched_chains[i_epoch])
+                    os.makedirs(outpath, exist_ok=True)
+                    if save_chains:
+                        np.save(os.path.join(outpath, f"{mjdavg:.3f}.npy"), sampler.flatchain)
+            else:
+                # a per-epoch seed (fold_in-style): every epoch's sampler gets
+                # an independent, reproducible stream
+                seed_i = (None if seed is None else
+                          int(np.random.SeedSequence((seed, i_epoch))
+                              .generate_state(1)[0] & 0x7FFFFFFF))
+                sampler = spectrum_mcmc(planck_fast, epoch1, priors, starting_guesses, z=z,
+                                        spectrum_kwargs={"cutoff_freq": cutoff_freq},
+                                        outpath=outpath, nwalkers=nwalkers,
+                                        burnin_steps=burnin_steps, steps=steps,
+                                        save_chains=save_chains, use_sigma=use_sigma,
+                                        sigma_type=sigma_type, seed=seed_i, make_corner=False,
+                                        device=dev)
+                record.update(_mcmc_record(sampler.flatchain, z, cutoff_freq))
+        except ValueError as e:
+            print(e)
             record.update({field: np.nan for field in _MCMC_FIELDS})
 
         # stage 3: direct SED integration + colors

@@ -56,6 +56,14 @@ class LogPosterior(nn.Module):
         self.log_likelihood = log_likelihood
         self.priors = list(priors)
 
+    @property
+    def kernel_module(self):
+        """The kernel module whose fused kernels evaluate this log-posterior
+        on CUDA (:func:`~.kernels.module_for` of the model; raises for a
+        model without kernels)."""
+        from .kernels import module_for
+        return module_for(self.log_likelihood.model)
+
     def log_prior_plain(self, p):
         """The sum of the prior log-densities (-inf outside the bounds) of
         each row of ``p`` (W, ndim) float64, plain PyTorch."""
@@ -402,7 +410,9 @@ def _refuse_gradient_unported(priors, mesh=None, checkpoint_every=None, checkpoi
         raise NotImplementedError("checkpoint/resume of the gradient fits is not ported yet "
                                   "(ROADMAP Queue 1 item 16)")
     if any(isinstance(p, KDEPrior) for p in priors):
-        raise NotImplementedError("KDEPrior is not ported yet (ROADMAP Queue 1 item 12)")
+        raise NotImplementedError("a KDEPrior in the gradient drivers is not ported yet: the "
+                                  "gradient kernels take prior kinds 0-2 (ROADMAP Queue 1 "
+                                  "item 21)")
 
 
 def _gradient_setup(lc, model, priors, use_sigma, sigma_type, device):
@@ -472,7 +482,7 @@ def lightcurve_hmc(lc, model, priors, p_lo=None, p_up=None, nchains=16, nsamples
     configured one (``core.config``; AUTO gives float32 on CUDA). Not ported
     yet, and refused with NotImplementedError: ``mesh`` (ROADMAP Queue 1 item
     17), ``checkpoint_every``, ``checkpoint_file`` and ``resume_from`` (item
-    16), a KDEPrior (item 12); the goodness-of-fit print after the fit is not
+    16), a KDEPrior (item 21); the goodness-of-fit print after the fit is not
     called here (item 15).
 
     Returns a :class:`_HMCFitResult`.
@@ -594,7 +604,7 @@ def lightcurve_map(lc, model, priors, p_lo=None, p_up=None, n_starts=64, n_iter=
     mode inverted into a covariance: the Hessian by central differences of
     K7's float64 gradient (a float64 twin of the log-posterior when the
     compute dtype is float32). On CUDA the model must be ShockCooling2.
-    KDEPrior raises NotImplementedError (ROADMAP Queue 1 item 12); the
+    KDEPrior raises NotImplementedError (ROADMAP Queue 1 item 21); the
     goodness-of-fit print after the fit is not called here (item 15).
 
     Returns a :class:`_MAPFitResult`; ``result.flatchain`` holds the Laplace
@@ -694,9 +704,8 @@ def _prior_log_norm(prior):
     Uniform priors normalize analytically; every other proper prior, a
     user-defined ``Prior`` subclass included, integrates its ``logp``
     numerically on a dense closed grid in float64 (Gaussian supports
-    windowed to mean +/- 15 sigma); anything else unbounded is rejected.
-    (KDEPrior, whose window the JAX package takes from its samples, is not
-    ported: ROADMAP Queue 1 item 12.)"""
+    windowed to mean +/- 15 sigma, KDE supports to the sample range +/- 12
+    bandwidths); anything else unbounded is rejected."""
     lo = getattr(prior, "p_min", -np.inf)
     hi = getattr(prior, "p_max", np.inf)
     if not hi > lo:
@@ -710,6 +719,10 @@ def _prior_log_norm(prior):
         # integrate the support directly, the max-shift handles underflow
         if whi > wlo:
             lo, hi = wlo, whi
+    elif isinstance(prior, KDEPrior):
+        s = np.asarray(prior.samples, float)
+        lo = max(lo, s.min() - 12.0 * prior.bandwidth)
+        hi = min(hi, s.max() + 12.0 * prior.bandwidth)
     if not (np.isfinite(lo) and np.isfinite(hi)):
         raise ValueError(f"evidence requires proper (normalizable) priors; "
                          f"{prior!r} has unbounded support")
@@ -788,7 +801,7 @@ def lightcurve_evidence(lc, model, priors, p_lo=None, p_up=None, nwalkers=64, n_
 
     Not ported yet, and refused with ``NotImplementedError``: ``mesh``
     (ROADMAP Queue 1 item 17), ``checkpoint_every``, ``checkpoint_file`` and
-    ``resume_from`` (item 16), a ``KDEPrior`` (item 12).
+    ``resume_from`` (item 16); on CUDA a ``KDEPrior`` (item 21).
     """
     from .parallel.evidence import refuse_unported, stepping_stone_evidence
     refuse_unported(mesh, checkpoint_every, checkpoint_file, resume_from)

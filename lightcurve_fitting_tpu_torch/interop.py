@@ -49,7 +49,8 @@ def log_likelihood_from_numpy(quad, t, y, dy, use_sigma=False, sigma_type="relat
 
 def priors_from_jax(priors):
     """Port priors with the same bounds and parameters as the given JAX
-    package priors (matched by class name)."""
+    package priors (matched by class name; a KDEPrior keeps its components,
+    bandwidth and log normalization bit for bit)."""
     out = []
     for p in priors:
         name = type(p).__name__
@@ -58,9 +59,14 @@ def priors_from_jax(priors):
                                              float(p.mean), float(p.stddev)))
         elif name in ("UniformPrior", "LogUniformPrior"):
             out.append(getattr(_priors, name)(float(p.p_min), float(p.p_max)))
+        elif name == "KDEPrior":
+            # the components, bandwidth and log normalization as they are: a
+            # second subsampling would draw other components
+            out.append(_priors.KDEPrior.from_components(np.asarray(p.samples, float),
+                                                        p.bandwidth, p._lognorm,
+                                                        float(p.p_min), float(p.p_max)))
         else:
-            raise NotImplementedError(f"{name} has no port counterpart here (KDEPrior: ROADMAP "
-                                      "Queue 1 item 12)")
+            raise NotImplementedError(f"{name} has no port counterpart")
     return out
 
 

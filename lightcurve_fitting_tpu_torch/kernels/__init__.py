@@ -22,22 +22,27 @@ and their plain PyTorch versions.
 * ``csrc/companion.cu`` (:mod:`.cs`): K8, the SiFTO spline, and the fused
   log-posterior of CompanionShocking 1-3 with its half-step and its
   tempered-ladder instantiations.
+* ``csrc/sed.cu`` (:mod:`.sed`): K10, the SED log-posterior of one epoch's
+  blackbody fit (``bolometric.SEDLogPosterior``, its band-table form, the
+  KDE prior inside it), and its half-step: the sequential bolometric
+  path's ``spectrum_mcmc``.
 * ``csrc/stretch.cuh``: the half-step template and the device code they
   share, ``csrc/planck.cuh`` the Planck band sum of K3, K4 and K4s;
   :mod:`.common` their Python side and the plain stretch move.
 
 :mod:`.build` compiles the sources with nvcc at first use. Importing this
 package needs neither nvcc nor a GPU. :func:`log_posterior` and
-:func:`stretch_half_step` route a LogPosterior to its model's kernels,
+:func:`stretch_half_step` route a log-posterior to its ``kernel_module``
+(a LogPosterior's is its model's, an SEDLogPosterior's K10's),
 :func:`log_posterior_and_grad` to K7.
 """
 
-from . import cs, epoch_bb, gradient, ladder, quantile, sc2, sc3  # noqa: F401
+from . import cs, epoch_bb, gradient, ladder, quantile, sc2, sc3, sed  # noqa: F401
 from .common import (LAUNCHES, reset_launch_counts, log_posterior_plain,  # noqa: F401
                      stretch_half_step_plain)
 from .gradient import hmc_transition, nuts_transition  # noqa: F401
 
-__all__ = ["LAUNCHES", "reset_launch_counts", "module_for", "log_posterior",
+__all__ = ["LAUNCHES", "reset_launch_counts", "module_for", "module_of", "log_posterior",
            "stretch_half_step", "log_posterior_and_grad", "nuts_transition", "hmc_transition"]
 
 
@@ -56,27 +61,35 @@ def module_for(model):
                               "(ROADMAP Queue 1 item 7)")
 
 
+def module_of(lp):
+    """The kernel module of a log-posterior, its ``kernel_module``:
+    :func:`module_for` a LogPosterior's model, :mod:`.sed` (K10) for an
+    SEDLogPosterior."""
+    return lp.kernel_module
+
+
 def log_posterior(lp, q, param_offset=None, param_scale=None):
-    """The log-posterior (W,) float64 of LogPosterior ``lp`` at walker
-    states ``q`` (W, ndim): the plain version for a CPU tensor, else the
-    fused kernel of ``lp``'s model (see the modules' ``log_posterior``)."""
+    """The log-posterior (W,) float64 of LogPosterior or SEDLogPosterior
+    ``lp`` at walker states ``q`` (W, ndim): the plain version for a CPU
+    tensor, else the fused kernel of ``lp``'s model or K10 (see the modules'
+    ``log_posterior``)."""
     if q.device.type == "cpu":
         return log_posterior_plain(lp, q, param_offset, param_scale)
-    return module_for(lp.log_likelihood.model).log_posterior(lp, q, param_offset, param_scale)
+    return module_of(lp).log_posterior(lp, q, param_offset, param_scale)
 
 
 def stretch_half_step(lp, x, logp, h, u_z, j, u_acc, a=2.0, param_offset=None,
                       param_scale=None, chain_x=None, chain_logp=None, n_accept=None,
                       check_partners=True):
-    """One stretch-move half-step of LogPosterior ``lp``, in place: the
-    plain version for a CPU tensor, else the half-step kernel of ``lp``'s
-    model (arguments: :func:`.sc2.stretch_half_step`)."""
+    """One stretch-move half-step of LogPosterior or SEDLogPosterior ``lp``,
+    in place: the plain version for a CPU tensor, else the half-step kernel
+    of ``lp``'s model or K10's (arguments: :func:`.sc2.stretch_half_step`)."""
     if x.device.type == "cpu":
         def log_prob(q):
             return log_posterior_plain(lp, q, param_offset, param_scale)
         return stretch_half_step_plain(log_prob, x, logp, h, u_z, j, u_acc, a, chain_x,
                                        chain_logp, n_accept)
-    return module_for(lp.log_likelihood.model).stretch_half_step(
+    return module_of(lp).stretch_half_step(
         lp, x, logp, h, u_z, j, u_acc, a, param_offset, param_scale, chain_x, chain_logp,
         n_accept, check_partners)
 

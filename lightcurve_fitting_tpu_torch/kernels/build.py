@@ -78,6 +78,10 @@ def _declare(lib):
     lib.cs_logpost_launch.argtypes = [vp, ci, ci, vp, ci, ci, vp, vp]
     lib.cs_half_step_launch.restype = ci
     lib.cs_half_step_launch.argtypes = half_step
+    lib.sed_logpost_launch.restype = ci
+    lib.sed_logpost_launch.argtypes = [vp, ci, ci, vp, ci, ci, vp, vp]
+    lib.sed_half_step_launch.restype = ci
+    lib.sed_half_step_launch.argtypes = half_step
     lib.sifto_launch.restype = ci
     lib.sifto_launch.argtypes = [vp, ci, ci, ctypes.POINTER(ci), vp]
     for prefix in ("sc2", "sc3", "cs"):

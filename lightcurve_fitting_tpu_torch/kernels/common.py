@@ -1,8 +1,8 @@
 """What the kernel wrappers of :mod:`.sc2`, :mod:`.sc3`, :mod:`.cs`,
-:mod:`.epoch_bb`, :mod:`.quantile`, :mod:`.ladder` and :mod:`.gradient` share: the launch
-counts, input checks, the parameter-block fields of the priors and the
-affine map, and the plain PyTorch stretch move (the plain version of every
-half-step kernel).
+:mod:`.epoch_bb`, :mod:`.quantile`, :mod:`.ladder`, :mod:`.gradient` and
+:mod:`.sed` share: the launch counts, input checks, the parameter-block
+fields of the priors and the affine map, and the plain PyTorch stretch move
+(the plain version of every half-step kernel).
 """
 
 import numpy as np
@@ -12,6 +12,7 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "MAX_DIM", "absolute_params", "log
            "propose_stretch", "half_update", "stretch_half_step_plain"]
 
 MAX_DIM = 9  # LP_MAX_DIM of csrc/stretch.cuh
+KDE_KIND = 3  # the KDE prior's kernel kind (models/priors.py::KDEPrior); K10 alone takes it
 
 #: kernel launches by name; each wrapper adds one where it launches, and
 #: nothing else does
@@ -20,7 +21,8 @@ LAUNCHES = {"sc2_logpost": 0, "stretch_half_step": 0, "bandflux": 0, "sc3_logpos
             "epoch_map_polish": 0, "epoch_half_step": 0, "epoch_summary": 0, "percentile": 0,
             "tempered_half_step": 0, "ladder_init": 0, "replica_swap": 0, "rung_block_terms": 0,
             "logpost_grad": 0, "nuts_transition": 0, "hmc_transition": 0, "sifto_direct": 0,
-            "sifto_staged": 0, "cs_logpost": 0, "cs_half_step": 0}
+            "sifto_staged": 0, "cs_logpost": 0, "cs_half_step": 0, "sed_logpost": 0,
+            "sed_half_step": 0}
 
 FLOATS = (torch.float32, torch.float64)
 
@@ -70,7 +72,13 @@ def fill_priors_and_affine(P, priors, affine):
     """Write the priors' kernel form and the affine map (``affine_key``
     output, or None) into parameter block ``P``."""
     for i, prior in enumerate(priors):
-        P.prior_kind[i], P.p_min[i], P.p_max[i], P.mean[i], P.stddev[i] = prior.kernel_spec()
+        spec = prior.kernel_spec()
+        if spec[0] == KDE_KIND:
+            raise NotImplementedError(
+                f"{type(prior).__name__} (kernel prior kind {KDE_KIND}) runs on CUDA in the SED "
+                "kernel K10 only; the model kernels take kinds 0-2 (ROADMAP Queue 1 item 21); "
+                'run it with device="cpu"')
+        P.prior_kind[i], P.p_min[i], P.p_max[i], P.mean[i], P.stddev[i] = spec
     P.has_affine = int(affine is not None)
     if affine is not None:
         for i, (o, s) in enumerate(zip(*affine)):

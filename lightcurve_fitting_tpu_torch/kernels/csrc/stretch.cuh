@@ -4,8 +4,8 @@
 // policy.
 //
 // A model policy M (SC2Model in sc2_logpost.cu, SC3WarpModel in
-// sc3_logpost.cu, EpochBBModel in epoch_bb.cu, CSModel in companion.cu)
-// provides
+// sc3_logpost.cu, EpochBBModel in epoch_bb.cu, CSModel in companion.cu,
+// SEDWarpModel in sed.cu) provides
 //   typedef ... Params;  // the model's parameter block (8-byte fields)
 //   typedef ... Data;    // the per-point data as the kernel reads it
 //   static size_t stage_bytes(const Params&);             // host and device
@@ -13,11 +13,11 @@
 // where e is the ensemble (epoch) of the block: always 0 for a single
 // ensemble, whose data do not depend on it. A policy whose kernels run a
 // warp per walker (stretch_half_step_kernel: SC2WarpModel, SC3WarpModel,
-// CSWarpModel, EpochBBModel; the tempered half-step
+// CSWarpModel, EpochBBModel, SEDWarpModel; the tempered half-step
 // tempered_half_step_kernel and the ladder's initial state
 // ladder_init_kernel: SC2WarpModel, SC3WarpModel, CSWarpModel; the batch
 // log-posterior logpost_warp_kernel: SC2WarpModel, SC3WarpModel,
-// CSWarpModel, EpochBBModel) provides
+// CSWarpModel, EpochBBModel, SEDWarpModel) provides
 //   typedef ... Walker;  // a walker's constants (32-bit words, copied by value)
 //   static __device__ Walker walker(const double* p, const Params&);
 //   static __device__ double log_likelihood_warp(const Walker&, const Data&, const Params&);
@@ -26,7 +26,8 @@
 // where log_likelihood_warp is computed by the 32 lanes of a warp together,
 // every lane returning the same bits, and may provide
 //   static constexpr int ndim;  // the walker's dimension at compile time (policy_dim)
-// which keeps the walker's state in registers.
+// which keeps the walker's state in registers, and
+//   static constexpr bool own_prior;  // its own log_prior (model_log_prior)
 // Every Params has the fields ndim, use_sigma, has_affine, prior_kind,
 // p_min, p_max, mean, stddev, affine_offset and affine_scale.
 
@@ -149,6 +150,30 @@ __device__ __forceinline__ double log_prior(const Params& P, const double* p) {
         sum = sum + l;
     }
     return sum;
+}
+
+// Whether the policy M evaluates its own priors (M::own_prior, with
+// static __device__ double log_prior(const Params&, const Data&, const
+// double* p)): SEDWarpModel, whose KDE prior (kind 3) the 32 lanes of a
+// warp evaluate together. The templates below call model_log_prior, which
+// is log_prior<D> for every other policy.
+template <typename M, typename = void>
+struct policy_prior {
+    static constexpr bool value = false;
+};
+template <typename M>
+struct policy_prior<M, std::void_t<decltype(M::own_prior)>> {
+    static constexpr bool value = M::own_prior;
+};
+
+template <typename M, int D>
+__device__ __forceinline__ double model_log_prior(const typename M::Params& P,
+                                                  const typename M::Data& d, const double* p) {
+    if constexpr (policy_prior<M>::value) {
+        return M::log_prior(P, d, p);
+    } else {
+        return log_prior<D>(P, p);
+    }
 }
 
 // One point's term of the Gaussian residual sum, y_fit already divided by
@@ -284,7 +309,7 @@ __device__ __forceinline__ void half_step_batch(const typename M::Params& P,
         const S* xj = x + (ens + (size_t)(1 - h) * half + (size_t)j[di]) * ndim;
         double p[D > 0 ? D : LP_MAX_DIM];
         z = stretch_proposal<D>(P, x + w * ndim, xj, u_z[di], a, y, p);
-        lprior = log_prior<D>(P, p);
+        lprior = model_log_prior<M, D>(P, d, p);
         if (isfinite(lprior)) wk = M::walker(p, P);
     }
     const double ll = warp_batch_ll<M>(wk, lprior, nb, d, P);
@@ -356,7 +381,7 @@ __device__ __forceinline__ void logpost_batch(const typename M::Params& P,
     if (own) {
         double p[D > 0 ? D : LP_MAX_DIM];
         for (int k = 0; k < ndim; ++k) p[k] = to_absolute(P, k, q[(size_t)i * ndim + k]);
-        lprior = log_prior<D>(P, p);
+        lprior = model_log_prior<M, D>(P, d, p);
         if (isfinite(lprior)) wk = M::walker(p, P);
     }
     const double ll = warp_batch_ll<M>(wk, lprior, nb, d, P);

@@ -5,7 +5,9 @@ objects work on a batch of walkers.
 
 The fused kernels (``kernels/csrc/``) evaluate the three closed-form priors
 from :meth:`Prior.kernel_spec`; any other prior runs on the plain (CPU) path
-only. :class:`KDEPrior` waits for ROADMAP Queue 1 item 12.
+only. :class:`KDEPrior` (kind 3) is evaluated on CUDA by the SED kernel K10
+alone (``kernels/sed.py``); the other kernels refuse it (ROADMAP Queue 1
+item 21).
 """
 
 import numpy as np
@@ -44,8 +46,9 @@ class Prior:
 
     def kernel_spec(self):
         """(kind, p_min, p_max, mean, stddev) for the fused kernel: kind 0 is
-        uniform, 1 log-uniform, 2 Gaussian; the kernels take these three
-        kinds only."""
+        uniform, 1 log-uniform, 2 Gaussian, 3 the KDE prior (its components
+        travel beside the spec: :class:`KDEPrior`); every kernel takes kinds
+        0-2, the SED kernel K10 also kind 3."""
         if self.kind is None:
             raise NotImplementedError(
                 f"{self.__class__.__name__} has no CUDA kernel form: the kernels take the "
@@ -142,7 +145,67 @@ class GaussianPrior(Prior):
 
 
 class KDEPrior(Prior):
-    """Gaussian kernel density prior: not in this slice of the port."""
+    """Gaussian kernel density estimate of a posterior sample, used to chain the
+    previous epoch's temperature posterior into single-filter epochs
+    (reference bolometric.py:753-759 uses ``scipy.stats.gaussian_kde``).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("KDEPrior is not ported yet (ROADMAP Queue 1 item 12)")
+    Scott's-rule bandwidth, matching scipy's default. Subsamples to
+    ``max_components`` (without replacement, ``default_rng(seed)``) so the
+    log-density is a logsumexp over at most that many components. The host
+    arithmetic is the JAX package's, so the components, the bandwidth and
+    ``_lognorm`` are its bits.
+    """
+
+    kind = 3
+
+    def __init__(self, samples, p_min=-np.inf, p_max=np.inf, max_components=512, seed=0):
+        super().__init__(p_min, p_max)
+        samples = np.asarray(samples, float).ravel()
+        if len(samples) > max_components:
+            rng = np.random.default_rng(seed)
+            samples = rng.choice(samples, size=max_components, replace=False)
+        self.samples = samples
+        n = len(samples)
+        factor = n ** (-1.0 / 5.0)  # Scott's rule, d=1
+        self.bandwidth = float(np.std(samples, ddof=1) * factor)
+        self._lognorm = float(np.log(n) + np.log(self.bandwidth) + 0.5 * np.log(2 * np.pi))
+        self._on = {}
+
+    @classmethod
+    def from_components(cls, samples, bandwidth, lognorm, p_min=-np.inf, p_max=np.inf):
+        """A KDE prior with the given components, bandwidth and log
+        normalization as they are (no subsampling, nothing recomputed): the
+        copy of another package's KDE prior."""
+        self = cls.__new__(cls)
+        Prior.__init__(self, p_min, p_max)
+        self.samples = np.asarray(samples, float).ravel().copy()
+        self.bandwidth = float(bandwidth)
+        self._lognorm = float(lognorm)
+        self._on = {}
+        return self
+
+    def components(self, device):
+        """The components as a float64 tensor on ``device`` (kept per
+        device: K10 reads them by address)."""
+        key = str(torch.device(device))
+        if key not in self._on:
+            self._on[key] = torch.as_tensor(self.samples, dtype=torch.float64,
+                                            device=device).contiguous()
+        return self._on[key]
+
+    def kernel_spec(self):
+        return (self.kind, float(self.p_min), float(self.p_max), 0.0, self.bandwidth)
+
+    def logp(self, p):
+        p = _as_tensor(p)
+        z = (p[..., None] - self.components(p.device)) / self.bandwidth
+        return torch.logsumexp(-0.5 * z ** 2, dim=-1) - self._lognorm
+
+    def sample(self, rng, size=None):
+        comp = np.asarray(self.samples)
+
+        def propose(n):
+            return (rng.choice(comp, size=n)
+                    + self.bandwidth * rng.normal(size=n))
+
+        return self._rejection_sample(rng, size, propose)

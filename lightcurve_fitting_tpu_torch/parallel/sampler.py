@@ -10,7 +10,9 @@ pool — so a step is two dependent half-steps. With a
 :class:`~lightcurve_fitting_tpu_torch.fitting.LogPosterior` each half-step is
 one call of :func:`~lightcurve_fitting_tpu_torch.kernels.stretch_half_step`:
 on CUDA one launch of the model's fused half-step kernel (K2 for
-ShockCooling2, its SC3 instantiation for ShockCooling3), which writes the
+ShockCooling2, its SC3 instantiation for ShockCooling3; K10's for the
+:class:`~lightcurve_fitting_tpu_torch.bolometric.SEDLogPosterior` of
+``spectrum_mcmc``), which writes the
 new state into a preallocated device chain in the store dtype and adds to an
 int32 accept counter; the step loop never synchronizes with the host, and
 the chain comes to the host once per progress segment. On the CPU the same
@@ -92,8 +94,10 @@ class EnsembleSampler:
                  device=None):
         """``log_prob_fn`` maps absolute float64 parameters (W, ndim) to (W,)
         log-probabilities. A :class:`~lightcurve_fitting_tpu_torch.fitting.
-        LogPosterior` runs through its model's fused kernels on CUDA; any
-        other callable runs the plain step, on the CPU only.
+        LogPosterior` runs through its model's fused kernels on CUDA, an
+        :class:`~lightcurve_fitting_tpu_torch.bolometric.SEDLogPosterior`
+        through K10; any other callable runs the plain step, on the CPU
+        only.
 
         ``store_dtype`` (e.g. np.float32) downcasts the *stored* chain
         history. The default ``None`` is auto: runs whose projected history
@@ -107,20 +111,21 @@ class EnsembleSampler:
         stays absolute. The stretch move is affine-equivariant, so the
         statistics are identical, and O(1) scaled values make
         ``dtype=float32`` walker state safe."""
-        from ..fitting import LogPosterior
         if nwalkers % 2:
             raise ValueError("nwalkers must be even")
         if int(replicas) != 1:
             raise NotImplementedError("replicas > 1 is not ported yet (ROADMAP Queue 1 item 4)")
         self.device = resolve_device(device)
-        self._fused = isinstance(log_prob_fn, LogPosterior)
+        # a log-posterior with kernels names their module (LogPosterior,
+        # SEDLogPosterior): kernels.log_posterior and stretch_half_step take it
+        self._fused = hasattr(type(log_prob_fn), "kernel_module")
         if self.device.type == "cuda":
             if not self._fused:
                 raise NotImplementedError(
                     "on CUDA the sampler runs a fused half-step kernel, which takes a "
-                    "LogPosterior (fitting.make_log_posterior); other log-probabilities run "
-                    "on the CPU")
-            kernels.module_for(log_prob_fn.log_likelihood.model)  # raises without kernels
+                    "LogPosterior (fitting.make_log_posterior) or an SEDLogPosterior "
+                    "(bolometric.spectrum_mcmc); other log-probabilities run on the CPU")
+            kernels.module_of(log_prob_fn)  # raises without kernels
         self._store_dtype = _torch_dtype(store_dtype)
         if (param_offset is None) != (param_scale is None):
             raise ValueError("param_offset and param_scale must be given together")
@@ -214,8 +219,10 @@ class EnsembleSampler:
                 raise ValueError(f"initial_state must have shape {(self.total_walkers, self.ndim)}")
             if self._offset is not None:
                 pos = (pos - self._offset) / self._scale
-            x = torch.as_tensor(pos.reshape(2, self._half, self.ndim),
-                                device=self.device).to(self._dtype).contiguous()
+            # a copy: the half-steps update the state in place, and the
+            # caller's array must not change with it
+            x = torch.tensor(pos.reshape(2, self._half, self.ndim),
+                             device=self.device).to(self._dtype).contiguous()
             logp = self.batched_logp(x.reshape(-1, self.ndim)).reshape(2, self._half)
             if not skip_initial_state_check and not bool(torch.all(torch.isfinite(logp))):
                 bad = int(torch.sum(~torch.isfinite(logp)))

@@ -155,12 +155,10 @@ def test_do_mcmc_false_masks_the_mcmc_columns():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(batch_mode=False, save_corners=False), "item 12"),
-    (dict(batch_mode=True, save_corners=False, min_nfilt=1), "needs KDEPrior.*item 12"),
     (dict(batch_mode=True), "item 18"),
     (dict(batch_mode=True, save_corners=False, show=True), "item 18"),
     (dict(batch_mode=True, save_corners=False, mesh=object()), "item 17"),
-], ids=["sequential", "kde-chaining", "corners", "show", "mesh"])
+], ids=["corners", "show", "mesh"])
 def test_refusals(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         tbol.calculate_bolometric(_lc(TLC), device="cpu", **kwargs)

@@ -293,6 +293,12 @@ def test_prior_log_norm_of_a_custom_prior_matches_jax():
         assert abs(got - want) <= 1e-12 * max(1.0, abs(want)), (got, want)
 
 
+def common_block():
+    """A parameter block of the model kernels (SC2's), for the prior fill."""
+    from lightcurve_fitting_tpu_torch.kernels.sc2 import _SC2Params
+    return _SC2Params()
+
+
 def test_prior_log_norm_refusals():
     with pytest.raises(ValueError, match="unbounded"):
         tfit._prior_log_norm(TU(0.0, np.inf))
@@ -305,8 +311,13 @@ def test_prior_log_norm_refusals():
 
     with pytest.raises(ValueError, match="unbounded"):
         tfit._prior_log_norm(Custom(0.0, np.inf))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        KDEPrior(np.zeros(10))
+    # a KDE prior is proper (its window: the samples +/- 12 bandwidths), but
+    # the model kernels that the ladder runs on CUDA take kinds 0-2 only
+    kde = KDEPrior(np.random.default_rng(0).normal(10.0, 1.0, 300))
+    assert np.isfinite(tfit._prior_log_norm(kde))
+    from lightcurve_fitting_tpu_torch.kernels import common
+    with pytest.raises(NotImplementedError, match="item 21"):
+        common.fill_priors_and_affine(common_block(), [kde], None)
 
 
 # ------------------------------------------------------- statistical checks

@@ -85,6 +85,11 @@ for bit. K8 in each form (the table staged, or read where it lies) within
 1e-6 (float32) and 1e-13 (float64) of each band's template peak, the same
 zero set, the two forms and the wrapper's pick bit-equal at 1, 2, the
 crossover's walkers +- 1 and 131072; on the CPU the rule choosing the form.
+K10, the SED log-posterior of the sequential bolometric path, against its
+plain version on three SN 2016bkv epochs under a uniform and a KDE
+temperature prior (float32 within 1e-5, float64 within 1e-12 of the term
+scale), and its half-step: the plain half-step's states where both accept,
+K10 at the states it left its stored values bit for bit.
 """
 
 import ctypes
@@ -233,7 +238,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     srcs, _ = build._sources()
     assert [os.path.basename(s) for s in srcs] == ["companion.cu", "epoch_bb.cu", "ladder.cu",
                                                    "quantile.cu", "sc2_logpost.cu",
-                                                   "sc3_logpost.cu"]
+                                                   "sc3_logpost.cu", "sed.cu"]
 
 
 def test_param_block_layout_matches_the_c_struct():
@@ -3138,3 +3143,87 @@ def test_cs_fits_run_through_the_kernels_on_card(ia, ia_lc, cuda_device, monkeyp
                            use_sigma=True, **kw)
     assert pt.flatchain.shape == (10 * 64, 9) and np.isfinite(pt.flatchain).all()
     assert kernels.LAUNCHES["tempered_half_step"] == 4 * 40 and kernels.LAUNCHES["ladder_init"] == 4
+
+
+# ------------------------------------------------------------------- K10
+
+def _sed_epochs():
+    """SN 2016bkv's SEDs of MJD 57482-57488 (5 and 6 filters, then U alone),
+    as calculate_bolometric prepares them."""
+    from lightcurve_fitting_tpu_torch.bolometric import _prepare_epoch_seds
+    lc = LC.read(EXAMPLE)
+    lc.meta.update(dm=30.79, redshift=0.002)
+    lc = lc.where(MJD_min=57482.0, MJD_max=57488.0)
+    dmag = np.ma.MaskedArray(lc["dmag"])
+    lc = lc[np.isfinite(np.ma.filled(dmag.astype(float), np.nan)) & np.ma.filled(dmag > 0, False)]
+    return _prepare_epoch_seds(lc, 1.0, ())
+
+
+def _sed_priors(kde, use_sigma):
+    from lightcurve_fitting_tpu_torch.models import KDEPrior
+    first = KDEPrior(np.random.default_rng(5).normal(10.7, 0.2, 3000)) if kde \
+        else UniformPrior(1.0, 100.0)
+    return [first, LogUniformPrior(0.01, 1000.0)] + ([GaussianPrior(0.0, 10.0)] if use_sigma
+                                                      else [])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kde", [False, True], ids=["uniform", "kde"])
+@pytest.mark.parametrize("use_sigma", [False, True], ids=["no-sigma", "sigma"])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_k10_matches_plain_on_card(cuda_device, f64, use_sigma, kde):
+    """K10 against SEDLogPosterior.forward_plain on the card, the -inf sets
+    equal, within 1e-5 (float32 compute) or 1e-12 (float64) of the term
+    scale."""
+    from lightcurve_fitting_tpu_torch.bolometric import SEDLogPosterior
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        for ep in _sed_epochs():
+            lp = SEDLogPosterior(ep, _sed_priors(kde, use_sigma), 0.002, 0.0, {},
+                                 use_sigma, device=cuda_device)
+            p = np.abs(np.random.default_rng(2).normal([10.0, 4.0, 1.0][:lp.ndim],
+                                                       [3.0, 1.5, 0.5][:lp.ndim],
+                                                       size=(256, lp.ndim)))
+            p[7, 1], p[8, 0] = -0.5, -1.0
+            q = torch.as_tensor(p, device=cuda_device)
+            n0 = kernels.LAUNCHES["sed_logpost"]
+            got = kernels.log_posterior(lp, q)
+            assert kernels.LAUNCHES["sed_logpost"] == n0 + 1
+            want = lp.forward_plain(q)
+            assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+            fin = torch.isfinite(want)
+            rel = ((got - want).abs()[fin] / lp.term_scales(q)[fin]).max()
+            assert float(rel) <= (1e-12 if f64 else 1e-5)
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kde", [False, True], ids=["uniform", "kde"])
+def test_k10_half_step_stores_k10s_values_on_card(cuda_device, kde):
+    """Two K10 half-steps from one state: the new states equal the plain
+    half-step's where both accept, and K10 at the states they left gives
+    their stored log-posteriors bit for bit."""
+    from lightcurve_fitting_tpu_torch.bolometric import SEDLogPosterior
+    from lightcurve_fitting_tpu_torch.kernels import sed
+    ep = _sed_epochs()[2 if kde else 0]
+    lp = SEDLogPosterior(ep, _sed_priors(kde, False), 0.002, device=cuda_device)
+    half = 64
+    x0 = torch.as_tensor(np.abs(np.array([10.7, 3.6]) * (
+        1 + 0.05 * np.random.default_rng(3).normal(size=(2, half, 2)))), device=cuda_device)
+    l0 = sed.log_posterior(lp, x0.reshape(-1, 2)).reshape(2, half)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(4)
+    u_z = torch.rand(half, generator=g, device=cuda_device, dtype=torch.float64)
+    j = torch.randint(0, half, (half,), generator=g, device=cuda_device)
+    u_acc = torch.rand(half, generator=g, device=cuda_device, dtype=torch.float64)
+    xk, lk, xp, lpp = x0.clone(), l0.clone(), x0.clone(), l0.clone()
+    ak, ap = (torch.zeros((2, half), dtype=torch.int32, device=cuda_device) for _ in range(2))
+    for h in (0, 1):
+        kernels.stretch_half_step(lp, xk, lk, h, u_z, j, u_acc, n_accept=ak)
+        sed.stretch_half_step_plain(lp, xp, lpp, h, u_z, j, u_acc, n_accept=ap)
+    assert 0 < int(ak.sum()) < 2 * half
+    both = (ak == ap)
+    assert torch.equal(xk[both], xp[both])
+    assert torch.equal(sed.log_posterior(lp, xk.reshape(-1, 2)).reshape(2, half), lk)

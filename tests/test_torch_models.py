@@ -178,11 +178,6 @@ def test_priors(name, args):
                                    "GaussianPrior": 2}[name]
 
 
-def test_kde_prior_not_ported():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tpriors.KDEPrior(np.arange(10.0))
-
-
 @pytest.mark.parametrize("use_sigma", [False, True])
 @pytest.mark.parametrize("sigma_type", ["relative", "absolute"])
 def test_log_likelihood(lcs, use_sigma, sigma_type):

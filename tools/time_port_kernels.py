@@ -68,13 +68,19 @@ and of the fits, float32 compute, by CUDA events:
   rows of the bolometric paths' 65 and
   256 epochs x 3200 samples (``K5_E65``, ``K5_E256``, each ``_dev``); each
   timed and hashed;
+* K10 and its half-step (``K10_*``, ``K10_half_*``; where the checkout has
+  them) on SN 2016bkv's 9-filter epoch under the default priors and a
+  512-component KDE temperature prior, at 5 walkers (the sequential path's
+  half) and 4096 (the half-step at half 5 and 2048), float32 compute, float64
+  state; each timed and hashed;
 * hashed only, at ``chip_smoke.py``'s shapes: K3, K4 with its gradient,
   K4s, K5, K6c and K6d; and SN 2016bkv's 65 packed epochs
   (``SN2016bkv_inputs``: ``y``, ``dy``, ``nodes``, ``weights``, ``mask``,
   ``yscale``), which tells a change of the bolometric inputs from one of
   the kernels;
 * with ``--fits``, the wall times of ``calculate_bolometric`` on SN
-  2016bkv (``chip_smoke.py`` 13a) and of the bolometric bench shape (13b:
+  2016bkv (``chip_smoke.py`` 13a; the sequential path of 13c at the
+  defaults and at ``min_nfilt=1``, ``bol_13c_*``) and of the bolometric bench shape (13b:
   the centering and 256 x 32 x (200 + 100) with summaries, seed 1) with a
   profiled 13b run's device busy time and idle share, of
   ``lightcurve_map`` (20a), of ``lightcurve_hmc(sampler="hmc")`` (20d), of ``lightcurve_hmc``
@@ -140,7 +146,8 @@ SC3_UP = [2.0, 2.0, 20.0, 5.0, D_L + 0.005, 0.1, 57468.7]
 PTXAS_KERNELS = ("nuts_transition", "hmc_transition", "logpost_grad", "SC2WarpModel",
                  "SC3WarpModel", "CSWarpModel",
                  "epoch_map_polish", "EpochBBModel", "replica_swap", "epoch_summary",
-                 "epoch_logpost", "rung_block_terms", "bandflux", "percentile", "sifto_kernel")
+                 "epoch_logpost", "rung_block_terms", "bandflux", "percentile", "sifto_kernel",
+                 "SEDWarpModel")
 
 
 def events_ms(fn, launches, repeats):
@@ -917,6 +924,51 @@ def main():
             finally:
                 ladder.K6D_CTAS_PER_SM = aim
 
+    # K10 and its half-step (the sequential bolometric path), where the
+    # checkout has them: on SN 2016bkv's 9-filter epoch (11 points), float32
+    # compute, float64 state, under the default priors and a 512-component
+    # KDE temperature prior, at the path's width (5 walkers) and 4096
+    if hasattr(kernels, "sed"):
+        from lightcurve_fitting_tpu_torch.bolometric import SEDLogPosterior
+        from lightcurve_fitting_tpu_torch.kernels import sed
+        groups = chip_smoke.sn2016bkv_seds()
+        nine = next(ep for ep in groups if chip_smoke.n_detected(ep) == 9)
+        kdes = chip_smoke.sed_kdes()
+        for which in ("default", "kde512"):
+            lps = SEDLogPosterior(nine, chip_smoke.sed_priors(which, False, kdes),
+                                  META["redshift"], device=dev)
+            for W in (5, 4096):
+                qs = chip_smoke.sed_states(np.random.default_rng(W), 2, W, dev)
+                name = f"K10_{which}_W{W}"
+
+                def k10(lps=lps, qs=qs):
+                    return sed.log_posterior(lps, qs)
+                times[name] = events_ms(k10, 20, args.repeats)
+                times[name + "_dev"] = device_ms(k10, "logpost_warp_kernel", 20, args.repeats)
+                digests[name] = digest(k10())
+                half = W // 2 if W > 5 else 5
+                x10 = torch.as_tensor(np.abs(np.array([12.0, 3.0]) * (
+                    1 + 0.02 * np.random.default_rng(half).normal(size=(2, half, 2)))),
+                    device=dev).contiguous()
+                l10 = sed.log_posterior(lps, x10.reshape(-1, 2)).reshape(2, half)
+                g.manual_seed(half)
+                u_z = torch.rand(half, generator=g, device=dev, dtype=torch.float64)
+                j = torch.randint(0, half, (half,), generator=g, device=dev)
+                u_acc = torch.rand(half, generator=g, device=dev, dtype=torch.float64)
+                xd, ld = x10.clone(), l10.clone()
+                ad = torch.zeros((2, half), dtype=torch.int32, device=dev)
+                for h in (0, 1):
+                    sed.stretch_half_step(lps, xd, ld, h, u_z, j, u_acc, 2.0, n_accept=ad)
+                name = f"K10_half_{which}_{half}"
+                digests[name] = digest(xd, ld, ad)
+
+                def k10h(lps=lps, x10=x10, l10=l10, u_z=u_z, j=j, u_acc=u_acc, ad=ad):
+                    sed.stretch_half_step(lps, x10, l10, 0, u_z, j, u_acc, 2.0, n_accept=ad,
+                                          check_partners=False)
+                times[name] = events_ms(k10h, 20, args.repeats)
+                times[name + "_dev"] = device_ms(k10h, "stretch_half_step_kernel", 20,
+                                                 args.repeats)
+
     if args.fits:
         # the bolometric fits of chip_smoke.py phase 13, two runs each: (13a)
         # calculate_bolometric on the full SN 2016bkv curve, (13b) the bench
@@ -955,6 +1007,18 @@ def main():
                      if e.device_type.name == "CUDA") / 1e6
         walls["bol_13b_profiled"] = {"wall": wall13, "busy": busy13,
                                      "idle_share": 1 - busy13 / wall13}
+
+        # (13c) the sequential path, where the checkout has it:
+        # calculate_bolometric(batch_mode=False) at the defaults and at
+        # min_nfilt=1 (KDE chaining), seed 7
+        if hasattr(kernels, "sed"):
+            for label, kw13 in (("defaults", {}), ("min_nfilt_1", {"min_nfilt": 1})):
+                for rep in range(2):
+                    with warnings.catch_warnings(), contextlib.redirect_stdout(io.StringIO()):
+                        warnings.simplefilter("ignore")
+                        walls[f"bol_13c_{label}_{rep}"], _ = wall(lambda: calculate_bolometric(
+                            lc_full.copy(), batch_mode=False, save_corners=False, seed=7,
+                            **kw13))
 
         # the gradient path's fits of chip_smoke.py phase 20, two runs each:
         # (20a) lightcurve_map, (20d) lightcurve_hmc(sampler="hmc") at 16
