@@ -10,8 +10,9 @@ raises and the script exits non-zero):
 2. build: nvcc compiles the kernels from ``kernels/csrc/``; the
    block-per-chain kernels (K9, K7h, K7's block form), K4p, the epoch
    half-step, K4's values in both forms, the SC3 and CS log-posteriors, K1,
-   K6b, K6c, K6d, K4s, K3's warp form, K5, K8 and K10 must have no stack
-   frame and no spills (ptxas); K6a over SC3's and K10's half-step's
+   K6b, K6c, K6d, K4s, K3's warp form, K5, K8, K10 and K10's run form must
+   have no stack frame and no spills (ptxas); K6a over SC3's and K10's
+   half-step's
    reports are printed; the native host
    kernels must have built from the port's own source
    (``utils/native/lcf_native.cpp``: the bolometric packing assumes them);
@@ -113,6 +114,13 @@ raises and the script exits non-zero):
     under shared draws at half 5 and 2048, on the 9-filter epoch and on a
     KDE single-filter one, float32 and float64, as in 4, and K10 at the
     states two half-steps left giving their stored values bit for bit;
+    K10's run form (``stretch_run_kernel<SEDWarpModel<C, N>>``, a whole
+    segment in one block) at half 5 and 32 on the same two epochs, float32
+    and float64, with and without the scatter, thin_by 1 and 2: 300
+    proposals bit-equal to 600 K10 half-step launches on the same draws
+    (states, log-posteriors, accept counts, chain), K10 at its last states
+    their stored values, against its plain version over 60 proposals as in
+    4, and timed against those 600 launches;
     the bolometric main path: (a) ``calculate_bolometric(batch_mode=True,
     save_corners=False, nwalkers=32, seed=7)`` on the full SN 2016bkv light
     curve (65 rows); (b) the bench shape (256 epochs x 32 walkers x 200 +
@@ -126,7 +134,8 @@ raises and the script exits non-zero):
     and K5; (c) ``calculate_bolometric(batch_mode=False, save_corners=False,
     seed=7)`` on the full curve at the defaults (65 rows) and at
     ``min_nfilt=1`` (77 fits, ~66 under a KDE prior), every fit one K10
-    launch and 600 half-steps and nothing else, the least-squares columns
+    launch and two of K10's run form (burn-in and production) and nothing
+    else, no K10 half-step, the least-squares columns
     the JAX package's (rtol 1e-6; a single-filter row its own solve from
     the previous chain's medians), the MCMC medians of T and R within 2
     hypot(half-widths) of the JAX package's float64 CPU run (seed 7) in >=
@@ -139,11 +148,13 @@ raises and the script exits non-zero):
     with itself over its seed pairs printed beside it;
     ``batch_mode=True, min_nfilt=1`` bit-equal to it, the walls, and a
     profiled run over the curve's first 15 fits (6 chained): its idle share
-    and time split, the profiler showing K10 and no plain version; (d)
-    ``spectrum_mcmc(planck_fast)`` at 64 walkers x 300 + 300 steps, seeds
-    1-8, on the 9-filter epoch and on a KDE single-filter epoch, the mean
-    acceptance within 4 combined standard errors of the JAX package's at
-    the same seeds;
+    and time split, the profiler showing K10 and its run form and no plain
+    version; (d) ``spectrum_mcmc(planck_fast)`` at 64 walkers x 300 + 300
+    steps, seeds 1-8, on the 9-filter epoch and on a KDE single-filter
+    epoch, the mean acceptance within 4 combined standard errors of the JAX
+    package's at the same seeds, every fit one K10 launch and two runs; at
+    128 walkers (past the run form's block) K10's half-step twice a step,
+    the acceptance within 0.02 of the 64 walkers';
 14. K6a, the tempered half-step (h = 0, 1), against its plain version on the
     ShockCooling2 ladders (a warp per walker) of the evidence bench shape
     (17 rungs x 4096 walkers) and of the PT fit (7 x 32), float32 and
@@ -2063,10 +2074,11 @@ SED_WIDE = 4096
 # (tests/test_torch_sed.py::jax_sequential_bolometric, jax_sed_acceptance)
 SED_REFERENCE = os.path.join("tests", "jax_sequential_bolometric.json")
 SED_SEEDS, SED_WALKERS, SED_BURNIN, SED_STEPS = tuple(range(1, 9)), 64, 300, 300
+SED_WIDE_WALKERS = 128                   # 13d past the run form's block: K10's half-step
 SED_CHAIN_SEEDS = (7, 8, 9)              # 13c's min_nfilt=1 seeds, as the JAX reference's
 SED_PROFILE_MJD_MAX = 57495.0            # 13c profiles the curve up to here: 15 fits, 6 chained
 SED_SPLIT = {"K10 (initial state)": ("logpost_warp_kernel",),
-             "K10 half-step": ("stretch_half_step_kernel",)}
+             "K10 run": ("stretch_run_kernel",)}
 # what a plain SED log-posterior launches on the card, and K10 does not
 PLAIN_MARKS = ("log_kernel", "exp_kernel", "logsumexp", "clamp", "where", "pow_tensor",
                "reduce_kernel")
@@ -2395,6 +2407,259 @@ def phase_k10_half(groups, seed=19):
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None}
 
 
+def k10_run_bound(lp, half, n_prop, thin_by=1):
+    """K10's run form's bound over n_prop proposals of 2 x half walkers:
+    the operations of the 2 n_prop half-steps it replaces (k10_ops and the
+    proposals, the two pipes' larger time), against its bytes read and
+    written once (the state and its values, the draws, the table and the
+    components, the thinned chain, the accept counts)."""
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels import sed
+    W = 2 * half * n_prop
+    o32, o64 = k10_ops(lp, W)
+    f32 = lp.compute_dtype == torch.float32
+    t32 = bound(o32, 0, FP32_FLOPS if f32 else FP64_FLOPS)[0]
+    t64 = bound(o64 + W * PROPOSAL, 0, FP64_FLOPS)[0]
+    N, K = lp.coef.shape
+    kde = sed.kde_prior_of(lp.priors)
+    nd = lp.ndim
+    nbytes = (2 * 2 * half * (nd + 1) * 8 + W * 3 * 8 + N * (K + 2) * (4 if f32 else 8)
+              + 3 * N * 8 + (8 * len(kde.samples) if kde is not None else 0)
+              + (n_prop // thin_by) * 2 * half * (nd + 1) * 8 + 2 * half * 4)
+    t_bytes = 1e3 * nbytes / HBM_BYTES
+    return {"bound_ms": max(t32, t64, t_bytes),
+            "bound_by": "operations" if max(t32, t64) >= t_bytes else "bytes",
+            "library_ms": None}
+
+
+def sed_run_draws(n, half, dtype, dev, seed):
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return (torch.rand((n, 2, half), generator=g, device=dev, dtype=dtype),
+            torch.randint(0, half, (n, 2, half), generator=g, device=dev),
+            torch.rand((n, 2, half), generator=g, device=dev, dtype=dtype))
+
+
+def sed_run_pair(lp, x0, l0, draws, thin_by):
+    """K10's run form and the loop of K10 half-steps it replaces, from the
+    same state and draws: ((x, logp, n_accept, chain_x, chain_logp) of each)."""
+    import torch
+    from lightcurve_fitting_tpu_torch import kernels
+    from lightcurve_fitting_tpu_torch.kernels import sed
+    u_z, j, u_acc = draws
+    n, _, half = u_z.shape
+    out = []
+    for run in (True, False):
+        x, logp = x0.clone(), l0.clone()
+        acc = torch.zeros((2, half), dtype=torch.int32, device=x0.device)
+        cx = torch.empty((n // thin_by, 2, half, x0.shape[2]), dtype=x0.dtype, device=x0.device)
+        cl = torch.empty((n // thin_by, 2, half), dtype=torch.float64, device=x0.device)
+        before = dict(kernels.LAUNCHES)
+        if run:
+            sed.stretch_run(lp, x, logp, u_z, j, u_acc, 2.0, None, None, cx, cl, acc, thin_by)
+            want = {"sed_run": 1}
+        else:
+            for s in range(n):
+                st = s % thin_by == thin_by - 1
+                for h in (0, 1):
+                    sed.stretch_half_step(lp, x, logp, h, u_z[s, h], j[s, h], u_acc[s, h], 2.0,
+                                          None, None, cx[s // thin_by] if st else None,
+                                          cl[s // thin_by] if st else None, acc,
+                                          check_partners=False)
+            want = {"sed_half_step": 2 * n}
+        moved = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+        if moved != want:
+            raise AssertionError(f"K10 run: launches {moved}, expected {want}")
+        out.append((x, logp, acc, cx, cl))
+    torch.cuda.synchronize()
+    return out
+
+
+def run_against_plain(name, lp, x0, l0, draws, rel):
+    """K10's run form against stretch_run_plain on the same draws (thin_by
+    1), to phase 4's rule: the accept flags of every half-step agree except
+    at near-ties (gap <= 1e-5 of the term scales), the states are equal where
+    they agree and the log-posteriors within rel of the term scale. The
+    chains agree up to the first half-step whose flags differ (the walkers
+    there at a near-tie) and are compared no further. Returns (half-steps
+    compared, near-ties, max |d logp|)."""
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels import common, sed
+    u_z, j, u_acc = draws
+    n, _, half = u_z.shape
+    nd = x0.shape[2]
+    res = []
+    for fn in (sed.stretch_run, sed.stretch_run_plain):
+        x, logp = x0.clone(), l0.clone()
+        acc = torch.zeros((2, half), dtype=torch.int32, device=x0.device)
+        cx = torch.empty((n, 2, half, nd), dtype=x0.dtype, device=x0.device)
+        cl = torch.empty((n, 2, half), dtype=torch.float64, device=x0.device)
+        fn(lp, x, logp, u_z, j, u_acc, 2.0, None, None, cx, cl, acc, 1)
+        res.append((cx, cl))
+    (ck, lk), (cp, lpl) = res
+    prev_x, prev_l = x0, l0
+    max_abs, steps = 0.0, 0
+    for s in range(n):
+        for h in (0, 1):
+            # the state before this half-step (equal in both runs so far)
+            x_move = prev_x[h]
+            x_other = cp[s, 0] if h == 1 else prev_x[1]
+            # a walker accepted where its state moved (each run's stored
+            # log-posteriors are its own: the plain run's differ in their last
+            # bits under the KDE prior)
+            agree = (ck[s, h] != x_move).any(-1) == (cp[s, h] != x_move).any(-1)
+            if not bool(agree.all()):
+                y, zst = common.propose_stretch(u_z[s, h], j[s, h], x_move, x_other)
+                gap = (torch.log(u_acc[s, h]) - ((nd - 1.0) * torch.log(zst)
+                                                  + lp.forward_plain(y) - prev_l[h])).abs()
+                tie = gap <= 1e-5 * (lp.term_scales(y) + lp.term_scales(x_move))
+                if not bool((agree | tie).all()):
+                    raise AssertionError(f"{name}: proposal {s} half {h}: accept flags differ "
+                                         "away from near-ties")
+            if not torch.equal(ck[s, h][agree], cp[s, h][agree]):
+                raise AssertionError(f"{name}: proposal {s} half {h}: states differ where the "
+                                     "flags agree")
+            d = compare_ll(f"{name} proposal {s} half {h}", lk[s, h][agree], lpl[s, h][agree],
+                           rel, scale=lp.term_scales(ck[s, h])[agree])
+            max_abs = max(max_abs, d[0])
+            steps += 1
+            if not bool(agree.all()):
+                return steps, int((~agree).sum()), max_abs
+            prev_x = torch.stack([ck[s, 0], prev_x[1]]) if h == 0 else ck[s]
+            prev_l = torch.stack([lk[s, 0], prev_l[1]]) if h == 0 else lk[s]
+    return steps, 0, max_abs
+
+
+SED_RUN_PROPOSALS = 300      # K10's run form against 600 half-step launches
+SED_RUN_PLAIN = 60           # ... and against its plain version (~5 ms a half-step)
+SED_RUN_HALVES = (SED_PATH_WALKERS, 32)   # the path's half and the run form's largest
+
+
+def phase_k10_run(groups, seed=20):
+    """K10's run form (a whole segment in one launch): against the K10
+    half-steps it replaces, bit for bit, and against its plain version; K10
+    at its last states; its time against those 600 launches."""
+    t_phase = time.perf_counter()
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch.bolometric import SEDLogPosterior
+    from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.kernels import sed
+    from time_port_kernels import device_ms
+
+    dev = torch.device("cuda")
+    z = META["redshift"]
+    kdes = sed_kdes()
+    nine = next(g for g in groups if n_detected(g) == 9)
+    single = next(g for g in groups if n_detected(g) == 1
+                  and abs(float(np.median(np.asarray(g["MJD"], float))) - 57487.1) < 0.5)
+    rng = np.random.default_rng(seed)
+    same, plain = {}, {}
+    for label in ("f32", "f64"):
+        try:
+            if label == "f64":
+                config.set_compute_dtype(None)
+            for ep_name, ep, which in (("nine", nine, "default"), ("single", single, "kde512")):
+                for use_sigma in (False, True):
+                    lp = SEDLogPosterior(ep, sed_priors(which, use_sigma, kdes), z, 0.0, {},
+                                         use_sigma, device=dev)
+                    for half in SED_RUN_HALVES:
+                        centre = [10.7, 3.6, 1.0][:lp.ndim]
+                        x0 = torch.as_tensor(np.abs(np.array(centre) * (
+                            1 + 0.05 * rng.normal(size=(2, half, lp.ndim)))),
+                            device=dev).contiguous()
+                        l0 = sed.log_posterior(lp, x0.reshape(-1, lp.ndim)).reshape(2, half)
+                        draws = sed_run_draws(SED_RUN_PROPOSALS, half, torch.float64, dev,
+                                              seed + half)
+                        key = (label, ep_name, use_sigma, half)
+                        for thin_by in (1, 2):
+                            run, loop = sed_run_pair(lp, x0, l0, draws, thin_by)
+                            what = ("x", "logp", "n_accept", "chain_x", "chain_logp")
+                            differ = [w for w, a, b in zip(what, run, loop)
+                                      if not torch.equal(a, b)]
+                            if differ:
+                                raise AssertionError(f"K10 run {key} thin_by {thin_by}: {differ} "
+                                                     f"differ from {2 * SED_RUN_PROPOSALS} "
+                                                     "half-step launches")
+                            again = sed.log_posterior(lp, run[0].reshape(-1, lp.ndim))
+                            if not torch.equal(again.reshape(2, half), run[1]):
+                                raise AssertionError(f"K10 run {key}: K10 at the run's last "
+                                                     "states differs from their stored values")
+                            same[key] = int(run[2].sum())
+                        plain[key] = run_against_plain(
+                            f"K10 run {key}", lp, x0, l0,
+                            tuple(d[:SED_RUN_PLAIN].contiguous() for d in draws), SED_REL[label])
+        finally:
+            config.set_compute_dtype(config.AUTO)
+
+    # times (f32 compute, f64 state): the run form's one launch against the
+    # 600 half-step launches it replaces, on the 9-filter epoch under the
+    # default priors and on the single-filter one under the KDE prior
+    timed = {}
+    for ep_name, ep, which in (("nine", nine, "default"), ("single", single, "kde512")):
+        lp = SEDLogPosterior(ep, sed_priors(which, False, kdes), z, device=dev)
+        for half in SED_RUN_HALVES:
+            x0 = torch.as_tensor(np.abs(np.array([10.7, 3.6]) * (
+                1 + 0.02 * rng.normal(size=(2, half, 2)))), device=dev).contiguous()
+            l0 = sed.log_posterior(lp, x0.reshape(-1, 2)).reshape(2, half)
+            u_z, j, u_acc = sed_run_draws(SED_RUN_PROPOSALS, half, torch.float64, dev, seed)
+            x, logp = x0.clone(), l0.clone()
+            acc = torch.zeros((2, half), dtype=torch.int32, device=dev)
+            cx = torch.empty((SED_RUN_PROPOSALS, 2, half, 2), dtype=torch.float64, device=dev)
+            cl = torch.empty((SED_RUN_PROPOSALS, 2, half), dtype=torch.float64, device=dev)
+
+            def run():
+                sed.stretch_run(lp, x, logp, u_z, j, u_acc, 2.0, None, None, cx, cl, acc,
+                                check_partners=False)
+
+            def loop():
+                for s in range(SED_RUN_PROPOSALS):
+                    for h in (0, 1):
+                        sed.stretch_half_step(lp, x, logp, h, u_z[s, h], j[s, h], u_acc[s, h],
+                                              2.0, None, None, cx[s], cl[s], acc,
+                                              check_partners=False)
+            if half == SED_PATH_WALKERS and which == "default":
+                name = expect_kernel(run, "stretch_run_kernel", "SEDWarpModel", calls=2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sed.stretch_run_plain(lp, x, logp, u_z, j, u_acc, 2.0, None, None, cx, cl, acc)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+            timed[(ep_name, half)] = dict(
+                ms=float(np.nanmin(device_ms(run, "stretch_run_kernel", 5, 3))),
+                events=cuda_ms(run, repeats=5),
+                loop_dev=2 * SED_RUN_PROPOSALS * float(np.nanmin(device_ms(
+                    lambda: sed.stretch_half_step(lp, x, logp, 0, u_z[0, 0], j[0, 0],
+                                                  u_acc[0, 0], 2.0, n_accept=acc,
+                                                  check_partners=False),
+                    "stretch_half_step_kernel", 20, 3))),
+                loop_events=cuda_ms(loop, repeats=2), plain_ms=plain_ms,
+                **k10_run_bound(lp, half, SED_RUN_PROPOSALS))
+    phase("K10 run", f"in {time.perf_counter() - t_phase:.1f} s: {name}: "
+          f"{SED_RUN_PROPOSALS} proposals (f64 state, a warp per walker, one block) bit-equal "
+          f"to {2 * SED_RUN_PROPOSALS} K10 half-step launches on the same draws (x, logp, "
+          "n_accept, chain_x, chain_logp; thin_by 1 and 2), and K10 at its last states their "
+          "stored values: "
+          + "; ".join(f"{lab} {ep}{' sigma' if us else ''} half {h}: {a} accepts"
+                      for (lab, ep, us, h), a in same.items())
+          + f"; against its plain version over {SED_RUN_PLAIN} proposals (flags agree except "
+          f"near-ties, states bit-equal where they agree, logp within {SED_REL['f32']:.0e} / "
+          f"{SED_REL['f64']:.0e} of the term scale): "
+          + "; ".join(f"{lab} {ep}{' sigma' if us else ''} half {h}: {c[0]} half-steps, {c[1]} "
+                      f"near-ties, max |d logp| {c[2]:.3e}"
+                      for (lab, ep, us, h), c in plain.items())
+          + f"; times of {SED_RUN_PROPOSALS} proposals (f32 compute; the run's device time, "
+          "its events, the 600 half-steps' device time and events, the plain run, bound): "
+          + "; ".join(f"{ep} half {h} {t['ms']:.4f}, {t['events']:.4f}, {t['loop_dev']:.4f}, "
+                      f"{t['loop_events']:.4f}, {t['plain_ms']:.1f}, {t['bound_ms']:.6f} ms"
+                      for (ep, h), t in timed.items()))
+    err = max(c[2] for (lab, _, _, _), c in plain.items() if lab == "f32")
+    t = timed[("nine", SED_PATH_WALKERS)]
+    return {"max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None}
+
+
 def sed_reference():
     with open(os.path.join(REPO, SED_REFERENCE)) as f:
         return json.load(f)
@@ -2521,7 +2786,7 @@ def phase_sequential_bolometric(groups, smi):
         s = real(*args, **kwargs)
         fits.append((type(args[2][0]).__name__,
                      {k: kernels.LAUNCHES[k] - before[k] for k in ("sed_logpost",
-                                                                   "sed_half_step")}))
+                                                                   "sed_half_step", "sed_run")}))
         return s
 
     def run(lc=lc0, seed=7, **kw):
@@ -2534,17 +2799,19 @@ def phase_sequential_bolometric(groups, smi):
 
     def counted(label, fn):
         """fn() with the counters reset before; every fit must be one K10
-        launch and 600 half-steps, and nothing else may run."""
+        launch and two launches of K10's run form (the burn-in's segment and
+        the production's), no K10 half-step, and nothing else may run."""
         fits.clear()
         kernels.reset_launch_counts()
         t = fn()
         got = dict(kernels.LAUNCHES)
         n = len(fits)
         moved = {k: v for k, v in got.items() if v and not k.startswith("sed_")}
-        if moved or got["sed_logpost"] != n or got["sed_half_step"] != 600 * n \
-                or any(f[1] != {"sed_logpost": 1, "sed_half_step": 600} for f in fits):
-            raise AssertionError(f"13c {label}: launches {got} for {n} fits (1 K10 and 600 "
-                                 "half-steps a fit, nothing else)")
+        if moved or got["sed_logpost"] != n or got["sed_run"] != 2 * n \
+                or got["sed_half_step"] or any(
+                    f[1] != {"sed_logpost": 1, "sed_half_step": 0, "sed_run": 2} for f in fits):
+            raise AssertionError(f"13c {label}: launches {got} for {n} fits (1 K10 and 2 K10 "
+                                 "runs a fit, no K10 half-step, nothing else)")
         got["kde_fits"] = sum(f[0] == "KDEPrior" for f in fits)
         return t, got
 
@@ -2591,9 +2858,11 @@ def phase_sequential_bolometric(groups, smi):
     names = sorted({e.key for e in averages if e.device_type.name == "CUDA"})
     k10_names = [n for n in names if "SEDWarpModel" in n]
     plain_kernels = [n for n in names if any(m in n for m in PLAIN_MARKS)]
-    if len(k10_names) != 2 or plain_kernels:
-        raise AssertionError(f"13c: the profiler saw K10 as {k10_names} and plain kernels "
-                             f"{plain_kernels}")
+    if sorted(next((m for m in ("logpost_warp_kernel", "stretch_run_kernel") if m in n), n)
+              for n in k10_names) != ["logpost_warp_kernel", "stretch_run_kernel"] \
+            or plain_kernels:
+        raise AssertionError(f"13c: the profiler saw K10 as {k10_names} (K10 and its run form "
+                             f"expected) and plain kernels {plain_kernels}")
     checks, chained = {}, {}
     for label, t in out.items():
         r = ref["sequential"][label]
@@ -2634,7 +2903,7 @@ def phase_sequential_bolometric(groups, smi):
           f"save_corners=False, seed=7) on the full SN 2016bkv curve: "
           + "; ".join(f"{lab} {len(out[lab])} rows in {walls[lab]:.3f} s "
                       f"({launches[lab]['sed_logpost']} fits, {launches[lab]['kde_fits']} under "
-                      f"a KDE prior, {launches[lab]['sed_half_step']} K10 half-steps; least "
+                      f"a KDE prior, {launches[lab]['sed_run']} K10 runs; least "
                       f"squares within {checks[lab][0][0]:.1e} of the JAX package's, "
                       f"{checks[lab][0][2]} single-filter rows within {checks[lab][0][1]:.1e} of "
                       f"their own solve; T, R medians within 2 hypot(half-widths) of the JAX "
@@ -2731,12 +3000,32 @@ def phase_sed_acceptance(groups, smi):
                                  f"combined standard errors from the JAX package's {m_j:.5f} +- "
                                  f"{se_j:.5f}")
         res[name] = (accs, m_p, se_p, m_j, se_j, zz)
-    shutil.rmtree(outdir, ignore_errors=True)
     launches = dict(kernels.LAUNCHES)
     n = 2 * len(SED_SEEDS)
-    if launches["sed_logpost"] != n or launches["sed_half_step"] != n * 2 * (SED_BURNIN
-                                                                             + SED_STEPS):
-        raise AssertionError(f"13d: launches {launches}")
+    if launches["sed_logpost"] != n or launches["sed_run"] != 2 * n \
+            or launches["sed_half_step"]:
+        raise AssertionError(f"13d: launches {launches} (1 K10 and 2 K10 runs a fit expected)")
+    # past the run form's block (64 walkers) spectrum_mcmc launches K10's
+    # half-step twice a step: the 9-filter epoch at 128 walkers, seed 1
+    ep, pri, center = sed_acceptance_epochs(groups)["nine"]
+    guesses = np.random.default_rng(1).normal(size=(SED_WIDE_WALKERS, 2)) + center
+    guesses[guesses <= 0.0] = 1.0
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = tbol.spectrum_mcmc(planck_fast, ep, pri, guesses, z=META["redshift"],
+                           nwalkers=SED_WIDE_WALKERS, burnin_steps=SED_BURNIN, steps=SED_STEPS,
+                           seed=1, make_corner=False, outpath=outdir)
+    wide_wall = time.perf_counter() - t0
+    shutil.rmtree(outdir, ignore_errors=True)
+    wide = dict(kernels.LAUNCHES)
+    wide_acc = float(np.mean(s.acceptance_fraction))
+    if wide["sed_logpost"] != 1 or wide["sed_run"] or wide["sed_half_step"] != 2 * (
+            SED_BURNIN + SED_STEPS):
+        raise AssertionError(f"13d at {SED_WIDE_WALKERS} walkers: launches {wide}")
+    if not np.isfinite(s.flatchain).all() or abs(wide_acc - res["nine"][1]) > 0.02:
+        raise AssertionError(f"13d at {SED_WIDE_WALKERS} walkers: acceptance {wide_acc:.4f}, "
+                             f"{res['nine'][1]:.4f} at {SED_WALKERS}")
     phase("bolometric main path 13d", f"in {time.perf_counter() - t_phase:.1f} s: "
           f"spectrum_mcmc(planck_fast) {SED_WALKERS} walkers x "
           f"{SED_BURNIN}+{SED_STEPS} steps at seeds 1-8: "
@@ -2744,9 +3033,12 @@ def phase_sed_acceptance(groups, smi):
                       f"{r[1]:.5f} +- {r[2]:.5f} against the JAX package's {r[3]:.5f} +- "
                       f"{r[4]:.5f} ({r[5]:.2f} combined standard errors); {walls[k]:.3f} s a fit"
                       for k, r in res.items())
-          + f"; launches {launches['sed_logpost']} K10, {launches['sed_half_step']} half-steps; "
+          + f"; launches {launches['sed_logpost']} K10, {launches['sed_run']} K10 runs; at "
+          f"{SED_WIDE_WALKERS} walkers (past the run form's block; seed 1, the 9-filter epoch) "
+          f"{wide['sed_logpost']} K10 and {wide['sed_half_step']} K10 half-steps, acceptance "
+          f"{wide_acc:.4f} (within 0.02 of the {SED_WALKERS} walkers' mean), {wide_wall:.3f} s; "
           f"on {smi}")
-    return launches
+    return wide
 
 
 # the evidence bench shape (bench.py:189-232) and what its log Z is held to:
@@ -4984,7 +5276,8 @@ def main():
                          ("K3's warp form", "bandflux_warp_kernel", 2),
                          ("K5", "percentile_kernel", 8),
                          ("K8", "sifto_kernel", 4),
-                         ("K10", "logpost_warp_kernelI12SEDWarpModel", 8)):
+                         ("K10", "logpost_warp_kernelI12SEDWarpModel", 8),
+                         ("K10's run form", "stretch_run_kernelI12SEDWarpModel", 32)):
         block[what] = [v for k, v in report.items() if key in k]
         if len(block[what]) != n or any(v[1] or v[2] or v[3] for v in block[what]):
             raise AssertionError(f"{what} ({n} instantiations) must keep its state in "
@@ -5000,7 +5293,8 @@ def main():
           "K6b (over SC2 ndim 4, 5, over SC3 7, 8, over CS 7, 8, 9; 4 each), K6c (ndim 1-9; "
           "f32, f64 state), the CS log-posterior (ndim 7, 8, 9; 4 each), K4s (4 dtype "
           "instantiations), K3's warp form (f32, f64), K5 (1-8 percentiles), K8 (both "
-          "forms, f32, f64) and K10 (ndim 2, 3; 4 dtype instantiations each): "
+          "forms, f32, f64), K10 (ndim 2, 3; 4 dtype instantiations each) and K10's run "
+          "form (ndim 2, 3; its 16 dtype instantiations each): "
           + "; ".join(f"{what} registers {sorted(set(v[0] for v in ks))}, stack frames "
                       f"{sorted(set(v[1] for v in ks))} bytes, spills "
                       f"{sorted(set(v[2] + v[3] for v in ks))}" for what, ks in block.items())
@@ -5040,8 +5334,9 @@ def main():
     groups = sn2016bkv_seds()
     k10 = phase_k10(groups)
     k10_half = phase_k10_half(groups)
+    k10_run = phase_k10_run(groups)
     launches_seq = phase_sequential_bolometric(groups, smi)
-    phase_sed_acceptance(groups, smi)
+    launches_wide = phase_sed_acceptance(groups, smi)
     k6a, k6a_sc3 = phase_k6a(lc, lcf)
     lc_ia, lc0 = ia_lc()
     k6b, k6c, k6d = phase_k6bcd(lc, lcf, lc_ia, lc0)
@@ -5158,7 +5453,11 @@ def main():
         dict(name="stretch_half_step_kernel<SEDWarpModel<C, N>> (K10 half-step)", route="cuda",
              source="lightcurve_fitting_tpu_torch/kernels/csrc/sed.cu",
              replaces="lightcurve_fitting_tpu/parallel/sampler.py:86",
-             launches=launches_seq["min_nfilt_1"]["sed_half_step"], **k10_half),
+             launches=launches_wide["sed_half_step"], **k10_half),
+        dict(name="stretch_run_kernel<SEDWarpModel<C, N>> (K10 run form)", route="cuda",
+             source="lightcurve_fitting_tpu_torch/kernels/csrc/stretch.cuh",
+             replaces="lightcurve_fitting_tpu/parallel/sampler.py:205",
+             launches=launches_seq["min_nfilt_1"]["sed_run"], **k10_run),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -24,17 +24,19 @@ and their plain PyTorch versions.
   tempered-ladder instantiations.
 * ``csrc/sed.cu`` (:mod:`.sed`): K10, the SED log-posterior of one epoch's
   blackbody fit (``bolometric.SEDLogPosterior``, its band-table form, the
-  KDE prior inside it), and its half-step: the sequential bolometric
-  path's ``spectrum_mcmc``.
-* ``csrc/stretch.cuh``: the half-step template and the device code they
-  share, ``csrc/planck.cuh`` the Planck band sum of K3, K4 and K4s;
+  KDE prior inside it), its half-step, and its run form (a whole segment
+  of steps in one launch): the sequential bolometric path's
+  ``spectrum_mcmc``.
+* ``csrc/stretch.cuh``: the half-step and run-form templates and the device
+  code they share, ``csrc/planck.cuh`` the Planck band sum of K3, K4 and K4s;
   :mod:`.common` their Python side and the plain stretch move.
 
 :mod:`.build` compiles the sources with nvcc at first use. Importing this
 package needs neither nvcc nor a GPU. :func:`log_posterior` and
 :func:`stretch_half_step` route a log-posterior to its ``kernel_module``
-(a LogPosterior's is its model's, an SEDLogPosterior's K10's),
-:func:`log_posterior_and_grad` to K7.
+(a LogPosterior's is its model's, an SEDLogPosterior's K10's), as
+:func:`stretch_run` does where the module has a run form
+(:func:`runs_segments`), :func:`log_posterior_and_grad` to K7.
 """
 
 from . import cs, epoch_bb, gradient, ladder, quantile, sc2, sc3, sed  # noqa: F401
@@ -43,7 +45,8 @@ from .common import (LAUNCHES, reset_launch_counts, log_posterior_plain,  # noqa
 from .gradient import hmc_transition, nuts_transition  # noqa: F401
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "module_for", "module_of", "log_posterior",
-           "stretch_half_step", "log_posterior_and_grad", "nuts_transition", "hmc_transition"]
+           "stretch_half_step", "runs_segments", "stretch_run", "log_posterior_and_grad",
+           "nuts_transition", "hmc_transition"]
 
 
 def module_for(model):
@@ -92,6 +95,29 @@ def stretch_half_step(lp, x, logp, h, u_z, j, u_acc, a=2.0, param_offset=None,
     return module_of(lp).stretch_half_step(
         lp, x, logp, h, u_z, j, u_acc, a, param_offset, param_scale, chain_x, chain_logp,
         n_accept, check_partners)
+
+
+def runs_segments(lp, half):
+    """Whether a sampler segment of ``lp``'s ensemble at ``half`` walkers a
+    half runs as one :func:`stretch_run`: where ``lp``'s module has a run
+    form and picks it for that half (:func:`.sed.k10_form`; K10's, up to 64
+    walkers). Otherwise the sampler launches :func:`stretch_half_step` twice
+    a step; so too, on the CPU, for a model without kernels."""
+    try:
+        mod = module_of(lp)
+    except NotImplementedError:
+        return False
+    return hasattr(mod, "stretch_run") and mod.k10_form(half) == "run"
+
+
+def stretch_run(lp, x, logp, u_z, j, u_acc, a=2.0, param_offset=None, param_scale=None,
+                chain_x=None, chain_logp=None, n_accept=None, thin_by=1, check_partners=True):
+    """A segment of stretch-move proposals of ``lp``'s ensemble over stacked
+    draws (n, 2, half), in place, where :func:`runs_segments`: the run form
+    of ``lp``'s module, its plain version for a CPU tensor (arguments:
+    :func:`.sed.stretch_run`)."""
+    return module_of(lp).stretch_run(lp, x, logp, u_z, j, u_acc, a, param_offset, param_scale,
+                                     chain_x, chain_logp, n_accept, thin_by, check_partners)
 
 
 def log_posterior_and_grad(lp, p, white=None):

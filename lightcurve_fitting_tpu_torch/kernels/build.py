@@ -82,6 +82,9 @@ def _declare(lib):
     lib.sed_logpost_launch.argtypes = [vp, ci, ci, vp, ci, ci, vp, vp]
     lib.sed_half_step_launch.restype = ci
     lib.sed_half_step_launch.argtypes = half_step
+    lib.sed_run_launch.restype = ci
+    lib.sed_run_launch.argtypes = [vp, ci, ci, vp, ci, vp, ci, ci, ci, vp, vp, vp, cd, vp, ci, vp,
+                                   ci, vp, vp]
     lib.sifto_launch.restype = ci
     lib.sifto_launch.argtypes = [vp, ci, ci, ctypes.POINTER(ci), vp]
     for prefix in ("sc2", "sc3", "cs"):

@@ -2,14 +2,14 @@
 :mod:`.epoch_bb`, :mod:`.quantile`, :mod:`.ladder`, :mod:`.gradient` and
 :mod:`.sed` share: the launch counts, input checks, the parameter-block
 fields of the priors and the affine map, and the plain PyTorch stretch move
-(the plain version of every half-step kernel).
+(the plain version of every half-step kernel) and its run over a segment.
 """
 
 import numpy as np
 import torch
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "MAX_DIM", "absolute_params", "log_posterior_plain",
-           "propose_stretch", "half_update", "stretch_half_step_plain"]
+           "propose_stretch", "half_update", "stretch_half_step_plain", "stretch_run_plain"]
 
 MAX_DIM = 9  # LP_MAX_DIM of csrc/stretch.cuh
 KDE_KIND = 3  # the KDE prior's kernel kind (models/priors.py::KDEPrior); K10 alone takes it
@@ -22,7 +22,7 @@ LAUNCHES = {"sc2_logpost": 0, "stretch_half_step": 0, "bandflux": 0, "sc3_logpos
             "tempered_half_step": 0, "ladder_init": 0, "replica_swap": 0, "rung_block_terms": 0,
             "logpost_grad": 0, "nuts_transition": 0, "hmc_transition": 0, "sifto_direct": 0,
             "sifto_staged": 0, "cs_logpost": 0, "cs_half_step": 0, "sed_logpost": 0,
-            "sed_half_step": 0}
+            "sed_half_step": 0, "sed_run": 0}
 
 FLOATS = (torch.float32, torch.float64)
 
@@ -111,6 +111,35 @@ def half_step_checks(x, logp, h, u_z, j, u_acc, chain_x, chain_logp, n_accept,
     return half, ndim
 
 
+def run_checks(x, logp, u_z, j, u_acc, chain_x, chain_logp, n_accept, thin_by,
+               check_partners):
+    """The input checks of the run form; returns (n, ndim)."""
+    if x.ndim != 3 or x.shape[0] != 2:
+        raise ValueError(f"x must be (2, half, ndim), got shape {tuple(x.shape)}")
+    if (chain_x is None) != (chain_logp is None) or n_accept is None:
+        raise ValueError("the run form needs n_accept, and chain_x with chain_logp or neither")
+    if u_z.ndim != 3:
+        raise ValueError(f"u_z must be (n, 2, half), got shape {tuple(u_z.shape)}")
+    _, half, ndim = x.shape
+    n = u_z.shape[0]
+    dev = x.device
+    check(x, "x", (2, half, ndim), FLOATS, dev)
+    check(logp, "logp", (2, half), (torch.float64,), dev)
+    check(u_z, "u_z", (n, 2, half), (x.dtype,), dev)
+    check(u_acc, "u_acc", (n, 2, half), (x.dtype,), dev)
+    check(j, "j", (n, 2, half), (torch.int64,), dev)
+    check(n_accept, "n_accept", (2, half), (torch.int32,), dev)
+    if int(thin_by) < 1:
+        raise ValueError(f"thin_by must be at least 1, got {thin_by}")
+    if check_partners and bool(((j < 0) | (j >= half)).any()):
+        raise ValueError(f"partner indices j must lie in [0, {half})")
+    if chain_x is not None:
+        slots = n // int(thin_by)
+        check(chain_x, "chain_x", (slots, 2, half, ndim), FLOATS, dev)
+        check(chain_logp, "chain_logp", (slots, 2, half), FLOATS, dev)
+    return n, ndim
+
+
 def half_step_args(x, logp, h, u_z, j, u_acc, a, chain_x, chain_logp, n_accept):
     """The tensor arguments of a ``*_half_step_launch`` C function, after
     the parameter block, device and compute-dtype flag."""
@@ -183,3 +212,19 @@ def stretch_half_step_plain(log_prob, x, logp, h, u_z, j, u_acc, a=2.0, chain_x=
     if chain_x is not None:
         chain_x[h] = x_new.to(chain_x.dtype)
         chain_logp[h] = lp_new.to(chain_logp.dtype)
+
+
+def stretch_run_plain(log_prob, x, logp, u_z, j, u_acc, a=2.0, chain_x=None, chain_logp=None,
+                      n_accept=None, thin_by=1):
+    """Plain PyTorch run form: :func:`stretch_half_step_plain` on half 0 and
+    then half 1 for each proposal s of the stacked draws ``u_z``, ``j``,
+    ``u_acc`` (n, 2, half); proposal s with ``s % thin_by == thin_by - 1``
+    writes chain slot ``s // thin_by`` of ``chain_x`` (n // thin_by, 2,
+    half, ndim) and ``chain_logp`` when given. The sampler's step loop."""
+    for s in range(u_z.shape[0]):
+        stored = chain_x is not None and s % thin_by == thin_by - 1
+        cx = chain_x[s // thin_by] if stored else None
+        cl = chain_logp[s // thin_by] if stored else None
+        for h in (0, 1):
+            stretch_half_step_plain(log_prob, x, logp, h, u_z[s, h], j[s, h], u_acc[s, h], a,
+                                    cx, cl, n_accept)

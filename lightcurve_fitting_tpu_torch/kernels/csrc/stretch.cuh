@@ -1,7 +1,7 @@
 // Pieces shared by the fused log-posterior kernels of csrc/*.cu: device math
 // overloads, the priors, the Gaussian residual, and the stretch-move
-// half-step (K2) and the batch log-posterior as templates over a model
-// policy.
+// half-step (K2), its run form (a segment of steps in one block) and the
+// batch log-posterior as templates over a model policy.
 //
 // A model policy M (SC2Model in sc2_logpost.cu, SC3WarpModel in
 // sc3_logpost.cu, EpochBBModel in epoch_bb.cu, CSModel in companion.cu,
@@ -73,6 +73,12 @@ __device__ __forceinline__ T warp_sum(T v) {
 template <typename T>
 __device__ __forceinline__ T warp_max(T v) {
     for (int o = 16; o > 0; o >>= 1) v = fmax(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_min(T v) {
+    for (int o = 16; o > 0; o >>= 1) v = fmin(v, __shfl_xor_sync(0xffffffffu, v, o));
     return v;
 }
 
@@ -251,6 +257,18 @@ __device__ __forceinline__ double warp_batch_ll(const typename M::Walker& wk, do
     return own;
 }
 
+// The Goodman-Weare accept decision for a walker at log-posterior lp_x and
+// its proposal's lp_y (no NaN), stretch z and uniform u: log u < (ndim - 1)
+// log z + lp_y - lp_x. log(0) = -inf accepts unless the ratio is -inf; a NaN
+// ratio rejects. The one decision of the half-step and the run form.
+template <typename S>
+__device__ __forceinline__ bool stretch_accepts(int ndim, S z, double lp_y, double lp_x, S u) {
+    const S lz = (S)(ndim - 1) * m_log(z);
+    const double log_ratio = (double)lz + lp_y - lp_x;
+    const double log_u = (double)m_log(u);
+    return !isnan(log_ratio) && log_u < log_ratio;
+}
+
 // The end of one walker's Goodman-Weare half-step, from its proposal y
 // (log-posterior lp_y, stretch z): the accept decision and its writes
 // (offsets of stretch_half_step_kernel). D: ndim at compile time, or 0.
@@ -262,11 +280,7 @@ __device__ __forceinline__ void half_step_accept(int n, S* xm, const S* y, S z, 
     const int ndim = D > 0 ? D : n;
     if (isnan(lp_y)) lp_y = -INFINITY;
     const double lp_x = logp[w];
-    const S lz = (S)(ndim - 1) * m_log(z);
-    const double log_ratio = (double)lz + lp_y - lp_x;
-    // log(0) = -inf accepts unless log_ratio is -inf; a NaN ratio rejects
-    const double log_u = (double)m_log(u_acc[di]);
-    const bool accept = !isnan(log_ratio) && log_u < log_ratio;
+    const bool accept = stretch_accepts<S>(ndim, z, lp_y, lp_x, u_acc[di]);
     double lp_new = lp_x;
     if (accept) {
         for (int k = 0; k < ndim; ++k) xm[k] = y[k];
@@ -417,6 +431,157 @@ logpost_warp_kernel(const typename M::Params P, const S* __restrict__ q, int W,
          b += gridDim.x * per_block) {   // (whole warps)
         const int b0 = b * bsz;
         logpost_batch<M, S>(P, d, q, out, b0, M::batched && W - b0 < bsz ? W - b0 : bsz);
+    }
+}
+
+// ---------------------------------------------------------------- run form
+
+// The run form: a whole segment of stretch-move steps of one ensemble in one
+// launch and one block (stretch_run_kernel), for a warp policy that is not
+// batched and has a compile-time ndim (SEDWarpModel). Such a policy may also
+// provide
+//   static constexpr bool block_prior;   // its prior takes the whole block
+//   static size_t block_prior_doubles(const Params&, int half);   // scratch
+//   static int block_prior_warps(const Params&, int half);        // warps it wants
+//   static __device__ double block_log_prior(const Params&, const Data&,
+//       const double* p, bool own, int i, int half, double* scratch);
+// which every thread of the block calls, walker i's warp (own) with its
+// proposal's absolute parameters p; it returns that warp M::log_prior's
+// bits at p. SEDWarpModel's KDE prior takes the warps that hold no moving
+// walker that way.
+#define LP_RUN_WARPS 32   // the run form's largest half: a warp per walker, one block
+
+template <typename M, typename = void>
+struct policy_block_prior {
+    static constexpr bool value = false;
+};
+template <typename M>
+struct policy_block_prior<M, std::void_t<decltype(M::block_prior)>> {
+    static constexpr bool value = M::block_prior;
+};
+
+template <typename M, int D>
+__device__ __forceinline__ double run_log_prior(const typename M::Params& P,
+                                                const typename M::Data& d, const double* p,
+                                                bool own, int i, int half, double* scratch) {
+    if constexpr (policy_block_prior<M>::value) {
+        return M::block_log_prior(P, d, p, own, i, half, scratch);
+    } else {
+        return own ? model_log_prior<M, D>(P, d, p) : -INFINITY;
+    }
+}
+
+// The run form's own shared memory, before the staged data: the
+// log-posteriors (2, half) float64, the policy's scratch, then the state
+// (2, half, D) in S, rounded up to 16 bytes.
+template <typename M>
+__host__ __device__ inline size_t run_prior_doubles(const typename M::Params& P, int half) {
+    if constexpr (policy_block_prior<M>::value) {
+        return M::block_prior_doubles(P, half);
+    } else {
+        return 0;
+    }
+}
+template <typename M, typename S>
+__host__ __device__ inline size_t run_own_bytes(const typename M::Params& P, int half) {
+    const size_t b = sizeof(double) * (2 * (size_t)half + run_prior_doubles<M>(P, half))
+                     + sizeof(S) * 2 * (size_t)half * policy_dim<M>::value;
+    return (b + 15) / 16 * 16;
+}
+
+// n_prop stretch-move proposals of the ensemble x (2, half, D) in one block:
+// for each, half 0, __syncthreads(), half 1, __syncthreads(), half 1
+// reading half 0's new states as its partner pool, as stretch_half_step_kernel
+// launched twice. Warp i moves walker i of each half (warps past half only
+// help a block-wide prior). The state and its log-posteriors live in shared
+// memory for the whole run, the policy's data are staged once, the accept
+// counts live in registers and are added to n_accept (2, half) at the end.
+// The draws of proposal s are u_z, j, u_acc[s] (2, half). When chain_x is
+// not null, proposal s with s % thin_by == thin_by - 1 writes its new states
+// and log-posteriors into chain slot s / thin_by of chain_x (n_prop /
+// thin_by, 2, half, D) and chain_lp. Each walker's proposal, prior,
+// likelihood and decision are half_step_batch's (nb = 1), so the run gives
+// the bits of n_prop x 2 half-step launches on the same draws.
+template <typename M, typename S, typename X, typename L>
+__global__ void __launch_bounds__(32 * LP_RUN_WARPS)
+stretch_run_kernel(const typename M::Params P, S* __restrict__ x, double* __restrict__ logp,
+                   int half, int n_prop, int thin_by, const S* __restrict__ u_z,
+                   const long long* __restrict__ j, const S* __restrict__ u_acc, double a,
+                   X* __restrict__ chain_x, L* __restrict__ chain_lp,
+                   int* __restrict__ n_accept, int use_smem) {
+    static_assert(!M::batched, "the run form takes a warp per walker");
+    constexpr int D = policy_dim<M>::value;
+    static_assert(D > 0, "the run form keeps the walker's state in registers");
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    double* lp_s = reinterpret_cast<double*>(smem_raw);
+    double* scratch = lp_s + 2 * half;
+    S* x_s = reinterpret_cast<S*>(scratch + run_prior_doubles<M>(P, half));
+    const int n_state = 2 * half * D;
+    for (int t = threadIdx.x; t < n_state; t += blockDim.x) x_s[t] = x[t];
+    for (int t = threadIdx.x; t < 2 * half; t += blockDim.x) lp_s[t] = logp[t];
+    const typename M::Data d = M::stage(P, smem_raw + run_own_bytes<M, S>(P, half), use_smem, 0);
+    __syncthreads();
+    const int i = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const bool own = i < half;
+    int acc0 = 0, acc1 = 0;
+    // each half-step's draws are loaded one half-step ahead (the next one's
+    // lie half elements further on), so their latency overlaps a half-step
+    const size_t n_draws = (size_t)n_prop * 2 * half;
+    S dz = S(0), du = S(0);
+    long long dj = 0;
+    if (own) dz = u_z[i], dj = j[i], du = u_acc[i];
+    for (int s = 0; s < n_prop; ++s) {
+        const bool stored = chain_x != nullptr && s % thin_by == thin_by - 1;
+        for (int h = 0; h < 2; ++h) {
+            const size_t w = (size_t)h * half + i;
+            const size_t next = (size_t)s * 2 * half + w + half;
+            S nz = S(0), nu = S(0);
+            long long nj = 0;
+            if (own && next < n_draws) nz = u_z[next], nj = j[next], nu = u_acc[next];
+            S* xm = x_s + w * D;
+            S y[D];
+            double p[D];
+            S z = S(1);
+            if (own) {
+                const S* xj = x_s + ((size_t)(1 - h) * half + (size_t)dj) * D;
+                z = stretch_proposal<D>(P, xm, xj, dz, a, y, p);
+            }
+            const double lprior = run_log_prior<M, D>(P, d, p, own, i, half, scratch);
+            if (own) {
+                double lp_y = -INFINITY;
+                if (isfinite(lprior)) {
+                    const typename M::Walker wk = M::walker(p, P);
+                    lp_y = lprior + M::log_likelihood_warp(wk, d, P);
+                }
+                if (isnan(lp_y)) lp_y = -INFINITY;
+                const double lp_x = lp_s[w];
+                const bool accept = stretch_accepts<S>(D, z, lp_y, lp_x, du);
+                __syncwarp();   // every lane has read xm and lp_x
+                if (lane == 0) {
+                    if (accept) {
+#pragma unroll
+                        for (int k = 0; k < D; ++k) xm[k] = y[k];
+                        lp_s[w] = lp_y;
+                    }
+                    if (h == 0) acc0 += accept ? 1 : 0;
+                    else acc1 += accept ? 1 : 0;
+                    if (stored) {
+                        const size_t c = (size_t)(s / thin_by) * 2 * half + w;
+#pragma unroll
+                        for (int k = 0; k < D; ++k) chain_x[c * D + k] = (X)xm[k];
+                        chain_lp[c] = (L)(accept ? lp_y : lp_x);
+                    }
+                }
+            }
+            dz = nz, dj = nj, du = nu;
+            __syncthreads();
+        }
+    }
+    for (int t = threadIdx.x; t < n_state; t += blockDim.x) x[t] = x_s[t];
+    for (int t = threadIdx.x; t < 2 * half; t += blockDim.x) logp[t] = lp_s[t];
+    if (own && lane == 0) {
+        n_accept[i] += acc0;
+        n_accept[half + i] += acc1;
     }
 }
 
@@ -634,4 +799,85 @@ static int launch_logpost(const typename M<float>::Params* P, int device, int co
                      : launch_logpost_warp<M<double>, float>(*P, q, W, n_ens, out, s);
     return q_f64 ? launch_logpost_warp<M<float>, double>(*P, q, W, n_ens, out, s)
                  : launch_logpost_warp<M<float>, float>(*P, q, W, n_ens, out, s);
+}
+
+// The run form's warps: a warp per walker of a half, or more where the
+// policy's block-wide prior wants them (at most LP_RUN_WARPS).
+template <typename M>
+static inline int run_warps(const typename M::Params& P, int half) {
+    int w = half;
+    if constexpr (policy_block_prior<M>::value) {
+        const int want = M::block_prior_warps(P, half);
+        if (want > w) w = want;
+    }
+    return w < LP_RUN_WARPS ? w : LP_RUN_WARPS;
+}
+
+template <typename M, typename S, typename X, typename L>
+static int launch_run_t(const typename M::Params& P, void* x, double* logp, int half,
+                        int n_prop, int thin_by, const void* u_z, const long long* j,
+                        const void* u_acc, double a, void* chain_x, void* chain_lp,
+                        int* n_accept, cudaStream_t stream) {
+    auto kernel = stretch_run_kernel<M, S, X, L>;
+    const size_t own = run_own_bytes<M, S>(P, half);
+    const size_t staged = M::stage_bytes(P);
+    const size_t limit = (size_t)smem_optin_limit();
+    // the state and the scratch always live in shared memory; the policy's
+    // data too where they fit beside them, else they are read where they lie
+    const int use_smem = own + staged <= limit ? 1 : 0;
+    const size_t bytes = own + (use_smem ? staged : 0);
+    if (bytes > limit) return (int)cudaErrorInvalidValue;
+    if (bytes > 48 * 1024) {
+        const int rc = (int)cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        if (rc) return rc;
+    }
+    kernel<<<1, 32 * run_warps<M>(P, half), bytes, stream>>>(
+        P, (S*)x, logp, half, n_prop, thin_by, (const S*)u_z, j, (const S*)u_acc, a,
+        (X*)chain_x, (L*)chain_lp, n_accept, use_smem);
+    return (int)cudaGetLastError();
+}
+
+// The run form's launch (stretch_run_kernel) for the model policy M<C> of
+// the run's dtypes, as launch_half_step: n_prop proposals of the ensemble
+// x (2, half, ndim), half <= LP_RUN_WARPS, the draws (n_prop, 2, half), the
+// chain (n_prop / thin_by, 2, half[, ndim]) or null. Returns 0 or a
+// cudaError_t code.
+template <template <typename> class M>
+static int launch_run(const typename M<float>::Params* P, int device, int compute_f64, void* x,
+                      int state_f64, double* logp, int half, int n_prop, int thin_by,
+                      const void* u_z, const long long* j, const void* u_acc, double a,
+                      void* chain_x, int chain_x_f64, void* chain_lp, int chain_lp_f64,
+                      int* n_accept, void* stream) {
+    int rc = (int)cudaSetDevice(device);
+    if (rc) return rc;
+    if (half <= 0 || n_prop <= 0) return 0;
+    if (half > LP_RUN_WARPS || thin_by <= 0 || P->ndim != M<float>::ndim)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    const int key = compute_f64 * 8 + state_f64 * 4 + chain_x_f64 * 2 + chain_lp_f64;
+#define LP_RUN_CASE(K, C, S, X, L)                                                            \
+    case K:                                                                                   \
+        return launch_run_t<M<C>, S, X, L>(*P, x, logp, half, n_prop, thin_by, u_z, j, u_acc,  \
+                                           a, chain_x, chain_lp, n_accept, s);
+    switch (key) {
+        LP_RUN_CASE(0, float, float, float, float)
+        LP_RUN_CASE(1, float, float, float, double)
+        LP_RUN_CASE(2, float, float, double, float)
+        LP_RUN_CASE(3, float, float, double, double)
+        LP_RUN_CASE(4, float, double, float, float)
+        LP_RUN_CASE(5, float, double, float, double)
+        LP_RUN_CASE(6, float, double, double, float)
+        LP_RUN_CASE(7, float, double, double, double)
+        LP_RUN_CASE(8, double, float, float, float)
+        LP_RUN_CASE(9, double, float, float, double)
+        LP_RUN_CASE(10, double, float, double, float)
+        LP_RUN_CASE(11, double, float, double, double)
+        LP_RUN_CASE(12, double, double, float, float)
+        LP_RUN_CASE(13, double, double, float, double)
+        LP_RUN_CASE(14, double, double, double, float)
+        LP_RUN_CASE(15, double, double, double, double)
+    }
+#undef LP_RUN_CASE
+    return (int)cudaErrorInvalidValue;
 }

@@ -11,13 +11,22 @@ bolometric path, with their plain PyTorch versions beside them.
   over ``SEDWarpModel``): one Goodman-Weare half-step of the ensemble, in
   place; a state's stored log-posterior has the bits K10 gives it. Plain
   version :func:`stretch_half_step_plain`.
+* :func:`stretch_run` (K10's run form, ``stretch_run_kernel`` over
+  ``SEDWarpModel``, one block): a whole segment of steps of an ensemble of
+  up to 64 walkers (:func:`k10_form`) in one launch, over draws generated
+  before it; the bits of the half-step launched twice a step. Plain
+  version :func:`stretch_run_plain`.
+
+The KDE prior sums its components in one order in all three, fixed by the
+component index (``csrc/sed.cu``), so K10 at a state gives the bits the
+half-step and the run store.
 
 For a tensor on the CPU each wrapper runs its plain version. For a CUDA
 tensor it launches the kernel or raises: there is no fallback (the
 quadrature form of a reddened ``planck_fast`` raises NotImplementedError,
 ROADMAP Queue 1 item 20; any other spectrum function runs on the host). Each launch adds
-one to ``LAUNCHES[name]`` (``sed_logpost``, ``sed_half_step``), and nothing
-else does.
+one to ``LAUNCHES[name]`` (``sed_logpost``, ``sed_half_step``, ``sed_run``),
+and nothing else does.
 """
 
 import ctypes
@@ -26,10 +35,16 @@ import torch
 
 from .common import (LAUNCHES, MAX_DIM, KDE_KIND, FLOATS, check, cuda_args, affine_key,
                      half_step_checks, half_step_args, log_posterior_plain,
-                     stretch_half_step_plain as _half_step_plain)
+                     run_checks, stretch_half_step_plain as _half_step_plain,
+                     stretch_run_plain as _run_plain)
 
 __all__ = ["log_posterior", "log_posterior_plain", "stretch_half_step",
-           "stretch_half_step_plain", "kde_prior_of"]
+           "stretch_half_step_plain", "stretch_run", "stretch_run_plain", "k10_form",
+           "kde_prior_of"]
+
+#: the run form's largest half: a warp per walker of a half, 32 warps in its
+#: one block (LP_RUN_WARPS of csrc/stretch.cuh)
+RUN_MAX_HALF = 32
 
 
 class _SEDParams(ctypes.Structure):
@@ -172,3 +187,69 @@ def stretch_half_step(lp, x, logp, h, u_z, j, u_acc, a=2.0, param_offset=None,
     if rc != 0:
         raise RuntimeError(f"stretch_half_step_kernel (SED, K10) launch failed: cudaError {rc}")
     LAUNCHES["sed_half_step"] += 1
+
+
+# ------------------------------------------------------------- K10 run form
+
+def k10_form(half):
+    """K10's form for an ensemble of ``2 * half`` walkers: ``"run"`` (a whole
+    segment in one launch, :func:`stretch_run`) where a half fits the run
+    form's block (``half <= RUN_MAX_HALF``), else ``"half"`` (a launch a
+    half-step, :func:`stretch_half_step`)."""
+    return "run" if 0 < half <= RUN_MAX_HALF else "half"
+
+
+def stretch_run_plain(lp, x, logp, u_z, j, u_acc, a=2.0, param_offset=None, param_scale=None,
+                      chain_x=None, chain_logp=None, n_accept=None, thin_by=1):
+    """Plain K10 run: the kernel's in-place contract (arguments:
+    :func:`stretch_run`), the plain half-step twice a proposal over
+    :func:`log_posterior_plain`."""
+    def log_prob(q):
+        return log_posterior_plain(lp, q, param_offset, param_scale)
+    return _run_plain(log_prob, x, logp, u_z, j, u_acc, a, chain_x, chain_logp, n_accept,
+                      thin_by)
+
+
+def stretch_run(lp, x, logp, u_z, j, u_acc, a=2.0, param_offset=None, param_scale=None,
+                chain_x=None, chain_logp=None, n_accept=None, thin_by=1, check_partners=True):
+    """K10's run form: ``n`` stretch-move proposals of SEDLogPosterior
+    ``lp`` on the ensemble ``x`` (2, half, ndim), ``half <= RUN_MAX_HALF``,
+    in place, in one launch: for each, half 0 and then half 1 (which reads
+    half 0's new states as its partner pool). The draws ``u_z``, ``j``,
+    ``u_acc`` are (n, 2, half) (proposal s's are ``u_z[s]``, ...; the
+    uniforms in x's dtype, ``j`` int64); ``logp`` (2, half) float64 and
+    ``n_accept`` (2, half) int32 as in :func:`stretch_half_step`; proposal s
+    with ``s % thin_by == thin_by - 1`` writes its new states and
+    log-posteriors into chain slot ``s // thin_by`` of ``chain_x`` (n //
+    thin_by, 2, half, ndim) and ``chain_logp`` (n // thin_by, 2, half), when
+    given. The same bits as ``2 n`` launches of :func:`stretch_half_step` on
+    the same draws."""
+    if x.device.type == "cpu":
+        return stretch_run_plain(lp, x, logp, u_z, j, u_acc, a, param_offset, param_scale,
+                                 chain_x, chain_logp, n_accept, thin_by)
+    if x.device.type != "cuda":
+        raise ValueError(f"K10's run form runs on CUDA (or its plain version on the CPU), not "
+                         f"{x.device}")
+    n, ndim = run_checks(x, logp, u_z, j, u_acc, chain_x, chain_logp, n_accept, thin_by,
+                         check_partners)
+    half = x.shape[1]
+    if k10_form(half) != "run":
+        raise ValueError(f"K10's run form takes a half of at most {RUN_MAX_HALF} walkers (one "
+                         f"block); half {half} runs a launch a half-step (k10_form)")
+    _require_table(lp, x.device)
+    from .build import library
+    lib = library()
+    P = _params(lp, ndim, param_offset, param_scale)
+    device_index, stream = cuda_args(x.device)
+    rc = lib.sed_run_launch(
+        ctypes.addressof(P), device_index, int(lp.compute_dtype == torch.float64),
+        x.data_ptr(), int(x.dtype == torch.float64), logp.data_ptr(), half, n, int(thin_by),
+        u_z.data_ptr(), j.data_ptr(), u_acc.data_ptr(), float(a),
+        None if chain_x is None else chain_x.data_ptr(),
+        int(chain_x is not None and chain_x.dtype == torch.float64),
+        None if chain_logp is None else chain_logp.data_ptr(),
+        int(chain_logp is not None and chain_logp.dtype == torch.float64),
+        n_accept.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"stretch_run_kernel (SED, K10) launch failed: cudaError {rc}")
+    LAUNCHES["sed_run"] += 1

@@ -10,13 +10,17 @@ pool — so a step is two dependent half-steps. With a
 :class:`~lightcurve_fitting_tpu_torch.fitting.LogPosterior` each half-step is
 one call of :func:`~lightcurve_fitting_tpu_torch.kernels.stretch_half_step`:
 on CUDA one launch of the model's fused half-step kernel (K2 for
-ShockCooling2, its SC3 instantiation for ShockCooling3; K10's for the
-:class:`~lightcurve_fitting_tpu_torch.bolometric.SEDLogPosterior` of
-``spectrum_mcmc``), which writes the
+ShockCooling2, its SC3 instantiation for ShockCooling3), which writes the
 new state into a preallocated device chain in the store dtype and adds to an
 int32 accept counter; the step loop never synchronizes with the host, and
-the chain comes to the host once per progress segment. On the CPU the same
-call runs the plain half-step, which also serves any other log-probability
+the chain comes to the host once per progress segment. Where the
+log-posterior's module has a run form for the ensemble's size
+(:func:`~lightcurve_fitting_tpu_torch.kernels.runs_segments`: K10's for the
+:class:`~lightcurve_fitting_tpu_torch.bolometric.SEDLogPosterior` of
+``spectrum_mcmc`` up to 64 walkers), a whole segment is one call of
+:func:`~lightcurve_fitting_tpu_torch.kernels.stretch_run` over the
+segment's draws, stacked. On the CPU the same calls run their plain
+versions (the same loop), which also serve any other log-probability
 callable.
 
 The draws of global step i (u_z, j, u_acc for both halves) come from a
@@ -190,6 +194,11 @@ class EnsembleSampler:
         u_acc = torch.rand(shape, generator=g, device=self.device, dtype=self._dtype)
         return u_z, j, u_acc
 
+    def _segment_draws(self, start, n):
+        """The draws of global steps ``start`` .. ``start + n - 1``, stacked:
+        (u_z, j, u_acc), each (n, 2, half), step s's ``_draws(start + s)``."""
+        return tuple(torch.stack(d) for d in zip(*(self._draws(start + s) for s in range(n))))
+
     def _half_step(self, x, logp, h, u_z, j, u_acc, chain_x, chain_logp, n_accept):
         if self._fused:
             kernels.stretch_half_step(self._log_prob_fn, x, logp, h, u_z, j, u_acc, self.a,
@@ -288,13 +297,21 @@ class EnsembleSampler:
                                  dtype=self._store_dtype or torch.float64)
         n_accept = torch.zeros(shape, dtype=torch.int32, device=dev)
         n = nsteps * thin_by
-        for s in range(n):
-            u_z, j, u_acc = self._draws(self._draw_count + s)
-            stored = s % thin_by == thin_by - 1
-            cx = chain_x[s // thin_by] if stored else None
-            cl = chain_logp[s // thin_by] if stored else None
-            for h in (0, 1):
-                self._half_step(x, logp, h, u_z[h], j[h], u_acc[h], cx, cl, n_accept)
+        if self._fused and kernels.runs_segments(self._log_prob_fn, self._half):
+            # the whole segment in one call (K10's run form on CUDA) over the
+            # same draws, stacked
+            u_z, j, u_acc = self._segment_draws(self._draw_count, n)
+            kernels.stretch_run(self._log_prob_fn, x, logp, u_z, j, u_acc, self.a, self._offset,
+                                self._scale, chain_x, chain_logp, n_accept, thin_by,
+                                check_partners=False)
+        else:
+            for s in range(n):
+                u_z, j, u_acc = self._draws(self._draw_count + s)
+                stored = s % thin_by == thin_by - 1
+                cx = chain_x[s // thin_by] if stored else None
+                cl = chain_logp[s // thin_by] if stored else None
+                for h in (0, 1):
+                    self._half_step(x, logp, h, u_z[h], j[h], u_acc[h], cx, cl, n_accept)
         self._draw_count += n
 
         chain_block = chain_x.cpu().numpy().reshape(nsteps, self.total_walkers, self.ndim)

@@ -89,7 +89,9 @@ K10, the SED log-posterior of the sequential bolometric path, against its
 plain version on three SN 2016bkv epochs under a uniform and a KDE
 temperature prior (float32 within 1e-5, float64 within 1e-12 of the term
 scale), and its half-step: the plain half-step's states where both accept,
-K10 at the states it left its stored values bit for bit.
+K10 at the states it left its stored values bit for bit; K10's run form
+(half 5 and 32, a uniform and a KDE prior, thin_by 1 and 2) bit-equal to
+its half-step launched twice a proposal on the same draws.
 """
 
 import ctypes
@@ -3227,3 +3229,51 @@ def test_k10_half_step_stores_k10s_values_on_card(cuda_device, kde):
     both = (ak == ap)
     assert torch.equal(xk[both], xp[both])
     assert torch.equal(sed.log_posterior(lp, xk.reshape(-1, 2)).reshape(2, half), lk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thin_by", [1, 2])
+@pytest.mark.parametrize("kde", [False, True], ids=["uniform", "kde"])
+@pytest.mark.parametrize("half", [5, 32])
+def test_k10_run_equals_its_half_steps_on_card(cuda_device, half, kde, thin_by):
+    """K10's run form over 40 proposals of stacked draws gives the bits of
+    80 K10 half-step launches on the same draws (states, log-posteriors,
+    accept counts, the thinned chain), and K10 at its last states their
+    stored values."""
+    from lightcurve_fitting_tpu_torch.bolometric import SEDLogPosterior
+    from lightcurve_fitting_tpu_torch.kernels import sed
+    ep = _sed_epochs()[2 if kde else 0]
+    lp = SEDLogPosterior(ep, _sed_priors(kde, False), 0.002, device=cuda_device)
+    n = 40
+    x0 = torch.as_tensor(np.abs(np.array([10.7, 3.6]) * (
+        1 + 0.05 * np.random.default_rng(3).normal(size=(2, half, 2)))), device=cuda_device)
+    l0 = sed.log_posterior(lp, x0.reshape(-1, 2)).reshape(2, half)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(6)
+    u_z = torch.rand((n, 2, half), generator=g, device=cuda_device, dtype=torch.float64)
+    j = torch.randint(0, half, (n, 2, half), generator=g, device=cuda_device)
+    u_acc = torch.rand((n, 2, half), generator=g, device=cuda_device, dtype=torch.float64)
+    out = []
+    for run in (True, False):
+        x, logp = x0.clone(), l0.clone()
+        acc = torch.zeros((2, half), dtype=torch.int32, device=cuda_device)
+        cx = torch.empty((n // thin_by, 2, half, 2), dtype=torch.float64, device=cuda_device)
+        cl = torch.empty((n // thin_by, 2, half), dtype=torch.float64, device=cuda_device)
+        n0 = dict(kernels.LAUNCHES)
+        if run:
+            kernels.stretch_run(lp, x, logp, u_z, j, u_acc, 2.0, None, None, cx, cl, acc, thin_by)
+            assert kernels.LAUNCHES["sed_run"] == n0["sed_run"] + 1
+        else:
+            for s in range(n):
+                st = s % thin_by == thin_by - 1
+                for h in (0, 1):
+                    sed.stretch_half_step(lp, x, logp, h, u_z[s, h], j[s, h], u_acc[s, h], 2.0,
+                                          None, None, cx[s // thin_by] if st else None,
+                                          cl[s // thin_by] if st else None, acc)
+            assert kernels.LAUNCHES["sed_half_step"] == n0["sed_half_step"] + 2 * n
+        out.append((x, logp, acc, cx, cl))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    assert 0 < int(out[0][2].sum()) < 2 * half * n
+    assert torch.equal(sed.log_posterior(lp, out[0][0].reshape(-1, 2)).reshape(2, half),
+                       out[0][1])

@@ -1,7 +1,8 @@
 """The port's sequential bolometric path against the JAX package's, on the
 CPU: the SED log-posterior (``bolometric.SEDLogPosterior``, the plain
 version beside K10), ``KDEPrior`` and its evidence window, the host sampler,
-one SED half-step under shared draws, ``spectrum_mcmc`` and
+one SED half-step and five steps of the run form under shared draws,
+``spectrum_mcmc`` and
 ``calculate_bolometric(batch_mode=False)`` with KDE chaining into a
 single-filter epoch, on windows of SN 2016bkv.
 
@@ -17,7 +18,8 @@ Tolerances, each with its reason:
   ``_prior_log_norm``: 1e-10 absolute (a 4097-node trapezoid of either);
 - the host sampler and the host path of ``spectrum_mcmc``: equal bits
   (numpy on both sides);
-- the SED half-step under the JAX step's draws: new states equal, new
+- the SED half-step under the JAX step's draws, and five steps of K10's
+  run form under the JAX scan's (op by op): new states equal, new
   log-posteriors within 1e-12 relative;
 - ``calculate_bolometric``: ``MJD``, ``npoints`` and the filters equal;
   the least-squares columns within rtol 1e-6 (curve_fit stops at its own
@@ -333,6 +335,56 @@ def test_sed_half_step_matches_jax_under_shared_draws(epochs):
     assert np.array_equal(x.numpy(), np.asarray(x_want))
     np.testing.assert_allclose(logp.numpy(), np.asarray(lp_want), rtol=1e-12, atol=0.0)
     assert torch.equal(cx, x) and torch.equal(cl, logp)
+
+
+@pytest.mark.parametrize("kind", ["default", "kde"])
+def test_sed_run_matches_jax_scan_under_shared_draws(epochs, kind):
+    """Five steps of K10's run form (its plain version on the CPU, one call
+    over the stacked draws) against the JAX package's ``lax.scan`` of
+    ``make_stretch_kernel``'s step over the same log-posterior, run op by
+    op, from the JAX steps' draws: the states equal, the log-posteriors
+    within 1e-12 relative, every stored step's chain the scan's. (Compiled,
+    XLA may fuse the proposal's multiply and add into one rounding: a last
+    bit of a state, measured once in the 5 x 32 proposals here.)"""
+    gj, gt = epochs
+    half, ndim, n = 16, 2, 5
+    e = 2 if kind == "kde" else 0
+    jpri = _jpriors(kind, False)
+    lpj = jbol._make_sed_log_posterior(jbol.planck_fast, gj[e], jpri, Z, 0.0, {}, False,
+                                       "relative")
+    lpt = tbol.SEDLogPosterior(gt[e], interop.priors_from_jax(jpri), Z, 0.0,
+                               {}, False, "relative", device="cpu")
+    rng = np.random.default_rng(8)
+    centre = [10.7, 3.6] if kind == "kde" else [13.0, 2.9]
+    x0 = np.abs(np.array(centre) * (1 + 0.02 * rng.normal(size=(2, half, ndim))))
+    step, batched = make_stretch_kernel(lpj, half, ndim)
+    keys = jr.split(jr.PRNGKey(12), n)
+    xj = jnp.asarray(x0)
+    with jax.disable_jit():     # op by op: XLA fusing a compiled scan's body may contract
+        (x_want, lp_want), (xs_want, lps_want, _) = jax.lax.scan(    # the proposal's mul-add
+            step, (xj, batched(xj.reshape(-1, ndim)).reshape(2, half)), keys)
+    u_z, u_acc = np.empty((n, 2, half)), np.empty((n, 2, half))
+    j = np.empty((n, 2, half), np.int64)
+    for s in range(n):
+        for h, kh in enumerate(jr.split(keys[s])):       # the draws half_update makes
+            kz, kj, ku = jr.split(kh, 3)
+            u_z[s, h] = np.asarray(jr.uniform(kz, (half,), dtype=jnp.float64))
+            j[s, h] = np.asarray(jr.randint(kj, (half,), 0, half))
+            u_acc[s, h] = np.asarray(jr.uniform(ku, (half,), dtype=jnp.float64))
+    x = torch.as_tensor(x0).contiguous()
+    logp = lpt.forward_plain(x.reshape(-1, ndim)).reshape(2, half)
+    n_acc = torch.zeros((2, half), dtype=torch.int32)
+    cx = torch.empty((n, 2, half, ndim), dtype=torch.float64)
+    cl = torch.empty((n, 2, half), dtype=torch.float64)
+    before = dict(kernels.LAUNCHES)
+    kernels.stretch_run(lpt, x, logp, *(torch.as_tensor(d) for d in (u_z, j, u_acc)), 2.0,
+                        None, None, cx, cl, n_acc)
+    assert kernels.LAUNCHES == before                    # the CPU runs the plain version
+    assert 0 < int(n_acc.sum()) < 2 * half * n
+    assert np.array_equal(x.numpy(), np.asarray(x_want))
+    assert np.array_equal(cx.numpy(), np.asarray(xs_want))
+    np.testing.assert_allclose(logp.numpy(), np.asarray(lp_want), rtol=1e-12, atol=0.0)
+    np.testing.assert_allclose(cl.numpy(), np.asarray(lps_want), rtol=1e-12, atol=0.0)
 
 
 # ------------------------------------------------------------- spectrum_mcmc

@@ -72,7 +72,10 @@ and of the fits, float32 compute, by CUDA events:
   them) on SN 2016bkv's 9-filter epoch under the default priors and a
   512-component KDE temperature prior, at 5 walkers (the sequential path's
   half) and 4096 (the half-step at half 5 and 2048), float32 compute, float64
-  state; each timed and hashed;
+  state; a segment of 300 proposals at half 5 and 32 as 600 half-step
+  launches (``K10_seg_*``; ``_dev``: 600 x a half-step's device time) and,
+  where the checkout has it, as one launch of K10's run form
+  (``K10_run_*``), on the same draws; each timed and hashed;
 * hashed only, at ``chip_smoke.py``'s shapes: K3, K4 with its gradient,
   K4s, K5, K6c and K6d; and SN 2016bkv's 65 packed epochs
   (``SN2016bkv_inputs``: ``y``, ``dy``, ``nodes``, ``weights``, ``mask``,
@@ -968,6 +971,53 @@ def main():
                 times[name] = events_ms(k10h, 20, args.repeats)
                 times[name + "_dev"] = device_ms(k10h, "stretch_half_step_kernel", 20,
                                                  args.repeats)
+            # a segment of 300 proposals at the path's half (5) and the run
+            # form's largest (32): the 600 half-step launches (K10_seg_*, every
+            # checkout) and, where the checkout has it, the run form's one
+            # launch (K10_run_*) on the same draws, each hashed
+            for half in (5, 32):
+                xs0 = torch.as_tensor(np.abs(np.array([10.7, 3.6]) * (
+                    1 + 0.02 * np.random.default_rng(half).normal(size=(2, half, 2)))),
+                    device=dev).contiguous()
+                ls0 = sed.log_posterior(lps, xs0.reshape(-1, 2)).reshape(2, half)
+                g.manual_seed(100 + half)
+                dz = torch.rand((300, 2, half), generator=g, device=dev, dtype=torch.float64)
+                dj = torch.randint(0, half, (300, 2, half), generator=g, device=dev)
+                du = torch.rand((300, 2, half), generator=g, device=dev, dtype=torch.float64)
+
+                def seg_state():
+                    return (xs0.clone(), ls0.clone(),
+                            torch.zeros((2, half), dtype=torch.int32, device=dev),
+                            torch.empty((300, 2, half, 2), dtype=torch.float64, device=dev),
+                            torch.empty((300, 2, half), dtype=torch.float64, device=dev))
+                st = seg_state()
+
+                def seg(st=st, dz=dz, dj=dj, du=du, lps=lps):
+                    for s_ in range(300):
+                        for h in (0, 1):
+                            sed.stretch_half_step(lps, st[0], st[1], h, dz[s_, h], dj[s_, h],
+                                                  du[s_, h], 2.0, None, None, st[3][s_],
+                                                  st[4][s_], st[2], check_partners=False)
+                name = f"K10_seg_{which}_{half}"
+                st0 = seg_state()
+                seg(st0)
+                digests[name] = digest(*st0)
+                times[name] = events_ms(seg, 1, args.repeats)
+                times[name + "_dev"] = [600 * v for v in device_ms(
+                    lambda: sed.stretch_half_step(lps, st[0], st[1], 0, dz[0, 0], dj[0, 0],
+                                                  du[0, 0], 2.0, n_accept=st[2],
+                                                  check_partners=False),
+                    "stretch_half_step_kernel", 20, args.repeats)]
+                if hasattr(sed, "stretch_run"):
+                    def run(st=st, dz=dz, dj=dj, du=du, lps=lps):
+                        sed.stretch_run(lps, *st[:2], dz, dj, du, 2.0, None, None, st[3], st[4],
+                                        st[2], check_partners=False)
+                    name = f"K10_run_{which}_{half}"
+                    st0 = seg_state()
+                    run(st0)
+                    digests[name] = digest(*st0)
+                    times[name] = events_ms(run, 5, args.repeats)
+                    times[name + "_dev"] = device_ms(run, "stretch_run_kernel", 5, args.repeats)
 
     if args.fits:
         # the bolometric fits of chip_smoke.py phase 13, two runs each: (13a)
