@@ -9,11 +9,11 @@ raises and the script exits non-zero):
 1. environment: torch/CUDA versions, the card, its power limit;
 2. build: nvcc compiles the kernels from ``kernels/csrc/``; the
    block-per-chain kernels (K9, K7h, K7's block form), K4p, the epoch
-   half-step, K4's values in both forms, the SC3 and CS log-posteriors, K1,
-   K6b, K6c, K6d, K4s, K3's warp form, K5, K8, K10 and K10's run form must
-   have no stack frame and no spills (ptxas); K6a over SC3's and K10's
-   half-step's
-   reports are printed; the native host
+   half-step, K4's values in both forms, the SC3, CS, SC and SC4
+   log-posteriors, K1, K6b (over every model), K6c, K6d, K4s, K3's warp
+   form, K5, K8, K10 and K10's run form must have no stack frame and no
+   spills (ptxas); K6a over SC3's, the SC and SC4 half-steps' and K6a's and
+   K10's half-step's reports are printed; the native host
    kernels must have built from the port's own source
    (``utils/native/lcf_native.cpp``: the bolometric packing assumes them);
 3. K1 (a warp per walker, the half-step's form) against its plain PyTorch
@@ -280,7 +280,34 @@ raises and the script exits non-zero):
     form), held to the CPU's float64 evaluate (rtol 1e-5, atol 1e-6 of the
     peak), K8's staged form timed on that input (its row of the kernels
     line); the counters show each form of K8, the CS log-posterior and
-    half-step, K6a and K6b ran, and no plain version did.
+    half-step, K6a and K6b ran, and no plain version did;
+25. the ShockCooling (SW17) and ShockCooling4 (MSW23) kernels of
+    ``kernels/csrc/sc_logpost.cu`` (a warp per walker, batched:
+    ``SCWarpModel``, ``SC4WarpModel``) against their plain versions on SN
+    2016bkv's early curve at examples/compare_models.py's priors and
+    window: the batch log-posterior at 131072 walkers (1% outside the
+    priors, an eighth with t < t_0), float32 <= 1e-5 and float64 <= 1e-10
+    of the term scale, identical -inf sets, at the fits' widths (64, 4096)
+    the same values bit for bit, each timed; n = 3, RW and kappa = 0.7 at
+    4096; the half-step at half 65536, 2048 and 32, K6a (each rung its own
+    states) and K6b as called at 26b's 25 rungs x 64, as in 4, 14 and 15,
+    float32 and float64, each timed, K6b's values the batch
+    log-posterior's bits; phase 21 covers their use_sigma branches;
+26. SW17 against MSW23, the counters reset before (a): (a)
+    ``lightcurve_mcmc`` of each at 4096 walkers x 300, seeds 1-8, the mean
+    acceptance within 4 combined standard errors of the JAX package's
+    float64 CPU value at those seeds; (b) ``compare_models`` at
+    tests/test_evidence.py:124-131's settings (64 walkers, 24 rungs, 600 +
+    400, seed 7): each log Z within 4 hypot(err, err_jax) of the JAX
+    package's and inside that test's bands, SW17 first; (c)
+    ``compare_models_loo`` at examples/compare_models.py's settings (64 x
+    500 + 500, seed 7): log10(-elpd_loo) within 4x the JAX package's seed
+    scatter of its mean (seeds 7-16, at which the ranking itself changes),
+    a decisive ranking the JAX seeds' majority's,
+    ``information_criteria(group_by="filter")`` and ``goodness_of_fit`` on
+    the winner (a finite chi2, p in [0, 1]), the discrepancy op timed on
+    the card against the host; the counters show every SC and SC4 kernel
+    ran, and no plain version did.
 
 The last lines are the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and library time, and ``{"ok": true,
@@ -409,6 +436,23 @@ def sc2_eval_ops(ll):
     ~30 flops and 10 special functions (SW17 powers, exp, sqrt, log, divisions)."""
     N, D1 = ll.bb_coeffs.shape
     return N * (3 * (D1 - 1) + 30 + 10 * SFU)
+
+
+def sc_eval_ops(ll):
+    """The SC log-posterior on one walker: per point the Clenshaw recurrence
+    (3 per degree), ~40 flops and 14 special functions (the SW17 powers,
+    two exp, sqrt, log, the divisions)."""
+    N, D1 = ll.bb_coeffs.shape
+    return N * (3 * (D1 - 1) + 40 + 14 * SFU)
+
+
+def sc4_eval_ops(ll):
+    """The SC4 log-posterior on one walker: per point two Clenshaw
+    recurrences, ~50 flops and 15 special functions (the MSW23 powers, three
+    exp, two log, sqrt, the divisions); the walker's breakout scales (eight
+    float64 powers) once a walker, not counted."""
+    N, D1 = ll.bb_coeffs.shape
+    return N * (6 * (D1 - 1) + 50 + 15 * SFU)
 
 
 def sc3_eval_ops(ll):
@@ -4449,6 +4493,8 @@ def sigma_window(which):
         return np.append(P_LO, 0.5), np.append(P_UP, 3.0)
     if which == "CS1":
         return np.append(CS_LO[1], 0.5), np.append(CS_UP[1], 3.0)
+    if which in ("SC", "SC4"):
+        return np.append(SC_LO, 0.5), np.append(SC_UP, 3.0)
     return np.append(SC3_LO, 0.5), np.append(SC3_UP, 3.0)
 
 
@@ -4476,10 +4522,10 @@ def whitened_sigma(lc, dev, n_chains, sigma_type, seed=12):
 def phase_use_sigma(lc, lcf, lc_ia, lc0, seed=15):
     """21: every kernel that branches on use_sigma against its plain version
     with the intrinsic scatter on (SC2 with 5 parameters, SC3 with 8, CS1
-    with 9 on the synthetic Ia curve), both sigma_types, float32 and
-    float64: K1, the SC3 or the CS log-posterior, K2, the SC3 or the CS
-    half-step, K6a and K6b over each; K7 (the sigma column of the gradient
-    included), K9 and K7h over SC2."""
+    with 9 on the synthetic Ia curve, SC and SC4 with 6), both sigma_types,
+    float32 and float64: K1, the SC3, CS, SC or SC4 log-posterior, K2, the
+    SC3, CS, SC or SC4 half-step, K6a and K6b over each; K7 (the sigma
+    column of the gradient included), K9 and K7h over SC2."""
     import numpy as np
     import torch
     from lightcurve_fitting_tpu_torch import kernels
@@ -4492,16 +4538,19 @@ def phase_use_sigma(lc, lcf, lc_ia, lc0, seed=15):
 
     dev = torch.device("cuda")
     lines = []
-    for which, sigma_type, label in itertools.product(("SC2", "SC3", "CS1"),
+    for which, sigma_type, label in itertools.product(("SC2", "SC3", "CS1", "SC", "SC4"),
                                                       ("relative", "absolute"), ("f32", "f64")):
         try:
             if label == "f64":
                 config.set_compute_dtype(None)
             rel, grel = (1e-5, 1e-4) if label == "f32" else (1e-10, 1e-9)
-            pri = ({"SC2": flagship_priors, "SC3": sc3_priors, "CS1": lambda: cs_priors(1)}[which]()
+            pri = ({"SC2": flagship_priors, "SC3": sc3_priors, "CS1": lambda: cs_priors(1),
+                    "SC": sc_priors, "SC4": sc_priors}[which]()
                    + [LogUniformPrior(0.01, 10.0)])
             model, data = {"SC2": (ShockCooling2(lc), lc), "SC3": (ShockCooling3(lcf), lcf),
-                           "CS1": (cs_model(1, lc0), lc_ia)}[which]
+                           "CS1": (cs_model(1, lc0), lc_ia),
+                           "SC": (sc_model("ShockCooling", lc), lc),
+                           "SC4": (sc_model("ShockCooling4", lc), lc)}[which]
             lp = make_log_posterior(model, data, pri, use_sigma=True, sigma_type=sigma_type,
                                     device=dev)
             lo, up = sigma_window(which)
@@ -5002,9 +5051,9 @@ def phase_cs_logpost(lc, lc0, rng_seed=17):
 
 
 class PlainCalls:
-    """Counts the calls of the plain versions of the CS and SC3 paths'
-    kernels while it is entered (each wrapped where the wrappers look it
-    up)."""
+    """Counts the calls of the plain versions of the CS, SC3, SC and SC4
+    paths' kernels while it is entered (each wrapped where the wrappers look
+    it up)."""
 
     NAMES = [("lightcurve_fitting_tpu_torch.kernels", "log_posterior_plain"),
              ("lightcurve_fitting_tpu_torch.kernels", "stretch_half_step_plain"),
@@ -5012,6 +5061,8 @@ class PlainCalls:
              ("lightcurve_fitting_tpu_torch.kernels.cs", "stretch_half_step_plain"),
              ("lightcurve_fitting_tpu_torch.kernels.sc3", "log_posterior_plain"),
              ("lightcurve_fitting_tpu_torch.kernels.sc3", "stretch_half_step_plain"),
+             ("lightcurve_fitting_tpu_torch.kernels.sc", "log_posterior_plain"),
+             ("lightcurve_fitting_tpu_torch.kernels.sc", "stretch_half_step_plain"),
              ("lightcurve_fitting_tpu_torch.kernels.ladder", "tempered_half_step_plain"),
              ("lightcurve_fitting_tpu_torch.kernels.ladder", "ladder_init_plain"),
              ("lightcurve_fitting_tpu_torch.kernels.ladder", "replica_swap_plain"),
@@ -5234,6 +5285,424 @@ def phase_posterior_curves(lc0, t_fit, ufilts, draws, curves):
     return row
 
 
+# ------------------------------------------- SW17 against MSW23: SC and SC4
+
+# examples/compare_models.py:55-60: the priors and window SW17 (ShockCooling)
+# and MSW23 (ShockCooling4) share, f_rho M log-uniform (prior kind 1)
+SC_LO = [0.5, 0.5, 0.1, 0.1, 57468.3]
+SC_UP = [10.0, 20.0, 10.0, 20.0, 57468.7]
+SC_NAMES = ("ShockCooling", "ShockCooling4")
+SC_PREFIX = {"ShockCooling": "sc", "ShockCooling4": "sc4"}
+SC_MARK = {"ShockCooling": "SCWarpModel<", "ShockCooling4": "SC4WarpModel<"}
+# the widths whose initial state the phase-26 fits compute with the batch
+# log-posterior: 26b's and 26c's 64 walkers, 26a's 4096
+SC_LP_WIDTHS = (64, 4096)
+SC_FIT_WALKERS = 4096
+SC_LADDER = (25, 64)      # 26b: 24 rungs + beta = 1 of 64 walkers
+SC_SEEDS = tuple(range(1, 9))
+# the JAX package, float64 on the CPU, on SN 2016bkv's early curve at the
+# priors and window above (tests/test_torch_shock_cooling.py): the mean
+# acceptance of lightcurve_mcmc at 4096 walkers x 300 steps from the window,
+# no burn-in, seeds 1-8, and its standard error over the seeds
+# (jax_sc_acceptance); the stepping-stone log Z and its error at
+# tests/test_evidence.py:124-131's settings, seed 7 (jax_sc_evidence); the
+# compare_models_loo elpd_loo at examples/compare_models.py's settings, seeds
+# 7-16 (jax_sc_loo). At those settings the chains have not converged (up to
+# 145 of 149 points with pareto_k > 0.7) and the elpd is heavy-tailed: SW17
+# ranks first at seeds 7 and 8, MSW23 at 9-16, and a seed's elpd ranges over
+# two decades. So 26c holds the port's elpd to the JAX seeds' spread of
+# log10(-elpd), and its ranking to the JAX seeds' where it is decisive.
+SC_ACCEPTANCE_REF = {"ShockCooling": (0.12312754313151042, 0.0007730547269497997),
+                     "ShockCooling4": (0.1918968709309896, 0.0005269842573617547)}
+SC_LOGZ_REF = {"ShockCooling": (-12994.828263087811, 5.5020102002564),
+               "ShockCooling4": (-18737.90283685428, 12.443939308308114)}
+SC_LOGZ_BANDS = {"ShockCooling": (-13100.0, -12900.0),    # tests/test_evidence.py:138-139
+                 "ShockCooling4": (-19000.0, -18400.0)}
+SC_LOO_REF = {"ShockCooling": (-226429.0139959561, -208583.70626222115, -523496.98994218983,
+                               -1919137.8892653217, -410482.36831153545, -4139313.5629127636,
+                               -577189.9587275713, -452919.1311785844, -13626482.328044344,
+                               -666385.3214617084),
+              "ShockCooling4": (-309499.3360946681, -239697.14123929793, -250053.76092233552,
+                                -510397.4552649079, -311957.0218055521, -459922.2474004346,
+                                -271314.8269287782, -239318.95408847494, -2653245.444642906,
+                                -196189.85060277674)}
+SC_KERNELS = ("sc_logpost", "sc_half_step", "sc_tempered_half_step", "sc_ladder_init",
+              "sc4_logpost", "sc4_half_step", "sc4_tempered_half_step", "sc4_ladder_init")
+
+
+def sc_priors(t0_hi=57468.7):
+    from lightcurve_fitting_tpu_torch.models import LogUniformPrior, UniformPrior
+    return [UniformPrior(0.1, 20.0), UniformPrior(0.1, 30.0), LogUniformPrior(0.01, 100.0),
+            UniformPrior(0.01, 50.0), UniformPrior(57468.0, t0_hi)]
+
+
+def sc_model(name, lc, **kw):
+    from lightcurve_fitting_tpu_torch import models
+    return getattr(models, name)(lc, **kw)
+
+
+SC_EVAL_OPS = {"ShockCooling": sc_eval_ops, "ShockCooling4": sc4_eval_ops}
+
+
+def sc_walkers(rng, W):
+    """W states: W - W/8 from the window with 1% outside the priors, and W/8
+    from the window with t_0 in (57468.8, 57472) (t < t_0 at the first
+    points; inside the t_0 prior widened to 57472)."""
+    import numpy as np
+    late = rng.uniform(SC_LO, SC_UP, size=(W // 8, 5))
+    late[:, 4] = rng.uniform(57468.8, 57472.0, W // 8)
+    return np.concatenate([window_states(rng, SC_LO, SC_UP, W - W // 8, 0.01), late])
+
+
+def phase_sc_kernels(lc, rng_seed=21):
+    """25: the SC and SC4 kernels (SCWarpModel, SC4WarpModel: a warp per
+    walker) against their plain versions on SN 2016bkv's early curve. The
+    batch log-posterior at 131072 walkers (1% outside the priors, an eighth
+    with t < t_0) in float32 (<= 1e-5) and float64 (<= 1e-10 of the term
+    scale), identical -inf sets; at the fits' widths (64, 4096) the same
+    values bit for bit, each timed; n = 3, RW and kappa = 0.7 (SC) and
+    kappa = 0.7 (SC4) at 4096 walkers. The half-step at half 65536, 2048
+    and 32, K6a (each rung its own states) at 26b's ladder, 25 rungs x 64
+    walkers, and K6b as that ladder calls it, as phases 4, 14 and 15,
+    float32 and float64; K6b's values the batch log-posterior's bits.
+    Returns each kernel's row of the kernels line."""
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch import kernels
+    from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.fitting import _state_rescaling, make_log_posterior
+    from lightcurve_fitting_tpu_torch.kernels import common, ladder
+    from lightcurve_fitting_tpu_torch.parallel.evidence import make_beta_ladder
+    from time_port_kernels import device_ms
+
+    dev = torch.device("cuda")
+    W = HEADLINE_WALKERS
+    R, LW = SC_LADDER
+    rng = np.random.default_rng(rng_seed)
+    rows, lines = {}, []
+    for name in SC_NAMES:
+        mod = getattr(kernels, SC_PREFIX[name])
+        eval_ops, mark = SC_EVAL_OPS[name], SC_MARK[name]
+        res, widths, halves, lads, k6b, variants = {}, {}, {}, {}, {}, []
+        for label in ("f32", "f64"):
+            try:
+                if label == "f64":
+                    config.set_compute_dtype(None)
+                rel = 1e-5 if label == "f32" else 1e-10
+                lp = make_log_posterior(sc_model(name, lc), lc, sc_priors(57472.0), device=dev)
+                p = torch.as_tensor(sc_walkers(rng, W), device=dev)
+                got = lp(p)
+                res[label] = compare_ll(f"{name} log-posterior {label}", got,
+                                        chunked(lp.forward_plain, p), rel,
+                                        scale=lp.log_likelihood.term_scales(p))
+                if not torch.isfinite(got[W - W // 8:]).all():
+                    raise AssertionError(f"25 {name} {label}: t < t_0 walkers must have finite "
+                                         "log-posteriors")
+                kw = _state_rescaling(torch.float32, SC_LO, SC_UP, dev)
+                widths[label], kname = batch_widths(
+                    f"{name} log-posterior {label}", mod.log_posterior, lp, p, kw["param_offset"],
+                    kw["param_scale"], SC_LP_WIDTHS + (W,), got, "logpost_warp_kernel", (mark,),
+                    eval_ops(lp.log_likelihood))
+                if label == "f32":
+                    plain_ms = cuda_ms(lambda: chunked(lp.forward_plain, p), repeats=3)
+                    lp32, ll32 = lp, lp.log_likelihood
+                # the options at one width
+                opts = ([{"n": 3.0}, {"RW": True}, {"kappa": 0.7}] if name == "ShockCooling"
+                        else [{"kappa": 0.7}])
+                for opt in opts:
+                    lpo = make_log_posterior(sc_model(name, lc, **opt), lc, sc_priors(57472.0),
+                                             device=dev)
+                    q = p[W - 4096:]
+                    d = compare_ll(f"{name} {opt} {label}", lpo(q), lpo.forward_plain(q), rel,
+                                   scale=lpo.log_likelihood.term_scales(q))
+                    variants.append(f"{opt} {label} max |d| {d[0]:.3e}")
+                # the half-step (h = 0, 1) on the sampler's float32 rescaled state
+                off, sc = kw["param_offset"], kw["param_scale"]
+                lph = make_log_posterior(sc_model(name, lc), lc, sc_priors(), device=dev)
+                for half in (W // 2, SC_FIT_WALKERS // 2, SC_LP_WIDTHS[0] // 2):
+                    x0 = torch.as_tensor((rng.uniform(SC_LO, SC_UP, size=(2 * half, 5)) - off)
+                                         / sc, device=dev).float().reshape(2, half, 5).contiguous()
+                    c = check_half_step(f"{name} half-step {label} {half}", lph, off, sc, x0,
+                                        rng_seed, rel)
+                    if label == "f64":
+                        halves[(label, half)] = (c, None)
+                        continue
+                    l0 = mod.log_posterior(lph, x0.reshape(2 * half, 5), off, sc).reshape(2, half)
+                    g = torch.Generator(device=dev)
+                    g.manual_seed(rng_seed)
+                    u_z = torch.rand(half, generator=g, device=dev)
+                    j = torch.randint(0, half, (half,), generator=g, device=dev)
+                    u_acc = torch.rand(half, generator=g, device=dev)
+                    xk, lk = x0.clone(), l0.clone()
+                    ak = torch.zeros((2, half), dtype=torch.int32, device=dev)
+
+                    def step():
+                        mod.stretch_half_step(lph, xk, lk, 0, u_z, j, u_acc, 2.0, off, sc,
+                                              n_accept=ak, check_partners=False)
+                    t = (cuda_ms(step), device_ms(step, "stretch_half_step_kernel", 20, 1)[0],
+                         bound_fields(half * (eval_ops(ll32) + PROPOSAL),
+                                      half * (2 * 5 * 4 + 8 + 16 + 4) + half * (5 * 4 + 8 + 4)))
+                    if half == W // 2:
+                        xp, lpp = x0.clone(), l0.clone()
+                        t += (cuda_ms(lambda: common.stretch_half_step_plain(
+                            lambda q: chunked(lambda cc: common.log_posterior_plain(
+                                lph, cc, off, sc), q), xp, lpp, 0, u_z, j, u_acc, 2.0),
+                            repeats=3),)
+                    halves[(label, half)] = (c, t)
+                # K6a and K6b at 26b's ladder on lightcurve_evidence's state
+                kwl = _state_rescaling("auto", SC_LO, SC_UP, dev)
+                offl, scl = kwl["param_offset"], kwl["param_scale"]
+                xl = torch.as_tensor((window_states(rng, SC_LO, SC_UP, R * LW, 0.01) - offl) / scl,
+                                     device=dev).to(kwl["dtype"])
+                xl = xl.reshape(R, 2, LW // 2, 5).contiguous()
+                lads[label] = check_ladder(f"{name} ladder {label} {R} x {LW}", lph, offl, scl,
+                                           xl, rng_seed, rel)
+                pri, lll = ladder.ladder_init(lph, xl, offl, scl)
+                val = mod.log_posterior(lph, xl.reshape(-1, 5), offl, scl).reshape(pri.shape)
+                fin = torch.isfinite(pri)
+                if not torch.equal((pri + lll)[fin], val[fin]) \
+                        or not bool(torch.isneginf(val[~fin]).all()):
+                    raise AssertionError(f"25 {name} {label}: K6b's values are not the batch "
+                                         "log-posterior's bits")
+                k6b[label] = k6b_as_called(f"25 {name} K6b {label}", lph, SC_LO, SC_UP, R, LW,
+                                           rng, eval_ops(ll32), (mark,), plain_repeats=3)
+                if label == "f32":
+                    betas = torch.as_tensor(make_beta_ladder(R - 1), device=dev)
+                    shape = (R, 2, LW // 2)
+                    g = torch.Generator(device=dev)
+                    g.manual_seed(rng_seed)
+                    uz = torch.rand(shape, generator=g, device=dev)
+                    jl = torch.randint(0, LW // 2, shape, generator=g, device=dev)
+                    ua = torch.rand(shape, generator=g, device=dev)
+                    al = torch.zeros(shape, dtype=torch.int32, device=dev)
+                    state = (xl.clone(), pri.clone(), lll.clone())
+
+                    def lstep():
+                        ladder.tempered_half_step(lph, *state, betas, 0, uz, jl, ua, 2.0, offl,
+                                                  scl, al, check_partners=False)
+                    n = R * LW // 2
+                    a_t = (cuda_ms(lstep), device_ms(lstep, "tempered_half_step_kernel", 20, 1)[0],
+                           bound_fields(n * (eval_ops(ll32) + PROPOSAL),
+                                        n * (2 * 5 * 4 + 2 * 8 + 4 + 8 + 4) + R * 8
+                                        + n * (5 * 4 + 2 * 8 + 4)))
+                    fns = ladder.plain_functions(lph, offl, scl)
+                    state = (xl.clone(), pri.clone(), lll.clone())
+                    a_plain = cuda_ms(lambda: ladder.tempered_half_step_plain(
+                        *fns, *state, betas, 0, uz, jl, ua, 2.0), repeats=3)
+            finally:
+                config.set_compute_dtype(config.AUTO)
+        prefix = SC_PREFIX[name]
+        t32 = widths["f32"]
+        hW = halves[("f32", W // 2)][1]
+        rows[prefix] = {
+            "logpost": {"max_abs_err": res["f32"][0], "ms": t32[W][0], "plain_ms": plain_ms,
+                        **t32[W][2]},
+            "half": {"max_abs_err": max(v[0][2] for k, v in halves.items() if k[0] == "f32"),
+                     "ms": hW[0], "plain_ms": hW[3], **hW[2]},
+            "k6a": {"max_abs_err": lads["f32"][2], "ms": a_t[0], "plain_ms": a_plain, **a_t[2]},
+            "k6b": {"max_abs_err": k6b["f32"][0], "ms": k6b["f32"][1], "plain_ms": k6b["f32"][5],
+                    **k6b["f32"][3]}}
+        lines.append(
+            f"{name} ({kname}): log-posterior at {W} (1% outside the priors, {W // 8} with "
+            "t < t_0) " + "; ".join(f"{lab} max |d| {r[0]:.3e} (max |d|/scale {r[1]:.2e})"
+                                     for lab, r in res.items())
+            + f", the same values bit for bit at widths {', '.join(map(str, SC_LP_WIDTHS))} "
+            "(f32, f64), kernel (events; the profiler's device time) " + ", ".join(
+                f"{v[0]:.4f}; {v[1]:.4f} ms at {w} (bound {v[2]['bound_ms']:.5f})"
+                for w, v in t32.items())
+            + f", plain {plain_ms:.4f} ms at {W} (f32); at 4096 " + ", ".join(variants)
+            + "; half-step " + "; ".join(
+                f"{lab} half {h}: {c[1]} accepts, {c[0]} near-ties, new-logp max |d| {c[2]:.3e}"
+                + (f", {t[0]:.4f}; {t[1]:.4f} ms (bound {t[2]['bound_ms']:.5f})" if t else "")
+                for (lab, h), (c, t) in halves.items())
+            + f", plain {hW[3]:.4f} ms at half {W // 2}; K6a {R} x {LW} " + "; ".join(
+                f"{lab}: {v[1]} accepts, {v[0]} near-ties, log L max |d| {v[2]:.3e}, K6b at "
+                f"K6a's states its stored bits, K6b log L max |d| {v[3]:.3e}"
+                for lab, v in lads.items())
+            + f", {a_t[0]:.4f}; {a_t[1]:.4f} ms (bound {a_t[2]['bound_ms']:.5f}), plain "
+            f"{a_plain:.4f} ms; K6b as called ({k6b['f32'][4]}, {R} copies of {LW}): "
+            f"{k6b['f32'][1]:.4f}; {k6b['f32'][2]:.4f} ms (bound "
+            f"{k6b['f32'][3]['bound_ms']:.5f}), plain {k6b['f32'][5]:.4f} ms, log L max |d| "
+            f"f32 {k6b['f32'][0]:.3e}, f64 {k6b['f64'][0]:.3e}; K6b's values the batch "
+            "log-posterior's bits")
+    phase("SC and SC4 kernels 25", " | ".join(lines))
+    return rows
+
+
+def hushed(fn, *args, **kwargs):
+    """fn(*args, **kwargs) with its standard output dropped (a fit's column
+    rebuild prints a note a band, as the reference does)."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kwargs)
+
+
+def phase_sc_main_path(lc, smi):
+    """26: SW17 against MSW23, the launch counters reset before (a): (a)
+    lightcurve_mcmc of each at 4096 walkers x 300 steps from the window,
+    seeds 1-8, the mean acceptance within 4 combined standard errors of the
+    JAX package's float64 CPU value at those seeds; (b) compare_models at
+    tests/test_evidence.py:124-131's settings (64 walkers, 24 rungs + beta =
+    1, 600 + 400 steps, seed 7): each log Z within 4 hypot(err, err_jax) of
+    the JAX package's float64 CPU value and inside that test's bands, SW17
+    first; (c) compare_models_loo at examples/compare_models.py's settings
+    (64 x 500 + 500, seed 7): log10(-elpd_loo) of each within 4x the JAX
+    package's seed scatter of its mean (seeds 7-16), and a decisive ranking
+    (|d_elpd| > 4 se) the JAX seeds' majority's; then
+    information_criteria(group_by="filter") and goodness_of_fit
+    on the winner, called directly: a finite chi2 and p in [0, 1]; the
+    discrepancy op (1024 draws, torch ops on the card) timed against the
+    same call on the host. The counters show every SC and SC4 kernel ran,
+    and no plain version did. Returns (the launches, the discrepancy's row
+    for PERF.md)."""
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch import fitting, kernels
+    from lightcurve_fitting_tpu_torch.fitting import (compare_models, compare_models_loo,
+                                                      goodness_of_fit, information_criteria,
+                                                      lightcurve_mcmc)
+
+    kernels.reset_launch_counts()
+    calls = {"discrepancy": 0}
+    discrepancy = fitting._posterior_discrepancy
+
+    def counted(*a, **k):
+        calls["discrepancy"] += 1
+        return discrepancy(*a, **k)
+    fitting._posterior_discrepancy = counted
+    try:
+        with PlainCalls() as plain:
+            # (a) the acceptance at seeds 1-8
+            acc, t_a = {}, time.perf_counter()
+            for name in SC_NAMES:
+                mean, se, each = seed_acceptance(lambda seed: hushed(
+                    lightcurve_mcmc,
+                    lc, sc_model(name, lc), sc_priors(), p_lo=SC_LO, p_up=SC_UP,
+                    nwalkers=SC_FIT_WALKERS, nsteps=300, nsteps_burnin=0, seed=seed, quiet=True),
+                    SC_SEEDS)
+                ref, ref_se = SC_ACCEPTANCE_REF[name]
+                if abs(mean - ref) > 4 * np.hypot(se, ref_se):
+                    raise AssertionError(f"26a {name}: mean acceptance {mean:.5f} +- {se:.5f} not "
+                                         f"within 4 combined standard errors of the JAX "
+                                         f"package's {ref:.5f} +- {ref_se:.5f}")
+                acc[name] = (mean, se, each)
+            t_a = time.perf_counter() - t_a
+            phase("SW17 vs MSW23 26a", f"lightcurve_mcmc {SC_FIT_WALKERS} walkers x 300 steps "
+                  f"from the window, seeds 1-8: " + "; ".join(
+                      f"{k} mean acceptance {v[0]:.5f} +- {v[1]:.5f} (JAX float64 CPU "
+                      f"{SC_ACCEPTANCE_REF[k][0]:.5f} +- {SC_ACCEPTANCE_REF[k][1]:.5f}, within 4 "
+                      f"combined standard errors), each {fmt(v[2])}" for k, v in acc.items())
+                  + f"; {t_a:.3f} s for the 16 fits")
+
+            # (b) the evidence comparison
+            t0 = time.perf_counter()
+            table = hushed(compare_models, lc, [sc_model(n, lc) for n in SC_NAMES], sc_priors(),
+                                   p_lo=SC_LO, p_up=SC_UP, labels=list(SC_NAMES), nwalkers=64,
+                                   n_rungs=24, nsteps=400, nsteps_burnin=600, seed=7, quiet=True)
+            t_b = time.perf_counter() - t0
+            rows = {table["model"][i]: (float(table["log_z"][i]), float(table["dlog_z"][i]))
+                    for i in range(len(table))}
+            for name, (z, err) in rows.items():
+                ref, ref_err = SC_LOGZ_REF[name]
+                lo, hi = SC_LOGZ_BANDS[name]
+                if not (np.isfinite(err) and abs(z - ref) <= 4 * np.hypot(err, ref_err)
+                        and lo < z < hi and err < 20):
+                    raise AssertionError(f"26b {name}: log Z {z} +- {err} (JAX float64 CPU "
+                                         f"{ref} +- {ref_err}, band ({lo}, {hi}))")
+            if table["model"][0] != "ShockCooling":
+                raise AssertionError(f"26b: SW17 must rank first: {rows}")
+            phase("SW17 vs MSW23 26b", "compare_models 64 walkers x 24 rungs + beta = 1 x "
+                  "600+400, seed 7: " + "; ".join(
+                      f"{k} log Z {v[0]:.4f} +- {v[1]:.4f} (JAX float64 CPU "
+                      f"{SC_LOGZ_REF[k][0]:.4f} +- {SC_LOGZ_REF[k][1]:.4f}, within 4 hypot; band "
+                      f"{SC_LOGZ_BANDS[k]})" for k, v in rows.items())
+                  + f"; SW17 first, delta log Z {float(table['delta_log_z'][1]):.4f}; "
+                  f"{t_b:.3f} s")
+
+            # (c) the predictive comparison, then the winner's diagnostics
+            t0 = time.perf_counter()
+            loo = hushed(compare_models_loo, lc, [sc_model(n, lc) for n in SC_NAMES],
+                         sc_priors(), p_lo=SC_LO, p_up=SC_UP, labels=list(SC_NAMES), nwalkers=64,
+                         nsteps=500, nsteps_burnin=500, seed=7, quiet=True)
+            t_c = time.perf_counter() - t0
+            ranking = [str(m) for m in loo["model"]]
+            elpd = {str(m): float(e) for m, e in zip(loo["model"], loo["elpd_loo"])}
+            for name, e in elpd.items():
+                ref = np.log10(-np.asarray(SC_LOO_REF[name]))
+                if not (e < 0 and abs(np.log10(-e) - ref.mean()) <= 4 * ref.std(ddof=1)):
+                    raise AssertionError(f"26c {name}: elpd_loo {e}: log10(-elpd) not within 4 x "
+                                         f"the JAX package's seed scatter {ref.std(ddof=1):.3f} "
+                                         f"of its mean {ref.mean():.3f}")
+            d_elpd, se_d = float(loo["d_elpd"][1]), float(loo["se_d_elpd"][1])
+            majority = max(SC_NAMES, key=lambda n: sum(
+                a > b for a, b in zip(SC_LOO_REF[n], SC_LOO_REF[SC_NAMES[SC_NAMES[0] == n]])))
+            if abs(d_elpd) > 4 * se_d and ranking[0] != majority:
+                raise AssertionError(f"26c: a decisive ranking {ranking} (d_elpd {d_elpd} +- "
+                                     f"{se_d}) against the JAX seeds' {majority} first")
+            best = ranking[0]
+            model = loo.meta["models"][best]
+            flat = loo.meta["samplers"][best].flatchain
+            ic = hushed(information_criteria, lc, model, flat, group_by="filter", quiet=True)
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                gof = goodness_of_fit(lc, model, flat)
+            line = out.getvalue().strip().splitlines()[-1]
+            if not (np.isfinite(gof["chi2"]) and 0.0 <= gof["p_value"] <= 1.0
+                    and line.startswith("goodness of fit: chi^2/dof")):
+                raise AssertionError(f"26c: goodness of fit {gof}, printed {line!r}")
+            logo = ic["logo"]
+            if not np.isfinite(logo["elpd_logo"]) or len(logo["groups"]) < 2:
+                raise AssertionError(f"26c: leave-one-band-out {logo['elpd_logo']}")
+    finally:
+        fitting._posterior_discrepancy = discrepancy
+    launches = dict(kernels.LAUNCHES)
+    for k in SC_KERNELS:
+        if launches[k] == 0:
+            raise AssertionError(f"kernel {k} was not launched on the SW17-vs-MSW23 path: "
+                                 f"{launches}")
+    if plain.count:
+        raise AssertionError(f"{plain.count} plain versions ran on the SW17-vs-MSW23 path")
+
+    # the discrepancy op on the winner's chain: 1024 draws x 149 points, torch
+    # ops on the card, against the same call on the host (float64)
+    draws = flat[np.random.default_rng(0).choice(len(flat), 1024, replace=False)]
+    card, _, _ = hushed(discrepancy, lc, model, draws, False, "relative", "pointwise_ll")
+    host, _, _ = hushed(discrepancy, lc, model, draws, False, "relative", "pointwise_ll",
+                        device="cpu")
+    fin = np.isfinite(host)
+    if not np.array_equal(np.isfinite(card), fin):
+        raise AssertionError("26c: the card's discrepancy has other non-finite entries")
+    err = float(np.max(np.abs(card[fin] - host[fin]) / (np.abs(host[fin]) + 1.0)))
+    if err > 1e-4:
+        raise AssertionError(f"26c: the card's pointwise log-density differs from the host's "
+                             f"float64 by {err:.2e} (relative to |ll| + 1)")
+    ms = cuda_ms(lambda: hushed(discrepancy, lc, model, draws, False, "relative", "pointwise_ll"),
+                 repeats=5)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        hushed(discrepancy, lc, model, draws, False, "relative", "pointwise_ll", device="cpu")
+    host_ms = (time.perf_counter() - t0) / 3 * 1e3
+    N = len(lc)
+    eval_ops = SC_EVAL_OPS[best](fitting.make_log_posterior(
+        model, lc, sc_priors(), device="cuda").log_likelihood) + N * (10 + 2 * SFU)
+    drow = {"ms": ms, "plain_ms": host_ms, "max_abs_err": err, "calls": calls["discrepancy"],
+            **bound_fields(1024 * eval_ops, 1024 * 5 * 8 + 1024 * N * 8)}
+    phase("SW17 vs MSW23 26c", f"compare_models_loo 64 walkers x 500+500, seed 7: ranking "
+          f"{ranking} (the JAX package's at seeds 7-16: SW17 first at 2, MSW23 at 8; held "
+          f"where decisive, |d_elpd| > 4 se), elpd_loo " + ", ".join(
+              f"{k} {v:.1f} (JAX seeds 7-16 {fmt(SC_LOO_REF[k])}: log10(-elpd) within 4 x their "
+              f"scatter of their mean)" for k, v in elpd.items())
+          + f", d_elpd {float(loo['d_elpd'][1]):.1f} +- {float(loo['se_d_elpd'][1]):.1f}, "
+          f"{int(np.sum(loo.meta['ics'][best]['pareto_k'] > 0.7))} of {N} points of {best} "
+          f"with pareto_k > 0.7; {t_c:.3f} s; {best}: leave-one-band-out elpd "
+          f"{logo['elpd_logo']:.1f} +- {logo['se_elpd_logo']:.1f} over {len(logo['groups'])} "
+          f"bands; printed {line!r}; the discrepancy op (1024 draws x {N} points, the pointwise "
+          f"log-density, torch ops on the card) {ms:.4f} ms (events, host work included; bound "
+          f"{drow['bound_ms']:.5f} ms), the same call on the host {host_ms:.2f} ms, max "
+          f"|d|/(|ll| + 1) {err:.2e} against it; {calls['discrepancy']} calls on 26a-c; no plain "
+          f"version ran; launches {launches}")
+    return launches, drow
+
+
 def main():
     try:
         import torch
@@ -5269,7 +5738,7 @@ def main():
                          ("K6d", "rung_block_terms_kernel", 2),
                          ("the SC3 log-posterior", "logpost_warp_kernelI12SC3WarpModel", 8),
                          ("K1", "logpost_warp_kernelI12SC2WarpModel", 8),
-                         ("K6b", "ladder_init_kernel", 28),
+                         ("K6b", "ladder_init_kernel", 44),
                          ("K6c", "replica_swap_kernel", 18),
                          ("the CS log-posterior", "logpost_warp_kernelI11CSWarpModel", 12),
                          ("K4s", "epoch_summary_kernel", 4),
@@ -5277,7 +5746,9 @@ def main():
                          ("K5", "percentile_kernel", 8),
                          ("K8", "sifto_kernel", 4),
                          ("K10", "logpost_warp_kernelI12SEDWarpModel", 8),
-                         ("K10's run form", "stretch_run_kernelI12SEDWarpModel", 32)):
+                         ("K10's run form", "stretch_run_kernelI12SEDWarpModel", 32),
+                         ("the SC log-posterior", "logpost_warp_kernelI11SCWarpModel", 8),
+                         ("the SC4 log-posterior", "logpost_warp_kernelI12SC4WarpModel", 8)):
         block[what] = [v for k, v in report.items() if key in k]
         if len(block[what]) != n or any(v[1] or v[2] or v[3] for v in block[what]):
             raise AssertionError(f"{what} ({n} instantiations) must keep its state in "
@@ -5290,11 +5761,13 @@ def main():
           "values in both forms (ndim 2, 3; 4 dtype instantiations each), K6d (16-byte and "
           "scalar loads), the SC3 "
           "log-posterior (ndim 7, 8; its 4 dtype instantiations each), K1 (ndim 4, 5; 4 each), "
-          "K6b (over SC2 ndim 4, 5, over SC3 7, 8, over CS 7, 8, 9; 4 each), K6c (ndim 1-9; "
+          "K6b (over SC2 ndim 4, 5, over SC3 7, 8, over CS 7, 8, 9, over SC and SC4 5, 6; 4 "
+          "each), K6c (ndim 1-9; "
           "f32, f64 state), the CS log-posterior (ndim 7, 8, 9; 4 each), K4s (4 dtype "
           "instantiations), K3's warp form (f32, f64), K5 (1-8 percentiles), K8 (both "
-          "forms, f32, f64), K10 (ndim 2, 3; 4 dtype instantiations each) and K10's run "
-          "form (ndim 2, 3; its 16 dtype instantiations each): "
+          "forms, f32, f64), K10 (ndim 2, 3; 4 dtype instantiations each), K10's run "
+          "form (ndim 2, 3; its 16 dtype instantiations each) and the SC and SC4 "
+          "log-posteriors (ndim 5, 6; 4 each): "
           + "; ".join(f"{what} registers {sorted(set(v[0] for v in ks))}, stack frames "
                       f"{sorted(set(v[1] for v in ks))} bytes, spills "
                       f"{sorted(set(v[2] + v[3] for v in ks))}" for what, ks in block.items())
@@ -5302,6 +5775,12 @@ def main():
               f"registers {v[0]}, stack frame {v[1]} bytes, spills {v[2] + v[3]}"
               for k, v in report.items()
               if "tempered_half_step_kernelI12SC3WarpModel" in k)
+          + "; the SC and SC4 half-steps and K6a over them (the walker's dimension at run "
+          "time) " + "; ".join(
+              f"{k.split('(')[0][4:]}: registers {v[0]}, stack frame {v[1]} bytes, spills "
+              f"{v[2] + v[3]}" for k, v in report.items()
+              if any(m in k for m in ("half_step_kernelI11SCWarpModel",
+                                      "half_step_kernelI12SC4WarpModel")))
           + "; K10's half-step (SEDWarpModel, 32 instantiations) " + ", ".join(
               f"registers {v[0]}, stack frame {v[1]} bytes, spills {v[2] + v[3]}"
               for v in sorted({tuple(v) for k, v in report.items()
@@ -5350,6 +5829,8 @@ def main():
     k8 = phase_k8(lc_ia, lc0)
     k_cs = phase_cs_logpost(lc_ia, lc0)
     launches_cs, k8_staged = phase_cs_main_path(lc_ia, lc0, smi)
+    k_sc = phase_sc_kernels(lc)
+    launches_sc, _ = phase_sc_main_path(lc, smi)
     if any(m.startswith("jax") or m.startswith("lightcurve_fitting_tpu.") or
            m == "lightcurve_fitting_tpu" for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
@@ -5358,6 +5839,7 @@ def main():
     src3 = "lightcurve_fitting_tpu_torch/kernels/csrc/sc3_logpost.cu"
     src4 = "lightcurve_fitting_tpu_torch/kernels/csrc/epoch_bb.cu"
     src_cs = "lightcurve_fitting_tpu_torch/kernels/csrc/companion.cu"
+    src_sc = "lightcurve_fitting_tpu_torch/kernels/csrc/sc_logpost.cu"
     kernels = [
         dict(name="logpost_warp_kernel<SC2WarpModel<C, N>> (K1)", route="cuda", source=src,
              replaces="lightcurve_fitting_tpu/fitting.py:62", launches=launches["sc2_logpost"],
@@ -5459,6 +5941,23 @@ def main():
              replaces="lightcurve_fitting_tpu/parallel/sampler.py:205",
              launches=launches_seq["min_nfilt_1"]["sed_run"], **k10_run),
     ]
+    for prefix, policy, replaces in (
+            ("sc", "SCWarpModel", "lightcurve_fitting_tpu/models/shock_cooling.py:71"),
+            ("sc4", "SC4WarpModel", "lightcurve_fitting_tpu/models/shock_cooling.py:247")):
+        what = prefix.upper()
+        kernels += [
+            dict(name=f"logpost_warp_kernel<{policy}<C, N>> ({what} log-posterior)",
+                 route="cuda", source=src_sc, replaces=replaces,
+                 launches=launches_sc[f"{prefix}_logpost"], **k_sc[prefix]["logpost"]),
+            dict(name=f"stretch_half_step_kernel<{policy}> ({what} half-step)", route="cuda",
+                 source=src_sc, replaces="lightcurve_fitting_tpu/parallel/sampler.py:86",
+                 launches=launches_sc[f"{prefix}_half_step"], **k_sc[prefix]["half"]),
+            dict(name=f"tempered_half_step_kernel<{policy}> (K6a over {what})", route="cuda",
+                 source=src_sc, replaces="lightcurve_fitting_tpu/parallel/evidence.py:60",
+                 launches=launches_sc[f"{prefix}_tempered_half_step"], **k_sc[prefix]["k6a"]),
+            dict(name=f"ladder_init_kernel<{policy}<C, N>> (K6b over {what})", route="cuda",
+                 source=src_sc, replaces="lightcurve_fitting_tpu/parallel/evidence.py:229",
+                 launches=launches_sc[f"{prefix}_ladder_init"], **k_sc[prefix]["k6b"])]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -6,18 +6,20 @@ Covers ``lightcurve_fitting_tpu/fitting.py``'s ``make_log_posterior`` and
 ``lightcurve_mcmc`` (reference fitting.py:16-168) with its setup helpers,
 its gradient drivers ``lightcurve_map`` and ``lightcurve_hmc``, and its
 tempered-ladder drivers ``lightcurve_evidence``, ``lightcurve_ptmcmc`` and
-``compare_models``. The log-posterior is an ``nn.Module``
+``compare_models``, and its posterior diagnostics ``goodness_of_fit``,
+``information_criteria``, ``compare_information_criteria`` and
+``compare_models_loo``. The log-posterior is an ``nn.Module``
 (:class:`LogPosterior`) over a leading walker axis; on a CUDA device a fit
 runs through the fused kernels of its model (``kernels/``: K1 and K2 for
 ShockCooling2, the SC3 log-posterior and half-step over K3 for
-ShockCooling3, the CS log-posterior and half-step over K8 for
+ShockCooling3, the SC and SC4 log-posteriors and half-steps for ShockCooling
+and ShockCooling4, the CS log-posterior and half-step over K8 for
 CompanionShocking 1-3, the K6 ladder kernels over each, and on the gradient
 path K7, K9 and K7h for ShockCooling2), on the CPU through their plain PyTorch
 versions. Every entry point runs on CUDA unless it is given
 ``device="cpu"``, and raises where CUDA is missing.
 
-The goodness-of-fit and plotting drivers of the JAX module wait for ROADMAP
-Queue 1 items 15 and 18.
+The plotting drivers of the JAX module wait for ROADMAP Queue 1 item 18.
 """
 
 import warnings
@@ -33,7 +35,9 @@ from .parallel.sampler import EnsembleSampler
 from .utils import units as u
 
 __all__ = ["lightcurve_mcmc", "lightcurve_map", "lightcurve_hmc", "make_log_posterior",
-           "LogPosterior", "lightcurve_evidence", "lightcurve_ptmcmc", "compare_models"]
+           "LogPosterior", "lightcurve_evidence", "lightcurve_ptmcmc", "compare_models",
+           "goodness_of_fit", "information_criteria", "compare_information_criteria",
+           "compare_models_loo"]
 
 PRIOR_WARNING = "The p_max/p_min keywords are deprecated. Use the priors keyword instead."
 MODEL_KWARGS_WARNING = "The model_kwargs keyword is deprecated. These are now included in the model intialization."
@@ -45,7 +49,7 @@ class LogPosterior(nn.Module):
     (reference fitting.py:121-128, without the Python early-exit).
 
     On a CUDA tensor ``forward`` launches the fused log-posterior kernel
-    of the model (ShockCooling2, ShockCooling3 or CompanionShocking 1-3; any
+    of the model (ShockCooling, ShockCooling2-4 or CompanionShocking 1-3; any
     other model raises),
     and, when the tensor requires a gradient, K7 (ShockCooling2), whose
     gradient the backward returns; on a CPU tensor it runs
@@ -295,8 +299,9 @@ def lightcurve_mcmc(lc, model, priors=None, p_min=None, p_max=None, p_lo=None, p
     (default ``"cuda"``; without CUDA it raises: pass ``"cpu"`` for the plain
     versions). On CUDA every
     half-step is one launch of the model's fused half-step kernel (K2 for
-    ShockCooling2, its SC3 and CS instantiations for ShockCooling3 and
-    CompanionShocking 1-3; other models raise) and the walker state is
+    ShockCooling2, its SC3, SC, SC4 and CS instantiations for ShockCooling3,
+    ShockCooling, ShockCooling4 and CompanionShocking 1-3; other models
+    raise) and the walker state is
     float32 over the rescaled init window (``state_dtype="auto"``); on the
     CPU the plain PyTorch step runs on absolute float64 state.
 
@@ -305,9 +310,8 @@ def lightcurve_mcmc(lc, model, priors=None, p_min=None, p_max=None, p_lo=None, p
     * ``init="map"`` seeds the walkers from the Laplace approximation at the
       MAP (:func:`lightcurve_map`, through K7 on CUDA), parameters pinned at
       a prior bound jittered into a thin band inside it;
-    * ``quiet=False`` prints acceptance + autocorrelation/ESS after the
-      production run. The JAX driver's goodness-of-fit print is not called
-      here (ROADMAP Queue 1 item 15).
+    * ``quiet=False`` prints acceptance + autocorrelation/ESS and
+      :func:`goodness_of_fit` after the production run.
 
     Not ported yet, and refused with ``NotImplementedError``: ``replicas > 1``
     (ROADMAP Queue 1 item 4), ``mesh`` and ``shard=True`` (item 17),
@@ -377,6 +381,11 @@ def lightcurve_mcmc(lc, model, priors=None, p_min=None, p_max=None, p_lo=None, p
         print("saving sampler.flatchain as " + save_sampler_as)
     if not quiet:
         _report_convergence(sampler, model, flat.shape[0])
+        try:
+            goodness_of_fit(lc, model, flat, use_sigma=use_sigma, sigma_type=sigma_type,
+                            device=device)
+        except Exception as exc:  # diagnostics must never kill a finished fit
+            print(f"(goodness-of-fit unavailable: {exc})")
 
     if fig is not None:
         import matplotlib.pyplot as plt
@@ -482,8 +491,8 @@ def lightcurve_hmc(lc, model, priors, p_lo=None, p_up=None, nchains=16, nsamples
     configured one (``core.config``; AUTO gives float32 on CUDA). Not ported
     yet, and refused with NotImplementedError: ``mesh`` (ROADMAP Queue 1 item
     17), ``checkpoint_every``, ``checkpoint_file`` and ``resume_from`` (item
-    16), a KDEPrior (item 21); the goodness-of-fit print after the fit is not
-    called here (item 15).
+    16), a KDEPrior (item 21). ``quiet=False`` prints the sampler's summary,
+    the R-hat of each parameter and :func:`goodness_of_fit`.
 
     Returns a :class:`_HMCFitResult`.
     """
@@ -536,6 +545,11 @@ def lightcurve_hmc(lc, model, priors, p_lo=None, p_up=None, nchains=16, nsamples
         rhat = rank_normalized_split_rhat(x_chain)
         for name, r in zip(model.input_names, np.atleast_1d(rhat)):
             print(f"  {name}: rank-normalized R-hat = {r:.3f}  (independent chains)")
+        try:
+            goodness_of_fit(lc, model, result.flatchain, use_sigma=use_sigma,
+                            sigma_type=sigma_type, device=device)
+        except Exception as exc:  # diagnostics must never kill a finished fit
+            print(f"(goodness-of-fit unavailable: {exc})")
     return result
 
 
@@ -604,8 +618,9 @@ def lightcurve_map(lc, model, priors, p_lo=None, p_up=None, n_starts=64, n_iter=
     mode inverted into a covariance: the Hessian by central differences of
     K7's float64 gradient (a float64 twin of the log-posterior when the
     compute dtype is float32). On CUDA the model must be ShockCooling2.
-    KDEPrior raises NotImplementedError (ROADMAP Queue 1 item 21); the
-    goodness-of-fit print after the fit is not called here (item 15).
+    KDEPrior raises NotImplementedError (ROADMAP Queue 1 item 21).
+    ``quiet=False`` prints the mode and :func:`goodness_of_fit` with the MAP
+    point as its ``best``.
 
     Returns a :class:`_MAPFitResult`; ``result.flatchain`` holds the Laplace
     draws.
@@ -658,6 +673,13 @@ def lightcurve_map(lc, model, priors, p_lo=None, p_up=None, n_starts=64, n_iter=
         for name, val, err, pinned in zip(model.input_names, x_map, result.stderr, at_bound):
             note = "  (at prior bound)" if pinned else ""
             print(f"  {name} = {val:.6g} +/- {err:.2g}{note}")
+        try:
+            # the Laplace cloud scatters off the curved ridge: the MAP point
+            # itself is always scored, so chi2 reflects the actual best fit
+            goodness_of_fit(lc, model, result.flatchain, best=x_map, use_sigma=use_sigma,
+                            sigma_type=sigma_type, device=device)
+        except Exception as exc:  # diagnostics must never kill a finished fit
+            print(f"(goodness-of-fit unavailable: {exc})")
     return result
 
 
@@ -792,7 +814,7 @@ def lightcurve_evidence(lc, model, priors, p_lo=None, p_up=None, nwalkers=64, n_
 
     Same signature and behavior as ``lightcurve_fitting_tpu.fitting.
     lightcurve_evidence``, plus ``device`` (default ``"cuda"``, raising
-    without it); on CUDA the model must be ShockCooling2, ShockCooling3 or
+    without it); on CUDA the model must be ShockCooling, ShockCooling2-4 or
     CompanionShocking 1-3 (the models with kernels). Differences in the returned
     ``log_z`` between models are log Bayes factors, given those priors.
 
@@ -958,10 +980,9 @@ def lightcurve_ptmcmc(lc, model, priors, p_lo=None, p_up=None, nwalkers=64, n_ru
     cold beta = 1 rung) runs through the K6 kernels on CUDA, as
     :func:`lightcurve_evidence` does, and the replica exchange also writes
     the cold rung's states into a device chain. Same signature and behavior
-    as the JAX package's ``lightcurve_ptmcmc``, plus ``device``; the
-    goodness-of-fit print after the fit is not called here (ROADMAP Queue 1
-    item 15), and ``mesh`` (item 17) and the checkpoint options (item 16)
-    raise NotImplementedError.
+    as the JAX package's ``lightcurve_ptmcmc``, plus ``device``; ``mesh``
+    (ROADMAP Queue 1 item 17) and the checkpoint options (item 16) raise
+    NotImplementedError.
 
     Returns a :class:`_PTFitResult`: ``flatchain``/``chain`` are the cold
     rung's production states (absolute parameters), ``log_z``/``log_z_err``
@@ -990,4 +1011,290 @@ def lightcurve_ptmcmc(lc, model, priors, p_lo=None, p_up=None, nwalkers=64, n_ru
               f"cold acceptance {info['acceptance'][-1]:.2f}, swap rates "
               f"{info['swap_rate'].min():.2f}-{info['swap_rate'].max():.2f}; "
               f"log evidence {log_z:.2f} +/- {log_z_err:.2f}")
+        try:
+            goodness_of_fit(lc, model, result.flatchain, use_sigma=use_sigma,
+                            sigma_type=sigma_type, device=device)
+        except Exception as exc:  # diagnostics must never kill a finished fit
+            print(f"(goodness-of-fit unavailable: {exc})")
     return result
+
+
+# --------------------------------------------------------------------------
+# posterior diagnostics: goodness of fit and predictive model comparison
+# (no reference counterpart: the reference's workflow ends at the corner plot)
+# --------------------------------------------------------------------------
+
+def _posterior_discrepancy(lc, model, draws, use_sigma, sigma_type, kind, device=None):
+    """Per-draw discrepancies of a posterior sample against the light
+    curve's photometry, in one batched evaluation on ``device`` (default:
+    CUDA): ``kind="chi2"`` gives the (S,) summed chi-square of each draw,
+    ``kind="pointwise_ll"`` the (S, N) per-point Gaussian log-densities (the
+    likelihood's variance model; absolute densities: the -log(yscale)
+    Jacobian of the data normalization is added back).
+
+    The model's ``_eval_points`` evaluates every draw at once as (S, 1)
+    parameter columns: on CUDA the band table as torch ops, K3 for
+    ShockCooling3, K8 for the companion-shocking models. The draws reach the
+    host only as the result. Returns ``(values, yscale, n_points)``."""
+    from .models.base import _quad_tensors
+    device = resolve_device(device)
+    _derive_fit_columns(lc, model)
+    oq = model.output_quantity
+    f = np.asarray(lc["filter"])
+    t = np.asarray(lc["MJD"], float)
+    y = np.asarray(lc[oq], float)
+    dy = np.asarray(lc["d" + oq], float)
+    n_model = np.shape(draws)[1] - (1 if use_sigma else 0)
+    # the likelihood's O(1) data normalization (chi-square is invariant under
+    # it; the log densities regain its Jacobian below)
+    yscale, y_n, dy_n, sigma_units = model._normalized_data(y, dy, sigma_type)
+
+    def f64(a):
+        return torch.as_tensor(np.asarray(a, float), dtype=torch.float64, device=device)
+
+    p = f64(draws)
+    quad = _quad_tensors(model.prepare_quad(f), device)
+    y_fit = model._eval_points(f64(t), quad, *[p[:, i:i + 1] for i in range(n_model)])
+    y_fit = y_fit.to(torch.float64) * (1.0 / yscale)
+    sigma2 = f64(dy_n) ** 2.0
+    if use_sigma:
+        sigma2 = sigma2 + (p[:, -1:] * f64(sigma_units)) ** 2.0
+    r2 = (f64(y_n) - y_fit) ** 2.0 / sigma2
+    if kind == "chi2":
+        out = torch.sum(r2, dim=-1)
+    else:
+        out = -0.5 * (torch.log(2.0 * np.pi * sigma2) + r2)
+    out = out.cpu().numpy()
+    if kind == "pointwise_ll":
+        out = out - np.log(yscale)
+    return out, yscale, len(y)
+
+
+def goodness_of_fit(lc, model, flatchain, use_sigma=False, sigma_type="relative", n_draws=512,
+                    seed=0, quiet=False, best=None, device=None):
+    """Posterior-predictive goodness of fit of a completed fit, the JAX
+    package's ``goodness_of_fit`` plus ``device`` (default CUDA).
+
+    For ``n_draws`` posterior samples theta_j it computes the discrepancy
+    chi2_j = sum_i ((y_i - m_i(theta_j)) / sigma_ij)^2 in one batched device
+    call (sigma_ij with the intrinsic scatter when ``use_sigma``), and the
+    posterior-predictive p-value p = mean_j SF_chi2(chi2_j; N) (Gelman et
+    al. 1996; given theta the replicated discrepancy is chi-square with N
+    degrees of freedom, so no replicates are drawn). The reduced chi-square
+    is reported at the best evaluated draw; ``best`` (the MAP point of
+    :func:`lightcurve_map`) is always evaluated and joins that minimum, not
+    the p-value.
+
+    Returns a dict with ``chi2``, ``dof`` (N - ndim), ``chi2_nu``,
+    ``p_value``, ``n_points`` and ``n_invalid_draws`` (draws whose chi2 is
+    not finite, excluded from the score)."""
+    from scipy.stats import chi2 as _chi2_dist
+
+    flatchain = np.asarray(flatchain, float)
+    ndim = flatchain.shape[1]
+
+    rng = np.random.default_rng(seed)
+    n_draws = min(int(n_draws), len(flatchain))
+    draws = flatchain[rng.choice(len(flatchain), n_draws, replace=False)]
+    # row 0 optionally carries the caller's best point: it scores the chi2
+    # minimum, not the p-value average
+    n_extra = 0
+    if best is not None:
+        draws = np.concatenate([np.asarray(best, float)[None], draws])
+        n_extra = 1
+    chi2_all, _, npts = _posterior_discrepancy(lc, model, draws, use_sigma, sigma_type,
+                                               kind="chi2", device=device)
+    chi2_draws = chi2_all[n_extra:]
+    finite = np.isfinite(chi2_draws)
+    n_bad = int(np.sum(~finite))
+    chi2_draws = chi2_draws[finite]
+    chi2_pool = np.concatenate([chi2_all[:n_extra][np.isfinite(chi2_all[:n_extra])],
+                                chi2_draws])
+    if len(chi2_pool) == 0:
+        out = {"chi2": np.nan, "dof": npts - ndim, "chi2_nu": np.nan,
+               "p_value": np.nan, "n_points": npts, "n_invalid_draws": n_bad}
+        if not quiet:
+            print("goodness of fit: unavailable — every posterior draw "
+                  "evaluated outside the model's validity window")
+        return out
+    p_value = float(np.mean(_chi2_dist.sf(chi2_draws, npts))) if len(chi2_draws) else np.nan
+
+    chi2_best = float(np.min(chi2_pool))
+    dof = npts - ndim
+    out = {"chi2": chi2_best, "dof": dof,
+           "chi2_nu": chi2_best / dof if dof > 0 else np.nan,
+           "p_value": p_value, "n_points": npts, "n_invalid_draws": n_bad}
+    if not quiet:
+        note = (f" ({n_bad}/{n_bad + len(chi2_draws)} draws outside the "
+                f"model's validity window were excluded)" if n_bad else "")
+        print(f"goodness of fit: chi^2/dof = {chi2_best:.1f}/{dof} "
+              f"= {out['chi2_nu']:.2f} at the best posterior draw; "
+              f"posterior-predictive p = {p_value:.3f}{note}")
+    return out
+
+
+def information_criteria(lc, model, flatchain, use_sigma=False, sigma_type="relative",
+                         n_draws=1024, seed=0, group_by=None, refit=False, priors=None,
+                         refit_options=None, quiet=False, device=None):
+    """WAIC and PSIS-LOO predictive scores of a completed fit, the JAX
+    package's ``information_criteria`` plus ``device`` (default CUDA): the
+    (draws x points) pointwise log-likelihood matrix in one batched device
+    call (:func:`_posterior_discrepancy`), then the host statistics of
+    ``parallel/ic.py`` (Vehtari, Gelman & Gabry 2017).
+
+    Returns a dict with ``elpd_loo``, ``se_elpd_loo``, ``p_loo``, ``looic``,
+    ``pareto_k``, ``elpd_waic``, ``se_elpd_waic``, ``p_waic``, ``waic``,
+    ``pointwise`` (per-point LOO elpd, for
+    :func:`compare_information_criteria`), ``pointwise_waic``, ``n_points``
+    and ``n_invalid_draws``. ``group_by`` (a column name such as
+    ``"filter"``, or one label a point) adds leave-one-group-out scores
+    under ``out["logo"]``.
+
+    ``refit`` (exact cross-validation of the unreliable PSIS terms) runs
+    ``fit_population``, which is not ported yet: anything but ``False``
+    raises NotImplementedError (ROADMAP Queue 1 item 10); ``priors`` and
+    ``refit_options`` serve it alone."""
+    from .parallel.ic import waic as _waic, psis_loo as _psis_loo, psis_logo
+
+    if refit is not False:
+        raise NotImplementedError("information_criteria(refit=...) runs fit_population, which "
+                                  "is not ported yet (ROADMAP Queue 1 item 10)")
+
+    flatchain = np.asarray(flatchain, float)
+
+    rng = np.random.default_rng(seed)
+    n_draws = min(int(n_draws), len(flatchain))
+    draws = flatchain[rng.choice(len(flatchain), n_draws, replace=False)]
+    ll, _, _ = _posterior_discrepancy(lc, model, draws, use_sigma, sigma_type,
+                                      kind="pointwise_ll", device=device)
+    # drop draws outside the model's validity window (nan/inf rows), as in
+    # goodness_of_fit
+    good = np.all(np.isfinite(ll), axis=1)
+    n_bad = int(np.sum(~good))
+    ll = ll[good]
+    if len(ll) < 8:
+        raise RuntimeError("fewer than 8 finite posterior draws — the chain "
+                           "does not sample the model's validity window")
+
+    loo = _psis_loo(ll)
+    wa = _waic(ll)
+    out = {"elpd_loo": loo["elpd_loo"], "se_elpd_loo": loo["se_elpd_loo"],
+           "p_loo": loo["p_loo"], "looic": loo["looic"],
+           "pareto_k": loo["pareto_k"],
+           "elpd_waic": wa["elpd_waic"], "se_elpd_waic": wa["se_elpd_waic"],
+           "p_waic": wa["p_waic"], "waic": wa["waic"],
+           "pointwise": loo["pointwise"], "pointwise_waic": wa["pointwise"],
+           "n_points": ll.shape[1], "n_invalid_draws": n_bad}
+    if group_by is not None:
+        labels = (np.asarray(lc[group_by]) if isinstance(group_by, str)
+                  else np.asarray(group_by))
+        out["logo"] = psis_logo(ll, labels)
+    if not quiet:
+        def _notes(res, n_total, kind):
+            n_hi = int(np.sum(res["pareto_k"] > 0.7))
+            if not n_hi:
+                return ""
+            return (f"; {n_hi}/{n_total} {kind} have pareto_k > 0.7"
+                    + (" (unreliable LOO terms)" if kind == "points" else ""))
+
+        print(f"elpd_loo = {out['elpd_loo']:.1f} +/- {out['se_elpd_loo']:.1f} "
+              f"(p_loo = {out['p_loo']:.1f}); "
+              f"elpd_waic = {wa['elpd_waic']:.1f} +/- {wa['se_elpd_waic']:.1f}"
+              f"{_notes(out, ll.shape[1], 'points')}")
+        if group_by is not None:
+            lg = out["logo"]
+            print(f"leave-one-group-out ({len(lg['groups'])} groups): "
+                  f"elpd_logo = {lg['elpd_logo']:.1f} "
+                  f"+/- {lg['se_elpd_logo']:.1f}"
+                  f"{_notes(lg, len(lg['groups']), 'groups')}")
+    return out
+
+
+def compare_information_criteria(ics, labels=None, quiet=False):
+    """Rank fitted models by PSIS-LOO elpd with paired standard errors (the
+    JAX package's ``compare_information_criteria``).
+
+    ``ics``: :func:`information_criteria` results of models scored on the
+    same light curve. Returns a Table ranked best-first with columns
+    ``model``, ``elpd_loo``, ``d_elpd`` (difference to the best model, <= 0),
+    ``se_d_elpd`` (the paired pointwise SE of that difference, Vehtari+17
+    eq. 24) and ``stacking_weight`` (Yao+18 Bayesian-stacking weights)."""
+    from .parallel.ic import compare_elpd, stacking_weights
+    from .utils.table import Table
+
+    ics = list(ics)
+    if labels is None:
+        labels = [f"model#{i}" for i in range(len(ics))]
+    if len(labels) != len(ics) or len(set(labels)) != len(labels):
+        raise ValueError("labels must be one per model and unique")
+    ranked = compare_elpd([ic["pointwise"] for ic in ics], list(labels))
+    w = stacking_weights([ic["pointwise"] for ic in ics])
+    weight = dict(zip(labels, w))
+    tab = Table([[r["label"] for r in ranked],
+                 [r["elpd"] for r in ranked],
+                 [r["d_elpd"] for r in ranked],
+                 [r["se_d_elpd"] for r in ranked],
+                 [weight[r["label"]] for r in ranked]],
+                names=["model", "elpd_loo", "d_elpd", "se_d_elpd", "stacking_weight"])
+    if not quiet:
+        print("model ranking by PSIS-LOO elpd (best first):")
+        for r in ranked:
+            if r["d_elpd"] == 0.0:
+                print(f"  {r['label']}: elpd_loo = {r['elpd']:.1f} (best), "
+                      f"stacking weight {weight[r['label']]:.3f}")
+            else:
+                print(f"  {r['label']}: elpd_loo = {r['elpd']:.1f} "
+                      f"(d_elpd = {r['d_elpd']:.1f} +/- {r['se_d_elpd']:.1f}), "
+                      f"stacking weight {weight[r['label']]:.3f}")
+    return tab
+
+
+def compare_models_loo(lc, models, priors, p_lo=None, p_up=None, labels=None, nwalkers=100,
+                       nsteps=1000, nsteps_burnin=1000, use_sigma=False, sigma_type="relative",
+                       seed=None, n_draws=1024, refit=False, refit_options=None, group_by=None,
+                       quiet=False, device=None, **mcmc_kwargs):
+    """Chain-based model comparison in one call, the JAX package's
+    ``compare_models_loo`` plus ``device`` (default CUDA): every candidate
+    is fit with :func:`lightcurve_mcmc`, scored by PSIS-LOO
+    (:func:`information_criteria`) and ranked with paired standard errors
+    (:func:`compare_information_criteria`).
+
+    Arguments shape-match :func:`compare_models` (shared or per-model priors,
+    windows and labels); ``mcmc_kwargs`` go to every :func:`lightcurve_mcmc`
+    call, ``group_by`` to every :func:`information_criteria`. Not ported
+    yet, and refused with NotImplementedError: ``refit`` (ROADMAP Queue 1
+    item 10) and ``checkpoint_file``/``resume_from`` (item 16).
+
+    Returns the :func:`compare_information_criteria` Table;
+    ``table.meta["ics"]``, ``["samplers"]`` and ``["models"]`` keep each
+    model's scores, fitted sampler and model, keyed by label."""
+    if refit is not False:
+        raise NotImplementedError("compare_models_loo(refit=...) runs fit_population, which is "
+                                  "not ported yet (ROADMAP Queue 1 item 10)")
+    if mcmc_kwargs.get("checkpoint_file") is not None \
+            or mcmc_kwargs.get("resume_from") is not None:
+        raise NotImplementedError("checkpoint/resume is not ported yet "
+                                  "(ROADMAP Queue 1 item 16)")
+    models, priors, p_lo, p_up, labels = _compare_args(models, priors, p_lo, p_up, labels)
+    ics, samplers = {}, {}
+    for label, model, pri, lo, up in zip(labels, models, priors, p_lo, p_up):
+        sampler = lightcurve_mcmc(lc, model, priors=pri, p_lo=lo, p_up=up, nwalkers=nwalkers,
+                                  nsteps=nsteps, nsteps_burnin=nsteps_burnin,
+                                  use_sigma=use_sigma, sigma_type=sigma_type, seed=seed,
+                                  quiet=True, device=device, **mcmc_kwargs)
+        ics[label] = information_criteria(lc, model, sampler.flatchain, use_sigma=use_sigma,
+                                          sigma_type=sigma_type, n_draws=n_draws,
+                                          seed=0 if seed is None else seed, group_by=group_by,
+                                          quiet=True, device=device)
+        samplers[label] = sampler
+    tab = compare_information_criteria([ics[lb] for lb in labels], labels=labels, quiet=quiet)
+    tab.meta["ics"] = ics
+    tab.meta["samplers"] = samplers
+    tab.meta["models"] = dict(zip(labels, models))
+    tab.meta["use_sigma"] = use_sigma
+    if not quiet:
+        worst = max(int(np.sum(ics[lb]["pareto_k"] > 0.7)) for lb in labels)
+        if worst:
+            print(f"  (up to {worst} points per model have pareto_k > 0.7 — "
+                  "expected under misspecification, but verify convergence)")
+    return tab

@@ -13,7 +13,7 @@ from .models.base import LogLikelihood
 from .models import priors as _priors
 
 __all__ = ["log_likelihood_from_numpy", "priors_from_jax", "walkers_from_numpy",
-           "bounds_from_jax", "whitening_from_jax", "adaptation_from_jax"]
+           "bounds_from_jax", "whitening_from_jax", "adaptation_from_jax", "model_from_jax"]
 
 
 def log_likelihood_from_numpy(quad, t, y, dy, use_sigma=False, sigma_type="relative",
@@ -45,6 +45,25 @@ def log_likelihood_from_numpy(quad, t, y, dy, use_sigma=False, sigma_type="relat
         from .models.companion_shocking import sifto_band_rows
         quad["sifto_rows"], quad["sifto_band"] = sifto_band_rows(quad["sifto_c"], quad["band_ids"])
     return LogLikelihood.from_quad(model, quad, t, y, dy, use_sigma, sigma_type, device=device)
+
+
+def model_from_jax(jax_model, lc=None, device=None):
+    """The port's model of the same class as the JAX package's ``jax_model``,
+    with the same constructor options (its ``_ctor_kwargs()``: ShockCooling's
+    n, RW and kappa, the others' kappa) and the same z (z = 0 included), its
+    host API on ``device`` (default: the CPU). ``lc`` is the port light curve
+    the constructor takes; the companion-shocking models need it (their
+    SiFTO template is built from its filters)."""
+    from . import models
+    name = type(jax_model).__name__
+    cls = getattr(models, name, None)
+    if not (isinstance(cls, type) and issubclass(cls, models.Model)):
+        raise NotImplementedError(f"{name} has no port counterpart")
+    if lc is None and issubclass(cls, models.BaseCompanionShocking):
+        raise ValueError(f"{name} is built from a light curve: pass lc")
+    model = cls(lc, redshift=jax_model.z, device=device, **jax_model._ctor_kwargs())
+    model.z = jax_model.z
+    return model
 
 
 def priors_from_jax(priors):

@@ -5,6 +5,10 @@ and their plain PyTorch versions.
   log-posterior, and K2, the stretch-move half-step over it.
 * ``csrc/sc3_logpost.cu`` (:mod:`.sc3`): K3, the quadrature band flux, and
   the fused ShockCooling3 log-posterior and half-step built on it.
+* ``csrc/sc_logpost.cu`` (:mod:`.sc`, :mod:`.sc4`): the fused ShockCooling
+  (SW17) and ShockCooling4 (MSW23) log-posteriors over the band table
+  (``csrc/band_table.cuh``, the staging K1 shares), their half-steps and
+  their tempered-ladder instantiations.
 * ``csrc/epoch_bb.cu`` (:mod:`.epoch_bb`): K4, the per-epoch blackbody
   log-posterior of the batched bolometric path and its gradient, the
   half-step over E epochs at once, and K4s, the posterior-summary rows.
@@ -12,7 +16,7 @@ and their plain PyTorch versions.
   rows by counting bisection.
 * ``csrc/ladder.cuh`` and ``csrc/ladder.cu`` (:mod:`.ladder`): K6, the
   tempered ladder: its half-step and initial state (templates instantiated
-  for ShockCooling2 and ShockCooling3 in their sources), the replica
+  for every model with kernels in its source), the replica
   exchange and the stepping-stone block terms.
 * ``csrc/gradient.cuh`` (:mod:`.sc2` for K7, :mod:`.gradient` for K9 and
   K7h): the gradient path over ShockCooling2, templates instantiated in
@@ -39,7 +43,7 @@ package needs neither nvcc nor a GPU. :func:`log_posterior` and
 (:func:`runs_segments`), :func:`log_posterior_and_grad` to K7.
 """
 
-from . import cs, epoch_bb, gradient, ladder, quantile, sc2, sc3, sed  # noqa: F401
+from . import cs, epoch_bb, gradient, ladder, quantile, sc, sc2, sc3, sc4, sed  # noqa: F401
 from .common import (LAUNCHES, reset_launch_counts, log_posterior_plain,  # noqa: F401
                      stretch_half_step_plain)
 from .gradient import hmc_transition, nuts_transition  # noqa: F401
@@ -51,17 +55,16 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "module_for", "module_of", "log_po
 
 def module_for(model):
     """The kernel module whose fused log-posterior evaluates ``model``:
-    :mod:`.sc2` for ShockCooling2, :mod:`.sc3` for ShockCooling3, :mod:`.cs`
-    for CompanionShocking 1-3. Any other model raises NotImplementedError."""
-    from ..models import BaseCompanionShocking, ShockCooling2, ShockCooling3
-    if isinstance(model, ShockCooling3):
-        return sc3
-    if isinstance(model, ShockCooling2):
-        return sc2
-    if isinstance(model, BaseCompanionShocking):
-        return cs
-    raise NotImplementedError(f"{type(model).__name__} has no fused CUDA log-posterior yet "
-                              "(ROADMAP Queue 1 item 7)")
+    :mod:`.sc2` for ShockCooling2, :mod:`.sc3` for ShockCooling3, :mod:`.sc`
+    for ShockCooling, :mod:`.sc4` for ShockCooling4, :mod:`.cs` for
+    CompanionShocking 1-3. Any other model raises NotImplementedError."""
+    from ..models import (BaseCompanionShocking, ShockCooling, ShockCooling2, ShockCooling3,
+                          ShockCooling4)
+    for cls, mod in ((ShockCooling3, sc3), (ShockCooling2, sc2), (ShockCooling, sc),
+                     (ShockCooling4, sc4), (BaseCompanionShocking, cs)):
+        if isinstance(model, cls):
+            return mod
+    raise NotImplementedError(f"{type(model).__name__} has no fused CUDA log-posterior")
 
 
 def module_of(lp):

@@ -87,7 +87,14 @@ def _declare(lib):
                                    ci, vp, vp]
     lib.sifto_launch.restype = ci
     lib.sifto_launch.argtypes = [vp, ci, ci, ctypes.POINTER(ci), vp]
-    for prefix in ("sc2", "sc3", "cs"):
+    for prefix in ("sc", "sc4"):
+        fn = getattr(lib, f"{prefix}_logpost_launch")
+        fn.restype = ci
+        fn.argtypes = [vp, ci, ci, vp, ci, ci, vp, vp]
+        fn = getattr(lib, f"{prefix}_half_step_launch")
+        fn.restype = ci
+        fn.argtypes = half_step
+    for prefix in ("sc2", "sc3", "sc", "sc4", "cs"):
         fn = getattr(lib, f"{prefix}_tempered_half_step_launch")
         fn.restype = ci
         fn.argtypes = [vp, ci, ci, vp, ci, vp, vp, vp, ci, ci, ci, vp, vp, vp, cd, vp, vp]

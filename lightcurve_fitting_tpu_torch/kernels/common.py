@@ -1,6 +1,6 @@
-"""What the kernel wrappers of :mod:`.sc2`, :mod:`.sc3`, :mod:`.cs`,
-:mod:`.epoch_bb`, :mod:`.quantile`, :mod:`.ladder`, :mod:`.gradient` and
-:mod:`.sed` share: the launch counts, input checks, the parameter-block
+"""What the kernel wrappers of :mod:`.sc2`, :mod:`.sc3`, :mod:`.sc`,
+:mod:`.sc4`, :mod:`.cs`, :mod:`.epoch_bb`, :mod:`.quantile`, :mod:`.ladder`,
+:mod:`.gradient` and :mod:`.sed` share: the launch counts, input checks, the parameter-block
 fields of the priors and the affine map, and the plain PyTorch stretch move
 (the plain version of every half-step kernel) and its run over a segment.
 """
@@ -22,7 +22,9 @@ LAUNCHES = {"sc2_logpost": 0, "stretch_half_step": 0, "bandflux": 0, "sc3_logpos
             "tempered_half_step": 0, "ladder_init": 0, "replica_swap": 0, "rung_block_terms": 0,
             "logpost_grad": 0, "nuts_transition": 0, "hmc_transition": 0, "sifto_direct": 0,
             "sifto_staged": 0, "cs_logpost": 0, "cs_half_step": 0, "sed_logpost": 0,
-            "sed_half_step": 0, "sed_run": 0}
+            "sed_half_step": 0, "sed_run": 0, "sc_logpost": 0, "sc_half_step": 0,
+            "sc_tempered_half_step": 0, "sc_ladder_init": 0, "sc4_logpost": 0, "sc4_half_step": 0,
+            "sc4_tempered_half_step": 0, "sc4_ladder_init": 0}
 
 FLOATS = (torch.float32, torch.float64)
 

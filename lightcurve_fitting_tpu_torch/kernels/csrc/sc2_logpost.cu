@@ -75,6 +75,7 @@
 // round-to-nearest intrinsics (no FMA contraction), so a new state equals
 // the plain PyTorch half-step's bit for bit whenever both accept.
 
+#include "band_table.cuh"
 #include "gradient.cuh"
 #include "ladder.cuh"
 
@@ -111,57 +112,6 @@ struct SC2Params {
     double affine_offset[LP_MAX_DIM];
     double affine_scale[LP_MAX_DIM];
 };
-
-template <typename C>
-struct PointData {
-    const C* tc;
-    const C* y;
-    const C* inv_dy;
-    const C* dy;
-    const C* su;
-    const C* s_a;
-    const C* s_b;
-    const C* coef;
-};
-
-template <typename C>
-__host__ __device__ inline size_t stage_bytes(const SC2Params& P) {
-    return sizeof(C) * (size_t)P.n_points * (size_t)(P.n_coef + 7);
-}
-
-// Copy the per-point constants into shared memory (every thread of the block
-// takes part, so call it before any thread returns), or point at global
-// memory when the table is larger than the block's shared memory.
-template <typename C>
-__device__ PointData<C> stage_points(const SC2Params& P, C* smem, int use_smem) {
-    PointData<C> d;
-    const C* src[8] = {(const C*)P.coef, (const C*)P.t_centered, (const C*)P.y,
-                       (const C*)P.inv_dy, (const C*)P.dy, (const C*)P.sigma_units,
-                       (const C*)P.s_a, (const C*)P.s_b};
-    const C* dst[8];
-    const int N = (int)P.n_points;
-    if (use_smem) {
-        C* s = smem;
-        for (int a = 0; a < 8; ++a) {
-            const int len = a == 0 ? N * (int)P.n_coef : N;
-            for (int i = threadIdx.x; i < len; i += blockDim.x) s[i] = src[a][i];
-            dst[a] = s;
-            s += len;
-        }
-        __syncthreads();
-    } else {
-        for (int a = 0; a < 8; ++a) dst[a] = src[a];
-    }
-    d.coef = dst[0];
-    d.tc = dst[1];
-    d.y = dst[2];
-    d.inv_dy = dst[3];
-    d.dy = dst[4];
-    d.su = dst[5];
-    d.s_a = dst[6];
-    d.s_b = dst[7];
-    return d;
-}
 
 // The walker's parameters in the compute type, and the model's constants.
 template <typename C>

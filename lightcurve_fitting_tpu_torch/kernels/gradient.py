@@ -100,7 +100,7 @@ def check_model(lp):
     if not has_kernels:
         raise NotImplementedError(
             f"{type(model).__name__} has no gradient kernel yet: on CUDA the gradient path runs "
-            "ShockCooling2 (K7 over the quadrature of ShockCooling3 is a later slice)")
+            "ShockCooling2 (K7 over the other models is a later slice: ROADMAP Queue 2)")
 
 
 def check_target(target):

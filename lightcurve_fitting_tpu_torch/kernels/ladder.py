@@ -3,8 +3,9 @@ versions beside them.
 
 * :func:`tempered_half_step` (K6a, ``tempered_half_step_kernel`` of
   ``csrc/ladder.cuh`` over the model's policy, in ``sc2_logpost.cu``,
-  ``sc3_logpost.cu`` or ``companion.cu``: a warp per walker over
-  ShockCooling2, ShockCooling3 and the companion-shocking models): one
+  ``sc3_logpost.cu``, ``sc_logpost.cu`` or ``companion.cu``: a warp per
+  walker over ShockCooling, ShockCooling2-4 and the companion-shocking
+  models): one
   stretch-move half-step of every rung's ensemble, accepting by log pi +
   beta log L;
 * :func:`ladder_init` (K6b, ``ladder_init_kernel``, a warp per state over
@@ -21,13 +22,14 @@ versions beside them.
 
 The ladder's target is a LogPosterior (the priors and the
 :class:`~lightcurve_fitting_tpu_torch.models.base.LogLikelihood` of
-ShockCooling2, ShockCooling3 or a companion-shocking model), whose kernels
+ShockCooling, ShockCooling2-4 or a companion-shocking model), whose kernels
 K6a and K6b evaluate, or a pair ``(log_prior, log_like)`` of torch callables
 of absolute float64 parameters (W, ndim) -> (W,), which only the plain
 versions run. For a
 tensor on the CPU each wrapper runs its plain version; for a CUDA tensor it
 launches its kernel or raises: there is no fallback. Each launch adds one to
-``LAUNCHES[name]``, and nothing else does.
+``LAUNCHES[name]``, and nothing else does; K6a and K6b over a model module
+with ``LADDER_COUNTS`` (:mod:`.sc`, :mod:`.sc4`) count under its names.
 """
 
 import ctypes
@@ -182,7 +184,7 @@ def tempered_half_step(target, x, logpri, logl, betas, h, u_z, j, u_acc, a=2.0,
                 float(a), n_accept.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"tempered_half_step_kernel launch failed: cudaError {rc}")
-    LAUNCHES["tempered_half_step"] += 1
+    LAUNCHES[getattr(mod, "LADDER_COUNTS", {}).get("tempered_half_step", "tempered_half_step")] += 1
 
 
 # ----------------------------------------------------------------------- K6b
@@ -231,7 +233,7 @@ def ladder_init(target, x, param_offset=None, param_scale=None, copies=1):
                 logpri.data_ptr(), logl.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"ladder_init_kernel launch failed: cudaError {rc}")
-    LAUNCHES["ladder_init"] += 1
+    LAUNCHES[getattr(mod, "LADDER_COUNTS", {}).get("ladder_init", "ladder_init")] += 1
     return logpri, logl
 
 

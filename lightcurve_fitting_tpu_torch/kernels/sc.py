@@ -1,0 +1,175 @@
+"""Wrappers of the fused ShockCooling kernels (``csrc/sc_logpost.cu``, SW17
+in physical parameters over the band table), with the plain PyTorch versions
+beside them; :mod:`.sc4` wraps the ShockCooling4 (MSW23) instantiations of
+the same source through the helpers here.
+
+* :func:`log_posterior` (``logpost_warp_kernel`` over ``SCWarpModel<C, N>``,
+  a warp per walker as the half-step, whose stored values it repeats bit
+  for bit): the log-posterior of a batch of walker states.
+* :func:`stretch_half_step` (``stretch_half_step_kernel`` over
+  ``SCWarpModel``, a warp per walker): one Goodman-Weare half-step of the
+  ensemble, in place.
+* K6a and K6b over ``SCWarpModel`` are launched by :mod:`.ladder`, which
+  counts them under ``LADDER_COUNTS``'s names.
+
+For a tensor on the CPU each wrapper runs its plain version
+(:func:`~.common.log_posterior_plain`, :func:`~.common.stretch_half_step_plain`).
+For a CUDA tensor it launches the kernel or raises: there is no fallback.
+Each launch adds one to ``LAUNCHES[name]``, and nothing else does.
+"""
+
+import ctypes
+
+import torch
+
+from .common import (LAUNCHES, MAX_DIM, FLOATS, check, check_buffers, cuda_args, affine_key,
+                     fill_priors_and_affine, half_step_checks, half_step_args,
+                     log_posterior_plain, stretch_half_step_plain)
+
+__all__ = ["log_posterior", "stretch_half_step", "LADDER_COUNTS"]
+
+#: the LAUNCHES names under which :mod:`.ladder` counts K6a and K6b over
+#: this module's policy
+LADDER_COUNTS = {"tempered_half_step": "sc_tempered_half_step",
+                 "ladder_init": "sc_ladder_init"}
+
+
+class _SCParams(ctypes.Structure):
+    """ctypes mirror of ``struct SCParams`` (csrc/sc_logpost.cu)."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in
+                 ("t_centered", "y", "inv_dy", "dy", "sigma_units", "s_a", "s_b", "coef")]
+                + [(n, ctypes.c_longlong) for n in
+                   ("n_points", "n_coef", "ndim", "use_sigma", "has_affine")]
+                + [(n, ctypes.c_double) for n in
+                   ("t_ref", "inv_yscale", "log_norm_const", "ll_offset", "kappa", "A",
+                    "a_model", "alpha", "eps1", "eps2", "L0_42", "T0", "tph_to_tcol",
+                    "L_br_0_42", "T_col_br_0", "t_br_0", "t_tr_0", "kappa_L", "kappa_T", "k_B",
+                    "c3_42")]
+                + [("prior_kind", ctypes.c_longlong * MAX_DIM)]
+                + [(n, ctypes.c_double * MAX_DIM) for n in
+                   ("p_min", "p_max", "mean", "stddev", "affine_offset", "affine_scale")])
+
+
+_BUFFERS = ("t_centered", "y", "inv_dy", "dy", "sigma_units", "bb_s_a", "bb_s_b", "bb_coeffs")
+
+#: the model constants of each kernel family, by the name kernel_constants()
+#: gives them and the field of _SCParams they fill
+_CONSTANTS = {
+    "sc": {"kappa": "kappa", "A": "A", "a": "a_model", "alpha": "alpha", "eps1": "eps1",
+           "eps2": "eps2", "L0_42": "L0_42", "T0": "T0", "tph_to_tcol": "tph_to_tcol"},
+    "sc4": {"kappa": "kappa", "A": "A", "a": "a_model", "alpha": "alpha",
+            "L_br_0_42": "L_br_0_42", "T_col_br_0": "T_col_br_0", "t_br_0": "t_br_0",
+            "t_tr_0": "t_tr_0"},
+}
+
+
+def kernel_params(prefix, lp, ndim, offset, scale):
+    """The parameter block of family ``prefix`` ("sc" or "sc4") for
+    LogPosterior ``lp``, cached on it and keyed by the buffers' addresses (a
+    module moved between devices gets a new block)."""
+    from ..core.constants import c3_42, k_B
+    ll = lp.log_likelihood
+    key = (prefix, ndim, affine_key(offset, scale),
+           tuple(getattr(ll, name).data_ptr() for name in _BUFFERS))
+    cache = lp.__dict__.setdefault("_kernel_params_cache", {})
+    if key in cache:
+        return cache[key]
+    if ndim != len(lp.priors) or ndim != 5 + int(ll.use_sigma) or ndim > MAX_DIM:
+        raise ValueError(f"the {prefix.upper()} kernels take ndim = 5 (+1 with use_sigma) "
+                         f"matching the priors; got ndim={ndim} for {len(lp.priors)} priors")
+    consts = ll.model.kernel_constants()
+    P = _SCParams()
+    for name in ("t_centered", "y", "inv_dy", "dy", "sigma_units"):
+        setattr(P, name, getattr(ll, name).data_ptr())
+    P.s_a, P.s_b, P.coef = ll.bb_s_a.data_ptr(), ll.bb_s_b.data_ptr(), ll.bb_coeffs.data_ptr()
+    P.n_points, P.n_coef = ll.bb_coeffs.shape
+    P.ndim, P.use_sigma = ndim, int(ll.use_sigma)
+    P.t_ref, P.inv_yscale = ll.t_ref, ll.inv_yscale
+    P.log_norm_const, P.ll_offset = ll.log_norm_const, ll.offset
+    for name, field in _CONSTANTS[prefix].items():
+        setattr(P, field, consts[name])
+    # the JAX graph raises the Python float kappa to these powers on the host
+    P.kappa_L, P.kappa_T = consts["kappa"] ** -0.89, consts["kappa"] ** -0.22
+    P.k_B, P.c3_42 = k_B, c3_42
+    fill_priors_and_affine(P, lp.priors, key[2])
+    cache[key] = P
+    return P
+
+
+def _kernel_params(lp, ndim, offset, scale):
+    return kernel_params("sc", lp, ndim, offset, scale)
+
+
+def logpost_launch(prefix, lp, q, param_offset=None, param_scale=None):
+    """The batch log-posterior (W,) float64 of family ``prefix`` for
+    LogPosterior ``lp`` at the walker states ``q`` (W, ndim) float32/float64,
+    affine-mapped to ``offset + scale * q`` when given: its plain version for
+    a CPU tensor, else the kernel."""
+    if q.device.type == "cpu":
+        return log_posterior_plain(lp, q, param_offset, param_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"the {prefix.upper()} log-posterior runs on CUDA (or its plain "
+                         f"version on the CPU), not {q.device}")
+    if q.ndim != 2:
+        raise ValueError(f"q must be (W, ndim), got shape {tuple(q.shape)}")
+    W, ndim = q.shape
+    check(q, "q", (W, ndim), FLOATS, q.device)
+    check_buffers(lp.log_likelihood, _BUFFERS, q.device)
+    from .build import library
+    lib = library()
+    P = kernel_params(prefix, lp, ndim, param_offset, param_scale)
+    out = torch.empty(W, dtype=torch.float64, device=q.device)
+    dev, stream = cuda_args(q.device)
+    rc = getattr(lib, f"{prefix}_logpost_launch")(
+        ctypes.addressof(P), dev, int(lp.log_likelihood.compute_dtype == torch.float64),
+        q.data_ptr(), int(q.dtype == torch.float64), W, out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"logpost_warp_kernel ({prefix.upper()}) launch failed: "
+                           f"cudaError {rc}")
+    LAUNCHES[f"{prefix}_logpost"] += 1
+    return out
+
+
+def half_step_launch(prefix, lp, x, logp, h, u_z, j, u_acc, a=2.0, param_offset=None,
+                     param_scale=None, chain_x=None, chain_logp=None, n_accept=None,
+                     check_partners=True):
+    """One stretch-move half-step of family ``prefix``, in place (arguments:
+    :func:`.sc2.stretch_half_step`): its plain version for a CPU tensor,
+    else the kernel."""
+    if x.device.type == "cpu":
+        def log_prob(q):
+            return log_posterior_plain(lp, q, param_offset, param_scale)
+        return stretch_half_step_plain(log_prob, x, logp, h, u_z, j, u_acc, a, chain_x,
+                                       chain_logp, n_accept)
+    if x.device.type != "cuda":
+        raise ValueError(f"the {prefix.upper()} half-step runs on CUDA (or its plain version "
+                         f"on the CPU), not {x.device}")
+    _, ndim = half_step_checks(x, logp, h, u_z, j, u_acc, chain_x, chain_logp, n_accept,
+                               check_partners)
+    check_buffers(lp.log_likelihood, _BUFFERS, x.device)
+    from .build import library
+    lib = library()
+    P = kernel_params(prefix, lp, ndim, param_offset, param_scale)
+    device_index, stream = cuda_args(x.device)
+    rc = getattr(lib, f"{prefix}_half_step_launch")(
+        ctypes.addressof(P), device_index, int(lp.log_likelihood.compute_dtype == torch.float64),
+        *half_step_args(x, logp, h, u_z, j, u_acc, a, chain_x, chain_logp, n_accept), stream)
+    if rc != 0:
+        raise RuntimeError(f"stretch_half_step_kernel ({prefix.upper()}) launch failed: "
+                           f"cudaError {rc}")
+    LAUNCHES[f"{prefix}_half_step"] += 1
+
+
+def log_posterior(lp, q, param_offset=None, param_scale=None):
+    """The ShockCooling log-posterior (W,) float64 of LogPosterior ``lp`` at
+    the walker states ``q`` (W, ndim) (see :func:`logpost_launch`)."""
+    return logpost_launch("sc", lp, q, param_offset, param_scale)
+
+
+def stretch_half_step(lp, x, logp, h, u_z, j, u_acc, a=2.0, param_offset=None,
+                      param_scale=None, chain_x=None, chain_logp=None, n_accept=None,
+                      check_partners=True):
+    """One ShockCooling stretch-move half-step, in place (see
+    :func:`half_step_launch`)."""
+    return half_step_launch("sc", lp, x, logp, h, u_z, j, u_acc, a, param_offset, param_scale,
+                            chain_x, chain_logp, n_accept, check_partners)

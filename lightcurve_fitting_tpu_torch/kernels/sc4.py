@@ -1,0 +1,45 @@
+"""Wrappers of the fused ShockCooling4 kernels (``csrc/sc_logpost.cu``,
+MSW23 over the band table: the smaller of the band fluxes at (T, R) and at
+(0.74 T, 0.74^-2 R) a point), through :mod:`.sc`'s helpers.
+
+* :func:`log_posterior` (``logpost_warp_kernel`` over ``SC4WarpModel<C, N>``,
+  a warp per walker as the half-step, whose stored values it repeats bit
+  for bit): the log-posterior of a batch of walker states.
+* :func:`stretch_half_step` (``stretch_half_step_kernel`` over
+  ``SC4WarpModel``, a warp per walker): one Goodman-Weare half-step of the
+  ensemble, in place.
+* K6a and K6b over ``SC4WarpModel`` are launched by :mod:`.ladder`, which
+  counts them under ``LADDER_COUNTS``'s names.
+
+For a tensor on the CPU each wrapper runs its plain version; for a CUDA
+tensor it launches the kernel or raises. Each launch adds one to
+``LAUNCHES[name]``, and nothing else does.
+"""
+
+from .sc import _BUFFERS, half_step_launch, kernel_params, logpost_launch  # noqa: F401
+
+__all__ = ["log_posterior", "stretch_half_step", "LADDER_COUNTS"]
+
+#: the LAUNCHES names under which :mod:`.ladder` counts K6a and K6b over
+#: this module's policy
+LADDER_COUNTS = {"tempered_half_step": "sc4_tempered_half_step",
+                 "ladder_init": "sc4_ladder_init"}
+
+
+def _kernel_params(lp, ndim, offset, scale):
+    return kernel_params("sc4", lp, ndim, offset, scale)
+
+
+def log_posterior(lp, q, param_offset=None, param_scale=None):
+    """The ShockCooling4 log-posterior (W,) float64 of LogPosterior ``lp`` at
+    the walker states ``q`` (W, ndim) (see :func:`.sc.logpost_launch`)."""
+    return logpost_launch("sc4", lp, q, param_offset, param_scale)
+
+
+def stretch_half_step(lp, x, logp, h, u_z, j, u_acc, a=2.0, param_offset=None,
+                      param_scale=None, chain_x=None, chain_logp=None, n_accept=None,
+                      check_partners=True):
+    """One ShockCooling4 stretch-move half-step, in place (see
+    :func:`.sc.half_step_launch`)."""
+    return half_step_launch("sc4", lp, x, logp, h, u_z, j, u_acc, a, param_offset, param_scale,
+                            chain_x, chain_logp, n_accept, check_partners)

@@ -11,6 +11,7 @@ from .priors import (Prior, UniformPrior, LogUniformPrior, GaussianPrior,  # noq
                      KDEPrior)
 from .blackbody import (planck_fast, planck, blackbody_to_filters, planck_lnu,  # noqa: F401
                         bandflux_pointwise, bandflux_outer)
-from .shock_cooling import BaseShockCooling, ShockCooling2, ShockCooling3  # noqa: F401
+from .shock_cooling import (BaseShockCooling, ShockCooling, ShockCooling2,  # noqa: F401
+                            ShockCooling3, ShockCooling4)
 from .companion_shocking import (BaseCompanionShocking, CompanionShocking,  # noqa: F401
                                  CompanionShocking2, CompanionShocking3, sifto, M_chandra)

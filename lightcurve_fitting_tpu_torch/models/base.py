@@ -96,6 +96,20 @@ class Model:
             self.z = 0.0
         self.device = torch.device(device if device is not None else "cpu")
 
+    def _ctor_kwargs(self):
+        """The constructor options beyond (lc, redshift) that select the
+        physics (ShockCooling's n, RW and kappa), which subclasses record in
+        ``self._init_options`` so that :meth:`clone_for` keeps them."""
+        return dict(getattr(self, "_init_options", {}))
+
+    def clone_for(self, lc):
+        """A new instance of this model class bound to ``lc``, with the same
+        constructor options, device and z (z = 0 included, which the
+        constructor would replace with ``lc.meta['redshift']``)."""
+        clone = type(self)(lc, redshift=self.z, device=self.device, **self._ctor_kwargs())
+        clone.z = self.z
+        return clone
+
     def __repr__(self):
         return f"<{self.__class__.__name__}: z={self.z:.3f}>"
 
@@ -142,10 +156,9 @@ class Model:
 
     def kernel_constants(self):
         """Model constants of the fused CUDA log-posterior, for models that
-        have one; see ShockCooling2 and ShockCooling3."""
+        have one (the concrete shock-cooling and companion-shocking models)."""
         raise NotImplementedError(
-            f"{self.__class__.__name__} has no fused CUDA log-posterior yet "
-            "(ROADMAP Queue 1 item 7)")
+            f"{self.__class__.__name__} has no fused CUDA log-posterior")
 
     # -------------------------------------------------------------- host side
     def evaluate(self, t_in, f, *params):

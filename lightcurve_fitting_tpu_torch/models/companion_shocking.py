@@ -112,6 +112,7 @@ class BaseCompanionShocking(Model):
 
     def __init__(self, lc, redshift=0.0, kappa=1.0, device=None):
         super().__init__(lc, redshift=redshift, device=device)
+        self._init_options = {"kappa": kappa}
         #: opacity in units of the electron-scattering 0.34 cm^2/g, threaded
         #: through the Kasen component (the reference only accepts kappa per
         #: evaluate() call, models.py:731-784)

@@ -240,7 +240,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     srcs, _ = build._sources()
     assert [os.path.basename(s) for s in srcs] == ["companion.cu", "epoch_bb.cu", "ladder.cu",
                                                    "quantile.cu", "sc2_logpost.cu",
-                                                   "sc3_logpost.cu", "sed.cu"]
+                                                   "sc3_logpost.cu", "sc_logpost.cu", "sed.cu"]
 
 
 def test_param_block_layout_matches_the_c_struct():

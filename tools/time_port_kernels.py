@@ -150,7 +150,7 @@ PTXAS_KERNELS = ("nuts_transition", "hmc_transition", "logpost_grad", "SC2WarpMo
                  "SC3WarpModel", "CSWarpModel",
                  "epoch_map_polish", "EpochBBModel", "replica_swap", "epoch_summary",
                  "epoch_logpost", "rung_block_terms", "bandflux", "percentile", "sifto_kernel",
-                 "SEDWarpModel")
+                 "SEDWarpModel", "SCWarpModel", "SC4WarpModel")
 
 
 def events_ms(fn, launches, repeats):
