@@ -289,10 +289,17 @@ raises and the script exits non-zero):
     priors, an eighth with t < t_0), float32 <= 1e-5 and float64 <= 1e-10
     of the term scale, identical -inf sets, at the fits' widths (64, 4096)
     the same values bit for bit, each timed; n = 3, RW and kappa = 0.7 at
-    4096; the half-step at half 65536, 2048 and 32, K6a (each rung its own
-    states) and K6b as called at 26b's 25 rungs x 64, as in 4, 14 and 15,
-    float32 and float64, each timed, K6b's values the batch
-    log-posterior's bits; phase 21 covers their use_sigma branches;
+    4096; the half-step at half 65536, 2048 and 32 in the form
+    ``kernels/sc.py::sc_half_form`` picks (the latency form below its
+    crossover: a walker's points over ceil(N / 32) warps, one a thread;
+    the warp form at 65536), K6a (each rung its own states) and K6b as
+    called at 26b's 25 rungs x 64, as in 4, 14 and 15, float32 and
+    float64, each timed, K6b's values the batch log-posterior's bits; at
+    each of those widths, in float32 and float64, with and without the
+    scatter, the latency form bit-equal to the warp form (h = 0, 1: states,
+    log-posteriors, accepts, the chain slot) and the batch log-posterior
+    at its new states the stored bits, each form timed (the profiler's
+    device time); phase 21 covers the other use_sigma branches;
 26. SW17 against MSW23, the counters reset before (a): (a)
     ``lightcurve_mcmc`` of each at 4096 walkers x 300, seeds 1-8, the mean
     acceptance within 4 combined standard errors of the JAX package's
@@ -307,7 +314,9 @@ raises and the script exits non-zero):
     ``information_criteria(group_by="filter")`` and ``goodness_of_fit`` on
     the winner (a finite chi2, p in [0, 1]), the discrepancy op timed on
     the card against the host; the counters show every SC and SC4 kernel
-    ran, and no plain version did.
+    ran, and no plain version did, and the per-form counts that each
+    half-step of (a) (half 2048) and of (b)-(c) (half 32) ran in the form
+    ``kernels/sc.py::sc_half_form`` picks at its width.
 
 The last lines are the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and library time, and ``{"ok": true,
@@ -5328,6 +5337,9 @@ SC_LOO_REF = {"ShockCooling": (-226429.0139959561, -208583.70626222115, -523496.
                                 -196189.85060277674)}
 SC_KERNELS = ("sc_logpost", "sc_half_step", "sc_tempered_half_step", "sc_ladder_init",
               "sc4_logpost", "sc4_half_step", "sc4_tempered_half_step", "sc4_ladder_init")
+# the half-steps' widths in phase 25: 65536 (past the latency form's
+# crossover), 26a's 2048 and 26c's 32
+SC_HALVES = (HEADLINE_WALKERS // 2, SC_FIT_WALKERS // 2, SC_LP_WIDTHS[0] // 2)
 
 
 def sc_priors(t0_hi=57468.7):
@@ -5354,6 +5366,50 @@ def sc_walkers(rng, W):
     return np.concatenate([window_states(rng, SC_LO, SC_UP, W - W // 8, 0.01), late])
 
 
+def sc_sigma_prior():
+    from lightcurve_fitting_tpu_torch.models import LogUniformPrior
+    return [LogUniformPrior(0.01, 10.0)]
+
+
+def sc_forms_equal(what, prefix, lp, off, scale, x0, seed):
+    """The SC or SC4 half-step (h = 0, then 1) in its warp and latency forms
+    from the rescaled state x0 (2, half, ndim) under shared draws, the chain
+    slot in float64: new states, log-posteriors, accept counts and chain
+    bit-equal, and the batch log-posterior at the new states the stored
+    values' bits. Returns the accepts."""
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels import sc
+    dev = x0.device
+    half, ndim = x0.shape[1], x0.shape[2]
+    l0 = sc.logpost_launch(prefix, lp, x0.reshape(-1, ndim), off, scale).reshape(2, half)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    draws = [(torch.rand(half, generator=g, device=dev, dtype=x0.dtype),
+              torch.randint(0, half, (half,), generator=g, device=dev),
+              torch.rand(half, generator=g, device=dev, dtype=x0.dtype)) for _ in (0, 1)]
+    out = []
+    for form in ("warp", "latency"):
+        st = (x0.clone(), l0.clone(), torch.zeros((2, half), dtype=torch.int32, device=dev),
+              torch.empty((2, half, ndim), dtype=torch.float64, device=dev),
+              torch.empty((2, half), dtype=torch.float64, device=dev))
+        n0 = {f: sc.LAUNCHES[f"{prefix}_half_step_{f}"] for f in ("warp", "latency")}
+        for h in (0, 1):
+            sc.half_step_launch(prefix, lp, st[0], st[1], h, *draws[h], 2.0, off, scale, st[3],
+                                st[4], st[2], form=form)
+        moved = {f: sc.LAUNCHES[f"{prefix}_half_step_{f}"] - n for f, n in n0.items()}
+        if moved != {f: 2 * (f == form) for f in n0}:
+            raise AssertionError(f"{what}: two half-steps in the {form} form counted {moved}")
+        out.append(st)
+    if not all(torch.equal(a, b) for a, b in zip(*out)):
+        raise AssertionError(f"{what}: the latency form's states, log-posteriors, accepts or "
+                             "chain differ from the warp form's")
+    again = sc.logpost_launch(prefix, lp, out[1][0].reshape(-1, ndim), off, scale)
+    if not torch.equal(again.reshape(2, half), out[1][1]):
+        raise AssertionError(f"{what}: the batch log-posterior at the new states is not the "
+                             "stored values' bits")
+    return int(out[1][2].sum())
+
+
 def phase_sc_kernels(lc, rng_seed=21):
     """25: the SC and SC4 kernels (SCWarpModel, SC4WarpModel: a warp per
     walker) against their plain versions on SN 2016bkv's early curve. The
@@ -5372,6 +5428,8 @@ def phase_sc_kernels(lc, rng_seed=21):
     from lightcurve_fitting_tpu_torch.core import config
     from lightcurve_fitting_tpu_torch.fitting import _state_rescaling, make_log_posterior
     from lightcurve_fitting_tpu_torch.kernels import common, ladder
+    from lightcurve_fitting_tpu_torch.kernels import sc as ksc
+    from lightcurve_fitting_tpu_torch.kernels.gradient import sm_count
     from lightcurve_fitting_tpu_torch.parallel.evidence import make_beta_ladder
     from time_port_kernels import device_ms
 
@@ -5380,10 +5438,15 @@ def phase_sc_kernels(lc, rng_seed=21):
     R, LW = SC_LADDER
     rng = np.random.default_rng(rng_seed)
     rows, lines = {}, []
+
+    def dev_ms(fn):   # a half-step's device ms, the median of 3 profiler windows (one
+        # whose records the profiler dropped, PERF.md §7, is NaN and left out)
+        got = sorted(v for v in device_ms(fn, "stretch_half_step", 20, 3) if v == v)
+        return got[len(got) // 2] if got else float("nan")
     for name in SC_NAMES:
         mod = getattr(kernels, SC_PREFIX[name])
         eval_ops, mark = SC_EVAL_OPS[name], SC_MARK[name]
-        res, widths, halves, lads, k6b, variants = {}, {}, {}, {}, {}, []
+        res, widths, halves, forms, lads, k6b, variants = {}, {}, {}, {}, {}, {}, []
         for label in ("f32", "f64"):
             try:
                 if label == "f64":
@@ -5416,14 +5479,29 @@ def phase_sc_kernels(lc, rng_seed=21):
                     d = compare_ll(f"{name} {opt} {label}", lpo(q), lpo.forward_plain(q), rel,
                                    scale=lpo.log_likelihood.term_scales(q))
                     variants.append(f"{opt} {label} max |d| {d[0]:.3e}")
-                # the half-step (h = 0, 1) on the sampler's float32 rescaled state
+                # the half-step (h = 0, 1) on the sampler's float32 rescaled state,
+                # in the form the rule picks against the plain version, and in
+                # both forms bit for bit, with and without the scatter
                 off, sc = kw["param_offset"], kw["param_scale"]
                 lph = make_log_posterior(sc_model(name, lc), lc, sc_priors(), device=dev)
-                for half in (W // 2, SC_FIT_WALKERS // 2, SC_LP_WIDTHS[0] // 2):
+                lps = make_log_posterior(sc_model(name, lc), lc, sc_priors() + sc_sigma_prior(),
+                                         use_sigma=True, device=dev)
+                kws = _state_rescaling(torch.float32, SC_LO + [0.5], SC_UP + [3.0], dev)
+                for half in SC_HALVES:
                     x0 = torch.as_tensor((rng.uniform(SC_LO, SC_UP, size=(2 * half, 5)) - off)
                                          / sc, device=dev).float().reshape(2, half, 5).contiguous()
                     c = check_half_step(f"{name} half-step {label} {half}", lph, off, sc, x0,
                                         rng_seed, rel)
+                    xs = torch.as_tensor((rng.uniform(SC_LO + [0.5], SC_UP + [3.0],
+                                                      size=(2 * half, 6))
+                                          - kws["param_offset"]) / kws["param_scale"],
+                                         device=dev).float().reshape(2, half, 6).contiguous()
+                    forms[(label, half)] = (
+                        sc_forms_equal(f"25 {name} {label} half {half}", SC_PREFIX[name], lph,
+                                       off, sc, x0, rng_seed),
+                        sc_forms_equal(f"25 {name} {label} half {half} use_sigma",
+                                       SC_PREFIX[name], lps, kws["param_offset"],
+                                       kws["param_scale"], xs, rng_seed))
                     if label == "f64":
                         halves[(label, half)] = (c, None)
                         continue
@@ -5436,13 +5514,16 @@ def phase_sc_kernels(lc, rng_seed=21):
                     xk, lk = x0.clone(), l0.clone()
                     ak = torch.zeros((2, half), dtype=torch.int32, device=dev)
 
-                    def step():
-                        mod.stretch_half_step(lph, xk, lk, 0, u_z, j, u_acc, 2.0, off, sc,
-                                              n_accept=ak, check_partners=False)
-                    t = (cuda_ms(step), device_ms(step, "stretch_half_step_kernel", 20, 1)[0],
+                    def step(form=None):
+                        ksc.half_step_launch(SC_PREFIX[name], lph, xk, lk, 0, u_z, j, u_acc, 2.0,
+                                             off, sc, n_accept=ak, check_partners=False,
+                                             form=form)
+                    t = (cuda_ms(step), dev_ms(step),
                          bound_fields(half * (eval_ops(ll32) + PROPOSAL),
-                                      half * (2 * 5 * 4 + 8 + 16 + 4) + half * (5 * 4 + 8 + 4)))
-                    if half == W // 2:
+                                      half * (2 * 5 * 4 + 8 + 16 + 4) + half * (5 * 4 + 8 + 4)),
+                         {f: dev_ms(lambda: step(f)) for f in ("warp", "latency")},
+                         ksc.sc_half_form(half, ll32.bb_coeffs.shape[0], sm_count(dev)))
+                    if half == SC_FIT_WALKERS // 2:
                         xp, lpp = x0.clone(), l0.clone()
                         t += (cuda_ms(lambda: common.stretch_half_step_plain(
                             lambda q: chunked(lambda cc: common.log_posterior_plain(
@@ -5493,12 +5574,12 @@ def phase_sc_kernels(lc, rng_seed=21):
                 config.set_compute_dtype(config.AUTO)
         prefix = SC_PREFIX[name]
         t32 = widths["f32"]
-        hW = halves[("f32", W // 2)][1]
+        hW = halves[("f32", SC_FIT_WALKERS // 2)][1]
         rows[prefix] = {
             "logpost": {"max_abs_err": res["f32"][0], "ms": t32[W][0], "plain_ms": plain_ms,
                         **t32[W][2]},
             "half": {"max_abs_err": max(v[0][2] for k, v in halves.items() if k[0] == "f32"),
-                     "ms": hW[0], "plain_ms": hW[3], **hW[2]},
+                     "ms": hW[0], "plain_ms": hW[5], **hW[2]},
             "k6a": {"max_abs_err": lads["f32"][2], "ms": a_t[0], "plain_ms": a_plain, **a_t[2]},
             "k6b": {"max_abs_err": k6b["f32"][0], "ms": k6b["f32"][1], "plain_ms": k6b["f32"][5],
                     **k6b["f32"][3]}}
@@ -5513,9 +5594,15 @@ def phase_sc_kernels(lc, rng_seed=21):
             + f", plain {plain_ms:.4f} ms at {W} (f32); at 4096 " + ", ".join(variants)
             + "; half-step " + "; ".join(
                 f"{lab} half {h}: {c[1]} accepts, {c[0]} near-ties, new-logp max |d| {c[2]:.3e}"
-                + (f", {t[0]:.4f}; {t[1]:.4f} ms (bound {t[2]['bound_ms']:.5f})" if t else "")
+                + (f", the {t[4]} form {t[0]:.4f}; {t[1]:.4f} ms (bound "
+                   f"{t[2]['bound_ms']:.5f}; device: warp form {t[3]['warp']:.4f}, latency "
+                   f"form {t[3]['latency']:.4f})" if t else "")
+                + f"; the latency form bit-equal to the warp form ({forms[(lab, h)][0]} "
+                f"accepts; with use_sigma {forms[(lab, h)][1]}) and the batch log-posterior "
+                "at its new states the stored bits"
                 for (lab, h), (c, t) in halves.items())
-            + f", plain {hW[3]:.4f} ms at half {W // 2}; K6a {R} x {LW} " + "; ".join(
+            + f", plain {hW[5]:.4f} ms at half {SC_FIT_WALKERS // 2}; K6a {R} x {LW} "
+            + "; ".join(
                 f"{lab}: {v[1]} accepts, {v[0]} near-ties, log L max |d| {v[2]:.3e}, K6b at "
                 f"K6a's states its stored bits, K6b log L max |d| {v[3]:.3e}"
                 for lab, v in lads.items())
@@ -5552,14 +5639,18 @@ def phase_sc_main_path(lc, smi):
     on the winner, called directly: a finite chi2 and p in [0, 1]; the
     discrepancy op (1024 draws, torch ops on the card) timed against the
     same call on the host. The counters show every SC and SC4 kernel ran,
-    and no plain version did. Returns (the launches, the discrepancy's row
-    for PERF.md)."""
+    and no plain version did, and each half-step of (a) (half 2048) and of
+    (b)-(c) (half 32) ran in the form kernels/sc.py::sc_half_form picks at
+    its width, by the per-form counts. Returns (the launches, the
+    discrepancy's row for PERF.md)."""
     import numpy as np
     import torch
     from lightcurve_fitting_tpu_torch import fitting, kernels
     from lightcurve_fitting_tpu_torch.fitting import (compare_models, compare_models_loo,
                                                       goodness_of_fit, information_criteria,
                                                       lightcurve_mcmc)
+    from lightcurve_fitting_tpu_torch.kernels import sc as ksc
+    from lightcurve_fitting_tpu_torch.kernels.gradient import sm_count
 
     kernels.reset_launch_counts()
     calls = {"discrepancy": 0}
@@ -5586,6 +5677,7 @@ def phase_sc_main_path(lc, smi):
                                          f"package's {ref:.5f} +- {ref_se:.5f}")
                 acc[name] = (mean, se, each)
             t_a = time.perf_counter() - t_a
+            after_a = dict(kernels.LAUNCHES)
             phase("SW17 vs MSW23 26a", f"lightcurve_mcmc {SC_FIT_WALKERS} walkers x 300 steps "
                   f"from the window, seeds 1-8: " + "; ".join(
                       f"{k} mean acceptance {v[0]:.5f} +- {v[1]:.5f} (JAX float64 CPU "
@@ -5661,6 +5753,20 @@ def phase_sc_main_path(lc, smi):
                                  f"{launches}")
     if plain.count:
         raise AssertionError(f"{plain.count} plain versions ran on the SW17-vs-MSW23 path")
+    # each half-step in the form the rule picks at its run's width
+    ran_forms = {}
+    for run, (before, after, half) in {
+            "26a": ({k: 0 for k in launches}, after_a, SC_FIT_WALKERS // 2),
+            "26b-c": (after_a, launches, SC_LP_WIDTHS[0] // 2)}.items():
+        want = ksc.sc_half_form(half, len(lc), sm_count(torch.device("cuda")))
+        for prefix in ("sc", "sc4"):
+            got = {f: after[f"{prefix}_half_step_{f}"] - before[f"{prefix}_half_step_{f}"]
+                   for f in ("warp", "latency")}
+            total = after[f"{prefix}_half_step"] - before[f"{prefix}_half_step"]
+            if total == 0 or got[want] != total:
+                raise AssertionError(f"{run}: {total} {prefix.upper()} half-steps at half {half}, "
+                                     f"by form {got}: not all in the {want} form the rule picks")
+            ran_forms[(run, prefix)] = (half, got)
 
     # the discrepancy op on the winner's chain: 1024 draws x 149 points, torch
     # ops on the card, against the same call on the host (float64)
@@ -5699,7 +5805,10 @@ def phase_sc_main_path(lc, smi):
           f"log-density, torch ops on the card) {ms:.4f} ms (events, host work included; bound "
           f"{drow['bound_ms']:.5f} ms), the same call on the host {host_ms:.2f} ms, max "
           f"|d|/(|ll| + 1) {err:.2e} against it; {calls['discrepancy']} calls on 26a-c; no plain "
-          f"version ran; launches {launches}")
+          f"version ran; the half-steps by form, each run's all in the rule's form: " + "; ".join(
+              f"{run} {p.upper()} (half {h}) warp {got['warp']}, latency {got['latency']}"
+              for (run, p), (h, got) in ran_forms.items())
+          + f"; launches {launches}")
     return launches, drow
 
 
@@ -5781,6 +5890,12 @@ def main():
               f"{v[2] + v[3]}" for k, v in report.items()
               if any(m in k for m in ("half_step_kernelI11SCWarpModel",
                                       "half_step_kernelI12SC4WarpModel")))
+          + "; the SC and SC4 half-steps' latency form (16 dtype instantiations each) " + "; ".join(
+              f"{m}: registers {sorted({v[0] for k, v in report.items() if key in k})}, stack "
+              f"frames {sorted({v[1] for k, v in report.items() if key in k})} bytes, spills "
+              f"{sorted({v[2] + v[3] for k, v in report.items() if key in k})}"
+              for m, key in (("SC", "latency_kernelI11SCWarpModel"),
+                             ("SC4", "latency_kernelI12SC4WarpModel")))
           + "; K10's half-step (SEDWarpModel, 32 instantiations) " + ", ".join(
               f"registers {v[0]}, stack frame {v[1]} bytes, spills {v[2] + v[3]}"
               for v in sorted({tuple(v) for k, v in report.items()
@@ -5949,7 +6064,12 @@ def main():
             dict(name=f"logpost_warp_kernel<{policy}<C, N>> ({what} log-posterior)",
                  route="cuda", source=src_sc, replaces=replaces,
                  launches=launches_sc[f"{prefix}_logpost"], **k_sc[prefix]["logpost"]),
-            dict(name=f"stretch_half_step_kernel<{policy}> ({what} half-step)", route="cuda",
+            dict(name=f"stretch_half_step_kernel<{policy}> / stretch_half_step_latency_kernel<"
+                      f"{policy}> ({what} half-step; launched on 26a-c (half "
+                      f"{SC_FIT_WALKERS // 2}, {SC_LP_WIDTHS[0] // 2}): warp form "
+                      f"{launches_sc[f'{prefix}_half_step_warp']}, latency form "
+                      f"{launches_sc[f'{prefix}_half_step_latency']}; times at half "
+                      f"{SC_FIT_WALKERS // 2} in the rule's form)", route="cuda",
                  source=src_sc, replaces="lightcurve_fitting_tpu/parallel/sampler.py:86",
                  launches=launches_sc[f"{prefix}_half_step"], **k_sc[prefix]["half"]),
             dict(name=f"tempered_half_step_kernel<{policy}> (K6a over {what})", route="cuda",

@@ -93,7 +93,7 @@ def _declare(lib):
         fn.argtypes = [vp, ci, ci, vp, ci, ci, vp, vp]
         fn = getattr(lib, f"{prefix}_half_step_launch")
         fn.restype = ci
-        fn.argtypes = half_step
+        fn.argtypes = half_step[:-1] + [ci, vp]   # the form before the stream
     for prefix in ("sc2", "sc3", "sc", "sc4", "cs"):
         fn = getattr(lib, f"{prefix}_tempered_half_step_launch")
         fn.restype = ci

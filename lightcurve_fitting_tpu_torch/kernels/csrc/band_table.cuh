@@ -70,13 +70,14 @@ __device__ __forceinline__ C table_s(C T, C s_a, C s_b) {
 
 // ln g(s) of the Chebyshev row c[0 .. K-1] by Clenshaw's recurrence, each
 // link fused and rounded by hand as K1's (sc2_forward's EXACT), so that
-// every inlined copy gives the same bits.
-template <typename C>
-__device__ __forceinline__ C table_ln_g(C s, const C* c, int K) {
+// every inlined copy gives the same bits. COLUMN: the row's coefficients
+// lie stride apart, c[0], c[stride], ... (a column of a transposed table).
+template <typename C, bool COLUMN = false>
+__device__ __forceinline__ C table_ln_g(C s, const C* c, int K, int stride = 0) {
     const C two_s = C(2) * s;
     C b1 = C(0), b2 = C(0);
     for (int k = K - 1; k >= 1; --k) {
-        const C b0 = add_rn(fma(two_s, b1, -b2), c[k]);
+        const C b0 = add_rn(fma(two_s, b1, -b2), COLUMN ? c[(size_t)k * stride] : c[k]);
         b2 = b1;
         b1 = b0;
     }
@@ -86,12 +87,13 @@ __device__ __forceinline__ C table_ln_g(C s, const C* c, int K) {
 // table_ln_g at two coordinates of one row at once: the two recurrences
 // interleaved, each link's coefficient read once for both. Each chain has
 // table_ln_g's operations, so each result has its bits.
-template <typename C>
-__device__ __forceinline__ void table_ln_g2(C s1, C s2, const C* c, int K, C& g1, C& g2) {
+template <typename C, bool COLUMN = false>
+__device__ __forceinline__ void table_ln_g2(C s1, C s2, const C* c, int K, C& g1, C& g2,
+                                            int stride = 0) {
     const C t1 = C(2) * s1, t2 = C(2) * s2;
     C a1 = C(0), a2 = C(0), b1 = C(0), b2 = C(0);
     for (int k = K - 1; k >= 1; --k) {
-        const C ck = c[k];
+        const C ck = COLUMN ? c[(size_t)k * stride] : c[k];
         const C a0 = add_rn(fma(t1, a1, -a2), ck);
         const C b0 = add_rn(fma(t2, b1, -b2), ck);
         a2 = a1;

@@ -41,6 +41,17 @@
 // log-posterior and K6b repeat the values that the half-steps store.
 // Sixteen warps a block in both dtypes (a 128-register cap: SC4's two
 // chains at SC2's 64-register cap would risk spills).
+// The half-steps' latency form (stretch_half_step_latency_kernel of
+// stretch.cuh, through point_term), where a warp per walker leaves the card
+// idle (the fits' 32-2048 walkers a half; kernels/sc.py::sc_half_form): a
+// walker of the warp form takes its staging, prologue and ~5 points a lane
+// one after another (~2 us a point: a dozen power laws and the Clenshaw
+// chain, each step depending on the last), so a walker's points spread over
+// ceil(N / 32) warps, one a thread, read where they lie (a warp's 32
+// points' coefficients from coef_t, coalesced); the walker's prologue runs
+// on the block's first warp (ShockCooling4's nine float64 powers a lane
+// each, sc4_walker_lanes), and the terms are summed in the warp form's
+// order, so both forms store the same bits.
 //
 // Dtype semantics follow the JAX accelerator path, with each model's own
 // order of casts. SW17 (temperature_radius) casts t - t_exp, v_s, M_env,
@@ -100,6 +111,8 @@ struct SCParams {
     double stddev[LP_MAX_DIM];
     double affine_offset[LP_MAX_DIM];
     double affine_scale[LP_MAX_DIM];
+    const void* coef_t;       // (n_coef, N) the rows' transpose: the half-steps' latency
+                              // form reads it, a warp's 32 points coalesced
 };
 
 // minimum with jnp.minimum's NaN: NaN when either is NaN
@@ -185,10 +198,12 @@ __device__ __forceinline__ SCWalker<C> sc_walker(const double* p, const SCParams
 }
 
 // Point n's residual term: T and R of SW17 (temperature_radius's order) and
-// the band table's flux.
-template <typename C>
+// the band table's flux, the point's coefficients its row of d.coef, or with
+// COLUMN its column of coef_t (N points a row).
+template <typename C, bool COLUMN = false>
 __device__ __forceinline__ C sc_point(int n, const SCWalker<C>& w, const SCConsts<C>& k,
-                                      const PointData<C>& d, int K, bool use_sigma) {
+                                      const PointData<C>& d, int K, bool use_sigma,
+                                      const C* coef_t = nullptr, int N = 0) {
     const C tt = sub_rn(d.tc[n], w.t_exp);
     const C tt2 = mul_rn(tt, tt);
     const C L_RW = div_rn(mul_rn(mul_rn(mul_rn(k.L0, power0(div_rn(mul_rn(tt2, w.v_s), w.fk),
@@ -204,7 +219,10 @@ __device__ __forceinline__ C sc_point(int n, const SCWalker<C>& w, const SCConst
     C F = C(0);
     if (T > C(0)) {
         const C s = table_s(T, d.s_a[n], d.s_b[n]);
-        F = mul_rn(mul_rn(R, R), m_exp(table_ln_g(s, d.coef + (size_t)n * K, K)));
+        C g;
+        if constexpr (COLUMN) g = table_ln_g<C, true>(s, coef_t + n, K, N);
+        else g = table_ln_g(s, d.coef + (size_t)n * K, K);
+        F = mul_rn(mul_rn(R, R), m_exp(g));
     }
     return sc_term(F, k.inv_yscale, w.sig, d, n, use_sigma);
 }
@@ -242,32 +260,74 @@ struct SC4Walker {
     C t_exp, sig, t_br, L_br, T_col_br, t_tr;
 };
 
-template <typename C>
-__device__ __forceinline__ SC4Walker<C> sc4_walker(const double* p, const SCParams& P,
-                                                   int ndim) {
+// The walker's breakout scales (Eq. A5-A7, A9) from pw(k), k = 0-9: the
+// float64 values R^1.26, v_s*^-1.13, f_rho M^-0.13, R^0.78, v_s*^2.11,
+// f_rho M^0.11, R^-0.32, v_s*^0.58, f_rho M^0.03 and sqrt(kappa M_env /
+// v_s*), multiplied left to right as the JAX graph multiplies.
+template <typename C, typename PW>
+__device__ __forceinline__ SC4Walker<C> sc4_breakout(const PW& pw, const double* p,
+                                                     const SCParams& P, int ndim) {
     SC4Walker<C> w;
-    const double v_s = p[0], M_env = p[1], f_rho_M = p[2], R = p[3];
-    // Eq. A5-A7, A9, left to right as the JAX graph multiplies
-    const double t_br = __dmul_rn(__dmul_rn(__dmul_rn(P.t_br_0, pow(R, 1.26)), pow(v_s, -1.13)),
-                                  pow(f_rho_M, -0.13));
-    const double L_br = __dmul_rn(__dmul_rn(__dmul_rn(__dmul_rn(P.L_br_0_42, pow(R, 0.78)),
-                                                      pow(v_s, 2.11)), pow(f_rho_M, 0.11)),
-                                  P.kappa_L);
-    const double T_col_br = __dmul_rn(__dmul_rn(__dmul_rn(__dmul_rn(P.T_col_br_0, pow(R, -0.32)),
-                                                          pow(v_s, 0.58)), pow(f_rho_M, 0.03)),
-                                      P.kappa_T);
-    const double t_tr = __dmul_rn(P.t_tr_0, sqrt(__ddiv_rn(__dmul_rn(P.kappa, M_env), v_s)));
+    const double t_br = __dmul_rn(__dmul_rn(__dmul_rn(P.t_br_0, pw(0)), pw(1)), pw(2));
+    const double L_br = __dmul_rn(__dmul_rn(__dmul_rn(__dmul_rn(P.L_br_0_42, pw(3)), pw(4)),
+                                            pw(5)), P.kappa_L);
+    const double T_col_br = __dmul_rn(__dmul_rn(__dmul_rn(__dmul_rn(P.T_col_br_0, pw(6)), pw(7)),
+                                                pw(8)), P.kappa_T);
+    const double t_tr = __dmul_rn(P.t_tr_0, pw(9));
     w.t_exp = (C)(p[4] - P.t_ref);
     w.sig = P.use_sigma ? (C)p[ndim - 1] : C(0);
     w.t_br = (C)t_br, w.L_br = (C)L_br, w.T_col_br = (C)T_col_br, w.t_tr = (C)t_tr;
     return w;
 }
 
-// Point n's residual term: T and R of MSW23 (Eq. A1, A2) and the smaller of
-// the band table's fluxes at (T, R) and (0.74 T, 0.74^-2 R) (Eq. A4).
+// sc4_breakout's ten values on one lane, each where the product takes it.
 template <typename C>
+__device__ __forceinline__ SC4Walker<C> sc4_walker(const double* p, const SCParams& P,
+                                                   int ndim) {
+    const double v_s = p[0], M_env = p[1], f_rho_M = p[2], R = p[3];
+    return sc4_breakout<C>([&](int k) {
+        switch (k) {
+            case 0: return pow(R, 1.26);
+            case 1: return pow(v_s, -1.13);
+            case 2: return pow(f_rho_M, -0.13);
+            case 3: return pow(R, 0.78);
+            case 4: return pow(v_s, 2.11);
+            case 5: return pow(f_rho_M, 0.11);
+            case 6: return pow(R, -0.32);
+            case 7: return pow(v_s, 0.58);
+            case 8: return pow(f_rho_M, 0.03);
+            default: return sqrt(__ddiv_rn(__dmul_rn(P.kappa, M_env), v_s));
+        }
+    }, p, P, ndim);
+}
+
+// sc4_walker by the 32 lanes of a warp together, the same bits on every
+// lane: lane k < 10 forms sc4_breakout's k-th value, shuffled to all (on one
+// lane the nine float64 pows run one after another, ~0.6 us each on the
+// H100).
+template <typename C>
+__device__ __forceinline__ SC4Walker<C> sc4_walker_lanes(const double* p, const SCParams& P,
+                                                         int ndim) {
+    const int lane = threadIdx.x & 31;
+    const double e = lane == 0 ? 1.26 : lane == 1 ? -1.13 : lane == 2 ? -0.13 : lane == 3 ? 0.78
+                   : lane == 4 ? 2.11 : lane == 5 ? 0.11 : lane == 6 ? -0.32 : lane == 7 ? 0.58
+                   : 0.03;
+    double mine = 0.0;
+    if (lane < 9) mine = pow(lane % 3 == 0 ? p[3] : (lane % 3 == 1 ? p[0] : p[2]), e);
+    else if (lane == 9) mine = sqrt(__ddiv_rn(__dmul_rn(P.kappa, p[1]), p[0]));
+    double pw[10];
+#pragma unroll
+    for (int k = 0; k < 10; ++k) pw[k] = __shfl_sync(0xffffffffu, mine, k);
+    return sc4_breakout<C>([&](int k) { return pw[k]; }, p, P, ndim);
+}
+
+// Point n's residual term: T and R of MSW23 (Eq. A1, A2) and the smaller of
+// the band table's fluxes at (T, R) and (0.74 T, 0.74^-2 R) (Eq. A4); the
+// coefficients as sc_point's.
+template <typename C, bool COLUMN = false>
 __device__ __forceinline__ C sc4_point(int n, const SC4Walker<C>& w, const SC4Consts<C>& k,
-                                       const PointData<C>& d, int K, bool use_sigma) {
+                                       const PointData<C>& d, int K, bool use_sigma,
+                                       const C* coef_t = nullptr, int N = 0) {
     const C tt = sub_rn(d.tc[n], w.t_exp);
     const C tl = div_rn(tt, w.t_br);
     const C decay = mul_rn(mul_rn(k.A, m_exp(-power0(div_rn(mul_rn(k.a_mod, tt), w.t_tr),
@@ -283,8 +343,9 @@ __device__ __forceinline__ C sc4_point(int n, const SC4Walker<C>& w, const SC4Co
         const C T2 = mul_rn((C)0.74, T);
         const C R2 = mul_rn((C)1.8261504747991235, R);   // 0.74 ** -2.0, as Python forms it
         C g1, g2;
-        table_ln_g2(table_s(T, d.s_a[n], d.s_b[n]), table_s(T2, d.s_a[n], d.s_b[n]),
-                    d.coef + (size_t)n * K, K, g1, g2);
+        const C s1 = table_s(T, d.s_a[n], d.s_b[n]), s2 = table_s(T2, d.s_a[n], d.s_b[n]);
+        if constexpr (COLUMN) table_ln_g2<C, true>(s1, s2, coef_t + n, K, g1, g2, N);
+        else table_ln_g2(s1, s2, d.coef + (size_t)n * K, K, g1, g2);
         F = nan_min(mul_rn(mul_rn(R, R), m_exp(g1)), mul_rn(mul_rn(R2, R2), m_exp(g2)));
     }
     return sc_term(F, k.inv_yscale, w.sig, d, n, use_sigma);
@@ -305,11 +366,14 @@ __device__ double sc4_log_likelihood_warp(const SC4Walker<C>& w, const PointData
 // The table-path warp policy of stretch.cuh and ladder.cuh (the batch
 // log-posterior, the half-step, K6a and K6b): a warp per walker, batched,
 // sixteen warps a block, the tables staged once a block. N: the walker's
-// dimension at compile time (policy_dim), or 0 (P.ndim).
+// dimension at compile time (policy_dim), or 0 (P.ndim). Its point_term
+// (sc_point, sc4_point) also runs the half-step's latency form, a point a
+// thread.
 template <typename C, int N>
 struct SCTableModel {
     typedef SCParams Params;
     typedef PointData<C> Data;
+    typedef C Compute;
     static constexpr int warps_per_block = 16;
     static constexpr bool batched = true;
     static constexpr int ndim = N;
@@ -331,6 +395,11 @@ struct SCWarpModel : SCTableModel<C, N> {
                                                  const SCParams& P) {
         return sc_log_likelihood_warp<C>(w, d, P);
     }
+    static __device__ C point_term(int n, const Walker& w, const PointData<C>& d,
+                                   const SCParams& P) {
+        return sc_point<C, true>(n, w, sc_consts<C>(P), d, (int)P.n_coef, P.use_sigma != 0,
+                                 (const C*)P.coef_t, (int)P.n_points);
+    }
 };
 
 template <typename C, int N>
@@ -339,9 +408,17 @@ struct SC4WarpModel : SCTableModel<C, N> {
     static __device__ Walker walker(const double* p, const SCParams& P) {
         return sc4_walker<C>(p, P, N > 0 ? N : (int)P.ndim);
     }
+    static __device__ Walker walker_lanes(const double* p, const SCParams& P) {
+        return sc4_walker_lanes<C>(p, P, N > 0 ? N : (int)P.ndim);
+    }
     static __device__ double log_likelihood_warp(const Walker& w, const PointData<C>& d,
                                                  const SCParams& P) {
         return sc4_log_likelihood_warp<C>(w, d, P);
+    }
+    static __device__ C point_term(int n, const Walker& w, const PointData<C>& d,
+                                   const SCParams& P) {
+        return sc4_point<C, true>(n, w, sc4_consts<C>(P), d, (int)P.n_coef, P.use_sigma != 0,
+                                  (const C*)P.coef_t, (int)P.n_points);
     }
 };
 
@@ -377,10 +454,10 @@ using SC4WarpModel6 = SC4WarpModel<C, 6>;
                                   int state_f64, double* logp, int half, int h,                \
                                   const void* u_z, const long long* j, const void* u_acc,      \
                                   double a, void* chain_x, int chain_x_f64, void* chain_lp,    \
-                                  int chain_lp_f64, int* n_accept, void* stream) {             \
+                                  int chain_lp_f64, int* n_accept, int form, void* stream) {   \
         return launch_half_step<M##AnyDim>(P, device, compute_f64, x, state_f64, logp, half, h, \
                                            u_z, j, u_acc, a, chain_x, chain_x_f64, chain_lp,   \
-                                           chain_lp_f64, n_accept, stream);                    \
+                                           chain_lp_f64, n_accept, stream, 1, 0, form);        \
     }                                                                                          \
     int prefix##_tempered_half_step_launch(const SCParams* P, int device, int compute_f64,     \
                                            void* x, int state_f64, double* logpri,             \

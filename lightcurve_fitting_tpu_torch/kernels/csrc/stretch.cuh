@@ -1,7 +1,8 @@
 // Pieces shared by the fused log-posterior kernels of csrc/*.cu: device math
 // overloads, the priors, the Gaussian residual, and the stretch-move
-// half-step (K2), its run form (a segment of steps in one block) and the
-// batch log-posterior as templates over a model policy.
+// half-step (K2), its latency form (a walker's points over a block, for
+// SCWarpModel and SC4WarpModel), its run form (a segment of steps in one
+// block) and the batch log-posterior as templates over a model policy.
 //
 // A model policy M (SC2Model in sc2_logpost.cu, SC3WarpModel in
 // sc3_logpost.cu, EpochBBModel in epoch_bb.cu, CSModel in companion.cu,
@@ -375,6 +376,110 @@ stretch_half_step_kernel(const typename M::Params P, S* __restrict__ x,
     }
 }
 
+// ------------------------------------------------------------ latency form
+
+// The latency form of K2, for a policy whose log-likelihood is a sum of
+// per-point terms (ShockCooling's and ShockCooling4's in sc_logpost.cu),
+// where a warp per walker leaves the card idle: a walker's points spread
+// over a block of ceil(N / 32) warps, one point a thread. Such a policy
+// also provides
+//   typedef ... Compute;   // the compute type C of its terms
+//   static __device__ C point_term(int n, const Walker&, const Data&, const Params&);
+// point n's term of the residual sum, the one its log_likelihood_warp adds.
+// Every Params of such a policy has n_points, ll_offset and log_norm_const.
+// It may provide
+//   static __device__ Walker walker_lanes(const double* p, const Params&);
+// M::walker's bits, formed by the 32 lanes of a warp together
+// (ShockCooling4's float64 powers, a lane each).
+template <typename M, typename = void>
+struct policy_point {
+    static constexpr bool value = false;
+};
+template <typename M>
+struct policy_point<M, std::void_t<decltype(&M::point_term)>> {
+    static constexpr bool value = true;
+};
+template <typename M, typename = void>
+struct policy_walker_lanes {
+    static constexpr bool value = false;
+};
+template <typename M>
+struct policy_walker_lanes<M, std::void_t<decltype(&M::walker_lanes)>> {
+    static constexpr bool value = true;
+};
+
+// The latency form's largest walker: LP_LAT_WARPS warps, 32 x LP_LAT_WARPS
+// points.
+#define LP_LAT_WARPS 20
+
+// K2's latency form (a policy with point_term): one Goodman-Weare half-step
+// of half h, the arguments and writes of stretch_half_step_kernel (one
+// ensemble). A block per walker, of ceil(N / 32) warps: the per-point data
+// are read where they lie (M::stage without staging: a block would copy the
+// whole table for one walker). Warp 0 forms the walker's proposal, prior
+// and constants (every lane the same bits, as half_step_batch with nb = 1)
+// and puts the prior and the constants into shared memory; after a barrier,
+// thread n forms point n's term, into shared memory; after another, warp 0
+// sums them in log_likelihood_warp's order (lane l adds its points l,
+// l + 32, ... in turn with add_rn, then warp_sum's butterfly and
+// finish_log_likelihood) and its lane 0 decides and writes. So the stored
+// log-posterior has the bits of the warp form, of the batch log-posterior
+// and of K6b at that state. One walker a block was the fastest at every
+// width measured (two and four a block 4-24% slower from half 2048 up,
+// PERF.md §6).
+template <typename M, typename S, typename X, typename L>
+__global__ void __launch_bounds__(32 * LP_LAT_WARPS)
+stretch_half_step_latency_kernel(const typename M::Params P, S* __restrict__ x,
+                                 double* __restrict__ logp, int half, int h,
+                                 const S* __restrict__ u_z, const long long* __restrict__ j,
+                                 const S* __restrict__ u_acc, double a, X* __restrict__ chain_x,
+                                 L* __restrict__ chain_lp, int* __restrict__ n_accept) {
+    typedef typename M::Compute C;
+    typedef typename M::Walker Walker;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    __shared__ double lprior_s;
+    __shared__ Walker walker_s;
+    C* terms = reinterpret_cast<C*>(smem_raw);   // blockDim.x of them
+    const typename M::Data d = M::stage(P, nullptr, 0, 0);
+    const int i = blockIdx.x, n = threadIdx.x, lane = threadIdx.x & 31;
+    const bool lead = n < 32;
+    constexpr int D = policy_dim<M>::value;
+    const int ndim = D > 0 ? D : (int)P.ndim;
+    const int N = (int)P.n_points;
+    const size_t w = (size_t)h * half + i;
+    S y[D > 0 ? D : LP_MAX_DIM];
+    S z = S(1);
+    double lprior = -INFINITY;
+    if (lead) {
+        const S* xj = x + ((size_t)(1 - h) * half + (size_t)j[i]) * ndim;
+        double p[D > 0 ? D : LP_MAX_DIM];
+        z = stretch_proposal<D>(P, x + w * ndim, xj, u_z[i], a, y, p);
+        lprior = model_log_prior<M, D>(P, d, p);
+        if (lane == 0) lprior_s = lprior;
+        if constexpr (policy_walker_lanes<M>::value) {
+            if (isfinite(lprior)) {   // (uniform over the warp)
+                const Walker wk = M::walker_lanes(p, P);
+                if (lane == 0) walker_s = wk;
+            }
+        } else if (lane == 0 && isfinite(lprior)) {
+            walker_s = M::walker(p, P);
+        }
+    }
+    __syncthreads();
+    if (n < N && isfinite(lprior_s)) terms[n] = M::point_term(n, walker_s, d, P);
+    __syncthreads();
+    if (!lead) return;
+    double ll = -INFINITY;
+    if (isfinite(lprior)) {   // (uniform over the warp)
+        C acc = C(0);
+        for (int k = lane; k < N; k += 32) acc = add_rn(acc, terms[k]);
+        ll = finish_log_likelihood<C>(warp_sum(acc), P.use_sigma, P.ll_offset, P.log_norm_const);
+    }
+    if (lane != 0) return;
+    half_step_accept<D>(ndim, x + w * ndim, y, z, isfinite(lprior) ? lprior + ll : -INFINITY,
+                        logp, u_acc, w, i, chain_x, chain_lp, n_accept);
+}
+
 // The log-posteriors of walkers b0 .. b0 + nb - 1 of q, a warp per walker, as
 // half_step_batch evaluates a proposal: lane l maps walker b0 + l's state to
 // absolute parameters and forms its log-prior and, where that is finite, its
@@ -718,27 +823,54 @@ static int launch_half(const typename M::Params& P, void* x, double* logp, int h
     return (int)cudaGetLastError();
 }
 
+// K2's latency form (stretch_half_step_latency_kernel) over half walkers, a
+// block of ceil(N / 32) warps each. Refused for a policy without point_term,
+// and past LP_LAT_WARPS warps a walker.
+template <typename M, typename S, typename X, typename L>
+static int launch_half_latency(const typename M::Params& P, void* x, double* logp, int half,
+                               int h, const void* u_z, const long long* j, const void* u_acc,
+                               double a, void* chain_x, void* chain_lp, int* n_accept,
+                               cudaStream_t stream) {
+    if constexpr (!policy_point<M>::value) {
+        return (int)cudaErrorInvalidValue;
+    } else {
+        auto kernel = stretch_half_step_latency_kernel<M, S, X, L>;
+        const long long per_walker = (P.n_points + 31) / 32;
+        if (per_walker < 1 || per_walker > LP_LAT_WARPS) return (int)cudaErrorInvalidValue;
+        const int threads = (int)(32 * per_walker);
+        kernel<<<half, threads, sizeof(typename M::Compute) * threads, stream>>>(
+            P, (S*)x, logp, half, h, (const S*)u_z, j, (const S*)u_acc, a, (X*)chain_x,
+            (L*)chain_lp, n_accept);
+        return (int)cudaGetLastError();
+    }
+}
+
 // The half-step launch for the model policy M<C> of the run's dtypes: the
 // compute type C, the walker state S, the chain's state X and log-posterior
 // L, each float or double; n_ens ensembles (draw_stride apart in the draws),
-// 1 and 0 for a single one. Returns 0 or a cudaError_t code.
+// 1 and 0 for a single one; form 0 the warp form, 1 the latency form (one
+// ensemble, a policy with point_term). Returns 0 or a cudaError_t code.
 template <template <typename> class M>
 static int launch_half_step(const typename M<float>::Params* P, int device, int compute_f64,
                             void* x, int state_f64, double* logp, int half, int h,
                             const void* u_z, const long long* j, const void* u_acc, double a,
                             void* chain_x, int chain_x_f64, void* chain_lp, int chain_lp_f64,
                             int* n_accept, void* stream, int n_ens = 1,
-                            long long draw_stride = 0) {
+                            long long draw_stride = 0, int form = 0) {
     int rc = (int)cudaSetDevice(device);
     if (rc) return rc;
     if (half <= 0 || n_ens <= 0) return 0;
-    if (P->ndim > LP_MAX_DIM || n_ens > 65535) return (int)cudaErrorInvalidValue;
+    if (P->ndim > LP_MAX_DIM || n_ens > 65535 || (form != 0 && (form != 1 || n_ens != 1)))
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     const int key = compute_f64 * 8 + state_f64 * 4 + chain_x_f64 * 2 + chain_lp_f64;
-#define LP_HALF_CASE(K, C, S, X, L)                                                      \
-    case K:                                                                              \
-        return launch_half<M<C>, S, X, L>(*P, x, logp, half, h, u_z, j, u_acc, a, chain_x,  \
-                                          chain_lp, n_accept, n_ens, draw_stride, s);
+#define LP_HALF_CASE(K, C, S, X, L)                                                           \
+    case K:                                                                                   \
+        return form ? launch_half_latency<M<C>, S, X, L>(*P, x, logp, half, h, u_z, j, u_acc, \
+                                                         a, chain_x, chain_lp, n_accept, s)   \
+                    : launch_half<M<C>, S, X, L>(*P, x, logp, half, h, u_z, j, u_acc, a,      \
+                                                 chain_x, chain_lp, n_accept, n_ens,          \
+                                                 draw_stride, s);
     switch (key) {
         LP_HALF_CASE(0, float, float, float, float)
         LP_HALF_CASE(1, float, float, float, double)

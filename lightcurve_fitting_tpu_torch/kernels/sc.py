@@ -6,9 +6,14 @@ the same source through the helpers here.
 * :func:`log_posterior` (``logpost_warp_kernel`` over ``SCWarpModel<C, N>``,
   a warp per walker as the half-step, whose stored values it repeats bit
   for bit): the log-posterior of a batch of walker states.
-* :func:`stretch_half_step` (``stretch_half_step_kernel`` over
-  ``SCWarpModel``, a warp per walker): one Goodman-Weare half-step of the
-  ensemble, in place.
+* :func:`stretch_half_step`: one Goodman-Weare half-step of the ensemble,
+  in place, in the form :func:`sc_half_form` picks: ``"warp"``
+  (``stretch_half_step_kernel`` over ``SCWarpModel``, a warp per walker)
+  where the walkers fill the card, ``"latency"``
+  (``stretch_half_step_latency_kernel``: a block per walker, its points
+  over ceil(N / 32) warps, one point a thread) below. Both store the same
+  bits. A launch counts once under ``sc_half_step`` and once under its
+  form's name, ``sc_half_step_warp`` or ``sc_half_step_latency``.
 * K6a and K6b over ``SCWarpModel`` are launched by :mod:`.ladder`, which
   counts them under ``LADDER_COUNTS``'s names.
 
@@ -26,7 +31,7 @@ from .common import (LAUNCHES, MAX_DIM, FLOATS, check, check_buffers, cuda_args,
                      fill_priors_and_affine, half_step_checks, half_step_args,
                      log_posterior_plain, stretch_half_step_plain)
 
-__all__ = ["log_posterior", "stretch_half_step", "LADDER_COUNTS"]
+__all__ = ["log_posterior", "stretch_half_step", "sc_half_form", "LADDER_COUNTS"]
 
 #: the LAUNCHES names under which :mod:`.ladder` counts K6a and K6b over
 #: this module's policy
@@ -47,8 +52,23 @@ class _SCParams(ctypes.Structure):
                     "c3_42")]
                 + [("prior_kind", ctypes.c_longlong * MAX_DIM)]
                 + [(n, ctypes.c_double * MAX_DIM) for n in
-                   ("p_min", "p_max", "mean", "stddev", "affine_offset", "affine_scale")])
+                   ("p_min", "p_max", "mean", "stddev", "affine_offset", "affine_scale")]
+                + [("coef_t", ctypes.c_void_p)])
 
+
+#: the latency form's largest block, warps a walker (LP_LAT_WARPS of
+#: csrc/stretch.cuh): past 20 x 32 points a walker only the warp form runs
+LATENCY_MAX_WARPS = 20
+#: the half-steps run the latency form while a half's walkers need at most
+#: this many warps an SM (ceil(N / 32) a walker), the warp form above
+#: (sc_half_form): at 149 points on the H100's 132 SMs up to half 34320.
+#: ShockCooling4's forms cross between half 32768 (the latency form 0.155
+#: against 0.159-0.163 ms) and 40960 (0.191-0.192 against 0.186-0.191).
+#: ShockCooling's latency form stays ahead through 65536 (0.246 against
+#: 0.246-0.268 ms), so the one rule gives it up to ~10% between 34321 and
+#: 65536, widths no fit of the flagship runs (tools/time_port_kernels.py
+#: --sc-only --sc-halves; PERF.md §7)
+LATENCY_WARPS_PER_SM = 1300
 
 _BUFFERS = ("t_centered", "y", "inv_dy", "dy", "sigma_units", "bb_s_a", "bb_s_b", "bb_coeffs")
 
@@ -82,6 +102,9 @@ def kernel_params(prefix, lp, ndim, offset, scale):
     for name in ("t_centered", "y", "inv_dy", "dy", "sigma_units"):
         setattr(P, name, getattr(ll, name).data_ptr())
     P.s_a, P.s_b, P.coef = ll.bb_s_a.data_ptr(), ll.bb_s_b.data_ptr(), ll.bb_coeffs.data_ptr()
+    # the latency form's coalesced copy, kept alive with the block
+    P.coef_t_tensor = ll.bb_coeffs.t().contiguous()
+    P.coef_t = P.coef_t_tensor.data_ptr()
     P.n_points, P.n_coef = ll.bb_coeffs.shape
     P.ndim, P.use_sigma = ndim, int(ll.use_sigma)
     P.t_ref, P.inv_yscale = ll.t_ref, ll.inv_yscale
@@ -130,12 +153,29 @@ def logpost_launch(prefix, lp, q, param_offset=None, param_scale=None):
     return out
 
 
+def sc_half_form(half, n_points, n_sm):
+    """The SC and SC4 half-steps' form for ``half`` walkers of ``n_points``
+    points on a card of ``n_sm`` SMs: ``"latency"`` (a walker's points over
+    ceil(n_points / 32) warps, a point a thread) where a warp per walker
+    would leave the card's schedulers idle, each lane walking its points
+    one after another; ``"warp"`` (a warp per walker) where the walkers'
+    groups would overfill the card. Both store the same bits."""
+    per_walker = -(-n_points // 32)
+    if per_walker > LATENCY_MAX_WARPS:
+        return "warp"
+    return "latency" if half * per_walker <= LATENCY_WARPS_PER_SM * n_sm else "warp"
+
+
 def half_step_launch(prefix, lp, x, logp, h, u_z, j, u_acc, a=2.0, param_offset=None,
                      param_scale=None, chain_x=None, chain_logp=None, n_accept=None,
-                     check_partners=True):
+                     check_partners=True, form=None):
     """One stretch-move half-step of family ``prefix``, in place (arguments:
     :func:`.sc2.stretch_half_step`): its plain version for a CPU tensor,
-    else the kernel."""
+    else the kernel in ``form``, ``"warp"`` or ``"latency"`` (None: the form
+    :func:`sc_half_form` picks)."""
+    if form not in (None, "warp", "latency"):
+        raise ValueError(f"the {prefix.upper()} half-step's form is 'warp' or 'latency', "
+                         f"not {form!r}")
     if x.device.type == "cpu":
         def log_prob(q):
             return log_posterior_plain(lp, q, param_offset, param_scale)
@@ -150,14 +190,19 @@ def half_step_launch(prefix, lp, x, logp, h, u_z, j, u_acc, a=2.0, param_offset=
     from .build import library
     lib = library()
     P = kernel_params(prefix, lp, ndim, param_offset, param_scale)
+    if form is None:
+        from .gradient import sm_count
+        form = sc_half_form(x.shape[1], P.n_points, sm_count(x.device))
     device_index, stream = cuda_args(x.device)
     rc = getattr(lib, f"{prefix}_half_step_launch")(
         ctypes.addressof(P), device_index, int(lp.log_likelihood.compute_dtype == torch.float64),
-        *half_step_args(x, logp, h, u_z, j, u_acc, a, chain_x, chain_logp, n_accept), stream)
+        *half_step_args(x, logp, h, u_z, j, u_acc, a, chain_x, chain_logp, n_accept),
+        int(form == "latency"), stream)
     if rc != 0:
-        raise RuntimeError(f"stretch_half_step_kernel ({prefix.upper()}) launch failed: "
+        raise RuntimeError(f"the {prefix.upper()} half-step ({form} form) launch failed: "
                            f"cudaError {rc}")
     LAUNCHES[f"{prefix}_half_step"] += 1
+    LAUNCHES[f"{prefix}_half_step_{form}"] += 1
 
 
 def log_posterior(lp, q, param_offset=None, param_scale=None):

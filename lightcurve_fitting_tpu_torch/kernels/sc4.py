@@ -5,9 +5,12 @@ MSW23 over the band table: the smaller of the band fluxes at (T, R) and at
 * :func:`log_posterior` (``logpost_warp_kernel`` over ``SC4WarpModel<C, N>``,
   a warp per walker as the half-step, whose stored values it repeats bit
   for bit): the log-posterior of a batch of walker states.
-* :func:`stretch_half_step` (``stretch_half_step_kernel`` over
-  ``SC4WarpModel``, a warp per walker): one Goodman-Weare half-step of the
-  ensemble, in place.
+* :func:`stretch_half_step`: one Goodman-Weare half-step of the ensemble,
+  in place, in the form :func:`.sc.sc_half_form` picks
+  (``stretch_half_step_kernel`` over ``SC4WarpModel``, a warp per walker,
+  or its latency form ``stretch_half_step_latency_kernel``, a block per
+  walker; the same bits), counted under ``sc4_half_step`` and under
+  ``sc4_half_step_warp`` or ``sc4_half_step_latency``.
 * K6a and K6b over ``SC4WarpModel`` are launched by :mod:`.ladder`, which
   counts them under ``LADDER_COUNTS``'s names.
 

@@ -3277,3 +3277,66 @@ def test_k10_run_equals_its_half_steps_on_card(cuda_device, half, kde, thin_by):
     assert 0 < int(out[0][2].sum()) < 2 * half * n
     assert torch.equal(sed.log_posterior(lp, out[0][0].reshape(-1, 2)).reshape(2, half),
                        out[0][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefix", ["sc", "sc4"])
+@pytest.mark.parametrize("half", [32, 2048])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+@pytest.mark.parametrize("use_sigma", [False, True], ids=["plain", "sigma"])
+def test_sc_half_step_forms_bit_equal_on_card(lc, cuda_device, prefix, half, f64, use_sigma):
+    """The SC and SC4 half-steps in their two forms (a warp per walker; a
+    walker's points over ceil(N / 32) warps, one point a thread) from one
+    state under one set of draws, h = 0 then 1, the chain slot in float64:
+    the same new states, log-posteriors, accept counts and chain bits; and
+    the batch log-posterior at the new states repeats the stored values bit
+    for bit. compare_models' window (examples/compare_models.py), a tenth of
+    the walkers with t_0 after the first points, float32 rescaled state."""
+    from lightcurve_fitting_tpu_torch.fitting import _state_rescaling
+    from lightcurve_fitting_tpu_torch.kernels import sc
+    from lightcurve_fitting_tpu_torch.models import ShockCooling, ShockCooling4
+    lo = [0.5, 0.5, 0.1, 0.1, 57468.3] + ([0.5] if use_sigma else [])
+    up = [10.0, 20.0, 10.0, 20.0, 57468.7] + ([3.0] if use_sigma else [])
+    priors = ([UniformPrior(0.1, 20.0), UniformPrior(0.1, 30.0), LogUniformPrior(0.01, 100.0),
+               UniformPrior(0.01, 50.0), UniformPrior(57468.0, 57470.0)]
+              + ([LogUniformPrior(0.01, 10.0)] if use_sigma else []))
+    ndim = len(lo)
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        model = (ShockCooling if prefix == "sc" else ShockCooling4)(lc)
+        lp = make_log_posterior(model, lc, priors, use_sigma=use_sigma, device=cuda_device)
+        kw = _state_rescaling(torch.float32, lo, up, cuda_device)
+        off, scale = kw["param_offset"], kw["param_scale"]
+        rng = np.random.default_rng(half + 7 * f64 + 3 * use_sigma)
+        pos = rng.uniform(lo, up, size=(2 * half, ndim))
+        pos[: 2 * half // 10, 4] = rng.uniform(57468.8, 57469.9, 2 * half // 10)
+        x0 = torch.as_tensor((pos - off) / scale, device=cuda_device).float()
+        x0 = x0.reshape(2, half, ndim).contiguous()
+        l0 = sc.logpost_launch(prefix, lp, x0.reshape(-1, ndim), off, scale).reshape(2, half)
+        g = torch.Generator(device=cuda_device).manual_seed(half)
+        draws = [(torch.rand(half, generator=g, device=cuda_device),
+                  torch.randint(0, half, (half,), generator=g, device=cuda_device),
+                  torch.rand(half, generator=g, device=cuda_device)) for _ in (0, 1)]
+        out = {}
+        for form in ("warp", "latency"):
+            x, logp = x0.clone(), l0.clone()
+            acc = torch.zeros((2, half), dtype=torch.int32, device=cuda_device)
+            cx = torch.empty((2, half, ndim), dtype=torch.float64, device=cuda_device)
+            cl = torch.empty((2, half), dtype=torch.float64, device=cuda_device)
+            names = [f"{prefix}_half_step{s}" for s in ("", "_warp", "_latency")]
+            n0 = [kernels.LAUNCHES[k] for k in names]
+            for h in (0, 1):
+                sc.half_step_launch(prefix, lp, x, logp, h, *draws[h], 2.0, off, scale, cx, cl,
+                                    acc, form=form)
+            assert [kernels.LAUNCHES[k] - n for k, n in zip(names, n0)] == [
+                2, 2 * (form == "warp"), 2 * (form == "latency")]
+            out[form] = (x, logp, acc, cx, cl)
+        for a, b in zip(out["warp"], out["latency"]):
+            assert torch.equal(a, b)
+        x, logp, acc = out["latency"][:3]
+        assert 0 < int(acc.sum()) < 2 * half
+        assert torch.equal(sc.logpost_launch(prefix, lp, x.reshape(-1, ndim), off,
+                                             scale).reshape(2, half), logp)
+    finally:
+        config.set_compute_dtype(config.AUTO)

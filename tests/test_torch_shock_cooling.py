@@ -346,13 +346,88 @@ def test_kernel_modules_and_cpu_wrappers(lcs):
     assert (P4.t_br_0, P4.L_br_0_42, P4.T_col_br_0, P4.t_tr_0) == (0.036, 3.69, 8.19, 19.5)
 
 
+def test_sc_half_form_by_width():
+    """The SC and SC4 half-steps' form rule on the H100's 132 SMs at the
+    flagship's 149 points: the latency form at 26c's half 32 and 26a's half
+    2048, the warp form at half 65536; past 20 warps a walker (640 points)
+    only the warp form runs."""
+    assert sc.sc_half_form(32, 149, 132) == "latency"
+    assert sc.sc_half_form(2048, 149, 132) == "latency"
+    assert sc.sc_half_form(65536, 149, 132) == "warp"
+    assert sc.sc_half_form(1, 641, 132) == "warp"
+    assert sc.sc_half_form(1, 640, 132) == "latency"
+
+
+class _FakeCudaState:
+    """A CPU state tensor that reports a CUDA device, so that a half-step
+    wrapper takes its kernel branch up to the C call."""
+
+    def __init__(self, t):
+        self.t, self.shape, self.dtype = t, t.shape, t.dtype
+        self.device = torch.device("cuda", 0)
+
+    def data_ptr(self):
+        return self.t.data_ptr()
+
+
+@pytest.mark.parametrize("prefix", ["sc", "sc4"])
+def test_half_step_form_reaches_the_c_call(lcs, monkeypatch, prefix):
+    """The form sc_half_form picks (or the caller names) is the form argument
+    of the C launch, one LAUNCHES count a half-step under the name it had
+    and one under its form's name; a failed launch raises, naming the form
+    and counting nothing."""
+    from lightcurve_fitting_tpu_torch.kernels import build, gradient
+    _, tlc = lcs
+    model = tmodels.ShockCooling(tlc) if prefix == "sc" else tmodels.ShockCooling4(tlc)
+    lp = tfit.make_log_posterior(model, tlc, interop.priors_from_jax(PRIORS), device="cpu")
+    calls = []
+
+    class Lib:
+        rc = 0
+
+        def __getattr__(self, name):
+            def launch(*args):
+                calls.append((name, args[-2]))
+                return Lib.rc
+            return launch
+    monkeypatch.setattr(build, "library", lambda: Lib())
+    monkeypatch.setattr(gradient, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(sc, "half_step_checks", lambda x, *a: (x.shape[1], x.shape[2]))
+    monkeypatch.setattr(sc, "check_buffers", lambda *a: None)
+    monkeypatch.setattr(sc, "cuda_args", lambda dev: (0, 0))
+    name = f"{prefix}_half_step"
+    names = (name, f"{name}_warp", f"{name}_latency")
+    for k in names:
+        monkeypatch.setitem(kernels.LAUNCHES, k, kernels.LAUNCHES[k])   # restored after
+    for half, form, want in ((32, None, 1), (2048, None, 1), (65536, None, 0),
+                             (32, "warp", 0), (65536, "latency", 1)):
+        x = _FakeCudaState(torch.zeros((2, half, 5), dtype=torch.float32))
+        logp = torch.zeros((2, half), dtype=torch.float64)
+        u = torch.zeros(half, dtype=torch.float32)
+        j = torch.zeros(half, dtype=torch.int64)
+        acc = torch.zeros((2, half), dtype=torch.int32)
+        n0 = {k: kernels.LAUNCHES[k] for k in names}
+        sc.half_step_launch(prefix, lp, x, logp, 0, u, j, u, n_accept=acc, form=form)
+        assert calls[-1] == (f"{prefix}_half_step_launch", want)
+        ran = f"{name}_{('warp', 'latency')[want]}"
+        assert {k: kernels.LAUNCHES[k] - n0[k] for k in names} == {
+            k: int(k in (name, ran)) for k in names}
+    Lib.rc = 1
+    n0 = {k: kernels.LAUNCHES[k] for k in names}
+    with pytest.raises(RuntimeError, match="latency form"):
+        sc.half_step_launch(prefix, lp, x, logp, 0, u, j, u, n_accept=acc, form="latency")
+    assert {k: kernels.LAUNCHES[k] for k in names} == n0
+    with pytest.raises(ValueError, match="'warp' or 'latency'"):
+        sc.half_step_launch(prefix, lp, x, logp, 0, u, j, u, n_accept=acc, form="thread")
+
+
 def test_param_block_layout_matches_the_c_struct():
     """struct SCParams (csrc/sc_logpost.cu) and its ctypes mirror: every
-    field 8 bytes wide, 8 pointers, 5 ints, 21 doubles, then 7 arrays of
-    LP_MAX_DIM = 9, in one order."""
+    field 8 bytes wide, 8 pointers, 5 ints, 21 doubles, 7 arrays of
+    LP_MAX_DIM = 9, then the latency form's coef_t pointer, in one order."""
     import ctypes
     from test_torch_kernels import _c_fields
-    assert ctypes.sizeof(sc._SCParams) == 8 * (8 + 5 + 21) + 7 * 9 * 8
+    assert ctypes.sizeof(sc._SCParams) == 8 * (8 + 5 + 21) + 7 * 9 * 8 + 8
     assert _c_fields("SCParams") == [name for name, _ in sc._SCParams._fields_]
 
 

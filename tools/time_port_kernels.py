@@ -76,6 +76,18 @@ and of the fits, float32 compute, by CUDA events:
   launches (``K10_seg_*``; ``_dev``: 600 x a half-step's device time) and,
   where the checkout has it, as one launch of K10's run form
   (``K10_run_*``), on the same draws; each timed and hashed;
+* the ShockCooling (SW17) and ShockCooling4 (MSW23) kernels, where the
+  checkout has them (``time_sc``): the batch log-posterior at 64, 4096 and
+  131072 walkers (``SC_logpost_W*``, ``SC4_logpost_W*``), the half-step at
+  half 32, 2048 and 65536 (``--sc-halves``: other widths, as the form
+  rule's crossover was fitted) in each form in the order warp, latency,
+  latency, warp (``SC_half_{half}_{form}{1,2}``; a checkout with one form
+  times it as ``warp`` twice), K6a at 26b's 25 rungs x 64 walkers and K6b
+  as 26b calls it (``SC_K6a_25x64``, ``SC_K6b_25x64``), each timed and
+  hashed; with ``--fits`` the walls of ``chip_smoke.py`` 26a (one seed),
+  26b and 26c and each one's device busy time and idle share, the
+  profiled window primed with spin kernels; ``--sc-only`` times these
+  alone;
 * hashed only, at ``chip_smoke.py``'s shapes: K3, K4 with its gradient,
   K4s, K5, K6c and K6d; and SN 2016bkv's 65 packed epochs
   (``SN2016bkv_inputs``: ``y``, ``dy``, ``nodes``, ``weights``, ``mask``,
@@ -113,10 +125,10 @@ of the gradient kernels, of the SC2, SC3, CS and epoch warp kernels, of K4
 frame, spills) comes from the build.
 
 Usage: ``python3 tools/time_port_kernels.py [--repo PATH] [--label NAME]
-[--fits]``. ``--repo`` is the checkout whose ``lightcurve_fitting_tpu_torch``
-is timed (default: this one), so that two versions can be compared on one
-card, in turns: run it on each checkout in the order A, B, B, A on the same
-machine. Each run builds its checkout's kernels first. The last line of the
+[--fits] [--sc-only] [--sc-halves 32,2048,...]``. ``--repo`` is the
+checkout whose ``lightcurve_fitting_tpu_torch`` is timed (default: this
+one), so that two versions can be compared on one card, in turns: run it
+on each checkout in the order A, B, B, A on the same machine. Each run builds its checkout's kernels first. The last line of the
 output is one JSON object with the card, its power limit, each kernel's
 milliseconds (the minimum over the repeats, and all repeats), the digests
 and the ptxas report.
@@ -253,6 +265,10 @@ def main():
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--sass", action="append", default=[], metavar="NAME",
                     help="hash the SASS of the kernels whose names hold NAME (repeatable)")
+    ap.add_argument("--sc-only", action="store_true",
+                    help="time the SC and SC4 kernels alone (with --fits, their fits alone)")
+    ap.add_argument("--sc-halves", default="32,2048,65536",
+                    help="the SC and SC4 half-steps' widths, half walkers, comma-separated")
     ap.add_argument("--fits", action="store_true",
                     help="also time lightcurve_map, lightcurve_hmc (HMC; NUTS in f32, f64), "
                          "the SC3 32768 x 300 fit, the SC2 fits of chip_smoke.py phases 5 and "
@@ -295,9 +311,10 @@ def main():
         torch.cuda.synchronize()
         return time.perf_counter() - t0, out
 
-    def half_step(name, step, x, logp, half, seed, launches=20):
-        """Time one in-place half-step kernel on (x, logp) and hash one step
-        from the same start."""
+    def half_step(name, step, x, logp, half, seed, launches=20,
+                  match="stretch_half_step_kernel"):
+        """Time one in-place half-step kernel (the kernels holding ``match``)
+        on (x, logp) and hash one step from the same start."""
         g.manual_seed(seed)
         u_z = torch.rand(half, generator=g, device=dev)
         j = torch.randint(0, half, (half,), generator=g, device=dev)
@@ -309,8 +326,8 @@ def main():
         acc = torch.zeros((2, half), dtype=torch.int32, device=dev)
         times[name] = events_ms(lambda: step(x, logp, u_z, j, u_acc, acc), launches,
                                 args.repeats)
-        times[name + "_dev"] = device_ms(lambda: step(x, logp, u_z, j, u_acc, acc),
-                                         "stretch_half_step_kernel", launches, args.repeats)
+        times[name + "_dev"] = device_ms(lambda: step(x, logp, u_z, j, u_acc, acc), match,
+                                         launches, args.repeats)
 
     def tempered(name, target, x, off_, sc_, seed):
         """Time K6a over ``target`` on the ladder state x (R, 2, half, ndim),
@@ -339,6 +356,11 @@ def main():
         times[name + "_dev"] = device_ms(step, "tempered_half_step_kernel", launches,
                                          args.repeats)
         return pri_, ll_
+
+    if hasattr(chip_smoke, "SC_NAMES"):
+        time_sc(args, dev, lc, chip_smoke, times, digests, walls, half_step, tempered)
+    if args.sc_only:
+        return report(args, repo, build, times, digests, info, walls, ptxas)
 
     # K1 at 131072 walkers; K2 per half-step at half 32 (the 64-walker fits),
     # 16384 and 65536 (the 131072-walker fit), float32 rescaled state
@@ -1164,6 +1186,12 @@ def main():
                 nsteps=chip_smoke.EV_STEPS, nsteps_burnin=chip_smoke.EV_BURNIN, seed=1, **cs_kw))
         walls["cs2_24c_log_z"] = [float(ev[0]), float(ev[1])]
 
+    report(args, repo, build, times, digests, info, walls, ptxas)
+
+
+def report(args, repo, build, times, digests, info, walls, ptxas):
+    """Print every time, digest, wall and ptxas line (and with ``--sass``
+    the SASS hashes), then the one JSON line."""
     sass = {}
     if args.sass:
         cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
@@ -1198,6 +1226,124 @@ def main():
                       "digests": digests, "info": info, "walls": walls, "ptxas": ptxas,
                       "sass": sass}),
           flush=True)
+
+
+def fit_busy(fn, primes=256):
+    """(wall s, device busy s, the four kernels of most device time: {name:
+    [launches, ms]}) of one fn() under the profiler (the device's
+    activity alone), the window first primed with ``primes`` spin kernels
+    (the profiler drops a window's first records after long traces; the
+    spins are not counted)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(primes):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    evs = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and "spin" not in e.key]
+    busy = sum(e.self_device_time_total for e in evs) / 1e6
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:4]
+    return wall, busy, {e.key.split("(")[0][:90]: [e.count, e.self_device_time_total / 1e3]
+                        for e in top}
+
+
+def time_sc(args, dev, lc, chip_smoke, times, digests, walls, half_step, tempered):
+    """The ShockCooling (SW17) and ShockCooling4 (MSW23) kernels at
+    ``chip_smoke.py`` phase 25-26's shapes, float32 compute: the batch
+    log-posterior at 64, 4096 (the fits' initial states) and 131072 walkers
+    (``SC_logpost_W*``, ``SC4_...``); the half-step per half-step of half
+    32 (26c), 2048 (26a) and 65536 (or the widths of ``--sc-halves``) in
+    each form, in the order warp, latency, latency, warp
+    (``SC_half_{half}_{form}{1,2}``; a checkout with one form times it as
+    ``warp`` twice); K6a per ladder half-step of 25
+    rungs x 64 walkers (26b) and K6b as 26b calls it, one set of 64
+    starting states written to the 25 rungs (``SC_K6a_25x64``,
+    ``SC_K6b_25x64``); each timed and hashed. With ``--fits``: the walls of
+    26a (``lightcurve_mcmc`` 4096 x 300 from the window, seed 1, twice),
+    26b (``compare_models``, seed 7) and 26c (``compare_models_loo``, seed
+    7), and each one's device busy time and idle share (``fit_busy``)."""
+    import torch
+    from lightcurve_fitting_tpu_torch.fitting import (_state_rescaling, compare_models,
+                                                      compare_models_loo, lightcurve_mcmc,
+                                                      make_log_posterior)
+    from lightcurve_fitting_tpu_torch.kernels import ladder
+    from lightcurve_fitting_tpu_torch.kernels import sc as ksc
+    two_forms = "form" in ksc.half_step_launch.__code__.co_varnames
+    lo, up = chip_smoke.SC_LO, chip_smoke.SC_UP
+    R, LW = chip_smoke.SC_LADDER
+    for name in chip_smoke.SC_NAMES:
+        prefix = chip_smoke.SC_PREFIX[name]
+        tag = prefix.upper()
+        lps = make_log_posterior(chip_smoke.sc_model(name, lc), lc, chip_smoke.sc_priors(),
+                                 device=dev)
+        for w in (64, 4096, 131072):
+            q = torch.as_tensor(chip_smoke.sc_walkers(np.random.default_rng(w), w), device=dev)
+
+            def lpw(q=q):
+                return ksc.logpost_launch(prefix, lps, q)
+            times[f"{tag}_logpost_W{w}"] = events_ms(lpw, 20, args.repeats)
+            times[f"{tag}_logpost_W{w}_dev"] = device_ms(lpw, "logpost_warp_kernel", 20,
+                                                         args.repeats)
+            digests[f"{tag}_logpost_W{w}"] = digest(lpw())
+        kw = _state_rescaling(torch.float32, lo, up, dev)
+        off, sc = kw["param_offset"], kw["param_scale"]
+        for h2 in map(int, args.sc_halves.split(",")):
+            q = (np.random.default_rng(h2).uniform(lo, up, size=(2 * h2, 5)) - off) / sc
+            x = torch.as_tensor(q.reshape(2, h2, 5), device=dev).float().contiguous()
+            logp = ksc.logpost_launch(prefix, lps, x.reshape(-1, 5), off, sc).reshape(2, h2)
+            order = ("warp", "latency", "latency", "warp") if two_forms else ("warp", "warp")
+            for k, form in enumerate(order):
+                fkw = {"form": form} if two_forms else {}
+                half_step(f"{tag}_half_{h2}_{form}{1 + (k >= len(order) // 2)}",
+                          lambda x_, l_, uz, j_, ua, a_, fkw=fkw: ksc.half_step_launch(
+                              prefix, lps, x_, l_, 0, uz, j_, ua, 2.0, off, sc, n_accept=a_,
+                              check_partners=False, **fkw),
+                          x.clone(), logp.clone(), h2, 1, launches=20 if h2 > 2048 else 100,
+                          match="stretch_half_step")
+        kwl = _state_rescaling("auto", lo, up, dev)
+        offl, scl = kwl["param_offset"], kwl["param_scale"]
+        q = (np.random.default_rng(R).uniform(lo, up, size=(R * LW, 5)) - offl) / scl
+        xl = torch.as_tensor(q.reshape(R, 2, LW // 2, 5), device=dev).to(kwl["dtype"])
+        tempered(f"{tag}_K6a_{R}x{LW}", lps, xl.contiguous(), offl, scl, 1)
+        x1 = xl[:1].contiguous()
+
+        def init(x1=x1):
+            return ladder.ladder_init(lps, x1, offl, scl, copies=R)
+        times[f"{tag}_K6b_{R}x{LW}"] = events_ms(init, 100, args.repeats)
+        times[f"{tag}_K6b_{R}x{LW}_dev"] = device_ms(init, "ladder_init_kernel", 100,
+                                                     args.repeats)
+        digests[f"{tag}_K6b_{R}x{LW}"] = digest(*init())
+    if not args.fits:
+        return
+    sink = contextlib.redirect_stdout(io.StringIO())
+    kw = dict(p_lo=lo, p_up=up, seed=7, quiet=True)
+    models = [chip_smoke.sc_model(n, lc) for n in chip_smoke.SC_NAMES]
+    runs = {f"{chip_smoke.SC_PREFIX[n]}_26a": lambda n=n: lightcurve_mcmc(
+        lc, chip_smoke.sc_model(n, lc), chip_smoke.sc_priors(), nwalkers=chip_smoke.SC_FIT_WALKERS,
+        nsteps=300, nsteps_burnin=0, p_lo=lo, p_up=up, seed=1, quiet=True)
+        for n in chip_smoke.SC_NAMES}
+    runs["sc_26b"] = lambda: compare_models(
+        lc, models, chip_smoke.sc_priors(), labels=list(chip_smoke.SC_NAMES), nwalkers=64,
+        n_rungs=24, nsteps=400, nsteps_burnin=600, **kw)
+    runs["sc_26c"] = lambda: compare_models_loo(
+        lc, models, chip_smoke.sc_priors(), labels=list(chip_smoke.SC_NAMES), nwalkers=64,
+        nsteps=500, nsteps_burnin=500, **kw)
+    with sink:
+        for key, fn in runs.items():
+            for rep in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls[f"{key}_{rep}"] = time.perf_counter() - t0
+            wall_p, busy, top = fit_busy(fn)
+            walls[f"{key}_profiled"] = {"wall": wall_p, "busy": busy,
+                                        "idle_share": 1 - busy / wall_p, "top_kernels_ms": top}
 
 
 if __name__ == "__main__":
