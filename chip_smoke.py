@@ -299,7 +299,16 @@ raises and the script exits non-zero):
     scatter, the latency form bit-equal to the warp form (h = 0, 1: states,
     log-posteriors, accepts, the chain slot) and the batch log-posterior
     at its new states the stored bits, each form timed (the profiler's
-    device time); phase 21 covers the other use_sigma branches;
+    device time); K6a's latency form (``tempered_half_step_latency_kernel``
+    of ``kernels/csrc/ladder.cuh``: a block per (rung, walker), one point a
+    thread) bit-equal to its warp form at 26b's 25 x 64, at
+    ``lightcurve_evidence``'s default 33 x 64, at 17 x 4096 (past SC4's
+    crossover in ``kernels/sc.py::tempered_form``) and at 40 x 4096 (past
+    both models') (h = 0, 1, beta_0 = 0:
+    states, log pi, log L, accepts), float32 and float64, with and without
+    the scatter, K6b and the batch log-posterior at its new states the
+    stored bits, each form timed at each ladder (the median of three
+    profiler windows); phase 21 covers the other use_sigma branches;
 26. SW17 against MSW23, the counters reset before (a): (a)
     ``lightcurve_mcmc`` of each at 4096 walkers x 300, seeds 1-8, the mean
     acceptance within 4 combined standard errors of the JAX package's
@@ -316,7 +325,9 @@ raises and the script exits non-zero):
     the card against the host; the counters show every SC and SC4 kernel
     ran, and no plain version did, and the per-form counts that each
     half-step of (a) (half 2048) and of (b)-(c) (half 32) ran in the form
-    ``kernels/sc.py::sc_half_form`` picks at its width.
+    ``kernels/sc.py::sc_half_form`` picks at its width, and each of (b)'s
+    2 x 2000 K6a launches in the form ``kernels/sc.py::tempered_form``
+    picks at 25 x 32 (the latency form).
 
 The last lines are the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and library time, and ``{"ok": true,
@@ -5340,6 +5351,11 @@ SC_KERNELS = ("sc_logpost", "sc_half_step", "sc_tempered_half_step", "sc_ladder_
 # the half-steps' widths in phase 25: 65536 (past the latency form's
 # crossover), 26a's 2048 and 26c's 32
 SC_HALVES = (HEADLINE_WALKERS // 2, SC_FIT_WALKERS // 2, SC_LP_WIDTHS[0] // 2)
+# K6a's ladders in phase 25, rungs x walkers a rung: 26b's, lightcurve_evidence's
+# default (32 rungs + beta = 1 of 64 walkers), the evidence bench shape (17 x half
+# 2048 = 34816 walkers a launch: past SC4's crossover in kernels/sc.py::tempered_form,
+# before SC's) and 40 x 4096 (81920 walkers, past both)
+SC_K6A_LADDERS = (SC_LADDER, (33, 64), (17, 4096), (40, 4096))
 
 
 def sc_priors(t0_hi=57468.7):
@@ -5410,6 +5426,56 @@ def sc_forms_equal(what, prefix, lp, off, scale, x0, seed):
     return int(out[1][2].sum())
 
 
+def sc_tempered_forms_equal(what, prefix, lp, off, scale, x0, seed):
+    """K6a over SC or SC4 (h = 0, then 1) in its warp and latency forms from
+    the rescaled ladder state x0 (R, 2, half, ndim), beta_0 = 0, under shared
+    draws: new states, log pi, log L and accept counts bit-equal, each
+    form's launches under its own count, and K6b and the batch log-posterior
+    at the new states the stored values' bits. Returns the accepts."""
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels import ladder, sc
+    from lightcurve_fitting_tpu_torch.parallel.evidence import make_beta_ladder
+    dev = x0.device
+    R, _, half, ndim = x0.shape
+    pri0, ll0 = ladder.ladder_init(lp, x0, off, scale)
+    betas = torch.as_tensor(make_beta_ladder(R - 1), device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    shape = (R, 2, half)
+    u_z = torch.rand(shape, generator=g, device=dev, dtype=x0.dtype)
+    j = torch.randint(0, half, shape, generator=g, device=dev)
+    u_acc = torch.rand(shape, generator=g, device=dev, dtype=x0.dtype)
+    name = f"{prefix}_tempered_half_step"
+    out = []
+    for form in ("warp", "latency"):
+        st = (x0.clone(), pri0.clone(), ll0.clone(),
+              torch.zeros(shape, dtype=torch.int32, device=dev))
+        n0 = {f: sc.LAUNCHES[f"{name}_{f}"] for f in ("warp", "latency")}
+        for h in (0, 1):
+            ladder.tempered_half_step(lp, st[0], st[1], st[2], betas, h, u_z, j, u_acc, 2.0, off,
+                                      scale, st[3], form=form)
+        moved = {f: sc.LAUNCHES[f"{name}_{f}"] - n for f, n in n0.items()}
+        if moved != {f: 2 * (f == form) for f in n0}:
+            raise AssertionError(f"{what}: two K6a launches in the {form} form counted {moved}")
+        out.append(st)
+    if not all(torch.equal(a, b) for a, b in zip(*out)):
+        raise AssertionError(f"{what}: K6a's latency form's states, log pi, log L or accepts "
+                             "differ from the warp form's")
+    x, pri, ll, acc = out[1]
+    pri_k, ll_k = ladder.ladder_init(lp, x, off, scale)
+    if not torch.equal(pri_k, pri) or not torch.equal(ll_k, ll):
+        raise AssertionError(f"{what}: K6b at the new states differs from the values K6a stored")
+    val = sc.logpost_launch(prefix, lp, x.reshape(-1, ndim), off, scale).reshape(shape)
+    fin = torch.isfinite(pri)
+    if not torch.equal((pri + ll)[fin], val[fin]) or not bool(torch.isneginf(val[~fin]).all()):
+        raise AssertionError(f"{what}: the batch log-posterior at the new states is not the "
+                             "stored values' bits")
+    n_acc = int(acc.sum())
+    if not 0 < n_acc < acc.numel():
+        raise AssertionError(f"{what}: {n_acc} accepts of {acc.numel()}")
+    return n_acc
+
+
 def phase_sc_kernels(lc, rng_seed=21):
     """25: the SC and SC4 kernels (SCWarpModel, SC4WarpModel: a warp per
     walker) against their plain versions on SN 2016bkv's early curve. The
@@ -5420,8 +5486,9 @@ def phase_sc_kernels(lc, rng_seed=21):
     kappa = 0.7 (SC4) at 4096 walkers. The half-step at half 65536, 2048
     and 32, K6a (each rung its own states) at 26b's ladder, 25 rungs x 64
     walkers, and K6b as that ladder calls it, as phases 4, 14 and 15,
-    float32 and float64; K6b's values the batch log-posterior's bits.
-    Returns each kernel's row of the kernels line."""
+    float32 and float64; K6b's values the batch log-posterior's bits; K6a's
+    two forms bit for bit at SC_K6A_LADDERS (sc_tempered_forms_equal), each
+    form timed there. Returns each kernel's row of the kernels line."""
     import numpy as np
     import torch
     from lightcurve_fitting_tpu_torch import kernels
@@ -5439,14 +5506,16 @@ def phase_sc_kernels(lc, rng_seed=21):
     rng = np.random.default_rng(rng_seed)
     rows, lines = {}, []
 
-    def dev_ms(fn):   # a half-step's device ms, the median of 3 profiler windows (one
-        # whose records the profiler dropped, PERF.md §7, is NaN and left out)
-        got = sorted(v for v in device_ms(fn, "stretch_half_step", 20, 3) if v == v)
+    def dev_ms(fn, match="stretch_half_step"):   # a half-step's device ms, the median of
+        # 3 profiler windows (one whose records the profiler dropped, PERF.md §7, is NaN and
+        # left out)
+        got = sorted(v for v in device_ms(fn, match, 20, 3) if v == v)
         return got[len(got) // 2] if got else float("nan")
     for name in SC_NAMES:
         mod = getattr(kernels, SC_PREFIX[name])
         eval_ops, mark = SC_EVAL_OPS[name], SC_MARK[name]
         res, widths, halves, forms, lads, k6b, variants = {}, {}, {}, {}, {}, {}, []
+        tforms, ttimes = {}, {}
         for label in ("f32", "f64"):
             try:
                 if label == "f64":
@@ -5538,6 +5607,42 @@ def phase_sc_kernels(lc, rng_seed=21):
                 xl = xl.reshape(R, 2, LW // 2, 5).contiguous()
                 lads[label] = check_ladder(f"{name} ladder {label} {R} x {LW}", lph, offl, scl,
                                            xl, rng_seed, rel)
+                # K6a's two forms bit for bit at 26b's ladder, lightcurve_evidence's
+                # default and past the crossovers, with and without the
+                # scatter, each form timed (f32)
+                kwls = _state_rescaling("auto", SC_LO + [0.5], SC_UP + [3.0], dev)
+                for Rl, Wl in SC_K6A_LADDERS:
+                    for sig, lpx, kk in ((False, lph, kwl), (True, lps, kwls)):
+                        lo_, up_ = (SC_LO + [0.5], SC_UP + [3.0]) if sig else (SC_LO, SC_UP)
+                        xs = torch.as_tensor((window_states(rng, lo_, up_, Rl * Wl, 0.01)
+                                              - kk["param_offset"]) / kk["param_scale"],
+                                             device=dev).to(kk["dtype"])
+                        xs = xs.reshape(Rl, 2, Wl // 2, len(lo_)).contiguous()
+                        tforms[(label, Rl, Wl, sig)] = sc_tempered_forms_equal(
+                            f"25 {name} {label} K6a {Rl} x {Wl}" + (" use_sigma" if sig else ""),
+                            SC_PREFIX[name], lpx, kk["param_offset"], kk["param_scale"], xs,
+                            rng_seed)
+                        if label == "f64" or sig:
+                            continue
+                        pt, lt = ladder.ladder_init(lpx, xs, offl, scl)
+                        bt = torch.as_tensor(make_beta_ladder(Rl - 1), device=dev)
+                        gt = torch.Generator(device=dev)
+                        gt.manual_seed(rng_seed)
+                        sh = (Rl, 2, Wl // 2)
+                        uzt = torch.rand(sh, generator=gt, device=dev, dtype=xs.dtype)
+                        jt = torch.randint(0, Wl // 2, sh, generator=gt, device=dev)
+                        uat = torch.rand(sh, generator=gt, device=dev, dtype=xs.dtype)
+                        at = torch.zeros(sh, dtype=torch.int32, device=dev)
+
+                        def tstep(form, st=(xs.clone(), pt, lt), bt=bt, uzt=uzt, jt=jt, uat=uat,
+                                  at=at):
+                            ladder.tempered_half_step(lpx, *st, bt, 0, uzt, jt, uat, 2.0, offl,
+                                                      scl, at, check_partners=False, form=form)
+                        ttimes[(Rl, Wl)] = (
+                            {f: dev_ms(lambda f=f: tstep(f), "tempered_half_step")
+                             for f in ("warp", "latency")},
+                            mod.tempered_form(Rl * Wl // 2, lph.log_likelihood.bb_coeffs.shape[0],
+                                              sm_count(dev)))
                 pri, lll = ladder.ladder_init(lph, xl, offl, scl)
                 val = mod.log_posterior(lph, xl.reshape(-1, 5), offl, scl).reshape(pri.shape)
                 fin = torch.isfinite(pri)
@@ -5562,7 +5667,7 @@ def phase_sc_kernels(lc, rng_seed=21):
                         ladder.tempered_half_step(lph, *state, betas, 0, uz, jl, ua, 2.0, offl,
                                                   scl, al, check_partners=False)
                     n = R * LW // 2
-                    a_t = (cuda_ms(lstep), device_ms(lstep, "tempered_half_step_kernel", 20, 1)[0],
+                    a_t = (cuda_ms(lstep), dev_ms(lstep, "tempered_half_step"),
                            bound_fields(n * (eval_ops(ll32) + PROPOSAL),
                                         n * (2 * 5 * 4 + 2 * 8 + 4 + 8 + 4) + R * 8
                                         + n * (5 * 4 + 2 * 8 + 4)))
@@ -5581,6 +5686,7 @@ def phase_sc_kernels(lc, rng_seed=21):
             "half": {"max_abs_err": max(v[0][2] for k, v in halves.items() if k[0] == "f32"),
                      "ms": hW[0], "plain_ms": hW[5], **hW[2]},
             "k6a": {"max_abs_err": lads["f32"][2], "ms": a_t[0], "plain_ms": a_plain, **a_t[2]},
+            "k6a_forms": ttimes,
             "k6b": {"max_abs_err": k6b["f32"][0], "ms": k6b["f32"][1], "plain_ms": k6b["f32"][5],
                     **k6b["f32"][3]}}
         lines.append(
@@ -5607,7 +5713,15 @@ def phase_sc_kernels(lc, rng_seed=21):
                 f"K6a's states its stored bits, K6b log L max |d| {v[3]:.3e}"
                 for lab, v in lads.items())
             + f", {a_t[0]:.4f}; {a_t[1]:.4f} ms (bound {a_t[2]['bound_ms']:.5f}), plain "
-            f"{a_plain:.4f} ms; K6b as called ({k6b['f32'][4]}, {R} copies of {LW}): "
+            f"{a_plain:.4f} ms; K6a's latency form bit-equal to its warp form, K6b and the "
+            "batch log-posterior at its new states the stored bits (accepts f32, f64; with "
+            "use_sigma), device ms by form: " + "; ".join(
+                f"{Rl} x {Wl}: accepts {tforms[('f32', Rl, Wl, False)]}, "
+                f"{tforms[('f64', Rl, Wl, False)]}; {tforms[('f32', Rl, Wl, True)]}, "
+                f"{tforms[('f64', Rl, Wl, True)]}, warp form {t[0]['warp']:.4f}, latency "
+                f"form {t[0]['latency']:.4f}, the rule's {t[1]}"
+                for (Rl, Wl), t in ttimes.items())
+            + f"; K6b as called ({k6b['f32'][4]}, {R} copies of {LW}): "
             f"{k6b['f32'][1]:.4f}; {k6b['f32'][2]:.4f} ms (bound "
             f"{k6b['f32'][3]['bound_ms']:.5f}), plain {k6b['f32'][5]:.4f} ms, log L max |d| "
             f"f32 {k6b['f32'][0]:.3e}, f64 {k6b['f64'][0]:.3e}; K6b's values the batch "
@@ -5641,8 +5755,9 @@ def phase_sc_main_path(lc, smi):
     same call on the host. The counters show every SC and SC4 kernel ran,
     and no plain version did, and each half-step of (a) (half 2048) and of
     (b)-(c) (half 32) ran in the form kernels/sc.py::sc_half_form picks at
-    its width, by the per-form counts. Returns (the launches, the
-    discrepancy's row for PERF.md)."""
+    its width, and each of (b)'s 2 x 2000 K6a launches in the form
+    kernels/sc.py::tempered_form picks at 25 x 32, by the per-form counts.
+    Returns (the launches, the discrepancy's row for PERF.md)."""
     import numpy as np
     import torch
     from lightcurve_fitting_tpu_torch import fitting, kernels
@@ -5767,6 +5882,21 @@ def phase_sc_main_path(lc, smi):
                 raise AssertionError(f"{run}: {total} {prefix.upper()} half-steps at half {half}, "
                                      f"by form {got}: not all in the {want} form the rule picks")
             ran_forms[(run, prefix)] = (half, got)
+    # each K6a launch of 26b (2 x (600 + 400) a model) in the form the rule
+    # picks over its launch's 25 x 32 walkers
+    R26, W26 = SC_LADDER
+    ran_tempered = {}
+    for prefix in ("sc", "sc4"):
+        want = getattr(kernels, prefix).tempered_form(R26 * W26 // 2, len(lc),
+                                                      sm_count(torch.device("cuda")))
+        name = f"{prefix}_tempered_half_step"
+        got = {f: launches[f"{name}_{f}"] - after_a[f"{name}_{f}"] for f in ("warp", "latency")}
+        total = launches[name] - after_a[name]
+        if total != 2 * (600 + 400) or got[want] != total:
+            raise AssertionError(f"26b: {total} K6a launches over {prefix.upper()} at {R26} x "
+                                 f"{W26}, by form {got}: not 2000, all in the {want} form the "
+                                 "rule picks")
+        ran_tempered[prefix] = got
 
     # the discrepancy op on the winner's chain: 1024 draws x 149 points, torch
     # ops on the card, against the same call on the host (float64)
@@ -5808,6 +5938,9 @@ def phase_sc_main_path(lc, smi):
           f"version ran; the half-steps by form, each run's all in the rule's form: " + "; ".join(
               f"{run} {p.upper()} (half {h}) warp {got['warp']}, latency {got['latency']}"
               for (run, p), (h, got) in ran_forms.items())
+          + "; 26b's K6a by form, all in the rule's form: " + "; ".join(
+              f"{p.upper()} ({R26} x {W26}) warp {got['warp']}, latency {got['latency']}"
+              for p, got in ran_tempered.items())
           + f"; launches {launches}")
     return launches, drow
 
@@ -5862,6 +5995,10 @@ def main():
         if len(block[what]) != n or any(v[1] or v[2] or v[3] for v in block[what]):
             raise AssertionError(f"{what} ({n} instantiations) must keep its state in "
                                  f"registers: {block[what]}")
+    k6a_latency = {k: v for k, v in report.items() if "tempered_half_step_latency_kernel" in k}
+    if len(k6a_latency) != 8 or any(v[2] or v[3] for v in k6a_latency.values()):
+        raise AssertionError(f"K6a's latency form (8 instantiations) must not spill: "
+                             f"{k6a_latency}")
     phase("build", f"{'built' if info['built'] else 'reused'} {os.path.relpath(info['path'], REPO)} "
           f"in {time.perf_counter() - t0:.2f} s; ptxas: {len(regs)} kernels, "
           f"{sorted(set(r.split('Used ')[-1] for r in regs))[:4]}; no stack frame and no "
@@ -5894,8 +6031,11 @@ def main():
               f"{m}: registers {sorted({v[0] for k, v in report.items() if key in k})}, stack "
               f"frames {sorted({v[1] for k, v in report.items() if key in k})} bytes, spills "
               f"{sorted({v[2] + v[3] for k, v in report.items() if key in k})}"
-              for m, key in (("SC", "latency_kernelI11SCWarpModel"),
-                             ("SC4", "latency_kernelI12SC4WarpModel")))
+              for m, key in (("SC", "stretch_half_step_latency_kernelI11SCWarpModel"),
+                             ("SC4", "stretch_half_step_latency_kernelI12SC4WarpModel")))
+          + "; K6a's latency form over SC and SC4 (4 dtype instantiations each) " + "; ".join(
+              f"{k.split('(')[0][4:]}: registers {v[0]}, stack frame {v[1]} bytes, spills "
+              f"{v[2] + v[3]}" for k, v in k6a_latency.items())
           + "; K10's half-step (SEDWarpModel, 32 instantiations) " + ", ".join(
               f"registers {v[0]}, stack frame {v[1]} bytes, spills {v[2] + v[3]}"
               for v in sorted({tuple(v) for k, v in report.items()
@@ -6072,9 +6212,19 @@ def main():
                       f"{SC_FIT_WALKERS // 2} in the rule's form)", route="cuda",
                  source=src_sc, replaces="lightcurve_fitting_tpu/parallel/sampler.py:86",
                  launches=launches_sc[f"{prefix}_half_step"], **k_sc[prefix]["half"]),
-            dict(name=f"tempered_half_step_kernel<{policy}> (K6a over {what})", route="cuda",
-                 source=src_sc, replaces="lightcurve_fitting_tpu/parallel/evidence.py:60",
-                 launches=launches_sc[f"{prefix}_tempered_half_step"], **k_sc[prefix]["k6a"]),
+            dict(name=f"tempered_half_step_kernel<{policy}> / tempered_half_step_latency_kernel<"
+                      f"{policy}> (K6a over {what}; launched on 26b ({SC_LADDER[0]} x "
+                      f"{SC_LADDER[1]}): warp form "
+                      f"{launches_sc[f'{prefix}_tempered_half_step_warp']}, latency form "
+                      f"{launches_sc[f'{prefix}_tempered_half_step_latency']}; times at "
+                      f"{SC_LADDER[0]} x {SC_LADDER[1]} in the rule's form; device ms by form: "
+                      + "; ".join(f"{Rl} x {Wl} warp {t[0]['warp']:.4f}, latency "
+                                  f"{t[0]['latency']:.4f}"
+                                  for (Rl, Wl), t in k_sc[prefix]["k6a_forms"].items()) + ")",
+                 route="cuda", source="lightcurve_fitting_tpu_torch/kernels/csrc/ladder.cuh",
+                 replaces="lightcurve_fitting_tpu/parallel/evidence.py:60",
+                 launches=launches_sc[f"{prefix}_tempered_half_step"],
+                 **k_sc[prefix]["k6a"]),
             dict(name=f"ladder_init_kernel<{policy}<C, N>> (K6b over {what})", route="cuda",
                  source=src_sc, replaces="lightcurve_fitting_tpu/parallel/evidence.py:229",
                  launches=launches_sc[f"{prefix}_ladder_init"], **k_sc[prefix]["k6b"])]

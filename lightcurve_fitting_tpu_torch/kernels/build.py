@@ -98,6 +98,8 @@ def _declare(lib):
         fn = getattr(lib, f"{prefix}_tempered_half_step_launch")
         fn.restype = ci
         fn.argtypes = [vp, ci, ci, vp, ci, vp, vp, vp, ci, ci, ci, vp, vp, vp, cd, vp, vp]
+        if prefix in ("sc", "sc4"):
+            fn.argtypes = fn.argtypes[:-1] + [ci, vp]   # the form before the stream
         fn = getattr(lib, f"{prefix}_ladder_init_launch")
         fn.restype = ci
         fn.argtypes = [vp, ci, ci, vp, ci, ci, ci, ci, vp, vp, vp]

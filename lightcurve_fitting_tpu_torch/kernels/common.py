@@ -25,7 +25,9 @@ LAUNCHES = {"sc2_logpost": 0, "stretch_half_step": 0, "bandflux": 0, "sc3_logpos
             "sed_half_step": 0, "sed_run": 0, "sc_logpost": 0, "sc_half_step": 0,
             "sc_tempered_half_step": 0, "sc_ladder_init": 0, "sc4_logpost": 0, "sc4_half_step": 0,
             "sc4_tempered_half_step": 0, "sc4_ladder_init": 0, "sc_half_step_warp": 0,
-            "sc_half_step_latency": 0, "sc4_half_step_warp": 0, "sc4_half_step_latency": 0}
+            "sc_half_step_latency": 0, "sc4_half_step_warp": 0, "sc4_half_step_latency": 0,
+            "sc_tempered_half_step_warp": 0, "sc_tempered_half_step_latency": 0,
+            "sc4_tempered_half_step_warp": 0, "sc4_tempered_half_step_latency": 0}
 
 FLOATS = (torch.float32, torch.float64)
 

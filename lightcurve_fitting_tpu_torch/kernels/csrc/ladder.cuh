@@ -1,8 +1,10 @@
 // K6: the tempered ladder's model kernels, templates over a warp policy M of
 // stretch.cuh (K6a and K6b a warp per walker or state over SC2WarpModel,
-// SC3WarpModel and CSWarpModel, instantiated in sc2_logpost.cu,
-// sc3_logpost.cu and companion.cu). The model-free K6 kernels (the replica
-// exchange and the stepping-stone block terms) are in ladder.cu.
+// SC3WarpModel, CSWarpModel, SCWarpModel and SC4WarpModel, instantiated in
+// sc2_logpost.cu, sc3_logpost.cu, companion.cu and sc_logpost.cu; K6a also
+// in a latency form, a block per walker, for a policy with point_term). The
+// model-free K6 kernels (the replica exchange and the stepping-stone block
+// terms) are in ladder.cu.
 //
 // Replaces (JAX package, lightcurve_fitting_tpu/):
 //   K6a parallel/evidence.py:60-74 (half_update) and :76-83 (the step_one
@@ -142,6 +144,82 @@ tempered_half_step_kernel(const typename M::Params P, S* __restrict__ x,
     }
 }
 
+// K6a's latency form (a policy with point_term, stretch.cuh: ShockCooling's
+// and ShockCooling4's), where a warp per walker leaves the card idle: the
+// arguments and writes of tempered_half_step_kernel, a block per (rung,
+// walker), blockIdx.x = r half + i, of ceil(N / 32) warps, as
+// stretch_half_step_latency_kernel. Warp 0 forms the walker's proposal and
+// log pi as tempered_batch does with nb = 1 (every lane the same bits) and,
+// where log pi is finite, its constants, and puts them and the proposal into
+// shared memory (the proposal held in registers across the barriers spilled
+// in one dtype instantiation); after a barrier thread n forms point n's term
+// (its coefficients read where they lie); after another warp 0 sums the
+// terms in log_likelihood_warp's order and lane 0 decides and writes by
+// tempered_accept with beta_r. A proposal outside the priors never has its
+// likelihood evaluated, on any rung (a beta = 0 rung's log L is evaluated:
+// the swaps read it). So the stored log pi and log L have the warp form's
+// bits, K6b's and the batch log-posterior's at the new state.
+template <typename M, typename S>
+__global__ void __launch_bounds__(32 * LP_LAT_WARPS)
+tempered_half_step_latency_kernel(const typename M::Params P, S* __restrict__ x,
+                                  double* __restrict__ logpri, double* __restrict__ logl,
+                                  const double* __restrict__ betas, int half, int h,
+                                  const S* __restrict__ u_z, const long long* __restrict__ j,
+                                  const S* __restrict__ u_acc, double a,
+                                  int* __restrict__ n_accept) {
+    typedef typename M::Compute C;
+    typedef typename M::Walker Walker;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    __shared__ double lpri_s;
+    __shared__ Walker walker_s;
+    __shared__ S y_s[LP_MAX_DIM];
+    __shared__ S z_s;
+    C* terms = reinterpret_cast<C*>(smem_raw);   // blockDim.x of them
+    const typename M::Data d = M::stage(P, nullptr, 0, 0);
+    const int r = (int)(blockIdx.x / (unsigned)half);
+    const int i = (int)(blockIdx.x - (unsigned)r * (unsigned)half);
+    const int n = threadIdx.x, lane = threadIdx.x & 31;
+    const bool lead = n < 32;
+    const int ndim = (int)P.ndim;
+    const int N = (int)P.n_points;
+    const size_t rung = (size_t)r * 2 * half;
+    const size_t w = rung + (size_t)h * half + i;
+    if (lead) {
+        const S* xj = x + (rung + (size_t)(1 - h) * half + (size_t)j[w]) * ndim;
+        S y[LP_MAX_DIM];
+        double p[LP_MAX_DIM];
+        const S z = stretch_proposal(P, x + w * ndim, xj, u_z[w], a, y, p);
+        const double lpri_y = log_prior(P, p);
+        if (lane == 0) {
+            lpri_s = lpri_y, z_s = z;
+            for (int k = 0; k < ndim; ++k) y_s[k] = y[k];
+        }
+        if constexpr (policy_walker_lanes<M>::value) {
+            if (isfinite(lpri_y)) {   // (uniform over the warp)
+                const Walker wk = M::walker_lanes(p, P);
+                if (lane == 0) walker_s = wk;
+            }
+        } else if (lane == 0 && isfinite(lpri_y)) {
+            walker_s = M::walker(p, P);
+        }
+    }
+    __syncthreads();
+    if (n < N && isfinite(lpri_s)) terms[n] = M::point_term(n, walker_s, d, P);
+    __syncthreads();
+    if (!lead) return;
+    const double lpri_y = lpri_s;
+    double ll_y = -INFINITY;
+    if (isfinite(lpri_y)) {   // (uniform over the warp)
+        C acc = C(0);
+        for (int k = lane; k < N; k += 32) acc = add_rn(acc, terms[k]);
+        ll_y = finish_log_likelihood<C>(warp_sum(acc), P.use_sigma, P.ll_offset,
+                                        P.log_norm_const);
+    }
+    if (lane != 0) return;
+    tempered_accept(ndim, x + w * ndim, y_s, z_s, lpri_y, ll_y, logpri, logl, betas[r], u_acc,
+                    w, n_accept);
+}
+
 // The initial values of the states b0 .. b0 + nb - 1 of x, a warp per
 // state, as logpost_batch evaluates a batch (the same layout, staging and
 // warp_batch_ll) but with the likelihood of every state, whatever its prior:
@@ -221,6 +299,30 @@ static int launch_tempered(const typename M::Params& P, void* x, double* logpri,
     return (int)cudaGetLastError();
 }
 
+// K6a's latency form (tempered_half_step_latency_kernel) over the R x half
+// walkers, a block of ceil(N / 32) warps each. Refused for a policy without
+// point_term, and past LP_LAT_WARPS warps a walker.
+template <typename M, typename S>
+static int launch_tempered_latency(const typename M::Params& P, void* x, double* logpri,
+                                   double* logl, const double* betas, int n_rungs, int half,
+                                   int h, const void* u_z, const long long* j, const void* u_acc,
+                                   double a, int* n_accept, cudaStream_t stream) {
+    if constexpr (!policy_point<M>::value) {
+        return (int)cudaErrorInvalidValue;
+    } else {
+        auto kernel = tempered_half_step_latency_kernel<M, S>;
+        const long long per_walker = (P.n_points + 31) / 32;
+        const long long blocks = (long long)n_rungs * half;
+        if (per_walker < 1 || per_walker > LP_LAT_WARPS || blocks > 2147483647LL)
+            return (int)cudaErrorInvalidValue;
+        const int threads = (int)(32 * per_walker);
+        kernel<<<(unsigned)blocks, threads, sizeof(typename M::Compute) * threads, stream>>>(
+            P, (S*)x, logpri, logl, betas, half, h, (const S*)u_z, j, (const S*)u_acc, a,
+            n_accept);
+        return (int)cudaGetLastError();
+    }
+}
+
 template <typename M, typename S>
 static int launch_init(const typename M::Params& P, const void* x, int n, int per_set,
                        int copies, double* logpri, double* logl, cudaStream_t stream) {
@@ -236,25 +338,29 @@ static int launch_init(const typename M::Params& P, const void* x, int n, int pe
 }
 
 // The K6a launch for the warp policy M<C> in the compute type C (float or
-// double) and the walker state's type (float or double). Returns 0 or a
+// double) and the walker state's type (float or double); form 0 the warp
+// form, 1 the latency form (a policy with point_term). Returns 0 or a
 // cudaError_t code.
 template <template <typename> class M>
 static int launch_tempered_half_step(const typename M<float>::Params* P, int device,
                                      int compute_f64, void* x, int state_f64, double* logpri,
                                      double* logl, const double* betas, int n_rungs, int half,
                                      int h, const void* u_z, const long long* j,
-                                     const void* u_acc, double a, int* n_accept, void* stream) {
+                                     const void* u_acc, double a, int* n_accept, void* stream,
+                                     int form = 0) {
     int rc = (int)cudaSetDevice(device);
     if (rc) return rc;
     if (half <= 0 || n_rungs <= 0) return 0;
-    if (P->ndim > LP_MAX_DIM || (h != 0 && h != 1)) return (int)cudaErrorInvalidValue;
+    if (P->ndim > LP_MAX_DIM || (h != 0 && h != 1) || (form != 0 && form != 1))
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
 #define LADDER_ARGS *P, x, logpri, logl, betas, n_rungs, half, h, u_z, j, u_acc, a, n_accept, s
+#define LADDER_CASE(C, S) \
+    (form ? launch_tempered_latency<M<C>, S>(LADDER_ARGS) : launch_tempered<M<C>, S>(LADDER_ARGS))
     if (compute_f64)
-        return state_f64 ? launch_tempered<M<double>, double>(LADDER_ARGS)
-                         : launch_tempered<M<double>, float>(LADDER_ARGS);
-    return state_f64 ? launch_tempered<M<float>, double>(LADDER_ARGS)
-                     : launch_tempered<M<float>, float>(LADDER_ARGS);
+        return state_f64 ? LADDER_CASE(double, double) : LADDER_CASE(double, float);
+    return state_f64 ? LADDER_CASE(float, double) : LADDER_CASE(float, float);
+#undef LADDER_CASE
 #undef LADDER_ARGS
 }
 

@@ -51,7 +51,10 @@
 // points' coefficients from coef_t, coalesced); the walker's prologue runs
 // on the block's first warp (ShockCooling4's nine float64 powers a lane
 // each, sc4_walker_lanes), and the terms are summed in the warp form's
-// order, so both forms store the same bits.
+// order, so both forms store the same bits. K6a over them has the same
+// latency form (tempered_half_step_latency_kernel of ladder.cuh, a block per
+// (rung, walker); kernels/sc.py::tempered_form over the launch's R x half
+// walkers).
 //
 // Dtype semantics follow the JAX accelerator path, with each model's own
 // order of casts. SW17 (temperature_radius) casts t - t_exp, v_s, M_env,
@@ -464,10 +467,10 @@ using SC4WarpModel6 = SC4WarpModel<C, 6>;
                                            double* logl, const double* betas, int n_rungs,     \
                                            int half, int h, const void* u_z,                   \
                                            const long long* j, const void* u_acc, double a,    \
-                                           int* n_accept, void* stream) {                      \
+                                           int* n_accept, int form, void* stream) {            \
         return launch_tempered_half_step<M##AnyDim>(P, device, compute_f64, x, state_f64,      \
                                                     logpri, logl, betas, n_rungs, half, h,     \
-                                                    u_z, j, u_acc, a, n_accept, stream);       \
+                                                    u_z, j, u_acc, a, n_accept, stream, form); \
     }                                                                                          \
     int prefix##_ladder_init_launch(const SCParams* P, int device, int compute_f64,            \
                                     const void* x, int state_f64, int n, int per_set,          \

@@ -5,7 +5,10 @@ versions beside them.
   ``csrc/ladder.cuh`` over the model's policy, in ``sc2_logpost.cu``,
   ``sc3_logpost.cu``, ``sc_logpost.cu`` or ``companion.cu``: a warp per
   walker over ShockCooling, ShockCooling2-4 and the companion-shocking
-  models): one
+  models; over ShockCooling and ShockCooling4 below the crossover of
+  :func:`.sc.tempered_form` its latency form,
+  ``tempered_half_step_latency_kernel``, a block per (rung, walker), a
+  point a thread, the same bits): one
   stretch-move half-step of every rung's ensemble, accepting by log pi +
   beta log L;
 * :func:`ladder_init` (K6b, ``ladder_init_kernel``, a warp per state over
@@ -29,7 +32,8 @@ versions run. For a
 tensor on the CPU each wrapper runs its plain version; for a CUDA tensor it
 launches its kernel or raises: there is no fallback. Each launch adds one to
 ``LAUNCHES[name]``, and nothing else does; K6a and K6b over a model module
-with ``LADDER_COUNTS`` (:mod:`.sc`, :mod:`.sc4`) count under its names.
+with ``LADDER_COUNTS`` (:mod:`.sc`, :mod:`.sc4`) count under its names, and
+K6a there once more under its form's, ``<name>_warp`` or ``<name>_latency``.
 """
 
 import ctypes
@@ -145,7 +149,8 @@ def tempered_half_step_plain(log_prior, log_like, x, logpri, logl, betas, h, u_z
 
 
 def tempered_half_step(target, x, logpri, logl, betas, h, u_z, j, u_acc, a=2.0,
-                       param_offset=None, param_scale=None, n_accept=None, check_partners=True):
+                       param_offset=None, param_scale=None, n_accept=None, check_partners=True,
+                       form=None):
     """K6a: one tempered stretch-move half-step of half ``h`` of every rung,
     in place.
 
@@ -155,11 +160,21 @@ def tempered_half_step(target, x, logpri, logl, betas, h, u_z, j, u_acc, a=2.0,
     dtype and j (R, 2, half) int64 partners in [0, half), of which the
     half-step reads the [:, h] slice; n_accept (R, 2, half) int32,
     incremented. ``check_partners`` verifies the partners before the launch
-    (the kernel reads them unchecked); it synchronizes with the device."""
+    (the kernel reads them unchecked); it synchronizes with the device.
+    ``form``: ``"warp"`` (a warp per walker) or ``"latency"`` (a block per
+    (rung, walker), for a model module with ``tempered_form``: :mod:`.sc`,
+    :mod:`.sc4`); None takes the module's ``tempered_form`` over the R x
+    half walkers, else the warp form. Both forms store the same bits."""
+    if form not in (None, "warp", "latency"):
+        raise ValueError(f"the tempered half-step's form is 'warp' or 'latency', not {form!r}")
     if x.device.type == "cpu":
         return tempered_half_step_plain(*plain_functions(target, param_offset, param_scale), x,
                                         logpri, logl, betas, h, u_z, j, u_acc, a, n_accept)
     lp, mod = _fused(target, "the tempered half-step")
+    rule = getattr(mod, "tempered_form", None)
+    if form == "latency" and rule is None:
+        raise ValueError(f"K6a over {type(lp.log_likelihood.model).__name__} has the warp form "
+                         "only (its policy has no per-point term)")
     R, half, ndim = _ladder_checks(x, logpri, logl, betas)
     if h not in (0, 1):
         raise ValueError("h must be 0 or 1")
@@ -175,16 +190,24 @@ def tempered_half_step(target, x, logpri, logl, betas, h, u_z, j, u_acc, a=2.0,
     from .build import library
     lib = library()
     P = mod._kernel_params(lp, ndim, param_offset, param_scale)
+    if form is None:
+        from .gradient import sm_count
+        form = rule(R * half, P.n_points, sm_count(dev)) if rule else "warp"
     device_index, stream = cuda_args(dev)
     launch = getattr(lib, f"{mod.__name__.rsplit('.', 1)[-1]}_tempered_half_step_launch")
     rc = launch(ctypes.addressof(P), device_index,
                 int(lp.log_likelihood.compute_dtype == torch.float64), x.data_ptr(),
                 int(x.dtype == torch.float64), logpri.data_ptr(), logl.data_ptr(),
                 betas.data_ptr(), R, half, int(h), u_z.data_ptr(), j.data_ptr(), u_acc.data_ptr(),
-                float(a), n_accept.data_ptr(), stream)
+                float(a), n_accept.data_ptr(), *((int(form == "latency"),) if rule else ()),
+                stream)
     if rc != 0:
-        raise RuntimeError(f"tempered_half_step_kernel launch failed: cudaError {rc}")
-    LAUNCHES[getattr(mod, "LADDER_COUNTS", {}).get("tempered_half_step", "tempered_half_step")] += 1
+        raise RuntimeError(f"tempered_half_step_kernel launch failed ({form} form): "
+                           f"cudaError {rc}")
+    name = getattr(mod, "LADDER_COUNTS", {}).get("tempered_half_step", "tempered_half_step")
+    LAUNCHES[name] += 1
+    if rule is not None:
+        LAUNCHES[f"{name}_{form}"] += 1
 
 
 # ----------------------------------------------------------------------- K6b

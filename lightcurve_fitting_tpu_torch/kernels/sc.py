@@ -15,7 +15,12 @@ the same source through the helpers here.
   bits. A launch counts once under ``sc_half_step`` and once under its
   form's name, ``sc_half_step_warp`` or ``sc_half_step_latency``.
 * K6a and K6b over ``SCWarpModel`` are launched by :mod:`.ladder`, which
-  counts them under ``LADDER_COUNTS``'s names.
+  counts them under ``LADDER_COUNTS``'s names; K6a in the form
+  :func:`tempered_form` picks for the launch's R x half walkers
+  (``tempered_half_step_kernel``, a warp per walker, or
+  ``tempered_half_step_latency_kernel``, a block per (rung, walker); the
+  same bits), counted once more under ``sc_tempered_half_step_warp`` or
+  ``sc_tempered_half_step_latency``.
 
 For a tensor on the CPU each wrapper runs its plain version
 (:func:`~.common.log_posterior_plain`, :func:`~.common.stretch_half_step_plain`).
@@ -31,7 +36,8 @@ from .common import (LAUNCHES, MAX_DIM, FLOATS, check, check_buffers, cuda_args,
                      fill_priors_and_affine, half_step_checks, half_step_args,
                      log_posterior_plain, stretch_half_step_plain)
 
-__all__ = ["log_posterior", "stretch_half_step", "sc_half_form", "LADDER_COUNTS"]
+__all__ = ["log_posterior", "stretch_half_step", "sc_half_form", "tempered_form",
+           "LADDER_COUNTS"]
 
 #: the LAUNCHES names under which :mod:`.ladder` counts K6a and K6b over
 #: this module's policy
@@ -69,6 +75,18 @@ LATENCY_MAX_WARPS = 20
 #: 65536, widths no fit of the flagship runs (tools/time_port_kernels.py
 #: --sc-only --sc-halves; PERF.md §7)
 LATENCY_WARPS_PER_SM = 1300
+#: K6a's latency form runs while a launch's R x half walkers need at most
+#: this many warps an SM (tempered_form), by model. ShockCooling4's K6a
+#: crosses between 24576 walkers (the latency form 0.110-0.124 ms against
+#: 0.124-0.126) and 34816 (0.1724-0.1727 against 0.161-0.180), beside its
+#: half-step's 32768-40960: the half-steps' constant (34320 walkers) stays.
+#: ShockCooling's stays ahead to 65536 walkers (0.2580 against
+#: 0.2545-0.2617 ms), at 34816, the evidence bench shape, by 10-17%
+#: (0.134-0.140 against 0.147-0.167), and the warp form leads from 98304
+#: (0.3835 against 0.3609-0.3697): its own constant, 2500 (65536 walkers at
+#: 149 points on 132 SMs) (tools/time_port_kernels.py --sc-only
+#: --sc-ladders; PERF.md §6)
+TEMPERED_LATENCY_WARPS_PER_SM = {"sc": 2500, "sc4": LATENCY_WARPS_PER_SM}
 
 _BUFFERS = ("t_centered", "y", "inv_dy", "dy", "sigma_units", "bb_s_a", "bb_s_b", "bb_coeffs")
 
@@ -153,6 +171,16 @@ def logpost_launch(prefix, lp, q, param_offset=None, param_scale=None):
     return out
 
 
+def _form(n_walkers, n_points, n_sm, warps_per_sm):
+    """``"latency"`` while ``n_walkers`` walkers of ceil(n_points / 32) warps
+    each (at most LATENCY_MAX_WARPS) need at most ``warps_per_sm`` warps an
+    SM of the card's ``n_sm``, else ``"warp"``."""
+    per_walker = -(-n_points // 32)
+    if per_walker > LATENCY_MAX_WARPS:
+        return "warp"
+    return "latency" if n_walkers * per_walker <= warps_per_sm * n_sm else "warp"
+
+
 def sc_half_form(half, n_points, n_sm):
     """The SC and SC4 half-steps' form for ``half`` walkers of ``n_points``
     points on a card of ``n_sm`` SMs: ``"latency"`` (a walker's points over
@@ -160,10 +188,17 @@ def sc_half_form(half, n_points, n_sm):
     would leave the card's schedulers idle, each lane walking its points
     one after another; ``"warp"`` (a warp per walker) where the walkers'
     groups would overfill the card. Both store the same bits."""
-    per_walker = -(-n_points // 32)
-    if per_walker > LATENCY_MAX_WARPS:
-        return "warp"
-    return "latency" if half * per_walker <= LATENCY_WARPS_PER_SM * n_sm else "warp"
+    return _form(half, n_points, n_sm, LATENCY_WARPS_PER_SM)
+
+
+def tempered_form(n_walkers, n_points, n_sm, prefix="sc"):
+    """K6a's form over family ``prefix`` ("sc" or "sc4"; :mod:`.sc4` binds
+    its own) for a launch of ``n_walkers`` = R x half walkers (every rung's
+    half together, a block per walker in the latency form) of
+    ``n_points`` points on a card of ``n_sm`` SMs: the half-steps' rule at
+    the family's TEMPERED_LATENCY_WARPS_PER_SM. Both forms store the same
+    bits."""
+    return _form(n_walkers, n_points, n_sm, TEMPERED_LATENCY_WARPS_PER_SM[prefix])
 
 
 def half_step_launch(prefix, lp, x, logp, h, u_z, j, u_acc, a=2.0, param_offset=None,

@@ -12,16 +12,20 @@ MSW23 over the band table: the smaller of the band fluxes at (T, R) and at
   walker; the same bits), counted under ``sc4_half_step`` and under
   ``sc4_half_step_warp`` or ``sc4_half_step_latency``.
 * K6a and K6b over ``SC4WarpModel`` are launched by :mod:`.ladder`, which
-  counts them under ``LADDER_COUNTS``'s names.
+  counts them under ``LADDER_COUNTS``'s names; K6a in the form
+  :func:`tempered_form` picks (the warp form or the latency form, the same
+  bits), counted once more under ``sc4_tempered_half_step_warp`` or
+  ``sc4_tempered_half_step_latency``.
 
 For a tensor on the CPU each wrapper runs its plain version; for a CUDA
 tensor it launches the kernel or raises. Each launch adds one to
 ``LAUNCHES[name]``, and nothing else does.
 """
 
+from . import sc
 from .sc import _BUFFERS, half_step_launch, kernel_params, logpost_launch  # noqa: F401
 
-__all__ = ["log_posterior", "stretch_half_step", "LADDER_COUNTS"]
+__all__ = ["log_posterior", "stretch_half_step", "tempered_form", "LADDER_COUNTS"]
 
 #: the LAUNCHES names under which :mod:`.ladder` counts K6a and K6b over
 #: this module's policy
@@ -31,6 +35,12 @@ LADDER_COUNTS = {"tempered_half_step": "sc4_tempered_half_step",
 
 def _kernel_params(lp, ndim, offset, scale):
     return kernel_params("sc4", lp, ndim, offset, scale)
+
+
+def tempered_form(n_walkers, n_points, n_sm):
+    """K6a's form over ShockCooling4 (:func:`.sc.tempered_form` at its own
+    crossover)."""
+    return sc.tempered_form(n_walkers, n_points, n_sm, "sc4")
 
 
 def log_posterior(lp, q, param_offset=None, param_scale=None):

@@ -91,7 +91,12 @@ temperature prior (float32 within 1e-5, float64 within 1e-12 of the term
 scale), and its half-step: the plain half-step's states where both accept,
 K10 at the states it left its stored values bit for bit; K10's run form
 (half 5 and 32, a uniform and a KDE prior, thin_by 1 and 2) bit-equal to
-its half-step launched twice a proposal on the same draws.
+its half-step launched twice a proposal on the same draws. The SC and SC4
+half-steps' two forms bit-equal (half 32, 2048), and K6a over SC and SC4
+in its two forms (a warp per walker; a block per (rung, walker)) bit-equal
+at 25 rungs x half 32 and 17 x 2048, float32 and float64, with and without
+the intrinsic scatter, K6b and the batch log-posterior at the new states
+the stored values bit for bit.
 """
 
 import ctypes
@@ -3338,5 +3343,78 @@ def test_sc_half_step_forms_bit_equal_on_card(lc, cuda_device, prefix, half, f64
         assert 0 < int(acc.sum()) < 2 * half
         assert torch.equal(sc.logpost_launch(prefix, lp, x.reshape(-1, ndim), off,
                                              scale).reshape(2, half), logp)
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefix", ["sc", "sc4"])
+@pytest.mark.parametrize("R,half", [(25, 32), (17, 2048)], ids=["26b-25x32", "17x2048"])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+@pytest.mark.parametrize("use_sigma", [False, True], ids=["plain", "sigma"])
+def test_sc_tempered_forms_bit_equal_on_card(lc, cuda_device, prefix, R, half, f64, use_sigma):
+    """K6a over SC and SC4 in its two forms (a warp per walker; a block per
+    (rung, walker), one point a thread) from one ladder state under one set
+    of draws, h = 0 then 1, beta_0 = 0, 1% of the walkers outside the priors
+    and a tenth with t_0 after the first points, on the ladder's rescaled
+    state (float32 with float32 compute, float64 with float64): the same new
+    states, log pi, log L and accept counts, one launch a half-step under
+    each form's own count; and K6b and the batch log-posterior at the new
+    states repeat the stored values bit for bit."""
+    from lightcurve_fitting_tpu_torch.fitting import _state_rescaling
+    from lightcurve_fitting_tpu_torch.kernels import sc
+    from lightcurve_fitting_tpu_torch.models import ShockCooling, ShockCooling4
+    lo = [0.5, 0.5, 0.1, 0.1, 57468.3] + ([0.5] if use_sigma else [])
+    up = [10.0, 20.0, 10.0, 20.0, 57468.7] + ([3.0] if use_sigma else [])
+    priors = ([UniformPrior(0.1, 20.0), UniformPrior(0.1, 30.0), LogUniformPrior(0.01, 100.0),
+               UniformPrior(0.01, 50.0), UniformPrior(57468.0, 57470.0)]
+              + ([LogUniformPrior(0.01, 10.0)] if use_sigma else []))
+    ndim, W = len(lo), R * 2 * half
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        model = (ShockCooling if prefix == "sc" else ShockCooling4)(lc)
+        lp = make_log_posterior(model, lc, priors, use_sigma=use_sigma, device=cuda_device)
+        kw = _state_rescaling("auto", lo, up, cuda_device)
+        off, scale = kw["param_offset"], kw["param_scale"]
+        rng = np.random.default_rng(R * half + 7 * f64 + 3 * use_sigma)
+        pos = rng.uniform(lo, up, size=(W, ndim))
+        pos[: W // 10, 4] = rng.uniform(57468.8, 57469.9, W // 10)
+        out = rng.choice(W, W // 100, replace=False)
+        pos[out, rng.integers(0, ndim, out.size)] = -1.0
+        x0 = torch.as_tensor((pos - off) / scale, device=cuda_device).to(kw["dtype"])
+        x0 = x0.reshape(R, 2, half, ndim).contiguous()
+        pri0, ll0 = ladder.ladder_init(lp, x0, off, scale)
+        betas = torch.as_tensor(make_beta_ladder(R - 1), device=cuda_device)
+        assert float(betas[0]) == 0.0
+        g = torch.Generator(device=cuda_device).manual_seed(R * half)
+        shape = (R, 2, half)
+        u_z = torch.rand(shape, generator=g, device=cuda_device, dtype=x0.dtype)
+        j = torch.randint(0, half, shape, generator=g, device=cuda_device)
+        u_acc = torch.rand(shape, generator=g, device=cuda_device, dtype=x0.dtype)
+        name = f"{prefix}_tempered_half_step"
+        names = [name, f"{name}_warp", f"{name}_latency"]
+        got = {}
+        for form in ("warp", "latency"):
+            x, pri, ll = x0.clone(), pri0.clone(), ll0.clone()
+            acc = torch.zeros(shape, dtype=torch.int32, device=cuda_device)
+            n0 = [kernels.LAUNCHES[k] for k in names]
+            for h in (0, 1):
+                ladder.tempered_half_step(lp, x, pri, ll, betas, h, u_z, j, u_acc, 2.0, off,
+                                          scale, acc, form=form)
+            assert [kernels.LAUNCHES[k] - n for k, n in zip(names, n0)] == [
+                2, 2 * (form == "warp"), 2 * (form == "latency")]
+            got[form] = (x, pri, ll, acc)
+        for a, b in zip(got["warp"], got["latency"]):
+            assert torch.equal(a, b)
+        x, pri, ll, acc = got["latency"]
+        assert 0 < int(acc.sum()) < W
+        assert 0 < int(acc[0].sum()) < 2 * half           # the beta = 0 rung moves too
+        pri_k, ll_k = ladder.ladder_init(lp, x, off, scale)
+        assert torch.equal(pri_k, pri) and torch.equal(ll_k, ll)
+        val = sc.logpost_launch(prefix, lp, x.reshape(-1, ndim), off, scale).reshape(shape)
+        fin = torch.isfinite(pri)
+        assert torch.equal((pri + ll)[fin], val[fin])
+        assert bool(torch.isneginf(val[~fin]).all())
     finally:
         config.set_compute_dtype(config.AUTO)

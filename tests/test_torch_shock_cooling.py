@@ -4,8 +4,10 @@ pointwise and outer mode, temperature_radius, t_min, t_max, clone_for) at
 n = 1.5 and 3, RW and kappa = 0.7; the batched log-posterior through
 ``make_log_posterior`` on SN 2016bkv's early curve, with t < t_0 and the
 intrinsic scatter; one stretch half-step and one tempered-ladder step (K6a,
-K6b) under the JAX package's own draws; the routing to the kernel modules;
-and ``interop.model_from_jax`` for every model class.
+K6b) under the JAX package's own draws; the routing to the kernel modules,
+the half-steps' and K6a's form rules and the form argument their wrappers
+hand the C launch (a stub library); and ``interop.model_from_jax`` for
+every model class.
 
 Inputs are made from a seed with numpy and go through both packages.
 Tolerances: float64 <= 1e-12 relative per point, <= 1e-10 |ll| for summed
@@ -419,6 +421,139 @@ def test_half_step_form_reaches_the_c_call(lcs, monkeypatch, prefix):
     assert {k: kernels.LAUNCHES[k] for k in names} == n0
     with pytest.raises(ValueError, match="'warp' or 'latency'"):
         sc.half_step_launch(prefix, lp, x, logp, 0, u, j, u, n_accept=acc, form="thread")
+
+
+@pytest.mark.parametrize("mod", [sc, sc4], ids=["sc", "sc4"])
+def test_tempered_form_by_width(mod):
+    """K6a's form rule over SC and SC4 on the H100's 132 SMs at the
+    flagship's 149 points, counting every rung's walkers of a launch: the
+    latency form at 26b's 25 rungs x half 32, lightcurve_evidence's default
+    33 x 32, lightcurve_ptmcmc's 17 x 32 and 16384 walkers; at the evidence
+    bench shape, 17 x half 2048, SC's latency form and SC4's warp form (each
+    model's measured crossover), at 65536 SC's latency form, at 81920 both
+    warp forms; past 20 warps a walker (640 points) only the warp form."""
+    for walkers in (25 * 32, 33 * 32, 17 * 32, 16384):
+        assert mod.tempered_form(walkers, 149, 132) == "latency"
+    wide = "latency" if mod is sc else "warp"
+    assert mod.tempered_form(17 * 2048, 149, 132) == wide
+    assert mod.tempered_form(65536, 149, 132) == wide
+    assert mod.tempered_form(81920, 149, 132) == "warp"
+    assert mod.tempered_form(1, 641, 132) == "warp"
+    assert mod.tempered_form(25 * 32, 640, 132) == "latency"
+
+
+def _stub_ladder_launches(monkeypatch, calls):
+    """A stub kernel library whose launches record (name, the argument
+    before the stream) and return Lib.rc, with K6a's input checks and the
+    card's 132 SMs stubbed, so that ladder.tempered_half_step on a
+    _FakeCudaState reaches its C call."""
+    from lightcurve_fitting_tpu_torch.kernels import build, gradient
+
+    class Lib:
+        rc = 0
+
+        def __getattr__(self, name):
+            def launch(*args):
+                calls.append((name, args[-2]))
+                return Lib.rc
+            return launch
+    monkeypatch.setattr(build, "library", lambda: Lib())
+    monkeypatch.setattr(gradient, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(ladder, "_ladder_checks", lambda x, *a: (x.shape[0], x.shape[2],
+                                                                  x.shape[3]))
+    monkeypatch.setattr(ladder, "check", lambda *a: None)
+    monkeypatch.setattr(ladder, "check_buffers", lambda *a: None)
+    monkeypatch.setattr(ladder, "cuda_args", lambda dev: (0, 0))
+    return Lib
+
+
+def _ladder_args(R, half, ndim=5):
+    x = _FakeCudaState(torch.zeros((R, 2, half, ndim), dtype=torch.float32))
+    lg = torch.zeros((R, 2, half), dtype=torch.float64)
+    u = torch.zeros((R, 2, half), dtype=torch.float32)
+    j = torch.zeros((R, 2, half), dtype=torch.int64)
+    return x, lg, lg.clone(), torch.zeros(R, dtype=torch.float64), 1, u, j, u, \
+        torch.zeros((R, 2, half), dtype=torch.int32)
+
+
+@pytest.mark.parametrize("prefix", ["sc", "sc4"])
+def test_tempered_half_step_form_reaches_the_c_call(lcs, monkeypatch, prefix):
+    """The form K6a's rule picks over a launch's R x half walkers (or the
+    caller names) is the form argument of the SC or SC4 C launch, one
+    LAUNCHES count a launch under the LADDER_COUNTS name and one under its
+    form's name; a failed launch raises, naming the form and counting
+    nothing; an unknown form raises."""
+    _, tlc = lcs
+    model = tmodels.ShockCooling(tlc) if prefix == "sc" else tmodels.ShockCooling4(tlc)
+    lp = tfit.make_log_posterior(model, tlc, interop.priors_from_jax(PRIORS), device="cpu")
+    calls = []
+    Lib = _stub_ladder_launches(monkeypatch, calls)
+    name = f"{prefix}_tempered_half_step"
+    names = (name, f"{name}_warp", f"{name}_latency")
+    for k in names:
+        monkeypatch.setitem(kernels.LAUNCHES, k, kernels.LAUNCHES[k])   # restored after
+    for R, half, form, want in ((25, 32, None, 1), (33, 32, None, 1), (17, 32, None, 1),
+                                (17, 2048, None, int(prefix == "sc")), (1, 81920, None, 0),
+                                (25, 32, "warp", 0), (1, 81920, "latency", 1)):
+        *args, acc = _ladder_args(R, half)
+        n0 = {k: kernels.LAUNCHES[k] for k in names}
+        ladder.tempered_half_step(lp, *args, n_accept=acc, form=form)
+        assert calls[-1] == (f"{prefix}_tempered_half_step_launch", want)
+        ran = f"{name}_{('warp', 'latency')[want]}"
+        assert {k: kernels.LAUNCHES[k] - n0[k] for k in names} == {
+            k: int(k in (name, ran)) for k in names}
+    Lib.rc = 1
+    n0 = {k: kernels.LAUNCHES[k] for k in names}
+    for form in ("latency", None):
+        with pytest.raises(RuntimeError, match="latency form"):
+            ladder.tempered_half_step(lp, *_ladder_args(25, 32)[:8], n_accept=acc, form=form)
+    with pytest.raises(RuntimeError, match="warp form"):
+        ladder.tempered_half_step(lp, *_ladder_args(25, 32)[:8], n_accept=acc, form="warp")
+    assert {k: kernels.LAUNCHES[k] for k in names} == n0
+    with pytest.raises(ValueError, match="'warp' or 'latency'"):
+        ladder.tempered_half_step(lp, *_ladder_args(25, 32)[:8], n_accept=acc, form="thread")
+
+
+@pytest.mark.parametrize("which", ["ShockCooling2", "CompanionShocking2"])
+def test_tempered_latency_form_refused_without_a_point_term(lcs, monkeypatch, which):
+    """K6a over ShockCooling2 or a companion-shocking model has the warp
+    form only: form="latency" raises before any launch, while the rule's
+    pick and form="warp" launch the warp form (no form argument in the C
+    call, the one LAUNCHES count of before)."""
+    from types import SimpleNamespace
+    from lightcurve_fitting_tpu_torch.filters import filtdict
+    _, tlc = lcs
+    if which == "ShockCooling2":
+        model, ndim = tmodels.ShockCooling2(tlc), 4
+    else:
+        t = np.repeat(np.linspace(1.0, 20.0, 4), 3)
+        f = np.array([filtdict[n] for n in ("B", "V", "g")] * 4)
+        lum = np.full(len(t), 2e15)
+        model = tmodels.CompanionShocking2(TLC([t, f, lum, 0.05 * lum],
+                                               names=["MJD", "filter", "lum", "dlum"]),
+                                           device="cpu")
+        ndim = 8
+    mod = kernels.module_for(model)
+    assert not hasattr(mod, "tempered_form")
+    target = SimpleNamespace(log_likelihood=SimpleNamespace(model=model))
+    calls = []
+    _stub_ladder_launches(monkeypatch, calls)
+    params = sc._SCParams()   # (any ctypes block: the stub reads none of it)
+    params.n_points = 149
+    monkeypatch.setattr(mod, "_kernel_params", lambda *a: params)
+    monkeypatch.setitem(kernels.LAUNCHES, "tempered_half_step",
+                        kernels.LAUNCHES["tempered_half_step"])
+    args = _ladder_args(25, 32, ndim)
+    with pytest.raises(ValueError, match="warp form only"):
+        ladder.tempered_half_step(target, *args[:8], n_accept=args[8], form="latency")
+    assert calls == []
+    target.log_likelihood.compute_dtype = torch.float32
+    n0 = kernels.LAUNCHES["tempered_half_step"]
+    for form in (None, "warp"):
+        ladder.tempered_half_step(target, *args[:8], n_accept=args[8], form=form)
+        assert calls[-1][0] == f"{mod.__name__.rsplit('.', 1)[-1]}_tempered_half_step_launch"
+        assert calls[-1][1] == args[8].data_ptr()   # n_accept, then the stream
+    assert kernels.LAUNCHES["tempered_half_step"] == n0 + 2
 
 
 def test_param_block_layout_matches_the_c_struct():

@@ -82,11 +82,15 @@ and of the fits, float32 compute, by CUDA events:
   half 32, 2048 and 65536 (``--sc-halves``: other widths, as the form
   rule's crossover was fitted) in each form in the order warp, latency,
   latency, warp (``SC_half_{half}_{form}{1,2}``; a checkout with one form
-  times it as ``warp`` twice), K6a at 26b's 25 rungs x 64 walkers and K6b
-  as 26b calls it (``SC_K6a_25x64``, ``SC_K6b_25x64``), each timed and
-  hashed; with ``--fits`` the walls of ``chip_smoke.py`` 26a (one seed),
-  26b and 26c and each one's device busy time and idle share, the
-  profiled window primed with spin kernels; ``--sc-only`` times these
+  times it as ``warp`` twice), K6a at 26b's 25 rungs x 64 walkers in the
+  rule's form and K6b as 26b calls it (``SC_K6a_25x64``,
+  ``SC_K6b_25x64``), and K6a in each form at the ladders of
+  ``--sc-ladders`` (rungs x walkers a rung; default 25x64) in the order
+  warp, latency, latency, warp (``SC_K6a_{R}x{W}_{form}{1,2}``; a checkout
+  with one form times it as ``warp`` twice), each timed and hashed; with
+  ``--fits`` the walls of ``chip_smoke.py`` 26a (one seed), 26b and 26c
+  and each one's device busy time and idle share, K6a's kernels listed,
+  the profiled window primed with spin kernels; ``--sc-only`` times these
   alone;
 * hashed only, at ``chip_smoke.py``'s shapes: K3, K4 with its gradient,
   K4s, K5, K6c and K6d; and SN 2016bkv's 65 packed epochs
@@ -125,7 +129,7 @@ of the gradient kernels, of the SC2, SC3, CS and epoch warp kernels, of K4
 frame, spills) comes from the build.
 
 Usage: ``python3 tools/time_port_kernels.py [--repo PATH] [--label NAME]
-[--fits] [--sc-only] [--sc-halves 32,2048,...]``. ``--repo`` is the
+[--fits] [--sc-only] [--sc-halves 32,2048,...] [--sc-ladders 25x64,...]``. ``--repo`` is the
 checkout whose ``lightcurve_fitting_tpu_torch`` is timed (default: this
 one), so that two versions can be compared on one card, in turns: run it
 on each checkout in the order A, B, B, A on the same machine. Each run builds its checkout's kernels first. The last line of the
@@ -269,6 +273,9 @@ def main():
                     help="time the SC and SC4 kernels alone (with --fits, their fits alone)")
     ap.add_argument("--sc-halves", default="32,2048,65536",
                     help="the SC and SC4 half-steps' widths, half walkers, comma-separated")
+    ap.add_argument("--sc-ladders", default="25x64",
+                    help="K6a over SC and SC4 in each form at these ladders, rungs x walkers "
+                         "a rung, comma-separated (as 25x64,16x2048,17x4096,32x4096)")
     ap.add_argument("--fits", action="store_true",
                     help="also time lightcurve_map, lightcurve_hmc (HMC; NUTS in f32, f64), "
                          "the SC3 32768 x 300 fit, the SC2 fits of chip_smoke.py phases 5 and "
@@ -329,9 +336,11 @@ def main():
         times[name + "_dev"] = device_ms(lambda: step(x, logp, u_z, j, u_acc, acc), match,
                                          launches, args.repeats)
 
-    def tempered(name, target, x, off_, sc_, seed):
-        """Time K6a over ``target`` on the ladder state x (R, 2, half, ndim),
-        and hash one half-step and K6b's initial state from the same start."""
+    def tempered(name, target, x, off_, sc_, seed, match="tempered_half_step_kernel", **fkw):
+        """Time K6a over ``target`` on the ladder state x (R, 2, half, ndim)
+        (the kernels holding ``match``; ``fkw``: the form, where the checkout
+        has K6a's two), and hash one half-step and K6b's initial state from
+        the same start."""
         R_, _, hl, _ = x.shape
         pri_, ll_ = ladder.ladder_init(target, x, off_, sc_)
         digests[name + "_K6b"] = digest(pri_, ll_)
@@ -344,17 +353,16 @@ def main():
         xd_, pd_, ld_ = x.clone(), pri_.clone(), ll_.clone()
         ad_ = torch.zeros(shape_, dtype=torch.int32, device=dev)
         ladder.tempered_half_step(target, xd_, pd_, ld_, betas_, 0, uz_, jl_, ua_, 2.0, off_, sc_,
-                                  ad_)
+                                  ad_, **fkw)
         digests[name] = digest(xd_, pd_, ld_, ad_)
         acc_ = torch.zeros(shape_, dtype=torch.int32, device=dev)
 
         def step():
             ladder.tempered_half_step(target, x, pri_, ll_, betas_, 0, uz_, jl_, ua_, 2.0, off_,
-                                      sc_, acc_, check_partners=False)
+                                      sc_, acc_, check_partners=False, **fkw)
         launches = 20 if R_ * hl > 1024 else 100
         times[name] = events_ms(step, launches, args.repeats)
-        times[name + "_dev"] = device_ms(step, "tempered_half_step_kernel", launches,
-                                         args.repeats)
+        times[name + "_dev"] = device_ms(step, match, launches, args.repeats)
         return pri_, ll_
 
     if hasattr(chip_smoke, "SC_NAMES"):
@@ -1228,12 +1236,12 @@ def report(args, repo, build, times, digests, info, walls, ptxas):
           flush=True)
 
 
-def fit_busy(fn, primes=256):
-    """(wall s, device busy s, the four kernels of most device time: {name:
-    [launches, ms]}) of one fn() under the profiler (the device's
-    activity alone), the window first primed with ``primes`` spin kernels
-    (the profiler drops a window's first records after long traces; the
-    spins are not counted)."""
+def fit_busy(fn, primes=256, match=None):
+    """(wall s, device busy s, the four kernels of most device time and,
+    with ``match``, every kernel whose name holds it: {name: [launches,
+    ms]}) of one fn() under the profiler (the device's activity alone), the
+    window first primed with ``primes`` spin kernels (the profiler drops a
+    window's first records after long traces; the spins are not counted)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1248,6 +1256,7 @@ def fit_busy(fn, primes=256):
     evs = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and "spin" not in e.key]
     busy = sum(e.self_device_time_total for e in evs) / 1e6
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:4]
+    top += [e for e in evs if match is not None and match in e.key and e not in top]
     return wall, busy, {e.key.split("(")[0][:90]: [e.count, e.self_device_time_total / 1e3]
                         for e in top}
 
@@ -1261,12 +1270,16 @@ def time_sc(args, dev, lc, chip_smoke, times, digests, walls, half_step, tempere
     each form, in the order warp, latency, latency, warp
     (``SC_half_{half}_{form}{1,2}``; a checkout with one form times it as
     ``warp`` twice); K6a per ladder half-step of 25
-    rungs x 64 walkers (26b) and K6b as 26b calls it, one set of 64
-    starting states written to the 25 rungs (``SC_K6a_25x64``,
-    ``SC_K6b_25x64``); each timed and hashed. With ``--fits``: the walls of
+    rungs x 64 walkers (26b) in the rule's form and K6b as 26b calls it,
+    one set of 64 starting states written to the 25 rungs
+    (``SC_K6a_25x64``, ``SC_K6b_25x64``); K6a in each form, in the order
+    warp, latency, latency, warp, at the ladders of ``--sc-ladders``
+    (``SC_K6a_{R}x{W}_{form}{1,2}``: the form rule's crossover); each timed
+    and hashed. With ``--fits``: the walls of
     26a (``lightcurve_mcmc`` 4096 x 300 from the window, seed 1, twice),
     26b (``compare_models``, seed 7) and 26c (``compare_models_loo``, seed
-    7), and each one's device busy time and idle share (``fit_busy``)."""
+    7), and each one's device busy time and idle share (``fit_busy``; K6a's
+    kernels among the listed)."""
     import torch
     from lightcurve_fitting_tpu_torch.fitting import (_state_rescaling, compare_models,
                                                       compare_models_loo, lightcurve_mcmc,
@@ -1274,6 +1287,7 @@ def time_sc(args, dev, lc, chip_smoke, times, digests, walls, half_step, tempere
     from lightcurve_fitting_tpu_torch.kernels import ladder
     from lightcurve_fitting_tpu_torch.kernels import sc as ksc
     two_forms = "form" in ksc.half_step_launch.__code__.co_varnames
+    two_tempered = "form" in ladder.tempered_half_step.__code__.co_varnames
     lo, up = chip_smoke.SC_LO, chip_smoke.SC_UP
     R, LW = chip_smoke.SC_LADDER
     for name in chip_smoke.SC_NAMES:
@@ -1309,7 +1323,16 @@ def time_sc(args, dev, lc, chip_smoke, times, digests, walls, half_step, tempere
         offl, scl = kwl["param_offset"], kwl["param_scale"]
         q = (np.random.default_rng(R).uniform(lo, up, size=(R * LW, 5)) - offl) / scl
         xl = torch.as_tensor(q.reshape(R, 2, LW // 2, 5), device=dev).to(kwl["dtype"])
-        tempered(f"{tag}_K6a_{R}x{LW}", lps, xl.contiguous(), offl, scl, 1)
+        tempered(f"{tag}_K6a_{R}x{LW}", lps, xl.contiguous(), offl, scl, 1,
+                 match="tempered_half_step")
+        for R2, W2 in (map(int, s.split("x")) for s in args.sc_ladders.split(",")):
+            q2 = (np.random.default_rng(R2 * W2).uniform(lo, up, size=(R2 * W2, 5)) - offl) / scl
+            x2 = torch.as_tensor(q2.reshape(R2, 2, W2 // 2, 5), device=dev).to(kwl["dtype"])
+            order = ("warp", "latency", "latency", "warp") if two_tempered else ("warp", "warp")
+            for k, form in enumerate(order):
+                fkw = {"form": form} if two_tempered else {}
+                tempered(f"{tag}_K6a_{R2}x{W2}_{form}{1 + (k >= len(order) // 2)}", lps,
+                         x2.clone(), offl, scl, 1, match="tempered_half_step", **fkw)
         x1 = xl[:1].contiguous()
 
         def init(x1=x1):
@@ -1341,7 +1364,7 @@ def time_sc(args, dev, lc, chip_smoke, times, digests, walls, half_step, tempere
                 fn()
                 torch.cuda.synchronize()
                 walls[f"{key}_{rep}"] = time.perf_counter() - t0
-            wall_p, busy, top = fit_busy(fn)
+            wall_p, busy, top = fit_busy(fn, match="tempered_half_step")
             walls[f"{key}_profiled"] = {"wall": wall_p, "busy": busy,
                                         "idle_share": 1 - busy / wall_p, "top_kernels_ms": top}
 
