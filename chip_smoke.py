@@ -288,27 +288,37 @@ raises and the script exits non-zero):
     window: the batch log-posterior at 131072 walkers (1% outside the
     priors, an eighth with t < t_0), float32 <= 1e-5 and float64 <= 1e-10
     of the term scale, identical -inf sets, at the fits' widths (64, 4096)
-    the same values bit for bit, each timed; n = 3, RW and kappa = 0.7 at
-    4096; the half-step at half 65536, 2048 and 32 in the form
-    ``kernels/sc.py::sc_half_form`` picks (the latency form below its
-    crossover: a walker's points over ceil(N / 32) warps, one a thread;
-    the warp form at 65536), K6a (each rung its own states) and K6b as
+    the same values bit for bit, each timed in the form
+    ``kernels/sc.py::logpost_form`` picks; its latency form
+    (``logpost_latency_kernel`` of ``kernels/csrc/stretch.cuh``: a block
+    per walker, one point a thread) bit-equal to its warp form at 64, 4096,
+    16384 and (forced) 131072, float32 and float64, with and without the
+    scatter, each form timed on the window's walkers; n = 3, RW and kappa
+    = 0.7 at 4096; the half-step at half 65536, 2048 and 32 in the form
+    ``kernels/sc.py::sc_half_form`` picks (the latency form below each
+    model's crossover: a walker's points over ceil(N / 32) warps, one a
+    thread; SC4's warp form at 65536), K6a (each rung its own states) and K6b as
     called at 26b's 25 rungs x 64, as in 4, 14 and 15, float32 and
-    float64, each timed, K6b's values the batch log-posterior's bits; at
+    float64, each timed, K6b's values the batch log-posterior's bits; K6b's
+    latency form (``ladder_init_latency_kernel`` of
+    ``kernels/csrc/ladder.cuh``: a block per state) bit-equal to its warp
+    form at 26b's 25 x 64 and at 17 x 4096 (log L outside the priors too),
+    float32 and float64, with and without the scatter, each form timed; at
     each of those widths, in float32 and float64, with and without the
     scatter, the latency form bit-equal to the warp form (h = 0, 1: states,
     log-posteriors, accepts, the chain slot) and the batch log-posterior
-    at its new states the stored bits, each form timed (the profiler's
-    device time); K6a's latency form (``tempered_half_step_latency_kernel``
+    (both forms) at its new states the stored bits, each form timed (the
+    profiler's device time); K6a's latency form (``tempered_half_step_latency_kernel``
     of ``kernels/csrc/ladder.cuh``: a block per (rung, walker), one point a
     thread) bit-equal to its warp form at 26b's 25 x 64, at
     ``lightcurve_evidence``'s default 33 x 64, at 17 x 4096 (past SC4's
     crossover in ``kernels/sc.py::tempered_form``) and at 40 x 4096 (past
     both models') (h = 0, 1, beta_0 = 0:
     states, log pi, log L, accepts), float32 and float64, with and without
-    the scatter, K6b and the batch log-posterior at its new states the
-    stored bits, each form timed at each ladder (the median of three
-    profiler windows); phase 21 covers the other use_sigma branches;
+    the scatter, K6b and the batch log-posterior (both forms of each) at
+    its new states the stored bits, each form timed at each ladder (the
+    median of three profiler windows); phase 21 covers the other use_sigma
+    branches;
 26. SW17 against MSW23, the counters reset before (a): (a)
     ``lightcurve_mcmc`` of each at 4096 walkers x 300, seeds 1-8, the mean
     acceptance within 4 combined standard errors of the JAX package's
@@ -327,7 +337,10 @@ raises and the script exits non-zero):
     half-step of (a) (half 2048) and of (b)-(c) (half 32) ran in the form
     ``kernels/sc.py::sc_half_form`` picks at its width, and each of (b)'s
     2 x 2000 K6a launches in the form ``kernels/sc.py::tempered_form``
-    picks at 25 x 32 (the latency form).
+    picks at 25 x 32 (the latency form), each initial state of (a) and (c)
+    in the form ``kernels/sc.py::logpost_form`` picks at 4096 and 64
+    walkers, and (b)'s K6b in the form ``kernels/sc.py::ladder_init_form``
+    picks at 64 states (the latency forms).
 
 The last lines are the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and library time, and ``{"ok": true,
@@ -3344,7 +3357,8 @@ K6B_LADDERS = {"sc2": ((EV_RUNGS + 1, EV_WALKERS), (7, 32), (EV_RUNGS + 1, 32)),
                "sc3": ((EV_RUNGS + 1, SC3_EV_WALKERS),)}
 
 
-def k6b_as_called(name, lp, lo, up, R, W, rng, eval_ops, marks, plain_repeats=0):
+def k6b_as_called(name, lp, lo, up, R, W, rng, eval_ops, marks, plain_repeats=0,
+                  match="ladder_init_kernel"):
     """K6b as a ladder of R rungs x W walkers calls it (every rung starts
     from one set of W states, 1% outside the priors: the set once, copies =
     R) on the rescaled state of ``ladder_setup``, against its plain version:
@@ -3353,7 +3367,9 @@ def k6b_as_called(name, lp, lo, up, R, W, rng, eval_ops, marks, plain_repeats=0)
     its time (events; the profiler's device time), its bound, the kernel
     the profiler saw (holding ``marks``) and, with ``plain_repeats``, the
     plain version's time. Returns (max |d log L|, events ms, device ms,
-    bound fields, kernel name, plain ms); the times None in float64."""
+    bound fields, kernel name, plain ms); the times None in float64.
+    ``match``: what the launched kernel's name holds (over SC and SC4
+    "ladder_init", the rule's form of two)."""
     import torch
     from lightcurve_fitting_tpu_torch.fitting import _state_rescaling
     from lightcurve_fitting_tpu_torch.kernels import common, ladder
@@ -3381,10 +3397,10 @@ def k6b_as_called(name, lp, lo, up, R, W, rng, eval_ops, marks, plain_repeats=0)
 
     def call():
         return ladder.ladder_init(lp, x, off, sc, copies=R)
-    kernel = expect_kernel(call, "ladder_init_kernel", *marks)
+    kernel = expect_kernel(call, match, *marks)
     plain_ms = cuda_ms(lambda: ladder.ladder_init_plain(*fns, x, copies=R),
                        repeats=plain_repeats) if plain_repeats else None
-    return (d, cuda_ms(call), device_ms(call, "ladder_init_kernel", 20, 1)[0],
+    return (d, cuda_ms(call), device_ms(call, match, 20, 1)[0],
             bound_fields(W * eval_ops, W * x.shape[-1] * 4 + R * W * 2 * 8), kernel, plain_ms)
 
 
@@ -5348,14 +5364,20 @@ SC_LOO_REF = {"ShockCooling": (-226429.0139959561, -208583.70626222115, -523496.
                                 -196189.85060277674)}
 SC_KERNELS = ("sc_logpost", "sc_half_step", "sc_tempered_half_step", "sc_ladder_init",
               "sc4_logpost", "sc4_half_step", "sc4_tempered_half_step", "sc4_ladder_init")
-# the half-steps' widths in phase 25: 65536 (past the latency form's
-# crossover), 26a's 2048 and 26c's 32
+# the half-steps' widths in phase 25: 65536 (past SC4's crossover in
+# kernels/sc.py::sc_half_form, before SC's), 26a's 2048 and 26c's 32
 SC_HALVES = (HEADLINE_WALKERS // 2, SC_FIT_WALKERS // 2, SC_LP_WIDTHS[0] // 2)
 # K6a's ladders in phase 25, rungs x walkers a rung: 26b's, lightcurve_evidence's
 # default (32 rungs + beta = 1 of 64 walkers), the evidence bench shape (17 x half
 # 2048 = 34816 walkers a launch: past SC4's crossover in kernels/sc.py::tempered_form,
 # before SC's) and 40 x 4096 (81920 walkers, past both)
 SC_K6A_LADDERS = (SC_LADDER, (33, 64), (17, 4096), (40, 4096))
+# the batch log-posterior's two forms in phase 25: 26c's and 26a's widths,
+# 16384 (past both models' crossovers in kernels/sc.py::logpost_form) and
+# 131072 (the warp form's width, the latency form forced); K6b's: 26b's
+# ladder and the evidence bench shape's 17 x 4096
+SC_LP_FORM_WIDTHS = SC_LP_WIDTHS + (16384, HEADLINE_WALKERS)
+SC_K6B_LADDERS = (SC_LADDER, (17, 4096))
 
 
 def sc_priors(t0_hi=57468.7):
@@ -5387,12 +5409,54 @@ def sc_sigma_prior():
     return [LogUniformPrior(0.01, 10.0)]
 
 
+def sc_logpost_forms_equal(what, prefix, lp, q, off, scale):
+    """The SC or SC4 batch log-posterior in its warp and latency forms at the
+    walker states q (W, ndim), rescaled by (off, scale) or absolute where
+    they are None: the same bits, each form's launch under its own count.
+    Returns the values."""
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels import sc
+    got = {}
+    for form in ("warp", "latency"):
+        n0 = {f: sc.LAUNCHES[f"{prefix}_logpost_{f}"] for f in ("warp", "latency")}
+        got[form] = sc.logpost_launch(prefix, lp, q, off, scale, form=form)
+        moved = {f: sc.LAUNCHES[f"{prefix}_logpost_{f}"] - n for f, n in n0.items()}
+        if moved != {f: int(f == form) for f in n0}:
+            raise AssertionError(f"{what}: one batch log-posterior in the {form} form counted "
+                                 f"{moved}")
+    if not torch.equal(got["warp"], got["latency"]):
+        raise AssertionError(f"{what}: the batch log-posterior's latency form differs from its "
+                             "warp form")
+    return got["warp"]
+
+
+def sc_k6b_forms_equal(what, prefix, lp, x, off, scale, copies=1):
+    """K6b over SC or SC4 in its warp and latency forms on the ladder state x
+    (S, 2, half, ndim), each set written to ``copies`` rows: log pi and log
+    L bit-equal (log L evaluated whatever the prior), each form's launch
+    under its own count. Returns (logpri, logl)."""
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels import ladder, sc
+    name = f"{prefix}_ladder_init"
+    got = {}
+    for form in ("warp", "latency"):
+        n0 = {f: sc.LAUNCHES[f"{name}_{f}"] for f in ("warp", "latency")}
+        got[form] = ladder.ladder_init(lp, x, off, scale, copies=copies, form=form)
+        moved = {f: sc.LAUNCHES[f"{name}_{f}"] - n for f, n in n0.items()}
+        if moved != {f: int(f == form) for f in n0}:
+            raise AssertionError(f"{what}: one K6b launch in the {form} form counted {moved}")
+    if not all(torch.equal(a, b) for a, b in zip(got["warp"], got["latency"])):
+        raise AssertionError(f"{what}: K6b's latency form's log pi or log L differ from its "
+                             "warp form's")
+    return got["warp"]
+
+
 def sc_forms_equal(what, prefix, lp, off, scale, x0, seed):
     """The SC or SC4 half-step (h = 0, then 1) in its warp and latency forms
     from the rescaled state x0 (2, half, ndim) under shared draws, the chain
     slot in float64: new states, log-posteriors, accept counts and chain
-    bit-equal, and the batch log-posterior at the new states the stored
-    values' bits. Returns the accepts."""
+    bit-equal, and the batch log-posterior (both forms) at the new states
+    the stored values' bits. Returns the accepts."""
     import torch
     from lightcurve_fitting_tpu_torch.kernels import sc
     dev = x0.device
@@ -5419,7 +5483,7 @@ def sc_forms_equal(what, prefix, lp, off, scale, x0, seed):
     if not all(torch.equal(a, b) for a, b in zip(*out)):
         raise AssertionError(f"{what}: the latency form's states, log-posteriors, accepts or "
                              "chain differ from the warp form's")
-    again = sc.logpost_launch(prefix, lp, out[1][0].reshape(-1, ndim), off, scale)
+    again = sc_logpost_forms_equal(what, prefix, lp, out[1][0].reshape(-1, ndim), off, scale)
     if not torch.equal(again.reshape(2, half), out[1][1]):
         raise AssertionError(f"{what}: the batch log-posterior at the new states is not the "
                              "stored values' bits")
@@ -5431,7 +5495,8 @@ def sc_tempered_forms_equal(what, prefix, lp, off, scale, x0, seed):
     the rescaled ladder state x0 (R, 2, half, ndim), beta_0 = 0, under shared
     draws: new states, log pi, log L and accept counts bit-equal, each
     form's launches under its own count, and K6b and the batch log-posterior
-    at the new states the stored values' bits. Returns the accepts."""
+    (both forms of each) at the new states the stored values' bits. Returns
+    the accepts."""
     import torch
     from lightcurve_fitting_tpu_torch.kernels import ladder, sc
     from lightcurve_fitting_tpu_torch.parallel.evidence import make_beta_ladder
@@ -5462,10 +5527,11 @@ def sc_tempered_forms_equal(what, prefix, lp, off, scale, x0, seed):
         raise AssertionError(f"{what}: K6a's latency form's states, log pi, log L or accepts "
                              "differ from the warp form's")
     x, pri, ll, acc = out[1]
-    pri_k, ll_k = ladder.ladder_init(lp, x, off, scale)
+    pri_k, ll_k = sc_k6b_forms_equal(what, prefix, lp, x, off, scale)
     if not torch.equal(pri_k, pri) or not torch.equal(ll_k, ll):
         raise AssertionError(f"{what}: K6b at the new states differs from the values K6a stored")
-    val = sc.logpost_launch(prefix, lp, x.reshape(-1, ndim), off, scale).reshape(shape)
+    val = sc_logpost_forms_equal(what, prefix, lp, x.reshape(-1, ndim), off,
+                                 scale).reshape(shape)
     fin = torch.isfinite(pri)
     if not torch.equal((pri + ll)[fin], val[fin]) or not bool(torch.isneginf(val[~fin]).all()):
         raise AssertionError(f"{what}: the batch log-posterior at the new states is not the "
@@ -5488,7 +5554,10 @@ def phase_sc_kernels(lc, rng_seed=21):
     walkers, and K6b as that ladder calls it, as phases 4, 14 and 15,
     float32 and float64; K6b's values the batch log-posterior's bits; K6a's
     two forms bit for bit at SC_K6A_LADDERS (sc_tempered_forms_equal), each
-    form timed there. Returns each kernel's row of the kernels line."""
+    form timed there; the batch log-posterior's two forms bit for bit at
+    SC_LP_FORM_WIDTHS and K6b's at SC_K6B_LADDERS (f32, f64, with and
+    without the scatter), each form timed (f32). Returns each kernel's row
+    of the kernels line."""
     import numpy as np
     import torch
     from lightcurve_fitting_tpu_torch import kernels
@@ -5515,7 +5584,7 @@ def phase_sc_kernels(lc, rng_seed=21):
         mod = getattr(kernels, SC_PREFIX[name])
         eval_ops, mark = SC_EVAL_OPS[name], SC_MARK[name]
         res, widths, halves, forms, lads, k6b, variants = {}, {}, {}, {}, {}, {}, []
-        tforms, ttimes = {}, {}
+        tforms, ttimes, lpforms, k6bforms = {}, {}, {}, {}
         for label in ("f32", "f64"):
             try:
                 if label == "f64":
@@ -5533,7 +5602,7 @@ def phase_sc_kernels(lc, rng_seed=21):
                 kw = _state_rescaling(torch.float32, SC_LO, SC_UP, dev)
                 widths[label], kname = batch_widths(
                     f"{name} log-posterior {label}", mod.log_posterior, lp, p, kw["param_offset"],
-                    kw["param_scale"], SC_LP_WIDTHS + (W,), got, "logpost_warp_kernel", (mark,),
+                    kw["param_scale"], SC_LP_WIDTHS + (W,), got, "logpost_", (mark,),
                     eval_ops(lp.log_likelihood))
                 if label == "f32":
                     plain_ms = cuda_ms(lambda: chunked(lp.forward_plain, p), repeats=3)
@@ -5556,6 +5625,35 @@ def phase_sc_kernels(lc, rng_seed=21):
                 lps = make_log_posterior(sc_model(name, lc), lc, sc_priors() + sc_sigma_prior(),
                                          use_sigma=True, device=dev)
                 kws = _state_rescaling(torch.float32, SC_LO + [0.5], SC_UP + [3.0], dev)
+                # the batch log-posterior's two forms bit for bit at
+                # SC_LP_FORM_WIDTHS (1% outside the priors, an eighth with t <
+                # t_0), with and without the scatter, on the sampler's float32
+                # rescaled state; in float32 each form timed on the window's
+                # walkers (a fit's initial state) beside the rule's pick
+                lpl = make_log_posterior(sc_model(name, lc), lc, sc_priors(57472.0)
+                                         + sc_sigma_prior(), use_sigma=True, device=dev)
+                N = ll32.bb_coeffs.shape[0]
+                for w in SC_LP_FORM_WIDTHS:
+                    pw = torch.cat([p[:w - w // 8], p[W - w // 8:]])
+                    sc_logpost_forms_equal(
+                        f"25 {name} {label} log-posterior at {w}", SC_PREFIX[name], lp,
+                        ((pw - torch.as_tensor(off, device=dev))
+                         / torch.as_tensor(sc, device=dev)).float(), off, sc)
+                    ps = np.concatenate([sc_walkers(rng, w), rng.uniform(0.5, 3.0, (w, 1))], 1)
+                    sc_logpost_forms_equal(
+                        f"25 {name} {label} log-posterior at {w} use_sigma", SC_PREFIX[name],
+                        lpl, torch.as_tensor((ps - kws["param_offset"]) / kws["param_scale"],
+                                             device=dev).float(),
+                        kws["param_offset"], kws["param_scale"])
+                    if label == "f32":
+                        qw = torch.as_tensor((rng.uniform(SC_LO, SC_UP, (w, 5)) - off) / sc,
+                                             device=dev).float()
+                        lpforms[w] = (
+                            {f: dev_ms(lambda f=f, qw=qw: ksc.logpost_launch(
+                                SC_PREFIX[name], lph, qw, off, sc, form=f), "logpost_")
+                             for f in ("warp", "latency")},
+                            mod.logpost_form(w, N, sm_count(dev)),
+                            bound_fields(w * eval_ops(ll32), w * (5 * 4 + 8)))
                 for half in SC_HALVES:
                     x0 = torch.as_tensor((rng.uniform(SC_LO, SC_UP, size=(2 * half, 5)) - off)
                                          / sc, device=dev).float().reshape(2, half, 5).contiguous()
@@ -5591,7 +5689,7 @@ def phase_sc_kernels(lc, rng_seed=21):
                          bound_fields(half * (eval_ops(ll32) + PROPOSAL),
                                       half * (2 * 5 * 4 + 8 + 16 + 4) + half * (5 * 4 + 8 + 4)),
                          {f: dev_ms(lambda: step(f)) for f in ("warp", "latency")},
-                         ksc.sc_half_form(half, ll32.bb_coeffs.shape[0], sm_count(dev)))
+                         mod.sc_half_form(half, ll32.bb_coeffs.shape[0], sm_count(dev)))
                     if half == SC_FIT_WALKERS // 2:
                         xp, lpp = x0.clone(), l0.clone()
                         t += (cuda_ms(lambda: common.stretch_half_step_plain(
@@ -5611,6 +5709,32 @@ def phase_sc_kernels(lc, rng_seed=21):
                 # default and past the crossovers, with and without the
                 # scatter, each form timed (f32)
                 kwls = _state_rescaling("auto", SC_LO + [0.5], SC_UP + [3.0], dev)
+                # K6b's two forms bit for bit as SC_K6B_LADDERS call it (one
+                # set of states, some outside the priors, written to every
+                # rung), with and without the scatter; in float32 each form
+                # timed beside the rule's pick
+                for Rb, Wb in SC_K6B_LADDERS:
+                    for sig, lpx, kk in ((False, lph, kwl), (True, lps, kwls)):
+                        lo_, up_ = (SC_LO + [0.5], SC_UP + [3.0]) if sig else (SC_LO, SC_UP)
+                        xb = torch.as_tensor((window_states(rng, lo_, up_, Wb, max(0.01, 2 / Wb))
+                                              - kk["param_offset"]) / kk["param_scale"],
+                                             device=dev).to(kk["dtype"])
+                        xb = xb.reshape(1, 2, Wb // 2, len(lo_)).contiguous()
+                        what = f"25 {name} {label} K6b {Rb} x {Wb}" + (" use_sigma" if sig else "")
+                        prib, llb = sc_k6b_forms_equal(what, SC_PREFIX[name], lpx, xb,
+                                                       kk["param_offset"], kk["param_scale"], Rb)
+                        out_ = ~torch.isfinite(prib[0])
+                        if not bool(out_.any()) or (Wb > 64 and not bool(
+                                torch.isfinite(llb[0][out_]).any())):
+                            raise AssertionError(f"{what}: no state outside the priors, or none "
+                                                 "of them with a finite log L")
+                        if label == "f64" or sig:
+                            continue
+                        k6bforms[(Rb, Wb)] = (
+                            {f: dev_ms(lambda f=f, xb=xb: ladder.ladder_init(
+                                lph, xb, offl, scl, copies=Rb, form=f), "ladder_init")
+                             for f in ("warp", "latency")},
+                            mod.ladder_init_form(Wb, N, sm_count(dev)))
                 for Rl, Wl in SC_K6A_LADDERS:
                     for sig, lpx, kk in ((False, lph, kwl), (True, lps, kwls)):
                         lo_, up_ = (SC_LO + [0.5], SC_UP + [3.0]) if sig else (SC_LO, SC_UP)
@@ -5651,7 +5775,8 @@ def phase_sc_kernels(lc, rng_seed=21):
                     raise AssertionError(f"25 {name} {label}: K6b's values are not the batch "
                                          "log-posterior's bits")
                 k6b[label] = k6b_as_called(f"25 {name} K6b {label}", lph, SC_LO, SC_UP, R, LW,
-                                           rng, eval_ops(ll32), (mark,), plain_repeats=3)
+                                           rng, eval_ops(ll32), (mark,), plain_repeats=3,
+                                           match="ladder_init")
                 if label == "f32":
                     betas = torch.as_tensor(make_beta_ladder(R - 1), device=dev)
                     shape = (R, 2, LW // 2)
@@ -5687,6 +5812,8 @@ def phase_sc_kernels(lc, rng_seed=21):
                      "ms": hW[0], "plain_ms": hW[5], **hW[2]},
             "k6a": {"max_abs_err": lads["f32"][2], "ms": a_t[0], "plain_ms": a_plain, **a_t[2]},
             "k6a_forms": ttimes,
+            "logpost_forms": lpforms,
+            "k6b_forms": k6bforms,
             "k6b": {"max_abs_err": k6b["f32"][0], "ms": k6b["f32"][1], "plain_ms": k6b["f32"][5],
                     **k6b["f32"][3]}}
         lines.append(
@@ -5725,7 +5852,16 @@ def phase_sc_kernels(lc, rng_seed=21):
             f"{k6b['f32'][1]:.4f}; {k6b['f32'][2]:.4f} ms (bound "
             f"{k6b['f32'][3]['bound_ms']:.5f}), plain {k6b['f32'][5]:.4f} ms, log L max |d| "
             f"f32 {k6b['f32'][0]:.3e}, f64 {k6b['f64'][0]:.3e}; K6b's values the batch "
-            "log-posterior's bits")
+            "log-posterior's bits; the batch log-posterior's latency form bit-equal to its "
+            f"warp form at {', '.join(map(str, SC_LP_FORM_WIDTHS))} (f32, f64; with "
+            "use_sigma), device ms by form on the window's walkers: " + "; ".join(
+                f"{w}: warp form {t[0]['warp']:.4f}, latency form {t[0]['latency']:.4f}, the "
+                f"rule's {t[1]} (bound {t[2]['bound_ms']:.5f})" for w, t in lpforms.items())
+            + "; K6b's latency form bit-equal to its warp form (log L outside the priors too) "
+            "at " + ", ".join(f"{Rb} x {Wb}" for Rb, Wb in SC_K6B_LADDERS) + " (f32, f64; "
+            "with use_sigma), device ms by form: " + "; ".join(
+                f"{Rb} x {Wb}: warp form {t[0]['warp']:.4f}, latency form "
+                f"{t[0]['latency']:.4f}, the rule's {t[1]}" for (Rb, Wb), t in k6bforms.items()))
     phase("SC and SC4 kernels 25", " | ".join(lines))
     return rows
 
@@ -5756,15 +5892,17 @@ def phase_sc_main_path(lc, smi):
     and no plain version did, and each half-step of (a) (half 2048) and of
     (b)-(c) (half 32) ran in the form kernels/sc.py::sc_half_form picks at
     its width, and each of (b)'s 2 x 2000 K6a launches in the form
-    kernels/sc.py::tempered_form picks at 25 x 32, by the per-form counts.
-    Returns (the launches, the discrepancy's row for PERF.md)."""
+    kernels/sc.py::tempered_form picks at 25 x 32, each initial state of (a)
+    (4096 walkers) and (c) (64) in the form kernels/sc.py::logpost_form
+    picks and (b)'s K6b (64 states) in the form
+    kernels/sc.py::ladder_init_form picks, by the per-form counts. Returns
+    (the launches, the discrepancy's row for PERF.md)."""
     import numpy as np
     import torch
     from lightcurve_fitting_tpu_torch import fitting, kernels
     from lightcurve_fitting_tpu_torch.fitting import (compare_models, compare_models_loo,
                                                       goodness_of_fit, information_criteria,
                                                       lightcurve_mcmc)
-    from lightcurve_fitting_tpu_torch.kernels import sc as ksc
     from lightcurve_fitting_tpu_torch.kernels.gradient import sm_count
 
     kernels.reset_launch_counts()
@@ -5870,11 +6008,12 @@ def phase_sc_main_path(lc, smi):
         raise AssertionError(f"{plain.count} plain versions ran on the SW17-vs-MSW23 path")
     # each half-step in the form the rule picks at its run's width
     ran_forms = {}
+    sms = sm_count(torch.device("cuda"))
     for run, (before, after, half) in {
             "26a": ({k: 0 for k in launches}, after_a, SC_FIT_WALKERS // 2),
             "26b-c": (after_a, launches, SC_LP_WIDTHS[0] // 2)}.items():
-        want = ksc.sc_half_form(half, len(lc), sm_count(torch.device("cuda")))
         for prefix in ("sc", "sc4"):
+            want = getattr(kernels, prefix).sc_half_form(half, len(lc), sms)
             got = {f: after[f"{prefix}_half_step_{f}"] - before[f"{prefix}_half_step_{f}"]
                    for f in ("warp", "latency")}
             total = after[f"{prefix}_half_step"] - before[f"{prefix}_half_step"]
@@ -5882,6 +6021,32 @@ def phase_sc_main_path(lc, smi):
                 raise AssertionError(f"{run}: {total} {prefix.upper()} half-steps at half {half}, "
                                      f"by form {got}: not all in the {want} form the rule picks")
             ran_forms[(run, prefix)] = (half, got)
+    # each initial state (26a's 8 fits a model at 4096 walkers, 26c's one at
+    # 64) and 26b's K6b (one a model, 64 states) in the form its rule picks
+    ran_logpost, ran_init = {}, {}
+    for run, (before, after, n_walkers, n_launches) in {
+            "26a": ({k: 0 for k in launches}, after_a, SC_FIT_WALKERS, len(SC_SEEDS)),
+            "26b-c": (after_a, launches, SC_LP_WIDTHS[0], 1)}.items():
+        for prefix in ("sc", "sc4"):
+            want = getattr(kernels, prefix).logpost_form(n_walkers, len(lc), sms)
+            name = f"{prefix}_logpost"
+            got = {f: after[f"{name}_{f}"] - before[f"{name}_{f}"] for f in ("warp", "latency")}
+            total = after[name] - before[name]
+            if total != n_launches or got[want] != total:
+                raise AssertionError(f"{run}: {total} {prefix.upper()} batch log-posteriors at "
+                                     f"{n_walkers} walkers, by form {got}: not {n_launches}, "
+                                     f"all in the {want} form the rule picks")
+            ran_logpost[(run, prefix)] = (n_walkers, got)
+    for prefix in ("sc", "sc4"):
+        want = getattr(kernels, prefix).ladder_init_form(SC_LADDER[1], len(lc), sms)
+        name = f"{prefix}_ladder_init"
+        got = {f: launches[f"{name}_{f}"] - after_a[f"{name}_{f}"] for f in ("warp", "latency")}
+        total = launches[name] - after_a[name]
+        if total != 1 or got[want] != total:
+            raise AssertionError(f"26b: {total} K6b launches over {prefix.upper()} at "
+                                 f"{SC_LADDER[1]} states, by form {got}: not 1 in the {want} "
+                                 "form the rule picks")
+        ran_init[prefix] = got
     # each K6a launch of 26b (2 x (600 + 400) a model) in the form the rule
     # picks over its launch's 25 x 32 walkers
     R26, W26 = SC_LADDER
@@ -5941,6 +6106,12 @@ def phase_sc_main_path(lc, smi):
           + "; 26b's K6a by form, all in the rule's form: " + "; ".join(
               f"{p.upper()} ({R26} x {W26}) warp {got['warp']}, latency {got['latency']}"
               for p, got in ran_tempered.items())
+          + "; the initial states by form, all in the rule's form: " + "; ".join(
+              f"{run} {p.upper()} ({w} walkers) warp {got['warp']}, latency {got['latency']}"
+              for (run, p), (w, got) in ran_logpost.items())
+          + "; 26b's K6b by form, all in the rule's form: " + "; ".join(
+              f"{p.upper()} ({SC_LADDER[1]} states) warp {got['warp']}, latency "
+              f"{got['latency']}" for p, got in ran_init.items())
           + f"; launches {launches}")
     return launches, drow
 
@@ -5990,7 +6161,15 @@ def main():
                          ("K10", "logpost_warp_kernelI12SEDWarpModel", 8),
                          ("K10's run form", "stretch_run_kernelI12SEDWarpModel", 32),
                          ("the SC log-posterior", "logpost_warp_kernelI11SCWarpModel", 8),
-                         ("the SC4 log-posterior", "logpost_warp_kernelI12SC4WarpModel", 8)):
+                         ("the SC4 log-posterior", "logpost_warp_kernelI12SC4WarpModel", 8),
+                         ("the SC log-posterior's latency form",
+                          "logpost_latency_kernelI11SCWarpModel", 8),
+                         ("the SC4 log-posterior's latency form",
+                          "logpost_latency_kernelI12SC4WarpModel", 8),
+                         ("K6b's latency form over SC", "ladder_init_latency_kernelI11SCWarpModel",
+                          8),
+                         ("K6b's latency form over SC4",
+                          "ladder_init_latency_kernelI12SC4WarpModel", 8)):
         block[what] = [v for k, v in report.items() if key in k]
         if len(block[what]) != n or any(v[1] or v[2] or v[3] for v in block[what]):
             raise AssertionError(f"{what} ({n} instantiations) must keep its state in "
@@ -6012,8 +6191,9 @@ def main():
           "f32, f64 state), the CS log-posterior (ndim 7, 8, 9; 4 each), K4s (4 dtype "
           "instantiations), K3's warp form (f32, f64), K5 (1-8 percentiles), K8 (both "
           "forms, f32, f64), K10 (ndim 2, 3; 4 dtype instantiations each), K10's run "
-          "form (ndim 2, 3; its 16 dtype instantiations each) and the SC and SC4 "
-          "log-posteriors (ndim 5, 6; 4 each): "
+          "form (ndim 2, 3; its 16 dtype instantiations each), the SC and SC4 "
+          "log-posteriors (ndim 5, 6; 4 each) and the latency forms of the SC and SC4 "
+          "log-posteriors and of K6b over them (ndim 5, 6; 4 each): "
           + "; ".join(f"{what} registers {sorted(set(v[0] for v in ks))}, stack frames "
                       f"{sorted(set(v[1] for v in ks))} bytes, spills "
                       f"{sorted(set(v[2] + v[3] for v in ks))}" for what, ks in block.items())
@@ -6201,7 +6381,14 @@ def main():
             ("sc4", "SC4WarpModel", "lightcurve_fitting_tpu/models/shock_cooling.py:247")):
         what = prefix.upper()
         kernels += [
-            dict(name=f"logpost_warp_kernel<{policy}<C, N>> ({what} log-posterior)",
+            dict(name=f"logpost_warp_kernel<{policy}<C, N>> / logpost_latency_kernel<{policy}<"
+                      f"C, N>> ({what} log-posterior; launched on 26a-c ({SC_FIT_WALKERS}, "
+                      f"{SC_LP_WIDTHS[0]} walkers): warp form "
+                      f"{launches_sc[f'{prefix}_logpost_warp']}, latency form "
+                      f"{launches_sc[f'{prefix}_logpost_latency']}; times at {HEADLINE_WALKERS} "
+                      "in the rule's form; device ms by form on the window's walkers: "
+                      + "; ".join(f"{w} warp {t[0]['warp']:.4f}, latency {t[0]['latency']:.4f}"
+                                  for w, t in k_sc[prefix]["logpost_forms"].items()) + ")",
                  route="cuda", source=src_sc, replaces=replaces,
                  launches=launches_sc[f"{prefix}_logpost"], **k_sc[prefix]["logpost"]),
             dict(name=f"stretch_half_step_kernel<{policy}> / stretch_half_step_latency_kernel<"
@@ -6225,8 +6412,16 @@ def main():
                  replaces="lightcurve_fitting_tpu/parallel/evidence.py:60",
                  launches=launches_sc[f"{prefix}_tempered_half_step"],
                  **k_sc[prefix]["k6a"]),
-            dict(name=f"ladder_init_kernel<{policy}<C, N>> (K6b over {what})", route="cuda",
-                 source=src_sc, replaces="lightcurve_fitting_tpu/parallel/evidence.py:229",
+            dict(name=f"ladder_init_kernel<{policy}<C, N>> / ladder_init_latency_kernel<"
+                      f"{policy}<C, N>> (K6b over {what}; launched on 26b ({SC_LADDER[1]} "
+                      f"states): warp form {launches_sc[f'{prefix}_ladder_init_warp']}, latency "
+                      f"form {launches_sc[f'{prefix}_ladder_init_latency']}; times at "
+                      f"{SC_LADDER[0]} x {SC_LADDER[1]} in the rule's form; device ms by form: "
+                      + "; ".join(f"{Rb} x {Wb} warp {t[0]['warp']:.4f}, latency "
+                                  f"{t[0]['latency']:.4f}"
+                                  for (Rb, Wb), t in k_sc[prefix]["k6b_forms"].items()) + ")",
+                 route="cuda", source="lightcurve_fitting_tpu_torch/kernels/csrc/ladder.cuh",
+                 replaces="lightcurve_fitting_tpu/parallel/evidence.py:229",
                  launches=launches_sc[f"{prefix}_ladder_init"], **k_sc[prefix]["k6b"])]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

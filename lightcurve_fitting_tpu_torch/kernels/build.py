@@ -90,7 +90,7 @@ def _declare(lib):
     for prefix in ("sc", "sc4"):
         fn = getattr(lib, f"{prefix}_logpost_launch")
         fn.restype = ci
-        fn.argtypes = [vp, ci, ci, vp, ci, ci, vp, vp]
+        fn.argtypes = [vp, ci, ci, vp, ci, ci, vp, ci, vp]   # the form before the stream
         fn = getattr(lib, f"{prefix}_half_step_launch")
         fn.restype = ci
         fn.argtypes = half_step[:-1] + [ci, vp]   # the form before the stream
@@ -103,6 +103,8 @@ def _declare(lib):
         fn = getattr(lib, f"{prefix}_ladder_init_launch")
         fn.restype = ci
         fn.argtypes = [vp, ci, ci, vp, ci, ci, ci, ci, vp, vp, vp]
+        if prefix in ("sc", "sc4"):
+            fn.argtypes = fn.argtypes[:-1] + [ci, vp]   # the form before the stream
     lib.replica_swap_launch.restype = ci
     lib.replica_swap_launch.argtypes = [ci, vp, ci, ci, vp, vp, vp, ci, ci, vp, ci, vp, vp, vp,
                                         vp]

@@ -27,7 +27,10 @@ LAUNCHES = {"sc2_logpost": 0, "stretch_half_step": 0, "bandflux": 0, "sc3_logpos
             "sc4_tempered_half_step": 0, "sc4_ladder_init": 0, "sc_half_step_warp": 0,
             "sc_half_step_latency": 0, "sc4_half_step_warp": 0, "sc4_half_step_latency": 0,
             "sc_tempered_half_step_warp": 0, "sc_tempered_half_step_latency": 0,
-            "sc4_tempered_half_step_warp": 0, "sc4_tempered_half_step_latency": 0}
+            "sc4_tempered_half_step_warp": 0, "sc4_tempered_half_step_latency": 0,
+            "sc_logpost_warp": 0, "sc_logpost_latency": 0, "sc4_logpost_warp": 0,
+            "sc4_logpost_latency": 0, "sc_ladder_init_warp": 0, "sc_ladder_init_latency": 0,
+            "sc4_ladder_init_warp": 0, "sc4_ladder_init_latency": 0}
 
 FLOATS = (torch.float32, torch.float64)
 

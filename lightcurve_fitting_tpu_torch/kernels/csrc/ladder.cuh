@@ -1,8 +1,9 @@
 // K6: the tempered ladder's model kernels, templates over a warp policy M of
 // stretch.cuh (K6a and K6b a warp per walker or state over SC2WarpModel,
 // SC3WarpModel, CSWarpModel, SCWarpModel and SC4WarpModel, instantiated in
-// sc2_logpost.cu, sc3_logpost.cu, companion.cu and sc_logpost.cu; K6a also
-// in a latency form, a block per walker, for a policy with point_term). The
+// sc2_logpost.cu, sc3_logpost.cu, companion.cu and sc_logpost.cu; K6a and
+// K6b also in a latency form, a block per walker or state, for a policy
+// with point_term). The
 // model-free K6 kernels (the replica exchange and the stepping-stone block
 // terms) are in ladder.cu.
 //
@@ -41,7 +42,10 @@
 // takes the distinct states once and each lane writes its state's two
 // values into the `copies` rows that hold it: at the evidence's 17 x 4096
 // that is 4096 evaluations, not 69632 (a thread per state and rung took
-// ~0.35 ms there, at the floor of a thread per walker).
+// ~0.35 ms there, at the floor of a thread per walker). Over SCWarpModel
+// and SC4WarpModel K6b also has a latency form, a block per distinct state
+// (ladder_init_latency_kernel), where a warp per state leaves the card
+// idle; the same bits.
 
 #pragma once
 
@@ -279,6 +283,46 @@ ladder_init_kernel(const typename M::Params P, const S* __restrict__ x, int n, i
     }
 }
 
+// K6b's latency form (a policy with point_term: ShockCooling's and
+// ShockCooling4's), where a warp per state leaves the card idle (the
+// ladders' 32-4096 distinct starting states): the arguments and writes of
+// ladder_init_kernel, a block per state of ceil(N / 32) warps, as
+// logpost_latency_kernel (stretch.cuh). Warp 0 maps state i to absolute
+// parameters and forms its log pi and, whatever it is, its constants
+// (latency_walker); latency_log_likelihood<M, true> evaluates its log L (the
+// swaps read it alone) in the warp form's order; warp 0's lanes write log
+// pi and log L (-inf for a NaN) into the state's `copies` rows, lane l the
+// rows l, l + 32, .... So each row has the warp form's bits, and those that
+// K6a (both forms) stores when it accepts that state.
+template <typename M, typename S>
+__global__ void __launch_bounds__(32 * LP_LAT_WARPS)
+ladder_init_latency_kernel(const typename M::Params P, const S* __restrict__ x, int per_set,
+                           int copies, double* __restrict__ logpri, double* __restrict__ logl) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    __shared__ typename M::Walker walker_s;
+    const typename M::Data d = M::stage(P, nullptr, 0, 0);
+    const int i = blockIdx.x;
+    constexpr int D = policy_dim<M>::value;
+    const int ndim = D > 0 ? D : (int)P.ndim;
+    double lpri = -INFINITY;
+    if (threadIdx.x < 32) {
+        double p[D > 0 ? D : LP_MAX_DIM];
+        for (int k = 0; k < ndim; ++k) p[k] = to_absolute(P, k, x[(size_t)i * ndim + k]);
+        lpri = log_prior<D>(P, p);
+        latency_walker<M>(p, P, true, walker_s);
+    }
+    double ll = latency_log_likelihood<M, true>(nullptr, walker_s, d, P,
+                                                reinterpret_cast<typename M::Compute*>(smem_raw));
+    if (threadIdx.x >= 32) return;
+    if (isnan(ll)) ll = -INFINITY;
+    const int s = i / per_set;
+    const size_t row = (size_t)s * copies * per_set + (size_t)(i - s * per_set);
+    for (int c = threadIdx.x; c < copies; c += 32) {
+        logpri[row + (size_t)c * per_set] = lpri;
+        logl[row + (size_t)c * per_set] = ll;
+    }
+}
+
 // ------------------------------------------------------------------ launch
 
 template <typename M, typename S>
@@ -364,25 +408,47 @@ static int launch_tempered_half_step(const typename M<float>::Params* P, int dev
 #undef LADDER_ARGS
 }
 
+// K6b's latency form (ladder_init_latency_kernel) over the n states, a block
+// of ceil(N / 32) warps each. Refused for a policy without point_term, and
+// past LP_LAT_WARPS warps a state.
+template <typename M, typename S>
+static int launch_init_latency(const typename M::Params& P, const void* x, int n, int per_set,
+                               int copies, double* logpri, double* logl, cudaStream_t stream) {
+    if constexpr (!policy_point<M>::value) {
+        return (int)cudaErrorInvalidValue;
+    } else {
+        const long long per_state = (P.n_points + 31) / 32;
+        if (per_state < 1 || per_state > LP_LAT_WARPS) return (int)cudaErrorInvalidValue;
+        const int threads = (int)(32 * per_state);
+        ladder_init_latency_kernel<M, S><<<n, threads, sizeof(typename M::Compute) * threads,
+                                           stream>>>(P, (const S*)x, per_set, copies, logpri,
+                                                     logl);
+        return (int)cudaGetLastError();
+    }
+}
+
 // The K6b launch for the warp policy M<C> over the n states x (sets x
-// per_set, ndim), each written to `copies` rows. Returns 0 or a cudaError_t
-// code.
+// per_set, ndim), each written to `copies` rows; form 0 the warp form
+// (ladder_init_kernel), 1 the latency form (ladder_init_latency_kernel, a
+// policy with point_term). Returns 0 or a cudaError_t code.
 template <template <typename> class M>
 static int launch_ladder_init(const typename M<float>::Params* P, int device, int compute_f64,
                               const void* x, int state_f64, int n, int per_set, int copies,
-                              double* logpri, double* logl, void* stream) {
+                              double* logpri, double* logl, void* stream, int form = 0) {
     int rc = (int)cudaSetDevice(device);
     if (rc) return rc;
     if (n <= 0) return 0;
     if (P->ndim > LP_MAX_DIM || per_set <= 0 || n % per_set || copies < 1 ||
-        (long long)n * copies > 2147483647LL)
+        (long long)n * copies > 2147483647LL || (form != 0 && form != 1))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
 #define LADDER_INIT_ARGS *P, x, n, per_set, copies, logpri, logl, s
+#define LADDER_INIT_CASE(C, S)                               \
+    (form ? launch_init_latency<M<C>, S>(LADDER_INIT_ARGS)   \
+          : launch_init<M<C>, S>(LADDER_INIT_ARGS))
     if (compute_f64)
-        return state_f64 ? launch_init<M<double>, double>(LADDER_INIT_ARGS)
-                         : launch_init<M<double>, float>(LADDER_INIT_ARGS);
-    return state_f64 ? launch_init<M<float>, double>(LADDER_INIT_ARGS)
-                     : launch_init<M<float>, float>(LADDER_INIT_ARGS);
+        return state_f64 ? LADDER_INIT_CASE(double, double) : LADDER_INIT_CASE(double, float);
+    return state_f64 ? LADDER_INIT_CASE(float, double) : LADDER_INIT_CASE(float, float);
+#undef LADDER_INIT_CASE
 #undef LADDER_INIT_ARGS
 }

@@ -54,7 +54,12 @@
 // order, so both forms store the same bits. K6a over them has the same
 // latency form (tempered_half_step_latency_kernel of ladder.cuh, a block per
 // (rung, walker); kernels/sc.py::tempered_form over the launch's R x half
-// walkers).
+// walkers), and so have the batch log-posterior (logpost_latency_kernel of
+// stretch.cuh, a block per walker; kernels/sc.py::logpost_form) and K6b
+// (ladder_init_latency_kernel of ladder.cuh, a block per distinct state;
+// kernels/sc.py::ladder_init_form), the fits' initial states and the
+// ladders' starting values at 64-4096 walkers: the same bits as their warp
+// forms, and as the half-steps' and K6a's stored values.
 //
 // Dtype semantics follow the JAX accelerator path, with each model's own
 // order of casts. SW17 (temperature_radius) casts t - t_exp, v_s, M_env,
@@ -370,8 +375,8 @@ __device__ double sc4_log_likelihood_warp(const SC4Walker<C>& w, const PointData
 // log-posterior, the half-step, K6a and K6b): a warp per walker, batched,
 // sixteen warps a block, the tables staged once a block. N: the walker's
 // dimension at compile time (policy_dim), or 0 (P.ndim). Its point_term
-// (sc_point, sc4_point) also runs the half-step's latency form, a point a
-// thread.
+// (sc_point, sc4_point) also runs the latency forms of the half-step, K6a,
+// the batch log-posterior and K6b, a point a thread.
 template <typename C, int N>
 struct SCTableModel {
     typedef SCParams Params;
@@ -443,14 +448,17 @@ using SC4WarpModel6 = SC4WarpModel<C, 6>;
 // The four launches of a policy family M<C, N> under the C names prefix_*:
 // the batch log-posterior and K6b at the walker's dimension (5, or 6 with the
 // intrinsic scatter), the half-step and K6a at run time. Each returns 0 or a
-// cudaError_t code; the arguments are those of sc2_logpost.cu's launches.
+// cudaError_t code; the arguments are those of sc2_logpost.cu's launches,
+// with the form before the stream (0 the warp form, 1 the latency form).
 #define SC_LAUNCHES(prefix, M)                                                                 \
     int prefix##_logpost_launch(const SCParams* P, int device, int compute_f64, const void* q, \
-                                int q_f64, int W, double* out, void* stream) {                 \
+                                int q_f64, int W, double* out, int form, void* stream) {       \
         if (P->ndim == 5)                                                                      \
-            return launch_logpost<M##5>(P, device, compute_f64, q, q_f64, W, out, stream);     \
+            return launch_logpost<M##5>(P, device, compute_f64, q, q_f64, W, out, stream, 1,   \
+                                        form);                                                 \
         if (P->ndim == 6)                                                                      \
-            return launch_logpost<M##6>(P, device, compute_f64, q, q_f64, W, out, stream);     \
+            return launch_logpost<M##6>(P, device, compute_f64, q, q_f64, W, out, stream, 1,   \
+                                        form);                                                 \
         return (int)cudaErrorInvalidValue;                                                     \
     }                                                                                          \
     int prefix##_half_step_launch(const SCParams* P, int device, int compute_f64, void* x,     \
@@ -474,13 +482,14 @@ using SC4WarpModel6 = SC4WarpModel<C, 6>;
     }                                                                                          \
     int prefix##_ladder_init_launch(const SCParams* P, int device, int compute_f64,            \
                                     const void* x, int state_f64, int n, int per_set,          \
-                                    int copies, double* logpri, double* logl, void* stream) {  \
+                                    int copies, double* logpri, double* logl, int form,        \
+                                    void* stream) {                                            \
         if (P->ndim == 5)                                                                      \
             return launch_ladder_init<M##5>(P, device, compute_f64, x, state_f64, n, per_set,  \
-                                            copies, logpri, logl, stream);                     \
+                                            copies, logpri, logl, stream, form);               \
         if (P->ndim == 6)                                                                      \
             return launch_ladder_init<M##6>(P, device, compute_f64, x, state_f64, n, per_set,  \
-                                            copies, logpri, logl, stream);                     \
+                                            copies, logpri, logl, stream, form);               \
         return (int)cudaErrorInvalidValue;                                                     \
     }
 

@@ -2,7 +2,8 @@
 // overloads, the priors, the Gaussian residual, and the stretch-move
 // half-step (K2), its latency form (a walker's points over a block, for
 // SCWarpModel and SC4WarpModel), its run form (a segment of steps in one
-// block) and the batch log-posterior as templates over a model policy.
+// block) and the batch log-posterior (also in a latency form) as templates
+// over a model policy.
 //
 // A model policy M (SC2Model in sc2_logpost.cu, SC3WarpModel in
 // sc3_logpost.cu, EpochBBModel in epoch_bb.cu, CSModel in companion.cu,
@@ -412,6 +413,55 @@ struct policy_walker_lanes<M, std::void_t<decltype(&M::walker_lanes)>> {
 // points.
 #define LP_LAT_WARPS 20
 
+// The latency forms' walker constants (a policy with point_term), formed by
+// warp 0 from the absolute parameters p where `form` (uniform over the
+// warp), into the shared walker_s: M::walker_lanes by the 32 lanes where the
+// policy has it, else M::walker on lane 0. The same bits either way.
+template <typename M>
+__device__ __forceinline__ void latency_walker(const double* p, const typename M::Params& P,
+                                               bool form, typename M::Walker& walker_s) {
+    if constexpr (policy_walker_lanes<M>::value) {
+        if (form) {
+            const typename M::Walker wk = M::walker_lanes(p, P);
+            if ((threadIdx.x & 31) == 0) walker_s = wk;
+        }
+    } else if ((threadIdx.x & 31) == 0 && form) {
+        walker_s = M::walker(p, P);
+    }
+}
+
+// The latency forms' block body: every thread of the block calls it once
+// warp 0 has put the walker's constants into walker_s and its prior into
+// *lprior_s (shared memory). After a barrier thread n forms point n's term
+// into terms[n] (blockDim.x of them, shared memory), where the prior is
+// finite or with EVERY whatever it is; after another, warp 0 sums the terms
+// in log_likelihood_warp's order (lane l adds its points l, l + 32, ... in
+// turn with add_rn, then warp_sum's butterfly) and finish_log_likelihood.
+// Returns that log-likelihood on warp 0 (every lane the same bits: the
+// warp form's), -inf where it was not evaluated and on the other warps. With
+// EVERY, lprior_s is not read (may be null). The latency forms of the batch
+// log-posterior and K6b call it; those of the half-step and K6a keep their
+// own copy of these lines: through this function ptxas spilled 4-20 bytes
+// in their float32-compute, float64-state instantiations, which their own
+// copies keep in 32 registers without a spill (PERF.md §6).
+template <typename M, bool EVERY = false>
+__device__ __forceinline__ double latency_log_likelihood(const double* lprior_s,
+                                                         const typename M::Walker& walker_s,
+                                                         const typename M::Data& d,
+                                                         const typename M::Params& P,
+                                                         typename M::Compute* terms) {
+    typedef typename M::Compute C;
+    __syncthreads();
+    const int n = threadIdx.x, N = (int)P.n_points;
+    // (the prior, read at each use, is uniform over the block)
+    if (n < N && (EVERY || isfinite(*lprior_s))) terms[n] = M::point_term(n, walker_s, d, P);
+    __syncthreads();
+    if (n >= 32 || !(EVERY || isfinite(*lprior_s))) return -INFINITY;
+    C acc = C(0);
+    for (int k = n; k < N; k += 32) acc = add_rn(acc, terms[k]);
+    return finish_log_likelihood<C>(warp_sum(acc), P.use_sigma, P.ll_offset, P.log_norm_const);
+}
+
 // K2's latency form (a policy with point_term): one Goodman-Weare half-step
 // of half h, the arguments and writes of stretch_half_step_kernel (one
 // ensemble). A block per walker, of ceil(N / 32) warps: the per-point data
@@ -537,6 +587,44 @@ logpost_warp_kernel(const typename M::Params P, const S* __restrict__ q, int W,
         const int b0 = b * bsz;
         logpost_batch<M, S>(P, d, q, out, b0, M::batched && W - b0 < bsz ? W - b0 : bsz);
     }
+}
+
+// The batch log-posterior's latency form (a policy with point_term:
+// SCWarpModel and SC4WarpModel of sc_logpost.cu), where a warp per walker
+// leaves the card idle (the fits' initial states, 64-4096 walkers): out[i]
+// for the walker state q[i, :] (W, ndim), one ensemble, a block per walker
+// of ceil(N / 32) warps, the per-point data read where they lie. Warp 0 maps
+// the state to absolute parameters and forms its prior and, where that is
+// finite, its constants (every lane the same bits, as logpost_batch with
+// nb = 1; latency_walker), latency_log_likelihood sums the points' terms, a
+// point a thread, in the warp form's order, and lane 0 writes
+// logpost_batch's value: -inf outside the priors, and for a NaN. So a
+// state's value has the warp form's bits, and those that the half-steps
+// and K6a (both forms of each) store when they accept it.
+template <typename M, typename S>
+__global__ void __launch_bounds__(32 * LP_LAT_WARPS)
+logpost_latency_kernel(const typename M::Params P, const S* __restrict__ q,
+                       double* __restrict__ out) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    __shared__ double lprior_s;
+    __shared__ typename M::Walker walker_s;
+    const typename M::Data d = M::stage(P, nullptr, 0, 0);
+    const int i = blockIdx.x;
+    constexpr int D = policy_dim<M>::value;
+    const int ndim = D > 0 ? D : (int)P.ndim;
+    double lprior = -INFINITY;
+    if (threadIdx.x < 32) {
+        double p[D > 0 ? D : LP_MAX_DIM];
+        for (int k = 0; k < ndim; ++k) p[k] = to_absolute(P, k, q[(size_t)i * ndim + k]);
+        lprior = model_log_prior<M, D>(P, d, p);
+        if (threadIdx.x == 0) lprior_s = lprior;
+        latency_walker<M>(p, P, isfinite(lprior), walker_s);
+    }
+    const double ll = latency_log_likelihood<M>(&lprior_s, walker_s, d, P,
+                                                reinterpret_cast<typename M::Compute*>(smem_raw));
+    if (threadIdx.x != 0) return;
+    const double lp = isfinite(lprior) ? lprior + ll : -INFINITY;
+    out[i] = isnan(lp) ? -INFINITY : lp;
 }
 
 // ---------------------------------------------------------------- run form
@@ -914,23 +1002,46 @@ static int launch_logpost_warp(const typename M::Params& P, const void* q, int W
     return (int)cudaGetLastError();
 }
 
-// The batch log-posterior launch (logpost_warp_kernel) for the warp policy
-// M<C> of the compute type C and the state's type, each float or double,
-// over n_ens ensembles of W walkers. Returns 0 or a cudaError_t code.
+// The batch log-posterior's latency form (logpost_latency_kernel) over W
+// walkers of one ensemble, a block of ceil(N / 32) warps each. Refused for
+// a policy without point_term, and past LP_LAT_WARPS warps a walker.
+template <typename M, typename S>
+static int launch_logpost_latency(const typename M::Params& P, const void* q, int W,
+                                  double* out, cudaStream_t stream) {
+    if constexpr (!policy_point<M>::value) {
+        return (int)cudaErrorInvalidValue;
+    } else {
+        const long long per_walker = (P.n_points + 31) / 32;
+        if (per_walker < 1 || per_walker > LP_LAT_WARPS) return (int)cudaErrorInvalidValue;
+        const int threads = (int)(32 * per_walker);
+        logpost_latency_kernel<M, S><<<W, threads, sizeof(typename M::Compute) * threads, stream>>>(
+            P, (const S*)q, out);
+        return (int)cudaGetLastError();
+    }
+}
+
+// The batch log-posterior launch for the warp policy M<C> of the compute
+// type C and the state's type, each float or double, over n_ens ensembles
+// of W walkers; form 0 the warp form (logpost_warp_kernel), 1 the latency
+// form (logpost_latency_kernel: one ensemble, a policy with point_term).
+// Returns 0 or a cudaError_t code.
 template <template <typename> class M>
 static int launch_logpost(const typename M<float>::Params* P, int device, int compute_f64,
                           const void* q, int q_f64, int W, double* out, void* stream,
-                          int n_ens = 1) {
+                          int n_ens = 1, int form = 0) {
     int rc = (int)cudaSetDevice(device);
     if (rc) return rc;
     if (W <= 0 || n_ens <= 0) return 0;
-    if (P->ndim > LP_MAX_DIM || n_ens > 65535) return (int)cudaErrorInvalidValue;
+    if (P->ndim > LP_MAX_DIM || n_ens > 65535 || (form != 0 && (form != 1 || n_ens != 1)))
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
+#define LP_LOGPOST_CASE(C, S)                                       \
+    (form ? launch_logpost_latency<M<C>, S>(*P, q, W, out, s)      \
+          : launch_logpost_warp<M<C>, S>(*P, q, W, n_ens, out, s))
     if (compute_f64)
-        return q_f64 ? launch_logpost_warp<M<double>, double>(*P, q, W, n_ens, out, s)
-                     : launch_logpost_warp<M<double>, float>(*P, q, W, n_ens, out, s);
-    return q_f64 ? launch_logpost_warp<M<float>, double>(*P, q, W, n_ens, out, s)
-                 : launch_logpost_warp<M<float>, float>(*P, q, W, n_ens, out, s);
+        return q_f64 ? LP_LOGPOST_CASE(double, double) : LP_LOGPOST_CASE(double, float);
+    return q_f64 ? LP_LOGPOST_CASE(float, double) : LP_LOGPOST_CASE(float, float);
+#undef LP_LOGPOST_CASE
 }
 
 // The run form's warps: a warp per walker of a half, or more where the

@@ -12,9 +12,12 @@ versions beside them.
   stretch-move half-step of every rung's ensemble, accepting by log pi +
   beta log L;
 * :func:`ladder_init` (K6b, ``ladder_init_kernel``, a warp per state over
-  the model's warp policy): log pi and log L of the ladder's starting
-  states, each distinct state evaluated once and written to every rung
-  that starts from it (``copies``);
+  the model's warp policy; over ShockCooling and ShockCooling4 below the
+  crossover of :func:`.sc.ladder_init_form` its latency form,
+  ``ladder_init_latency_kernel``, a block per state, a point a thread, the
+  same bits): log pi and log L of the ladder's starting states, each
+  distinct state evaluated once and written to every rung that starts from
+  it (``copies``);
 * :func:`replica_swap` (K6c, ``replica_swap_kernel`` of ``csrc/ladder.cu``):
   the exchange between neighbouring rungs, writing a production step's
   outputs;
@@ -33,7 +36,7 @@ tensor on the CPU each wrapper runs its plain version; for a CUDA tensor it
 launches its kernel or raises: there is no fallback. Each launch adds one to
 ``LAUNCHES[name]``, and nothing else does; K6a and K6b over a model module
 with ``LADDER_COUNTS`` (:mod:`.sc`, :mod:`.sc4`) count under its names, and
-K6a there once more under its form's, ``<name>_warp`` or ``<name>_latency``.
+there once more under their form's, ``<name>_warp`` or ``<name>_latency``.
 """
 
 import ctypes
@@ -224,20 +227,32 @@ def ladder_init_plain(log_prior, log_like, x, copies=1):
     return logpri.repeat_interleave(copies, dim=0), logl.repeat_interleave(copies, dim=0)
 
 
-def ladder_init(target, x, param_offset=None, param_scale=None, copies=1):
+def ladder_init(target, x, param_offset=None, param_scale=None, copies=1, form=None):
     """K6b: (logpri, logl), each (S * copies, 2, half) float64, of the
     ladder's starting states x (S, 2, half, ndim): set s of states fills
     the ``copies`` rows s * copies, ..., s * copies + copies - 1 (the
     ladder, whose rungs all start from one set, passes that set and its
     rung count; ``copies=1`` gives each of S rungs its own states). The
     likelihood is evaluated whatever the prior. The outputs are buffers of
-    their own, row by row (the half-steps and swaps write them in place)."""
+    their own, row by row (the half-steps and swaps write them in place).
+    ``form``: ``"warp"`` (a warp per state) or ``"latency"`` (a block per
+    state, for a model module with ``ladder_init_form``: :mod:`.sc`,
+    :mod:`.sc4`); None takes the module's ``ladder_init_form`` over the
+    S x 2 x half states, else the warp form. Both forms give the same
+    bits."""
+    if form not in (None, "warp", "latency"):
+        raise ValueError(f"the ladder's initial state's form is 'warp' or 'latency', "
+                         f"not {form!r}")
     if isinstance(copies, bool) or not isinstance(copies, numbers.Integral) or copies < 1:
         raise ValueError(f"copies must be a positive integer, got {copies!r}")
     copies = int(copies)
     if x.device.type == "cpu":
         return ladder_init_plain(*plain_functions(target, param_offset, param_scale), x, copies)
     lp, mod = _fused(target, "the ladder's initial state")
+    rule = getattr(mod, "ladder_init_form", None)
+    if form == "latency" and rule is None:
+        raise ValueError(f"K6b over {type(lp.log_likelihood.model).__name__} has the warp form "
+                         "only (its policy has no per-point term)")
     if x.ndim != 4 or x.shape[1] != 2:
         raise ValueError(f"x must be (S, 2, half, ndim), got shape {tuple(x.shape)}")
     S, _, half, ndim = x.shape
@@ -246,6 +261,9 @@ def ladder_init(target, x, param_offset=None, param_scale=None, copies=1):
     from .build import library
     lib = library()
     P = mod._kernel_params(lp, ndim, param_offset, param_scale)
+    if form is None:
+        from .gradient import sm_count
+        form = rule(S * 2 * half, P.n_points, sm_count(x.device)) if rule else "warp"
     logpri = torch.empty((S * copies, 2, half), dtype=torch.float64, device=x.device)
     logl = torch.empty_like(logpri)
     device_index, stream = cuda_args(x.device)
@@ -253,10 +271,14 @@ def ladder_init(target, x, param_offset=None, param_scale=None, copies=1):
     rc = launch(ctypes.addressof(P), device_index,
                 int(lp.log_likelihood.compute_dtype == torch.float64), x.data_ptr(),
                 int(x.dtype == torch.float64), S * 2 * half, 2 * half, copies,
-                logpri.data_ptr(), logl.data_ptr(), stream)
+                logpri.data_ptr(), logl.data_ptr(), *((int(form == "latency"),) if rule else ()),
+                stream)
     if rc != 0:
-        raise RuntimeError(f"ladder_init_kernel launch failed: cudaError {rc}")
-    LAUNCHES[getattr(mod, "LADDER_COUNTS", {}).get("ladder_init", "ladder_init")] += 1
+        raise RuntimeError(f"ladder_init_kernel launch failed ({form} form): cudaError {rc}")
+    name = getattr(mod, "LADDER_COUNTS", {}).get("ladder_init", "ladder_init")
+    LAUNCHES[name] += 1
+    if rule is not None:
+        LAUNCHES[f"{name}_{form}"] += 1
     return logpri, logl
 
 

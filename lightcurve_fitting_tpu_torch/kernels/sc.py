@@ -3,9 +3,13 @@ in physical parameters over the band table), with the plain PyTorch versions
 beside them; :mod:`.sc4` wraps the ShockCooling4 (MSW23) instantiations of
 the same source through the helpers here.
 
-* :func:`log_posterior` (``logpost_warp_kernel`` over ``SCWarpModel<C, N>``,
-  a warp per walker as the half-step, whose stored values it repeats bit
-  for bit): the log-posterior of a batch of walker states.
+* :func:`log_posterior`: the log-posterior of a batch of walker states, in
+  the form :func:`logpost_form` picks: ``"warp"`` (``logpost_warp_kernel``
+  over ``SCWarpModel<C, N>``, a warp per walker as the half-step) where the
+  walkers fill the card, ``"latency"`` (``logpost_latency_kernel``: a block
+  per walker, a point a thread) below. Both give the same bits, those that
+  the half-steps and K6a store. A launch counts once under ``sc_logpost``
+  and once under ``sc_logpost_warp`` or ``sc_logpost_latency``.
 * :func:`stretch_half_step`: one Goodman-Weare half-step of the ensemble,
   in place, in the form :func:`sc_half_form` picks: ``"warp"``
   (``stretch_half_step_kernel`` over ``SCWarpModel``, a warp per walker)
@@ -20,7 +24,11 @@ the same source through the helpers here.
   (``tempered_half_step_kernel``, a warp per walker, or
   ``tempered_half_step_latency_kernel``, a block per (rung, walker); the
   same bits), counted once more under ``sc_tempered_half_step_warp`` or
-  ``sc_tempered_half_step_latency``.
+  ``sc_tempered_half_step_latency``; K6b in the form :func:`ladder_init_form`
+  picks for its distinct states (``ladder_init_kernel``, a warp per state,
+  or ``ladder_init_latency_kernel``, a block per state; the same bits),
+  counted once more under ``sc_ladder_init_warp`` or
+  ``sc_ladder_init_latency``.
 
 For a tensor on the CPU each wrapper runs its plain version
 (:func:`~.common.log_posterior_plain`, :func:`~.common.stretch_half_step_plain`).
@@ -37,7 +45,7 @@ from .common import (LAUNCHES, MAX_DIM, FLOATS, check, check_buffers, cuda_args,
                      log_posterior_plain, stretch_half_step_plain)
 
 __all__ = ["log_posterior", "stretch_half_step", "sc_half_form", "tempered_form",
-           "LADDER_COUNTS"]
+           "logpost_form", "ladder_init_form", "LADDER_COUNTS"]
 
 #: the LAUNCHES names under which :mod:`.ladder` counts K6a and K6b over
 #: this module's policy
@@ -67,14 +75,14 @@ class _SCParams(ctypes.Structure):
 LATENCY_MAX_WARPS = 20
 #: the half-steps run the latency form while a half's walkers need at most
 #: this many warps an SM (ceil(N / 32) a walker), the warp form above
-#: (sc_half_form): at 149 points on the H100's 132 SMs up to half 34320.
-#: ShockCooling4's forms cross between half 32768 (the latency form 0.155
-#: against 0.159-0.163 ms) and 40960 (0.191-0.192 against 0.186-0.191).
-#: ShockCooling's latency form stays ahead through 65536 (0.246 against
-#: 0.246-0.268 ms), so the one rule gives it up to ~10% between 34321 and
-#: 65536, widths no fit of the flagship runs (tools/time_port_kernels.py
-#: --sc-only --sc-halves; PERF.md §7)
-LATENCY_WARPS_PER_SM = 1300
+#: (sc_half_form), by model. ShockCooling4's forms cross between half 32768
+#: (the latency form 0.155 against 0.159-0.163 ms) and 40960 (0.191-0.192
+#: against 0.186-0.191): 1300, half 34320 at 149 points on the H100's 132
+#: SMs. ShockCooling's latency form leads through half 81920 (0.3047 against
+#: 0.3158-0.3181 ms) and ties from 90112 (0.3358 against 0.3219-0.3349):
+#: its own 3104, half 81920 (tools/time_port_kernels.py --sc-only
+#: --sc-halves; PERF.md §6)
+HALF_LATENCY_WARPS_PER_SM = {"sc": 3104, "sc4": 1300}
 #: K6a's latency form runs while a launch's R x half walkers need at most
 #: this many warps an SM (tempered_form), by model. ShockCooling4's K6a
 #: crosses between 24576 walkers (the latency form 0.110-0.124 ms against
@@ -86,7 +94,22 @@ LATENCY_WARPS_PER_SM = 1300
 #: (0.3835 against 0.3609-0.3697): its own constant, 2500 (65536 walkers at
 #: 149 points on 132 SMs) (tools/time_port_kernels.py --sc-only
 #: --sc-ladders; PERF.md §6)
-TEMPERED_LATENCY_WARPS_PER_SM = {"sc": 2500, "sc4": LATENCY_WARPS_PER_SM}
+TEMPERED_LATENCY_WARPS_PER_SM = {"sc": 2500, "sc4": 1300}
+#: the batch log-posterior's latency form runs while a launch's walkers need
+#: at most this many warps an SM (logpost_form), by model, and K6b's while
+#: its distinct states do (ladder_init_form: a state's work is a walker's,
+#: and the two forms of each cross at the same widths). On the window's
+#: states (a fit's initial state, every walker's likelihood evaluated),
+#: ShockCooling's latency form leads through 12288 walkers (0.0648-0.0685
+#: against 0.0682-0.0712 ms) and loses from 16384 (0.0929 against
+#: 0.0918-0.0923): 466, 12288 walkers at 149 points on 132 SMs;
+#: ShockCooling4's leads through 8192 (0.0602 against 0.0622-0.0623) and
+#: loses from 12288 (0.0880-0.0882 against 0.0848-0.0849): 311, 8192
+#: walkers. Far earlier than the half-steps' crossovers, whose proposals
+#: outside the priors skip their likelihood: blocks of unequal work favour
+#: the latency form (tools/time_port_kernels.py --sc-only --sc-logpost
+#: --sc-k6b; PERF.md §6)
+LOGPOST_LATENCY_WARPS_PER_SM = {"sc": 466, "sc4": 311}
 
 _BUFFERS = ("t_centered", "y", "inv_dy", "dy", "sigma_units", "bb_s_a", "bb_s_b", "bb_coeffs")
 
@@ -141,11 +164,19 @@ def _kernel_params(lp, ndim, offset, scale):
     return kernel_params("sc", lp, ndim, offset, scale)
 
 
-def logpost_launch(prefix, lp, q, param_offset=None, param_scale=None):
+def _check_form(prefix, what, form):
+    if form not in (None, "warp", "latency"):
+        raise ValueError(f"the {prefix.upper()} {what}'s form is 'warp' or 'latency', "
+                         f"not {form!r}")
+
+
+def logpost_launch(prefix, lp, q, param_offset=None, param_scale=None, form=None):
     """The batch log-posterior (W,) float64 of family ``prefix`` for
     LogPosterior ``lp`` at the walker states ``q`` (W, ndim) float32/float64,
     affine-mapped to ``offset + scale * q`` when given: its plain version for
-    a CPU tensor, else the kernel."""
+    a CPU tensor, else the kernel in ``form``, ``"warp"`` or ``"latency"``
+    (None: the form :func:`logpost_form` picks)."""
+    _check_form(prefix, "log-posterior", form)
     if q.device.type == "cpu":
         return log_posterior_plain(lp, q, param_offset, param_scale)
     if q.device.type != "cuda":
@@ -159,15 +190,20 @@ def logpost_launch(prefix, lp, q, param_offset=None, param_scale=None):
     from .build import library
     lib = library()
     P = kernel_params(prefix, lp, ndim, param_offset, param_scale)
+    if form is None:
+        from .gradient import sm_count
+        form = logpost_form(W, P.n_points, sm_count(q.device), prefix)
     out = torch.empty(W, dtype=torch.float64, device=q.device)
     dev, stream = cuda_args(q.device)
     rc = getattr(lib, f"{prefix}_logpost_launch")(
         ctypes.addressof(P), dev, int(lp.log_likelihood.compute_dtype == torch.float64),
-        q.data_ptr(), int(q.dtype == torch.float64), W, out.data_ptr(), stream)
+        q.data_ptr(), int(q.dtype == torch.float64), W, out.data_ptr(), int(form == "latency"),
+        stream)
     if rc != 0:
-        raise RuntimeError(f"logpost_warp_kernel ({prefix.upper()}) launch failed: "
-                           f"cudaError {rc}")
+        raise RuntimeError(f"the {prefix.upper()} batch log-posterior ({form} form) launch "
+                           f"failed: cudaError {rc}")
     LAUNCHES[f"{prefix}_logpost"] += 1
+    LAUNCHES[f"{prefix}_logpost_{form}"] += 1
     return out
 
 
@@ -181,14 +217,16 @@ def _form(n_walkers, n_points, n_sm, warps_per_sm):
     return "latency" if n_walkers * per_walker <= warps_per_sm * n_sm else "warp"
 
 
-def sc_half_form(half, n_points, n_sm):
-    """The SC and SC4 half-steps' form for ``half`` walkers of ``n_points``
-    points on a card of ``n_sm`` SMs: ``"latency"`` (a walker's points over
-    ceil(n_points / 32) warps, a point a thread) where a warp per walker
-    would leave the card's schedulers idle, each lane walking its points
-    one after another; ``"warp"`` (a warp per walker) where the walkers'
-    groups would overfill the card. Both store the same bits."""
-    return _form(half, n_points, n_sm, LATENCY_WARPS_PER_SM)
+def sc_half_form(half, n_points, n_sm, prefix="sc"):
+    """The half-step's form over family ``prefix`` ("sc" or "sc4"; :mod:`.sc4`
+    binds its own) for ``half`` walkers of ``n_points`` points on a card of
+    ``n_sm`` SMs: ``"latency"`` (a walker's points over ceil(n_points / 32)
+    warps, a point a thread) where a warp per walker would leave the card's
+    schedulers idle, each lane walking its points one after another;
+    ``"warp"`` (a warp per walker) where the walkers' groups would overfill
+    the card, past the family's HALF_LATENCY_WARPS_PER_SM. Both store the
+    same bits."""
+    return _form(half, n_points, n_sm, HALF_LATENCY_WARPS_PER_SM[prefix])
 
 
 def tempered_form(n_walkers, n_points, n_sm, prefix="sc"):
@@ -201,6 +239,22 @@ def tempered_form(n_walkers, n_points, n_sm, prefix="sc"):
     return _form(n_walkers, n_points, n_sm, TEMPERED_LATENCY_WARPS_PER_SM[prefix])
 
 
+def logpost_form(n_walkers, n_points, n_sm, prefix="sc"):
+    """The batch log-posterior's form over family ``prefix`` ("sc" or "sc4";
+    :mod:`.sc4` binds its own) for ``n_walkers`` walkers of ``n_points``
+    points on a card of ``n_sm`` SMs: ``"latency"`` (a block per walker, a
+    point a thread) below the family's LOGPOST_LATENCY_WARPS_PER_SM, else
+    ``"warp"``. Both give the same bits."""
+    return _form(n_walkers, n_points, n_sm, LOGPOST_LATENCY_WARPS_PER_SM[prefix])
+
+
+def ladder_init_form(n_states, n_points, n_sm, prefix="sc"):
+    """K6b's form over family ``prefix`` for ``n_states`` distinct starting
+    states (each written to its rungs' rows): :func:`logpost_form`'s rule,
+    a state's work being a walker's. Both forms give the same bits."""
+    return logpost_form(n_states, n_points, n_sm, prefix)
+
+
 def half_step_launch(prefix, lp, x, logp, h, u_z, j, u_acc, a=2.0, param_offset=None,
                      param_scale=None, chain_x=None, chain_logp=None, n_accept=None,
                      check_partners=True, form=None):
@@ -208,9 +262,7 @@ def half_step_launch(prefix, lp, x, logp, h, u_z, j, u_acc, a=2.0, param_offset=
     :func:`.sc2.stretch_half_step`): its plain version for a CPU tensor,
     else the kernel in ``form``, ``"warp"`` or ``"latency"`` (None: the form
     :func:`sc_half_form` picks)."""
-    if form not in (None, "warp", "latency"):
-        raise ValueError(f"the {prefix.upper()} half-step's form is 'warp' or 'latency', "
-                         f"not {form!r}")
+    _check_form(prefix, "half-step", form)
     if x.device.type == "cpu":
         def log_prob(q):
             return log_posterior_plain(lp, q, param_offset, param_scale)
@@ -227,7 +279,7 @@ def half_step_launch(prefix, lp, x, logp, h, u_z, j, u_acc, a=2.0, param_offset=
     P = kernel_params(prefix, lp, ndim, param_offset, param_scale)
     if form is None:
         from .gradient import sm_count
-        form = sc_half_form(x.shape[1], P.n_points, sm_count(x.device))
+        form = sc_half_form(x.shape[1], P.n_points, sm_count(x.device), prefix)
     device_index, stream = cuda_args(x.device)
     rc = getattr(lib, f"{prefix}_half_step_launch")(
         ctypes.addressof(P), device_index, int(lp.log_likelihood.compute_dtype == torch.float64),

@@ -96,7 +96,12 @@ half-steps' two forms bit-equal (half 32, 2048), and K6a over SC and SC4
 in its two forms (a warp per walker; a block per (rung, walker)) bit-equal
 at 25 rungs x half 32 and 17 x 2048, float32 and float64, with and without
 the intrinsic scatter, K6b and the batch log-posterior at the new states
-the stored values bit for bit.
+the stored values bit for bit. The SC and SC4 batch log-posterior in its
+two forms (a warp per walker; a block per walker) bit-equal at the fits'
+widths (64, 4096), and K6b over them in its two forms (a warp or a block
+per distinct state) bit-equal as the ladders call it (25 x 64, 17 x
+4096), log L outside the priors too, float32 and float64, with and
+without the intrinsic scatter.
 """
 
 import ctypes
@@ -3416,5 +3421,130 @@ def test_sc_tempered_forms_bit_equal_on_card(lc, cuda_device, prefix, R, half, f
         fin = torch.isfinite(pri)
         assert torch.equal((pri + ll)[fin], val[fin])
         assert bool(torch.isneginf(val[~fin]).all())
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+
+def _sc_states(lp, lo, up, n, seed, device):
+    """n absolute states (n, ndim) float64 of compare_models' window
+    [lo, up]: a tenth with t_0 after the first points, and 1% with one
+    coordinate at -1 or just past its prior's upper bound (outside the
+    priors). Returns (states, the rows outside the priors)."""
+    rng = np.random.default_rng(seed)
+    ndim = len(lo)
+    pos = rng.uniform(lo, up, size=(n, ndim))
+    pos[: n // 10, 4] = rng.uniform(57468.8, 57469.9, n // 10)
+    out = rng.choice(n, max(1, n // 100), replace=False)
+    dims = rng.integers(0, ndim, out.size)
+    hi = np.array([p.p_max for p in lp.priors])
+    pos[out, dims] = np.where(rng.random(out.size) < 0.5, -1.0, hi[dims] + 0.5)
+    return torch.as_tensor(pos, device=device), torch.as_tensor(out, device=device)
+
+
+def _sc_posterior(prefix, use_sigma, lc, device):
+    """(LogPosterior of SC or SC4 with compare_models' priors, t_0 < 57470,
+    the window's lo, up), in the current compute dtype."""
+    from lightcurve_fitting_tpu_torch.models import ShockCooling, ShockCooling4
+    lo = [0.5, 0.5, 0.1, 0.1, 57468.3] + ([0.5] if use_sigma else [])
+    up = [10.0, 20.0, 10.0, 20.0, 57468.7] + ([3.0] if use_sigma else [])
+    priors = ([UniformPrior(0.1, 20.0), UniformPrior(0.1, 30.0), LogUniformPrior(0.01, 100.0),
+               UniformPrior(0.01, 50.0), UniformPrior(57468.0, 57470.0)]
+              + ([LogUniformPrior(0.01, 10.0)] if use_sigma else []))
+    model = (ShockCooling if prefix == "sc" else ShockCooling4)(lc)
+    return make_log_posterior(model, lc, priors, use_sigma=use_sigma, device=device), lo, up
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefix", ["sc", "sc4"])
+@pytest.mark.parametrize("W", [64, 4096])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+@pytest.mark.parametrize("use_sigma", [False, True], ids=["plain", "sigma"])
+def test_sc_logpost_forms_bit_equal_on_card(lc, cuda_device, prefix, W, f64, use_sigma):
+    """The SC and SC4 batch log-posterior in its two forms (a warp per
+    walker; a block per walker, one point a thread) at the fits' widths, 1%
+    of the walkers outside the priors and a tenth with t_0 after the first
+    points, on the sampler's float32 rescaled state and on the absolute
+    float64 parameters: the same bits, -inf outside the priors, finite
+    elsewhere; one launch under each form's own count; the rule picks the
+    latency form at these widths."""
+    from lightcurve_fitting_tpu_torch.fitting import _state_rescaling
+    from lightcurve_fitting_tpu_torch.kernels import gradient, sc
+    mod = getattr(kernels, prefix)
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        lp, lo, up = _sc_posterior(prefix, use_sigma, lc, cuda_device)
+        p, out = _sc_states(lp, lo, up, W, W + 7 * f64 + 3 * use_sigma, cuda_device)
+        kw = _state_rescaling(torch.float32, lo, up, cuda_device)
+        off, scale = kw["param_offset"], kw["param_scale"]
+        q = ((p - torch.as_tensor(off, device=cuda_device))
+             / torch.as_tensor(scale, device=cuda_device)).float()
+        name = f"{prefix}_logpost"
+        names = [name, f"{name}_warp", f"{name}_latency"]
+        for x, o, s in ((q, off, scale), (p, None, None)):
+            got = {}
+            for form in ("warp", "latency"):
+                n0 = [kernels.LAUNCHES[k] for k in names]
+                got[form] = sc.logpost_launch(prefix, lp, x, o, s, form=form)
+                assert [kernels.LAUNCHES[k] - n for k, n in zip(names, n0)] == [
+                    1, int(form == "warp"), int(form == "latency")]
+            assert torch.equal(got["warp"], got["latency"])
+            inside = torch.ones(W, dtype=torch.bool, device=cuda_device)
+            inside[out] = False
+            assert bool(torch.isneginf(got["latency"][~inside]).all())
+            assert bool(torch.isfinite(got["latency"][inside]).all())
+        assert mod.logpost_form(W, lp.log_likelihood.bb_coeffs.shape[0],
+                                gradient.sm_count(cuda_device)) == "latency"
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefix", ["sc", "sc4"])
+@pytest.mark.parametrize("R,W", [(25, 64), (17, 4096)], ids=["26b-25x64", "17x4096"])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+@pytest.mark.parametrize("use_sigma", [False, True], ids=["plain", "sigma"])
+def test_sc_ladder_init_forms_bit_equal_on_card(lc, cuda_device, prefix, R, W, f64, use_sigma):
+    """K6b over SC and SC4 in its two forms (a warp per state; a block per
+    state, one point a thread) as a ladder of R rungs x W walkers calls it
+    (one set of W states written to the R rungs), 1% of the states outside
+    the priors and a tenth with t_0 after the first points, on the ladder's
+    rescaled state: log pi and log L bit-equal, log L evaluated outside the
+    priors too, every rung's rows equal; one launch under each form's own
+    count; and the batch log-posterior at the states log pi + log L where
+    log pi is finite."""
+    from lightcurve_fitting_tpu_torch.fitting import _state_rescaling
+    from lightcurve_fitting_tpu_torch.kernels import sc
+    try:
+        if f64:
+            config.set_compute_dtype(None)
+        lp, lo, up = _sc_posterior(prefix, use_sigma, lc, cuda_device)
+        p, out = _sc_states(lp, lo, up, W, R * W + 7 * f64 + 3 * use_sigma, cuda_device)
+        kw = _state_rescaling("auto", lo, up, cuda_device)
+        off, scale = kw["param_offset"], kw["param_scale"]
+        x = ((p - torch.as_tensor(off, device=cuda_device))
+             / torch.as_tensor(scale, device=cuda_device)).to(kw["dtype"])
+        x = x.reshape(1, 2, W // 2, len(lo)).contiguous()
+        name = f"{prefix}_ladder_init"
+        names = [name, f"{name}_warp", f"{name}_latency"]
+        got = {}
+        for form in ("warp", "latency"):
+            n0 = [kernels.LAUNCHES[k] for k in names]
+            got[form] = ladder.ladder_init(lp, x, off, scale, copies=R, form=form)
+            assert [kernels.LAUNCHES[k] - n for k, n in zip(names, n0)] == [
+                1, int(form == "warp"), int(form == "latency")]
+        for a, b in zip(got["warp"], got["latency"]):
+            assert a.shape == (R, 2, W // 2) and torch.equal(a, b)
+            assert all(torch.equal(a[r], a[0]) for r in range(R))
+        pri, ll = (t[0].reshape(-1) for t in got["latency"])
+        fin = torch.isfinite(pri)
+        assert not bool(fin[out].any())
+        if W > 64:   # (40 states outside the priors, most of them with a finite log L)
+            assert bool(torch.isfinite(ll[out]).any())
+        for form in ("warp", "latency"):
+            val = sc.logpost_launch(prefix, lp, x.reshape(-1, len(lo)), off, scale, form=form)
+            assert torch.equal((pri + ll)[fin], val[fin])
+            assert bool(torch.isneginf(val[~fin]).all())
     finally:
         config.set_compute_dtype(config.AUTO)

@@ -5,9 +5,9 @@ n = 1.5 and 3, RW and kappa = 0.7; the batched log-posterior through
 ``make_log_posterior`` on SN 2016bkv's early curve, with t < t_0 and the
 intrinsic scatter; one stretch half-step and one tempered-ladder step (K6a,
 K6b) under the JAX package's own draws; the routing to the kernel modules,
-the half-steps' and K6a's form rules and the form argument their wrappers
-hand the C launch (a stub library); and ``interop.model_from_jax`` for
-every model class.
+the form rules of the half-steps, K6a, the batch log-posterior and K6b and
+the form argument their wrappers hand the C launch (a stub library); and
+``interop.model_from_jax`` for every model class.
 
 Inputs are made from a seed with numpy and go through both packages.
 Tolerances: float64 <= 1e-12 relative per point, <= 1e-10 |ll| for summed
@@ -349,15 +349,22 @@ def test_kernel_modules_and_cpu_wrappers(lcs):
 
 
 def test_sc_half_form_by_width():
-    """The SC and SC4 half-steps' form rule on the H100's 132 SMs at the
-    flagship's 149 points: the latency form at 26c's half 32 and 26a's half
-    2048, the warp form at half 65536; past 20 warps a walker (640 points)
-    only the warp form runs."""
-    assert sc.sc_half_form(32, 149, 132) == "latency"
-    assert sc.sc_half_form(2048, 149, 132) == "latency"
-    assert sc.sc_half_form(65536, 149, 132) == "warp"
-    assert sc.sc_half_form(1, 641, 132) == "warp"
-    assert sc.sc_half_form(1, 640, 132) == "latency"
+    """The SC and SC4 half-steps' form rules on the H100's 132 SMs at the
+    flagship's 149 points, each model's measured crossover: the latency form
+    at 26c's half 32 and 26a's half 2048; SC4's warp form from half 34321,
+    SC's latency form through 81920 and its warp form at 98304; past 20
+    warps a walker (640 points) only the warp form runs."""
+    for mod in (sc, sc4):
+        assert mod.sc_half_form(32, 149, 132) == "latency"
+        assert mod.sc_half_form(2048, 149, 132) == "latency"
+        assert mod.sc_half_form(98304, 149, 132) == "warp"
+        assert mod.sc_half_form(1, 641, 132) == "warp"
+        assert mod.sc_half_form(1, 640, 132) == "latency"
+    assert sc4.sc_half_form(34320, 149, 132) == "latency"
+    assert sc4.sc_half_form(34321, 149, 132) == "warp"
+    assert sc4.sc_half_form(65536, 149, 132) == "warp"
+    assert sc.sc_half_form(65536, 149, 132) == "latency"
+    assert sc.sc_half_form(81920, 149, 132) == "latency"
 
 
 class _FakeCudaState:
@@ -365,7 +372,7 @@ class _FakeCudaState:
     wrapper takes its kernel branch up to the C call."""
 
     def __init__(self, t):
-        self.t, self.shape, self.dtype = t, t.shape, t.dtype
+        self.t, self.shape, self.dtype, self.ndim = t, t.shape, t.dtype, t.dim()
         self.device = torch.device("cuda", 0)
 
     def data_ptr(self):
@@ -401,7 +408,7 @@ def test_half_step_form_reaches_the_c_call(lcs, monkeypatch, prefix):
     names = (name, f"{name}_warp", f"{name}_latency")
     for k in names:
         monkeypatch.setitem(kernels.LAUNCHES, k, kernels.LAUNCHES[k])   # restored after
-    for half, form, want in ((32, None, 1), (2048, None, 1), (65536, None, 0),
+    for half, form, want in ((32, None, 1), (2048, None, 1), (98304, None, 0),
                              (32, "warp", 0), (65536, "latency", 1)):
         x = _FakeCudaState(torch.zeros((2, half, 5), dtype=torch.float32))
         logp = torch.zeros((2, half), dtype=torch.float64)
@@ -444,17 +451,20 @@ def test_tempered_form_by_width(mod):
 
 def _stub_ladder_launches(monkeypatch, calls):
     """A stub kernel library whose launches record (name, the argument
-    before the stream) and return Lib.rc, with K6a's input checks and the
-    card's 132 SMs stubbed, so that ladder.tempered_half_step on a
-    _FakeCudaState reaches its C call."""
+    before the stream) and return Lib.rc (Lib.args: the last launch's
+    arguments), with the ladder's input checks and the card's 132 SMs
+    stubbed, so that ladder.tempered_half_step and ladder.ladder_init on a
+    _FakeCudaState reach their C call."""
     from lightcurve_fitting_tpu_torch.kernels import build, gradient
 
     class Lib:
         rc = 0
+        args = None   # the last launch's arguments
 
         def __getattr__(self, name):
             def launch(*args):
                 calls.append((name, args[-2]))
+                Lib.args = args
                 return Lib.rc
             return launch
     monkeypatch.setattr(build, "library", lambda: Lib())
@@ -554,6 +564,159 @@ def test_tempered_latency_form_refused_without_a_point_term(lcs, monkeypatch, wh
         assert calls[-1][0] == f"{mod.__name__.rsplit('.', 1)[-1]}_tempered_half_step_launch"
         assert calls[-1][1] == args[8].data_ptr()   # n_accept, then the stream
     assert kernels.LAUNCHES["tempered_half_step"] == n0 + 2
+
+
+@pytest.mark.parametrize("mod", [sc, sc4], ids=["sc", "sc4"])
+def test_logpost_form_by_width(mod):
+    """The batch log-posterior's form rule over SC and SC4, and K6b's (the
+    same rule over its distinct states), on the H100's 132 SMs at the
+    flagship's 149 points: the latency form at 26c's 64 walkers, 26a's 4096
+    and 8192; each side of the family's measured crossover
+    (LOGPOST_LATENCY_WARPS_PER_SM: SC's latency form through 12288 walkers,
+    SC4's through 8192); the warp form at 16384 and 131072 (chip_smoke.py
+    25's width); past 20 warps a walker (640 points) only the warp form."""
+    prefix = mod.__name__.rsplit(".", 1)[-1]
+    last = sc.LOGPOST_LATENCY_WARPS_PER_SM[prefix] * 132 // 5   # 5 warps a walker
+    assert last == (12302 if mod is sc else 8210)
+    for rule in (mod.logpost_form, mod.ladder_init_form):
+        for walkers in (64, 4096, 8192, last):
+            assert rule(walkers, 149, 132) == "latency"
+        for walkers in (last + 1, 16384, 131072):
+            assert rule(walkers, 149, 132) == "warp"
+        assert rule(12288, 149, 132) == ("latency" if mod is sc else "warp")
+        assert rule(1, 641, 132) == "warp"
+        assert rule(64, 640, 132) == "latency"
+
+
+def _cpu_outputs(monkeypatch):
+    """torch.empty on a CPU device whatever device it is asked for, so that a
+    wrapper's outputs for a _FakeCudaState can be made here."""
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, device=None, **k: empty(*a, **k))
+
+
+@pytest.mark.parametrize("prefix", ["sc", "sc4"])
+def test_logpost_form_reaches_the_c_call(lcs, monkeypatch, prefix):
+    """The form the batch log-posterior's rule picks over the walkers (or the
+    caller names) is the form argument of the SC or SC4 C launch, one
+    LAUNCHES count a launch under its name of before and one under its
+    form's; a failed launch raises, naming the form and counting nothing;
+    an unknown form raises."""
+    _, tlc = lcs
+    model = tmodels.ShockCooling(tlc) if prefix == "sc" else tmodels.ShockCooling4(tlc)
+    lp = tfit.make_log_posterior(model, tlc, interop.priors_from_jax(PRIORS), device="cpu")
+    calls = []
+    Lib = _stub_ladder_launches(monkeypatch, calls)
+    monkeypatch.setattr(sc, "check", lambda *a: None)
+    monkeypatch.setattr(sc, "check_buffers", lambda *a: None)
+    monkeypatch.setattr(sc, "cuda_args", lambda dev: (0, 0))
+    _cpu_outputs(monkeypatch)
+    name = f"{prefix}_logpost"
+    names = (name, f"{name}_warp", f"{name}_latency")
+    for k in names:
+        monkeypatch.setitem(kernels.LAUNCHES, k, kernels.LAUNCHES[k])   # restored after
+    for W, form, want in ((64, None, 1), (4096, None, 1), (8192, None, 1), (16384, None, 0),
+                          (131072, None, 0), (64, "warp", 0), (131072, "latency", 1)):
+        q = _FakeCudaState(torch.zeros((W, 5), dtype=torch.float32))
+        n0 = {k: kernels.LAUNCHES[k] for k in names}
+        out = sc.logpost_launch(prefix, lp, q, form=form)
+        assert calls[-1] == (f"{prefix}_logpost_launch", want) and out.shape == (W,)
+        assert Lib.args[5] == W
+        ran = f"{name}_{('warp', 'latency')[want]}"
+        assert {k: kernels.LAUNCHES[k] - n0[k] for k in names} == {
+            k: int(k in (name, ran)) for k in names}
+    Lib.rc = 1
+    n0 = {k: kernels.LAUNCHES[k] for k in names}
+    q = _FakeCudaState(torch.zeros((64, 5), dtype=torch.float32))
+    for form, what in (("latency", "latency"), (None, "latency"), ("warp", "warp")):
+        with pytest.raises(RuntimeError, match=f"{what} form"):
+            sc.logpost_launch(prefix, lp, q, form=form)
+    assert {k: kernels.LAUNCHES[k] for k in names} == n0
+    with pytest.raises(ValueError, match="'warp' or 'latency'"):
+        sc.logpost_launch(prefix, lp, q, form="thread")
+
+
+@pytest.mark.parametrize("prefix", ["sc", "sc4"])
+def test_ladder_init_form_reaches_the_c_call(lcs, monkeypatch, prefix):
+    """The form K6b's rule picks over a launch's distinct states (or the
+    caller names) is the form argument of the SC or SC4 C launch, with the
+    states, per set and copies of before; one LAUNCHES count a launch under
+    the LADDER_COUNTS name and one under its form's; a failed launch
+    raises, naming the form and counting nothing; an unknown form raises."""
+    _, tlc = lcs
+    model = tmodels.ShockCooling(tlc) if prefix == "sc" else tmodels.ShockCooling4(tlc)
+    lp = tfit.make_log_posterior(model, tlc, interop.priors_from_jax(PRIORS), device="cpu")
+    calls = []
+    Lib = _stub_ladder_launches(monkeypatch, calls)
+    _cpu_outputs(monkeypatch)
+    name = f"{prefix}_ladder_init"
+    names = (name, f"{name}_warp", f"{name}_latency")
+    for k in names:
+        monkeypatch.setitem(kernels.LAUNCHES, k, kernels.LAUNCHES[k])   # restored after
+    for S, half, copies, form, want in ((1, 32, 25, None, 1), (1, 2048, 17, None, 1),
+                                        (2, 2048, 1, None, 1), (4, 2048, 1, None, 0),
+                                        (1, 65536, 2, None, 0),
+                                        (1, 32, 25, "warp", 0), (1, 65536, 1, "latency", 1)):
+        x = _FakeCudaState(torch.zeros((S, 2, half, 5), dtype=torch.float32))
+        n0 = {k: kernels.LAUNCHES[k] for k in names}
+        pri, ll = ladder.ladder_init(lp, x, copies=copies, form=form)
+        assert calls[-1] == (f"{prefix}_ladder_init_launch", want)
+        assert Lib.args[5:8] == (S * 2 * half, 2 * half, copies)
+        assert pri.shape == ll.shape == (S * copies, 2, half)
+        ran = f"{name}_{('warp', 'latency')[want]}"
+        assert {k: kernels.LAUNCHES[k] - n0[k] for k in names} == {
+            k: int(k in (name, ran)) for k in names}
+    Lib.rc = 1
+    n0 = {k: kernels.LAUNCHES[k] for k in names}
+    x = _FakeCudaState(torch.zeros((1, 2, 32, 5), dtype=torch.float32))
+    for form, what in (("latency", "latency"), (None, "latency"), ("warp", "warp")):
+        with pytest.raises(RuntimeError, match=f"{what} form"):
+            ladder.ladder_init(lp, x, copies=25, form=form)
+    assert {k: kernels.LAUNCHES[k] for k in names} == n0
+    with pytest.raises(ValueError, match="'warp' or 'latency'"):
+        ladder.ladder_init(lp, x, copies=25, form="thread")
+
+
+@pytest.mark.parametrize("which", ["ShockCooling2", "CompanionShocking2"])
+def test_ladder_init_latency_refused_without_a_point_term(lcs, monkeypatch, which):
+    """K6b over ShockCooling2 or a companion-shocking model has the warp
+    form only: form="latency" raises before any launch, while the rule's
+    pick and form="warp" launch the warp form (no form argument in the C
+    call: its eleven arguments of before, the one LAUNCHES count)."""
+    from types import SimpleNamespace
+    from lightcurve_fitting_tpu_torch.filters import filtdict
+    _, tlc = lcs
+    if which == "ShockCooling2":
+        model, ndim = tmodels.ShockCooling2(tlc), 4
+    else:
+        t = np.repeat(np.linspace(1.0, 20.0, 4), 3)
+        f = np.array([filtdict[n] for n in ("B", "V", "g")] * 4)
+        lum = np.full(len(t), 2e15)
+        model = tmodels.CompanionShocking2(TLC([t, f, lum, 0.05 * lum],
+                                               names=["MJD", "filter", "lum", "dlum"]),
+                                           device="cpu")
+        ndim = 8
+    mod = kernels.module_for(model)
+    assert not hasattr(mod, "ladder_init_form")
+    target = SimpleNamespace(log_likelihood=SimpleNamespace(model=model))
+    calls = []
+    Lib = _stub_ladder_launches(monkeypatch, calls)
+    _cpu_outputs(monkeypatch)
+    params = sc._SCParams()   # (any ctypes block: the stub reads none of it)
+    params.n_points = 149
+    monkeypatch.setattr(mod, "_kernel_params", lambda *a: params)
+    monkeypatch.setitem(kernels.LAUNCHES, "ladder_init", kernels.LAUNCHES["ladder_init"])
+    x = _FakeCudaState(torch.zeros((1, 2, 32, ndim), dtype=torch.float32))
+    with pytest.raises(ValueError, match="warp form only"):
+        ladder.ladder_init(target, x, copies=25, form="latency")
+    assert calls == []
+    target.log_likelihood.compute_dtype = torch.float32
+    n0 = kernels.LAUNCHES["ladder_init"]
+    for form in (None, "warp"):
+        pri, _ = ladder.ladder_init(target, x, copies=25, form=form)
+        assert calls[-1][0] == f"{mod.__name__.rsplit('.', 1)[-1]}_ladder_init_launch"
+        assert len(Lib.args) == 11 and Lib.args[-3] == pri.data_ptr()   # logpri, logl, stream
+    assert kernels.LAUNCHES["ladder_init"] == n0 + 2
 
 
 def test_param_block_layout_matches_the_c_struct():

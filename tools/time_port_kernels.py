@@ -77,14 +77,19 @@ and of the fits, float32 compute, by CUDA events:
   where the checkout has it, as one launch of K10's run form
   (``K10_run_*``), on the same draws; each timed and hashed;
 * the ShockCooling (SW17) and ShockCooling4 (MSW23) kernels, where the
-  checkout has them (``time_sc``): the batch log-posterior at 64, 4096 and
-  131072 walkers (``SC_logpost_W*``, ``SC4_logpost_W*``), the half-step at
+  checkout has them (``time_sc``): the batch log-posterior at 64 and 4096
+  walkers (``--sc-logpost``: other widths, as the form rule's crossover was
+  fitted) in each form in the order warp, latency, latency, warp
+  (``SC_logpost_W{w}_{form}{1,2}``, ``SC4_...``; a checkout with one form
+  times it as ``warp`` twice), the half-step at
   half 32, 2048 and 65536 (``--sc-halves``: other widths, as the form
   rule's crossover was fitted) in each form in the order warp, latency,
   latency, warp (``SC_half_{half}_{form}{1,2}``; a checkout with one form
   times it as ``warp`` twice), K6a at 26b's 25 rungs x 64 walkers in the
-  rule's form and K6b as 26b calls it (``SC_K6a_25x64``,
-  ``SC_K6b_25x64``), and K6a in each form at the ladders of
+  rule's form (``SC_K6a_25x64``), K6b as 26b calls it and at the distinct
+  states of ``--sc-k6b`` in each form in that order
+  (``SC_K6b_25x64_{form}{1,2}``, ``SC_K6b_S{n}_{form}{1,2}``), and K6a in
+  each form at the ladders of
   ``--sc-ladders`` (rungs x walkers a rung; default 25x64) in the order
   warp, latency, latency, warp (``SC_K6a_{R}x{W}_{form}{1,2}``; a checkout
   with one form times it as ``warp`` twice), each timed and hashed; with
@@ -129,7 +134,8 @@ of the gradient kernels, of the SC2, SC3, CS and epoch warp kernels, of K4
 frame, spills) comes from the build.
 
 Usage: ``python3 tools/time_port_kernels.py [--repo PATH] [--label NAME]
-[--fits] [--sc-only] [--sc-halves 32,2048,...] [--sc-ladders 25x64,...]``. ``--repo`` is the
+[--fits] [--sc-only] [--sc-logpost 64,4096,...] [--sc-k6b 4096,...] [--sc-halves 32,2048,...]
+[--sc-ladders 25x64,...]``. ``--repo`` is the
 checkout whose ``lightcurve_fitting_tpu_torch`` is timed (default: this
 one), so that two versions can be compared on one card, in turns: run it
 on each checkout in the order A, B, B, A on the same machine. Each run builds its checkout's kernels first. The last line of the
@@ -273,6 +279,12 @@ def main():
                     help="time the SC and SC4 kernels alone (with --fits, their fits alone)")
     ap.add_argument("--sc-halves", default="32,2048,65536",
                     help="the SC and SC4 half-steps' widths, half walkers, comma-separated")
+    ap.add_argument("--sc-logpost", default="64,4096",
+                    help="the SC and SC4 batch log-posterior in each form at these widths, "
+                         "walkers, comma-separated (the crossover's sweep: 4096,16384,...)")
+    ap.add_argument("--sc-k6b", default="",
+                    help="K6b over SC and SC4 in each form at these numbers of distinct "
+                         "states (one copy each), comma-separated")
     ap.add_argument("--sc-ladders", default="25x64",
                     help="K6a over SC and SC4 in each form at these ladders, rungs x walkers "
                          "a rung, comma-separated (as 25x64,16x2048,17x4096,32x4096)")
@@ -1264,15 +1276,20 @@ def fit_busy(fn, primes=256, match=None):
 def time_sc(args, dev, lc, chip_smoke, times, digests, walls, half_step, tempered):
     """The ShockCooling (SW17) and ShockCooling4 (MSW23) kernels at
     ``chip_smoke.py`` phase 25-26's shapes, float32 compute: the batch
-    log-posterior at 64, 4096 (the fits' initial states) and 131072 walkers
-    (``SC_logpost_W*``, ``SC4_...``); the half-step per half-step of half
+    log-posterior at 64 and 4096 walkers of the window in the sampler's
+    float32 rescaled state (the fits' initial states; or the widths of
+    ``--sc-logpost``) in each form, in the order warp, latency,
+    latency, warp (``SC_logpost_W{w}_{form}{1,2}``, ``SC4_...``; a checkout
+    with one form times it as ``warp`` twice); the half-step per half-step of half
     32 (26c), 2048 (26a) and 65536 (or the widths of ``--sc-halves``) in
     each form, in the order warp, latency, latency, warp
     (``SC_half_{half}_{form}{1,2}``; a checkout with one form times it as
     ``warp`` twice); K6a per ladder half-step of 25
-    rungs x 64 walkers (26b) in the rule's form and K6b as 26b calls it,
-    one set of 64 starting states written to the 25 rungs
-    (``SC_K6a_25x64``, ``SC_K6b_25x64``); K6a in each form, in the order
+    rungs x 64 walkers (26b) in the rule's form (``SC_K6a_25x64``) and K6b
+    as 26b calls it, one set of 64 starting states written to the 25 rungs,
+    in each form in that order (``SC_K6b_25x64_{form}{1,2}``), and at the
+    distinct states of ``--sc-k6b``, one copy each
+    (``SC_K6b_S{n}_{form}{1,2}``); K6a in each form, in the order
     warp, latency, latency, warp, at the ladders of ``--sc-ladders``
     (``SC_K6a_{R}x{W}_{form}{1,2}``: the form rule's crossover); each timed
     and hashed. With ``--fits``: the walls of
@@ -1288,6 +1305,22 @@ def time_sc(args, dev, lc, chip_smoke, times, digests, walls, half_step, tempere
     from lightcurve_fitting_tpu_torch.kernels import sc as ksc
     two_forms = "form" in ksc.half_step_launch.__code__.co_varnames
     two_tempered = "form" in ladder.tempered_half_step.__code__.co_varnames
+    two_logpost = "form" in ksc.logpost_launch.__code__.co_varnames
+    two_init = "form" in ladder.ladder_init.__code__.co_varnames
+
+    def by_form(key, call, match, two, launches=20):
+        """Time call({"form": form}) (call({}) in a checkout with one form)
+        in the order warp, latency, latency, warp (warp twice with one form)
+        as ``{key}_{form}{1,2}``, by events and by the device time of the
+        kernels holding ``match`` (``_dev``), each run's outputs hashed."""
+        order = ("warp", "latency", "latency", "warp") if two else ("warp", "warp")
+        for k, form in enumerate(order):
+            name = f"{key}_{form}{1 + (k >= len(order) // 2)}"
+            fkw = {"form": form} if two else {}
+            out = call(fkw)
+            digests[name] = digest(*(out if isinstance(out, tuple) else (out,)))
+            times[name] = events_ms(lambda: call(fkw), launches, args.repeats)
+            times[name + "_dev"] = device_ms(lambda: call(fkw), match, launches, args.repeats)
     lo, up = chip_smoke.SC_LO, chip_smoke.SC_UP
     R, LW = chip_smoke.SC_LADDER
     for name in chip_smoke.SC_NAMES:
@@ -1295,17 +1328,15 @@ def time_sc(args, dev, lc, chip_smoke, times, digests, walls, half_step, tempere
         tag = prefix.upper()
         lps = make_log_posterior(chip_smoke.sc_model(name, lc), lc, chip_smoke.sc_priors(),
                                  device=dev)
-        for w in (64, 4096, 131072):
-            q = torch.as_tensor(chip_smoke.sc_walkers(np.random.default_rng(w), w), device=dev)
-
-            def lpw(q=q):
-                return ksc.logpost_launch(prefix, lps, q)
-            times[f"{tag}_logpost_W{w}"] = events_ms(lpw, 20, args.repeats)
-            times[f"{tag}_logpost_W{w}_dev"] = device_ms(lpw, "logpost_warp_kernel", 20,
-                                                         args.repeats)
-            digests[f"{tag}_logpost_W{w}"] = digest(lpw())
         kw = _state_rescaling(torch.float32, lo, up, dev)
         off, sc = kw["param_offset"], kw["param_scale"]
+        for w in map(int, args.sc_logpost.split(",")):
+            # a fit's initial state: the window's walkers, the sampler's
+            # float32 rescaled state
+            q = (np.random.default_rng(w).uniform(lo, up, size=(w, 5)) - off) / sc
+            q = torch.as_tensor(q, device=dev).float()
+            by_form(f"{tag}_logpost_W{w}", lambda fkw, q=q: ksc.logpost_launch(
+                prefix, lps, q, off, sc, **fkw), "logpost_", two_logpost)
         for h2 in map(int, args.sc_halves.split(",")):
             q = (np.random.default_rng(h2).uniform(lo, up, size=(2 * h2, 5)) - off) / sc
             x = torch.as_tensor(q.reshape(2, h2, 5), device=dev).float().contiguous()
@@ -1334,13 +1365,13 @@ def time_sc(args, dev, lc, chip_smoke, times, digests, walls, half_step, tempere
                 tempered(f"{tag}_K6a_{R2}x{W2}_{form}{1 + (k >= len(order) // 2)}", lps,
                          x2.clone(), offl, scl, 1, match="tempered_half_step", **fkw)
         x1 = xl[:1].contiguous()
-
-        def init(x1=x1):
-            return ladder.ladder_init(lps, x1, offl, scl, copies=R)
-        times[f"{tag}_K6b_{R}x{LW}"] = events_ms(init, 100, args.repeats)
-        times[f"{tag}_K6b_{R}x{LW}_dev"] = device_ms(init, "ladder_init_kernel", 100,
-                                                     args.repeats)
-        digests[f"{tag}_K6b_{R}x{LW}"] = digest(*init())
+        by_form(f"{tag}_K6b_{R}x{LW}", lambda fkw, x1=x1: ladder.ladder_init(
+            lps, x1, offl, scl, copies=R, **fkw), "ladder_init", two_init, launches=100)
+        for n in (map(int, args.sc_k6b.split(",")) if args.sc_k6b else ()):
+            qn = (np.random.default_rng(n).uniform(lo, up, size=(n, 5)) - offl) / scl
+            xn = torch.as_tensor(qn.reshape(1, 2, n // 2, 5), device=dev).to(kwl["dtype"])
+            by_form(f"{tag}_K6b_S{n}", lambda fkw, xn=xn.contiguous(): ladder.ladder_init(
+                lps, xn, offl, scl, **fkw), "ladder_init", two_init)
     if not args.fits:
         return
     sink = contextlib.redirect_stdout(io.StringIO())
