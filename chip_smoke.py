@@ -340,7 +340,38 @@ raises and the script exits non-zero):
     picks at 25 x 32 (the latency form), each initial state of (a) and (c)
     in the form ``kernels/sc.py::logpost_form`` picks at 4096 and 64
     walkers, and (b)'s K6b in the form ``kernels/sc.py::ladder_init_form``
-    picks at 64 states (the latency forms).
+    picks at 64 states (the latency forms);
+27. the population kernels against their plain versions (``kernels/pop.py``):
+    on examples/fit_population.py's population (S = 64 and 512, three
+    parameters), its MJD-scale twin (S = 64, t_exp the fourth) and S = 64
+    with the intrinsic scatter, float32 and float64 compute, 64 walkers in
+    the rescaled float32 state: P1 within 1e-5 (1e-12) of the term scale,
+    same -inf sets, and at the states two P2 half-steps accepted P2's
+    stored values bit for bit; P2 as K2 (h = 0, 1); P3 (16 starts x 400
+    Adam steps) the same finite set, each transient's best start the plain
+    ascent's or a near-tie, the log-posterior at its MAP point within 1e-5
+    (1e-9) of the term scale of the plain ascent's, in float64 the point
+    within 1e-9 of the prior's width (float32 with the intrinsic scatter
+    reported, not held: ``pop_check_map``), and each float32 ascent, P3's
+    and the plain one, at each transient's best MAP point within
+    ``POP_MAP_F64`` of the term scale of the float64 plain ascent's in
+    float64 -log p (``pop_map_f64_gaps``: P3 within 2e-5, the plain ascent
+    within 2e-5, or 0.5 with the scatter);
+    each timed at S = 64 and 512 (events, the profiler's device time, the
+    plain version), the profiler showing P1 on ``PopSC2WarpModel``, ptxas's
+    report of the three;
+28. the population path (run first), the counters reset before each fit: (a) ``fit_population`` at
+    the example's defaults on S = 64 (64 walkers, 100 + 500 steps,
+    ``init="map"`` with 16 x 400, seed 1, summaries, no chains) and (b) on
+    S = 512: P1 once, P2 twice a step, P3 once and K5, nothing else; every
+    transient's acceptance above 0.1, the mean within 0.01 of the JAX
+    package's float64 CPU value at the same seed (``POP_REF``), the
+    transients recovered (T_1 within 20%, L_1 within 30%) no fewer than
+    the JAX run's less a few; the wall, and a profiled repeat's busy time
+    and idle share; (c) the example's diagnostics: its first 8 transients
+    refit with chains, ``population_goodness_of_fit`` and
+    ``population_information_criteria`` on the card against the same
+    functions on the CPU in float64.
 
 The last lines are the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and library time, and ``{"ok": true,
@@ -6115,6 +6146,584 @@ def phase_sc_main_path(lc, smi):
           + f"; launches {launches}")
     return launches, drow
 
+# ------------------------------------------------------- the population path (27-28)
+
+POP_PRIORS = [(1.0, 50.0), (0.1, 20.0), (5.0, 100.0)]   # examples/fit_population.py
+POP_LO, POP_UP = [5.0, 0.5, 20.0], [25.0, 5.0, 60.0]
+POP_MJD_PRIOR, POP_MJD_LO, POP_MJD_UP = (57999.0, 58000.5), 57999.5, 58000.4   # t_exp
+POP_SIGMA_PRIOR, POP_SIGMA_LO, POP_SIGMA_UP = (0.0, 5.0), 0.01, 1.0
+POP_SIZES = (64, 512)       # the example's S, and the survey scale (population.py:147, :598)
+POP_WALKERS, POP_BURNIN, POP_STEPS = 64, 100, 500
+POP_STARTS, POP_ITER = 16, 400
+POP_DIAG = 8                # the example's subset refit with chains for the diagnostics
+POP_KERNELS = ("pop_logpost", "pop_half_step", "pop_map")
+POP_SPLIT = {"P3 (MAP ascent)": ("pop_map_kernel",),   # time_split's lowercased names
+             "P2 (half-steps)": ("stretch_half_step_kernel<popsc2warpmodel",),
+             "P1 (initial state)": ("logpost_warp_kernel<popsc2warpmodel",),
+             "K5 (summaries)": ("percentile",)}
+# the JAX package's fit of the example at its defaults (seed 1), float64 on
+# the CPU: (mean acceptance, its standard error over the transients, the
+# transients whose T_1 median lies within 20% of the truth and L_1 within
+# 30%, the least acceptance); PYTHONPATH=. python tests/test_torch_population.py 64 512
+POP_REF = {64: (0.630556640625, 0.0009502654467231553, 64, 0.6149687500000001),
+           512: (0.6311514892578125, 0.0003242441348258378, 512, 0.61178125)}
+POP_ACC_TOL = 0.01          # the port's mean acceptance against POP_REF's (5b's gate)
+POP_MAP_REL = {"f64": 1e-9, "f32": 1e-5}   # P3 against the plain ascent (pop_check_map)
+# each float32 ascent's best MAP point against the float64 plain ascent's, in
+# float64 -log p over the term scale (pop_map_f64_gaps), without and with the
+# intrinsic scatter: ~5x the largest of 27's cases from five sets of starts
+# (python3 tools/probe_pop_map.py --f64 27,1,2,3,4 on the H100: P3 at most
+# 4.2e-6, the plain ascent 2.8e-6 without the scatter and 9.3e-2 with it)
+POP_MAP_F64 = {False: {"kernel": 2e-5, "plain": 2e-5}, True: {"kernel": 2e-5, "plain": 0.5}}
+
+
+def pop_example(S, dev, mjd=False):
+    """examples/fit_population.py's synthetic population of S transients
+    (default_rng(0): 6 filters, 4-7 epochs each, so 24-42 points), through
+    the port: (lcs, models, truths). ``mjd``: the times at MJD scale (t_exp
+    = 58000, fitted as a fourth parameter, the t_exp prior's window), as
+    tests/test_population.py's float32 phase test."""
+    import numpy as np
+    from lightcurve_fitting_tpu_torch.filters import filtdict
+    from lightcurve_fitting_tpu_torch.lightcurve import LC
+    from lightcurve_fitting_tpu_torch.models import ShockCooling2
+    rng = np.random.default_rng(0)
+    filters = [filtdict[n] for n in ["U", "B", "V", "g", "r", "i"]]
+    t0 = 58000.0 if mjd else 0.0
+    lcs, models, truths = [], [], []
+    for _ in range(S):
+        T1, L1, ttr = rng.uniform(8.0, 20.0), rng.uniform(1.0, 4.0), rng.uniform(25.0, 50.0)
+        truths.append((T1, L1, ttr))
+        n_epochs = rng.integers(4, 8)
+        t = t0 + np.repeat(np.linspace(1.0, 8.0, n_epochs), len(filters))
+        f = np.array(filters * n_epochs)
+        y_true = ShockCooling2()(t, f, T1, L1, ttr, t0)
+        dy = 0.05 * y_true
+        lc = LC([t, f, y_true + rng.normal(scale=dy), dy], names=["MJD", "filter", "lum", "dlum"])
+        lcs.append(lc)
+        models.append(ShockCooling2(lc, device=dev))
+    return lcs, models, np.array(truths)
+
+
+def pop_priors(mjd=False, sigma=False):
+    from lightcurve_fitting_tpu_torch.models import UniformPrior
+    bounds = POP_PRIORS + [POP_MJD_PRIOR] * mjd + [POP_SIGMA_PRIOR] * sigma
+    lo = POP_LO + [POP_MJD_LO] * mjd + [POP_SIGMA_LO] * sigma
+    up = POP_UP + [POP_MJD_UP] * mjd + [POP_SIGMA_UP] * sigma
+    return [UniformPrior(*b) for b in bounds], lo, up
+
+
+def pop_points(pp):
+    """The population's real points: the padded ones copy their transient's
+    last real point with weight 0, so the bounds do not count them."""
+    return int(pp.mask.sum())
+
+
+def pop_eval_ops(pp):
+    """P1 at one walker and one real point: K1's point (sc2_eval_ops)."""
+    D1 = pp.bb_coeffs.shape[-1]
+    return 3 * (D1 - 1) + 30 + 10 * SFU
+
+
+def pop_grad_ops(pp):
+    """P3's evaluation at one real point: P1's point plus K7's reverse pass
+    (sc2_grad_ops)."""
+    D1 = pp.bb_coeffs.shape[-1]
+    return pop_eval_ops(pp) + 4 * (D1 - 1) + 30 + 7 * SFU
+
+
+def pop_table_bytes(pp):
+    """The per-point data a launch must read once: at each real point the
+    table row and the seven per-point arrays in the compute type and the
+    mask byte; three scalars a transient."""
+    S, _, D1 = pp.bb_coeffs.shape
+    n = pop_points(pp)
+    return n * (D1 + 7) * pp.bb_coeffs.element_size() + n + 3 * 8 * S
+
+
+def pop_state(pp, lo, up, W, seed, dev):
+    """W walker states a transient (S, W, ndim), rescaled float32 over the
+    window [lo, up] (what "auto" gives on CUDA), 1% outside the priors; and
+    the map's offset and scale."""
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch.fitting import _state_rescaling
+    rng = np.random.default_rng(seed)
+    S = pp.n_transients
+    p = rng.uniform(lo, up, size=(S, W, len(lo)))
+    out = rng.random((S, W)) < 0.01
+    p[out, 0] = -1.0
+    kw = _state_rescaling(torch.float32, lo, up, dev)
+    off, sc = kw["param_offset"], kw["param_scale"]
+    return torch.as_tensor((p - off) / sc, device=dev).float().contiguous(), off, sc
+
+
+def pop_check_half_step(name, pp, off, sc, x0, seed, rel):
+    """P2 (h = 0, 1) against its plain version under shared draws on the
+    rescaled state x0 (S, 2, half, ndim), as check_half_step: accept flags
+    equal except near-ties, new states bit-equal and new log-posteriors within
+    ``rel`` of the term scale where they agree, the chain slot the new half,
+    the other half untouched. Returns (near-ties, accepts, max |d logp|)."""
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels import common
+    from lightcurve_fitting_tpu_torch.kernels import pop as kpop
+    dev = x0.device
+    S, _, half, ndim = x0.shape
+    l0 = kpop.log_posterior(pp, x0.reshape(S, 2 * half, ndim), off, sc).reshape(S, 2, half)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    shape = (S, 2, half)
+    u_z = torch.rand(shape, generator=g, device=dev, dtype=x0.dtype)
+    j = torch.randint(0, half, shape, generator=g, device=dev)
+    u_acc = torch.rand(shape, generator=g, device=dev, dtype=x0.dtype)
+
+    def plain(q):
+        return kpop.log_posterior_plain(pp, q, off, sc)
+
+    def scales(q):
+        return pp.term_scales(common.absolute_params(q, off, sc))
+
+    ties, acc, max_abs = 0, 0, 0.0
+    for h in (0, 1):
+        what = f"{name} h={h}"
+        xk, lk, xp, lpp = x0.clone(), l0.clone(), x0.clone(), l0.clone()
+        ak = torch.zeros(shape, dtype=torch.int32, device=dev)
+        ap = torch.zeros_like(ak)
+        ck = torch.empty_like(x0)
+        clk = torch.empty(shape, dtype=torch.float64, device=dev)
+        kpop.stretch_half_step(pp, xk, lk, h, u_z, j, u_acc, 2.0, off, sc, ck, clk, ak)
+        kpop.stretch_half_step_plain(plain, xp, lpp, h, u_z, j, u_acc, 2.0, n_accept=ap)
+        torch.cuda.synchronize()
+        agree = ak[:, h] == ap[:, h]
+        y, z = common.propose_stretch(u_z[:, h], j[:, h], x0[:, h], x0[:, 1 - h])
+        gap = (torch.log(u_acc[:, h]).double() - ((ndim - 1.0) * torch.log(z).double() + plain(y)
+                                                  - l0[:, h])).abs()
+        tie_ok = gap <= 1e-5 * (scales(y) + scales(x0[:, h]))
+        if not bool((agree | tie_ok).all()):
+            raise AssertionError(f"{what}: {int((~agree & ~tie_ok).sum())} accept flags differ "
+                                 "away from near-ties")
+        if not torch.equal(xk[:, h][agree], xp[:, h][agree]):
+            raise AssertionError(f"{what}: new states differ where the flags agree")
+        if not torch.equal(xk[:, 1 - h], x0[:, 1 - h]) or not torch.equal(ak[:, 1 - h],
+                                                                           ap[:, 1 - h]) \
+                or not torch.equal(ck[:, h], xk[:, h]) or not torch.equal(clk[:, h], lk[:, h]):
+            raise AssertionError(f"{what}: wrong half or chain slot written")
+        d = compare_ll(f"{what} new logp", lk[:, h][agree], lpp[:, h][agree], rel,
+                       scale=scales(xk[:, h])[agree])
+        max_abs = max(max_abs, d[0])
+        ties += int((~agree).sum())
+        acc += int(ak[:, h].sum())
+    return ties, acc, max_abs
+
+
+def pop_p1_repeats_p2(pp, off, sc, x0, seed):
+    """Two P2 half-steps at u_acc = 0 (every proposal inside the priors
+    accepted) from x0, then P1 at the new states: the number of walkers
+    whose P1 value differs in any bit from the value P2 stored, and the
+    number P2 moved."""
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels import pop as kpop
+    S, _, half, ndim = x0.shape
+    x = x0.clone()
+    logp = kpop.log_posterior(pp, x.reshape(S, 2 * half, ndim), off, sc).reshape(S, 2, half)
+    g = torch.Generator(device=x.device)
+    g.manual_seed(seed)
+    shape = (S, 2, half)
+    u_z = torch.rand(shape, generator=g, device=x.device, dtype=x.dtype)
+    j = torch.randint(0, half, shape, generator=g, device=x.device)
+    acc = torch.zeros(shape, dtype=torch.int32, device=x.device)
+    for h in (0, 1):
+        kpop.stretch_half_step(pp, x, logp, h, u_z, j, torch.zeros_like(u_z), 2.0, off, sc,
+                               n_accept=acc)
+    again = kpop.log_posterior(pp, x.reshape(S, 2 * half, ndim), off, sc).reshape(S, 2, half)
+    return int((again != logp).sum()), int(acc.sum())
+
+
+def pop_check_map(name, pp, u0, bounds, rel, points):
+    """P3 against map_ascent_plain from the starts u0 (S, n_starts, ndim):
+    the same finite set of final -log p; each transient's best start (the
+    first of the least -log p, as _map_seeded_guesses keeps it) the same or
+    a near-tie (the plain values of the two within 1e-5 of their
+    magnitude); where it is the same, the plain log-posterior at its MAP
+    point (the bijection of its last iterate) within ``rel`` of the term
+    scale of the plain ascent's, and with ``points`` the MAP points within
+    ``rel`` of the prior's width (a one-sided or open dimension: of max(|x|,
+    1)); ``rel`` None reports the differences without holding them. In
+    float32 a MAP point drifts along the posterior's flat directions, so
+    float32 holds the values alone; with the intrinsic scatter not even
+    those: the plain ascent's float32 sigma gradient parts from the
+    kernel's from the first Adam step and lands 1e-2 to 1e-1 of the term
+    scale from the float64 MAP, where P3 lands within 1e-6 (the float64
+    ascents agree to 1e-14 over 400 steps, sigma or not: PERF.md §6), so
+    :func:`pop_map_f64_gaps` holds both float32 ascents to the float64 one
+    instead. Returns a dict: ``max_v`` (the largest scaled value
+    difference), ``ties`` (the near-ties), ``max_x`` (the largest scaled
+    MAP point difference), ``max_dx`` (the largest absolute one),
+    ``best_kernel`` and ``best_plain`` (each transient's best MAP point
+    (S, ndim) float64 of either ascent) and ``plain_ms`` (the plain ascent's
+    time, by CUDA events)."""
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels import pop as kpop
+    u_k, n_k = kpop.map_ascent(pp, u0, bounds, POP_ITER)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    u_p, n_p = kpop.map_ascent_plain(pp, u0, bounds, POP_ITER)
+    end.record()
+    torch.cuda.synchronize()
+    fin_k, fin_p = torch.isfinite(n_k), torch.isfinite(n_p)
+    if not torch.equal(fin_k, fin_p):
+        raise AssertionError(f"{name}: finite sets of -log p differ at "
+                             f"{int((fin_k != fin_p).sum())} starts")
+
+    def best(n):
+        return torch.argmin(torch.where(torch.isfinite(n), n, torch.full_like(n, torch.inf)),
+                            dim=1)
+    b_k, b_p = best(n_k), best(n_p)
+    rows = torch.arange(len(b_k), device=b_k.device)
+    alive = torch.isfinite(n_p[rows, b_p])
+    same = (b_k == b_p) & alive
+    x_k = bounds.to_bounded(u_k[rows, b_k])
+    x_p = bounds.to_bounded(u_p[rows, b_p])
+    lp_k, lp_p = (pp.plain(x[:, None])[:, 0] for x in (x_k, x_p))
+    dv = ((lp_k - lp_p).abs() / pp.term_scales(x_p[:, None])[:, 0])[same]
+    max_v = float(dv.max()) if dv.numel() else 0.0
+    width = torch.as_tensor(np.where(bounds.two_sided, bounds._width, 1.0), device=x_p.device)
+    width = torch.where(torch.as_tensor(bounds.two_sided, device=x_p.device), width,
+                        x_p.abs().clamp_min(1.0))
+    d = (x_k - x_p).abs()[same]
+    dx = (d / width[same]).amax(dim=1) if d.numel() else d
+    max_x = float(dx.max()) if dx.numel() else 0.0
+    if rel is not None and (max_v > rel or (points and max_x > rel)):
+        raise AssertionError(f"{name}: MAP log-posteriors differ by {max_v:.3e} of the term "
+                             f"scale, points by {max_x:.3e} of the width (> {rel:.0e})")
+    tie = ~same & alive
+    gap = (n_p[rows, b_k] - n_p[rows, b_p]).abs()
+    if rel is not None and bool((gap > 1e-5 * n_p[rows, b_p].abs())[tie].any()):
+        raise AssertionError(f"{name}: another start kept away from a near-tie")
+    return {"max_v": max_v, "ties": int(tie.sum()), "max_x": max_x,
+            "max_dx": float(d.max()) if d.numel() else 0.0, "best_kernel": x_k,
+            "best_plain": x_p, "plain_ms": start.elapsed_time(end)}
+
+
+def pop_map_f64_gaps(name, pp64, best, best64, limit):
+    """How near each float32 ascent lands to the float64 MAP: for each
+    transient, the float64 -log p (``pp64``, the same population in float64
+    compute) at the ascent's best MAP point less that at the float64 plain
+    ascent's (``best64``, (S, ndim)), over the term scale there, from the
+    same starts. ``best``: ascent name -> (S, ndim) float64 points. Raises
+    where a gap's magnitude passes ``limit[name]`` (None: reported alone).
+    Returns name -> the largest |gap|, and the transients where the first
+    ascent of ``best`` lands nearer than the second."""
+    import torch
+    ref = pp64.plain(best64[:, None])[:, 0]
+    scale = pp64.term_scales(best64[:, None])[:, 0]
+    alive = torch.isfinite(ref)
+    gaps = {k: ((ref - pp64.plain(x[:, None])[:, 0]) / scale)[alive] for k, x in best.items()}
+    out = {k: float(g.abs().max()) if g.numel() else 0.0 for k, g in gaps.items()}
+    if limit is not None:
+        for k, v in out.items():
+            if not v <= limit[k]:
+                raise AssertionError(f"{name}: the {k} ascent's best MAP point lies {v:.3e} of "
+                                     f"the term scale from the float64 plain ascent's in float64 "
+                                     f"-log p (> {limit[k]:.0e})")
+    first, second = (gaps[k].abs() for k in best)
+    return out, int((first < second).sum())
+
+
+def phase_pop_kernels(seed=27):
+    """27: P1, P2 and P3 against their plain versions on the card: the
+    example's population at S = 64 and 512 (three parameters), its MJD-scale
+    twin at S = 64 (t_exp the fourth) and at S = 64 with the intrinsic
+    scatter (ndim 4), float32 and float64 compute, 64 walkers; P1 at the
+    states P2 accepted gives P2's stored values bit for bit; each kernel
+    timed at S = 64 and 512 in float32 (events and the profiler's device
+    time) beside its plain version and its bound."""
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch import kernels
+    from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.kernels import common
+    from lightcurve_fitting_tpu_torch.kernels import pop as kpop
+    from lightcurve_fitting_tpu_torch.parallel.hmc import BoundsTransform
+    from lightcurve_fitting_tpu_torch.parallel.population import (PopulationPosterior,
+                                                                  pack_population)
+    from time_port_kernels import device_ms
+
+    dev = torch.device("cuda")
+    cases = [("S64", 64, False, False), ("S512", 512, False, False), ("S64 MJD t_exp", 64, True,
+                                                                        False),
+             ("S64 sigma", 64, False, True)]
+    pops = {S: pop_example(S, dev) for S in POP_SIZES}
+    pops["mjd"] = pop_example(64, dev, mjd=True)
+    n0 = {k: kernels.LAUNCHES[k] for k in POP_KERNELS}
+    lines, times, errs, best32 = [], {}, {"P1": 0.0, "P2": 0.0, "P3": 0.0}, {}
+    for label in ("f32", "f64"):
+        try:
+            if label == "f64":
+                config.set_compute_dtype(torch.float64)
+            for case, S, mjd, sigma in cases:
+                lcs, models, _ = pops["mjd"] if mjd else pops[S]
+                priors, lo, up = pop_priors(mjd, sigma)
+                pp = PopulationPosterior(pack_population(models, lcs, sigma, dev), models[0],
+                                         priors, sigma)
+                rel = 1e-5 if label == "f32" else 1e-12
+                q, off, sc = pop_state(pp, lo, up, POP_WALKERS, seed, dev)
+                p_abs = common.absolute_params(q, off, sc)
+                got = kpop.log_posterior(pp, q, off, sc)
+                want = kpop.log_posterior_plain(pp, q, off, sc)
+                d1 = compare_ll(f"P1 {label} {case}", got.flatten(), want.flatten(), rel,
+                                scale=pp.term_scales(p_abs).flatten())
+                x0 = q.reshape(S, 2, POP_WALKERS // 2, -1).contiguous()
+                rep = pop_p1_repeats_p2(pp, off, sc, x0, seed + 1)
+                if rep[0]:
+                    raise AssertionError(f"P1 {label} {case}: {rep[0]} values at states P2 "
+                                         "accepted differ from P2's stored ones")
+                t2 = pop_check_half_step(f"P2 {label} {case}", pp, off, sc, x0, seed + 2, rel)
+                bounds = BoundsTransform([p.p_min for p in priors], [p.p_max for p in priors])
+                x_st = np.random.default_rng(seed).uniform(lo, up, size=(S, POP_STARTS, len(lo)))
+                u0 = torch.as_tensor(bounds.to_unbounded(x_st), device=dev).contiguous()
+                rel_map = None if label == "f32" and sigma else POP_MAP_REL[label]
+                t3 = pop_check_map(f"P3 {label} {case}", pp, u0, bounds, rel_map,
+                                   points=label == "f64")
+                lines.append(f"{label} {case}: P1 max |d| {d1[0]:.3e} (<= {rel:.0e} of the term "
+                             f"scale), P1 at the states P2 accepted: {rep[0]} of "
+                             f"{S * POP_WALKERS} differ ({rep[1]} moves); P2 {t2[0]} near-ties, "
+                             f"{t2[1]} accepts, max |d logp| {t2[2]:.3e}; P3 the MAP points' "
+                             f"log-posteriors within {t3['max_v']:.3e} of the term scale ("
+                             + (f"<= {rel_map:.0e}" if rel_map else "not held: float32 with the "
+                                "scatter") + f"), the points within {t3['max_x']:.3e} of the "
+                             f"width{' (<= 1e-09)' if label == 'f64' else ''} (max |d| "
+                             f"{t3['max_dx']:.3e}), {t3['ties']} near-ties")
+                if label == "f32":
+                    for k, v in (("P1", d1[0]), ("P2", t2[2]), ("P3", t3["max_dx"])):
+                        errs[k] = max(errs[k], v)
+                    best32[case] = {"kernel": t3["best_kernel"], "plain": t3["best_plain"]}
+                    if not mjd and not sigma:
+                        times[S] = pop_times(pp, q, off, sc, x0, u0, bounds, t3["plain_ms"],
+                                             device_ms)
+                else:
+                    g, nearer = pop_map_f64_gaps(f"P3 f32 {case}", pp, best32[case],
+                                                 t3["best_plain"], POP_MAP_F64[sigma])
+                    lines.append(f"f32 {case} against the float64 plain ascent: P3's best MAP "
+                                 f"points {g['kernel']:.3e} of the term scale from its float64 "
+                                 f"-log p (<= {POP_MAP_F64[sigma]['kernel']:.0e}), the "
+                                 f"float32 plain ascent's {g['plain']:.3e} (<= "
+                                 f"{POP_MAP_F64[sigma]['plain']:.0e}); P3 nearer at {nearer} "
+                                 f"of {S}")
+        finally:
+            config.set_compute_dtype(config.AUTO)
+    launched = {k: kernels.LAUNCHES[k] - n0[k] for k in POP_KERNELS}
+    from lightcurve_fitting_tpu_torch.kernels import build
+    from time_port_kernels import ptxas_report
+    report = {k: v for k, v in ptxas_report(build.build_info()["log"]).items()
+              if "PopSC2WarpModel" in k or "pop_map_kernel" in k}
+    regs = {what: sorted({tuple(v) for k, v in report.items() if key in k})
+            for what, key in (("P1", "logpost_warp_kernel"), ("P2", "stretch_half_step_kernel"),
+                              ("P3", "pop_map_kernel"))}
+    names = [expect_kernel(lambda: kpop.log_posterior(pp, q, off, sc), "logpost_warp_kernel",
+                           "PopSC2WarpModel", calls=2)]
+    phase("population kernels", "; ".join(lines) + f"; {launched} comparison launches; "
+          + "; ".join(f"S = {S}: " + ", ".join(
+              f"{k} {v['ms']:.4f} ms (device {v['dev']:.4f}; plain {v['plain_ms']:.4f}; bound "
+              f"{v['bound_ms']:.5f}, {v['bound_by']})" for k, v in t.items())
+              for S, t in times.items()) + f"; the profiler saw {names}; ptxas (registers, stack "
+          f"frame, spill stores, spill loads) by kernel over its instantiations: {regs}")
+    return {k: {"max_abs_err": errs[k], "ms": times[POP_SIZES[0]][k]["ms"],
+                "plain_ms": times[POP_SIZES[0]][k]["plain_ms"],
+                **{f: times[POP_SIZES[0]][k][f] for f in ("bound_ms", "bound_by", "library_ms")},
+                "at": {S: (t[k]["ms"], t[k]["dev"], t[k]["plain_ms"], t[k]["bound_ms"])
+                       for S, t in times.items()}} for k in errs}
+
+
+def pop_times(pp, q, off, sc, x0, u0, bounds, plain_map_ms, device_ms):
+    """Each population kernel's events and device time, its plain version's
+    and its bound, at the population of pp (float32 compute, the rescaled
+    float32 state): P1 on its walkers, P2 one half-step with the chain slot
+    (as production writes it), P3 the whole ascent (its plain version's
+    time ``plain_map_ms``, from :func:`pop_check_map`)."""
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels import pop as kpop
+    dev = q.device
+    S, _, half, ndim = x0.shape
+    W = 2 * half
+    x = x0.clone()
+    logp = kpop.log_posterior(pp, x.reshape(S, W, ndim), off, sc).reshape(S, 2, half)
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    shape = (S, 2, half)
+    u_z = torch.rand(shape, generator=g, device=dev)
+    j = torch.randint(0, half, shape, generator=g, device=dev)
+    u_acc = torch.rand(shape, generator=g, device=dev)
+    acc = torch.zeros(shape, dtype=torch.int32, device=dev)
+    cx, cl = torch.empty_like(x), torch.empty(shape, dtype=torch.float64, device=dev)
+
+    def p1():
+        return kpop.log_posterior(pp, q, off, sc)
+
+    def p2():
+        kpop.stretch_half_step(pp, x, logp, 0, u_z, j, u_acc, 2.0, off, sc, cx, cl, acc,
+                               check_partners=False)
+
+    def p3():
+        return kpop.map_ascent(pp, u0, bounds, POP_ITER)
+
+    def p2_plain():
+        kpop.stretch_half_step_plain(lambda y: kpop.log_posterior_plain(pp, y, off, sc),
+                                     x.clone(), logp.clone(), 0, u_z, j, u_acc, 2.0)
+
+    tables = pop_table_bytes(pp)
+    n = pop_points(pp)
+    ev, ev_g = pop_eval_ops(pp), pop_grad_ops(pp)
+    n_starts = u0.shape[1]
+    out = {}
+    for name, fn, plain, match, ops, nbytes in (
+            ("P1", p1, lambda: kpop.log_posterior_plain(pp, q, off, sc), "logpost_warp_kernel",
+             W * n * ev, q.numel() * 4 + tables + S * W * 8),
+            ("P2", p2, p2_plain, "stretch_half_step_kernel", half * n * ev + S * half * PROPOSAL,
+             S * W * ndim * 4 + S * half * ndim * 4 * 2 + S * half * (4 + 8 + 4 + 8 + 8 + 4 * 2)
+             + tables),
+            ("P3", p3, None, "pop_map_kernel", n_starts * (POP_ITER + 1) * n * ev_g,
+             u0.numel() * 8 * 2 + S * n_starts * 8 + POP_ITER * 24 + tables)):
+        out[name] = {"ms": cuda_ms(fn, repeats=2 if name == "P3" else 20),
+                     "dev": float(np.nanmedian(device_ms(fn, match, 3 if name == "P3" else 10, 3))),
+                     # P3's plain ascent (~5 s) was timed in pop_check_map
+                     "plain_ms": plain_map_ms if name == "P3" else cuda_ms(plain, repeats=3),
+                     **bound_fields(ops, nbytes)}
+    return out
+
+
+def pop_fit(S, dev, profile=False):
+    """examples/fit_population.py's joint fit at its defaults on S
+    transients (64 walkers, 100 + 500 steps, init="map" with 16 starts x 400
+    Adam steps, seed 1, summaries on the card, no chains): its wall time, the
+    launches, the recovery, the acceptance against the JAX package's;
+    ``profile`` adds a profiled repeat's busy time and idle share."""
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch import kernels
+    from lightcurve_fitting_tpu_torch.parallel import fit_population
+
+    lcs, models, truths = pop_example(S, dev)
+    priors = pop_priors()[0]
+
+    def fit():
+        return fit_population(models, lcs, priors, p_lo=POP_LO, p_up=POP_UP,
+                              nwalkers=POP_WALKERS, nsteps=POP_STEPS, nsteps_burnin=POP_BURNIN,
+                              seed=1, init="map", summaries=True, return_chains=False)
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flat, acc, summ = fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    want = {"pop_logpost": 1, "pop_half_step": 2 * (POP_BURNIN + POP_STEPS), "pop_map": 1}
+    if {k: launches[k] for k in POP_KERNELS} != want or any(
+            v for k, v in launches.items() if k not in POP_KERNELS + ("percentile",)) \
+            or launches["percentile"] < 1:
+        raise AssertionError(f"28 S = {S}: launches {launches}, expected {want} and K5")
+    if flat is not None or summ.shape != (S, 3, 3) or not np.isfinite(summ).all() \
+            or acc.shape != (S,) or not np.isfinite(acc).all():
+        raise AssertionError(f"28 S = {S}: bad outputs")
+    med = summ[:, :, 1]
+    ok = (np.abs(med[:, 0] - truths[:, 0]) < 0.2 * truths[:, 0]) & \
+        (np.abs(med[:, 1] - truths[:, 1]) < 0.3 * truths[:, 1])
+    mean_acc = float(np.mean(acc))
+    ref = POP_REF[S]
+    if not np.all(acc > 0.1) or abs(mean_acc - ref[0]) > POP_ACC_TOL or ok.sum() < ref[2] - max(
+            2, S // 32):
+        raise AssertionError(f"28 S = {S}: mean acceptance {mean_acc:.4f} (JAX {ref[0]:.4f} +- "
+                             f"{POP_ACC_TOL}), least {acc.min():.3f} (> 0.1), {int(ok.sum())} "
+                             f"of {S} recovered (JAX {ref[2]})")
+    res = {"S": S, "wall": wall, "launches": {k: launches[k] for k in POP_KERNELS},
+           "acc": mean_acc, "min_acc": float(acc.min()), "ok": int(ok.sum())}
+    if profile:
+        wall_p, prof = profiled(fit, cpu=False)
+        parts, busy = time_split(prof, wall_p, POP_SPLIT)
+        res.update(wall_p=wall_p, busy=busy, parts=parts)
+    return res
+
+
+def pop_diagnostics(dev):
+    """The example's survey diagnostics: its first POP_DIAG transients refit
+    with chains, then population_goodness_of_fit and
+    population_information_criteria on the card, held to the same functions
+    on the CPU in float64 (the flux in the card's float32 compute dtype):
+    chi2 and the elpds within 1e-3 relative, p within 1e-3."""
+    import warnings
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch.parallel import fit_population
+    from lightcurve_fitting_tpu_torch.parallel.population import (
+        population_goodness_of_fit, population_information_criteria)
+
+    lcs, models, _ = pop_example(POP_DIAG, dev)
+    flat, acc = fit_population(models, lcs, pop_priors()[0], p_lo=POP_LO, p_up=POP_UP,
+                               nwalkers=POP_WALKERS, nsteps=POP_STEPS, nsteps_burnin=POP_BURNIN,
+                               seed=1, init="map")
+    if flat.shape != (POP_DIAG, POP_WALKERS * POP_STEPS, 3) or not np.isfinite(flat).all():
+        raise AssertionError(f"28c: bad chains {flat.shape}")
+    import scipy.stats  # noqa: F401  (imported by the goodness of fit: ~4 s the first time)
+    t0 = time.perf_counter()
+    gof = population_goodness_of_fit(models, lcs, flat, seed=0, quiet=True)
+    ic = population_information_criteria(models, lcs, flat, seed=0, quiet=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cpu = [type(m)(lc) for m, lc in zip(models, lcs)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        gof_c = population_goodness_of_fit(cpu, lcs, flat, seed=0, quiet=True, device="cpu")
+        ic_c = population_information_criteria(cpu, lcs, flat, seed=0, quiet=True, device="cpu")
+    worst = max(float(np.max(np.abs(a[k] - b[k]) / np.abs(b[k])))
+                for a, b, keys in ((gof, gof_c, ("chi2",)), (ic, ic_c, ("elpd_loo", "elpd_waic")))
+                for k in keys)
+    worst_p = float(np.max(np.abs(gof["p_value"] - gof_c["p_value"])))
+    if not (np.isfinite(gof["chi2"]).all() and np.all((gof["p_value"] >= 0) & (gof["p_value"]
+                                                                                 <= 1))
+            and np.isfinite(ic["elpd_loo"]).all()) or worst > 1e-3 or worst_p > 1e-3:
+        raise AssertionError(f"28c: diagnostics {gof}, {ic['elpd_loo']}; worst relative "
+                             f"difference from the CPU's {worst:.3e}, of p {worst_p:.3e}")
+    return {"acc": float(np.mean(acc)), "chi2_nu": gof["chi2_nu"], "p": gof["p_value"],
+            "elpd_loo": ic["elpd_loo"], "k_max": [float(np.max(k)) for k in ic["pareto_k"]],
+            "wall": wall, "worst": worst, "worst_p": worst_p}
+
+
+def phase_pop_main_path(smi):
+    """28: examples/fit_population.py through the public fit_population at
+    its defaults, S = 64 (a) and 512 (b), the counters reset before each:
+    P1 once, P2 twice a step, P3 once and K5 for the summaries, nothing
+    else; each transient's acceptance above 0.1 and the mean within
+    POP_ACC_TOL of the JAX package's float64 CPU value at the same seed;
+    the recovered transients (T_1 within 20%, L_1 within 30%) no fewer than
+    the JAX run's less a few; the wall, a profiled repeat's busy time and
+    idle share; (c) the diagnostics of the example's subset."""
+    import torch
+    dev = torch.device("cuda")
+    runs = [pop_fit(S, dev, profile=True) for S in POP_SIZES]
+    diag = pop_diagnostics(dev)
+    for r in runs:
+        phase(f"population main path 28{'ab'[POP_SIZES.index(r['S'])]}",
+              f"fit_population S = {r['S']}, {POP_WALKERS} walkers x {POP_BURNIN} + "
+              f"{POP_STEPS} steps, init=\"map\" ({POP_STARTS} x {POP_ITER}), summaries, no "
+              f"chains: {r['wall']:.3f} s end to end (pack and host stages included; on "
+              f"{smi}); launches {r['launches']}; mean acceptance {r['acc']:.4f} (JAX float64 "
+              f"CPU {POP_REF[r['S']][0]:.4f} +- {POP_ACC_TOL}), least {r['min_acc']:.3f}; "
+              f"{r['ok']} of {r['S']} transients recovered (JAX {POP_REF[r['S']][2]}); profiled "
+              f"repeat {r['wall_p']:.3f} s, device busy {r['busy']:.3f} s (idle share "
+              f"{1 - r['busy'] / r['wall_p']:.3f}): "
+              + ", ".join(f"{k} {v:.4f} s" for k, v in r["parts"].items()))
+    phase("population diagnostics 28c", f"the first {POP_DIAG} transients refit with chains "
+          f"(mean acceptance {diag['acc']:.4f}); population_goodness_of_fit and "
+          f"population_information_criteria on the card in {diag['wall']:.3f} s: chi2_nu "
+          f"{fmt(diag['chi2_nu'])}, p {fmt(diag['p'])}, elpd_loo {fmt(diag['elpd_loo'])}, max "
+          f"pareto_k {fmt(diag['k_max'])}; against the CPU's float64: chi2 and elpds within "
+          f"{diag['worst']:.3e} relative (<= 1e-3), p within {diag['worst_p']:.3e} (<= 1e-3)")
+    return runs[0]["launches"]
+
 
 def main():
     try:
@@ -6230,6 +6839,10 @@ def main():
     phase("native", f"host kernels built from {os.path.relpath(native._SRC, REPO)} into "
           f"{os.path.relpath(native._LIB_PATH, REPO)}")
 
+    k_pop = phase_pop_kernels()
+    launches_pop = phase_pop_main_path(smi)
+    kernels = pop_kernel_entries(k_pop, launches_pop)
+
     lc = flagship_lc()
     k1 = phase_k1(lc)
     k2 = phase_k2(lc)
@@ -6276,6 +6889,7 @@ def main():
     src_cs = "lightcurve_fitting_tpu_torch/kernels/csrc/companion.cu"
     src_sc = "lightcurve_fitting_tpu_torch/kernels/csrc/sc_logpost.cu"
     kernels = [
+        *kernels,
         dict(name="logpost_warp_kernel<SC2WarpModel<C, N>> (K1)", route="cuda", source=src,
              replaces="lightcurve_fitting_tpu/fitting.py:62", launches=launches["sc2_logpost"],
              **k1),
@@ -6427,6 +7041,27 @@ def main():
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
+
+
+def pop_kernel_entries(k_pop, launches):
+    """The kernels line's rows of P1-P3: launches from 28a (the example at
+    its defaults), errors from 27's float32 cases, times at S = 64 (27; S =
+    512's in the name)."""
+    src = "lightcurve_fitting_tpu_torch/kernels/csrc/population.cu"
+    rows = []
+    for key, kname, count, replaces in (
+            ("P1", "logpost_warp_kernel<PopSC2WarpModel> (P1)", "pop_logpost",
+             "lightcurve_fitting_tpu/parallel/population.py:349"),
+            ("P2", "stretch_half_step_kernel<PopSC2WarpModel> (P2)", "pop_half_step",
+             "lightcurve_fitting_tpu/parallel/population.py:413"),
+            ("P3", "pop_map_kernel<C, N> (P3)", "pop_map",
+             "lightcurve_fitting_tpu/parallel/population.py:204")):
+        v = dict(k_pop[key])
+        at = v.pop("at")
+        rows.append(dict(name=f"{kname}; ms by S (events, device, plain, bound): " + "; ".join(
+            f"{S}: {t[0]:.4f}, {t[1]:.4f}, {t[2]:.4f}, {t[3]:.5f}" for S, t in at.items()),
+            route="cuda", source=src, replaces=replaces, launches=launches[count], **v))
+    return rows
 
 
 if __name__ == "__main__":

@@ -31,6 +31,11 @@ and their plain PyTorch versions.
   KDE prior inside it), its half-step, and its run form (a whole segment
   of steps in one launch): the sequential bolometric path's
   ``spectrum_mcmc``.
+* ``csrc/population.cu`` (:mod:`.pop`): the population fit's per-transient
+  ShockCooling2 kernels, P1 (the log-posterior of every transient's
+  walkers), P2 (one half-step of all S ensembles) and P3 (the MAP seeding's
+  whole Adam ascent), over the point of ``csrc/sc2_model.cuh`` that K1, K2
+  and K7 share; ``csrc/adam.cuh`` the Adam step of P3 and K4p.
 * ``csrc/stretch.cuh``: the half-step and run-form templates and the device
   code they share, ``csrc/planck.cuh`` the Planck band sum of K3, K4 and K4s;
   :mod:`.common` their Python side and the plain stretch move.
@@ -43,7 +48,7 @@ package needs neither nvcc nor a GPU. :func:`log_posterior` and
 (:func:`runs_segments`), :func:`log_posterior_and_grad` to K7.
 """
 
-from . import cs, epoch_bb, gradient, ladder, quantile, sc, sc2, sc3, sc4, sed  # noqa: F401
+from . import cs, epoch_bb, gradient, ladder, pop, quantile, sc, sc2, sc3, sc4, sed  # noqa: F401
 from .common import (LAUNCHES, reset_launch_counts, log_posterior_plain,  # noqa: F401
                      stretch_half_step_plain)
 from .gradient import hmc_transition, nuts_transition  # noqa: F401

@@ -105,6 +105,12 @@ def _declare(lib):
         fn.argtypes = [vp, ci, ci, vp, ci, ci, ci, ci, vp, vp, vp]
         if prefix in ("sc", "sc4"):
             fn.argtypes = fn.argtypes[:-1] + [ci, vp]   # the form before the stream
+    lib.pop_logpost_launch.restype = ci
+    lib.pop_logpost_launch.argtypes = [vp, ci, ci, vp, ci, ci, ci, vp, vp]
+    lib.pop_half_step_launch.restype = ci
+    lib.pop_half_step_launch.argtypes = half_step[:-1] + [ci, ctypes.c_longlong, vp]
+    lib.pop_map_launch.restype = ci
+    lib.pop_map_launch.argtypes = [vp, vp, ci, ci, ci, vp]
     lib.replica_swap_launch.restype = ci
     lib.replica_swap_launch.argtypes = [ci, vp, ci, ci, vp, vp, vp, ci, ci, vp, ci, vp, vp, vp,
                                         vp]

@@ -1,8 +1,9 @@
 """What the kernel wrappers of :mod:`.sc2`, :mod:`.sc3`, :mod:`.sc`,
 :mod:`.sc4`, :mod:`.cs`, :mod:`.epoch_bb`, :mod:`.quantile`, :mod:`.ladder`,
-:mod:`.gradient` and :mod:`.sed` share: the launch counts, input checks, the parameter-block
-fields of the priors and the affine map, and the plain PyTorch stretch move
-(the plain version of every half-step kernel) and its run over a segment.
+:mod:`.gradient`, :mod:`.sed` and :mod:`.pop` share: the launch counts, input
+checks, the parameter-block fields of the priors and the affine map, and the
+plain PyTorch stretch move (the plain version of every half-step kernel) and
+its run over a segment.
 """
 
 import numpy as np
@@ -30,7 +31,8 @@ LAUNCHES = {"sc2_logpost": 0, "stretch_half_step": 0, "bandflux": 0, "sc3_logpos
             "sc4_tempered_half_step_warp": 0, "sc4_tempered_half_step_latency": 0,
             "sc_logpost_warp": 0, "sc_logpost_latency": 0, "sc4_logpost_warp": 0,
             "sc4_logpost_latency": 0, "sc_ladder_init_warp": 0, "sc_ladder_init_latency": 0,
-            "sc4_ladder_init_warp": 0, "sc4_ladder_init_latency": 0}
+            "sc4_ladder_init_warp": 0, "sc4_ladder_init_latency": 0, "pop_logpost": 0,
+            "pop_half_step": 0, "pop_map": 0}
 
 FLOATS = (torch.float32, torch.float64)
 

@@ -60,6 +60,7 @@
 // where() passes no cotangent into the likelihood there); outside the
 // priors both are -inf and 0.
 
+#include "adam.cuh"
 #include "planck.cuh"
 
 // Every field is 8 bytes wide, so the layout has no padding and the ctypes
@@ -544,27 +545,6 @@ struct PolishParams {
     double width[LP_MAX_DIM];    // hi - lo (two-sided)
 };
 
-// x = the bounds bijection of u[N] (BoundsTransform.to_bounded, operation
-// for operation), and f[N], the factor its derivative is formed from: the
-// sigmoid s (two-sided), exp(u) (one-sided), else 1.
-template <int N>
-__device__ __forceinline__ void polish_bounded(const PolishParams& Q, const double* u, double* x,
-                                               double* f) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-        if (Q.kind[k] == 1) {
-            f[k] = 1.0 / (1.0 + exp(-u[k]));
-            x[k] = __dadd_rn(Q.lo[k], __dmul_rn(Q.width[k], f[k]));
-        } else if (Q.kind[k] == 2 || Q.kind[k] == 3) {
-            f[k] = exp(u[k]);
-            x[k] = Q.kind[k] == 2 ? __dadd_rn(Q.lo[k], f[k]) : __dsub_rn(Q.hi[k], f[k]);
-        } else {
-            f[k] = 1.0;
-            x[k] = u[k];
-        }
-    }
-}
-
 // K4p: the Adam polish of _map_centers (parallel/batched.py) for epoch
 // blockIdx.x, a start a warp (warp w takes starts w, w + warps, ...). Each
 // of n_iter steps: x = the bijection of u, the warp's value and gradient of
@@ -595,33 +575,14 @@ epoch_map_polish_kernel(const EpochBBParams P, const PolishParams Q) {
             v[k] = 0.0;
         }
         for (int t = 0; t < (int)Q.n_iter; ++t) {
-            polish_bounded<N>(Q, u, x, f);
+            adam_bounded<N>(Q, u, x, f);
             epoch_log_posterior_warp<C, N, true>(x, d, P, g);
             const double lr = __ldg(Q.sched + 3 * t);
             const double c1 = __ldg(Q.sched + 3 * t + 1);
             const double c2 = __ldg(Q.sched + 3 * t + 2);
-#pragma unroll
-            for (int k = 0; k < N; ++k) {
-                const double gn = -g[k];   // d(-lp)/dx
-                double gu = gn;
-                if (Q.kind[k] == 1)
-                    gu = __dmul_rn(__dmul_rn(__dmul_rn(gn, Q.width[k]), __dsub_rn(1.0, f[k])),
-                                   f[k]);
-                else if (Q.kind[k] == 2)
-                    gu = __dmul_rn(gn, f[k]);
-                else if (Q.kind[k] == 3)
-                    gu = __dmul_rn(-gn, f[k]);
-                if (!isfinite(gu)) gu = 0.0;
-                m[k] = __dadd_rn(__dmul_rn(Q.one_minus_b1, gu), __dmul_rn(Q.b1, m[k]));
-                v[k] = __dadd_rn(__dmul_rn(Q.one_minus_b2, __dmul_rn(gu, gu)),
-                                 __dmul_rn(Q.b2, v[k]));
-                const double mh = __ddiv_rn(m[k], c1);
-                const double vh = __ddiv_rn(v[k], c2);
-                u[k] = __dadd_rn(u[k], __dmul_rn(-lr, __ddiv_rn(mh, __dadd_rn(__dsqrt_rn(vh),
-                                                                              Q.eps))));
-            }
+            adam_step<N>(Q, g, f, lr, c1, c2, u, m, v);
         }
-        polish_bounded<N>(Q, u, x, f);
+        adam_bounded<N>(Q, u, x, f);
         const double lp = epoch_log_posterior_warp<C, N, false>(x, d, P, nullptr);
         const double neg = -lp;
         if (lane == 0) {
@@ -641,7 +602,7 @@ epoch_map_polish_kernel(const EpochBBParams P, const PolishParams Q) {
         for (int s = 1; s < S; ++s)
             if (s_neg[s] < s_neg[best]) best = s;
         double x[N], f[N];
-        polish_bounded<N>(Q, s_u + best * N, x, f);
+        adam_bounded<N>(Q, s_u + best * N, x, f);
 #pragma unroll
         for (int k = 0; k < N; ++k) Q.centers[(size_t)e * N + k] = x[k];
         Q.alive[e] = isfinite(s_neg[best]) ? 1 : 0;

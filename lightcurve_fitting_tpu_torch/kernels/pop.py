@@ -1,0 +1,246 @@
+"""Wrappers of the per-transient ShockCooling2 kernels of the population fit
+(``csrc/population.cu``), with their plain PyTorch versions beside them.
+
+Each takes a :class:`~..parallel.population.PopulationPosterior` ``pp`` (the
+packed transients in the compute dtype, and their plain log-posterior):
+
+* :func:`log_posterior` (P1, ``logpost_warp_kernel`` over
+  ``PopSC2WarpModel``, a warp per walker, transient e along the ensemble
+  axis): the log-posterior of every transient's walkers, (S, W, ndim) ->
+  (S, W), the bits that P2 stores when it accepts a state;
+* :func:`stretch_half_step` (P2, ``stretch_half_step_kernel`` over
+  ``PopSC2WarpModel``): one Goodman-Weare half-step of all S ensembles in
+  one launch, in place, from the draws (S, 2, half) of the step;
+* :func:`map_ascent` (P3, ``pop_map_kernel``): the whole Adam ascent of
+  every transient's posterior from its starts in one launch (a block per
+  transient, a warp per start), and the final negative log-posteriors.
+
+For a tensor on the CPU each wrapper runs its plain version. For a CUDA
+tensor it launches the kernel or raises: there is no fallback. Each launch
+adds one to ``LAUNCHES[name]`` (``pop_logpost``, ``pop_half_step``,
+``pop_map``), and nothing else does.
+"""
+
+import ctypes
+
+import torch
+
+from .common import (LAUNCHES, MAX_DIM, FLOATS, absolute_params, affine_key, check, cuda_args,
+                     fill_priors_and_affine)
+from .epoch_bb import _adam_table_on, stretch_half_step_plain
+
+__all__ = ["log_posterior", "log_posterior_plain", "stretch_half_step",
+           "stretch_half_step_plain", "map_ascent", "map_ascent_plain"]
+
+
+class _PopParams(ctypes.Structure):
+    """ctypes mirror of ``struct PopParams`` (csrc/population.cu)."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in
+                 ("t_centered", "y", "inv_dy", "dy", "sigma_units", "s_a", "s_b", "coef", "mask",
+                  "t_ref", "inv_yscale", "log_norm")]
+                + [(n, ctypes.c_longlong) for n in
+                   ("n_points", "n_coef", "ndim", "n_model", "use_sigma", "has_affine")]
+                + [(n, ctypes.c_double) for n in ("eps_T", "eps_L", "a_model", "alpha", "c3_42")]
+                + [("prior_kind", ctypes.c_longlong * MAX_DIM)]
+                + [(n, ctypes.c_double * MAX_DIM) for n in
+                   ("p_min", "p_max", "mean", "stddev", "affine_offset", "affine_scale")])
+
+
+class _PopMapParams(ctypes.Structure):
+    """ctypes mirror of ``struct PopMapParams`` (csrc/population.cu)."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("u0", "sched", "u_out", "neg_out")]
+                + [(n, ctypes.c_longlong) for n in ("n_starts", "n_iter")]
+                + [(n, ctypes.c_double) for n in ("b1", "b2", "one_minus_b1", "one_minus_b2",
+                                                  "eps")]
+                + [("kind", ctypes.c_longlong * MAX_DIM)]
+                + [(n, ctypes.c_double * MAX_DIM) for n in ("lo", "hi", "width")])
+
+
+_BUFFERS = ("t_centered", "y", "inv_dy", "dy", "sigma_units", "bb_s_a", "bb_s_b", "bb_coeffs",
+            "mask", "t_ref", "inv_yscale", "log_norm")
+
+
+def _require_cuda(t, what):
+    if t.device.type != "cuda":
+        raise ValueError(f"the {what} kernel runs on CUDA (or its plain version on the CPU), "
+                         f"not {t.device}")
+
+
+def _params(pp, ndim, offset, scale):
+    """The kernels' parameter block of PopulationPosterior ``pp``, cached on
+    it by (ndim, the affine map)."""
+    from ..core.constants import c3_42
+    key = (ndim, affine_key(offset, scale))
+    if key in pp.kernel_params:
+        return pp.kernel_params[key]
+    if ndim != len(pp.priors) or ndim != pp.n_model + int(pp.use_sigma) or ndim > MAX_DIM:
+        raise ValueError(f"the population kernels take ndim = {pp.n_model} (+1 with use_sigma) "
+                         f"matching the priors; got ndim={ndim} for {len(pp.priors)} priors")
+    for name in _BUFFERS:
+        buf = getattr(pp, name)
+        if not buf.is_contiguous() or buf.device != pp.device:
+            raise ValueError(f"population buffer {name} must be contiguous on {pp.device}")
+    consts = pp.model.kernel_constants()
+    P = _PopParams()
+    (P.t_centered, P.y, P.inv_dy, P.dy, P.sigma_units, P.s_a, P.s_b, P.coef, P.mask, P.t_ref,
+     P.inv_yscale, P.log_norm) = (getattr(pp, name).data_ptr() for name in _BUFFERS)
+    P.n_points, P.n_coef = pp.bb_coeffs.shape[1:]
+    P.ndim, P.n_model, P.use_sigma = ndim, pp.n_model, int(pp.use_sigma)
+    P.eps_T, P.eps_L = consts["eps_T"], consts["eps_L"]
+    P.a_model, P.alpha, P.c3_42 = consts["a"], consts["alpha"], c3_42
+    fill_priors_and_affine(P, pp.priors, key[1])
+    pp.kernel_params[key] = P
+    return P
+
+
+def _f64(pp):
+    return int(pp.compute_dtype == torch.float64)
+
+
+# ------------------------------------------------------------------------ P1
+
+def log_posterior_plain(pp, q, param_offset=None, param_scale=None):
+    """Plain P1: ``pp``'s log-posterior (S, W) float64 at the walker states
+    ``q`` (S, W, ndim), affine-mapped to absolute float64 parameters when
+    ``param_offset``/``param_scale`` are given."""
+    return pp.plain(absolute_params(q, param_offset, param_scale))
+
+
+def log_posterior(pp, q, param_offset=None, param_scale=None):
+    """P1: the log-posterior (S, W) float64 of every transient's walker
+    states ``q`` (S, W, ndim) float32/float64 (arguments:
+    :func:`log_posterior_plain`). A CPU tensor takes the plain version."""
+    if q.device.type == "cpu":
+        return log_posterior_plain(pp, q, param_offset, param_scale)
+    _require_cuda(q, "population log-posterior")
+    if q.ndim != 3 or q.shape[0] != pp.n_transients:
+        raise ValueError(f"q must be (S={pp.n_transients}, W, ndim), got {tuple(q.shape)}")
+    S, W, ndim = q.shape
+    check(q, "q", (S, W, ndim), FLOATS, pp.device)
+    P = _params(pp, ndim, param_offset, param_scale)
+    out = torch.empty((S, W), dtype=torch.float64, device=q.device)
+    from .build import library
+    dev, stream = cuda_args(q.device)
+    rc = library().pop_logpost_launch(ctypes.addressof(P), dev, _f64(pp), q.data_ptr(),
+                                      int(q.dtype == torch.float64), W, S, out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"logpost_warp_kernel (population) launch failed: cudaError {rc}")
+    LAUNCHES["pop_logpost"] += 1
+    return out
+
+
+# ------------------------------------------------------------------------ P2
+
+def stretch_half_step(pp, x, logp, h, u_z, j, u_acc, a=2.0, param_offset=None, param_scale=None,
+                      chain_x=None, chain_logp=None, n_accept=None, check_partners=True):
+    """P2: one stretch-move half-step of every transient's ensemble under
+    ``pp``, in place (arguments: :func:`stretch_half_step_plain`, the plain
+    half-step over ensembles that the epochs' half-step shares; the state
+    affine-rescaled when ``param_offset``/``param_scale`` are given).
+    ``check_partners`` verifies 0 <= j < half before the launch (it
+    synchronizes with the device; the fit, whose partners come from
+    ``randint(0, half)``, turns it off). A CPU tensor takes the plain
+    version."""
+    if x.device.type == "cpu":
+        def log_prob(q):
+            return log_posterior_plain(pp, q, param_offset, param_scale)
+        return stretch_half_step_plain(log_prob, x, logp, h, u_z, j, u_acc, a, chain_x,
+                                       chain_logp, n_accept)
+    _require_cuda(x, "population half-step")
+    if x.ndim != 4 or x.shape[1] != 2 or x.shape[0] != pp.n_transients:
+        raise ValueError(f"x must be (S={pp.n_transients}, 2, half, ndim), got "
+                         f"{tuple(x.shape)}")
+    if h not in (0, 1):
+        raise ValueError("h must be 0 or 1")
+    if (chain_x is None) != (chain_logp is None) or n_accept is None:
+        raise ValueError("the half-step kernel needs n_accept, and chain_x with chain_logp "
+                         "or neither")
+    S, _, half, ndim = x.shape
+    dev = x.device
+    check(x, "x", (S, 2, half, ndim), FLOATS, dev)
+    check(logp, "logp", (S, 2, half), (torch.float64,), dev)
+    check(u_z, "u_z", (S, 2, half), (x.dtype,), dev)
+    check(u_acc, "u_acc", (S, 2, half), (x.dtype,), dev)
+    check(j, "j", (S, 2, half), (torch.int64,), dev)
+    check(n_accept, "n_accept", (S, 2, half), (torch.int32,), dev)
+    if check_partners and bool(((j < 0) | (j >= half)).any()):
+        raise ValueError(f"partner indices j must lie in [0, {half})")
+    if chain_x is not None:
+        check(chain_x, "chain_x", (S, 2, half, ndim), FLOATS, dev)
+        check(chain_logp, "chain_logp", (S, 2, half), FLOATS, dev)
+    P = _params(pp, ndim, param_offset, param_scale)
+    from .build import library
+    device_index, stream = cuda_args(dev)
+    off = h * half   # the draws of half h; transient e's start 2 * half later
+    rc = library().pop_half_step_launch(
+        ctypes.addressof(P), device_index, _f64(pp), x.data_ptr(), int(x.dtype == torch.float64),
+        logp.data_ptr(), half, int(h), u_z.data_ptr() + off * u_z.element_size(),
+        j.data_ptr() + off * j.element_size(), u_acc.data_ptr() + off * u_acc.element_size(),
+        float(a), None if chain_x is None else chain_x.data_ptr(),
+        int(chain_x is not None and chain_x.dtype == torch.float64),
+        None if chain_logp is None else chain_logp.data_ptr(),
+        int(chain_logp is not None and chain_logp.dtype == torch.float64),
+        n_accept.data_ptr(), S, 2 * half, stream)
+    if rc != 0:
+        raise RuntimeError(f"stretch_half_step_kernel (population) launch failed: cudaError {rc}")
+    LAUNCHES["pop_half_step"] += 1
+
+
+# ------------------------------------------------------------------------ P3
+
+def map_ascent_plain(pp, u0, bounds, n_iter=400, lr=0.05, alpha=0.01):
+    """Plain P3: ``n_iter`` CosineAdam steps (optax's ``adam`` under
+    ``cosine_decay_schedule(lr, n_iter, alpha)``) of every start ``u0`` (S,
+    n_starts, ndim) float64 in the unbounded space of BoundsTransform
+    ``bounds`` down -log p(to_bounded(u)), gradients by autograd through
+    ``pp.plain``, non-finite components zeroed. Returns the last iterates
+    (S, n_starts, ndim) and their -log p (S, n_starts), +inf where log p is
+    -inf."""
+    from ..parallel.optimize import CosineAdam
+    u = u0
+    opt = CosineAdam(u, lr=lr, n_iter=n_iter, alpha=alpha)
+    for _ in range(n_iter):
+        with torch.enable_grad():
+            u_g = u.detach().requires_grad_(True)
+            neg = -pp.plain(bounds.to_bounded(u_g))
+            g, = torch.autograd.grad(neg.sum(), u_g)
+        u = opt.step(u, torch.where(torch.isfinite(g), g, torch.zeros_like(g)))
+    return u, -pp.plain(bounds.to_bounded(u))
+
+
+def map_ascent(pp, u0, bounds, n_iter=400, lr=0.05, alpha=0.01):
+    """P3: the Adam ascent of ``pp``'s transients from the starts ``u0`` (S,
+    n_starts, ndim) float64 in one launch (arguments and result:
+    :func:`map_ascent_plain`). A CPU tensor takes the plain version."""
+    if u0.device.type == "cpu":
+        return map_ascent_plain(pp, u0, bounds, n_iter, lr, alpha)
+    _require_cuda(u0, "population MAP ascent")
+    if u0.ndim != 3 or u0.shape[0] != pp.n_transients:
+        raise ValueError(f"u0 must be (S={pp.n_transients}, n_starts, ndim), got "
+                         f"{tuple(u0.shape)}")
+    S, n_starts, ndim = u0.shape
+    if ndim != len(bounds.lower):
+        raise ValueError(f"the bounds have {len(bounds.lower)} dimensions, the starts {ndim}")
+    dev = u0.device
+    check(u0, "u0", (S, n_starts, ndim), (torch.float64,), dev)
+    P = _params(pp, ndim, None, None)
+    u_out = torch.empty_like(u0)
+    neg_out = torch.empty((S, n_starts), dtype=torch.float64, device=dev)
+    from ..parallel.optimize import B1, B2, EPS
+    sched = _adam_table_on(dev, n_iter, lr, alpha)
+    Q = _PopMapParams()
+    Q.u0, Q.sched, Q.u_out, Q.neg_out = (u0.data_ptr(), sched.data_ptr(), u_out.data_ptr(),
+                                         neg_out.data_ptr())
+    Q.n_starts, Q.n_iter = n_starts, n_iter
+    Q.b1, Q.b2, Q.one_minus_b1, Q.one_minus_b2, Q.eps = B1, B2, 1 - B1, 1 - B2, EPS
+    for i, (kind, lo, hi, width) in enumerate(bounds.kernel_spec()):
+        Q.kind[i], Q.lo[i], Q.hi[i], Q.width[i] = kind, lo, hi, width
+    from .build import library
+    device_index, stream = cuda_args(dev)
+    rc = library().pop_map_launch(ctypes.addressof(P), ctypes.addressof(Q), device_index,
+                                  _f64(pp), S, stream)
+    if rc != 0:
+        raise RuntimeError(f"pop_map_kernel launch failed: cudaError {rc}")
+    LAUNCHES["pop_map"] += 1
+    return u_out, neg_out
+

@@ -41,12 +41,13 @@ def hot_phase(t, t_exp):
     return (t - t_ref).to(dt) - (t_exp - t_ref).to(dt)
 
 
-def epoch_reference(t):
+def epoch_reference(t, dim=None):
     """``floor(min t)`` over the finite times (0 when none is finite): the
-    centering epoch of :func:`hot_phase`, as a float64 scalar tensor."""
+    centering epoch of :func:`hot_phase`, as a float64 scalar tensor; with
+    ``dim``, each row's along that axis (a population's transients)."""
     t = torch.as_tensor(t, dtype=torch.float64)
-    finite = torch.isfinite(t)
-    t_ref = torch.floor(torch.min(torch.where(finite, t, torch.inf)))
+    finite = torch.where(torch.isfinite(t), t, torch.inf)
+    t_ref = torch.floor(torch.min(finite) if dim is None else torch.amin(finite, dim=dim))
     return torch.where(torch.isfinite(t_ref), t_ref, torch.zeros_like(t_ref))
 
 

@@ -35,6 +35,8 @@ from lightcurve_fitting_tpu.lightcurve import LC as JLC  # noqa: E402
 from lightcurve_fitting_tpu_torch import bolometric as tbol, kernels  # noqa: E402
 from lightcurve_fitting_tpu_torch.lightcurve import LC as TLC  # noqa: E402
 
+from test_torch_native import jax_native_loaded  # noqa: E402
+
 EXAMPLE = os.path.join(os.path.dirname(__file__), "..", "lightcurve_fitting_tpu", "data",
                        "SN2016bkv.csv")
 META = dict(dm=30.79, redshift=0.002, extinction={
@@ -42,6 +44,13 @@ META = dict(dm=30.79, redshift=0.002, extinction={
     "r": 0.038, "R": 0.035, "i": 0.028, "I": 0.020})
 RUN = dict(res=1.0, nwalkers=10, burnin_steps=150, steps=100, seed=7, save_corners=False,
            batch_mode=True, colors=["B-V", "g-r"])
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native():
+    """The JAX package's binning on its native path, as the port's
+    (test_torch_native.jax_native_loaded)."""
+    jax_native_loaded()
 
 
 def _lc(LC):

@@ -118,6 +118,7 @@ from lightcurve_fitting_tpu_torch.core import config  # noqa: E402
 from lightcurve_fitting_tpu_torch.fitting import make_log_posterior  # noqa: E402
 from lightcurve_fitting_tpu_torch.kernels import (build, common, epoch_bb,  # noqa: E402
                                                   gradient, ladder, sc2, sc3)
+from lightcurve_fitting_tpu_torch.kernels import pop as kpop  # noqa: E402
 from lightcurve_fitting_tpu_torch.kernels import quantile as kquantile  # noqa: E402
 from lightcurve_fitting_tpu_torch.lightcurve import LC  # noqa: E402
 from lightcurve_fitting_tpu_torch.models import (BaseShockCooling, GaussianPrior,  # noqa: E402
@@ -130,6 +131,7 @@ from lightcurve_fitting_tpu_torch.ops.quantile import percentile_f32_plain  # no
 from lightcurve_fitting_tpu_torch.filters import filtdict  # noqa: E402
 from lightcurve_fitting_tpu_torch.parallel import batched  # noqa: E402
 from lightcurve_fitting_tpu_torch.parallel.evidence import make_beta_ladder  # noqa: E402
+from lightcurve_fitting_tpu_torch.parallel.hmc import BoundsTransform  # noqa: E402
 from lightcurve_fitting_tpu_torch.utils.table import Table  # noqa: E402
 
 EXAMPLE = os.path.join(os.path.dirname(__file__), "..", "lightcurve_fitting_tpu", "data",
@@ -249,8 +251,9 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         build._nvcc()
     srcs, _ = build._sources()
     assert [os.path.basename(s) for s in srcs] == ["companion.cu", "epoch_bb.cu", "ladder.cu",
-                                                   "quantile.cu", "sc2_logpost.cu",
-                                                   "sc3_logpost.cu", "sc_logpost.cu", "sed.cu"]
+                                                   "population.cu", "quantile.cu",
+                                                   "sc2_logpost.cu", "sc3_logpost.cu",
+                                                   "sc_logpost.cu", "sed.cu"]
 
 
 def test_param_block_layout_matches_the_c_struct():
@@ -627,7 +630,8 @@ def test_polish_adam_arithmetic_equals_cosine_adam():
 
 
 def test_polish_chain_rule_is_autograds_through_the_bijection():
-    """K4p's bijection and chain rule (``polish_bounded`` and the gradient of
+    """K4p's bijection and chain rule (``adam_bounded`` and ``adam_step`` of
+    ``csrc/adam.cuh``, which P3 shares: the gradient of
     -lp in u, from ``BoundsTransform.kernel_spec``), emulated in float64 from
     the forward's sigmoid and exp (on the CPU their bits depend on the
     tensor's layout; the kernel forms them as PyTorch's CUDA kernels do),
@@ -3546,5 +3550,97 @@ def test_sc_ladder_init_forms_bit_equal_on_card(lc, cuda_device, prefix, R, W, f
             val = sc.logpost_launch(prefix, lp, x.reshape(-1, len(lo)), off, scale, form=form)
             assert torch.equal((pri + ll)[fin], val[fin])
             assert bool(torch.isneginf(val[~fin]).all())
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+# ------------------------------------------------------------------- P1-P3
+
+@pytest.mark.parametrize("struct,mirror,size", [
+    # 12 pointers, 6 ints, 5 doubles, 7 arrays of LP_MAX_DIM
+    ("PopParams", kpop._PopParams, 8 * (12 + 6 + 5) + 7 * 9 * 8),
+    # 4 pointers, 2 ints, 5 doubles, 4 arrays of LP_MAX_DIM
+    ("PopMapParams", kpop._PopMapParams, 8 * (4 + 2 + 5) + 4 * 9 * 8),
+])
+def test_pop_param_blocks_match_the_c_structs(struct, mirror, size):
+    assert ctypes.sizeof(mirror) == size
+    assert _c_fields(struct) == [name for name, _ in mirror._fields_]
+
+
+def _pop_posterior(S, device, mjd=False, sigma=False):
+    """chip_smoke.py's population (examples/fit_population.py's, or its
+    MJD-scale twin), its PopulationPosterior on ``device``, priors and
+    window."""
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    from lightcurve_fitting_tpu_torch.parallel.population import (PopulationPosterior,
+                                                                  pack_population)
+    lcs, models, _ = chip_smoke.pop_example(S, device, mjd=mjd)
+    priors, lo, up = chip_smoke.pop_priors(mjd, sigma)
+    pp = PopulationPosterior(pack_population(models, lcs, sigma, device), models[0], priors,
+                             sigma)
+    return chip_smoke, pp, priors, lo, up
+
+
+def test_pop_wrappers_route_by_device():
+    """On the CPU the population wrappers run their plain versions and count
+    no launch; another device is refused; the kernels take n_model 3 or 4
+    (+1 with the scatter) parameters, as many as the priors."""
+    chip_smoke, pp, priors, lo, up = _pop_posterior(3, torch.device("cpu"))
+    q, off, scale = chip_smoke.pop_state(pp, lo, up, 8, 0, torch.device("cpu"))
+    before = dict(kernels.LAUNCHES)
+    assert torch.equal(kpop.log_posterior(pp, q, off, scale),
+                       kpop.log_posterior_plain(pp, q, off, scale))
+    assert kernels.LAUNCHES == before
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        kpop.log_posterior(pp, q.to("meta"), off, scale)
+    with pytest.raises(ValueError, match="ndim = 3"):
+        kpop._params(pp, 4, None, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ndim3", "mjd", "sigma"])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_pop_kernels_match_plain_on_card(cuda_device, case, f64):
+    """P1, P2 and P3 against their plain versions on the card (chip_smoke.py
+    27's checks at S = 32): P1 within 1e-5 (float32) or 1e-12 (float64) of
+    the term scale and, at the states two P2 half-steps accepted, P2's stored
+    values bit for bit; P2's flags equal except near-ties, its states
+    bit-equal where they agree; P3 as ``chip_smoke.pop_check_map`` holds it
+    (POP_MAP_REL) and, in float32, both float32 ascents' best MAP points
+    within POP_MAP_F64 of the float64 plain ascent's in float64 -log p
+    (``chip_smoke.pop_map_f64_gaps``)."""
+    try:
+        if f64:
+            config.set_compute_dtype(torch.float64)
+        chip_smoke, pp, priors, lo, up = _pop_posterior(32, cuda_device, case == "mjd",
+                                                        case == "sigma")
+        rel = 1e-12 if f64 else 1e-5
+        q, off, scale = chip_smoke.pop_state(pp, lo, up, 64, 1, cuda_device)
+        p_abs = common.absolute_params(q, off, scale)
+        n0 = dict(kernels.LAUNCHES)
+        got = kpop.log_posterior(pp, q, off, scale)
+        assert kernels.LAUNCHES["pop_logpost"] == n0["pop_logpost"] + 1
+        chip_smoke.compare_ll("P1", got.flatten(), kpop.log_posterior_plain(pp, q, off, scale)
+                              .flatten(), rel, scale=pp.term_scales(p_abs).flatten())
+        x0 = q.reshape(32, 2, 32, -1).contiguous()
+        assert chip_smoke.pop_p1_repeats_p2(pp, off, scale, x0, 2)[0] == 0
+        chip_smoke.pop_check_half_step("P2", pp, off, scale, x0, 3, rel)
+        bounds = BoundsTransform([p.p_min for p in priors], [p.p_max for p in priors])
+        x_st = np.random.default_rng(4).uniform(lo, up, size=(32, 16, len(lo)))
+        u0 = torch.as_tensor(bounds.to_unbounded(x_st), device=cuda_device).contiguous()
+        rel = None if case == "sigma" and not f64 else chip_smoke.POP_MAP_REL[
+            "f64" if f64 else "f32"]
+        t3 = chip_smoke.pop_check_map("P3", pp, u0, bounds, rel, points=f64)
+        if not f64:
+            config.set_compute_dtype(torch.float64)
+            _, pp64, *_ = _pop_posterior(32, cuda_device, case == "mjd", case == "sigma")
+            x64 = bounds.to_bounded(kpop.map_ascent_plain(pp64, u0, bounds, chip_smoke.POP_ITER)[0])
+            n64 = -pp64.plain(x64)
+            x64 = x64[torch.arange(32, device=cuda_device), torch.argmin(n64, dim=1)]
+            chip_smoke.pop_map_f64_gaps(
+                "P3", pp64, {"kernel": t3["best_kernel"], "plain": t3["best_plain"]}, x64,
+                chip_smoke.POP_MAP_F64[case == "sigma"])
     finally:
         config.set_compute_dtype(config.AUTO)

@@ -16,10 +16,15 @@ against the JAX package's and against the port's own numpy binning.
   fuses it, ``1 / sqrt``), and :func:`native_fallback_trace` counts which
   of them move the numpy path's bits (``PYTHONPATH=. python
   tests/test_torch_native.py``; PERF.md).
+
+The JAX package's library is loaded through :func:`jax_native_loaded`,
+which every port test that compares with the JAX package's binning calls
+first (see its docstring for why).
 """
 
 import math
 import os
+import threading
 from fractions import Fraction
 
 import numpy as np
@@ -42,6 +47,52 @@ def _ignored_dirs():
         lines = [ln.strip() for ln in f]
     return {os.path.normpath(os.path.join(REPO, ln)) for ln in lines
             if ln.endswith("/") and not ln.startswith("#")}
+
+
+_JAX_LIB = os.path.join(os.path.dirname(tnative._LIB_PATH), "jax_liblcf_native.so")
+_jax_lock = threading.Lock()
+
+
+def jax_native_loaded():
+    """The JAX package's native library, complete and loaded in this process.
+
+    The JAX loader compiles ``liblcf_native.so`` with g++ straight to its
+    final path at first use. Under ``pytest -n`` another worker that loads
+    the library while g++ writes it reads a partial (at first empty) file:
+    its ``CDLL`` fails, and the loader's ``_tried`` flag keeps the native
+    path off in that process for good, so ``LC.bin`` there falls back to the
+    numpy path, whose last bits differ from the port's native ones. Here the
+    JAX loader's own ``_build`` compiles the JAX source into a file of this
+    process, renamed into the port's build directory, and the JAX loader
+    loads that file (its path pointed there for the one call): no process
+    reads a file that another is writing. Nothing in the JAX package
+    changes."""
+    with _jax_lock:
+        if jnative._lib is None:
+            if (not os.path.exists(_JAX_LIB)
+                    or os.path.getmtime(_JAX_LIB) < os.path.getmtime(jnative._SRC)):
+                os.makedirs(os.path.dirname(_JAX_LIB), exist_ok=True)
+                tmp = f"{_JAX_LIB}.{os.getpid()}.tmp"
+                _with_jax_lib_path(tmp, jnative._build)
+                os.replace(tmp, _JAX_LIB)
+            jnative._tried = False
+            _with_jax_lib_path(_JAX_LIB, jnative._load)
+    return jnative
+
+
+def _with_jax_lib_path(path, fn):
+    """``fn()`` with the JAX loader's library path set to ``path``."""
+    saved = jnative._LIB_PATH
+    jnative._LIB_PATH = path
+    try:
+        return fn()
+    finally:
+        jnative._LIB_PATH = saved
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native():
+    jax_native_loaded()
 
 
 def test_the_port_builds_its_own_native_source():

@@ -69,6 +69,8 @@ from lightcurve_fitting_tpu_torch.models import KDEPrior as TK  # noqa: E402
 from lightcurve_fitting_tpu_torch.parallel.host_sampler import (  # noqa: E402
     HostEnsembleSampler as THost)
 
+from test_torch_native import jax_native_loaded  # noqa: E402
+
 EXAMPLE = os.path.join(os.path.dirname(__file__), "..", "lightcurve_fitting_tpu", "data",
                        "SN2016bkv.csv")
 META = dict(dm=30.79, redshift=0.002, extinction={
@@ -97,6 +99,13 @@ def _groups(LC, mod, window):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         return mod._prepare_epoch_seds(lc, 1.0, ())
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native():
+    """The JAX package's binning on its native path, as the port's
+    (test_torch_native.jax_native_loaded)."""
+    jax_native_loaded()
 
 
 @pytest.fixture(scope="module")

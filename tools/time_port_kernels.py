@@ -2,6 +2,11 @@
 """Time the port's kernels on one CUDA card at the shapes of ``chip_smoke.py``
 and of the fits, float32 compute, by CUDA events:
 
+* the population kernels (where the checkout has them; ``--pop-only``
+  alone): P1, P2 (one half-step writing the chain slot) and P3 (the whole
+  16-start, 400-step ascent) on examples/fit_population.py's population at
+  S = 64 and 512 (``--pop-sizes``), 64 walkers, float32 compute
+  (``P1_S*``, ``P2_S*``, ``P3_S*``, each ``_dev`` too), each hashed;
 * K1 at 131072 walkers; K2 per half-step of half 32, 16384 and 65536 (the
   64- and 131072-walker fits); K6a per ladder half-step of 7 rungs x 32 and
   17 x 4096 (ShockCooling2: the PT fit and the evidence) and of 17 x 512
@@ -172,7 +177,7 @@ PTXAS_KERNELS = ("nuts_transition", "hmc_transition", "logpost_grad", "SC2WarpMo
                  "SC3WarpModel", "CSWarpModel",
                  "epoch_map_polish", "EpochBBModel", "replica_swap", "epoch_summary",
                  "epoch_logpost", "rung_block_terms", "bandflux", "percentile", "sifto_kernel",
-                 "SEDWarpModel", "SCWarpModel", "SC4WarpModel")
+                 "SEDWarpModel", "SCWarpModel", "SC4WarpModel", "pop_map_kernel")
 
 
 def events_ms(fn, launches, repeats):
@@ -288,6 +293,10 @@ def main():
     ap.add_argument("--sc-ladders", default="25x64",
                     help="K6a over SC and SC4 in each form at these ladders, rungs x walkers "
                          "a rung, comma-separated (as 25x64,16x2048,17x4096,32x4096)")
+    ap.add_argument("--pop-only", action="store_true",
+                    help="time the population kernels P1-P3 alone")
+    ap.add_argument("--pop-sizes", default="64,512",
+                    help="the populations' sizes S for P1-P3, comma-separated")
     ap.add_argument("--fits", action="store_true",
                     help="also time lightcurve_map, lightcurve_hmc (HMC; NUTS in f32, f64), "
                          "the SC3 32768 x 300 fit, the SC2 fits of chip_smoke.py phases 5 and "
@@ -377,6 +386,10 @@ def main():
         times[name + "_dev"] = device_ms(step, match, launches, args.repeats)
         return pri_, ll_
 
+    if hasattr(chip_smoke, "pop_example"):
+        time_pop(args, dev, chip_smoke, times, digests)
+    if args.pop_only:
+        return report(args, repo, build, times, digests, info, walls, ptxas)
     if hasattr(chip_smoke, "SC_NAMES"):
         time_sc(args, dev, lc, chip_smoke, times, digests, walls, half_step, tempered)
     if args.sc_only:
@@ -1246,6 +1259,54 @@ def report(args, repo, build, times, digests, info, walls, ptxas):
                       "digests": digests, "info": info, "walls": walls, "ptxas": ptxas,
                       "sass": sass}),
           flush=True)
+
+
+def time_pop(args, dev, chip_smoke, times, digests):
+    """P1, P2 and P3 on examples/fit_population.py's population at each S of
+    ``--pop-sizes`` (float32 compute, the rescaled float32 state of 64
+    walkers a transient; P3 16 starts x 400 steps): ``P1_S{S}`` on every
+    walker, ``P2_S{S}`` one half-step writing the chain slot (as production
+    does), ``P3_S{S}`` the whole ascent, each with ``_dev`` (the profiler's
+    device time) and a digest of one call from the same start."""
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels import pop as kpop
+    from lightcurve_fitting_tpu_torch.parallel.hmc import BoundsTransform
+    from lightcurve_fitting_tpu_torch.parallel.population import (PopulationPosterior,
+                                                                  pack_population)
+    for S in [int(v) for v in args.pop_sizes.split(",")]:
+        lcs, models, _ = chip_smoke.pop_example(S, dev)
+        priors, lo, up = chip_smoke.pop_priors()
+        pp = PopulationPosterior(pack_population(models, lcs, False, dev), models[0], priors)
+        q, off, sc = chip_smoke.pop_state(pp, lo, up, 64, 0, dev)
+        x = q.reshape(S, 2, 32, 3).contiguous()
+        logp = kpop.log_posterior(pp, q, off, sc).reshape(S, 2, 32)
+        digests[f"P1_S{S}"] = digest(logp)
+        g = torch.Generator(device=dev)
+        g.manual_seed(S)
+        shape = (S, 2, 32)
+        u_z = torch.rand(shape, generator=g, device=dev)
+        j = torch.randint(0, 32, shape, generator=g, device=dev)
+        u_acc = torch.rand(shape, generator=g, device=dev)
+        acc = torch.zeros(shape, dtype=torch.int32, device=dev)
+        cx, cl = torch.empty_like(x), torch.empty(shape, dtype=torch.float64, device=dev)
+        xd, ld = x.clone(), logp.clone()
+        kpop.stretch_half_step(pp, xd, ld, 0, u_z, j, u_acc, 2.0, off, sc, cx, cl, acc)
+        digests[f"P2_S{S}"] = digest(xd, ld, acc)
+        bounds = BoundsTransform([p.p_min for p in priors], [p.p_max for p in priors])
+        x_st = np.random.default_rng(S).uniform(lo, up, size=(S, 16, 3))
+        u0 = torch.as_tensor(bounds.to_unbounded(x_st), device=dev).contiguous()
+        digests[f"P3_S{S}"] = digest(*kpop.map_ascent(pp, u0, bounds, 400))
+
+        def p2():
+            kpop.stretch_half_step(pp, x, logp, 0, u_z, j, u_acc, 2.0, off, sc, cx, cl, acc,
+                                   check_partners=False)
+        for name, fn, match, launches in (
+                (f"P1_S{S}", lambda: kpop.log_posterior(pp, q, off, sc), "logpost_warp_kernel",
+                 20),
+                (f"P2_S{S}", p2, "stretch_half_step_kernel", 20),
+                (f"P3_S{S}", lambda: kpop.map_ascent(pp, u0, bounds, 400), "pop_map_kernel", 1)):
+            times[name] = events_ms(fn, launches, args.repeats)
+            times[name + "_dev"] = device_ms(fn, match, launches, args.repeats)
 
 
 def fit_busy(fn, primes=256, match=None):
