@@ -342,9 +342,9 @@ raises and the script exits non-zero):
     walkers, and (b)'s K6b in the form ``kernels/sc.py::ladder_init_form``
     picks at 64 states (the latency forms);
 27. the population kernels against their plain versions (``kernels/pop.py``):
-    on examples/fit_population.py's population (S = 64 and 512, three
-    parameters), its MJD-scale twin (S = 64, t_exp the fourth) and S = 64
-    with the intrinsic scatter, float32 and float64 compute, 64 walkers in
+    on examples/fit_population.py's population (S = 64 and 512, and 28c's
+    8, three parameters), its MJD-scale twin (S = 64, t_exp the fourth) and
+    S = 64 with the intrinsic scatter, float32 and float64 compute, 64 walkers in
     the rescaled float32 state: P1 within 1e-5 (1e-12) of the term scale,
     same -inf sets, and at the states two P2 half-steps accepted P2's
     stored values bit for bit; P2 as K2 (h = 0, 1); P3 (16 starts x 400
@@ -357,13 +357,22 @@ raises and the script exits non-zero):
     ``POP_MAP_F64`` of the term scale of the float64 plain ascent's in
     float64 -log p (``pop_map_f64_gaps``: P3 within 2e-5, the plain ascent
     within 2e-5, or 0.5 with the scatter);
-    each timed at S = 64 and 512 (events, the profiler's device time, the
-    plain version), the profiler showing P1 on ``PopSC2WarpModel``, ptxas's
-    report of the three;
+    P2's warp and latency forms bit for bit (two half-steps: states,
+    log-posteriors, accept counts, chain slot) and P3's warp and pair forms
+    bit for bit, at S = 8, 64 and 512, ndim 3, 4 (t_exp, or the scatter)
+    and 5, float32 and float64; at S = 64 a copy whose transients' last real point
+    (and so its padded copies) has a model value of +inf: P1's -inf set the
+    plain version's, P2's forms bit for bit, -inf kept
+    (``pop_check_poisoned``); each timed at S = 8, 64 and 512 (events, the
+    profiler's device time, the plain version; P2 and P3 in each form), the
+    profiler showing P1 on ``PopSC2WarpModel``, ptxas's report of the
+    three, P3 and P2's latency form (12 instantiations each) without a
+    spill;
 28. the population path (run first), the counters reset before each fit: (a) ``fit_population`` at
     the example's defaults on S = 64 (64 walkers, 100 + 500 steps,
     ``init="map"`` with 16 x 400, seed 1, summaries, no chains) and (b) on
-    S = 512: P1 once, P2 twice a step, P3 once and K5, nothing else; every
+    S = 512: P1 once, P2 twice a step in the form ``kernels/pop.py::half_form``
+    picks, P3 once in the form ``map_form`` picks, and K5, nothing else; every
     transient's acceptance above 0.1, the mean within 0.01 of the JAX
     package's float64 CPU value at the same seed (``POP_REF``), the
     transients recovered (T_1 within 20%, L_1 within 30%) no fewer than
@@ -6157,8 +6166,10 @@ POP_WALKERS, POP_BURNIN, POP_STEPS = 64, 100, 500
 POP_STARTS, POP_ITER = 16, 400
 POP_DIAG = 8                # the example's subset refit with chains for the diagnostics
 POP_KERNELS = ("pop_logpost", "pop_half_step", "pop_map")
+POP_FORMS = {"pop_half_step": ("warp", "latency"), "pop_map": ("warp", "pair")}
 POP_SPLIT = {"P3 (MAP ascent)": ("pop_map_kernel",),   # time_split's lowercased names
-             "P2 (half-steps)": ("stretch_half_step_kernel<popsc2warpmodel",),
+             "P2 (half-steps)": ("stretch_half_step_kernel<popsc2warpmodel",
+                                 "stretch_half_step_latency_kernel<popsc2warpmodel"),
              "P1 (initial state)": ("logpost_warp_kernel<popsc2warpmodel",),
              "K5 (summaries)": ("percentile",)}
 # the JAX package's fit of the example at its defaults (seed 1), float64 on
@@ -6177,12 +6188,14 @@ POP_MAP_REL = {"f64": 1e-9, "f32": 1e-5}   # P3 against the plain ascent (pop_ch
 POP_MAP_F64 = {False: {"kernel": 2e-5, "plain": 2e-5}, True: {"kernel": 2e-5, "plain": 0.5}}
 
 
-def pop_example(S, dev, mjd=False):
+def pop_example(S, dev, mjd=False, epochs=(4, 8)):
     """examples/fit_population.py's synthetic population of S transients
     (default_rng(0): 6 filters, 4-7 epochs each, so 24-42 points), through
     the port: (lcs, models, truths). ``mjd``: the times at MJD scale (t_exp
     = 58000, fitted as a fourth parameter, the t_exp prior's window), as
-    tests/test_population.py's float32 phase test."""
+    tests/test_population.py's float32 phase test. ``epochs``: the range of
+    a transient's epochs, [lo, hi) (longer curves for the P2 form rule's
+    crossover in points)."""
     import numpy as np
     from lightcurve_fitting_tpu_torch.filters import filtdict
     from lightcurve_fitting_tpu_torch.lightcurve import LC
@@ -6194,7 +6207,7 @@ def pop_example(S, dev, mjd=False):
     for _ in range(S):
         T1, L1, ttr = rng.uniform(8.0, 20.0), rng.uniform(1.0, 4.0), rng.uniform(25.0, 50.0)
         truths.append((T1, L1, ttr))
-        n_epochs = rng.integers(4, 8)
+        n_epochs = rng.integers(*epochs)
         t = t0 + np.repeat(np.linspace(1.0, 8.0, n_epochs), len(filters))
         f = np.array(filters * n_epochs)
         y_true = ShockCooling2()(t, f, T1, L1, ttr, t0)
@@ -6234,11 +6247,11 @@ def pop_grad_ops(pp):
 
 def pop_table_bytes(pp):
     """The per-point data a launch must read once: at each real point the
-    table row and the seven per-point arrays in the compute type and the
-    mask byte; three scalars a transient."""
+    table row and the seven per-point arrays in the compute type; a
+    transient's real points (int32) and three float64 scalars."""
     S, _, D1 = pp.bb_coeffs.shape
     n = pop_points(pp)
-    return n * (D1 + 7) * pp.bb_coeffs.element_size() + n + 3 * 8 * S
+    return n * (D1 + 7) * pp.bb_coeffs.element_size() + 4 * S + 3 * 8 * S
 
 
 def pop_state(pp, lo, up, W, seed, dev):
@@ -6339,6 +6352,84 @@ def pop_p1_repeats_p2(pp, off, sc, x0, seed):
     return int((again != logp).sum()), int(acc.sum())
 
 
+def pop_check_forms(name, pp, off, sc, x0, u0, bounds, seed):
+    """P2's two forms bit for bit: two half-steps (h = 0, 1) from x0 (S, 2,
+    half, ndim) under shared draws, writing the chain slot, in each form;
+    their states, log-posteriors, accept counts and chain slots equal. With
+    ``u0`` (S, n_starts, ndim), P3's two forms too: the last iterates and
+    -log p equal. Returns (accepts, -inf log-posteriors after the steps)."""
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels import pop as kpop
+    dev = x0.device
+    S, _, half, ndim = x0.shape
+    l0 = kpop.log_posterior(pp, x0.reshape(S, 2 * half, ndim), off, sc).reshape(S, 2, half)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    shape = (S, 2, half)
+    u_z = torch.rand(shape, generator=g, device=dev, dtype=x0.dtype)
+    j = torch.randint(0, half, shape, generator=g, device=dev)
+    u_acc = torch.rand(shape, generator=g, device=dev, dtype=x0.dtype)
+    out = {}
+    for form in POP_FORMS["pop_half_step"]:
+        x, lg = x0.clone(), l0.clone()
+        acc = torch.zeros(shape, dtype=torch.int32, device=dev)
+        cx, cl = torch.empty_like(x0), torch.empty(shape, dtype=torch.float64, device=dev)
+        for h in (0, 1):
+            kpop.stretch_half_step(pp, x, lg, h, u_z, j, u_acc, 2.0, off, sc, cx, cl, acc,
+                                   form=form)
+        out[form] = (x, lg, acc, cx, cl)
+    torch.cuda.synchronize()
+    for a, b, what in zip(*out.values(), ("states", "log-posteriors", "accept counts",
+                                          "chain states", "chain log-posteriors")):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: P2's warp and latency forms differ in {what}")
+    if u0 is not None:
+        m = [kpop.map_ascent(pp, u0, bounds, POP_ITER, form=f) for f in POP_FORMS["pop_map"]]
+        if not (torch.equal(m[0][0], m[1][0]) and torch.equal(m[0][1], m[1][1])):
+            raise AssertionError(f"{name}: P3's warp and pair forms differ")
+    lg = out["warp"][1]
+    return int(out["warp"][2].sum()), int(torch.isinf(lg).sum())
+
+
+def pop_poisoned(pp, every=5):
+    """A copy of pp whose transients 0, every, 2 every, ... have the table
+    row of their last real point, and so of its padded copies, lifted by a
+    constant term of 1e30: the model value there is +inf, the real point's
+    term inf and each padded one's (0 - inf) * 0 = NaN. Returns it and the
+    poisoned transients."""
+    import copy
+    import torch
+    bad = copy.copy(pp)
+    bad.bb_coeffs = pp.bb_coeffs.clone()
+    bad.kernel_params = {}
+    rows = torch.arange(0, pp.n_transients, every)
+    for e in rows.tolist():
+        bad.bb_coeffs[e, int(pp.n_real[e]) - 1:, 0] = 1e30
+    return bad, rows
+
+
+def pop_check_poisoned(name, pp, off, sc, q, seed):
+    """On :func:`pop_poisoned`'s copy: P1 -inf at every walker of the
+    poisoned transients and its plain version's -inf set the same; P2's two
+    forms bit for bit (:func:`pop_check_forms`), the poisoned transients'
+    log-posteriors still -inf. Returns the -inf values P2 kept."""
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels import pop as kpop
+    bad, rows = pop_poisoned(pp)
+    got = kpop.log_posterior(bad, q, off, sc)
+    want = kpop.log_posterior_plain(bad, q, off, sc)
+    if not torch.equal(torch.isneginf(got), torch.isneginf(want)) or not bool(
+            torch.isneginf(got[rows.to(got.device)]).all()):
+        raise AssertionError(f"{name}: P1's -inf set differs from the plain version's, or a "
+                             "poisoned transient is finite")
+    S = q.shape[0]
+    x0 = q.reshape(S, 2, q.shape[1] // 2, -1).contiguous()
+    _, n_inf = pop_check_forms(name, bad, off, sc, x0, None, None, seed)
+    if n_inf < len(rows) * q.shape[1]:
+        raise AssertionError(f"{name}: the poisoned transients' log-posteriors left -inf")
+    return n_inf
+
+
 def pop_check_map(name, pp, u0, bounds, rel, points):
     """P3 against map_ascent_plain from the starts u0 (S, n_starts, ndim):
     the same finite set of final -log p; each transient's best start (the
@@ -6434,11 +6525,12 @@ def pop_map_f64_gaps(name, pp64, best, best64, limit):
 
 def phase_pop_kernels(seed=27):
     """27: P1, P2 and P3 against their plain versions on the card: the
-    example's population at S = 64 and 512 (three parameters), its MJD-scale
+    example's population at S = 64 and 512 and at 28c's POP_DIAG (three
+    parameters, P2 in the latency form there), its MJD-scale
     twin at S = 64 (t_exp the fourth) and at S = 64 with the intrinsic
     scatter (ndim 4), float32 and float64 compute, 64 walkers; P1 at the
     states P2 accepted gives P2's stored values bit for bit; each kernel
-    timed at S = 64 and 512 in float32 (events and the profiler's device
+    timed at each of these S in float32 (events and the profiler's device
     time) beside its plain version and its bound."""
     import numpy as np
     import torch
@@ -6452,11 +6544,12 @@ def phase_pop_kernels(seed=27):
     from time_port_kernels import device_ms
 
     dev = torch.device("cuda")
-    cases = [("S64", 64, False, False), ("S512", 512, False, False), ("S64 MJD t_exp", 64, True,
-                                                                        False),
+    cases = [("S64", 64, False, False), ("S512", 512, False, False),
+             (f"S{POP_DIAG}", POP_DIAG, False, False), ("S64 MJD t_exp", 64, True, False),
              ("S64 sigma", 64, False, True)]
-    pops = {S: pop_example(S, dev) for S in POP_SIZES}
-    pops["mjd"] = pop_example(64, dev, mjd=True)
+    pops = {S: pop_example(S, dev) for S in POP_SIZES + (POP_DIAG,)}
+    pops.update({("mjd", S): pop_example(S, dev, mjd=True) for S in POP_SIZES + (POP_DIAG,)})
+    pops["mjd"] = pops[("mjd", POP_SIZES[0])]
     n0 = {k: kernels.LAUNCHES[k] for k in POP_KERNELS}
     lines, times, errs, best32 = [], {}, {"P1": 0.0, "P2": 0.0, "P3": 0.0}, {}
     for label in ("f32", "f64"):
@@ -6514,27 +6607,85 @@ def phase_pop_kernels(seed=27):
                                  f"of {S}")
         finally:
             config.set_compute_dtype(config.AUTO)
+    lines.append(pop_forms_checks(pops, seed))
     launched = {k: kernels.LAUNCHES[k] - n0[k] for k in POP_KERNELS}
     from lightcurve_fitting_tpu_torch.kernels import build
     from time_port_kernels import ptxas_report
     report = {k: v for k, v in ptxas_report(build.build_info()["log"]).items()
               if "PopSC2WarpModel" in k or "pop_map_kernel" in k}
     regs = {what: sorted({tuple(v) for k, v in report.items() if key in k})
-            for what, key in (("P1", "logpost_warp_kernel"), ("P2", "stretch_half_step_kernel"),
+            for what, key in (("P1", "logpost_warp_kernel"),
+                              ("P2 warp form", "stretch_half_step_kernel"),
+                              ("P2 latency form", "stretch_half_step_latency_kernel"),
                               ("P3", "pop_map_kernel"))}
+    for what, key, n in (("P3", "pop_map_kernel", 12),
+                         ("P2's latency form", "stretch_half_step_latency_kernel", 12)):
+        ks = {k: v for k, v in report.items() if key in k}
+        if len(ks) != n or any(v[2] or v[3] for v in ks.values()):
+            raise AssertionError(f"{what} ({n} instantiations) must not spill: {ks}")
     names = [expect_kernel(lambda: kpop.log_posterior(pp, q, off, sc), "logpost_warp_kernel",
                            "PopSC2WarpModel", calls=2)]
     phase("population kernels", "; ".join(lines) + f"; {launched} comparison launches; "
           + "; ".join(f"S = {S}: " + ", ".join(
               f"{k} {v['ms']:.4f} ms (device {v['dev']:.4f}; plain {v['plain_ms']:.4f}; bound "
-              f"{v['bound_ms']:.5f}, {v['bound_by']})" for k, v in t.items())
+              f"{v['bound_ms']:.5f}, {v['bound_by']}"
+              + (", device by form " + ", ".join(f"{f} {ms:.4f}" for f, ms in v["forms"].items())
+                 if "forms" in v else "") + ")" for k, v in t.items())
               for S, t in times.items()) + f"; the profiler saw {names}; ptxas (registers, stack "
           f"frame, spill stores, spill loads) by kernel over its instantiations: {regs}")
     return {k: {"max_abs_err": errs[k], "ms": times[POP_SIZES[0]][k]["ms"],
                 "plain_ms": times[POP_SIZES[0]][k]["plain_ms"],
                 **{f: times[POP_SIZES[0]][k][f] for f in ("bound_ms", "bound_by", "library_ms")},
                 "at": {S: (t[k]["ms"], t[k]["dev"], t[k]["plain_ms"], t[k]["bound_ms"])
-                       for S, t in times.items()}} for k in errs}
+                       for S, t in times.items()},
+                **({"forms": {S: t[k]["forms"] for S, t in times.items()}}
+                   if "forms" in times[POP_SIZES[0]][k] else {})} for k in errs}
+
+
+def pop_forms_checks(pops, seed):
+    """27's forms: P2's two forms bit for bit at S = 64, 512 and POP_DIAG
+    (28c's, where the rule picks the latency form), ndim 3
+    (T_1, L_1, t_tr), 4 (t_exp fitted, or the intrinsic scatter) and 5
+    (both), float32 and float64 compute; P3's two forms bit for bit on the
+    same populations; and at S = 64 without and with the scatter the
+    poisoned copies (:func:`pop_check_poisoned`). Returns the phase's line."""
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.parallel.hmc import BoundsTransform
+    from lightcurve_fitting_tpu_torch.parallel.population import (PopulationPosterior,
+                                                                  pack_population)
+    dev = torch.device("cuda")
+    parts = []
+    for label in ("f32", "f64"):
+        try:
+            if label == "f64":
+                config.set_compute_dtype(torch.float64)
+            for S in POP_SIZES + (POP_DIAG,):
+                for mjd, sigma in ((False, False), (True, False), (False, True), (True, True)):
+                    lcs, models, _ = pops[("mjd", S) if mjd else S]
+                    priors, lo, up = pop_priors(mjd, sigma)
+                    pp = PopulationPosterior(pack_population(models, lcs, sigma, dev), models[0],
+                                             priors, sigma)
+                    q, off, sc = pop_state(pp, lo, up, POP_WALKERS, seed + 3, dev)
+                    x0 = q.reshape(S, 2, POP_WALKERS // 2, -1).contiguous()
+                    bounds = BoundsTransform([p.p_min for p in priors], [p.p_max for p in priors])
+                    x_st = np.random.default_rng(seed).uniform(lo, up,
+                                                               size=(S, POP_STARTS, len(lo)))
+                    u0 = torch.as_tensor(bounds.to_unbounded(x_st), device=dev).contiguous()
+                    what = f"{label} S = {S} ndim {len(lo)}{' (scatter)' if sigma else ''}"
+                    acc, _ = pop_check_forms(f"27 forms {what}", pp, off, sc, x0, u0, bounds,
+                                             seed + 4)
+                    msg = f"{what}: {acc} accepts"
+                    if S == POP_SIZES[0] and not mjd:
+                        msg += (f", poisoned: {pop_check_poisoned(f'27 poisoned {what}', pp, off, sc, q, seed + 5)}"
+                                " -inf log-posteriors kept")
+                    parts.append(msg)
+        finally:
+            config.set_compute_dtype(config.AUTO)
+    return ("P2's warp and latency forms bit for bit (two half-steps: states, log-posteriors, "
+            "accept counts, chain slot) and P3's warp and pair forms bit for bit (last iterates, "
+            "-log p) at " + "; ".join(parts))
 
 
 def pop_times(pp, q, off, sc, x0, u0, bounds, plain_map_ms, device_ms):
@@ -6563,12 +6714,12 @@ def pop_times(pp, q, off, sc, x0, u0, bounds, plain_map_ms, device_ms):
     def p1():
         return kpop.log_posterior(pp, q, off, sc)
 
-    def p2():
+    def p2(**fkw):
         kpop.stretch_half_step(pp, x, logp, 0, u_z, j, u_acc, 2.0, off, sc, cx, cl, acc,
-                               check_partners=False)
+                               check_partners=False, **fkw)
 
-    def p3():
-        return kpop.map_ascent(pp, u0, bounds, POP_ITER)
+    def p3(**fkw):
+        return kpop.map_ascent(pp, u0, bounds, POP_ITER, **fkw)
 
     def p2_plain():
         kpop.stretch_half_step_plain(lambda y: kpop.log_posterior_plain(pp, y, off, sc),
@@ -6582,7 +6733,7 @@ def pop_times(pp, q, off, sc, x0, u0, bounds, plain_map_ms, device_ms):
     for name, fn, plain, match, ops, nbytes in (
             ("P1", p1, lambda: kpop.log_posterior_plain(pp, q, off, sc), "logpost_warp_kernel",
              W * n * ev, q.numel() * 4 + tables + S * W * 8),
-            ("P2", p2, p2_plain, "stretch_half_step_kernel", half * n * ev + S * half * PROPOSAL,
+            ("P2", p2, p2_plain, "stretch_half_step", half * n * ev + S * half * PROPOSAL,
              S * W * ndim * 4 + S * half * ndim * 4 * 2 + S * half * (4 + 8 + 4 + 8 + 8 + 4 * 2)
              + tables),
             ("P3", p3, None, "pop_map_kernel", n_starts * (POP_ITER + 1) * n * ev_g,
@@ -6592,6 +6743,11 @@ def pop_times(pp, q, off, sc, x0, u0, bounds, plain_map_ms, device_ms):
                      # P3's plain ascent (~5 s) was timed in pop_check_map
                      "plain_ms": plain_map_ms if name == "P3" else cuda_ms(plain, repeats=3),
                      **bound_fields(ops, nbytes)}
+    # each form's device time (the rule's form is timed above)
+    for name, fn, key in (("P2", p2, "pop_half_step"), ("P3", p3, "pop_map")):
+        out[name]["forms"] = {f: float(np.nanmedian(device_ms(
+            lambda: fn(form=f), "stretch_half_step" if name == "P2" else "pop_map_kernel",
+            3 if name == "P3" else 10, 3))) for f in POP_FORMS[key]}
     return out
 
 
@@ -6620,12 +6776,8 @@ def pop_fit(S, dev, profile=False):
     flat, acc, summ = fit()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    want = {"pop_logpost": 1, "pop_half_step": 2 * (POP_BURNIN + POP_STEPS), "pop_map": 1}
-    if {k: launches[k] for k in POP_KERNELS} != want or any(
-            v for k, v in launches.items() if k not in POP_KERNELS + ("percentile",)) \
-            or launches["percentile"] < 1:
-        raise AssertionError(f"28 S = {S}: launches {launches}, expected {want} and K5")
+    launches, forms = pop_check_launches(f"28 S = {S}", S, lcs, dict(kernels.LAUNCHES),
+                                         summaries=True)
     if flat is not None or summ.shape != (S, 3, 3) or not np.isfinite(summ).all() \
             or acc.shape != (S,) or not np.isfinite(acc).all():
         raise AssertionError(f"28 S = {S}: bad outputs")
@@ -6639,7 +6791,7 @@ def pop_fit(S, dev, profile=False):
         raise AssertionError(f"28 S = {S}: mean acceptance {mean_acc:.4f} (JAX {ref[0]:.4f} +- "
                              f"{POP_ACC_TOL}), least {acc.min():.3f} (> 0.1), {int(ok.sum())} "
                              f"of {S} recovered (JAX {ref[2]})")
-    res = {"S": S, "wall": wall, "launches": {k: launches[k] for k in POP_KERNELS},
+    res = {"S": S, "wall": wall, "launches": launches, "forms": forms,
            "acc": mean_acc, "min_acc": float(acc.min()), "ok": int(ok.sum())}
     if profile:
         wall_p, prof = profiled(fit, cpu=False)
@@ -6648,23 +6800,53 @@ def pop_fit(S, dev, profile=False):
     return res
 
 
+def pop_check_launches(what, S, lcs, launches, summaries):
+    """A fit_population run's ``launches`` (counted from 0 just before it) at
+    examples/fit_population.py's defaults on the S transients ``lcs``: P1
+    once, P2 twice a step and P3 once, each in the form kernels/pop.py's
+    rules pick there, K5 where ``summaries``, nothing else. Returns
+    ({kernel or kernel_form: launches}, {kernel: form})."""
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels import pop as kpop
+    from lightcurve_fitting_tpu_torch.kernels.gradient import sm_count
+    sms = sm_count(torch.device("cuda"))
+    n_points = max(len(lc) for lc in lcs)
+    forms = {"pop_half_step": kpop.half_form(S, POP_WALKERS // 2, n_points, sms),
+             "pop_map": kpop.map_form(S, POP_STARTS, n_points, sms)}
+    want = {"pop_logpost": 1, "pop_half_step": 2 * (POP_BURNIN + POP_STEPS), "pop_map": 1}
+    want.update({f"{k}_{f}": want[k] if f == forms[k] else 0
+                 for k, fs in POP_FORMS.items() for f in fs})
+    others = ("percentile",) if summaries else ()
+    if {k: launches[k] for k in want} != want or any(
+            v for k, v in launches.items() if k not in tuple(want) + others) \
+            or (summaries and launches["percentile"] < 1):
+        raise AssertionError(f"{what}: launches {launches}, expected {want}"
+                             + (" and K5" if summaries else ""))
+    return {k: launches[k] for k in want}, forms
+
+
 def pop_diagnostics(dev):
     """The example's survey diagnostics: its first POP_DIAG transients refit
-    with chains, then population_goodness_of_fit and
+    with chains (its launches counted from 0 and held to the rules' forms at
+    S = POP_DIAG, as 28a-b's), then population_goodness_of_fit and
     population_information_criteria on the card, held to the same functions
     on the CPU in float64 (the flux in the card's float32 compute dtype):
     chi2 and the elpds within 1e-3 relative, p within 1e-3."""
     import warnings
     import numpy as np
     import torch
+    from lightcurve_fitting_tpu_torch import kernels
     from lightcurve_fitting_tpu_torch.parallel import fit_population
     from lightcurve_fitting_tpu_torch.parallel.population import (
         population_goodness_of_fit, population_information_criteria)
 
     lcs, models, _ = pop_example(POP_DIAG, dev)
+    kernels.reset_launch_counts()
     flat, acc = fit_population(models, lcs, pop_priors()[0], p_lo=POP_LO, p_up=POP_UP,
                                nwalkers=POP_WALKERS, nsteps=POP_STEPS, nsteps_burnin=POP_BURNIN,
                                seed=1, init="map")
+    launches, forms = pop_check_launches("28c", POP_DIAG, lcs, dict(kernels.LAUNCHES),
+                                         summaries=False)
     if flat.shape != (POP_DIAG, POP_WALKERS * POP_STEPS, 3) or not np.isfinite(flat).all():
         raise AssertionError(f"28c: bad chains {flat.shape}")
     import scipy.stats  # noqa: F401  (imported by the goodness of fit: ~4 s the first time)
@@ -6687,7 +6869,8 @@ def pop_diagnostics(dev):
             and np.isfinite(ic["elpd_loo"]).all()) or worst > 1e-3 or worst_p > 1e-3:
         raise AssertionError(f"28c: diagnostics {gof}, {ic['elpd_loo']}; worst relative "
                              f"difference from the CPU's {worst:.3e}, of p {worst_p:.3e}")
-    return {"acc": float(np.mean(acc)), "chi2_nu": gof["chi2_nu"], "p": gof["p_value"],
+    return {"launches": launches, "forms": forms,
+            "acc": float(np.mean(acc)), "chi2_nu": gof["chi2_nu"], "p": gof["p_value"],
             "elpd_loo": ic["elpd_loo"], "k_max": [float(np.max(k)) for k in ic["pareto_k"]],
             "wall": wall, "worst": worst, "worst_p": worst_p}
 
@@ -6700,7 +6883,9 @@ def phase_pop_main_path(smi):
     POP_ACC_TOL of the JAX package's float64 CPU value at the same seed;
     the recovered transients (T_1 within 20%, L_1 within 30%) no fewer than
     the JAX run's less a few; the wall, a profiled repeat's busy time and
-    idle share; (c) the diagnostics of the example's subset."""
+    idle share; (c) the diagnostics of the example's subset, its fit's
+    launches counted and held as (a)-(b)'s. Returns each run's launches
+    {"28a": ..., "28b": ..., "28c": ...}."""
     import torch
     dev = torch.device("cuda")
     runs = [pop_fit(S, dev, profile=True) for S in POP_SIZES]
@@ -6717,12 +6902,14 @@ def phase_pop_main_path(smi):
               f"{1 - r['busy'] / r['wall_p']:.3f}): "
               + ", ".join(f"{k} {v:.4f} s" for k, v in r["parts"].items()))
     phase("population diagnostics 28c", f"the first {POP_DIAG} transients refit with chains "
-          f"(mean acceptance {diag['acc']:.4f}); population_goodness_of_fit and "
+          f"(launches {diag['launches']}; mean acceptance {diag['acc']:.4f}); "
+          "population_goodness_of_fit and "
           f"population_information_criteria on the card in {diag['wall']:.3f} s: chi2_nu "
           f"{fmt(diag['chi2_nu'])}, p {fmt(diag['p'])}, elpd_loo {fmt(diag['elpd_loo'])}, max "
           f"pareto_k {fmt(diag['k_max'])}; against the CPU's float64: chi2 and elpds within "
           f"{diag['worst']:.3e} relative (<= 1e-3), p within {diag['worst_p']:.3e} (<= 1e-3)")
-    return runs[0]["launches"]
+    return {**{f"28{'ab'[k]}": r["launches"] for k, r in enumerate(runs)},
+            "28c": diag["launches"]}
 
 
 def main():
@@ -7045,22 +7232,32 @@ def main():
 
 def pop_kernel_entries(k_pop, launches):
     """The kernels line's rows of P1-P3: launches from 28a (the example at
-    its defaults), errors from 27's float32 cases, times at S = 64 (27; S =
-    512's in the name)."""
+    its defaults; 28a-c's by form in the name), errors from 27's float32
+    cases, times at S = 64 (27; the other sizes' in the name)."""
     src = "lightcurve_fitting_tpu_torch/kernels/csrc/population.cu"
     rows = []
     for key, kname, count, replaces in (
-            ("P1", "logpost_warp_kernel<PopSC2WarpModel> (P1)", "pop_logpost",
+            ("P1", "logpost_warp_kernel<PopSC2WarpModel<C, N>> (P1)", "pop_logpost",
              "lightcurve_fitting_tpu/parallel/population.py:349"),
-            ("P2", "stretch_half_step_kernel<PopSC2WarpModel> (P2)", "pop_half_step",
+            ("P2", "stretch_half_step_kernel<PopSC2WarpModel<C, N>> / "
+                   "stretch_half_step_latency_kernel<PopSC2WarpModel<C, N>> (P2)", "pop_half_step",
              "lightcurve_fitting_tpu/parallel/population.py:413"),
-            ("P3", "pop_map_kernel<C, N> (P3)", "pop_map",
+            ("P3", "pop_map_kernel<C, N, WPS> (P3)", "pop_map",
              "lightcurve_fitting_tpu/parallel/population.py:204")):
         v = dict(k_pop[key])
         at = v.pop("at")
-        rows.append(dict(name=f"{kname}; ms by S (events, device, plain, bound): " + "; ".join(
-            f"{S}: {t[0]:.4f}, {t[1]:.4f}, {t[2]:.4f}, {t[3]:.5f}" for S, t in at.items()),
-            route="cuda", source=src, replaces=replaces, launches=launches[count], **v))
+        forms = v.pop("forms", None)
+        name = f"{kname}; ms by S (events, device, plain, bound): " + "; ".join(
+            f"{S}: {t[0]:.4f}, {t[1]:.4f}, {t[2]:.4f}, {t[3]:.5f}" for S, t in at.items())
+        if forms:
+            name += ("; launched by form: " + "; ".join(
+                f"{run} " + ", ".join(f"{f} {n[f'{count}_{f}']}" for f in POP_FORMS[count])
+                for run, n in launches.items())
+                + "; device ms by form and S: " + "; ".join(
+                    f"{S}: " + ", ".join(f"{f} {ms:.4f}" for f, ms in fs.items())
+                    for S, fs in forms.items()))
+        rows.append(dict(name=name, route="cuda", source=src, replaces=replaces,
+                         launches=launches["28a"][count], **v))
     return rows
 
 

@@ -108,9 +108,12 @@ def _declare(lib):
     lib.pop_logpost_launch.restype = ci
     lib.pop_logpost_launch.argtypes = [vp, ci, ci, vp, ci, ci, ci, vp, vp]
     lib.pop_half_step_launch.restype = ci
-    lib.pop_half_step_launch.argtypes = half_step[:-1] + [ci, ctypes.c_longlong, vp]
+    # the chain's state in the state's type, its log-posteriors float64: no
+    # dtype flags for them; the form before the stream
+    lib.pop_half_step_launch.argtypes = [vp, ci, ci, vp, ci, vp, ci, ci, vp, vp, vp, cd, vp, vp,
+                                         vp, ci, ctypes.c_longlong, ci, vp]
     lib.pop_map_launch.restype = ci
-    lib.pop_map_launch.argtypes = [vp, vp, ci, ci, ci, vp]
+    lib.pop_map_launch.argtypes = [vp, vp, ci, ci, ci, ci, vp]   # the form before the stream
     lib.replica_swap_launch.restype = ci
     lib.replica_swap_launch.argtypes = [ci, vp, ci, ci, vp, vp, vp, ci, ci, vp, ci, vp, vp, vp,
                                         vp]

@@ -8,34 +8,62 @@
 //       ensemble axis blockIdx.y).
 //   P2  :413-433 seg_one's step, make_stretch_kernel over make_logpost,
 //       vmapped: one stretch-move half-step of all S ensembles in one launch
-//       (stretch_half_step_kernel over PopSC2WarpModel, transient e =
-//       blockIdx.y, the draws (S, 2, half) of the step).
+//       (transient e = blockIdx.y, the draws (S, 2, half) of the step), in
+//       one of two forms that store the same bits (kernels/pop.py::half_form):
+//       the warp form, stretch_half_step_kernel over PopSC2WarpModel (a warp
+//       per walker, each block staging its transient's rows in one round
+//       trip), and, for small launches, the latency form,
+//       stretch_half_step_latency_kernel over it (a block per walker, a
+//       point a thread, the rows read where they lie).
 //   P3  :204-231 optimize_fn: the Adam ascent of every transient's
 //       posterior from n_starts starts (vmap over transients of vmap over
 //       starts of value_and_grad, in an n_iter-step lax.scan) and the final
-//       negative log-posteriors, in one launch (pop_map_kernel: a block per
-//       transient, a warp per start).
+//       negative log-posteriors, in one launch (pop_map_kernel: blocks of
+//       four warps over (starts, transient), a start a warp or, in the pair
+//       form, two warps, a point a thread; kernels/pop.py::map_form).
 //
 // The likelihood is the population's, not the single fit's: y and dy are
-// divided by the transient's own yscale; inv_dy is 0 on the padded points,
-// whose residual (y - y_fit) * 0 still enters the sum (a non-finite model
-// value there poisons it, as in the JAX graph); the Gaussian normalization
-// log_norm (float64, over the real points) is added to the compute-type sum
-// promoted to float64; with the intrinsic scatter the terms of the real
-// points alone are summed, in the compute type, and there is no constant;
-// a non-finite log L is -inf. The phase is ops/mathx.py:hot_phase's,
-// centred on each transient's own t_ref = floor(min t): tt = C(t - t_ref) -
-// C(t_exp - t_ref), t_exp = 0 for the three-parameter fit (T_1, L_1, t_tr).
-// A point is sc2_forward's (EXACT, the bits of K1 and K2 at the same
-// constants), its derivatives sc2_point's (K7's).
+// divided by the transient's own yscale; log_norm (float64, over the real
+// points) is added to the compute-type sum promoted to float64; with the
+// intrinsic scatter there is no constant; a non-finite log L is -inf. The
+// sums take the transient's n_real real points alone: pack_population pads
+// a transient with copies of its last real point (the same time and table
+// row, so the same model value) at inv_dy = 0, whose term the JAX graph
+// adds as (y - y_fit) * 0: +0 where the model value is finite, which leaves
+// every sum's bits as they are, and NaN where it is not, where the real
+// point's own term is already not finite and log L is -inf either way. The
+// phase is ops/mathx.py:hot_phase's, centred on each transient's own t_ref
+// = floor(min t): tt = C(t - t_ref) - C(t_exp - t_ref), t_exp = 0 for the
+// three-parameter fit (T_1, L_1, t_tr). A point is sc2_forward's (EXACT,
+// the bits of K1 and K2 at the same constants), its derivatives
+// sc2_point's (K7's).
 //
-// What bounds it on the H100: the FP32 ALU work of the points, as K1 and K2
-// (the example's 24-42 points a transient put a warp's 32 lanes on one or
-// two points each). Each block stages its transient's rows (S x N x (D + 8)
-// values over the population) in shared memory.
+// What bounds them on the H100: the latency of one walker's or one start's
+// chain, not a pipe. A point's value takes ~2900 cycles and its value and
+// gradient ~6500 (the float32 powers, in turn), a start's float64 bijection
+// and Adam step ~3300 an evaluation at five dimensions a lane, P2's staging
+// of the rows ~5000 array after array (tools/probe_pop_latency.py, PERF.md
+// §6). So the warp form stages a transient's rows in one round trip
+// (pop_stage_rows), every sum skips the padded copies, the latency form
+// gives a small launch a thread per point, and P3 spreads its starts over
+// blocks of four warps on every SM, gives a point a thread in the pair form,
+// reduces its six sums in one interleaved butterfly, and keeps a
+// dimension's Adam state on a lane of its own (five dimensions' state a
+// lane spilled in the warp-per-start kernel).
 
 #include "adam.cuh"
 #include "sc2_model.cuh"
+
+// P3's stamps (tools/probe_pop_latency.py defines them in a copy of this
+// file): no-ops here.
+#ifndef POP_MAP_PROBE
+#define POP_MAP_BEGIN
+#define POP_MAP_STAGED
+#define POP_MAP_PROBE_DECL
+#define POP_MAP_START()
+#define POP_MAP_MARK(k)
+#define POP_MAP_PUT(w)
+#endif
 
 // Every field is 8 bytes wide, so the layout has no padding and the ctypes
 // mirror in kernels/pop.py (_PopParams) matches it field for field. The
@@ -49,11 +77,11 @@ struct PopParams {
     const void* s_a;
     const void* s_b;
     const void* coef;            // the Chebyshev rows
-    const unsigned char* mask;   // (S, N): 1 on the real points
+    const int* n_real;           // (S,): the real points, the first of the transient's row
     const double* t_ref;         // (S,)
     const double* inv_yscale;    // (S,)
     const double* log_norm;      // (S,)
-    long long n_points;
+    long long n_points;          // N, the padded row
     long long n_coef;
     long long ndim;
     long long n_model;           // 3 (t_exp = 0) or 4 (t_exp the fourth parameter)
@@ -79,18 +107,67 @@ struct PopRows {
     long long n_points, n_coef;
 };
 
-// A transient's data as the points read them: its staged rows, its mask
-// and its scalars.
+// A transient's data as the points read them: its rows (staged or where
+// they lie), its real points and its scalars.
 template <typename C>
 struct PopData {
     PointData<C> pts;
-    const unsigned char* mask;
+    int n_real;
     double t_ref;
     double log_norm;
     C inv_yscale;
 };
 
+// stage_points' copy of transient e's rows into shared memory, in its
+// layout (the N x n_coef table, then the seven per-point arrays), each
+// thread's loads issued before its stores: one round trip to the L2 for the
+// block, where stage_points' array after array took eight (5000-5700 cycles
+// of a P2 walker's 7.1 us, 2300-3800 this way; tools/probe_pop_latency.py).
+// P1 and P2 stage so; P3, which stages once for 401 evaluations, keeps
+// stage_points (this copy moved ptxas to spill in three of its
+// instantiations).
+#define POP_STAGE_UNROLL 4
+
 template <typename C>
+__device__ PointData<C> pop_stage_rows(const PopRows& R, C* smem, int use_smem) {
+    if (!use_smem) return stage_points<C>(R, smem, 0);
+    const int N = (int)R.n_points, NK = N * (int)R.n_coef, total = NK + 7 * N;
+    for (int b = threadIdx.x; b < total; b += POP_STAGE_UNROLL * blockDim.x) {
+        C v[POP_STAGE_UNROLL];
+#pragma unroll
+        for (int u = 0; u < POP_STAGE_UNROLL; ++u) {
+            const int i = b + u * blockDim.x;
+            if (i < NK) {
+                v[u] = ((const C*)R.coef)[i];
+            } else if (i < total) {
+                const int a = (i - NK) / N;   // (a select, not an indexed array: no stack)
+                const void* row = a == 0 ? R.t_centered : a == 1 ? R.y : a == 2 ? R.inv_dy
+                                : a == 3 ? R.dy : a == 4 ? R.sigma_units : a == 5 ? R.s_a : R.s_b;
+                v[u] = ((const C*)row)[i - NK - a * N];
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < POP_STAGE_UNROLL; ++u) {
+            const int i = b + u * blockDim.x;
+            if (i < total) smem[i] = v[u];
+        }
+    }
+    __syncthreads();
+    PointData<C> d;
+    d.coef = smem;
+    d.tc = smem + NK;
+    d.y = d.tc + N;
+    d.inv_dy = d.y + N;
+    d.dy = d.inv_dy + N;
+    d.su = d.dy + N;
+    d.s_a = d.su + N;
+    d.s_b = d.s_a + N;
+    return d;
+}
+
+// Transient e's data; its rows staged by pop_stage_rows (ONE_TRIP) or
+// stage_points.
+template <typename C, bool ONE_TRIP = true>
 __device__ PopData<C> pop_stage(const PopParams& P, unsigned char* smem, int use_smem, int e) {
     const size_t N = (size_t)P.n_points, off = (size_t)e * N;
     PopRows R;
@@ -105,8 +182,9 @@ __device__ PopData<C> pop_stage(const PopParams& P, unsigned char* smem, int use
     R.n_points = P.n_points;
     R.n_coef = P.n_coef;
     PopData<C> d;
-    d.pts = stage_points<C>(R, reinterpret_cast<C*>(smem), use_smem);
-    d.mask = P.mask + off;
+    d.pts = ONE_TRIP ? pop_stage_rows<C>(R, reinterpret_cast<C*>(smem), use_smem)
+                 : stage_points<C>(R, reinterpret_cast<C*>(smem), use_smem);
+    d.n_real = P.n_real[e];
     d.t_ref = P.t_ref[e];
     d.log_norm = P.log_norm[e];
     d.inv_yscale = (C)P.inv_yscale[e];
@@ -152,10 +230,14 @@ __device__ __forceinline__ SC2Walker<C> pop_sc2_walker(const PopWalker<C>& v, co
     return w;
 }
 
-// Whether point n enters the sum: every point without the intrinsic
-// scatter (the padded ones through inv_dy = 0), the real ones with it.
-__device__ __forceinline__ bool pop_counts(const unsigned char* mask, int n, bool use_sigma) {
-    return !use_sigma || mask[n] != 0;
+// A point's residual r (sc2_forward's) added to the sum: r * r, or r itself
+// with the intrinsic scatter, rounded by hand in both types (sc2_add_term's
+// EXACT), so that every form of P1 and P2 adds alike, with the bits of the
+// compiled `acc + r * r` (a multiply and an add: a fused multiply-add gives
+// other float32 bits, tools/time_port_kernels.py's digests).
+template <typename C>
+__device__ __forceinline__ C pop_add(C acc, C r, bool use_sigma) {
+    return use_sigma ? add_rn(acc, r) : add_rn(acc, mul_rn(r, r));
 }
 
 // The population's log L from the residual sum acc in the compute type:
@@ -168,16 +250,23 @@ __device__ __forceinline__ double pop_finish(C acc, bool use_sigma, double log_n
     return isfinite(ll) ? ll : -INFINITY;
 }
 
+// Bring the line of p into the SM's L1 (a generic address).
+__device__ __forceinline__ void pop_prefetch(const void* p) {
+    asm volatile("prefetch.L1 [%0];" ::"l"(p));
+}
+
 // The policy of P1 and P2 (stretch.cuh): a warp per walker, batched as
-// SC2WarpModel, the transient e of a block staged from its rows. 16 warps a
-// block at most: a transient's rows are small, and at S = 512 x 64 walkers
-// P1 took 0.065 ms of device time at 16 against 0.108 at 32 (PERF.md §6).
-// N: the walker's dimension at compile time, or 0 (P.ndim).
+// SC2WarpModel, the transient e of a block staged from its rows; and, with
+// point_term and its own sum, P2's latency form. 16 warps a block at most:
+// a transient's rows are small, and at S = 512 x 64 walkers P1 took 0.065
+// ms of device time at 16 against 0.108 at 32 (PERF.md §6). N: the
+// walker's dimension, 3, 4 or 5, at compile time.
 template <typename C, int N>
 struct PopSC2WarpModel {
     typedef PopParams Params;
     typedef PopData<C> Data;
     typedef PopWalker<C> Walker;
+    typedef C Compute;
     static constexpr int warps_per_block = 16;
     static constexpr bool batched = true;
     static constexpr int ndim = N;
@@ -188,32 +277,56 @@ struct PopSC2WarpModel {
         return pop_stage<C>(P, smem, use_smem, e);
     }
     static __device__ Walker walker(const double* p, const Params& P) {
-        return pop_walker<C>(p, P, N > 0 ? N : (int)P.ndim);
+        return pop_walker<C>(p, P, N);
     }
-    // Lane l sums the terms of points l, l + 32, ... in that order, then the
-    // butterfly sums the lanes (K1's order), every lane the same bits.
+    // Lane l adds the terms of its real points l, l + 32, ... in that
+    // order, then the butterfly sums the lanes (K1's order), every lane the
+    // same bits.
     static __device__ double log_likelihood_warp(const Walker& v, const Data& d, const Params& P) {
         const SC2Walker<C> w = pop_sc2_walker<C>(v, d, P);
-        const int Np = (int)P.n_points, K = (int)P.n_coef;
+        const int K = (int)P.n_coef;
         const bool use_sigma = P.use_sigma != 0;
         C acc = C(0);
-        for (int n = threadIdx.x & 31; n < Np; n += 32) {
-            if (!pop_counts(d.mask, n, use_sigma)) continue;
-            sc2_add_term<C, true>(
+        for (int n = threadIdx.x & 31; n < d.n_real; n += 32)
+            acc = pop_add<C>(
                 acc,
                 sc2_forward<C, true>(n, w, d.pts, K, use_sigma, sc2_no_before(), sc2_no_link()).r,
                 use_sigma);
-        }
         return pop_finish<C>(warp_sum(acc), use_sigma, d.log_norm);
+    }
+    // The latency form's point n (its residual r) and the sum over a
+    // transient's real points, in log_likelihood_warp's operations.
+    static __device__ C point_term(int n, const Walker& v, const Data& d, const Params& P) {
+        return sc2_forward<C, true>(n, pop_sc2_walker<C>(v, d, P), d.pts, (int)P.n_coef,
+                                    P.use_sigma != 0, sc2_no_before(), sc2_no_link()).r;
+    }
+    static __device__ int n_terms(const Data& d, const Params&) { return d.n_real; }
+    static __device__ C add_term(C acc, C r, const Params& P) {
+        return pop_add<C>(acc, r, P.use_sigma != 0);
+    }
+    static __device__ double finish(C acc, const Data& d, const Params& P) {
+        return pop_finish<C>(acc, P.use_sigma != 0, d.log_norm);
+    }
+    static __device__ void prefetch(int n, const Data& d, const Params& P) {
+        const PointData<C>& q = d.pts;
+        const C* row = q.coef + (size_t)n * P.n_coef;
+        pop_prefetch(q.tc + n);
+        pop_prefetch(q.y + n);
+        pop_prefetch(q.inv_dy + n);
+        pop_prefetch(q.s_a + n);
+        pop_prefetch(q.s_b + n);
+        pop_prefetch(row);
+        pop_prefetch(row + P.n_coef - 1);
+        if (P.use_sigma) {
+            pop_prefetch(q.dy + n);
+            pop_prefetch(q.su + n);
+        }
     }
 };
 
-template <typename C>
-using PopSC2WarpModelAnyDim = PopSC2WarpModel<C, 0>;
-
 // ------------------------------------------------------------------------ P3
 
-#define POP_MAP_WARPS 16   // warps a block of P3: a start a warp at the default 16 starts
+#define POP_MAP_THREADS 128   // a block of P3: four warps over its transient's starts
 
 // P3's arguments (mirror: kernels/pop.py _PopMapParams). The bounds
 // bijection is BoundsTransform.kernel_spec's (parallel/hmc.py).
@@ -235,98 +348,223 @@ struct PopMapParams {
     double width[LP_MAX_DIM];
 };
 
-// The log-posterior of transient d at absolute float64 parameters p[N] and
-// its gradient g[N], by the 32 lanes of a warp together (every lane the same
-// bits): the priors and their gradient in float64 (sc2_prior), the points'
-// terms and derivatives in the compute type (sc2_point, lane l on points l,
-// l + 32, ... that pop_counts, summed as K7's warp form), the population's
-// log L (pop_finish). -inf and g = 0 outside the priors or where log L is
-// not finite (the JAX where() passes no cotangent there).
-template <typename C, int N>
-__device__ double pop_value_and_grad_warp(const double* p, const PopData<C>& d,
-                                          const PopParams& P, double* g) {
-    double lprior, gprior[N];
-    if (!sc2_prior<N>(p, P, N, lprior, gprior)) {
+// The pair form's exchange of a point's factors (SC2Point, nine values)
+// between the two warps of a start: [iteration parity][warp][field][lane],
+// in shared memory, a start's slot of POP_PAIR_VALUES.
+#define POP_PAIR_VALUES (2 * 2 * 9 * 32)
+// The pair form's most padded points: one a thread over its two warps.
+#define POP_MAP_PAIR_MAX_POINTS 64
+
+template <typename C>
+__device__ __forceinline__ void pop_pair_put(C* b, int lane, const SC2Point<C>& q) {
+    const C v[9] = {q.r, q.t0, q.t1, q.l0, q.l1, q.ttr, q.tt, q.s0, q.s1};
 #pragma unroll
-        for (int k = 0; k < N; ++k) g[k] = 0.0;
-        return -INFINITY;
-    }
-    const SC2Walker<C> w = pop_sc2_walker<C>(pop_walker<C>(p, P, N), d, P);
-    const int Np = (int)P.n_points, K = (int)P.n_coef;
-    const bool use_sigma = P.use_sigma != 0;
-    SC2Sums<C> s;
-    for (int n = threadIdx.x & 31; n < Np; n += 32)
-        if (pop_counts(d.mask, n, use_sigma))
-            sc2_accumulate(s, sc2_point<C>(n, w, d.pts, K, use_sigma), use_sigma);
-    s.acc = warp_sum(s.acc);
-    s.dT1 = warp_sum(s.dT1);
-    s.dL1 = warp_sum(s.dL1);
-    s.dttr = warp_sum(s.dttr);
-    s.dtt = warp_sum(s.dtt);
-    if (use_sigma) s.dsig = warp_sum(s.dsig);
-    const double ll = pop_finish<C>(s.acc, use_sigma, d.log_norm);
-    if (!(ll > -INFINITY)) {
-#pragma unroll
-        for (int k = 0; k < N; ++k) g[k] = 0.0;
-        return -INFINITY;
-    }
-    // ll = -0.5 acc (+ const): the cotangent of each term is -0.5 (exact)
-    g[0] = gprior[0] + (double)(C(-0.5) * s.dT1);
-    g[1] = gprior[1] + (double)(C(-0.5) * s.dL1);
-    g[2] = gprior[2] + (double)(C(-0.5) * s.dttr);
-    if (P.n_model == 4) g[3] = gprior[3] + (double)(C(0.5) * s.dtt);
-    if (use_sigma) g[N - 1] = gprior[N - 1] + (double)(C(-0.5) * s.dsig);
-    return lprior + ll;
+    for (int f = 0; f < 9; ++f) b[32 * f + lane] = v[f];
 }
 
-// P3: the Adam ascent of _map_seeded_guesses for transient blockIdx.x, a
-// start a warp (warp w takes starts w, w + warps, ...). Each of n_iter
-// steps: x = the bijection of u, the warp's value and gradient of the
-// transient's log-posterior at x, then adam_step (the chain rule into u, a
-// non-finite component 0, and the step with the host's scalars). Then each
-// start's last iterate and its -log p, +inf where log p is -inf.
-template <typename C, int N>
-__global__ void __launch_bounds__(32 * POP_MAP_WARPS)
+template <typename C>
+__device__ __forceinline__ SC2Point<C> pop_pair_get(const C* b, int lane) {
+    SC2Point<C> q;
+    q.r = b[lane];
+    q.t0 = b[32 + lane];
+    q.t1 = b[64 + lane];
+    q.l0 = b[96 + lane];
+    q.l1 = b[128 + lane];
+    q.ttr = b[160 + lane];
+    q.tt = b[192 + lane];
+    q.s0 = b[224 + lane];
+    q.s1 = b[256 + lane];
+    return q;
+}
+
+// The six sums over the 32 lanes, each by warp_sum's butterfly, the six
+// interleaved (each sum's own order, so warp_sum's bits, every lane the
+// same).
+template <typename C>
+__device__ __forceinline__ void pop_reduce(SC2Sums<C>& s, bool use_sigma) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+        const C a = __shfl_xor_sync(0xffffffffu, s.acc, o);
+        const C t = __shfl_xor_sync(0xffffffffu, s.dT1, o);
+        const C l = __shfl_xor_sync(0xffffffffu, s.dL1, o);
+        const C r = __shfl_xor_sync(0xffffffffu, s.dttr, o);
+        const C u = __shfl_xor_sync(0xffffffffu, s.dtt, o);
+        const C g = use_sigma ? __shfl_xor_sync(0xffffffffu, s.dsig, o) : C(0);
+        s.acc += a;
+        s.dT1 += t;
+        s.dL1 += l;
+        s.dttr += r;
+        s.dtt += u;
+        if (use_sigma) s.dsig += g;
+    }
+}
+
+// Dimension k of the log-posterior's gradient (the JAX where() passes no
+// cotangent where log L is not finite, so the caller keeps 0 there): the
+// prior's gradient gp there plus the cotangent -0.5 (exact) times the sum
+// of that parameter's derivative; t_exp's is +0.5 dtt (tt = t - t_exp).
+template <typename C>
+__device__ __forceinline__ double pop_grad_k(int k, double gp, const SC2Sums<C>& s,
+                                             const PopParams& P) {
+    C c;
+    if (k == 0) c = C(-0.5) * s.dT1;
+    else if (k == 1) c = C(-0.5) * s.dL1;
+    else if (k == 2) c = C(-0.5) * s.dttr;
+    else if (k == 3 && P.n_model == 4) c = C(0.5) * s.dtt;
+    else c = C(-0.5) * s.dsig;
+    return gp + (double)c;
+}
+
+// P3: the Adam ascents of _map_seeded_guesses, transient blockIdx.y, a block
+// of POP_MAP_THREADS threads over starts blockIdx.x * SPB, ... (WPS warps a
+// start). Each of n_iter steps: x = the bijection of u, the log-posterior of
+// the transient at x and its gradient, then the Adam step (the chain rule
+// into u, a non-finite component 0, the step with the host's scalars); then
+// each start's last iterate and its -log p, +inf where log p is -inf. Lane
+// k < N keeps dimension k's u, m and v (adam_bounded_k, adam_step_k) and
+// shuffles its x[k] to the start's lanes; every lane forms the priors and
+// the walker. The points: WPS 1, lane l adds its real points l, l + 32, ...
+// (sc2_point, sc2_accumulate) in turn; WPS 2 (N <= 64), thread 32 w + l
+// forms point 32 w + l into shared memory (double-buffered by the step's
+// parity, a named barrier of the start's 64 threads every step), and each
+// warp reads points l and l + 32 back and adds them in the order of WPS 1
+// (holding no point across the barrier: a float32 instantiation spilled
+// at 128 registers with one held). The six sums by one interleaved butterfly (pop_reduce);
+// pop_finish. So both forms give the same bits.
+template <typename C, int N, int WPS>
+__global__ void __launch_bounds__(POP_MAP_THREADS)
 pop_map_kernel(const PopParams P, const PopMapParams Q, int use_smem) {
+    static_assert(WPS == 1 || WPS == 2, "a start takes one warp or two");
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    const int e = blockIdx.x;
-    const PopData<C> d = pop_stage<C>(P, smem_raw, use_smem, e);
-    const int S = (int)Q.n_starts;
-    for (int s = threadIdx.x >> 5; s < S; s += blockDim.x >> 5) {
-        const size_t row = (size_t)e * S + s;
-        double u[N], m[N], v[N], x[N], f[N], g[N];
+    constexpr int SPB = POP_MAP_THREADS / (32 * WPS);   // starts a block
+    constexpr size_t PAIR_BYTES = WPS == 2 ? sizeof(C) * SPB * POP_PAIR_VALUES : 0;
+    POP_MAP_BEGIN
+    const PopData<C> d = pop_stage<C, false>(P, smem_raw + PAIR_BYTES, use_smem, blockIdx.y);
+    POP_MAP_STAGED
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int slot = warp / WPS, part = warp % WPS;
+    const int n_starts = (int)Q.n_starts;
+    const int s = blockIdx.x * SPB + slot;
+    if (s >= n_starts) return;   // (a start's warps together)
+    C* pair = reinterpret_cast<C*>(smem_raw) + (size_t)slot * POP_PAIR_VALUES;
+    const size_t row = (size_t)blockIdx.y * n_starts + s;
+    const int k = lane < N ? lane : N - 1;   // (lanes past N repeat the last dimension)
+    const int K = (int)P.n_coef, n_real = d.n_real, n_iter = (int)Q.n_iter;
+    const bool use_sigma = P.use_sigma != 0;
+    double u = Q.u0[row * N + k], m = 0.0, v = 0.0, neg = INFINITY;
+    POP_MAP_PROBE_DECL
+    POP_MAP_START();
+    for (int t = 0;; ++t) {
+        double f, x[N];
+        const double xk = adam_bounded_k(Q, k, u, f);
 #pragma unroll
-        for (int k = 0; k < N; ++k) {
-            u[k] = Q.u0[row * N + k];
-            m[k] = 0.0;
-            v[k] = 0.0;
-        }
-        for (int t = 0; t < (int)Q.n_iter; ++t) {
-            adam_bounded<N>(Q, u, x, f);
-            pop_value_and_grad_warp<C, N>(x, d, P, g);
-            adam_step<N>(Q, g, f, __ldg(Q.sched + 3 * t), __ldg(Q.sched + 3 * t + 1),
-                         __ldg(Q.sched + 3 * t + 2), u, m, v);
-        }
-        adam_bounded<N>(Q, u, x, f);
-        const double neg = -pop_value_and_grad_warp<C, N>(x, d, P, g);
-        if ((threadIdx.x & 31) == 0) {
+        for (int i = 0; i < N; ++i) x[i] = __shfl_sync(0xffffffffu, xk, i);
+        POP_MAP_MARK(0);
+        double lprior, gprior[N], lp = -INFINITY, g = 0.0, gp = 0.0;
+        const bool inside = sc2_prior<N>(x, P, N, lprior, gprior);   // (uniform over the start)
 #pragma unroll
-            for (int k = 0; k < N; ++k) Q.u_out[row * N + k] = u[k];
-            Q.neg_out[row] = neg;
+        for (int i = 0; i < N; ++i)
+            if (i == k) gp = gprior[i];
+        SC2Walker<C> w;
+        if (inside) w = pop_sc2_walker<C>(pop_walker<C>(x, P, N), d, P);
+        POP_MAP_MARK(1);
+        SC2Sums<C> sums;
+        if constexpr (WPS == 1) {
+            if (inside)
+                for (int n = lane; n < n_real; n += 32)
+                    sc2_accumulate(sums, sc2_point<C>(n, w, d.pts, K, use_sigma), use_sigma);
+            POP_MAP_MARK(2);
+        } else {
+            const int n = 32 * part + lane;
+            SC2Point<C> q = {};
+            if (inside && n < n_real) q = sc2_point<C>(n, w, d.pts, K, use_sigma);
+            POP_MAP_MARK(2);
+            C* buf = pair + (t & 1) * (2 * 9 * 32);
+            pop_pair_put(buf + part * (9 * 32), lane, q);
+            asm volatile("bar.sync %0, 64;" ::"r"(1 + slot) : "memory");
+            if (inside) {
+                if (lane < n_real) sc2_accumulate(sums, pop_pair_get(buf, lane), use_sigma);
+                if (lane + 32 < n_real)
+                    sc2_accumulate(sums, pop_pair_get(buf + 9 * 32, lane), use_sigma);
+            }
         }
+        if (inside) {
+            pop_reduce(sums, use_sigma);
+            POP_MAP_MARK(3);
+            const double ll = pop_finish<C>(sums.acc, use_sigma, d.log_norm);
+            if (ll > -INFINITY) {
+                lp = lprior + ll;
+                g = pop_grad_k<C>(k, gp, sums, P);
+            }
+        }
+        POP_MAP_MARK(4);
+        if (t == n_iter) {
+            neg = -lp;
+            break;
+        }
+        adam_step_k(Q, k, g, f, __ldg(Q.sched + 3 * t), __ldg(Q.sched + 3 * t + 1),
+                    __ldg(Q.sched + 3 * t + 2), u, m, v);
+        POP_MAP_MARK(5);
     }
+    if (part == 0) {
+        if (lane < N) Q.u_out[row * N + lane] = u;
+        if (lane == 0) Q.neg_out[row] = neg;
+    }
+    POP_MAP_PUT((int)((blockIdx.y * gridDim.x + blockIdx.x) * (blockDim.x >> 5) + warp));
 }
 
-template <typename C, int N>
+// P3's launch over S transients: blocks of min(n_starts, SPB) starts (WPS
+// warps each), ceil(n_starts / SPB) a transient; the pair form needs N <= 64
+// padded points. The rows are staged where they fit beside the exchange.
+template <typename C, int N, int WPS>
 static int launch_pop_map(const PopParams& P, const PopMapParams& Q, int S, cudaStream_t stream) {
-    auto kernel = pop_map_kernel<C, N>;
-    const size_t bytes = ::stage_bytes<C>(P);
-    int use_smem = 0;
-    int rc = smem_plan(kernel, bytes, &use_smem);
-    if (rc) return rc;
-    const int warps = Q.n_starts < POP_MAP_WARPS ? (int)Q.n_starts : POP_MAP_WARPS;
-    kernel<<<(unsigned)S, 32 * warps, use_smem ? bytes : 0, stream>>>(P, Q, use_smem);
+    auto kernel = pop_map_kernel<C, N, WPS>;
+    constexpr int SPB = POP_MAP_THREADS / (32 * WPS);
+    if (WPS == 2 && P.n_points > POP_MAP_PAIR_MAX_POINTS) return (int)cudaErrorInvalidValue;
+    const size_t pair = WPS == 2 ? sizeof(C) * SPB * POP_PAIR_VALUES : 0;
+    const size_t rows = ::stage_bytes<C>(P);
+    const int use_smem = pair + rows <= (size_t)smem_optin_limit() ? 1 : 0;
+    const size_t bytes = pair + (use_smem ? rows : 0);
+    if (bytes > 48 * 1024) {
+        const int rc = (int)cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        if (rc) return rc;
+    }
+    const long long n = Q.n_starts;
+    const int threads = n < SPB ? (int)(32 * WPS * n) : POP_MAP_THREADS;
+    kernel<<<dim3((unsigned)((n + SPB - 1) / SPB), (unsigned)S), threads, bytes, stream>>>(
+        P, Q, use_smem);
     return (int)cudaGetLastError();
+}
+
+// P2's launch for the compute type C, the walker dimension N and the state
+// type S (the chain's state S, its log-posteriors float64): form 0 the warp
+// form, 1 the latency form.
+template <typename C, int N, typename S>
+static int launch_pop_half(const PopParams& P, int form, void* x, double* logp, int half, int h,
+                           const void* u_z, const long long* j, const void* u_acc, double a,
+                           void* chain_x, double* chain_lp, int* n_accept, int n_ens,
+                           long long draw_stride, cudaStream_t stream) {
+    typedef PopSC2WarpModel<C, N> M;
+    if (form)
+        return launch_half_latency<M, S, S, double, true>(P, x, logp, half, h, u_z, j, u_acc, a,
+                                                          chain_x, chain_lp, n_accept, stream,
+                                                          n_ens, draw_stride);
+    return launch_half<M, S, S, double>(P, x, logp, half, h, u_z, j, u_acc, a, chain_x, chain_lp,
+                                        n_accept, n_ens, draw_stride, stream);
+}
+
+template <int N>
+static int pop_half_dim(const PopParams& P, int compute_f64, int state_f64, int form, void* x,
+                        double* logp, int half, int h, const void* u_z, const long long* j,
+                        const void* u_acc, double a, void* chain_x, double* chain_lp,
+                        int* n_accept, int n_ens, long long draw_stride, cudaStream_t s) {
+#define POP_HALF(C, S)                                                                       \
+    launch_pop_half<C, N, S>(P, form, x, logp, half, h, u_z, j, u_acc, a, chain_x, chain_lp, \
+                             n_accept, n_ens, draw_stride, s)
+    if (compute_f64) return state_f64 ? POP_HALF(double, double) : POP_HALF(double, float);
+    return state_f64 ? POP_HALF(float, double) : POP_HALF(float, float);
+#undef POP_HALF
 }
 
 // ------------------------------------------------------------------ launch
@@ -334,43 +572,72 @@ static int launch_pop_map(const PopParams& P, const PopMapParams& Q, int S, cuda
 extern "C" {
 
 // P1 launch: out (S, W) at the walker states q (S, W, ndim), a warp per
-// walker, transient e along blockIdx.y. Returns 0 or a cudaError_t code.
+// walker, transient e along blockIdx.y; ndim 3, 4 or 5. Returns 0 or a
+// cudaError_t code.
 int pop_logpost_launch(const PopParams* P, int device, int compute_f64, const void* q,
                        int q_f64, int W, int S, double* out, void* stream) {
-    if (P->n_model != 3 && P->n_model != 4) return (int)cudaErrorInvalidValue;
-    return launch_logpost<PopSC2WarpModelAnyDim>(P, device, compute_f64, q, q_f64, W, out,
-                                                 stream, S);
+    int rc = (int)cudaSetDevice(device);
+    if (rc) return rc;
+    if (W <= 0 || S <= 0) return 0;
+    if ((P->n_model != 3 && P->n_model != 4) || S > 65535) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+#define POP_P1(N_)                                                                           \
+    (compute_f64                                                                             \
+         ? (q_f64 ? launch_logpost_warp<PopSC2WarpModel<double, N_>, double>(*P, q, W, S, out, s) \
+                  : launch_logpost_warp<PopSC2WarpModel<double, N_>, float>(*P, q, W, S, out, s)) \
+         : (q_f64 ? launch_logpost_warp<PopSC2WarpModel<float, N_>, double>(*P, q, W, S, out, s)  \
+                  : launch_logpost_warp<PopSC2WarpModel<float, N_>, float>(*P, q, W, S, out, s)))
+    switch (P->ndim) {
+        case 3: return POP_P1(3);
+        case 4: return POP_P1(4);
+        case 5: return POP_P1(5);
+    }
+#undef POP_P1
+    return (int)cudaErrorInvalidValue;
 }
 
 // P2 launch: one half-step of the S ensembles x (S, 2, half, ndim), the
-// draws of ensemble e draw_stride after those of e - 1; chain_x/chain_lp
-// may be null. Returns 0 or a cudaError_t code.
+// draws of ensemble e draw_stride after those of e - 1; chain_x (the
+// state's type) and chain_lp may be null; ndim 3, 4 or 5; form 0 the warp
+// form, 1 the latency form. Returns 0 or a cudaError_t code.
 int pop_half_step_launch(const PopParams* P, int device, int compute_f64, void* x, int state_f64,
                          double* logp, int half, int h, const void* u_z, const long long* j,
-                         const void* u_acc, double a, void* chain_x, int chain_x_f64,
-                         void* chain_lp, int chain_lp_f64, int* n_accept, int S,
-                         long long draw_stride, void* stream) {
-    if (P->n_model != 3 && P->n_model != 4) return (int)cudaErrorInvalidValue;
-    return launch_half_step<PopSC2WarpModelAnyDim>(P, device, compute_f64, x, state_f64, logp,
-                                                   half, h, u_z, j, u_acc, a, chain_x,
-                                                   chain_x_f64, chain_lp, chain_lp_f64, n_accept,
-                                                   stream, S, draw_stride);
+                         const void* u_acc, double a, void* chain_x, double* chain_lp,
+                         int* n_accept, int S, long long draw_stride, int form, void* stream) {
+    int rc = (int)cudaSetDevice(device);
+    if (rc) return rc;
+    if (half <= 0 || S <= 0) return 0;
+    if ((P->n_model != 3 && P->n_model != 4) || S > 65535 || (form != 0 && form != 1))
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+#define POP_HALF_DIM(N_)                                                                      \
+    pop_half_dim<N_>(*P, compute_f64, state_f64, form, x, logp, half, h, u_z, j, u_acc, a,     \
+                     chain_x, chain_lp, n_accept, S, draw_stride, s)
+    switch (P->ndim) {
+        case 3: return POP_HALF_DIM(3);
+        case 4: return POP_HALF_DIM(4);
+        case 5: return POP_HALF_DIM(5);
+    }
+#undef POP_HALF_DIM
+    return (int)cudaErrorInvalidValue;
 }
 
-// P3 launch: a block per transient of min(n_starts, POP_MAP_WARPS) warps;
+// P3 launch: form 0 a warp a start, 1 two warps a start (the pair form);
 // ndim 3, 4 or 5. Returns 0 or a cudaError_t code.
 int pop_map_launch(const PopParams* P, const PopMapParams* Q, int device, int compute_f64, int S,
-                   void* stream) {
+                   int form, void* stream) {
     int rc = (int)cudaSetDevice(device);
     if (rc) return rc;
     if (S <= 0) return 0;
-    if (Q->n_starts < 1 || Q->n_iter < 0 || P->has_affine
+    if (Q->n_starts < 1 || Q->n_iter < 0 || P->has_affine || S > 65535 || (form != 0 && form != 1)
         || (P->n_model != 3 && P->n_model != 4) || P->ndim != P->n_model + (P->use_sigma != 0))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-#define POP_MAP(N_)                                                \
-    (compute_f64 ? launch_pop_map<double, N_>(*P, *Q, S, s)        \
-                 : launch_pop_map<float, N_>(*P, *Q, S, s))
+#define POP_MAP(N_)                                                                \
+    (compute_f64 ? (form ? launch_pop_map<double, N_, 2>(*P, *Q, S, s)             \
+                         : launch_pop_map<double, N_, 1>(*P, *Q, S, s))            \
+                 : (form ? launch_pop_map<float, N_, 2>(*P, *Q, S, s)              \
+                         : launch_pop_map<float, N_, 1>(*P, *Q, S, s)))
     switch (P->ndim) {
         case 3: return POP_MAP(3);
         case 4: return POP_MAP(4);

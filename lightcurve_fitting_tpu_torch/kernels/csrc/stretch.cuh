@@ -1,7 +1,8 @@
 // Pieces shared by the fused log-posterior kernels of csrc/*.cu: device math
 // overloads, the priors, the Gaussian residual, and the stretch-move
 // half-step (K2), its latency form (a walker's points over a block, for
-// SCWarpModel and SC4WarpModel), its run form (a segment of steps in one
+// SCWarpModel, SC4WarpModel and, over several ensembles, PopSC2WarpModel),
+// its run form (a segment of steps in one
 // block) and the batch log-posterior (also in a latency form) as templates
 // over a model policy.
 //
@@ -391,7 +392,15 @@ stretch_half_step_kernel(const typename M::Params P, S* __restrict__ x,
 // It may provide
 //   static __device__ Walker walker_lanes(const double* p, const Params&);
 // M::walker's bits, formed by the 32 lanes of a warp together
-// (ShockCooling4's float64 powers, a lane each).
+// (ShockCooling4's float64 powers, a lane each), and, for a policy whose
+// sum is not finish_log_likelihood of add_rn over P.n_points terms (the
+// population's, population.cu), all three of
+//   static __device__ int n_terms(const Data&, const Params&);   // the terms summed
+//   static __device__ C add_term(C acc, C t, const Params&);      // acc plus term t
+//   static __device__ double finish(C acc, const Data&, const Params&);   // log L
+// the operations of its log_likelihood_warp, and
+//   static __device__ void prefetch(int n, const Data&, const Params&);
+// which brings point n's data towards the SM while warp 0 forms the walker.
 template <typename M, typename = void>
 struct policy_point {
     static constexpr bool value = false;
@@ -408,10 +417,51 @@ template <typename M>
 struct policy_walker_lanes<M, std::void_t<decltype(&M::walker_lanes)>> {
     static constexpr bool value = true;
 };
+template <typename M, typename = void>
+struct policy_own_sum {
+    static constexpr bool value = false;
+};
+template <typename M>
+struct policy_own_sum<M, std::void_t<decltype(&M::add_term)>> {
+    static constexpr bool value = true;
+};
+
+// The latency forms' terms summed, a term added and the finish: the
+// policy's own (policy_own_sum), else P.n_points terms, add_rn and
+// finish_log_likelihood.
+template <typename M>
+__device__ __forceinline__ int latency_terms(const typename M::Data& d,
+                                             const typename M::Params& P) {
+    if constexpr (policy_own_sum<M>::value) {
+        return M::n_terms(d, P);
+    } else {
+        return (int)P.n_points;
+    }
+}
+template <typename M, typename C>
+__device__ __forceinline__ C latency_add(C acc, C t, const typename M::Params& P) {
+    if constexpr (policy_own_sum<M>::value) {
+        return M::add_term(acc, t, P);
+    } else {
+        return add_rn(acc, t);
+    }
+}
+template <typename M, typename C>
+__device__ __forceinline__ double latency_finish(C acc, const typename M::Data& d,
+                                                 const typename M::Params& P) {
+    if constexpr (policy_own_sum<M>::value) {
+        return M::finish(acc, d, P);
+    } else {
+        return finish_log_likelihood<C>(acc, P.use_sigma, P.ll_offset, P.log_norm_const);
+    }
+}
 
 // The latency form's largest walker: LP_LAT_WARPS warps, 32 x LP_LAT_WARPS
-// points.
+// points; LP_LAT_ENS_WARPS over several ensembles (the population's
+// transients, at most 128 points: under the 640-thread bound ptxas kept a
+// float32-compute, float64-state instantiation in 48 registers and spilled).
 #define LP_LAT_WARPS 20
+#define LP_LAT_ENS_WARPS 4
 
 // The latency forms' walker constants (a policy with point_term), formed by
 // warp 0 from the absolute parameters p where `form` (uniform over the
@@ -436,7 +486,8 @@ __device__ __forceinline__ void latency_walker(const double* p, const typename M
 // into terms[n] (blockDim.x of them, shared memory), where the prior is
 // finite or with EVERY whatever it is; after another, warp 0 sums the terms
 // in log_likelihood_warp's order (lane l adds its points l, l + 32, ... in
-// turn with add_rn, then warp_sum's butterfly) and finish_log_likelihood.
+// turn with add_rn, then warp_sum's butterfly) and finish_log_likelihood
+// (or the policy's own latency_terms, latency_add and latency_finish).
 // Returns that log-likelihood on warp 0 (every lane the same bits: the
 // warp form's), -inf where it was not evaluated and on the other warps. With
 // EVERY, lprior_s is not read (may be null). The latency forms of the batch
@@ -452,60 +503,80 @@ __device__ __forceinline__ double latency_log_likelihood(const double* lprior_s,
                                                          typename M::Compute* terms) {
     typedef typename M::Compute C;
     __syncthreads();
-    const int n = threadIdx.x, N = (int)P.n_points;
+    const int n = threadIdx.x, N = latency_terms<M>(d, P);
     // (the prior, read at each use, is uniform over the block)
     if (n < N && (EVERY || isfinite(*lprior_s))) terms[n] = M::point_term(n, walker_s, d, P);
     __syncthreads();
     if (n >= 32 || !(EVERY || isfinite(*lprior_s))) return -INFINITY;
     C acc = C(0);
-    for (int k = n; k < N; k += 32) acc = add_rn(acc, terms[k]);
-    return finish_log_likelihood<C>(warp_sum(acc), P.use_sigma, P.ll_offset, P.log_norm_const);
+    for (int k = n; k < N; k += 32) acc = latency_add<M>(acc, terms[k], P);
+    return latency_finish<M>(warp_sum(acc), d, P);
 }
 
 // K2's latency form (a policy with point_term): one Goodman-Weare half-step
-// of half h, the arguments and writes of stretch_half_step_kernel (one
-// ensemble). A block per walker, of ceil(N / 32) warps: the per-point data
-// are read where they lie (M::stage without staging: a block would copy the
-// whole table for one walker). Warp 0 forms the walker's proposal, prior
-// and constants (every lane the same bits, as half_step_batch with nb = 1)
-// and puts the prior and the constants into shared memory; after a barrier,
-// thread n forms point n's term, into shared memory; after another, warp 0
-// sums them in log_likelihood_warp's order (lane l adds its points l,
-// l + 32, ... in turn with add_rn, then warp_sum's butterfly and
-// finish_log_likelihood) and its lane 0 decides and writes. So the stored
-// log-posterior has the bits of the warp form, of the batch log-posterior
-// and of K6b at that state. One walker a block was the fastest at every
-// width measured (two and four a block 4-24% slower from half 2048 up,
-// PERF.md §6).
-template <typename M, typename S, typename X, typename L>
-__global__ void __launch_bounds__(32 * LP_LAT_WARPS)
+// of half h, the arguments and writes of stretch_half_step_kernel. A block
+// per walker, of ceil(N / 32) warps: the per-point data are read where they
+// lie (M::stage without staging: a block would copy the whole table for one
+// walker). Warp 0 forms the walker's proposal, prior and constants (every
+// lane the same bits, as half_step_batch with nb = 1) and puts the prior
+// and the constants into shared memory; after a barrier, thread n forms
+// point n's term, into shared memory; after another, warp 0 sums them in
+// log_likelihood_warp's order (lane l adds its points l, l + 32, ... in
+// turn with add_rn, then warp_sum's butterfly and finish_log_likelihood;
+// or the policy's own latency_terms, latency_add and latency_finish) and
+// its lane 0 decides and writes. So the stored log-posterior has the bits
+// of the warp form, of the batch log-posterior and of K6b at that state.
+// One walker a block was the fastest at every width measured for SC and SC4
+// (two and four a block 4-24% slower from half 2048 up, PERF.md §6). ENS:
+// several ensembles along blockIdx.y, as stretch_half_step_kernel takes
+// them (the population's transients: ensemble e's data through M::stage,
+// its draws draw_stride after those of e - 1), and warp 0 keeps the
+// proposal, its stretch and its prior in shared memory while its threads
+// form their points (held in registers, they spilled in ptxas's report);
+// without it one ensemble.
+template <typename M, typename S, typename X, typename L, bool ENS = false>
+__global__ void __launch_bounds__(32 * (ENS ? LP_LAT_ENS_WARPS : LP_LAT_WARPS))
 stretch_half_step_latency_kernel(const typename M::Params P, S* __restrict__ x,
                                  double* __restrict__ logp, int half, int h,
                                  const S* __restrict__ u_z, const long long* __restrict__ j,
                                  const S* __restrict__ u_acc, double a, X* __restrict__ chain_x,
-                                 L* __restrict__ chain_lp, int* __restrict__ n_accept) {
+                                 L* __restrict__ chain_lp, int* __restrict__ n_accept,
+                                 long long draw_stride) {
     typedef typename M::Compute C;
     typedef typename M::Walker Walker;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     __shared__ double lprior_s;
     __shared__ Walker walker_s;
+    __shared__ S prop_s[(policy_dim<M>::value > 0 ? policy_dim<M>::value : LP_MAX_DIM) + 1];
     C* terms = reinterpret_cast<C*>(smem_raw);   // blockDim.x of them
-    const typename M::Data d = M::stage(P, nullptr, 0, 0);
+    const int e = ENS ? (int)blockIdx.y : 0;
+    const typename M::Data d = M::stage(P, nullptr, 0, e);
     const int i = blockIdx.x, n = threadIdx.x, lane = threadIdx.x & 31;
     const bool lead = n < 32;
     constexpr int D = policy_dim<M>::value;
     const int ndim = D > 0 ? D : (int)P.ndim;
-    const int N = (int)P.n_points;
-    const size_t w = (size_t)h * half + i;
+    const int N = latency_terms<M>(d, P);
+    const size_t ens = ENS ? (size_t)e * 2 * half : 0;
+    const size_t di = ENS ? (size_t)e * draw_stride + i : (size_t)i;
+    const size_t w = ens + (size_t)h * half + i;
+    if constexpr (ENS) {
+        if (n < N) M::prefetch(n, d, P);
+    }
     S y[D > 0 ? D : LP_MAX_DIM];
     S z = S(1);
     double lprior = -INFINITY;
     if (lead) {
-        const S* xj = x + ((size_t)(1 - h) * half + (size_t)j[i]) * ndim;
+        const S* xj = x + (ens + (size_t)(1 - h) * half + (size_t)j[di]) * ndim;
         double p[D > 0 ? D : LP_MAX_DIM];
-        z = stretch_proposal<D>(P, x + w * ndim, xj, u_z[i], a, y, p);
+        z = stretch_proposal<D>(P, x + w * ndim, xj, u_z[di], a, y, p);
         lprior = model_log_prior<M, D>(P, d, p);
         if (lane == 0) lprior_s = lprior;
+        if constexpr (ENS) {
+            if (lane == 0) {
+                for (int k = 0; k < ndim; ++k) prop_s[k] = y[k];
+                prop_s[ndim] = z;
+            }
+        }
         if constexpr (policy_walker_lanes<M>::value) {
             if (isfinite(lprior)) {   // (uniform over the warp)
                 const Walker wk = M::walker_lanes(p, P);
@@ -519,15 +590,20 @@ stretch_half_step_latency_kernel(const typename M::Params P, S* __restrict__ x,
     if (n < N && isfinite(lprior_s)) terms[n] = M::point_term(n, walker_s, d, P);
     __syncthreads();
     if (!lead) return;
+    if constexpr (ENS) lprior = lprior_s;
     double ll = -INFINITY;
     if (isfinite(lprior)) {   // (uniform over the warp)
         C acc = C(0);
-        for (int k = lane; k < N; k += 32) acc = add_rn(acc, terms[k]);
-        ll = finish_log_likelihood<C>(warp_sum(acc), P.use_sigma, P.ll_offset, P.log_norm_const);
+        for (int k = lane; k < N; k += 32) acc = latency_add<M>(acc, terms[k], P);
+        ll = latency_finish<M>(warp_sum(acc), d, P);
     }
     if (lane != 0) return;
+    if constexpr (ENS) {
+        for (int k = 0; k < ndim; ++k) y[k] = prop_s[k];
+        z = prop_s[ndim];
+    }
     half_step_accept<D>(ndim, x + w * ndim, y, z, isfinite(lprior) ? lprior + ll : -INFINITY,
-                        logp, u_acc, w, i, chain_x, chain_lp, n_accept);
+                        logp, u_acc, w, di, chain_x, chain_lp, n_accept);
 }
 
 // The log-posteriors of walkers b0 .. b0 + nb - 1 of q, a warp per walker, as
@@ -911,24 +987,28 @@ static int launch_half(const typename M::Params& P, void* x, double* logp, int h
     return (int)cudaGetLastError();
 }
 
-// K2's latency form (stretch_half_step_latency_kernel) over half walkers, a
-// block of ceil(N / 32) warps each. Refused for a policy without point_term,
-// and past LP_LAT_WARPS warps a walker.
-template <typename M, typename S, typename X, typename L>
+// K2's latency form (stretch_half_step_latency_kernel) over half walkers of
+// each of n_ens ensembles (ENS; else one), a block of ceil(N / 32) warps
+// each. Refused for a policy without point_term, and past LP_LAT_WARPS
+// (ENS: LP_LAT_ENS_WARPS) warps a walker.
+template <typename M, typename S, typename X, typename L, bool ENS = false>
 static int launch_half_latency(const typename M::Params& P, void* x, double* logp, int half,
                                int h, const void* u_z, const long long* j, const void* u_acc,
                                double a, void* chain_x, void* chain_lp, int* n_accept,
-                               cudaStream_t stream) {
+                               cudaStream_t stream, int n_ens = 1, long long draw_stride = 0) {
     if constexpr (!policy_point<M>::value) {
         return (int)cudaErrorInvalidValue;
     } else {
-        auto kernel = stretch_half_step_latency_kernel<M, S, X, L>;
+        auto kernel = stretch_half_step_latency_kernel<M, S, X, L, ENS>;
         const long long per_walker = (P.n_points + 31) / 32;
-        if (per_walker < 1 || per_walker > LP_LAT_WARPS) return (int)cudaErrorInvalidValue;
+        if (per_walker < 1 || per_walker > (ENS ? LP_LAT_ENS_WARPS : LP_LAT_WARPS)
+            || (!ENS && n_ens != 1))
+            return (int)cudaErrorInvalidValue;
         const int threads = (int)(32 * per_walker);
-        kernel<<<half, threads, sizeof(typename M::Compute) * threads, stream>>>(
+        kernel<<<dim3((unsigned)half, (unsigned)n_ens), threads,
+                 sizeof(typename M::Compute) * threads, stream>>>(
             P, (S*)x, logp, half, h, (const S*)u_z, j, (const S*)u_acc, a, (X*)chain_x,
-            (L*)chain_lp, n_accept);
+            (L*)chain_lp, n_accept, draw_stride);
         return (int)cudaGetLastError();
     }
 }

@@ -8,17 +8,24 @@ packed transients in the compute dtype, and their plain log-posterior):
   ``PopSC2WarpModel``, a warp per walker, transient e along the ensemble
   axis): the log-posterior of every transient's walkers, (S, W, ndim) ->
   (S, W), the bits that P2 stores when it accepts a state;
-* :func:`stretch_half_step` (P2, ``stretch_half_step_kernel`` over
-  ``PopSC2WarpModel``): one Goodman-Weare half-step of all S ensembles in
-  one launch, in place, from the draws (S, 2, half) of the step;
+* :func:`stretch_half_step` (P2): one Goodman-Weare half-step of all S
+  ensembles in one launch, in place, from the draws (S, 2, half) of the
+  step, in the form :func:`half_form` picks: ``"latency"``
+  (``stretch_half_step_latency_kernel`` over ``PopSC2WarpModel``: a block
+  per walker, a point a thread) or ``"warp"`` (``stretch_half_step_kernel``:
+  a warp per walker), the same bits;
 * :func:`map_ascent` (P3, ``pop_map_kernel``): the whole Adam ascent of
-  every transient's posterior from its starts in one launch (a block per
-  transient, a warp per start), and the final negative log-posteriors.
+  every transient's posterior from its starts in one launch (blocks of four
+  warps over a transient's starts, a start a warp or, in the form
+  :func:`map_form` picks, two: ``"warp"`` or ``"pair"``, the same bits), and
+  the final negative log-posteriors.
 
 For a tensor on the CPU each wrapper runs its plain version. For a CUDA
 tensor it launches the kernel or raises: there is no fallback. Each launch
 adds one to ``LAUNCHES[name]`` (``pop_logpost``, ``pop_half_step``,
-``pop_map``), and nothing else does.
+``pop_map``) and one under its form's name (``pop_half_step_warp``,
+``pop_half_step_latency``, ``pop_map_warp``, ``pop_map_pair``), and nothing
+else does.
 """
 
 import ctypes
@@ -30,13 +37,29 @@ from .common import (LAUNCHES, MAX_DIM, FLOATS, absolute_params, affine_key, che
 from .epoch_bb import _adam_table_on, stretch_half_step_plain
 
 __all__ = ["log_posterior", "log_posterior_plain", "stretch_half_step",
-           "stretch_half_step_plain", "map_ascent", "map_ascent_plain"]
+           "stretch_half_step_plain", "map_ascent", "map_ascent_plain", "half_form", "map_form"]
+
+#: P2 runs its latency form while the launch's walkers, ceil(N / 32) warps
+#: each, need at most this many warps an SM (:func:`half_form`; on the H100
+#: it led at 8 warps an SM, tied at 15.5 with 42 points and led at 15.5 with
+#: 126, lost from 31: PERF.md §6)
+HALF_LATENCY_WARPS_PER_SM = 16
+#: the latency form takes a transient's points one a thread over at most
+#: four warps (LP_LAT_ENS_WARPS of csrc/stretch.cuh; a test ties the two)
+HALF_LATENCY_MAX_POINTS = 128
+#: P3 runs its pair form (two warps a start) while the launch's starts, two
+#: warps each, need at most this many warps an SM (:func:`map_form`; on the
+#: H100 it led through 15.5, lost from 23: PERF.md §6)
+MAP_PAIR_WARPS_PER_SM = 16
+#: the pair form takes a transient's points one a thread over two warps
+#: (POP_MAP_PAIR_MAX_POINTS of csrc/population.cu; a test ties the two)
+MAP_PAIR_MAX_POINTS = 64
 
 
 class _PopParams(ctypes.Structure):
     """ctypes mirror of ``struct PopParams`` (csrc/population.cu)."""
     _fields_ = ([(n, ctypes.c_void_p) for n in
-                 ("t_centered", "y", "inv_dy", "dy", "sigma_units", "s_a", "s_b", "coef", "mask",
+                 ("t_centered", "y", "inv_dy", "dy", "sigma_units", "s_a", "s_b", "coef", "n_real",
                   "t_ref", "inv_yscale", "log_norm")]
                 + [(n, ctypes.c_longlong) for n in
                    ("n_points", "n_coef", "ndim", "n_model", "use_sigma", "has_affine")]
@@ -57,7 +80,7 @@ class _PopMapParams(ctypes.Structure):
 
 
 _BUFFERS = ("t_centered", "y", "inv_dy", "dy", "sigma_units", "bb_s_a", "bb_s_b", "bb_coeffs",
-            "mask", "t_ref", "inv_yscale", "log_norm")
+            "n_real", "t_ref", "inv_yscale", "log_norm")
 
 
 def _require_cuda(t, what):
@@ -82,7 +105,7 @@ def _params(pp, ndim, offset, scale):
             raise ValueError(f"population buffer {name} must be contiguous on {pp.device}")
     consts = pp.model.kernel_constants()
     P = _PopParams()
-    (P.t_centered, P.y, P.inv_dy, P.dy, P.sigma_units, P.s_a, P.s_b, P.coef, P.mask, P.t_ref,
+    (P.t_centered, P.y, P.inv_dy, P.dy, P.sigma_units, P.s_a, P.s_b, P.coef, P.n_real, P.t_ref,
      P.inv_yscale, P.log_norm) = (getattr(pp, name).data_ptr() for name in _BUFFERS)
     P.n_points, P.n_coef = pp.bb_coeffs.shape[1:]
     P.ndim, P.n_model, P.use_sigma = ndim, pp.n_model, int(pp.use_sigma)
@@ -95,6 +118,44 @@ def _params(pp, ndim, offset, scale):
 
 def _f64(pp):
     return int(pp.compute_dtype == torch.float64)
+
+
+def _check_form(what, form, forms):
+    if form not in (None,) + forms:
+        raise ValueError(f"the population {what}'s form is one of {forms}, not {form!r}")
+
+
+def _sm_count(device):
+    from .gradient import sm_count
+    return sm_count(device)
+
+
+def half_form(n_transients, half, n_points, n_sm):
+    """P2's form for ``n_transients`` ensembles of ``half`` walkers a half
+    over rows of ``n_points`` (padded) points on a card of ``n_sm`` SMs:
+    ``"latency"`` (a block of ceil(n_points / 32) warps per walker, a point a
+    thread, no staging: one walker's chain, where a small launch leaves the
+    card idle) up to HALF_LATENCY_MAX_POINTS points while its warps need at
+    most HALF_LATENCY_WARPS_PER_SM an SM, else ``"warp"`` (a warp per walker,
+    each block staging its transient's rows; the example's 64 and 512
+    transients). Both store the same bits."""
+    if n_points > HALF_LATENCY_MAX_POINTS:
+        return "warp"
+    warps = n_transients * half * -(-n_points // 32)
+    return "latency" if warps <= HALF_LATENCY_WARPS_PER_SM * n_sm else "warp"
+
+
+def map_form(n_transients, n_starts, n_points, n_sm):
+    """P3's form for ``n_transients`` x ``n_starts`` ascents over rows of
+    ``n_points`` (padded) points on a card of ``n_sm`` SMs: ``"pair"`` (two
+    warps a start, a point a thread: half the chain of the points a lane
+    walks in turn) up to MAP_PAIR_MAX_POINTS points while its warps need at
+    most MAP_PAIR_WARPS_PER_SM an SM, else ``"warp"`` (a warp a start, lane l
+    on points l, l + 32, ...: half the warps, where the card is full). Both
+    give the same bits."""
+    if n_points > MAP_PAIR_MAX_POINTS:
+        return "warp"
+    return "pair" if 2 * n_transients * n_starts <= MAP_PAIR_WARPS_PER_SM * n_sm else "warp"
 
 
 # ------------------------------------------------------------------------ P1
@@ -132,15 +193,19 @@ def log_posterior(pp, q, param_offset=None, param_scale=None):
 # ------------------------------------------------------------------------ P2
 
 def stretch_half_step(pp, x, logp, h, u_z, j, u_acc, a=2.0, param_offset=None, param_scale=None,
-                      chain_x=None, chain_logp=None, n_accept=None, check_partners=True):
+                      chain_x=None, chain_logp=None, n_accept=None, check_partners=True,
+                      form=None):
     """P2: one stretch-move half-step of every transient's ensemble under
     ``pp``, in place (arguments: :func:`stretch_half_step_plain`, the plain
     half-step over ensembles that the epochs' half-step shares; the state
-    affine-rescaled when ``param_offset``/``param_scale`` are given).
+    affine-rescaled when ``param_offset``/``param_scale`` are given; the
+    chain slot ``chain_x`` in the state's dtype, ``chain_logp`` float64).
     ``check_partners`` verifies 0 <= j < half before the launch (it
     synchronizes with the device; the fit, whose partners come from
-    ``randint(0, half)``, turns it off). A CPU tensor takes the plain
+    ``randint(0, half)``, turns it off). ``form``: ``"latency"``, ``"warp"``
+    or None (:func:`half_form`'s pick). A CPU tensor takes the plain
     version."""
+    _check_form("half-step", form, ("warp", "latency"))
     if x.device.type == "cpu":
         def log_prob(q):
             return log_posterior_plain(pp, q, param_offset, param_scale)
@@ -166,9 +231,11 @@ def stretch_half_step(pp, x, logp, h, u_z, j, u_acc, a=2.0, param_offset=None, p
     if check_partners and bool(((j < 0) | (j >= half)).any()):
         raise ValueError(f"partner indices j must lie in [0, {half})")
     if chain_x is not None:
-        check(chain_x, "chain_x", (S, 2, half, ndim), FLOATS, dev)
-        check(chain_logp, "chain_logp", (S, 2, half), FLOATS, dev)
+        check(chain_x, "chain_x", (S, 2, half, ndim), (x.dtype,), dev)
+        check(chain_logp, "chain_logp", (S, 2, half), (torch.float64,), dev)
     P = _params(pp, ndim, param_offset, param_scale)
+    if form is None:
+        form = half_form(S, half, P.n_points, _sm_count(dev))
     from .build import library
     device_index, stream = cuda_args(dev)
     off = h * half   # the draws of half h; transient e's start 2 * half later
@@ -177,13 +244,12 @@ def stretch_half_step(pp, x, logp, h, u_z, j, u_acc, a=2.0, param_offset=None, p
         logp.data_ptr(), half, int(h), u_z.data_ptr() + off * u_z.element_size(),
         j.data_ptr() + off * j.element_size(), u_acc.data_ptr() + off * u_acc.element_size(),
         float(a), None if chain_x is None else chain_x.data_ptr(),
-        int(chain_x is not None and chain_x.dtype == torch.float64),
-        None if chain_logp is None else chain_logp.data_ptr(),
-        int(chain_logp is not None and chain_logp.dtype == torch.float64),
-        n_accept.data_ptr(), S, 2 * half, stream)
+        None if chain_logp is None else chain_logp.data_ptr(), n_accept.data_ptr(), S, 2 * half,
+        int(form == "latency"), stream)
     if rc != 0:
-        raise RuntimeError(f"stretch_half_step_kernel (population) launch failed: cudaError {rc}")
+        raise RuntimeError(f"the population half-step ({form} form) launch failed: cudaError {rc}")
     LAUNCHES["pop_half_step"] += 1
+    LAUNCHES[f"pop_half_step_{form}"] += 1
 
 
 # ------------------------------------------------------------------------ P3
@@ -208,10 +274,12 @@ def map_ascent_plain(pp, u0, bounds, n_iter=400, lr=0.05, alpha=0.01):
     return u, -pp.plain(bounds.to_bounded(u))
 
 
-def map_ascent(pp, u0, bounds, n_iter=400, lr=0.05, alpha=0.01):
+def map_ascent(pp, u0, bounds, n_iter=400, lr=0.05, alpha=0.01, form=None):
     """P3: the Adam ascent of ``pp``'s transients from the starts ``u0`` (S,
     n_starts, ndim) float64 in one launch (arguments and result:
-    :func:`map_ascent_plain`). A CPU tensor takes the plain version."""
+    :func:`map_ascent_plain`; ``form``: ``"pair"``, ``"warp"`` or None,
+    :func:`map_form`'s pick). A CPU tensor takes the plain version."""
+    _check_form("MAP ascent", form, ("warp", "pair"))
     if u0.device.type == "cpu":
         return map_ascent_plain(pp, u0, bounds, n_iter, lr, alpha)
     _require_cuda(u0, "population MAP ascent")
@@ -224,6 +292,8 @@ def map_ascent(pp, u0, bounds, n_iter=400, lr=0.05, alpha=0.01):
     dev = u0.device
     check(u0, "u0", (S, n_starts, ndim), (torch.float64,), dev)
     P = _params(pp, ndim, None, None)
+    if form is None:
+        form = map_form(S, n_starts, P.n_points, _sm_count(dev))
     u_out = torch.empty_like(u0)
     neg_out = torch.empty((S, n_starts), dtype=torch.float64, device=dev)
     from ..parallel.optimize import B1, B2, EPS
@@ -238,9 +308,10 @@ def map_ascent(pp, u0, bounds, n_iter=400, lr=0.05, alpha=0.01):
     from .build import library
     device_index, stream = cuda_args(dev)
     rc = library().pop_map_launch(ctypes.addressof(P), ctypes.addressof(Q), device_index,
-                                  _f64(pp), S, stream)
+                                  _f64(pp), S, int(form == "pair"), stream)
     if rc != 0:
-        raise RuntimeError(f"pop_map_kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"pop_map_kernel ({form} form) launch failed: cudaError {rc}")
     LAUNCHES["pop_map"] += 1
+    LAUNCHES[f"pop_map_{form}"] += 1
     return u_out, neg_out
 

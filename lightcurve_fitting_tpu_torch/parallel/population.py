@@ -175,7 +175,10 @@ class PopulationPosterior:
     ``yscale``), ``inv_dy`` (0 on the padded points), ``sigma_units`` (S,
     N); ``bb_coeffs`` (S, N, D + 1), ``bb_s_a``, ``bb_s_b`` (S, N). In
     float64: ``t_ref``, ``inv_yscale``, ``log_norm`` (S,); ``mask`` (S, N)
-    bool. :meth:`plain` is the plain version of P1."""
+    bool, each transient's real points first (as :func:`pack_population`
+    packs them, padded with copies of the last), and ``n_real`` (S,) int32
+    their number, which the kernels read. :meth:`plain` is the plain version
+    of P1."""
 
     def __init__(self, packed, model, priors, use_sigma=False, sigma_type="relative"):
         self.priors = list(priors)
@@ -199,6 +202,11 @@ class PopulationPosterior:
         self.t_centered = t_shift.to(cdt).contiguous()
         # one byte a point, as P1-P3 read it
         self.mask = packed["mask"].to(torch.bool).contiguous()
+        self.n_real = self.mask.sum(dim=1).to(torch.int32).contiguous()
+        first = torch.arange(self.mask.shape[1], device=dev) < self.n_real[:, None]
+        if not torch.equal(self.mask, first):
+            raise ValueError("each transient's real points must come first in the pack "
+                             "(pack_population's layout)")
         self.y = buf(yn)
         self.dy = buf(dyn)
         self.inv_dy = torch.where(self.mask, 1.0 / self.dy, torch.zeros_like(self.dy))
@@ -301,7 +309,17 @@ def _map_seeded_guesses(pp, priors, p_lo, p_up, S, nwalkers, ndim, n_starts, n_i
     point, folded inside the prior support. Transients where every start
     ends non-finite fall back to window-uniform starts, with a warning.
     ``rng`` draws in the JAX function's order: the starts, the band jitter,
-    the fallback."""
+    the fallback.
+
+    In float32 compute with the intrinsic scatter the seeding does not
+    follow the JAX package's: there its float32 ascent stops far short of
+    the MAP (each transient's best seeded walker's float64 log p a median
+    2.27 and at worst 38.4 of the term scale below the float64 MAP's, on
+    ``chip_smoke.pop_example``'s population), while the port's ascents land
+    near it (the plain float32 one within 0.5 of the term scale, pinned by
+    tests/test_torch_population.py; P3 within 2e-5 on the card), so a
+    float32 fit with the scatter starts from other walkers than the JAX
+    package's."""
     bounds = BoundsTransform([getattr(p, "p_min", -np.inf) for p in priors],
                              [getattr(p, "p_max", np.inf) for p in priors])
     x0 = rng.uniform(size=(S, n_starts, ndim)) * (p_up - p_lo) + p_lo

@@ -205,6 +205,16 @@ def _c_fields(struct):
     raise AssertionError(f"struct {struct} not found")
 
 
+def _c_define(name):
+    """The integer that ``#define name`` gives in the CUDA sources."""
+    for path in sum(build._sources(), []):
+        with open(path) as f:
+            for ln in f:
+                if ln.startswith(f"#define {name} "):
+                    return int(ln.split()[2])
+    raise AssertionError(f"#define {name} not found")
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -3599,6 +3609,66 @@ def test_pop_wrappers_route_by_device():
         kpop._params(pp, 4, None, None)
 
 
+def test_pop_form_rules():
+    """P2's latency form while its walkers' warps (ceil(N / 32) a walker) fit
+    HALF_LATENCY_WARPS_PER_SM an SM and a transient has at most 128 points,
+    P3's pair form while its starts' two warps fit MAP_PAIR_WARPS_PER_SM an
+    SM and a transient has at most 64 points; the example (42 points, 132
+    SMs) at S = 64 takes P2's warp form and P3's pair form, at S = 512 both
+    warp forms, and a survey of 16 transients P2's latency form."""
+    sm = 132
+    assert kpop.half_form(64, 32, 42, sm) == "warp" and kpop.half_form(512, 32, 42, sm) == "warp"
+    assert kpop.half_form(16, 32, 42, sm) == "latency"
+    w = kpop.HALF_LATENCY_WARPS_PER_SM * sm // (2 * 32)   # transients of 32 walkers, 2 warps each
+    assert kpop.half_form(w, 32, 42, sm) == "latency"
+    assert kpop.half_form(w + 1, 32, 42, sm) == "warp"
+    assert kpop.half_form(w, 32, 33, sm) == "latency" and kpop.half_form(w, 32, 65, sm) == "warp"
+    assert kpop.half_form(1, 32, 128, sm) == "latency" and kpop.half_form(1, 32, 129, sm) == "warp"
+    assert kpop.map_form(64, 16, 42, sm) == "pair" and kpop.map_form(512, 16, 42, sm) == "warp"
+    m = kpop.MAP_PAIR_WARPS_PER_SM * sm // (2 * 16)
+    assert kpop.map_form(m, 16, 42, sm) == "pair" and kpop.map_form(m + 1, 16, 42, sm) == "warp"
+    assert kpop.map_form(1, 16, 64, sm) == "pair" and kpop.map_form(1, 16, 65, sm) == "warp"
+
+
+def test_pop_form_limits_are_the_launches():
+    """The form rules' point limits in kernels/pop.py are the kernels' own:
+    P2's latency form takes a transient's points one a thread over at most
+    LP_LAT_ENS_WARPS warps (csrc/stretch.cuh), P3's pair form at most
+    POP_MAP_PAIR_MAX_POINTS (csrc/population.cu); their launches refuse
+    more."""
+    assert kpop.HALF_LATENCY_MAX_POINTS == 32 * _c_define("LP_LAT_ENS_WARPS")
+    assert kpop.MAP_PAIR_MAX_POINTS == _c_define("POP_MAP_PAIR_MAX_POINTS")
+
+
+def test_pop_wrappers_take_a_form_on_the_cpu():
+    """On the CPU P2 and P3 run their plain versions in any named form (the
+    same values) and count no launch; an unknown form is refused."""
+    chip_smoke, pp, priors, lo, up = _pop_posterior(3, torch.device("cpu"))
+    q, off, scale = chip_smoke.pop_state(pp, lo, up, 8, 0, torch.device("cpu"))
+    x0 = q.reshape(3, 2, 4, -1).contiguous()
+    logp = kpop.log_posterior(pp, q, off, scale).reshape(3, 2, 4)
+    g = torch.Generator().manual_seed(1)
+    u_z, u_acc = torch.rand((3, 2, 4), generator=g), torch.rand((3, 2, 4), generator=g)
+    j = torch.randint(0, 4, (3, 2, 4), generator=g)
+    before = dict(kernels.LAUNCHES)
+    out = []
+    for form in (None, "warp", "latency"):
+        x, lg = x0.clone(), logp.clone()
+        kpop.stretch_half_step(pp, x, lg, 0, u_z, j, u_acc, 2.0, off, scale, form=form)
+        out.append((x, lg))
+    assert all(torch.equal(a[0], out[0][0]) and torch.equal(a[1], out[0][1]) for a in out)
+    bounds = BoundsTransform([p.p_min for p in priors], [p.p_max for p in priors])
+    u0 = torch.as_tensor(bounds.to_unbounded(np.random.default_rng(2).uniform(
+        lo, up, size=(3, 2, 3))))
+    m = [kpop.map_ascent(pp, u0, bounds, 3, form=f) for f in ("warp", "pair")]
+    assert torch.equal(m[0][0], m[1][0]) and torch.equal(m[0][1], m[1][1])
+    assert kernels.LAUNCHES == before
+    with pytest.raises(ValueError, match="form"):
+        kpop.stretch_half_step(pp, x0.clone(), logp.clone(), 0, u_z, j, u_acc, form="pair")
+    with pytest.raises(ValueError, match="form"):
+        kpop.map_ascent(pp, u0, bounds, 3, form="latency")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["ndim3", "mjd", "sigma"])
 @pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
@@ -3644,3 +3714,69 @@ def test_pop_kernels_match_plain_on_card(cuda_device, case, f64):
                 chip_smoke.POP_MAP_F64[case == "sigma"])
     finally:
         config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [8, 64, 512])
+@pytest.mark.parametrize("case", ["ndim3", "mjd", "sigma", "mjd_sigma"])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_pop_forms_bit_equal_on_card(cuda_device, S, case, f64):
+    """P2's warp and latency forms store the same bits (two half-steps:
+    states, log-posteriors, accept counts, chain slot), and P3's warp and
+    pair forms give the same last iterates and -log p, at S = 8 (28c's
+    survey subset, where the rule picks the latency form), 64 and 512, ndim
+    3, 4 (t_exp fitted, or the intrinsic scatter) and 5, float32 and
+    float64 compute (``chip_smoke.pop_check_forms``, as 27 runs it); each
+    launch counted under its form."""
+    try:
+        if f64:
+            config.set_compute_dtype(torch.float64)
+        chip_smoke, pp, priors, lo, up = _pop_posterior(S, cuda_device, "mjd" in case,
+                                                        "sigma" in case)
+        q, off, scale = chip_smoke.pop_state(pp, lo, up, 64, 5, cuda_device)
+        x0 = q.reshape(S, 2, 32, -1).contiguous()
+        bounds = BoundsTransform([p.p_min for p in priors], [p.p_max for p in priors])
+        x_st = np.random.default_rng(6).uniform(lo, up, size=(S, 16, len(lo)))
+        u0 = torch.as_tensor(bounds.to_unbounded(x_st), device=cuda_device).contiguous()
+        n0 = dict(kernels.LAUNCHES)
+        acc, _ = chip_smoke.pop_check_forms("forms", pp, off, scale, x0, u0, bounds, 7)
+        assert acc > 0
+        for k, n in (("pop_half_step_warp", 2), ("pop_half_step_latency", 2),
+                     ("pop_map_warp", 1), ("pop_map_pair", 1)):
+            assert kernels.LAUNCHES[k] == n0[k] + n
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma", [False, True], ids=["plain", "sigma"])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_pop_skipping_the_padded_points_keeps_neg_inf_on_card(cuda_device, sigma, f64):
+    """A population whose transients' last real point (and so its padded
+    copies, pack_population's layout) has a model value of +inf: P1's -inf
+    set is its plain version's, every walker of those transients -inf, and
+    P2's two forms store the same bits with those log-posteriors still -inf
+    (``chip_smoke.pop_check_poisoned``)."""
+    try:
+        if f64:
+            config.set_compute_dtype(torch.float64)
+        chip_smoke, pp, priors, lo, up = _pop_posterior(32, cuda_device, False, sigma)
+        q, off, scale = chip_smoke.pop_state(pp, lo, up, 64, 8, cuda_device)
+        assert chip_smoke.pop_check_poisoned("poisoned", pp, off, scale, q, 9) >= 7 * 64
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+def test_pop_kernels_do_not_spill_on_card(cuda_device):
+    """ptxas: P3 (ndim 3-5, float32 and float64, both forms) and P2's latency
+    form (ndim 3-5, the four dtype pairs) spill in no instantiation."""
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                    "tools"))
+    from time_port_kernels import ptxas_report
+    build.library()
+    report = ptxas_report(build.build_info()["log"])
+    for key in ("pop_map_kernel", "stretch_half_step_latency_kernelI15PopSC2WarpModel"):
+        ks = [v for k, v in report.items() if key in k]
+        assert len(ks) == 12 and not any(v[2] or v[3] for v in ks), (key, ks)

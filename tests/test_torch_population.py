@@ -390,6 +390,67 @@ def test_map_ascent_plain_is_the_adam_of_cosineadam():
     assert bool((neg < start).all())
 
 
+def _chip_smoke():
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.mark.parametrize("label", ["f32", "f64"])
+def test_population_posterior_counts_the_real_points(label):
+    """``n_real`` (what P1-P3 read) is each transient's count of real points,
+    which pack_population puts first; a mask whose real points do not come
+    first is refused."""
+    _set_dtype(label)
+    jl, tl = _heterogeneous()
+    _, tm = _models(jl, tl)
+    _, tpri = _priors(3)
+    packed = tpop.pack_population(tm, tl, device="cpu")
+    pp = tpop.PopulationPosterior(packed, tm[0], tpri)
+    assert pp.n_real.dtype == torch.int32 and pp.n_real.is_contiguous()
+    assert pp.n_real.tolist() == [len(lc) for lc in tl]
+    bad = dict(packed, mask=packed["mask"].flip(1))
+    with pytest.raises(ValueError, match="first"):
+        tpop.PopulationPosterior(bad, tm[0], tpri)
+
+
+def test_float32_plain_ascent_with_the_scatter_reaches_the_map():
+    """The port's float32 MAP seeding with the intrinsic scatter: on
+    ``chip_smoke.pop_example``'s population with ``pop_priors(sigma=True)``
+    and 16 starts a transient from default_rng(27) (``chip_smoke.py`` 27's),
+    the float32 plain ascent (``kpop.map_ascent_plain``, P3's plain version)
+    lands, at each transient's best start, within
+    ``POP_MAP_F64[True]["plain"]`` (0.5) of the term scale of the float64
+    plain ascent's MAP, in float64 -log p. The JAX package's float32 ascent
+    does not follow: on the same population at S = 64 (its
+    ``fit_population(init="map")`` under float32 compute on the CPU, these
+    starts substituted for its draw) each transient's best seeded walker
+    lay a median 2.27 and at worst 38.4 of the term scale below the float64
+    MAP, its float64 run within 1.6e-4 (the seeding's jitter band)."""
+    cs = _chip_smoke()
+    S = 8
+    lcs, models, _ = cs.pop_example(S, "cpu")
+    priors, lo, up = cs.pop_priors(sigma=True)
+    bounds = tpop.BoundsTransform([p.p_min for p in priors], [p.p_max for p in priors])
+    x0 = np.random.default_rng(27).uniform(lo, up, size=(S, cs.POP_STARTS, len(lo)))
+    u0 = torch.as_tensor(bounds.to_unbounded(x0))
+    best = {}
+    for label in ("f32", "f64"):
+        _set_dtype(label)
+        pp = tpop.PopulationPosterior(tpop.pack_population(models, lcs, True, "cpu"), models[0],
+                                      priors, True)
+        u, neg = kpop.map_ascent_plain(pp, u0, bounds, cs.POP_ITER)
+        k = torch.argmin(torch.where(torch.isfinite(neg), neg, torch.full_like(neg, np.inf)), 1)
+        best[label] = bounds.to_bounded(u[torch.arange(S), k])
+    pp64 = pp
+    ref = pp64.plain(best["f64"][:, None])[:, 0]
+    gap = (ref - pp64.plain(best["f32"][:, None])[:, 0]) / pp64.term_scales(best["f64"][:, None])[:, 0]
+    assert bool(torch.isfinite(ref).all())
+    assert float(gap.abs().max()) <= cs.POP_MAP_F64[True]["plain"], gap
+
+
 @pytest.fixture(scope="module")
 def fits():
     """tests/test_population.py's map-seeded run (S = 8, 16 walkers, 60 +

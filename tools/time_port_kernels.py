@@ -6,7 +6,14 @@ and of the fits, float32 compute, by CUDA events:
   alone): P1, P2 (one half-step writing the chain slot) and P3 (the whole
   16-start, 400-step ascent) on examples/fit_population.py's population at
   S = 64 and 512 (``--pop-sizes``), 64 walkers, float32 compute
-  (``P1_S*``, ``P2_S*``, ``P3_S*``, each ``_dev`` too), each hashed;
+  (``P1_S*``, ``P2_S*``, ``P3_S*``, each ``_dev`` too), each hashed; where
+  the checkout has P2's and P3's two forms, each form too, in the order A,
+  B, B, A (``P2_S*_{warp,latency}{1,2}``, ``P3_S*_{warp,pair}{1,2}``, each
+  hashed: equal digests, equal bits); with ``--fits`` the walls of
+  ``chip_smoke.py`` 28a-b (``fit_population`` at the example's defaults,
+  S = 64 and 512, twice each, ``pop_28*``) and a profiled run's device busy
+  time and idle share, and 28c's fit (8 transients with chains) with P2
+  in the rule's form and in the warp form, A B B A (``pop_28c_*``);
 * K1 at 131072 walkers; K2 per half-step of half 32, 16384 and 65536 (the
   64- and 131072-walker fits); K6a per ladder half-step of 7 rungs x 32 and
   17 x 4096 (ShockCooling2: the PT fit and the evidence) and of 17 x 512
@@ -294,9 +301,13 @@ def main():
                     help="K6a over SC and SC4 in each form at these ladders, rungs x walkers "
                          "a rung, comma-separated (as 25x64,16x2048,17x4096,32x4096)")
     ap.add_argument("--pop-only", action="store_true",
-                    help="time the population kernels P1-P3 alone")
+                    help="time the population kernels P1-P3 alone (with --fits, and the "
+                         "population walls 28a-c)")
     ap.add_argument("--pop-sizes", default="64,512",
                     help="the populations' sizes S for P1-P3, comma-separated")
+    ap.add_argument("--pop-epochs", default="4,8",
+                    help="a transient's epochs, lo,hi (6 points each; the example's 4,8: 24-42 "
+                         "points); other than the default the rows are named P*_S{S}_E{lo}-{hi}")
     ap.add_argument("--fits", action="store_true",
                     help="also time lightcurve_map, lightcurve_hmc (HMC; NUTS in f32, f64), "
                          "the SC3 32768 x 300 fit, the SC2 fits of chip_smoke.py phases 5 and "
@@ -387,7 +398,7 @@ def main():
         return pri_, ll_
 
     if hasattr(chip_smoke, "pop_example"):
-        time_pop(args, dev, chip_smoke, times, digests)
+        time_pop(args, dev, chip_smoke, times, digests, walls)
     if args.pop_only:
         return report(args, repo, build, times, digests, info, walls, ptxas)
     if hasattr(chip_smoke, "SC_NAMES"):
@@ -1261,7 +1272,7 @@ def report(args, repo, build, times, digests, info, walls, ptxas):
           flush=True)
 
 
-def time_pop(args, dev, chip_smoke, times, digests):
+def time_pop(args, dev, chip_smoke, times, digests, walls):
     """P1, P2 and P3 on examples/fit_population.py's population at each S of
     ``--pop-sizes`` (float32 compute, the rescaled float32 state of 64
     walkers a transient; P3 16 starts x 400 steps): ``P1_S{S}`` on every
@@ -1273,14 +1284,19 @@ def time_pop(args, dev, chip_smoke, times, digests):
     from lightcurve_fitting_tpu_torch.parallel.hmc import BoundsTransform
     from lightcurve_fitting_tpu_torch.parallel.population import (PopulationPosterior,
                                                                   pack_population)
+    epochs = tuple(int(v) for v in args.pop_epochs.split(","))
     for S in [int(v) for v in args.pop_sizes.split(",")]:
-        lcs, models, _ = chip_smoke.pop_example(S, dev)
+        if epochs == (4, 8):
+            lcs, models, _ = chip_smoke.pop_example(S, dev)
+        else:
+            lcs, models, _ = chip_smoke.pop_example(S, dev, epochs=epochs)
+        tag = f"S{S}" if epochs == (4, 8) else f"S{S}_E{epochs[0]}-{epochs[1]}"
         priors, lo, up = chip_smoke.pop_priors()
         pp = PopulationPosterior(pack_population(models, lcs, False, dev), models[0], priors)
         q, off, sc = chip_smoke.pop_state(pp, lo, up, 64, 0, dev)
         x = q.reshape(S, 2, 32, 3).contiguous()
         logp = kpop.log_posterior(pp, q, off, sc).reshape(S, 2, 32)
-        digests[f"P1_S{S}"] = digest(logp)
+        digests[f"P1_{tag}"] = digest(logp)
         g = torch.Generator(device=dev)
         g.manual_seed(S)
         shape = (S, 2, 32)
@@ -1291,22 +1307,122 @@ def time_pop(args, dev, chip_smoke, times, digests):
         cx, cl = torch.empty_like(x), torch.empty(shape, dtype=torch.float64, device=dev)
         xd, ld = x.clone(), logp.clone()
         kpop.stretch_half_step(pp, xd, ld, 0, u_z, j, u_acc, 2.0, off, sc, cx, cl, acc)
-        digests[f"P2_S{S}"] = digest(xd, ld, acc)
+        digests[f"P2_{tag}"] = digest(xd, ld, acc)
+        x_0, l_0 = x.clone(), logp.clone()   # the start of each form's hashed step
         bounds = BoundsTransform([p.p_min for p in priors], [p.p_max for p in priors])
         x_st = np.random.default_rng(S).uniform(lo, up, size=(S, 16, 3))
         u0 = torch.as_tensor(bounds.to_unbounded(x_st), device=dev).contiguous()
-        digests[f"P3_S{S}"] = digest(*kpop.map_ascent(pp, u0, bounds, 400))
+        digests[f"P3_{tag}"] = digest(*kpop.map_ascent(pp, u0, bounds, 400))
 
-        def p2():
+        def p2(**fkw):
             kpop.stretch_half_step(pp, x, logp, 0, u_z, j, u_acc, 2.0, off, sc, cx, cl, acc,
-                                   check_partners=False)
+                                   check_partners=False, **fkw)
         for name, fn, match, launches in (
-                (f"P1_S{S}", lambda: kpop.log_posterior(pp, q, off, sc), "logpost_warp_kernel",
+                (f"P1_{tag}", lambda: kpop.log_posterior(pp, q, off, sc), "logpost_warp_kernel",
                  20),
-                (f"P2_S{S}", p2, "stretch_half_step_kernel", 20),
-                (f"P3_S{S}", lambda: kpop.map_ascent(pp, u0, bounds, 400), "pop_map_kernel", 1)):
+                (f"P2_{tag}", p2, "stretch_half_step", 20),
+                (f"P3_{tag}", lambda: kpop.map_ascent(pp, u0, bounds, 400), "pop_map_kernel", 1)):
             times[name] = events_ms(fn, launches, args.repeats)
             times[name + "_dev"] = device_ms(fn, match, launches, args.repeats)
+        if "form" not in kpop.stretch_half_step.__code__.co_varnames:
+            continue
+        for key, forms, step in (("P2", ("warp", "latency"), lambda f: p2(form=f)),
+                                 ("P3", ("warp", "pair")[:1 + (pp.bb_coeffs.shape[1]
+                                                                <= kpop.MAP_PAIR_MAX_POINTS)],
+                                  lambda f: kpop.map_ascent(pp, u0, bounds, 400, form=f))):
+            for k, form in enumerate(forms + forms[::-1]):
+                name = f"{key}_{tag}_{form}{1 + (k >= len(forms))}"
+                if key == "P2":
+                    xd, ld = x_0.clone(), l_0.clone()
+                    ad = torch.zeros(shape, dtype=torch.int32, device=dev)
+                    kpop.stretch_half_step(pp, xd, ld, 0, u_z, j, u_acc, 2.0, off, sc, cx, cl, ad,
+                                           form=form)
+                    digests[name] = digest(xd, ld, ad)
+                else:
+                    digests[name] = digest(*step(form))
+                n = 20 if key == "P2" else 1
+                times[name] = events_ms(lambda: step(form), n, args.repeats)
+                times[name + "_dev"] = device_ms(lambda: step(form),
+                                                 "stretch_half_step" if key == "P2"
+                                                 else "pop_map_kernel", n, args.repeats)
+    if args.fits:
+        time_pop_fits(args, dev, chip_smoke, walls)
+
+
+def time_pop_fits(args, dev, chip_smoke, walls):
+    """The walls of ``chip_smoke.py`` 28a-b: ``fit_population`` at
+    examples/fit_population.py's defaults (64 walkers, 100 + 500 steps,
+    init="map" with 16 starts x 400 steps, seed 1, summaries, no chains) on
+    S = 64 and 512 transients, twice each (``pop_28{a,b}_{rep}``, s), and a
+    profiled run's device busy time, idle share and the population kernels'
+    device time (``fit_busy``; ``pop_28*_profiled``); then 28c's
+    (:func:`time_pop_28c`)."""
+    import torch
+    from lightcurve_fitting_tpu_torch.parallel import fit_population
+    for S, tag in ((64, "28a"), (512, "28b")):
+        lcs, models, _ = chip_smoke.pop_example(S, dev)
+        priors = chip_smoke.pop_priors()[0]
+
+        def fit():
+            return fit_population(models, lcs, priors, p_lo=chip_smoke.POP_LO,
+                                  p_up=chip_smoke.POP_UP, nwalkers=chip_smoke.POP_WALKERS,
+                                  nsteps=chip_smoke.POP_STEPS,
+                                  nsteps_burnin=chip_smoke.POP_BURNIN, seed=1, init="map",
+                                  summaries=True, return_chains=False)
+        for rep in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, acc, _ = fit()
+            torch.cuda.synchronize()
+            walls[f"pop_{tag}_{rep}"] = time.perf_counter() - t0
+        walls[f"pop_{tag}_acceptance"] = float(np.mean(acc))
+        # (P3 is among the four kernels of most device time)
+        wall_p, busy, top = fit_busy(fit, match="PopSC2WarpModel")
+        walls[f"pop_{tag}_profiled"] = {"wall": wall_p, "busy": busy,
+                                        "idle_share": 1 - busy / wall_p, "top_kernels_ms": top}
+    time_pop_28c(dev, chip_smoke, walls)
+
+
+def time_pop_28c(dev, chip_smoke, walls):
+    """The fit of ``chip_smoke.py`` 28c (``fit_population`` on the example's
+    first POP_DIAG transients with chains, init="map", seed 1) with P2 in
+    the form ``kernels/pop.py::half_form`` picks (``rule``) and in the warp
+    form (``warp``; a checkout without the rule times its one form as
+    ``rule``), in the order rule, warp, warp, rule: per slot two walls
+    (``pop_28c_{form}{1,2}_{rep}``, s) and a profiled run's busy time,
+    idle share and population kernels' device time
+    (``pop_28c_{form}{1,2}_profiled``); the mean acceptance per form."""
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels import pop as kpop
+    from lightcurve_fitting_tpu_torch.parallel import fit_population
+    lcs, models, _ = chip_smoke.pop_example(chip_smoke.POP_DIAG, dev)
+    priors = chip_smoke.pop_priors()[0]
+    rule = getattr(kpop, "half_form", None)
+    forms = ("rule", "warp") if rule else ("rule",)
+
+    def fit():
+        return fit_population(models, lcs, priors, p_lo=chip_smoke.POP_LO,
+                              p_up=chip_smoke.POP_UP, nwalkers=chip_smoke.POP_WALKERS,
+                              nsteps=chip_smoke.POP_STEPS, nsteps_burnin=chip_smoke.POP_BURNIN,
+                              seed=1, init="map")
+    for k, form in enumerate(forms + forms[::-1]):
+        slot = f"pop_28c_{form}{1 + (k >= len(forms))}"
+        if form == "warp":
+            kpop.half_form = lambda *a: "warp"
+        try:
+            for rep in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, acc = fit()
+                torch.cuda.synchronize()
+                walls[f"{slot}_{rep}"] = time.perf_counter() - t0
+            walls[f"pop_28c_{form}_acceptance"] = float(np.mean(acc))
+            wall_p, busy, top = fit_busy(fit, match="PopSC2WarpModel")
+        finally:
+            if rule:
+                kpop.half_form = rule
+        walls[f"{slot}_profiled"] = {"wall": wall_p, "busy": busy,
+                                     "idle_share": 1 - busy / wall_p, "top_kernels_ms": top}
 
 
 def fit_busy(fn, primes=256, match=None):
