@@ -6166,12 +6166,21 @@ POP_WALKERS, POP_BURNIN, POP_STEPS = 64, 100, 500
 POP_STARTS, POP_ITER = 16, 400
 POP_DIAG = 8                # the example's subset refit with chains for the diagnostics
 POP_KERNELS = ("pop_logpost", "pop_half_step", "pop_map")
-POP_FORMS = {"pop_half_step": ("warp", "latency"), "pop_map": ("warp", "pair")}
+POP_FORMS = {"pop_logpost": ("warp", "latency"), "pop_half_step": ("warp", "latency"),
+             "pop_map": ("warp", "pair")}
 POP_SPLIT = {"P3 (MAP ascent)": ("pop_map_kernel",),   # time_split's lowercased names
              "P2 (half-steps)": ("stretch_half_step_kernel<popsc2warpmodel",
                                  "stretch_half_step_latency_kernel<popsc2warpmodel"),
-             "P1 (initial state)": ("logpost_warp_kernel<popsc2warpmodel",),
+             "P1 (initial state)": ("logpost_warp_kernel<popsc2warpmodel",
+                                    "logpost_latency_kernel<popsc2warpmodel"),
              "K5 (summaries)": ("percentile",)}
+# the exact-refit CV's widths for P1's two forms in 27, (S, padded points),
+# 64 walkers: SN 2016bkv's leave-one-band-out refit of VALIDATION.md's five
+# flagged bands (5 transients, 121-143 points) and a leave-one-point-out
+# refit (148 points), as pop_example's curves of 25-26 epochs cut to so many
+# points
+POP_REFIT_SHAPES = ((5, 143), (1, 148))
+POP_REFIT_EPOCHS = (25, 27)
 # the JAX package's fit of the example at its defaults (seed 1), float64 on
 # the CPU: (mean acceptance, its standard error over the transients, the
 # transients whose T_1 median lies within 20% of the truth and L_1 within
@@ -6188,14 +6197,15 @@ POP_MAP_REL = {"f64": 1e-9, "f32": 1e-5}   # P3 against the plain ascent (pop_ch
 POP_MAP_F64 = {False: {"kernel": 2e-5, "plain": 2e-5}, True: {"kernel": 2e-5, "plain": 0.5}}
 
 
-def pop_example(S, dev, mjd=False, epochs=(4, 8)):
+def pop_example(S, dev, mjd=False, epochs=(4, 8), n_points=None):
     """examples/fit_population.py's synthetic population of S transients
     (default_rng(0): 6 filters, 4-7 epochs each, so 24-42 points), through
     the port: (lcs, models, truths). ``mjd``: the times at MJD scale (t_exp
     = 58000, fitted as a fourth parameter, the t_exp prior's window), as
     tests/test_population.py's float32 phase test. ``epochs``: the range of
     a transient's epochs, [lo, hi) (longer curves for the P2 form rule's
-    crossover in points)."""
+    crossover in points). ``n_points``: each curve cut to its first so many
+    points (the exact-refit CV's widths, POP_REFIT_SHAPES)."""
     import numpy as np
     from lightcurve_fitting_tpu_torch.filters import filtdict
     from lightcurve_fitting_tpu_torch.lightcurve import LC
@@ -6213,6 +6223,8 @@ def pop_example(S, dev, mjd=False, epochs=(4, 8)):
         y_true = ShockCooling2()(t, f, T1, L1, ttr, t0)
         dy = 0.05 * y_true
         lc = LC([t, f, y_true + rng.normal(scale=dy), dy], names=["MJD", "filter", "lum", "dlum"])
+        if n_points is not None:
+            lc = lc[:n_points]
         lcs.append(lc)
         models.append(ShockCooling2(lc, device=dev))
     return lcs, models, np.array(truths)
@@ -6352,17 +6364,30 @@ def pop_p1_repeats_p2(pp, off, sc, x0, seed):
     return int((again != logp).sum()), int(acc.sum())
 
 
+def pop_check_p1_forms(name, pp, off, sc, q):
+    """P1's warp and latency forms bit for bit at the states q (S, W,
+    ndim). Returns the values (S, W)."""
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels import pop as kpop
+    got = [kpop.log_posterior(pp, q, off, sc, form=f) for f in POP_FORMS["pop_logpost"]]
+    if not torch.equal(*got):
+        raise AssertionError(f"{name}: P1's warp and latency forms differ at "
+                             f"{int((got[0] != got[1]).sum())} walkers")
+    return got[0]
+
+
 def pop_check_forms(name, pp, off, sc, x0, u0, bounds, seed):
-    """P2's two forms bit for bit: two half-steps (h = 0, 1) from x0 (S, 2,
-    half, ndim) under shared draws, writing the chain slot, in each form;
-    their states, log-posteriors, accept counts and chain slots equal. With
-    ``u0`` (S, n_starts, ndim), P3's two forms too: the last iterates and
-    -log p equal. Returns (accepts, -inf log-posteriors after the steps)."""
+    """P1's two forms bit for bit at x0 (S, 2, half, ndim), then P2's: two
+    half-steps (h = 0, 1) from x0 under shared draws, writing the chain
+    slot, in each form; their states, log-posteriors, accept counts and
+    chain slots equal. With ``u0`` (S, n_starts, ndim), P3's two forms too:
+    the last iterates and -log p equal. Returns (accepts, -inf
+    log-posteriors after the steps)."""
     import torch
     from lightcurve_fitting_tpu_torch.kernels import pop as kpop
     dev = x0.device
     S, _, half, ndim = x0.shape
-    l0 = kpop.log_posterior(pp, x0.reshape(S, 2 * half, ndim), off, sc).reshape(S, 2, half)
+    l0 = pop_check_p1_forms(name, pp, off, sc, x0.reshape(S, 2 * half, ndim)).reshape(S, 2, half)
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     shape = (S, 2, half)
@@ -6410,18 +6435,20 @@ def pop_poisoned(pp, every=5):
 
 def pop_check_poisoned(name, pp, off, sc, q, seed):
     """On :func:`pop_poisoned`'s copy: P1 -inf at every walker of the
-    poisoned transients and its plain version's -inf set the same; P2's two
-    forms bit for bit (:func:`pop_check_forms`), the poisoned transients'
-    log-posteriors still -inf. Returns the -inf values P2 kept."""
+    poisoned transients and its plain version's -inf set the same, in each
+    form; P1's and P2's two forms bit for bit (:func:`pop_check_forms`),
+    the poisoned transients' log-posteriors still -inf. Returns the -inf
+    values P2 kept."""
     import torch
     from lightcurve_fitting_tpu_torch.kernels import pop as kpop
     bad, rows = pop_poisoned(pp)
-    got = kpop.log_posterior(bad, q, off, sc)
     want = kpop.log_posterior_plain(bad, q, off, sc)
-    if not torch.equal(torch.isneginf(got), torch.isneginf(want)) or not bool(
-            torch.isneginf(got[rows.to(got.device)]).all()):
-        raise AssertionError(f"{name}: P1's -inf set differs from the plain version's, or a "
-                             "poisoned transient is finite")
+    for form in POP_FORMS["pop_logpost"]:
+        got = kpop.log_posterior(bad, q, off, sc, form=form)
+        if not torch.equal(torch.isneginf(got), torch.isneginf(want)) or not bool(
+                torch.isneginf(got[rows.to(got.device)]).all()):
+            raise AssertionError(f"{name}: P1's -inf set ({form} form) differs from the plain "
+                                 "version's, or a poisoned transient is finite")
     S = q.shape[0]
     x0 = q.reshape(S, 2, q.shape[1] // 2, -1).contiguous()
     _, n_inf = pop_check_forms(name, bad, off, sc, x0, None, None, seed)
@@ -6608,13 +6635,16 @@ def phase_pop_kernels(seed=27):
         finally:
             config.set_compute_dtype(config.AUTO)
     lines.append(pop_forms_checks(pops, seed))
+    refit_line, refit_times = pop_refit_shape_checks(seed + 6, device_ms)
+    lines.append(refit_line)
     launched = {k: kernels.LAUNCHES[k] - n0[k] for k in POP_KERNELS}
     from lightcurve_fitting_tpu_torch.kernels import build
     from time_port_kernels import ptxas_report
     report = {k: v for k, v in ptxas_report(build.build_info()["log"]).items()
               if "PopSC2WarpModel" in k or "pop_map_kernel" in k}
     regs = {what: sorted({tuple(v) for k, v in report.items() if key in k})
-            for what, key in (("P1", "logpost_warp_kernel"),
+            for what, key in (("P1 warp form", "logpost_warp_kernel"),
+                              ("P1 latency form", "logpost_latency_kernel"),
                               ("P2 warp form", "stretch_half_step_kernel"),
                               ("P2 latency form", "stretch_half_step_latency_kernel"),
                               ("P3", "pop_map_kernel"))}
@@ -6623,8 +6653,9 @@ def phase_pop_kernels(seed=27):
         ks = {k: v for k, v in report.items() if key in k}
         if len(ks) != n or any(v[2] or v[3] for v in ks.values()):
             raise AssertionError(f"{what} ({n} instantiations) must not spill: {ks}")
-    names = [expect_kernel(lambda: kpop.log_posterior(pp, q, off, sc), "logpost_warp_kernel",
-                           "PopSC2WarpModel", calls=2)]
+    names = [expect_kernel(lambda: kpop.log_posterior(pp, q, off, sc, form=f),
+                           f"logpost_{f}_kernel", "PopSC2WarpModel", calls=2)
+             for f in POP_FORMS["pop_logpost"]]
     phase("population kernels", "; ".join(lines) + f"; {launched} comparison launches; "
           + "; ".join(f"S = {S}: " + ", ".join(
               f"{k} {v['ms']:.4f} ms (device {v['dev']:.4f}; plain {v['plain_ms']:.4f}; bound "
@@ -6639,7 +6670,8 @@ def phase_pop_kernels(seed=27):
                 "at": {S: (t[k]["ms"], t[k]["dev"], t[k]["plain_ms"], t[k]["bound_ms"])
                        for S, t in times.items()},
                 **({"forms": {S: t[k]["forms"] for S, t in times.items()}}
-                   if "forms" in times[POP_SIZES[0]][k] else {})} for k in errs}
+                   if "forms" in times[POP_SIZES[0]][k] else {}),
+                **({"refit": refit_times} if k == "P1" else {})} for k in errs}
 
 
 def pop_forms_checks(pops, seed):
@@ -6683,9 +6715,107 @@ def pop_forms_checks(pops, seed):
                     parts.append(msg)
         finally:
             config.set_compute_dtype(config.AUTO)
-    return ("P2's warp and latency forms bit for bit (two half-steps: states, log-posteriors, "
-            "accept counts, chain slot) and P3's warp and pair forms bit for bit (last iterates, "
-            "-log p) at " + "; ".join(parts))
+    return ("P1's warp and latency forms bit for bit, P2's warp and latency forms bit for bit "
+            "(two half-steps: states, log-posteriors, accept counts, chain slot) and P3's warp "
+            "and pair forms bit for bit (last iterates, -log p) at " + "; ".join(parts))
+
+
+def pop_refit_shape_checks(seed, device_ms):
+    """27 at the exact-refit CV's widths (POP_REFIT_SHAPES, 64 walkers): P1's
+    two forms bit for bit (:func:`pop_check_p1_forms`) and within 1e-5
+    (float32) or 1e-12 (float64) of the term scale of the plain version, on
+    the rescaled states, 1% outside the priors; ndim 3 (T_1, L_1, t_tr), 4
+    (t_exp fitted, as the flagship's refits, or the intrinsic scatter) and
+    5, float32 and float64 compute; each form's -inf set the plain
+    version's on :func:`pop_poisoned`'s copy; in float32 at ndim 4 (t_exp)
+    the device time of P1 in each form, of its plain version (events) and
+    of P2's warp form (one half-step with the chain slot: P2's latency form
+    takes at most 128 points). Returns (the line, {(S, N): {"warp": ms,
+    "latency": ms, "plain": ms, "p2_warp": ms, "bound_ms": ms}})."""
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.kernels import common
+    from lightcurve_fitting_tpu_torch.kernels import pop as kpop
+    from lightcurve_fitting_tpu_torch.parallel.population import (PopulationPosterior,
+                                                                  pack_population)
+    dev = torch.device("cuda")
+    parts, times = [], {}
+    for S, n in POP_REFIT_SHAPES:
+        pops = {mjd: pop_example(S, dev, mjd, POP_REFIT_EPOCHS, n) for mjd in (False, True)}
+        for label in ("f32", "f64"):
+            try:
+                if label == "f64":
+                    config.set_compute_dtype(torch.float64)
+                rel = 1e-5 if label == "f32" else 1e-12
+                worst = 0.0
+                for mjd, sigma in ((False, False), (True, False), (False, True), (True, True)):
+                    lcs, models, _ = pops[mjd]
+                    priors, lo, up = pop_priors(mjd, sigma)
+                    pp = PopulationPosterior(pack_population(models, lcs, sigma, dev), models[0],
+                                             priors, sigma)
+                    what = (f"27 refit shape {S} x {POP_WALKERS} at {n} points {label} ndim "
+                            f"{len(lo)}")
+                    q, off, sc = pop_state(pp, lo, up, POP_WALKERS, seed, dev)
+                    got = pop_check_p1_forms(what, pp, off, sc, q)
+                    want = kpop.log_posterior_plain(pp, q, off, sc)
+                    d = compare_ll(what, got.flatten(), want.flatten(), rel,
+                                   scale=pp.term_scales(common.absolute_params(q, off, sc))
+                                   .flatten())
+                    worst = max(worst, d[1])
+                    bad, rows = pop_poisoned(pp, every=2)
+                    want_bad = torch.isneginf(kpop.log_posterior_plain(bad, q, off, sc))
+                    for form in POP_FORMS["pop_logpost"]:
+                        got_bad = torch.isneginf(kpop.log_posterior(bad, q, off, sc, form=form))
+                        if not torch.equal(got_bad, want_bad) or not bool(
+                                got_bad[rows.to(dev)].all()):
+                            raise AssertionError(f"{what}: P1's -inf set on the poisoned copy "
+                                                 f"({form} form) is not the plain version's")
+                    if label == "f32" and mjd and not sigma:
+                        x = q.reshape(S, 2, POP_WALKERS // 2, -1).contiguous()
+                        logp = got.reshape(S, 2, POP_WALKERS // 2)
+                        g = torch.Generator(device=dev)
+                        g.manual_seed(seed)
+                        shape = (S, 2, POP_WALKERS // 2)
+                        u_z = torch.rand(shape, generator=g, device=dev)
+                        j = torch.randint(0, POP_WALKERS // 2, shape, generator=g, device=dev)
+                        u_acc = torch.rand(shape, generator=g, device=dev)
+                        acc = torch.zeros(shape, dtype=torch.int32, device=dev)
+                        cx = torch.empty_like(x)
+                        cl = torch.empty(shape, dtype=torch.float64, device=dev)
+
+                        def p2():
+                            kpop.stretch_half_step(pp, x, logp, 0, u_z, j, u_acc, 2.0, off, sc,
+                                                   cx, cl, acc, check_partners=False,
+                                                   form="warp")
+                        t = {f: float(np.nanmedian(device_ms(
+                            lambda f=f: kpop.log_posterior(pp, q, off, sc, form=f), "logpost_",
+                            10, 3))) for f in POP_FORMS["pop_logpost"]}
+                        t["plain"] = cuda_ms(lambda: kpop.log_posterior_plain(pp, q, off, sc),
+                                             repeats=3)
+                        t["p2_warp"] = float(np.nanmedian(device_ms(p2, "stretch_half_step",
+                                                                    10, 3)))
+                        t["bound_ms"] = bound(POP_WALKERS * pop_points(pp) * pop_eval_ops(pp),
+                                              q.numel() * 4 + pop_table_bytes(pp)
+                                              + S * POP_WALKERS * 8)[0]
+                        times[(S, n)] = t
+                parts.append(f"{S} x {POP_WALKERS} at {n} points {label} (rule: "
+                             f"{kpop.logpost_form(S, POP_WALKERS, n, pop_sms())}): ndim 3-5 "
+                             f"bit-equal, max |d|/scale {worst:.3e} (<= {rel:.0e}), -inf kept")
+            finally:
+                config.set_compute_dtype(config.AUTO)
+    line = ("P1's two forms at the exact-refit CV's widths: " + "; ".join(parts)
+            + "; device ms (f32, ndim 4) " + "; ".join(
+                f"{S} x {POP_WALKERS} at {n}: P1 warp {t['warp']:.4f}, latency {t['latency']:.4f}"
+                f", plain {t['plain']:.4f}, bound {t['bound_ms']:.5f}; P2 warp form "
+                f"{t['p2_warp']:.4f}" for (S, n), t in times.items()))
+    return line, times
+
+
+def pop_sms():
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels.gradient import sm_count
+    return sm_count(torch.device("cuda"))
 
 
 def pop_times(pp, q, off, sc, x0, u0, bounds, plain_map_ms, device_ms):
@@ -6711,8 +6841,8 @@ def pop_times(pp, q, off, sc, x0, u0, bounds, plain_map_ms, device_ms):
     acc = torch.zeros(shape, dtype=torch.int32, device=dev)
     cx, cl = torch.empty_like(x), torch.empty(shape, dtype=torch.float64, device=dev)
 
-    def p1():
-        return kpop.log_posterior(pp, q, off, sc)
+    def p1(**fkw):
+        return kpop.log_posterior(pp, q, off, sc, **fkw)
 
     def p2(**fkw):
         kpop.stretch_half_step(pp, x, logp, 0, u_z, j, u_acc, 2.0, off, sc, cx, cl, acc,
@@ -6731,7 +6861,7 @@ def pop_times(pp, q, off, sc, x0, u0, bounds, plain_map_ms, device_ms):
     n_starts = u0.shape[1]
     out = {}
     for name, fn, plain, match, ops, nbytes in (
-            ("P1", p1, lambda: kpop.log_posterior_plain(pp, q, off, sc), "logpost_warp_kernel",
+            ("P1", p1, lambda: kpop.log_posterior_plain(pp, q, off, sc), "logpost_",
              W * n * ev, q.numel() * 4 + tables + S * W * 8),
             ("P2", p2, p2_plain, "stretch_half_step", half * n * ev + S * half * PROPOSAL,
              S * W * ndim * 4 + S * half * ndim * 4 * 2 + S * half * (4 + 8 + 4 + 8 + 8 + 4 * 2)
@@ -6744,10 +6874,11 @@ def pop_times(pp, q, off, sc, x0, u0, bounds, plain_map_ms, device_ms):
                      "plain_ms": plain_map_ms if name == "P3" else cuda_ms(plain, repeats=3),
                      **bound_fields(ops, nbytes)}
     # each form's device time (the rule's form is timed above)
-    for name, fn, key in (("P2", p2, "pop_half_step"), ("P3", p3, "pop_map")):
+    for name, fn, key, match in (("P1", p1, "pop_logpost", "logpost_"),
+                                 ("P2", p2, "pop_half_step", "stretch_half_step"),
+                                 ("P3", p3, "pop_map", "pop_map_kernel")):
         out[name]["forms"] = {f: float(np.nanmedian(device_ms(
-            lambda: fn(form=f), "stretch_half_step" if name == "P2" else "pop_map_kernel",
-            3 if name == "P3" else 10, 3))) for f in POP_FORMS[key]}
+            lambda: fn(form=f), match, 3 if name == "P3" else 10, 3))) for f in POP_FORMS[key]}
     return out
 
 
@@ -6811,7 +6942,8 @@ def pop_check_launches(what, S, lcs, launches, summaries):
     from lightcurve_fitting_tpu_torch.kernels.gradient import sm_count
     sms = sm_count(torch.device("cuda"))
     n_points = max(len(lc) for lc in lcs)
-    forms = {"pop_half_step": kpop.half_form(S, POP_WALKERS // 2, n_points, sms),
+    forms = {"pop_logpost": kpop.logpost_form(S, POP_WALKERS, n_points, sms),
+             "pop_half_step": kpop.half_form(S, POP_WALKERS // 2, n_points, sms),
              "pop_map": kpop.map_form(S, POP_STARTS, n_points, sms)}
     want = {"pop_logpost": 1, "pop_half_step": 2 * (POP_BURNIN + POP_STEPS), "pop_map": 1}
     want.update({f"{k}_{f}": want[k] if f == forms[k] else 0
@@ -6912,6 +7044,217 @@ def phase_pop_main_path(smi):
             "28c": diag["launches"]}
 
 
+# ----------------------------------------------------- the exact-refit CV (29)
+
+# tools/validate_logo_refit.py's flagship chain: SN 2016bkv MJD 57468-57485,
+# ShockCooling2, the priors of flagship_priors() and this window
+REFIT_CHAIN = dict(nwalkers=128, nsteps=1000, nsteps_burnin=2000, init="map", seed=0)
+REFIT_WINDOW = ([20.0, 2.0, 20.0, 57468.5], [50.0, 5.0, 50.0, 57468.7])
+# _exact_cv_elpd's defaults (the refits' walkers, steps and MAP starts)
+REFIT_WALKERS, REFIT_STEPS, REFIT_BURNIN = 64, 500, 500
+# VALIDATION.md:262-270, the JAX package's leave-one-band-out table on its
+# own chain (refits of 64 walkers x 1000 + 1000): band -> (pareto_k, PSIS
+# elpd, elpd shipped); printed beside the port's, not held (other chains)
+REFIT_JAX_LOGO = {"unfilt.": (0.78, -441.2, -441.4), "U": (5.80, -5910.1, -6399.2),
+                  "B": (1.82, -1878.3, -1883.3), "V": (2.46, -1667.2, -1694.9),
+                  "g": (0.10, -830.2, -830.2), "r": (0.67, -767.4, -767.4),
+                  "i": (0.50, -742.8, -742.8), "R": (0.32, -343.4, -343.4),
+                  "I": (1.19, -425.5, -425.5)}
+REFIT_ACC_TOL = 0.02        # a refit's acceptance on the card against the CPU's float64
+REFIT_SPLIT = {"P2 (half-steps)": ("stretch_half_step_kernel<popsc2warpmodel",
+                                   "stretch_half_step_latency_kernel<popsc2warpmodel"),
+               "P3 (MAP ascent)": ("pop_map_kernel",),
+               "P1 (initial state)": ("logpost_warp_kernel<popsc2warpmodel",
+                                      "logpost_latency_kernel<popsc2warpmodel")}
+
+
+def refit_calls(record):
+    """A wrapper of the port's fit_population that ``information_criteria``
+    reaches (``fitting._exact_cv_elpd`` imports it at each call): each
+    call's arguments, results and launches (counted from the call's start)
+    appended to ``record``. Returns (install, restore)."""
+    from lightcurve_fitting_tpu_torch import kernels
+    from lightcurve_fitting_tpu_torch.parallel import population
+    original = population.fit_population
+
+    def wrapped(models, lcs, priors, **kw):
+        n0 = dict(kernels.LAUNCHES)
+        out = original(models, lcs, priors, **kw)
+        record.append({"models": models, "lcs": lcs, "priors": priors, "kw": kw, "flat": out[0],
+                       "acc": out[1], "launches": {k: v - n0[k] for k, v in
+                                                   kernels.LAUNCHES.items() if v != n0[k]}})
+        return out
+
+    def install():
+        population.fit_population = wrapped
+
+    def restore():
+        population.fit_population = original
+    return install, restore
+
+
+def refit_check_launches(call, sms):
+    """One refit call's launches: P1 once, P2 twice a step, P3 once, each in
+    the form kernels/pop.py's rules pick at its S and padded points, nothing
+    else. Returns ({kernel or kernel_form: launches}, {kernel: form}, S, N)."""
+    from lightcurve_fitting_tpu_torch.kernels import pop as kpop
+    S, N = len(call["lcs"]), max(len(lc) for lc in call["lcs"])
+    forms = {"pop_logpost": kpop.logpost_form(S, REFIT_WALKERS, N, sms),
+             "pop_half_step": kpop.half_form(S, REFIT_WALKERS // 2, N, sms),
+             "pop_map": kpop.map_form(S, POP_STARTS, N, sms)}
+    want = {"pop_logpost": 1, "pop_half_step": 2 * (REFIT_STEPS + REFIT_BURNIN), "pop_map": 1}
+    want.update({f"{k}_{f}": want[k] for k, f in forms.items()})
+    if call["launches"] != want:
+        raise AssertionError(f"29: a refit of {S} x {N} launched {call['launches']}, expected "
+                             f"{want}")
+    return {**want, **{f"{k}_{f}": 0 for k, fs in POP_FORMS.items() for f in fs
+                       if f != forms[k]}}, forms, S, N
+
+
+def refit_cpu_repeat(call, model_cpu):
+    """The leave-one-band-out refit's fit_population call again on the CPU in
+    float64 (the same curves, box, options and seed) and its held-out scores;
+    against the card's: each refit's acceptance within REFIT_ACC_TOL, every
+    transient's parameter medians within 1 sigma of the CPU chain's and its
+    widths' ratios in (0.6, 1.7) (ROADMAP's stage-1 criteria). Returns
+    (acceptances, worst median gap in sigma, width ratios' range, seconds,
+    the CPU's chains)."""
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.parallel import fit_population
+    kw = dict(call["kw"], device="cpu")
+    models = [model_cpu.clone_for(sub) for sub in call["lcs"]]
+    t0 = time.perf_counter()
+    try:
+        config.set_compute_dtype(torch.float64)
+        flat, acc = fit_population(models, call["lcs"], call["priors"], **kw)
+    finally:
+        config.set_compute_dtype(config.AUTO)
+    seconds = time.perf_counter() - t0
+    flat_gpu = np.asarray(call["flat"], float)
+    if not np.all(np.abs(np.asarray(call["acc"]) - acc) <= REFIT_ACC_TOL):
+        raise AssertionError(f"29: the leave-one-band-out refits' acceptances {call['acc']} on "
+                             f"the card, {acc} on the CPU (within {REFIT_ACC_TOL})")
+    med_c, med_g = np.median(flat, axis=1), np.median(flat_gpu, axis=1)
+    sd_c, sd_g = np.std(flat, axis=1), np.std(flat_gpu, axis=1)
+    gap = np.abs(med_g - med_c) / sd_c
+    ratio = sd_g / sd_c
+    if not (np.all(gap < 1.0) and np.all((ratio > 0.6) & (ratio < 1.7))):
+        raise AssertionError(f"29: the refits' medians {gap.max():.3f} sigma apart (< 1), width "
+                             f"ratios {ratio.min():.3f}-{ratio.max():.3f} (in (0.6, 1.7))")
+    return acc, float(gap.max()), (float(ratio.min()), float(ratio.max())), seconds, flat
+
+
+def phase_refit(smi, dev=None):
+    """29: the exact-refit CV on the card. The flagship chain as
+    tools/validate_logo_refit.py runs it (lightcurve_mcmc ShockCooling2, 128
+    walkers x 1000 + 2000, init="map", seed 0), then
+    information_criteria(group_by="filter", refit=True, priors=...) at
+    _exact_cv_elpd's defaults, the counters reset just before it: one
+    fit_population call for the flagged points (leave-one-point-out, 148
+    points each) and one for the flagged bands (121-143), each launching P3
+    once, P1 once and P2 2000 times in the forms their rules pick, nothing
+    else; no refit failed, every pointwise value finite, elpd the sum of the
+    pointwise values, the repaired and failed labels exactly the entries
+    with pareto_k above 0.7 or NaN. The leave-one-band-out call repeated on
+    the CPU in float64 (:func:`refit_cpu_repeat`) and its held-out scores
+    beside the card's and VALIDATION.md's JAX values; the wall and a
+    profiled repeat's busy time and idle share (``dev``: the card unless
+    given). Returns the runs' launches {"29 LOPO": ..., "29 LOGO": ...}."""
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch import fitting, kernels
+    from lightcurve_fitting_tpu_torch.models import ShockCooling2
+    dev = torch.device("cuda") if dev is None else dev
+    sms = pop_sms()
+    lc = flagship_lc()
+    model = ShockCooling2(lc, device=dev)
+    priors = flagship_priors()
+    t0 = time.perf_counter()
+    chain = fitting.lightcurve_mcmc(lc, model, priors=priors, p_lo=REFIT_WINDOW[0],
+                                    p_up=REFIT_WINDOW[1], quiet=True, device=dev, **REFIT_CHAIN)
+    chain_s = time.perf_counter() - t0
+    flat = chain.flatchain
+
+    def ic():
+        return fitting.information_criteria(lc, model, flat, group_by="filter", refit=True,
+                                            priors=priors, seed=0, quiet=True, device=dev)
+    record = []
+    install, restore = refit_calls(record)
+    install()
+    try:
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ic()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        total = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        calls = list(record)
+        wall_p, prof = profiled(ic, cpu=False)
+    finally:
+        restore()
+    parts, busy = time_split(prof, wall_p, REFIT_SPLIT)
+    lg = out["logo"]
+    kinds = [("LOPO", out, "elpd_loo", np.arange(len(lc))), ("LOGO", lg, "elpd_logo",
+                                                               np.asarray(lg["groups"]))]
+    runs, lines, by_kind = {}, [], {}
+    i = 0
+    for kind, res, key, names in kinds:
+        flagged = names[~(res["pareto_k"] <= 0.7)]
+        got = list(res["refit"]["labels"]) + list(res["refit"]["failed_labels"]) \
+            if "refit" in res else []
+        if sorted(map(str, got)) != sorted(map(str, flagged)):
+            raise AssertionError(f"29 {kind}: repaired {got} are not the flagged {flagged}")
+        if not np.all(np.isfinite(res["pointwise"])) or not np.isclose(
+                res[key], float(np.sum(res["pointwise"])), rtol=1e-12, atol=0):
+            raise AssertionError(f"29 {kind}: pointwise values {res['pointwise']}, {key} "
+                                 f"{res[key]}")
+        if not len(flagged):
+            continue
+        if res["refit"]["n_failed"]:
+            raise AssertionError(f"29 {kind}: {res['refit']['n_failed']} refits failed")
+        launches, forms, S, N = refit_check_launches(calls[i], sms)
+        runs[f"29 {kind}"] = launches
+        by_kind[kind] = calls[i]
+        lines.append(f"{kind}: {len(flagged)} flagged, S = {S} x {N} points, launches "
+                     f"{ {k: v for k, v in launches.items() if v} } (forms {forms}), "
+                     f"acceptance {fmt(res['refit']['acceptance'])}")
+        i += 1
+    if i != len(calls) or total != {k: sum(r.get(k, 0) for r in runs.values())
+                                    for k in total}:
+        raise AssertionError(f"29: {len(calls)} fit_population calls, launches {total}")
+    cpu_line = "no band flagged: no leave-one-band-out refit to repeat on the CPU"
+    if "LOGO" in by_kind:
+        masks = [np.asarray(lc["filter"]) == g for g in lg["refit"]["labels"]]
+        acc_c, gap, ratio, cpu_s, flat_c = refit_cpu_repeat(
+            by_kind["LOGO"], ShockCooling2(lc, device="cpu"))
+        elpd_c = fitting._held_out_elpd(lc, ShockCooling2(lc, device="cpu"), flat_c, masks,
+                                        False, "relative", 1024, 0, device="cpu")
+        rows = []
+        for j, g in enumerate(lg["refit"]["labels"]):
+            k = float(lg["pareto_k"][list(map(str, lg["groups"])).index(str(g))])
+            jax = REFIT_JAX_LOGO.get(str(g))
+            rows.append(f"{g}: k {k:.2f}, PSIS {lg['refit']['elpd_psis'][j]:.1f}, exact "
+                        f"{lg['refit']['elpd_exact'][j]:.1f} (CPU float64 {elpd_c[j]:.1f}; JAX "
+                        + (f"k {jax[0]:.2f}, PSIS {jax[1]:.1f}, exact {jax[2]:.1f}"
+                           if jax else "-") + ")")
+        cpu_line = (f"the leave-one-band-out call again on the CPU in float64 ({cpu_s:.1f} s): "
+                    f"acceptances {fmt(acc_c)} (card within {REFIT_ACC_TOL}), medians within "
+                    f"{gap:.3f} sigma (< 1), width ratios {ratio[0]:.3f}-{ratio[1]:.3f} (in "
+                    f"(0.6, 1.7)); by band " + "; ".join(rows))
+    phase("exact-refit CV 29", f"the flagship chain (lightcurve_mcmc 128 x 1000 + 2000, "
+          f"init=\"map\", seed 0) in {chain_s:.2f} s; information_criteria(group_by=\"filter\", "
+          f"refit=True) at {REFIT_WALKERS} walkers x {REFIT_BURNIN} + {REFIT_STEPS}: elpd_loo "
+          f"{out['elpd_loo']:.1f} +- {out['se_elpd_loo']:.1f}, elpd_logo {lg['elpd_logo']:.1f} "
+          f"+- {lg['se_elpd_logo']:.1f}; " + "; ".join(lines) + f"; {cpu_line}; wall "
+          f"{wall:.3f} s (on {smi}); profiled repeat {wall_p:.3f} s, device busy {busy:.4f} s "
+          f"(idle share {1 - busy / wall_p:.3f}): "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in parts.items()))
+    return runs
+
+
 def main():
     try:
         import torch
@@ -6965,7 +7308,8 @@ def main():
                          ("K6b's latency form over SC", "ladder_init_latency_kernelI11SCWarpModel",
                           8),
                          ("K6b's latency form over SC4",
-                          "ladder_init_latency_kernelI12SC4WarpModel", 8)):
+                          "ladder_init_latency_kernelI12SC4WarpModel", 8),
+                         ("P1's latency form", "logpost_latency_kernelI15PopSC2WarpModel", 12)):
         block[what] = [v for k, v in report.items() if key in k]
         if len(block[what]) != n or any(v[1] or v[2] or v[3] for v in block[what]):
             raise AssertionError(f"{what} ({n} instantiations) must keep its state in "
@@ -6988,8 +7332,9 @@ def main():
           "instantiations), K3's warp form (f32, f64), K5 (1-8 percentiles), K8 (both "
           "forms, f32, f64), K10 (ndim 2, 3; 4 dtype instantiations each), K10's run "
           "form (ndim 2, 3; its 16 dtype instantiations each), the SC and SC4 "
-          "log-posteriors (ndim 5, 6; 4 each) and the latency forms of the SC and SC4 "
-          "log-posteriors and of K6b over them (ndim 5, 6; 4 each): "
+          "log-posteriors (ndim 5, 6; 4 each), the latency forms of the SC and SC4 "
+          "log-posteriors and of K6b over them (ndim 5, 6; 4 each) and P1's latency form "
+          "(ndim 3-5; 4 each): "
           + "; ".join(f"{what} registers {sorted(set(v[0] for v in ks))}, stack frames "
                       f"{sorted(set(v[1] for v in ks))} bytes, spills "
                       f"{sorted(set(v[2] + v[3] for v in ks))}" for what, ks in block.items())
@@ -7028,7 +7373,8 @@ def main():
 
     k_pop = phase_pop_kernels()
     launches_pop = phase_pop_main_path(smi)
-    kernels = pop_kernel_entries(k_pop, launches_pop)
+    launches_refit = phase_refit(smi)
+    kernels = pop_kernel_entries(k_pop, {**launches_pop, **launches_refit})
 
     lc = flagship_lc()
     k1 = phase_k1(lc)
@@ -7237,7 +7583,8 @@ def pop_kernel_entries(k_pop, launches):
     src = "lightcurve_fitting_tpu_torch/kernels/csrc/population.cu"
     rows = []
     for key, kname, count, replaces in (
-            ("P1", "logpost_warp_kernel<PopSC2WarpModel<C, N>> (P1)", "pop_logpost",
+            ("P1", "logpost_warp_kernel<PopSC2WarpModel<C, N>> / logpost_latency_kernel<"
+                   "PopSC2WarpModel<C, N>, S, true> (P1)", "pop_logpost",
              "lightcurve_fitting_tpu/parallel/population.py:349"),
             ("P2", "stretch_half_step_kernel<PopSC2WarpModel<C, N>> / "
                    "stretch_half_step_latency_kernel<PopSC2WarpModel<C, N>> (P2)", "pop_half_step",
@@ -7247,6 +7594,7 @@ def pop_kernel_entries(k_pop, launches):
         v = dict(k_pop[key])
         at = v.pop("at")
         forms = v.pop("forms", None)
+        refit = v.pop("refit", None)
         name = f"{kname}; ms by S (events, device, plain, bound): " + "; ".join(
             f"{S}: {t[0]:.4f}, {t[1]:.4f}, {t[2]:.4f}, {t[3]:.5f}" for S, t in at.items())
         if forms:
@@ -7256,6 +7604,12 @@ def pop_kernel_entries(k_pop, launches):
                 + "; device ms by form and S: " + "; ".join(
                     f"{S}: " + ", ".join(f"{f} {ms:.4f}" for f, ms in fs.items())
                     for S, fs in forms.items()))
+        if refit:
+            name += ("; device ms by form at the exact-refit CV's widths (S x walkers at padded "
+                     "points): " + "; ".join(
+                         f"{S} x {POP_WALKERS} at {n}: warp {t['warp']:.4f}, latency "
+                         f"{t['latency']:.4f} (bound {t['bound_ms']:.5f})"
+                         for (S, n), t in refit.items()))
         rows.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                          launches=launches["28a"][count], **v))
     return rows

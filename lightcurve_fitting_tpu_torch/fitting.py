@@ -1133,6 +1133,114 @@ def goodness_of_fit(lc, model, flatchain, use_sigma=False, sigma_type="relative"
     return out
 
 
+def _exact_cv_elpd(lc, model, priors, masks, use_sigma, sigma_type, flatchain, n_draws, seed,
+                   refit_options, device=None):
+    """Exact leave-out cross-validation of unreliable PSIS terms, the JAX
+    package's ``_exact_cv_elpd`` plus ``device`` (default CUDA): the model
+    refit without each ``masks`` entry's points (boolean (N,) arrays, True on
+    the held-out points), all in one ``fit_population`` call (64 walkers x
+    500 + 500 steps, MAP-seeded, unless ``refit_options`` says otherwise)
+    in the chain's [2, 98] percentile box, then the held-out scores
+    (:func:`_held_out_elpd`): elpd_g = log mean_s exp(sum_{i in g}
+    ll(y_i | theta_s^(-g))). The box: a dimension the chain pins is widened
+    by 1e-8 of its value (at least 1e-8), the box is clipped to the prior
+    support, and a dimension the clip collapsed (a chain pinned at a bound)
+    is regrown inside it, down from the upper bound where there is room,
+    else up from the lower one. Returns (elpd (G,), refit acceptance
+    (G,)); an entry is NaN where fewer than 8 draws score finitely on its
+    held-out points."""
+    from .parallel.population import fit_population
+
+    chain = np.asarray(flatchain, float)
+    p_lo = np.percentile(chain, 2.0, axis=0)
+    p_up = np.percentile(chain, 98.0, axis=0)
+    degenerate = ~(p_up > p_lo)
+    if np.any(degenerate):
+        eps = np.maximum(1e-8, 1e-8 * np.abs(p_lo))
+        p_lo = np.where(degenerate, p_lo - eps, p_lo)
+        p_up = np.where(degenerate, p_up + eps, p_up)
+    lo_b = np.array([getattr(p, "p_min", -np.inf) for p in priors], float)
+    up_b = np.array([getattr(p, "p_max", np.inf) for p in priors], float)
+    p_lo = np.clip(p_lo, lo_b, up_b)
+    p_up = np.clip(p_up, lo_b, up_b)
+    collapsed = ~(p_up > p_lo)
+    if np.any(collapsed):
+        width = np.minimum(np.maximum(1e-8, 1e-8 * np.abs(p_up)), up_b - lo_b)
+        grow_down = collapsed & (p_up - width >= lo_b)
+        p_lo = np.where(grow_down, p_up - width, p_lo)
+        p_up = np.where(collapsed & ~grow_down, p_lo + width, p_up)
+
+    lcs = [lc[~m] for m in masks]
+    models = [model.clone_for(sub) for sub in lcs]
+    opts = dict(nwalkers=64, nsteps=500, nsteps_burnin=500, init="map")
+    opts.update(refit_options or {})
+    flat, acc = fit_population(models, lcs, priors, p_lo=p_lo, p_up=p_up, use_sigma=use_sigma,
+                               sigma_type=sigma_type, seed=seed, device=device, **opts)
+    return (_held_out_elpd(lc, model, flat, masks, use_sigma, sigma_type, n_draws, seed, device),
+            np.asarray(acc))
+
+
+def _held_out_elpd(lc, model, flat, masks, use_sigma, sigma_type, n_draws, seed, device=None):
+    """The exact-refit CV's scores: ``n_draws`` of each refit's draws
+    (``flat`` (G, M, ndim), numpy's default_rng(seed) choosing the same
+    columns for every refit) scored on the full curve in one
+    :func:`_posterior_discrepancy` call on ``device``, each refit's held-out
+    points' log-densities summed a draw, then log mean exp over its finite
+    sums (:func:`~.parallel.ic._logsumexp`); NaN for a refit with fewer than
+    8. Returns (G,)."""
+    from .parallel.ic import _logsumexp
+
+    flat = np.asarray(flat, float)
+    G = len(masks)
+    rng = np.random.default_rng(seed)
+    nd = min(int(n_draws), flat.shape[1])
+    idx = rng.choice(flat.shape[1], nd, replace=False)
+    draws = flat[:, idx, :].reshape(G * nd, flat.shape[2])
+    ll, _, _ = _posterior_discrepancy(lc, model, draws, use_sigma, sigma_type,
+                                      kind="pointwise_ll", device=device)
+    ll = ll.reshape(G, nd, -1)
+    elpd = np.full(G, np.nan)
+    for g, m in enumerate(masks):
+        llg = ll[g][:, m].sum(axis=1)
+        llg = llg[np.isfinite(llg)]
+        if len(llg) >= 8:
+            elpd[g] = float(_logsumexp(llg) - np.log(len(llg)))
+    return elpd
+
+
+def _apply_refit(res, pointwise_key, elpd_key, se_key, masks, bad_idx, group_names, lc, model,
+                 priors, use_sigma, sigma_type, flatchain, n_draws, seed, refit_options,
+                 device=None):
+    """Patch a PSIS result dict in place with the exact-refit CV values of
+    its flagged entries (``bad_idx``; :func:`_exact_cv_elpd`), recompute
+    its elpd and standard error, and record the provenance under
+    ``res["refit"]``: ``method``, ``labels`` (the entries actually repaired),
+    ``elpd_psis`` and ``elpd_exact`` (theirs), ``failed_labels`` (refits
+    with no finite held-out score, left on the PSIS value), ``acceptance``
+    (every refit's) and ``n_failed``."""
+    elpd_exact, acc = _exact_cv_elpd(lc, model, priors, masks, use_sigma, sigma_type, flatchain,
+                                     n_draws, seed, refit_options, device)
+    ok = np.isfinite(elpd_exact)
+    pw = np.asarray(res[pointwise_key], float).copy()
+    elpd_psis = pw[bad_idx].copy()
+    pw[bad_idx[ok]] = elpd_exact[ok]
+    n = len(pw)
+    res[pointwise_key] = pw
+    res[elpd_key] = float(np.sum(pw))
+    res[se_key] = float(np.sqrt(n * np.var(pw, ddof=1))) if n > 1 else np.nan
+    group_names = np.asarray(group_names)
+    res["refit"] = {
+        "method": "exact_refit_cv",
+        "labels": group_names[ok],
+        "elpd_psis": elpd_psis[ok],
+        "elpd_exact": elpd_exact[ok],
+        "failed_labels": group_names[~ok],
+        "acceptance": acc,
+        "n_failed": int(np.sum(~ok)),
+    }
+    return res
+
+
 def information_criteria(lc, model, flatchain, use_sigma=False, sigma_type="relative",
                          n_draws=1024, seed=0, group_by=None, refit=False, priors=None,
                          refit_options=None, quiet=False, device=None):
@@ -1150,15 +1258,30 @@ def information_criteria(lc, model, flatchain, use_sigma=False, sigma_type="rela
     ``"filter"``, or one label a point) adds leave-one-group-out scores
     under ``out["logo"]``.
 
-    ``refit`` (exact cross-validation of the unreliable PSIS terms) runs
-    ``fit_population``, which is not ported yet: anything but ``False``
-    raises NotImplementedError (ROADMAP Queue 1 item 10); ``priors`` and
-    ``refit_options`` serve it alone."""
-    from .parallel.ic import waic as _waic, psis_loo as _psis_loo, psis_logo
+    ``refit`` repairs the unreliable PSIS terms by exact cross-validation:
+    every point (and, with ``group_by``, every group) whose ``pareto_k``
+    exceeds the threshold (0.7 for ``refit=True``, else the float given; a
+    NaN k counts as unreliable) is re-scored by refitting the model without
+    it, all of a kind's refits in one ``fit_population`` call on ``device``
+    (:func:`_exact_cv_elpd`), and the patched result records the provenance
+    under ``out["refit"]`` and ``out["logo"]["refit"]``; ``pareto_k`` keeps
+    the PSIS diagnostics. It needs ``priors`` (the fit's, with the intrinsic
+    scatter's prior when ``use_sigma``) and a ShockCooling2 model (the
+    population's kernels; another class raises NotImplementedError, ROADMAP
+    Queue 1 item 10), both checked at entry; ``refit_options`` go to
+    ``fit_population`` (``nwalkers``, ``nsteps``, ``nsteps_burnin``,
+    ``init``)."""
+    from .parallel.ic import (waic as _waic, psis_loo as _psis_loo, psis_logo,
+                              _logsumexp as _ic_logsumexp)
+    from .parallel.population import check_model_class
 
     if refit is not False:
-        raise NotImplementedError("information_criteria(refit=...) runs fit_population, which "
-                                  "is not ported yet (ROADMAP Queue 1 item 10)")
+        # checked at entry, not when something happens to be flagged
+        if priors is None:
+            raise ValueError("refit of unreliable PSIS terms needs the fit's priors: pass "
+                             "priors=[...] (including the intrinsic-scatter prior when "
+                             "use_sigma=True)")
+        check_model_class(model)
 
     flatchain = np.asarray(flatchain, float)
 
@@ -1185,17 +1308,46 @@ def information_criteria(lc, model, flatchain, use_sigma=False, sigma_type="rela
            "p_waic": wa["p_waic"], "waic": wa["waic"],
            "pointwise": loo["pointwise"], "pointwise_waic": wa["pointwise"],
            "n_points": ll.shape[1], "n_invalid_draws": n_bad}
+
+    threshold = 0.7 if refit is True else refit
+    N = ll.shape[1]
+    refit_kw = dict(lc=lc, model=model, priors=priors, use_sigma=use_sigma,
+                    sigma_type=sigma_type, flatchain=flatchain, n_draws=n_draws, seed=seed,
+                    refit_options=refit_options, device=device)
+    if refit is not False:
+        bad_pts = np.flatnonzero(~(out["pareto_k"] <= threshold))
+        if len(bad_pts):
+            masks = [np.arange(N) == i for i in bad_pts]
+            _apply_refit(out, "pointwise", "elpd_loo", "se_elpd_loo", masks, bad_pts, bad_pts,
+                         **refit_kw)
+            out["looic"] = -2.0 * out["elpd_loo"]
+            lppd = float(np.sum(_ic_logsumexp(ll, axis=0) - np.log(len(ll))))
+            out["p_loo"] = lppd - out["elpd_loo"]
+
     if group_by is not None:
         labels = (np.asarray(lc[group_by]) if isinstance(group_by, str)
                   else np.asarray(group_by))
-        out["logo"] = psis_logo(ll, labels)
+        lg = out["logo"] = psis_logo(ll, labels)
+        if refit is not False:
+            bad_g = np.flatnonzero(~(lg["pareto_k"] <= threshold))
+            if len(bad_g):
+                masks = [labels == lg["groups"][j] for j in bad_g]
+                _apply_refit(lg, "pointwise", "elpd_logo", "se_elpd_logo", masks, bad_g,
+                             lg["groups"][bad_g], **refit_kw)
     if not quiet:
         def _notes(res, n_total, kind):
+            # the refit's provenance prints whenever a repair ran, whatever
+            # the 0.7 count (a custom threshold repairs terms below it)
+            parts = []
             n_hi = int(np.sum(res["pareto_k"] > 0.7))
-            if not n_hi:
-                return ""
-            return (f"; {n_hi}/{n_total} {kind} have pareto_k > 0.7"
-                    + (" (unreliable LOO terms)" if kind == "points" else ""))
+            if n_hi:
+                parts.append(f"{n_hi}/{n_total} {kind} have pareto_k > 0.7"
+                             + (" (unreliable LOO terms)" if kind == "points" else ""))
+            if "refit" in res:
+                nf = res["refit"]["n_failed"]
+                parts.append(f"{len(res['refit']['labels'])} repaired by exact refit CV"
+                             + (f" ({nf} refits failed)" if nf else ""))
+            return "; " + "; ".join(parts) if parts else ""
 
         print(f"elpd_loo = {out['elpd_loo']:.1f} +/- {out['se_elpd_loo']:.1f} "
               f"(p_loo = {out['p_loo']:.1f}); "
@@ -1261,21 +1413,25 @@ def compare_models_loo(lc, models, priors, p_lo=None, p_up=None, labels=None, nw
 
     Arguments shape-match :func:`compare_models` (shared or per-model priors,
     windows and labels); ``mcmc_kwargs`` go to every :func:`lightcurve_mcmc`
-    call, ``group_by`` to every :func:`information_criteria`. Not ported
-    yet, and refused with NotImplementedError: ``refit`` (ROADMAP Queue 1
-    item 10) and ``checkpoint_file``/``resume_from`` (item 16).
+    call; ``refit``, ``refit_options`` and ``group_by`` to every
+    :func:`information_criteria` (each candidate's priors back its own
+    refits; with ``refit`` every model is checked for a class the
+    population can fit before the first fit). Not ported yet, and refused
+    with NotImplementedError: ``checkpoint_file``/``resume_from`` (ROADMAP
+    Queue 1 item 16).
 
     Returns the :func:`compare_information_criteria` Table;
     ``table.meta["ics"]``, ``["samplers"]`` and ``["models"]`` keep each
     model's scores, fitted sampler and model, keyed by label."""
-    if refit is not False:
-        raise NotImplementedError("compare_models_loo(refit=...) runs fit_population, which is "
-                                  "not ported yet (ROADMAP Queue 1 item 10)")
     if mcmc_kwargs.get("checkpoint_file") is not None \
             or mcmc_kwargs.get("resume_from") is not None:
         raise NotImplementedError("checkpoint/resume is not ported yet "
                                   "(ROADMAP Queue 1 item 16)")
     models, priors, p_lo, p_up, labels = _compare_args(models, priors, p_lo, p_up, labels)
+    if refit is not False:
+        from .parallel.population import check_model_class
+        for model in models:
+            check_model_class(model)
     ics, samplers = {}, {}
     for label, model, pri, lo, up in zip(labels, models, priors, p_lo, p_up):
         sampler = lightcurve_mcmc(lc, model, priors=pri, p_lo=lo, p_up=up, nwalkers=nwalkers,
@@ -1284,8 +1440,9 @@ def compare_models_loo(lc, models, priors, p_lo=None, p_up=None, labels=None, nw
                                   quiet=True, device=device, **mcmc_kwargs)
         ics[label] = information_criteria(lc, model, sampler.flatchain, use_sigma=use_sigma,
                                           sigma_type=sigma_type, n_draws=n_draws,
-                                          seed=0 if seed is None else seed, group_by=group_by,
-                                          quiet=True, device=device)
+                                          seed=0 if seed is None else seed, refit=refit,
+                                          priors=pri, refit_options=refit_options,
+                                          group_by=group_by, quiet=True, device=device)
         samplers[label] = sampler
     tab = compare_information_criteria([ics[lb] for lb in labels], labels=labels, quiet=quiet)
     tab.meta["ics"] = ics

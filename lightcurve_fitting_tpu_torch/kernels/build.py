@@ -106,7 +106,7 @@ def _declare(lib):
         if prefix in ("sc", "sc4"):
             fn.argtypes = fn.argtypes[:-1] + [ci, vp]   # the form before the stream
     lib.pop_logpost_launch.restype = ci
-    lib.pop_logpost_launch.argtypes = [vp, ci, ci, vp, ci, ci, ci, vp, vp]
+    lib.pop_logpost_launch.argtypes = [vp, ci, ci, vp, ci, ci, ci, vp, ci, vp]   # form, stream
     lib.pop_half_step_launch.restype = ci
     # the chain's state in the state's type, its log-posteriors float64: no
     # dtype flags for them; the form before the stream

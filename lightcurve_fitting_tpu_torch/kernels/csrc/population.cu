@@ -3,9 +3,12 @@
 //
 // Replaces (JAX package, lightcurve_fitting_tpu/parallel/population.py):
 //   P1  :349-386 make_logpost and :407-411 init_one, vmapped over the S
-//       transients: the log-posterior of every transient's walkers
-//       (logpost_warp_kernel over PopSC2WarpModel, the transients along the
-//       ensemble axis blockIdx.y).
+//       transients: the log-posterior of every transient's walkers, the
+//       transients along the ensemble axis blockIdx.y, in one of two forms
+//       that give the same bits (kernels/pop.py::logpost_form): the warp
+//       form, logpost_warp_kernel over PopSC2WarpModel (a warp per walker),
+//       and, for small launches, the latency form, logpost_latency_kernel
+//       over it (a block per walker, a point a thread).
 //   P2  :413-433 seg_one's step, make_stretch_kernel over make_logpost,
 //       vmapped: one stretch-move half-step of all S ensembles in one launch
 //       (transient e = blockIdx.y, the draws (S, 2, half) of the step), in
@@ -257,7 +260,8 @@ __device__ __forceinline__ void pop_prefetch(const void* p) {
 
 // The policy of P1 and P2 (stretch.cuh): a warp per walker, batched as
 // SC2WarpModel, the transient e of a block staged from its rows; and, with
-// point_term and its own sum, P2's latency form. 16 warps a block at most:
+// point_term and its own sum, P1's and P2's latency forms. 16 warps a
+// block at most:
 // a transient's rows are small, and at S = 512 x 64 walkers P1 took 0.065
 // ms of device time at 16 against 0.108 at 32 (PERF.md §6). N: the
 // walker's dimension, 3, 4 or 5, at compile time.
@@ -567,26 +571,40 @@ static int pop_half_dim(const PopParams& P, int compute_f64, int state_f64, int 
 #undef POP_HALF
 }
 
+// P1's launch for the compute type C, the walker dimension N and the
+// state's type S: form 0 the warp form (logpost_warp_kernel, a warp per
+// walker), 1 the latency form (logpost_latency_kernel with the ensemble
+// axis: a block per walker, a point a thread, at most LP_LAT_LP_ENS_WARPS
+// warps a walker); the same bits.
+template <typename C, int N, typename S>
+static int launch_pop_logpost(const PopParams& P, int form, const void* q, int W, int n_ens,
+                              double* out, cudaStream_t stream) {
+    typedef PopSC2WarpModel<C, N> M;
+    if (form) return launch_logpost_latency<M, S, true>(P, q, W, out, stream, n_ens);
+    return launch_logpost_warp<M, S>(P, q, W, n_ens, out, stream);
+}
+
 // ------------------------------------------------------------------ launch
 
 extern "C" {
 
-// P1 launch: out (S, W) at the walker states q (S, W, ndim), a warp per
-// walker, transient e along blockIdx.y; ndim 3, 4 or 5. Returns 0 or a
-// cudaError_t code.
+// P1 launch: out (S, W) at the walker states q (S, W, ndim), transient e
+// along blockIdx.y; ndim 3, 4 or 5; form 0 the warp form, 1 the latency
+// form. Returns 0 or a cudaError_t code.
 int pop_logpost_launch(const PopParams* P, int device, int compute_f64, const void* q,
-                       int q_f64, int W, int S, double* out, void* stream) {
+                       int q_f64, int W, int S, double* out, int form, void* stream) {
     int rc = (int)cudaSetDevice(device);
     if (rc) return rc;
     if (W <= 0 || S <= 0) return 0;
-    if ((P->n_model != 3 && P->n_model != 4) || S > 65535) return (int)cudaErrorInvalidValue;
+    if ((P->n_model != 3 && P->n_model != 4) || S > 65535 || (form != 0 && form != 1))
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-#define POP_P1(N_)                                                                           \
-    (compute_f64                                                                             \
-         ? (q_f64 ? launch_logpost_warp<PopSC2WarpModel<double, N_>, double>(*P, q, W, S, out, s) \
-                  : launch_logpost_warp<PopSC2WarpModel<double, N_>, float>(*P, q, W, S, out, s)) \
-         : (q_f64 ? launch_logpost_warp<PopSC2WarpModel<float, N_>, double>(*P, q, W, S, out, s)  \
-                  : launch_logpost_warp<PopSC2WarpModel<float, N_>, float>(*P, q, W, S, out, s)))
+#define POP_P1(N_)                                                                        \
+    (compute_f64                                                                          \
+         ? (q_f64 ? launch_pop_logpost<double, N_, double>(*P, form, q, W, S, out, s)     \
+                  : launch_pop_logpost<double, N_, float>(*P, form, q, W, S, out, s))     \
+         : (q_f64 ? launch_pop_logpost<float, N_, double>(*P, form, q, W, S, out, s)      \
+                  : launch_pop_logpost<float, N_, float>(*P, form, q, W, S, out, s)))
     switch (P->ndim) {
         case 3: return POP_P1(3);
         case 4: return POP_P1(4);

@@ -462,6 +462,11 @@ __device__ __forceinline__ double latency_finish(C acc, const typename M::Data& 
 // float32-compute, float64-state instantiation in 48 registers and spilled).
 #define LP_LAT_WARPS 20
 #define LP_LAT_ENS_WARPS 4
+// The batch log-posterior's latency form over several ensembles (the
+// population's P1): at most LP_LAT_LP_ENS_WARPS warps a walker, 256 points,
+// under a bound of as many threads (no proposal to carry: every
+// instantiation in registers, without a spill or a stack frame).
+#define LP_LAT_LP_ENS_WARPS 8
 
 // The latency forms' walker constants (a policy with point_term), formed by
 // warp 0 from the absolute parameters p where `form` (uniform over the
@@ -676,18 +681,30 @@ logpost_warp_kernel(const typename M::Params P, const S* __restrict__ q, int W,
 // point a thread, in the warp form's order, and lane 0 writes
 // logpost_batch's value: -inf outside the priors, and for a NaN. So a
 // state's value has the warp form's bits, and those that the half-steps
-// and K6a (both forms of each) store when they accept it.
-template <typename M, typename S>
-__global__ void __launch_bounds__(32 * LP_LAT_WARPS)
+// and K6a (both forms of each) store when they accept it. ENS: several
+// ensembles along blockIdx.y, as logpost_warp_kernel takes them (the
+// population's transients, PopSC2WarpModel: q (E, W, ndim) and out (E, W),
+// W = gridDim.x, ensemble e's data through M::stage), each thread first
+// bringing its point's data towards the SM (M::prefetch) while warp 0
+// forms the walker; without it one ensemble.
+template <typename M, typename S, bool ENS = false>
+__global__ void __launch_bounds__(32 * (ENS ? LP_LAT_LP_ENS_WARPS : LP_LAT_WARPS))
 logpost_latency_kernel(const typename M::Params P, const S* __restrict__ q,
                        double* __restrict__ out) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     __shared__ double lprior_s;
     __shared__ typename M::Walker walker_s;
-    const typename M::Data d = M::stage(P, nullptr, 0, 0);
+    const int e = ENS ? (int)blockIdx.y : 0;
+    const typename M::Data d = M::stage(P, nullptr, 0, e);
     const int i = blockIdx.x;
     constexpr int D = policy_dim<M>::value;
     const int ndim = D > 0 ? D : (int)P.ndim;
+    if constexpr (ENS) {
+        const size_t ens = (size_t)e * gridDim.x;
+        q += ens * ndim;
+        out += ens;
+        if ((int)threadIdx.x < latency_terms<M>(d, P)) M::prefetch(threadIdx.x, d, P);
+    }
     double lprior = -INFINITY;
     if (threadIdx.x < 32) {
         double p[D > 0 ? D : LP_MAX_DIM];
@@ -1083,18 +1100,22 @@ static int launch_logpost_warp(const typename M::Params& P, const void* q, int W
 }
 
 // The batch log-posterior's latency form (logpost_latency_kernel) over W
-// walkers of one ensemble, a block of ceil(N / 32) warps each. Refused for
-// a policy without point_term, and past LP_LAT_WARPS warps a walker.
-template <typename M, typename S>
+// walkers of each of n_ens ensembles (ENS; else one), a block of
+// ceil(N / 32) warps each. Refused for a policy without point_term, and
+// past LP_LAT_WARPS (ENS: LP_LAT_LP_ENS_WARPS) warps a walker.
+template <typename M, typename S, bool ENS = false>
 static int launch_logpost_latency(const typename M::Params& P, const void* q, int W,
-                                  double* out, cudaStream_t stream) {
+                                  double* out, cudaStream_t stream, int n_ens = 1) {
     if constexpr (!policy_point<M>::value) {
         return (int)cudaErrorInvalidValue;
     } else {
         const long long per_walker = (P.n_points + 31) / 32;
-        if (per_walker < 1 || per_walker > LP_LAT_WARPS) return (int)cudaErrorInvalidValue;
+        if (per_walker < 1 || per_walker > (ENS ? LP_LAT_LP_ENS_WARPS : LP_LAT_WARPS)
+            || (!ENS && n_ens != 1))
+            return (int)cudaErrorInvalidValue;
         const int threads = (int)(32 * per_walker);
-        logpost_latency_kernel<M, S><<<W, threads, sizeof(typename M::Compute) * threads, stream>>>(
+        logpost_latency_kernel<M, S, ENS><<<dim3((unsigned)W, (unsigned)n_ens), threads,
+                                            sizeof(typename M::Compute) * threads, stream>>>(
             P, (const S*)q, out);
         return (int)cudaGetLastError();
     }

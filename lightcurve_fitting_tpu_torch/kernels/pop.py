@@ -4,10 +4,12 @@
 Each takes a :class:`~..parallel.population.PopulationPosterior` ``pp`` (the
 packed transients in the compute dtype, and their plain log-posterior):
 
-* :func:`log_posterior` (P1, ``logpost_warp_kernel`` over
-  ``PopSC2WarpModel``, a warp per walker, transient e along the ensemble
-  axis): the log-posterior of every transient's walkers, (S, W, ndim) ->
-  (S, W), the bits that P2 stores when it accepts a state;
+* :func:`log_posterior` (P1): the log-posterior of every transient's
+  walkers, (S, W, ndim) -> (S, W), transient e along the ensemble axis, in
+  the form :func:`logpost_form` picks: ``"latency"``
+  (``logpost_latency_kernel`` over ``PopSC2WarpModel``: a block per walker,
+  a point a thread) or ``"warp"`` (``logpost_warp_kernel``: a warp per
+  walker), the bits that P2 stores when it accepts a state in either;
 * :func:`stretch_half_step` (P2): one Goodman-Weare half-step of all S
   ensembles in one launch, in place, from the draws (S, 2, half) of the
   step, in the form :func:`half_form` picks: ``"latency"``
@@ -23,9 +25,9 @@ packed transients in the compute dtype, and their plain log-posterior):
 For a tensor on the CPU each wrapper runs its plain version. For a CUDA
 tensor it launches the kernel or raises: there is no fallback. Each launch
 adds one to ``LAUNCHES[name]`` (``pop_logpost``, ``pop_half_step``,
-``pop_map``) and one under its form's name (``pop_half_step_warp``,
-``pop_half_step_latency``, ``pop_map_warp``, ``pop_map_pair``), and nothing
-else does.
+``pop_map``) and one under its form's name (``pop_logpost_warp``,
+``pop_logpost_latency``, ``pop_half_step_warp``, ``pop_half_step_latency``,
+``pop_map_warp``, ``pop_map_pair``), and nothing else does.
 """
 
 import ctypes
@@ -37,7 +39,17 @@ from .common import (LAUNCHES, MAX_DIM, FLOATS, absolute_params, affine_key, che
 from .epoch_bb import _adam_table_on, stretch_half_step_plain
 
 __all__ = ["log_posterior", "log_posterior_plain", "stretch_half_step",
-           "stretch_half_step_plain", "map_ascent", "map_ascent_plain", "half_form", "map_form"]
+           "stretch_half_step_plain", "map_ascent", "map_ascent_plain", "logpost_form",
+           "half_form", "map_form"]
+
+#: P1 runs its latency form while the launch has at most this many walkers
+#: (blocks) an SM (:func:`logpost_form`; on the H100 it led at 3.9 walkers an
+#: SM with 42 points and at 0.5-4.4 with 143-144, tied at 7.8 with 42 and
+#: lost at 7.8 with 143 and from 15.5 with either: PERF.md §6)
+LOGPOST_LATENCY_WALKERS_PER_SM = 6
+#: P1's latency form takes a transient's points one a thread over at most
+#: eight warps (LP_LAT_LP_ENS_WARPS of csrc/stretch.cuh; a test ties the two)
+LOGPOST_LATENCY_MAX_POINTS = 256
 
 #: P2 runs its latency form while the launch's walkers, ceil(N / 32) warps
 #: each, need at most this many warps an SM (:func:`half_form`; on the H100
@@ -130,6 +142,21 @@ def _sm_count(device):
     return sm_count(device)
 
 
+def logpost_form(n_transients, W, n_points, n_sm):
+    """P1's form for ``n_transients`` x ``W`` walkers over rows of
+    ``n_points`` (padded) points on a card of ``n_sm`` SMs: ``"latency"``
+    (a block of ceil(n_points / 32) warps per walker, a point a thread: one
+    walker's chain, where a small launch leaves the card idle, as 28c's and
+    the exact-refit CV's few transients do) up to LOGPOST_LATENCY_MAX_POINTS
+    points while the walkers number at most LOGPOST_LATENCY_WALKERS_PER_SM
+    an SM, else ``"warp"`` (a warp per walker; the example's 64 and 512
+    transients). The walkers, not the warps, set the crossover: a block's
+    warps form their points side by side. Both give the same bits."""
+    if n_points > LOGPOST_LATENCY_MAX_POINTS:
+        return "warp"
+    return "latency" if n_transients * W <= LOGPOST_LATENCY_WALKERS_PER_SM * n_sm else "warp"
+
+
 def half_form(n_transients, half, n_points, n_sm):
     """P2's form for ``n_transients`` ensembles of ``half`` walkers a half
     over rows of ``n_points`` (padded) points on a card of ``n_sm`` SMs:
@@ -167,10 +194,13 @@ def log_posterior_plain(pp, q, param_offset=None, param_scale=None):
     return pp.plain(absolute_params(q, param_offset, param_scale))
 
 
-def log_posterior(pp, q, param_offset=None, param_scale=None):
+def log_posterior(pp, q, param_offset=None, param_scale=None, form=None):
     """P1: the log-posterior (S, W) float64 of every transient's walker
     states ``q`` (S, W, ndim) float32/float64 (arguments:
-    :func:`log_posterior_plain`). A CPU tensor takes the plain version."""
+    :func:`log_posterior_plain`; ``form``: ``"latency"``, ``"warp"`` or
+    None, :func:`logpost_form`'s pick). A CPU tensor takes the plain
+    version."""
+    _check_form("log-posterior", form, ("warp", "latency"))
     if q.device.type == "cpu":
         return log_posterior_plain(pp, q, param_offset, param_scale)
     _require_cuda(q, "population log-posterior")
@@ -179,14 +209,19 @@ def log_posterior(pp, q, param_offset=None, param_scale=None):
     S, W, ndim = q.shape
     check(q, "q", (S, W, ndim), FLOATS, pp.device)
     P = _params(pp, ndim, param_offset, param_scale)
+    if form is None:
+        form = logpost_form(S, W, P.n_points, _sm_count(q.device))
     out = torch.empty((S, W), dtype=torch.float64, device=q.device)
     from .build import library
     dev, stream = cuda_args(q.device)
     rc = library().pop_logpost_launch(ctypes.addressof(P), dev, _f64(pp), q.data_ptr(),
-                                      int(q.dtype == torch.float64), W, S, out.data_ptr(), stream)
+                                      int(q.dtype == torch.float64), W, S, out.data_ptr(),
+                                      int(form == "latency"), stream)
     if rc != 0:
-        raise RuntimeError(f"logpost_warp_kernel (population) launch failed: cudaError {rc}")
+        raise RuntimeError(f"the population log-posterior ({form} form) launch failed: "
+                           f"cudaError {rc}")
     LAUNCHES["pop_logpost"] += 1
+    LAUNCHES[f"pop_logpost_{form}"] += 1
     return out
 
 

@@ -152,12 +152,18 @@ def _normalized(packed, sigma_type):
     return yn, dyn, units, log_norm
 
 
-def _check_model(model, n_model):
+def check_model_class(model):
+    """Raise NotImplementedError for a model class the population cannot fit
+    (every class but ShockCooling2, on every device)."""
     from ..models import ShockCooling2
     if not isinstance(model, ShockCooling2):
         raise NotImplementedError(
             f"the population fit runs ShockCooling2 only (its kernels P1-P3); "
             f"{type(model).__name__} waits for ROADMAP Queue 1 item 10")
+
+
+def _check_model(model, n_model):
+    check_model_class(model)
     if n_model not in (3, 4):
         raise ValueError(f"a ShockCooling2 population fits 3 parameters (T_1, L_1, t_tr; t_exp "
                          f"= 0) or 4 (and t_exp), plus sigma with use_sigma; got {n_model}")

@@ -209,15 +209,19 @@ def test_compare_models_loo_small(capsys):
     assert tab.meta["models"]["wide"] is models[1]
     assert "model ranking by PSIS-LOO elpd" in capsys.readouterr().out
     kw = dict(labels=["snug", "wide"], nwalkers=16, nsteps=4, nsteps_burnin=4, device="cpu")
+    # refit runs the population, ShockCooling2's alone: another class refuses before any fit
+    sw17 = [models[0], tmodels.ShockCooling(lc)]
     with pytest.raises(NotImplementedError, match="item 10"):
-        tfit.compare_models_loo(lc, models, [SNUG, WIDE], refit=True, **kw)
+        tfit.compare_models_loo(lc, sw17, [SNUG, WIDE + [tmodels.UniformPrior(0.0, 1.0)]],
+                                refit=True, **kw)
     with pytest.raises(NotImplementedError, match="item 16"):
         tfit.compare_models_loo(lc, models, [SNUG, WIDE], checkpoint_file="ck.npz", **kw)
     with pytest.raises(NotImplementedError, match="item 16"):
         tfit.compare_models_loo(lc, models, [SNUG, WIDE], resume_from="ck.npz", **kw)
     flat = tab.meta["samplers"]["snug"].flatchain
     with pytest.raises(NotImplementedError, match="item 10"):
-        tfit.information_criteria(lc, models[0], flat, refit=True, priors=SNUG, device="cpu")
+        tfit.information_criteria(lc, sw17[1], np.c_[flat, flat[:, :1]], refit=True,
+                                  priors=SNUG + [tmodels.UniformPrior(-1.0, 1.0)], device="cpu")
 
 
 @pytest.mark.parametrize("driver", ["mcmc", "hmc", "map", "ptmcmc"])

@@ -3577,16 +3577,18 @@ def test_pop_param_blocks_match_the_c_structs(struct, mirror, size):
     assert _c_fields(struct) == [name for name, _ in mirror._fields_]
 
 
-def _pop_posterior(S, device, mjd=False, sigma=False):
+def _pop_posterior(S, device, mjd=False, sigma=False, epochs=(4, 8), n_points=None):
     """chip_smoke.py's population (examples/fit_population.py's, or its
-    MJD-scale twin), its PopulationPosterior on ``device``, priors and
+    MJD-scale twin; ``epochs`` and ``n_points`` as ``chip_smoke.pop_example``
+    takes them), its PopulationPosterior on ``device``, priors and
     window."""
     import sys
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import chip_smoke
     from lightcurve_fitting_tpu_torch.parallel.population import (PopulationPosterior,
                                                                   pack_population)
-    lcs, models, _ = chip_smoke.pop_example(S, device, mjd=mjd)
+    lcs, models, _ = chip_smoke.pop_example(S, device, mjd=mjd, epochs=epochs,
+                                            n_points=n_points)
     priors, lo, up = chip_smoke.pop_priors(mjd, sigma)
     pp = PopulationPosterior(pack_population(models, lcs, sigma, device), models[0], priors,
                              sigma)
@@ -3770,7 +3772,9 @@ def test_pop_skipping_the_padded_points_keeps_neg_inf_on_card(cuda_device, sigma
 @pytest.mark.cuda
 def test_pop_kernels_do_not_spill_on_card(cuda_device):
     """ptxas: P3 (ndim 3-5, float32 and float64, both forms) and P2's latency
-    form (ndim 3-5, the four dtype pairs) spill in no instantiation."""
+    form (ndim 3-5, the four dtype pairs) spill in no instantiation, and
+    P1's latency form (ndim 3-5, the four dtype pairs) has neither a spill
+    nor a stack frame."""
     import sys
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                                     "tools"))
@@ -3780,3 +3784,39 @@ def test_pop_kernels_do_not_spill_on_card(cuda_device):
     for key in ("pop_map_kernel", "stretch_half_step_latency_kernelI15PopSC2WarpModel"):
         ks = [v for k, v in report.items() if key in k]
         assert len(ks) == 12 and not any(v[2] or v[3] for v in ks), (key, ks)
+    ks = [v for k, v in report.items() if "logpost_latency_kernelI15PopSC2WarpModel" in k]
+    assert len(ks) == 12 and not any(v[1] or v[2] or v[3] for v in ks), ks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,points", [(S, n) for S in (1, 5, 8, 64) for n in (42, 143, 148)])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_pop_logpost_forms_bit_equal_on_card(cuda_device, S, points, f64):
+    """P1's latency form (a block per walker, a point a thread) gives its
+    warp form's bits at S transients of 64 walkers over ``points`` padded
+    points (42: the example's; 143 and 148: the exact-refit CV's
+    leave-one-band-out and leave-one-point-out refits of SN 2016bkv), ndim 3
+    (T_1, L_1, t_tr), 4 (t_exp fitted, or the intrinsic scatter) and 5,
+    float32 and float64 compute; both within 1e-5 (float32) or 1e-10
+    (float64) of the term scale of the plain version; each launch counted
+    under its form."""
+    try:
+        if f64:
+            config.set_compute_dtype(torch.float64)
+        for mjd, sigma in ((False, False), (True, False), (False, True), (True, True)):
+            chip_smoke, pp, priors, lo, up = _pop_posterior(
+                S, cuda_device, mjd, sigma, epochs=(7, 9) if points == 42 else (25, 27),
+                n_points=points)
+            assert pp.bb_coeffs.shape[1] == points
+            q, off, scale = chip_smoke.pop_state(pp, lo, up, 64, 11, cuda_device)
+            n0 = dict(kernels.LAUNCHES)
+            got = chip_smoke.pop_check_p1_forms("P1 forms", pp, off, scale, q)
+            for k in ("pop_logpost_warp", "pop_logpost_latency"):
+                assert kernels.LAUNCHES[k] == n0[k] + 1
+            assert kernels.LAUNCHES["pop_logpost"] == n0["pop_logpost"] + 2
+            chip_smoke.compare_ll("P1", got.flatten(), kpop.log_posterior_plain(pp, q, off, scale)
+                                  .flatten(), 1e-10 if f64 else 1e-5,
+                                  scale=pp.term_scales(common.absolute_params(q, off, scale))
+                                  .flatten())
+    finally:
+        config.set_compute_dtype(config.AUTO)

@@ -7,13 +7,18 @@ and of the fits, float32 compute, by CUDA events:
   16-start, 400-step ascent) on examples/fit_population.py's population at
   S = 64 and 512 (``--pop-sizes``), 64 walkers, float32 compute
   (``P1_S*``, ``P2_S*``, ``P3_S*``, each ``_dev`` too), each hashed; where
-  the checkout has P2's and P3's two forms, each form too, in the order A,
-  B, B, A (``P2_S*_{warp,latency}{1,2}``, ``P3_S*_{warp,pair}{1,2}``, each
-  hashed: equal digests, equal bits); with ``--fits`` the walls of
-  ``chip_smoke.py`` 28a-b (``fit_population`` at the example's defaults,
-  S = 64 and 512, twice each, ``pop_28*``) and a profiled run's device busy
-  time and idle share, and 28c's fit (8 transients with chains) with P2
-  in the rule's form and in the warp form, A B B A (``pop_28c_*``);
+  the checkout has P1's, P2's and P3's two forms, each form too, in the
+  order A, B, B, A (``P1_S*_{warp,latency}{1,2}``,
+  ``P2_S*_{warp,latency}{1,2}``, ``P3_S*_{warp,pair}{1,2}``, each hashed:
+  equal digests, equal bits), and P1's forms and P2's warp form at the
+  exact-refit CV's widths (``--pop-refit-shapes``: ``P1_R*``, ``P2_R*``);
+  with ``--fits`` the walls of ``chip_smoke.py`` 28a-b
+  (``fit_population`` at the example's defaults, S = 64 and 512, twice
+  each, ``pop_28*``) and a profiled run's device busy time and idle share,
+  28c's fit (8 transients with chains) with P2 in the rule's form and in
+  the warp form, A B B A (``pop_28c_*``), and 29's exact-refit CV
+  (``refit_*``: the flagship chain, ``information_criteria(refit=True)``
+  twice and profiled);
 * K1 at 131072 walkers; K2 per half-step of half 32, 16384 and 65536 (the
   64- and 131072-walker fits); K6a per ladder half-step of 7 rungs x 32 and
   17 x 4096 (ShockCooling2: the PT fit and the evidence) and of 17 x 512
@@ -305,6 +310,9 @@ def main():
                          "population walls 28a-c)")
     ap.add_argument("--pop-sizes", default="64,512",
                     help="the populations' sizes S for P1-P3, comma-separated")
+    ap.add_argument("--pop-refit-shapes", default="5x143,1x148",
+                    help="the exact-refit CV's widths for P1's forms and P2's warp form, "
+                         "S x padded points, comma-separated")
     ap.add_argument("--pop-epochs", default="4,8",
                     help="a transient's epochs, lo,hi (6 points each; the example's 4,8: 24-42 "
                          "points); other than the default the rows are named P*_S{S}_E{lo}-{hi}")
@@ -1318,14 +1326,15 @@ def time_pop(args, dev, chip_smoke, times, digests, walls):
             kpop.stretch_half_step(pp, x, logp, 0, u_z, j, u_acc, 2.0, off, sc, cx, cl, acc,
                                    check_partners=False, **fkw)
         for name, fn, match, launches in (
-                (f"P1_{tag}", lambda: kpop.log_posterior(pp, q, off, sc), "logpost_warp_kernel",
-                 20),
+                (f"P1_{tag}", lambda: kpop.log_posterior(pp, q, off, sc), "logpost_", 20),
                 (f"P2_{tag}", p2, "stretch_half_step", 20),
                 (f"P3_{tag}", lambda: kpop.map_ascent(pp, u0, bounds, 400), "pop_map_kernel", 1)):
             times[name] = events_ms(fn, launches, args.repeats)
             times[name + "_dev"] = device_ms(fn, match, launches, args.repeats)
         if "form" not in kpop.stretch_half_step.__code__.co_varnames:
             continue
+        if "form" in kpop.log_posterior.__code__.co_varnames:
+            time_p1_forms(args, kpop, pp, q, off, sc, tag, times, digests)
         for key, forms, step in (("P2", ("warp", "latency"), lambda f: p2(form=f)),
                                  ("P3", ("warp", "pair")[:1 + (pp.bb_coeffs.shape[1]
                                                                 <= kpop.MAP_PAIR_MAX_POINTS)],
@@ -1345,8 +1354,108 @@ def time_pop(args, dev, chip_smoke, times, digests, walls):
                 times[name + "_dev"] = device_ms(lambda: step(form),
                                                  "stretch_half_step" if key == "P2"
                                                  else "pop_map_kernel", n, args.repeats)
+    if hasattr(chip_smoke, "POP_REFIT_SHAPES"):
+        time_pop_refit_shapes(args, dev, chip_smoke, times, digests)
     if args.fits:
         time_pop_fits(args, dev, chip_smoke, walls)
+        if hasattr(chip_smoke, "REFIT_CHAIN"):
+            time_refit(dev, chip_smoke, walls)
+
+
+def time_refit(dev, chip_smoke, walls):
+    """The wall of ``chip_smoke.py`` 29's exact-refit CV: the flagship chain
+    (``chip_smoke.REFIT_CHAIN``, ``refit_chain``, s), then
+    ``information_criteria(group_by="filter", refit=True)`` at
+    ``_exact_cv_elpd``'s defaults twice (``refit_ic_{rep}``, s) and a
+    profiled run's busy time, idle share and population kernels' device
+    time (``refit_ic_profiled``)."""
+    import torch
+    from lightcurve_fitting_tpu_torch import fitting
+    from lightcurve_fitting_tpu_torch.models import ShockCooling2
+    lc = chip_smoke.flagship_lc()
+    model = ShockCooling2(lc, device=dev)
+    priors = chip_smoke.flagship_priors()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chain = fitting.lightcurve_mcmc(lc, model, priors=priors, p_lo=chip_smoke.REFIT_WINDOW[0],
+                                    p_up=chip_smoke.REFIT_WINDOW[1], quiet=True, device=dev,
+                                    **chip_smoke.REFIT_CHAIN)
+    torch.cuda.synchronize()
+    walls["refit_chain"] = time.perf_counter() - t0
+
+    def ic():
+        return fitting.information_criteria(lc, model, chain.flatchain, group_by="filter",
+                                            refit=True, priors=priors, seed=0, quiet=True,
+                                            device=dev)
+    for rep in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ic()
+        torch.cuda.synchronize()
+        walls[f"refit_ic_{rep}"] = time.perf_counter() - t0
+    walls["refit_flagged"] = {k: len(r["refit"]["labels"]) + r["refit"]["n_failed"]
+                              for k, r in (("points", out), ("bands", out["logo"]))
+                              if "refit" in r}
+    wall_p, busy, top = fit_busy(ic, match="PopSC2WarpModel")
+    walls["refit_ic_profiled"] = {"wall": wall_p, "busy": busy, "idle_share": 1 - busy / wall_p,
+                                  "top_kernels_ms": top}
+
+
+def time_p1_forms(args, kpop, pp, q, off, sc, tag, times, digests):
+    """P1 in each form on the states q, in the order warp, latency, latency,
+    warp (``P1_{tag}_{form}{1,2}``, each ``_dev`` too, each hashed: equal
+    digests, equal bits)."""
+    forms = ("warp", "latency")
+    for k, form in enumerate(forms + forms[::-1]):
+        name = f"P1_{tag}_{form}{1 + (k >= len(forms))}"
+
+        def p1(form=form):
+            return kpop.log_posterior(pp, q, off, sc, form=form)
+        digests[name] = digest(p1())
+        times[name] = events_ms(p1, 20, args.repeats)
+        times[name + "_dev"] = device_ms(p1, "logpost_", 20, args.repeats)
+
+
+def time_pop_refit_shapes(args, dev, chip_smoke, times, digests):
+    """P1 in each form (:func:`time_p1_forms`) and P2's warp form (one
+    half-step with the chain slot; its latency form takes at most 128
+    points) at the exact-refit CV's widths, ``--pop-refit-shapes`` (S x
+    padded points, 64 walkers, float32 compute, t_exp fitted as the
+    flagship's refits fit it: ``chip_smoke.pop_example``'s MJD-scale curves
+    cut to so many points): ``P1_R{S}x{N}_*``, ``P2_R{S}x{N}_warp``, each
+    with ``_dev`` and a digest."""
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels import pop as kpop
+    from lightcurve_fitting_tpu_torch.parallel.population import (PopulationPosterior,
+                                                                  pack_population)
+    for shape in args.pop_refit_shapes.split(","):
+        S, n = (int(v) for v in shape.split("x"))
+        tag = f"R{S}x{n}"
+        lcs, models, _ = chip_smoke.pop_example(S, dev, True, chip_smoke.POP_REFIT_EPOCHS, n)
+        priors, lo, up = chip_smoke.pop_priors(mjd=True)
+        pp = PopulationPosterior(pack_population(models, lcs, False, dev), models[0], priors)
+        q, off, sc = chip_smoke.pop_state(pp, lo, up, 64, 0, dev)
+        time_p1_forms(args, kpop, pp, q, off, sc, tag, times, digests)
+        x = q.reshape(S, 2, 32, -1).contiguous()
+        logp = kpop.log_posterior(pp, q, off, sc).reshape(S, 2, 32)
+        g = torch.Generator(device=dev)
+        g.manual_seed(S)
+        shape = (S, 2, 32)
+        u_z = torch.rand(shape, generator=g, device=dev)
+        j = torch.randint(0, 32, shape, generator=g, device=dev)
+        u_acc = torch.rand(shape, generator=g, device=dev)
+        acc = torch.zeros(shape, dtype=torch.int32, device=dev)
+        cx, cl = torch.empty_like(x), torch.empty(shape, dtype=torch.float64, device=dev)
+        xd, ld = x.clone(), logp.clone()
+        kpop.stretch_half_step(pp, xd, ld, 0, u_z, j, u_acc, 2.0, off, sc, cx, cl, acc,
+                               form="warp")
+        digests[f"P2_{tag}_warp"] = digest(xd, ld, acc)
+
+        def p2():
+            kpop.stretch_half_step(pp, x, logp, 0, u_z, j, u_acc, 2.0, off, sc, cx, cl, acc,
+                                   check_partners=False, form="warp")
+        times[f"P2_{tag}_warp"] = events_ms(p2, 20, args.repeats)
+        times[f"P2_{tag}_warp_dev"] = device_ms(p2, "stretch_half_step", 20, args.repeats)
 
 
 def time_pop_fits(args, dev, chip_smoke, walls):
