@@ -380,7 +380,29 @@ raises and the script exits non-zero):
     and idle share; (c) the example's diagnostics: its first 8 transients
     refit with chains, ``population_goodness_of_fit`` and
     ``population_information_criteria`` on the card against the same
-    functions on the CPU in float64.
+    functions on the CPU in float64;
+30. simulation-based calibration at examples/calibration_check.py's full
+    size (``simulation_based_calibration``: ShockCooling2, 128 simulations,
+    32 walkers x 400 + 600, init="map"): P3, P1 and P2 over SC2 in their
+    rules' forms and nothing else, the mean acceptance within 0.01 of the
+    JAX package's float64 CPU run (``SBC_REF``), every p-value above 0.01,
+    the wall and the idle share;
+31. P1 and P2 over ShockCooling and ShockCooling4 (``kernels/csrc/pop_sc.cu``)
+    against their plain versions as 27 holds them (S = 64 and 4, t_exp and
+    the scatter, f32 and f64, both forms bit for bit, the poisoned copy),
+    and at 32's widths (SN 2016bkv without a band or a point: P1's forms
+    bit for bit and against the plain version, P2 as K2), their 96
+    instantiations without a spill, each timed; then
+    ``fit_population`` over a 64-transient survey of each class from the
+    window, the mean acceptance within 0.01 of the JAX package's
+    (``SC_POP_REF``), the launches by form, the walls and idle shares;
+32. 26c's ``compare_models_loo`` with ``refit=True``,
+    ``refit_options={"init": "window"}`` and ``group_by="filter"``: each
+    refit call P1 once and P2 twice a step over its class's policy, the
+    repaired labels the flagged ones, each model's leave-one-band-out
+    refits and 16 of its leave-one-point-out ones again on the CPU in
+    float64, the mean of the card's acceptance less the CPU's within four
+    standard errors of the seed's own effect (``REFIT_SC_SD``).
 
 The last lines are the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and library time, and ``{"ok": true,
@@ -6245,8 +6267,13 @@ def pop_points(pp):
 
 
 def pop_eval_ops(pp):
-    """P1 at one walker and one real point: K1's point (sc2_eval_ops)."""
+    """P1 at one walker and one real point: the point of the class's single
+    fit (sc2_eval_ops: K1's; sc_eval_ops, sc4_eval_ops)."""
     D1 = pp.bb_coeffs.shape[-1]
+    if pp.family == "sc":
+        return 3 * (D1 - 1) + 40 + 14 * SFU
+    if pp.family == "sc4":
+        return 6 * (D1 - 1) + 50 + 15 * SFU
     return 3 * (D1 - 1) + 30 + 10 * SFU
 
 
@@ -6732,7 +6759,6 @@ def pop_refit_shape_checks(seed, device_ms):
     of P2's warp form (one half-step with the chain slot: P2's latency form
     takes at most 128 points). Returns (the line, {(S, N): {"warp": ms,
     "latency": ms, "plain": ms, "p2_warp": ms, "bound_ms": ms}})."""
-    import numpy as np
     import torch
     from lightcurve_fitting_tpu_torch.core import config
     from lightcurve_fitting_tpu_torch.kernels import common
@@ -6772,33 +6798,7 @@ def pop_refit_shape_checks(seed, device_ms):
                             raise AssertionError(f"{what}: P1's -inf set on the poisoned copy "
                                                  f"({form} form) is not the plain version's")
                     if label == "f32" and mjd and not sigma:
-                        x = q.reshape(S, 2, POP_WALKERS // 2, -1).contiguous()
-                        logp = got.reshape(S, 2, POP_WALKERS // 2)
-                        g = torch.Generator(device=dev)
-                        g.manual_seed(seed)
-                        shape = (S, 2, POP_WALKERS // 2)
-                        u_z = torch.rand(shape, generator=g, device=dev)
-                        j = torch.randint(0, POP_WALKERS // 2, shape, generator=g, device=dev)
-                        u_acc = torch.rand(shape, generator=g, device=dev)
-                        acc = torch.zeros(shape, dtype=torch.int32, device=dev)
-                        cx = torch.empty_like(x)
-                        cl = torch.empty(shape, dtype=torch.float64, device=dev)
-
-                        def p2():
-                            kpop.stretch_half_step(pp, x, logp, 0, u_z, j, u_acc, 2.0, off, sc,
-                                                   cx, cl, acc, check_partners=False,
-                                                   form="warp")
-                        t = {f: float(np.nanmedian(device_ms(
-                            lambda f=f: kpop.log_posterior(pp, q, off, sc, form=f), "logpost_",
-                            10, 3))) for f in POP_FORMS["pop_logpost"]}
-                        t["plain"] = cuda_ms(lambda: kpop.log_posterior_plain(pp, q, off, sc),
-                                             repeats=3)
-                        t["p2_warp"] = float(np.nanmedian(device_ms(p2, "stretch_half_step",
-                                                                    10, 3)))
-                        t["bound_ms"] = bound(POP_WALKERS * pop_points(pp) * pop_eval_ops(pp),
-                                              q.numel() * 4 + pop_table_bytes(pp)
-                                              + S * POP_WALKERS * 8)[0]
-                        times[(S, n)] = t
+                        times[(S, n)] = pop_refit_times(pp, q, off, sc, seed, device_ms)
                 parts.append(f"{S} x {POP_WALKERS} at {n} points {label} (rule: "
                              f"{kpop.logpost_form(S, POP_WALKERS, n, pop_sms())}): ndim 3-5 "
                              f"bit-equal, max |d|/scale {worst:.3e} (<= {rel:.0e}), -inf kept")
@@ -6823,7 +6823,8 @@ def pop_times(pp, q, off, sc, x0, u0, bounds, plain_map_ms, device_ms):
     and its bound, at the population of pp (float32 compute, the rescaled
     float32 state): P1 on its walkers, P2 one half-step with the chain slot
     (as production writes it), P3 the whole ascent (its plain version's
-    time ``plain_map_ms``, from :func:`pop_check_map`)."""
+    time ``plain_map_ms``, from :func:`pop_check_map`; none without the
+    starts ``u0``)."""
     import numpy as np
     import torch
     from lightcurve_fitting_tpu_torch.kernels import pop as kpop
@@ -6858,16 +6859,17 @@ def pop_times(pp, q, off, sc, x0, u0, bounds, plain_map_ms, device_ms):
     tables = pop_table_bytes(pp)
     n = pop_points(pp)
     ev, ev_g = pop_eval_ops(pp), pop_grad_ops(pp)
-    n_starts = u0.shape[1]
     out = {}
-    for name, fn, plain, match, ops, nbytes in (
-            ("P1", p1, lambda: kpop.log_posterior_plain(pp, q, off, sc), "logpost_",
-             W * n * ev, q.numel() * 4 + tables + S * W * 8),
-            ("P2", p2, p2_plain, "stretch_half_step", half * n * ev + S * half * PROPOSAL,
-             S * W * ndim * 4 + S * half * ndim * 4 * 2 + S * half * (4 + 8 + 4 + 8 + 8 + 4 * 2)
-             + tables),
-            ("P3", p3, None, "pop_map_kernel", n_starts * (POP_ITER + 1) * n * ev_g,
-             u0.numel() * 8 * 2 + S * n_starts * 8 + POP_ITER * 24 + tables)):
+    kinds = [("P1", p1, lambda: kpop.log_posterior_plain(pp, q, off, sc), "logpost_",
+              W * n * ev, q.numel() * 4 + tables + S * W * 8),
+             ("P2", p2, p2_plain, "stretch_half_step", half * n * ev + S * half * PROPOSAL,
+              S * W * ndim * 4 + S * half * ndim * 4 * 2 + S * half * (4 + 8 + 4 + 8 + 8 + 4 * 2)
+              + tables)]
+    if u0 is not None:
+        n_starts = u0.shape[1]
+        kinds.append(("P3", p3, None, "pop_map_kernel", n_starts * (POP_ITER + 1) * n * ev_g,
+                      u0.numel() * 8 * 2 + S * n_starts * 8 + POP_ITER * 24 + tables))
+    for name, fn, plain, match, ops, nbytes in kinds:
         out[name] = {"ms": cuda_ms(fn, repeats=2 if name == "P3" else 20),
                      "dev": float(np.nanmedian(device_ms(fn, match, 3 if name == "P3" else 10, 3))),
                      # P3's plain ascent (~5 s) was timed in pop_check_map
@@ -6876,7 +6878,7 @@ def pop_times(pp, q, off, sc, x0, u0, bounds, plain_map_ms, device_ms):
     # each form's device time (the rule's form is timed above)
     for name, fn, key, match in (("P1", p1, "pop_logpost", "logpost_"),
                                  ("P2", p2, "pop_half_step", "stretch_half_step"),
-                                 ("P3", p3, "pop_map", "pop_map_kernel")):
+                                 ("P3", p3, "pop_map", "pop_map_kernel"))[:len(kinds)]:
         out[name]["forms"] = {f: float(np.nanmedian(device_ms(
             lambda: fn(form=f), match, 3 if name == "P3" else 10, 3))) for f in POP_FORMS[key]}
     return out
@@ -6907,8 +6909,9 @@ def pop_fit(S, dev, profile=False):
     flat, acc, summ = fit()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, forms = pop_check_launches(f"28 S = {S}", S, lcs, dict(kernels.LAUNCHES),
-                                         summaries=True)
+    launches, forms = pop_run_launches(f"28 S = {S}", dict(kernels.LAUNCHES), S, POP_WALKERS,
+                                       max(len(lc) for lc in lcs), POP_BURNIN + POP_STEPS,
+                                       map_starts=POP_STARTS, others=("percentile",))
     if flat is not None or summ.shape != (S, 3, 3) or not np.isfinite(summ).all() \
             or acc.shape != (S,) or not np.isfinite(acc).all():
         raise AssertionError(f"28 S = {S}: bad outputs")
@@ -6931,30 +6934,32 @@ def pop_fit(S, dev, profile=False):
     return res
 
 
-def pop_check_launches(what, S, lcs, launches, summaries):
-    """A fit_population run's ``launches`` (counted from 0 just before it) at
-    examples/fit_population.py's defaults on the S transients ``lcs``: P1
-    once, P2 twice a step and P3 once, each in the form kernels/pop.py's
-    rules pick there, K5 where ``summaries``, nothing else. Returns
-    ({kernel or kernel_form: launches}, {kernel: form})."""
-    import torch
+def pop_run_launches(what, launches, S, W, N, steps, count="pop", map_starts=None, others=()):
+    """One fit_population run's ``launches`` (counted from 0 just before it)
+    over S transients of W walkers on rows of N padded points: P1 once and
+    P2 twice each of ``steps`` steps under ``count``'s names (``pop`` over
+    ShockCooling2, ``pop_sc``, ``pop_sc4``), each in the form
+    ``kernels/pop.py``'s rules pick, P3 once in its rule's form with
+    ``map_starts`` starts (init="map"), each kernel of ``others`` at least
+    once, nothing else. Returns ({kernel or kernel_form: launches}, {kernel:
+    form})."""
     from lightcurve_fitting_tpu_torch.kernels import pop as kpop
-    from lightcurve_fitting_tpu_torch.kernels.gradient import sm_count
-    sms = sm_count(torch.device("cuda"))
-    n_points = max(len(lc) for lc in lcs)
-    forms = {"pop_logpost": kpop.logpost_form(S, POP_WALKERS, n_points, sms),
-             "pop_half_step": kpop.half_form(S, POP_WALKERS // 2, n_points, sms),
-             "pop_map": kpop.map_form(S, POP_STARTS, n_points, sms)}
-    want = {"pop_logpost": 1, "pop_half_step": 2 * (POP_BURNIN + POP_STEPS), "pop_map": 1}
-    want.update({f"{k}_{f}": want[k] if f == forms[k] else 0
-                 for k, fs in POP_FORMS.items() for f in fs})
-    others = ("percentile",) if summaries else ()
-    if {k: launches[k] for k in want} != want or any(
-            v for k, v in launches.items() if k not in tuple(want) + others) \
-            or (summaries and launches["percentile"] < 1):
-        raise AssertionError(f"{what}: launches {launches}, expected {want}"
-                             + (" and K5" if summaries else ""))
-    return {k: launches[k] for k in want}, forms
+    sms = pop_sms()
+    p1, p2 = f"{count}_logpost", f"{count}_half_step"
+    forms = {p1: kpop.logpost_form(S, W, N, sms), p2: kpop.half_form(S, W // 2, N, sms)}
+    want = {p1: 1, p2: 2 * steps}
+    kinds = {p1: "pop_logpost", p2: "pop_half_step"}
+    if map_starts:
+        forms["pop_map"], want["pop_map"], kinds["pop_map"] = \
+            kpop.map_form(S, map_starts, N, sms), 1, "pop_map"
+    for k, kind in kinds.items():
+        want.update({f"{k}_{f}": want[k] if f == forms[k] else 0 for f in POP_FORMS[kind]})
+    got = {k: launches.get(k, 0) for k in want}
+    extra = {k: v for k, v in launches.items() if v and k not in want and k not in others}
+    if got != want or extra or any(launches.get(k, 0) < 1 for k in others):
+        raise AssertionError(f"{what}: launches {got} and {extra}, expected {want} and "
+                             f"{others} at least once")
+    return got, forms
 
 
 def pop_diagnostics(dev):
@@ -6977,8 +6982,9 @@ def pop_diagnostics(dev):
     flat, acc = fit_population(models, lcs, pop_priors()[0], p_lo=POP_LO, p_up=POP_UP,
                                nwalkers=POP_WALKERS, nsteps=POP_STEPS, nsteps_burnin=POP_BURNIN,
                                seed=1, init="map")
-    launches, forms = pop_check_launches("28c", POP_DIAG, lcs, dict(kernels.LAUNCHES),
-                                         summaries=False)
+    launches, forms = pop_run_launches("28c", dict(kernels.LAUNCHES), POP_DIAG, POP_WALKERS,
+                                       max(len(lc) for lc in lcs), POP_BURNIN + POP_STEPS,
+                                       map_starts=POP_STARTS)
     if flat.shape != (POP_DIAG, POP_WALKERS * POP_STEPS, 3) or not np.isfinite(flat).all():
         raise AssertionError(f"28c: bad chains {flat.shape}")
     import scipy.stats  # noqa: F401  (imported by the goodness of fit: ~4 s the first time)
@@ -7093,24 +7099,6 @@ def refit_calls(record):
     return install, restore
 
 
-def refit_check_launches(call, sms):
-    """One refit call's launches: P1 once, P2 twice a step, P3 once, each in
-    the form kernels/pop.py's rules pick at its S and padded points, nothing
-    else. Returns ({kernel or kernel_form: launches}, {kernel: form}, S, N)."""
-    from lightcurve_fitting_tpu_torch.kernels import pop as kpop
-    S, N = len(call["lcs"]), max(len(lc) for lc in call["lcs"])
-    forms = {"pop_logpost": kpop.logpost_form(S, REFIT_WALKERS, N, sms),
-             "pop_half_step": kpop.half_form(S, REFIT_WALKERS // 2, N, sms),
-             "pop_map": kpop.map_form(S, POP_STARTS, N, sms)}
-    want = {"pop_logpost": 1, "pop_half_step": 2 * (REFIT_STEPS + REFIT_BURNIN), "pop_map": 1}
-    want.update({f"{k}_{f}": want[k] for k, f in forms.items()})
-    if call["launches"] != want:
-        raise AssertionError(f"29: a refit of {S} x {N} launched {call['launches']}, expected "
-                             f"{want}")
-    return {**want, **{f"{k}_{f}": 0 for k, fs in POP_FORMS.items() for f in fs
-                       if f != forms[k]}}, forms, S, N
-
-
 def refit_cpu_repeat(call, model_cpu):
     """The leave-one-band-out refit's fit_population call again on the CPU in
     float64 (the same curves, box, options and seed) and its held-out scores;
@@ -7167,7 +7155,6 @@ def phase_refit(smi, dev=None):
     from lightcurve_fitting_tpu_torch import fitting, kernels
     from lightcurve_fitting_tpu_torch.models import ShockCooling2
     dev = torch.device("cuda") if dev is None else dev
-    sms = pop_sms()
     lc = flagship_lc()
     model = ShockCooling2(lc, device=dev)
     priors = flagship_priors()
@@ -7215,7 +7202,9 @@ def phase_refit(smi, dev=None):
             continue
         if res["refit"]["n_failed"]:
             raise AssertionError(f"29 {kind}: {res['refit']['n_failed']} refits failed")
-        launches, forms, S, N = refit_check_launches(calls[i], sms)
+        S, N = len(calls[i]["lcs"]), max(len(sub) for sub in calls[i]["lcs"])
+        launches, forms = pop_run_launches(f"29 {kind}", calls[i]["launches"], S, REFIT_WALKERS,
+                                           N, REFIT_STEPS + REFIT_BURNIN, map_starts=POP_STARTS)
         runs[f"29 {kind}"] = launches
         by_kind[kind] = calls[i]
         lines.append(f"{kind}: {len(flagged)} flagged, S = {S} x {N} points, launches "
@@ -7252,6 +7241,635 @@ def phase_refit(smi, dev=None):
           f"{wall:.3f} s (on {smi}); profiled repeat {wall_p:.3f} s, device busy {busy:.4f} s "
           f"(idle share {1 - busy / wall_p:.3f}): "
           + ", ".join(f"{k} {v:.4f} s" for k, v in parts.items()))
+    return runs
+
+
+# ---------------------------------------- simulation-based calibration (30)
+
+# examples/calibration_check.py's SBC at its full size: ShockCooling2, these
+# priors (t_exp the fourth), 5 epochs x 4 bands, 32 walkers x 400 + 600 steps
+SBC_PRIORS = [(8.0, 20.0), (1.0, 4.0), (25.0, 50.0), (-1.0, 1.0)]
+SBC_SIMS, SBC_RANKS, SBC_WALKERS, SBC_BURNIN, SBC_STEPS, SBC_SEED = 128, 63, 32, 400, 600, 3
+SBC_EPOCHS, SBC_BANDS = 5, ("g", "r", "i", "B")
+# the JAX package's run of the same call, float64 on the CPU: (mean
+# acceptance, least acceptance, p-values); PYTHONPATH=. python tests/test_torch_sbc.py
+SBC_REF = (0.5522513834635417, 0.51625,
+           (0.22528702361367522, 0.304140404581717, 0.621600913232516, 0.06096785784181019))
+SBC_ACC_TOL = 0.01
+SBC_P_MIN = 0.01            # the JAX verdict "consistent with calibrated inference"
+
+
+def phase_sbc(smi):
+    """30: examples/calibration_check.py's simulation-based calibration at
+    its full size through the public ``simulation_based_calibration``
+    (SBC_PRIORS, 128 simulations of linspace(1, 8, 5) x g, r, i, B, n_ranks
+    63, 32 walkers x 400 + 600 steps, init="map", seed 3), the counters
+    reset before it: P3 once, P1 once, P2 twice a step, each in its rule's
+    form, nothing else; the mean acceptance within SBC_ACC_TOL of the JAX
+    package's float64 CPU run of the same call (SBC_REF) and the smallest
+    p-value above 0.01 (the JAX verdict "consistent with calibrated
+    inference"); the p-values, the wall and a profiled repeat's busy time by
+    kernel and idle share. Returns the run's launches."""
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch import kernels
+    from lightcurve_fitting_tpu_torch.models import ShockCooling2, UniformPrior
+    from lightcurve_fitting_tpu_torch.parallel import simulation_based_calibration
+    priors = [UniformPrior(*b) for b in SBC_PRIORS]
+
+    def run():
+        return simulation_based_calibration(
+            ShockCooling2(), priors, times=np.linspace(1.0, 8.0, SBC_EPOCHS),
+            filters=list(SBC_BANDS), n_sims=SBC_SIMS, n_ranks=SBC_RANKS, nwalkers=SBC_WALKERS,
+            nsteps=SBC_STEPS, nsteps_burnin=SBC_BURNIN, init="map", seed=SBC_SEED, quiet=True)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, forms = pop_run_launches("30", dict(kernels.LAUNCHES), SBC_SIMS, SBC_WALKERS,
+                                       SBC_EPOCHS * len(SBC_BANDS), SBC_BURNIN + SBC_STEPS,
+                                       map_starts=POP_STARTS)
+    acc, pv, ranks = np.asarray(res["acceptance"]), np.asarray(res["p_values"]), res["ranks"]
+    mean_acc = float(np.mean(acc))
+    if ranks.shape != (SBC_SIMS, len(SBC_PRIORS)) or ranks.min() < 0 \
+            or ranks.max() > SBC_RANKS or not np.isfinite(acc).all():
+        raise AssertionError(f"30: ranks {ranks.shape} in [{ranks.min()}, {ranks.max()}], "
+                             f"acceptance {acc}")
+    if abs(mean_acc - SBC_REF[0]) > SBC_ACC_TOL or not float(pv.min()) > SBC_P_MIN:
+        raise AssertionError(f"30: mean acceptance {mean_acc:.4f} (JAX float64 CPU "
+                             f"{SBC_REF[0]:.4f} +- {SBC_ACC_TOL}), p-values {pv} (each > "
+                             f"{SBC_P_MIN})")
+    wall_p, prof = profiled(run, cpu=False)
+    parts, busy = time_split(prof, wall_p, POP_SPLIT)
+    phase("SBC 30", f"simulation_based_calibration ShockCooling2, {SBC_SIMS} simulations x "
+          f"{SBC_EPOCHS * len(SBC_BANDS)} points, {SBC_WALKERS} walkers x {SBC_BURNIN} + "
+          f"{SBC_STEPS}, init=\"map\", seed {SBC_SEED}: p-values {fmt(pv)} (JAX float64 CPU "
+          f"{fmt(SBC_REF[2])}; each > {SBC_P_MIN}); mean acceptance {mean_acc:.4f} (JAX "
+          f"{SBC_REF[0]:.4f} +- {SBC_ACC_TOL}), least {acc.min():.4f} (JAX {SBC_REF[1]:.4f}); "
+          f"launches {launches} (forms {forms}); {wall:.3f} s end to end (the simulations on "
+          f"the host included; on {smi}); profiled repeat {wall_p:.3f} s, device busy "
+          f"{busy:.4f} s (idle share {1 - busy / wall_p:.3f}): "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in parts.items()))
+    return launches
+
+
+# ------------------------------------ the SW17 and MSW23 populations (31)
+
+# the surveys of tests/test_torch_population.py::sc_example_population:
+# examples/fit_population.py's generator (default_rng(0); U, B, V, g, r, i;
+# 4-7 epochs over days 1-8; 5% errors) with each truth (v_s*, M_env, f_rho M,
+# R) drawn uniformly from this box, where both classes' curves are finite and
+# positive over those days (t_exp = 0, so n_model = 4);
+# examples/compare_models.py's priors and window without t_0
+SC_POP_BOX = ([1.0, 1.0, 0.5, 1.0], [5.0, 10.0, 5.0, 10.0])
+SC_POP_LO, SC_POP_UP = [0.5, 0.5, 0.1, 0.1], [10.0, 20.0, 10.0, 20.0]
+SC_POP_S = 64
+SC_POP_SMALL = 4            # a launch whose rules take the latency forms
+SC_POP_COUNT = {"ShockCooling": "pop_sc", "ShockCooling4": "pop_sc4"}
+# the JAX package's fit of each survey at the example's 64 walkers x 100 +
+# 500 steps from the window (init="window"), seed 1, float64 on the CPU:
+# (mean acceptance, its standard error over the transients, the least);
+# PYTHONPATH=. python tests/test_torch_population.py ShockCooling 64 (and
+# ShockCooling4)
+SC_POP_REF = {"ShockCooling": (0.17981396484375, 0.004217867294352526, 0.1239375),
+              "ShockCooling4": (0.17646728515625, 0.004403688592196407, 0.10228125)}
+SC_POP_SPLIT = {"P2 (half-steps)": tuple(f"{k}<{m}" for k in ("stretch_half_step_kernel",
+                                                                "stretch_half_step_latency_kernel")
+                                         for m in ("popscwarpmodel", "popsc4warpmodel")),
+                "P1 (initial state)": tuple(f"{k}<{m}" for k in ("logpost_warp_kernel",
+                                                                  "logpost_latency_kernel")
+                                            for m in ("popscwarpmodel", "popsc4warpmodel")),
+                "K5 (summaries)": ("percentile",)}
+
+
+def sc_pop_example(name, S, dev, mjd=False):
+    """The SW17 (``name`` "ShockCooling") or MSW23 ("ShockCooling4") survey of
+    S transients described above, through the port: (lcs, models, truths).
+    ``mjd``: the times at MJD scale (t_exp = 58000, the fifth parameter
+    under POP_MJD_PRIOR), as :func:`pop_example`'s."""
+    import numpy as np
+    from lightcurve_fitting_tpu_torch import models as tmodels
+    from lightcurve_fitting_tpu_torch.filters import filtdict
+    from lightcurve_fitting_tpu_torch.lightcurve import LC
+    Model = getattr(tmodels, name)
+    rng = np.random.default_rng(0)
+    filters = [filtdict[n] for n in ["U", "B", "V", "g", "r", "i"]]
+    t0 = 58000.0 if mjd else 0.0
+    lcs, models, truths = [], [], []
+    for _ in range(S):
+        truth = rng.uniform(*SC_POP_BOX)
+        truths.append(truth)
+        n_epochs = rng.integers(4, 8)
+        t = t0 + np.repeat(np.linspace(1.0, 8.0, n_epochs), len(filters))
+        f = np.array(filters * n_epochs)
+        y_true = Model()(t, f, *truth, t0)
+        dy = 0.05 * y_true
+        lc = LC([t, f, y_true + rng.normal(scale=dy), dy], names=["MJD", "filter", "lum", "dlum"])
+        lcs.append(lc)
+        models.append(Model(lc, device=dev))
+    return lcs, models, np.array(truths)
+
+
+def sc_pop_priors(mjd=False, sigma=False):
+    from lightcurve_fitting_tpu_torch.models import LogUniformPrior, UniformPrior
+    priors = ([UniformPrior(0.1, 20.0), UniformPrior(0.1, 30.0), LogUniformPrior(0.01, 100.0),
+               UniformPrior(0.01, 50.0)] + [UniformPrior(*POP_MJD_PRIOR)] * mjd
+              + [UniformPrior(*POP_SIGMA_PRIOR)] * sigma)
+    lo = SC_POP_LO + [POP_MJD_LO] * mjd + [POP_SIGMA_LO] * sigma
+    up = SC_POP_UP + [POP_MJD_UP] * mjd + [POP_SIGMA_UP] * sigma
+    return priors, lo, up
+
+
+# the exact-refit CV's widths of P1 and P2 over SW17 and MSW23 in 31, 32's
+# refits of SN 2016bkv: the curve without one of these bands (4 transients
+# of 121-143 points; P1's latency form, P2's warp form) and without one
+# point (149 transients of 148 points; the warp forms), 64 walkers, t_exp
+# fitted (ndim 5), or and the intrinsic scatter (6)
+SC_REFIT_BANDS = ("U", "B", "g", "I")
+SC_REFIT_KINDS = ("LOGO", "LOPO")
+
+
+def sc_refit_population(name, kind, dev):
+    """SN 2016bkv's early curve (:func:`flagship_lc`) cut as 32's refits cut
+    it, ``kind`` "LOGO" (without each band of SC_REFIT_BANDS) or "LOPO"
+    (without each point), through the port: (lcs, models), the models the
+    full curve's model cloned for each cut, as ``fitting._exact_cv_elpd``
+    builds them."""
+    import numpy as np
+    lc = flagship_lc()
+    if kind == "LOGO":
+        bands = np.array([f.name for f in lc["filter"]])
+        lcs = [lc[bands != b] for b in SC_REFIT_BANDS]
+    else:
+        lcs = [lc[np.arange(len(lc)) != i] for i in range(len(lc))]
+    model = sc_model(name, lc, device=dev)
+    return lcs, [model.clone_for(sub) for sub in lcs]
+
+
+def pop_sc_refit_checks(seed, device_ms):
+    """31 at the exact-refit CV's widths (:func:`sc_refit_population`, 64
+    walkers, t_exp fitted and without and with the intrinsic scatter, float32
+    and float64 compute): P1's two forms bit for bit and within 1e-5
+    (1e-12) of the term scale of the plain version, the same -inf sets, and
+    on :func:`pop_poisoned`'s copy each form's -inf set the plain
+    version's; P2 as K2 against its plain version (h = 0, 1) and P1 at the
+    states P2 accepted P2's stored bits, P2 in the rule's form (the warp
+    form: the latency form takes at most 128 points); in float32 without
+    the scatter the device time of P1 in each form, of its plain version
+    (events), of P2's warp form (one half-step with the chain slot) and
+    the bound. Returns (the line, the largest float32 |d| of P1 and P2,
+    {(name, kind): {"S": S, "n": points, "warp": ms, "latency": ms,
+    "plain": ms, "p2_warp": ms, "bound_ms": ms}})."""
+    import torch
+    from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.kernels import common
+    from lightcurve_fitting_tpu_torch.kernels import pop as kpop
+    from lightcurve_fitting_tpu_torch.models import UniformPrior
+    from lightcurve_fitting_tpu_torch.parallel.population import (PopulationPosterior,
+                                                                  pack_population)
+    dev = torch.device("cuda")
+    parts, times, errs = [], {}, {"P1": 0.0, "P2": 0.0}
+    for name in SC_NAMES:
+        for kind in SC_REFIT_KINDS:
+            lcs, models = sc_refit_population(name, kind, dev)
+            S, n = len(lcs), max(len(sub) for sub in lcs)
+            for label in ("f32", "f64"):
+                try:
+                    if label == "f64":
+                        config.set_compute_dtype(torch.float64)
+                    rel = 1e-5 if label == "f32" else 1e-12
+                    worst, msg = [0.0, 0.0], []
+                    for sigma in (False, True):
+                        priors = sc_priors() + [UniformPrior(*POP_SIGMA_PRIOR)] * sigma
+                        lo, up = SC_LO + [POP_SIGMA_LO] * sigma, SC_UP + [POP_SIGMA_UP] * sigma
+                        what = f"31 {name} {kind} {S} x {POP_WALKERS} at {n} points {label} " \
+                               f"ndim {len(lo)}"
+                        pp = PopulationPosterior(pack_population(models, lcs, sigma, dev),
+                                                 models[0], priors, sigma)
+                        q, off, sc = pop_state(pp, lo, up, POP_WALKERS, seed, dev)
+                        got = pop_check_p1_forms(what, pp, off, sc, q)
+                        d1 = compare_ll(f"P1 {what}", got.flatten(),
+                                        kpop.log_posterior_plain(pp, q, off, sc).flatten(), rel,
+                                        scale=pp.term_scales(common.absolute_params(q, off, sc))
+                                        .flatten())
+                        bad, rows = pop_poisoned(pp, every=2)
+                        want_bad = torch.isneginf(kpop.log_posterior_plain(bad, q, off, sc))
+                        for form in POP_FORMS["pop_logpost"]:
+                            got_bad = torch.isneginf(kpop.log_posterior(bad, q, off, sc,
+                                                                        form=form))
+                            if not torch.equal(got_bad, want_bad) or not bool(
+                                    got_bad[rows.to(dev)].all()):
+                                raise AssertionError(f"{what}: P1's -inf set on the poisoned "
+                                                     f"copy ({form} form) is not the plain "
+                                                     "version's")
+                        x0 = q.reshape(S, 2, POP_WALKERS // 2, -1).contiguous()
+                        rep = pop_p1_repeats_p2(pp, off, sc, x0, seed + 1)
+                        if rep[0]:
+                            raise AssertionError(f"P1 {what}: {rep[0]} values at states P2 "
+                                                 "accepted differ from P2's stored ones")
+                        t2 = pop_check_half_step(f"P2 {what}", pp, off, sc, x0, seed + 2, rel)
+                        worst = [max(worst[0], d1[1]), max(worst[1], t2[2])]
+                        if label == "f32":
+                            errs["P1"] = max(errs["P1"], d1[0])
+                            errs["P2"] = max(errs["P2"], t2[2])
+                        msg.append(f"ndim {len(lo)} P2 {t2[0]} near-ties, {t2[1]} accepts, "
+                                   f"{rep[1]} moves")
+                        if label == "f32" and not sigma:
+                            times[(name, kind)] = pop_refit_times(pp, q, off, sc, seed,
+                                                                  device_ms)
+                    parts.append(
+                        f"{name} {kind} {S} x {POP_WALKERS} at {n} points {label} (rules: P1 "
+                        f"{kpop.logpost_form(S, POP_WALKERS, n, pop_sms())}, P2 "
+                        f"{kpop.half_form(S, POP_WALKERS // 2, n, pop_sms())}): P1's forms "
+                        f"bit-equal, max |d|/scale {worst[0]:.3e} (<= {rel:.0e}), -inf kept; "
+                        f"P2 max |d logp| {worst[1]:.3e}, P1 at P2's states its bits; "
+                        + ", ".join(msg))
+                finally:
+                    config.set_compute_dtype(config.AUTO)
+    line = ("at the exact-refit CV's widths: " + "; ".join(parts) + "; device ms (f32, ndim 5) "
+            + "; ".join(f"{c} {k} {t['S']} x {POP_WALKERS} at {t['n']}: P1 warp {t['warp']:.4f}, "
+                        f"latency {t['latency']:.4f}, plain {t['plain']:.4f}, bound "
+                        f"{t['bound_ms']:.5f}; P2 warp form {t['p2_warp']:.4f}, bound "
+                        f"{t['p2_bound_ms']:.5f}"
+                        for (c, k), t in times.items()))
+    return line, errs, times
+
+
+def pop_refit_times(pp, q, off, sc, seed, device_ms):
+    """At the exact-refit CV's widths (27, 31), float32 compute, the states q
+    (S, POP_WALKERS, ndim): the device time of P1 in each form, of its plain
+    version (events) and of P2's warp form (one half-step with the chain
+    slot: P2's latency form takes at most 128 points), and the bounds of P1
+    and P2: {"warp", "latency", "plain", "p2_warp", "bound_ms",
+    "p2_bound_ms", "S", "n"}."""
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch.kernels import pop as kpop
+    dev = q.device
+    S = q.shape[0]
+    x0 = q.reshape(S, 2, POP_WALKERS // 2, -1).contiguous()
+    logp = kpop.log_posterior(pp, q, off, sc).reshape(S, 2, POP_WALKERS // 2)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    shape = (S, 2, POP_WALKERS // 2)
+    u_z = torch.rand(shape, generator=g, device=dev)
+    j = torch.randint(0, POP_WALKERS // 2, shape, generator=g, device=dev)
+    u_acc = torch.rand(shape, generator=g, device=dev)
+    acc = torch.zeros(shape, dtype=torch.int32, device=dev)
+    x, cx = x0.clone(), torch.empty_like(x0)
+    cl = torch.empty(shape, dtype=torch.float64, device=dev)
+
+    def p2():
+        kpop.stretch_half_step(pp, x, logp, 0, u_z, j, u_acc, 2.0, off, sc, cx, cl, acc,
+                               check_partners=False, form="warp")
+    t = {f: float(np.nanmedian(device_ms(
+        lambda f=f: kpop.log_posterior(pp, q, off, sc, form=f), "logpost_", 10, 3)))
+        for f in POP_FORMS["pop_logpost"]}
+    t["plain"] = cuda_ms(lambda: kpop.log_posterior_plain(pp, q, off, sc), repeats=3)
+    t["p2_warp"] = float(np.nanmedian(device_ms(p2, "stretch_half_step", 10, 3)))
+    t["bound_ms"] = bound(POP_WALKERS * pop_points(pp) * pop_eval_ops(pp),
+                          q.numel() * 4 + pop_table_bytes(pp) + S * POP_WALKERS * 8)[0]
+    half, ndim = POP_WALKERS // 2, q.shape[-1]
+    t["p2_bound_ms"] = bound(half * pop_points(pp) * pop_eval_ops(pp) + S * half * PROPOSAL,
+                             S * POP_WALKERS * ndim * 4 + S * half * ndim * 4 * 2
+                             + S * half * (4 + 8 + 4 + 8 + 8 + 4 * 2) + pop_table_bytes(pp))[0]
+    t["S"], t["n"] = S, int(pp.bb_coeffs.shape[1])
+    return t
+
+
+def phase_pop_sc_kernels(seed=31):
+    """31 (kernels): P1 and P2 over ShockCooling and ShockCooling4
+    (``kernels/csrc/pop_sc.cu``) against their plain versions on the card,
+    as 27 holds them over ShockCooling2: each class's survey at S = 64 (four
+    parameters), its MJD-scale twin (t_exp the fifth), S = 64 with the
+    intrinsic scatter, and S = SC_POP_SMALL (the launch the rules take the
+    latency forms at) with t_exp and the scatter (ndim 6), float32 and float64
+    compute, 64 walkers in the rescaled float32 state: P1 within 1e-5
+    (1e-12) of the term scale, same -inf sets, P2's stored values at the
+    states it accepted P1's bit for bit, P2 as K2 (h = 0, 1), P1's and P2's
+    warp and latency forms bit for bit (:func:`pop_check_forms`), and at S =
+    64 the copy with a +inf model value at each poisoned transient's last
+    real point (-inf kept, :func:`pop_check_poisoned`); each timed at S =
+    64 in float32 (events, the profiler's device time, each form, the plain
+    version, the bound); the same checks at 32's widths
+    (:func:`pop_sc_refit_checks`); ptxas's report of their 96 instantiations
+    without a spill. Returns {"P1": ..., "P2": ...} for the kernels line."""
+    import torch
+    from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.kernels import build, common
+    from lightcurve_fitting_tpu_torch.kernels import pop as kpop
+    from lightcurve_fitting_tpu_torch.parallel.population import (PopulationPosterior,
+                                                                  pack_population)
+    from time_port_kernels import device_ms, ptxas_report
+    dev = torch.device("cuda")
+    cases = [("S64", SC_POP_S, False, False), ("S64 MJD t_exp", SC_POP_S, True, False),
+             ("S64 sigma", SC_POP_S, False, True),
+             (f"S{SC_POP_SMALL} MJD t_exp sigma", SC_POP_SMALL, True, True)]
+    lines, times, errs = [], {}, {"P1": 0.0, "P2": 0.0}
+    for name in SC_NAMES:
+        pops = {(S, mjd): sc_pop_example(name, S, dev, mjd) for _, S, mjd, _ in cases}
+        for label in ("f32", "f64"):
+            try:
+                if label == "f64":
+                    config.set_compute_dtype(torch.float64)
+                rel = 1e-5 if label == "f32" else 1e-12
+                for case, S, mjd, sigma in cases:
+                    what = f"31 {name} {label} {case}"
+                    lcs, models, _ = pops[(S, mjd)]
+                    priors, lo, up = sc_pop_priors(mjd, sigma)
+                    pp = PopulationPosterior(pack_population(models, lcs, sigma, dev), models[0],
+                                             priors, sigma)
+                    q, off, sc = pop_state(pp, lo, up, POP_WALKERS, seed, dev)
+                    p_abs = common.absolute_params(q, off, sc)
+                    d1 = compare_ll(f"P1 {what}", kpop.log_posterior(pp, q, off, sc).flatten(),
+                                    kpop.log_posterior_plain(pp, q, off, sc).flatten(), rel,
+                                    scale=pp.term_scales(p_abs).flatten())
+                    x0 = q.reshape(S, 2, POP_WALKERS // 2, -1).contiguous()
+                    rep = pop_p1_repeats_p2(pp, off, sc, x0, seed + 1)
+                    if rep[0]:
+                        raise AssertionError(f"P1 {what}: {rep[0]} values at states P2 accepted "
+                                             "differ from P2's stored ones")
+                    t2 = pop_check_half_step(f"P2 {what}", pp, off, sc, x0, seed + 2, rel)
+                    acc, _ = pop_check_forms(what, pp, off, sc, x0, None, None, seed + 3)
+                    msg = (f"{name} {label} {case}: P1 max |d| {d1[0]:.3e} (<= {rel:.0e} of the "
+                           f"term scale), at the states P2 accepted {rep[0]} of "
+                           f"{S * POP_WALKERS} differ ({rep[1]} moves); P2 {t2[0]} near-ties, "
+                           f"{t2[1]} accepts, max |d logp| {t2[2]:.3e}; forms bit for bit "
+                           f"({acc} accepts)")
+                    if S == SC_POP_S and not mjd and not sigma:
+                        n_inf = pop_check_poisoned(f"{what} poisoned", pp, off, sc, q, seed + 4)
+                        msg += f", poisoned: {n_inf} -inf log-posteriors kept"
+                        if label == "f32":
+                            times[name] = pop_times(pp, q, off, sc, x0, None, None, None,
+                                                    device_ms)
+                    if label == "f32":
+                        errs["P1"] = max(errs["P1"], d1[0])
+                        errs["P2"] = max(errs["P2"], t2[2])
+                    lines.append(msg)
+            finally:
+                config.set_compute_dtype(config.AUTO)
+    refit_line, refit_errs, refit_times = pop_sc_refit_checks(seed + 5, device_ms)
+    lines.append(refit_line)
+    errs = {k: max(v, refit_errs[k]) for k, v in errs.items()}
+    report = ptxas_report(build.build_info()["log"])
+    regs = {}
+    for policy in ("PopSCWarpModel", "PopSC4WarpModel"):
+        for what, key in (("P1 warp", "logpost_warp_kernel"),
+                          ("P1 latency", "logpost_latency_kernel"),
+                          ("P2 warp", "stretch_half_step_kernel"),
+                          ("P2 latency", "stretch_half_step_latency_kernel")):
+            ks = {k: v for k, v in report.items() if key + "I" in k and policy + "I" in k}
+            if len(ks) != 12 or any(v[2] or v[3] for v in ks.values()):
+                raise AssertionError(f"31: {what} over {policy} (12 instantiations) must not "
+                                     f"spill: {ks}")
+            regs[f"{what} {policy}"] = (sorted({v[0] for v in ks.values()}),
+                                        sorted({v[1] for v in ks.values()}),
+                                        sorted({v[2] + v[3] for v in ks.values()}))
+    phase("SW17 and MSW23 population kernels 31", "; ".join(lines) + "; S = 64, f32: " + "; ".join(
+        f"{n}: " + ", ".join(
+            f"{k} {v['ms']:.4f} ms (device {v['dev']:.4f}; by form "
+            + ", ".join(f"{f} {ms:.4f}" for f, ms in v["forms"].items())
+            + f"; plain {v['plain_ms']:.4f}; bound {v['bound_ms']:.5f}, {v['bound_by']})"
+            for k, v in t.items()) for n, t in times.items())
+          + f"; ptxas (registers, stack frames, spill bytes) by kernel over its 12 "
+          f"instantiations: {regs}")
+    first = times[SC_NAMES[0]]
+    return {k: {"max_abs_err": errs[k], "ms": first[k]["ms"], "plain_ms": first[k]["plain_ms"],
+                **{f: first[k][f] for f in ("bound_ms", "bound_by", "library_ms")},
+                "at": {n: (t[k]["ms"], t[k]["dev"], t[k]["plain_ms"], t[k]["bound_ms"])
+                       for n, t in times.items()},
+                "forms": {n: t[k]["forms"] for n, t in times.items()},
+                "refit": refit_times} for k in errs}
+
+
+def phase_pop_sc_main_path(smi):
+    """31 (fits): ``fit_population`` over each class's survey of SC_POP_S
+    transients at examples/fit_population.py's 64 walkers x 100 + 500 steps
+    from the window (init="window"), seed 1, summaries on the card, no
+    chains, the counters reset before each: P1 once, P2 twice a step in the
+    forms the rules pick, K5, nothing else; finite summaries; the mean
+    acceptance within POP_ACC_TOL of the JAX package's float64 CPU run of
+    the same call (SC_POP_REF); the wall and a profiled repeat's busy time
+    and idle share. Returns each run's launches."""
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch import kernels
+    from lightcurve_fitting_tpu_torch.parallel import fit_population
+    dev = torch.device("cuda")
+    runs = {}
+    for name in SC_NAMES:
+        lcs, models, _ = sc_pop_example(name, SC_POP_S, dev)
+        priors = sc_pop_priors()[0]
+
+        def fit():
+            return fit_population(models, lcs, priors, p_lo=SC_POP_LO, p_up=SC_POP_UP,
+                                  nwalkers=POP_WALKERS, nsteps=POP_STEPS,
+                                  nsteps_burnin=POP_BURNIN, seed=1, init="window",
+                                  summaries=True, return_chains=False)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flat, acc, summ = fit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, forms = pop_run_launches(
+            f"31 {name}", dict(kernels.LAUNCHES), SC_POP_S, POP_WALKERS,
+            max(len(lc) for lc in lcs), POP_BURNIN + POP_STEPS, SC_POP_COUNT[name],
+            others=("percentile",))
+        if flat is not None or summ.shape != (SC_POP_S, 4, 3) or not np.isfinite(summ).all() \
+                or not np.isfinite(acc).all():
+            raise AssertionError(f"31 {name}: bad outputs")
+        ref = SC_POP_REF[name]
+        mean_acc = float(np.mean(acc))
+        if abs(mean_acc - ref[0]) > POP_ACC_TOL:
+            raise AssertionError(f"31 {name}: mean acceptance {mean_acc:.4f} (JAX float64 CPU "
+                                 f"{ref[0]:.4f} +- {POP_ACC_TOL})")
+        wall_p, prof = profiled(fit, cpu=False)
+        parts, busy = time_split(prof, wall_p, SC_POP_SPLIT)
+        runs[f"31 {name}"] = launches
+        phase(f"SW17 and MSW23 populations 31 {name}",
+              f"fit_population S = {SC_POP_S}, {POP_WALKERS} walkers x {POP_BURNIN} + "
+              f"{POP_STEPS} steps, init=\"window\", summaries, no chains: {wall:.3f} s end to end "
+              f"(on {smi}); launches {launches} (forms {forms}); mean acceptance {mean_acc:.4f} "
+              f"(JAX float64 CPU {ref[0]:.4f} +- {POP_ACC_TOL}), least {acc.min():.3f} (JAX "
+              f"{ref[2]:.3f}); profiled repeat {wall_p:.3f} s, device busy {busy:.4f} s (idle "
+              f"share {1 - busy / wall_p:.3f}): "
+              + ", ".join(f"{k} {v:.4f} s" for k, v in parts.items()))
+    return runs
+
+
+# -------------------------------- the exact-refit CV over SW17 and MSW23 (32)
+
+# 32 holds, for each model, the mean over its pooled refits (every
+# leave-one-band-out refit and REFIT_SC_SUBSET leave-one-point-out ones,
+# evenly spaced) of the card's acceptance less that of the same refits run
+# again on the CPU in float64, within 4 standard errors. One refit's
+# acceptance moves with the seed alone by REFIT_SC_SD, on either side: the
+# standard deviation over seeds 0-5 pooled over 16 (SW17) and 22 (MSW23)
+# such refits, float64 on the CPU, in the box of 26c's chain drawn on the
+# CPU (python3 tools/probe_refit_spread.py --device cpu --cpu-seeds 6; the
+# card's own spread at the card chain's box: the same tool on the H100,
+# PERF.md section 6, PR 28)
+REFIT_SC_SUBSET = 16
+REFIT_SC_SD = {"ShockCooling": 0.0297, "ShockCooling4": 0.0424}
+
+
+def refit_sc_limit(name, n):
+    """4 standard errors of the mean of n paired card-less-CPU acceptances."""
+    import math
+    return 4.0 * math.sqrt(2.0 / n) * REFIT_SC_SD[name]
+
+
+def refit_sc_pool(calls):
+    """32's pooled refits of one model from its refit calls ({"LOPO": call,
+    "LOGO": call}, either may be missing): every leave-one-band-out refit and
+    REFIT_SC_SUBSET leave-one-point-out ones, evenly spaced. Returns (lcs,
+    the card's acceptances, the card's chains, the labels)."""
+    import numpy as np
+    lcs, acc, flat, labels = [], [], [], []
+    for kind in ("LOGO", "LOPO"):
+        if kind not in calls:
+            continue
+        call = calls[kind]
+        S = len(call["lcs"])
+        idx = range(S) if kind == "LOGO" else np.unique(
+            np.linspace(0, S - 1, min(S, REFIT_SC_SUBSET)).round().astype(int))
+        for i in idx:
+            lcs.append(call["lcs"][i])
+            acc.append(float(call["acc"][i]))
+            flat.append(np.asarray(call["flat"][i], float))
+            labels.append(f"{kind} {i}")
+    return lcs, np.array(acc), np.array(flat), labels
+
+
+def refit_sc_cpu(calls, model_cpu, seed=None):
+    """:func:`refit_sc_pool`'s refits again on the CPU in float64, in one
+    fit_population call with the refit calls' box and options (and their
+    seed, unless ``seed``). Returns (the CPU's acceptances, its chains,
+    seconds)."""
+    import torch
+    from lightcurve_fitting_tpu_torch.core import config
+    from lightcurve_fitting_tpu_torch.parallel import fit_population
+    call = next(iter(calls.values()))
+    lcs = refit_sc_pool(calls)[0]
+    kw = dict(call["kw"], device="cpu")
+    if seed is not None:
+        kw["seed"] = seed
+    t0 = time.perf_counter()
+    try:
+        config.set_compute_dtype(torch.float64)
+        flat, acc = fit_population([model_cpu.clone_for(sub) for sub in lcs], lcs,
+                                   call["priors"], **kw)
+    finally:
+        config.set_compute_dtype(config.AUTO)
+    return acc, flat, time.perf_counter() - t0
+
+
+def refit_sc_check(name, calls, model_cpu):
+    """32's held statistic for one model (see REFIT_SC_SD): the mean of the
+    card's acceptance less the CPU's over the pooled refits within
+    :func:`refit_sc_limit`; the medians' gaps in the CPU's sigma and the
+    widths' ratios reported (26c's chains have not converged). Returns the
+    line."""
+    import numpy as np
+    _, acc_g, flat_g, labels = refit_sc_pool(calls)
+    acc_c, flat_c, seconds = refit_sc_cpu(calls, model_cpu)
+    d = acc_g - acc_c
+    limit = refit_sc_limit(name, len(d))
+    if not abs(float(d.mean())) <= limit:
+        raise AssertionError(f"32 {name}: the card's acceptance less the CPU's float64 run's, "
+                             f"mean over {len(d)} refits {float(d.mean()):.4f} (within {limit:.4f})"
+                             f"; card {acc_g}, CPU {acc_c}")
+    sd_c = np.std(flat_c, axis=1)
+    gap = np.abs(np.median(flat_g, axis=1) - np.median(flat_c, axis=1)) / sd_c
+    ratio = np.std(flat_g, axis=1) / sd_c
+    return (f"{len(d)} refits ({', '.join(labels)}) again on the CPU in float64 ({seconds:.1f} s):"
+            f" acceptances {fmt(acc_c)}, the card's less the CPU's mean {float(d.mean()):.4f} "
+            f"(within {limit:.4f}), each within {float(np.abs(d).max()):.4f}; medians within "
+            f"{float(gap.max()):.3f} sigma, width ratios {float(ratio.min()):.3f}-"
+            f"{float(ratio.max()):.3f} (reported)")
+
+
+def phase_refit_sc(smi):
+    """32: 26c's ``compare_models_loo`` (SW17 against MSW23 on SN 2016bkv, 64
+    walkers x 500 + 500, seed 7) with ``refit=True``,
+    ``refit_options={"init": "window"}`` (P3 over these classes waits for
+    item 22) and ``group_by="filter"``, the counters reset before it: each
+    model's refits one fit_population call for its flagged points and one
+    for its flagged bands, each P1 once and P2 twice a step over the model's
+    policy in its rules' forms, no P3; every pointwise value finite, elpd
+    their sum, the repaired and failed labels exactly the flagged entries;
+    each model's pooled refits again on the CPU in float64, the mean of the
+    card's acceptance less the CPU's within 4 standard errors
+    (:func:`refit_sc_check`); the wall. Returns the refit calls'
+    launches."""
+    import numpy as np
+    import torch
+    from lightcurve_fitting_tpu_torch import fitting, kernels
+    lc = flagship_lc()
+    dev = torch.device("cuda")
+    record = []
+    install, restore = refit_calls(record)
+    install()
+    try:
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        table = hushed(fitting.compare_models_loo, lc, [sc_model(n, lc) for n in SC_NAMES],
+                       sc_priors(), p_lo=SC_LO, p_up=SC_UP, labels=list(SC_NAMES), nwalkers=64,
+                       nsteps=500, nsteps_burnin=500, seed=7, refit=True,
+                       refit_options={"init": "window"}, group_by="filter", quiet=True,
+                       device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    calls = iter(record)
+    runs, lines = {}, []
+    for name in SC_NAMES:
+        by_kind = {}
+        ic = table.meta["ics"][name]
+        lg = ic["logo"]
+        for kind, res, key, labels in (("LOPO", ic, "elpd_loo", np.arange(len(lc))),
+                                       ("LOGO", lg, "elpd_logo", np.asarray(lg["groups"]))):
+            flagged = labels[~(res["pareto_k"] <= 0.7)]
+            got = list(res["refit"]["labels"]) + list(res["refit"]["failed_labels"]) \
+                if "refit" in res else []
+            if sorted(map(str, got)) != sorted(map(str, flagged)):
+                raise AssertionError(f"32 {name} {kind}: repaired {got} are not the flagged "
+                                     f"{flagged}")
+            if not np.all(np.isfinite(res["pointwise"])) or not np.isclose(
+                    res[key], float(np.sum(res["pointwise"])), rtol=1e-12, atol=0):
+                raise AssertionError(f"32 {name} {kind}: pointwise {res['pointwise']}, {key} "
+                                     f"{res[key]}")
+            if not len(flagged):
+                continue
+            call = next(calls)
+            S, N = len(call["lcs"]), max(len(sub) for sub in call["lcs"])
+            if type(call["models"][0]).__name__ != name or S != len(flagged):
+                raise AssertionError(f"32 {name} {kind}: a refit call of {S} "
+                                     f"{type(call['models'][0]).__name__} curves")
+            launches, forms = pop_run_launches(f"32 {name} {kind}", call["launches"], S,
+                                               REFIT_WALKERS, N, REFIT_STEPS + REFIT_BURNIN,
+                                               SC_POP_COUNT[name])
+            runs[f"32 {name} {kind}"] = launches
+            by_kind[kind] = call
+            lines.append(f"{name} {kind}: {len(flagged)} flagged, {res['refit']['n_failed']} "
+                         f"failed, S = {S} x {N} points, forms {forms}, acceptance "
+                         f"{fmt(res['refit']['acceptance'])}")
+        if not by_kind:
+            raise AssertionError(f"32 {name}: no refit")
+        lines.append(f"{name}: " + refit_sc_check(name, by_kind,
+                                                  sc_model(name, lc, device="cpu")))
+    if next(calls, None) is not None:
+        raise AssertionError(f"32: {len(record)} fit_population calls")
+    ranking = [str(m) for m in table["model"]]
+    phase("exact-refit CV over SW17 and MSW23 32", f"compare_models_loo 64 walkers x 500 + 500, "
+          f"seed 7, refit=True, init=\"window\", group_by=\"filter\": ranking {ranking}, elpd_loo "
+          + ", ".join(f"{m} {float(e):.1f}" for m, e in zip(table["model"], table["elpd_loo"]))
+          + "; " + "; ".join(lines) + f"; {wall:.3f} s (on {smi})")
     return runs
 
 
@@ -7374,7 +7992,12 @@ def main():
     k_pop = phase_pop_kernels()
     launches_pop = phase_pop_main_path(smi)
     launches_refit = phase_refit(smi)
-    kernels = pop_kernel_entries(k_pop, {**launches_pop, **launches_refit})
+    launches_sbc = phase_sbc(smi)
+    k_pop_sc = phase_pop_sc_kernels()
+    launches_pop_sc = phase_pop_sc_main_path(smi)
+    launches_refit_sc = phase_refit_sc(smi)
+    kernels = pop_kernel_entries(k_pop, {**launches_pop, **launches_refit, "30": launches_sbc})
+    kernels += pop_sc_kernel_entries(k_pop_sc, {**launches_pop_sc, **launches_refit_sc})
 
     lc = flagship_lc()
     k1 = phase_k1(lc)
@@ -7612,6 +8235,48 @@ def pop_kernel_entries(k_pop, launches):
                          for (S, n), t in refit.items()))
         rows.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                          launches=launches["28a"][count], **v))
+    return rows
+
+
+def pop_sc_kernel_entries(k_pop_sc, launches):
+    """The kernels line's rows of P1 and P2 over SW17 and MSW23: launches
+    summed over 31's fits and 32's refits (each run counted from 0 just
+    before it; by run and form in the name), errors from 31's float32 cases
+    over both classes and 32's widths, times at S = 64 over SW17 (31;
+    MSW23's and those at 32's widths in the name)."""
+    src = "lightcurve_fitting_tpu_torch/kernels/csrc/pop_sc.cu"
+    rows = []
+    for key, kname, kind, replaces in (
+            ("P1", "logpost_warp_kernel<PopSCWarpModel<C, N>> / logpost_latency_kernel<"
+                   "PopSCWarpModel<C, N>, S, true> and the same over PopSC4WarpModel<C, N> (P1 "
+                   "over SW17 and MSW23)", "logpost",
+             "lightcurve_fitting_tpu/parallel/population.py:349"),
+            ("P2", "stretch_half_step_kernel<PopSCWarpModel<C, N>> / "
+                   "stretch_half_step_latency_kernel<PopSCWarpModel<C, N>> and the same over "
+                   "PopSC4WarpModel<C, N> (P2 over SW17 and MSW23)", "half_step",
+             "lightcurve_fitting_tpu/parallel/population.py:413")):
+        v = dict(k_pop_sc[key])
+        at, forms, refit = v.pop("at"), v.pop("forms"), v.pop("refit")
+        counts = {run: ("pop_sc4" if any(c.startswith("pop_sc4_") for c in n) else "pop_sc", n)
+                  for run, n in launches.items()}
+        name = (f"{kname}; ms at S = {SC_POP_S} x {POP_WALKERS} by class (events, device, plain, "
+                "bound): " + "; ".join(f"{c}: {t[0]:.4f}, {t[1]:.4f}, {t[2]:.4f}, {t[3]:.5f}"
+                                        for c, t in at.items())
+                + "; device ms by form: " + "; ".join(
+                    f"{c}: " + ", ".join(f"{f} {ms:.4f}" for f, ms in fs.items())
+                    for c, fs in forms.items())
+                + "; device ms at the exact-refit CV's widths (S x walkers at padded points): "
+                + "; ".join(f"{c} {k} {t['S']} x {POP_WALKERS} at {t['n']}: " + (
+                    f"warp {t['warp']:.4f}, latency {t['latency']:.4f}, plain {t['plain']:.4f}"
+                    + f" (bound {t['bound_ms']:.5f})" if key == "P1"
+                    else f"warp {t['p2_warp']:.4f} (bound {t['p2_bound_ms']:.5f})")
+                    for (c, k), t in refit.items())
+                + "; launched by run and form: " + "; ".join(
+                    f"{run} " + ", ".join(f"{f} {n[f'{c}_{kind}_{f}']}"
+                                          for f in ("warp", "latency"))
+                    for run, (c, n) in counts.items()))
+        rows.append(dict(name=name, route="cuda", source=src, replaces=replaces,
+                         launches=sum(n[f"{c}_{kind}"] for c, n in counts.values()), **v))
     return rows
 
 

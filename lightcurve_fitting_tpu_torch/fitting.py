@@ -1180,6 +1180,12 @@ def _exact_cv_elpd(lc, model, priors, masks, use_sigma, sigma_type, flatchain, n
             np.asarray(acc))
 
 
+def _refit_init(refit_options):
+    """The refits' ``init``: :func:`_exact_cv_elpd`'s default, "map", unless
+    ``refit_options`` says otherwise."""
+    return (refit_options or {}).get("init", "map")
+
+
 def _held_out_elpd(lc, model, flat, masks, use_sigma, sigma_type, n_draws, seed, device=None):
     """The exact-refit CV's scores: ``n_draws`` of each refit's draws
     (``flat`` (G, M, ndim), numpy's default_rng(seed) choosing the same
@@ -1266,11 +1272,13 @@ def information_criteria(lc, model, flatchain, use_sigma=False, sigma_type="rela
     (:func:`_exact_cv_elpd`), and the patched result records the provenance
     under ``out["refit"]`` and ``out["logo"]["refit"]``; ``pareto_k`` keeps
     the PSIS diagnostics. It needs ``priors`` (the fit's, with the intrinsic
-    scatter's prior when ``use_sigma``) and a ShockCooling2 model (the
-    population's kernels; another class raises NotImplementedError, ROADMAP
-    Queue 1 item 10), both checked at entry; ``refit_options`` go to
-    ``fit_population`` (``nwalkers``, ``nsteps``, ``nsteps_burnin``,
-    ``init``)."""
+    scatter's prior when ``use_sigma``) and a class the population fits on
+    ``device`` (``parallel.population.check_model_class``: on the CPU every
+    class of the JAX function; on CUDA ShockCooling2, and ShockCooling and
+    ShockCooling4 with ``refit_options={"init": "window"}``; otherwise
+    NotImplementedError naming ROADMAP Queue 1 item 10 or 22), both checked
+    at entry; ``refit_options`` go to ``fit_population`` (``nwalkers``,
+    ``nsteps``, ``nsteps_burnin``, ``init``)."""
     from .parallel.ic import (waic as _waic, psis_loo as _psis_loo, psis_logo,
                               _logsumexp as _ic_logsumexp)
     from .parallel.population import check_model_class
@@ -1281,7 +1289,7 @@ def information_criteria(lc, model, flatchain, use_sigma=False, sigma_type="rela
             raise ValueError("refit of unreliable PSIS terms needs the fit's priors: pass "
                              "priors=[...] (including the intrinsic-scatter prior when "
                              "use_sigma=True)")
-        check_model_class(model)
+        check_model_class(model, device, _refit_init(refit_options))
 
     flatchain = np.asarray(flatchain, float)
 
@@ -1416,7 +1424,7 @@ def compare_models_loo(lc, models, priors, p_lo=None, p_up=None, labels=None, nw
     call; ``refit``, ``refit_options`` and ``group_by`` to every
     :func:`information_criteria` (each candidate's priors back its own
     refits; with ``refit`` every model is checked for a class the
-    population can fit before the first fit). Not ported yet, and refused
+    population can fit on ``device`` before the first fit). Not ported yet, and refused
     with NotImplementedError: ``checkpoint_file``/``resume_from`` (ROADMAP
     Queue 1 item 16).
 
@@ -1431,7 +1439,7 @@ def compare_models_loo(lc, models, priors, p_lo=None, p_up=None, labels=None, nw
     if refit is not False:
         from .parallel.population import check_model_class
         for model in models:
-            check_model_class(model)
+            check_model_class(model, device, _refit_init(refit_options))
     ics, samplers = {}, {}
     for label, model, pri, lo, up in zip(labels, models, priors, p_lo, p_up):
         sampler = lightcurve_mcmc(lc, model, priors=pri, p_lo=lo, p_up=up, nwalkers=nwalkers,

@@ -112,6 +112,11 @@ def _declare(lib):
     # dtype flags for them; the form before the stream
     lib.pop_half_step_launch.argtypes = [vp, ci, ci, vp, ci, vp, ci, ci, vp, vp, vp, cd, vp, vp,
                                          vp, ci, ctypes.c_longlong, ci, vp]
+    # over ShockCooling and ShockCooling4 (csrc/pop_sc.cu), the same arguments
+    lib.pop_sc_logpost_launch.restype = ci
+    lib.pop_sc_logpost_launch.argtypes = lib.pop_logpost_launch.argtypes
+    lib.pop_sc_half_step_launch.restype = ci
+    lib.pop_sc_half_step_launch.argtypes = lib.pop_half_step_launch.argtypes
     lib.pop_map_launch.restype = ci
     lib.pop_map_launch.argtypes = [vp, vp, ci, ci, ci, ci, vp]   # the form before the stream
     lib.replica_swap_launch.restype = ci

@@ -34,7 +34,9 @@ LAUNCHES = {"sc2_logpost": 0, "stretch_half_step": 0, "bandflux": 0, "sc3_logpos
             "sc4_ladder_init_warp": 0, "sc4_ladder_init_latency": 0, "pop_logpost": 0,
             "pop_half_step": 0, "pop_map": 0, "pop_half_step_warp": 0,
             "pop_half_step_latency": 0, "pop_map_warp": 0, "pop_map_pair": 0,
-            "pop_logpost_warp": 0, "pop_logpost_latency": 0}
+            "pop_logpost_warp": 0, "pop_logpost_latency": 0,
+            **{f"pop_{m}_{k}{f}": 0 for m in ("sc", "sc4") for k in ("logpost", "half_step")
+               for f in ("", "_warp", "_latency")}}
 
 FLOATS = (torch.float32, torch.float64)
 

@@ -29,8 +29,9 @@
 // where log_likelihood_warp is computed by the 32 lanes of a warp together,
 // every lane returning the same bits, and may provide
 //   static constexpr int ndim;  // the walker's dimension at compile time (policy_dim)
-// which keeps the walker's state in registers, and
+// which keeps the walker's state in registers,
 //   static constexpr bool own_prior;  // its own log_prior (model_log_prior)
+//   static constexpr int min_blocks;  // the half-step's least blocks an SM (block_min)
 // Every Params has the fields ndim, use_sigma, has_affine, prior_kind,
 // p_min, p_max, mean, stddev, affine_offset and affine_scale.
 
@@ -95,6 +96,19 @@ struct block_limit {
 template <typename M>
 struct block_limit<M, std::void_t<decltype(M::warps_per_block)>> {
     static constexpr int value = 32 * M::warps_per_block;
+};
+
+// The least blocks an SM that the warp form of the half-step over M is built
+// for (its launch bound's second argument): M::min_blocks where the policy
+// gives it, else 0, none, as before the trait. A minimum of one lets ptxas
+// take the registers of one block an SM where its own choice spills.
+template <typename M, typename = void>
+struct block_min {
+    static constexpr int value = 0;
+};
+template <typename M>
+struct block_min<M, std::void_t<decltype(M::min_blocks)>> {
+    static constexpr int value = M::min_blocks;
 };
 
 // The walker dimension of a policy M known at compile time: M::ndim where
@@ -356,7 +370,7 @@ struct WarpLayout {
 // SC3WarpModel, CSWarpModel, EpochBBModel), the block's warps striding over
 // batches of `batch` walkers of the ensemble (warp_layout).
 template <typename M, typename S, typename X, typename L>
-__global__ void __launch_bounds__(block_limit<M>::value)
+__global__ void __launch_bounds__(block_limit<M>::value, block_min<M>::value)
 stretch_half_step_kernel(const typename M::Params P, S* __restrict__ x,
                          double* __restrict__ logp, int half, int h,
                          const S* __restrict__ u_z, const long long* __restrict__ j,

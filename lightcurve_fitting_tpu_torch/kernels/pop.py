@@ -1,5 +1,8 @@
-"""Wrappers of the per-transient ShockCooling2 kernels of the population fit
-(``csrc/population.cu``), with their plain PyTorch versions beside them.
+"""Wrappers of the per-transient kernels of the population fit, with their
+plain PyTorch versions beside them: over ShockCooling2 P1-P3
+(``csrc/population.cu``), over ShockCooling and ShockCooling4 P1 and P2
+(``csrc/pop_sc.cu``: ``PopSCWarpModel`` and ``PopSC4WarpModel``, the point
+of the single fits' SW17 and MSW23 kernels, ``csrc/sc_model.cuh``).
 
 Each takes a :class:`~..parallel.population.PopulationPosterior` ``pp`` (the
 packed transients in the compute dtype, and their plain log-posterior):
@@ -23,11 +26,14 @@ packed transients in the compute dtype, and their plain log-posterior):
   the final negative log-posteriors.
 
 For a tensor on the CPU each wrapper runs its plain version. For a CUDA
-tensor it launches the kernel or raises: there is no fallback. Each launch
-adds one to ``LAUNCHES[name]`` (``pop_logpost``, ``pop_half_step``,
-``pop_map``) and one under its form's name (``pop_logpost_warp``,
-``pop_logpost_latency``, ``pop_half_step_warp``, ``pop_half_step_latency``,
-``pop_map_warp``, ``pop_map_pair``), and nothing else does.
+tensor it launches the kernel or raises: there is no fallback; a class
+without kernels raises NotImplementedError (ROADMAP Queue 1 item 10), and
+so does P3 over ShockCooling and ShockCooling4 (item 22). Each launch adds
+one to ``LAUNCHES[name]`` (over ShockCooling2 ``pop_logpost``,
+``pop_half_step``, ``pop_map``; over ShockCooling ``pop_sc_logpost``,
+``pop_sc_half_step``; over ShockCooling4 ``pop_sc4_logpost``,
+``pop_sc4_half_step``) and one under its form's name (the name and
+``_warp``, ``_latency`` or, for P3, ``_pair``), and nothing else does.
 """
 
 import ctypes
@@ -78,7 +84,17 @@ class _PopParams(ctypes.Structure):
                 + [(n, ctypes.c_double) for n in ("eps_T", "eps_L", "a_model", "alpha", "c3_42")]
                 + [("prior_kind", ctypes.c_longlong * MAX_DIM)]
                 + [(n, ctypes.c_double * MAX_DIM) for n in
-                   ("p_min", "p_max", "mean", "stddev", "affine_offset", "affine_scale")])
+                   ("p_min", "p_max", "mean", "stddev", "affine_offset", "affine_scale")]
+                + [("model", ctypes.c_longlong)]
+                + [(n, ctypes.c_double) for n in
+                   ("kappa", "A", "eps1", "eps2", "L0_42", "T0", "tph_to_tcol", "L_br_0_42",
+                    "T_col_br_0", "t_br_0", "t_tr_0", "kappa_L", "kappa_T", "k_B")])
+
+
+#: a population's kernel family -> (the model field of PopParams, the C
+#: entry points' prefix, the LAUNCHES prefix)
+_FAMILIES = {"sc2": (0, "pop", "pop"), "sc": (1, "pop_sc", "pop_sc"),
+             "sc4": (2, "pop_sc", "pop_sc4")}
 
 
 class _PopMapParams(ctypes.Structure):
@@ -101,10 +117,22 @@ def _require_cuda(t, what):
                          f"not {t.device}")
 
 
+def _family(pp):
+    """``pp``'s kernel family, NotImplementedError for a class without
+    kernels."""
+    if pp.family is None:
+        raise NotImplementedError(
+            f"a {type(pp.model).__name__} population has no kernels yet (ROADMAP Queue 1 item "
+            '10): run it with device="cpu"')
+    return pp.family
+
+
 def _params(pp, ndim, offset, scale):
     """The kernels' parameter block of PopulationPosterior ``pp``, cached on
     it by (ndim, the affine map)."""
-    from ..core.constants import c3_42
+    from ..core.constants import c3_42, k_B
+    from .sc import _CONSTANTS
+    family = _family(pp)
     key = (ndim, affine_key(offset, scale))
     if key in pp.kernel_params:
         return pp.kernel_params[key]
@@ -121,7 +149,14 @@ def _params(pp, ndim, offset, scale):
      P.inv_yscale, P.log_norm) = (getattr(pp, name).data_ptr() for name in _BUFFERS)
     P.n_points, P.n_coef = pp.bb_coeffs.shape[1:]
     P.ndim, P.n_model, P.use_sigma = ndim, pp.n_model, int(pp.use_sigma)
-    P.eps_T, P.eps_L = consts["eps_T"], consts["eps_L"]
+    P.model = _FAMILIES[family][0]
+    if family == "sc2":
+        P.eps_T, P.eps_L = consts["eps_T"], consts["eps_L"]
+    else:
+        for name, field in _CONSTANTS[family].items():
+            setattr(P, field, consts[name])
+        P.kappa_L, P.kappa_T = consts["kappa"] ** -0.89, consts["kappa"] ** -0.22
+        P.k_B = k_B
     P.a_model, P.alpha, P.c3_42 = consts["a"], consts["alpha"], c3_42
     fill_priors_and_affine(P, pp.priors, key[1])
     pp.kernel_params[key] = P
@@ -214,14 +249,15 @@ def log_posterior(pp, q, param_offset=None, param_scale=None, form=None):
     out = torch.empty((S, W), dtype=torch.float64, device=q.device)
     from .build import library
     dev, stream = cuda_args(q.device)
-    rc = library().pop_logpost_launch(ctypes.addressof(P), dev, _f64(pp), q.data_ptr(),
-                                      int(q.dtype == torch.float64), W, S, out.data_ptr(),
-                                      int(form == "latency"), stream)
+    _, entry, count = _FAMILIES[pp.family]
+    rc = getattr(library(), f"{entry}_logpost_launch")(
+        ctypes.addressof(P), dev, _f64(pp), q.data_ptr(), int(q.dtype == torch.float64), W, S,
+        out.data_ptr(), int(form == "latency"), stream)
     if rc != 0:
-        raise RuntimeError(f"the population log-posterior ({form} form) launch failed: "
-                           f"cudaError {rc}")
-    LAUNCHES["pop_logpost"] += 1
-    LAUNCHES[f"pop_logpost_{form}"] += 1
+        raise RuntimeError(f"the population log-posterior ({pp.family}, {form} form) launch "
+                           f"failed: cudaError {rc}")
+    LAUNCHES[f"{count}_logpost"] += 1
+    LAUNCHES[f"{count}_logpost_{form}"] += 1
     return out
 
 
@@ -274,7 +310,8 @@ def stretch_half_step(pp, x, logp, h, u_z, j, u_acc, a=2.0, param_offset=None, p
     from .build import library
     device_index, stream = cuda_args(dev)
     off = h * half   # the draws of half h; transient e's start 2 * half later
-    rc = library().pop_half_step_launch(
+    _, entry, count = _FAMILIES[pp.family]
+    rc = getattr(library(), f"{entry}_half_step_launch")(
         ctypes.addressof(P), device_index, _f64(pp), x.data_ptr(), int(x.dtype == torch.float64),
         logp.data_ptr(), half, int(h), u_z.data_ptr() + off * u_z.element_size(),
         j.data_ptr() + off * j.element_size(), u_acc.data_ptr() + off * u_acc.element_size(),
@@ -282,9 +319,10 @@ def stretch_half_step(pp, x, logp, h, u_z, j, u_acc, a=2.0, param_offset=None, p
         None if chain_logp is None else chain_logp.data_ptr(), n_accept.data_ptr(), S, 2 * half,
         int(form == "latency"), stream)
     if rc != 0:
-        raise RuntimeError(f"the population half-step ({form} form) launch failed: cudaError {rc}")
-    LAUNCHES["pop_half_step"] += 1
-    LAUNCHES[f"pop_half_step_{form}"] += 1
+        raise RuntimeError(f"the population half-step ({pp.family}, {form} form) launch failed: "
+                           f"cudaError {rc}")
+    LAUNCHES[f"{count}_half_step"] += 1
+    LAUNCHES[f"{count}_half_step_{form}"] += 1
 
 
 # ------------------------------------------------------------------------ P3
@@ -318,6 +356,10 @@ def map_ascent(pp, u0, bounds, n_iter=400, lr=0.05, alpha=0.01, form=None):
     if u0.device.type == "cpu":
         return map_ascent_plain(pp, u0, bounds, n_iter, lr, alpha)
     _require_cuda(u0, "population MAP ascent")
+    if _family(pp) != "sc2":
+        raise NotImplementedError(
+            f"P3 takes ShockCooling2 populations only: the Adam ascent over a "
+            f"{type(pp.model).__name__} population needs its gradient (ROADMAP Queue 1 item 22)")
     if u0.ndim != 3 or u0.shape[0] != pp.n_transients:
         raise ValueError(f"u0 must be (S={pp.n_transients}, n_starts, ndim), got "
                          f"{tuple(u0.shape)}")

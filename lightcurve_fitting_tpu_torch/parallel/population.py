@@ -12,10 +12,14 @@ the device from the initial state to the end of the run; the acceptance
 mean and, with ``summaries``, the percentiles (K5 on float32 chains) are
 reduced there too.
 
-The kernels are ShockCooling2's: a population of another model class
-raises ``NotImplementedError``, on every device. Draws come from a
-``torch.Generator`` on the device seeded by splitmix64(seed, step)
-(:func:`.sampler._step_seed`), so chains agree with the JAX package in
+On the CPU a population of any class the JAX function takes fits there:
+ShockCooling2, ShockCooling, ShockCooling4, ShockCooling3 and
+CompanionShocking 1-3 (:func:`check_model_class`). On CUDA the classes with
+kernels do: ShockCooling2 (P1-P3), ShockCooling and ShockCooling4 (P1 and
+P2; their ``init="map"`` waits for P3 over their gradient, ROADMAP Queue 1
+item 22); CompanionShocking 1-3 and ShockCooling3 wait for item 10. Draws
+come from a ``torch.Generator`` on the device seeded by splitmix64(seed,
+step) (:func:`.sampler._step_seed`), so chains agree with the JAX package in
 distribution, not path; the MAP seeding's starts and the walkers' jitter
 come from numpy's ``default_rng(seed)`` in the JAX order, so they agree
 with it to the ascent's rounding.
@@ -152,45 +156,89 @@ def _normalized(packed, sigma_type):
     return yn, dyn, units, log_norm
 
 
-def check_model_class(model):
-    """Raise NotImplementedError for a model class the population cannot fit
-    (every class but ShockCooling2, on every device)."""
-    from ..models import ShockCooling2
-    if not isinstance(model, ShockCooling2):
+# The classes a population takes (the JAX function's: its make_logpost calls
+# any class's _eval_points), each with the fewest and the most parameters of
+# its _eval_points (t_exp, ebv and CS's optional factors or shifts default;
+# kappa is bound at construction) and its kernels' family on CUDA (None: the
+# CPU only, ROADMAP Queue 1 item 10).
+def _pop_classes():
+    from ..models import (CompanionShocking, CompanionShocking2, CompanionShocking3,
+                          ShockCooling, ShockCooling2, ShockCooling3, ShockCooling4)
+    return ((ShockCooling2, 3, 4, "sc2"), (ShockCooling, 4, 5, "sc"),
+            (ShockCooling4, 4, 5, "sc4"), (ShockCooling3, 5, 7, None),
+            (CompanionShocking, 5, 8, None), (CompanionShocking2, 5, 7, None),
+            (CompanionShocking3, 5, 7, None))
+
+
+def _class_spec(model):
+    """(n_min, n_max, kernel family or None) of ``model``'s class; a class the
+    population does not take raises NotImplementedError."""
+    for cls, n_min, n_max, family in _pop_classes():
+        if isinstance(model, cls):
+            return n_min, n_max, family
+    raise NotImplementedError(
+        f"the population fit takes ShockCooling2, ShockCooling, ShockCooling4, ShockCooling3 "
+        f"and CompanionShocking 1-3, not {type(model).__name__}")
+
+
+def check_model_class(model, device, init="window"):
+    """Raise NotImplementedError where ``device`` cannot fit a population of
+    ``model``'s class: on the CPU every class of the JAX function runs (the
+    plain versions); on CUDA (``device`` None or a CUDA device) ShockCooling2,
+    ShockCooling and ShockCooling4 run on their kernels, ShockCooling3 and
+    CompanionShocking 1-3 wait for ROADMAP Queue 1 item 10, and
+    ``init="map"`` over ShockCooling or ShockCooling4 for P3 over their
+    gradient (item 22)."""
+    _, _, family = _class_spec(model)
+    if (torch.device(device) if device is not None else torch.device("cuda")).type != "cuda":
+        return
+    name = type(model).__name__
+    if family is None:
         raise NotImplementedError(
-            f"the population fit runs ShockCooling2 only (its kernels P1-P3); "
-            f"{type(model).__name__} waits for ROADMAP Queue 1 item 10")
+            f"a {name} population has no kernels yet: on CUDA the population fit takes "
+            "ShockCooling2, ShockCooling and ShockCooling4; P1 and P2 over the other classes "
+            'wait for ROADMAP Queue 1 item 10 (device="cpu" runs their plain versions)')
+    if family != "sc2" and init == "map":
+        raise NotImplementedError(
+            f'init="map" over a {name} population on CUDA needs P3 over its gradient (ROADMAP '
+            'Queue 1 item 22); pass init="window", or device="cpu" for the plain ascent')
 
 
-def _check_model(model, n_model):
-    check_model_class(model)
-    if n_model not in (3, 4):
-        raise ValueError(f"a ShockCooling2 population fits 3 parameters (T_1, L_1, t_tr; t_exp "
-                         f"= 0) or 4 (and t_exp), plus sigma with use_sigma; got {n_model}")
+def _check_n_model(model, n_model):
+    """The class's (n_min, family) after checking that it takes ``n_model``
+    parameters."""
+    n_min, n_max, family = _class_spec(model)
+    if not n_min <= n_model <= n_max:
+        names = ", ".join(model.input_names[:n_max])
+        raise ValueError(f"a {type(model).__name__} population fits {n_min} to {n_max} of its "
+                         f"parameters ({names}; those past the first {n_min} default), plus "
+                         f"sigma with use_sigma; got {n_model}")
+    return n_min, family
 
 
 class PopulationPosterior:
-    """The per-transient log-posterior of a packed ShockCooling2 population
-    (the JAX function's ``make_logpost``, vmapped over transients): ``p``
-    (S, W, ndim) absolute float64 parameters -> (S, W) float64, the walkers
-    of transient s under its own data.
+    """The per-transient log-posterior of a packed population (the JAX
+    function's ``make_logpost``, vmapped over transients): ``p`` (S, W,
+    ndim) absolute float64 parameters -> (S, W) float64, the walkers of
+    transient s under its own data, for any class :func:`_class_spec` takes.
 
     The buffers, on the pack's device, in the compute dtype (float32 on CUDA
     by default): ``t_centered`` (S, N), the times less the transient's
     ``t_ref = floor(min t)``; ``y``, ``dy`` (divided by the transient's
     ``yscale``), ``inv_dy`` (0 on the padded points), ``sigma_units`` (S,
-    N); ``bb_coeffs`` (S, N, D + 1), ``bb_s_a``, ``bb_s_b`` (S, N). In
-    float64: ``t_ref``, ``inv_yscale``, ``log_norm`` (S,); ``mask`` (S, N)
-    bool, each transient's real points first (as :func:`pack_population`
-    packs them, padded with copies of the last), and ``n_real`` (S,) int32
-    their number, which the kernels read. :meth:`plain` is the plain version
-    of P1."""
+    N); for a band-table class ``bb_coeffs`` (S, N, D + 1), ``bb_s_a``,
+    ``bb_s_b`` (S, N). In float64: ``t_ref``, ``inv_yscale``, ``log_norm``
+    (S,); ``mask`` (S, N) bool, each transient's real points first (as
+    :func:`pack_population` packs them, padded with copies of the last), and
+    ``n_real`` (S,) int32 their number, which the kernels read. ``family``
+    names the class's kernels (``"sc2"``, ``"sc"``, ``"sc4"``; None: the
+    CPU only). :meth:`plain` is the plain version of P1."""
 
     def __init__(self, packed, model, priors, use_sigma=False, sigma_type="relative"):
         self.priors = list(priors)
         self.use_sigma = bool(use_sigma)
         self.n_model = len(self.priors) - int(self.use_sigma)
-        _check_model(model, self.n_model)
+        self.n_min, self.family = _check_n_model(model, self.n_model)
         self.model = model
         dev = packed["t"].device
         dt = config.get_compute_dtype(dev)
@@ -202,6 +250,7 @@ class PopulationPosterior:
             return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
 
         t = packed["t"].to(torch.float64)
+        self.t_abs = t
         self.t_ref = epoch_reference(t, dim=1)
         t_shift = t - self.t_ref[:, None]
         self.t_shift = t_shift[:, None, :]                  # (S, 1, N) for the plain version
@@ -217,8 +266,10 @@ class PopulationPosterior:
         self.dy = buf(dyn)
         self.inv_dy = torch.where(self.mask, 1.0 / self.dy, torch.zeros_like(self.dy))
         self.sigma_units = buf(units)
-        for name in TABLE:
-            setattr(self, name, packed["quad"][name].to(cdt).contiguous())
+        self.quad = packed["quad"]
+        if self.family is not None:
+            for name in TABLE:
+                setattr(self, name, packed["quad"][name].to(cdt).contiguous())
         self.inv_yscale = buf(1.0 / packed["yscale"].cpu().numpy(), torch.float64)
         self.log_norm = buf(log_norm, torch.float64)
         self.kernel_params = {}
@@ -234,16 +285,26 @@ class PopulationPosterior:
     def flux(self, p):
         """The model's band fluxes (S, W, N) at absolute float64 parameters
         ``p`` (S, W, >= n_model), each transient on its own points, plain
-        PyTorch in the compute dtype (``ShockCooling2._eval_points``). The
-        times and t_exp enter less the transient's t_ref, so that
-        ``hot_phase``'s centring (floor(min t) = 0 over the shifted times)
-        rounds each transient's phase as the JAX package's vmap does:
-        C(t - t_ref) - C(t_exp - t_ref), or in float64 t - t_exp exactly."""
-        t_exp = p[..., 3:4] if self.n_model == 4 else torch.zeros_like(p[..., :1])
+        PyTorch in the compute dtype (the class's ``_eval_points``). A class
+        with kernels runs all transients at once: the times and t_exp (the
+        parameter after the first ``n_min``, 0 when not fitted) enter less
+        the transient's t_ref, so that ``hot_phase``'s centring (floor(min t)
+        = 0 over the shifted times) rounds each transient's phase as the JAX
+        package's vmap does: C(t - t_ref) - C(t_exp - t_ref), or in float64
+        t - t_exp exactly. Any other class runs transient by transient on its
+        absolute times and parameters, where ``hot_phase`` centres each on
+        its own floor(min t), as the vmap."""
+        if self.family is None:
+            rows = [self.model._eval_points(
+                self.t_abs[s], {k: v[s] for k, v in self.quad.items()},
+                *[p[s, :, i:i + 1] for i in range(self.n_model)], plain=True)
+                for s in range(self.n_transients)]
+            return torch.stack(rows)
+        k = self.n_min
+        t_exp = p[..., k:k + 1] if self.n_model > k else torch.zeros_like(p[..., :1])
         quad = {name: getattr(self, name)[:, None] for name in TABLE}
-        return self.model._eval_points(self.t_shift, quad, p[..., 0:1], p[..., 1:2], p[..., 2:3],
+        return self.model._eval_points(self.t_shift, quad, *[p[..., i:i + 1] for i in range(k)],
                                        t_exp - self.t_ref[:, None, None], plain=True)
-
     def _term_parts(self, p):
         """The two parts of each point's residual term at ``p``, (S, W, N) in
         the compute dtype: log(2 pi sigma^2) and r^2 / sigma^2 with the
@@ -395,7 +456,9 @@ def fit_population(models, lcs, priors, p_lo, p_up, nwalkers=64, nsteps=500,
 
     Refused with ``NotImplementedError``: ``mesh`` (ROADMAP Queue 1 item
     17); ``checkpoint_every``, ``checkpoint_file`` and ``resume_from`` (item
-    16); on CUDA a ``KDEPrior`` (item 21); a model other than ShockCooling2.
+    16); on CUDA a ``KDEPrior`` (item 21), ShockCooling3 and
+    CompanionShocking 1-3 (item 10) and ``init="map"`` over ShockCooling and
+    ShockCooling4 (item 22) (:func:`check_model_class`).
 
     Returns (flatchains (S, nsteps * nwalkers, ndim) or None, acceptance
     (S,)) plus the (S, ndim, 3) summaries when ``summaries=True``.
@@ -408,6 +471,7 @@ def fit_population(models, lcs, priors, p_lo, p_up, nwalkers=64, nsteps=500,
         raise ValueError("nwalkers must be even")
     from ..fitting import _state_rescaling
     device = resolve_device(device)
+    check_model_class(models[0], device, init)
     ndim = len(priors)
     half = nwalkers // 2
     S = len(lcs)

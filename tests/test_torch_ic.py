@@ -194,7 +194,7 @@ WIDE = [tmodels.UniformPrior(1.0, 81.0), tmodels.UniformPrior(0.1, 20.1),
         tmodels.UniformPrior(5.0, 205.0), tmodels.UniformPrior(-5.0, 5.0)]
 
 
-def test_compare_models_loo_small(capsys):
+def test_compare_models_loo_small(capsys, monkeypatch):
     lc = _synthetic()
     models = [tmodels.ShockCooling2(lc), tmodels.ShockCooling2(lc)]
     tab = tfit.compare_models_loo(lc, models, [SNUG, WIDE], p_lo=[10.0, 1.5, 30.0, -0.2],
@@ -209,19 +209,45 @@ def test_compare_models_loo_small(capsys):
     assert tab.meta["models"]["wide"] is models[1]
     assert "model ranking by PSIS-LOO elpd" in capsys.readouterr().out
     kw = dict(labels=["snug", "wide"], nwalkers=16, nsteps=4, nsteps_burnin=4, device="cpu")
-    # refit runs the population, ShockCooling2's alone: another class refuses before any fit
+    # refit runs the population: on the CPU every class reaches the fits, on
+    # CUDA a class without population kernels (item 10) and init="map" over
+    # SW17 (P3, item 22) refuse before any fit (the device check needs no card)
     sw17 = [models[0], tmodels.ShockCooling(lc)]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tfit.compare_models_loo(lc, sw17, [SNUG, WIDE + [tmodels.UniformPrior(0.0, 1.0)]],
-                                refit=True, **kw)
+    cs2 = [models[0], tmodels.CompanionShocking2(lc)]
+    pri2 = [SNUG, WIDE + [tmodels.UniformPrior(0.0, 1.0)]]
+
+    class Fitted(Exception):
+        pass
+
+    def no_fit(*a, **k):
+        raise Fitted
+    with monkeypatch.context() as m:
+        m.setattr(tfit, "lightcurve_mcmc", no_fit)
+        for pair, ro in ((sw17, None), (cs2, None), (sw17, {"init": "window"})):
+            with pytest.raises(Fitted):
+                tfit.compare_models_loo(lc, pair, pri2, refit=True, refit_options=ro, **kw)
+        cuda = dict(kw, device=torch.device("cuda"))
+        with pytest.raises(Fitted):
+            tfit.compare_models_loo(lc, sw17, pri2, refit=True, refit_options={"init": "window"},
+                                    **cuda)
+        with pytest.raises(NotImplementedError, match="item 22"):
+            tfit.compare_models_loo(lc, sw17, pri2, refit=True, **cuda)
+        with pytest.raises(NotImplementedError, match="item 10"):
+            tfit.compare_models_loo(lc, cs2, pri2, refit=True, refit_options={"init": "window"},
+                                    **cuda)
     with pytest.raises(NotImplementedError, match="item 16"):
         tfit.compare_models_loo(lc, models, [SNUG, WIDE], checkpoint_file="ck.npz", **kw)
     with pytest.raises(NotImplementedError, match="item 16"):
         tfit.compare_models_loo(lc, models, [SNUG, WIDE], resume_from="ck.npz", **kw)
     flat = tab.meta["samplers"]["snug"].flatchain
+    ic_kw = dict(refit=True, priors=SNUG + [tmodels.UniformPrior(-1.0, 1.0)])
+    with pytest.raises(NotImplementedError, match="item 22"):
+        tfit.information_criteria(lc, sw17[1], np.c_[flat, flat[:, :1]],
+                                  device=torch.device("cuda"), **ic_kw)
     with pytest.raises(NotImplementedError, match="item 10"):
-        tfit.information_criteria(lc, sw17[1], np.c_[flat, flat[:, :1]], refit=True,
-                                  priors=SNUG + [tmodels.UniformPrior(-1.0, 1.0)], device="cpu")
+        tfit.information_criteria(lc, tmodels.ShockCooling3(lc), np.c_[flat, flat[:, :3]],
+                                  device=torch.device("cuda"), refit_options={"init": "window"},
+                                  refit=True, priors=SNUG + [tmodels.UniformPrior(-1.0, 1.0)] * 3)
 
 
 @pytest.mark.parametrize("driver", ["mcmc", "hmc", "map", "ptmcmc"])

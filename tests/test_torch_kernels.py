@@ -193,8 +193,8 @@ def _sc3_walkers(n, seed=0):
 
 
 def _c_fields(struct):
-    """Field names of ``struct`` in the CUDA sources, in order."""
-    for path in build._sources()[0]:
+    """Field names of ``struct`` in the CUDA sources and headers, in order."""
+    for path in sum(build._sources(), []):
         with open(path) as f:
             src = f.read()
         head = f"struct {struct} {{"
@@ -261,7 +261,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         build._nvcc()
     srcs, _ = build._sources()
     assert [os.path.basename(s) for s in srcs] == ["companion.cu", "epoch_bb.cu", "ladder.cu",
-                                                   "population.cu", "quantile.cu",
+                                                   "pop_sc.cu", "population.cu", "quantile.cu",
                                                    "sc2_logpost.cu", "sc3_logpost.cu",
                                                    "sc_logpost.cu", "sed.cu"]
 
@@ -3567,8 +3567,9 @@ def test_sc_ladder_init_forms_bit_equal_on_card(lc, cuda_device, prefix, R, W, f
 # ------------------------------------------------------------------- P1-P3
 
 @pytest.mark.parametrize("struct,mirror,size", [
-    # 12 pointers, 6 ints, 5 doubles, 7 arrays of LP_MAX_DIM
-    ("PopParams", kpop._PopParams, 8 * (12 + 6 + 5) + 7 * 9 * 8),
+    # 12 pointers, 6 ints, 5 doubles, 7 arrays of LP_MAX_DIM, then the model
+    # kind and SW17's and MSW23's 14 constants
+    ("PopParams", kpop._PopParams, 8 * (12 + 6 + 5) + 7 * 9 * 8 + 8 * (1 + 14)),
     # 4 pointers, 2 ints, 5 doubles, 4 arrays of LP_MAX_DIM
     ("PopMapParams", kpop._PopMapParams, 8 * (4 + 2 + 5) + 4 * 9 * 8),
 ])
@@ -3820,3 +3821,116 @@ def test_pop_logpost_forms_bit_equal_on_card(cuda_device, S, points, f64):
                                   .flatten())
     finally:
         config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ShockCooling", "ShockCooling4"])
+@pytest.mark.parametrize("S", [3, 64])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_pop_sc_kernels_match_plain_on_card(cuda_device, name, S, f64):
+    """P1 and P2 over ShockCooling and ShockCooling4 (``csrc/pop_sc.cu``) on
+    ``chip_smoke.sc_pop_example``'s survey, ndim 4 (t_exp = 0), 5 (t_exp, the
+    MJD-scale twin) and 6 (and the intrinsic scatter), 64 walkers: P1 within
+    1e-5 (float32) or 1e-10 (float64) of the term scale of the plain version
+    with the same -inf set, its two forms bit for bit, and P2's two forms bit
+    for bit over two half-steps (:func:`chip_smoke.pop_check_forms`), each
+    launch counted under the class's names; P3 over them refuses (item
+    22)."""
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    from lightcurve_fitting_tpu_torch.parallel.population import (BoundsTransform,
+                                                                  PopulationPosterior,
+                                                                  pack_population)
+    count = {"ShockCooling": "pop_sc", "ShockCooling4": "pop_sc4"}[name]
+    try:
+        if f64:
+            config.set_compute_dtype(torch.float64)
+        for mjd, sigma in ((False, False), (True, False), (True, True)):
+            lcs, models, _ = chip_smoke.sc_pop_example(name, S, cuda_device, mjd)
+            priors, lo, up = chip_smoke.sc_pop_priors(mjd, sigma)
+            pp = PopulationPosterior(pack_population(models, lcs, sigma, cuda_device), models[0],
+                                     priors, sigma)
+            q, off, scale = chip_smoke.pop_state(pp, lo, up, 64, 5, cuda_device)
+            n0 = dict(kernels.LAUNCHES)
+            got = chip_smoke.pop_check_p1_forms(f"{name} P1", pp, off, scale, q)
+            assert kernels.LAUNCHES[f"{count}_logpost"] == n0[f"{count}_logpost"] + 2
+            assert kernels.LAUNCHES["pop_logpost"] == n0["pop_logpost"]
+            chip_smoke.compare_ll(f"{name} P1", got.flatten(),
+                                  kpop.log_posterior_plain(pp, q, off, scale).flatten(),
+                                  1e-10 if f64 else 1e-5,
+                                  scale=pp.term_scales(common.absolute_params(q, off, scale))
+                                  .flatten())
+            x0 = q.reshape(S, 2, 32, -1).contiguous()
+            chip_smoke.pop_check_forms(f"{name} P2", pp, off, scale, x0, None, None, 6)
+            assert kernels.LAUNCHES[f"{count}_half_step"] == n0[f"{count}_half_step"] + 4
+        bounds = BoundsTransform([p.p_min for p in priors], [p.p_max for p in priors])
+        u0 = torch.zeros((S, 4, len(priors)), dtype=torch.float64, device=cuda_device)
+        with pytest.raises(NotImplementedError, match="item 22"):
+            kpop.map_ascent(pp, u0, bounds, 10)
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ShockCooling", "ShockCooling4"])
+@pytest.mark.parametrize("kind", ["LOGO", "LOPO"])
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_pop_sc_kernels_match_plain_at_refit_widths_on_card(cuda_device, name, kind, f64):
+    """P1 and P2 over ShockCooling and ShockCooling4 at the exact-refit CV's
+    widths (``chip_smoke.sc_refit_population``: SN 2016bkv without one band,
+    4 transients of up to 143 points, or without one point, 149 of 148),
+    t_exp fitted (ndim 5) and with the intrinsic scatter (6), 64 walkers:
+    P1's two forms bit for bit and within 1e-5 (float32) or 1e-10 (float64)
+    of the term scale of the plain version; P2 (h = 0, 1) against its plain
+    version under shared draws, and P1 at the states P2 accepted P2's stored
+    bits."""
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    from lightcurve_fitting_tpu_torch.models import UniformPrior
+    from lightcurve_fitting_tpu_torch.parallel.population import (PopulationPosterior,
+                                                                  pack_population)
+    count = {"ShockCooling": "pop_sc", "ShockCooling4": "pop_sc4"}[name]
+    rel = 1e-10 if f64 else 1e-5
+    lcs, models = chip_smoke.sc_refit_population(name, kind, cuda_device)
+    S = len(lcs)
+    try:
+        if f64:
+            config.set_compute_dtype(torch.float64)
+        for sigma in (False, True):
+            priors = chip_smoke.sc_priors() + [UniformPrior(0.0, 5.0)] * sigma
+            lo, up = chip_smoke.SC_LO + [0.01] * sigma, chip_smoke.SC_UP + [1.0] * sigma
+            pp = PopulationPosterior(pack_population(models, lcs, sigma, cuda_device), models[0],
+                                     priors, sigma)
+            q, off, scale = chip_smoke.pop_state(pp, lo, up, 64, 7, cuda_device)
+            n0 = dict(kernels.LAUNCHES)
+            got = chip_smoke.pop_check_p1_forms(f"{name} P1", pp, off, scale, q)
+            assert kernels.LAUNCHES[f"{count}_logpost"] == n0[f"{count}_logpost"] + 2
+            chip_smoke.compare_ll(f"{name} P1", got.flatten(),
+                                  kpop.log_posterior_plain(pp, q, off, scale).flatten(), rel,
+                                  scale=pp.term_scales(common.absolute_params(q, off, scale))
+                                  .flatten())
+            x0 = q.reshape(S, 2, 32, -1).contiguous()
+            chip_smoke.pop_check_half_step(f"{name} P2", pp, off, scale, x0, 8, rel)
+            assert chip_smoke.pop_p1_repeats_p2(pp, off, scale, x0, 9)[0] == 0
+    finally:
+        config.set_compute_dtype(config.AUTO)
+
+
+@pytest.mark.cuda
+def test_pop_sc_kernels_do_not_spill_on_card(cuda_device):
+    """ptxas's report of P1 and P2 over ShockCooling and ShockCooling4, each
+    form, 12 instantiations each (ndim 4-6, the four dtype pairs): no spill,
+    the warp form of P2 too (its policies' min_blocks)."""
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                    "tools"))
+    from time_port_kernels import ptxas_report
+    build.library()
+    report = ptxas_report(build.build_info()["log"])
+    for policy in ("PopSCWarpModel", "PopSC4WarpModel"):
+        for key in ("logpost_warp_kernel", "logpost_latency_kernel", "stretch_half_step_kernel",
+                    "stretch_half_step_latency_kernel"):
+            ks = [v for k, v in report.items() if key + "I" in k and policy + "I" in k]
+            assert len(ks) == 12 and not any(v[2] or v[3] for v in ks), (key, policy, ks)

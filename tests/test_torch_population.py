@@ -30,6 +30,7 @@ with its reason:
   (float64), ``population_compare_elpd`` <= 1e-12.
 """
 
+import os
 import warnings
 
 import numpy as np
@@ -45,12 +46,13 @@ import jax.random as jr  # noqa: E402
 from lightcurve_fitting_tpu.core import config as jconfig  # noqa: E402
 from lightcurve_fitting_tpu.filters import filtdict as jfd  # noqa: E402
 from lightcurve_fitting_tpu.lightcurve import LC as JLC  # noqa: E402
+from lightcurve_fitting_tpu import models as jmodels  # noqa: E402
 from lightcurve_fitting_tpu.models import ShockCooling2 as JSC2, UniformPrior as JU  # noqa: E402
 from lightcurve_fitting_tpu.models.base import intrinsic_scatter_units as j_units  # noqa: E402
 from lightcurve_fitting_tpu.parallel import population as jpop  # noqa: E402
 from lightcurve_fitting_tpu.parallel.sampler import make_stretch_kernel  # noqa: E402
 
-from lightcurve_fitting_tpu_torch import kernels  # noqa: E402
+from lightcurve_fitting_tpu_torch import interop, kernels, models as tmodels  # noqa: E402
 from lightcurve_fitting_tpu_torch.core import config as tconfig  # noqa: E402
 from lightcurve_fitting_tpu_torch.filters import filtdict as tfd  # noqa: E402
 from lightcurve_fitting_tpu_torch.kernels import pop as kpop  # noqa: E402
@@ -530,7 +532,7 @@ def test_fit_population_errors_as_jax_raises_them():
 
 
 @pytest.mark.parametrize("what", ["mesh", "checkpoint_every", "checkpoint_file", "resume_from",
-                                  "kde_on_cuda", "model", "no_cuda"])
+                                  "kde_on_cuda", "model", "model_on_cuda", "no_cuda"])
 def test_refusals_name_their_roadmap_items(what, monkeypatch):
     jl, tl = _shifted(2)
     _, tm = _models(jl, tl)
@@ -547,8 +549,32 @@ def test_refusals_name_their_roadmap_items(what, monkeypatch):
         with pytest.raises(NotImplementedError, match="item 21"):
             kpop._params(pp, 3, None, None)
     elif what == "model":
-        with pytest.raises(NotImplementedError, match="ShockCooling2 only"):
+        # the CPU fits a population of any class the JAX function takes
+        flat, acc = tpop.fit_population([TSC(lc) for lc in tl], tl,
+                                        _bounded(SC_POP_BOUNDS, "port"),
+                                        **dict(kw, p_lo=SC_POP_LO, p_up=SC_POP_UP))
+        assert flat.shape == (2, 4 * 8, 4) and np.isfinite(flat).all() and acc.shape == (2,)
+        with pytest.raises(ValueError, match="4 to 5"):
             tpop.fit_population([TSC(lc) for lc in tl], tl, tpri, **kw)
+    elif what == "model_on_cuda":
+        # the device check, as fit_population and the refit entry checks call
+        # it (no card needed): CUDA's kernels take SC2, SC and SC4, P3 SC2 alone
+        cuda = torch.device("cuda")
+        for m in (tmodels.ShockCooling3(tl[0]), tmodels.CompanionShocking(tl[0]),
+                  tmodels.CompanionShocking2(tl[0]), tmodels.CompanionShocking3(tl[0])):
+            with pytest.raises(NotImplementedError, match="item 10"):
+                tpop.check_model_class(m, cuda)
+            tpop.check_model_class(m, "cpu", "map")
+        for m in (TSC(tl[0]), tmodels.ShockCooling4(tl[0])):
+            with pytest.raises(NotImplementedError, match="item 22"):
+                tpop.check_model_class(m, cuda, "map")
+            with pytest.raises(NotImplementedError, match="item 22"):
+                tpop.check_model_class(m, None, "map")
+            tpop.check_model_class(m, cuda, "window")
+            tpop.check_model_class(m, "cpu", "map")
+        tpop.check_model_class(tm[0], cuda, "map")
+        with pytest.raises(NotImplementedError, match="takes ShockCooling2"):
+            tpop.check_model_class(tmodels.Model(), "cpu")
     else:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match='device="cpu"'):
@@ -677,6 +703,338 @@ def jax_example_fit(S, seed=1):
         float(np.min(acc))
 
 
+# ------------------------------------------------- populations of other classes
+
+SN2016BKV = os.path.join(os.path.dirname(__file__), "..", "lightcurve_fitting_tpu", "data",
+                         "SN2016bkv.csv")
+META = dict(dm=30.79, redshift=0.002, extinction={
+    "U": 0.069, "B": 0.061, "g": 0.055, "V": 0.045, "0": 0.035,
+    "r": 0.038, "R": 0.035, "i": 0.028, "I": 0.020})
+D_L = 10 ** (30.79 / 5 + 1) / 1e6
+# each class's priors and walker window on its light curve (SN 2016bkv's
+# early curve; the synthetic Ia curve for CompanionShocking 1-3), t_exp fitted
+# (tests/test_torch_shock_cooling.py, test_torch_companion.py, chip_smoke.py)
+SC_BOUNDS = [(0.1, 20.0), (0.1, 30.0), ("log", 0.01, 100.0), (0.01, 50.0), (57468.0, 57468.7)]
+CS2_BOUNDS = [(57815.0, 57825.0), (0.01, 5.0), (0.1, 10.0), (57835.0, 57845.0), (0.6, 1.6),
+              (-5.0, 5.0), (-5.0, 5.0)]
+CLASS_SETUP = {
+    "ShockCooling2": ([(0.0, 100.0)] * 3 + [(57468.0, 57468.7)],
+                      ([20.0, 2.0, 20.0, 57468.5], [50.0, 5.0, 50.0, 57468.7])),
+    "ShockCooling": (SC_BOUNDS, ([0.5, 0.5, 0.1, 0.1, 57468.3], [10.0, 20.0, 10.0, 20.0, 57468.7])),
+    "ShockCooling4": (SC_BOUNDS,
+                      ([0.5, 0.5, 0.1, 0.1, 57468.3], [10.0, 20.0, 10.0, 20.0, 57468.7])),
+    "ShockCooling3": ([(0.0, 10.0), (0.0, 10.0), (0.0, 100.0), (0.0, 100.0),
+                       (D_L - 0.01, D_L + 0.01), (0.0, 1.0), (57468.0, 57468.7)],
+                      ([0.5, 0.5, 5.0, 1.0, D_L - 0.005, 0.0, 57468.5],
+                       [2.0, 2.0, 20.0, 5.0, D_L + 0.005, 0.1, 57468.7])),
+    "CompanionShocking": (CS2_BOUNDS[:5] + [(0.1, 10.0)] * 3,
+                          ([57818.0, 0.2, 0.5, 57838.0, 0.8, 0.8, 0.8, 0.8],
+                           [57822.0, 1.0, 2.0, 57842.0, 1.2, 1.2, 1.2, 1.2])),
+    "CompanionShocking2": (CS2_BOUNDS, ([57818.0, 0.2, 0.5, 57838.0, 0.8, -1.0, -1.0],
+                                        [57822.0, 1.0, 2.0, 57842.0, 1.2, 1.0, 1.0])),
+    "CompanionShocking3": (CS2_BOUNDS[:2] + [(0.0, 180.0)] + CS2_BOUNDS[3:],
+                           ([57818.0, 0.2, 0.0, 57838.0, 0.8, -1.0, -1.0],
+                            [57822.0, 1.0, 90.0, 57842.0, 1.2, 1.0, 1.0])),
+}
+
+
+def _bounded(bounds, package):
+    mods = jmodels if package == "jax" else tmodels
+    return [mods.LogUniformPrior(*b[1:]) if b[0] == "log" else mods.UniformPrior(*b)
+            for b in bounds]
+
+
+def _class_population(name):
+    """Three ragged transients of ``name``'s light curve (every third row, or
+    epoch, from the s-th, the later ones cut short), in both packages,
+    each with its model (the port's from the JAX one's numbers,
+    ``interop.model_from_jax``): (JAX curves, port curves, JAX models, port
+    models)."""
+    if name.startswith("CompanionShocking"):
+        from test_companion_shocking import make_ia_lc
+        whole = make_ia_lc(seed=3)[0]
+        col = "lum"
+    else:
+        whole = JLC.read(SN2016BKV)
+        whole.meta.update(META)
+        whole.calcAbsMag()
+        whole.calcLum()
+        whole = whole.where(MJD_min=57468.0, MJD_max=57485.0)
+        col = "lum"
+        if name == "ShockCooling3":
+            whole.calcFlux()
+            col = "flux"
+    rows = np.arange(len(whole))
+    # SN 2016bkv's rows in turn; the Ia curve's epochs in turn (its rows are
+    # an epoch's six bands)
+    per = len({f.name for f in whole["filter"]}) if name.startswith("Companion") else 1
+    jl, tl = [], []
+    for s, cut in enumerate((0, 4, 9)):
+        idx = rows[(rows // per) % 3 == s]
+        idx = idx[:len(idx) - cut]
+        lc = whole[idx]
+        jl.append(JLC([np.asarray(lc["MJD"], float), np.asarray(lc["filter"]),
+                       np.asarray(lc[col], float), np.asarray(lc["d" + col], float)],
+                      names=["MJD", "filter", col, "d" + col]))
+        tl.append(TLC([np.asarray(lc["MJD"], float),
+                       np.array([tfd[f.name] for f in lc["filter"]]),
+                       np.asarray(lc[col], float), np.asarray(lc["d" + col], float)],
+                      names=["MJD", "filter", col, "d" + col]))
+    bands = {frozenset(f.name for f in lc["filter"]) for lc in jl}
+    assert len(bands) == 1 or not name.startswith("Companion"), bands
+    jm = [getattr(jmodels, name)(lc) for lc in jl]
+    tm = [interop.model_from_jax(m, lc) for m, lc in zip(jm, tl)]
+    return jl, tl, jm, tm
+
+
+def _poison(jp, tp, e):
+    """Transient e's model value made +inf (or NaN) at its last real point,
+    and so at its padded copies, in both packs: the band table's constant
+    term lifted by 1e30, or, on the quadrature path, its weights inf."""
+    n = int(np.asarray(jp["mask"])[e].sum())
+    key = "bb_coeffs" if "bb_coeffs" in jp["quad"] else "weights"
+    a = np.array(jp["quad"][key])
+    if key == "bb_coeffs":
+        a[e, n - 1:, 0] = 1e30
+    else:
+        a[e, n - 1:] = np.inf
+    jp["quad"] = dict(jp["quad"], **{key: jnp.asarray(a)})
+    tp["quad"] = dict(tp["quad"], **{key: torch.as_tensor(a)})
+
+
+@pytest.mark.parametrize("use_sigma", [False, True])
+@pytest.mark.parametrize("name", list(CLASS_SETUP))
+def test_plain_logpost_of_every_class_matches_jax(name, use_sigma):
+    """The plain P1 of each class the JAX function takes against the rebuilt
+    make_logpost, float64 (1e-12 relative), on three ragged transients, the
+    second of which has a non-finite model value at its last real point (-inf
+    at every walker in both packages); t_exp fitted, 10% of the walkers
+    outside the priors."""
+    bounds, (lo, up) = CLASS_SETUP[name]
+    sig = [(0.0, 5.0)] if use_sigma else []
+    jpri, tpri = _bounded(bounds + sig, "jax"), _bounded(bounds + sig, "port")
+    jl, tl, jm, tm = _class_population(name)
+    jp = jpop.pack_population(jm, jl)
+    tp = tpop.pack_population(tm, tl, device="cpu")
+    _poison(jp, tp, 1)
+    rng = np.random.default_rng(7)
+    W = 12
+    p = rng.uniform(lo, up, size=(3, W, len(lo)))
+    if use_sigma:
+        p = np.concatenate([p, rng.uniform(0.01, 2.0, size=(3, W, 1))], axis=-1)
+    p[rng.random((3, W)) < 0.1, 1] = -1.0
+    _, jfn = _jax_logpost(jp, jm[0], jpri, use_sigma, "relative")
+    want = jfn(p)
+    pp = tpop.PopulationPosterior(tp, tm[0], tpri, use_sigma)
+    assert pp.family == {"ShockCooling2": "sc2", "ShockCooling": "sc",
+                         "ShockCooling4": "sc4"}.get(name)
+    got = kpop.log_posterior(pp, torch.as_tensor(p)).numpy()
+    assert np.array_equal(np.isneginf(got), np.isneginf(want)) and not np.isnan(got).any()
+    assert np.isneginf(got[1]).all()
+    fin = np.isfinite(want)
+    assert fin[[0, 2]].mean() > 0.6
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-12, atol=0.0)
+
+
+@pytest.mark.parametrize("name", ["ShockCooling", "ShockCooling4"])
+def test_p2_step_over_sw17_and_msw23_under_the_jax_draws(name):
+    """One step (h = 0, then 1) of the plain P2 over SW17 and MSW23
+    populations under the JAX step's own draws, each transient its own
+    ensemble (t_exp fitted): states exact, log-posteriors within 1e-12, the
+    accept counts and the chain slot written."""
+    bounds, (lo, up) = CLASS_SETUP[name]
+    jpri, tpri = _bounded(bounds, "jax"), _bounded(bounds, "port")
+    jl, tl, jm, tm = _class_population(name)
+    jp = jpop.pack_population(jm, jl)
+    make, _ = _jax_logpost(jp, jm[0], jpri, False, "relative")
+    S, half, ndim = 3, 8, len(lo)
+    x0 = np.random.default_rng(2).uniform(lo, up, size=(S, 2, half, ndim))
+    keys = jr.split(jr.PRNGKey(5), S)
+    x_want, lp_want = [], []
+    draws = {k: np.empty((S, 2, half), dtype=np.int64 if k == "j" else np.float64)
+             for k in ("u_z", "j", "u_acc")}
+    for s in range(S):
+        lp = make(*[jp[k][s] for k in ("t", "y", "dy", "mask", "yscale")],
+                  {k: v[s] for k, v in jp["quad"].items()})
+        step, batched = make_stretch_kernel(lp, half, ndim)
+        xs = jnp.asarray(x0[s])
+        (xn, ln), _ = step((xs, batched(xs.reshape(-1, ndim)).reshape(2, half)), keys[s])
+        x_want.append(np.asarray(xn))
+        lp_want.append(np.asarray(ln))
+        for h, kh in enumerate(jr.split(keys[s])):
+            kz, kj, ku = jr.split(kh, 3)
+            draws["u_z"][s, h] = np.asarray(jr.uniform(kz, (half,), dtype=jnp.float64))
+            draws["j"][s, h] = np.asarray(jr.randint(kj, (half,), 0, half))
+            draws["u_acc"][s, h] = np.asarray(jr.uniform(ku, (half,), dtype=jnp.float64))
+    pp = tpop.PopulationPosterior(tpop.pack_population(tm, tl, device="cpu"), tm[0], tpri)
+    x = torch.as_tensor(x0).contiguous()
+    logp = kpop.log_posterior(pp, x.reshape(S, 2 * half, ndim)).reshape(S, 2, half)
+    n_acc = torch.zeros((S, 2, half), dtype=torch.int32)
+    cx, cl = torch.empty_like(x), torch.empty_like(logp)
+    u_z, j, u_acc = (torch.as_tensor(draws[k]) for k in ("u_z", "j", "u_acc"))
+    for h in (0, 1):
+        kpop.stretch_half_step(pp, x, logp, h, u_z, j, u_acc, 2.0, None, None, cx, cl, n_acc)
+    assert 0 < int(n_acc.sum()) < 2 * S * half
+    assert np.array_equal(x.numpy(), np.stack(x_want))
+    np.testing.assert_allclose(logp.numpy(), np.stack(lp_want), rtol=1e-12, atol=0.0)
+    assert torch.equal(cx, x) and torch.equal(cl, logp)
+
+
+class _FakeCuda:
+    """A CPU tensor that reports a CUDA device, so that a wrapper takes its
+    kernel branch up to the C call."""
+
+    def __init__(self, t):
+        self.t, self.shape, self.dtype, self.ndim = t, t.shape, t.dtype, t.dim()
+        self.device = torch.device("cuda", 0)
+
+    def data_ptr(self):
+        return self.t.data_ptr()
+
+
+@pytest.mark.parametrize("name", ["ShockCooling2", "ShockCooling", "ShockCooling4",
+                                  "CompanionShocking2"])
+def test_population_kernels_reach_their_c_calls(name, monkeypatch):
+    """On a CUDA tensor P1 and P2 launch the class's C entry (population.cu
+    over ShockCooling2, pop_sc.cu over SW17 and MSW23) with the class's
+    model field and constants in the parameter block, counting one launch
+    under the family's name and one under its form's; P3 over SW17 and
+    MSW23 refuses (item 22), a class without kernels refuses (item 10)."""
+    from lightcurve_fitting_tpu_torch.kernels import build, gradient
+    bounds, (lo, up) = CLASS_SETUP[name]
+    _, tl, _, tm = _class_population(name)
+    pp = tpop.PopulationPosterior(tpop.pack_population(tm, tl, device="cpu"), tm[0],
+                                  _bounded(bounds, "port"))
+    calls = []
+
+    class Lib:
+        def __getattr__(self, fn):
+            def launch(*args):
+                P = kpop._PopParams.from_address(args[0])
+                calls.append((fn, P.model, P.kappa, P.eps_T, P.t_br_0, args[-2]))
+                return 0
+            return launch
+    monkeypatch.setattr(build, "library", lambda: Lib())
+    monkeypatch.setattr(gradient, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(kpop, "check", lambda *a: None)
+    monkeypatch.setattr(kpop, "cuda_args", lambda dev: (0, 0))
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, device=None, **k: empty(*a, **k))
+    for k in list(kernels.LAUNCHES):
+        monkeypatch.setitem(kernels.LAUNCHES, k, 0)
+    S, W, ndim = 3, 8, len(lo)
+    q = _FakeCuda(torch.zeros((S, W, ndim)))
+    x = _FakeCuda(torch.zeros((S, 2, W // 2, ndim)))
+    draws = torch.zeros((S, 2, W // 2))
+    n_acc = torch.zeros((S, 2, W // 2), dtype=torch.int32)
+    family = {"ShockCooling2": "sc2", "ShockCooling": "sc", "ShockCooling4": "sc4"}.get(name)
+    if family is None:
+        with pytest.raises(NotImplementedError, match="item 10"):
+            kpop.log_posterior(pp, q)
+        assert not calls and not any(kernels.LAUNCHES.values())
+        return
+    with pytest.raises(ValueError, match="not 'thread'"):
+        kpop.log_posterior(pp, q, form="thread")
+    kpop.log_posterior(pp, q)
+    kpop.stretch_half_step(pp, x, draws.double(), 0, draws, draws.long(), draws, n_accept=n_acc,
+                           check_partners=False, form="warp")
+    entry, count = {"sc2": ("pop", "pop"), "sc": ("pop_sc", "pop_sc"),
+                    "sc4": ("pop_sc", "pop_sc4")}[family]
+    model = {"sc2": 0, "sc": 1, "sc4": 2}[family]
+    consts = tm[0].kernel_constants()
+    for (fn, m, kappa, eps_T, t_br_0, form), want in zip(
+            calls, (f"{entry}_logpost_launch", f"{entry}_half_step_launch")):
+        assert fn == want and m == model
+        assert kappa == consts.get("kappa", 0.0) and eps_T == consts.get("eps_T", 0.0)
+        assert t_br_0 == consts.get("t_br_0", 0.0)
+    assert [c[-1] for c in calls] == [1, 0]   # 3 x 8 walkers: the latency form; then the warp
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        f"{count}_logpost": 1, f"{count}_logpost_latency": 1, f"{count}_half_step": 1,
+        f"{count}_half_step_warp": 1}
+    u0 = _FakeCuda(torch.zeros((S, 4, ndim), dtype=torch.float64))
+    bounds_t = tpop.BoundsTransform([p.p_min for p in pp.priors], [p.p_max for p in pp.priors])
+    if family != "sc2":
+        with pytest.raises(NotImplementedError, match="item 22"):
+            kpop.map_ascent(pp, u0, bounds_t, 10)
+
+
+# the SW17 and MSW23 surveys of chip_smoke.py 31: examples/fit_population.py's
+# generator with the class's truths (v_s*, M_env, f_rho M, R) drawn from this
+# box, where both curves are finite and positive over days 1-8 (t_exp = 0),
+# and examples/compare_models.py's priors and window without t_0
+SC_BOX = ([1.0, 1.0, 0.5, 1.0], [5.0, 10.0, 5.0, 10.0])
+SC_POP_BOUNDS = SC_BOUNDS[:4]
+SC_POP_LO, SC_POP_UP = [0.5, 0.5, 0.1, 0.1], [10.0, 20.0, 10.0, 20.0]
+
+
+def sc_example_population(name, S):
+    """examples/fit_population.py's synthetic population of S transients
+    (default_rng(0); 6 filters, 4-7 epochs over days 1-8, 5% errors) from
+    the JAX package's ``name`` (ShockCooling or ShockCooling4), each truth
+    drawn uniformly from SC_BOX (the port's twin: ``chip_smoke.sc_pop_example``);
+    returns (lcs, models, truths)."""
+    rng = np.random.default_rng(0)
+    filters = [jfd[n] for n in ["U", "B", "V", "g", "r", "i"]]
+    Model = getattr(jmodels, name)
+    lcs, models, truths = [], [], []
+    for _ in range(S):
+        truth = rng.uniform(*SC_BOX)
+        truths.append(truth)
+        n_epochs = rng.integers(4, 8)
+        t = np.repeat(np.linspace(1.0, 8.0, n_epochs), len(filters))
+        f = np.array(filters * n_epochs)
+        y_true = Model()(t, f, *truth, 0.0)
+        dy = 0.05 * y_true
+        lc = JLC([t, f, y_true + rng.normal(scale=dy), dy], names=["MJD", "filter", "lum", "dlum"])
+        lcs.append(lc)
+        models.append(Model(lc))
+    return lcs, models, np.array(truths)
+
+
+def _port_population(jl, name):
+    tl = [_to_port(lc) for lc in jl]
+    return tl, [getattr(tmodels, name)(lc) for lc in tl]
+
+
+SC_FIT = dict(p_lo=SC_POP_LO, p_up=SC_POP_UP, nwalkers=64, nsteps=300, nsteps_burnin=300,
+              seed=1, init="window")
+
+
+def test_fit_population_over_shockcooling_matches_jax():
+    """A CPU fit of a ShockCooling (SW17) survey, 32 transients of the
+    generator above, 64 walkers x 300 + 300 steps from the window: every
+    chain finite, the mean acceptance within 0.01 of the JAX package's run
+    of the same call (other random streams: the same distribution; over
+    seeds 1-6 the two differed by 0.0076 at most, by 0.004 in the spread,
+    where 32 walkers x 100 + 400 steps on 24 transients differed by up to
+    0.014: the mean over transients is led by a few whose chains are still
+    contracting)."""
+    jl, jm, _ = sc_example_population("ShockCooling", 32)
+    tl, tm = _port_population(jl, "ShockCooling")
+    _, jacc = jpop.fit_population(jm, jl, _bounded(SC_POP_BOUNDS, "jax"), **SC_FIT)
+    before = dict(kernels.LAUNCHES)
+    tflat, tacc = tpop.fit_population(tm, tl, _bounded(SC_POP_BOUNDS, "port"), device="cpu",
+                                      **SC_FIT)
+    assert kernels.LAUNCHES == before
+    assert tflat.shape == (32, 300 * 64, 4) and np.isfinite(tflat).all()
+    assert abs(float(np.mean(tacc)) - float(np.mean(jacc))) < 0.01, (np.mean(tacc),
+                                                                       np.mean(jacc))
+
+
+def jax_sc_example_fit(name, S):
+    """The JAX package's fit of ``name``'s survey (:func:`sc_example_population`)
+    at examples/fit_population.py's 64 walkers x 100 + 500 steps, from the
+    window (init="window"), seed 1, float64 on the CPU: the mean acceptance,
+    its standard error over the transients and the least acceptance.
+    ``chip_smoke.py`` 31 holds the port's run to it."""
+    lcs, models, _ = sc_example_population(name, S)
+    _, acc = jpop.fit_population(models, lcs, _bounded(SC_POP_BOUNDS, "jax"), p_lo=SC_POP_LO,
+                                 p_up=SC_POP_UP, nwalkers=64, nsteps=500, nsteps_burnin=100,
+                                 seed=1, init="window")
+    acc = np.asarray(acc)
+    return float(np.mean(acc)), float(np.std(acc, ddof=1) / np.sqrt(S)), float(np.min(acc))
+
+
 if __name__ == "__main__":
     # PYTHONPATH=. python tests/test_torch_population.py [S ...]: the JAX
     # package's float64 CPU reference of chip_smoke.py's population path
@@ -684,6 +1042,14 @@ if __name__ == "__main__":
     import time
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
+    if sys.argv[1:2] in (["ShockCooling"], ["ShockCooling4"]):
+        # ... tests/test_torch_population.py ShockCooling [S]: chip_smoke.py's
+        # SC_POP_REF (phase 31)
+        t0 = time.perf_counter()
+        print(f"{sys.argv[1]}: (mean acceptance, its standard error over the transients, least "
+              f"acceptance) = {jax_sc_example_fit(sys.argv[1], int((sys.argv[2:] or [64])[0]))} "
+              f"({time.perf_counter() - t0:.0f} s)", flush=True)
+        sys.exit()
     for S in [int(a) for a in sys.argv[1:]] or [64]:
         t0 = time.perf_counter()
         print(f"S={S}: (mean acceptance, its standard error over the transients, transients "

@@ -212,9 +212,13 @@ def test_information_criteria_refit_matches_jax_end_to_end():
 
 
 def test_refit_entry_checks(monkeypatch):
-    """(c) ``refit`` without priors raises ValueError, and on a class the
-    population cannot fit (ShockCooling, SW17) NotImplementedError naming
-    item 10, both before any scoring; ``refit=False`` needs neither."""
+    """(c) ``refit`` without priors raises ValueError before any scoring; on
+    the CPU a ShockCooling (SW17) model passes the class check and reaches
+    the scoring; on CUDA (the device check, which needs no card) the refits'
+    default init="map" over SW17 raises NotImplementedError naming item 22
+    (P3 over its gradient), and ShockCooling3 and CompanionShocking item 10,
+    before any scoring, while init="window" over SW17 passes;
+    ``refit=False`` needs neither."""
     (_, _, _), (tlc, tm, tpri) = _curves()
     flat = _cloud()
 
@@ -224,9 +228,20 @@ def test_refit_entry_checks(monkeypatch):
     with pytest.raises(ValueError, match="priors"):
         tfit.information_criteria(tlc, tm, flat, refit=True, device="cpu")
     sw17 = tmodels.ShockCooling(tlc)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tfit.information_criteria(tlc, sw17, np.c_[flat, flat[:, :1]], refit=0.7,
-                                  priors=tpri + [tmodels.UniformPrior(-1.0, 1.0)], device="cpu")
+    kw = dict(refit=0.7, priors=tpri + [tmodels.UniformPrior(-1.0, 1.0)])
+    sw17_flat = np.c_[flat, flat[:, :1]]
+    with pytest.raises(AssertionError, match="scored"):
+        tfit.information_criteria(tlc, sw17, sw17_flat, device="cpu", **kw)
+    cuda = torch.device("cuda")
+    with pytest.raises(NotImplementedError, match="item 22"):
+        tfit.information_criteria(tlc, sw17, sw17_flat, device=cuda, **kw)
+    with pytest.raises(AssertionError, match="scored"):
+        tfit.information_criteria(tlc, sw17, sw17_flat, device=cuda,
+                                  refit_options={"init": "window"}, **kw)
+    for other in (tmodels.ShockCooling3(tlc), tmodels.CompanionShocking2(tlc)):
+        with pytest.raises(NotImplementedError, match="item 10"):
+            tfit.information_criteria(tlc, other, sw17_flat, device=cuda,
+                                      refit_options={"init": "window"}, **kw)
     with pytest.raises(AssertionError, match="scored"):
         tfit.information_criteria(tlc, sw17, flat, device="cpu")
 
